@@ -1,0 +1,143 @@
+"""Attention ops, plain PyTorch (counterpart of ``gofr_tpu/ops/attention.py``).
+
+These are the plain versions the CUDA kernels are held to:
+
+- GQA reshapes Q to (kv_heads, group, ...) and lets the einsum broadcast
+  over the group axis, so no repeated K/V copy is made.
+- Decode attends over a static-shape cache with a length mask.
+- The decode formulation computes in float32 with explicit rounding
+  points (:func:`_snap`) where the low-precision formulation rounds: the
+  score einsum, the normalised probabilities, the value einsums and the
+  final add. The ragged decode kernel reproduces that schedule.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+_NEG_INF = -1e30  # large negative instead of -inf: keeps softmax NaN-free
+
+
+def _snap(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Round float32 values to ``dtype``'s precision without leaving
+    float32 (round to nearest even, as ``lax.reduce_precision`` does).
+
+    Eager PyTorch runs the two casts as written; do not wrap this in
+    ``torch.compile``, which may fold the round trip away. float32 and
+    wider pass through untouched."""
+    if torch.finfo(dtype).bits >= 32:
+        return x
+    return x.to(dtype).to(torch.float32)
+
+
+def causal_mask(seq_len: int, device=None) -> torch.Tensor:
+    """(seq, seq) boolean mask, True where attention is allowed."""
+    return torch.ones((seq_len, seq_len), dtype=torch.bool,
+                      device=device).tril()
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Multi-head (optionally grouped-query) attention.
+
+    q: (B, S, Hq, D); k, v: (B, T, Hkv, D) with Hq % Hkv == 0.
+    mask: broadcastable to (B, 1, 1, S, T), True = attend.
+    Returns (B, S, Hq, D) in q.dtype.
+    """
+    batch, s_len, q_heads, head_dim = q.shape
+    kv_heads = k.shape[2]
+    group = q_heads // kv_heads
+    qg = q.reshape(batch, s_len, kv_heads, group, head_dim)
+    scale = head_dim ** -0.5
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float() * scale
+    if mask is not None:
+        scores = torch.where(mask, scores, _NEG_INF)
+    probs = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    probs = probs / probs.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bkgst,btkd->bskgd", probs.to(q.dtype), v)
+    return out.reshape(batch, s_len, q_heads, head_dim)
+
+
+def prefill_attention(q, k, v) -> torch.Tensor:
+    """Causal self-attention over a full prompt (prefill phase)."""
+    mask = causal_mask(q.shape[1], device=q.device)[None, None, None]
+    return attention(q, k, v, mask)
+
+
+def gather_kv_pages(pages: torch.Tensor,
+                    page_table: torch.Tensor) -> torch.Tensor:
+    """Gather a per-slot contiguous KV view out of a shared page pool.
+
+    pages: (num_pages, page, ...) — one pool leaf, layer already indexed.
+    page_table: (B, P) int — page ids per slot in sequence order; entries
+    equal to num_pages are the unallocated sentinel. Returns
+    (B, P * page, ...).
+
+    JAX gathers clamp an out-of-bounds id; PyTorch indexing raises on
+    one, so the sentinel is clamped here explicitly to the last pool row.
+    The clamped rows land at positions >= cache_len, which every consumer
+    masks (scores to _NEG_INF, V rows to zero in
+    :func:`decode_attention_cached`).
+    """
+    num_pages, page = pages.shape[0], pages.shape[1]
+    b, p = page_table.shape
+    ids = page_table.long().clamp(0, num_pages - 1)
+    gathered = pages[ids]                              # (B, P, page, ...)
+    return gathered.reshape(b, p * page, *pages.shape[2:])
+
+
+def decode_attention_cached(q, k_cache, v_cache, k_new, v_new,
+                            cache_len) -> torch.Tensor:
+    """Decode attention over (prior cache entries + the current token's
+    K/V), the new token carried explicitly (the caller writes it into the
+    cache afterwards).
+
+    q: (B, 1, Hq, D); caches: (B, Tmax, Hkv, D); k_new/v_new: (B, Hkv, D);
+    cache_len: (B,) valid entries excluding the current token.
+    Returns (B, 1, Hq, D).
+
+    V rows at or past ``cache_len`` are zeroed before the P·V product, so
+    a NaN in a dead row (a clamped sentinel page, say) cannot poison the
+    output through ``0 * NaN``; with finite V this changes nothing.
+    """
+    batch, _, q_heads, head_dim = q.shape
+    t_max, kv_heads = k_cache.shape[1], k_cache.shape[2]
+    group = q_heads // kv_heads
+    dt = q.dtype
+    qg = q[:, 0].reshape(batch, kv_heads, group, head_dim).float()
+    scale = head_dim ** -0.5
+    valid = (torch.arange(t_max, device=q.device)[None, :]
+             < cache_len.to(q.device)[:, None])            # (B, T)
+
+    scores = _snap(torch.einsum("bkgd,btkd->bkgt", qg, k_cache.float()),
+                   dt) * scale
+    scores = torch.where(valid[:, None, None, :], scores, _NEG_INF)
+    score_new = _snap(torch.einsum("bkgd,bkd->bkg", qg, k_new.float()),
+                      dt)[..., None] * scale
+    scores = torch.cat([scores, score_new], dim=-1)        # (B,K,G,T+1)
+    probs = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    probs = probs / probs.sum(dim=-1, keepdim=True)
+    probs_cache = _snap(probs[..., :-1], dt)
+    v_live = torch.where(valid[:, :, None, None], v_cache.float(), 0.0)
+    out = _snap(torch.einsum("bkgt,btkd->bkgd", probs_cache, v_live), dt)
+    out_new = _snap(torch.einsum("bkg,bkd->bkgd", _snap(probs[..., -1], dt),
+                                 v_new.float()), dt)
+    out = _snap(out + out_new, dt)
+    return out.reshape(batch, 1, q_heads, head_dim).to(dt)
+
+
+def paged_decode_attention(q, k_pages, v_pages, page_table, k_new, v_new,
+                           cache_len) -> torch.Tensor:
+    """Ragged paged decode attention, gather formulation: gathers each
+    slot's pages (sentinels clamped) into a dense view and runs
+    :func:`decode_attention_cached` over it.
+
+    q: (B, 1, Hq, D); k_pages/v_pages: (num_pages, page, Hkv, D);
+    page_table: (B, P) int; k_new/v_new: (B, Hkv, D); cache_len: (B,).
+    """
+    k_cache = gather_kv_pages(k_pages, page_table)
+    v_cache = gather_kv_pages(v_pages, page_table)
+    return decode_attention_cached(q, k_cache, v_cache, k_new, v_new,
+                                   cache_len)

@@ -1,0 +1,125 @@
+"""Ragged paged decode attention: the CUDA kernel's wrapper and its plain
+PyTorch version (counterpart of
+``gofr_tpu/ops/pallas/ragged_paged_attention.py``, the G = 1 bf16 decode
+variant).
+
+The kernel (``gofr_tpu_torch/csrc/ragged_paged_attention.cu``) replaces
+the Pallas ``_ragged_kernel``: it walks each slot's live pages through its
+page-table row and never reads a sentinel or a page past the fill. A CPU
+tensor takes :func:`ragged_paged_decode_attention_plain`; a CUDA tensor
+launches the kernel or raises — no shape-based fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from gofr_tpu_torch.ops import attention as plain_attention
+from gofr_tpu_torch.ops.cuda import _build
+
+NAME = "ragged_paged_attention"
+HEAD_DIM = 128
+SUPPORTED_GROUPS = (1, 2, 4, 8)
+
+# kernel launches since the last reset (not counting plain-version calls)
+launches = 0
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def ragged_paged_decode_attention_plain(q, k_pages, v_pages, page_table,
+                                        k_new, v_new,
+                                        cache_len) -> torch.Tensor:
+    """The same function in plain PyTorch: the gather formulation
+    (``paged_decode_attention``), with sentinel ids clamped and V rows at
+    or past ``cache_len`` zeroed, so pages no live position references
+    cannot reach the output even when they hold NaN."""
+    return plain_attention.paged_decode_attention(
+        q, k_pages, v_pages, page_table, k_new, v_new, cache_len)
+
+
+def _bind(lib: ctypes.CDLL):
+    fn = lib.gofr_ragged_paged_decode_attention
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(q, k_pages, v_pages, page_table, k_new, v_new, cache_len) -> None:
+    if q.dim() != 4 or q.shape[1] != 1:
+        raise ValueError(f"ragged_paged_decode_attention: q (B,1,Hq,D) "
+                         f"expected, got {tuple(q.shape)}")
+    b, _, hq, d = q.shape
+    if k_pages.dim() != 4 or v_pages.shape != k_pages.shape:
+        raise ValueError("ragged_paged_decode_attention: k/v pages "
+                         "(N,page,Hkv,D) expected")
+    hkv = k_pages.shape[2]
+    if d != HEAD_DIM or k_pages.shape[3] != d:
+        raise ValueError(f"ragged_paged_decode_attention: head_dim must be "
+                         f"{HEAD_DIM}, got {d}")
+    if hq % hkv or hq // hkv not in SUPPORTED_GROUPS:
+        raise ValueError(f"ragged_paged_decode_attention: group Hq/Hkv "
+                         f"must be one of {SUPPORTED_GROUPS}")
+    if tuple(k_new.shape) != (b, hkv, d) or v_new.shape != k_new.shape:
+        raise ValueError("ragged_paged_decode_attention: k_new/v_new "
+                         "(B,Hkv,D) expected")
+    if page_table.dim() != 2 or page_table.shape[0] != b \
+            or tuple(cache_len.shape) != (b,):
+        raise ValueError("ragged_paged_decode_attention: page_table (B,P) "
+                         "and cache_len (B,) expected")
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
+                    ("k_new", k_new), ("v_new", v_new)):
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"ragged_paged_decode_attention: {name} must "
+                             f"be bf16, got {t.dtype}")
+    for name, t in (("page_table", page_table), ("cache_len", cache_len)):
+        if t.dtype != torch.int32:
+            raise ValueError(f"ragged_paged_decode_attention: {name} must "
+                             f"be int32, got {t.dtype}")
+    tensors = (q, k_pages, v_pages, page_table, k_new, v_new, cache_len)
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("ragged_paged_decode_attention: tensors on "
+                         "different devices")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("ragged_paged_decode_attention: every tensor "
+                         "must be contiguous")
+    # the kernel reads 16-byte vectors of bf16
+    if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages, k_new, v_new)):
+        raise ValueError("ragged_paged_decode_attention: bf16 operands "
+                         "must be 16-byte aligned")
+
+
+def ragged_paged_decode_attention(q, k_pages, v_pages, page_table, k_new,
+                                  v_new, cache_len) -> torch.Tensor:
+    """q (B,1,Hq,D); k_pages/v_pages (N,page,Hkv,D); page_table (B,P)
+    int32 with ``N`` the unallocated sentinel; k_new/v_new (B,Hkv,D);
+    cache_len (B,) int32 valid tokens excluding the current one.
+    Returns (B,1,Hq,D)."""
+    if q.device.type == "cpu":
+        return ragged_paged_decode_attention_plain(
+            q, k_pages, v_pages, page_table, k_new, v_new, cache_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"ragged_paged_decode_attention: unsupported "
+                         f"device {q.device}")
+    _check(q, k_pages, v_pages, page_table, k_new, v_new, cache_len)
+    global launches
+    fn = _bind(_build.load(NAME))
+    out = torch.empty_like(q)
+    b, _, hq, d = q.shape
+    num_pages, page, hkv, _ = k_pages.shape
+    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+             page_table.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+             cache_len.data_ptr(), out.data_ptr(), b, hq, hkv, d,
+             num_pages, page, page_table.shape[1],
+             _build.stream_handle(q.device))
+    if err != 0:
+        raise RuntimeError(f"ragged_paged_decode_attention: kernel launch "
+                           f"failed (cudaError {err})")
+    launches += 1
+    return out

@@ -1,0 +1,120 @@
+"""Device-resident KV page pool (counterpart of
+``gofr_tpu/tpu/page_pool.py``).
+
+One pool backs every KV byte of the paged serving path: prefill inserts
+and decode appends address the same ``(L, num_pages, page, Hkv, Dh)``
+leaves, so device memory is ``num_pages x page`` tokens whatever
+``max_len`` is. Host state is a free list plus a per-page refcount:
+``alloc`` hands out pages at refcount 1 and ``release`` drops one
+reference; a page returns to the free list at zero (shared ownership,
+``retain``, arrives with the prefix cache).
+
+``num_pages`` doubles as the out-of-bounds sentinel id. The owners filter
+sentinel entries out of every write and the decode kernel never reads
+one. The leaves are written in place by their owners.
+
+Left for later slices: the HBM budget arbiter, mesh sharding and the int8
+scale planes.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from gofr_tpu_torch.device import resolve_device
+
+__all__ = ["PagePool"]
+
+
+class PagePool:
+    """Refcounted device page pool shared by prefill and decode."""
+
+    def __init__(self, cfg, page: int = 32, num_pages: Optional[int] = None,
+                 device: Union[str, torch.device] = "cuda"):
+        if num_pages is None or int(num_pages) < 1:
+            raise ValueError("PagePool needs num_pages >= 1")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.page = int(page)
+        self.num_pages = int(num_pages)
+        self.page_bytes = self._page_bytes(cfg, self.page)
+        self.writes = 0        # page-rows written into the pool
+        self.stalls = 0        # failed allocations (free list exhausted)
+        self.allocs = 0
+        self.leaves: Dict[str, torch.Tensor] = {}
+        self._free: List[int] = []
+        self._refs = np.zeros((self.num_pages,), np.int32)
+        self.reset()
+
+    @property
+    def sentinel(self) -> int:
+        """Out-of-bounds page id of an unallocated table entry."""
+        return self.num_pages
+
+    @staticmethod
+    def _page_bytes(cfg, page: int) -> int:
+        """Device bytes one page occupies across the k and v leaves."""
+        kv = cfg.n_layers * page * cfg.n_kv_heads * cfg.head_dim
+        return 2 * kv * torch.finfo(cfg.dtype).bits // 8
+
+    def reset(self) -> None:
+        """Fresh zero-initialised leaves and empty ownership."""
+        cfg = self.cfg
+        shape = (cfg.n_layers, self.num_pages, self.page, cfg.n_kv_heads,
+                 cfg.head_dim)
+        self.leaves = {
+            "k": torch.zeros(shape, dtype=cfg.dtype, device=self.device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=self.device)}
+        self._free = list(range(self.num_pages))
+        self._refs = np.zeros((self.num_pages,), np.int32)
+
+    def alloc(self, n: int = 1) -> Optional[List[int]]:
+        """``n`` pages at refcount 1, all or nothing; None (and a stall
+        counted) when the free list is short. Never blocks."""
+        if len(self._free) < n:
+            self.stalls += 1
+            return None
+        ids = [self._free.pop() for _ in range(n)]
+        self._refs[ids] = 1
+        self.allocs += n
+        return ids
+
+    def release(self, page_ids: Sequence[int]) -> None:
+        """Drop one ref per page; refcount 0 returns the page to the free
+        list. Releasing an already-free page is a no-op."""
+        for pid in page_ids:
+            if self._refs[pid] > 0:
+                self._refs[pid] -= 1
+                if self._refs[pid] == 0:
+                    self._free.append(pid)
+
+    def note_writes(self, pages: int) -> None:
+        self.writes += max(0, int(pages))
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_pages(self) -> int:
+        return self.num_pages - len(self._free)
+
+    @property
+    def pool_bytes(self) -> int:
+        return self.num_pages * self.page_bytes
+
+    def stats(self) -> Dict[str, Any]:
+        return {
+            "page_tokens": self.page,
+            "num_pages": self.num_pages,
+            "used_pages": self.used_pages,
+            "free_pages": self.free_pages,
+            "page_bytes": self.page_bytes,
+            "pool_bytes": self.pool_bytes,
+            "allocs": self.allocs,
+            "writes": self.writes,
+            "stalls": self.stalls,
+        }

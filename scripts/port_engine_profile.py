@@ -1,0 +1,123 @@
+#!/usr/bin/env python3
+"""Where the time goes in the PyTorch/CUDA port's engine, on one GPU.
+
+Runs the engine configuration of ``chip_smoke.py``'s engine phase
+(``llama3-8b`` width, random weights from ``--seed``, paged KV, page 32,
+8 slots, buckets 32/128/512, 4 steps per tick) over the same 8 concurrent
+requests (prompts 5..512 tokens, 32 new tokens each), once unprofiled for
+the end-to-end numbers and once under ``torch.profiler`` for the device
+time by kernel. Prints one JSON object (also written to ``--out``):
+
+- ``wall_s``, ``tokens_per_s``, ``ttft_*``: the unprofiled run;
+- ``device_busy_s`` and ``device_idle_share``: the sum of device kernel
+  time over the profiled run's wall time (one stream, so no overlap);
+- ``by_kernel``: device time per kernel name, largest first, with the
+  port's two kernels named as they are launched.
+
+Run from the root of a checkout: ``python3 scripts/port_engine_profile.py``.
+Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import json
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--layers", type=int, default=32)
+    parser.add_argument("--out", default="chiprun_out/engine_profile.json")
+    args = parser.parse_args()
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("port_engine_profile: no CUDA device", file=sys.stderr)
+        return 1
+    from gofr_tpu_torch.models import llama
+    from gofr_tpu_torch.ops.cuda import _build
+    from gofr_tpu_torch.tpu.generate import GenerationEngine, Sampling
+
+    _build.build_all()
+    cfg = llama.config("llama3-8b", n_layers=args.layers, use_flash=True)
+    params = llama.init(cfg, args.seed, device="cuda")
+    engine = GenerationEngine(cfg, params, max_slots=8, max_len=2048,
+                              prompt_buckets=(32, 128, 512),
+                              steps_per_tick=4, kv_page=32, device="cuda")
+    rng = np.random.default_rng(args.seed)
+    lengths = [5, 30, 64, 100, 128, 300, 480, 512]
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
+    budget = 32
+
+    async def one_run():
+        samplings = [Sampling() for _ in range(7)] + [
+            Sampling(temperature=0.8, top_p=0.95, seed=args.seed)]
+        engine.ttfts.clear()
+        start = time.monotonic()
+        outs = await asyncio.gather(*[
+            engine.generate(p, budget, sampling=s)
+            for p, s in zip(prompts, samplings)])
+        torch.cuda.synchronize()
+        return outs, time.monotonic() - start, sorted(engine.ttfts)
+
+    async def serve(prof):
+        await engine.start()
+        try:
+            await engine.generate(prompts[0], 2)          # warm-up
+            outs, wall, ttfts = await one_run()
+            steps0, ticks0 = engine.decode_steps, engine.ticks
+            with prof:
+                _, prof_wall, _ = await one_run()
+            return (outs, wall, ttfts, prof_wall,
+                    engine.decode_steps - steps0, engine.ticks - ticks0)
+        finally:
+            await engine.stop()
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    outs, wall, ttfts, prof_wall, steps, ticks = asyncio.run(serve(prof))
+    assert all(len(out) == budget for out in outs)
+
+    by_kernel = {}
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0))
+        if dev_us > 0:
+            by_kernel[evt.key] = by_kernel.get(evt.key, 0.0) + dev_us / 1e6
+    busy = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:20]
+    tokens = budget * len(outs)
+    result = {
+        "device": torch.cuda.get_device_name(0),
+        "n_layers": args.layers,
+        "wall_s": wall,
+        "tokens_per_s": tokens / wall,
+        "ttft_p50_s": ttfts[len(ttfts) // 2],
+        "ttft_max_s": ttfts[-1],
+        "profiled_wall_s": prof_wall,
+        "profiled_decode_steps": steps,
+        "profiled_ticks": ticks,
+        "device_busy_s": busy,
+        "device_idle_share": (1.0 - busy / prof_wall) if prof_wall else None,
+        "by_kernel": [{"name": name, "device_s": sec,
+                       "share_of_busy": sec / busy if busy else None}
+                      for name, sec in top],
+    }
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(result, indent=1))
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
