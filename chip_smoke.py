@@ -1,28 +1,46 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch/CUDA port (``gofr_tpu_torch``).
 
-Drives the port's main path on one NVIDIA GPU: the paged Llama
-``/generate`` engine at the full ``llama3-8b`` geometry (random weights
-from ``--seed``), with prefill through the hand-written flash-attention
-kernel and every decode step through the hand-written ragged paged decode
-kernel. Phases, each of which raises (exit code != 0) on failure:
+Drives the port's two serving paths on one NVIDIA GPU at the full
+``llama3-8b`` geometry (random weights from ``--seed``): the paged Llama
+``/generate`` engine, with prefill through the hand-written
+flash-attention kernel and every decode step through the hand-written
+ragged paged attention kernel; and the same engine with speculative
+decode, whose 4-layer draft decodes through the hand-written flash-decode
+kernel and whose target verifies G tokens at once through the ragged
+kernel's G > 1 launch.
+Phases, each of which raises (exit code != 0) on failure:
 
 1. card identity (``nvidia-smi`` name and power limit, torch/CUDA);
 2. kernel build (one ``nvcc`` per source, all at once) and its time;
 3. flash kernel vs its plain version, bf16, Hq 32 / Hkv 8 / D 128,
    causal, S in {32, 128, 512, 2048}, B in {1, 4}; timed beside the plain
    version and ``scaled_dot_product_attention`` (a yardstick only);
-4. ragged kernel vs its plain version, bf16, 8 slots, page 32, 64 table
-   columns, fills {0, 1, 31, 32, 33, 700, 2047, 512}, every position no
-   live entry references poisoned with NaN;
-5. a 2-layer full-width model: prefill + 4 paged decode steps through the
+4. ragged kernel, decode (G = 1), vs its plain version, bf16, 8 slots,
+   page 32, 64 table columns, fills {0, 1, 31, 32, 33, 700, 2047, 512},
+   every position no live entry references poisoned with NaN;
+5. ragged kernel, verify, vs its plain version on the same layout, G in
+   {2, 3, 5} with fills {0, 1, 31, 32, 33, 700, 2047 - G, 512}, and the
+   kernel's verify instantiation at G = 1 bit-identical to its decode
+   instantiation;
+6. flash-decode kernel vs its plain version, bf16, 8 slots, T 2048,
+   Hq 32 / Hkv 8, fills {0, 1, 127, 128, 129, 700, 1500, 2047}, every row
+   past a fill NaN; timed beside ``scaled_dot_product_attention`` with a
+   per-row mask (a yardstick only);
+7. a 2-layer full-width model: prefill + 4 paged decode steps through the
    kernels on the card (bf16) against the plain path on the CPU (f32);
-6. the full 32-layer engine answering 8 concurrent requests (prompts over
+8. perfect draft: the 2-layer model as its own draft (the draft through
+   flash decode); its acceptance rate must be at least 0.5;
+9. the full 32-layer engine answering 8 concurrent requests (prompts over
    every bucket, 32 new tokens each, one sampled), with the kernels'
    launch counts checked against the engine's prefill dispatches and
    decode steps, then one streamed request;
-7. one ``{"kernels": [...]}`` line, then the card line, then the last
-   line ``{"ok": true, "device": {...}}``.
+10. the same engine with speculative decode (γ 4, a draft made of views of
+    the target's first 4 layers, embedding and head) on the same 8
+    requests, launch counts checked against its prefill dispatches, spec
+    ticks, Σ(g + 1) draft steps and plain decode steps;
+11. one ``{"kernels": [...]}`` line, then the card line, then the last
+    line ``{"ok": true, "device": {...}}``.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. Details go to
 ``chiprun_out/chip_smoke.json``. Without CUDA, or without the package
@@ -42,9 +60,22 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 BF16_FLOP_PER_S = 989e12         # H100 SXM dense bf16 tensor-core rate
 FLASH_TOL = 3e-2                 # bf16: see phase 3
-RAGGED_TOL = 1.6e-2              # bf16: one ulp at |x| <= 2, see phase 4
-MODEL_REL_TOL = 5e-2             # relative L2 logits error, see phase 5
+# ragged kernel (phases 4, 5), which keeps the plain version's bf16
+# roundings: each element within 1.6e-2 (one ulp at |x| <= 2), and each
+# output row (every head of one query of one slot) within relative L2
+# 2^-8. A flipped rounding of a score or a partial sum is sparse (rows
+# measured <= 1.3e-3 on an H100); a walk that drops even one position
+# moves a row by >= 1.1e-2 at fills up to 2047.
+RAGGED_TOL = 1.6e-2
+RAGGED_ROW_TOL = 2.0 ** -8
+# flash decode (phase 6) rounds once, at the output, after float32 sums in
+# another order: at most one flipped rounding, one bf16 ulp of each
+# element (of max(|x|, 2^-8)); one dropped position costs >= 90 ulps
+FLASH_DECODE_ULPS = 1.0
+MODEL_REL_TOL = 5e-2             # relative L2 logits error, see phase 7
+MIN_PERFECT_ACCEPT = 0.5         # a broken verify accepts near 0, phase 8
 Q_HEADS, KV_HEADS, HEAD_DIM = 32, 8, 128
+SPEC_GAMMA, DRAFT_LAYERS = 4, 4
 
 
 def log(msg: str) -> None:
@@ -61,7 +92,13 @@ def card_line() -> str:
 
 class Timer:
     """Per-launch CUDA-event timing with the L2 flushed before each launch
-    (a decode layer or a prefill finds its operands cold in the 50 MB L2)."""
+    (a decode layer or a prefill finds its operands cold in the 50 MB L2).
+    A spin of about 0.5 ms queued after the flush keeps the card busy while
+    the host enqueues the timed call, so the host's launch latency (tens of
+    microseconds of Python, more on a loaded host) is not counted as the
+    call's time."""
+
+    PAD_CYCLES = 1_000_000
 
     def __init__(self, torch):
         self.torch = torch
@@ -76,6 +113,7 @@ class Timer:
         total = 0.0
         for _ in range(iters):
             self.scratch.zero_()
+            torch.cuda._sleep(self.PAD_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -132,14 +170,15 @@ def phase_flash(torch, flash_mod, timer, results):
     return worst
 
 
-def phase_ragged(torch, ragged_mod, timer, results):
+def paged_scenario(torch, fills, g_len, seed):
+    """bf16 pools of 8 KV heads, page 32, 64 table columns, pages of the
+    slots scattered over the pool, every position no live entry
+    references NaN; q (B,G,Hq,D) and k/v_new (B,G,Hkv,D)."""
     import numpy as np
 
-    log("== phase 4: ragged_paged_decode_attention kernel vs plain (bf16)")
-    fills = [0, 1, 31, 32, 33, 700, 2047, 512]
     batch, page, width = len(fills), 32, 64
     num_pages = batch * width
-    rng = np.random.default_rng(2)
+    rng = np.random.default_rng(seed)
     order = rng.permutation(num_pages)          # pages scattered in the pool
     table = np.full((batch, width), num_pages, np.int32)
     live = np.zeros((num_pages, page), bool)
@@ -150,56 +189,204 @@ def phase_ragged(torch, ragged_mod, timer, results):
             nxt += 1
             table[row, col] = pid
             live[pid, :min(page, n - col * page)] = True
-    gen = torch.Generator(device="cuda").manual_seed(3)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     shape = (num_pages, page, KV_HEADS, HEAD_DIM)
     poison = torch.from_numpy(~live).cuda()[..., None, None]
     k_pages = torch.randn(shape, generator=gen, device="cuda").bfloat16() \
         .masked_fill(poison, float("nan"))
     v_pages = torch.randn(shape, generator=gen, device="cuda").bfloat16() \
         .masked_fill(poison, float("nan"))
-    q = torch.randn((batch, 1, Q_HEADS, HEAD_DIM), generator=gen,
+    q = torch.randn((batch, g_len, Q_HEADS, HEAD_DIM), generator=gen,
                     device="cuda").bfloat16()
-    k_new, v_new = (torch.randn((batch, KV_HEADS, HEAD_DIM), generator=gen,
-                                device="cuda").bfloat16() for _ in range(2))
-    args = (q, k_pages, v_pages, torch.from_numpy(table).cuda(), k_new,
+    k_new, v_new = (torch.randn((batch, g_len, KV_HEADS, HEAD_DIM),
+                                generator=gen, device="cuda").bfloat16()
+                    for _ in range(2))
+    return (q, k_pages, v_pages, torch.from_numpy(table).cuda(), k_new,
             v_new, torch.tensor(fills, dtype=torch.int32, device="cuda"))
+
+
+def paged_cost(fills, g_len, table_size):
+    """Bytes (each input read once, the output written once) and FLOPs of
+    one ragged launch over these fills, G queries per slot."""
+    batch, row = len(fills), Q_HEADS * HEAD_DIM
+    kv_bytes = 2 * sum(fills) * KV_HEADS * HEAD_DIM * 2
+    small_bytes = 2 * (2 * batch * g_len * row
+                       + 2 * batch * g_len * KV_HEADS * HEAD_DIM) \
+        + 4 * (table_size + batch)
+    # query g attends the fill plus the new tokens u <= g
+    pairs = sum(n + g + 1 for n in fills for g in range(g_len))
+    return kv_bytes + small_bytes, 4.0 * pairs * row
+
+
+def check_ragged(torch, out, ref, what):
+    """Hold a ragged kernel output to its plain version (RAGGED_TOL per
+    element, RAGGED_ROW_TOL per row). Returns both errors."""
+    from gofr_tpu_torch.ops.cuda.tolerance import row_rel_l2
+
+    err = (out.float() - ref.float()).abs().max().item()
+    row_err = row_rel_l2(out, ref)
+    if not torch.isfinite(ref).all() or not err <= RAGGED_TOL \
+            or not row_err <= RAGGED_ROW_TOL:
+        raise AssertionError(f"{what}: max|kernel-plain| {err} (bound "
+                             f"{RAGGED_TOL}), row relative L2 {row_err} "
+                             f"(bound {RAGGED_ROW_TOL})")
+    return err, row_err
+
+
+def phase_ragged(torch, ragged_mod, timer, results):
+    log("== phase 4: ragged_paged_decode_attention kernel vs plain (bf16)")
+    fills = [0, 1, 31, 32, 33, 700, 2047, 512]
+    q, k_pages, v_pages, table, k_new, v_new, lens = paged_scenario(
+        torch, fills, 1, 2)
+    args = (q, k_pages, v_pages, table, k_new[:, 0], v_new[:, 0], lens)
     out = ragged_mod.ragged_paged_decode_attention(*args)
     torch.cuda.synchronize()
     ref = ragged_mod.ragged_paged_decode_attention_plain(*args)
-    err = (out.float() - ref.float()).abs().max().item()
     if not torch.isfinite(out).all():
         raise AssertionError("ragged kernel output is not finite: it read a "
                              "poisoned page")
-    if not torch.isfinite(ref).all() or err > RAGGED_TOL:
-        raise AssertionError(f"ragged: max|kernel-plain| {err} > "
-                             f"{RAGGED_TOL}")
+    err, row_err = check_ragged(torch, out, ref, "ragged")
     ms = timer(lambda: ragged_mod.ragged_paged_decode_attention(*args),
                iters=20)
     plain_ms = timer(
         lambda: ragged_mod.ragged_paged_decode_attention_plain(*args),
         iters=5)
-    live_tokens = sum(fills)
-    kv_bytes = 2 * live_tokens * KV_HEADS * HEAD_DIM * 2
-    small_bytes = 2 * (2 * q.numel() + k_new.numel() + v_new.numel()) \
-        + 4 * (table.size + batch)
-    nbytes = kv_bytes + small_bytes
-    flops = 4.0 * (live_tokens + batch) * Q_HEADS * HEAD_DIM
+    nbytes, flops = paged_cost(fills, 1, table.numel())
     bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S)
-    row = dict(B=batch, fills=fills, page=page, table_width=width,
-               max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-               bound_ms=bound * 1e3, bound_by="bytes",
+    row = dict(B=len(fills), fills=fills, page=32, table_width=64,
+               max_abs_err=err, row_rel_l2=row_err, ms=ms,
+               plain_ms=plain_ms, library_ms=None, bound_ms=bound * 1e3,
+               bound_by="bytes",
                gb_per_s=nbytes / (ms * 1e-3) / 1e9)
     results["ragged"] = row
-    log(f"ragged B={batch} err={err:.3e} kernel={ms:.4f}ms "
-        f"plain={plain_ms:.4f}ms bound={row['bound_ms']:.4f}ms "
-        f"({row['gb_per_s']:.1f} GB/s) library=none")
+    log(f"ragged B={len(fills)} err={err:.3e} row={row_err:.3e} "
+        f"kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
+        f"bound={row['bound_ms']:.4f}ms ({row['gb_per_s']:.1f} GB/s) "
+        f"library=none")
+    return row
+
+
+def phase_verify(torch, ragged_mod, timer, results):
+    log("== phase 5: ragged_paged_verify_attention kernel vs plain (bf16)")
+    rows = []
+    for g_len in (2, 3, 5):
+        fills = [0, 1, 31, 32, 33, 700, 2047 - g_len, 512]
+        args = paged_scenario(torch, fills, g_len, 10 + g_len)
+        out = ragged_mod.ragged_paged_verify_attention(*args)
+        torch.cuda.synchronize()
+        ref = ragged_mod.ragged_paged_verify_attention_plain(*args)
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"verify G={g_len}: output is not finite: "
+                                 "it read a poisoned page")
+        err, row_err = check_ragged(torch, out, ref, f"verify G={g_len}")
+        ms = timer(lambda: ragged_mod.ragged_paged_verify_attention(*args),
+                   iters=20)
+        plain_ms = timer(
+            lambda: ragged_mod.ragged_paged_verify_attention_plain(*args),
+            iters=5)
+        nbytes, flops = paged_cost(fills, g_len, args[3].numel())
+        bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S)
+        row = dict(G=g_len, B=len(fills), fills=fills, max_abs_err=err,
+                   row_rel_l2=row_err, ms=ms, plain_ms=plain_ms,
+                   library_ms=None, bound_ms=bound * 1e3,
+                   bound_by=("operations" if flops / BF16_FLOP_PER_S
+                             >= nbytes / HBM_BYTES_PER_S else "bytes"),
+                   gb_per_s=nbytes / (ms * 1e-3) / 1e9)
+        rows.append(row)
+        log(f"verify G={g_len} err={err:.3e} row={row_err:.3e} "
+            f"kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
+            f"bound={row['bound_ms']:.4f}ms ({row['gb_per_s']:.1f} GB/s) "
+            f"library=none")
+    # at G = 1 the verify instantiation (new-token bound MAX_NEW, the
+    # causal fold's loops) must give the decode instantiation's bits
+    fills = [0, 1, 31, 32, 33, 700, 2047, 512]
+    q, k_pages, v_pages, table, k_new, v_new, lens = paged_scenario(
+        torch, fills, 1, 2)
+    verify = ragged_mod.ragged_paged_verify_form_attention(
+        q, k_pages, v_pages, table, k_new, v_new, lens)
+    decode = ragged_mod.ragged_paged_decode_attention(
+        q, k_pages, v_pages, table, k_new[:, 0].contiguous(),
+        v_new[:, 0].contiguous(), lens)
+    torch.cuda.synchronize()
+    if not torch.equal(verify.view(torch.int16), decode.view(torch.int16)):
+        raise AssertionError("the verify instantiation at G=1 is not "
+                             "bit-identical to the decode instantiation")
+    log("verify instantiation at G=1 is bit-identical to the decode "
+        "instantiation")
+    results["verify"] = dict(rows=rows, g1_bit_identical=True)
+    return rows
+
+
+def phase_flash_decode(torch, decode_mod, timer, results):
+    import torch.nn.functional as F
+
+    from gofr_tpu_torch.ops.cuda.tolerance import ulp_error
+
+    log("== phase 6: flash_decode_attention kernel vs plain (bf16)")
+    fills = [0, 1, 127, 128, 129, 700, 1500, 2047]
+    batch, t_max = len(fills), 2048
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    shape = (batch, t_max, KV_HEADS, HEAD_DIM)
+    lens = torch.tensor(fills, dtype=torch.int32, device="cuda")
+    dead = (torch.arange(t_max, device="cuda")[None, :]
+            >= lens[:, None])[..., None, None]
+    k_cache, v_cache = (torch.randn(shape, generator=gen, device="cuda")
+                        .bfloat16().masked_fill(dead, float("nan"))
+                        for _ in range(2))
+    q = torch.randn((batch, 1, Q_HEADS, HEAD_DIM), generator=gen,
+                    device="cuda").bfloat16()
+    k_new, v_new = (torch.randn((batch, KV_HEADS, HEAD_DIM), generator=gen,
+                                device="cuda").bfloat16() for _ in range(2))
+    args = (q, k_cache, v_cache, k_new, v_new, lens)
+    out = decode_mod.flash_decode_attention(*args)
+    torch.cuda.synchronize()
+    ref = decode_mod.flash_decode_attention_plain(*args)
+    err = (out.float() - ref.float()).abs().max().item()
+    ulps = ulp_error(out, ref)
+    if not torch.isfinite(out).all():
+        raise AssertionError("flash decode output is not finite: it read a "
+                             "row past the fill")
+    if not torch.isfinite(ref).all() or not ulps <= FLASH_DECODE_ULPS:
+        raise AssertionError(f"flash decode: kernel-plain {ulps} bf16 ulps "
+                             f"> {FLASH_DECODE_ULPS} (max abs {err})")
+    ms = timer(lambda: decode_mod.flash_decode_attention(*args), iters=20)
+    plain_ms = timer(lambda: decode_mod.flash_decode_attention_plain(*args),
+                     iters=3)
+    # the yardstick: one SDPA call over the cache plus the new token, GQA,
+    # with a per-row mask (inputs laid out for it outside the timing)
+    k_all = torch.cat([k_cache.nan_to_num(), k_new[:, None]], 1) \
+        .transpose(1, 2).contiguous()
+    v_all = torch.cat([v_cache.nan_to_num(), v_new[:, None]], 1) \
+        .transpose(1, 2).contiguous()
+    q_t = q.transpose(1, 2).contiguous()
+    pos = torch.arange(t_max + 1, device="cuda")[None, :]
+    mask = ((pos < lens[:, None]) | (pos == t_max))[:, None, None, :]
+    lib_out = F.scaled_dot_product_attention(q_t, k_all, v_all,
+                                             attn_mask=mask, enable_gqa=True)
+    lib_err = (lib_out.transpose(1, 2).float() - ref.float()).abs().max()
+    lib_ms = timer(lambda: F.scaled_dot_product_attention(
+        q_t, k_all, v_all, attn_mask=mask, enable_gqa=True), iters=20)
+    live = sum(fills)
+    nbytes = 2 * live * KV_HEADS * HEAD_DIM * 2 \
+        + 2 * (2 * q.numel() + k_new.numel() + v_new.numel()) + 4 * batch
+    flops = 4.0 * (live + batch) * Q_HEADS * HEAD_DIM
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S)
+    row = dict(B=batch, T=t_max, fills=fills, max_abs_err=err,
+               max_ulps=ulps, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               library_max_abs_err=lib_err.item(), bound_ms=bound * 1e3,
+               bound_by="bytes", gb_per_s=nbytes / (ms * 1e-3) / 1e9)
+    results["flash_decode"] = row
+    log(f"flash decode B={batch} T={t_max} err={err:.3e} ({ulps} ulps) "
+        f"kernel={ms:.4f}ms plain={plain_ms:.4f}ms sdpa={lib_ms:.4f}ms "
+        f"(sdpa vs plain {row['library_max_abs_err']:.3e}) "
+        f"bound={row['bound_ms']:.4f}ms ({row['gb_per_s']:.1f} GB/s)")
     return row
 
 
 def phase_model(torch, llama, seed, results):
     import numpy as np
 
-    log("== phase 5: 2-layer llama3-8b width, kernels (card, bf16) vs "
+    log("== phase 7: 2-layer llama3-8b width, kernels (card, bf16) vs "
         "plain (CPU, f32)")
     cfg = llama.config("llama3-8b", n_layers=2, use_flash=True)
     params = llama.init(cfg, seed, device="cuda")
@@ -270,82 +457,219 @@ def phase_model(torch, llama, seed, results):
     torch.cuda.empty_cache()
 
 
-def phase_engine(torch, llama, generate, flash_mod, ragged_mod, seed,
-                 n_layers, results):
-    import numpy as np
+# the kernels each served path must launch at least once
+PATH_KERNELS = {"engine": ("flash", "ragged"),
+                "spec": ("flash", "verify", "flash_decode"),
+                "perfect_draft": ("flash", "verify", "flash_decode")}
 
-    log(f"== phase 6: llama3-8b engine, {n_layers} layers, full width")
-    if n_layers != 32:
-        log(f"NOTE: depth cut to {n_layers} layers (width unchanged)")
-    cfg = llama.config("llama3-8b", n_layers=n_layers, use_flash=True)
-    t0 = time.monotonic()
-    params = llama.init(cfg, seed, device="cuda")
-    torch.cuda.synchronize()
-    log(f"random weights ({sum(_numel(params)) / 1e9:.2f} B params) in "
-        f"{time.monotonic() - t0:.1f}s")
-    engine = generate.GenerationEngine(
-        cfg, params, max_slots=8, max_len=2048,
-        prompt_buckets=(32, 128, 512), steps_per_tick=4, kv_page=32,
-        device="cuda")
-    rng = np.random.default_rng(seed)
-    lengths = [5, 30, 64, 100, 128, 300, 480, 512]
-    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
-    budget = 32
+
+def serve_burst(torch, engine, prompts, budget, samplings, mods, timeout):
+    """Warm the engine up, set every kernel's count to 0, serve the burst
+    concurrently and read the counts, then stream one request. Returns
+    (outputs, wall seconds, launches by kernel, the burst's run counters,
+    sorted TTFTs)."""
+    flash_mod, ragged_mod, decode_mod = mods
 
     async def serve():
         await engine.start()
         try:
-            # warm-up (cuBLAS handles, allocator): not part of the run
-            await engine.generate(prompts[0], 2)
-            flash_mod.reset_launches()
-            ragged_mod.reset_launches()
-            prefills0, steps0 = engine.prefill_dispatches, engine.decode_steps
+            # warm-up (cuBLAS handles, allocator; a spec engine's spec
+            # tick too): not part of the run
+            await engine.generate(prompts[0], 8)
+            for mod in mods:
+                mod.reset_launches()
+            before = run_counters(engine)
+            rungs = dict(engine.spec_rungs)
             engine.ttfts.clear()
+            torch.cuda.reset_peak_memory_stats()
             start = time.monotonic()
-            samplings = [generate.Sampling() for _ in range(7)] + [
-                generate.Sampling(temperature=0.8, top_p=0.95, seed=seed)]
             outs = await asyncio.wait_for(asyncio.gather(*[
                 engine.generate(p, budget, sampling=s)
-                for p, s in zip(prompts, samplings)]), 900)
+                for p, s in zip(prompts, samplings)]), timeout)
             wall = time.monotonic() - start
-            counts = dict(flash=flash_mod.launches,
-                          ragged=ragged_mod.launches,
-                          prefills=engine.prefill_dispatches - prefills0,
-                          steps=engine.decode_steps - steps0)
+            launches = dict(flash=flash_mod.launches,
+                            ragged=ragged_mod.launches,
+                            verify=ragged_mod.verify_launches,
+                            flash_decode=decode_mod.launches)
+            after = run_counters(engine)
+            counters = {key: after[key] - before[key] for key in after}
+            counters["ticks_by_gamma"] = {
+                g: n - rungs.get(g, 0) for g, n in engine.spec_rungs.items()
+                if n > rungs.get(g, 0)}
             ttfts = sorted(engine.ttfts)
             stream = await engine.generate_stream(prompts[3], 8)
             streamed = [tok async for tok in stream]
-            return outs, wall, counts, ttfts, streamed
+            return outs, wall, launches, counters, ttfts, streamed
         finally:
             await engine.stop()
 
-    outs, wall, counts, ttfts, streamed = asyncio.run(serve())
-    for n, out in zip(lengths, outs):
-        if len(out) != budget or not all(0 <= t < cfg.vocab_size
+    outs, wall, launches, counters, ttfts, streamed = asyncio.run(serve())
+    for out in outs:
+        if len(out) != budget or not all(0 <= t < engine.cfg.vocab_size
                                          for t in out):
-            raise AssertionError(f"prompt of {n}: bad completion {out}")
+            raise AssertionError(f"bad completion {out}")
     if len(streamed) != 8:
         raise AssertionError(f"stream returned {len(streamed)} tokens")
-    want_flash = n_layers * counts["prefills"]
-    want_ragged = n_layers * counts["steps"]
-    if counts["flash"] != want_flash or counts["ragged"] != want_ragged:
-        raise AssertionError(f"launch counts {counts}: expected flash "
-                             f"{want_flash}, ragged {want_ragged}")
+    return outs, wall, launches, counters, ttfts
+
+
+def run_counters(engine):
+    spec = engine.stats().get("speculative", {})
+    return dict(prefills=engine.prefill_dispatches,
+                steps=engine.decode_steps,
+                spec_ticks=engine.spec_dispatches,
+                draft_steps=engine.draft_steps,
+                proposed=spec.get("proposed", 0),
+                accepted=spec.get("accepted", 0))
+
+
+def acceptance(counters):
+    return counters["accepted"] / max(counters["proposed"], 1)
+
+
+def check_launches(launches, want, path):
+    if launches != want:
+        raise AssertionError(f"{path}: launch counts {launches}, expected "
+                             f"{want}")
+    idle = [name for name in PATH_KERNELS[path] if launches[name] == 0]
+    if idle:
+        raise AssertionError(f"{path}: kernels {idle} never launched")
+
+
+def engine_prompts(cfg, seed):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lengths = [5, 30, 64, 100, 128, 300, 480, 512]
+    return [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
+
+
+def draft_view(llama, cfg, params, n_layers):
+    """A draft made of the target's first ``n_layers`` layers (views, no
+    copy) with its embedding, final norm and head."""
+    dcfg = llama.config("llama3-8b", n_layers=n_layers, dtype=cfg.dtype,
+                        use_flash=True)
+    dparams = dict(params, layers={name: w[:n_layers]
+                                   for name, w in params["layers"].items()})
+    return dcfg, dparams
+
+
+def phase_perfect_draft(torch, llama, generate, mods, seed, results):
+    log("== phase 8: perfect draft (2-layer full-width model as its own "
+        "draft)")
+    cfg = llama.config("llama3-8b", n_layers=2, use_flash=True)
+    params = llama.init(cfg, seed + 1, device="cuda")
+    dcfg, dparams = draft_view(llama, cfg, params, 2)
+    engine = generate.GenerationEngine(
+        cfg, params, max_slots=8, max_len=2048,
+        prompt_buckets=(32, 128, 512), kv_page=32, draft_cfg=dcfg,
+        draft_params=dparams, spec_gamma=SPEC_GAMMA, device="cuda")
+    prompts = engine_prompts(cfg, seed)[:4]
+    budget = 32
+    _, _, launches, counters, _ = serve_burst(
+        torch, engine, prompts, budget, [generate.Sampling()] * 4, mods,
+        300)
+    spec = engine.stats()["speculative"]
+    rate = acceptance(counters)
+    want = dict(flash=2 * 2 * counters["prefills"],
+                ragged=2 * counters["steps"],
+                verify=2 * counters["spec_ticks"],
+                flash_decode=2 * counters["draft_steps"])
+    check_launches(launches, want, "perfect_draft")
+    results["perfect_draft"] = dict(acceptance_rate=rate, spec=spec,
+                                    launches=launches, counters=counters,
+                                    bound=MIN_PERFECT_ACCEPT)
+    log(f"perfect draft: acceptance {counters['accepted']}/"
+        f"{counters['proposed']} = "
+        f"{rate:.4f} (bound >= {MIN_PERFECT_ACCEPT}); ticks by gamma "
+        f"{counters['ticks_by_gamma']}")
+    if rate < MIN_PERFECT_ACCEPT:
+        raise AssertionError(f"perfect draft accepted {rate} < "
+                             f"{MIN_PERFECT_ACCEPT}: verify is broken")
+    del engine, params, dparams
+    torch.cuda.empty_cache()
+
+
+def phase_engine(torch, llama, generate, mods, cfg, params, seed, results):
+    n_layers = cfg.n_layers
+    log(f"== phase 9: llama3-8b engine, {n_layers} layers, full width")
+    engine = generate.GenerationEngine(
+        cfg, params, max_slots=8, max_len=2048,
+        prompt_buckets=(32, 128, 512), steps_per_tick=4, kv_page=32,
+        device="cuda")
+    prompts = engine_prompts(cfg, seed)
+    budget = 32
+    samplings = [generate.Sampling() for _ in range(7)] + [
+        generate.Sampling(temperature=0.8, top_p=0.95, seed=seed)]
+    outs, wall, launches, counters, ttfts = serve_burst(
+        torch, engine, prompts, budget, samplings, mods, 900)
+    want = dict(flash=n_layers * counters["prefills"],
+                ragged=n_layers * counters["steps"], verify=0,
+                flash_decode=0)
+    check_launches(launches, want, "engine")
     tokens = budget * len(outs)
     row = dict(n_layers=n_layers, requests=len(outs), new_tokens=tokens,
                wall_s=wall, tokens_per_s=tokens / wall,
                ttft_s=ttfts, ttft_p50_s=ttfts[len(ttfts) // 2],
-               ttft_max_s=ttfts[-1], launches=counts,
+               ttft_max_s=ttfts[-1], launches=launches, counters=counters,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     results["engine"] = row
     log(f"engine: {len(outs)} requests x {budget} tokens in {wall:.3f}s = "
         f"{row['tokens_per_s']:.1f} tok/s; TTFT p50 "
         f"{row['ttft_p50_s']:.3f}s max {row['ttft_max_s']:.3f}s; "
-        f"{counts['prefills']} prefill dispatches, {counts['steps']} decode "
-        f"steps; launches flash {counts['flash']} ragged {counts['ragged']}")
-    del engine, params
+        f"{counters['prefills']} prefill dispatches, {counters['steps']} "
+        f"decode steps; launches flash {launches['flash']} ragged "
+        f"{launches['ragged']}; peak memory {row['peak_mem_gb']:.2f} GB")
+    del engine
     torch.cuda.empty_cache()
-    return counts
+    return launches
+
+
+def phase_spec_engine(torch, llama, generate, mods, cfg, params, seed,
+                      results):
+    n_layers = cfg.n_layers
+    log(f"== phase 10: llama3-8b speculative engine, {n_layers} layers, "
+        f"draft {DRAFT_LAYERS} layers (views of the target's), gamma "
+        f"{SPEC_GAMMA}")
+    dcfg, dparams = draft_view(llama, cfg, params, DRAFT_LAYERS)
+    engine = generate.GenerationEngine(
+        cfg, params, max_slots=8, max_len=2048,
+        prompt_buckets=(32, 128, 512), kv_page=32, draft_cfg=dcfg,
+        draft_params=dparams, spec_gamma=SPEC_GAMMA, device="cuda")
+    prompts = engine_prompts(cfg, seed)
+    budget = 32
+    samplings = [generate.Sampling() for _ in range(7)] + [
+        generate.Sampling(temperature=0.8, top_p=0.95, seed=seed)]
+    outs, wall, launches, counters, ttfts = serve_burst(
+        torch, engine, prompts, budget, samplings, mods, 900)
+    want = dict(flash=(n_layers + DRAFT_LAYERS) * counters["prefills"],
+                ragged=n_layers * counters["steps"],
+                verify=n_layers * counters["spec_ticks"],
+                flash_decode=DRAFT_LAYERS * counters["draft_steps"])
+    check_launches(launches, want, "spec")
+    spec = engine.stats()["speculative"]
+    tokens = budget * len(outs)
+    row = dict(n_layers=n_layers, draft_layers=DRAFT_LAYERS,
+               gamma=SPEC_GAMMA, requests=len(outs), new_tokens=tokens,
+               wall_s=wall, tokens_per_s=tokens / wall, ttft_s=ttfts,
+               ttft_p50_s=ttfts[len(ttfts) // 2], ttft_max_s=ttfts[-1],
+               launches=launches, counters=counters, speculative=spec,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    results["spec_engine"] = row
+    log(f"spec engine: {len(outs)} requests x {budget} tokens in "
+        f"{wall:.3f}s = {row['tokens_per_s']:.1f} tok/s; TTFT p50 "
+        f"{row['ttft_p50_s']:.3f}s max {row['ttft_max_s']:.3f}s; "
+        f"{counters['spec_ticks']} spec ticks (by gamma "
+        f"{counters['ticks_by_gamma']}), {counters['draft_steps']} draft "
+        f"steps, "
+        f"{counters['steps']} plain decode steps, {counters['prefills']} "
+        f"prefill dispatches; proposed {counters['proposed']} accepted "
+        f"{counters['accepted']} (rate {acceptance(counters):.4f}); final "
+        f"gamma cap {spec['gamma_cap']}; launches {launches}; peak memory "
+        f"{row['peak_mem_gb']:.2f} GB")
+    del engine, dparams
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _numel(tree):
@@ -371,6 +695,7 @@ def main() -> int:
         return 1
     from gofr_tpu_torch.models import llama
     from gofr_tpu_torch.ops.cuda import _build
+    from gofr_tpu_torch.ops.cuda import decode_attention as decode_mod
     from gofr_tpu_torch.ops.cuda import flash_attention as flash_mod
     from gofr_tpu_torch.ops.cuda import ragged_paged_attention as ragged_mod
     from gofr_tpu_torch.tpu import generate
@@ -395,14 +720,32 @@ def main() -> int:
     timer = Timer(torch)
     flash_err = phase_flash(torch, flash_mod, timer, results)
     ragged = phase_ragged(torch, ragged_mod, timer, results)
+    verify_rows = phase_verify(torch, ragged_mod, timer, results)
+    flash_decode = phase_flash_decode(torch, decode_mod, timer, results)
     del timer
     torch.cuda.empty_cache()
     phase_model(torch, llama, args.seed, results)
-    counts = phase_engine(torch, llama, generate, flash_mod, ragged_mod,
-                          args.seed, args.layers, results)
+    mods = (flash_mod, ragged_mod, decode_mod)
+    phase_perfect_draft(torch, llama, generate, mods, args.seed, results)
+
+    cfg = llama.config("llama3-8b", n_layers=args.layers, use_flash=True)
+    if args.layers != 32:
+        log(f"NOTE: depth cut to {args.layers} layers (width unchanged)")
+    t0 = time.monotonic()
+    params = llama.init(cfg, args.seed, device="cuda")
+    torch.cuda.synchronize()
+    log(f"random weights ({sum(_numel(params)) / 1e9:.2f} B params) in "
+        f"{time.monotonic() - t0:.1f}s")
+    plain = phase_engine(torch, llama, generate, mods, cfg, params,
+                         args.seed, results)
+    spec = phase_spec_engine(torch, llama, generate, mods, cfg, params,
+                             args.seed, results)
+    # launches on the two main paths: each run counted from 0
+    counts = {name: plain[name] + spec[name] for name in plain}
 
     flash_main = next(r for r in results["flash"]
                       if r["B"] == 4 and r["S"] == 512)
+    verify_main = next(r for r in verify_rows if r["G"] == SPEC_GAMMA + 1)
     kernels = [
         dict(name="flash_attention", route="cuda",
              source="gofr_tpu_torch/csrc/flash_attention.cu",
@@ -419,8 +762,26 @@ def main() -> int:
              ms=ragged["ms"], plain_ms=ragged["plain_ms"],
              bound_ms=ragged["bound_ms"], bound_by=ragged["bound_by"],
              library_ms=None),
+        dict(name="ragged_paged_verify_attention", route="cuda",
+             source="gofr_tpu_torch/csrc/ragged_paged_attention.cu",
+             replaces="gofr_tpu/ops/pallas/ragged_paged_attention.py:315",
+             launches=counts["verify"],
+             max_abs_err=max(r["max_abs_err"] for r in verify_rows),
+             ms=verify_main["ms"], plain_ms=verify_main["plain_ms"],
+             bound_ms=verify_main["bound_ms"],
+             bound_by=verify_main["bound_by"], library_ms=None),
+        dict(name="flash_decode_attention", route="cuda",
+             source="gofr_tpu_torch/csrc/decode_attention.cu",
+             replaces="gofr_tpu/ops/pallas/decode_attention.py:158",
+             launches=counts["flash_decode"],
+             max_abs_err=flash_decode["max_abs_err"], ms=flash_decode["ms"],
+             plain_ms=flash_decode["plain_ms"],
+             bound_ms=flash_decode["bound_ms"],
+             bound_by=flash_decode["bound_by"],
+             library_ms=flash_decode["library_ms"]),
     ]
     results["kernels"] = kernels
+    results["launches_by_path"] = dict(engine=plain, spec=spec)
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(results, indent=1))

@@ -7,11 +7,16 @@
 - Weights and activations in the config's dtype (bf16 by default); norms,
   softmax and logits in float32.
 - Prefill attention goes through the flash-attention wrapper when
-  ``cfg.use_flash`` is set; paged decode attention always goes through the
-  ragged paged decode wrapper. Each wrapper launches its CUDA kernel on a
+  ``cfg.use_flash`` is set; dense decode attention (:func:`decode_step`,
+  the speculative draft's step) always goes through the flash-decode
+  wrapper, and paged decode and paged verify attention always go through
+  the ragged paged wrappers. Each wrapper launches its CUDA kernel on a
   CUDA tensor and runs its plain version on a CPU tensor.
-- The paged KV pool is updated in place (indexed assignment into the pool
-  leaves), where the JAX package threaded it through a scan carry.
+- The paged KV pool and the dense cache are updated in place (indexed
+  assignment), where the JAX package threaded them through a scan carry.
+  PyTorch has no dropping scatter (JAX's ``mode="drop"``), so rows that
+  must not write (inactive slots, sentinel pages, positions past the
+  cache) are filtered out of the index set before each write.
 """
 
 from __future__ import annotations
@@ -25,9 +30,10 @@ import torch.nn.functional as F
 
 from gofr_tpu_torch.device import resolve_device
 from gofr_tpu_torch.ops.attention import prefill_attention
+from gofr_tpu_torch.ops.cuda.decode_attention import flash_decode_attention
 from gofr_tpu_torch.ops.cuda.flash_attention import flash_attention
 from gofr_tpu_torch.ops.cuda.ragged_paged_attention import (
-    ragged_paged_decode_attention)
+    ragged_paged_decode_attention, ragged_paged_verify_attention)
 from gofr_tpu_torch.ops.norms import rms_norm
 from gofr_tpu_torch.ops.quant import qmm
 from gofr_tpu_torch.ops.rotary import apply_rope, rope_table
@@ -120,7 +126,7 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
                ) -> Dict[str, torch.Tensor]:
     """Per-layer dense KV cache (L, B, T, Hkv, D), zero-initialised: the
     small cache a prefill fills before the engine scatters it into pool
-    pages."""
+    pages, or the speculative draft's per-slot cache."""
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     dev = resolve_device(device)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
@@ -268,3 +274,94 @@ def decode_step_paged(params: Params, cfg: LlamaConfig, token: torch.Tensor,
     x = rms_norm(x[:, 0], params["out_norm"], cfg.norm_eps)
     logits = qmm(x, params["lm_head"]).float()
     return logits, pool, cache_len + 1
+
+
+def decode_step(params: Params, cfg: LlamaConfig, token: torch.Tensor,
+                cache: Dict[str, torch.Tensor], cache_len: torch.Tensor
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
+                           torch.Tensor]:
+    """One decode step over a dense cache (L, B, T, Hkv, D).
+
+    token (B,) int; cache_len (B,) int32 valid entries excluding this
+    token. Attention runs over the cache plus the new K/V through the
+    flash-decode wrapper, then the new row is written in place at
+    ``cache_len``. A row whose position is past the cache writes nothing
+    (JAX dropped that scatter): it writes back what its clamped
+    destination holds, so the step needs no host sync to filter it.
+    Returns (logits (B, V) f32, cache, cache_len + 1).
+    """
+    b = token.shape[0]
+    dev = token.device
+    cos, sin = _rope(cfg, dev)
+    positions = cache_len.long()[:, None]
+    t_max = cache["k"].shape[2]
+    rows = torch.arange(b, device=dev)
+    cols = cache_len.long().clamp(max=t_max - 1)
+    fits = (cache_len < t_max)[:, None, None]
+    x = params["tok_emb"][token][:, None, :]              # (B, 1, D)
+    for i in range(cfg.n_layers):
+        layer = _layer(params, i)
+        k_cache, v_cache = cache["k"][i], cache["v"][i]
+        h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+        q, k, v = _qkv(layer, h, cfg, cos, sin, positions)
+        k_new, v_new = k[:, 0].contiguous(), v[:, 0].contiguous()
+        attn = flash_decode_attention(q.contiguous(), k_cache, v_cache,
+                                      k_new, v_new, cache_len)
+        x = x + qmm(attn.reshape(b, 1, -1), layer["wo"])
+        h = rms_norm(x, layer["ffn_norm"], cfg.norm_eps)
+        x = x + _ffn(layer, h)
+        k_cache[rows, cols] = torch.where(fits, k_new, k_cache[rows, cols])
+        v_cache[rows, cols] = torch.where(fits, v_new, v_cache[rows, cols])
+    x = rms_norm(x[:, 0], params["out_norm"], cfg.norm_eps)
+    logits = qmm(x, params["lm_head"]).float()
+    return logits, cache, cache_len + 1
+
+
+def verify_step_paged(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
+                      pool: Dict[str, torch.Tensor],
+                      page_table: torch.Tensor, cache_len: torch.Tensor,
+                      active: torch.Tensor
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Speculative verify over the paged KV pool: score G tokens per row
+    in one forward.
+
+    tokens (B, G) sit at positions ``cache_len + g``; pool, page_table
+    and active as in :func:`decode_step_paged`. Attention always runs
+    through the ragged paged verify wrapper; the G new K/V rows of each
+    active row are then written in place at page ``(cache_len + g) //
+    page``, offset ``(cache_len + g) % page``. Inactive rows, sentinel
+    destinations and positions past the table's reach write nothing (JAX
+    routed them to the sentinel page and dropped them). Returns (logits
+    (B, G, V) f32, pool); ``cache_len`` is not advanced here — the caller
+    commits the accepted prefix.
+    """
+    b, g_len = tokens.shape
+    dev = tokens.device
+    cos, sin = _rope(cfg, dev)
+    positions = cache_len.long()[:, None] \
+        + torch.arange(g_len, device=dev)[None, :]          # (B, G)
+    num_pages, page = pool["k"].shape[1], pool["k"].shape[2]
+    width = page_table.shape[1]
+    # the write destinations are the same for every layer: hoist them
+    page_col = positions // page
+    page_row = page_table.long().gather(1, page_col.clamp(max=width - 1))
+    offset = positions % page
+    keep = active[:, None] & (page_col < width) & (page_row < num_pages)
+    keep_b, keep_g = torch.nonzero(keep, as_tuple=True)
+    dest_row, dest_off = page_row[keep_b, keep_g], offset[keep_b, keep_g]
+    x = params["tok_emb"][tokens]                         # (B, G, D)
+    for i in range(cfg.n_layers):
+        layer = _layer(params, i)
+        k_pool, v_pool = pool["k"][i], pool["v"][i]
+        h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+        q, k, v = _qkv(layer, h, cfg, cos, sin, positions)
+        k, v = k.contiguous(), v.contiguous()
+        attn = ragged_paged_verify_attention(
+            q.contiguous(), k_pool, v_pool, page_table, k, v, cache_len)
+        x = x + qmm(attn.reshape(b, g_len, -1), layer["wo"])
+        h = rms_norm(x, layer["ffn_norm"], cfg.norm_eps)
+        x = x + _ffn(layer, h)
+        k_pool[dest_row, dest_off] = k[keep_b, keep_g]
+        v_pool[dest_row, dest_off] = v[keep_b, keep_g]
+    x = rms_norm(x, params["out_norm"], cfg.norm_eps)
+    return qmm(x, params["lm_head"]).float(), pool

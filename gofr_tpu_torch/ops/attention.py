@@ -4,11 +4,13 @@ These are the plain versions the CUDA kernels are held to:
 
 - GQA reshapes Q to (kv_heads, group, ...) and lets the einsum broadcast
   over the group axis, so no repeated K/V copy is made.
-- Decode attends over a static-shape cache with a length mask.
-- The decode formulation computes in float32 with explicit rounding
-  points (:func:`_snap`) where the low-precision formulation rounds: the
-  score einsum, the normalised probabilities, the value einsums and the
-  final add. The ragged decode kernel reproduces that schedule.
+- Decode and speculative verify attend over a static-shape cache with a
+  length mask; decode is verify with one query.
+- The decode/verify formulation computes in float32 with explicit
+  rounding points (:func:`_snap`) where the low-precision formulation
+  rounds: the score einsums, the normalised probabilities, the value
+  einsums and the final add. The ragged decode and verify kernels
+  reproduce that schedule.
 """
 
 from __future__ import annotations
@@ -88,56 +90,91 @@ def gather_kv_pages(pages: torch.Tensor,
     return gathered.reshape(b, p * page, *pages.shape[2:])
 
 
+def verify_attention(q, k_cache, v_cache, k_new, v_new,
+                     cache_len) -> torch.Tensor:
+    """Multi-query decode attention for speculative verify: query ``g``
+    sits at position ``cache_len + g`` and attends every prior cache
+    entry (``t < cache_len``) plus the G new tokens' own K/V causally
+    (key ``u <= g``). The new K/V ride along explicitly; the caller
+    writes them into the cache afterwards.
+
+    q: (B, G, Hq, D); caches: (B, Tmax, Hkv, D); k_new/v_new:
+    (B, G, Hkv, D); cache_len: (B,) valid entries excluding the G new
+    tokens. Returns (B, G, Hq, D).
+
+    Float32 throughout with the oracle's rounding points (:func:`_snap`):
+    the score einsums, the normalised cache probabilities, the two value
+    einsums and their sum. V rows at or past ``cache_len`` are zeroed
+    before the P·V product, so a NaN in a dead row (a clamped sentinel
+    page, say) cannot poison the output through ``0 * NaN``; with finite
+    V this changes nothing.
+    """
+    batch, g_len, q_heads, head_dim = q.shape
+    t_max, kv_heads = k_cache.shape[1], k_cache.shape[2]
+    group = q_heads // kv_heads
+    dt = q.dtype
+    dev = q.device
+    qg = q.reshape(batch, g_len, kv_heads, group, head_dim).float()
+    scale = head_dim ** -0.5
+    valid = (torch.arange(t_max, device=dev)[None, :]
+             < cache_len.to(dev)[:, None])                  # (B, T)
+
+    scores = _snap(torch.einsum("bskgd,btkd->bkgst", qg, k_cache.float()),
+                   dt) * scale
+    scores = torch.where(valid[:, None, None, None, :], scores, _NEG_INF)
+    scores_new = _snap(torch.einsum("bskgd,bukd->bkgsu", qg, k_new.float()),
+                       dt) * scale
+    causal = (torch.arange(g_len, device=dev)[None, :]
+              <= torch.arange(g_len, device=dev)[:, None])  # (S, U)
+    scores_new = torch.where(causal, scores_new, _NEG_INF)
+    scores = torch.cat([scores, scores_new], dim=-1)        # (B,K,G,S,T+S)
+    probs = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    probs = probs / probs.sum(dim=-1, keepdim=True)
+    probs_cache = _snap(probs[..., :-g_len], dt)
+    v_live = torch.where(valid[:, :, None, None], v_cache.float(), 0.0)
+    out = _snap(torch.einsum("bkgst,btkd->bskgd", probs_cache, v_live), dt)
+    out_new = _snap(torch.einsum("bkgsu,bukd->bskgd",
+                                 _snap(probs[..., -g_len:], dt),
+                                 v_new.float()), dt)
+    out = _snap(out + out_new, dt)
+    return out.reshape(batch, g_len, q_heads, head_dim).to(dt)
+
+
 def decode_attention_cached(q, k_cache, v_cache, k_new, v_new,
                             cache_len) -> torch.Tensor:
     """Decode attention over (prior cache entries + the current token's
     K/V), the new token carried explicitly (the caller writes it into the
-    cache afterwards).
+    cache afterwards): :func:`verify_attention` with one query, so a
+    G = 1 verify is bit-identical to a decode step by construction.
 
     q: (B, 1, Hq, D); caches: (B, Tmax, Hkv, D); k_new/v_new: (B, Hkv, D);
     cache_len: (B,) valid entries excluding the current token.
     Returns (B, 1, Hq, D).
-
-    V rows at or past ``cache_len`` are zeroed before the P·V product, so
-    a NaN in a dead row (a clamped sentinel page, say) cannot poison the
-    output through ``0 * NaN``; with finite V this changes nothing.
     """
-    batch, _, q_heads, head_dim = q.shape
-    t_max, kv_heads = k_cache.shape[1], k_cache.shape[2]
-    group = q_heads // kv_heads
-    dt = q.dtype
-    qg = q[:, 0].reshape(batch, kv_heads, group, head_dim).float()
-    scale = head_dim ** -0.5
-    valid = (torch.arange(t_max, device=q.device)[None, :]
-             < cache_len.to(q.device)[:, None])            # (B, T)
-
-    scores = _snap(torch.einsum("bkgd,btkd->bkgt", qg, k_cache.float()),
-                   dt) * scale
-    scores = torch.where(valid[:, None, None, :], scores, _NEG_INF)
-    score_new = _snap(torch.einsum("bkgd,bkd->bkg", qg, k_new.float()),
-                      dt)[..., None] * scale
-    scores = torch.cat([scores, score_new], dim=-1)        # (B,K,G,T+1)
-    probs = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
-    probs = probs / probs.sum(dim=-1, keepdim=True)
-    probs_cache = _snap(probs[..., :-1], dt)
-    v_live = torch.where(valid[:, :, None, None], v_cache.float(), 0.0)
-    out = _snap(torch.einsum("bkgt,btkd->bkgd", probs_cache, v_live), dt)
-    out_new = _snap(torch.einsum("bkg,bkd->bkgd", _snap(probs[..., -1], dt),
-                                 v_new.float()), dt)
-    out = _snap(out + out_new, dt)
-    return out.reshape(batch, 1, q_heads, head_dim).to(dt)
+    return verify_attention(q, k_cache, v_cache, k_new[:, None],
+                            v_new[:, None], cache_len)
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, k_new, v_new,
                            cache_len) -> torch.Tensor:
     """Ragged paged decode attention, gather formulation: gathers each
     slot's pages (sentinels clamped) into a dense view and runs
-    :func:`decode_attention_cached` over it.
+    :func:`decode_attention_cached` over it (:func:`paged_verify_attention`
+    with one query).
 
     q: (B, 1, Hq, D); k_pages/v_pages: (num_pages, page, Hkv, D);
     page_table: (B, P) int; k_new/v_new: (B, Hkv, D); cache_len: (B,).
     """
+    return paged_verify_attention(q, k_pages, v_pages, page_table,
+                                  k_new[:, None], v_new[:, None], cache_len)
+
+
+def paged_verify_attention(q, k_pages, v_pages, page_table, k_new, v_new,
+                           cache_len) -> torch.Tensor:
+    """Paged variant of :func:`verify_attention`, gather formulation.
+    q: (B, G, Hq, D); k_pages/v_pages: (num_pages, page, Hkv, D);
+    page_table: (B, P) int; k_new/v_new: (B, G, Hkv, D); cache_len: (B,).
+    Returns (B, G, Hq, D)."""
     k_cache = gather_kv_pages(k_pages, page_table)
     v_cache = gather_kv_pages(v_pages, page_table)
-    return decode_attention_cached(q, k_cache, v_cache, k_new, v_new,
-                                   cache_len)
+    return verify_attention(q, k_cache, v_cache, k_new, v_new, cache_len)

@@ -34,7 +34,7 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "gofr_tpu_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler",
                            "-fPIC"]
-KERNELS = ("flash_attention", "ragged_paged_attention")
+KERNELS = ("flash_attention", "ragged_paged_attention", "decode_attention")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -1,13 +1,15 @@
-"""Ragged paged decode attention: the CUDA kernel's wrapper and its plain
-PyTorch version (counterpart of
-``gofr_tpu/ops/pallas/ragged_paged_attention.py``, the G = 1 bf16 decode
-variant).
+"""Ragged paged attention: the CUDA kernels' wrappers and their plain
+PyTorch versions (counterpart of
+``gofr_tpu/ops/pallas/ragged_paged_attention.py``, bf16 pools): the
+decode variant (one query per slot) and the speculative verify variant
+(G queries per slot, causal among the new tokens).
 
-The kernel (``gofr_tpu_torch/csrc/ragged_paged_attention.cu``) replaces
-the Pallas ``_ragged_kernel``: it walks each slot's live pages through its
-page-table row and never reads a sentinel or a page past the fill. A CPU
-tensor takes :func:`ragged_paged_decode_attention_plain`; a CUDA tensor
-launches the kernel or raises — no shape-based fallback.
+One kernel (``gofr_tpu_torch/csrc/ragged_paged_attention.cu``) replaces
+the Pallas ``_ragged_kernel`` in both forms, decode being its G = 1
+launch: it walks each slot's live pages through its page-table row and
+never reads a sentinel or a row past the fill. A CPU tensor takes the
+``*_plain`` version; a CUDA tensor launches the kernel or raises — no
+shape-based fallback.
 """
 
 from __future__ import annotations
@@ -22,14 +24,18 @@ from gofr_tpu_torch.ops.cuda import _build
 NAME = "ragged_paged_attention"
 HEAD_DIM = 128
 SUPPORTED_GROUPS = (1, 2, 4, 8)
+MAX_VERIFY_TOKENS = 8        # the kernel's MAX_NEW
 
-# kernel launches since the last reset (not counting plain-version calls)
+# kernel launches since the last reset (not counting plain-version calls):
+# ``launches`` counts decode launches, ``verify_launches`` verify ones
 launches = 0
+verify_launches = 0
 
 
 def reset_launches() -> None:
-    global launches
+    global launches, verify_launches
     launches = 0
+    verify_launches = 0
 
 
 def ragged_paged_decode_attention_plain(q, k_pages, v_pages, page_table,
@@ -43,56 +49,89 @@ def ragged_paged_decode_attention_plain(q, k_pages, v_pages, page_table,
         q, k_pages, v_pages, page_table, k_new, v_new, cache_len)
 
 
-def _bind(lib: ctypes.CDLL):
-    fn = lib.gofr_ragged_paged_decode_attention
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
+def ragged_paged_verify_attention_plain(q, k_pages, v_pages, page_table,
+                                        k_new, v_new,
+                                        cache_len) -> torch.Tensor:
+    """The verify variant in plain PyTorch: ``paged_verify_attention``
+    (gather formulation, sentinels clamped, V rows past the fill zeroed).
+    With G = 1 it is bit-identical to the decode plain version."""
+    return plain_attention.paged_verify_attention(
+        q, k_pages, v_pages, page_table, k_new, v_new, cache_len)
+
+
+def _bind(lib: ctypes.CDLL, entry: str = "gofr_ragged_paged_attention"):
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def _check(q, k_pages, v_pages, page_table, k_new, v_new, cache_len) -> None:
-    if q.dim() != 4 or q.shape[1] != 1:
-        raise ValueError(f"ragged_paged_decode_attention: q (B,1,Hq,D) "
-                         f"expected, got {tuple(q.shape)}")
-    b, _, hq, d = q.shape
+    """Shapes of the verify form: q (B,G,Hq,D), k_new/v_new (B,G,Hkv,D);
+    the decode form reaches here with G = 1."""
+    if q.dim() != 4 or not 1 <= q.shape[1] <= MAX_VERIFY_TOKENS:
+        raise ValueError(f"ragged_paged_attention: q (B,G,Hq,D) with G in "
+                         f"[1, {MAX_VERIFY_TOKENS}] expected, got "
+                         f"{tuple(q.shape)}")
+    b, g_len, hq, d = q.shape
     if k_pages.dim() != 4 or v_pages.shape != k_pages.shape:
-        raise ValueError("ragged_paged_decode_attention: k/v pages "
+        raise ValueError("ragged_paged_attention: k/v pages "
                          "(N,page,Hkv,D) expected")
     hkv = k_pages.shape[2]
     if d != HEAD_DIM or k_pages.shape[3] != d:
-        raise ValueError(f"ragged_paged_decode_attention: head_dim must be "
+        raise ValueError(f"ragged_paged_attention: head_dim must be "
                          f"{HEAD_DIM}, got {d}")
     if hq % hkv or hq // hkv not in SUPPORTED_GROUPS:
-        raise ValueError(f"ragged_paged_decode_attention: group Hq/Hkv "
+        raise ValueError(f"ragged_paged_attention: group Hq/Hkv "
                          f"must be one of {SUPPORTED_GROUPS}")
-    if tuple(k_new.shape) != (b, hkv, d) or v_new.shape != k_new.shape:
-        raise ValueError("ragged_paged_decode_attention: k_new/v_new "
-                         "(B,Hkv,D) expected")
+    if tuple(k_new.shape) != (b, g_len, hkv, d) \
+            or v_new.shape != k_new.shape:
+        raise ValueError("ragged_paged_attention: k_new/v_new (B,G,Hkv,D) "
+                         "expected")
     if page_table.dim() != 2 or page_table.shape[0] != b \
             or tuple(cache_len.shape) != (b,):
-        raise ValueError("ragged_paged_decode_attention: page_table (B,P) "
+        raise ValueError("ragged_paged_attention: page_table (B,P) "
                          "and cache_len (B,) expected")
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
                     ("k_new", k_new), ("v_new", v_new)):
         if t.dtype != torch.bfloat16:
-            raise ValueError(f"ragged_paged_decode_attention: {name} must "
+            raise ValueError(f"ragged_paged_attention: {name} must "
                              f"be bf16, got {t.dtype}")
     for name, t in (("page_table", page_table), ("cache_len", cache_len)):
         if t.dtype != torch.int32:
-            raise ValueError(f"ragged_paged_decode_attention: {name} must "
+            raise ValueError(f"ragged_paged_attention: {name} must "
                              f"be int32, got {t.dtype}")
     tensors = (q, k_pages, v_pages, page_table, k_new, v_new, cache_len)
     if any(t.device != q.device for t in tensors):
-        raise ValueError("ragged_paged_decode_attention: tensors on "
+        raise ValueError("ragged_paged_attention: tensors on "
                          "different devices")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("ragged_paged_decode_attention: every tensor "
+        raise ValueError("ragged_paged_attention: every tensor "
                          "must be contiguous")
     # the kernel reads 16-byte vectors of bf16
     if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages, k_new, v_new)):
-        raise ValueError("ragged_paged_decode_attention: bf16 operands "
+        raise ValueError("ragged_paged_attention: bf16 operands "
                          "must be 16-byte aligned")
+
+
+def _launch(q, k_pages, v_pages, page_table, k_new, v_new, cache_len,
+            entry: str = "gofr_ragged_paged_attention") -> torch.Tensor:
+    """Check, launch the kernel once, raise on a refused launch."""
+    _check(q, k_pages, v_pages, page_table, k_new, v_new, cache_len)
+    fn = _bind(_build.load(NAME), entry)
+    out = torch.empty_like(q)
+    b, g_len, hq, d = q.shape
+    num_pages, page, hkv, _ = k_pages.shape
+    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+             page_table.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+             cache_len.data_ptr(), out.data_ptr(), b, g_len, hq, hkv, d,
+             num_pages, page, page_table.shape[1],
+             _build.stream_handle(q.device))
+    if err != 0:
+        raise RuntimeError(f"ragged_paged_attention: kernel launch failed "
+                           f"(cudaError {err})")
+    return out
 
 
 def ragged_paged_decode_attention(q, k_pages, v_pages, page_table, k_new,
@@ -107,19 +146,44 @@ def ragged_paged_decode_attention(q, k_pages, v_pages, page_table, k_new,
     if q.device.type != "cuda":
         raise ValueError(f"ragged_paged_decode_attention: unsupported "
                          f"device {q.device}")
-    _check(q, k_pages, v_pages, page_table, k_new, v_new, cache_len)
+    if q.dim() != 4 or q.shape[1] != 1:
+        raise ValueError(f"ragged_paged_decode_attention: q (B,1,Hq,D) "
+                         f"expected, got {tuple(q.shape)}")
     global launches
-    fn = _bind(_build.load(NAME))
-    out = torch.empty_like(q)
-    b, _, hq, d = q.shape
-    num_pages, page, hkv, _ = k_pages.shape
-    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             page_table.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-             cache_len.data_ptr(), out.data_ptr(), b, hq, hkv, d,
-             num_pages, page, page_table.shape[1],
-             _build.stream_handle(q.device))
-    if err != 0:
-        raise RuntimeError(f"ragged_paged_decode_attention: kernel launch "
-                           f"failed (cudaError {err})")
+    out = _launch(q, k_pages, v_pages, page_table, k_new[:, None],
+                  v_new[:, None], cache_len)
     launches += 1
     return out
+
+
+def ragged_paged_verify_attention(q, k_pages, v_pages, page_table, k_new,
+                                  v_new, cache_len) -> torch.Tensor:
+    """Speculative verify: q (B,G,Hq,D), query ``g`` at position
+    ``cache_len + g``; k_new/v_new (B,G,Hkv,D) the G new tokens' K/V,
+    attended causally (key ``u <= g``); pools, table and cache_len as in
+    :func:`ragged_paged_decode_attention`. Returns (B,G,Hq,D)."""
+    if q.device.type == "cpu":
+        return ragged_paged_verify_attention_plain(
+            q, k_pages, v_pages, page_table, k_new, v_new, cache_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"ragged_paged_verify_attention: unsupported "
+                         f"device {q.device}")
+    global verify_launches
+    out = _launch(q, k_pages, v_pages, page_table, k_new, v_new, cache_len)
+    verify_launches += 1
+    return out
+
+
+def ragged_paged_verify_form_attention(q, k_pages, v_pages, page_table,
+                                       k_new, v_new,
+                                       cache_len) -> torch.Tensor:
+    """The verify launch through the kernel's verify instantiation at any
+    G, G = 1 included (the served wrappers take the decode instantiation
+    at G = 1). Uncounted and on no served path: it lets a check hold the
+    two instantiations bit for bit against each other at G = 1. CUDA
+    tensors only; arguments as in :func:`ragged_paged_verify_attention`."""
+    if q.device.type != "cuda":
+        raise ValueError(f"ragged_paged_verify_form_attention: CUDA tensors "
+                         f"expected, got {q.device}")
+    return _launch(q, k_pages, v_pages, page_table, k_new, v_new, cache_len,
+                   entry="gofr_ragged_paged_attention_verify_form")

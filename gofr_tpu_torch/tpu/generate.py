@@ -18,17 +18,26 @@ path).
   runs ``llama.decode_step_paged`` (ragged paged decode kernel on the
   card) and samples per slot. Inactive slots are frozen (cache_len does
   not advance) and never write the pool.
-- Ticks are synchronous: one host fetch of the (K, max_slots) tokens per
-  tick. Device work runs in a worker thread so the event loop keeps
-  serving callers meanwhile.
+- Speculative decode (``draft_cfg``/``draft_params``): a draft model with
+  a dense per-slot cache (flash-decode kernel on the card) proposes g
+  tokens in g + 1 steps, the target scores all g + 1 positions in one
+  ``llama.verify_step_paged`` (ragged verify kernel on the card), and
+  ``speculative_accept`` commits 1 to g + 1 tokens per slot. g walks the
+  ladder 1, 2, 4, ... plus ``spec_gamma``, never past the smallest
+  remaining budget (g + 1 <= min_wanted) nor the adaptive cap, which
+  halves or doubles on the acceptance of every 16 spec ticks. Plain
+  ticks serve the last token of a budget and any tick with an admission
+  waiting.
+- Ticks are synchronous: one host fetch of the tick's tokens. Device work
+  runs in a worker thread so the event loop keeps serving callers
+  meanwhile.
 - Tokens stream: ``generate_stream`` yields ids as each tick's fetch
   lands; ``generate`` gathers them.
 
 Left for later slices (see ROADMAP.md): the dense cache, prefix cache,
-speculative decode, disaggregation, grammar-constrained decoding,
-brownout, auto-tuning, upload coalescing, mesh sharding, the SLO /
-metrics / flight-recorder hooks, the attention-window ladder and the
-M-deep pipelined tick.
+disaggregation, grammar-constrained decoding, brownout, auto-tuning,
+upload coalescing, mesh sharding, the SLO / metrics / flight-recorder
+hooks, the attention-window ladder and the M-deep pipelined tick.
 """
 
 from __future__ import annotations
@@ -44,10 +53,20 @@ import torch
 
 from gofr_tpu_torch.device import resolve_device
 from gofr_tpu_torch.models import llama
-from gofr_tpu_torch.ops.sampling import sample_batch
+from gofr_tpu_torch.ops.sampling import (filtered_log_probs_batch,
+                                         sample_batch, sampled_rows,
+                                         speculative_accept)
 from gofr_tpu_torch.tpu.page_pool import PagePool
 
 DEFAULT_PROMPT_BUCKETS = (32, 128, 512)
+
+# adaptive-γ controller (speculative decode): windowed acceptance is
+# evaluated every N spec ticks; below the shrink threshold the γ cap
+# halves (a diverging draft wastes the verify forward), above the grow
+# threshold it doubles back toward spec_gamma
+_SPEC_WINDOW_TICKS = 16
+_SPEC_SHRINK_BELOW = 0.5
+_SPEC_GROW_ABOVE = 0.8
 
 # sentinel pushed onto a streaming queue when the request completes
 _DONE = object()
@@ -171,6 +190,8 @@ class GenerationEngine:
                  kv_page: int = 32,
                  kv_pages: Optional[int] = None,
                  kv_page_reserve: Optional[int] = None,
+                 draft_cfg=None, draft_params=None,
+                 spec_gamma: int = 4,
                  device: Union[str, torch.device] = "cuda",
                  logger=None):
         self.device = resolve_device(device)
@@ -221,6 +242,38 @@ class GenerationEngine:
         self._table_cache: Optional[Tuple[int, torch.Tensor]] = None
         self._reset_slot_tensors()
 
+        # -- speculative draft-verify decode ---------------------------------
+        self.spec = draft_cfg is not None and draft_params is not None
+        self.spec_gamma = max(1, int(spec_gamma))
+        self.draft_cfg = draft_cfg
+        self.draft_params = None
+        self._draft_cache: Optional[Dict[str, torch.Tensor]] = None
+        self._g_ladder: List[int] = []
+        if self.spec:
+            if getattr(draft_cfg, "vocab_size", None) != cfg.vocab_size:
+                raise ValueError(
+                    "draft and target models must share a vocabulary "
+                    f"({getattr(draft_cfg, 'vocab_size', None)} vs "
+                    f"{cfg.vocab_size})")
+            self.draft_params = _params_to(draft_params, self.device)
+            # the draft cache is dense: the draft is small, and one
+            # (max_slots, max_len) row per slot keeps it independent of
+            # the target's paging; the draft prefills the full prompt, so
+            # it shares the target's cache_len
+            self._draft_cache = llama.init_cache(draft_cfg, self.max_slots,
+                                                 self.max_len,
+                                                 device=self.device)
+            self._g_ladder = [1]
+            while self._g_ladder[-1] * 2 <= self.spec_gamma:
+                self._g_ladder.append(self._g_ladder[-1] * 2)
+            if self._g_ladder[-1] != self.spec_gamma:
+                self._g_ladder.append(self.spec_gamma)
+        self._gamma_cap = self.spec_gamma if self.spec else 0
+        self._spec_proposed = 0
+        self._spec_accepted = 0
+        self._spec_window_proposed = 0
+        self._spec_window_accepted = 0
+
         self._slots = [_Slot() for _ in range(self.max_slots)]
         self._free: List[int] = list(range(self.max_slots))
         self._pending: "deque[_Request]" = deque()
@@ -229,8 +282,10 @@ class GenerationEngine:
         self._wake = asyncio.Event()
         # run counters: what the kernels' launch counts are checked against
         self.prefill_dispatches = 0
-        self.decode_steps = 0
-        self.ticks = 0
+        self.decode_steps = 0         # plain decode steps (ragged decode)
+        self.ticks = 0                # plain decode ticks
+        self.spec_rungs: Dict[int, int] = {}  # spec ticks run, by g
+        self.draft_steps = 0          # Σ(g + 1) draft steps (flash decode)
         self.ttfts: "deque[float]" = deque(maxlen=4096)  # submit → 1st token
 
     def _reset_slot_tensors(self) -> None:
@@ -249,9 +304,10 @@ class GenerationEngine:
                         ) -> np.ndarray:
         """Batched prompt forward for ``nb`` rows of bucket ``bucket``, its
         in-place insert into the pool pages ``flat_ids`` (row-major (nb,
-        bucket // page); sentinel entries are skipped) and the claimed
-        slots' device rows. Returns the first tokens (nb,) on the host.
-        Padding rows carry slot ``max_slots`` and are skipped."""
+        bucket // page); sentinel entries are skipped), with a draft its
+        KV-only prefill into the claimed slots' dense draft rows, and the
+        claimed slots' device rows. Returns the first tokens (nb,) on the
+        host. Padding rows carry slot ``max_slots`` and are skipped."""
         dev, cfg, page = self.device, self.cfg, self.kv_page
         tokens = torch.as_tensor(padded, device=dev).long()
         lens = torch.as_tensor(lengths, device=dev)
@@ -274,6 +330,15 @@ class GenerationEngine:
         rows = np.nonzero(slots < self.max_slots)[0]
         row_t = torch.as_tensor(rows, device=dev)
         slot_t = torch.as_tensor(slots[rows].astype(np.int64), device=dev)
+        if self.spec:
+            # KV-only draft prefill over the same bucket; its rows land in
+            # the claimed slots' dense draft rows (padding rows dropped)
+            dcfg = self.draft_cfg
+            dsmall = llama.init_cache(dcfg, nb, bucket, device=dev)
+            llama.prefill(self.draft_params, dcfg, tokens, dsmall,
+                          lengths=lens)
+            for name, leaf in self._draft_cache.items():
+                leaf[:, slot_t, :bucket] = dsmall[name][:, row_t]
         self.cache_len[slot_t] = lens[row_t].to(torch.int32)
         self.last_token[slot_t] = first[row_t]
         self.temps[slot_t] = t_temps[row_t]
@@ -299,6 +364,51 @@ class GenerationEngine:
             steps.append(token)
         self.cache_len, self.last_token = cache_len, token
         return torch.stack(steps).cpu().numpy()
+
+    def _spec_tick(self, g: int, active: torch.Tensor, table: torch.Tensor,
+                   gens: List) -> Tuple[np.ndarray, np.ndarray]:
+        """One speculative tick at rung ``g``: the draft runs g + 1 dense
+        decode steps proposing g tokens (the extra step writes the last
+        proposal's KV, so a full acceptance leaves the draft cache
+        covering every committed position), the target verifies all
+        g + 1 positions in one paged forward, and ``speculative_accept``
+        commits ``accepts + 1`` tokens per active row. Inactive rows keep
+        their cache_len and token. Returns ((g + 1, max_slots) tokens,
+        (max_slots,) accept counts) on the host, from the tick's one
+        fetch."""
+        last, cache_len = self.last_token, self.cache_len
+        sampled = bool(sampled_rows(gens))
+        token, dlen = last, cache_len
+        proposals, q_logps = [], []
+        for _ in range(g + 1):
+            logits, _, new_len = llama.decode_step(
+                self.draft_params, self.draft_cfg, token, self._draft_cache,
+                dlen)
+            q_logp = (filtered_log_probs_batch(logits, self.temps,
+                                               self.top_ks, self.top_ps)
+                      if sampled else None)
+            proposal = sample_batch(logits, self.temps, self.top_ks,
+                                    self.top_ps, gens, logp=q_logp)
+            dlen = torch.where(active, new_len, dlen)
+            token = torch.where(active, proposal, token)
+            proposals.append(token)
+            q_logps.append(q_logp)
+        draft_tokens = torch.stack(proposals[:g], dim=1)          # (B, g)
+        q_logp = torch.stack(q_logps[:g], dim=1) if sampled else None
+        verify_tokens = torch.cat([last[:, None], draft_tokens], dim=1)
+        t_logits, _ = llama.verify_step_paged(
+            self.params, self.cfg, verify_tokens, self._pool.leaves, table,
+            cache_len, active)
+        out, accepts = speculative_accept(t_logits, q_logp, draft_tokens,
+                                          self.temps, self.top_ks,
+                                          self.top_ps, gens)
+        accepts = torch.where(active, accepts, 0)
+        chosen = out.gather(1, accepts[:, None])[:, 0]
+        self.last_token = torch.where(active, chosen, last)
+        self.cache_len = torch.where(active, cache_len + accepts + 1,
+                                     cache_len).to(torch.int32)
+        host = torch.cat([out.T, accepts[None].to(out.dtype)]).cpu().numpy()
+        return host[:g + 1], host[g + 1]
 
     def _table_dev(self) -> torch.Tensor:
         cached = self._table_cache
@@ -381,11 +491,17 @@ class GenerationEngine:
         self._cancelled_queues.add(queue)
 
     @property
+    def spec_dispatches(self) -> int:
+        """Spec ticks run (each verifies once through every target
+        layer)."""
+        return sum(self.spec_rungs.values())
+
+    @property
     def active_slots(self) -> int:
         return sum(1 for slot in self._slots if slot.active)
 
     def stats(self) -> Dict[str, Any]:
-        return {
+        out = {
             "device": str(self.device),
             "active_slots": self.active_slots,
             "pending": len(self._pending),
@@ -394,6 +510,20 @@ class GenerationEngine:
             "ticks": self.ticks,
             "kv_pool": self._pool.stats(),
         }
+        if self.spec:
+            out["speculative"] = {
+                "gamma": self.spec_gamma,
+                "gamma_cap": self._gamma_cap,
+                "gamma_ladder": list(self._g_ladder),
+                "spec_ticks": self.spec_dispatches,
+                "proposed": self._spec_proposed,
+                "accepted": self._spec_accepted,
+                "acceptance_rate": (self._spec_accepted / self._spec_proposed
+                                    if self._spec_proposed else 0.0),
+                "draft_steps": self.draft_steps,
+                "ticks_by_gamma": dict(sorted(self.spec_rungs.items())),
+            }
+        return out
 
     # -- the loop ----------------------------------------------------------------
     async def _loop(self) -> None:
@@ -413,9 +543,13 @@ class GenerationEngine:
                 self._reset_device_state()
 
     def _reset_device_state(self) -> None:
-        """Fresh pool leaves, an all-sentinel table and zeroed slot rows:
-        the failed step may have left any of them half written."""
+        """Fresh pool leaves, an all-sentinel table, zeroed slot rows and
+        a fresh draft cache: the failed step may have left any of them
+        half written."""
         self._pool.reset()
+        if self.spec:
+            for leaf in self._draft_cache.values():
+                leaf.zero_()
         self._table.fill(self._pool.sentinel)
         self._table_version += 1
         for slot in self._slots:
@@ -558,20 +692,17 @@ class GenerationEngine:
         k = 1
         if not self._pending or not self._free:
             k = max(rung for rung in self._k_ladder if rung <= min_wanted)
+            # rung g commits up to g + 1 tokens per slot, so it needs
+            # g + 1 <= min_wanted: no budget is ever overshot
+            g = max((rung for rung in self._g_ladder
+                     if rung + 1 <= min_wanted and rung <= self._gamma_cap),
+                    default=0)
+            if g > 0:
+                return await self._dispatch_spec(loop, eligible, g)
         eligible = self._cover_pages(eligible, k)
         if not eligible:
             return False
-        active = np.zeros((self.max_slots,), bool)
-        gens: List[Optional[torch.Generator]] = [None] * self.max_slots
-        snapshot = []
-        for slot_idx, slot in eligible:
-            active[slot_idx] = True
-            slot.inflight += k
-            slot.fill += k
-            if slot.temperature > 0.0:
-                gens[slot_idx] = slot.generator
-            snapshot.append((slot_idx, slot.gen))
-        active_dev = torch.as_tensor(active, device=self.device)
+        active_dev, gens, snapshot = self._charge(eligible, k)
         table = self._table_dev()
         host = await loop.run_in_executor(
             None, self._decode_tick, k, active_dev, table, gens)
@@ -581,6 +712,73 @@ class GenerationEngine:
             self._push_tokens(slot_idx, gen,
                               [int(t) for t in host[:, slot_idx]])
         return True
+
+    async def _dispatch_spec(self, loop, eligible, g: int) -> bool:
+        """Run one speculative tick at rung ``g``: charge every slot
+        g + 1 in-flight tokens (the worst case), cover pages for fill +
+        g + 1, run the tick, then refund the rejected tail so inflight
+        and fill track the device advance of accepts + 1 exactly."""
+        eligible = self._cover_pages(eligible, g + 1)
+        if not eligible:
+            return False
+        active_dev, gens, snapshot = self._charge(eligible, g + 1)
+        table = self._table_dev()
+        toks, accepts = await loop.run_in_executor(
+            None, self._spec_tick, g, active_dev, table, gens)
+        self.spec_rungs[g] = self.spec_rungs.get(g, 0) + 1
+        self.draft_steps += g + 1
+        proposed = accepted = 0
+        for slot_idx, gen in snapshot:
+            a = int(accepts[slot_idx])
+            slot = self._slots[slot_idx]
+            if slot.gen == gen:
+                slot.inflight -= g - a
+                slot.fill -= g - a
+                proposed += g
+                accepted += a
+            self._push_tokens(slot_idx, gen,
+                              [int(t) for t in toks[:a + 1, slot_idx]])
+        self._note_spec(proposed, accepted)
+        return True
+
+    def _note_spec(self, proposed: int, accepted: int) -> None:
+        """Acceptance accounting plus the adaptive-γ controller, called
+        once per spec tick after ``spec_rungs`` counts it: every
+        ``_SPEC_WINDOW_TICKS`` spec ticks the window's acceptance rate
+        halves the γ cap (draft diverging) or doubles it back toward
+        ``spec_gamma`` (draft agreeing). A window that proposed nothing
+        (every slot cancelled mid-tick) moves nothing."""
+        self._spec_proposed += proposed
+        self._spec_accepted += accepted
+        self._spec_window_proposed += proposed
+        self._spec_window_accepted += accepted
+        if self.spec_dispatches % _SPEC_WINDOW_TICKS \
+                or not self._spec_window_proposed:
+            return
+        rate = self._spec_window_accepted / self._spec_window_proposed
+        if rate < _SPEC_SHRINK_BELOW:
+            self._gamma_cap = max(1, self._gamma_cap // 2)
+        elif rate > _SPEC_GROW_ABOVE:
+            self._gamma_cap = min(self.spec_gamma, self._gamma_cap * 2)
+        self._spec_window_proposed = 0
+        self._spec_window_accepted = 0
+
+    def _charge(self, eligible, n: int):
+        """Charge each eligible slot ``n`` in-flight tokens and ``n`` of
+        fill. Returns the tick's device active mask, the generators of its
+        sampled slots (None for greedy ones) and the (slot, generation)
+        snapshot its tokens are published against."""
+        active = np.zeros((self.max_slots,), bool)
+        gens: List[Optional[torch.Generator]] = [None] * self.max_slots
+        snapshot = []
+        for slot_idx, slot in eligible:
+            active[slot_idx] = True
+            slot.inflight += n
+            slot.fill += n
+            if slot.temperature > 0.0:
+                gens[slot_idx] = slot.generator
+            snapshot.append((slot_idx, slot.gen))
+        return torch.as_tensor(active, device=self.device), gens, snapshot
 
     def _cover_pages(self, eligible, k: int):
         """Grow each slot's pages to cover its fill + k tokens. Slots the

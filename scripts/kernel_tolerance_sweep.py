@@ -1,0 +1,129 @@
+#!/usr/bin/env python3
+"""How far the ragged and flash-decode kernels land from their plain
+versions over many seeds, beside what a kernel that drops one position
+would score: the evidence for the limits ``chip_smoke.py`` holds them to.
+
+For each seed, at ``chip_smoke.py``'s shapes (phases 4-6: bf16, 8 slots,
+32/8 heads, D 128; ragged pools of page 32 and 64 table columns with
+every unreferenced row NaN; flash decode over T 2048 with every row past
+a fill NaN): the ragged decode launch, the verify launch at G 2, 3 and 5,
+and the flash-decode launch, each against its plain version. Reported,
+worst over seeds: max |kernel - plain|, bf16 ulps of max(|plain|, 2^-8)
+(``tolerance.ulp_error``) and the largest per-row relative L2
+(``tolerance.row_rel_l2``). Then the same measures for the plain version
+run with every fill one short (a walk that skips the last position),
+smallest over seeds and slots with a fill > 1. Prints one JSON object
+(also written to ``--out``).
+
+Run from the root of a checkout on a CUDA host:
+``python3 scripts/kernel_tolerance_sweep.py [--seeds 40]``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from chip_smoke import (FLASH_DECODE_ULPS, KV_HEADS, Q_HEADS,  # noqa: E402
+                        RAGGED_ROW_TOL, RAGGED_TOL, card_line,
+                        paged_scenario)
+
+RAGGED_FILLS = [0, 1, 31, 32, 33, 700, 2047, 512]
+DECODE_FILLS = [0, 1, 127, 128, 129, 700, 1500, 2047]
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--seeds", type=int, default=40)
+    parser.add_argument("--out",
+                        default="chiprun_out/kernel_tolerance_sweep.json")
+    args = parser.parse_args()
+
+    import torch
+
+    from gofr_tpu_torch.ops.cuda import _build
+    from gofr_tpu_torch.ops.cuda import decode_attention as decode_mod
+    from gofr_tpu_torch.ops.cuda import ragged_paged_attention as ragged_mod
+    from gofr_tpu_torch.ops.cuda.tolerance import row_rel_l2, ulp_error
+
+    if not torch.cuda.is_available():
+        print("kernel_tolerance_sweep: no CUDA device", file=sys.stderr)
+        return 1
+    _build.build_all()
+    worst, drop = {}, {}
+
+    def note(kind, out, ref):
+        row = worst.setdefault(kind, dict(max_abs=0.0, ulps=0.0, row=0.0))
+        row["max_abs"] = max(row["max_abs"],
+                             (out.float() - ref.float()).abs().max().item())
+        row["ulps"] = max(row["ulps"], ulp_error(out, ref))
+        row["row"] = max(row["row"], row_rel_l2(out, ref))
+
+    def note_drop(kind, short, ref, fills):
+        """The smallest measures over slots whose fill was cut."""
+        cut = [i for i, n in enumerate(fills) if n > 1]
+        row = drop.setdefault(kind, dict(ulps=float("inf"),
+                                         row=float("inf")))
+        for i in cut:
+            row["ulps"] = min(row["ulps"], ulp_error(short[i], ref[i]))
+            row["row"] = min(row["row"], row_rel_l2(short[i:i + 1],
+                                                    ref[i:i + 1]))
+
+    def one_short(fills):
+        return torch.tensor([max(n - 1, 0) if n > 1 else n for n in fills],
+                            dtype=torch.int32, device="cuda")
+
+    for seed in range(args.seeds):
+        for g_len in (1, 2, 3, 5):
+            fills = [min(n, 2047 - g_len + 1) for n in RAGGED_FILLS]
+            q, kp, vp, table, kn, vn, lens = paged_scenario(
+                torch, fills, g_len, 1000 * g_len + seed)
+            if g_len == 1:
+                call = (q, kp, vp, table, kn[:, 0].contiguous(),
+                        vn[:, 0].contiguous())
+                kernel = ragged_mod.ragged_paged_decode_attention
+                plain = ragged_mod.ragged_paged_decode_attention_plain
+                kind = "ragged decode"
+            else:
+                call = (q, kp, vp, table, kn, vn)
+                kernel = ragged_mod.ragged_paged_verify_attention
+                plain = ragged_mod.ragged_paged_verify_attention_plain
+                kind = f"ragged verify G{g_len}"
+            ref = plain(*call, lens)
+            note(kind, kernel(*call, lens), ref)
+            note_drop(kind, plain(*call, one_short(fills)), ref, fills)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        lens = torch.tensor(DECODE_FILLS, dtype=torch.int32, device="cuda")
+        dead = (torch.arange(2048, device="cuda")[None, :]
+                >= lens[:, None])[..., None, None]
+        k, v = (torch.randn((8, 2048, KV_HEADS, 128), generator=gen,
+                            device="cuda").bfloat16()
+                .masked_fill(dead, float("nan")) for _ in range(2))
+        q = torch.randn((8, 1, Q_HEADS, 128), generator=gen,
+                        device="cuda").bfloat16()
+        kn, vn = (torch.randn((8, KV_HEADS, 128), generator=gen,
+                              device="cuda").bfloat16() for _ in range(2))
+        call = (q, k, v, kn, vn)
+        ref = decode_mod.flash_decode_attention_plain(*call, lens)
+        note("flash decode", decode_mod.flash_decode_attention(*call, lens),
+             ref)
+        note_drop("flash decode", decode_mod.flash_decode_attention_plain(
+            *call, one_short(DECODE_FILLS)), ref, DECODE_FILLS)
+    result = dict(card=card_line(), seeds=args.seeds, kernel_vs_plain=worst,
+                  one_position_dropped=drop,
+                  limits=dict(ragged_max_abs=RAGGED_TOL,
+                              ragged_row_rel_l2=RAGGED_ROW_TOL,
+                              flash_decode_ulps=FLASH_DECODE_ULPS))
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(result, indent=1))
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

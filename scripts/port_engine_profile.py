@@ -12,7 +12,14 @@ time by kernel. Prints one JSON object (also written to ``--out``):
 - ``device_busy_s`` and ``device_idle_share``: the sum of device kernel
   time over the profiled run's wall time (one stream, so no overlap);
 - ``by_kernel``: device time per kernel name, largest first, with the
-  port's two kernels named as they are launched.
+  port's kernels named as they are launched.
+
+``--spec-gamma 4`` profiles the speculative engine instead, with the draft
+of ``chip_smoke.py``'s speculative phase (``chip_smoke.draft_view``: views
+of the target's first ``DRAFT_LAYERS`` (4) layers, its embedding, final
+norm and head): the draft proposes through the flash-decode kernel and
+the target verifies through the ragged verify kernel; the result then
+also holds the engine's ``speculative`` stats.
 
 Run from the root of a checkout: ``python3 scripts/port_engine_profile.py``.
 Needs a CUDA device.
@@ -29,11 +36,15 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+from chip_smoke import DRAFT_LAYERS, draft_view  # noqa: E402
+
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--layers", type=int, default=32)
+    parser.add_argument("--spec-gamma", type=int, default=0,
+                        help="speculative decode with this gamma (0: off)")
     parser.add_argument("--out", default="chiprun_out/engine_profile.json")
     args = parser.parse_args()
 
@@ -51,9 +62,15 @@ def main() -> int:
     _build.build_all()
     cfg = llama.config("llama3-8b", n_layers=args.layers, use_flash=True)
     params = llama.init(cfg, args.seed, device="cuda")
+    spec_kw = {}
+    if args.spec_gamma:
+        dcfg, dparams = draft_view(llama, cfg, params, DRAFT_LAYERS)
+        spec_kw = dict(draft_cfg=dcfg, draft_params=dparams,
+                       spec_gamma=args.spec_gamma)
     engine = GenerationEngine(cfg, params, max_slots=8, max_len=2048,
                               prompt_buckets=(32, 128, 512),
-                              steps_per_tick=4, kv_page=32, device="cuda")
+                              steps_per_tick=4, kv_page=32, device="cuda",
+                              **spec_kw)
     rng = np.random.default_rng(args.seed)
     lengths = [5, 30, 64, 100, 128, 300, 480, 512]
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
@@ -73,18 +90,22 @@ def main() -> int:
     async def serve(prof):
         await engine.start()
         try:
-            await engine.generate(prompts[0], 2)          # warm-up
+            await engine.generate(prompts[0], 8)          # warm-up
             outs, wall, ttfts = await one_run()
             steps0, ticks0 = engine.decode_steps, engine.ticks
+            spec0, draft0 = engine.spec_dispatches, engine.draft_steps
             with prof:
                 _, prof_wall, _ = await one_run()
             return (outs, wall, ttfts, prof_wall,
-                    engine.decode_steps - steps0, engine.ticks - ticks0)
+                    engine.decode_steps - steps0, engine.ticks - ticks0,
+                    engine.spec_dispatches - spec0,
+                    engine.draft_steps - draft0)
         finally:
             await engine.stop()
 
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    outs, wall, ttfts, prof_wall, steps, ticks = asyncio.run(serve(prof))
+    (outs, wall, ttfts, prof_wall, steps, ticks, spec_ticks,
+     draft_steps) = asyncio.run(serve(prof))
     assert all(len(out) == budget for out in outs)
 
     by_kernel = {}
@@ -106,6 +127,9 @@ def main() -> int:
         "profiled_wall_s": prof_wall,
         "profiled_decode_steps": steps,
         "profiled_ticks": ticks,
+        "profiled_spec_ticks": spec_ticks,
+        "profiled_draft_steps": draft_steps,
+        "speculative": engine.stats().get("speculative"),
         "device_busy_s": busy,
         "device_idle_share": (1.0 - busy / prof_wall) if prof_wall else None,
         "by_kernel": [{"name": name, "device_s": sec,

@@ -4,16 +4,25 @@ device (they cannot run anywhere else — a CUDA kernel has no interpret
 mode). Run them on the GPU host with
 ``python -m pytest tests/test_torch_cuda_kernels.py -q``.
 
-Bounds: bf16 outputs within 2e-2 absolute of the plain version (one
-bf16 ulp at |x| <= 2, plus float32 sum-order noise); float32 within 2e-5.
+Bounds: flash bf16 outputs within 2e-2 absolute of the plain version
+(one bf16 ulp at |x| <= 2, plus float32 sum-order noise), float32 within
+2e-5. The ragged kernel, which keeps its plain version's bf16 roundings:
+each element within 2e-2 and each output row (every head of one query of
+one slot) within relative L2 2^-8 (flipped roundings are sparse; a walk
+that drops one position moves a row by >= 1e-2). Flash decode, which
+rounds once at the output: within one bf16 ulp of each element. At G = 1
+the ragged kernel's verify instantiation equals its decode instantiation
+bit for bit.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from gofr_tpu_torch.ops.cuda import decode_attention as decode_mod
 from gofr_tpu_torch.ops.cuda import flash_attention as flash_mod
 from gofr_tpu_torch.ops.cuda import ragged_paged_attention as ragged_mod
+from gofr_tpu_torch.ops.cuda.tolerance import row_rel_l2, ulp_error
 
 pytestmark = pytest.mark.cuda
 
@@ -41,18 +50,19 @@ def test_flash_kernel_matches_plain(cuda, seq, causal, dtype, tol):
     assert (out.float() - ref.float()).abs().max().item() <= tol
 
 
-def test_ragged_kernel_matches_plain_and_skips_poison(cuda):
-    num_pages, page, hkv, group, width = 40, 32, 2, 4, 8
-    fills = [0, 1, 31, 32, 33, 100, 255]
-    gen = torch.Generator(device=cuda).manual_seed(0)
+def _paged(cuda, fills, g_len, group=4, seed=0):
+    """Poisoned bf16 pools (NaN wherever no live position points), page
+    32, 8 table columns; q (B,G,Hq,D), k/v_new (B,G,Hkv,D)."""
+    num_pages, page, hkv, width = 40, 32, 2, 8
+    gen = torch.Generator(device=cuda).manual_seed(seed)
     shape = (num_pages, page, hkv, 128)
     k_pages = torch.randn(shape, generator=gen, device=cuda).bfloat16()
     v_pages = torch.randn(shape, generator=gen, device=cuda).bfloat16()
     b = len(fills)
-    q = torch.randn((b, 1, hkv * group, 128), generator=gen,
+    q = torch.randn((b, g_len, hkv * group, 128), generator=gen,
                     device=cuda).bfloat16()
-    k_new, v_new = (torch.randn((b, hkv, 128), generator=gen, device=cuda)
-                    .bfloat16() for _ in range(2))
+    k_new, v_new = (torch.randn((b, g_len, hkv, 128), generator=gen,
+                                device=cuda).bfloat16() for _ in range(2))
     table = np.full((b, width), num_pages, np.int32)
     nxt = 0
     live = np.zeros((num_pages, page), bool)
@@ -64,10 +74,75 @@ def test_ragged_kernel_matches_plain_and_skips_poison(cuda):
     poison = torch.from_numpy(~live).to(cuda)[..., None, None]
     k_pages = k_pages.masked_fill(poison, float("nan"))
     v_pages = v_pages.masked_fill(poison, float("nan"))
-    args = (q, k_pages, v_pages, torch.from_numpy(table).to(cuda), k_new,
+    return (q, k_pages, v_pages, torch.from_numpy(table).to(cuda), k_new,
             v_new, torch.tensor(fills, dtype=torch.int32, device=cuda))
+
+
+def test_ragged_kernel_matches_plain_and_skips_poison(cuda):
+    q, kp, vp, table, kn, vn, lens = _paged(cuda, [0, 1, 31, 32, 33, 100,
+                                                   255], 1)
+    args = (q, kp, vp, table, kn[:, 0], vn[:, 0], lens)
     out = ragged_mod.ragged_paged_decode_attention(*args)
     torch.cuda.synchronize()
     ref = ragged_mod.ragged_paged_decode_attention_plain(*args)
     assert torch.isfinite(out).all()
     assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    assert row_rel_l2(out, ref) <= 2.0 ** -8
+
+
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("g_len", [1, 2, 3, 5, 8])
+def test_verify_kernel_matches_plain_and_skips_poison(cuda, g_len, group):
+    fills = [0, 1, 31, 32, 33, 100, 256 - g_len]
+    args = _paged(cuda, fills, g_len, group=group, seed=g_len)
+    before = ragged_mod.verify_launches
+    out = ragged_mod.ragged_paged_verify_attention(*args)
+    torch.cuda.synchronize()
+    assert ragged_mod.verify_launches == before + 1
+    ref = ragged_mod.ragged_paged_verify_attention_plain(*args)
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    assert row_rel_l2(out, ref) <= 2.0 ** -8
+
+
+def test_verify_kernel_g1_is_bitwise_the_decode_kernel(cuda):
+    """The verify instantiation (new-token bound 8) at G = 1 against the
+    decode instantiation (bound 1) that served G = 1 launches take."""
+    q, kp, vp, table, kn, vn, lens = _paged(cuda, [0, 1, 31, 32, 33, 100,
+                                                   255], 1)
+    before = ragged_mod.verify_launches
+    verify = ragged_mod.ragged_paged_verify_form_attention(
+        q, kp, vp, table, kn, vn, lens)
+    assert ragged_mod.verify_launches == before     # uncounted
+    decode = ragged_mod.ragged_paged_decode_attention(
+        q, kp, vp, table, kn[:, 0], vn[:, 0], lens)
+    assert torch.equal(verify.view(torch.int16), decode.view(torch.int16))
+
+
+def test_verify_kernel_refuses_too_many_tokens(cuda):
+    args = _paged(cuda, [3], 9)
+    with pytest.raises(ValueError, match="G in"):
+        ragged_mod.ragged_paged_verify_attention(*args)
+
+
+@pytest.mark.parametrize("heads", [(32, 8), (8, 8), (8, 4), (16, 2)])
+def test_flash_decode_kernel_matches_plain(cuda, heads):
+    hq, hkv = heads
+    fills = [0, 1, 127, 128, 129, 700, 1500, 2047]
+    b, t = len(fills), 2048
+    gen = torch.Generator(device=cuda).manual_seed(hq + hkv)
+    lens = torch.tensor(fills, dtype=torch.int32, device=cuda)
+    dead = (torch.arange(t, device=cuda)[None, :]
+            >= lens[:, None])[..., None, None]
+    k, v = (torch.randn((b, t, hkv, 128), generator=gen, device=cuda)
+            .bfloat16().masked_fill(dead, float("nan")) for _ in range(2))
+    q = torch.randn((b, 1, hq, 128), generator=gen, device=cuda).bfloat16()
+    kn, vn = (torch.randn((b, hkv, 128), generator=gen, device=cuda)
+              .bfloat16() for _ in range(2))
+    before = decode_mod.launches
+    out = decode_mod.flash_decode_attention(q, k, v, kn, vn, lens)
+    torch.cuda.synchronize()
+    assert decode_mod.launches == before + 1
+    ref = decode_mod.flash_decode_attention_plain(q, k, v, kn, vn, lens)
+    assert torch.isfinite(out).all()
+    assert ulp_error(out, ref) <= 1.0
