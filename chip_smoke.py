@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch/CUDA port (``gofr_tpu_torch``).
 
-Drives the port's two serving paths on one NVIDIA GPU at the full
+Drives the port's serving paths on one NVIDIA GPU at the full
 ``llama3-8b`` geometry (random weights from ``--seed``): the paged Llama
 ``/generate`` engine, with prefill through the hand-written
 flash-attention kernel and every decode step through the hand-written
-ragged paged attention kernel; and the same engine with speculative
-decode, whose 4-layer draft decodes through the hand-written flash-decode
-kernel and whose target verifies G tokens at once through the ragged
-kernel's G > 1 launch.
+ragged paged attention kernel; the same engine with speculative decode,
+whose 4-layer draft decodes through the hand-written flash-decode kernel
+and whose target verifies G tokens at once through the ragged kernel's
+G > 1 launch; and both again with ``kv_int8`` (int8 KV pool with float32
+scale planes), whose decode and verify go through the ragged kernel's
+int8 instantiation.
 Phases, each of which raises (exit code != 0) on failure:
 
 1. card identity (``nvidia-smi`` name and power limit, torch/CUDA);
@@ -16,21 +18,25 @@ Phases, each of which raises (exit code != 0) on failure:
 3. flash kernel vs its plain version, bf16, Hq 32 / Hkv 8 / D 128,
    causal, S in {32, 128, 512, 2048}, B in {1, 4}; timed beside the plain
    version and ``scaled_dot_product_attention`` (a yardstick only);
-4. ragged kernel, decode (G = 1), vs its plain version, bf16, 8 slots,
-   page 32, 64 table columns, fills {0, 1, 31, 32, 33, 700, 2047, 512},
-   every position no live entry references poisoned with NaN;
-5. ragged kernel, verify, vs its plain version on the same layout, G in
-   {2, 3, 5} with fills {0, 1, 31, 32, 33, 700, 2047 - G, 512}, and the
-   kernel's verify instantiation at G = 1 bit-identical to its decode
-   instantiation;
+4. ragged kernel, decode (G = 1), vs its plain version, 8 slots, page 32,
+   64 table columns, fills {0, 1, 31, 32, 33, 700, 2047, 512}: over bf16
+   pools with every position no live entry references NaN, then over
+   int8 pools (the same rows quantised) whose scale planes are NaN at
+   every such position;
+5. ragged kernel, verify, vs its plain version on the same layouts, G in
+   {2, 3, 5} with fills {0, 1, 31, 32, 33, 700, 2047 - G, 512}, bf16 then
+   int8, and for each the kernel's verify instantiation at G = 1
+   bit-identical to its decode instantiation;
 6. flash-decode kernel vs its plain version, bf16, 8 slots, T 2048,
    Hq 32 / Hkv 8, fills {0, 1, 127, 128, 129, 700, 1500, 2047}, every row
    past a fill NaN; timed beside ``scaled_dot_product_attention`` with a
    per-row mask (a yardstick only);
 7. a 2-layer full-width model: prefill + 4 paged decode steps through the
-   kernels on the card (bf16) against the plain path on the CPU (f32);
+   kernels on the card (bf16) against the plain path on the CPU (f32),
+   with a bf16 pool, then with ``kv_int8``;
 8. perfect draft: the 2-layer model as its own draft (the draft through
-   flash decode); its acceptance rate must be at least 0.5;
+   flash decode), then the ``kv_int8`` model with the same weights as its
+   bf16 draft; each acceptance rate must be at least 0.5;
 9. the full 32-layer engine answering 8 concurrent requests (prompts over
    every bucket, 32 new tokens each, one sampled), with the kernels'
    launch counts checked against the engine's prefill dispatches and
@@ -39,7 +45,10 @@ Phases, each of which raises (exit code != 0) on failure:
     the target's first 4 layers, embedding and head) on the same 8
     requests, launch counts checked against its prefill dispatches, spec
     ticks, Σ(g + 1) draft steps and plain decode steps;
-11. one ``{"kernels": [...]}`` line, then the card line, then the last
+11. phase 9 with ``kv_int8`` (the same weights): launch counts, and the
+    pool's bytes against phase 9's for the same page count;
+12. phase 10 with a ``kv_int8`` target and the same bf16 draft;
+13. one ``{"kernels": [...]}`` line, then the card line, then the last
     line ``{"ok": true, "device": {...}}``.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. Details go to
@@ -51,6 +60,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import dataclasses
 import json
 import subprocess
 import sys
@@ -76,6 +86,9 @@ MODEL_REL_TOL = 5e-2             # relative L2 logits error, see phase 7
 MIN_PERFECT_ACCEPT = 0.5         # a broken verify accepts near 0, phase 8
 Q_HEADS, KV_HEADS, HEAD_DIM = 32, 8, 128
 SPEC_GAMMA, DRAFT_LAYERS = 4, 4
+# int8 / bf16 pool bytes for one page (phase 11): (128 + 4) / 256 per
+# K or V row and head
+INT8_POOL_RATIO = 2_162_688 / 4_194_304
 
 
 def log(msg: str) -> None:
@@ -205,11 +218,30 @@ def paged_scenario(torch, fills, g_len, seed):
             v_new, torch.tensor(fills, dtype=torch.int32, device="cuda"))
 
 
-def paged_cost(fills, g_len, table_size):
+def paged_scenario_int8(torch, fills, g_len, seed):
+    """:func:`paged_scenario`'s layout with int8 pools: its rows
+    quantised (``quantize_kv``) and every scale of a position no live
+    entry references NaN (the int8 rows there are 0). Returns the
+    wrapper's arguments, the two scale planes last."""
+    from gofr_tpu_torch.ops.quant import quantize_kv
+
+    q, k_pages, v_pages, table, k_new, v_new, lens = paged_scenario(
+        torch, fills, g_len, seed)
+    dead = k_pages[..., 0, 0].isnan()[..., None]        # (N, page, 1)
+    (k8, ks), (v8, vs) = (quantize_kv(pages.nan_to_num())
+                          for pages in (k_pages, v_pages))
+    return (q, k8, v8, table, k_new, v_new, lens,
+            ks.masked_fill(dead, float("nan")),
+            vs.masked_fill(dead, float("nan")))
+
+
+def paged_cost(fills, g_len, table_size, int8=False):
     """Bytes (each input read once, the output written once) and FLOPs of
-    one ragged launch over these fills, G queries per slot."""
+    one ragged launch over these fills, G queries per slot; int8 pools
+    read one byte an element plus a float32 scale per row and head."""
     batch, row = len(fills), Q_HEADS * HEAD_DIM
-    kv_bytes = 2 * sum(fills) * KV_HEADS * HEAD_DIM * 2
+    row_bytes = HEAD_DIM + 4 if int8 else HEAD_DIM * 2
+    kv_bytes = 2 * sum(fills) * KV_HEADS * row_bytes
     small_bytes = 2 * (2 * batch * g_len * row
                        + 2 * batch * g_len * KV_HEADS * HEAD_DIM) \
         + 4 * (table_size + batch)
@@ -233,87 +265,103 @@ def check_ragged(torch, out, ref, what):
     return err, row_err
 
 
-def phase_ragged(torch, ragged_mod, timer, results):
-    log("== phase 4: ragged_paged_decode_attention kernel vs plain (bf16)")
+def _scenario(torch, int8, fills, g_len, seed):
+    """The wrapper's arguments over bf16 or int8 pools."""
+    if int8:
+        return paged_scenario_int8(torch, fills, g_len, seed)
+    return paged_scenario(torch, fills, g_len, seed)
+
+
+def phase_ragged(torch, ragged_mod, timer, results, int8=False):
+    what = "ragged int8" if int8 else "ragged"
+    log(f"== phase 4: ragged_paged_decode_attention kernel vs plain "
+        f"({'int8 pools' if int8 else 'bf16'})")
     fills = [0, 1, 31, 32, 33, 700, 2047, 512]
-    q, k_pages, v_pages, table, k_new, v_new, lens = paged_scenario(
-        torch, fills, 1, 2)
-    args = (q, k_pages, v_pages, table, k_new[:, 0], v_new[:, 0], lens)
+    q, k_pages, v_pages, table, k_new, v_new, lens, *scales = _scenario(
+        torch, int8, fills, 1, 2)
+    args = (q, k_pages, v_pages, table, k_new[:, 0], v_new[:, 0], lens,
+            *scales)
     out = ragged_mod.ragged_paged_decode_attention(*args)
     torch.cuda.synchronize()
     ref = ragged_mod.ragged_paged_decode_attention_plain(*args)
     if not torch.isfinite(out).all():
-        raise AssertionError("ragged kernel output is not finite: it read a "
-                             "poisoned page")
-    err, row_err = check_ragged(torch, out, ref, "ragged")
+        raise AssertionError(f"{what} kernel output is not finite: it read "
+                             "a poisoned page")
+    err, row_err = check_ragged(torch, out, ref, what)
     ms = timer(lambda: ragged_mod.ragged_paged_decode_attention(*args),
                iters=20)
     plain_ms = timer(
         lambda: ragged_mod.ragged_paged_decode_attention_plain(*args),
         iters=5)
-    nbytes, flops = paged_cost(fills, 1, table.numel())
+    nbytes, flops = paged_cost(fills, 1, table.numel(), int8)
     bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S)
     row = dict(B=len(fills), fills=fills, page=32, table_width=64,
+               pools="int8" if int8 else "bf16",
                max_abs_err=err, row_rel_l2=row_err, ms=ms,
                plain_ms=plain_ms, library_ms=None, bound_ms=bound * 1e3,
                bound_by="bytes",
                gb_per_s=nbytes / (ms * 1e-3) / 1e9)
-    results["ragged"] = row
-    log(f"ragged B={len(fills)} err={err:.3e} row={row_err:.3e} "
+    results["ragged_int8" if int8 else "ragged"] = row
+    log(f"{what} B={len(fills)} err={err:.3e} row={row_err:.3e} "
         f"kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
         f"bound={row['bound_ms']:.4f}ms ({row['gb_per_s']:.1f} GB/s) "
         f"library=none")
     return row
 
 
-def phase_verify(torch, ragged_mod, timer, results):
-    log("== phase 5: ragged_paged_verify_attention kernel vs plain (bf16)")
+def phase_verify(torch, ragged_mod, timer, results, int8=False):
+    what = "verify int8" if int8 else "verify"
+    log(f"== phase 5: ragged_paged_verify_attention kernel vs plain "
+        f"({'int8 pools' if int8 else 'bf16'})")
     rows = []
     for g_len in (2, 3, 5):
         fills = [0, 1, 31, 32, 33, 700, 2047 - g_len, 512]
-        args = paged_scenario(torch, fills, g_len, 10 + g_len)
+        args = _scenario(torch, int8, fills, g_len, 10 + g_len)
         out = ragged_mod.ragged_paged_verify_attention(*args)
         torch.cuda.synchronize()
         ref = ragged_mod.ragged_paged_verify_attention_plain(*args)
         if not torch.isfinite(out).all():
-            raise AssertionError(f"verify G={g_len}: output is not finite: "
+            raise AssertionError(f"{what} G={g_len}: output is not finite: "
                                  "it read a poisoned page")
-        err, row_err = check_ragged(torch, out, ref, f"verify G={g_len}")
+        err, row_err = check_ragged(torch, out, ref, f"{what} G={g_len}")
         ms = timer(lambda: ragged_mod.ragged_paged_verify_attention(*args),
                    iters=20)
         plain_ms = timer(
             lambda: ragged_mod.ragged_paged_verify_attention_plain(*args),
             iters=5)
-        nbytes, flops = paged_cost(fills, g_len, args[3].numel())
+        nbytes, flops = paged_cost(fills, g_len, args[3].numel(), int8)
         bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S)
         row = dict(G=g_len, B=len(fills), fills=fills, max_abs_err=err,
+                   pools="int8" if int8 else "bf16",
                    row_rel_l2=row_err, ms=ms, plain_ms=plain_ms,
                    library_ms=None, bound_ms=bound * 1e3,
                    bound_by=("operations" if flops / BF16_FLOP_PER_S
                              >= nbytes / HBM_BYTES_PER_S else "bytes"),
                    gb_per_s=nbytes / (ms * 1e-3) / 1e9)
         rows.append(row)
-        log(f"verify G={g_len} err={err:.3e} row={row_err:.3e} "
+        log(f"{what} G={g_len} err={err:.3e} row={row_err:.3e} "
             f"kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
             f"bound={row['bound_ms']:.4f}ms ({row['gb_per_s']:.1f} GB/s) "
             f"library=none")
     # at G = 1 the verify instantiation (new-token bound MAX_NEW, the
     # causal fold's loops) must give the decode instantiation's bits
     fills = [0, 1, 31, 32, 33, 700, 2047, 512]
-    q, k_pages, v_pages, table, k_new, v_new, lens = paged_scenario(
-        torch, fills, 1, 2)
+    q, k_pages, v_pages, table, k_new, v_new, lens, *scales = _scenario(
+        torch, int8, fills, 1, 2)
     verify = ragged_mod.ragged_paged_verify_form_attention(
-        q, k_pages, v_pages, table, k_new, v_new, lens)
+        q, k_pages, v_pages, table, k_new, v_new, lens, *scales)
     decode = ragged_mod.ragged_paged_decode_attention(
         q, k_pages, v_pages, table, k_new[:, 0].contiguous(),
-        v_new[:, 0].contiguous(), lens)
+        v_new[:, 0].contiguous(), lens, *scales)
     torch.cuda.synchronize()
     if not torch.equal(verify.view(torch.int16), decode.view(torch.int16)):
-        raise AssertionError("the verify instantiation at G=1 is not "
-                             "bit-identical to the decode instantiation")
-    log("verify instantiation at G=1 is bit-identical to the decode "
-        "instantiation")
-    results["verify"] = dict(rows=rows, g1_bit_identical=True)
+        raise AssertionError(f"{what}: the verify instantiation at G=1 is "
+                             "not bit-identical to the decode "
+                             "instantiation")
+    log(f"{what}: verify instantiation at G=1 is bit-identical to the "
+        f"decode instantiation")
+    results["verify_int8" if int8 else "verify"] = dict(
+        rows=rows, g1_bit_identical=True)
     return rows
 
 
@@ -386,8 +434,10 @@ def phase_flash_decode(torch, decode_mod, timer, results):
 def phase_model(torch, llama, seed, results):
     import numpy as np
 
+    from gofr_tpu_torch.tpu.page_pool import PagePool
+
     log("== phase 7: 2-layer llama3-8b width, kernels (card, bf16) vs "
-        "plain (CPU, f32)")
+        "plain (CPU, f32), bf16 pool then kv_int8")
     cfg = llama.config("llama3-8b", n_layers=2, use_flash=True)
     params = llama.init(cfg, seed, device="cuda")
     ref_cfg = llama.config("llama3-8b", n_layers=2, dtype=torch.float32)
@@ -415,11 +465,9 @@ def phase_model(torch, llama, seed, results):
         logits, small, cache_len = llama.prefill(
             p, c, torch.as_tensor(tokens, device=dev), small,
             lengths=torch.as_tensor(lengths, device=dev))
-        pool = {name: torch.zeros((c.n_layers, num_pages, page,
-                                   c.n_kv_heads, c.head_dim),
-                                  dtype=c.dtype, device=dev)
-                for name in ("k", "v")}
-        for name in ("k", "v"):
+        pool = PagePool(c, page=page, num_pages=num_pages,
+                        device=dev).leaves
+        for name in pool:
             pool[name][:, 5] = small[name][:, 0]
             pool[name][:, 2] = small[name][:, 1]
         table_t = torch.as_tensor(table, device=dev)
@@ -433,26 +481,32 @@ def phase_model(torch, llama, seed, results):
             out.append(logits.float().cpu())
         return out
 
-    # the CPU reference picks the greedy tokens; the card is fed the same
-    feed = []
-    ref_out = run(ref_cfg, ref_params, "cpu", feed)
-    card_out = run(cfg, params, "cuda", feed)
-    rel, agree, total = [], 0, 0
-    for ref, got in zip(ref_out, card_out):
-        if not torch.isfinite(got).all():
-            raise AssertionError("model check: non-finite card logits")
-        rel.append(((got - ref).norm() / ref.norm()).item())
-        agree += int((got.argmax(-1) == ref.argmax(-1)).sum())
-        total += ref.shape[0]
-    worst = max(rel)
-    log(f"model: relative L2 logits error per step "
-        f"{[round(r, 5) for r in rel]} (bound {MODEL_REL_TOL}); "
-        f"top-1 agreement {agree}/{total}")
-    results["model_check"] = dict(rel_l2=rel, top1_agree=agree,
-                                  top1_total=total, bound=MODEL_REL_TOL)
-    if worst > MODEL_REL_TOL:
-        raise AssertionError(f"model check: relative error {worst} > "
-                             f"{MODEL_REL_TOL}")
+    for int8 in (False, True):
+        c, rc = (dataclasses.replace(x, kv_int8=int8)
+                 for x in (cfg, ref_cfg))
+        # the CPU reference picks the greedy tokens; the card is fed the
+        # same
+        feed = []
+        ref_out = run(rc, ref_params, "cpu", feed)
+        card_out = run(c, params, "cuda", feed)
+        rel, agree, total = [], 0, 0
+        for ref, got in zip(ref_out, card_out):
+            if not torch.isfinite(got).all():
+                raise AssertionError("model check: non-finite card logits")
+            rel.append(((got - ref).norm() / ref.norm()).item())
+            agree += int((got.argmax(-1) == ref.argmax(-1)).sum())
+            total += ref.shape[0]
+        worst = max(rel)
+        what = "model kv_int8" if int8 else "model"
+        log(f"{what}: relative L2 logits error per step "
+            f"{[round(r, 5) for r in rel]} (bound {MODEL_REL_TOL}); "
+            f"top-1 agreement {agree}/{total}")
+        results["model_check_int8" if int8 else "model_check"] = dict(
+            rel_l2=rel, top1_agree=agree, top1_total=total,
+            bound=MODEL_REL_TOL)
+        if worst > MODEL_REL_TOL:
+            raise AssertionError(f"{what} check: relative error {worst} > "
+                                 f"{MODEL_REL_TOL}")
     del params, ref_params
     torch.cuda.empty_cache()
 
@@ -460,7 +514,11 @@ def phase_model(torch, llama, seed, results):
 # the kernels each served path must launch at least once
 PATH_KERNELS = {"engine": ("flash", "ragged"),
                 "spec": ("flash", "verify", "flash_decode"),
-                "perfect_draft": ("flash", "verify", "flash_decode")}
+                "perfect_draft": ("flash", "verify", "flash_decode"),
+                "int8_engine": ("flash", "int8"),
+                "int8_spec": ("flash", "int8_verify", "flash_decode"),
+                "int8_perfect_draft": ("flash", "int8_verify",
+                                       "flash_decode")}
 
 
 def serve_burst(torch, engine, prompts, budget, samplings, mods, timeout):
@@ -490,6 +548,8 @@ def serve_burst(torch, engine, prompts, budget, samplings, mods, timeout):
             launches = dict(flash=flash_mod.launches,
                             ragged=ragged_mod.launches,
                             verify=ragged_mod.verify_launches,
+                            int8=ragged_mod.int8_launches,
+                            int8_verify=ragged_mod.int8_verify_launches,
                             flash_decode=decode_mod.launches)
             after = run_counters(engine)
             counters = {key: after[key] - before[key] for key in after}
@@ -527,6 +587,23 @@ def acceptance(counters):
     return counters["accepted"] / max(counters["proposed"], 1)
 
 
+def expected_launches(cfg, counters, draft_layers=0):
+    """What each kernel must have launched over a burst of this engine:
+    the target's layers per prefill, decode step and spec tick through
+    the bf16 or int8 ragged instantiations, the draft's per prefill and
+    draft step."""
+    n = cfg.n_layers
+    int8 = cfg.kv_int8
+    decode = n * counters["steps"]
+    verify = n * counters["spec_ticks"]
+    return dict(flash=(n + draft_layers) * counters["prefills"],
+                ragged=0 if int8 else decode,
+                verify=0 if int8 else verify,
+                int8=decode if int8 else 0,
+                int8_verify=verify if int8 else 0,
+                flash_decode=draft_layers * counters["draft_steps"])
+
+
 def check_launches(launches, want, path):
     if launches != want:
         raise AssertionError(f"{path}: launch counts {launches}, expected "
@@ -545,8 +622,9 @@ def engine_prompts(cfg, seed):
 
 
 def draft_view(llama, cfg, params, n_layers):
-    """A draft made of the target's first ``n_layers`` layers (views, no
-    copy) with its embedding, final norm and head."""
+    """A bf16 draft made of the target's first ``n_layers`` layers
+    (views, no copy) with its embedding, final norm and head; its dense
+    cache is bf16 whatever the target's pool."""
     dcfg = llama.config("llama3-8b", n_layers=n_layers, dtype=cfg.dtype,
                         use_flash=True)
     dparams = dict(params, layers={name: w[:n_layers]
@@ -556,43 +634,46 @@ def draft_view(llama, cfg, params, n_layers):
 
 def phase_perfect_draft(torch, llama, generate, mods, seed, results):
     log("== phase 8: perfect draft (2-layer full-width model as its own "
-        "draft)")
+        "draft), bf16 pool then kv_int8 target")
     cfg = llama.config("llama3-8b", n_layers=2, use_flash=True)
     params = llama.init(cfg, seed + 1, device="cuda")
     dcfg, dparams = draft_view(llama, cfg, params, 2)
-    engine = generate.GenerationEngine(
-        cfg, params, max_slots=8, max_len=2048,
-        prompt_buckets=(32, 128, 512), kv_page=32, draft_cfg=dcfg,
-        draft_params=dparams, spec_gamma=SPEC_GAMMA, device="cuda")
-    prompts = engine_prompts(cfg, seed)[:4]
-    budget = 32
-    _, _, launches, counters, _ = serve_burst(
-        torch, engine, prompts, budget, [generate.Sampling()] * 4, mods,
-        300)
-    spec = engine.stats()["speculative"]
-    rate = acceptance(counters)
-    want = dict(flash=2 * 2 * counters["prefills"],
-                ragged=2 * counters["steps"],
-                verify=2 * counters["spec_ticks"],
-                flash_decode=2 * counters["draft_steps"])
-    check_launches(launches, want, "perfect_draft")
-    results["perfect_draft"] = dict(acceptance_rate=rate, spec=spec,
-                                    launches=launches, counters=counters,
-                                    bound=MIN_PERFECT_ACCEPT)
-    log(f"perfect draft: acceptance {counters['accepted']}/"
-        f"{counters['proposed']} = "
-        f"{rate:.4f} (bound >= {MIN_PERFECT_ACCEPT}); ticks by gamma "
-        f"{counters['ticks_by_gamma']}")
-    if rate < MIN_PERFECT_ACCEPT:
-        raise AssertionError(f"perfect draft accepted {rate} < "
-                             f"{MIN_PERFECT_ACCEPT}: verify is broken")
-    del engine, params, dparams
+    for int8 in (False, True):
+        tcfg = dataclasses.replace(cfg, kv_int8=int8)
+        path = "int8_perfect_draft" if int8 else "perfect_draft"
+        engine = generate.GenerationEngine(
+            tcfg, params, max_slots=8, max_len=2048,
+            prompt_buckets=(32, 128, 512), kv_page=32, draft_cfg=dcfg,
+            draft_params=dparams, spec_gamma=SPEC_GAMMA, device="cuda")
+        prompts = engine_prompts(cfg, seed)[:4]
+        budget = 32
+        _, _, launches, counters, _ = serve_burst(
+            torch, engine, prompts, budget, [generate.Sampling()] * 4, mods,
+            300)
+        spec = engine.stats()["speculative"]
+        rate = acceptance(counters)
+        check_launches(launches, expected_launches(tcfg, counters, 2), path)
+        results[path] = dict(acceptance_rate=rate, spec=spec,
+                             launches=launches, counters=counters,
+                             bound=MIN_PERFECT_ACCEPT)
+        log(f"{path}: acceptance {counters['accepted']}/"
+            f"{counters['proposed']} = "
+            f"{rate:.4f} (bound >= {MIN_PERFECT_ACCEPT}); ticks by gamma "
+            f"{counters['ticks_by_gamma']}; launches {launches}")
+        if rate < MIN_PERFECT_ACCEPT:
+            raise AssertionError(f"{path} accepted {rate} < "
+                                 f"{MIN_PERFECT_ACCEPT}: verify is broken")
+        del engine
+    del params, dparams
     torch.cuda.empty_cache()
 
 
-def phase_engine(torch, llama, generate, mods, cfg, params, seed, results):
+def phase_engine(torch, generate, mods, cfg, params, seed, results):
+    int8 = cfg.kv_int8
     n_layers = cfg.n_layers
-    log(f"== phase 9: llama3-8b engine, {n_layers} layers, full width")
+    path = "int8_engine" if int8 else "engine"
+    log(f"== phase {11 if int8 else 9}: llama3-8b engine, {n_layers} "
+        f"layers, full width{', kv_int8' if int8 else ''}")
     engine = generate.GenerationEngine(
         cfg, params, max_slots=8, max_len=2048,
         prompt_buckets=(32, 128, 512), steps_per_tick=4, kv_page=32,
@@ -603,23 +684,40 @@ def phase_engine(torch, llama, generate, mods, cfg, params, seed, results):
         generate.Sampling(temperature=0.8, top_p=0.95, seed=seed)]
     outs, wall, launches, counters, ttfts = serve_burst(
         torch, engine, prompts, budget, samplings, mods, 900)
-    want = dict(flash=n_layers * counters["prefills"],
-                ragged=n_layers * counters["steps"], verify=0,
-                flash_decode=0)
-    check_launches(launches, want, "engine")
+    check_launches(launches, expected_launches(cfg, counters), path)
     tokens = budget * len(outs)
-    row = dict(n_layers=n_layers, requests=len(outs), new_tokens=tokens,
+    pool = engine.stats()["kv_pool"]
+    row = dict(n_layers=n_layers, kv_int8=int8, requests=len(outs),
+               new_tokens=tokens,
                wall_s=wall, tokens_per_s=tokens / wall,
                ttft_s=ttfts, ttft_p50_s=ttfts[len(ttfts) // 2],
                ttft_max_s=ttfts[-1], launches=launches, counters=counters,
+               num_pages=pool["num_pages"], page_bytes=pool["page_bytes"],
+               pool_bytes=pool["pool_bytes"],
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    results["engine"] = row
-    log(f"engine: {len(outs)} requests x {budget} tokens in {wall:.3f}s = "
+    results[path] = row
+    log(f"{path}: {len(outs)} requests x {budget} tokens in {wall:.3f}s = "
         f"{row['tokens_per_s']:.1f} tok/s; TTFT p50 "
         f"{row['ttft_p50_s']:.3f}s max {row['ttft_max_s']:.3f}s; "
         f"{counters['prefills']} prefill dispatches, {counters['steps']} "
-        f"decode steps; launches flash {launches['flash']} ragged "
-        f"{launches['ragged']}; peak memory {row['peak_mem_gb']:.2f} GB")
+        f"decode steps; launches {launches}; pool {pool['num_pages']} pages "
+        f"{pool['pool_bytes'] / 1e9:.4f} GB; peak memory "
+        f"{row['peak_mem_gb']:.2f} GB")
+    if int8:
+        bf16 = results["engine"]
+        ratio = row["pool_bytes"] / bf16["pool_bytes"]
+        row["pool_ratio_to_bf16"] = ratio
+        log(f"kv_int8 vs bf16 engine: {row['tokens_per_s']:.1f} vs "
+            f"{bf16['tokens_per_s']:.1f} tok/s; TTFT p50 "
+            f"{row['ttft_p50_s']:.3f} vs {bf16['ttft_p50_s']:.3f}s; peak "
+            f"memory {row['peak_mem_gb']:.2f} vs {bf16['peak_mem_gb']:.2f} "
+            f"GB; pool {row['pool_bytes']} vs {bf16['pool_bytes']} bytes "
+            f"for {row['num_pages']} vs {bf16['num_pages']} pages = "
+            f"{ratio:.6f}x (expected {INT8_POOL_RATIO:.6f})")
+        if row["num_pages"] != bf16["num_pages"] \
+                or abs(ratio - INT8_POOL_RATIO) > 1e-9:
+            raise AssertionError(f"int8 pool is {ratio}x the bf16 pool, "
+                                 f"expected {INT8_POOL_RATIO}")
     del engine
     torch.cuda.empty_cache()
     return launches
@@ -627,9 +725,12 @@ def phase_engine(torch, llama, generate, mods, cfg, params, seed, results):
 
 def phase_spec_engine(torch, llama, generate, mods, cfg, params, seed,
                       results):
+    int8 = cfg.kv_int8
     n_layers = cfg.n_layers
-    log(f"== phase 10: llama3-8b speculative engine, {n_layers} layers, "
-        f"draft {DRAFT_LAYERS} layers (views of the target's), gamma "
+    path = "int8_spec" if int8 else "spec"
+    log(f"== phase {12 if int8 else 10}: llama3-8b speculative engine, "
+        f"{n_layers} layers{', kv_int8' if int8 else ''}, bf16 draft "
+        f"{DRAFT_LAYERS} layers (views of the target's), gamma "
         f"{SPEC_GAMMA}")
     dcfg, dparams = draft_view(llama, cfg, params, DRAFT_LAYERS)
     engine = generate.GenerationEngine(
@@ -642,21 +743,20 @@ def phase_spec_engine(torch, llama, generate, mods, cfg, params, seed,
         generate.Sampling(temperature=0.8, top_p=0.95, seed=seed)]
     outs, wall, launches, counters, ttfts = serve_burst(
         torch, engine, prompts, budget, samplings, mods, 900)
-    want = dict(flash=(n_layers + DRAFT_LAYERS) * counters["prefills"],
-                ragged=n_layers * counters["steps"],
-                verify=n_layers * counters["spec_ticks"],
-                flash_decode=DRAFT_LAYERS * counters["draft_steps"])
-    check_launches(launches, want, "spec")
+    check_launches(launches,
+                   expected_launches(cfg, counters, DRAFT_LAYERS), path)
     spec = engine.stats()["speculative"]
+    pool = engine.stats()["kv_pool"]
     tokens = budget * len(outs)
-    row = dict(n_layers=n_layers, draft_layers=DRAFT_LAYERS,
+    row = dict(n_layers=n_layers, kv_int8=int8, draft_layers=DRAFT_LAYERS,
                gamma=SPEC_GAMMA, requests=len(outs), new_tokens=tokens,
                wall_s=wall, tokens_per_s=tokens / wall, ttft_s=ttfts,
                ttft_p50_s=ttfts[len(ttfts) // 2], ttft_max_s=ttfts[-1],
                launches=launches, counters=counters, speculative=spec,
+               pool_bytes=pool["pool_bytes"],
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    results["spec_engine"] = row
-    log(f"spec engine: {len(outs)} requests x {budget} tokens in "
+    results["int8_spec_engine" if int8 else "spec_engine"] = row
+    log(f"{path} engine: {len(outs)} requests x {budget} tokens in "
         f"{wall:.3f}s = {row['tokens_per_s']:.1f} tok/s; TTFT p50 "
         f"{row['ttft_p50_s']:.3f}s max {row['ttft_max_s']:.3f}s; "
         f"{counters['spec_ticks']} spec ticks (by gamma "
@@ -665,7 +765,8 @@ def phase_spec_engine(torch, llama, generate, mods, cfg, params, seed,
         f"{counters['steps']} plain decode steps, {counters['prefills']} "
         f"prefill dispatches; proposed {counters['proposed']} accepted "
         f"{counters['accepted']} (rate {acceptance(counters):.4f}); final "
-        f"gamma cap {spec['gamma_cap']}; launches {launches}; peak memory "
+        f"gamma cap {spec['gamma_cap']}; launches {launches}; pool "
+        f"{pool['pool_bytes'] / 1e9:.4f} GB; peak memory "
         f"{row['peak_mem_gb']:.2f} GB")
     del engine, dparams
     torch.cuda.empty_cache()
@@ -719,8 +820,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     timer = Timer(torch)
     flash_err = phase_flash(torch, flash_mod, timer, results)
-    ragged = phase_ragged(torch, ragged_mod, timer, results)
-    verify_rows = phase_verify(torch, ragged_mod, timer, results)
+    ragged = {int8: phase_ragged(torch, ragged_mod, timer, results, int8)
+              for int8 in (False, True)}
+    verify = {int8: phase_verify(torch, ragged_mod, timer, results, int8)
+              for int8 in (False, True)}
     flash_decode = phase_flash_decode(torch, decode_mod, timer, results)
     del timer
     torch.cuda.empty_cache()
@@ -736,16 +839,45 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"random weights ({sum(_numel(params)) / 1e9:.2f} B params) in "
         f"{time.monotonic() - t0:.1f}s")
-    plain = phase_engine(torch, llama, generate, mods, cfg, params,
-                         args.seed, results)
-    spec = phase_spec_engine(torch, llama, generate, mods, cfg, params,
-                             args.seed, results)
-    # launches on the two main paths: each run counted from 0
-    counts = {name: plain[name] + spec[name] for name in plain}
+    # one set of weights serves the four engines: bf16 pool, then kv_int8
+    by_path = {}
+    for int8 in (False, True):
+        c = dataclasses.replace(cfg, kv_int8=int8)
+        by_path["int8_engine" if int8 else "engine"] = phase_engine(
+            torch, generate, mods, c, params, args.seed, results)
+        by_path["int8_spec" if int8 else "spec"] = phase_spec_engine(
+            torch, llama, generate, mods, c, params, args.seed, results)
+    # launches on the main paths: each run counted from 0
+    counts = {name: sum(run[name] for run in by_path.values())
+              for name in by_path["engine"]}
 
     flash_main = next(r for r in results["flash"]
                       if r["B"] == 4 and r["S"] == 512)
-    verify_main = next(r for r in verify_rows if r["G"] == SPEC_GAMMA + 1)
+
+    def ragged_row(name, int8, launches):
+        row = ragged[int8]
+        return dict(name=name, route="cuda",
+                    source="gofr_tpu_torch/csrc/ragged_paged_attention.cu",
+                    replaces="gofr_tpu/ops/pallas/"
+                             "ragged_paged_attention.py:315",
+                    launches=launches, max_abs_err=row["max_abs_err"],
+                    ms=row["ms"], plain_ms=row["plain_ms"],
+                    bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                    library_ms=None)
+
+    def verify_row(name, int8, launches):
+        rows = verify[int8]
+        main_row = next(r for r in rows if r["G"] == SPEC_GAMMA + 1)
+        return dict(name=name, route="cuda",
+                    source="gofr_tpu_torch/csrc/ragged_paged_attention.cu",
+                    replaces="gofr_tpu/ops/pallas/"
+                             "ragged_paged_attention.py:315",
+                    launches=launches,
+                    max_abs_err=max(r["max_abs_err"] for r in rows),
+                    ms=main_row["ms"], plain_ms=main_row["plain_ms"],
+                    bound_ms=main_row["bound_ms"],
+                    bound_by=main_row["bound_by"], library_ms=None)
+
     kernels = [
         dict(name="flash_attention", route="cuda",
              source="gofr_tpu_torch/csrc/flash_attention.cu",
@@ -755,21 +887,10 @@ def main() -> int:
              bound_ms=flash_main["bound_ms"],
              bound_by=flash_main["bound_by"],
              library_ms=flash_main["library_ms"]),
-        dict(name="ragged_paged_decode_attention", route="cuda",
-             source="gofr_tpu_torch/csrc/ragged_paged_attention.cu",
-             replaces="gofr_tpu/ops/pallas/ragged_paged_attention.py:315",
-             launches=counts["ragged"], max_abs_err=ragged["max_abs_err"],
-             ms=ragged["ms"], plain_ms=ragged["plain_ms"],
-             bound_ms=ragged["bound_ms"], bound_by=ragged["bound_by"],
-             library_ms=None),
-        dict(name="ragged_paged_verify_attention", route="cuda",
-             source="gofr_tpu_torch/csrc/ragged_paged_attention.cu",
-             replaces="gofr_tpu/ops/pallas/ragged_paged_attention.py:315",
-             launches=counts["verify"],
-             max_abs_err=max(r["max_abs_err"] for r in verify_rows),
-             ms=verify_main["ms"], plain_ms=verify_main["plain_ms"],
-             bound_ms=verify_main["bound_ms"],
-             bound_by=verify_main["bound_by"], library_ms=None),
+        ragged_row("ragged_paged_decode_attention", False,
+                   counts["ragged"]),
+        verify_row("ragged_paged_verify_attention", False,
+                   counts["verify"]),
         dict(name="flash_decode_attention", route="cuda",
              source="gofr_tpu_torch/csrc/decode_attention.cu",
              replaces="gofr_tpu/ops/pallas/decode_attention.py:158",
@@ -779,9 +900,13 @@ def main() -> int:
              bound_ms=flash_decode["bound_ms"],
              bound_by=flash_decode["bound_by"],
              library_ms=flash_decode["library_ms"]),
+        ragged_row("ragged_paged_decode_attention_int8", True,
+                   counts["int8"]),
+        verify_row("ragged_paged_verify_attention_int8", True,
+                   counts["int8_verify"]),
     ]
     results["kernels"] = kernels
-    results["launches_by_path"] = dict(engine=plain, spec=spec)
+    results["launches_by_path"] = by_path
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(results, indent=1))

@@ -1,10 +1,12 @@
-// Ragged paged attention over bf16 pools, hand-written for Hopper
+// Ragged paged attention over bf16 or int8 pools, hand-written for Hopper
 // (sm_90a): decode (one new query per slot) and speculative verify (G new
 // queries per slot) in one kernel.
 //
 // Replaces: gofr_tpu/ops/pallas/ragged_paged_attention.py, _ragged_kernel
-// (via _pallas_ragged), bf16 pools: ragged_paged_decode_attention (G = 1)
-// and ragged_paged_verify_attention (G > 1). Query g of a slot sits at
+// (via _pallas_ragged): ragged_paged_decode_attention (G = 1) and
+// ragged_paged_verify_attention (G > 1), over bf16 pools and over int8
+// pools with their per-(position, head) float32 scale planes (the
+// kernel's `int8` branch). Query g of a slot sits at
 // position cache_len + g and attends the KV pool pages its page table
 // names, below cache_len, plus the G new tokens' own K/V causally
 // (u <= g), without gathering a dense view.
@@ -37,22 +39,46 @@
 // launch. Only B*Hkv*G blocks run, so a small batch leaves SMs idle:
 // splitting the position range across blocks is later work.
 //
-// Layout: q (B,G,Hq,D); k_pages/v_pages (N,page,Hkv,D); table (B,P) int32
+// int8 pools (KV = int8_t) dequantise in the kernel, in the oracle's
+// int8 formulation: the dot of the bf16 query with the int8 row (as f32)
+// is rounded to bf16, scaled by sm_scale, then by the row's K scale; the
+// cache probabilities are not rounded but multiplied by the row's V
+// scale before they weight the int8 V row in f32. A K or V row is 128
+// bytes, so each half-warp lane loads 8 bytes (8 elements, the bf16
+// layout's lane split) and a position's row is still one coalesced load
+// per half-warp; its scale is one float that the half-warp's lanes load
+// from one address (one transaction). Scales are read only for live
+// positions, like the rows: a NaN scale in a dead row or a sentinel page
+// never reaches the output. The new tokens' K/V arrive as bf16 and take
+// the bf16 path. The bytes per position fall from 512 to 264 (K, V and
+// two scales), the block count is unchanged.
+//
+// Layout: q (B,G,Hq,D); k_pages/v_pages (N,page,Hkv,D) bf16 or int8;
+// k_scale/v_scale (N,page,Hkv) f32 with int8 pools; table (B,P) int32
 // with sentinel N; k_new/v_new (B,G,Hkv,D); cache_len (B,) int32 (valid
-// tokens excluding the new ones); out (B,G,Hq,D). All bf16 except the
-// ints. D is 128; the group (Hq/Hkv) is 1, 2, 4 or 8; 1 <= G <= MAX_NEW.
+// tokens excluding the new ones); out (B,G,Hq,D). q, new K/V and out
+// bf16. D is 128; the group (Hq/Hkv) is 1, 2, 4 or 8; 1 <= G <= MAX_NEW.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <cmath>
+#include <type_traits>
 
 #include "attention_common.cuh"
 
 namespace {
 
 constexpr int MAX_NEW = 8;  // at most 8 new tokens a slot (gamma <= 7)
+
+// 8 int8 elements (one 8-byte load) as floats: the int8 pools' lane share
+__device__ __forceinline__ void load8(const int8_t* p, float* out) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+  for (int j = 0; j < LANE_ELEMS; ++j) out[j] = static_cast<float>(c[j]);
+}
 
 // offset of position t's row in a pool leaf, through the slot's page
 // table; t is always below the fill, so its entry is a real page (clamped
@@ -83,12 +109,15 @@ __device__ __forceinline__ void scores(const float (&qv)[G][LANE_ELEMS],
 // One block per (KV head, slot, query qi): the walk for query qi's `G`
 // rows, with the new-token fold over the keys u <= qi. NEW bounds the new
 // tokens at compile time: 1 for a decode launch (the fold is then u = 0
-// alone, with no per-query loops), MAX_NEW for verify.
-template <int G, int NEW>
+// alone, with no per-query loops), MAX_NEW for verify. KV is the pools'
+// element type: __nv_bfloat16, or int8_t with the scale planes.
+template <int G, int NEW, typename KV>
 __global__ void __launch_bounds__(THREADS)
 ragged_kernel(const __nv_bfloat16* __restrict__ q,
-              const __nv_bfloat16* __restrict__ k_pages,
-              const __nv_bfloat16* __restrict__ v_pages,
+              const KV* __restrict__ k_pages,
+              const KV* __restrict__ v_pages,
+              const float* __restrict__ k_scale,
+              const float* __restrict__ v_scale,
               const int32_t* __restrict__ table,
               const __nv_bfloat16* __restrict__ k_new,
               const __nv_bfloat16* __restrict__ v_new,
@@ -99,6 +128,7 @@ ragged_kernel(const __nv_bfloat16* __restrict__ q,
   __shared__ float part_l[STREAMS][G];
   __shared__ float part_acc[WARPS][G][D];
   __shared__ float p_new_sh[NEW][G];
+  constexpr bool INT8 = std::is_same<KV, int8_t>::value;
 
   const int h = blockIdx.x, b = blockIdx.y, qi = blockIdx.z;
   const int Hq = Hkv * G;
@@ -130,12 +160,25 @@ ragged_kernel(const __nv_bfloat16* __restrict__ q,
     const int t = base + lane / 16;
     const bool live = t < len;
     float kv[LANE_ELEMS] = {};
-    if (live) load8(k_pages + row_offset(trow, t, page, num_pages,
-                                         page_stride, pos_stride) + head_off,
-                    kv);
+    float ks = 0.f;
+    if (live) {
+      load8(k_pages + row_offset(trow, t, page, num_pages, page_stride,
+                                 pos_stride) + head_off,
+            kv);
+      // the scale load goes out with the row's, not after the dot
+      if constexpr (INT8)
+        ks = k_scale[row_offset(trow, t, page, num_pages, (long)page * Hkv,
+                                Hkv) + h];
+    }
     float s[G];
     scores<G>(qv, kv, sm_scale, s);
     if (!live) continue;
+    if constexpr (INT8) {
+      // oracle: (round(dot) * sm_scale) * k_scale, before the mask; the
+      // _rn product is never contracted into the max/exp arithmetic
+#pragma unroll
+      for (int g = 0; g < G; ++g) s[g] = __fmul_rn(s[g], ks);
+    }
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       const float mn = fmaxf(m[g], s[g]);
@@ -201,20 +244,40 @@ ragged_kernel(const __nv_bfloat16* __restrict__ q,
     const int t = base + lane / 16;
     const bool live = t < len;
     float kv[LANE_ELEMS] = {}, vv[LANE_ELEMS] = {};
+    float ks = 0.f, vs = 0.f;
     if (live) {
       const long row = row_offset(trow, t, page, num_pages, page_stride,
                                   pos_stride) + head_off;
       load8(k_pages + row, kv);
       load8(v_pages + row, vv);
+      if constexpr (INT8) {
+        const long srow = row_offset(trow, t, page, num_pages,
+                                     (long)page * Hkv, Hkv) + h;
+        ks = k_scale[srow];
+        vs = v_scale[srow];
+      }
     }
     float s[G];
     scores<G>(qv, kv, sm_scale, s);
     if (!live) continue;
+    if constexpr (INT8) {
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float p = round_bf16(expf(s[g] - m_fin[g]) / l_fin[g]);
+      for (int g = 0; g < G; ++g) {
+        // oracle int8 V path: the probability stays f32, times the scale
+        const float p =
+            (expf(__fmul_rn(s[g], ks) - m_fin[g]) / l_fin[g]) * vs;
 #pragma unroll
-      for (int j = 0; j < LANE_ELEMS; ++j) acc[g][j] = fmaf(p, vv[j], acc[g][j]);
+        for (int j = 0; j < LANE_ELEMS; ++j)
+          acc[g][j] = fmaf(p, vv[j], acc[g][j]);
+      }
+    } else {
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float p = round_bf16(expf(s[g] - m_fin[g]) / l_fin[g]);
+#pragma unroll
+        for (int j = 0; j < LANE_ELEMS; ++j)
+          acc[g][j] = fmaf(p, vv[j], acc[g][j]);
+      }
     }
   }
 #pragma unroll
@@ -245,18 +308,27 @@ ragged_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int G, int NEW>
-cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
-                   const void* table, const void* k_new, const void* v_new,
+// The pools and their scale planes (null for bf16 pools).
+struct Pools {
+  const void* k;
+  const void* v;
+  const void* k_scale;
+  const void* v_scale;
+};
+
+template <int G, int NEW, typename KV>
+cudaError_t launch(const void* q, Pools pools, const void* table,
+                   const void* k_new, const void* v_new,
                    const void* cache_len, void* out, int B, int g_len,
                    int Hkv, int num_pages, int page, int P,
                    cudaStream_t stream) {
   const dim3 grid(Hkv, B, g_len);
   const float sm_scale = (float)(1.0 / sqrt((double)D));
-  ragged_kernel<G, NEW><<<grid, THREADS, 0, stream>>>(
+  ragged_kernel<G, NEW, KV><<<grid, THREADS, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k_pages),
-      static_cast<const __nv_bfloat16*>(v_pages),
+      static_cast<const KV*>(pools.k), static_cast<const KV*>(pools.v),
+      static_cast<const float*>(pools.k_scale),
+      static_cast<const float*>(pools.v_scale),
       static_cast<const int32_t*>(table),
       static_cast<const __nv_bfloat16*>(k_new),
       static_cast<const __nv_bfloat16*>(v_new),
@@ -268,26 +340,26 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
 
 // Decode (g_len 1) takes the NEW = 1 instantiation unless verify_form asks
 // for the verify one, which must give the same bits at g_len 1.
-template <int G>
-cudaError_t launch_group(const void* q, const void* k_pages,
-                         const void* v_pages, const void* table,
+template <int G, typename KV>
+cudaError_t launch_group(const void* q, Pools pools, const void* table,
                          const void* k_new, const void* v_new,
                          const void* cache_len, void* out, int B, int g_len,
                          int Hkv, int num_pages, int page, int P,
                          bool verify_form, cudaStream_t stream) {
   if (g_len == 1 && !verify_form)
-    return launch<G, 1>(q, k_pages, v_pages, table, k_new, v_new, cache_len,
-                        out, B, g_len, Hkv, num_pages, page, P, stream);
-  return launch<G, MAX_NEW>(q, k_pages, v_pages, table, k_new, v_new,
-                            cache_len, out, B, g_len, Hkv, num_pages, page,
-                            P, stream);
+    return launch<G, 1, KV>(q, pools, table, k_new, v_new, cache_len, out,
+                            B, g_len, Hkv, num_pages, page, P, stream);
+  return launch<G, MAX_NEW, KV>(q, pools, table, k_new, v_new, cache_len,
+                                out, B, g_len, Hkv, num_pages, page, P,
+                                stream);
 }
 
-int dispatch(const void* q, const void* k_pages, const void* v_pages,
-             const void* table, const void* k_new, const void* v_new,
-             const void* cache_len, void* out, int B, int g_len, int Hq,
-             int Hkv, int head_dim, int num_pages, int page, int P,
-             bool verify_form, void* stream) {
+template <typename KV>
+int dispatch(const void* q, Pools pools, const void* table,
+             const void* k_new, const void* v_new, const void* cache_len,
+             void* out, int B, int g_len, int Hq, int Hkv, int head_dim,
+             int num_pages, int page, int P, bool verify_form,
+             void* stream) {
   if (head_dim != D || B <= 0 || Hkv <= 0 || Hq % Hkv != 0 ||
       num_pages <= 0 || page <= 0 || P <= 0 || B > 65535 || g_len < 1 ||
       g_len > MAX_NEW)
@@ -295,21 +367,21 @@ int dispatch(const void* q, const void* k_pages, const void* v_pages,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (Hq / Hkv) {
     case 1:
-      return (int)launch_group<1>(q, k_pages, v_pages, table, k_new, v_new,
-                                  cache_len, out, B, g_len, Hkv, num_pages,
-                                  page, P, verify_form, st);
+      return (int)launch_group<1, KV>(q, pools, table, k_new, v_new,
+                                      cache_len, out, B, g_len, Hkv,
+                                      num_pages, page, P, verify_form, st);
     case 2:
-      return (int)launch_group<2>(q, k_pages, v_pages, table, k_new, v_new,
-                                  cache_len, out, B, g_len, Hkv, num_pages,
-                                  page, P, verify_form, st);
+      return (int)launch_group<2, KV>(q, pools, table, k_new, v_new,
+                                      cache_len, out, B, g_len, Hkv,
+                                      num_pages, page, P, verify_form, st);
     case 4:
-      return (int)launch_group<4>(q, k_pages, v_pages, table, k_new, v_new,
-                                  cache_len, out, B, g_len, Hkv, num_pages,
-                                  page, P, verify_form, st);
+      return (int)launch_group<4, KV>(q, pools, table, k_new, v_new,
+                                      cache_len, out, B, g_len, Hkv,
+                                      num_pages, page, P, verify_form, st);
     case 8:
-      return (int)launch_group<8>(q, k_pages, v_pages, table, k_new, v_new,
-                                  cache_len, out, B, g_len, Hkv, num_pages,
-                                  page, P, verify_form, st);
+      return (int)launch_group<8, KV>(q, pools, table, k_new, v_new,
+                                      cache_len, out, B, g_len, Hkv,
+                                      num_pages, page, P, verify_form, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -317,15 +389,16 @@ int dispatch(const void* q, const void* k_pages, const void* v_pages,
 
 }  // namespace
 
-// Returns a cudaError_t (0 = success).
+// Each entry returns a cudaError_t (0 = success). bf16 pools:
 extern "C" int gofr_ragged_paged_attention(
     const void* q, const void* k_pages, const void* v_pages,
     const void* table, const void* k_new, const void* v_new,
     const void* cache_len, void* out, int B, int g_len, int Hq, int Hkv,
     int head_dim, int num_pages, int page, int P, void* stream) {
-  return dispatch(q, k_pages, v_pages, table, k_new, v_new, cache_len, out,
-                  B, g_len, Hq, Hkv, head_dim, num_pages, page, P, false,
-                  stream);
+  return dispatch<__nv_bfloat16>(
+      q, Pools{k_pages, v_pages, nullptr, nullptr}, table, k_new, v_new,
+      cache_len, out, B, g_len, Hq, Hkv, head_dim, num_pages, page, P,
+      false, stream);
 }
 
 // The same launch through the verify instantiation at every g_len, 1
@@ -336,7 +409,33 @@ extern "C" int gofr_ragged_paged_attention_verify_form(
     const void* table, const void* k_new, const void* v_new,
     const void* cache_len, void* out, int B, int g_len, int Hq, int Hkv,
     int head_dim, int num_pages, int page, int P, void* stream) {
-  return dispatch(q, k_pages, v_pages, table, k_new, v_new, cache_len, out,
-                  B, g_len, Hq, Hkv, head_dim, num_pages, page, P, true,
-                  stream);
+  return dispatch<__nv_bfloat16>(
+      q, Pools{k_pages, v_pages, nullptr, nullptr}, table, k_new, v_new,
+      cache_len, out, B, g_len, Hq, Hkv, head_dim, num_pages, page, P, true,
+      stream);
+}
+
+// int8 pools with their (N,page,Hkv) f32 scale planes.
+extern "C" int gofr_ragged_paged_attention_int8(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* k_scale, const void* v_scale, const void* table,
+    const void* k_new, const void* v_new, const void* cache_len, void* out,
+    int B, int g_len, int Hq, int Hkv, int head_dim, int num_pages,
+    int page, int P, void* stream) {
+  return dispatch<int8_t>(q, Pools{k_pages, v_pages, k_scale, v_scale},
+                          table, k_new, v_new, cache_len, out, B, g_len, Hq,
+                          Hkv, head_dim, num_pages, page, P, false, stream);
+}
+
+// The int8 launch through the verify instantiation at every g_len (the
+// int8 counterpart of gofr_ragged_paged_attention_verify_form).
+extern "C" int gofr_ragged_paged_attention_int8_verify_form(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* k_scale, const void* v_scale, const void* table,
+    const void* k_new, const void* v_new, const void* cache_len, void* out,
+    int B, int g_len, int Hq, int Hkv, int head_dim, int num_pages,
+    int page, int P, void* stream) {
+  return dispatch<int8_t>(q, Pools{k_pages, v_pages, k_scale, v_scale},
+                          table, k_new, v_new, cache_len, out, B, g_len, Hq,
+                          Hkv, head_dim, num_pages, page, P, true, stream);
 }

@@ -12,6 +12,9 @@
   wrapper, and paged decode and paged verify attention always go through
   the ragged paged wrappers. Each wrapper launches its CUDA kernel on a
   CUDA tensor and runs its plain version on a CPU tensor.
+- ``kv_int8`` stores K/V as int8 plus per-(token, head) float32 scales
+  (``ops/quant.quantize_kv``) on every cache and pool write; paged decode
+  and verify read them through the ragged kernel's int8 instantiation.
 - The paged KV pool and the dense cache are updated in place (indexed
   assignment), where the JAX package threaded them through a scan carry.
   PyTorch has no dropping scatter (JAX's ``mode="drop"``), so rows that
@@ -35,7 +38,7 @@ from gofr_tpu_torch.ops.cuda.flash_attention import flash_attention
 from gofr_tpu_torch.ops.cuda.ragged_paged_attention import (
     ragged_paged_decode_attention, ragged_paged_verify_attention)
 from gofr_tpu_torch.ops.norms import rms_norm
-from gofr_tpu_torch.ops.quant import qmm
+from gofr_tpu_torch.ops.quant import qmm, quantize_kv
 from gofr_tpu_torch.ops.rotary import apply_rope, rope_table
 
 Params = Dict[str, Any]
@@ -55,6 +58,12 @@ class LlamaConfig:
     dtype: torch.dtype = torch.bfloat16
     # prefill attention through the flash-attention kernel wrapper
     use_flash: bool = False
+    # int8 KV cache: K/V rows int8 plus per-(token, head) float32 scales
+    # (ops/quant.quantize_kv), half the bf16 cache's bytes: the capacity
+    # lever (more slots or longer contexts per card). Paged decode and
+    # verify dequantise inside the ragged kernel; the dense decode_step
+    # (flash decode reads a bf16 cache) refuses it.
+    kv_int8: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -126,11 +135,41 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
                ) -> Dict[str, torch.Tensor]:
     """Per-layer dense KV cache (L, B, T, Hkv, D), zero-initialised: the
     small cache a prefill fills before the engine scatters it into pool
-    pages, or the speculative draft's per-slot cache."""
+    pages, or the speculative draft's per-slot cache. With
+    ``cfg.kv_int8`` k/v are int8 and ``ks``/``vs`` (L, B, T, Hkv) float32
+    scale planes, initialised to ones."""
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     dev = resolve_device(device)
+    if cfg.kv_int8:
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "ks": torch.ones(shape[:-1], dtype=torch.float32,
+                                 device=dev),
+                "vs": torch.ones(shape[:-1], dtype=torch.float32,
+                                 device=dev)}
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+
+
+def _kv_rows(cfg: LlamaConfig, k: torch.Tensor,
+             v: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """What a cache or pool write stores for these K/V rows, by leaf:
+    the rows themselves, or with ``cfg.kv_int8`` their int8 quantisation
+    and scales."""
+    if not cfg.kv_int8:
+        return {"k": k, "v": v}
+    kq, ks = quantize_kv(k)
+    vq, vs = quantize_kv(v)
+    return {"k": kq, "v": vq, "ks": ks, "vs": vs}
+
+
+def _scale_planes(cfg: LlamaConfig, pool: Dict[str, torch.Tensor],
+                  i: int) -> Tuple[Optional[torch.Tensor],
+                                   Optional[torch.Tensor]]:
+    """Layer ``i``'s K and V scale planes of an int8 pool, else Nones."""
+    if not cfg.kv_int8:
+        return None, None
+    return pool["ks"][i], pool["vs"][i]
 
 
 def _layer(params: Params, i: int) -> Dict[str, Any]:
@@ -183,8 +222,8 @@ def _run_prompt(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
         h = rms_norm(x, layer["ffn_norm"], cfg.norm_eps)
         x = x + _ffn(layer, h)
         if cache is not None:
-            cache["k"][i, :, :s] = k
-            cache["v"][i, :, :s] = v
+            for name, rows in _kv_rows(cfg, k, v).items():
+                cache[name][i, :, :s] = rows
     return x
 
 
@@ -200,7 +239,8 @@ def prefill(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
             cache: Dict[str, torch.Tensor],
             lengths: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], torch.Tensor]:
-    """Run the prompt and fill ``cache`` (L, B, T >= S, Hkv, D) in place.
+    """Run the prompt and fill ``cache`` (L, B, T >= S, Hkv, D) in place
+    (quantised, with its scale planes, under ``cfg.kv_int8``).
     Returns (last-token logits (B, V) f32, cache, cache_len (B,) int32).
 
     ``lengths`` (B,) supports right-padded prompts: logits are taken at
@@ -229,11 +269,13 @@ def decode_step_paged(params: Params, cfg: LlamaConfig, token: torch.Tensor,
     """One decode step over the paged KV pool.
 
     token (B,) int; ``pool`` {"k", "v"} leaves (L, num_pages, page, Hkv,
-    D); page_table (B, P) int32 with ``num_pages`` as the unallocated
-    sentinel; cache_len (B,) int32 valid tokens excluding this one;
-    active (B,) bool gates the append. Attention runs through the ragged
-    paged decode wrapper, then the new K/V row is written in place at
-    page ``cache_len // page``, offset ``cache_len % page``. Returns
+    D), with ``cfg.kv_int8`` int8 plus {"ks", "vs"} (L, num_pages, page,
+    Hkv) float32 scale planes; page_table (B, P) int32 with ``num_pages``
+    as the unallocated sentinel; cache_len (B,) int32 valid tokens
+    excluding this one; active (B,) bool gates the append. Attention runs
+    through the ragged paged decode wrapper, then the new K/V row
+    (quantised under ``kv_int8``) is written in place at page
+    ``cache_len // page``, offset ``cache_len % page``. Returns
     (logits (B, V) f32, pool, cache_len + 1); the caller freezes inactive
     rows' cache_len.
 
@@ -258,19 +300,18 @@ def decode_step_paged(params: Params, cfg: LlamaConfig, token: torch.Tensor,
     x = params["tok_emb"][token][:, None, :]              # (B, 1, D)
     for i in range(cfg.n_layers):
         layer = _layer(params, i)
-        k_pool, v_pool = pool["k"][i], pool["v"][i]
         h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
         q, k, v = _qkv(layer, h, cfg, cos, sin, positions)
         k_new, v_new = k[:, 0].contiguous(), v[:, 0].contiguous()
         attn = ragged_paged_decode_attention(
-            q.contiguous(), k_pool, v_pool, page_table, k_new, v_new,
-            cache_len)
+            q.contiguous(), pool["k"][i], pool["v"][i], page_table, k_new,
+            v_new, cache_len, *_scale_planes(cfg, pool, i))
         x = x + qmm(attn.reshape(b, 1, -1), layer["wo"])
         h = rms_norm(x, layer["ffn_norm"], cfg.norm_eps)
         x = x + _ffn(layer, h)
         # in-place append into the shared pool (active, non-sentinel rows)
-        k_pool[dest_row, dest_off] = k_new[keep]
-        v_pool[dest_row, dest_off] = v_new[keep]
+        for name, rows in _kv_rows(cfg, k_new, v_new).items():
+            pool[name][i][dest_row, dest_off] = rows[keep]
     x = rms_norm(x[:, 0], params["out_norm"], cfg.norm_eps)
     logits = qmm(x, params["lm_head"]).float()
     return logits, pool, cache_len + 1
@@ -289,7 +330,15 @@ def decode_step(params: Params, cfg: LlamaConfig, token: torch.Tensor,
     (JAX dropped that scatter): it writes back what its clamped
     destination holds, so the step needs no host sync to filter it.
     Returns (logits (B, V) f32, cache, cache_len + 1).
+
+    A ``kv_int8`` config raises ValueError: the flash-decode kernel reads
+    a bf16 cache (the JAX package's ``kv_int8`` / ``use_flash_decode``
+    exclusion), and the dense int8 cache is not ported.
     """
+    if cfg.kv_int8:
+        raise ValueError("decode_step: the dense cache is bf16 only (flash "
+                         "decode reads a bf16 cache); kv_int8 runs on the "
+                         "paged pool (decode_step_paged)")
     b = token.shape[0]
     dev = token.device
     cos, sin = _rope(cfg, dev)
@@ -327,13 +376,14 @@ def verify_step_paged(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
 
     tokens (B, G) sit at positions ``cache_len + g``; pool, page_table
     and active as in :func:`decode_step_paged`. Attention always runs
-    through the ragged paged verify wrapper; the G new K/V rows of each
-    active row are then written in place at page ``(cache_len + g) //
-    page``, offset ``(cache_len + g) % page``. Inactive rows, sentinel
-    destinations and positions past the table's reach write nothing (JAX
-    routed them to the sentinel page and dropped them). Returns (logits
-    (B, G, V) f32, pool); ``cache_len`` is not advanced here — the caller
-    commits the accepted prefix.
+    through the ragged paged verify wrapper (int8 pools with their scale
+    planes under ``cfg.kv_int8``); the G new K/V rows of each active row
+    (quantised under ``kv_int8``) are then written in place at page
+    ``(cache_len + g) // page``, offset ``(cache_len + g) % page``.
+    Inactive rows, sentinel destinations and positions past the table's
+    reach write nothing (JAX routed them to the sentinel page and dropped
+    them). Returns (logits (B, G, V) f32, pool); ``cache_len`` is not
+    advanced here — the caller commits the accepted prefix.
     """
     b, g_len = tokens.shape
     dev = tokens.device
@@ -352,16 +402,16 @@ def verify_step_paged(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
     x = params["tok_emb"][tokens]                         # (B, G, D)
     for i in range(cfg.n_layers):
         layer = _layer(params, i)
-        k_pool, v_pool = pool["k"][i], pool["v"][i]
         h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
         q, k, v = _qkv(layer, h, cfg, cos, sin, positions)
         k, v = k.contiguous(), v.contiguous()
         attn = ragged_paged_verify_attention(
-            q.contiguous(), k_pool, v_pool, page_table, k, v, cache_len)
+            q.contiguous(), pool["k"][i], pool["v"][i], page_table, k, v,
+            cache_len, *_scale_planes(cfg, pool, i))
         x = x + qmm(attn.reshape(b, g_len, -1), layer["wo"])
         h = rms_norm(x, layer["ffn_norm"], cfg.norm_eps)
         x = x + _ffn(layer, h)
-        k_pool[dest_row, dest_off] = k[keep_b, keep_g]
-        v_pool[dest_row, dest_off] = v[keep_b, keep_g]
+        for name, rows in _kv_rows(cfg, k, v).items():
+            pool[name][i][dest_row, dest_off] = rows[keep_b, keep_g]
     x = rms_norm(x, params["out_norm"], cfg.norm_eps)
     return qmm(x, params["lm_head"]).float(), pool

@@ -10,7 +10,7 @@ These are the plain versions the CUDA kernels are held to:
   rounding points (:func:`_snap`) where the low-precision formulation
   rounds: the score einsums, the normalised probabilities, the value
   einsums and the final add. The ragged decode and verify kernels
-  reproduce that schedule.
+  reproduce that schedule, int8 caches (per-vector scales) included.
 """
 
 from __future__ import annotations
@@ -90,8 +90,9 @@ def gather_kv_pages(pages: torch.Tensor,
     return gathered.reshape(b, p * page, *pages.shape[2:])
 
 
-def verify_attention(q, k_cache, v_cache, k_new, v_new,
-                     cache_len) -> torch.Tensor:
+def verify_attention(q, k_cache, v_cache, k_new, v_new, cache_len,
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Multi-query decode attention for speculative verify: query ``g``
     sits at position ``cache_len + g`` and attends every prior cache
     entry (``t < cache_len``) plus the G new tokens' own K/V causally
@@ -108,6 +109,13 @@ def verify_attention(q, k_cache, v_cache, k_new, v_new,
     before the P·V product, so a NaN in a dead row (a clamped sentinel
     page, say) cannot poison the output through ``0 * NaN``; with finite
     V this changes nothing.
+
+    int8 caches (``ops/quant.quantize_kv``) pass ``k_scale``/``v_scale``
+    (B, Tmax, Hkv): the K scale multiplies the float32 scores after the
+    rounded einsum and ``* scale``; the cache probabilities are not
+    rounded but multiplied by the V scale before a float32 P·V einsum.
+    The V scale is zeroed past ``cache_len`` like the V rows. The new
+    tokens' K/V arrive unquantised and take the bf16 path.
     """
     batch, g_len, q_heads, head_dim = q.shape
     t_max, kv_heads = k_cache.shape[1], k_cache.shape[2]
@@ -121,6 +129,8 @@ def verify_attention(q, k_cache, v_cache, k_new, v_new,
 
     scores = _snap(torch.einsum("bskgd,btkd->bkgst", qg, k_cache.float()),
                    dt) * scale
+    if k_scale is not None:
+        scores = scores * k_scale.permute(0, 2, 1)[:, :, None, None, :]
     scores = torch.where(valid[:, None, None, None, :], scores, _NEG_INF)
     scores_new = _snap(torch.einsum("bskgd,bukd->bkgsu", qg, k_new.float()),
                        dt) * scale
@@ -130,7 +140,13 @@ def verify_attention(q, k_cache, v_cache, k_new, v_new,
     scores = torch.cat([scores, scores_new], dim=-1)        # (B,K,G,S,T+S)
     probs = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
     probs = probs / probs.sum(dim=-1, keepdim=True)
-    probs_cache = _snap(probs[..., :-g_len], dt)
+    probs_cache = probs[..., :-g_len]
+    if v_scale is not None:
+        v_scale = torch.where(valid[:, :, None], v_scale, 0.0)
+        probs_cache = probs_cache * v_scale.permute(0, 2, 1)[:, :, None,
+                                                             None, :]
+    else:
+        probs_cache = _snap(probs_cache, dt)
     v_live = torch.where(valid[:, :, None, None], v_cache.float(), 0.0)
     out = _snap(torch.einsum("bkgst,btkd->bskgd", probs_cache, v_live), dt)
     out_new = _snap(torch.einsum("bkgsu,bukd->bskgd",
@@ -140,41 +156,55 @@ def verify_attention(q, k_cache, v_cache, k_new, v_new,
     return out.reshape(batch, g_len, q_heads, head_dim).to(dt)
 
 
-def decode_attention_cached(q, k_cache, v_cache, k_new, v_new,
-                            cache_len) -> torch.Tensor:
+def decode_attention_cached(q, k_cache, v_cache, k_new, v_new, cache_len,
+                            k_scale: Optional[torch.Tensor] = None,
+                            v_scale: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
     """Decode attention over (prior cache entries + the current token's
     K/V), the new token carried explicitly (the caller writes it into the
     cache afterwards): :func:`verify_attention` with one query, so a
     G = 1 verify is bit-identical to a decode step by construction.
 
     q: (B, 1, Hq, D); caches: (B, Tmax, Hkv, D); k_new/v_new: (B, Hkv, D);
-    cache_len: (B,) valid entries excluding the current token.
+    cache_len: (B,) valid entries excluding the current token; int8
+    caches pass ``k_scale``/``v_scale`` (B, Tmax, Hkv).
     Returns (B, 1, Hq, D).
     """
     return verify_attention(q, k_cache, v_cache, k_new[:, None],
-                            v_new[:, None], cache_len)
+                            v_new[:, None], cache_len, k_scale, v_scale)
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, k_new, v_new,
-                           cache_len) -> torch.Tensor:
+                           cache_len, k_scale_pages=None,
+                           v_scale_pages=None) -> torch.Tensor:
     """Ragged paged decode attention, gather formulation: gathers each
     slot's pages (sentinels clamped) into a dense view and runs
     :func:`decode_attention_cached` over it (:func:`paged_verify_attention`
     with one query).
 
     q: (B, 1, Hq, D); k_pages/v_pages: (num_pages, page, Hkv, D);
-    page_table: (B, P) int; k_new/v_new: (B, Hkv, D); cache_len: (B,).
+    page_table: (B, P) int; k_new/v_new: (B, Hkv, D); cache_len: (B,);
+    int8 pools pass ``k_scale_pages``/``v_scale_pages`` (num_pages, page,
+    Hkv).
     """
     return paged_verify_attention(q, k_pages, v_pages, page_table,
-                                  k_new[:, None], v_new[:, None], cache_len)
+                                  k_new[:, None], v_new[:, None], cache_len,
+                                  k_scale_pages, v_scale_pages)
 
 
 def paged_verify_attention(q, k_pages, v_pages, page_table, k_new, v_new,
-                           cache_len) -> torch.Tensor:
+                           cache_len, k_scale_pages=None,
+                           v_scale_pages=None) -> torch.Tensor:
     """Paged variant of :func:`verify_attention`, gather formulation.
     q: (B, G, Hq, D); k_pages/v_pages: (num_pages, page, Hkv, D);
-    page_table: (B, P) int; k_new/v_new: (B, G, Hkv, D); cache_len: (B,).
-    Returns (B, G, Hq, D)."""
+    page_table: (B, P) int; k_new/v_new: (B, G, Hkv, D); cache_len: (B,);
+    int8 pools pass ``k_scale_pages``/``v_scale_pages`` (num_pages, page,
+    Hkv), gathered like the pages. Returns (B, G, Hq, D)."""
     k_cache = gather_kv_pages(k_pages, page_table)
     v_cache = gather_kv_pages(v_pages, page_table)
-    return verify_attention(q, k_cache, v_cache, k_new, v_new, cache_len)
+    k_scale = v_scale = None
+    if k_scale_pages is not None:
+        k_scale = gather_kv_pages(k_scale_pages, page_table)
+        v_scale = gather_kv_pages(v_scale_pages, page_table)
+    return verify_attention(q, k_cache, v_cache, k_new, v_new, cache_len,
+                            k_scale, v_scale)

@@ -1,20 +1,24 @@
 """Ragged paged attention: the CUDA kernels' wrappers and their plain
 PyTorch versions (counterpart of
-``gofr_tpu/ops/pallas/ragged_paged_attention.py``, bf16 pools): the
-decode variant (one query per slot) and the speculative verify variant
-(G queries per slot, causal among the new tokens).
+``gofr_tpu/ops/pallas/ragged_paged_attention.py``): the decode variant
+(one query per slot) and the speculative verify variant (G queries per
+slot, causal among the new tokens), over bf16 pools or int8 pools with
+their float32 scale planes.
 
 One kernel (``gofr_tpu_torch/csrc/ragged_paged_attention.cu``) replaces
-the Pallas ``_ragged_kernel`` in both forms, decode being its G = 1
-launch: it walks each slot's live pages through its page-table row and
-never reads a sentinel or a row past the fill. A CPU tensor takes the
-``*_plain`` version; a CUDA tensor launches the kernel or raises — no
-shape-based fallback.
+the Pallas ``_ragged_kernel`` in all its forms, decode being its G = 1
+launch and int8 pools its int8 instantiation (dequantised in the
+kernel): it walks each slot's live pages through its page-table row and
+never reads a sentinel or a row past the fill, scale planes included. A
+CPU tensor takes the ``*_plain`` version; a CUDA tensor launches the
+kernel or raises — no shape-based fallback, and an int8 pool is never
+dequantised to take the bf16 kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -27,49 +31,90 @@ SUPPORTED_GROUPS = (1, 2, 4, 8)
 MAX_VERIFY_TOKENS = 8        # the kernel's MAX_NEW
 
 # kernel launches since the last reset (not counting plain-version calls):
-# ``launches`` counts decode launches, ``verify_launches`` verify ones
+# ``launches`` counts bf16 decode launches, ``verify_launches`` bf16 verify
+# ones, ``int8_launches`` / ``int8_verify_launches`` the same over int8
+# pools
 launches = 0
 verify_launches = 0
+int8_launches = 0
+int8_verify_launches = 0
 
 
 def reset_launches() -> None:
-    global launches, verify_launches
-    launches = 0
-    verify_launches = 0
+    global launches, verify_launches, int8_launches, int8_verify_launches
+    launches = verify_launches = 0
+    int8_launches = int8_verify_launches = 0
 
 
 def ragged_paged_decode_attention_plain(q, k_pages, v_pages, page_table,
-                                        k_new, v_new,
-                                        cache_len) -> torch.Tensor:
+                                        k_new, v_new, cache_len,
+                                        k_scale_pages=None,
+                                        v_scale_pages=None) -> torch.Tensor:
     """The same function in plain PyTorch: the gather formulation
-    (``paged_decode_attention``), with sentinel ids clamped and V rows at
-    or past ``cache_len`` zeroed, so pages no live position references
-    cannot reach the output even when they hold NaN."""
+    (``paged_decode_attention``), with sentinel ids clamped and V rows
+    (and V scales) at or past ``cache_len`` zeroed, so pages no live
+    position references cannot reach the output even when they hold
+    NaN."""
     return plain_attention.paged_decode_attention(
-        q, k_pages, v_pages, page_table, k_new, v_new, cache_len)
+        q, k_pages, v_pages, page_table, k_new, v_new, cache_len,
+        k_scale_pages, v_scale_pages)
 
 
 def ragged_paged_verify_attention_plain(q, k_pages, v_pages, page_table,
-                                        k_new, v_new,
-                                        cache_len) -> torch.Tensor:
+                                        k_new, v_new, cache_len,
+                                        k_scale_pages=None,
+                                        v_scale_pages=None) -> torch.Tensor:
     """The verify variant in plain PyTorch: ``paged_verify_attention``
     (gather formulation, sentinels clamped, V rows past the fill zeroed).
     With G = 1 it is bit-identical to the decode plain version."""
     return plain_attention.paged_verify_attention(
-        q, k_pages, v_pages, page_table, k_new, v_new, cache_len)
+        q, k_pages, v_pages, page_table, k_new, v_new, cache_len,
+        k_scale_pages, v_scale_pages)
 
 
-def _bind(lib: ctypes.CDLL, entry: str = "gofr_ragged_paged_attention"):
+def _bind(lib: ctypes.CDLL, entry: str):
     fn = getattr(lib, entry)
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 \
+    n_ptrs = 10 if "int8" in entry else 8
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 8 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check(q, k_pages, v_pages, page_table, k_new, v_new, cache_len) -> None:
+def _check_scales(k_pages, v_pages, k_scale_pages, v_scale_pages) -> bool:
+    """Pool element type: bf16 pools without scale planes, or int8 pools
+    with both float32 planes (N, page, Hkv). Returns True for int8."""
+    if (k_scale_pages is None) != (v_scale_pages is None):
+        raise ValueError("ragged_paged_attention: pass both scale planes "
+                         "or neither")
+    want = torch.bfloat16 if k_scale_pages is None else torch.int8
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.dtype != want:
+            raise ValueError(
+                f"ragged_paged_attention: {name} must be {want} "
+                f"{'with' if want == torch.int8 else 'without'} scale "
+                f"planes, got {t.dtype}")
+    if k_scale_pages is None:
+        return False
+    for name, t in (("k_scale_pages", k_scale_pages),
+                    ("v_scale_pages", v_scale_pages)):
+        if tuple(t.shape) != tuple(k_pages.shape[:3]) \
+                or t.dtype != torch.float32:
+            raise ValueError(
+                f"ragged_paged_attention: {name} must be float32 "
+                f"{tuple(k_pages.shape[:3])} (N,page,Hkv), got {t.dtype} "
+                f"{tuple(t.shape)}")
+        if t.device != k_pages.device or not t.is_contiguous():
+            raise ValueError(f"ragged_paged_attention: {name} must be "
+                             f"contiguous, on the pools' device")
+    return True
+
+
+def _check(q, k_pages, v_pages, page_table, k_new, v_new, cache_len,
+           k_scale_pages=None, v_scale_pages=None) -> bool:
     """Shapes of the verify form: q (B,G,Hq,D), k_new/v_new (B,G,Hkv,D);
-    the decode form reaches here with G = 1."""
+    the decode form reaches here with G = 1. Returns True for int8
+    pools."""
     if q.dim() != 4 or not 1 <= q.shape[1] <= MAX_VERIFY_TOKENS:
         raise ValueError(f"ragged_paged_attention: q (B,G,Hq,D) with G in "
                          f"[1, {MAX_VERIFY_TOKENS}] expected, got "
@@ -93,8 +138,8 @@ def _check(q, k_pages, v_pages, page_table, k_new, v_new, cache_len) -> None:
             or tuple(cache_len.shape) != (b,):
         raise ValueError("ragged_paged_attention: page_table (B,P) "
                          "and cache_len (B,) expected")
-    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
-                    ("k_new", k_new), ("v_new", v_new)):
+    int8 = _check_scales(k_pages, v_pages, k_scale_pages, v_scale_pages)
+    for name, t in (("q", q), ("k_new", k_new), ("v_new", v_new)):
         if t.dtype != torch.bfloat16:
             raise ValueError(f"ragged_paged_attention: {name} must "
                              f"be bf16, got {t.dtype}")
@@ -109,81 +154,105 @@ def _check(q, k_pages, v_pages, page_table, k_new, v_new, cache_len) -> None:
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("ragged_paged_attention: every tensor "
                          "must be contiguous")
-    # the kernel reads 16-byte vectors of bf16
+    # the kernel reads 16-byte vectors of bf16 and 8-byte vectors of int8
     if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages, k_new, v_new)):
-        raise ValueError("ragged_paged_attention: bf16 operands "
+        raise ValueError("ragged_paged_attention: q, pools and new K/V "
                          "must be 16-byte aligned")
+    return int8
 
 
 def _launch(q, k_pages, v_pages, page_table, k_new, v_new, cache_len,
-            entry: str = "gofr_ragged_paged_attention") -> torch.Tensor:
-    """Check, launch the kernel once, raise on a refused launch."""
-    _check(q, k_pages, v_pages, page_table, k_new, v_new, cache_len)
+            k_scale_pages=None, v_scale_pages=None,
+            verify_form: bool = False) -> Tuple[torch.Tensor, bool]:
+    """Check, launch the kernel once (the int8 instantiation for int8
+    pools), raise on a refused launch. Returns (output, int8)."""
+    int8 = _check(q, k_pages, v_pages, page_table, k_new, v_new, cache_len,
+                  k_scale_pages, v_scale_pages)
+    entry = "gofr_ragged_paged_attention" + ("_int8" if int8 else "") \
+        + ("_verify_form" if verify_form else "")
     fn = _bind(_build.load(NAME), entry)
     out = torch.empty_like(q)
     b, g_len, hq, d = q.shape
     num_pages, page, hkv, _ = k_pages.shape
-    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             page_table.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-             cache_len.data_ptr(), out.data_ptr(), b, g_len, hq, hkv, d,
-             num_pages, page, page_table.shape[1],
+    pools = [k_pages.data_ptr(), v_pages.data_ptr()]
+    if int8:
+        pools += [k_scale_pages.data_ptr(), v_scale_pages.data_ptr()]
+    err = fn(q.data_ptr(), *pools, page_table.data_ptr(), k_new.data_ptr(),
+             v_new.data_ptr(), cache_len.data_ptr(), out.data_ptr(), b,
+             g_len, hq, hkv, d, num_pages, page, page_table.shape[1],
              _build.stream_handle(q.device))
     if err != 0:
         raise RuntimeError(f"ragged_paged_attention: kernel launch failed "
                            f"(cudaError {err})")
-    return out
+    return out, int8
 
 
 def ragged_paged_decode_attention(q, k_pages, v_pages, page_table, k_new,
-                                  v_new, cache_len) -> torch.Tensor:
-    """q (B,1,Hq,D); k_pages/v_pages (N,page,Hkv,D); page_table (B,P)
-    int32 with ``N`` the unallocated sentinel; k_new/v_new (B,Hkv,D);
-    cache_len (B,) int32 valid tokens excluding the current one.
-    Returns (B,1,Hq,D)."""
+                                  v_new, cache_len, k_scale_pages=None,
+                                  v_scale_pages=None) -> torch.Tensor:
+    """q (B,1,Hq,D); k_pages/v_pages (N,page,Hkv,D) bf16, or int8 with
+    ``k_scale_pages``/``v_scale_pages`` (N,page,Hkv) float32; page_table
+    (B,P) int32 with ``N`` the unallocated sentinel; k_new/v_new
+    (B,Hkv,D) bf16; cache_len (B,) int32 valid tokens excluding the
+    current one. Returns (B,1,Hq,D)."""
     if q.device.type == "cpu":
         return ragged_paged_decode_attention_plain(
-            q, k_pages, v_pages, page_table, k_new, v_new, cache_len)
+            q, k_pages, v_pages, page_table, k_new, v_new, cache_len,
+            k_scale_pages, v_scale_pages)
     if q.device.type != "cuda":
         raise ValueError(f"ragged_paged_decode_attention: unsupported "
                          f"device {q.device}")
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"ragged_paged_decode_attention: q (B,1,Hq,D) "
                          f"expected, got {tuple(q.shape)}")
-    global launches
-    out = _launch(q, k_pages, v_pages, page_table, k_new[:, None],
-                  v_new[:, None], cache_len)
-    launches += 1
+    global launches, int8_launches
+    out, int8 = _launch(q, k_pages, v_pages, page_table, k_new[:, None],
+                        v_new[:, None], cache_len, k_scale_pages,
+                        v_scale_pages)
+    if int8:
+        int8_launches += 1
+    else:
+        launches += 1
     return out
 
 
 def ragged_paged_verify_attention(q, k_pages, v_pages, page_table, k_new,
-                                  v_new, cache_len) -> torch.Tensor:
+                                  v_new, cache_len, k_scale_pages=None,
+                                  v_scale_pages=None) -> torch.Tensor:
     """Speculative verify: q (B,G,Hq,D), query ``g`` at position
     ``cache_len + g``; k_new/v_new (B,G,Hkv,D) the G new tokens' K/V,
-    attended causally (key ``u <= g``); pools, table and cache_len as in
-    :func:`ragged_paged_decode_attention`. Returns (B,G,Hq,D)."""
+    attended causally (key ``u <= g``); pools, scale planes, table and
+    cache_len as in :func:`ragged_paged_decode_attention`. Returns
+    (B,G,Hq,D)."""
     if q.device.type == "cpu":
         return ragged_paged_verify_attention_plain(
-            q, k_pages, v_pages, page_table, k_new, v_new, cache_len)
+            q, k_pages, v_pages, page_table, k_new, v_new, cache_len,
+            k_scale_pages, v_scale_pages)
     if q.device.type != "cuda":
         raise ValueError(f"ragged_paged_verify_attention: unsupported "
                          f"device {q.device}")
-    global verify_launches
-    out = _launch(q, k_pages, v_pages, page_table, k_new, v_new, cache_len)
-    verify_launches += 1
+    global verify_launches, int8_verify_launches
+    out, int8 = _launch(q, k_pages, v_pages, page_table, k_new, v_new,
+                        cache_len, k_scale_pages, v_scale_pages)
+    if int8:
+        int8_verify_launches += 1
+    else:
+        verify_launches += 1
     return out
 
 
 def ragged_paged_verify_form_attention(q, k_pages, v_pages, page_table,
-                                       k_new, v_new,
-                                       cache_len) -> torch.Tensor:
+                                       k_new, v_new, cache_len,
+                                       k_scale_pages=None,
+                                       v_scale_pages=None) -> torch.Tensor:
     """The verify launch through the kernel's verify instantiation at any
     G, G = 1 included (the served wrappers take the decode instantiation
-    at G = 1). Uncounted and on no served path: it lets a check hold the
-    two instantiations bit for bit against each other at G = 1. CUDA
-    tensors only; arguments as in :func:`ragged_paged_verify_attention`."""
+    at G = 1), bf16 or int8 pools. Uncounted and on no served path: it
+    lets a check hold the two instantiations bit for bit against each
+    other at G = 1. CUDA tensors only; arguments as in
+    :func:`ragged_paged_verify_attention`."""
     if q.device.type != "cuda":
         raise ValueError(f"ragged_paged_verify_form_attention: CUDA tensors "
                          f"expected, got {q.device}")
     return _launch(q, k_pages, v_pages, page_table, k_new, v_new, cache_len,
-                   entry="gofr_ragged_paged_attention_verify_form")
+                   k_scale_pages, v_scale_pages, verify_form=True)[0]

@@ -18,6 +18,9 @@ path).
   runs ``llama.decode_step_paged`` (ragged paged decode kernel on the
   card) and samples per slot. Inactive slots are frozen (cache_len does
   not advance) and never write the pool.
+- ``cfg.kv_int8`` makes the pool int8 with float32 scale planes: the
+  insert scatters the quantised prefill rows and scales, and decode and
+  verify read them through the ragged kernel's int8 instantiation.
 - Speculative decode (``draft_cfg``/``draft_params``): a draft model with
   a dense per-slot cache (flash-decode kernel on the card) proposes g
   tokens in g + 1 steps, the target scores all g + 1 positions in one
@@ -255,6 +258,10 @@ class GenerationEngine:
                     "draft and target models must share a vocabulary "
                     f"({getattr(draft_cfg, 'vocab_size', None)} vs "
                     f"{cfg.vocab_size})")
+            if getattr(draft_cfg, "kv_int8", False):
+                raise ValueError(
+                    "the draft's dense cache is bf16 only (flash decode "
+                    "reads a bf16 cache): build draft_cfg without kv_int8")
             self.draft_params = _params_to(draft_params, self.device)
             # the draft cache is dense: the draft is small, and one
             # (max_slots, max_len) row per slot keeps it independent of
@@ -318,13 +325,14 @@ class GenerationEngine:
         logits, small, _ = llama.prefill(self.params, cfg, tokens, small,
                                          lengths=lens)
         first = sample_batch(logits, t_temps, t_top_ks, t_top_ps, gens)
-        # in-place scatter of the group's KV pages into the pool
+        # in-place scatter of the group's KV pages into the pool; each
+        # leaf (k/v rows, int8 scale planes) keeps its own trailing shape
         live = np.nonzero(flat_ids != self._pool.sentinel)[0]
         src = torch.as_tensor(live, device=dev)
         dst = torch.as_tensor(flat_ids[live].astype(np.int64), device=dev)
         for name, leaf in self._pool.leaves.items():
             chunks = small[name].reshape(cfg.n_layers, nb * (bucket // page),
-                                         page, cfg.n_kv_heads, cfg.head_dim)
+                                         page, *small[name].shape[3:])
             leaf[:, dst] = chunks[:, src]
         self._pool.note_writes(len(live))
         rows = np.nonzero(slots < self.max_slots)[0]

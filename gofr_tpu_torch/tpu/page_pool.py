@@ -11,10 +11,12 @@ reference; a page returns to the free list at zero (shared ownership,
 
 ``num_pages`` doubles as the out-of-bounds sentinel id. The owners filter
 sentinel entries out of every write and the decode kernel never reads
-one. The leaves are written in place by their owners.
+one. The leaves are written in place by their owners. With
+``cfg.kv_int8`` the k/v leaves are int8 and two float32 scale planes
+``ks``/``vs`` (L, num_pages, page, Hkv), ones-initialised, sit beside
+them.
 
-Left for later slices: the HBM budget arbiter, mesh sharding and the int8
-scale planes.
+Left for later slices: the HBM budget arbiter and mesh sharding.
 """
 
 from __future__ import annotations
@@ -56,18 +58,32 @@ class PagePool:
 
     @staticmethod
     def _page_bytes(cfg, page: int) -> int:
-        """Device bytes one page occupies across the k and v leaves."""
+        """Device bytes one page occupies across every leaf."""
         kv = cfg.n_layers * page * cfg.n_kv_heads * cfg.head_dim
+        if cfg.kv_int8:
+            scales = cfg.n_layers * page * cfg.n_kv_heads * 4
+            return 2 * (kv + scales)          # int8 k+v, f32 ks+vs
         return 2 * kv * torch.finfo(cfg.dtype).bits // 8
 
     def reset(self) -> None:
-        """Fresh zero-initialised leaves and empty ownership."""
+        """Fresh leaves (k/v zeroed, scale planes at one) and empty
+        ownership."""
         cfg = self.cfg
         shape = (cfg.n_layers, self.num_pages, self.page, cfg.n_kv_heads,
                  cfg.head_dim)
-        self.leaves = {
-            "k": torch.zeros(shape, dtype=cfg.dtype, device=self.device),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=self.device)}
+        dev = self.device
+        if cfg.kv_int8:
+            self.leaves = {
+                "k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "ks": torch.ones(shape[:-1], dtype=torch.float32,
+                                 device=dev),
+                "vs": torch.ones(shape[:-1], dtype=torch.float32,
+                                 device=dev)}
+        else:
+            self.leaves = {
+                "k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+                "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
         self._free = list(range(self.num_pages))
         self._refs = np.zeros((self.num_pages,), np.int32)
 

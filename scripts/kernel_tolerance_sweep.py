@@ -3,11 +3,13 @@
 versions over many seeds, beside what a kernel that drops one position
 would score: the evidence for the limits ``chip_smoke.py`` holds them to.
 
-For each seed, at ``chip_smoke.py``'s shapes (phases 4-6: bf16, 8 slots,
-32/8 heads, D 128; ragged pools of page 32 and 64 table columns with
-every unreferenced row NaN; flash decode over T 2048 with every row past
-a fill NaN): the ragged decode launch, the verify launch at G 2, 3 and 5,
-and the flash-decode launch, each against its plain version. Reported,
+For each seed, at ``chip_smoke.py``'s shapes (phases 4-6: bf16 queries,
+8 slots, 32/8 heads, D 128; ragged pools of page 32 and 64 table columns
+with every unreferenced row NaN, bf16 or int8 with NaN scales there;
+flash decode over T 2048 with every row past a fill NaN): the ragged
+decode launch, the verify launch at G 2, 3 and 5, each over bf16 and
+over int8 pools, and the flash-decode launch, each against its plain
+version. Reported,
 worst over seeds: max |kernel - plain|, bf16 ulps of max(|plain|, 2^-8)
 (``tolerance.ulp_error``) and the largest per-row relative L2
 (``tolerance.row_rel_l2``). Then the same measures for the plain version
@@ -30,7 +32,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from chip_smoke import (FLASH_DECODE_ULPS, KV_HEADS, Q_HEADS,  # noqa: E402
                         RAGGED_ROW_TOL, RAGGED_TOL, card_line,
-                        paged_scenario)
+                        paged_scenario, paged_scenario_int8)
 
 RAGGED_FILLS = [0, 1, 31, 32, 33, 700, 2047, 512]
 DECODE_FILLS = [0, 1, 127, 128, 129, 700, 1500, 2047]
@@ -78,24 +80,28 @@ def main() -> int:
                             dtype=torch.int32, device="cuda")
 
     for seed in range(args.seeds):
-        for g_len in (1, 2, 3, 5):
+        for int8, g_len in [(i, g) for i in (False, True)
+                            for g in (1, 2, 3, 5)]:
             fills = [min(n, 2047 - g_len + 1) for n in RAGGED_FILLS]
-            q, kp, vp, table, kn, vn, lens = paged_scenario(
+            scenario = paged_scenario_int8 if int8 else paged_scenario
+            q, kp, vp, table, kn, vn, lens, *scales = scenario(
                 torch, fills, g_len, 1000 * g_len + seed)
+            pools = "int8 " if int8 else ""
             if g_len == 1:
                 call = (q, kp, vp, table, kn[:, 0].contiguous(),
                         vn[:, 0].contiguous())
                 kernel = ragged_mod.ragged_paged_decode_attention
                 plain = ragged_mod.ragged_paged_decode_attention_plain
-                kind = "ragged decode"
+                kind = f"ragged {pools}decode"
             else:
                 call = (q, kp, vp, table, kn, vn)
                 kernel = ragged_mod.ragged_paged_verify_attention
                 plain = ragged_mod.ragged_paged_verify_attention_plain
-                kind = f"ragged verify G{g_len}"
-            ref = plain(*call, lens)
-            note(kind, kernel(*call, lens), ref)
-            note_drop(kind, plain(*call, one_short(fills)), ref, fills)
+                kind = f"ragged {pools}verify G{g_len}"
+            ref = plain(*call, lens, *scales)
+            note(kind, kernel(*call, lens, *scales), ref)
+            note_drop(kind, plain(*call, one_short(fills), *scales), ref,
+                      fills)
         gen = torch.Generator(device="cuda").manual_seed(seed)
         lens = torch.tensor(DECODE_FILLS, dtype=torch.int32, device="cuda")
         dead = (torch.arange(2048, device="cuda")[None, :]

@@ -14,7 +14,10 @@ time by kernel. Prints one JSON object (also written to ``--out``):
 - ``by_kernel``: device time per kernel name, largest first, with the
   port's kernels named as they are launched.
 
-``--spec-gamma 4`` profiles the speculative engine instead, with the draft
+``--kv-int8`` gives the target an int8 KV pool (``LlamaConfig.kv_int8``:
+decode and verify through the ragged kernel's int8 instantiation; the
+draft stays bf16). ``--spec-gamma 4`` profiles the speculative engine
+instead, with the draft
 of ``chip_smoke.py``'s speculative phase (``chip_smoke.draft_view``: views
 of the target's first ``DRAFT_LAYERS`` (4) layers, its embedding, final
 norm and head): the draft proposes through the flash-decode kernel and
@@ -45,6 +48,8 @@ def main() -> int:
     parser.add_argument("--layers", type=int, default=32)
     parser.add_argument("--spec-gamma", type=int, default=0,
                         help="speculative decode with this gamma (0: off)")
+    parser.add_argument("--kv-int8", action="store_true",
+                        help="int8 KV pool with float32 scale planes")
     parser.add_argument("--out", default="chiprun_out/engine_profile.json")
     args = parser.parse_args()
 
@@ -60,7 +65,8 @@ def main() -> int:
     from gofr_tpu_torch.tpu.generate import GenerationEngine, Sampling
 
     _build.build_all()
-    cfg = llama.config("llama3-8b", n_layers=args.layers, use_flash=True)
+    cfg = llama.config("llama3-8b", n_layers=args.layers, use_flash=True,
+                       kv_int8=args.kv_int8)
     params = llama.init(cfg, args.seed, device="cuda")
     spec_kw = {}
     if args.spec_gamma:
@@ -120,6 +126,8 @@ def main() -> int:
     result = {
         "device": torch.cuda.get_device_name(0),
         "n_layers": args.layers,
+        "kv_int8": args.kv_int8,
+        "kv_pool": engine.stats()["kv_pool"],
         "wall_s": wall,
         "tokens_per_s": tokens / wall,
         "ttft_p50_s": ttfts[len(ttfts) // 2],

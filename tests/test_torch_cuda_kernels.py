@@ -12,7 +12,9 @@ one slot) within relative L2 2^-8 (flipped roundings are sparse; a walk
 that drops one position moves a row by >= 1e-2). Flash decode, which
 rounds once at the output: within one bf16 ulp of each element. At G = 1
 the ragged kernel's verify instantiation equals its decode instantiation
-bit for bit.
+bit for bit, over bf16 and over int8 pools. The int8 instantiations are
+held to the ragged limits against the int8 plain version, with NaN in
+the scale planes at every position no live entry references.
 """
 
 import numpy as np
@@ -23,6 +25,7 @@ from gofr_tpu_torch.ops.cuda import decode_attention as decode_mod
 from gofr_tpu_torch.ops.cuda import flash_attention as flash_mod
 from gofr_tpu_torch.ops.cuda import ragged_paged_attention as ragged_mod
 from gofr_tpu_torch.ops.cuda.tolerance import row_rel_l2, ulp_error
+from gofr_tpu_torch.ops.quant import quantize_kv
 
 pytestmark = pytest.mark.cuda
 
@@ -123,6 +126,89 @@ def test_verify_kernel_refuses_too_many_tokens(cuda):
     args = _paged(cuda, [3], 9)
     with pytest.raises(ValueError, match="G in"):
         ragged_mod.ragged_paged_verify_attention(*args)
+
+
+def _paged_int8(cuda, fills, g_len, group=4, seed=0):
+    """:func:`_paged`'s layout with its rows quantised to int8 pools and
+    NaN in both scale planes wherever no live position points; returns
+    the wrapper's arguments, the scale planes last."""
+    q, kp, vp, table, kn, vn, lens = _paged(cuda, fills, g_len, group, seed)
+    dead = kp[..., 0, 0].isnan()[..., None]
+    (k8, ks), (v8, vs) = (quantize_kv(p.nan_to_num()) for p in (kp, vp))
+    return (q, k8, v8, table, kn, vn, lens,
+            ks.masked_fill(dead, float("nan")),
+            vs.masked_fill(dead, float("nan")))
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+def test_int8_ragged_kernel_matches_plain_and_skips_poison(cuda, group):
+    q, k8, v8, table, kn, vn, lens, ks, vs = _paged_int8(
+        cuda, [0, 1, 31, 32, 33, 100, 255], 1, group=group, seed=group)
+    args = (q, k8, v8, table, kn[:, 0], vn[:, 0], lens, ks, vs)
+    before = (ragged_mod.launches, ragged_mod.int8_launches)
+    out = ragged_mod.ragged_paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    assert (ragged_mod.launches, ragged_mod.int8_launches) \
+        == (before[0], before[1] + 1)
+    ref = ragged_mod.ragged_paged_decode_attention_plain(*args)
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    assert row_rel_l2(out, ref) <= 2.0 ** -8
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("g_len", [2, 3, 5])
+def test_int8_verify_kernel_matches_plain_and_skips_poison(cuda, g_len,
+                                                           group):
+    fills = [0, 1, 31, 32, 33, 100, 256 - g_len]
+    args = _paged_int8(cuda, fills, g_len, group=group, seed=10 + g_len)
+    before = (ragged_mod.verify_launches, ragged_mod.int8_verify_launches)
+    out = ragged_mod.ragged_paged_verify_attention(*args)
+    torch.cuda.synchronize()
+    assert (ragged_mod.verify_launches, ragged_mod.int8_verify_launches) \
+        == (before[0], before[1] + 1)
+    ref = ragged_mod.ragged_paged_verify_attention_plain(*args)
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    assert row_rel_l2(out, ref) <= 2.0 ** -8
+
+
+def test_int8_verify_kernel_g1_is_bitwise_the_int8_decode_kernel(cuda):
+    q, k8, v8, table, kn, vn, lens, ks, vs = _paged_int8(
+        cuda, [0, 1, 31, 32, 33, 100, 255], 1)
+    before = ragged_mod.int8_verify_launches
+    verify = ragged_mod.ragged_paged_verify_form_attention(
+        q, k8, v8, table, kn, vn, lens, ks, vs)
+    assert ragged_mod.int8_verify_launches == before     # uncounted
+    decode = ragged_mod.ragged_paged_decode_attention(
+        q, k8, v8, table, kn[:, 0], vn[:, 0], lens, ks, vs)
+    assert torch.equal(verify.view(torch.int16), decode.view(torch.int16))
+
+
+def test_int8_wrapper_refuses_mismatched_scale_planes(cuda):
+    q, k8, v8, table, kn, vn, lens, ks, vs = _paged_int8(cuda, [3, 40], 1)
+    args = (q, k8, v8, table, kn[:, 0], vn[:, 0], lens)
+    bf16 = _paged(cuda, [3, 40], 1)
+    with pytest.raises(ValueError, match="both scale planes"):
+        ragged_mod.ragged_paged_decode_attention(*args, ks, None)
+    with pytest.raises(ValueError, match="int8"):     # int8 pools, no scales
+        ragged_mod.ragged_paged_decode_attention(*args)
+    with pytest.raises(ValueError, match="bfloat16"):  # bf16 pools + scales
+        ragged_mod.ragged_paged_decode_attention(
+            bf16[0], bf16[1], bf16[2], bf16[3], bf16[4][:, 0],
+            bf16[5][:, 0], bf16[6], ks, vs)
+    with pytest.raises(ValueError, match="float32"):
+        ragged_mod.ragged_paged_decode_attention(*args, ks.bfloat16(), vs)
+    with pytest.raises(ValueError, match="float32"):   # wrong plane shape
+        ragged_mod.ragged_paged_decode_attention(*args, ks[:, :16], vs)
+    with pytest.raises(ValueError, match="contiguous"):
+        ragged_mod.ragged_paged_decode_attention(
+            *args, ks.transpose(0, 1).contiguous().transpose(0, 1), vs)
+    with pytest.raises(ValueError, match="device"):
+        ragged_mod.ragged_paged_decode_attention(*args, ks.cpu(), vs)
+    with pytest.raises(ValueError, match="must be bf16"):
+        ragged_mod.ragged_paged_verify_attention(
+            q.float(), k8, v8, table, kn, vn, lens, ks, vs)
 
 
 @pytest.mark.parametrize("heads", [(32, 8), (8, 8), (8, 4), (16, 2)])
