@@ -15,9 +15,11 @@ Phases, each of which raises (exit code != 0) on failure:
 
 1. card identity (``nvidia-smi`` name and power limit, torch/CUDA);
 2. kernel build (one ``nvcc`` per source, all at once) and its time;
-3. flash kernel vs its plain version, bf16, Hq 32 / Hkv 8 / D 128,
-   causal, S in {32, 128, 512, 2048}, B in {1, 4}; timed beside the plain
-   version and ``scaled_dot_product_attention`` (a yardstick only);
+3. flash kernel (bf16: both products on the tensor cores through wgmma)
+   vs its plain version, bf16, Hq 32 / Hkv 8 / D 128, causal, S in
+   {32, 128, 512, 2048}, B in {1, 4}; timed beside the plain version and
+   ``scaled_dot_product_attention`` (a yardstick only), with its ratio to
+   that call and its TFLOP/s;
 4. ragged kernel, decode (G = 1), vs its plain version, 8 slots, page 32,
    64 table columns, fills {0, 1, 31, 32, 33, 700, 2047, 512}: over bf16
    pools with every position no live entry references NaN, then over
@@ -27,10 +29,11 @@ Phases, each of which raises (exit code != 0) on failure:
    {2, 3, 5} with fills {0, 1, 31, 32, 33, 700, 2047 - G, 512}, bf16 then
    int8, and for each the kernel's verify instantiation at G = 1
    bit-identical to its decode instantiation;
-6. flash-decode kernel vs its plain version, bf16, 8 slots, T 2048,
-   Hq 32 / Hkv 8, fills {0, 1, 127, 128, 129, 700, 1500, 2047}, every row
-   past a fill NaN; timed beside ``scaled_dot_product_attention`` with a
-   per-row mask (a yardstick only);
+6. flash-decode kernel (positions split across blocks in chunks of 256,
+   then a combine) vs its plain version, bf16, 8 slots, T 2048, Hq 32 /
+   Hkv 8, fills {0, 1, 127, 128, 129, 700, 1500, 2047}, every row past a
+   fill NaN; timed beside ``scaled_dot_product_attention`` with a per-row
+   mask (a yardstick only), with its ratio to that call and its GB/s;
 7. a 2-layer full-width model: prefill + 4 paged decode steps through the
    kernels on the card (bf16) against the plain path on the CPU (f32),
    with a bf16 pool, then with ``kv_int8``;
@@ -170,15 +173,18 @@ def phase_flash(torch, flash_mod, timer, results):
             bound = max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S)
             row = dict(B=batch, S=seq, max_abs_err=err, ms=ms,
                        plain_ms=plain_ms, library_ms=lib_ms,
-                       bound_ms=bound * 1e3,
+                       sdpa_ratio=ms / lib_ms, bound_ms=bound * 1e3,
                        bound_by=("operations" if flops / BF16_FLOP_PER_S
                                  >= nbytes / HBM_BYTES_PER_S else "bytes"),
-                       tflops=flops / (ms * 1e-3) / 1e12)
+                       tflops=flops / (ms * 1e-3) / 1e12,
+                       gb_per_s=nbytes / (ms * 1e-3) / 1e9)
             rows.append(row)
             log(f"flash B={batch} S={seq:5d} err={err:.3e} "
                 f"kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
-                f"sdpa={lib_ms:.4f}ms bound={row['bound_ms']:.4f}ms "
-                f"({row['tflops']:.1f} TFLOP/s)")
+                f"sdpa={lib_ms:.4f}ms ({row['sdpa_ratio']:.3f}x sdpa) "
+                f"bound={row['bound_ms']:.4f}ms "
+                f"({row['tflops']:.1f} TFLOP/s, "
+                f"{row['gb_per_s']:.1f} GB/s)")
     results["flash"] = rows
     return worst
 
@@ -421,12 +427,14 @@ def phase_flash_decode(torch, decode_mod, timer, results):
     bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S)
     row = dict(B=batch, T=t_max, fills=fills, max_abs_err=err,
                max_ulps=ulps, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               sdpa_ratio=ms / lib_ms,
                library_max_abs_err=lib_err.item(), bound_ms=bound * 1e3,
                bound_by="bytes", gb_per_s=nbytes / (ms * 1e-3) / 1e9)
     results["flash_decode"] = row
     log(f"flash decode B={batch} T={t_max} err={err:.3e} ({ulps} ulps) "
         f"kernel={ms:.4f}ms plain={plain_ms:.4f}ms sdpa={lib_ms:.4f}ms "
-        f"(sdpa vs plain {row['library_max_abs_err']:.3e}) "
+        f"({row['sdpa_ratio']:.3f}x sdpa; sdpa vs plain "
+        f"{row['library_max_abs_err']:.3e}) "
         f"bound={row['bound_ms']:.4f}ms ({row['gb_per_s']:.1f} GB/s)")
     return row
 

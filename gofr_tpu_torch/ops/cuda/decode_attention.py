@@ -9,6 +9,11 @@ softmax over blocks of 128 positions, q scaled before the dot, no
 intermediate rounding, the new token folded in last, the output cast
 once. A CPU tensor takes :func:`flash_decode_attention_plain`; a CUDA
 tensor launches the kernel or raises — no shape-based fallback.
+
+The kernel splits the positions across blocks (:func:`split_plan`): each
+chunk's float32 partial (m, l, acc) goes to scratch that the wrapper
+allocates, and a combine folds them in chunk order. One call counts one
+launch.
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ NAME = "decode_attention"
 HEAD_DIM = 128
 SUPPORTED_GROUPS = (1, 2, 4, 8)
 BLOCK_K = 128
+CHUNK = 256          # positions a block walks, by default
+MAX_SPLITS = 16      # chunks the combine folds (the kernel's bound)
 _NEG_INF = -1e30
 
 # kernel launches since the last reset (not counting plain-version calls)
@@ -85,9 +92,32 @@ def flash_decode_attention_plain(q, k_cache, v_cache, k_new, v_new,
     return out.reshape(batch, 1, q_heads, head_dim).to(q.dtype)
 
 
+def split_plan(t_max: int) -> tuple:
+    """(chunk, splits) for a cache of static width ``t_max``: chunks are
+    whole blocks of ``BLOCK_K`` positions, ``CHUNK`` long unless more
+    than ``MAX_SPLITS`` of them would be needed, and ``splits`` chunks
+    cover ``t_max``. Depends on the width alone, never on the fills, so
+    the host reads nothing from the card."""
+    if t_max <= 0:
+        raise ValueError(f"flash_decode_attention: T must be positive, "
+                         f"got {t_max}")
+    blocks = -(-t_max // BLOCK_K)
+    per_chunk = max(CHUNK // BLOCK_K, -(-blocks // MAX_SPLITS))
+    chunk = per_chunk * BLOCK_K
+    return chunk, -(-t_max // chunk)
+
+
+def scratch_shape(batch: int, t_max: int, kv_heads: int,
+                  group: int) -> tuple:
+    """The float32 scratch of one call: per slot, KV head, chunk and
+    query row of the group, ``HEAD_DIM`` accumulator values, then m and
+    l."""
+    return (batch, kv_heads, split_plan(t_max)[1], group, HEAD_DIM + 2)
+
+
 def _bind(lib: ctypes.CDLL):
     fn = lib.gofr_flash_decode_attention
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 \
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -150,10 +180,13 @@ def flash_decode_attention(q, k_cache, v_cache, k_new, v_new,
     out = torch.empty_like(q)
     b, _, hq, d = q.shape
     t_max, hkv = k_cache.shape[1], k_cache.shape[2]
+    chunk, splits = split_plan(t_max)
+    scratch = torch.empty(scratch_shape(b, t_max, hkv, hq // hkv),
+                          dtype=torch.float32, device=q.device)
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
              k_new.data_ptr(), v_new.data_ptr(), cache_len.data_ptr(),
-             out.data_ptr(), b, t_max, hq, hkv, d,
-             _build.stream_handle(q.device))
+             out.data_ptr(), scratch.data_ptr(), b, t_max, hq, hkv, d,
+             chunk, splits, _build.stream_handle(q.device))
     if err != 0:
         raise RuntimeError(f"flash_decode_attention: kernel launch failed "
                            f"(cudaError {err})")

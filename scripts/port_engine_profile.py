@@ -12,7 +12,11 @@ time by kernel. Prints one JSON object (also written to ``--out``):
 - ``device_busy_s`` and ``device_idle_share``: the sum of device kernel
   time over the profiled run's wall time (one stream, so no overlap);
 - ``by_kernel``: device time per kernel name, largest first, with the
-  port's kernels named as they are launched.
+  port's kernels named as they are launched;
+- ``port_kernels``: for every kernel of the port's CUDA sources (flash
+  prefill, flash decode's partial and combine, ragged), its device time,
+  share of the busy time and count, whether or not it is among the
+  largest.
 
 ``--kv-int8`` gives the target an int8 KV pool (``LlamaConfig.kv_int8``:
 decode and verify through the ragged kernel's int8 instantiation; the
@@ -40,6 +44,11 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from chip_smoke import DRAFT_LAYERS, draft_view  # noqa: E402
+
+# kernel names of gofr_tpu_torch/csrc, as the profiler shows them
+PORT_KERNELS = ("flash_wgmma_kernel", "flash_fwd_kernel",
+                "flash_decode_partial", "flash_decode_combine",
+                "ragged_kernel")
 
 
 def main() -> int:
@@ -114,13 +123,19 @@ def main() -> int:
      draft_steps) = asyncio.run(serve(prof))
     assert all(len(out) == budget for out in outs)
 
-    by_kernel = {}
+    by_kernel, calls = {}, {}
     for evt in prof.key_averages():
         dev_us = getattr(evt, "self_device_time_total",
                          getattr(evt, "self_cuda_time_total", 0))
         if dev_us > 0:
             by_kernel[evt.key] = by_kernel.get(evt.key, 0.0) + dev_us / 1e6
+            calls[evt.key] = calls.get(evt.key, 0) + evt.count
     busy = sum(by_kernel.values())
+    port = {name: {"device_s": sec,
+                   "share_of_busy": sec / busy if busy else None,
+                   "count": calls[name]}
+            for name, sec in by_kernel.items()
+            if any(stem in name for stem in PORT_KERNELS)}
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:20]
     tokens = budget * len(outs)
     result = {
@@ -143,6 +158,7 @@ def main() -> int:
         "by_kernel": [{"name": name, "device_s": sec,
                        "share_of_busy": sec / busy if busy else None}
                       for name, sec in top],
+        "port_kernels": port,
     }
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)

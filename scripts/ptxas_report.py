@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
 """Registers, shared memory and spills of every kernel instantiation, as
-``ptxas -v`` reports them, for the port's CUDA sources.
+``ptxas -v`` reports them, and the count of tensor-core and asynchronous
+copy instructions in its SASS, for the port's CUDA sources.
 
 Compiles each ``*.cu`` of each given source directory (default: the
 port's ``gofr_tpu_torch/csrc``) to an object file with the flags the
 port builds with (``ops/cuda/_build.py``), plus ``-Xptxas -v``, and
 prints one JSON object: for each source file, each kernel (demangled,
 ``(anonymous namespace)::`` dropped) with its registers, shared-memory
-bytes and spill bytes. Given two directories (say a parent commit's
-sources beside the change's) it reports both, so that an unchanged
-instantiation can be checked to compile to the same resources.
+bytes and spill bytes, and, from ``cuobjdump -sass`` of the object, how
+many ``HGMMA`` (wgmma on the tensor cores), ``UTMALDG`` (TMA loads) and
+``LDGSTS`` (``cp.async`` copies) instructions it holds. Given two
+directories (say a parent commit's sources beside the change's) it
+reports both, so that an unchanged instantiation can be checked to
+compile to the same resources.
 
 Run from the root of a checkout on a host with ``nvcc``:
 ``python3 scripts/ptxas_report.py [DIR ...] [--out FILE]``.
@@ -33,6 +37,8 @@ from gofr_tpu_torch.ops.cuda import _build  # noqa: E402
 _ENTRY = re.compile(r"Function properties for (\S+)")
 _USED = re.compile(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?")
 _SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_SASS_FUNCTION = re.compile(r"Function : (\S+)")
+SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS")
 
 
 def _demangle(names):
@@ -64,17 +70,46 @@ def parse(log: str) -> dict:
             for row in rows}
 
 
+def sass_counts(sass: str) -> dict:
+    """Per kernel of a ``cuobjdump -sass`` listing (demangled name), the
+    count of each of ``SASS_OPS``."""
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if (m := _SASS_FUNCTION.search(line)):
+            name = m.group(1)
+            counts[name] = dict.fromkeys(SASS_OPS, 0)
+        elif name:
+            for op in SASS_OPS:
+                if re.search(rf"\b{op}\b", line):
+                    counts[name][op] += 1
+    return dict(zip(_demangle(list(counts)), counts.values()))
+
+
+def _cuobjdump(nvcc: str) -> str:
+    beside = Path(nvcc).parent / "cuobjdump"
+    found = str(beside) if beside.exists() else shutil.which("cuobjdump")
+    if not found:
+        raise RuntimeError("cuobjdump not found beside nvcc or on PATH")
+    return found
+
+
 def report(source: Path, nvcc: str) -> dict:
-    """ptxas resources of each kernel in ``source``."""
+    """ptxas resources and SASS instruction counts of each kernel in
+    ``source``."""
     flags = [f for f in _build.NVCC_FLAGS if f != "-shared"]
     with tempfile.TemporaryDirectory() as tmp:
+        obj = str(Path(tmp) / "k.o")
         proc = subprocess.run(
-            [nvcc, *flags, "-c", "-Xptxas", "-v", "-o",
-             str(Path(tmp) / "k.o"), str(source)],
+            [nvcc, *flags, "-c", "-Xptxas", "-v", "-o", obj, str(source)],
             capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {source}:\n{proc.stderr}")
-    return parse(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {source}:\n{proc.stderr}")
+        sass = subprocess.run([_cuobjdump(nvcc), "-sass", obj],
+                              capture_output=True, text=True, check=True)
+    rows = parse(proc.stdout + proc.stderr)
+    for name, counts in sass_counts(sass.stdout).items():
+        rows.setdefault(name, {}).update(counts)
+    return rows
 
 
 def main() -> int:

@@ -5,8 +5,8 @@ mode). Run them on the GPU host with
 ``python -m pytest tests/test_torch_cuda_kernels.py -q``.
 
 Bounds: flash bf16 outputs within 2e-2 absolute of the plain version
-(one bf16 ulp at |x| <= 2, plus float32 sum-order noise), float32 within
-2e-5. The ragged kernel, which keeps its plain version's bf16 roundings:
+(one bf16 ulp at |x| <= 2, plus float32 sum-order noise and the bf16
+rounding of P before P.V on the tensor cores), float32 within 2e-5. The ragged kernel, which keeps its plain version's bf16 roundings:
 each element within 2e-2 and each output row (every head of one query of
 one slot) within relative L2 2^-8 (flipped roundings are sparse; a walk
 that drops one position moves a row by >= 1e-2). Flash decode, which
@@ -51,6 +51,37 @@ def test_flash_kernel_matches_plain(cuda, seq, causal, dtype, tol):
     assert flash_mod.launches == before + 1
     ref = flash_mod.flash_attention_plain(q, k, v, causal=causal)
     assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("seq", [1, 63, 64, 65, 2048])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("group", [1, 4, 8])
+def test_flash_tensor_core_kernel_matches_plain(cuda, seq, causal, group):
+    """The bf16 wgmma kernel at GQA groups 1/4/8, on and around the
+    64-row tile edges, causal and full."""
+    gen = torch.Generator(device=cuda).manual_seed(seq * 16 + group)
+    hkv = 2
+    q, k, v = (torch.randn((2, seq, heads, 128), generator=gen, device=cuda)
+               .bfloat16() for heads in (hkv * group, hkv, hkv))
+    before = flash_mod.launches
+    out = flash_mod.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_mod.launches == before + 1
+    ref = flash_mod.flash_attention_plain(q, k, v, causal=causal)
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("seq", [1, 65, 300])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_tensor_core_kernel_head_dim_64(cuda, seq, causal):
+    gen = torch.Generator(device=cuda).manual_seed(seq)
+    q, k, v = (torch.randn((2, seq, heads, 64), generator=gen, device=cuda)
+               .bfloat16() for heads in (8, 2, 2))
+    out = flash_mod.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    ref = flash_mod.flash_attention_plain(q, k, v, causal=causal)
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
 
 
 def _paged(cuda, fills, g_len, group=4, seed=0):
@@ -221,6 +252,32 @@ def test_flash_decode_kernel_matches_plain(cuda, heads):
     dead = (torch.arange(t, device=cuda)[None, :]
             >= lens[:, None])[..., None, None]
     k, v = (torch.randn((b, t, hkv, 128), generator=gen, device=cuda)
+            .bfloat16().masked_fill(dead, float("nan")) for _ in range(2))
+    q = torch.randn((b, 1, hq, 128), generator=gen, device=cuda).bfloat16()
+    kn, vn = (torch.randn((b, hkv, 128), generator=gen, device=cuda)
+              .bfloat16() for _ in range(2))
+    before = decode_mod.launches
+    out = decode_mod.flash_decode_attention(q, k, v, kn, vn, lens)
+    torch.cuda.synchronize()
+    assert decode_mod.launches == before + 1
+    ref = decode_mod.flash_decode_attention_plain(q, k, v, kn, vn, lens)
+    assert torch.isfinite(out).all()
+    assert ulp_error(out, ref) <= 1.0
+
+
+@pytest.mark.parametrize("t_max,fills", [
+    (2048, [0, 1, 255, 256, 257, 2047]),
+    (1000, [0, 1, 255, 256, 257, 999]),
+    (4096, [0, 1, 2047, 2048, 4000, 4095])])
+def test_flash_decode_split_kernel_on_chunk_edges(cuda, t_max, fills):
+    """Fills on the 256-position chunk edges, at a width that is not a
+    multiple of the chunk too; every row past a fill NaN."""
+    b, hq, hkv = len(fills), 32, 8
+    gen = torch.Generator(device=cuda).manual_seed(t_max)
+    lens = torch.tensor(fills, dtype=torch.int32, device=cuda)
+    dead = (torch.arange(t_max, device=cuda)[None, :]
+            >= lens[:, None])[..., None, None]
+    k, v = (torch.randn((b, t_max, hkv, 128), generator=gen, device=cuda)
             .bfloat16().masked_fill(dead, float("nan")) for _ in range(2))
     q = torch.randn((b, 1, hq, 128), generator=gen, device=cuda).bfloat16()
     kn, vn = (torch.randn((b, hkv, 128), generator=gen, device=cuda)
