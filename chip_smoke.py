@@ -14,21 +14,26 @@ int8 instantiation.
 Phases, each of which raises (exit code != 0) on failure:
 
 1. card identity (``nvidia-smi`` name and power limit, torch/CUDA);
-2. kernel build (one ``nvcc`` per source, all at once) and its time;
+2. kernel build (one ``nvcc`` per source, all at once) and its time,
+   and how many 8-block clusters of each of the ragged kernel's 16
+   instantiations the card keeps resident (verify at G 5);
 3. flash kernel (bf16: both products on the tensor cores through wgmma)
    vs its plain version, bf16, Hq 32 / Hkv 8 / D 128, causal, S in
    {32, 128, 512, 2048}, B in {1, 4}; timed beside the plain version and
    ``scaled_dot_product_attention`` (a yardstick only), with its ratio to
    that call and its TFLOP/s;
-4. ragged kernel, decode (G = 1), vs its plain version, 8 slots, page 32,
-   64 table columns, fills {0, 1, 31, 32, 33, 700, 2047, 512}: over bf16
-   pools with every position no live entry references NaN, then over
-   int8 pools (the same rows quantised) whose scale planes are NaN at
-   every such position;
+4. ragged kernel (each slot's pages split across a cluster of 8
+   blocks, which serves all of the slot's queries), decode (G = 1), vs its plain version, 8 slots, page 32, 64
+   table columns, fills {0, 1, 31, 32, 33, 700, 2047, 512}, then the
+   full-card shape (every fill 2047): over bf16 pools with every
+   position no live entry references NaN, then over int8 pools (the same
+   rows quantised) whose scale planes are NaN at every such position;
+   each timed with its bound and GB/s;
 5. ragged kernel, verify, vs its plain version on the same layouts, G in
-   {2, 3, 5} with fills {0, 1, 31, 32, 33, 700, 2047 - G, 512}, bf16 then
-   int8, and for each the kernel's verify instantiation at G = 1
-   bit-identical to its decode instantiation;
+   {2, 3, 5} with fills {0, 1, 31, 32, 33, 700, 2047 - G, 512}, then the
+   full-card shape at G 5 (every fill 2042), bf16 then int8, and for each
+   pool type the kernel's verify instantiation at G = 1 bit-identical to
+   its decode instantiation;
 6. flash-decode kernel (positions split across blocks in chunks of 256,
    then a combine) vs its plain version, bf16, 8 slots, T 2048, Hq 32 /
    Hkv 8, fills {0, 1, 127, 128, 129, 700, 1500, 2047}, every row past a
@@ -278,40 +283,65 @@ def _scenario(torch, int8, fills, g_len, seed):
     return paged_scenario(torch, fills, g_len, seed)
 
 
+def ragged_call(torch, ragged_mod, int8, fills, g_len, seed):
+    """The wrapper's arguments over these fills, and the kernel and plain
+    entry points that take them: decode at G = 1, verify above."""
+    call = list(_scenario(torch, int8, fills, g_len, seed))
+    if g_len == 1:
+        call[4], call[5] = call[4][:, 0], call[5][:, 0]
+        return (call, ragged_mod.ragged_paged_decode_attention,
+                ragged_mod.ragged_paged_decode_attention_plain)
+    return (call, ragged_mod.ragged_paged_verify_attention,
+            ragged_mod.ragged_paged_verify_attention_plain)
+
+
+def ragged_case(torch, ragged_mod, timer, int8, fills, g_len, seed, what):
+    """One ragged launch over these fills: held to its plain version,
+    output finite despite the NaN planted wherever no live entry points,
+    timed beside the plain version, with its bound and GB/s. Returns the
+    row."""
+    call, kernel, plain = ragged_call(torch, ragged_mod, int8, fills, g_len,
+                                      seed)
+    out = kernel(*call)
+    torch.cuda.synchronize()
+    ref = plain(*call)
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{what}: output is not finite: it read a "
+                             "poisoned page")
+    err, row_err = check_ragged(torch, out, ref, what)
+    ms = timer(lambda: kernel(*call), iters=20)
+    plain_ms = timer(lambda: plain(*call), iters=5)
+    nbytes, flops = paged_cost(fills, g_len, call[3].numel(), int8)
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S)
+    row = dict(G=g_len, B=len(fills), fills=fills, page=32, table_width=64,
+               pools="int8" if int8 else "bf16", max_abs_err=err,
+               row_rel_l2=row_err, ms=ms, plain_ms=plain_ms,
+               library_ms=None, bound_ms=bound * 1e3,
+               bound_by=("operations" if flops / BF16_FLOP_PER_S
+                         >= nbytes / HBM_BYTES_PER_S else "bytes"),
+               gb_per_s=nbytes / (ms * 1e-3) / 1e9)
+    log(f"{what} err={err:.3e} row={row_err:.3e} kernel={ms:.4f}ms "
+        f"plain={plain_ms:.4f}ms bound={row['bound_ms']:.4f}ms "
+        f"({row['gb_per_s']:.1f} GB/s) library=none")
+    return row
+
+
+# every slot at the engine's longest fill (decode; verify G 5 keeps room
+# for its new tokens): the cluster's 8 blocks all busy on every slot
+FULL_CARD_FILL = 2047
+
+
 def phase_ragged(torch, ragged_mod, timer, results, int8=False):
     what = "ragged int8" if int8 else "ragged"
     log(f"== phase 4: ragged_paged_decode_attention kernel vs plain "
         f"({'int8 pools' if int8 else 'bf16'})")
-    fills = [0, 1, 31, 32, 33, 700, 2047, 512]
-    q, k_pages, v_pages, table, k_new, v_new, lens, *scales = _scenario(
-        torch, int8, fills, 1, 2)
-    args = (q, k_pages, v_pages, table, k_new[:, 0], v_new[:, 0], lens,
-            *scales)
-    out = ragged_mod.ragged_paged_decode_attention(*args)
-    torch.cuda.synchronize()
-    ref = ragged_mod.ragged_paged_decode_attention_plain(*args)
-    if not torch.isfinite(out).all():
-        raise AssertionError(f"{what} kernel output is not finite: it read "
-                             "a poisoned page")
-    err, row_err = check_ragged(torch, out, ref, what)
-    ms = timer(lambda: ragged_mod.ragged_paged_decode_attention(*args),
-               iters=20)
-    plain_ms = timer(
-        lambda: ragged_mod.ragged_paged_decode_attention_plain(*args),
-        iters=5)
-    nbytes, flops = paged_cost(fills, 1, table.numel(), int8)
-    bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S)
-    row = dict(B=len(fills), fills=fills, page=32, table_width=64,
-               pools="int8" if int8 else "bf16",
-               max_abs_err=err, row_rel_l2=row_err, ms=ms,
-               plain_ms=plain_ms, library_ms=None, bound_ms=bound * 1e3,
-               bound_by="bytes",
-               gb_per_s=nbytes / (ms * 1e-3) / 1e9)
-    results["ragged_int8" if int8 else "ragged"] = row
-    log(f"{what} B={len(fills)} err={err:.3e} row={row_err:.3e} "
-        f"kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
-        f"bound={row['bound_ms']:.4f}ms ({row['gb_per_s']:.1f} GB/s) "
-        f"library=none")
+    row = ragged_case(torch, ragged_mod, timer, int8,
+                      [0, 1, 31, 32, 33, 700, 2047, 512], 1, 2,
+                      f"{what} B=8")
+    full = ragged_case(torch, ragged_mod, timer, int8,
+                       [FULL_CARD_FILL] * 8, 1, 3, f"{what} full card B=8")
+    results["ragged_int8" if int8 else "ragged"] = dict(row,
+                                                        full_card=full)
     return row
 
 
@@ -319,36 +349,14 @@ def phase_verify(torch, ragged_mod, timer, results, int8=False):
     what = "verify int8" if int8 else "verify"
     log(f"== phase 5: ragged_paged_verify_attention kernel vs plain "
         f"({'int8 pools' if int8 else 'bf16'})")
-    rows = []
-    for g_len in (2, 3, 5):
-        fills = [0, 1, 31, 32, 33, 700, 2047 - g_len, 512]
-        args = _scenario(torch, int8, fills, g_len, 10 + g_len)
-        out = ragged_mod.ragged_paged_verify_attention(*args)
-        torch.cuda.synchronize()
-        ref = ragged_mod.ragged_paged_verify_attention_plain(*args)
-        if not torch.isfinite(out).all():
-            raise AssertionError(f"{what} G={g_len}: output is not finite: "
-                                 "it read a poisoned page")
-        err, row_err = check_ragged(torch, out, ref, f"{what} G={g_len}")
-        ms = timer(lambda: ragged_mod.ragged_paged_verify_attention(*args),
-                   iters=20)
-        plain_ms = timer(
-            lambda: ragged_mod.ragged_paged_verify_attention_plain(*args),
-            iters=5)
-        nbytes, flops = paged_cost(fills, g_len, args[3].numel(), int8)
-        bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S)
-        row = dict(G=g_len, B=len(fills), fills=fills, max_abs_err=err,
-                   pools="int8" if int8 else "bf16",
-                   row_rel_l2=row_err, ms=ms, plain_ms=plain_ms,
-                   library_ms=None, bound_ms=bound * 1e3,
-                   bound_by=("operations" if flops / BF16_FLOP_PER_S
-                             >= nbytes / HBM_BYTES_PER_S else "bytes"),
-                   gb_per_s=nbytes / (ms * 1e-3) / 1e9)
-        rows.append(row)
-        log(f"{what} G={g_len} err={err:.3e} row={row_err:.3e} "
-            f"kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
-            f"bound={row['bound_ms']:.4f}ms ({row['gb_per_s']:.1f} GB/s) "
-            f"library=none")
+    rows = [ragged_case(torch, ragged_mod, timer, int8,
+                        [0, 1, 31, 32, 33, 700, 2047 - g_len, 512], g_len,
+                        10 + g_len, f"{what} G={g_len}")
+            for g_len in (2, 3, 5)]
+    g_full = SPEC_GAMMA + 1
+    full = ragged_case(torch, ragged_mod, timer, int8,
+                       [FULL_CARD_FILL - g_full] * 8, g_full, 20,
+                       f"{what} full card G={g_full}")
     # at G = 1 the verify instantiation (new-token bound MAX_NEW, the
     # causal fold's loops) must give the decode instantiation's bits
     fills = [0, 1, 31, 32, 33, 700, 2047, 512]
@@ -367,7 +375,7 @@ def phase_verify(torch, ragged_mod, timer, results, int8=False):
     log(f"{what}: verify instantiation at G=1 is bit-identical to the "
         f"decode instantiation")
     results["verify_int8" if int8 else "verify"] = dict(
-        rows=rows, g1_bit_identical=True)
+        rows=rows, full_card=full, g1_bit_identical=True)
     return rows
 
 
@@ -824,6 +832,17 @@ def main() -> int:
     build_s = time.monotonic() - t0
     log(f"built {list(_build.KERNELS)} in {build_s:.1f}s")
     results["build_s"] = build_s
+    # clusters of 8 blocks each ragged instantiation keeps resident at
+    # the engine's table (64 columns of 32 positions), verify at G 5
+    occupancy = {
+        f"group {group} {'verify' if verify else 'decode'} "
+        f"{'int8' if int8 else 'bf16'}":
+            ragged_mod.cluster_occupancy(group, verify, int8,
+                                         SPEC_GAMMA + 1 if verify else 1)
+        for group in ragged_mod.SUPPORTED_GROUPS
+        for verify in (False, True) for int8 in (False, True)}
+    log(f"ragged kernel clusters resident: {occupancy}")
+    results["ragged_cluster_occupancy"] = occupancy
 
     torch.backends.cuda.matmul.allow_tf32 = False
     timer = Timer(torch)

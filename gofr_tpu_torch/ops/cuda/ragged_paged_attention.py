@@ -8,9 +8,11 @@ their float32 scale planes.
 One kernel (``gofr_tpu_torch/csrc/ragged_paged_attention.cu``) replaces
 the Pallas ``_ragged_kernel`` in all its forms, decode being its G = 1
 launch and int8 pools its int8 instantiation (dequantised in the
-kernel): it walks each slot's live pages through its page-table row and
-never reads a sentinel or a row past the fill, scale planes included. A
-CPU tensor takes the ``*_plain`` version; a CUDA tensor launches the
+kernel): a cluster of ``CLUSTER`` blocks per (KV head, slot), for all
+the slot's queries, splits each slot's live pages into page-aligned chunks
+(:func:`rank_pages`) and walks them through the slot's page-table row,
+never reading a sentinel or a row past the fill, scale planes included.
+A CPU tensor takes the ``*_plain`` version; a CUDA tensor launches the
 kernel or raises — no shape-based fallback, and an int8 pool is never
 dequantised to take the bf16 kernel.
 """
@@ -29,6 +31,8 @@ NAME = "ragged_paged_attention"
 HEAD_DIM = 128
 SUPPORTED_GROUPS = (1, 2, 4, 8)
 MAX_VERIFY_TOKENS = 8        # the kernel's MAX_NEW
+CLUSTER = 8                  # blocks a (KV head, slot) cluster
+MAX_DYN_SMEM = 160 * 1024    # the kernel's MAX_DYN_SMEM
 
 # kernel launches since the last reset (not counting plain-version calls):
 # ``launches`` counts bf16 decode launches, ``verify_launches`` bf16 verify
@@ -44,6 +48,30 @@ def reset_launches() -> None:
     global launches, verify_launches, int8_launches, int8_verify_launches
     launches = verify_launches = 0
     int8_launches = int8_verify_launches = 0
+
+
+def rank_pages(cache_len: int, page: int,
+               cluster: int = CLUSTER) -> list:
+    """The kernel's chunk rule, in Python: the page indices (into the
+    slot's table row) that each block of a cluster walks, as one ``range``
+    per rank. The slot's ``ceil(cache_len / page)`` live pages go out in
+    runs of ``ceil(pages / cluster)``, rank order; ranks past the fill get
+    an empty range. Rank ``r`` walks the positions of its pages below
+    ``cache_len``. For tests: the served path never calls it."""
+    pages = -(-max(cache_len, 0) // page)
+    per_rank = -(-pages // cluster)
+    return [range(min(r * per_rank, pages), min((r + 1) * per_rank, pages))
+            for r in range(cluster)]
+
+
+def dyn_smem_bytes(table_width: int, page: int, group: int,
+                   g_len: int) -> int:
+    """The kernel's dynamic shared memory for ``g_len`` queries a slot and
+    a table of ``table_width`` columns: the queries (bf16), one rank's
+    partials and scores (float32) and its page ids."""
+    per_rank = -(-table_width // CLUSTER)
+    rows = g_len * group
+    return rows * HEAD_DIM * 6 + rows * per_rank * page * 4 + per_rank * 4
 
 
 def ragged_paged_decode_attention_plain(q, k_pages, v_pages, page_table,
@@ -138,6 +166,13 @@ def _check(q, k_pages, v_pages, page_table, k_new, v_new, cache_len,
             or tuple(cache_len.shape) != (b,):
         raise ValueError("ragged_paged_attention: page_table (B,P) "
                          "and cache_len (B,) expected")
+    page = k_pages.shape[1]
+    if dyn_smem_bytes(page_table.shape[1], page, hq // hkv,
+                      g_len) > MAX_DYN_SMEM:
+        raise ValueError(f"ragged_paged_attention: a block's chunk of "
+                         f"{page_table.shape[1]} page-table columns of "
+                         f"{page} positions does not fit "
+                         f"{MAX_DYN_SMEM} bytes of shared memory")
     int8 = _check_scales(k_pages, v_pages, k_scale_pages, v_scale_pages)
     for name, t in (("q", q), ("k_new", k_new), ("v_new", v_new)):
         if t.dtype != torch.bfloat16:
@@ -256,3 +291,23 @@ def ragged_paged_verify_form_attention(q, k_pages, v_pages, page_table,
                          f"expected, got {q.device}")
     return _launch(q, k_pages, v_pages, page_table, k_new, v_new, cache_len,
                    k_scale_pages, v_scale_pages, verify_form=True)[0]
+
+
+def cluster_occupancy(group: int, verify: bool, int8: bool, g_len: int,
+                      table_width: int = 64, page: int = 32) -> int:
+    """How many clusters of one kernel instantiation (``group`` query
+    heads per KV head; the verify or the decode new-token bound; int8 or
+    bf16 pools) the current CUDA device holds at once, for ``g_len``
+    queries a slot and a page table of ``table_width`` columns of
+    ``page`` positions (``cudaOccupancyMaxActiveClusters``)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("cluster_occupancy: needs a CUDA device")
+    fn = _build.load(NAME).gofr_ragged_cluster_occupancy
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    clusters = ctypes.c_int(0)
+    err = fn(group, int(verify), int(int8), table_width, page, g_len,
+             ctypes.byref(clusters))
+    if err != 0:
+        raise RuntimeError(f"cluster_occupancy: cudaError {err}")
+    return clusters.value

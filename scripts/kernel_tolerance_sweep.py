@@ -6,7 +6,8 @@ them to.
 
 For each seed, at ``chip_smoke.py``'s shapes (phases 3-6: bf16 queries,
 32/8 heads, D 128; ragged pools of 8 slots, page 32 and 64 table columns
-with every unreferenced row NaN, bf16 or int8 with NaN scales there;
+with every unreferenced row NaN, bf16 or int8 with NaN scales there,
+at phase 4's fills and at fills on the cluster's chunk edges;
 flash decode over 8 slots of T 2048 with every row past a fill NaN, at
 phase 6's fills and at fills on the 256-position chunk edges; causal
 flash prefill at S 32, 128, 512 and 2048, B 1 and 4): the ragged decode
@@ -38,7 +39,9 @@ from chip_smoke import (FLASH_DECODE_ULPS, FLASH_TOL,  # noqa: E402
                         KV_HEADS, Q_HEADS, RAGGED_ROW_TOL, RAGGED_TOL,
                         card_line, paged_scenario, paged_scenario_int8)
 
-RAGGED_FILLS = [0, 1, 31, 32, 33, 700, 2047, 512]
+RAGGED_FILLS = {"": [0, 1, 31, 32, 33, 700, 2047, 512],
+                # page 32: one page a cluster rank at 256, two at 257-512
+                " chunk edges": [0, 1, 255, 256, 257, 511, 513, 2047]}
 DECODE_FILLS = {"flash decode": [0, 1, 127, 128, 129, 700, 1500, 2047],
                 "flash decode chunk edges": [0, 1, 255, 256, 257, 511,
                                              1792, 2047]}
@@ -89,9 +92,10 @@ def main() -> int:
                             dtype=torch.int32, device="cuda")
 
     for seed in range(args.seeds):
-        for int8, g_len in [(i, g) for i in (False, True)
-                            for g in (1, 2, 3, 5)]:
-            fills = [min(n, 2047 - g_len + 1) for n in RAGGED_FILLS]
+        for int8, g_len, edges in [(i, g, e) for i in (False, True)
+                                   for g in (1, 2, 3, 5)
+                                   for e in RAGGED_FILLS]:
+            fills = [min(n, 2047 - g_len + 1) for n in RAGGED_FILLS[edges]]
             scenario = paged_scenario_int8 if int8 else paged_scenario
             q, kp, vp, table, kn, vn, lens, *scales = scenario(
                 torch, fills, g_len, 1000 * g_len + seed)
@@ -101,12 +105,12 @@ def main() -> int:
                         vn[:, 0].contiguous())
                 kernel = ragged_mod.ragged_paged_decode_attention
                 plain = ragged_mod.ragged_paged_decode_attention_plain
-                kind = f"ragged {pools}decode"
+                kind = f"ragged {pools}decode{edges}"
             else:
                 call = (q, kp, vp, table, kn, vn)
                 kernel = ragged_mod.ragged_paged_verify_attention
                 plain = ragged_mod.ragged_paged_verify_attention_plain
-                kind = f"ragged {pools}verify G{g_len}"
+                kind = f"ragged {pools}verify G{g_len}{edges}"
             ref = plain(*call, lens, *scales)
             note(kind, kernel(*call, lens, *scales), ref)
             note_drop(kind, plain(*call, one_short(fills), *scales), ref,

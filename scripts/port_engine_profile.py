@@ -43,7 +43,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from chip_smoke import DRAFT_LAYERS, draft_view  # noqa: E402
+from chip_smoke import DRAFT_LAYERS, card_line, draft_view  # noqa: E402
 
 # kernel names of gofr_tpu_torch/csrc, as the profiler shows them
 PORT_KERNELS = ("flash_wgmma_kernel", "flash_fwd_kernel",
@@ -140,6 +140,7 @@ def main() -> int:
     tokens = budget * len(outs)
     result = {
         "device": torch.cuda.get_device_name(0),
+        "card": card_line(),
         "n_layers": args.layers,
         "kv_int8": args.kv_int8,
         "kv_pool": engine.stats()["kv_pool"],

@@ -84,10 +84,12 @@ def test_flash_tensor_core_kernel_head_dim_64(cuda, seq, causal):
     assert (out.float() - ref.float()).abs().max().item() <= 2e-2
 
 
-def _paged(cuda, fills, g_len, group=4, seed=0):
+def _paged(cuda, fills, g_len, group=4, seed=0, page=32, width=8):
     """Poisoned bf16 pools (NaN wherever no live position points), page
-    32, 8 table columns; q (B,G,Hq,D), k/v_new (B,G,Hkv,D)."""
-    num_pages, page, hkv, width = 40, 32, 2, 8
+    32 and 8 table columns unless given; q (B,G,Hq,D), k/v_new
+    (B,G,Hkv,D)."""
+    hkv = 2
+    num_pages = max(40, sum(-(-n // page) for n in fills) + 4)
     gen = torch.Generator(device=cuda).manual_seed(seed)
     shape = (num_pages, page, hkv, 128)
     k_pages = torch.randn(shape, generator=gen, device=cuda).bfloat16()
@@ -159,11 +161,12 @@ def test_verify_kernel_refuses_too_many_tokens(cuda):
         ragged_mod.ragged_paged_verify_attention(*args)
 
 
-def _paged_int8(cuda, fills, g_len, group=4, seed=0):
+def _paged_int8(cuda, fills, g_len, group=4, seed=0, page=32, width=8):
     """:func:`_paged`'s layout with its rows quantised to int8 pools and
     NaN in both scale planes wherever no live position points; returns
     the wrapper's arguments, the scale planes last."""
-    q, kp, vp, table, kn, vn, lens = _paged(cuda, fills, g_len, group, seed)
+    q, kp, vp, table, kn, vn, lens = _paged(cuda, fills, g_len, group, seed,
+                                            page, width)
     dead = kp[..., 0, 0].isnan()[..., None]
     (k8, ks), (v8, vs) = (quantize_kv(p.nan_to_num()) for p in (kp, vp))
     return (q, k8, v8, table, kn, vn, lens,
@@ -240,6 +243,49 @@ def test_int8_wrapper_refuses_mismatched_scale_planes(cuda):
     with pytest.raises(ValueError, match="must be bf16"):
         ragged_mod.ragged_paged_verify_attention(
             q.float(), k8, v8, table, kn, vn, lens, ks, vs)
+
+
+# fills around the cluster's chunk edges (each slot's pages split over 8
+# blocks in runs of ceil(pages / 8)) and the 8-position runs a half-warp
+# loads at once; clipped to the table's capacity
+SPLIT_FILLS = [0, 1, 7, 8, 9, 31, 32, 33, 255, 256, 257, 2047, 2048]
+
+
+@pytest.mark.parametrize("page,width", [(32, 64), (16, 63)])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("g_len", [1, 5])
+def test_ragged_split_kernel_on_chunk_edges(cuda, page, width, group, int8,
+                                            g_len):
+    """The cluster split at fills below, at and above a chunk edge, a
+    table width that is not a multiple of 8 (P 63 at page 16), every
+    group, bf16 and int8 pools with NaN in every dead row and scale
+    entry; at G = 1 the verify instantiation gives the decode one's bits."""
+    cap = page * width
+    edge = 8 * page                      # one page a rank
+    fills = sorted({min(n, cap) for n in SPLIT_FILLS
+                    + [edge - 1, edge, edge + 1, cap - 1]})
+    make = _paged_int8 if int8 else _paged
+    args = list(make(cuda, fills, g_len, group=group, seed=page + group,
+                     page=page, width=width))
+    counter = ("int8_" if int8 else "") + (
+        "launches" if g_len == 1 else "verify_launches")
+    before = getattr(ragged_mod, counter)
+    if g_len == 1:
+        call = args[:4] + [args[4][:, 0], args[5][:, 0]] + args[6:]
+        out = ragged_mod.ragged_paged_decode_attention(*call)
+        ref = ragged_mod.ragged_paged_decode_attention_plain(*call)
+        verify = ragged_mod.ragged_paged_verify_form_attention(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(verify.view(torch.int16), out.view(torch.int16))
+    else:
+        out = ragged_mod.ragged_paged_verify_attention(*args)
+        ref = ragged_mod.ragged_paged_verify_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert getattr(ragged_mod, counter) == before + 1
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    assert row_rel_l2(out, ref) <= 2.0 ** -8
 
 
 @pytest.mark.parametrize("heads", [(32, 8), (8, 8), (8, 4), (16, 2)])
