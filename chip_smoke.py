@@ -48,7 +48,13 @@ Phases, each of which raises (exit code != 0) on failure:
 9. the full 32-layer engine answering 8 concurrent requests (prompts over
    every bucket, 32 new tokens each, one sampled), with the kernels'
    launch counts checked against the engine's prefill dispatches and
-   decode steps, then one streamed request;
+   decode steps, then one streamed request. Every engine of phases 9-12
+   first captures its ticks as CUDA graphs (``warmup()``, its seconds and
+   graph count printed), runs 2 ticks in flight (``max_inflight_ticks``),
+   and must replay a graph for every tick of the burst, with 2 ticks in
+   flight at some point of it; phase 9 then serves the burst again at
+   ``max_inflight_ticks=1`` and its 7 greedy completions must be the
+   same tokens;
 10. the same engine with speculative decode (γ 4, a draft made of views of
     the target's first 4 layers, embedding and head) on the same 8
     requests, launch counts checked against its prefill dispatches, spec
@@ -538,13 +544,19 @@ PATH_KERNELS = {"engine": ("flash", "ragged"),
 
 
 def serve_burst(torch, engine, prompts, budget, samplings, mods, timeout):
-    """Warm the engine up, set every kernel's count to 0, serve the burst
-    concurrently and read the counts, then stream one request. Returns
-    (outputs, wall seconds, launches by kernel, the burst's run counters,
-    sorted TTFTs)."""
+    """Capture the engine's ticks (``warmup()``), warm it up with one
+    request, set every kernel's count to 0, serve the burst concurrently
+    and read the counts, then stream one request. Fails unless every tick
+    of the burst was a graph replay and 2 ticks were in flight at some
+    point. Returns (outputs, wall seconds, launches by kernel, the burst's
+    run counters, sorted TTFTs, graph figures)."""
     flash_mod, ragged_mod, decode_mod = mods
 
     async def serve():
+        t0 = time.monotonic()
+        await engine.warmup()
+        torch.cuda.synchronize()
+        warm_s = time.monotonic() - t0
         await engine.start()
         try:
             # warm-up (cuBLAS handles, allocator; a spec engine's spec
@@ -556,10 +568,21 @@ def serve_burst(torch, engine, prompts, budget, samplings, mods, timeout):
             rungs = dict(engine.spec_rungs)
             engine.ttfts.clear()
             torch.cuda.reset_peak_memory_stats()
+            inflight = []
+
+            async def watch():
+                while True:
+                    inflight.append(engine.stats()["ticks_inflight"])
+                    await asyncio.sleep(0.0005)
+
+            watcher = asyncio.get_running_loop().create_task(watch())
             start = time.monotonic()
-            outs = await asyncio.wait_for(asyncio.gather(*[
-                engine.generate(p, budget, sampling=s)
-                for p, s in zip(prompts, samplings)]), timeout)
+            try:
+                outs = await asyncio.wait_for(asyncio.gather(*[
+                    engine.generate(p, budget, sampling=s)
+                    for p, s in zip(prompts, samplings)]), timeout)
+            finally:
+                watcher.cancel()
             wall = time.monotonic() - start
             launches = dict(flash=flash_mod.launches,
                             ragged=ragged_mod.launches,
@@ -575,26 +598,51 @@ def serve_burst(torch, engine, prompts, budget, samplings, mods, timeout):
             ttfts = sorted(engine.ttfts)
             stream = await engine.generate_stream(prompts[3], 8)
             streamed = [tok async for tok in stream]
-            return outs, wall, launches, counters, ttfts, streamed
+            return (outs, wall, launches, counters, ttfts, streamed,
+                    max(inflight), warm_s)
         finally:
             await engine.stop()
 
-    outs, wall, launches, counters, ttfts, streamed = asyncio.run(serve())
+    (outs, wall, launches, counters, ttfts, streamed, peak,
+     warm_s) = asyncio.run(serve())
     for out in outs:
         if len(out) != budget or not all(0 <= t < engine.cfg.vocab_size
                                          for t in out):
             raise AssertionError(f"bad completion {out}")
     if len(streamed) != 8:
         raise AssertionError(f"stream returned {len(streamed)} tokens")
-    return outs, wall, launches, counters, ttfts
+    ticks = counters["ticks"] + counters["spec_ticks"]
+    if counters["replays"] != ticks or counters["lazy_captures"]:
+        raise AssertionError(
+            f"{counters['replays']} graph replays for {ticks} ticks, "
+            f"{counters['lazy_captures']} captures in the burst: every "
+            f"tick must replay a graph warmup() captured")
+    want = min(2, engine.max_inflight_ticks)
+    if peak < want:
+        raise AssertionError(f"at most {peak} ticks were in flight during "
+                             f"the burst, expected {want}")
+    graphs = engine.stats()["graphs"]
+    figures = dict(warmup_s=warm_s, graphs=graphs["captured"],
+                   capture_s=graphs["capture_s"], ticks_inflight_peak=peak,
+                   max_inflight_ticks=engine.max_inflight_ticks)
+    log(f"graphs: {graphs['captured']} captured in "
+        f"{graphs['capture_s']:.2f}s (warmup {warm_s:.2f}s), "
+        f"{counters['replays']} replays for {ticks} ticks, "
+        f"{peak} ticks in flight at most (max_inflight_ticks "
+        f"{engine.max_inflight_ticks})")
+    return outs, wall, launches, counters, ttfts, figures
 
 
 def run_counters(engine):
-    spec = engine.stats().get("speculative", {})
+    stats = engine.stats()
+    spec = stats.get("speculative", {})
     return dict(prefills=engine.prefill_dispatches,
                 steps=engine.decode_steps,
+                ticks=engine.ticks,
                 spec_ticks=engine.spec_dispatches,
                 draft_steps=engine.draft_steps,
+                replays=stats["graphs"]["replays"],
+                lazy_captures=stats["graphs"]["lazy_captures"],
                 proposed=spec.get("proposed", 0),
                 accepted=spec.get("accepted", 0))
 
@@ -663,7 +711,7 @@ def phase_perfect_draft(torch, llama, generate, mods, seed, results):
             draft_params=dparams, spec_gamma=SPEC_GAMMA, device="cuda")
         prompts = engine_prompts(cfg, seed)[:4]
         budget = 32
-        _, _, launches, counters, _ = serve_burst(
+        _, _, launches, counters, _, _ = serve_burst(
             torch, engine, prompts, budget, [generate.Sampling()] * 4, mods,
             300)
         spec = engine.stats()["speculative"]
@@ -690,17 +738,22 @@ def phase_engine(torch, generate, mods, cfg, params, seed, results):
     path = "int8_engine" if int8 else "engine"
     log(f"== phase {11 if int8 else 9}: llama3-8b engine, {n_layers} "
         f"layers, full width{', kv_int8' if int8 else ''}")
-    engine = generate.GenerationEngine(
-        cfg, params, max_slots=8, max_len=2048,
-        prompt_buckets=(32, 128, 512), steps_per_tick=4, kv_page=32,
-        device="cuda")
     prompts = engine_prompts(cfg, seed)
     budget = 32
     samplings = [generate.Sampling() for _ in range(7)] + [
         generate.Sampling(temperature=0.8, top_p=0.95, seed=seed)]
-    outs, wall, launches, counters, ttfts = serve_burst(
-        torch, engine, prompts, budget, samplings, mods, 900)
-    check_launches(launches, expected_launches(cfg, counters), path)
+
+    def burst(inflight):
+        engine = generate.GenerationEngine(
+            cfg, params, max_slots=8, max_len=2048,
+            prompt_buckets=(32, 128, 512), steps_per_tick=4, kv_page=32,
+            max_inflight_ticks=inflight, device="cuda")
+        got = serve_burst(torch, engine, prompts, budget, samplings, mods,
+                          900)
+        check_launches(got[2], expected_launches(cfg, got[3]), path)
+        return engine, got
+
+    engine, (outs, wall, launches, counters, ttfts, figures) = burst(2)
     tokens = budget * len(outs)
     pool = engine.stats()["kv_pool"]
     row = dict(n_layers=n_layers, kv_int8=int8, requests=len(outs),
@@ -710,7 +763,8 @@ def phase_engine(torch, generate, mods, cfg, params, seed, results):
                ttft_max_s=ttfts[-1], launches=launches, counters=counters,
                num_pages=pool["num_pages"], page_bytes=pool["page_bytes"],
                pool_bytes=pool["pool_bytes"],
-               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               **figures)
     results[path] = row
     log(f"{path}: {len(outs)} requests x {budget} tokens in {wall:.3f}s = "
         f"{row['tokens_per_s']:.1f} tok/s; TTFT p50 "
@@ -719,6 +773,24 @@ def phase_engine(torch, generate, mods, cfg, params, seed, results):
         f"decode steps; launches {launches}; pool {pool['num_pages']} pages "
         f"{pool['pool_bytes'] / 1e9:.4f} GB; peak memory "
         f"{row['peak_mem_gb']:.2f} GB")
+    del engine
+    torch.cuda.empty_cache()
+    if not int8:
+        # the same burst one tick at a time: the greedy completions must
+        # not depend on the pipeline's depth (the decode GEMMs always run
+        # every slot's row, so each row's numbers are the same)
+        engine, (outs_m1, wall_m1, *_rest) = burst(1)
+        same = outs_m1[:7] == outs[:7]
+        row["m1"] = dict(wall_s=wall_m1, tokens_per_s=tokens / wall_m1,
+                         greedy_identical=same)
+        log(f"{path} at max_inflight_ticks=1: {tokens / wall_m1:.1f} tok/s; "
+            f"7 greedy completions identical to max_inflight_ticks=2: "
+            f"{same}")
+        if not same:
+            raise AssertionError("greedy completions differ between "
+                                 "max_inflight_ticks 1 and 2")
+        del engine
+        torch.cuda.empty_cache()
     if int8:
         bf16 = results["engine"]
         ratio = row["pool_bytes"] / bf16["pool_bytes"]
@@ -734,8 +806,6 @@ def phase_engine(torch, generate, mods, cfg, params, seed, results):
                 or abs(ratio - INT8_POOL_RATIO) > 1e-9:
             raise AssertionError(f"int8 pool is {ratio}x the bf16 pool, "
                                  f"expected {INT8_POOL_RATIO}")
-    del engine
-    torch.cuda.empty_cache()
     return launches
 
 
@@ -752,12 +822,13 @@ def phase_spec_engine(torch, llama, generate, mods, cfg, params, seed,
     engine = generate.GenerationEngine(
         cfg, params, max_slots=8, max_len=2048,
         prompt_buckets=(32, 128, 512), kv_page=32, draft_cfg=dcfg,
-        draft_params=dparams, spec_gamma=SPEC_GAMMA, device="cuda")
+        draft_params=dparams, spec_gamma=SPEC_GAMMA, max_inflight_ticks=2,
+        device="cuda")
     prompts = engine_prompts(cfg, seed)
     budget = 32
     samplings = [generate.Sampling() for _ in range(7)] + [
         generate.Sampling(temperature=0.8, top_p=0.95, seed=seed)]
-    outs, wall, launches, counters, ttfts = serve_burst(
+    outs, wall, launches, counters, ttfts, figures = serve_burst(
         torch, engine, prompts, budget, samplings, mods, 900)
     check_launches(launches,
                    expected_launches(cfg, counters, DRAFT_LAYERS), path)
@@ -770,7 +841,8 @@ def phase_spec_engine(torch, llama, generate, mods, cfg, params, seed,
                ttft_p50_s=ttfts[len(ttfts) // 2], ttft_max_s=ttfts[-1],
                launches=launches, counters=counters, speculative=spec,
                pool_bytes=pool["pool_bytes"],
-               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               **figures)
     results["int8_spec_engine" if int8 else "spec_engine"] = row
     log(f"{path} engine: {len(outs)} requests x {budget} tokens in "
         f"{wall:.3f}s = {row['tokens_per_s']:.1f} tok/s; TTFT p50 "

@@ -17,9 +17,12 @@
   and verify read them through the ragged kernel's int8 instantiation.
 - The paged KV pool and the dense cache are updated in place (indexed
   assignment), where the JAX package threaded them through a scan carry.
-  PyTorch has no dropping scatter (JAX's ``mode="drop"``), so rows that
-  must not write (inactive slots, sentinel pages, positions past the
-  cache) are filtered out of the index set before each write.
+  PyTorch has no dropping scatter (JAX's ``mode="drop"``): a paged write
+  that must not land (an inactive slot, a sentinel page, a position past
+  the table) is routed to the pool's scratch page at the sentinel id
+  (``tpu/page_pool``), and a dense write past the cache writes back what
+  its clamped destination holds. Every write has the same shape whatever
+  the data, so a step makes no host sync and a CUDA graph can capture it.
 """
 
 from __future__ import annotations
@@ -164,12 +167,13 @@ def _kv_rows(cfg: LlamaConfig, k: torch.Tensor,
 
 
 def _scale_planes(cfg: LlamaConfig, pool: Dict[str, torch.Tensor],
-                  i: int) -> Tuple[Optional[torch.Tensor],
-                                   Optional[torch.Tensor]]:
-    """Layer ``i``'s K and V scale planes of an int8 pool, else Nones."""
+                  i: int, num_pages: int
+                  ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Layer ``i``'s K and V scale planes of an int8 pool without the
+    scratch row, else Nones."""
     if not cfg.kv_int8:
         return None, None
-    return pool["ks"][i], pool["vs"][i]
+    return pool["ks"][i][:num_pages], pool["vs"][i][:num_pages]
 
 
 def _layer(params: Params, i: int) -> Dict[str, Any]:
@@ -268,35 +272,36 @@ def decode_step_paged(params: Params, cfg: LlamaConfig, token: torch.Tensor,
                                  torch.Tensor]:
     """One decode step over the paged KV pool.
 
-    token (B,) int; ``pool`` {"k", "v"} leaves (L, num_pages, page, Hkv,
-    D), with ``cfg.kv_int8`` int8 plus {"ks", "vs"} (L, num_pages, page,
-    Hkv) float32 scale planes; page_table (B, P) int32 with ``num_pages``
-    as the unallocated sentinel; cache_len (B,) int32 valid tokens
-    excluding this one; active (B,) bool gates the append. Attention runs
-    through the ragged paged decode wrapper, then the new K/V row
-    (quantised under ``kv_int8``) is written in place at page
-    ``cache_len // page``, offset ``cache_len % page``. Returns
+    token (B,) int; ``pool`` {"k", "v"} leaves (L, num_pages + 1, page,
+    Hkv, D) whose last page row is scratch (``tpu/page_pool``), with
+    ``cfg.kv_int8`` int8 plus {"ks", "vs"} (L, num_pages + 1, page, Hkv)
+    float32 scale planes; page_table (B, P) int32 with ``num_pages`` as
+    the unallocated sentinel; cache_len (B,) int32 valid tokens excluding
+    this one; active (B,) bool gates the append. Attention runs through
+    the ragged paged decode wrapper over the first ``num_pages`` rows,
+    then the new K/V row (quantised under ``kv_int8``) is written in place
+    at page ``cache_len // page``, offset ``cache_len % page``. Returns
     (logits (B, V) f32, pool, cache_len + 1); the caller freezes inactive
     rows' cache_len.
 
     Inactive rows must not write: the pool is shared and their page may
-    belong to another slot by now. JAX routed them to the sentinel page
-    with ``mode="drop"``; PyTorch has no dropping scatter, so those rows
-    (and any whose table entry is the sentinel) are filtered out of the
-    index set before the write.
+    belong to another slot by now. As JAX routes them to the sentinel
+    with ``mode="drop"``, their write (and any whose table entry is the
+    sentinel) goes to the scratch page: one write of all B rows, no host
+    sync.
     """
     b = token.shape[0]
     dev = token.device
     cos, sin = _rope(cfg, dev)
     positions = cache_len.long()[:, None]
-    num_pages, page = pool["k"].shape[1], pool["k"].shape[2]
+    num_pages, page = pool["k"].shape[1] - 1, pool["k"].shape[2]
     # the append destination is the same for every layer: hoist it.
     # take_along_axis(mode="clip") in JAX: clamp the column explicitly
     page_col = (cache_len.long() // page).clamp(0, page_table.shape[1] - 1)
     page_row = page_table.long().gather(1, page_col[:, None])[:, 0]
-    offset = cache_len.long() % page
-    keep = torch.nonzero(active & (page_row < num_pages)).squeeze(1)
-    dest_row, dest_off = page_row[keep], offset[keep]
+    keep = active & (page_row < num_pages)
+    dest_row = torch.where(keep, page_row, num_pages)
+    dest_off = torch.where(keep, cache_len.long() % page, 0)
     x = params["tok_emb"][token][:, None, :]              # (B, 1, D)
     for i in range(cfg.n_layers):
         layer = _layer(params, i)
@@ -304,14 +309,15 @@ def decode_step_paged(params: Params, cfg: LlamaConfig, token: torch.Tensor,
         q, k, v = _qkv(layer, h, cfg, cos, sin, positions)
         k_new, v_new = k[:, 0].contiguous(), v[:, 0].contiguous()
         attn = ragged_paged_decode_attention(
-            q.contiguous(), pool["k"][i], pool["v"][i], page_table, k_new,
-            v_new, cache_len, *_scale_planes(cfg, pool, i))
+            q.contiguous(), pool["k"][i][:num_pages],
+            pool["v"][i][:num_pages], page_table, k_new, v_new, cache_len,
+            *_scale_planes(cfg, pool, i, num_pages))
         x = x + qmm(attn.reshape(b, 1, -1), layer["wo"])
         h = rms_norm(x, layer["ffn_norm"], cfg.norm_eps)
         x = x + _ffn(layer, h)
-        # in-place append into the shared pool (active, non-sentinel rows)
+        # in-place append into the shared pool (dropped rows: scratch)
         for name, rows in _kv_rows(cfg, k_new, v_new).items():
-            pool[name][i][dest_row, dest_off] = rows[keep]
+            pool[name][i][dest_row, dest_off] = rows
     x = rms_norm(x[:, 0], params["out_norm"], cfg.norm_eps)
     logits = qmm(x, params["lm_head"]).float()
     return logits, pool, cache_len + 1
@@ -374,31 +380,32 @@ def verify_step_paged(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
     """Speculative verify over the paged KV pool: score G tokens per row
     in one forward.
 
-    tokens (B, G) sit at positions ``cache_len + g``; pool, page_table
-    and active as in :func:`decode_step_paged`. Attention always runs
-    through the ragged paged verify wrapper (int8 pools with their scale
-    planes under ``cfg.kv_int8``); the G new K/V rows of each active row
-    (quantised under ``kv_int8``) are then written in place at page
+    tokens (B, G) sit at positions ``cache_len + g``; pool (with its
+    scratch row), page_table and active as in :func:`decode_step_paged`.
+    Attention always runs through the ragged paged verify wrapper over
+    the first ``num_pages`` rows (int8 pools with their scale planes
+    under ``cfg.kv_int8``); the G new K/V rows of each row (quantised
+    under ``kv_int8``) are then written in place at page
     ``(cache_len + g) // page``, offset ``(cache_len + g) % page``.
     Inactive rows, sentinel destinations and positions past the table's
-    reach write nothing (JAX routed them to the sentinel page and dropped
-    them). Returns (logits (B, G, V) f32, pool); ``cache_len`` is not
-    advanced here — the caller commits the accepted prefix.
+    reach write the scratch page (JAX routed them to the sentinel page
+    and dropped them). Returns (logits (B, G, V) f32, pool);
+    ``cache_len`` is not advanced here — the caller commits the accepted
+    prefix.
     """
     b, g_len = tokens.shape
     dev = tokens.device
     cos, sin = _rope(cfg, dev)
     positions = cache_len.long()[:, None] \
         + torch.arange(g_len, device=dev)[None, :]          # (B, G)
-    num_pages, page = pool["k"].shape[1], pool["k"].shape[2]
+    num_pages, page = pool["k"].shape[1] - 1, pool["k"].shape[2]
     width = page_table.shape[1]
     # the write destinations are the same for every layer: hoist them
     page_col = positions // page
     page_row = page_table.long().gather(1, page_col.clamp(max=width - 1))
-    offset = positions % page
     keep = active[:, None] & (page_col < width) & (page_row < num_pages)
-    keep_b, keep_g = torch.nonzero(keep, as_tuple=True)
-    dest_row, dest_off = page_row[keep_b, keep_g], offset[keep_b, keep_g]
+    dest_row = torch.where(keep, page_row, num_pages)
+    dest_off = torch.where(keep, positions % page, 0)
     x = params["tok_emb"][tokens]                         # (B, G, D)
     for i in range(cfg.n_layers):
         layer = _layer(params, i)
@@ -406,12 +413,13 @@ def verify_step_paged(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
         q, k, v = _qkv(layer, h, cfg, cos, sin, positions)
         k, v = k.contiguous(), v.contiguous()
         attn = ragged_paged_verify_attention(
-            q.contiguous(), pool["k"][i], pool["v"][i], page_table, k, v,
-            cache_len, *_scale_planes(cfg, pool, i))
+            q.contiguous(), pool["k"][i][:num_pages],
+            pool["v"][i][:num_pages], page_table, k, v, cache_len,
+            *_scale_planes(cfg, pool, i, num_pages))
         x = x + qmm(attn.reshape(b, g_len, -1), layer["wo"])
         h = rms_norm(x, layer["ffn_norm"], cfg.norm_eps)
         x = x + _ffn(layer, h)
         for name, rows in _kv_rows(cfg, k, v).items():
-            pool[name][i][dest_row, dest_off] = rows[keep_b, keep_g]
+            pool[name][i][dest_row, dest_off] = rows
     x = rms_norm(x, params["out_norm"], cfg.norm_eps)
     return qmm(x, params["lm_head"]).float(), pool

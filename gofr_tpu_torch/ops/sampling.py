@@ -1,19 +1,25 @@
 """Token sampling: temperature / top-k / top-p, per row, and speculative
 draft-verify acceptance (counterpart of ``gofr_tpu/ops/sampling.py``).
 
-Greedy rows (``temperature <= 0``) resolve to ``argmax``. Sampled rows draw
-from their own ``torch.Generator`` (one per engine slot, seeded from the
-request's seed), so a row's stream depends on its seed alone. The JAX
-package draws with threefry keys; those bits are not reproduced here, so
-the two agree on the filtered distribution (:func:`filtered_log_probs`),
-not on sampled tokens.
+Greedy rows (``temperature <= 0``) resolve to ``argmax``. Sampled rows
+draw with their own threefry key (``ops/prng``, the JAX package's
+generator and configuration): each engine slot holds a key made from its
+request's seed, and every draw splits it the way the JAX package does, so
+a slot's stream is a function of its seed alone, whatever the batching.
+Both branches are computed for every row and one is kept per row, as the
+JAX package does inside one program: there is no host read, no Python
+loop over rows and no ``torch.Generator``, so a captured CUDA graph runs
+the sampler. Draws are bit-identical to JAX's up to the last bit of the
+Gumbel scores' logarithms (``ops/prng``).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Tuple
 
 import torch
+
+from gofr_tpu_torch.ops import prng
 
 # Rows with temperature <= 0 are greedy; this floor only guards the
 # division for rows whose sampled branch is discarded anyway.
@@ -24,16 +30,14 @@ _TEMP_FLOOR = 1e-6
 _RESIDUAL_FLOOR = 1e-9
 
 
-def filtered_log_probs_batch(logits: torch.Tensor, temperature: torch.Tensor,
-                             top_k: torch.Tensor,
-                             top_p: torch.Tensor) -> torch.Tensor:
-    """Log-probs of the distribution each row samples from, (B, V) f32.
-
-    Descending (stable) sort, temperature scaling with the floor, rank
-    based top-k (0 disables), nucleus prefix that always keeps the argmax
-    (a token stays while the mass before it is below ``top_p``), then a
-    log-softmax scattered back to vocab order. Filtered tokens are -inf.
-    ``temperature``/``top_p`` f32 and ``top_k`` int of shape (B,)."""
+def _sorted_masked(logits: torch.Tensor, temperature: torch.Tensor,
+                   top_k: torch.Tensor, top_p: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(order, masked): the descending (stable) sort order of each row and
+    its temperature-scaled logits in that order, with the top-k (rank
+    based, 0 disables) and nucleus (a token stays while the mass before
+    it is below ``top_p``, so the argmax always stays) filters set to
+    -inf."""
     vocab = logits.shape[-1]
     sorted_neg, order = torch.sort(-logits, dim=-1, stable=True)
     temp = temperature.float().clamp_min(_TEMP_FLOOR)[:, None]
@@ -44,7 +48,17 @@ def filtered_log_probs_batch(logits: torch.Tensor, temperature: torch.Tensor,
     probs = torch.softmax(scaled, dim=-1)
     mass_before = torch.cumsum(probs, dim=-1) - probs
     keep_p = mass_before < top_p.float()[:, None]
-    masked = torch.where(keep_k & keep_p, scaled, float("-inf"))
+    return order, torch.where(keep_k & keep_p, scaled, float("-inf"))
+
+
+def filtered_log_probs_batch(logits: torch.Tensor, temperature: torch.Tensor,
+                             top_k: torch.Tensor,
+                             top_p: torch.Tensor) -> torch.Tensor:
+    """Log-probs of the distribution each row samples from, (B, V) f32:
+    the log-softmax of :func:`_sorted_masked`'s rows scattered back to
+    vocab order; filtered tokens are -inf. ``temperature``/``top_p`` f32
+    and ``top_k`` int of shape (B,)."""
+    order, masked = _sorted_masked(logits, temperature, top_k, top_p)
     logp_sorted = torch.log_softmax(masked, dim=-1)
     return torch.zeros_like(logp_sorted).scatter_(-1, order, logp_sorted)
 
@@ -60,106 +74,87 @@ def filtered_log_probs(logits: torch.Tensor, temperature, top_k,
         torch.as_tensor([top_p], dtype=torch.float32, device=dev))[0]
 
 
-def sampled_rows(generators: Sequence[Optional[torch.Generator]]
-                 ) -> List[int]:
-    """Indices of the rows that draw (those given a generator)."""
-    return [i for i, gen in enumerate(generators) if gen is not None]
-
-
 def sample_batch(logits: torch.Tensor, temperature: torch.Tensor,
                  top_k: torch.Tensor, top_p: torch.Tensor,
-                 generators: Sequence[Optional[torch.Generator]],
-                 logp: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One token per row, (B,) int64.
+                 keys: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One token per row and the advanced keys: ``(tokens (B,) int64,
+    keys (B, 2))``.
 
-    Every row starts as ``argmax``. A row with a generator (the caller
-    passes one only for sampled rows that take part in this step) draws
-    from its filtered distribution with that generator, which advances it
-    by one draw. ``logp`` (B, V), when given, is that distribution
-    already computed (:func:`filtered_log_probs_batch` of ``logits``)."""
-    tokens = logits.argmax(dim=-1)
-    rows = sampled_rows(generators)
-    if not rows:
-        return tokens
-    idx = torch.as_tensor(rows, device=logits.device)
-    if logp is None:
-        logp = filtered_log_probs_batch(logits[idx], temperature[idx],
-                                        top_k[idx], top_p[idx])
-    else:
-        logp = logp[idx]
-    probs = logp.exp()
-    for j, row in enumerate(rows):
-        tokens[row] = torch.multinomial(probs[j], 1,
-                                        generator=generators[row])[0]
-    return tokens
+    Each row's key (``keys`` (B, 2), ``ops/prng``) is split exactly once:
+    the first half draws this sample (Gumbel-max over the sorted, masked
+    row), the second is returned for the next step. Rows with
+    ``temperature <= 0`` take ``argmax``."""
+    halves = prng.split(keys, 2)
+    greedy = logits.argmax(dim=-1)
+    order, masked = _sorted_masked(logits, temperature, top_k, top_p)
+    choice = prng.categorical(halves[:, 0], masked)
+    sampled = order.gather(-1, choice[:, None])[:, 0]
+    return torch.where(temperature > 0.0, sampled, greedy), halves[:, 1]
 
 
-def speculative_accept(t_logits: torch.Tensor, q_logp: Optional[torch.Tensor],
+def greedy_accept(t_logits: torch.Tensor, draft_tokens: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Greedy draft-verify acceptance: the longest prefix where the
+    target's argmax equals the draft token, and the argmax stream as the
+    output (correction at the first mismatch, bonus at G), so greedy
+    speculative decode is token-identical to greedy target decode.
+    Returns ``(out (B, G+1), accepts (B,))``."""
+    g_len = draft_tokens.shape[1]
+    t_argmax = t_logits.argmax(dim=-1)                     # (B, G+1)
+    match = (t_argmax[:, :g_len] == draft_tokens).long()
+    return t_argmax, match.cumprod(dim=1).sum(dim=1)
+
+
+def speculative_accept(t_logits: torch.Tensor, q_logp: torch.Tensor,
                        draft_tokens: torch.Tensor, temperature: torch.Tensor,
                        top_k: torch.Tensor, top_p: torch.Tensor,
-                       generators: Sequence[Optional[torch.Generator]]
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+                       keys: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Batched draft-verify acceptance (speculative decode).
 
     t_logits (B, G+1, V) raw target logits — position ``i < G`` judges
     ``draft_tokens[:, i]``, position G scores the bonus token; q_logp
-    (B, G, V) the draft's filtered log-probs (what it sampled from; read
-    only for rows with a generator, and may be None when no row has one);
+    (B, G, V) the draft's filtered log-probs (what it sampled from);
     draft_tokens (B, G); per-row sampling state as in
     :func:`sample_batch`. Returns ``(out_tokens (B, G+1), accept_counts
-    (B,))``: row ``b`` commits ``out_tokens[b, :accept_counts[b] + 1]``.
+    (B,), carry_keys (B, 2))``: row ``b`` commits
+    ``out_tokens[b, :accept_counts[b] + 1]``.
 
-    Greedy rows (no generator) accept the longest prefix where the
-    target argmax equals the draft token, and their output is the argmax
-    stream, so greedy speculative decode is token-identical to greedy
-    target decode. Sampled rows run rejection sampling with their
-    generator: accept ``d_i`` with probability ``min(1, p(d_i)/q(d_i))``;
+    Greedy rows take :func:`greedy_accept`. Sampled rows split their key
+    into four (uniforms, residuals, bonus, carry) and run rejection
+    sampling: accept ``d_i`` with probability ``min(1, p(d_i)/q(d_i))``;
     at the first rejection draw from ``normalize(max(p - q, 0))`` (the
     target's own distribution when that mass is below ``1e-9``); after
     ``G`` acceptances draw a bonus token from the target at position G.
-    Each sampled row takes three draws per call (uniforms, residuals,
-    bonus) whatever it accepts.
-    """
-    g_len = draft_tokens.shape[1]
-    dev = t_logits.device
-    t_argmax = t_logits.argmax(dim=-1)                     # (B, G+1)
-    match = (t_argmax[:, :g_len] == draft_tokens).long()
-    out = t_argmax.clone()
-    accepts = match.cumprod(dim=1).sum(dim=1)
-    rows = sampled_rows(generators)
-    if not rows:
-        return out, accepts
-    idx = torch.as_tensor(rows, device=dev)
-    n, vocab = len(rows), t_logits.shape[-1]
-    per_pos = [t[idx].repeat_interleave(g_len + 1)
+    Every row's key is consumed once a call, whatever it accepts."""
+    b, g1, vocab = t_logits.shape
+    g_len = g1 - 1
+    greedy_out, greedy_count = greedy_accept(t_logits, draft_tokens)
+    sub = prng.split(keys, 4)
+    k_u, k_res, k_bonus, carry = sub.unbind(dim=1)
+    per_pos = [t[:, None].expand(b, g1).reshape(-1)
                for t in (temperature, top_k, top_p)]
     p_logp = filtered_log_probs_batch(
-        t_logits[idx].reshape(n * (g_len + 1), vocab),
-        *per_pos).reshape(n, g_len + 1, vocab)
-    q_rows = q_logp[idx]                                   # (n, G, V)
-    drafts = draft_tokens[idx].long()
+        t_logits.reshape(b * g1, vocab), *per_pos).reshape(b, g1, vocab)
+    drafts = draft_tokens.long()
     p_d = p_logp[:, :g_len].gather(-1, drafts[..., None])[..., 0]
-    q_d = q_rows.gather(-1, drafts[..., None])[..., 0]
-    uniforms = torch.stack([
-        torch.rand(g_len, generator=generators[row], device=dev)
-        for row in rows])
-    accept = uniforms < torch.exp(p_d - q_d)               # ratio > 1 accepts
+    q_d = q_logp.gather(-1, drafts[..., None])[..., 0]
+    accept = prng.uniform(k_u, (g_len,)) < torch.exp(p_d - q_d)
     count = accept.long().cumprod(dim=1).sum(dim=1)
-    residual = torch.clamp_min(p_logp[:, :g_len].exp() - q_rows.exp(), 0.0)
+    residual = torch.clamp_min(p_logp[:, :g_len].exp() - q_logp.exp(), 0.0)
     res_mass = residual.sum(dim=-1, keepdim=True)
-    res_probs = torch.where(res_mass > _RESIDUAL_FLOOR, residual,
-                            p_logp[:, :g_len].exp())
-    bonus_probs = p_logp[:, g_len].exp()
-    replacements = torch.empty((n, g_len + 1), dtype=torch.long, device=dev)
-    for j, row in enumerate(rows):
-        gen = generators[row]
-        replacements[j, :g_len] = torch.multinomial(res_probs[j], 1,
-                                                    generator=gen)[:, 0]
-        replacements[j, g_len] = torch.multinomial(bonus_probs[j], 1,
-                                                   generator=gen)[0]
-    padded = torch.cat([drafts, torch.zeros((n, 1), dtype=torch.long,
-                                            device=dev)], dim=1)
-    keep = torch.arange(g_len + 1, device=dev)[None, :] < count[:, None]
-    out[idx] = torch.where(keep, padded, replacements)
-    accepts[idx] = count
-    return out, accepts
+    res_logits = torch.where(
+        residual > 0.0, torch.log(torch.clamp_min(residual, _RESIDUAL_FLOOR)),
+        float("-inf"))
+    res_logits = torch.where(res_mass > _RESIDUAL_FLOOR, res_logits,
+                             p_logp[:, :g_len])
+    corrections = prng.categorical(prng.split(k_res, g_len), res_logits)
+    bonus = prng.categorical(k_bonus, p_logp[:, g_len])
+    replacements = torch.cat([corrections, bonus[:, None]], dim=1)
+    padded = torch.cat([drafts, torch.zeros_like(drafts[:, :1])], dim=1)
+    keep = torch.arange(g1, device=t_logits.device)[None, :] < count[:, None]
+    sampled_out = torch.where(keep, padded, replacements)
+    greedy_row = temperature <= 0.0
+    out = torch.where(greedy_row[:, None], greedy_out, sampled_out)
+    return out, torch.where(greedy_row, greedy_count, count), carry

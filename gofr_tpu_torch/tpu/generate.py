@@ -11,13 +11,14 @@ path).
   prompts right-padded to the bucket. Prefill (flash-attention kernel on
   the card) fills a small dense cache that one in-place insert scatters
   into freshly allocated pool pages; the first token is sampled inside
-  the prefill step.
+  the prefill step, and each claimed slot's PRNG key is made from its
+  request's seed there.
 - A decode tick advances every active slot K steps (K from the ladder
   1, 2, 4, ... <= ``steps_per_tick``, never past the smallest remaining
   budget, and 1 while a pending request could be admitted); each step
   runs ``llama.decode_step_paged`` (ragged paged decode kernel on the
   card) and samples per slot. Inactive slots are frozen (cache_len does
-  not advance) and never write the pool.
+  not advance) and write only the pool's scratch page.
 - ``cfg.kv_int8`` makes the pool int8 with float32 scale planes: the
   insert scatters the quantised prefill rows and scales, and decode and
   verify read them through the ragged kernel's int8 instantiation.
@@ -31,16 +32,37 @@ path).
   halves or doubles on the acceptance of every 16 spec ticks. Plain
   ticks serve the last token of a budget and any tick with an admission
   waiting.
-- Ticks are synchronous: one host fetch of the tick's tokens. Device work
-  runs in a worker thread so the event loop keeps serving callers
-  meanwhile.
+- Compiled ticks: the device state (cache_len, last token, sampling
+  parameters, per-slot PRNG keys, active mask, page table, pool) lives at
+  fixed addresses and is updated in place, so each tick is one function
+  of that state. There is one executable per plain ``(k, sampled)`` rung
+  and per spec ``(g, sampled)`` rung, as the JAX engine keeps one
+  compiled executable each: on the card a ``torch.cuda.CUDAGraph``
+  captured after one eager run on a side stream (``warmup()`` captures
+  the ladders; a rung first met while serving is captured then), on the
+  CPU the same function run eagerly. A failed capture or replay raises;
+  there is no eager fallback on the card.
+- The loop is pipelined M deep (``max_inflight_ticks``, 2 as in the JAX
+  engine): a tick's dispatch uploads its mask and table through pinned
+  slabs (``tpu/staging``), replays its graph and queues the copy of its
+  tokens into a pinned slab, and up to M ticks are dispatched before the
+  oldest one's tokens are fetched (a worker thread waits on the copy's
+  event). Tokens publish in dispatch order; per-slot ``inflight`` and
+  ``fill`` charging keeps every budget and page cover exact, a spec tick
+  is charged g + 1 and refunded at publish, and tokens of a slot that
+  was reclaimed since dispatch are dropped. The prefill's first token is
+  fetched the same way.
+- All device work is queued from one thread (a single-worker executor),
+  in dispatch order: prefill inserts and ticks write the same state, and
+  the stream's order is what makes that safe, a page freed while a later
+  tick is in flight included.
 - Tokens stream: ``generate_stream`` yields ids as each tick's fetch
   lands; ``generate`` gathers them.
 
 Left for later slices (see ROADMAP.md): the dense cache, prefix cache,
 disaggregation, grammar-constrained decoding, brownout, auto-tuning,
 upload coalescing, mesh sharding, the SLO / metrics / flight-recorder
-hooks, the attention-window ladder and the M-deep pipelined tick.
+hooks and the attention-window ladder.
 """
 
 from __future__ import annotations
@@ -49,6 +71,7 @@ import asyncio
 import os
 import time
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -56,10 +79,15 @@ import torch
 
 from gofr_tpu_torch.device import resolve_device
 from gofr_tpu_torch.models import llama
+from gofr_tpu_torch.ops import prng
+from gofr_tpu_torch.ops.cuda import decode_attention as decode_mod
+from gofr_tpu_torch.ops.cuda import launch_counts
+from gofr_tpu_torch.ops.cuda import ragged_paged_attention as ragged_mod
 from gofr_tpu_torch.ops.sampling import (filtered_log_probs_batch,
-                                         sample_batch, sampled_rows,
+                                         greedy_accept, sample_batch,
                                          speculative_accept)
 from gofr_tpu_torch.tpu.page_pool import PagePool
+from gofr_tpu_torch.tpu.staging import StagingPool
 
 DEFAULT_PROMPT_BUCKETS = (32, 128, 512)
 
@@ -75,10 +103,54 @@ _SPEC_GROW_ABOVE = 0.8
 _DONE = object()
 
 
+def cuda_refusals(cfg, max_len: int, kv_page: int, draft_cfg=None,
+                  spec_gamma: int = 0) -> List[str]:
+    """What the card's kernels would refuse at the first tick of an engine
+    of this configuration, one line each (empty: nothing). The ragged
+    kernel serves the target (head_dim 128, GQA group 1/2/4/8, bf16, at
+    most ``MAX_VERIFY_TOKENS`` queries a slot, a rank's scores of the
+    ``max_len / kv_page`` table columns within ``MAX_DYN_SMEM``); the
+    flash-decode kernel serves the draft (head_dim 128, group 1/2/4/8,
+    bf16). The plain versions the CPU runs take any of these."""
+    out = []
+    models = [("model", cfg, ragged_mod)]
+    if draft_cfg is not None:
+        models.append(("draft", draft_cfg, decode_mod))
+    for name, c, mod in models:
+        if c.dtype != torch.bfloat16:
+            out.append(f"{name} dtype {c.dtype}: the kernels take bf16")
+        if c.head_dim != mod.HEAD_DIM:
+            out.append(f"{name} head_dim {c.head_dim}: the kernels take "
+                       f"{mod.HEAD_DIM}")
+        if c.n_heads % c.n_kv_heads \
+                or c.n_heads // c.n_kv_heads not in mod.SUPPORTED_GROUPS:
+            out.append(f"{name} GQA group {c.n_heads}/{c.n_kv_heads}: the "
+                       f"kernels take {mod.SUPPORTED_GROUPS}")
+    g_len = 1
+    if draft_cfg is not None:
+        g_len = spec_gamma + 1
+        if g_len > ragged_mod.MAX_VERIFY_TOKENS:
+            out.append(f"spec_gamma {spec_gamma}: verify takes at most "
+                       f"MAX_VERIFY_TOKENS = {ragged_mod.MAX_VERIFY_TOKENS} "
+                       f"tokens a slot")
+    if cfg.n_heads % cfg.n_kv_heads == 0 \
+            and g_len <= ragged_mod.MAX_VERIFY_TOKENS:
+        width = max_len // kv_page
+        smem = ragged_mod.dyn_smem_bytes(width, kv_page,
+                                         cfg.n_heads // cfg.n_kv_heads, g_len)
+        if smem > ragged_mod.MAX_DYN_SMEM:
+            out.append(f"a table of {width} columns of {kv_page} at "
+                       f"{g_len} queries a slot needs {smem} bytes of "
+                       f"shared memory, over MAX_DYN_SMEM = "
+                       f"{ragged_mod.MAX_DYN_SMEM}")
+    return out
+
+
 class Sampling:
     """Per-request sampling parameters. ``temperature <= 0`` is greedy;
     ``top_k == 0`` and ``top_p >= 1`` disable their filters. ``seed=None``
-    draws fresh entropy; pass a seed for a reproducible completion."""
+    draws fresh entropy; pass a seed for a reproducible completion (its
+    low 32 bits make the slot's PRNG key, as ``jax.random.PRNGKey``)."""
     __slots__ = ("temperature", "top_k", "top_p", "seed")
 
     def __init__(self, temperature: float = 0.0, top_k: int = 0,
@@ -161,7 +233,7 @@ class _Request:
 class _Slot:
     __slots__ = ("future", "remaining", "eos_id", "tokens", "active", "gen",
                  "inflight", "queue", "temperature", "fill", "submitted_at",
-                 "pages", "generator")
+                 "pages")
 
     def __init__(self):
         self.future: Optional[asyncio.Future] = None
@@ -176,7 +248,29 @@ class _Slot:
         self.fill = 0         # host mirror of the device cache_len
         self.submitted_at = 0.0
         self.pages: List[int] = []   # pool pages this slot owns
-        self.generator: Optional[torch.Generator] = None  # sampled rows
+
+
+class _Fetch:
+    """One dispatched step whose host copy is in flight: ``task`` resolves
+    to its tokens; ``kind`` is prefill, tick or spec; ``payload`` what
+    they publish against."""
+    __slots__ = ("task", "kind", "payload")
+
+    def __init__(self, task, kind: str, payload):
+        self.task = task
+        self.kind = kind
+        self.payload = payload
+
+
+class _Graph:
+    """A captured tick: the graph, its static token output and the kernel
+    launches one replay makes."""
+    __slots__ = ("graph", "out", "launches")
+
+    def __init__(self, graph, out, launches):
+        self.graph = graph
+        self.out = out
+        self.launches = launches
 
 
 def _params_to(params: Any, device: torch.device) -> Any:
@@ -190,6 +284,7 @@ class GenerationEngine:
                  max_len: Optional[int] = None,
                  prompt_buckets=DEFAULT_PROMPT_BUCKETS,
                  steps_per_tick: int = 1,
+                 max_inflight_ticks: int = 2,
                  kv_page: int = 32,
                  kv_pages: Optional[int] = None,
                  kv_page_reserve: Optional[int] = None,
@@ -224,6 +319,15 @@ class GenerationEngine:
         if bad:
             raise ValueError(f"prompt buckets {bad} are not multiples of "
                              f"kv_page {self.kv_page}")
+        self.spec = draft_cfg is not None and draft_params is not None
+        self.spec_gamma = max(1, int(spec_gamma))
+        if self.device.type == "cuda":
+            refused = cuda_refusals(cfg, self.max_len, self.kv_page,
+                                    draft_cfg if self.spec else None,
+                                    self.spec_gamma)
+            if refused:
+                raise ValueError("the card's kernels refuse this "
+                                 "configuration: " + "; ".join(refused))
         self.logger = logger
         self.params = _params_to(params, self.device)
         self.pages_per_slot = self.max_len // self.kv_page
@@ -237,17 +341,13 @@ class GenerationEngine:
                             if kv_page_reserve is not None
                             else min(self.max_slots,
                                      self._pool.num_pages // 8))
-        # host master copy of the page table; the device copy is rebuilt
+        # host master copy of the page table; the device copy is uploaded
         # when the version moves
         self._table = np.full((self.max_slots, self.pages_per_slot),
                               self._pool.sentinel, np.int32)
         self._table_version = 0
-        self._table_cache: Optional[Tuple[int, torch.Tensor]] = None
-        self._reset_slot_tensors()
 
         # -- speculative draft-verify decode ---------------------------------
-        self.spec = draft_cfg is not None and draft_params is not None
-        self.spec_gamma = max(1, int(spec_gamma))
         self.draft_cfg = draft_cfg
         self.draft_params = None
         self._draft_cache: Optional[Dict[str, torch.Tensor]] = None
@@ -278,8 +378,41 @@ class GenerationEngine:
         self._gamma_cap = self.spec_gamma if self.spec else 0
         self._spec_proposed = 0
         self._spec_accepted = 0
+        self._spec_noted = 0
         self._spec_window_proposed = 0
         self._spec_window_accepted = 0
+
+        # -- device state at fixed addresses ------------------------------
+        dev, n = self.device, self.max_slots
+        self.cache_len = torch.zeros((n,), dtype=torch.int32, device=dev)
+        self.last_token = torch.zeros((n,), dtype=torch.int64, device=dev)
+        self.temps = torch.zeros((n,), dtype=torch.float32, device=dev)
+        self.top_ks = torch.zeros((n,), dtype=torch.int64, device=dev)
+        self.top_ps = torch.ones((n,), dtype=torch.float32, device=dev)
+        self.sample_keys = torch.zeros((n, 2), dtype=torch.int64,
+                                       device=dev)
+        self.active = torch.zeros((n,), dtype=torch.bool, device=dev)
+        self.table = torch.full((n, self.pages_per_slot),
+                                self._pool.sentinel, dtype=torch.int32,
+                                device=dev)
+        self._sent_mask: Optional[bytes] = None   # last uploaded mask
+        self._sent_table = -1                     # last uploaded version
+
+        # -- tick executables and the pipeline ----------------------------
+        self.max_inflight_ticks = max(1, int(max_inflight_ticks))
+        self._staging = StagingPool(self.device,
+                                    depth=self.max_inflight_ticks + 1)
+        # all device work is queued from this one thread, in order
+        self._device_exec = ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="gofr-torch-device")
+        self._graphs: Dict[Tuple[str, int, bool], _Graph] = {}
+        self._graph_pool = None
+        self.capture_s = 0.0
+        self.graph_replays = 0
+        self.lazy_captures = 0     # captures made while serving
+        self._publishq: "deque[_Fetch]" = deque()
+        self._ticks_inflight = 0
+        self._ticks_inflight_peak = 0
 
         self._slots = [_Slot() for _ in range(self.max_slots)]
         self._free: List[int] = list(range(self.max_slots))
@@ -295,49 +428,40 @@ class GenerationEngine:
         self.draft_steps = 0          # Σ(g + 1) draft steps (flash decode)
         self.ttfts: "deque[float]" = deque(maxlen=4096)  # submit → 1st token
 
-    def _reset_slot_tensors(self) -> None:
-        dev, n = self.device, self.max_slots
-        self.cache_len = torch.zeros((n,), dtype=torch.int32, device=dev)
-        self.last_token = torch.zeros((n,), dtype=torch.int64, device=dev)
-        self.temps = torch.zeros((n,), dtype=torch.float32, device=dev)
-        self.top_ks = torch.zeros((n,), dtype=torch.int64, device=dev)
-        self.top_ps = torch.ones((n,), dtype=torch.float32, device=dev)
-
-    # -- device steps --------------------------------------------------------
-    def _prefill_insert(self, nb: int, bucket: int, padded: np.ndarray,
-                        lengths: np.ndarray, slots: np.ndarray,
-                        temps: np.ndarray, top_ks: np.ndarray,
-                        top_ps: np.ndarray, gens: List, flat_ids: np.ndarray
-                        ) -> np.ndarray:
+    # -- device steps (the device thread) --------------------------------------
+    def _prefill_insert(self, nb: int, bucket: int, n_claimed: int,
+                        ints: np.ndarray, floats: np.ndarray):
         """Batched prompt forward for ``nb`` rows of bucket ``bucket``, its
-        in-place insert into the pool pages ``flat_ids`` (row-major (nb,
-        bucket // page); sentinel entries are skipped), with a draft its
-        KV-only prefill into the claimed slots' dense draft rows, and the
-        claimed slots' device rows. Returns the first tokens (nb,) on the
-        host. Padding rows carry slot ``max_slots`` and are skipped."""
+        in-place insert into the pool pages (sentinel entries land in the
+        scratch page), with a draft its KV-only prefill into the claimed
+        slots' dense draft rows, and the first ``n_claimed`` rows' slot
+        state, PRNG keys included. ``ints`` packs (tokens (nb, bucket),
+        lengths, slots, top_ks, seeds (nb,) each, page ids (nb, bucket //
+        page)) and ``floats`` (temps, top_ps); each goes up in one staged
+        copy. Returns the fetch of the first tokens (nb,)."""
         dev, cfg, page = self.device, self.cfg, self.kv_page
-        tokens = torch.as_tensor(padded, device=dev).long()
-        lens = torch.as_tensor(lengths, device=dev)
-        t_temps = torch.as_tensor(temps, device=dev)
-        t_top_ks = torch.as_tensor(top_ks, device=dev)
-        t_top_ps = torch.as_tensor(top_ps, device=dev)
+        npg = bucket // page
+        ints_dev = torch.empty(ints.shape, dtype=torch.int64, device=dev)
+        floats_dev = torch.empty(floats.shape, dtype=torch.float32,
+                                 device=dev)
+        self._staging.upload(ints_dev, ints)
+        self._staging.upload(floats_dev, floats)
+        tokens = ints_dev[:nb * bucket].view(nb, bucket)
+        lens, slots, top_ks, seeds = ints_dev[nb * bucket:].view(
+            -1, nb)[:4]
+        flat_ids = ints_dev[nb * (bucket + 4):]
+        temps, top_ps = floats_dev.view(2, nb)
         small = llama.init_cache(cfg, nb, bucket, device=dev)
         logits, small, _ = llama.prefill(self.params, cfg, tokens, small,
                                          lengths=lens)
-        first = sample_batch(logits, t_temps, t_top_ks, t_top_ps, gens)
+        first, keys = sample_batch(logits, temps, top_ks, top_ps,
+                                   prng.seed_key(seeds))
         # in-place scatter of the group's KV pages into the pool; each
         # leaf (k/v rows, int8 scale planes) keeps its own trailing shape
-        live = np.nonzero(flat_ids != self._pool.sentinel)[0]
-        src = torch.as_tensor(live, device=dev)
-        dst = torch.as_tensor(flat_ids[live].astype(np.int64), device=dev)
         for name, leaf in self._pool.leaves.items():
-            chunks = small[name].reshape(cfg.n_layers, nb * (bucket // page),
-                                         page, *small[name].shape[3:])
-            leaf[:, dst] = chunks[:, src]
-        self._pool.note_writes(len(live))
-        rows = np.nonzero(slots < self.max_slots)[0]
-        row_t = torch.as_tensor(rows, device=dev)
-        slot_t = torch.as_tensor(slots[rows].astype(np.int64), device=dev)
+            leaf[:, flat_ids] = small[name].reshape(
+                cfg.n_layers, nb * npg, page, *small[name].shape[3:])
+        slot_t = slots[:n_claimed]
         if self.spec:
             # KV-only draft prefill over the same bucket; its rows land in
             # the claimed slots' dense draft rows (padding rows dropped)
@@ -346,87 +470,207 @@ class GenerationEngine:
             llama.prefill(self.draft_params, dcfg, tokens, dsmall,
                           lengths=lens)
             for name, leaf in self._draft_cache.items():
-                leaf[:, slot_t, :bucket] = dsmall[name][:, row_t]
-        self.cache_len[slot_t] = lens[row_t].to(torch.int32)
-        self.last_token[slot_t] = first[row_t]
-        self.temps[slot_t] = t_temps[row_t]
-        self.top_ks[slot_t] = t_top_ks[row_t]
-        self.top_ps[slot_t] = t_top_ps[row_t]
-        return first.cpu().numpy()
+                leaf[:, slot_t, :bucket] = dsmall[name][:, :n_claimed]
+        self.cache_len[slot_t] = lens[:n_claimed].to(torch.int32)
+        self.last_token[slot_t] = first[:n_claimed]
+        self.temps[slot_t] = temps[:n_claimed]
+        self.top_ks[slot_t] = top_ks[:n_claimed]
+        self.top_ps[slot_t] = top_ps[:n_claimed]
+        self.sample_keys[slot_t] = keys[:n_claimed]
+        return self._staging.fetch(first)
 
-    def _decode_tick(self, k: int, active: torch.Tensor, table: torch.Tensor,
-                     gens: List) -> np.ndarray:
-        """``k`` paged decode steps over every slot; inactive rows keep
-        their cache_len and token. Returns the (k, max_slots) tokens on
-        the host: the tick's one fetch."""
-        token, cache_len = self.last_token, self.cache_len
+    def _plain_tick(self, k: int, sampled: bool,
+                    active: torch.Tensor) -> torch.Tensor:
+        """``k`` paged decode steps over every slot of the device state,
+        updated in place; inactive rows keep their cache_len, token and
+        key. Returns the (k, max_slots) tokens."""
+        token, cache_len, keys = self.last_token, self.cache_len, \
+            self.sample_keys
         steps = []
         for _ in range(k):
             logits, _, new_len = llama.decode_step_paged(
-                self.params, self.cfg, token, self._pool.leaves, table,
+                self.params, self.cfg, token, self._pool.leaves, self.table,
                 cache_len, active)
-            nxt = sample_batch(logits, self.temps, self.top_ks, self.top_ps,
-                               gens)
+            if sampled:
+                nxt, new_keys = sample_batch(logits, self.temps, self.top_ks,
+                                             self.top_ps, keys)
+                keys = torch.where(active[:, None], new_keys, keys)
+            else:
+                nxt = logits.argmax(dim=-1)
             cache_len = torch.where(active, new_len, cache_len)
             token = torch.where(active, nxt, token)
             steps.append(token)
-        self.cache_len, self.last_token = cache_len, token
-        return torch.stack(steps).cpu().numpy()
+        out = torch.stack(steps)
+        self.cache_len.copy_(cache_len)
+        self.last_token.copy_(token)
+        if sampled:
+            self.sample_keys.copy_(keys)
+        return out
 
-    def _spec_tick(self, g: int, active: torch.Tensor, table: torch.Tensor,
-                   gens: List) -> Tuple[np.ndarray, np.ndarray]:
-        """One speculative tick at rung ``g``: the draft runs g + 1 dense
-        decode steps proposing g tokens (the extra step writes the last
-        proposal's KV, so a full acceptance leaves the draft cache
-        covering every committed position), the target verifies all
-        g + 1 positions in one paged forward, and ``speculative_accept``
-        commits ``accepts + 1`` tokens per active row. Inactive rows keep
-        their cache_len and token. Returns ((g + 1, max_slots) tokens,
-        (max_slots,) accept counts) on the host, from the tick's one
-        fetch."""
-        last, cache_len = self.last_token, self.cache_len
-        sampled = bool(sampled_rows(gens))
+    def _spec_tick(self, g: int, sampled: bool,
+                   active: torch.Tensor) -> torch.Tensor:
+        """One speculative tick at rung ``g`` (JAX ``_spec_paged_fn``): the
+        draft runs g + 1 dense decode steps proposing g tokens (the extra
+        step writes the last proposal's KV, so a full acceptance leaves
+        the draft cache covering every committed position), the target
+        verifies all g + 1 positions in one paged forward, and
+        ``speculative_accept`` commits ``accepts + 1`` tokens per active
+        row. A sampled tick splits each key into g + 2: one a draft step
+        and one for the acceptance. Inactive rows keep their cache_len,
+        token and key. Returns (g + 2, max_slots): the g + 1 committed
+        candidates, then the accept counts."""
+        last, cache_len, keys = self.last_token, self.cache_len, \
+            self.sample_keys
+        if sampled:
+            split = prng.split(keys, g + 2)
         token, dlen = last, cache_len
         proposals, q_logps = [], []
-        for _ in range(g + 1):
+        for i in range(g + 1):
             logits, _, new_len = llama.decode_step(
                 self.draft_params, self.draft_cfg, token, self._draft_cache,
                 dlen)
-            q_logp = (filtered_log_probs_batch(logits, self.temps,
-                                               self.top_ks, self.top_ps)
-                      if sampled else None)
-            proposal = sample_batch(logits, self.temps, self.top_ks,
-                                    self.top_ps, gens, logp=q_logp)
+            proposal = logits.argmax(dim=-1)
+            if sampled:
+                q_logp = filtered_log_probs_batch(logits, self.temps,
+                                                  self.top_ks, self.top_ps)
+                choice = prng.categorical(split[:, i], q_logp)
+                proposal = torch.where(self.temps > 0.0, choice, proposal)
+                q_logps.append(q_logp)
             dlen = torch.where(active, new_len, dlen)
             token = torch.where(active, proposal, token)
             proposals.append(token)
-            q_logps.append(q_logp)
         draft_tokens = torch.stack(proposals[:g], dim=1)          # (B, g)
-        q_logp = torch.stack(q_logps[:g], dim=1) if sampled else None
         verify_tokens = torch.cat([last[:, None], draft_tokens], dim=1)
         t_logits, _ = llama.verify_step_paged(
-            self.params, self.cfg, verify_tokens, self._pool.leaves, table,
-            cache_len, active)
-        out, accepts = speculative_accept(t_logits, q_logp, draft_tokens,
-                                          self.temps, self.top_ks,
-                                          self.top_ps, gens)
+            self.params, self.cfg, verify_tokens, self._pool.leaves,
+            self.table, cache_len, active)
+        if sampled:
+            out, accepts, carry = speculative_accept(
+                t_logits, torch.stack(q_logps[:g], dim=1), draft_tokens,
+                self.temps, self.top_ks, self.top_ps, split[:, g + 1])
+            self.sample_keys.copy_(torch.where(active[:, None], carry, keys))
+        else:
+            out, accepts = greedy_accept(t_logits, draft_tokens)
         accepts = torch.where(active, accepts, 0)
         chosen = out.gather(1, accepts[:, None])[:, 0]
-        self.last_token = torch.where(active, chosen, last)
-        self.cache_len = torch.where(active, cache_len + accepts + 1,
-                                     cache_len).to(torch.int32)
-        host = torch.cat([out.T, accepts[None].to(out.dtype)]).cpu().numpy()
-        return host[:g + 1], host[g + 1]
+        self.last_token.copy_(torch.where(active, chosen, last))
+        self.cache_len.copy_(torch.where(active, cache_len + accepts + 1,
+                                         cache_len))
+        return torch.cat([out.T, accepts[None]])
 
-    def _table_dev(self) -> torch.Tensor:
-        cached = self._table_cache
-        if cached is not None and cached[0] == self._table_version:
-            return cached[1]
-        dev = torch.as_tensor(self._table, device=self.device).clone()
-        self._table_cache = (self._table_version, dev)
-        return dev
+    def _tick_body(self, key: Tuple[str, int, bool],
+                   active: torch.Tensor) -> torch.Tensor:
+        kind, n, sampled = key
+        if kind == "spec":
+            return self._spec_tick(n, sampled, active)
+        return self._plain_tick(n, sampled, active)
+
+    def _capture(self, key: Tuple[str, int, bool]) -> _Graph:
+        """Capture the tick ``key`` as a CUDA graph: one eager run first,
+        on a side stream with every slot inactive (it writes only the
+        pool's scratch page and, for a spec tick, the draft cache at
+        frozen positions that are written again before they are read),
+        which builds the kernels and sets their attributes, under
+        ``set_sync_debug_mode("error")`` so a host sync raises here; then
+        the capture, whose launch counts become the graph's."""
+        t0 = time.monotonic()
+        dev = self.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        idle = torch.zeros_like(self.active)
+        with torch.cuda.stream(side):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                self._tick_body(key, idle)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        before = launch_counts.read()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._graph_pool,
+                              capture_error_mode="thread_local"):
+            out = self._tick_body(key, self.active)
+        launches = launch_counts.diff(launch_counts.read(), before)
+        launch_counts.write(before)             # a capture launches nothing
+        entry = _Graph(graph, out, launches)
+        self._graphs[key] = entry
+        self.capture_s += time.monotonic() - t0
+        return entry
+
+    def _run_tick(self, key: Tuple[str, int, bool],
+                  mask: Optional[np.ndarray], table: Optional[np.ndarray]):
+        """Upload what moved, run the tick (a graph replay on the card,
+        captured first if this rung was not warmed; eager on the CPU) and
+        queue its tokens' copy. Returns the fetch."""
+        if mask is not None:
+            self._staging.upload(self.active, mask)
+        if table is not None:
+            self._staging.upload(self.table, table)
+        if self.device.type != "cuda":
+            return self._staging.fetch(self._tick_body(key, self.active))
+        entry = self._graphs.get(key)
+        if entry is None:
+            entry = self._capture(key)
+            self.lazy_captures += 1
+        entry.graph.replay()
+        launch_counts.add(entry.launches)
+        self.graph_replays += 1
+        return self._staging.fetch(entry.out)
+
+    def _warm(self, keys) -> None:
+        """Capture (on the card) or run once (on the CPU) every tick of
+        ``keys``, then run the prefill of one row of every bucket with a
+        padding row (no slot is written)."""
+        idle = torch.zeros_like(self.active)
+        for key in keys:
+            if self.device.type == "cuda":
+                if key not in self._graphs:
+                    self._capture(key)
+            else:
+                self._tick_body(key, idle)
+        for bucket in self.prompt_buckets:
+            # tokens, length 1, slot max_slots (none), top_k, seed, pages
+            ints = np.concatenate([np.zeros(bucket + 4, np.int64),
+                                   np.full(bucket // self.kv_page,
+                                           self._pool.sentinel, np.int64)])
+            ints[bucket:bucket + 2] = (1, self.max_slots)
+            floats = np.array([0.0, 1.0], np.float32)      # temp, top_p
+            self._prefill_insert(1, bucket, 0, ints, floats)()
 
     # -- lifecycle -------------------------------------------------------------
+    async def warmup(self, ks: Optional[Tuple[int, ...]] = None) -> None:
+        """Capture the tick executables so the serving path never does
+        (the JAX engine's ``warmup``, without the window rungs the paged
+        path retires): every rung of the k ladder (``ks`` restricts it)
+        and, with a draft, of the γ ladder, greedy and sampled; then run
+        one prefill of every bucket. An unwarmed rung is captured when a
+        tick first needs it. On the CPU each tick runs once instead. Must
+        run before ``start()``: it runs device work outside the engine
+        loop."""
+        if self._task is not None:
+            raise RuntimeError(
+                "warmup() must be called before start(): it runs device "
+                "work outside the engine loop")
+        if ks is None:
+            rungs = list(self._k_ladder)
+        else:
+            unknown = [k for k in ks if k not in self._k_ladder]
+            if unknown or not ks:
+                raise ValueError(
+                    f"warmup ks={unknown or ks} are not k-ladder rungs "
+                    f"{self._k_ladder}; nothing would be warmed for them")
+            rungs = [k for k in self._k_ladder if k in ks]
+        keys = [("plain", k, s) for k in rungs for s in (False, True)]
+        keys += [("spec", g, s) for g in self._g_ladder for s in (False, True)]
+        if self.logger is not None:
+            self.logger.info("engine warmup: %d tick executables %s",
+                             len(keys), keys)
+        await asyncio.get_running_loop().run_in_executor(
+            self._device_exec, self._warm, keys)
+
     async def start(self) -> None:
         if self._task is None:
             self._task = asyncio.get_running_loop().create_task(self._loop())
@@ -439,6 +683,16 @@ class GenerationEngine:
             except asyncio.CancelledError:
                 pass
             self._task = None
+            # land what is still in flight: no device work outlives the
+            # loop, and a later start() finds the accounting whole
+            q = self._publishq
+            while q:
+                try:
+                    host = await q[0].task
+                except Exception:  # noqa: BLE001 — its callers are failed
+                    q.popleft()    # by the next start's first error
+                    continue
+                self._publish(q.popleft(), host)
 
     def _validate(self, prompt_ids, max_new_tokens: int
                   ) -> Tuple[List[int], int]:
@@ -516,6 +770,16 @@ class GenerationEngine:
             "prefill_dispatches": self.prefill_dispatches,
             "decode_steps": self.decode_steps,
             "ticks": self.ticks,
+            "max_inflight_ticks": self.max_inflight_ticks,
+            "ticks_inflight": self._ticks_inflight,
+            "ticks_inflight_peak": self._ticks_inflight_peak,
+            "graphs": {
+                "captured": len(self._graphs),
+                "keys": [list(key) for key in self._graphs],
+                "capture_s": self.capture_s,
+                "replays": self.graph_replays,
+                "lazy_captures": self.lazy_captures,
+            },
             "kv_pool": self._pool.stats(),
         }
         if self.spec:
@@ -548,21 +812,42 @@ class GenerationEngine:
                     self.logger.error("generation engine tick failed: %r",
                                       exc)
                 self._fail_outstanding(exc)
-                self._reset_device_state()
+                # drain in-flight fetches before the reset: their threads
+                # may still be reading slabs of the failed ticks
+                for entry in self._publishq:
+                    try:
+                        await entry.task
+                    except asyncio.CancelledError:
+                        raise        # engine.stop() must still win
+                    except Exception:  # noqa: BLE001 — the callers were
+                        pass           # already failed above
+                self._publishq.clear()
+                self._ticks_inflight = 0
+                # the device mask and table are cleared below: upload anew
+                self._sent_mask, self._sent_table = None, -1
+                try:
+                    await loop.run_in_executor(self._device_exec,
+                                               self._reset_device_state)
+                except Exception as reset_exc:  # noqa: BLE001
+                    if self.logger is not None:
+                        self.logger.error(
+                            "engine device-state reset failed: %r",
+                            reset_exc)
 
     def _reset_device_state(self) -> None:
-        """Fresh pool leaves, an all-sentinel table, zeroed slot rows and
-        a fresh draft cache: the failed step may have left any of them
-        half written."""
+        """Clear the pool, the draft cache and the slot state in place (the
+        failed step may have left any of them half written; captured
+        graphs hold their addresses). The failed slots' pages went back
+        with their slots."""
         self._pool.reset()
         if self.spec:
             for leaf in self._draft_cache.values():
                 leaf.zero_()
-        self._table.fill(self._pool.sentinel)
-        self._table_version += 1
-        for slot in self._slots:
-            slot.pages = []
-        self._reset_slot_tensors()
+        for tensor in (self.cache_len, self.last_token, self.temps,
+                       self.top_ks, self.sample_keys, self.active):
+            tensor.zero_()
+        self.top_ps.fill_(1.0)
+        self.table.fill_(self._pool.sentinel)
 
     def _fail_outstanding(self, exc: BaseException) -> None:
         """Fail every caller bound to an active slot. Queued requests were
@@ -572,28 +857,68 @@ class GenerationEngine:
                 self._fail_slot(slot_idx, slot, exc)
 
     async def _loop_body(self, loop) -> None:
-        admitted = await self._admit_pending(loop)
-        ticked = False
-        if self.active_slots > 0:
-            ticked = await self._dispatch_tick(loop)
-        if admitted or ticked:
+        q = self._publishq
+        # 1. batched admission; each prefill's first-token fetch is queued
+        self._admit_pending(loop)
+        # 2. dispatch the next tick up to the pipeline depth; its fetch
+        #    follows it
+        dispatched = False
+        if self.active_slots > 0 \
+                and self._ticks_inflight < self.max_inflight_ticks:
+            entry = self._dispatch_tick(loop)
+            if entry is not None:
+                self._ticks_inflight += 1
+                self._ticks_inflight_peak = max(self._ticks_inflight_peak,
+                                                self._ticks_inflight)
+                q.append(entry)
+                dispatched = True
+        if not q:
+            if self.active_slots == 0 and not self._pending:
+                self._wake.clear()
+                await self._wake.wait()
+            else:
+                # work exists but nothing could be dispatched this pass
+                # (e.g. admission waits for pages): yield, don't spin
+                await asyncio.sleep(0.001)
             return
-        if self.active_slots == 0 and not self._pending:
-            self._wake.clear()
-            await self._wake.wait()
-        else:
-            # work exists but nothing could be dispatched this pass (e.g.
-            # admission waits for pages): yield instead of spinning
-            await asyncio.sleep(0.001)
+        # 3. publish in dispatch order. Block on the oldest fetch only
+        #    when the pipeline cannot go deeper; then drain what landed.
+        #    The entry leaves the queue once published, so a stop() while
+        #    waiting loses nothing.
+        if not dispatched or self._ticks_inflight >= self.max_inflight_ticks:
+            host = await asyncio.shield(q[0].task)
+            self._publish(q.popleft(), host)
+        self._publish_ready()
 
-    async def _admit_pending(self, loop) -> int:
+    def _publish_ready(self) -> None:
+        """Publish every fetch at the head of the queue that has landed."""
+        q = self._publishq
+        while q and q[0].task.done():
+            entry = q.popleft()
+            self._publish(entry, entry.task.result())
+
+    def _on_device(self, loop, kind: str, payload, fn, *args) -> _Fetch:
+        """Queue ``fn(*args)`` on the device thread, behind everything
+        queued before it, and return the step's fetch: a task that waits
+        for the call (which returns the host copy's waiter) and then, in
+        a worker thread, for the copy. The loop does not wait for the
+        call: a replay can block its thread until the card drains the
+        launch queue, and a short bucket's first tokens must not wait
+        behind it."""
+        queued = loop.run_in_executor(self._device_exec, fn, *args)
+
+        async def land():
+            return await loop.run_in_executor(None, await queued)
+        return _Fetch(loop.create_task(land()), kind, payload)
+
+    def _admit_pending(self, loop) -> None:
         """Drain the queue into free slots; one batched prefill per prompt
-        bucket. Returns the number of requests admitted."""
+        bucket, each with its first-token fetch queued for publishing."""
         requests: List[_Request] = []
         while self._pending and len(requests) < len(self._free):
             requests.append(self._pending.popleft())
         if not requests:
-            return 0
+            return
         by_bucket: Dict[int, List[_Request]] = {}
         committed = 0    # pages promised to requests admitted this pass
         for ri, req in enumerate(requests):
@@ -622,30 +947,27 @@ class GenerationEngine:
         # dispatch reaches every admitted caller through its slot
         staged = [self._claim_group(bucket, group)
                   for bucket, group in sorted(by_bucket.items())]
-        admitted = 0
-        for nb, bucket, claimed, args in staged:
-            first = await loop.run_in_executor(
-                None, lambda a=args: self._prefill_insert(*a))
+        for claimed, args, pages in staged:
+            self._publishq.append(self._on_device(
+                loop, "prefill", claimed, self._prefill_insert, *args))
+            self._pool.note_writes(pages)
             self.prefill_dispatches += 1
-            for slot_idx, gen, row in claimed:
-                self._push_tokens(slot_idx, gen, [int(first[row])])
-            admitted += len(claimed)
-        return admitted
 
     def _claim_group(self, bucket: int, group: List[_Request]):
         """Bind each request of one bucket group to a slot and its fresh
-        pages; returns (nb, bucket, [(slot, gen, row)], prefill args)."""
+        pages, rows 0.. in order (padding rows follow); returns
+        ([(slot, gen, row)], prefill args, pages written)."""
         nb = next(x for x in self._n_ladder if x >= len(group))
         npg = bucket // self.kv_page
         padded = np.zeros((nb, bucket), np.int64)
-        lengths = np.ones((nb,), np.int64)
-        slots = np.full((nb,), self.max_slots, np.int64)  # padding: skipped
-        temps = np.zeros((nb,), np.float32)
-        top_ks = np.zeros((nb,), np.int64)
-        top_ps = np.ones((nb,), np.float32)
-        gens: List[Optional[torch.Generator]] = [None] * nb
-        flat_ids = np.full((nb * npg,), self._pool.sentinel, np.int32)
+        rows = np.zeros((4, nb), np.int64)      # lengths, slots, top_ks, seeds
+        rows[0] = 1
+        rows[1] = self.max_slots               # padding: no slot
+        floats = np.zeros((2, nb), np.float32)  # temps, top_ps
+        floats[1] = 1.0
+        flat_ids = np.full((nb * npg,), self._pool.sentinel, np.int64)
         claimed = []
+        pages = 0
         for row, req in enumerate(group):
             slot_idx = self._free.pop()
             slot = self._slots[slot_idx]
@@ -660,10 +982,6 @@ class GenerationEngine:
             slot.inflight = 1          # the prefill's first token
             slot.temperature = req.sampling.temperature
             slot.fill = len(req.prompt)
-            slot.generator = None
-            if not req.sampling.greedy:
-                slot.generator = torch.Generator(device=self.device)
-                slot.generator.manual_seed(req.sampling.seed & 0xFFFFFFFF)
             n_fresh = -(-len(req.prompt) // self.kv_page)
             ids = self._pool.alloc(n_fresh)
             if ids is None:
@@ -674,27 +992,26 @@ class GenerationEngine:
             self._table[slot_idx, :n_fresh] = ids
             self._table_version += 1
             flat_ids[row * npg:row * npg + n_fresh] = ids
+            pages += n_fresh
             padded[row, :len(req.prompt)] = req.prompt
-            lengths[row] = len(req.prompt)
-            slots[row] = slot_idx
-            temps[row] = max(req.sampling.temperature, 0.0)
-            top_ks[row] = req.sampling.top_k
-            top_ps[row] = req.sampling.top_p
-            gens[row] = slot.generator
+            rows[:, row] = (len(req.prompt), slot_idx, req.sampling.top_k,
+                            req.sampling.seed & 0xFFFFFFFF)
+            floats[:, row] = (max(req.sampling.temperature, 0.0),
+                              req.sampling.top_p)
             claimed.append((slot_idx, slot.gen, row))
-        args = (nb, bucket, padded, lengths, slots, temps, top_ks, top_ps,
-                gens, flat_ids)
-        return nb, bucket, claimed, args
+        ints = np.concatenate([padded.ravel(), rows.ravel(), flat_ids])
+        args = (nb, bucket, len(group), ints, floats.ravel())
+        return claimed, args, pages
 
-    async def _dispatch_tick(self, loop) -> bool:
-        """Choose K, run one decode tick over the eligible slots and
-        publish its tokens. Slots whose budget is covered by in-flight
-        tokens sit the tick out. Returns False when no slot could run."""
+    def _dispatch_tick(self, loop) -> Optional[_Fetch]:
+        """Choose K, charge the eligible slots and dispatch one decode
+        tick; returns its fetch, or None when no slot could run. Slots
+        whose budget is covered by in-flight tokens sit the tick out."""
         eligible = [(slot_idx, slot)
                     for slot_idx, slot in enumerate(self._slots)
                     if slot.active and slot.remaining > slot.inflight]
         if not eligible:
-            return False
+            return None
         min_wanted = min(slot.remaining - slot.inflight
                          for _, slot in eligible)
         k = 1
@@ -706,61 +1023,56 @@ class GenerationEngine:
                      if rung + 1 <= min_wanted and rung <= self._gamma_cap),
                     default=0)
             if g > 0:
-                return await self._dispatch_spec(loop, eligible, g)
+                return self._dispatch_spec(loop, eligible, g)
         eligible = self._cover_pages(eligible, k)
         if not eligible:
-            return False
-        active_dev, gens, snapshot = self._charge(eligible, k)
-        table = self._table_dev()
-        host = await loop.run_in_executor(
-            None, self._decode_tick, k, active_dev, table, gens)
+            return None
+        mask, sampled, snapshot = self._charge(eligible, k)
         self.decode_steps += k
         self.ticks += 1
-        for slot_idx, gen in snapshot:
-            self._push_tokens(slot_idx, gen,
-                              [int(t) for t in host[:, slot_idx]])
-        return True
+        return self._dispatch(loop, ("plain", k, sampled), mask, "tick",
+                              snapshot)
 
-    async def _dispatch_spec(self, loop, eligible, g: int) -> bool:
-        """Run one speculative tick at rung ``g``: charge every slot
-        g + 1 in-flight tokens (the worst case), cover pages for fill +
-        g + 1, run the tick, then refund the rejected tail so inflight
-        and fill track the device advance of accepts + 1 exactly."""
+    def _dispatch_spec(self, loop, eligible, g: int) -> Optional[_Fetch]:
+        """Dispatch one speculative tick at rung ``g``: charge every slot
+        g + 1 in-flight tokens and g + 1 of fill (the worst case; the
+        publish refunds the rejected tail), cover pages for it."""
         eligible = self._cover_pages(eligible, g + 1)
         if not eligible:
-            return False
-        active_dev, gens, snapshot = self._charge(eligible, g + 1)
-        table = self._table_dev()
-        toks, accepts = await loop.run_in_executor(
-            None, self._spec_tick, g, active_dev, table, gens)
+            return None
+        mask, sampled, snapshot = self._charge(eligible, g + 1)
         self.spec_rungs[g] = self.spec_rungs.get(g, 0) + 1
         self.draft_steps += g + 1
-        proposed = accepted = 0
-        for slot_idx, gen in snapshot:
-            a = int(accepts[slot_idx])
-            slot = self._slots[slot_idx]
-            if slot.gen == gen:
-                slot.inflight -= g - a
-                slot.fill -= g - a
-                proposed += g
-                accepted += a
-            self._push_tokens(slot_idx, gen,
-                              [int(t) for t in toks[:a + 1, slot_idx]])
-        self._note_spec(proposed, accepted)
-        return True
+        return self._dispatch(loop, ("spec", g, sampled), mask, "spec",
+                              (snapshot, g))
+
+    def _dispatch(self, loop, key, mask: np.ndarray, kind: str,
+                  payload) -> _Fetch:
+        """Queue tick ``key`` with the mask and the page table, each only
+        if it changed since the last upload (a snapshot taken here, in
+        dispatch order). Returns its fetch."""
+        sent_mask = mask.tobytes()
+        mask_up = None if sent_mask == self._sent_mask else mask
+        table_up = None
+        if self._sent_table != self._table_version:
+            table_up = self._table.copy()
+        self._sent_mask, self._sent_table = sent_mask, self._table_version
+        return self._on_device(loop, kind, payload, self._run_tick, key,
+                               mask_up, table_up)
 
     def _note_spec(self, proposed: int, accepted: int) -> None:
         """Acceptance accounting plus the adaptive-γ controller, called
-        once per spec tick after ``spec_rungs`` counts it: every
-        ``_SPEC_WINDOW_TICKS`` spec ticks the window's acceptance rate
-        halves the γ cap (draft diverging) or doubles it back toward
-        ``spec_gamma`` (draft agreeing). A window that proposed nothing
-        (every slot cancelled mid-tick) moves nothing."""
+        once per published spec tick: every ``_SPEC_WINDOW_TICKS`` of
+        them the window's acceptance rate halves the γ cap (draft
+        diverging) or doubles it back toward ``spec_gamma`` (draft
+        agreeing). A window that proposed nothing (every slot cancelled
+        mid-tick) moves nothing."""
+        self._spec_noted += 1
         self._spec_proposed += proposed
         self._spec_accepted += accepted
         self._spec_window_proposed += proposed
         self._spec_window_accepted += accepted
-        if self.spec_dispatches % _SPEC_WINDOW_TICKS \
+        if self._spec_noted % _SPEC_WINDOW_TICKS \
                 or not self._spec_window_proposed:
             return
         rate = self._spec_window_accepted / self._spec_window_proposed
@@ -773,20 +1085,19 @@ class GenerationEngine:
 
     def _charge(self, eligible, n: int):
         """Charge each eligible slot ``n`` in-flight tokens and ``n`` of
-        fill. Returns the tick's device active mask, the generators of its
-        sampled slots (None for greedy ones) and the (slot, generation)
-        snapshot its tokens are published against."""
-        active = np.zeros((self.max_slots,), bool)
-        gens: List[Optional[torch.Generator]] = [None] * self.max_slots
+        fill. Returns the tick's active mask, whether any of its slots
+        samples, and the (slot, generation) snapshot its tokens are
+        published against."""
+        mask = np.zeros((self.max_slots,), bool)
+        sampled = False
         snapshot = []
         for slot_idx, slot in eligible:
-            active[slot_idx] = True
+            mask[slot_idx] = True
             slot.inflight += n
             slot.fill += n
-            if slot.temperature > 0.0:
-                gens[slot_idx] = slot.generator
+            sampled = sampled or slot.temperature > 0.0
             snapshot.append((slot_idx, slot.gen))
-        return torch.as_tensor(active, device=self.device), gens, snapshot
+        return mask, sampled, snapshot
 
     def _cover_pages(self, eligible, k: int):
         """Grow each slot's pages to cover its fill + k tokens. Slots the
@@ -807,6 +1118,34 @@ class GenerationEngine:
         return covered
 
     # -- publishing --------------------------------------------------------------
+    def _publish(self, entry: _Fetch, host: np.ndarray) -> None:
+        """Hand a fetched step's tokens to its slots, in dispatch order. A
+        spec tick refunds what it charged beyond ``accepts + 1``."""
+        if entry.kind == "prefill":
+            for slot_idx, gen, row in entry.payload:
+                self._push_tokens(slot_idx, gen, [int(host[row])])
+            return
+        self._ticks_inflight -= 1
+        if entry.kind == "tick":
+            for slot_idx, gen in entry.payload:
+                self._push_tokens(slot_idx, gen,
+                                  [int(t) for t in host[:, slot_idx]])
+            return
+        snapshot, g = entry.payload
+        toks, accepts = host[:g + 1], host[g + 1]
+        proposed = accepted = 0
+        for slot_idx, gen in snapshot:
+            a = int(accepts[slot_idx])
+            slot = self._slots[slot_idx]
+            if slot.gen == gen:
+                slot.inflight -= g - a
+                slot.fill -= g - a
+                proposed += g
+                accepted += a
+            self._push_tokens(slot_idx, gen,
+                              [int(t) for t in toks[:a + 1, slot_idx]])
+        self._note_spec(proposed, accepted)
+
     def _push_tokens(self, slot_idx: int, gen: int,
                      tokens: List[int]) -> None:
         """Append generated tokens to a slot, handling eos and budget;
@@ -871,7 +1210,6 @@ class GenerationEngine:
         slot.active = False
         slot.gen += 1
         slot.inflight = 0
-        slot.generator = None
         self._release_slot_kv(slot_idx, slot)
         if slot_idx not in self._free:
             self._free.append(slot_idx)

@@ -2,19 +2,26 @@
 ``gofr_tpu/tpu/page_pool.py``).
 
 One pool backs every KV byte of the paged serving path: prefill inserts
-and decode appends address the same ``(L, num_pages, page, Hkv, Dh)``
+and decode appends address the same ``(L, num_pages + 1, page, Hkv, Dh)``
 leaves, so device memory is ``num_pages x page`` tokens whatever
 ``max_len`` is. Host state is a free list plus a per-page refcount:
 ``alloc`` hands out pages at refcount 1 and ``release`` drops one
 reference; a page returns to the free list at zero (shared ownership,
 ``retain``, arrives with the prefix cache).
 
-``num_pages`` doubles as the out-of-bounds sentinel id. The owners filter
-sentinel entries out of every write and the decode kernel never reads
-one. The leaves are written in place by their owners. With
-``cfg.kv_int8`` the k/v leaves are int8 and two float32 scale planes
-``ks``/``vs`` (L, num_pages, page, Hkv), ones-initialised, sit beside
-them.
+``num_pages`` doubles as the out-of-bounds sentinel id, and every leaf
+holds one page row more, at that index: a scratch page. A write routed
+to the sentinel (an inactive slot, a position past the table) lands
+there, which is JAX's ``mode="drop"`` without a host-side filter, so a
+write's shape never depends on the data. ``alloc`` never hands the
+scratch row out, ``stats()`` counts ``num_pages`` usable pages and
+``pool_bytes`` counts those alone, and the kernels see the first
+``num_pages`` rows, where the sentinel is out of range. The leaves are
+written in place by their owners and keep their addresses for the
+pool's life (captured CUDA graphs hold them): :meth:`PagePool.reset`
+clears them in place. With ``cfg.kv_int8`` the k/v leaves are int8 and
+two float32 scale planes ``ks``/``vs`` (L, num_pages + 1, page, Hkv),
+ones-initialised, sit beside them.
 
 Left for later slices: the HBM budget arbiter and mesh sharding.
 """
@@ -65,12 +72,12 @@ class PagePool:
             return 2 * (kv + scales)          # int8 k+v, f32 ks+vs
         return 2 * kv * torch.finfo(cfg.dtype).bits // 8
 
-    def reset(self) -> None:
-        """Fresh leaves (k/v zeroed, scale planes at one) and empty
-        ownership."""
+    def _alloc_leaves(self) -> None:
+        """The leaves, (L, num_pages + 1, page, Hkv, D) with the scratch
+        row last: k/v zeroed, scale planes at one."""
         cfg = self.cfg
-        shape = (cfg.n_layers, self.num_pages, self.page, cfg.n_kv_heads,
-                 cfg.head_dim)
+        shape = (cfg.n_layers, self.num_pages + 1, self.page,
+                 cfg.n_kv_heads, cfg.head_dim)
         dev = self.device
         if cfg.kv_int8:
             self.leaves = {
@@ -84,6 +91,15 @@ class PagePool:
             self.leaves = {
                 "k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
                 "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+
+    def reset(self) -> None:
+        """Leaves cleared in place (k/v zeroed, scale planes at one; the
+        same tensors at the same addresses) and empty ownership."""
+        if not self.leaves:
+            self._alloc_leaves()
+        else:
+            for name, leaf in self.leaves.items():
+                leaf.fill_(1 if name in ("ks", "vs") else 0)
         self._free = list(range(self.num_pages))
         self._refs = np.zeros((self.num_pages,), np.int32)
 
@@ -120,6 +136,7 @@ class PagePool:
 
     @property
     def pool_bytes(self) -> int:
+        """Bytes of the usable pages; the scratch row adds one page."""
         return self.num_pages * self.page_bytes
 
     def stats(self) -> Dict[str, Any]:

@@ -4,11 +4,16 @@
 Runs the engine configuration of ``chip_smoke.py``'s engine phase
 (``llama3-8b`` width, random weights from ``--seed``, paged KV, page 32,
 8 slots, buckets 32/128/512, 4 steps per tick) over the same 8 concurrent
-requests (prompts 5..512 tokens, 32 new tokens each), once unprofiled for
-the end-to-end numbers and once under ``torch.profiler`` for the device
-time by kernel. Prints one JSON object (also written to ``--out``):
+requests (prompts 5..512 tokens, 32 new tokens each, one sampled), once
+unprofiled for the end-to-end numbers and once under ``torch.profiler``
+for the device time by kernel. An engine with ``warmup()`` (graph capture
+of its ticks) runs it first; its time and the memory it took are
+reported apart. Prints one JSON object (also written to ``--out``):
 
-- ``wall_s``, ``tokens_per_s``, ``ttft_*``: the unprofiled run;
+- ``wall_s``, ``tokens_per_s``, ``ttft_*``, ``peak_mem_gb``: the
+  unprofiled run;
+- ``warmup_s``, ``warmup_mem_gb``, ``graphs``: the engine's warm-up (graph
+  capture), where it has one;
 - ``device_busy_s`` and ``device_idle_share``: the sum of device kernel
   time over the profiled run's wall time (one stream, so no overlap);
 - ``by_kernel``: device time per kernel name, largest first, with the
@@ -28,6 +33,9 @@ norm and head): the draft proposes through the flash-decode kernel and
 the target verifies through the ragged verify kernel; the result then
 also holds the engine's ``speculative`` stats.
 
+:func:`run_cell` is the burst itself; ``scripts/engine_ab.py`` runs it
+against two trees in turns.
+
 Run from the root of a checkout: ``python3 scripts/port_engine_profile.py``.
 Needs a CUDA device.
 """
@@ -36,6 +44,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import inspect
 import json
 import sys
 import time
@@ -49,6 +58,148 @@ from chip_smoke import DRAFT_LAYERS, card_line, draft_view  # noqa: E402
 PORT_KERNELS = ("flash_wgmma_kernel", "flash_fwd_kernel",
                 "flash_decode_partial", "flash_decode_combine",
                 "ragged_kernel")
+PROMPT_LENGTHS = (5, 30, 64, 100, 128, 300, 480, 512)
+BUDGET = 32
+
+
+def make_engine(generate, llama, cfg, params, spec_gamma=0, device="cuda",
+                **engine_kw):
+    """The cell's engine: the configuration of ``chip_smoke.py``'s engine
+    phase, speculative (a draft of views of the target's first layers)
+    when ``spec_gamma`` is set. ``engine_kw`` entries the engine does not
+    take (an older tree's) are dropped."""
+    kw = dict(max_slots=8, max_len=2048, prompt_buckets=(32, 128, 512),
+              steps_per_tick=4, kv_page=32, device=device)
+    if spec_gamma:
+        dcfg, dparams = draft_view(llama, cfg, params, DRAFT_LAYERS)
+        kw.update(draft_cfg=dcfg, draft_params=dparams,
+                  spec_gamma=spec_gamma)
+    takes = inspect.signature(generate.GenerationEngine).parameters
+    kw.update({key: val for key, val in engine_kw.items() if key in takes})
+    return generate.GenerationEngine(cfg, params, **kw)
+
+
+def _kernel_times(torch, prof):
+    """Device seconds and counts by name of every device event (kernels,
+    copies, fills) of the profiled run, from the raw trace events (the
+    aggregated ``key_averages()`` takes tens of seconds over the ~10^5
+    events of an eager burst)."""
+    by_kernel, calls = {}, {}
+    cuda = torch.autograd.DeviceType.CUDA
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() == cuda and evt.duration_ns() > 0:
+            name = evt.name()
+            by_kernel[name] = by_kernel.get(name, 0.0) \
+                + evt.duration_ns() / 1e9
+            calls[name] = calls.get(name, 0) + 1
+    return by_kernel, calls
+
+
+def run_cell(torch, generate, engine, vocab_size, seed=0, profile=True):
+    """Warm the engine up (``warmup()`` where it has one, then one
+    request), serve the burst unprofiled, then again under
+    ``torch.profiler`` (device activity only) when ``profile``. Returns
+    the result dict."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity
+
+    cuda = engine.device.type == "cuda"
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, vocab_size, n).tolist()
+               for n in PROMPT_LENGTHS]
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    async def one_run():
+        samplings = [generate.Sampling() for _ in range(7)] + [
+            generate.Sampling(temperature=0.8, top_p=0.95, seed=seed)]
+        engine.ttfts.clear()
+        start = time.monotonic()
+        outs = await asyncio.gather(*[
+            engine.generate(p, BUDGET, sampling=s)
+            for p, s in zip(prompts, samplings)])
+        sync()
+        return outs, time.monotonic() - start, sorted(engine.ttfts)
+
+    async def serve():
+        warm = {}
+        if hasattr(engine, "warmup"):
+            sync()
+            mem0 = torch.cuda.memory_allocated() if cuda else 0
+            t0 = time.monotonic()
+            await engine.warmup()
+            sync()
+            warm = dict(warmup_s=time.monotonic() - t0,
+                        warmup_mem_gb=((torch.cuda.memory_allocated() - mem0)
+                                       / 1e9 if cuda else None))
+        await engine.start()
+        try:
+            await engine.generate(prompts[0], 8)          # warm-up
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            outs, wall, ttfts = await one_run()
+            peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+            before = (engine.decode_steps, engine.ticks,
+                      engine.spec_dispatches, engine.draft_steps)
+            prof, prof_wall = None, None
+            if profile:
+                prof = torch.profiler.profile(
+                    activities=[ProfilerActivity.CUDA])
+                with prof:
+                    _, prof_wall, _ = await one_run()
+            after = (engine.decode_steps, engine.ticks,
+                     engine.spec_dispatches, engine.draft_steps)
+            return (outs, wall, ttfts, peak, warm, prof, prof_wall,
+                    [a - b for a, b in zip(after, before)])
+        finally:
+            await engine.stop()
+
+    (outs, wall, ttfts, peak, warm, prof, prof_wall,
+     (steps, ticks, spec_ticks, draft_steps)) = asyncio.run(serve())
+    assert all(len(out) == BUDGET for out in outs)
+    stats = engine.stats()
+    tokens = BUDGET * len(outs)
+    result = {
+        "kv_int8": bool(engine.cfg.kv_int8),
+        "spec_gamma": engine.spec_gamma if engine.spec else 0,
+        "max_inflight_ticks": stats.get("max_inflight_ticks"),
+        "kv_pool": stats["kv_pool"],
+        "wall_s": wall,
+        "tokens_per_s": tokens / wall,
+        "ttft_p50_s": ttfts[len(ttfts) // 2],
+        "ttft_max_s": ttfts[-1],
+        "peak_mem_gb": peak,
+        **warm,
+        "graphs": stats.get("graphs"),
+        "speculative": stats.get("speculative"),
+        "greedy_outputs": outs[:7],
+    }
+    if prof is not None and cuda:
+        by_kernel, calls = _kernel_times(torch, prof)
+        busy = sum(by_kernel.values())
+        result.update({
+            "profiled_wall_s": prof_wall,
+            "profiled_decode_steps": steps,
+            "profiled_ticks": ticks,
+            "profiled_spec_ticks": spec_ticks,
+            "profiled_draft_steps": draft_steps,
+            "device_busy_s": busy,
+            "device_idle_share": (1.0 - busy / prof_wall) if prof_wall
+            else None,
+            "by_kernel": [{"name": name, "device_s": sec,
+                           "share_of_busy": sec / busy if busy else None}
+                          for name, sec in sorted(by_kernel.items(),
+                                                  key=lambda kv: -kv[1])[:20]],
+            "port_kernels": {
+                name: {"device_s": sec,
+                       "share_of_busy": sec / busy if busy else None,
+                       "count": calls[name]}
+                for name, sec in by_kernel.items()
+                if any(stem in name for stem in PORT_KERNELS)},
+        })
+    return result
 
 
 def main() -> int:
@@ -62,105 +213,23 @@ def main() -> int:
     parser.add_argument("--out", default="chiprun_out/engine_profile.json")
     args = parser.parse_args()
 
-    import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         print("port_engine_profile: no CUDA device", file=sys.stderr)
         return 1
     from gofr_tpu_torch.models import llama
     from gofr_tpu_torch.ops.cuda import _build
-    from gofr_tpu_torch.tpu.generate import GenerationEngine, Sampling
+    from gofr_tpu_torch.tpu import generate
 
     _build.build_all()
     cfg = llama.config("llama3-8b", n_layers=args.layers, use_flash=True,
                        kv_int8=args.kv_int8)
     params = llama.init(cfg, args.seed, device="cuda")
-    spec_kw = {}
-    if args.spec_gamma:
-        dcfg, dparams = draft_view(llama, cfg, params, DRAFT_LAYERS)
-        spec_kw = dict(draft_cfg=dcfg, draft_params=dparams,
-                       spec_gamma=args.spec_gamma)
-    engine = GenerationEngine(cfg, params, max_slots=8, max_len=2048,
-                              prompt_buckets=(32, 128, 512),
-                              steps_per_tick=4, kv_page=32, device="cuda",
-                              **spec_kw)
-    rng = np.random.default_rng(args.seed)
-    lengths = [5, 30, 64, 100, 128, 300, 480, 512]
-    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
-    budget = 32
-
-    async def one_run():
-        samplings = [Sampling() for _ in range(7)] + [
-            Sampling(temperature=0.8, top_p=0.95, seed=args.seed)]
-        engine.ttfts.clear()
-        start = time.monotonic()
-        outs = await asyncio.gather(*[
-            engine.generate(p, budget, sampling=s)
-            for p, s in zip(prompts, samplings)])
-        torch.cuda.synchronize()
-        return outs, time.monotonic() - start, sorted(engine.ttfts)
-
-    async def serve(prof):
-        await engine.start()
-        try:
-            await engine.generate(prompts[0], 8)          # warm-up
-            outs, wall, ttfts = await one_run()
-            steps0, ticks0 = engine.decode_steps, engine.ticks
-            spec0, draft0 = engine.spec_dispatches, engine.draft_steps
-            with prof:
-                _, prof_wall, _ = await one_run()
-            return (outs, wall, ttfts, prof_wall,
-                    engine.decode_steps - steps0, engine.ticks - ticks0,
-                    engine.spec_dispatches - spec0,
-                    engine.draft_steps - draft0)
-        finally:
-            await engine.stop()
-
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    (outs, wall, ttfts, prof_wall, steps, ticks, spec_ticks,
-     draft_steps) = asyncio.run(serve(prof))
-    assert all(len(out) == budget for out in outs)
-
-    by_kernel, calls = {}, {}
-    for evt in prof.key_averages():
-        dev_us = getattr(evt, "self_device_time_total",
-                         getattr(evt, "self_cuda_time_total", 0))
-        if dev_us > 0:
-            by_kernel[evt.key] = by_kernel.get(evt.key, 0.0) + dev_us / 1e6
-            calls[evt.key] = calls.get(evt.key, 0) + evt.count
-    busy = sum(by_kernel.values())
-    port = {name: {"device_s": sec,
-                   "share_of_busy": sec / busy if busy else None,
-                   "count": calls[name]}
-            for name, sec in by_kernel.items()
-            if any(stem in name for stem in PORT_KERNELS)}
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:20]
-    tokens = budget * len(outs)
-    result = {
-        "device": torch.cuda.get_device_name(0),
-        "card": card_line(),
-        "n_layers": args.layers,
-        "kv_int8": args.kv_int8,
-        "kv_pool": engine.stats()["kv_pool"],
-        "wall_s": wall,
-        "tokens_per_s": tokens / wall,
-        "ttft_p50_s": ttfts[len(ttfts) // 2],
-        "ttft_max_s": ttfts[-1],
-        "profiled_wall_s": prof_wall,
-        "profiled_decode_steps": steps,
-        "profiled_ticks": ticks,
-        "profiled_spec_ticks": spec_ticks,
-        "profiled_draft_steps": draft_steps,
-        "speculative": engine.stats().get("speculative"),
-        "device_busy_s": busy,
-        "device_idle_share": (1.0 - busy / prof_wall) if prof_wall else None,
-        "by_kernel": [{"name": name, "device_s": sec,
-                       "share_of_busy": sec / busy if busy else None}
-                      for name, sec in top],
-        "port_kernels": port,
-    }
+    engine = make_engine(generate, llama, cfg, params, args.spec_gamma)
+    result = {"device": torch.cuda.get_device_name(0), "card": card_line(),
+              "n_layers": args.layers,
+              **run_cell(torch, generate, engine, cfg.vocab_size, args.seed)}
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(result, indent=1))

@@ -4,7 +4,9 @@ the port's engine on the CPU and the JAX engine, both paged
 mode) and both with ``use_flash=True`` — the setup of
 tests/test_ragged_attention.py's engine identity test, at float32.
 
-The JAX engine runs once per module so its compiles are paid once.
+The JAX engine runs once per module so its compiles are paid once; the
+pipelined cases run the JAX engine once per (``max_inflight_ticks``,
+``steps_per_tick``) at the same depth, the requests served concurrently.
 """
 
 import asyncio
@@ -56,6 +58,27 @@ def setup():
     return tcfg, tparams, reference
 
 
+@pytest.fixture(scope="module")
+def jax_at_depth():
+    """The JAX engine's concurrent greedy output at a pipeline depth and
+    steps per tick, each computed once."""
+    jcfg = jax_llama.config("tiny", dtype=jnp.float32, use_flash=True)
+    jparams = jax_llama.init(jcfg, jax.random.PRNGKey(0))
+    cache = {}
+
+    def run(inflight, steps_per_tick):
+        if (inflight, steps_per_tick) not in cache:
+            container = new_mock_container()
+            engine = JaxEngine(jcfg, jparams, logger=container.logger,
+                               metrics=container.metrics, paged_kv=True,
+                               ragged_attn="on", max_inflight_ticks=inflight,
+                               steps_per_tick=steps_per_tick, **ENGINE_KW)
+            cache[inflight, steps_per_tick] = asyncio.run(
+                _serve(engine, PROMPTS, concurrent=True))
+        return cache[inflight, steps_per_tick]
+    return run
+
+
 def _engine(setup, **kw):
     tcfg, tparams, _ = setup
     return GenerationEngine(tcfg, tparams, device="cpu",
@@ -69,6 +92,21 @@ def test_greedy_identity_with_jax_engine(setup, steps_per_tick):
     stats = engine.stats()
     assert stats["prefill_dispatches"] == len(PROMPTS)
     assert stats["kv_pool"]["used_pages"] == 0     # every page came back
+
+
+@pytest.mark.parametrize("steps_per_tick", [1, 4])
+@pytest.mark.parametrize("inflight", [1, 2, 4])
+def test_greedy_identity_with_jax_engine_at_depth(setup, jax_at_depth,
+                                                  inflight, steps_per_tick):
+    engine = _engine(setup, steps_per_tick=steps_per_tick,
+                     max_inflight_ticks=inflight)
+    out = asyncio.run(_serve(engine, PROMPTS, concurrent=True))
+    assert out == jax_at_depth(inflight, steps_per_tick) == setup[2]
+    stats = engine.stats()
+    assert stats["max_inflight_ticks"] == inflight
+    assert min(inflight, 2) <= stats["ticks_inflight_peak"] <= inflight
+    assert stats["ticks_inflight"] == 0
+    assert stats["kv_pool"]["used_pages"] == 0
 
 
 def test_concurrent_requests_batch_and_match(setup):
@@ -139,12 +177,23 @@ def test_page_pool_alloc_release_and_leaves(setup):
 
     tcfg = setup[0]
     pool = PagePool(tcfg, page=4, num_pages=3, device="cpu")
-    assert pool.leaves["k"].shape == (tcfg.n_layers, 3, 4, tcfg.n_kv_heads,
+    # three usable pages and the scratch page at the sentinel id
+    assert pool.leaves["k"].shape == (tcfg.n_layers, 4, 4, tcfg.n_kv_heads,
                                       tcfg.head_dim)
     assert not pool.leaves["v"].any() and pool.sentinel == 3
+    assert pool.stats()["num_pages"] == 3
+    assert pool.pool_bytes == 3 * pool.page_bytes
     ids = pool.alloc(2)
     assert len(ids) == 2 and pool.free_pages == 1
     assert pool.alloc(2) is None and pool.stalls == 1    # all or nothing
+    assert pool.alloc(1)[0] != pool.sentinel             # never the scratch
     pool.release(ids)
     pool.release(ids)                                    # already free: no-op
-    assert pool.free_pages == 3 and pool.used_pages == 0
+    assert pool.free_pages == 2 and pool.used_pages == 1
+    # reset clears the same tensors in place
+    ptrs = {name: leaf.data_ptr() for name, leaf in pool.leaves.items()}
+    pool.leaves["k"].fill_(3.0)
+    pool.reset()
+    assert {name: leaf.data_ptr() for name, leaf in pool.leaves.items()} \
+        == ptrs
+    assert not pool.leaves["k"].any() and pool.free_pages == 3

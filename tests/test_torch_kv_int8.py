@@ -264,6 +264,13 @@ def test_init_cache_and_prefill_int8(models):
     _assert_pools_close(jcache, tcache)
 
 
+def _with_scratch(leaf):
+    """A pool leaf with the port's scratch page row after its pages (the
+    sentinel id's row, which dropped writes land in)."""
+    return torch.from_numpy(np.concatenate(
+        [leaf, np.zeros_like(leaf[:, :1])], axis=1))
+
+
 def _paged_setup(models, g_len):
     """Prefill three prompts (JAX), place their quantised KV in pool pages
     with room for ``g_len`` more tokens each."""
@@ -297,7 +304,7 @@ def test_decode_step_paged_int8_matches_jax(models):
     step = jax.jit(lambda p, tok, pl, tb, cl, act: jax_llama.decode_step_paged(
         p, jcfg, tok, pl, tb, cl, act, ragged=True))
     jpool = {name: jnp.asarray(a) for name, a in pool.items()}
-    tpool = {name: torch.from_numpy(a.copy()) for name, a in pool.items()}
+    tpool = {name: _with_scratch(a) for name, a in pool.items()}
     jlen, tlen = jnp.asarray(lengths), torch.from_numpy(lengths)
     token = np.asarray(jl).argmax(-1).astype(np.int32)
     for _ in range(3):
@@ -312,7 +319,8 @@ def test_decode_step_paged_int8_matches_jax(models):
         jlen = jnp.where(jnp.asarray(active), jnew, jlen)
         tlen = torch.where(torch.from_numpy(active), tnew, tlen)
         token = np.asarray(jlogits).argmax(-1).astype(np.int32)
-    _assert_pools_close(jpool, tpool)
+    _assert_pools_close(jpool, {name: leaf[:, :16]
+                                for name, leaf in tpool.items()})
     # the inactive row's page holds its prompt rows only
     first = table[2, 0]
     assert (tpool["k"][:, first, 3:] == 0).all()
@@ -332,7 +340,7 @@ def test_verify_step_paged_int8_matches_jax(models):
         jparams, jnp.asarray(tokens),
         {name: jnp.asarray(a) for name, a in pool.items()},
         jnp.asarray(table), jnp.asarray(lengths), jnp.asarray(active))
-    tpool = {name: torch.from_numpy(a.copy()) for name, a in pool.items()}
+    tpool = {name: _with_scratch(a) for name, a in pool.items()}
     tlogits, tpool = pt_llama.verify_step_paged(
         tparams, tcfg, torch.from_numpy(tokens).long(), tpool,
         torch.from_numpy(table), torch.from_numpy(lengths),
@@ -340,7 +348,8 @@ def test_verify_step_paged_int8_matches_jax(models):
     assert tlogits.shape == (3, g_len, tcfg.vocab_size)
     np.testing.assert_allclose(np.asarray(jlogits), tlogits.numpy(),
                                atol=1e-4)
-    _assert_pools_close(jpool, tpool)
+    _assert_pools_close(jpool, {name: leaf[:, :16]
+                                for name, leaf in tpool.items()})
     for name in pool:
         np.testing.assert_array_equal(tpool[name][:, table[2, 0]].numpy(),
                                       pool[name][:, table[2, 0]])
@@ -349,12 +358,16 @@ def test_verify_step_paged_int8_matches_jax(models):
 def test_page_pool_int8_leaves_and_bytes(models):
     jcfg, _, tcfg, _ = models
     pool = PagePool(tcfg, page=4, num_pages=3, device="cpu")
+    # three usable pages and the scratch page at the sentinel id
     assert {k: (v.dtype, tuple(v.shape)) for k, v in pool.leaves.items()} == {
-        "k": (torch.int8, (2, 3, 4, 2, 16)),
-        "v": (torch.int8, (2, 3, 4, 2, 16)),
-        "ks": (torch.float32, (2, 3, 4, 2)),
-        "vs": (torch.float32, (2, 3, 4, 2))}
+        "k": (torch.int8, (2, 4, 4, 2, 16)),
+        "v": (torch.int8, (2, 4, 4, 2, 16)),
+        "ks": (torch.float32, (2, 4, 4, 2)),
+        "vs": (torch.float32, (2, 4, 4, 2))}
     assert not pool.leaves["k"].any() and (pool.leaves["vs"] == 1).all()
+    pool.leaves["vs"].zero_()
+    pool.reset()                                  # in place, scales at one
+    assert (pool.leaves["vs"] == 1).all()
     assert pool.page_bytes == JaxPagePool._page_bytes(jcfg, 4) \
         == 2 * (2 * 4 * 2 * 16 + 2 * 4 * 2 * 4)
     assert pool.stats()["pool_bytes"] == 3 * pool.page_bytes
@@ -439,6 +452,43 @@ def test_int8_engine_greedy_identity_with_jax(engines, steps_per_tick):
     assert pool["page_bytes"] == 2 * (2 * 4 * 2 * 16 + 2 * 4 * 2 * 4)
     assert pool["pool_bytes"] == pool["num_pages"] * pool["page_bytes"]
     assert engine._pool.leaves["k"].dtype == torch.int8
+
+
+@pytest.fixture(scope="module")
+def jax_int8_at_depth():
+    """The JAX int8 engine's concurrent greedy output at a pipeline depth
+    and steps per tick, each computed once."""
+    jcfg = jax_llama.config("tiny", dtype=jnp.float32, use_flash=True,
+                            kv_int8=True)
+    jparams = jax_llama.init(jcfg, jax.random.PRNGKey(0))
+    cache = {}
+
+    def run(inflight, steps_per_tick):
+        if (inflight, steps_per_tick) not in cache:
+            container = new_mock_container()
+            engine = JaxEngine(jcfg, jparams, logger=container.logger,
+                               metrics=container.metrics, paged_kv=True,
+                               ragged_attn="on", max_inflight_ticks=inflight,
+                               steps_per_tick=steps_per_tick, **ENGINE_KW)
+            cache[inflight, steps_per_tick] = asyncio.run(
+                _serve(engine, PROMPTS, concurrent=True))
+        return cache[inflight, steps_per_tick]
+    return run
+
+
+@pytest.mark.parametrize("steps_per_tick", [1, 4])
+@pytest.mark.parametrize("inflight", [1, 2, 4])
+def test_int8_engine_greedy_identity_at_depth(engines, jax_int8_at_depth,
+                                              inflight, steps_per_tick):
+    engine = GenerationEngine(engines["cfg"], engines["params"],
+                              device="cpu", steps_per_tick=steps_per_tick,
+                              max_inflight_ticks=inflight, **ENGINE_KW)
+    out = asyncio.run(_serve(engine, PROMPTS, concurrent=True))
+    assert out == jax_int8_at_depth(inflight, steps_per_tick) \
+        == engines["reference"]["plain"]
+    stats = engine.stats()
+    assert min(inflight, 2) <= stats["ticks_inflight_peak"] <= inflight
+    assert stats["kv_pool"]["used_pages"] == 0
 
 
 @pytest.mark.parametrize("draft", ["self", "other"])

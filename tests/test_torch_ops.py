@@ -18,6 +18,7 @@ from gofr_tpu.ops import rotary as jax_rotary
 from gofr_tpu.ops import sampling as jax_sampling
 from gofr_tpu_torch.ops import attention as pt_attn
 from gofr_tpu_torch.ops import norms as pt_norms
+from gofr_tpu_torch.ops import prng as pt_prng
 from gofr_tpu_torch.ops import quant as pt_quant
 from gofr_tpu_torch.ops import rotary as pt_rotary
 from gofr_tpu_torch.ops import sampling as pt_sampling
@@ -187,16 +188,18 @@ def test_sample_batch_greedy_and_seeded_rows():
     rng = _rng(8)
     logits = torch.from_numpy(rng.standard_normal((3, 32)).astype(
         np.float32))
-    temps = torch.tensor([0.0, 0.9, 0.9])
+    temps = torch.tensor([0.0, 0.9, 0.0])
     top_k = torch.tensor([0, 4, 4])
     top_p = torch.tensor([1.0, 1.0, 1.0])
 
     def draw(seed):
-        gen = torch.Generator().manual_seed(seed)
+        keys = pt_prng.seed_key(torch.tensor([seed] * 3))
         return pt_sampling.sample_batch(logits.clone(), temps, top_k, top_p,
-                                        [None, gen, None])
+                                        keys)
 
-    a, b = draw(11), draw(11)
-    assert a.tolist() == b.tolist()
+    (a, a_keys), (b, b_keys) = draw(11), draw(11)
+    assert a.tolist() == b.tolist() and torch.equal(a_keys, b_keys)
     assert a[0] == logits[0].argmax() and a[2] == logits[2].argmax()
     assert a[1] in torch.topk(logits[1], 4).indices
+    # the key moved on: the next draw splits the carried half
+    assert not torch.equal(a_keys, pt_prng.seed_key(torch.tensor([11] * 3)))

@@ -1,10 +1,12 @@
 """Port parity for speculative draft-verify decode.
 
-- ``speculative_accept``: greedy rows equal the JAX package's exactly;
-  sampled rows draw from ``torch.Generator``s (not JAX's threefry bits),
-  so the first committed token's empirical distribution over 20k seeded
-  draws is held within total variation 0.03 of the target's filtered
-  distribution (sampling noise at this size is about 0.01).
+- ``speculative_accept``: greedy rows equal the JAX package's exactly,
+  carry keys included; sampled rows draw with per-row threefry keys
+  (``ops/prng``), and the first committed token's empirical distribution
+  over 20k rows, each with its own key, is held within total variation
+  0.03 of the target's filtered distribution (sampling noise at this
+  size is about 0.01). Token parity of sampled rows with JAX is in
+  tests/test_torch_prng.py.
 - ``decode_step`` (dense cache, flash-decode wrapper) against the JAX
   ``decode_step`` with ``use_flash_decode=True`` on a 2-layer config
   whose shapes tile the Pallas flash-decode kernel (head_dim 128, Hq 8,
@@ -39,6 +41,7 @@ from gofr_tpu.ops.sampling import speculative_accept as jax_accept
 from gofr_tpu.tpu.generate import GenerationEngine as JaxEngine
 from gofr_tpu_torch.models import llama as pt_llama
 from gofr_tpu_torch.models.convert import from_jax_llama
+from gofr_tpu_torch.ops import prng
 from gofr_tpu_torch.ops.sampling import (filtered_log_probs,
                                          speculative_accept)
 from gofr_tpu_torch.tpu import generate as pt_generate
@@ -54,12 +57,17 @@ ENGINE_KW = dict(max_slots=4, max_len=64, prompt_buckets=(8, 16),
 
 def _jax_greedy(t_logits, q_logp, drafts):
     b = t_logits.shape[0]
-    out, count, _ = jax_accept(
+    out, count, carry = jax_accept(
         jnp.asarray(t_logits), jnp.asarray(q_logp), jnp.asarray(drafts),
         jnp.zeros((b,), jnp.float32), jnp.zeros((b,), jnp.int32),
         jnp.ones((b,), jnp.float32),
         jax.random.split(jax.random.PRNGKey(0), b))
-    return np.asarray(out), np.asarray(count)
+    return np.asarray(out), np.asarray(count), np.asarray(carry)
+
+
+def _keys(seed, n):
+    """``jax.random.split(jax.random.PRNGKey(seed), n)`` in the port."""
+    return prng.split(prng.seed_key(torch.tensor(seed)), n)
 
 
 def test_accept_greedy_equals_jax():
@@ -73,14 +81,15 @@ def test_accept_greedy_equals_jax():
         if row < g:
             drafts[row, row] = (drafts[row, row] + 1) % vocab
     q_logp = np.full((b, g, vocab), -np.log(vocab), np.float32)
-    want_out, want_count = _jax_greedy(t_logits, q_logp,
-                                       drafts.astype(np.int32))
-    out, count = speculative_accept(
-        torch.from_numpy(t_logits), None, torch.from_numpy(drafts),
-        torch.zeros(b), torch.zeros(b, dtype=torch.long), torch.ones(b),
-        [None] * b)
+    want_out, want_count, want_carry = _jax_greedy(t_logits, q_logp,
+                                                   drafts.astype(np.int32))
+    out, count, carry = speculative_accept(
+        torch.from_numpy(t_logits), torch.from_numpy(q_logp),
+        torch.from_numpy(drafts), torch.zeros(b),
+        torch.zeros(b, dtype=torch.long), torch.ones(b), _keys(0, b))
     np.testing.assert_array_equal(out.numpy(), want_out)
     np.testing.assert_array_equal(count.numpy(), want_count)
+    np.testing.assert_array_equal(carry.numpy(), want_carry)
     assert count.tolist() == [0, 1, 2, 3, 4, 4]
 
 
@@ -99,13 +108,12 @@ def test_accept_sampled_first_token_follows_target(temperature, top_k,
         .astype(np.float32)
     drafts = np.stack([rng.choice(vocab, size=n, p=np.exp(q_row[i]))
                        for i in range(g)], axis=1)
-    gen = torch.Generator().manual_seed(3)
-    out, _ = speculative_accept(
+    out, _, _ = speculative_accept(
         torch.from_numpy(t_row).expand(n, g + 1, vocab),
         torch.from_numpy(q_row).expand(n, g, vocab),
         torch.from_numpy(drafts), torch.full((n,), temperature),
         torch.full((n,), top_k, dtype=torch.long), torch.full((n,), top_p),
-        [gen] * n)
+        _keys(3, n))
     p = filtered_log_probs(torch.from_numpy(t_row[0]), temperature, top_k,
                            top_p).exp().numpy()
     counts = np.bincount(out[:, 0].numpy(), minlength=vocab)
@@ -206,7 +214,9 @@ def test_verify_step_paged_matches_jax_ragged(tiny_models):
         jparams, jnp.asarray(tokens),
         {name: jnp.asarray(a) for name, a in pool.items()},
         jnp.asarray(table), jnp.asarray(lens), jnp.asarray(active))
-    tpool = {name: torch.from_numpy(a.copy()) for name, a in pool.items()}
+    tpool = {name: torch.from_numpy(np.concatenate(
+        [a, np.zeros_like(a[:, :1])], axis=1))      # + the scratch row
+        for name, a in pool.items()}
     tlogits, tpool = pt_llama.verify_step_paged(
         tparams, tcfg, torch.from_numpy(tokens).long(), tpool,
         torch.from_numpy(table), torch.from_numpy(lens),
@@ -216,7 +226,8 @@ def test_verify_step_paged_matches_jax_ragged(tiny_models):
                                atol=1e-4)
     for name in ("k", "v"):
         np.testing.assert_allclose(np.asarray(jpool[name]),
-                                   tpool[name].numpy(), atol=1e-5)
+                                   tpool[name][:, :num_pages].numpy(),
+                                   atol=1e-5)
         # the inactive row's pages keep what they held
         np.testing.assert_array_equal(tpool[name][:, table[2, 0]].numpy(),
                                       pool[name][:, table[2, 0]])
@@ -224,10 +235,11 @@ def test_verify_step_paged_matches_jax_ragged(tiny_models):
 
 def test_verify_step_paged_drops_positions_past_the_table(tiny_models):
     """A row whose new tokens run past its table's reach writes only the
-    positions the table covers, and never clamps onto a live page."""
+    positions the table covers, and never clamps onto a live page: the
+    rest land in the scratch page at the sentinel id."""
     _, _, tcfg, tparams = tiny_models
     page, num_pages, width = 4, 4, 2
-    shape = (tcfg.n_layers, num_pages, page, tcfg.n_kv_heads,
+    shape = (tcfg.n_layers, num_pages + 1, page, tcfg.n_kv_heads,
              tcfg.head_dim)
     pool = {name: torch.zeros(shape) for name in ("k", "v")}
     table = torch.tensor([[0, 1]], dtype=torch.int32)
@@ -235,8 +247,9 @@ def test_verify_step_paged_drops_positions_past_the_table(tiny_models):
     pt_llama.verify_step_paged(tparams, tcfg, torch.tensor([[1, 2, 3, 4]]),
                                pool, table, lens, torch.tensor([True]))
     written = pool["k"][0].abs().sum(dim=(-1, -2)) > 0   # (pages, page)
-    assert written[1, 2:].all() and written.sum() == 2
-    assert not written[0].any() and not written[2:].any()
+    assert written[1, 2:].all() and written[:num_pages].sum() == 2
+    assert not written[0].any() and not written[2:num_pages].any()
+    assert written[num_pages].any()                      # the scratch page
 
 
 # -- engine --------------------------------------------------------------------
@@ -273,6 +286,29 @@ def engines():
     return tcfg, tparams, drafts, reference
 
 
+@pytest.fixture(scope="module")
+def jax_spec_at_depth(engines):
+    """The JAX spec engine's greedy output (the independent draft) at a
+    pipeline depth and steps per tick, each computed once."""
+    jcfg = jax_llama.config("tiny", dtype=jnp.float32, use_flash=True)
+    jparams, jdraft = engines[2]["self"][0], engines[2]["other"][0]
+    cache = {}
+
+    def run(inflight, steps_per_tick):
+        if (inflight, steps_per_tick) not in cache:
+            container = new_mock_container()
+            engine = JaxEngine(jcfg, jparams, logger=container.logger,
+                               metrics=container.metrics, paged_kv=True,
+                               ragged_attn="on", draft_cfg=jcfg,
+                               draft_params=jdraft, spec_gamma=4,
+                               max_inflight_ticks=inflight,
+                               steps_per_tick=steps_per_tick, **ENGINE_KW)
+            cache[inflight, steps_per_tick] = asyncio.run(
+                _serve(engine, PROMPTS))
+        return cache[inflight, steps_per_tick]
+    return run
+
+
 def _spec_engine(engines, draft, **kw):
     tcfg, tparams, drafts, _ = engines
     dcfg = pt_llama.config("tiny", dtype=torch.float32, use_flash=True)
@@ -298,6 +334,21 @@ def test_spec_engine_greedy_identity(engines, draft):
         assert st["accepted"] == st["proposed"]
     assert stats["kv_pool"]["used_pages"] == 0     # every page came back
     assert stats["active_slots"] == 0
+
+
+@pytest.mark.parametrize("steps_per_tick", [1, 4])
+@pytest.mark.parametrize("inflight", [1, 2, 4])
+def test_spec_engine_greedy_identity_at_depth(engines, jax_spec_at_depth,
+                                              inflight, steps_per_tick):
+    engine = _spec_engine(engines, "other", max_inflight_ticks=inflight,
+                          steps_per_tick=steps_per_tick)
+    out = asyncio.run(_serve(engine, PROMPTS))
+    assert out == jax_spec_at_depth(inflight, steps_per_tick) \
+        == engines[3]["other"]
+    stats = engine.stats()
+    assert stats["speculative"]["spec_ticks"] > 0
+    assert min(inflight, 2) <= stats["ticks_inflight_peak"] <= inflight
+    assert stats["kv_pool"]["used_pages"] == 0 and stats["active_slots"] == 0
 
 
 def test_spec_engine_sampled_requests_complete(engines):
