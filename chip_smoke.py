@@ -62,8 +62,29 @@ Phases, each of which raises (exit code != 0) on failure:
 11. phase 9 with ``kv_int8`` (the same weights): launch counts, and the
     pool's bytes against phase 9's for the same page count;
 12. phase 10 with a ``kv_int8`` target and the same bf16 draft;
-13. one ``{"kernels": [...]}`` line, then the card line, then the last
+13. the ragged kernel over identity page tables of a dense cache (the
+    dense engine's target route): 8 slots, T 2048, page 32, every window
+    rung 128 ... 2048, fills {0, 1, 31, 127, 128, 700, 1500} cut to the
+    rung and one inactive row past it (2047), every position past a
+    row's reach NaN; decode and verify at G 5, bf16 then int8, held to
+    phases 4-5's gates and timed with the bound from the bytes;
+14. the flash-decode kernel over window views of a T 2048 cache (the
+    full cache's slot stride), rungs 128 ... 1024, against its plain
+    version within phase 6's gate, timed;
+15-18. the dense-cache engine (``paged_kv=False``, the default; the
+    attention-window ladder 128 ... 1024 and the whole cache) in the
+    four configurations of phases 9-12, on the same weights and the same
+    burst: each captures its startup rungs (``warmup()``), every burst
+    tick must replay a graph, the graphs and the burst's ticks are
+    counted by rung, the launch counts are checked against its counters,
+    one streamed request of 60 new tokens on a 100-token prompt must cross
+    rung 128 to 256, and its 7 greedy completions must be the paged
+    engine's tokens of the same configuration;
+19. one ``{"kernels": [...]}`` line, then the card line, then the last
     line ``{"ok": true, "device": {...}}``.
+
+Every engine burst (phases 9-12, 15-18) is served twice: counted, then
+under ``torch.profiler`` for the device's idle share.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. Details go to
 ``chiprun_out/chip_smoke.json``. Without CUDA, or without the package
@@ -75,6 +96,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -453,6 +475,153 @@ def phase_flash_decode(torch, decode_mod, timer, results):
     return row
 
 
+DENSE_T = 2048
+DENSE_FILLS = [0, 1, 31, 127, 128, 700, 1500, 2047]
+
+
+def dense_scenario(torch, llama, int8, rung, g_len, seed):
+    """The ragged wrappers' arguments over a dense cache (8 slots, T
+    2048, 8 KV heads) viewed as pages of 32 in slot order and the
+    identity table of ``rung``: fills ``DENSE_FILLS`` cut to the rung with
+    room for G new tokens, the last row (2047) an inactive one past the
+    rung; every position past a row's reach (its fill, within the rung)
+    NaN, in the int8 scale planes too. Returns (args, the fills the
+    kernel reads)."""
+    from gofr_tpu_torch.ops.quant import quantize_kv
+
+    b, page, top = len(DENSE_FILLS), 32, rung or DENSE_T
+    fills = [min(n, top - g_len) for n in DENSE_FILLS[:-1]] \
+        + [DENSE_FILLS[-1]]
+    reach = [min(n, top) for n in fills]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (b, DENSE_T, KV_HEADS, HEAD_DIM)
+    k, v = (torch.randn(shape, generator=gen, device="cuda")
+            for _ in range(2))
+    q = torch.randn((b, g_len, Q_HEADS, HEAD_DIM), generator=gen,
+                    device="cuda").bfloat16()
+    k_new, v_new = (torch.randn((b, g_len, KV_HEADS, HEAD_DIM),
+                                generator=gen, device="cuda").bfloat16()
+                    for _ in range(2))
+    dead = (torch.arange(DENSE_T, device="cuda")[None, :]
+            >= torch.tensor(reach, device="cuda")[:, None])
+    if int8:
+        (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+        pools = [k8, v8, ks.masked_fill(dead[..., None], float("nan")),
+                 vs.masked_fill(dead[..., None], float("nan"))]
+    else:
+        pools = [x.bfloat16().masked_fill(dead[..., None, None], float("nan"))
+                 for x in (k, v)]
+    pools = [x.view(-1, page, *x.shape[2:]) for x in pools]
+    table = llama.identity_table(b, DENSE_T, rung, device="cuda")
+    lens = torch.tensor(fills, dtype=torch.int32, device="cuda")
+    if g_len == 1:
+        k_new, v_new = k_new[:, 0], v_new[:, 0]
+    return [q, pools[0], pools[1], table, k_new, v_new, lens] + pools[2:], \
+        reach
+
+
+def phase_identity_ragged(torch, ragged_mod, timer, results):
+    from gofr_tpu_torch.models import llama
+
+    log("== phase 13: ragged kernel over identity tables of a dense cache "
+        "(8 slots, T 2048, page 32), every window rung, decode and verify "
+        "G 5, bf16 then int8")
+    rows = []
+    for int8 in (False, True):
+        for g_len in (1, SPEC_GAMMA + 1):
+            kernel, plain = (
+                (ragged_mod.ragged_paged_decode_attention,
+                 ragged_mod.ragged_paged_decode_attention_plain)
+                if g_len == 1 else
+                (ragged_mod.ragged_paged_verify_attention,
+                 ragged_mod.ragged_paged_verify_attention_plain))
+            for rung in (128, 256, 512, 1024, None):
+                what = (f"identity {'int8' if int8 else 'bf16'} "
+                        f"{'decode' if g_len == 1 else f'verify G={g_len}'} "
+                        f"rung {rung or DENSE_T}")
+                args, reach = dense_scenario(torch, llama, int8, rung, g_len,
+                                             30 + g_len)
+                out = kernel(*args)
+                torch.cuda.synchronize()
+                ref = plain(*args)
+                if not torch.isfinite(out).all():
+                    raise AssertionError(f"{what}: output is not finite: it "
+                                         f"read past a row's reach")
+                err, row_err = check_ragged(torch, out, ref, what)
+                ms = timer(lambda: kernel(*args), iters=20)
+                plain_ms = timer(lambda: plain(*args), iters=3)
+                nbytes, flops = paged_cost(reach, g_len, args[3].numel(),
+                                           int8)
+                bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S)
+                row = dict(rung=rung or DENSE_T, G=g_len, fills=reach,
+                           pools="int8" if int8 else "bf16",
+                           max_abs_err=err, row_rel_l2=row_err, ms=ms,
+                           plain_ms=plain_ms, bound_ms=bound * 1e3,
+                           bound_by=("operations" if flops / BF16_FLOP_PER_S
+                                     >= nbytes / HBM_BYTES_PER_S
+                                     else "bytes"),
+                           gb_per_s=nbytes / (ms * 1e-3) / 1e9)
+                rows.append(row)
+                log(f"{what} err={err:.3e} row={row_err:.3e} "
+                    f"kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
+                    f"bound={row['bound_ms']:.4f}ms "
+                    f"({row['gb_per_s']:.1f} GB/s)")
+    results["identity_ragged"] = rows
+
+
+def phase_window_flash_decode(torch, decode_mod, timer, results):
+    from gofr_tpu_torch.ops.cuda.tolerance import ulp_error
+
+    log("== phase 14: flash_decode_attention kernel over window views of a "
+        "T 2048 cache vs plain")
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    b = len(DENSE_FILLS)
+    shape = (b, DENSE_T, KV_HEADS, HEAD_DIM)
+    k_cache, v_cache = (torch.randn(shape, generator=gen, device="cuda")
+                        .bfloat16() for _ in range(2))
+    q = torch.randn((b, 1, Q_HEADS, HEAD_DIM), generator=gen,
+                    device="cuda").bfloat16()
+    k_new, v_new = (torch.randn((b, KV_HEADS, HEAD_DIM), generator=gen,
+                                device="cuda").bfloat16() for _ in range(2))
+    rows = []
+    for rung in (128, 256, 512, 1024):
+        fills = [min(n, rung - 1) for n in DENSE_FILLS[:-1]] \
+            + [DENSE_FILLS[-1]]
+        lens = torch.tensor(fills, dtype=torch.int32, device="cuda")
+        reach = torch.clamp(lens, max=rung)
+        dead = (torch.arange(DENSE_T, device="cuda")[None, :]
+                >= reach[:, None])[..., None, None]
+        kc, vc = (x.masked_fill(dead, float("nan")) for x in (k_cache,
+                                                              v_cache))
+        args = (q, kc[:, :rung], vc[:, :rung], k_new, v_new, lens)
+        out = decode_mod.flash_decode_attention(*args)
+        torch.cuda.synchronize()
+        ref = decode_mod.flash_decode_attention_plain(*args)
+        err = (out.float() - ref.float()).abs().max().item()
+        ulps = ulp_error(out, ref)
+        if not torch.isfinite(out).all() or not torch.isfinite(ref).all() \
+                or not ulps <= FLASH_DECODE_ULPS:
+            raise AssertionError(f"flash decode window {rung}: kernel-plain "
+                                 f"{ulps} bf16 ulps > {FLASH_DECODE_ULPS} "
+                                 f"(max abs {err}), or not finite")
+        ms = timer(lambda: decode_mod.flash_decode_attention(*args),
+                   iters=20)
+        plain_ms = timer(lambda: decode_mod.flash_decode_attention_plain(
+            *args), iters=3)
+        live = int(reach.sum())
+        nbytes = 2 * live * KV_HEADS * HEAD_DIM * 2 \
+            + 2 * (2 * q.numel() + k_new.numel() + v_new.numel()) + 4 * b
+        row = dict(rung=rung, fills=reach.tolist(), max_abs_err=err,
+                   max_ulps=ulps, ms=ms, plain_ms=plain_ms,
+                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                   gb_per_s=nbytes / (ms * 1e-3) / 1e9)
+        rows.append(row)
+        log(f"flash decode window {rung}: err={err:.3e} ({ulps} ulps) "
+            f"kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
+            f"bound={row['bound_ms']:.4f}ms ({row['gb_per_s']:.1f} GB/s)")
+    results["window_flash_decode"] = rows
+
+
 def phase_model(torch, llama, seed, results):
     import numpy as np
 
@@ -533,6 +702,22 @@ def phase_model(torch, llama, seed, results):
     torch.cuda.empty_cache()
 
 
+def device_times(torch, prof):
+    """Device seconds and counts by name of every device event (kernels,
+    copies, fills) of a profiled run, from the raw trace events (the
+    aggregated ``key_averages()`` takes tens of seconds over the ~10^5
+    events of an eager burst)."""
+    by_kernel, calls = {}, {}
+    cuda = torch.autograd.DeviceType.CUDA
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() == cuda and evt.duration_ns() > 0:
+            name = evt.name()
+            by_kernel[name] = by_kernel.get(name, 0.0) \
+                + evt.duration_ns() / 1e9
+            calls[name] = calls.get(name, 0) + 1
+    return by_kernel, calls
+
+
 # the kernels each served path must launch at least once
 PATH_KERNELS = {"engine": ("flash", "ragged"),
                 "spec": ("flash", "verify", "flash_decode"),
@@ -540,17 +725,30 @@ PATH_KERNELS = {"engine": ("flash", "ragged"),
                 "int8_engine": ("flash", "int8"),
                 "int8_spec": ("flash", "int8_verify", "flash_decode"),
                 "int8_perfect_draft": ("flash", "int8_verify",
-                                       "flash_decode")}
+                                       "flash_decode"),
+                "dense": ("flash", "ragged"),
+                "dense_spec": ("flash", "verify", "flash_decode"),
+                "dense_int8": ("flash", "int8"),
+                "dense_int8_spec": ("flash", "int8_verify", "flash_decode")}
 
 
-def serve_burst(torch, engine, prompts, budget, samplings, mods, timeout):
+def serve_burst(torch, engine, prompts, budget, samplings, mods, timeout,
+                stream_tokens=8, profile=False):
     """Capture the engine's ticks (``warmup()``), warm it up with one
     request, set every kernel's count to 0, serve the burst concurrently
-    and read the counts, then stream one request. Fails unless every tick
-    of the burst was a graph replay and 2 ticks were in flight at some
-    point. Returns (outputs, wall seconds, launches by kernel, the burst's
-    run counters, sorted TTFTs, graph figures)."""
+    and read the counts; with ``profile`` serve it again under
+    ``torch.profiler`` for the device's idle share; then stream
+    ``stream_tokens`` of ``prompts[3]`` alone. Fails unless every tick of
+    the burst was a graph replay and 2 ticks were in flight at some point.
+    Returns (outputs, wall seconds, launches by kernel, the burst's run
+    counters, sorted TTFTs, figures: graphs, idle share, the stream's
+    ticks by window rung)."""
+    from torch.profiler import ProfilerActivity
+
     flash_mod, ragged_mod, decode_mod = mods
+    # an earlier profiled burst leaves cyclic garbage that is slow to
+    # collect: collect it now, not inside this engine's burst
+    gc.collect()
 
     async def serve():
         t0 = time.monotonic()
@@ -566,6 +764,7 @@ def serve_burst(torch, engine, prompts, budget, samplings, mods, timeout):
                 mod.reset_launches()
             before = run_counters(engine)
             rungs = dict(engine.spec_rungs)
+            windows0 = dict(engine.window_ticks)
             engine.ttfts.clear()
             torch.cuda.reset_peak_memory_stats()
             inflight = []
@@ -595,21 +794,43 @@ def serve_burst(torch, engine, prompts, budget, samplings, mods, timeout):
             counters["ticks_by_gamma"] = {
                 g: n - rungs.get(g, 0) for g, n in engine.spec_rungs.items()
                 if n > rungs.get(g, 0)}
+            counters["ticks_by_window"] = {
+                w or engine.max_len: n - windows0.get(w, 0)
+                for w, n in engine.window_ticks.items()
+                if n > windows0.get(w, 0)}
             ttfts = sorted(engine.ttfts)
-            stream = await engine.generate_stream(prompts[3], 8)
+            idle = None
+            if profile:
+                prof = torch.profiler.profile(
+                    activities=[ProfilerActivity.CUDA])
+                with prof:
+                    t1 = time.monotonic()
+                    await asyncio.wait_for(asyncio.gather(*[
+                        engine.generate(p, budget, sampling=s)
+                        for p, s in zip(prompts, samplings)]), timeout)
+                    torch.cuda.synchronize()
+                    prof_wall = time.monotonic() - t1
+                busy = sum(device_times(torch, prof)[0].values())
+                idle = dict(device_busy_s=busy, profiled_wall_s=prof_wall,
+                            device_idle_share=1.0 - busy / prof_wall)
+            windows = dict(engine.window_ticks)
+            stream = await engine.generate_stream(prompts[3], stream_tokens)
             streamed = [tok async for tok in stream]
+            stream_windows = {w or engine.max_len: n - windows.get(w, 0)
+                              for w, n in engine.window_ticks.items()
+                              if n > windows.get(w, 0)}
             return (outs, wall, launches, counters, ttfts, streamed,
-                    max(inflight), warm_s)
+                    max(inflight), warm_s, idle, stream_windows)
         finally:
             await engine.stop()
 
     (outs, wall, launches, counters, ttfts, streamed, peak,
-     warm_s) = asyncio.run(serve())
+     warm_s, idle, stream_windows) = asyncio.run(serve())
     for out in outs:
         if len(out) != budget or not all(0 <= t < engine.cfg.vocab_size
                                          for t in out):
             raise AssertionError(f"bad completion {out}")
-    if len(streamed) != 8:
+    if len(streamed) != stream_tokens:
         raise AssertionError(f"stream returned {len(streamed)} tokens")
     ticks = counters["ticks"] + counters["spec_ticks"]
     if counters["replays"] != ticks or counters["lazy_captures"]:
@@ -623,13 +844,19 @@ def serve_burst(torch, engine, prompts, budget, samplings, mods, timeout):
                              f"the burst, expected {want}")
     graphs = engine.stats()["graphs"]
     figures = dict(warmup_s=warm_s, graphs=graphs["captured"],
+                   graphs_by_window=graphs["by_window"],
                    capture_s=graphs["capture_s"], ticks_inflight_peak=peak,
-                   max_inflight_ticks=engine.max_inflight_ticks)
+                   max_inflight_ticks=engine.max_inflight_ticks,
+                   stream_ticks_by_window=stream_windows, **(idle or {}))
     log(f"graphs: {graphs['captured']} captured in "
-        f"{graphs['capture_s']:.2f}s (warmup {warm_s:.2f}s), "
-        f"{counters['replays']} replays for {ticks} ticks, "
+        f"{graphs['capture_s']:.2f}s (warmup {warm_s:.2f}s; by window "
+        f"{graphs['by_window']}), {counters['replays']} replays for "
+        f"{ticks} ticks (by window {counters['ticks_by_window']}), "
         f"{peak} ticks in flight at most (max_inflight_ticks "
-        f"{engine.max_inflight_ticks})")
+        f"{engine.max_inflight_ticks})"
+        + (f"; device idle share {idle['device_idle_share']:.4f} "
+           f"(busy {idle['device_busy_s']:.4f}s of "
+           f"{idle['profiled_wall_s']:.4f}s profiled)" if idle else ""))
     return outs, wall, launches, counters, ttfts, figures
 
 
@@ -707,8 +934,9 @@ def phase_perfect_draft(torch, llama, generate, mods, seed, results):
         path = "int8_perfect_draft" if int8 else "perfect_draft"
         engine = generate.GenerationEngine(
             tcfg, params, max_slots=8, max_len=2048,
-            prompt_buckets=(32, 128, 512), kv_page=32, draft_cfg=dcfg,
-            draft_params=dparams, spec_gamma=SPEC_GAMMA, device="cuda")
+            prompt_buckets=(32, 128, 512), paged_kv=True, kv_page=32,
+            draft_cfg=dcfg, draft_params=dparams, spec_gamma=SPEC_GAMMA,
+            device="cuda")
         prompts = engine_prompts(cfg, seed)[:4]
         budget = 32
         _, _, launches, counters, _, _ = serve_burst(
@@ -732,54 +960,99 @@ def phase_perfect_draft(torch, llama, generate, mods, seed, results):
     torch.cuda.empty_cache()
 
 
-def phase_engine(torch, generate, mods, cfg, params, seed, results):
+def engine_kind(cfg, paged, spec):
+    """(path name, phase number) of an engine phase."""
+    int8 = cfg.kv_int8
+    if paged:
+        return ("int8_" if int8 else "") + ("spec" if spec else "engine"), \
+            9 + int(spec) + 2 * int8
+    return "dense" + ("_int8" if int8 else "") + ("_spec" if spec else ""), \
+        15 + int(spec) + 2 * int8
+
+
+def check_dense(engine, outs, figures, path, paired, results):
+    """A dense engine's checks beyond the paged ones: its 7 greedy
+    completions are the paged engine's of the same configuration (the
+    same kernel over the same K/V rows), and the streamed request crossed
+    rung 128 to 256."""
+    same = outs[:7] == results[paired]["greedy_outputs"]
+    crossed = {128, 256} <= set(figures["stream_ticks_by_window"])
+    log(f"{path}: 7 greedy completions identical to {paired}'s: {same}; "
+        f"streamed request's ticks by window "
+        f"{figures['stream_ticks_by_window']}")
+    if not same:
+        raise AssertionError(f"{path}: greedy completions differ from "
+                             f"{paired}'s on the same weights")
+    if not crossed:
+        raise AssertionError(f"{path}: the streamed request did not cross "
+                             f"window rung 128 to 256")
+    return same
+
+
+def kv_bytes(engine):
+    stats = engine.stats()
+    if engine.paged:
+        return stats["kv_pool"]["pool_bytes"]
+    return stats["kv_cache"]["cache_bytes"]
+
+
+def phase_engine(torch, generate, mods, cfg, params, seed, results,
+                 paged=True):
     int8 = cfg.kv_int8
     n_layers = cfg.n_layers
-    path = "int8_engine" if int8 else "engine"
-    log(f"== phase {11 if int8 else 9}: llama3-8b engine, {n_layers} "
-        f"layers, full width{', kv_int8' if int8 else ''}")
+    path, number = engine_kind(cfg, paged, spec=False)
+    log(f"== phase {number}: llama3-8b engine, {n_layers} layers, full "
+        f"width, {'paged' if paged else 'dense cache'}"
+        f"{', kv_int8' if int8 else ''}")
     prompts = engine_prompts(cfg, seed)
     budget = 32
     samplings = [generate.Sampling() for _ in range(7)] + [
         generate.Sampling(temperature=0.8, top_p=0.95, seed=seed)]
 
-    def burst(inflight):
+    def burst(inflight, profile=True):
         engine = generate.GenerationEngine(
             cfg, params, max_slots=8, max_len=2048,
-            prompt_buckets=(32, 128, 512), steps_per_tick=4, kv_page=32,
-            max_inflight_ticks=inflight, device="cuda")
+            prompt_buckets=(32, 128, 512), steps_per_tick=4, paged_kv=paged,
+            kv_page=32, max_inflight_ticks=inflight, device="cuda")
         got = serve_burst(torch, engine, prompts, budget, samplings, mods,
-                          900)
+                          900, stream_tokens=8 if paged else 60,
+                          profile=profile)
         check_launches(got[2], expected_launches(cfg, got[3]), path)
         return engine, got
 
     engine, (outs, wall, launches, counters, ttfts, figures) = burst(2)
     tokens = budget * len(outs)
-    pool = engine.stats()["kv_pool"]
-    row = dict(n_layers=n_layers, kv_int8=int8, requests=len(outs),
-               new_tokens=tokens,
+    row = dict(n_layers=n_layers, kv_int8=int8, paged=paged,
+               requests=len(outs), new_tokens=tokens,
                wall_s=wall, tokens_per_s=tokens / wall,
                ttft_s=ttfts, ttft_p50_s=ttfts[len(ttfts) // 2],
                ttft_max_s=ttfts[-1], launches=launches, counters=counters,
-               num_pages=pool["num_pages"], page_bytes=pool["page_bytes"],
-               pool_bytes=pool["pool_bytes"],
+               kv_bytes=kv_bytes(engine), greedy_outputs=outs[:7],
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                **figures)
+    if paged:
+        pool = engine.stats()["kv_pool"]
+        row.update(num_pages=pool["num_pages"], page_bytes=pool["page_bytes"],
+                   pool_bytes=pool["pool_bytes"])
     results[path] = row
     log(f"{path}: {len(outs)} requests x {budget} tokens in {wall:.3f}s = "
         f"{row['tokens_per_s']:.1f} tok/s; TTFT p50 "
         f"{row['ttft_p50_s']:.3f}s max {row['ttft_max_s']:.3f}s; "
         f"{counters['prefills']} prefill dispatches, {counters['steps']} "
-        f"decode steps; launches {launches}; pool {pool['num_pages']} pages "
-        f"{pool['pool_bytes'] / 1e9:.4f} GB; peak memory "
+        f"decode steps; launches {launches}; "
+        f"{'pool' if paged else 'cache'} {row['kv_bytes'] / 1e9:.4f} GB; "
+        f"capture {row['capture_s']:.2f}s; peak memory "
         f"{row['peak_mem_gb']:.2f} GB")
+    if not paged:
+        check_dense(engine, outs, figures, path,
+                    engine_kind(cfg, True, spec=False)[0], results)
     del engine
     torch.cuda.empty_cache()
-    if not int8:
+    if paged and not int8:
         # the same burst one tick at a time: the greedy completions must
         # not depend on the pipeline's depth (the decode GEMMs always run
         # every slot's row, so each row's numbers are the same)
-        engine, (outs_m1, wall_m1, *_rest) = burst(1)
+        engine, (outs_m1, wall_m1, *_rest) = burst(1, profile=False)
         same = outs_m1[:7] == outs[:7]
         row["m1"] = dict(wall_s=wall_m1, tokens_per_s=tokens / wall_m1,
                          greedy_identical=same)
@@ -792,58 +1065,60 @@ def phase_engine(torch, generate, mods, cfg, params, seed, results):
         del engine
         torch.cuda.empty_cache()
     if int8:
-        bf16 = results["engine"]
-        ratio = row["pool_bytes"] / bf16["pool_bytes"]
-        row["pool_ratio_to_bf16"] = ratio
+        bf16 = results[engine_kind(dataclasses.replace(cfg, kv_int8=False),
+                                   paged, spec=False)[0]]
+        ratio = row["kv_bytes"] / bf16["kv_bytes"]
+        row["kv_ratio_to_bf16"] = ratio
         log(f"kv_int8 vs bf16 engine: {row['tokens_per_s']:.1f} vs "
             f"{bf16['tokens_per_s']:.1f} tok/s; TTFT p50 "
             f"{row['ttft_p50_s']:.3f} vs {bf16['ttft_p50_s']:.3f}s; peak "
             f"memory {row['peak_mem_gb']:.2f} vs {bf16['peak_mem_gb']:.2f} "
-            f"GB; pool {row['pool_bytes']} vs {bf16['pool_bytes']} bytes "
-            f"for {row['num_pages']} vs {bf16['num_pages']} pages = "
-            f"{ratio:.6f}x (expected {INT8_POOL_RATIO:.6f})")
-        if row["num_pages"] != bf16["num_pages"] \
+            f"GB; {'pool' if paged else 'cache'} {row['kv_bytes']} vs "
+            f"{bf16['kv_bytes']} bytes = {ratio:.6f}x (expected "
+            f"{INT8_POOL_RATIO:.6f})")
+        if row.get("num_pages") != bf16.get("num_pages") \
                 or abs(ratio - INT8_POOL_RATIO) > 1e-9:
-            raise AssertionError(f"int8 pool is {ratio}x the bf16 pool, "
+            raise AssertionError(f"int8 KV is {ratio}x the bf16 KV's bytes, "
                                  f"expected {INT8_POOL_RATIO}")
     return launches
 
 
 def phase_spec_engine(torch, llama, generate, mods, cfg, params, seed,
-                      results):
+                      results, paged=True):
     int8 = cfg.kv_int8
     n_layers = cfg.n_layers
-    path = "int8_spec" if int8 else "spec"
-    log(f"== phase {12 if int8 else 10}: llama3-8b speculative engine, "
-        f"{n_layers} layers{', kv_int8' if int8 else ''}, bf16 draft "
-        f"{DRAFT_LAYERS} layers (views of the target's), gamma "
-        f"{SPEC_GAMMA}")
+    path, number = engine_kind(cfg, paged, spec=True)
+    log(f"== phase {number}: llama3-8b speculative engine, {n_layers} "
+        f"layers, {'paged' if paged else 'dense cache'}"
+        f"{', kv_int8' if int8 else ''}, bf16 draft {DRAFT_LAYERS} layers "
+        f"(views of the target's), gamma {SPEC_GAMMA}")
     dcfg, dparams = draft_view(llama, cfg, params, DRAFT_LAYERS)
     engine = generate.GenerationEngine(
         cfg, params, max_slots=8, max_len=2048,
-        prompt_buckets=(32, 128, 512), kv_page=32, draft_cfg=dcfg,
-        draft_params=dparams, spec_gamma=SPEC_GAMMA, max_inflight_ticks=2,
-        device="cuda")
+        prompt_buckets=(32, 128, 512), paged_kv=paged, kv_page=32,
+        draft_cfg=dcfg, draft_params=dparams, spec_gamma=SPEC_GAMMA,
+        max_inflight_ticks=2, device="cuda")
     prompts = engine_prompts(cfg, seed)
     budget = 32
     samplings = [generate.Sampling() for _ in range(7)] + [
         generate.Sampling(temperature=0.8, top_p=0.95, seed=seed)]
     outs, wall, launches, counters, ttfts, figures = serve_burst(
-        torch, engine, prompts, budget, samplings, mods, 900)
+        torch, engine, prompts, budget, samplings, mods, 900,
+        stream_tokens=8 if paged else 60, profile=True)
     check_launches(launches,
                    expected_launches(cfg, counters, DRAFT_LAYERS), path)
     spec = engine.stats()["speculative"]
-    pool = engine.stats()["kv_pool"]
     tokens = budget * len(outs)
-    row = dict(n_layers=n_layers, kv_int8=int8, draft_layers=DRAFT_LAYERS,
-               gamma=SPEC_GAMMA, requests=len(outs), new_tokens=tokens,
+    row = dict(n_layers=n_layers, kv_int8=int8, paged=paged,
+               draft_layers=DRAFT_LAYERS, gamma=SPEC_GAMMA,
+               requests=len(outs), new_tokens=tokens,
                wall_s=wall, tokens_per_s=tokens / wall, ttft_s=ttfts,
                ttft_p50_s=ttfts[len(ttfts) // 2], ttft_max_s=ttfts[-1],
                launches=launches, counters=counters, speculative=spec,
-               pool_bytes=pool["pool_bytes"],
+               kv_bytes=kv_bytes(engine), greedy_outputs=outs[:7],
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                **figures)
-    results["int8_spec_engine" if int8 else "spec_engine"] = row
+    results[path + "_engine" if paged else path] = row
     log(f"{path} engine: {len(outs)} requests x {budget} tokens in "
         f"{wall:.3f}s = {row['tokens_per_s']:.1f} tok/s; TTFT p50 "
         f"{row['ttft_p50_s']:.3f}s max {row['ttft_max_s']:.3f}s; "
@@ -853,9 +1128,14 @@ def phase_spec_engine(torch, llama, generate, mods, cfg, params, seed,
         f"{counters['steps']} plain decode steps, {counters['prefills']} "
         f"prefill dispatches; proposed {counters['proposed']} accepted "
         f"{counters['accepted']} (rate {acceptance(counters):.4f}); final "
-        f"gamma cap {spec['gamma_cap']}; launches {launches}; pool "
-        f"{pool['pool_bytes'] / 1e9:.4f} GB; peak memory "
+        f"gamma cap {spec['gamma_cap']}; launches {launches}; "
+        f"{'pool' if paged else 'cache'} {row['kv_bytes'] / 1e9:.4f} GB; "
+        f"capture {row['capture_s']:.2f}s; peak memory "
         f"{row['peak_mem_gb']:.2f} GB")
+    if not paged:
+        check_dense(engine, outs, figures, path,
+                    engine_kind(cfg, True, spec=True)[0] + "_engine",
+                    results)
     del engine, dparams
     torch.cuda.empty_cache()
     return launches
@@ -938,14 +1218,23 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"random weights ({sum(_numel(params)) / 1e9:.2f} B params) in "
         f"{time.monotonic() - t0:.1f}s")
-    # one set of weights serves the four engines: bf16 pool, then kv_int8
+    # one set of weights serves the eight engines: paged (phases 9-12),
+    # then dense (15-18), each bf16 then kv_int8
     by_path = {}
-    for int8 in (False, True):
-        c = dataclasses.replace(cfg, kv_int8=int8)
-        by_path["int8_engine" if int8 else "engine"] = phase_engine(
-            torch, generate, mods, c, params, args.seed, results)
-        by_path["int8_spec" if int8 else "spec"] = phase_spec_engine(
-            torch, llama, generate, mods, c, params, args.seed, results)
+    for paged in (True, False):
+        if not paged:
+            timer = Timer(torch)
+            phase_identity_ragged(torch, ragged_mod, timer, results)
+            phase_window_flash_decode(torch, decode_mod, timer, results)
+            del timer
+            torch.cuda.empty_cache()
+        for int8 in (False, True):
+            c = dataclasses.replace(cfg, kv_int8=int8)
+            by_path[engine_kind(c, paged, False)[0]] = phase_engine(
+                torch, generate, mods, c, params, args.seed, results, paged)
+            by_path[engine_kind(c, paged, True)[0]] = phase_spec_engine(
+                torch, llama, generate, mods, c, params, args.seed, results,
+                paged)
     # launches on the main paths: each run counted from 0
     counts = {name: sum(run[name] for run in by_path.values())
               for name in by_path["engine"]}

@@ -39,7 +39,9 @@
 // the new token, and casts once. The split count comes from T, the static cache width,
 // never from cache_len: the host reads nothing.
 //
-// Layout: q (B,1,Hq,D); k_cache/v_cache (B,T,Hkv,D); k_new/v_new (B,Hkv,D);
+// Layout: q (B,1,Hq,D); k_cache/v_cache (B,T,Hkv,D), or the first T
+// positions of a (B,slot_T,Hkv,D) cache (an attention window's view);
+// k_new/v_new (B,Hkv,D);
 // cache_len (B,) int32 (valid entries excluding the new token); out
 // (B,1,Hq,D); scratch (B,Hkv,splits,group,D+2) float32 (acc, then m, l).
 // All bf16 except cache_len and the scratch. D is 128; the group (Hq/Hkv)
@@ -76,8 +78,8 @@ flash_decode_partial(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k_cache,
                      const __nv_bfloat16* __restrict__ v_cache,
                      const int32_t* __restrict__ cache_len,
-                     float* __restrict__ part, int T, int Hkv, int chunk,
-                     float sm_scale) {
+                     float* __restrict__ part, int T, int slot_T, int Hkv,
+                     int chunk, float sm_scale) {
   __shared__ float part_m[STREAMS][G];
   __shared__ float part_l[STREAMS][G];
   __shared__ float part_acc[WARPS][G][D];
@@ -103,8 +105,10 @@ flash_decode_partial(const __nv_bfloat16* __restrict__ q,
   }
   const long pos_stride = (long)Hkv * D;
   const long head_off = (long)h * D + d0;
-  const __nv_bfloat16* kc = k_cache + (long)b * T * pos_stride + head_off;
-  const __nv_bfloat16* vc = v_cache + (long)b * T * pos_stride + head_off;
+  const __nv_bfloat16* kc =
+      k_cache + (long)b * slot_T * pos_stride + head_off;
+  const __nv_bfloat16* vc =
+      v_cache + (long)b * slot_T * pos_stride + head_off;
 
   // q scaled before the dot, as the TPU kernel does
   float qv[G][LANE_ELEMS];
@@ -319,7 +323,7 @@ template <int G>
 cudaError_t launch(const void* q, const void* k_cache, const void* v_cache,
                    const void* k_new, const void* v_new,
                    const void* cache_len, void* out, void* scratch, int B,
-                   int T, int Hkv, int chunk, int splits,
+                   int T, int slot_T, int Hkv, int chunk, int splits,
                    cudaStream_t stream) {
   const float sm_scale = (float)(1.0 / sqrt((double)D));
   const __nv_bfloat16* qp = static_cast<const __nv_bfloat16*>(q);
@@ -327,8 +331,8 @@ cudaError_t launch(const void* q, const void* k_cache, const void* v_cache,
   float* part = static_cast<float*>(scratch);
   flash_decode_partial<G><<<dim3(Hkv, B, splits), THREADS, 0, stream>>>(
       qp, static_cast<const __nv_bfloat16*>(k_cache),
-      static_cast<const __nv_bfloat16*>(v_cache), lens, part, T, Hkv, chunk,
-      sm_scale);
+      static_cast<const __nv_bfloat16*>(v_cache), lens, part, T, slot_T, Hkv,
+      chunk, sm_scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_decode_combine<G><<<dim3(Hkv, B), THREADS, 0, stream>>>(
@@ -342,32 +346,38 @@ cudaError_t launch(const void* q, const void* k_cache, const void* v_cache,
 
 // chunk (a multiple of 128 positions) and splits = ceil(T / chunk) come
 // from the wrapper (ops/cuda/decode_attention.split_plan); scratch holds
-// B * Hkv * splits * group * (D + 2) floats. Returns a cudaError_t
-// (0 = success).
+// B * Hkv * splits * group * (D + 2) floats. T is the positions the call
+// attends (a window's length); slot_T >= T the positions one slot holds in
+// memory (the full cache's), so slot b starts at b * slot_T * Hkv * D.
+// Returns a cudaError_t (0 = success).
 extern "C" int gofr_flash_decode_attention(
     const void* q, const void* k_cache, const void* v_cache,
     const void* k_new, const void* v_new, const void* cache_len, void* out,
-    void* scratch, int B, int T, int Hq, int Hkv, int head_dim, int chunk,
-    int splits, void* stream) {
-  if (head_dim != D || B <= 0 || T <= 0 || Hkv <= 0 || Hq % Hkv != 0 ||
-      B > 65535 || chunk <= 0 || chunk % BLOCK_K != 0 || splits <= 0 ||
-      splits > MAX_SPLITS || (long)(splits - 1) * chunk >= T ||
+    void* scratch, int B, int T, int slot_T, int Hq, int Hkv, int head_dim,
+    int chunk, int splits, void* stream) {
+  if (head_dim != D || B <= 0 || T <= 0 || slot_T < T || Hkv <= 0 ||
+      Hq % Hkv != 0 || B > 65535 || chunk <= 0 || chunk % BLOCK_K != 0 ||
+      splits <= 0 || splits > MAX_SPLITS || (long)(splits - 1) * chunk >= T ||
       (long)splits * chunk < T)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (Hq / Hkv) {
     case 1:
       return (int)launch<1>(q, k_cache, v_cache, k_new, v_new, cache_len,
-                            out, scratch, B, T, Hkv, chunk, splits, st);
+                            out, scratch, B, T, slot_T, Hkv, chunk, splits,
+                            st);
     case 2:
       return (int)launch<2>(q, k_cache, v_cache, k_new, v_new, cache_len,
-                            out, scratch, B, T, Hkv, chunk, splits, st);
+                            out, scratch, B, T, slot_T, Hkv, chunk, splits,
+                            st);
     case 4:
       return (int)launch<4>(q, k_cache, v_cache, k_new, v_new, cache_len,
-                            out, scratch, B, T, Hkv, chunk, splits, st);
+                            out, scratch, B, T, slot_T, Hkv, chunk, splits,
+                            st);
     case 8:
       return (int)launch<8>(q, k_cache, v_cache, k_new, v_new, cache_len,
-                            out, scratch, B, T, Hkv, chunk, splits, st);
+                            out, scratch, B, T, slot_T, Hkv, chunk, splits,
+                            st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -7,22 +7,31 @@
 - Weights and activations in the config's dtype (bf16 by default); norms,
   softmax and logits in float32.
 - Prefill attention goes through the flash-attention wrapper when
-  ``cfg.use_flash`` is set; dense decode attention (:func:`decode_step`,
-  the speculative draft's step) always goes through the flash-decode
-  wrapper, and paged decode and paged verify attention always go through
-  the ragged paged wrappers. Each wrapper launches its CUDA kernel on a
-  CUDA tensor and runs its plain version on a CPU tensor.
+  ``cfg.use_flash`` is set. Paged decode and verify attention go through
+  the ragged paged wrappers. Dense decode and verify attention
+  (:func:`decode_step`, :func:`verify_step`) go through the same ragged
+  wrappers, over the dense cache viewed as a pool of pages in slot order
+  and an identity page table (:func:`identity_table`), which computes the
+  dense function exactly; with ``cfg.use_flash_decode`` (the speculative
+  draft's config) dense decode goes through the flash-decode wrapper
+  instead. Each wrapper launches its CUDA kernel on a CUDA tensor and
+  runs its plain version on a CPU tensor.
+- ``window`` (a rung of the engine's attention-window ladder) bounds a
+  dense step's attention read to the cache's first ``window`` positions;
+  the write still goes into the full cache.
 - ``kv_int8`` stores K/V as int8 plus per-(token, head) float32 scales
-  (``ops/quant.quantize_kv``) on every cache and pool write; paged decode
-  and verify read them through the ragged kernel's int8 instantiation.
+  (``ops/quant.quantize_kv``) on every cache and pool write; decode and
+  verify, paged or dense, read them through the ragged kernel's int8
+  instantiation.
 - The paged KV pool and the dense cache are updated in place (indexed
   assignment), where the JAX package threaded them through a scan carry.
   PyTorch has no dropping scatter (JAX's ``mode="drop"``): a paged write
   that must not land (an inactive slot, a sentinel page, a position past
   the table) is routed to the pool's scratch page at the sentinel id
-  (``tpu/page_pool``), and a dense write past the cache writes back what
-  its clamped destination holds. Every write has the same shape whatever
-  the data, so a step makes no host sync and a CUDA graph can capture it.
+  (``tpu/page_pool``), and a dense write past the cache lands on the
+  cache's last position with the value that position gets anyway
+  (:func:`_dense_write`). Every write has the same shape whatever the
+  data, so a step makes no host sync and a CUDA graph can capture it.
 """
 
 from __future__ import annotations
@@ -61,12 +70,22 @@ class LlamaConfig:
     dtype: torch.dtype = torch.bfloat16
     # prefill attention through the flash-attention kernel wrapper
     use_flash: bool = False
+    # dense decode attention through the flash-decode kernel wrapper (the
+    # speculative draft's route); off, dense decode and verify read the
+    # cache through the ragged wrappers over an identity page table
+    use_flash_decode: bool = False
     # int8 KV cache: K/V rows int8 plus per-(token, head) float32 scales
     # (ops/quant.quantize_kv), half the bf16 cache's bytes: the capacity
-    # lever (more slots or longer contexts per card). Paged decode and
-    # verify dequantise inside the ragged kernel; the dense decode_step
-    # (flash decode reads a bf16 cache) refuses it.
+    # lever (more slots or longer contexts per card). Decode and verify,
+    # paged or dense, dequantise inside the ragged kernel. Exclusive with
+    # use_flash_decode (flash decode reads a bf16 cache).
     kv_int8: bool = False
+
+    def __post_init__(self):
+        if self.kv_int8 and self.use_flash_decode:
+            raise ValueError(
+                "kv_int8 and use_flash_decode are mutually exclusive: the "
+                "flash-decode kernel reads a bf16 cache")
 
     @property
     def head_dim(self) -> int:
@@ -137,8 +156,8 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
                device: Union[str, torch.device] = "cuda"
                ) -> Dict[str, torch.Tensor]:
     """Per-layer dense KV cache (L, B, T, Hkv, D), zero-initialised: the
-    small cache a prefill fills before the engine scatters it into pool
-    pages, or the speculative draft's per-slot cache. With
+    dense engine's per-slot cache, the small cache a prefill fills before
+    the engine inserts it, or the speculative draft's cache. With
     ``cfg.kv_int8`` k/v are int8 and ``ks``/``vs`` (L, B, T, Hkv) float32
     scale planes, initialised to ones."""
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
@@ -164,6 +183,75 @@ def _kv_rows(cfg: LlamaConfig, k: torch.Tensor,
     kq, ks = quantize_kv(k)
     vq, vs = quantize_kv(v)
     return {"k": kq, "v": vq, "ks": ks, "vs": vs}
+
+
+def dense_page(t_max: int, window: Optional[int] = None) -> int:
+    """The page of the identity table over a dense cache of ``t_max``
+    positions read to ``window`` (None: all of them): 32 where it divides
+    both, else the largest power of two that does."""
+    span = math.gcd(t_max, window or t_max)
+    page = 32
+    while span % page:
+        page //= 2
+    return page
+
+
+def identity_table(batch: int, t_max: int, window: Optional[int] = None,
+                   device: Union[str, torch.device] = "cuda"
+                   ) -> torch.Tensor:
+    """The page table that makes a dense cache (B, T, Hkv, D), viewed as
+    a pool of ``B * T / page`` pages in slot order (``page`` from
+    :func:`dense_page`), read as itself: row ``b`` holds slot ``b``'s first
+    ``window // page`` pages, ``b * (T // page) + j``. Contiguous int32
+    (batch, window // page); no entry is a sentinel."""
+    page = dense_page(t_max, window)
+    width = (window or t_max) // page
+    slots = torch.arange(batch, dtype=torch.int32, device=device)
+    cols = torch.arange(width, dtype=torch.int32, device=device)
+    return (slots[:, None] * (t_max // page) + cols[None, :]).contiguous()
+
+
+def _dense_pool(cfg: LlamaConfig, cache: Dict[str, torch.Tensor], i: int,
+                page: int) -> Tuple[torch.Tensor, ...]:
+    """Layer ``i`` of a dense cache as the ragged wrappers' arguments: k
+    and v pages (B * T / page, page, Hkv, D), then with ``cfg.kv_int8``
+    the two scale planes (B * T / page, page, Hkv), else Nones. Views, no
+    copy."""
+    names = ("k", "v", "ks", "vs") if cfg.kv_int8 else ("k", "v")
+    views = tuple(cache[name][i].view(-1, page, *cache[name].shape[3:])
+                  for name in names)
+    return views if cfg.kv_int8 else views + (None, None)
+
+
+def _dense_plan(cache_len: torch.Tensor, g_len: int, t_max: int
+                ) -> Tuple[torch.Tensor, ...]:
+    """Where a step's G new rows go in a dense cache of T positions, the
+    same for every layer and leaf: (rows (B, 1), positions clamped into
+    the cache (B, G), which fit (B, G), the index g of the new row that
+    lands on position T - 1 (B,), whether one does (B,))."""
+    dev = cache_len.device
+    lens = cache_len.long()
+    pos = lens[:, None] + torch.arange(g_len, device=dev)[None, :]
+    rows = torch.arange(lens.shape[0], device=dev)[:, None]
+    return (rows, pos.clamp(max=t_max - 1), pos < t_max,
+            (t_max - 1 - lens).clamp(0, g_len - 1), lens < t_max)
+
+
+def _dense_write(leaf: torch.Tensor, new: torch.Tensor, plan) -> None:
+    """Write ``new`` (B, G, ...) into ``leaf`` (B, T, ...) in place at the
+    positions of ``plan`` (:func:`_dense_plan`); positions past T write
+    nothing (JAX's ``mode="drop"``). Without a host sync to filter them,
+    each dropped write lands on position T - 1 with the value that
+    position gets anyway: the row's new entry for it, or what it holds,
+    so duplicate destinations always agree."""
+    rows, dest, fits, at_last, lands = plan
+    tail = (1,) * (new.dim() - 2)
+    last = leaf[:, -1:]                                   # (B, 1, ...)
+    if new.shape[1] > 1:
+        # a row that lands a new entry on T - 1 writes that entry there
+        last = torch.where(lands.view(-1, 1, *tail),
+                           new[rows[:, 0], at_last][:, None], last)
+    leaf[rows, dest] = torch.where(fits.view(*fits.shape, *tail), new, last)
 
 
 def _scale_planes(cfg: LlamaConfig, pool: Dict[str, torch.Tensor],
@@ -324,52 +412,110 @@ def decode_step_paged(params: Params, cfg: LlamaConfig, token: torch.Tensor,
 
 
 def decode_step(params: Params, cfg: LlamaConfig, token: torch.Tensor,
-                cache: Dict[str, torch.Tensor], cache_len: torch.Tensor
+                cache: Dict[str, torch.Tensor], cache_len: torch.Tensor,
+                window: Optional[int] = None,
+                table: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
                            torch.Tensor]:
     """One decode step over a dense cache (L, B, T, Hkv, D).
 
     token (B,) int; cache_len (B,) int32 valid entries excluding this
-    token. Attention runs over the cache plus the new K/V through the
-    flash-decode wrapper, then the new row is written in place at
-    ``cache_len``. A row whose position is past the cache writes nothing
-    (JAX dropped that scatter): it writes back what its clamped
-    destination holds, so the step needs no host sync to filter it.
+    token. Attention runs over the cache's first ``window`` positions
+    (None: all T; the caller keeps every active row's cache_len below
+    it) plus the new K/V: through the ragged decode wrapper over the
+    layer viewed as a pool of pages and ``table``, the identity table of
+    this window (:func:`identity_table`, built here when None), or with
+    ``cfg.use_flash_decode`` through the flash-decode wrapper over the
+    window's view. A row whose fill is past the window attends the whole
+    window (JAX's ``v[:, :window]``). The new row (quantised with its
+    scales under ``cfg.kv_int8``) is then written in place at
+    ``cache_len`` in the full cache, never the window; a row whose
+    position is past the cache writes nothing (:func:`_dense_write`).
     Returns (logits (B, V) f32, cache, cache_len + 1).
-
-    A ``kv_int8`` config raises ValueError: the flash-decode kernel reads
-    a bf16 cache (the JAX package's ``kv_int8`` / ``use_flash_decode``
-    exclusion), and the dense int8 cache is not ported.
     """
-    if cfg.kv_int8:
-        raise ValueError("decode_step: the dense cache is bf16 only (flash "
-                         "decode reads a bf16 cache); kv_int8 runs on the "
-                         "paged pool (decode_step_paged)")
     b = token.shape[0]
     dev = token.device
     cos, sin = _rope(cfg, dev)
     positions = cache_len.long()[:, None]
     t_max = cache["k"].shape[2]
-    rows = torch.arange(b, device=dev)
-    cols = cache_len.long().clamp(max=t_max - 1)
-    fits = (cache_len < t_max)[:, None, None]
+    w = window or t_max
+    page = dense_page(t_max, window)
+    if table is None and not cfg.use_flash_decode:
+        table = identity_table(b, t_max, window, device=dev)
+    # the write destinations are the same for every layer: hoist them
+    plan = _dense_plan(cache_len, 1, t_max)
     x = params["tok_emb"][token][:, None, :]              # (B, 1, D)
     for i in range(cfg.n_layers):
         layer = _layer(params, i)
-        k_cache, v_cache = cache["k"][i], cache["v"][i]
         h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
         q, k, v = _qkv(layer, h, cfg, cos, sin, positions)
         k_new, v_new = k[:, 0].contiguous(), v[:, 0].contiguous()
-        attn = flash_decode_attention(q.contiguous(), k_cache, v_cache,
-                                      k_new, v_new, cache_len)
+        if cfg.use_flash_decode:
+            attn = flash_decode_attention(
+                q.contiguous(), cache["k"][i][:, :w], cache["v"][i][:, :w],
+                k_new, v_new, cache_len)
+        else:
+            k_pages, v_pages, k_scales, v_scales = _dense_pool(cfg, cache, i,
+                                                               page)
+            attn = ragged_paged_decode_attention(
+                q.contiguous(), k_pages, v_pages, table, k_new, v_new,
+                cache_len, k_scales, v_scales)
         x = x + qmm(attn.reshape(b, 1, -1), layer["wo"])
         h = rms_norm(x, layer["ffn_norm"], cfg.norm_eps)
         x = x + _ffn(layer, h)
-        k_cache[rows, cols] = torch.where(fits, k_new, k_cache[rows, cols])
-        v_cache[rows, cols] = torch.where(fits, v_new, v_cache[rows, cols])
+        for name, rows in _kv_rows(cfg, k_new, v_new).items():
+            _dense_write(cache[name][i], rows[:, None], plan)
     x = rms_norm(x[:, 0], params["out_norm"], cfg.norm_eps)
     logits = qmm(x, params["lm_head"]).float()
     return logits, cache, cache_len + 1
+
+
+def verify_step(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
+                cache: Dict[str, torch.Tensor], cache_len: torch.Tensor,
+                window: Optional[int] = None,
+                table: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Speculative verify over a dense cache: score G tokens per row in
+    one forward.
+
+    tokens (B, G) sit at positions ``cache_len + g``. Attention runs
+    through the ragged verify wrapper over the layer's first ``window``
+    positions viewed as pages and ``table`` (as in :func:`decode_step`;
+    int8 caches with their scale planes); the G new K/V rows of each row
+    (quantised under ``cfg.kv_int8``) are then written in place at
+    ``cache_len + g`` in the full cache, positions past it dropped
+    (:func:`_dense_write`). Returns (logits (B, G, V) f32, cache);
+    ``cache_len`` is not advanced here — the caller commits the accepted
+    prefix.
+    """
+    b, g_len = tokens.shape
+    dev = tokens.device
+    cos, sin = _rope(cfg, dev)
+    positions = cache_len.long()[:, None] \
+        + torch.arange(g_len, device=dev)[None, :]          # (B, G)
+    t_max = cache["k"].shape[2]
+    page = dense_page(t_max, window)
+    if table is None:
+        table = identity_table(b, t_max, window, device=dev)
+    plan = _dense_plan(cache_len, g_len, t_max)
+    x = params["tok_emb"][tokens]                         # (B, G, D)
+    for i in range(cfg.n_layers):
+        layer = _layer(params, i)
+        h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+        q, k, v = _qkv(layer, h, cfg, cos, sin, positions)
+        k, v = k.contiguous(), v.contiguous()
+        k_pages, v_pages, k_scales, v_scales = _dense_pool(cfg, cache, i,
+                                                           page)
+        attn = ragged_paged_verify_attention(
+            q.contiguous(), k_pages, v_pages, table, k, v, cache_len,
+            k_scales, v_scales)
+        x = x + qmm(attn.reshape(b, g_len, -1), layer["wo"])
+        h = rms_norm(x, layer["ffn_norm"], cfg.norm_eps)
+        x = x + _ffn(layer, h)
+        for name, rows in _kv_rows(cfg, k, v).items():
+            _dense_write(cache[name][i], rows, plan)
+    x = rms_norm(x, params["out_norm"], cfg.norm_eps)
+    return qmm(x, params["lm_head"]).float(), cache
 
 
 def verify_step_paged(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,

@@ -117,10 +117,21 @@ def scratch_shape(batch: int, t_max: int, kv_heads: int,
 
 def _bind(lib: ctypes.CDLL):
     fn = lib.gofr_flash_decode_attention
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _window_view(cache) -> bool:
+    """Whether ``cache`` (B, T, Hkv, D) is contiguous in its last three
+    dims with a slot stride of whole positions: a contiguous cache, or its
+    first T positions (``cache[:, :T]``, an attention window)."""
+    _, t_max, hkv, d = cache.shape
+    pos = hkv * d
+    return (cache.stride(3) == 1 and cache.stride(2) == d
+            and cache.stride(1) == pos and cache.stride(0) % pos == 0
+            and cache.stride(0) // pos >= t_max)
 
 
 def _check(q, k_cache, v_cache, k_new, v_new, cache_len) -> None:
@@ -154,9 +165,13 @@ def _check(q, k_cache, v_cache, k_new, v_new, cache_len) -> None:
     if any(t.device != q.device for t in tensors):
         raise ValueError("flash_decode_attention: tensors on different "
                          "devices")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("flash_decode_attention: every tensor must be "
-                         "contiguous")
+    if not all(t.is_contiguous() for t in (q, k_new, v_new, cache_len)):
+        raise ValueError("flash_decode_attention: q, k_new, v_new and "
+                         "cache_len must be contiguous")
+    if k_cache.stride() != v_cache.stride() or not _window_view(k_cache):
+        raise ValueError("flash_decode_attention: k/v caches must be "
+                         "contiguous, or the first T positions of a "
+                         "contiguous (B, T_full, Hkv, D) cache, both alike")
     # the kernel reads 16-byte vectors of bf16
     if any(t.data_ptr() % 16 for t in (q, k_cache, v_cache, k_new, v_new)):
         raise ValueError("flash_decode_attention: bf16 operands must be "
@@ -166,8 +181,11 @@ def _check(q, k_cache, v_cache, k_new, v_new, cache_len) -> None:
 def flash_decode_attention(q, k_cache, v_cache, k_new, v_new,
                            cache_len) -> torch.Tensor:
     """Decode attention over a dense cache plus the new token's K/V.
-    q (B,1,Hq,D); caches (B,T,Hkv,D); k_new/v_new (B,Hkv,D); cache_len
-    (B,) int32 valid entries excluding the new token. Returns (B,1,Hq,D)."""
+    q (B,1,Hq,D); caches (B,T,Hkv,D), contiguous or the first T positions
+    of a longer cache (an attention window's view ``cache[:, :T]``: the
+    kernel steps slot to slot by the full cache's stride, and the split
+    plan follows T); k_new/v_new (B,Hkv,D); cache_len (B,) int32 valid
+    entries excluding the new token. Returns (B,1,Hq,D)."""
     if q.device.type == "cpu":
         return flash_decode_attention_plain(q, k_cache, v_cache, k_new,
                                             v_new, cache_len)
@@ -183,10 +201,11 @@ def flash_decode_attention(q, k_cache, v_cache, k_new, v_new,
     chunk, splits = split_plan(t_max)
     scratch = torch.empty(scratch_shape(b, t_max, hkv, hq // hkv),
                           dtype=torch.float32, device=q.device)
+    slot_t = k_cache.stride(0) // (hkv * d)        # the full cache's T
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
              k_new.data_ptr(), v_new.data_ptr(), cache_len.data_ptr(),
-             out.data_ptr(), scratch.data_ptr(), b, t_max, hq, hkv, d,
-             chunk, splits, _build.stream_handle(q.device))
+             out.data_ptr(), scratch.data_ptr(), b, t_max, slot_t, hq, hkv,
+             d, chunk, splits, _build.stream_handle(q.device))
     if err != 0:
         raise RuntimeError(f"flash_decode_attention: kernel launch failed "
                            f"(cudaError {err})")

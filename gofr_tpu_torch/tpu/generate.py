@@ -1,31 +1,43 @@
-"""Continuous-batching generation engine for the Llama ``/generate`` path,
-paged KV (counterpart of ``gofr_tpu/tpu/generate.py``, its paged main
-path).
+"""Continuous-batching generation engine for the Llama ``/generate`` path
+(counterpart of ``gofr_tpu/tpu/generate.py``), with the JAX engine's two
+KV layouts: a dense cache (``paged_kv=False``, the default, as in JAX)
+or a paged pool (``paged_kv=True``).
 
-- One :class:`~gofr_tpu_torch.tpu.page_pool.PagePool` holds every KV byte;
-  each slot addresses its pages through a host page-table row, uploaded
-  to the device when it changes.
+- Dense: one (max_slots, max_len) cache row per slot
+  (``llama.init_cache``). Each tick attends only the smallest rung of the
+  attention-window ladder (128, 256, ... below max_len, then the whole
+  cache; ``window_ladder``) that covers every participating slot's fill
+  plus the tokens it writes, so an early-fill tick never reads the
+  cache's dead tail; writes always go to the full cache. The target
+  reads its cache through the ragged kernels, the layer viewed as a pool
+  of pages in slot order and one identity page table a rung.
+- Paged: one :class:`~gofr_tpu_torch.tpu.page_pool.PagePool` holds every
+  KV byte; each slot addresses its pages through a host page-table row,
+  uploaded to the device when it changes. Admission waits for pages.
 - A new request claims a free slot. Admissions are batched: requests
   pending at the top of a loop pass prefill together, grouped by prompt
   bucket, the count padded to a ladder (1, 2, 4, ..., max_slots) and the
   prompts right-padded to the bucket. Prefill (flash-attention kernel on
-  the card) fills a small dense cache that one in-place insert scatters
-  into freshly allocated pool pages; the first token is sampled inside
-  the prefill step, and each claimed slot's PRNG key is made from its
-  request's seed there.
+  the card) fills a small dense cache that one in-place insert copies
+  into the claimed slots' cache rows or scatters into freshly allocated
+  pool pages; the first token is sampled inside the prefill step, and
+  each claimed slot's PRNG key is made from its request's seed there.
 - A decode tick advances every active slot K steps (K from the ladder
   1, 2, 4, ... <= ``steps_per_tick``, never past the smallest remaining
   budget, and 1 while a pending request could be admitted); each step
-  runs ``llama.decode_step_paged`` (ragged paged decode kernel on the
-  card) and samples per slot. Inactive slots are frozen (cache_len does
-  not advance) and write only the pool's scratch page.
-- ``cfg.kv_int8`` makes the pool int8 with float32 scale planes: the
-  insert scatters the quantised prefill rows and scales, and decode and
-  verify read them through the ragged kernel's int8 instantiation.
+  runs ``llama.decode_step`` or ``llama.decode_step_paged`` (ragged
+  decode kernel on the card) and samples per slot. Inactive slots are
+  frozen (cache_len does not advance); their writes land at frozen
+  positions past their fill (dense) or in the pool's scratch page.
+- ``cfg.kv_int8`` makes the cache or the pool int8 with float32 scale
+  planes: the insert copies the quantised prefill rows and scales, and
+  decode and verify read them through the ragged kernel's int8
+  instantiation.
 - Speculative decode (``draft_cfg``/``draft_params``): a draft model with
-  a dense per-slot cache (flash-decode kernel on the card) proposes g
-  tokens in g + 1 steps, the target scores all g + 1 positions in one
-  ``llama.verify_step_paged`` (ragged verify kernel on the card), and
+  a dense per-slot cache (flash-decode kernel on the card, over the
+  tick's window in the dense engine) proposes g tokens in g + 1 steps,
+  the target scores all g + 1 positions in one ``llama.verify_step`` or
+  ``verify_step_paged`` (ragged verify kernel on the card), and
   ``speculative_accept`` commits 1 to g + 1 tokens per slot. g walks the
   ladder 1, 2, 4, ... plus ``spec_gamma``, never past the smallest
   remaining budget (g + 1 <= min_wanted) nor the adaptive cap, which
@@ -33,25 +45,27 @@ path).
   ticks serve the last token of a budget and any tick with an admission
   waiting.
 - Compiled ticks: the device state (cache_len, last token, sampling
-  parameters, per-slot PRNG keys, active mask, page table, pool) lives at
-  fixed addresses and is updated in place, so each tick is one function
-  of that state. There is one executable per plain ``(k, sampled)`` rung
-  and per spec ``(g, sampled)`` rung, as the JAX engine keeps one
-  compiled executable each: on the card a ``torch.cuda.CUDAGraph``
-  captured after one eager run on a side stream (``warmup()`` captures
-  the ladders; a rung first met while serving is captured then), on the
-  CPU the same function run eagerly. A failed capture or replay raises;
-  there is no eager fallback on the card.
+  parameters, per-slot PRNG keys, active mask, page table or identity
+  tables, cache or pool) lives at fixed addresses and is updated in
+  place, so each tick is one function of that state. There is one
+  executable per plain ``(k, sampled, window)`` rung and per spec ``(g,
+  sampled, window)`` rung (window None in the paged engine), as the JAX
+  engine keeps one compiled executable each: on the card a
+  ``torch.cuda.CUDAGraph`` captured after one eager run on a side stream
+  (``warmup()`` captures the ladders at the startup window rungs; a rung
+  first met while serving is captured then), on the CPU the same
+  function run eagerly. A failed capture or replay raises; there is no
+  eager fallback on the card.
 - The loop is pipelined M deep (``max_inflight_ticks``, 2 as in the JAX
-  engine): a tick's dispatch uploads its mask and table through pinned
-  slabs (``tpu/staging``), replays its graph and queues the copy of its
-  tokens into a pinned slab, and up to M ticks are dispatched before the
-  oldest one's tokens are fetched (a worker thread waits on the copy's
-  event). Tokens publish in dispatch order; per-slot ``inflight`` and
-  ``fill`` charging keeps every budget and page cover exact, a spec tick
-  is charged g + 1 and refunded at publish, and tokens of a slot that
-  was reclaimed since dispatch are dropped. The prefill's first token is
-  fetched the same way.
+  engine): a tick's dispatch uploads its mask (and page table) through
+  pinned slabs (``tpu/staging``), replays its graph and queues the copy
+  of its tokens into a pinned slab, and up to M ticks are dispatched
+  before the oldest one's tokens are fetched (a worker thread waits on
+  the copy's event). Tokens publish in dispatch order; per-slot
+  ``inflight`` and ``fill`` charging keeps every budget, window and page
+  cover exact, a spec tick is charged g + 1 and refunded at publish, and
+  tokens of a slot that was reclaimed since dispatch are dropped. The
+  prefill's first token is fetched the same way.
 - All device work is queued from one thread (a single-worker executor),
   in dispatch order: prefill inserts and ticks write the same state, and
   the stream's order is what makes that safe, a page freed while a later
@@ -59,15 +73,15 @@ path).
 - Tokens stream: ``generate_stream`` yields ids as each tick's fetch
   lands; ``generate`` gathers them.
 
-Left for later slices (see ROADMAP.md): the dense cache, prefix cache,
-disaggregation, grammar-constrained decoding, brownout, auto-tuning,
-upload coalescing, mesh sharding, the SLO / metrics / flight-recorder
-hooks and the attention-window ladder.
+Left for later slices (see ROADMAP.md): prefix cache, disaggregation,
+grammar-constrained decoding, brownout, auto-tuning, upload coalescing,
+mesh sharding and the SLO / metrics / flight-recorder hooks.
 """
 
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import os
 import time
 from collections import deque
@@ -90,6 +104,10 @@ from gofr_tpu_torch.tpu.page_pool import PagePool
 from gofr_tpu_torch.tpu.staging import StagingPool
 
 DEFAULT_PROMPT_BUCKETS = (32, 128, 512)
+# the dense cache's view pages the ragged kernel's card checks hold it at
+# (cuda_refusals): 32 (chip_smoke.py phases 4, 5, 13) and 16
+# (tests/test_torch_cuda_kernels.py)
+DENSE_VIEW_PAGES = (16, 32)
 
 # adaptive-γ controller (speculative decode): windowed acceptance is
 # evaluated every N spec ticks; below the shrink threshold the γ cap
@@ -102,16 +120,23 @@ _SPEC_GROW_ABOVE = 0.8
 # sentinel pushed onto a streaming queue when the request completes
 _DONE = object()
 
+# a tick executable: (kind "plain" | "spec", k | g, sampled, window rung)
+_Key = Tuple[str, int, bool, Optional[int]]
+
 
 def cuda_refusals(cfg, max_len: int, kv_page: int, draft_cfg=None,
-                  spec_gamma: int = 0) -> List[str]:
+                  spec_gamma: int = 0, paged_kv: bool = False) -> List[str]:
     """What the card's kernels would refuse at the first tick of an engine
     of this configuration, one line each (empty: nothing). The ragged
     kernel serves the target (head_dim 128, GQA group 1/2/4/8, bf16, at
     most ``MAX_VERIFY_TOKENS`` queries a slot, a rank's scores of the
-    ``max_len / kv_page`` table columns within ``MAX_DYN_SMEM``); the
-    flash-decode kernel serves the draft (head_dim 128, group 1/2/4/8,
-    bf16). The plain versions the CPU runs take any of these."""
+    widest table within ``MAX_DYN_SMEM``); the flash-decode kernel serves
+    the draft (head_dim 128, group 1/2/4/8, bf16). The paged engine's
+    table has ``max_len / kv_page`` columns of ``kv_page``; the dense
+    engine's widest identity table (the top window rung) ``max_len /
+    page`` columns of its view page (``llama.dense_page``), which must be
+    one of ``DENSE_VIEW_PAGES``, the pages the kernel's checks on the card
+    hold it at. The plain versions the CPU runs take any of these."""
     out = []
     models = [("model", cfg, ragged_mod)]
     if draft_cfg is not None:
@@ -133,13 +158,21 @@ def cuda_refusals(cfg, max_len: int, kv_page: int, draft_cfg=None,
             out.append(f"spec_gamma {spec_gamma}: verify takes at most "
                        f"MAX_VERIFY_TOKENS = {ragged_mod.MAX_VERIFY_TOKENS} "
                        f"tokens a slot")
+    page = kv_page
+    if not paged_kv:
+        page = llama.dense_page(max_len)
+        if page not in DENSE_VIEW_PAGES:
+            out.append(f"dense view page {page} (max_len {max_len}): the "
+                       f"ragged kernel is held to its gates at pages "
+                       f"{DENSE_VIEW_PAGES}; max_len must be a multiple "
+                       f"of {min(DENSE_VIEW_PAGES)}")
     if cfg.n_heads % cfg.n_kv_heads == 0 \
             and g_len <= ragged_mod.MAX_VERIFY_TOKENS:
-        width = max_len // kv_page
-        smem = ragged_mod.dyn_smem_bytes(width, kv_page,
+        width = max_len // page
+        smem = ragged_mod.dyn_smem_bytes(width, page,
                                          cfg.n_heads // cfg.n_kv_heads, g_len)
         if smem > ragged_mod.MAX_DYN_SMEM:
-            out.append(f"a table of {width} columns of {kv_page} at "
+            out.append(f"a table of {width} columns of {page} at "
                        f"{g_len} queries a slot needs {smem} bytes of "
                        f"shared memory, over MAX_DYN_SMEM = "
                        f"{ragged_mod.MAX_DYN_SMEM}")
@@ -285,6 +318,8 @@ class GenerationEngine:
                  prompt_buckets=DEFAULT_PROMPT_BUCKETS,
                  steps_per_tick: int = 1,
                  max_inflight_ticks: int = 2,
+                 window_ladder: Optional[bool] = None,
+                 paged_kv: bool = False,
                  kv_page: int = 32,
                  kv_pages: Optional[int] = None,
                  kv_page_reserve: Optional[int] = None,
@@ -311,44 +346,88 @@ class GenerationEngine:
             self._n_ladder.append(self._n_ladder[-1] * 2)
         if self._n_ladder[-1] != self.max_slots:
             self._n_ladder.append(self.max_slots)
+        # paged KV: one page pool addressed through a per-slot page table;
+        # dense (the default, as in JAX): a (max_slots, max_len) cache row
+        # per slot
+        self.paged = bool(paged_kv)
         self.kv_page = int(kv_page)
-        if self.max_len % self.kv_page:
-            raise ValueError(f"max_len {self.max_len} must be a multiple of "
-                             f"kv_page {self.kv_page}")
-        bad = [b for b in self.prompt_buckets if b % self.kv_page]
-        if bad:
-            raise ValueError(f"prompt buckets {bad} are not multiples of "
-                             f"kv_page {self.kv_page}")
+        if self.paged:
+            if self.max_len % self.kv_page:
+                raise ValueError(f"paged_kv: max_len {self.max_len} must be "
+                                 f"a multiple of kv_page {self.kv_page}")
+            bad = [b for b in self.prompt_buckets if b % self.kv_page]
+            if bad:
+                raise ValueError(f"paged_kv: prompt buckets {bad} are not "
+                                 f"multiples of kv_page {self.kv_page} "
+                                 f"(page-aligned inserts need page-aligned "
+                                 f"buckets)")
+        self.logger = logger
+        # attention-window ladder (fill-bounded decode): rungs double from
+        # 128 up to max_len; a dense tick attends only the smallest rung
+        # covering every participating slot's fill + its steps, so an
+        # early-fill tick never reads the cache's dead tail. The top rung
+        # is None (the whole cache). The paged engine's ticks read through
+        # the whole page table and keep window None: paging already keeps
+        # dead memory out of a tick.
+        if self.paged and window_ladder is True and logger is not None:
+            logger.warning(
+                "attention_window ladder requested together with paged_kv: "
+                "paging supersedes windowing as the HBM relief mechanism; "
+                "the paged ticks read the whole page table")
+        window_ladder = True if window_ladder is None else bool(window_ladder)
+        self._window_ladder: List[Optional[int]] = [None]
+        if window_ladder and self.max_len > 128:
+            rungs = []
+            w = 128
+            while w < self.max_len:
+                rungs.append(w)
+                w *= 2
+            self._window_ladder = rungs + [None]
         self.spec = draft_cfg is not None and draft_params is not None
         self.spec_gamma = max(1, int(spec_gamma))
         if self.device.type == "cuda":
             refused = cuda_refusals(cfg, self.max_len, self.kv_page,
                                     draft_cfg if self.spec else None,
-                                    self.spec_gamma)
+                                    self.spec_gamma, paged_kv=self.paged)
             if refused:
                 raise ValueError("the card's kernels refuse this "
                                  "configuration: " + "; ".join(refused))
-        self.logger = logger
         self.params = _params_to(params, self.device)
-        self.pages_per_slot = self.max_len // self.kv_page
-        self._pool = PagePool(
-            cfg, page=self.kv_page,
-            num_pages=(int(kv_pages) if kv_pages is not None
-                       else self.max_slots * self.pages_per_slot),
-            device=self.device)
-        # pages admission must leave free for decode growth of running slots
-        self._kv_reserve = (int(kv_page_reserve)
-                            if kv_page_reserve is not None
-                            else min(self.max_slots,
-                                     self._pool.num_pages // 8))
-        # host master copy of the page table; the device copy is uploaded
-        # when the version moves
-        self._table = np.full((self.max_slots, self.pages_per_slot),
-                              self._pool.sentinel, np.int32)
-        self._table_version = 0
+        dev, n = self.device, self.max_slots
+        self._pool: Optional[PagePool] = None
+        self.cache: Optional[Dict[str, torch.Tensor]] = None
+        if self.paged:
+            self.pages_per_slot = self.max_len // self.kv_page
+            self._pool = PagePool(
+                cfg, page=self.kv_page,
+                num_pages=(int(kv_pages) if kv_pages is not None
+                           else self.max_slots * self.pages_per_slot),
+                device=dev)
+            # pages admission must leave free for decode growth of running
+            # slots
+            self._kv_reserve = (int(kv_page_reserve)
+                                if kv_page_reserve is not None
+                                else min(self.max_slots,
+                                         self._pool.num_pages // 8))
+            # host master copy of the page table; the device copy is
+            # uploaded when the version moves
+            self._table = np.full((self.max_slots, self.pages_per_slot),
+                                  self._pool.sentinel, np.int32)
+            self.table = torch.full((n, self.pages_per_slot),
+                                    self._pool.sentinel, dtype=torch.int32,
+                                    device=dev)
+        else:
+            self.cache = llama.init_cache(cfg, n, self.max_len, device=dev)
+            # the target reads its cache through the ragged kernels over
+            # one identity page table a window rung, each contiguous at a
+            # fixed address (a captured graph holds it)
+            self._tables = {w: llama.identity_table(n, self.max_len, w,
+                                                    device=dev)
+                            for w in self._window_ladder}
+        self._table_version = 0     # moves with the paged host table
 
         # -- speculative draft-verify decode ---------------------------------
-        self.draft_cfg = draft_cfg
+        self.draft_cfg = None
         self.draft_params = None
         self._draft_cache: Optional[Dict[str, torch.Tensor]] = None
         self._g_ladder: List[int] = []
@@ -362,6 +441,10 @@ class GenerationEngine:
                 raise ValueError(
                     "the draft's dense cache is bf16 only (flash decode "
                     "reads a bf16 cache): build draft_cfg without kv_int8")
+            # the draft decodes through the flash-decode kernel, over the
+            # tick's window in the dense engine
+            self.draft_cfg = dataclasses.replace(draft_cfg,
+                                                 use_flash_decode=True)
             self.draft_params = _params_to(draft_params, self.device)
             # the draft cache is dense: the draft is small, and one
             # (max_slots, max_len) row per slot keeps it independent of
@@ -383,7 +466,6 @@ class GenerationEngine:
         self._spec_window_accepted = 0
 
         # -- device state at fixed addresses ------------------------------
-        dev, n = self.device, self.max_slots
         self.cache_len = torch.zeros((n,), dtype=torch.int32, device=dev)
         self.last_token = torch.zeros((n,), dtype=torch.int64, device=dev)
         self.temps = torch.zeros((n,), dtype=torch.float32, device=dev)
@@ -392,9 +474,6 @@ class GenerationEngine:
         self.sample_keys = torch.zeros((n, 2), dtype=torch.int64,
                                        device=dev)
         self.active = torch.zeros((n,), dtype=torch.bool, device=dev)
-        self.table = torch.full((n, self.pages_per_slot),
-                                self._pool.sentinel, dtype=torch.int32,
-                                device=dev)
         self._sent_mask: Optional[bytes] = None   # last uploaded mask
         self._sent_table = -1                     # last uploaded version
 
@@ -405,7 +484,7 @@ class GenerationEngine:
         # all device work is queued from this one thread, in order
         self._device_exec = ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="gofr-torch-device")
-        self._graphs: Dict[Tuple[str, int, bool], _Graph] = {}
+        self._graphs: Dict[_Key, _Graph] = {}
         self._graph_pool = None
         self.capture_s = 0.0
         self.graph_replays = 0
@@ -426,21 +505,24 @@ class GenerationEngine:
         self.ticks = 0                # plain decode ticks
         self.spec_rungs: Dict[int, int] = {}  # spec ticks run, by g
         self.draft_steps = 0          # Σ(g + 1) draft steps (flash decode)
+        # ticks run (plain and spec), by window rung
+        self.window_ticks: Dict[Optional[int], int] = {}
         self.ttfts: "deque[float]" = deque(maxlen=4096)  # submit → 1st token
 
     # -- device steps (the device thread) --------------------------------------
     def _prefill_insert(self, nb: int, bucket: int, n_claimed: int,
                         ints: np.ndarray, floats: np.ndarray):
         """Batched prompt forward for ``nb`` rows of bucket ``bucket``, its
-        in-place insert into the pool pages (sentinel entries land in the
-        scratch page), with a draft its KV-only prefill into the claimed
-        slots' dense draft rows, and the first ``n_claimed`` rows' slot
-        state, PRNG keys included. ``ints`` packs (tokens (nb, bucket),
-        lengths, slots, top_ks, seeds (nb,) each, page ids (nb, bucket //
-        page)) and ``floats`` (temps, top_ps); each goes up in one staged
-        copy. Returns the fetch of the first tokens (nb,)."""
-        dev, cfg, page = self.device, self.cfg, self.kv_page
-        npg = bucket // page
+        in-place insert (paged: into the pool pages, sentinel entries
+        landing in the scratch page; dense: into the claimed slots' cache
+        rows, padding rows dropped, JAX ``_insert_fn``), with a draft its
+        KV-only prefill into the claimed slots' dense draft rows, and the
+        first ``n_claimed`` rows' slot state, PRNG keys included. ``ints``
+        packs (tokens (nb, bucket), lengths, slots, top_ks, seeds (nb,)
+        each, and paged the page ids (nb, bucket // page)) and ``floats``
+        (temps, top_ps); each goes up in one staged copy. Returns the
+        fetch of the first tokens (nb,)."""
+        dev, cfg = self.device, self.cfg
         ints_dev = torch.empty(ints.shape, dtype=torch.int64, device=dev)
         floats_dev = torch.empty(floats.shape, dtype=torch.float32,
                                  device=dev)
@@ -456,12 +538,18 @@ class GenerationEngine:
                                          lengths=lens)
         first, keys = sample_batch(logits, temps, top_ks, top_ps,
                                    prng.seed_key(seeds))
-        # in-place scatter of the group's KV pages into the pool; each
-        # leaf (k/v rows, int8 scale planes) keeps its own trailing shape
-        for name, leaf in self._pool.leaves.items():
-            leaf[:, flat_ids] = small[name].reshape(
-                cfg.n_layers, nb * npg, page, *small[name].shape[3:])
         slot_t = slots[:n_claimed]
+        # in-place insert of the group's KV; each leaf (k/v rows, int8
+        # scale planes) keeps its own trailing shape
+        if self.paged:
+            page = self.kv_page
+            for name, leaf in self._pool.leaves.items():
+                leaf[:, flat_ids] = small[name].reshape(
+                    cfg.n_layers, nb * (bucket // page), page,
+                    *small[name].shape[3:])
+        else:
+            for name, leaf in self.cache.items():
+                leaf[:, slot_t, :bucket] = small[name][:, :n_claimed]
         if self.spec:
             # KV-only draft prefill over the same bucket; its rows land in
             # the claimed slots' dense draft rows (padding rows dropped)
@@ -479,18 +567,25 @@ class GenerationEngine:
         self.sample_keys[slot_t] = keys[:n_claimed]
         return self._staging.fetch(first)
 
-    def _plain_tick(self, k: int, sampled: bool,
+    def _plain_tick(self, k: int, sampled: bool, window: Optional[int],
                     active: torch.Tensor) -> torch.Tensor:
-        """``k`` paged decode steps over every slot of the device state,
-        updated in place; inactive rows keep their cache_len, token and
-        key. Returns the (k, max_slots) tokens."""
+        """``k`` decode steps over every slot of the device state, updated
+        in place (paged: ``llama.decode_step_paged``; dense: JAX
+        ``_decode_fn``, ``llama.decode_step`` over the window rung
+        ``window`` and its identity table); inactive rows keep their
+        cache_len, token and key. Returns the (k, max_slots) tokens."""
         token, cache_len, keys = self.last_token, self.cache_len, \
             self.sample_keys
         steps = []
         for _ in range(k):
-            logits, _, new_len = llama.decode_step_paged(
-                self.params, self.cfg, token, self._pool.leaves, self.table,
-                cache_len, active)
+            if self.paged:
+                logits, _, new_len = llama.decode_step_paged(
+                    self.params, self.cfg, token, self._pool.leaves,
+                    self.table, cache_len, active)
+            else:
+                logits, _, new_len = llama.decode_step(
+                    self.params, self.cfg, token, self.cache, cache_len,
+                    window=window, table=self._tables[window])
             if sampled:
                 nxt, new_keys = sample_batch(logits, self.temps, self.top_ks,
                                              self.top_ps, keys)
@@ -507,18 +602,21 @@ class GenerationEngine:
             self.sample_keys.copy_(keys)
         return out
 
-    def _spec_tick(self, g: int, sampled: bool,
+    def _spec_tick(self, g: int, sampled: bool, window: Optional[int],
                    active: torch.Tensor) -> torch.Tensor:
-        """One speculative tick at rung ``g`` (JAX ``_spec_paged_fn``): the
-        draft runs g + 1 dense decode steps proposing g tokens (the extra
-        step writes the last proposal's KV, so a full acceptance leaves
-        the draft cache covering every committed position), the target
-        verifies all g + 1 positions in one paged forward, and
-        ``speculative_accept`` commits ``accepts + 1`` tokens per active
-        row. A sampled tick splits each key into g + 2: one a draft step
-        and one for the acceptance. Inactive rows keep their cache_len,
-        token and key. Returns (g + 2, max_slots): the g + 1 committed
-        candidates, then the accept counts."""
+        """One speculative tick at rung ``g`` (JAX ``_spec_paged_fn``, and
+        dense ``_spec_fn`` over the window rung ``window``): the draft
+        runs g + 1 dense decode steps proposing g tokens (the extra step
+        writes the last proposal's KV, so a full acceptance leaves the
+        draft cache covering every committed position), the target
+        verifies all g + 1 positions in one forward (paged:
+        ``verify_step_paged``; dense: ``verify_step`` over the window and
+        its identity table), and ``speculative_accept`` commits
+        ``accepts + 1`` tokens per active row. A sampled tick splits each
+        key into g + 2: one a draft step and one for the acceptance.
+        Inactive rows keep their cache_len, token and key. Returns (g + 2,
+        max_slots): the g + 1 committed candidates, then the accept
+        counts."""
         last, cache_len, keys = self.last_token, self.cache_len, \
             self.sample_keys
         if sampled:
@@ -528,7 +626,7 @@ class GenerationEngine:
         for i in range(g + 1):
             logits, _, new_len = llama.decode_step(
                 self.draft_params, self.draft_cfg, token, self._draft_cache,
-                dlen)
+                dlen, window=window)
             proposal = logits.argmax(dim=-1)
             if sampled:
                 q_logp = filtered_log_probs_batch(logits, self.temps,
@@ -541,9 +639,14 @@ class GenerationEngine:
             proposals.append(token)
         draft_tokens = torch.stack(proposals[:g], dim=1)          # (B, g)
         verify_tokens = torch.cat([last[:, None], draft_tokens], dim=1)
-        t_logits, _ = llama.verify_step_paged(
-            self.params, self.cfg, verify_tokens, self._pool.leaves,
-            self.table, cache_len, active)
+        if self.paged:
+            t_logits, _ = llama.verify_step_paged(
+                self.params, self.cfg, verify_tokens, self._pool.leaves,
+                self.table, cache_len, active)
+        else:
+            t_logits, _ = llama.verify_step(
+                self.params, self.cfg, verify_tokens, self.cache, cache_len,
+                window=window, table=self._tables[window])
         if sampled:
             out, accepts, carry = speculative_accept(
                 t_logits, torch.stack(q_logps[:g], dim=1), draft_tokens,
@@ -558,21 +661,23 @@ class GenerationEngine:
                                          cache_len))
         return torch.cat([out.T, accepts[None]])
 
-    def _tick_body(self, key: Tuple[str, int, bool],
-                   active: torch.Tensor) -> torch.Tensor:
-        kind, n, sampled = key
+    def _tick_body(self, key: _Key, active: torch.Tensor) -> torch.Tensor:
+        kind, n, sampled, window = key
         if kind == "spec":
-            return self._spec_tick(n, sampled, active)
-        return self._plain_tick(n, sampled, active)
+            return self._spec_tick(n, sampled, window, active)
+        return self._plain_tick(n, sampled, window, active)
 
-    def _capture(self, key: Tuple[str, int, bool]) -> _Graph:
+    def _capture(self, key: _Key) -> _Graph:
         """Capture the tick ``key`` as a CUDA graph: one eager run first,
-        on a side stream with every slot inactive (it writes only the
-        pool's scratch page and, for a spec tick, the draft cache at
-        frozen positions that are written again before they are read),
-        which builds the kernels and sets their attributes, under
+        on a side stream with every slot inactive, which builds the
+        kernels and sets their attributes, under
         ``set_sync_debug_mode("error")`` so a host sync raises here; then
-        the capture, whose launch counts become the graph's."""
+        the capture, whose launch counts become the graph's. The eager
+        run's writes are harmless: the paged engine's go to the pool's
+        scratch page; the dense engine's, and a spec tick's into the draft
+        cache, land at each row's frozen positions, at or past its fill,
+        which the row writes again before it reads them (JAX's argument
+        for its inactive rows)."""
         t0 = time.monotonic()
         dev = self.device
         side = torch.cuda.Stream(dev)
@@ -600,7 +705,7 @@ class GenerationEngine:
         self.capture_s += time.monotonic() - t0
         return entry
 
-    def _run_tick(self, key: Tuple[str, int, bool],
+    def _run_tick(self, key: _Key,
                   mask: Optional[np.ndarray], table: Optional[np.ndarray]):
         """Upload what moved, run the tick (a graph replay on the card,
         captured first if this rung was not warmed; eager on the CPU) and
@@ -633,23 +738,56 @@ class GenerationEngine:
                 self._tick_body(key, idle)
         for bucket in self.prompt_buckets:
             # tokens, length 1, slot max_slots (none), top_k, seed, pages
-            ints = np.concatenate([np.zeros(bucket + 4, np.int64),
-                                   np.full(bucket // self.kv_page,
-                                           self._pool.sentinel, np.int64)])
+            ints = np.zeros(bucket + 4, np.int64)
+            if self.paged:
+                ints = np.concatenate([ints, np.full(
+                    bucket // self.kv_page, self._pool.sentinel, np.int64)])
             ints[bucket:bucket + 2] = (1, self.max_slots)
             floats = np.array([0.0, 1.0], np.float32)      # temp, top_p
             self._prefill_insert(1, bucket, 0, ints, floats)()
 
     # -- lifecycle -------------------------------------------------------------
-    async def warmup(self, ks: Optional[Tuple[int, ...]] = None) -> None:
+    def _startup_window_rungs(self, ks: List[int]) -> List[Optional[int]]:
+        """Window rungs reachable right after startup (JAX
+        ``_startup_window_rungs``): every rung up to and including the one
+        covering the largest prompt bucket plus the largest fused-step
+        count. Deeper rungs are captured when a tick first needs them."""
+        if len(self._window_ladder) == 1:
+            return list(self._window_ladder)
+        reach = self._pick_window([max(self.prompt_buckets)],
+                                  max(ks) if ks else 1)
+        rungs: List[Optional[int]] = []
+        for w in self._window_ladder:
+            rungs.append(w)
+            if w == reach:
+                break
+        return rungs
+
+    def _pick_window(self, fills: List[int], k: int) -> Optional[int]:
+        """Smallest window rung covering every participating slot's fill
+        plus the k tokens the tick writes (None = the whole cache; JAX
+        ``_pick_window``)."""
+        needed = max(fills) + k if fills else k
+        for rung in self._window_ladder:
+            if rung is None or rung >= needed:
+                return rung
+        return None
+
+    async def warmup(self, ks: Optional[Tuple[int, ...]] = None,
+                     windows: Union[Tuple[Optional[int], ...], str,
+                                    None] = None) -> None:
         """Capture the tick executables so the serving path never does
-        (the JAX engine's ``warmup``, without the window rungs the paged
-        path retires): every rung of the k ladder (``ks`` restricts it)
-        and, with a draft, of the γ ladder, greedy and sampled; then run
-        one prefill of every bucket. An unwarmed rung is captured when a
-        tick first needs it. On the CPU each tick runs once instead. Must
-        run before ``start()``: it runs device work outside the engine
-        loop."""
+        (the JAX engine's ``warmup``): every rung of the k ladder (``ks``
+        restricts it) and, with a draft, of the γ ladder, greedy and
+        sampled, at each window rung of ``windows``; then run one prefill
+        of every bucket. ``windows``: None, the rungs reachable at startup
+        (:meth:`_startup_window_rungs`); ``"all"``, the whole ladder; a
+        tuple, exactly those rungs, ``max_len`` standing for the top rung
+        (as ``stats()["window_ladder"]`` spells it). The paged engine's
+        ticks all take window None. An unwarmed rung is captured when a
+        tick first needs it (``lazy_captures``). On the CPU each tick runs
+        once instead. Must run before ``start()``: it runs device work
+        outside the engine loop."""
         if self._task is not None:
             raise RuntimeError(
                 "warmup() must be called before start(): it runs device "
@@ -663,8 +801,31 @@ class GenerationEngine:
                     f"warmup ks={unknown or ks} are not k-ladder rungs "
                     f"{self._k_ladder}; nothing would be warmed for them")
             rungs = [k for k in self._k_ladder if k in ks]
-        keys = [("plain", k, s) for k in rungs for s in (False, True)]
-        keys += [("spec", g, s) for g in self._g_ladder for s in (False, True)]
+        if windows is None:
+            window_rungs = self._startup_window_rungs(rungs)
+        elif isinstance(windows, str):
+            if windows != "all":
+                raise ValueError(
+                    f"warmup windows={windows!r}: the only string sentinel "
+                    f"is 'all' (full-matrix warmup)")
+            window_rungs = list(self._window_ladder)
+        else:
+            requested = [None if w == self.max_len else w for w in windows]
+            unknown = [w for w in requested if w not in self._window_ladder]
+            if unknown or not requested:
+                raise ValueError(
+                    f"warmup windows={unknown or list(windows)} are not "
+                    f"window-ladder rungs {self._window_ladder} (max_len="
+                    f"{self.max_len} aliases the None top rung); nothing "
+                    f"would be warmed for them and the first serving tick "
+                    f"would capture on the hot path")
+            window_rungs = [w for w in self._window_ladder if w in requested]
+        if self.paged:
+            window_rungs = [None]
+        keys = [("plain", k, s, w) for w in window_rungs for k in rungs
+                for s in (False, True)]
+        keys += [("spec", g, s, w) for w in window_rungs
+                 for g in self._g_ladder for s in (False, True)]
         if self.logger is not None:
             self.logger.info("engine warmup: %d tick executables %s",
                              len(keys), keys)
@@ -752,6 +913,14 @@ class GenerationEngine:
                 return
         self._cancelled_queues.add(queue)
 
+    def _by_window(self, windows) -> Dict[int, int]:
+        """How many of ``windows`` are each rung, the top one as
+        ``max_len``."""
+        counts: Dict[int, int] = {}
+        for w in windows:
+            counts[w or self.max_len] = counts.get(w or self.max_len, 0) + 1
+        return dict(sorted(counts.items()))
+
     @property
     def spec_dispatches(self) -> int:
         """Spec ticks run (each verifies once through every target
@@ -776,12 +945,31 @@ class GenerationEngine:
             "graphs": {
                 "captured": len(self._graphs),
                 "keys": [list(key) for key in self._graphs],
+                "by_window": self._by_window(key[3] for key in self._graphs),
                 "capture_s": self.capture_s,
                 "replays": self.graph_replays,
                 "lazy_captures": self.lazy_captures,
             },
-            "kv_pool": self._pool.stats(),
+            "max_len": self.max_len,
+            "window_ladder": [w or self.max_len
+                              for w in self._window_ladder],
+            "ticks_by_window": {
+                w or self.max_len: n for w, n in sorted(
+                    self.window_ticks.items(),
+                    key=lambda item: item[0] or self.max_len)},
         }
+        if self.paged:
+            out["kv_pool"] = self._pool.stats()
+        else:
+            out["kv_cache"] = {
+                "max_slots": self.max_slots,
+                "max_len": self.max_len,
+                "view_page": llama.dense_page(self.max_len),
+                "cache_bytes": sum(leaf.numel() * leaf.element_size()
+                                   for leaf in self.cache.values()),
+                "tokens_in_cache": sum(slot.fill for slot in self._slots
+                                       if slot.active),
+            }
         if self.spec:
             out["speculative"] = {
                 "gamma": self.spec_gamma,
@@ -835,11 +1023,16 @@ class GenerationEngine:
                             reset_exc)
 
     def _reset_device_state(self) -> None:
-        """Clear the pool, the draft cache and the slot state in place (the
-        failed step may have left any of them half written; captured
-        graphs hold their addresses). The failed slots' pages went back
-        with their slots."""
-        self._pool.reset()
+        """Clear the pool or the dense cache, the draft cache and the slot
+        state in place (the failed step may have left any of them half
+        written; captured graphs hold their addresses). The failed slots'
+        pages went back with their slots."""
+        if self.paged:
+            self._pool.reset()
+            self.table.fill_(self._pool.sentinel)
+        else:
+            for name, leaf in self.cache.items():
+                leaf.fill_(1 if name in ("ks", "vs") else 0)
         if self.spec:
             for leaf in self._draft_cache.values():
                 leaf.zero_()
@@ -847,7 +1040,6 @@ class GenerationEngine:
                        self.top_ks, self.sample_keys, self.active):
             tensor.zero_()
         self.top_ps.fill_(1.0)
-        self.table.fill_(self._pool.sentinel)
 
     def _fail_outstanding(self, exc: BaseException) -> None:
         """Fail every caller bound to an active slot. Queued requests were
@@ -927,6 +1119,9 @@ class GenerationEngine:
                 if not req.future.done():
                     req.future.cancel()
                 continue
+            if not self.paged:
+                by_bucket.setdefault(req.bucket, []).append(req)
+                continue
             need = -(-len(req.prompt) // self.kv_page)
             if need + self._kv_reserve > self._pool.num_pages:
                 self._reject(req, RuntimeError(
@@ -950,22 +1145,24 @@ class GenerationEngine:
         for claimed, args, pages in staged:
             self._publishq.append(self._on_device(
                 loop, "prefill", claimed, self._prefill_insert, *args))
-            self._pool.note_writes(pages)
+            if self.paged:
+                self._pool.note_writes(pages)
             self.prefill_dispatches += 1
 
     def _claim_group(self, bucket: int, group: List[_Request]):
-        """Bind each request of one bucket group to a slot and its fresh
-        pages, rows 0.. in order (padding rows follow); returns
+        """Bind each request of one bucket group to a slot (paged: and its
+        fresh pages), rows 0.. in order (padding rows follow); returns
         ([(slot, gen, row)], prefill args, pages written)."""
         nb = next(x for x in self._n_ladder if x >= len(group))
-        npg = bucket // self.kv_page
+        npg = bucket // self.kv_page if self.paged else 0
         padded = np.zeros((nb, bucket), np.int64)
         rows = np.zeros((4, nb), np.int64)      # lengths, slots, top_ks, seeds
         rows[0] = 1
         rows[1] = self.max_slots               # padding: no slot
         floats = np.zeros((2, nb), np.float32)  # temps, top_ps
         floats[1] = 1.0
-        flat_ids = np.full((nb * npg,), self._pool.sentinel, np.int64)
+        flat_ids = (np.full((nb * npg,), self._pool.sentinel, np.int64)
+                    if self.paged else np.zeros(0, np.int64))
         claimed = []
         pages = 0
         for row, req in enumerate(group):
@@ -982,17 +1179,18 @@ class GenerationEngine:
             slot.inflight = 1          # the prefill's first token
             slot.temperature = req.sampling.temperature
             slot.fill = len(req.prompt)
-            n_fresh = -(-len(req.prompt) // self.kv_page)
-            ids = self._pool.alloc(n_fresh)
-            if ids is None:
-                raise RuntimeError(
-                    f"kv page pool exhausted at admission: {n_fresh} pages "
-                    f"wanted, {self._pool.free_pages} free")
-            slot.pages = list(ids)
-            self._table[slot_idx, :n_fresh] = ids
-            self._table_version += 1
-            flat_ids[row * npg:row * npg + n_fresh] = ids
-            pages += n_fresh
+            if self.paged:
+                n_fresh = -(-len(req.prompt) // self.kv_page)
+                ids = self._pool.alloc(n_fresh)
+                if ids is None:
+                    raise RuntimeError(
+                        f"kv page pool exhausted at admission: {n_fresh} "
+                        f"pages wanted, {self._pool.free_pages} free")
+                slot.pages = list(ids)
+                self._table[slot_idx, :n_fresh] = ids
+                self._table_version += 1
+                flat_ids[row * npg:row * npg + n_fresh] = ids
+                pages += n_fresh
             padded[row, :len(req.prompt)] = req.prompt
             rows[:, row] = (len(req.prompt), slot_idx, req.sampling.top_k,
                             req.sampling.seed & 0xFFFFFFFF)
@@ -1027,11 +1225,12 @@ class GenerationEngine:
         eligible = self._cover_pages(eligible, k)
         if not eligible:
             return None
+        window = self._tick_window(eligible, k)
         mask, sampled, snapshot = self._charge(eligible, k)
         self.decode_steps += k
         self.ticks += 1
-        return self._dispatch(loop, ("plain", k, sampled), mask, "tick",
-                              snapshot)
+        return self._dispatch(loop, ("plain", k, sampled, window), mask,
+                              "tick", snapshot)
 
     def _dispatch_spec(self, loop, eligible, g: int) -> Optional[_Fetch]:
         """Dispatch one speculative tick at rung ``g``: charge every slot
@@ -1040,21 +1239,31 @@ class GenerationEngine:
         eligible = self._cover_pages(eligible, g + 1)
         if not eligible:
             return None
+        window = self._tick_window(eligible, g + 1)
         mask, sampled, snapshot = self._charge(eligible, g + 1)
         self.spec_rungs[g] = self.spec_rungs.get(g, 0) + 1
         self.draft_steps += g + 1
-        return self._dispatch(loop, ("spec", g, sampled), mask, "spec",
-                              (snapshot, g))
+        return self._dispatch(loop, ("spec", g, sampled, window), mask,
+                              "spec", (snapshot, g))
+
+    def _tick_window(self, eligible, n: int) -> Optional[int]:
+        """The window rung of a tick that writes ``n`` tokens a slot, from
+        the fills before it is charged (JAX ``_pick_window``); the paged
+        engine's ticks read the whole table (None)."""
+        if self.paged:
+            return None
+        return self._pick_window([slot.fill for _, slot in eligible], n)
 
     def _dispatch(self, loop, key, mask: np.ndarray, kind: str,
                   payload) -> _Fetch:
-        """Queue tick ``key`` with the mask and the page table, each only
-        if it changed since the last upload (a snapshot taken here, in
-        dispatch order). Returns its fetch."""
+        """Queue tick ``key`` with the mask and (paged) the page table,
+        each only if it changed since the last upload (a snapshot taken
+        here, in dispatch order). Returns its fetch."""
+        self.window_ticks[key[3]] = self.window_ticks.get(key[3], 0) + 1
         sent_mask = mask.tobytes()
         mask_up = None if sent_mask == self._sent_mask else mask
         table_up = None
-        if self._sent_table != self._table_version:
+        if self.paged and self._sent_table != self._table_version:
             table_up = self._table.copy()
         self._sent_mask, self._sent_table = sent_mask, self._table_version
         return self._on_device(loop, kind, payload, self._run_tick, key,
@@ -1101,7 +1310,10 @@ class GenerationEngine:
 
     def _cover_pages(self, eligible, k: int):
         """Grow each slot's pages to cover its fill + k tokens. Slots the
-        pool cannot cover sit this tick out."""
+        pool cannot cover sit this tick out. A dense slot's cache row
+        covers max_len."""
+        if not self.paged:
+            return eligible
         covered = []
         for slot_idx, slot in eligible:
             need = -(-(slot.fill + k) // self.kv_page)
@@ -1195,7 +1407,10 @@ class GenerationEngine:
 
     def _release_slot_kv(self, slot_idx: int, slot: _Slot) -> None:
         """Return a finished slot's pages to the pool and reset its table
-        row to the sentinel, so a recycled slot never reads a stale page."""
+        row to the sentinel, so a recycled slot never reads a stale page.
+        A dense slot's row is overwritten by its next insert."""
+        if not self.paged:
+            return
         if slot.pages:
             self._pool.release(slot.pages)
             slot.pages = []

@@ -4,12 +4,15 @@
 ``port_engine_profile.run_cell`` (8 concurrent requests of 32 new tokens
 over prompts of 5..512 tokens, one sampled; an unprofiled burst for
 tok/s, TTFT and peak memory, then a profiled one for the device's idle
-share) is run for each cell (plain, spec, int8, int8 spec) by one
-subprocess per tree, that tree's ``gofr_tpu_torch`` first on its path.
+share) is run for each cell (plain, spec, int8, int8 spec over the paged
+pool; ``--dense`` adds the same four over the dense cache and its window
+ladder) by one subprocess per tree, that tree's ``gofr_tpu_torch`` first
+on its path.
 Each pair runs both trees, A first in even pairs and B first in odd
 ones. It prints, for each cell and metric, both trees' medians and the
-per-pair ratios B / A with their median, min and max; everything goes to
-``--out``.
+per-pair ratios B / A with their median, min and max, and with
+``--dense`` each dense cell's ratios to its paged cell within each
+process; everything goes to ``--out``.
 
     git archive PARENT | tar -x -C build/ab/parent    # and so on
     python3 scripts/engine_ab.py build/ab/parent build/ab/change --pairs 10
@@ -33,8 +36,12 @@ import sys
 import time
 from pathlib import Path
 
-CELLS = {"plain": (False, 0), "spec": (False, 4), "int8": (True, 0),
-         "int8_spec": (True, 4)}
+# cell: (kv_int8, spec_gamma, dense)
+CELLS = {"plain": (False, 0, False), "spec": (False, 4, False),
+         "int8": (True, 0, False), "int8_spec": (True, 4, False),
+         "dense": (False, 0, True), "dense_spec": (False, 4, True),
+         "dense_int8": (True, 0, True), "dense_int8_spec": (True, 4, True)}
+PAGED_CELLS = ("plain", "spec", "int8", "int8_spec")
 METRICS = ("tokens_per_s", "ttft_p50_s", "ttft_max_s", "device_idle_share",
            "device_busy_s", "peak_mem_gb", "warmup_s", "warmup_mem_gb")
 MARK = "ENGINE_AB_RESULT "
@@ -66,11 +73,11 @@ def worker(args) -> int:
     params = llama.init(cfg, args.seed, device=args.device)
     cells = {}
     for name in args.cells.split(","):
-        int8, gamma = CELLS[name]
+        int8, gamma, dense = CELLS[name]
         ccfg = dataclasses.replace(cfg, kv_int8=int8)
         engine = profile_mod.make_engine(
             generate, llama, ccfg, params, gamma, device=args.device,
-            max_inflight_ticks=args.max_inflight_ticks)
+            dense=dense, max_inflight_ticks=args.max_inflight_ticks)
         cells[name] = profile_mod.run_cell(
             torch, generate, engine, cfg.vocab_size, args.seed,
             profile=cuda)
@@ -133,7 +140,10 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("trees", nargs="*", help="tree A, tree B")
     parser.add_argument("--pairs", type=int, default=10)
-    parser.add_argument("--cells", default=",".join(CELLS))
+    parser.add_argument("--cells", default=",".join(PAGED_CELLS))
+    parser.add_argument("--dense", action="store_true",
+                        help="add the dense-cache cells (dense, dense_spec, "
+                             "dense_int8, dense_int8_spec) to --cells")
     parser.add_argument("--layers", type=int, default=32)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--max-inflight-ticks", type=int, default=2,
@@ -158,6 +168,9 @@ def main() -> int:
                                     runs[0]["B"]["tree"]], args.out)
     if len(args.trees) != 2:
         parser.error("give two trees")
+    if args.dense:
+        args.cells = ",".join([args.cells] + [name for name in CELLS
+                                              if name.startswith("dense")])
     cells = args.cells.split(",")
     tree_a, tree_b = args.trees
     runs = []
@@ -180,9 +193,33 @@ def main() -> int:
     return report(runs, cells, [tree_a, tree_b], args.out)
 
 
+def dense_vs_paged(runs, cells):
+    """Per dense cell whose paged cell also ran: the ratios dense / paged
+    of each metric within each worker process (both trees, every pair),
+    with their median, min and max."""
+    table = {}
+    for cell in cells:
+        paged = cell[len("dense_"):] if cell != "dense" else "plain"
+        if not cell.startswith("dense") or paged not in cells:
+            continue
+        rows = {}
+        for metric in METRICS:
+            ratios = [run["cells"][cell][metric] / run["cells"][paged][metric]
+                      for pair in runs for run in (pair["A"], pair["B"])
+                      if run["cells"][cell].get(metric)
+                      and run["cells"][paged].get(metric)]
+            if ratios:
+                rows[metric] = dict(ratios=ratios,
+                                    median=statistics.median(ratios),
+                                    min=min(ratios), max=max(ratios))
+        table[cell] = rows
+    return table
+
+
 def report(runs, cells, trees, out_path) -> int:
     """Print and write the summary of ``runs``."""
     table = summarize(runs, cells)
+    versus = dense_vs_paged(runs, cells)
     for cell, rows in table.items():
         for metric, row in rows.items():
             print(f"{cell:9s} {metric:18s} A {row['a_median']:.6g} "
@@ -191,8 +228,13 @@ def report(runs, cells, trees, out_path) -> int:
                   f"{row['b_max']:.6g}]  B/A median "
                   f"{row['ratio_median']:.4f} [{row['ratio_min']:.4f}, "
                   f"{row['ratio_max']:.4f}]", flush=True)
+    for cell, rows in versus.items():
+        for metric, row in rows.items():
+            print(f"{cell} / paged {metric:18s} median {row['median']:.4f} "
+                  f"[{row['min']:.4f}, {row['max']:.4f}] over "
+                  f"{len(row['ratios'])} processes", flush=True)
     result = dict(trees=trees, pairs=len(runs), card=runs[0]["A"]["card"],
-                  summary=table, runs=runs)
+                  summary=table, dense_vs_paged=versus, runs=runs)
     out = Path(out_path)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(result, indent=1))

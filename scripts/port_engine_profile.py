@@ -3,6 +3,7 @@
 
 Runs the engine configuration of ``chip_smoke.py``'s engine phase
 (``llama3-8b`` width, random weights from ``--seed``, paged KV, page 32,
+or with ``--dense`` the dense cache and its attention-window ladder,
 8 slots, buckets 32/128/512, 4 steps per tick) over the same 8 concurrent
 requests (prompts 5..512 tokens, 32 new tokens each, one sampled), once
 unprofiled for the end-to-end numbers and once under ``torch.profiler``
@@ -52,7 +53,8 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from chip_smoke import DRAFT_LAYERS, card_line, draft_view  # noqa: E402
+from chip_smoke import (DRAFT_LAYERS, card_line, device_times,  # noqa: E402
+                        draft_view)
 
 # kernel names of gofr_tpu_torch/csrc, as the profiler shows them
 PORT_KERNELS = ("flash_wgmma_kernel", "flash_fwd_kernel",
@@ -63,36 +65,26 @@ BUDGET = 32
 
 
 def make_engine(generate, llama, cfg, params, spec_gamma=0, device="cuda",
-                **engine_kw):
+                dense=False, **engine_kw):
     """The cell's engine: the configuration of ``chip_smoke.py``'s engine
-    phase, speculative (a draft of views of the target's first layers)
+    phase, paged (or with ``dense`` the dense cache and its window
+    ladder), speculative (a draft of views of the target's first layers)
     when ``spec_gamma`` is set. ``engine_kw`` entries the engine does not
-    take (an older tree's) are dropped."""
+    take (an older tree's) are dropped: a tree without ``paged_kv`` has
+    only the paged engine."""
     kw = dict(max_slots=8, max_len=2048, prompt_buckets=(32, 128, 512),
               steps_per_tick=4, kv_page=32, device=device)
+    takes = inspect.signature(generate.GenerationEngine).parameters
+    if "paged_kv" in takes:
+        kw["paged_kv"] = not dense
+    elif dense:
+        raise ValueError("this tree's engine has no dense cache")
     if spec_gamma:
         dcfg, dparams = draft_view(llama, cfg, params, DRAFT_LAYERS)
         kw.update(draft_cfg=dcfg, draft_params=dparams,
                   spec_gamma=spec_gamma)
-    takes = inspect.signature(generate.GenerationEngine).parameters
     kw.update({key: val for key, val in engine_kw.items() if key in takes})
     return generate.GenerationEngine(cfg, params, **kw)
-
-
-def _kernel_times(torch, prof):
-    """Device seconds and counts by name of every device event (kernels,
-    copies, fills) of the profiled run, from the raw trace events (the
-    aggregated ``key_averages()`` takes tens of seconds over the ~10^5
-    events of an eager burst)."""
-    by_kernel, calls = {}, {}
-    cuda = torch.autograd.DeviceType.CUDA
-    for evt in prof.profiler.kineto_results.events():
-        if evt.device_type() == cuda and evt.duration_ns() > 0:
-            name = evt.name()
-            by_kernel[name] = by_kernel.get(name, 0.0) \
-                + evt.duration_ns() / 1e9
-            calls[name] = calls.get(name, 0) + 1
-    return by_kernel, calls
 
 
 def run_cell(torch, generate, engine, vocab_size, seed=0, profile=True):
@@ -165,7 +157,10 @@ def run_cell(torch, generate, engine, vocab_size, seed=0, profile=True):
         "kv_int8": bool(engine.cfg.kv_int8),
         "spec_gamma": engine.spec_gamma if engine.spec else 0,
         "max_inflight_ticks": stats.get("max_inflight_ticks"),
-        "kv_pool": stats["kv_pool"],
+        "paged": "kv_pool" in stats,
+        "kv_pool": stats.get("kv_pool"),
+        "kv_cache": stats.get("kv_cache"),
+        "ticks_by_window": stats.get("ticks_by_window"),
         "wall_s": wall,
         "tokens_per_s": tokens / wall,
         "ttft_p50_s": ttfts[len(ttfts) // 2],
@@ -177,7 +172,7 @@ def run_cell(torch, generate, engine, vocab_size, seed=0, profile=True):
         "greedy_outputs": outs[:7],
     }
     if prof is not None and cuda:
-        by_kernel, calls = _kernel_times(torch, prof)
+        by_kernel, calls = device_times(torch, prof)
         busy = sum(by_kernel.values())
         result.update({
             "profiled_wall_s": prof_wall,
@@ -210,6 +205,9 @@ def main() -> int:
                         help="speculative decode with this gamma (0: off)")
     parser.add_argument("--kv-int8", action="store_true",
                         help="int8 KV pool with float32 scale planes")
+    parser.add_argument("--dense", action="store_true",
+                        help="the dense cache and its window ladder "
+                             "(paged_kv=False) instead of the paged pool")
     parser.add_argument("--out", default="chiprun_out/engine_profile.json")
     args = parser.parse_args()
 
@@ -226,7 +224,8 @@ def main() -> int:
     cfg = llama.config("llama3-8b", n_layers=args.layers, use_flash=True,
                        kv_int8=args.kv_int8)
     params = llama.init(cfg, args.seed, device="cuda")
-    engine = make_engine(generate, llama, cfg, params, args.spec_gamma)
+    engine = make_engine(generate, llama, cfg, params, args.spec_gamma,
+                         dense=args.dense)
     result = {"device": torch.cuda.get_device_name(0), "card": card_line(),
               "n_layers": args.layers,
               **run_cell(torch, generate, engine, cfg.vocab_size, args.seed)}

@@ -9,6 +9,8 @@ form). Run them on the GPU host with
   greedy and sampled, over bf16 and int8 pools. The pool's scratch page
   is left out: it takes every dropped write, and which of several lands
   last is not defined.
+- The same for the dense engine's ticks at window rung 128, the cache
+  whole.
 - The kernel launch counters move by the same counts under a replay as
   under the eager run.
 - ``GenerationEngine`` refuses at construction, on CUDA, each
@@ -49,7 +51,7 @@ def _cfg(**over):
                use_flash=True), **over})
 
 
-def _engine(cuda, int8=False, spec=False):
+def _engine(cuda, int8=False, spec=False, paged=True):
     cfg = _cfg(kv_int8=int8)
     params = llama.init(cfg, 0, device=cuda)
     kw = {}
@@ -60,24 +62,27 @@ def _engine(cuda, int8=False, spec=False):
                   spec_gamma=4)
     return GenerationEngine(cfg, params, max_slots=SLOTS, max_len=MAX_LEN,
                             prompt_buckets=(32, 64), steps_per_tick=4,
-                            kv_page=PAGE, device=cuda, **kw)
+                            paged_kv=paged, kv_page=PAGE, device=cuda, **kw)
 
 
-def _fill_state(engine, seed):
-    """Random live state: fills, tokens, sampling rows, keys, pages of
-    random KV through a scattered table; slot 3 inactive."""
+def _fill_state(engine, seed, fills=(0, 37, 200, 90)):
+    """Random live state: fills, tokens, sampling rows, keys, random KV
+    (paged: pages through a scattered table); slot 3 inactive."""
     rng = np.random.default_rng(seed)
-    pool = engine._pool
-    fills = np.array([0, 37, 200, 90])
-    table = np.full(engine.table.shape, pool.sentinel, np.int32)
-    order = rng.permutation(pool.num_pages)
-    nxt = 0
-    for slot, fill in enumerate(fills):
-        for col in range(-(-(int(fill) + 5) // PAGE)):     # room for γ + 1
-            table[slot, col] = order[nxt]
-            nxt += 1
+    fills = np.array(fills)
     gen = torch.Generator(device=engine.device).manual_seed(seed)
-    for name, leaf in pool.leaves.items():
+    if engine.paged:
+        pool = engine._pool
+        table = np.full(engine.table.shape, pool.sentinel, np.int32)
+        order = rng.permutation(pool.num_pages)
+        nxt = 0
+        for slot, fill in enumerate(fills):
+            for col in range(-(-(int(fill) + 5) // PAGE)):  # room for γ + 1
+                table[slot, col] = order[nxt]
+                nxt += 1
+        engine.table.copy_(torch.from_numpy(table))
+    leaves = engine._pool.leaves if engine.paged else engine.cache
+    for name, leaf in leaves.items():
         if leaf.dtype == torch.int8:
             leaf.copy_(torch.randint(-127, 128, leaf.shape, generator=gen,
                                      device=leaf.device, dtype=torch.int8))
@@ -88,7 +93,6 @@ def _fill_state(engine, seed):
         for leaf in engine._draft_cache.values():
             leaf.copy_(torch.randn(leaf.shape, generator=gen,
                                    device=leaf.device))
-    engine.table.copy_(torch.from_numpy(table))
     engine.cache_len.copy_(torch.from_numpy(fills).int())
     engine.last_token.copy_(torch.from_numpy(rng.integers(0, 1024, SLOTS)))
     engine.temps.copy_(torch.tensor([0.0, 0.8, 1.2, 0.9]))
@@ -102,7 +106,11 @@ def _fill_state(engine, seed):
 def _state(engine):
     tensors = {"cache_len": engine.cache_len, "last_token": engine.last_token,
                "keys": engine.sample_keys}
-    tensors.update({f"pool.{k}": v for k, v in engine._pool.leaves.items()})
+    if engine.paged:
+        tensors.update({f"pool.{k}": v
+                        for k, v in engine._pool.leaves.items()})
+    else:
+        tensors.update({f"cache.{k}": v for k, v in engine.cache.items()})
     if engine.spec:
         tensors.update({f"draft.{k}": v
                         for k, v in engine._draft_cache.items()})
@@ -123,7 +131,7 @@ def _bits(t):
 @pytest.mark.parametrize("kind", ["plain", "spec"])
 def test_replayed_tick_is_bitwise_the_eager_tick(cuda, kind, sampled, int8):
     engine = _engine(cuda, int8=int8, spec=kind == "spec")
-    key = (kind, 4, sampled)
+    key = (kind, 4, sampled, None)
     asyncio.run(engine.warmup(ks=(4,)))
     assert key in engine._graphs
     _fill_state(engine, 3)
@@ -148,6 +156,41 @@ def test_replayed_tick_is_bitwise_the_eager_tick(cuda, kind, sampled, int8):
             want = after_eager[name]
         assert torch.equal(_bits(tensor), _bits(want)), name
     # the tick moved the live slots and kept the inactive one
+    assert not torch.equal(after_eager["cache_len"][:3],
+                           saved["cache_len"][:3])
+    assert after_eager["cache_len"][3] == saved["cache_len"][3]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("sampled", [False, True])
+@pytest.mark.parametrize("kind", ["plain", "spec"])
+def test_dense_tick_replay_is_bitwise_the_eager_tick(cuda, kind, sampled,
+                                                     int8):
+    """The dense engine's tick at window 128 (the ragged kernels over the
+    128-position identity table; the draft's flash decode over the
+    window's view), fills below the window and the inactive slot's past
+    it: replay and eager run give the same tokens and state, the whole
+    cache included (no scratch rows: the inactive slot writes at its
+    frozen position)."""
+    engine = _engine(cuda, int8=int8, spec=kind == "spec", paged=False)
+    key = (kind, 4, sampled, 128)
+    asyncio.run(engine.warmup(ks=(4,), windows=(128,)))
+    assert key in engine._graphs
+    _fill_state(engine, 5, fills=(0, 37, 100, 200))
+    saved = {k: v.clone() for k, v in _state(engine).items()}
+    launch_counts.write({k: 0 for k in launch_counts.read()})
+    eager = engine._tick_body(key, engine.active).clone()
+    torch.cuda.synchronize()
+    eager_counts = launch_counts.read()
+    after_eager = {k: v.clone() for k, v in _state(engine).items()}
+    _restore(engine, saved)
+    launch_counts.write({k: 0 for k in launch_counts.read()})
+    replayed = engine._run_tick(key, None, None)()
+    assert launch_counts.read() == eager_counts
+    assert any(eager_counts.values())
+    np.testing.assert_array_equal(replayed, eager.cpu().numpy())
+    for name, tensor in _state(engine).items():
+        assert torch.equal(_bits(tensor), _bits(after_eager[name])), name
     assert not torch.equal(after_eager["cache_len"][:3],
                            saved["cache_len"][:3])
     assert after_eager["cache_len"][3] == saved["cache_len"][3]

@@ -14,13 +14,19 @@ rounds once at the output: within one bf16 ulp of each element. At G = 1
 the ragged kernel's verify instantiation equals its decode instantiation
 bit for bit, over bf16 and over int8 pools. The int8 instantiations are
 held to the ragged limits against the int8 plain version, with NaN in
-the scale planes at every position no live entry references.
+the scale planes at every position no live entry references. The
+dense cache's two routes: flash decode over an attention window's view
+(the full cache's slot stride) equal to its plain version and to itself
+over the window copied out, and the ragged kernel over a dense cache
+viewed as pages through an identity table, every rung, held to the
+ragged bounds against its plain version.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from gofr_tpu_torch.models import llama
 from gofr_tpu_torch.ops.cuda import decode_attention as decode_mod
 from gofr_tpu_torch.ops.cuda import flash_attention as flash_mod
 from gofr_tpu_torch.ops.cuda import ragged_paged_attention as ragged_mod
@@ -335,3 +341,82 @@ def test_flash_decode_split_kernel_on_chunk_edges(cuda, t_max, fills):
     ref = decode_mod.flash_decode_attention_plain(q, k, v, kn, vn, lens)
     assert torch.isfinite(out).all()
     assert ulp_error(out, ref) <= 1.0
+
+
+def test_flash_decode_kernel_over_a_window_view(cuda):
+    """Windows 128..1024 of a 2048-position cache, fills below each
+    window and one past it; every row past the window NaN."""
+    fills = [0, 1, 127, 128, 129, 700, 1500, 2047]
+    b, t_max, hq, hkv = len(fills), 2048, 32, 8
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    k, v = (torch.randn((b, t_max, hkv, 128), generator=gen, device=cuda)
+            .bfloat16() for _ in range(2))
+    q = torch.randn((b, 1, hq, 128), generator=gen, device=cuda).bfloat16()
+    kn, vn = (torch.randn((b, hkv, 128), generator=gen, device=cuda)
+              .bfloat16() for _ in range(2))
+    for w in (128, 256, 512, 1024):
+        lens = torch.tensor([min(n, w - 1) for n in fills[:-1]] + [w + 300],
+                            dtype=torch.int32, device=cuda)
+        kw, vw = (x.clone() for x in (k, v))
+        kw[:, w:] = float("nan")
+        vw[:, w:] = float("nan")
+        before = decode_mod.launches
+        out = decode_mod.flash_decode_attention(q, kw[:, :w], vw[:, :w], kn,
+                                                vn, lens)
+        copied = decode_mod.flash_decode_attention(
+            q, kw[:, :w].contiguous(), vw[:, :w].contiguous(), kn, vn, lens)
+        torch.cuda.synchronize()
+        assert decode_mod.launches == before + 2
+        ref = decode_mod.flash_decode_attention_plain(q, kw[:, :w], vw[:, :w],
+                                                      kn, vn, lens)
+        assert torch.isfinite(out).all()
+        assert torch.equal(out.view(torch.int16), copied.view(torch.int16))
+        assert ulp_error(out, ref) <= 1.0
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("g_len", [1, 5])
+def test_ragged_kernel_over_an_identity_table(cuda, g_len, int8):
+    """A dense (B 8, T 1024, Hkv 8) cache viewed as pages of 32 in slot
+    order, each window rung's identity table, fills below the rung and one
+    row past it; every position past a row's fill (the window's, for the
+    row past it) NaN, scale planes too."""
+    b, t_max, hq, hkv, page = 8, 1024, 32, 8, 32
+    gen = torch.Generator(device=cuda).manual_seed(17 + g_len)
+    shape = (b, t_max, hkv, 128)
+    q = torch.randn((b, g_len, hq, 128), generator=gen, device=cuda)\
+        .bfloat16()
+    kn, vn = (torch.randn((b, g_len, hkv, 128), generator=gen, device=cuda)
+              .bfloat16() for _ in range(2))
+    k, v = (torch.randn(shape, generator=gen, device=cuda)
+            for _ in range(2))
+    for w in (128, 256, 512, None):
+        top = w or t_max
+        fills = [0, 1, 31, 32, 33, top // 2, top - g_len, top + 77]
+        lens = torch.tensor([min(n, t_max) for n in fills],
+                            dtype=torch.int32, device=cuda)
+        dead = (torch.arange(t_max, device=cuda)[None, :]
+                >= torch.clamp(lens, max=top)[:, None])    # (B, T)
+        if int8:
+            (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+            ks = ks.masked_fill(dead[..., None], float("nan"))
+            vs = vs.masked_fill(dead[..., None], float("nan"))
+            pools = [k8.view(-1, page, hkv, 128), v8.view(-1, page, hkv, 128),
+                     ks.view(-1, page, hkv), vs.view(-1, page, hkv)]
+        else:
+            kb, vb = (x.bfloat16().masked_fill(dead[..., None, None],
+                                               float("nan")) for x in (k, v))
+            pools = [kb.view(-1, page, hkv, 128), vb.view(-1, page, hkv, 128)]
+        table = llama.identity_table(b, t_max, w, device=cuda)
+        args = [q, pools[0], pools[1], table, kn, vn, lens] + pools[2:]
+        if g_len == 1:
+            args[4], args[5] = kn[:, 0], vn[:, 0]
+            out = ragged_mod.ragged_paged_decode_attention(*args)
+            ref = ragged_mod.ragged_paged_decode_attention_plain(*args)
+        else:
+            out = ragged_mod.ragged_paged_verify_attention(*args)
+            ref = ragged_mod.ragged_paged_verify_attention_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all(), w
+        assert (out.float() - ref.float()).abs().max().item() <= 2e-2, w
+        assert row_rel_l2(out, ref) <= 2.0 ** -8, w

@@ -27,7 +27,7 @@ from gofr_tpu_torch.tpu.generate import GenerationEngine, Sampling
 PROMPTS = [[1, 2, 3, 4, 5], list(range(1, 11)), [9, 8, 7]]
 BUDGET = 6
 ENGINE_KW = dict(max_slots=4, max_len=64, prompt_buckets=(8, 16),
-                 kv_page=4)
+                 paged_kv=True, kv_page=4)
 
 
 async def _serve(engine, prompts, concurrent=False, **kw):
@@ -50,7 +50,7 @@ def setup():
     jparams = jax_llama.init(jcfg, jax.random.PRNGKey(0))
     container = new_mock_container()
     jax_engine = JaxEngine(jcfg, jparams, logger=container.logger,
-                           metrics=container.metrics, paged_kv=True,
+                           metrics=container.metrics,
                            ragged_attn="on", **ENGINE_KW)
     reference = asyncio.run(_serve(jax_engine, PROMPTS))
     tcfg = pt_llama.config("tiny", dtype=torch.float32, use_flash=True)
@@ -70,7 +70,7 @@ def jax_at_depth():
         if (inflight, steps_per_tick) not in cache:
             container = new_mock_container()
             engine = JaxEngine(jcfg, jparams, logger=container.logger,
-                               metrics=container.metrics, paged_kv=True,
+                               metrics=container.metrics,
                                ragged_attn="on", max_inflight_ticks=inflight,
                                steps_per_tick=steps_per_tick, **ENGINE_KW)
             cache[inflight, steps_per_tick] = asyncio.run(

@@ -30,6 +30,7 @@ and the dequantised rows are held to ``atol=1e-5`` plus one step.
 """
 
 import asyncio
+import dataclasses
 import importlib
 
 import jax
@@ -386,7 +387,7 @@ def test_page_pool_int8_leaves_and_bytes(models):
 PROMPTS = [[1, 2, 3, 4, 5], list(range(1, 11)), [9, 8, 7]]
 BUDGET = 8
 ENGINE_KW = dict(max_slots=4, max_len=64, prompt_buckets=(8, 16),
-                 kv_page=4)
+                 paged_kv=True, kv_page=4)
 
 
 async def _serve(engine, prompts, concurrent=False):
@@ -416,13 +417,13 @@ def engines():
     reference = {}
     container = new_mock_container()
     engine = JaxEngine(jcfg, jparams, logger=container.logger,
-                       metrics=container.metrics, paged_kv=True,
+                       metrics=container.metrics,
                        ragged_attn="on", **ENGINE_KW)
     reference["plain"] = asyncio.run(_serve(engine, PROMPTS))
     for name, jd in drafts.items():
         container = new_mock_container()
         engine = JaxEngine(jcfg, jparams, logger=container.logger,
-                           metrics=container.metrics, paged_kv=True,
+                           metrics=container.metrics,
                            ragged_attn="on", draft_cfg=jdcfg,
                            draft_params=jd, spec_gamma=4, **ENGINE_KW)
         reference[name] = asyncio.run(_serve(engine, PROMPTS,
@@ -467,7 +468,7 @@ def jax_int8_at_depth():
         if (inflight, steps_per_tick) not in cache:
             container = new_mock_container()
             engine = JaxEngine(jcfg, jparams, logger=container.logger,
-                               metrics=container.metrics, paged_kv=True,
+                               metrics=container.metrics,
                                ragged_attn="on", max_inflight_ticks=inflight,
                                steps_per_tick=steps_per_tick, **ENGINE_KW)
             cache[inflight, steps_per_tick] = asyncio.run(
@@ -516,8 +517,8 @@ def test_kv_int8_draft_and_dense_decode_step_are_refused(engines):
         GenerationEngine(engines["cfg"], engines["params"], device="cpu",
                          draft_cfg=engines["cfg"],
                          draft_params=engines["params"], **ENGINE_KW)
-    cfg = engines["cfg"]
-    cache = pt_llama.init_cache(cfg, 2, 8, device="cpu")
+    # the dense step's flash-decode route reads a bf16 cache: an int8
+    # config cannot take it (the dense int8 step runs the ragged route,
+    # tests/test_torch_dense.py)
     with pytest.raises(ValueError, match="kv_int8"):
-        pt_llama.decode_step(engines["params"], cfg, torch.tensor([1, 2]),
-                             cache, torch.tensor([0, 3], dtype=torch.int32))
+        dataclasses.replace(engines["cfg"], use_flash_decode=True)

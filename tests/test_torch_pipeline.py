@@ -40,7 +40,7 @@ from gofr_tpu_torch.tpu.page_pool import PagePool
 PROMPTS = [[1, 2, 3, 4, 5], list(range(1, 11)), [9, 8, 7], [4, 4, 4, 4]]
 BUDGET = 8
 ENGINE_KW = dict(max_slots=4, max_len=64, prompt_buckets=(8, 16),
-                 kv_page=4)
+                 paged_kv=True, kv_page=4)
 
 
 @pytest.fixture(scope="module")
@@ -227,8 +227,8 @@ def test_static_shape_write_touches_only_live_destinations(model, g_len):
 
 def test_cuda_refusal_predicate_names_each_limit(model):
     cfg = llama.config("llama3-8b")
-    assert cuda_refusals(cfg, 2048, 32, cfg, 4) == []
-    assert cuda_refusals(cfg, 8192, 32) == []
+    assert cuda_refusals(cfg, 2048, 32, cfg, 4, paged_kv=True) == []
+    assert cuda_refusals(cfg, 8192, 32, paged_kv=True) == []
     cases = {
         "MAX_VERIFY_TOKENS": (cfg, dict(spec_gamma=ragged_mod
                                         .MAX_VERIFY_TOKENS)),
@@ -241,8 +241,8 @@ def test_cuda_refusal_predicate_names_each_limit(model):
                          dict(max_len=16384)),
     }
     for limit, (c, kw) in cases.items():
-        kw = {**dict(max_len=2048, kv_page=32, draft_cfg=c, spec_gamma=4),
-              **kw}
+        kw = {**dict(max_len=2048, kv_page=32, draft_cfg=c, spec_gamma=4,
+                     paged_kv=True), **kw}
         refused = cuda_refusals(c, **kw)
         assert any(limit in line for line in refused), (limit, refused)
     # the CPU runs the plain versions, which take every one of them

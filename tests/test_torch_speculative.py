@@ -50,7 +50,7 @@ from gofr_tpu_torch.tpu.generate import GenerationEngine, Sampling
 PROMPTS = [[1, 2, 3, 4, 5], [9, 8, 7], [3, 3, 3, 3, 3, 3, 3, 1]]
 BUDGET = 12
 ENGINE_KW = dict(max_slots=4, max_len=64, prompt_buckets=(8, 16),
-                 kv_page=4)
+                 paged_kv=True, kv_page=4)
 
 
 # -- speculative_accept --------------------------------------------------------
@@ -131,7 +131,8 @@ def flash_models():
     jcfg = jax_llama.config("tiny", dtype=jnp.float32,
                             use_flash_decode=True, **over)
     jparams = jax_llama.init(jcfg, jax.random.PRNGKey(1))
-    tcfg = pt_llama.config("tiny", dtype=torch.float32, **over)
+    tcfg = pt_llama.config("tiny", dtype=torch.float32,
+                           use_flash_decode=True, **over)
     tparams = from_jax_llama(jax.tree.map(np.asarray, jparams), "cpu")
     return jcfg, jparams, tcfg, tparams
 
@@ -278,7 +279,7 @@ def engines():
     for name, (jd, _) in drafts.items():
         container = new_mock_container()
         engine = JaxEngine(jcfg, jparams, logger=container.logger,
-                           metrics=container.metrics, paged_kv=True,
+                           metrics=container.metrics,
                            ragged_attn="on", draft_cfg=jcfg,
                            draft_params=jd, spec_gamma=4, **ENGINE_KW)
         reference[name] = asyncio.run(_serve(engine, PROMPTS))
@@ -298,7 +299,7 @@ def jax_spec_at_depth(engines):
         if (inflight, steps_per_tick) not in cache:
             container = new_mock_container()
             engine = JaxEngine(jcfg, jparams, logger=container.logger,
-                               metrics=container.metrics, paged_kv=True,
+                               metrics=container.metrics,
                                ragged_attn="on", draft_cfg=jcfg,
                                draft_params=jdraft, spec_gamma=4,
                                max_inflight_ticks=inflight,
