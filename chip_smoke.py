@@ -10,13 +10,16 @@ whose 4-layer draft decodes through the hand-written flash-decode kernel
 and whose target verifies G tokens at once through the ragged kernel's
 G > 1 launch; and both again with ``kv_int8`` (int8 KV pool with float32
 scale planes), whose decode and verify go through the ragged kernel's
-int8 instantiation.
+int8 instantiation; then the example app's default preset, ``small``
+(head_dim 64), at the example's engine settings, and prefix KV reuse
+on shared-prefix traffic.
 Phases, each of which raises (exit code != 0) on failure:
 
 1. card identity (``nvidia-smi`` name and power limit, torch/CUDA);
 2. kernel build (one ``nvcc`` per source, all at once) and its time,
-   and how many 8-block clusters of each of the ragged kernel's 16
-   instantiations the card keeps resident (verify at G 5);
+   and how many 8-block clusters of each of the ragged kernel's 32
+   instantiations (head_dim 128 and 64) the card keeps resident (verify
+   at G 5);
 3. flash kernel (bf16: both products on the tensor cores through wgmma)
    vs its plain version, bf16, Hq 32 / Hkv 8 / D 128, causal, S in
    {32, 128, 512, 2048}, B in {1, 4}; timed beside the plain version and
@@ -80,11 +83,39 @@ Phases, each of which raises (exit code != 0) on failure:
     one streamed request of 60 new tokens on a 100-token prompt must cross
     rung 128 to 256, and its 7 greedy completions must be the paged
     engine's tokens of the same configuration;
-19. one ``{"kernels": [...]}`` line, then the card line, then the last
-    line ``{"ok": true, "device": {...}}``.
+19. every kernel at head_dim 64, the ``small`` preset's shapes (Hq =
+    Hkv = 16, B 8, max_len 1024), under phases 3-6's gates: flash
+    prefill (B 4, S 512, with its ratio to SDPA), the ragged kernel's
+    decode and verify G 5 over bf16 and int8 pools (page 32, 32 table
+    columns, fills 0/1/31/32/33/500/512 and the last position) and over
+    identity tables at each rung of a 1024-position cache, its verify
+    instantiation at G = 1 bit-identical to its decode one, and flash
+    decode over T 1024 and its window views 128/256/512;
+20-23. the ``small`` preset at full width and depth (vocab 32000, 8
+    layers, dim 1024, 16/16 heads, ffn 2816, random weights) at the
+    example app's engine settings (dense, max_len 1024, 8 slots, 16
+    steps a tick, 4 ticks in flight) serving phase 9's burst: dense bf16
+    (20), paged (21; its greedy tokens must be 20's), dense ``kv_int8``
+    (22; the cache exactly 0.53125x 20's bytes), speculative with a
+    2-layer draft of views, bf16 then int8 target (23); every tick a
+    graph replay, launch counts as the counters predict;
+24. prefix KV reuse: two waves of 8 requests, each a 256-token system
+    prompt (8 pages of 32) and its own suffix of 5-200 tokens, 32 new
+    tokens, one sampled; wave 1 fills the store, wave 2 must admit all 8
+    at prefix rung 8, and with a bf16 cache its greedy tokens must equal
+    the store-off engine's (a difference prints its position and the
+    top-2 logit margin there); two rounds, each with its own system
+    prompt, the first warming the eager suffix prefill's shapes; TTFT and
+    the prefill stream's time of the second round's wave 2 with the
+    store on and off, reported; on ``small`` dense bf16,
+    paged bf16 and dense ``kv_int8`` (after phase 23), and on
+    ``llama3-8b`` dense bf16 (after phase 18);
+25. one ``{"kernels": [...]}`` line (every instantiation, head_dim 128
+    and 64, each with its launches on the main paths), then the card
+    line, then the last line ``{"ok": true, "device": {...}}``.
 
-Every engine burst (phases 9-12, 15-18) is served twice: counted, then
-under ``torch.profiler`` for the device's idle share.
+Every engine burst (phases 9-12, 15-18, 20-23) is served twice:
+counted, then under ``torch.profiler`` for the device's idle share.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. Details go to
 ``chiprun_out/chip_smoke.json``. Without CUDA, or without the package
@@ -120,15 +151,39 @@ RAGGED_ROW_TOL = 2.0 ** -8
 FLASH_DECODE_ULPS = 1.0
 MODEL_REL_TOL = 5e-2             # relative L2 logits error, see phase 7
 MIN_PERFECT_ACCEPT = 0.5         # a broken verify accepts near 0, phase 8
-Q_HEADS, KV_HEADS, HEAD_DIM = 32, 8, 128
 SPEC_GAMMA, DRAFT_LAYERS = 4, 4
 # int8 / bf16 pool bytes for one page (phase 11): (128 + 4) / 256 per
 # K or V row and head
 INT8_POOL_RATIO = 2_162_688 / 4_194_304
+# the same at head_dim 64 (phase 22): (64 + 4) / 128
+INT8_RATIO_D64 = 0.53125
+
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """The attention shapes a kernel case runs at: heads, head dim, the
+    paged table's width (columns of 32 positions), the dense cache's
+    positions and the fills its cases take."""
+    q_heads: int
+    kv_heads: int
+    head_dim: int
+    width: int
+    dense_t: int
+    dense_fills: tuple
+
+
+# llama3-8b (phases 3-6, 13, 14) and the example app's default preset,
+# `small` (phase 19: dim 1024, 16/16 heads, max_len 1024)
+LLAMA3 = Geometry(32, 8, 128, 64, 2048, (0, 1, 31, 127, 128, 700, 1500, 2047))
+SMALL = Geometry(16, 16, 64, 32, 1024, (0, 1, 31, 127, 128, 500, 900, 1023))
+
+
+T0 = time.monotonic()
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A line of the run's log, after its seconds since the start."""
+    print(f"[{time.monotonic() - T0:7.1f}s] {msg}", flush=True)
 
 
 def card_line() -> str:
@@ -173,62 +228,65 @@ class Timer:
         return total / iters
 
 
-def phase_flash(torch, flash_mod, timer, results):
+def flash_case(torch, flash_mod, timer, gen, batch, seq, geom=LLAMA3):
+    """One causal bf16 flash launch at ``geom``'s heads: held to its plain
+    version, timed beside it and ``scaled_dot_product_attention``, with
+    its bound and TFLOP/s. Returns the row."""
     import torch.nn.functional as F
 
+    hq, hkv, d = geom.q_heads, geom.kv_heads, geom.head_dim
+    q = torch.randn((batch, seq, hq, d), generator=gen,
+                    device="cuda").bfloat16()
+    k, v = (torch.randn((batch, seq, hkv, d), generator=gen,
+                        device="cuda").bfloat16() for _ in range(2))
+    out = flash_mod.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    ref = flash_mod.flash_attention_plain(q, k, v)
+    err = (out.float() - ref.float()).abs().max().item()
+    if not torch.isfinite(out).all() or err > FLASH_TOL:
+        raise AssertionError(
+            f"flash D={d} B={batch} S={seq}: max|kernel-plain| {err} > "
+            f"{FLASH_TOL}")
+    ms = timer(lambda: flash_mod.flash_attention(q, k, v))
+    plain_ms = timer(lambda: flash_mod.flash_attention_plain(q, k, v),
+                     iters=3)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib_ms = timer(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
+    flops = 2.0 * batch * hq * seq * seq * d
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    bound = max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S)
+    row = dict(B=batch, S=seq, head_dim=d, max_abs_err=err, ms=ms,
+               plain_ms=plain_ms, library_ms=lib_ms,
+               sdpa_ratio=ms / lib_ms, bound_ms=bound * 1e3,
+               bound_by=("operations" if flops / BF16_FLOP_PER_S
+                         >= nbytes / HBM_BYTES_PER_S else "bytes"),
+               tflops=flops / (ms * 1e-3) / 1e12,
+               gb_per_s=nbytes / (ms * 1e-3) / 1e9)
+    log(f"flash D={d} B={batch} S={seq:5d} err={err:.3e} "
+        f"kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
+        f"sdpa={lib_ms:.4f}ms ({row['sdpa_ratio']:.3f}x sdpa) "
+        f"bound={row['bound_ms']:.4f}ms ({row['bound_by']}; "
+        f"{row['tflops']:.1f} TFLOP/s, {row['gb_per_s']:.1f} GB/s)")
+    return row
+
+
+def phase_flash(torch, flash_mod, timer, results):
     log("== phase 3: flash_attention kernel vs plain (bf16, causal)")
     gen = torch.Generator(device="cuda").manual_seed(1)
-    rows, worst = [], 0.0
-    for batch in (1, 4):
-        for seq in (32, 128, 512, 2048):
-            q = torch.randn((batch, seq, Q_HEADS, HEAD_DIM), generator=gen,
-                            device="cuda").bfloat16()
-            k, v = (torch.randn((batch, seq, KV_HEADS, HEAD_DIM),
-                                generator=gen, device="cuda").bfloat16()
-                    for _ in range(2))
-            out = flash_mod.flash_attention(q, k, v)
-            torch.cuda.synchronize()
-            ref = flash_mod.flash_attention_plain(q, k, v)
-            err = (out.float() - ref.float()).abs().max().item()
-            if not torch.isfinite(out).all() or err > FLASH_TOL:
-                raise AssertionError(
-                    f"flash B={batch} S={seq}: max|kernel-plain| {err} > "
-                    f"{FLASH_TOL}")
-            worst = max(worst, err)
-            ms = timer(lambda: flash_mod.flash_attention(q, k, v))
-            plain_ms = timer(lambda: flash_mod.flash_attention_plain(q, k, v),
-                             iters=3)
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            lib_ms = timer(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True))
-            flops = 2.0 * batch * Q_HEADS * seq * seq * HEAD_DIM
-            nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-            bound = max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S)
-            row = dict(B=batch, S=seq, max_abs_err=err, ms=ms,
-                       plain_ms=plain_ms, library_ms=lib_ms,
-                       sdpa_ratio=ms / lib_ms, bound_ms=bound * 1e3,
-                       bound_by=("operations" if flops / BF16_FLOP_PER_S
-                                 >= nbytes / HBM_BYTES_PER_S else "bytes"),
-                       tflops=flops / (ms * 1e-3) / 1e12,
-                       gb_per_s=nbytes / (ms * 1e-3) / 1e9)
-            rows.append(row)
-            log(f"flash B={batch} S={seq:5d} err={err:.3e} "
-                f"kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
-                f"sdpa={lib_ms:.4f}ms ({row['sdpa_ratio']:.3f}x sdpa) "
-                f"bound={row['bound_ms']:.4f}ms "
-                f"({row['tflops']:.1f} TFLOP/s, "
-                f"{row['gb_per_s']:.1f} GB/s)")
+    rows = [flash_case(torch, flash_mod, timer, gen, batch, seq)
+            for batch in (1, 4) for seq in (32, 128, 512, 2048)]
     results["flash"] = rows
-    return worst
+    return max(row["max_abs_err"] for row in rows)
 
 
-def paged_scenario(torch, fills, g_len, seed):
-    """bf16 pools of 8 KV heads, page 32, 64 table columns, pages of the
-    slots scattered over the pool, every position no live entry
-    references NaN; q (B,G,Hq,D) and k/v_new (B,G,Hkv,D)."""
+def paged_scenario(torch, fills, g_len, seed, geom=LLAMA3):
+    """bf16 pools at ``geom``'s heads and head dim, page 32, its table
+    width, pages of the slots scattered over the pool, every position no
+    live entry references NaN; q (B,G,Hq,D) and k/v_new (B,G,Hkv,D)."""
     import numpy as np
 
-    batch, page, width = len(fills), 32, 64
+    batch, page, width = len(fills), 32, geom.width
     num_pages = batch * width
     rng = np.random.default_rng(seed)
     order = rng.permutation(num_pages)          # pages scattered in the pool
@@ -242,22 +300,22 @@ def paged_scenario(torch, fills, g_len, seed):
             table[row, col] = pid
             live[pid, :min(page, n - col * page)] = True
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
-    shape = (num_pages, page, KV_HEADS, HEAD_DIM)
+    shape = (num_pages, page, geom.kv_heads, geom.head_dim)
     poison = torch.from_numpy(~live).cuda()[..., None, None]
     k_pages = torch.randn(shape, generator=gen, device="cuda").bfloat16() \
         .masked_fill(poison, float("nan"))
     v_pages = torch.randn(shape, generator=gen, device="cuda").bfloat16() \
         .masked_fill(poison, float("nan"))
-    q = torch.randn((batch, g_len, Q_HEADS, HEAD_DIM), generator=gen,
-                    device="cuda").bfloat16()
-    k_new, v_new = (torch.randn((batch, g_len, KV_HEADS, HEAD_DIM),
+    q = torch.randn((batch, g_len, geom.q_heads, geom.head_dim),
+                    generator=gen, device="cuda").bfloat16()
+    k_new, v_new = (torch.randn((batch, g_len, geom.kv_heads, geom.head_dim),
                                 generator=gen, device="cuda").bfloat16()
                     for _ in range(2))
     return (q, k_pages, v_pages, torch.from_numpy(table).cuda(), k_new,
             v_new, torch.tensor(fills, dtype=torch.int32, device="cuda"))
 
 
-def paged_scenario_int8(torch, fills, g_len, seed):
+def paged_scenario_int8(torch, fills, g_len, seed, geom=LLAMA3):
     """:func:`paged_scenario`'s layout with int8 pools: its rows
     quantised (``quantize_kv``) and every scale of a position no live
     entry references NaN (the int8 rows there are 0). Returns the
@@ -265,7 +323,7 @@ def paged_scenario_int8(torch, fills, g_len, seed):
     from gofr_tpu_torch.ops.quant import quantize_kv
 
     q, k_pages, v_pages, table, k_new, v_new, lens = paged_scenario(
-        torch, fills, g_len, seed)
+        torch, fills, g_len, seed, geom)
     dead = k_pages[..., 0, 0].isnan()[..., None]        # (N, page, 1)
     (k8, ks), (v8, vs) = (quantize_kv(pages.nan_to_num())
                           for pages in (k_pages, v_pages))
@@ -274,15 +332,16 @@ def paged_scenario_int8(torch, fills, g_len, seed):
             vs.masked_fill(dead, float("nan")))
 
 
-def paged_cost(fills, g_len, table_size, int8=False):
+def paged_cost(fills, g_len, table_size, int8=False, geom=LLAMA3):
     """Bytes (each input read once, the output written once) and FLOPs of
     one ragged launch over these fills, G queries per slot; int8 pools
     read one byte an element plus a float32 scale per row and head."""
-    batch, row = len(fills), Q_HEADS * HEAD_DIM
-    row_bytes = HEAD_DIM + 4 if int8 else HEAD_DIM * 2
-    kv_bytes = 2 * sum(fills) * KV_HEADS * row_bytes
+    d, hkv = geom.head_dim, geom.kv_heads
+    batch, row = len(fills), geom.q_heads * d
+    row_bytes = d + 4 if int8 else d * 2
+    kv_bytes = 2 * sum(fills) * hkv * row_bytes
     small_bytes = 2 * (2 * batch * g_len * row
-                       + 2 * batch * g_len * KV_HEADS * HEAD_DIM) \
+                       + 2 * batch * g_len * hkv * d) \
         + 4 * (table_size + batch)
     # query g attends the fill plus the new tokens u <= g
     pairs = sum(n + g + 1 for n in fills for g in range(g_len))
@@ -304,17 +363,17 @@ def check_ragged(torch, out, ref, what):
     return err, row_err
 
 
-def _scenario(torch, int8, fills, g_len, seed):
+def _scenario(torch, int8, fills, g_len, seed, geom=LLAMA3):
     """The wrapper's arguments over bf16 or int8 pools."""
     if int8:
-        return paged_scenario_int8(torch, fills, g_len, seed)
-    return paged_scenario(torch, fills, g_len, seed)
+        return paged_scenario_int8(torch, fills, g_len, seed, geom)
+    return paged_scenario(torch, fills, g_len, seed, geom)
 
 
-def ragged_call(torch, ragged_mod, int8, fills, g_len, seed):
+def ragged_call(torch, ragged_mod, int8, fills, g_len, seed, geom=LLAMA3):
     """The wrapper's arguments over these fills, and the kernel and plain
     entry points that take them: decode at G = 1, verify above."""
-    call = list(_scenario(torch, int8, fills, g_len, seed))
+    call = list(_scenario(torch, int8, fills, g_len, seed, geom))
     if g_len == 1:
         call[4], call[5] = call[4][:, 0], call[5][:, 0]
         return (call, ragged_mod.ragged_paged_decode_attention,
@@ -323,13 +382,14 @@ def ragged_call(torch, ragged_mod, int8, fills, g_len, seed):
             ragged_mod.ragged_paged_verify_attention_plain)
 
 
-def ragged_case(torch, ragged_mod, timer, int8, fills, g_len, seed, what):
+def ragged_case(torch, ragged_mod, timer, int8, fills, g_len, seed, what,
+                geom=LLAMA3):
     """One ragged launch over these fills: held to its plain version,
     output finite despite the NaN planted wherever no live entry points,
     timed beside the plain version, with its bound and GB/s. Returns the
     row."""
     call, kernel, plain = ragged_call(torch, ragged_mod, int8, fills, g_len,
-                                      seed)
+                                      seed, geom)
     out = kernel(*call)
     torch.cuda.synchronize()
     ref = plain(*call)
@@ -339,9 +399,10 @@ def ragged_case(torch, ragged_mod, timer, int8, fills, g_len, seed, what):
     err, row_err = check_ragged(torch, out, ref, what)
     ms = timer(lambda: kernel(*call), iters=20)
     plain_ms = timer(lambda: plain(*call), iters=5)
-    nbytes, flops = paged_cost(fills, g_len, call[3].numel(), int8)
+    nbytes, flops = paged_cost(fills, g_len, call[3].numel(), int8, geom)
     bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S)
-    row = dict(G=g_len, B=len(fills), fills=fills, page=32, table_width=64,
+    row = dict(G=g_len, B=len(fills), fills=fills, page=32,
+               table_width=geom.width, head_dim=geom.head_dim,
                pools="int8" if int8 else "bf16", max_abs_err=err,
                row_rel_l2=row_err, ms=ms, plain_ms=plain_ms,
                library_ms=None, bound_ms=bound * 1e3,
@@ -385,11 +446,18 @@ def phase_verify(torch, ragged_mod, timer, results, int8=False):
     full = ragged_case(torch, ragged_mod, timer, int8,
                        [FULL_CARD_FILL - g_full] * 8, g_full, 20,
                        f"{what} full card G={g_full}")
-    # at G = 1 the verify instantiation (new-token bound MAX_NEW, the
-    # causal fold's loops) must give the decode instantiation's bits
-    fills = [0, 1, 31, 32, 33, 700, 2047, 512]
+    g1_bit_check(torch, ragged_mod, int8, [0, 1, 31, 32, 33, 700, 2047, 512],
+                 what)
+    results["verify_int8" if int8 else "verify"] = dict(
+        rows=rows, full_card=full, g1_bit_identical=True)
+    return rows
+
+
+def g1_bit_check(torch, ragged_mod, int8, fills, what, geom=LLAMA3):
+    """At G = 1 the verify instantiation (new-token bound MAX_NEW, the
+    causal fold's loops) must give the decode instantiation's bits."""
     q, k_pages, v_pages, table, k_new, v_new, lens, *scales = _scenario(
-        torch, int8, fills, 1, 2)
+        torch, int8, fills, 1, 2, geom)
     verify = ragged_mod.ragged_paged_verify_form_attention(
         q, k_pages, v_pages, table, k_new, v_new, lens, *scales)
     decode = ragged_mod.ragged_paged_decode_attention(
@@ -402,107 +470,123 @@ def phase_verify(torch, ragged_mod, timer, results, int8=False):
                              "instantiation")
     log(f"{what}: verify instantiation at G=1 is bit-identical to the "
         f"decode instantiation")
-    results["verify_int8" if int8 else "verify"] = dict(
-        rows=rows, full_card=full, g1_bit_identical=True)
-    return rows
 
 
-def phase_flash_decode(torch, decode_mod, timer, results):
+def flash_decode_case(torch, decode_mod, timer, fills, t_max, seed,
+                      geom=LLAMA3, window=None, sdpa=True):
+    """One flash-decode launch over a (B, t_max) bf16 cache at ``geom``'s
+    heads, every row past a fill NaN, or with ``window`` over the cache's
+    first ``window`` positions (the full cache's slot stride): held to
+    its plain version within FLASH_DECODE_ULPS, timed, with its bound and
+    GB/s; with ``sdpa`` timed beside ``scaled_dot_product_attention``
+    with a per-row mask (a yardstick only). Returns the row."""
     import torch.nn.functional as F
 
     from gofr_tpu_torch.ops.cuda.tolerance import ulp_error
 
-    log("== phase 6: flash_decode_attention kernel vs plain (bf16)")
-    fills = [0, 1, 127, 128, 129, 700, 1500, 2047]
-    batch, t_max = len(fills), 2048
-    gen = torch.Generator(device="cuda").manual_seed(4)
-    shape = (batch, t_max, KV_HEADS, HEAD_DIM)
+    hq, hkv, d = geom.q_heads, geom.kv_heads, geom.head_dim
+    batch = len(fills)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (batch, t_max, hkv, d)
     lens = torch.tensor(fills, dtype=torch.int32, device="cuda")
+    reach = torch.clamp(lens, max=window or t_max)
     dead = (torch.arange(t_max, device="cuda")[None, :]
-            >= lens[:, None])[..., None, None]
+            >= reach[:, None])[..., None, None]
     k_cache, v_cache = (torch.randn(shape, generator=gen, device="cuda")
                         .bfloat16().masked_fill(dead, float("nan"))
                         for _ in range(2))
-    q = torch.randn((batch, 1, Q_HEADS, HEAD_DIM), generator=gen,
+    q = torch.randn((batch, 1, hq, d), generator=gen,
                     device="cuda").bfloat16()
-    k_new, v_new = (torch.randn((batch, KV_HEADS, HEAD_DIM), generator=gen,
+    k_new, v_new = (torch.randn((batch, hkv, d), generator=gen,
                                 device="cuda").bfloat16() for _ in range(2))
-    args = (q, k_cache, v_cache, k_new, v_new, lens)
+    w = window or t_max
+    args = (q, k_cache[:, :w], v_cache[:, :w], k_new, v_new, lens)
     out = decode_mod.flash_decode_attention(*args)
     torch.cuda.synchronize()
     ref = decode_mod.flash_decode_attention_plain(*args)
     err = (out.float() - ref.float()).abs().max().item()
     ulps = ulp_error(out, ref)
+    what = f"flash decode D={d} T={t_max}" + (f" window {window}"
+                                               if window else "")
     if not torch.isfinite(out).all():
-        raise AssertionError("flash decode output is not finite: it read a "
-                             "row past the fill")
+        raise AssertionError(f"{what}: output is not finite: it read a row "
+                             "past the fill")
     if not torch.isfinite(ref).all() or not ulps <= FLASH_DECODE_ULPS:
-        raise AssertionError(f"flash decode: kernel-plain {ulps} bf16 ulps "
-                             f"> {FLASH_DECODE_ULPS} (max abs {err})")
+        raise AssertionError(f"{what}: kernel-plain {ulps} bf16 ulps > "
+                             f"{FLASH_DECODE_ULPS} (max abs {err})")
     ms = timer(lambda: decode_mod.flash_decode_attention(*args), iters=20)
     plain_ms = timer(lambda: decode_mod.flash_decode_attention_plain(*args),
                      iters=3)
-    # the yardstick: one SDPA call over the cache plus the new token, GQA,
-    # with a per-row mask (inputs laid out for it outside the timing)
-    k_all = torch.cat([k_cache.nan_to_num(), k_new[:, None]], 1) \
-        .transpose(1, 2).contiguous()
-    v_all = torch.cat([v_cache.nan_to_num(), v_new[:, None]], 1) \
-        .transpose(1, 2).contiguous()
-    q_t = q.transpose(1, 2).contiguous()
-    pos = torch.arange(t_max + 1, device="cuda")[None, :]
-    mask = ((pos < lens[:, None]) | (pos == t_max))[:, None, None, :]
-    lib_out = F.scaled_dot_product_attention(q_t, k_all, v_all,
-                                             attn_mask=mask, enable_gqa=True)
-    lib_err = (lib_out.transpose(1, 2).float() - ref.float()).abs().max()
-    lib_ms = timer(lambda: F.scaled_dot_product_attention(
-        q_t, k_all, v_all, attn_mask=mask, enable_gqa=True), iters=20)
-    live = sum(fills)
-    nbytes = 2 * live * KV_HEADS * HEAD_DIM * 2 \
+    lib_ms = lib_err = None
+    if sdpa:
+        # the cache plus the new token, GQA, a per-row mask (inputs laid
+        # out for it outside the timing)
+        k_all = torch.cat([k_cache.nan_to_num(), k_new[:, None]], 1) \
+            .transpose(1, 2).contiguous()
+        v_all = torch.cat([v_cache.nan_to_num(), v_new[:, None]], 1) \
+            .transpose(1, 2).contiguous()
+        q_t = q.transpose(1, 2).contiguous()
+        pos = torch.arange(t_max + 1, device="cuda")[None, :]
+        mask = ((pos < lens[:, None]) | (pos == t_max))[:, None, None, :]
+        lib_out = F.scaled_dot_product_attention(
+            q_t, k_all, v_all, attn_mask=mask, enable_gqa=True)
+        lib_err = (lib_out.transpose(1, 2).float()
+                   - ref.float()).abs().max().item()
+        lib_ms = timer(lambda: F.scaled_dot_product_attention(
+            q_t, k_all, v_all, attn_mask=mask, enable_gqa=True), iters=20)
+    live = int(reach.sum())
+    nbytes = 2 * live * hkv * d * 2 \
         + 2 * (2 * q.numel() + k_new.numel() + v_new.numel()) + 4 * batch
-    flops = 4.0 * (live + batch) * Q_HEADS * HEAD_DIM
+    flops = 4.0 * (live + batch) * hq * d
     bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S)
-    row = dict(B=batch, T=t_max, fills=fills, max_abs_err=err,
-               max_ulps=ulps, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-               sdpa_ratio=ms / lib_ms,
-               library_max_abs_err=lib_err.item(), bound_ms=bound * 1e3,
+    row = dict(B=batch, T=t_max, head_dim=d, window=window,
+               fills=reach.tolist(), max_abs_err=err, max_ulps=ulps, ms=ms,
+               plain_ms=plain_ms, library_ms=lib_ms,
+               sdpa_ratio=ms / lib_ms if lib_ms else None,
+               library_max_abs_err=lib_err, bound_ms=bound * 1e3,
                bound_by="bytes", gb_per_s=nbytes / (ms * 1e-3) / 1e9)
-    results["flash_decode"] = row
-    log(f"flash decode B={batch} T={t_max} err={err:.3e} ({ulps} ulps) "
-        f"kernel={ms:.4f}ms plain={plain_ms:.4f}ms sdpa={lib_ms:.4f}ms "
-        f"({row['sdpa_ratio']:.3f}x sdpa; sdpa vs plain "
-        f"{row['library_max_abs_err']:.3e}) "
-        f"bound={row['bound_ms']:.4f}ms ({row['gb_per_s']:.1f} GB/s)")
+    log(f"{what} err={err:.3e} ({ulps} ulps) kernel={ms:.4f}ms "
+        f"plain={plain_ms:.4f}ms "
+        + (f"sdpa={lib_ms:.4f}ms ({row['sdpa_ratio']:.3f}x sdpa; sdpa vs "
+           f"plain {lib_err:.3e}) " if sdpa else "")
+        + f"bound={row['bound_ms']:.4f}ms (bytes; "
+        f"{row['gb_per_s']:.1f} GB/s)")
     return row
 
 
-DENSE_T = 2048
-DENSE_FILLS = [0, 1, 31, 127, 128, 700, 1500, 2047]
+def phase_flash_decode(torch, decode_mod, timer, results):
+    log("== phase 6: flash_decode_attention kernel vs plain (bf16)")
+    row = flash_decode_case(torch, decode_mod, timer,
+                            [0, 1, 127, 128, 129, 700, 1500, 2047], 2048, 4)
+    results["flash_decode"] = row
+    return row
 
 
-def dense_scenario(torch, llama, int8, rung, g_len, seed):
-    """The ragged wrappers' arguments over a dense cache (8 slots, T
-    2048, 8 KV heads) viewed as pages of 32 in slot order and the
-    identity table of ``rung``: fills ``DENSE_FILLS`` cut to the rung with
-    room for G new tokens, the last row (2047) an inactive one past the
-    rung; every position past a row's reach (its fill, within the rung)
-    NaN, in the int8 scale planes too. Returns (args, the fills the
-    kernel reads)."""
+def dense_scenario(torch, llama, int8, rung, g_len, seed, geom=LLAMA3):
+    """The ragged wrappers' arguments over a dense cache (8 slots,
+    ``geom``'s positions and heads) viewed as pages of 32 in slot order
+    and the identity table of ``rung``: ``geom``'s dense fills cut to the
+    rung with room for G new tokens, the last row (the cache's last
+    position) an inactive one past the rung; every position past a row's
+    reach (its fill, within the rung) NaN, in the int8 scale planes too.
+    Returns (args, the fills the kernel reads)."""
     from gofr_tpu_torch.ops.quant import quantize_kv
 
-    b, page, top = len(DENSE_FILLS), 32, rung or DENSE_T
-    fills = [min(n, top - g_len) for n in DENSE_FILLS[:-1]] \
-        + [DENSE_FILLS[-1]]
+    dense_fills, t_max = geom.dense_fills, geom.dense_t
+    b, page, top = len(dense_fills), 32, rung or t_max
+    fills = [min(n, top - g_len) for n in dense_fills[:-1]] \
+        + [dense_fills[-1]]
     reach = [min(n, top) for n in fills]
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    shape = (b, DENSE_T, KV_HEADS, HEAD_DIM)
+    shape = (b, t_max, geom.kv_heads, geom.head_dim)
     k, v = (torch.randn(shape, generator=gen, device="cuda")
             for _ in range(2))
-    q = torch.randn((b, g_len, Q_HEADS, HEAD_DIM), generator=gen,
+    q = torch.randn((b, g_len, geom.q_heads, geom.head_dim), generator=gen,
                     device="cuda").bfloat16()
-    k_new, v_new = (torch.randn((b, g_len, KV_HEADS, HEAD_DIM),
+    k_new, v_new = (torch.randn((b, g_len, geom.kv_heads, geom.head_dim),
                                 generator=gen, device="cuda").bfloat16()
                     for _ in range(2))
-    dead = (torch.arange(DENSE_T, device="cuda")[None, :]
+    dead = (torch.arange(t_max, device="cuda")[None, :]
             >= torch.tensor(reach, device="cuda")[:, None])
     if int8:
         (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
@@ -512,7 +596,7 @@ def dense_scenario(torch, llama, int8, rung, g_len, seed):
         pools = [x.bfloat16().masked_fill(dead[..., None, None], float("nan"))
                  for x in (k, v)]
     pools = [x.view(-1, page, *x.shape[2:]) for x in pools]
-    table = llama.identity_table(b, DENSE_T, rung, device="cuda")
+    table = llama.identity_table(b, t_max, rung, device="cuda")
     lens = torch.tensor(fills, dtype=torch.int32, device="cuda")
     if g_len == 1:
         k_new, v_new = k_new[:, 0], v_new[:, 0]
@@ -520,13 +604,15 @@ def dense_scenario(torch, llama, int8, rung, g_len, seed):
         reach
 
 
-def phase_identity_ragged(torch, ragged_mod, timer, results):
+def identity_cases(torch, ragged_mod, timer, geom):
+    """The ragged kernel over identity tables of a dense cache at
+    ``geom``: every window rung, decode and verify G 5, bf16 then int8,
+    held to phases 4-5's gates and timed. Returns the rows."""
     from gofr_tpu_torch.models import llama
 
-    log("== phase 13: ragged kernel over identity tables of a dense cache "
-        "(8 slots, T 2048, page 32), every window rung, decode and verify "
-        "G 5, bf16 then int8")
     rows = []
+    t_max = geom.dense_t
+    rungs = [w for w in (128, 256, 512, 1024) if w < t_max] + [None]
     for int8 in (False, True):
         for g_len in (1, SPEC_GAMMA + 1):
             kernel, plain = (
@@ -535,12 +621,13 @@ def phase_identity_ragged(torch, ragged_mod, timer, results):
                 if g_len == 1 else
                 (ragged_mod.ragged_paged_verify_attention,
                  ragged_mod.ragged_paged_verify_attention_plain))
-            for rung in (128, 256, 512, 1024, None):
-                what = (f"identity {'int8' if int8 else 'bf16'} "
+            for rung in rungs:
+                what = (f"identity D={geom.head_dim} "
+                        f"{'int8' if int8 else 'bf16'} "
                         f"{'decode' if g_len == 1 else f'verify G={g_len}'} "
-                        f"rung {rung or DENSE_T}")
+                        f"rung {rung or t_max}")
                 args, reach = dense_scenario(torch, llama, int8, rung, g_len,
-                                             30 + g_len)
+                                             30 + g_len, geom)
                 out = kernel(*args)
                 torch.cuda.synchronize()
                 ref = plain(*args)
@@ -551,9 +638,10 @@ def phase_identity_ragged(torch, ragged_mod, timer, results):
                 ms = timer(lambda: kernel(*args), iters=20)
                 plain_ms = timer(lambda: plain(*args), iters=3)
                 nbytes, flops = paged_cost(reach, g_len, args[3].numel(),
-                                           int8)
+                                           int8, geom)
                 bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S)
-                row = dict(rung=rung or DENSE_T, G=g_len, fills=reach,
+                row = dict(rung=rung or t_max, G=g_len, fills=reach,
+                           head_dim=geom.head_dim,
                            pools="int8" if int8 else "bf16",
                            max_abs_err=err, row_rel_l2=row_err, ms=ms,
                            plain_ms=plain_ms, bound_ms=bound * 1e3,
@@ -566,60 +654,27 @@ def phase_identity_ragged(torch, ragged_mod, timer, results):
                     f"kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
                     f"bound={row['bound_ms']:.4f}ms "
                     f"({row['gb_per_s']:.1f} GB/s)")
-    results["identity_ragged"] = rows
+    return rows
+
+
+def phase_identity_ragged(torch, ragged_mod, timer, results):
+    log("== phase 13: ragged kernel over identity tables of a dense cache "
+        "(8 slots, T 2048, page 32), every window rung, decode and verify "
+        "G 5, bf16 then int8")
+    results["identity_ragged"] = identity_cases(torch, ragged_mod, timer,
+                                                LLAMA3)
 
 
 def phase_window_flash_decode(torch, decode_mod, timer, results):
-    from gofr_tpu_torch.ops.cuda.tolerance import ulp_error
-
     log("== phase 14: flash_decode_attention kernel over window views of a "
         "T 2048 cache vs plain")
-    gen = torch.Generator(device="cuda").manual_seed(14)
-    b = len(DENSE_FILLS)
-    shape = (b, DENSE_T, KV_HEADS, HEAD_DIM)
-    k_cache, v_cache = (torch.randn(shape, generator=gen, device="cuda")
-                        .bfloat16() for _ in range(2))
-    q = torch.randn((b, 1, Q_HEADS, HEAD_DIM), generator=gen,
-                    device="cuda").bfloat16()
-    k_new, v_new = (torch.randn((b, KV_HEADS, HEAD_DIM), generator=gen,
-                                device="cuda").bfloat16() for _ in range(2))
-    rows = []
-    for rung in (128, 256, 512, 1024):
-        fills = [min(n, rung - 1) for n in DENSE_FILLS[:-1]] \
-            + [DENSE_FILLS[-1]]
-        lens = torch.tensor(fills, dtype=torch.int32, device="cuda")
-        reach = torch.clamp(lens, max=rung)
-        dead = (torch.arange(DENSE_T, device="cuda")[None, :]
-                >= reach[:, None])[..., None, None]
-        kc, vc = (x.masked_fill(dead, float("nan")) for x in (k_cache,
-                                                              v_cache))
-        args = (q, kc[:, :rung], vc[:, :rung], k_new, v_new, lens)
-        out = decode_mod.flash_decode_attention(*args)
-        torch.cuda.synchronize()
-        ref = decode_mod.flash_decode_attention_plain(*args)
-        err = (out.float() - ref.float()).abs().max().item()
-        ulps = ulp_error(out, ref)
-        if not torch.isfinite(out).all() or not torch.isfinite(ref).all() \
-                or not ulps <= FLASH_DECODE_ULPS:
-            raise AssertionError(f"flash decode window {rung}: kernel-plain "
-                                 f"{ulps} bf16 ulps > {FLASH_DECODE_ULPS} "
-                                 f"(max abs {err}), or not finite")
-        ms = timer(lambda: decode_mod.flash_decode_attention(*args),
-                   iters=20)
-        plain_ms = timer(lambda: decode_mod.flash_decode_attention_plain(
-            *args), iters=3)
-        live = int(reach.sum())
-        nbytes = 2 * live * KV_HEADS * HEAD_DIM * 2 \
-            + 2 * (2 * q.numel() + k_new.numel() + v_new.numel()) + 4 * b
-        row = dict(rung=rung, fills=reach.tolist(), max_abs_err=err,
-                   max_ulps=ulps, ms=ms, plain_ms=plain_ms,
-                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-                   gb_per_s=nbytes / (ms * 1e-3) / 1e9)
-        rows.append(row)
-        log(f"flash decode window {rung}: err={err:.3e} ({ulps} ulps) "
-            f"kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
-            f"bound={row['bound_ms']:.4f}ms ({row['gb_per_s']:.1f} GB/s)")
-    results["window_flash_decode"] = rows
+    fills = LLAMA3.dense_fills
+    results["window_flash_decode"] = [
+        flash_decode_case(torch, decode_mod, timer,
+                          [min(n, rung - 1) for n in fills[:-1]]
+                          + [fills[-1]], LLAMA3.dense_t, 14, window=rung,
+                          sdpa=False)
+        for rung in (128, 256, 512, 1024)]
 
 
 def phase_model(torch, llama, seed, results):
@@ -729,7 +784,16 @@ PATH_KERNELS = {"engine": ("flash", "ragged"),
                 "dense": ("flash", "ragged"),
                 "dense_spec": ("flash", "verify", "flash_decode"),
                 "dense_int8": ("flash", "int8"),
-                "dense_int8_spec": ("flash", "int8_verify", "flash_decode")}
+                "dense_int8_spec": ("flash", "int8_verify", "flash_decode"),
+                "small": ("flash", "ragged"),
+                "small_paged": ("flash", "ragged"),
+                "small_int8": ("flash", "int8"),
+                "small_spec": ("flash", "verify", "flash_decode"),
+                "small_int8_spec": ("flash", "int8_verify", "flash_decode"),
+                "prefix_small": ("flash", "ragged"),
+                "prefix_small_paged": ("flash", "ragged"),
+                "prefix_small_int8": ("flash", "int8"),
+                "prefix_llama3": ("flash", "ragged")}
 
 
 def serve_burst(torch, engine, prompts, budget, samplings, mods, timeout,
@@ -864,6 +928,7 @@ def run_counters(engine):
     stats = engine.stats()
     spec = stats.get("speculative", {})
     return dict(prefills=engine.prefill_dispatches,
+                suffix_prefills=engine.suffix_prefill_dispatches,
                 steps=engine.decode_steps,
                 ticks=engine.ticks,
                 spec_ticks=engine.spec_dispatches,
@@ -880,9 +945,9 @@ def acceptance(counters):
 
 def expected_launches(cfg, counters, draft_layers=0):
     """What each kernel must have launched over a burst of this engine:
-    the target's layers per prefill, decode step and spec tick through
-    the bf16 or int8 ragged instantiations, the draft's per prefill and
-    draft step."""
+    the target's layers per prefill (a suffix prefill over cached pages
+    too), decode step and spec tick through the bf16 or int8 ragged
+    instantiations, the draft's per prefill and draft step."""
     n = cfg.n_layers
     int8 = cfg.kv_int8
     decode = n * counters["steps"]
@@ -916,8 +981,8 @@ def draft_view(llama, cfg, params, n_layers):
     """A bf16 draft made of the target's first ``n_layers`` layers
     (views, no copy) with its embedding, final norm and head; its dense
     cache is bf16 whatever the target's pool."""
-    dcfg = llama.config("llama3-8b", n_layers=n_layers, dtype=cfg.dtype,
-                        use_flash=True)
+    dcfg = dataclasses.replace(cfg, n_layers=n_layers, kv_int8=False,
+                               use_flash=True)
     dparams = dict(params, layers={name: w[:n_layers]
                                    for name, w in params["layers"].items()})
     return dcfg, dparams
@@ -1141,6 +1206,310 @@ def phase_spec_engine(torch, llama, generate, mods, cfg, params, seed,
     return launches
 
 
+def phase_d64_kernels(torch, mods, timer, results):
+    """Phase 19: every decode-shaped instantiation at head_dim 64, and
+    flash prefill at 64, at the ``small`` preset's shapes (Hq = Hkv = 16,
+    B 8, max_len 1024), each held to its plain version under the gates of
+    phases 3-6 and timed with its bound."""
+    flash_mod, ragged_mod, decode_mod = mods
+    log("== phase 19: the kernels at head_dim 64 (small preset: Hq 16 / "
+        "Hkv 16, B 8, max_len 1024)")
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    out["flash"] = flash_case(torch, flash_mod, timer, gen, 4, 512, SMALL)
+    last = SMALL.width * 32 - 1
+    for int8 in (False, True):
+        pools = "int8" if int8 else "bf16"
+        out["ragged_" + pools] = ragged_case(
+            torch, ragged_mod, timer, int8, [0, 1, 31, 32, 33, 500, last, 512],
+            1, 40, f"ragged D=64 {pools} B=8", SMALL)
+        g_len = SPEC_GAMMA + 1
+        out["verify_" + pools] = ragged_case(
+            torch, ragged_mod, timer, int8,
+            [0, 1, 31, 32, 33, 500, last - g_len, 512], g_len, 41,
+            f"verify D=64 {pools} G={g_len}", SMALL)
+        g1_bit_check(torch, ragged_mod, int8,
+                     [0, 1, 31, 32, 33, 500, last, 512],
+                     f"verify D=64 {pools}", SMALL)
+    out["identity"] = identity_cases(torch, ragged_mod, timer, SMALL)
+    fills = SMALL.dense_fills
+    out["flash_decode"] = flash_decode_case(
+        torch, decode_mod, timer, [0, 1, 127, 128, 129, 500, 900, 1023],
+        SMALL.dense_t, 42, SMALL)
+    out["window_flash_decode"] = [
+        flash_decode_case(torch, decode_mod, timer,
+                          [min(n, rung - 1) for n in fills[:-1]]
+                          + [fills[-1]], SMALL.dense_t, 43, SMALL,
+                          window=rung, sdpa=False)
+        for rung in (128, 256, 512)]
+    results["d64"] = out
+    return out
+
+
+# the example app's engine (examples/llama-generate/main.py:135-145):
+# max_len min(max_seq_len, 1024), 8 slots, 16 steps a tick, 4 ticks in
+# flight; dense unless GENERATE_PAGED_KV=1
+SMALL_ENGINE = dict(max_slots=8, max_len=1024, steps_per_tick=16,
+                    max_inflight_ticks=4)
+
+
+def phase_small_engines(torch, llama, generate, mods, seed, results):
+    """Phases 20-23: the example's default preset (``small`` at full width
+    and depth) at the example's engine defaults, dense bf16; paged; dense
+    ``kv_int8``; speculative (a 2-layer draft of views, bf16 then int8
+    target). Returns launches by path."""
+    cfg = llama.config("small", use_flash=True)
+    params = llama.init(cfg, seed + 2, device="cuda")
+    prompts = engine_prompts(cfg, seed)
+    budget = 32
+    samplings = [generate.Sampling() for _ in range(7)] + [
+        generate.Sampling(temperature=0.8, top_p=0.95, seed=seed)]
+    dcfg, dparams = draft_view(llama, cfg, params, 2)
+    int8_cfg = dataclasses.replace(cfg, kv_int8=True)
+    spec = dict(draft_cfg=dcfg, draft_params=dparams, spec_gamma=SPEC_GAMMA)
+    runs = (("small", 20, cfg, {}),
+            ("small_paged", 21, cfg, dict(paged_kv=True, kv_page=32)),
+            ("small_int8", 22, int8_cfg, {}),
+            ("small_spec", 23, cfg, spec),
+            ("small_int8_spec", 23, int8_cfg, spec))
+    by_path = {}
+    for path, number, c, kw in runs:
+        log(f"== phase {number}: {path}: the small preset at full width "
+            f"(dim {c.dim}, {c.n_layers} layers, {c.n_heads}/"
+            f"{c.n_kv_heads} heads, head_dim {c.head_dim}), the example's "
+            f"engine {SMALL_ENGINE}, "
+            f"{'paged' if kw.get('paged_kv') else 'dense'}"
+            f"{', kv_int8' if c.kv_int8 else ''}"
+            f"{', draft 2 layers gamma 4' if 'draft_cfg' in kw else ''}")
+        engine = generate.GenerationEngine(c, params, device="cuda",
+                                           **SMALL_ENGINE, **kw)
+        outs, wall, launches, counters, ttfts, figures = serve_burst(
+            torch, engine, prompts, budget, samplings, mods, 600,
+            stream_tokens=8, profile=True)
+        draft_layers = 2 if "draft_cfg" in kw else 0
+        check_launches(launches,
+                       expected_launches(c, counters, draft_layers), path)
+        tokens = budget * len(outs)
+        row = dict(requests=len(outs), new_tokens=tokens, wall_s=wall,
+                   tokens_per_s=tokens / wall, ttft_s=ttfts,
+                   ttft_p50_s=ttfts[len(ttfts) // 2], ttft_max_s=ttfts[-1],
+                   launches=launches, counters=counters,
+                   kv_bytes=kv_bytes(engine), greedy_outputs=outs[:7],
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   **figures)
+        if draft_layers:
+            row["speculative"] = engine.stats()["speculative"]
+        results[path] = row
+        by_path[path] = launches
+        log(f"{path}: {len(outs)} requests x {budget} tokens in {wall:.3f}s "
+            f"= {row['tokens_per_s']:.1f} tok/s; TTFT p50 "
+            f"{row['ttft_p50_s']:.4f}s max {row['ttft_max_s']:.4f}s; "
+            f"{counters['prefills']} prefills, {counters['steps']} decode "
+            f"steps, {counters['spec_ticks']} spec ticks (acceptance "
+            f"{acceptance(counters):.3f}); launches {launches}; KV "
+            f"{row['kv_bytes']} bytes")
+        del engine
+        torch.cuda.empty_cache()
+    same = results["small_paged"]["greedy_outputs"] \
+        == results["small"]["greedy_outputs"]
+    ratio = results["small_int8"]["kv_bytes"] / results["small"]["kv_bytes"]
+    results["small"].update(paged_greedy_identical=same,
+                            int8_kv_ratio=ratio)
+    log(f"small: paged greedy completions identical to dense: {same}; "
+        f"int8 cache {ratio:.6f}x the bf16 cache's bytes (expected "
+        f"{INT8_RATIO_D64})")
+    if not same:
+        raise AssertionError("small: the paged engine's greedy completions "
+                             "differ from the dense engine's")
+    if ratio != INT8_RATIO_D64:
+        raise AssertionError(f"small int8 cache is {ratio}x the bf16 "
+                             f"cache's bytes, expected {INT8_RATIO_D64}")
+    return params, by_path
+
+
+# shared-prefix traffic (phase 24): one 256-token system prompt (8 pages
+# of 32) before every prompt, then a distinct suffix
+SYSTEM_TOKENS, PREFIX_RUNG = 256, 8
+SUFFIX_LENS = (5, 17, 40, 64, 100, 129, 170, 200)
+
+
+def prefix_waves(cfg, seed):
+    """Two waves of 8 prompts: the same system prompt, each prompt its own
+    suffix (wave 2's new ones)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 24)
+    system = rng.integers(0, cfg.vocab_size, SYSTEM_TOKENS).tolist()
+    return [[system + rng.integers(0, cfg.vocab_size, n).tolist()
+             for n in SUFFIX_LENS] for _ in range(2)]
+
+
+# two rounds of the two waves, each round with its own system prompt: the
+# first warms the suffix prefill's shapes (the prefill runs eagerly), the
+# second is measured
+PREFIX_ROUNDS = 2
+
+
+def prefix_run(torch, generate, mods, cfg, params, engine_kw, prefix, seed):
+    """Serve the rounds of two waves on one engine (captured ticks; wave 1
+    to completion, then wave 2) with the prefix store on or off. Returns
+    every wave's outputs, the last wave 2's TTFTs, prefill stream spans
+    (CUDA events around each prefill dispatch on the device thread) and
+    store stats, and the launches of all the waves."""
+    flash_mod, ragged_mod, decode_mod = mods
+    rounds = [prefix_waves(cfg, seed + r) for r in range(PREFIX_ROUNDS)]
+    samplings = [generate.Sampling() for _ in range(7)] + [
+        generate.Sampling(temperature=0.8, top_p=0.95, seed=seed)]
+    engine = generate.GenerationEngine(cfg, params, device="cuda",
+                                       prefix_cache=prefix, **engine_kw)
+    spans = []
+    prefill = engine._prefill_insert
+
+    def timed_prefill(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fetch = prefill(*args)
+        end.record()
+        spans.append((start, end))
+        return fetch
+    engine._prefill_insert = timed_prefill
+
+    async def serve():
+        await engine.warmup()
+        await engine.start()
+        try:
+            # warm-up: a prompt under one page publishes and reuses nothing
+            await engine.generate(rounds[0][0][0][:5], 8)
+            for mod in mods:
+                mod.reset_launches()
+            before = run_counters(engine)
+            outs = []
+            for waves in rounds:
+                for wave in waves:
+                    if wave is rounds[-1][1]:
+                        torch.cuda.synchronize()
+                        engine.ttfts.clear()
+                        spans.clear()
+                        store0 = engine.stats().get("prefix_cache")
+                        suffix0 = engine.suffix_prefill_dispatches
+                    outs.append(await asyncio.wait_for(asyncio.gather(*[
+                        engine.generate(p, 32, sampling=s)
+                        for p, s in zip(wave, samplings)]), 600))
+            torch.cuda.synchronize()
+            launches = dict(flash=flash_mod.launches,
+                            ragged=ragged_mod.launches,
+                            verify=ragged_mod.verify_launches,
+                            int8=ragged_mod.int8_launches,
+                            int8_verify=ragged_mod.int8_verify_launches,
+                            flash_decode=decode_mod.launches)
+            after = run_counters(engine)
+            counters = {key: after[key] - before[key] for key in after}
+            store = engine.stats().get("prefix_cache")
+            delta = None
+            if store is not None:
+                delta = dict(
+                    hits=store["lookups"]["hit"] - store0["lookups"]["hit"],
+                    partial=(store["lookups"]["partial"]
+                             - store0["lookups"]["partial"]),
+                    misses=store["lookups"]["miss"]
+                    - store0["lookups"]["miss"],
+                    tokens_saved=store["tokens_saved"]
+                    - store0["tokens_saved"],
+                    admissions_by_rung={
+                        r: n - store0["admissions_by_rung"].get(r, 0)
+                        for r, n in store["admissions_by_rung"].items()
+                        if n > store0["admissions_by_rung"].get(r, 0)},
+                    suffix_prefills=engine.suffix_prefill_dispatches
+                    - suffix0)
+            return dict(outs=outs, ttfts=sorted(engine.ttfts),
+                        prefill_ms=sum(a.elapsed_time(b) for a, b in spans),
+                        prefills=len(spans), store=store, wave2=delta,
+                        launches=launches, counters=counters)
+        finally:
+            await engine.stop()
+
+    got = asyncio.run(serve())
+    del engine
+    torch.cuda.empty_cache()
+    return got
+
+
+def first_difference(torch, llama, cfg, params, prompt, want, got):
+    """Where two greedy completions of ``prompt`` part, and the top-2
+    logit margin of the full forward (flash prefill) at that position."""
+    at = next(i for i, (a, b) in enumerate(zip(want, got)) if a != b)
+    tokens = torch.tensor([prompt + want[:at]],
+                          device=params["tok_emb"].device)
+    logits = llama.forward(params, cfg, tokens)[0, -1].float()
+    top = torch.topk(logits, 2).values
+    return dict(position=at, margin=(top[0] - top[1]).item(),
+                tokens=(want[at], got[at]))
+
+
+def phase_prefix(torch, llama, generate, mods, cfg, params, engine_kw, path,
+                 seed, results):
+    """Phase 24, one configuration: the rounds of two waves with the store
+    on and off. The measured wave 2 must admit all 8 at rung 8 (the
+    system prompt's pages); with a bf16 cache every wave 2's greedy tokens
+    must equal the store-off engine's. Returns the store-on run's
+    launches."""
+    log(f"== phase 24: {path}: prefix reuse, {cfg.n_layers} layers, "
+        f"{'kv_int8' if cfg.kv_int8 else 'bf16'}, "
+        f"{'paged' if engine_kw.get('paged_kv') else 'dense'}: two waves "
+        f"of 8 (a {SYSTEM_TOKENS}-token system prompt + suffixes "
+        f"{SUFFIX_LENS}), 32 new tokens, one sampled")
+    on = prefix_run(torch, generate, mods, cfg, params, engine_kw, True,
+                    seed)
+    off = prefix_run(torch, generate, mods, cfg, params, engine_kw, False,
+                     seed)
+    for run in (on, off):
+        check_launches(run["launches"],
+                       expected_launches(cfg, run["counters"]), path)
+    wave2 = on["wave2"]
+    hits_ok = wave2["admissions_by_rung"] == {PREFIX_RUNG: 8}
+    same, diffs = [], []
+    for r in range(PREFIX_ROUNDS):
+        wave = 2 * r + 1
+        for i in range(7):
+            same.append(on["outs"][wave][i] == off["outs"][wave][i])
+            if not same[-1]:
+                diffs.append(dict(first_difference(
+                    torch, llama, cfg, params,
+                    prefix_waves(cfg, seed + r)[1][i], off["outs"][wave][i],
+                    on["outs"][wave][i]), round=r, request=i))
+    ttft = {name: dict(p50=run["ttfts"][len(run["ttfts"]) // 2],
+                       max=run["ttfts"][-1], prefill_ms=run["prefill_ms"],
+                       prefills=run["prefills"])
+            for name, run in (("on", on), ("off", off))}
+    results[path] = dict(wave2=wave2, greedy_identical=same,
+                         first_differences=diffs, ttft=ttft,
+                         store=on["store"], launches=on["launches"],
+                         counters=on["counters"],
+                         launches_off=off["launches"])
+    log(f"{path}: wave 2 admissions by prefix rung "
+        f"{wave2['admissions_by_rung']} (lookups: {wave2['hits']} hit, "
+        f"{wave2['partial']} partial, {wave2['misses']} miss; "
+        f"{wave2['tokens_saved']} prompt tokens saved; "
+        f"{wave2['suffix_prefills']} suffix prefills); wave 2's greedy "
+        f"tokens equal to store off: {sum(same)}/{len(same)} "
+        f"{diffs or ''}; wave 2 TTFT p50 "
+        f"{ttft['on']['p50']:.4f}s max {ttft['on']['max']:.4f}s with the "
+        f"store, {ttft['off']['p50']:.4f}s / {ttft['off']['max']:.4f}s "
+        f"without; prefill stream {ttft['on']['prefill_ms']:.3f} ms in "
+        f"{ttft['on']['prefills']} dispatches vs "
+        f"{ttft['off']['prefill_ms']:.3f} ms in {ttft['off']['prefills']}; "
+        f"launches {on['launches']}")
+    if not hits_ok:
+        raise AssertionError(f"{path}: wave 2 admitted by rung "
+                             f"{wave2['admissions_by_rung']}, expected 8 at "
+                             f"rung {PREFIX_RUNG}")
+    if not cfg.kv_int8 and not all(same):
+        raise AssertionError(f"{path}: wave 2's greedy tokens differ with "
+                             f"the store on: {diffs}")
+    return on["launches"]
+
+
 def _numel(tree):
     if isinstance(tree, dict):
         for val in tree.values():
@@ -1185,12 +1554,16 @@ def main() -> int:
     log(f"built {list(_build.KERNELS)} in {build_s:.1f}s")
     results["build_s"] = build_s
     # clusters of 8 blocks each ragged instantiation keeps resident at
-    # the engine's table (64 columns of 32 positions), verify at G 5
+    # the engine's table (llama3-8b: 64 columns of 32 positions; small:
+    # 32), verify at G 5
     occupancy = {
-        f"group {group} {'verify' if verify else 'decode'} "
+        f"D {geom.head_dim} group {group} {'verify' if verify else 'decode'} "
         f"{'int8' if int8 else 'bf16'}":
             ragged_mod.cluster_occupancy(group, verify, int8,
-                                         SPEC_GAMMA + 1 if verify else 1)
+                                         SPEC_GAMMA + 1 if verify else 1,
+                                         table_width=geom.width,
+                                         head_dim=geom.head_dim)
+        for geom in (LLAMA3, SMALL)
         for group in ragged_mod.SUPPORTED_GROUPS
         for verify in (False, True) for int8 in (False, True)}
     log(f"ragged kernel clusters resident: {occupancy}")
@@ -1210,6 +1583,27 @@ def main() -> int:
     mods = (flash_mod, ragged_mod, decode_mod)
     phase_perfect_draft(torch, llama, generate, mods, args.seed, results)
 
+    # this slice: the example's default preset (head_dim 64) and prefix
+    # reuse; launches by path, each run counted from 0
+    timer = Timer(torch)
+    d64 = phase_d64_kernels(torch, mods, timer, results)
+    del timer
+    small_params, by_path_d64 = phase_small_engines(
+        torch, llama, generate, mods, args.seed, results)
+    small_cfg = llama.config("small", use_flash=True)
+    for path, c, kw in (
+            ("prefix_small", small_cfg, {}),
+            ("prefix_small_paged", small_cfg, dict(paged_kv=True,
+                                                   kv_page=32)),
+            ("prefix_small_int8", dataclasses.replace(small_cfg,
+                                                      kv_int8=True), {})):
+        by_path_d64[path] = phase_prefix(torch, llama, generate, mods, c,
+                                         small_params, dict(SMALL_ENGINE,
+                                                            **kw),
+                                         path, args.seed, results)
+    del small_params
+    torch.cuda.empty_cache()
+
     cfg = llama.config("llama3-8b", n_layers=args.layers, use_flash=True)
     if args.layers != 32:
         log(f"NOTE: depth cut to {args.layers} layers (width unchanged)")
@@ -1219,7 +1613,8 @@ def main() -> int:
     log(f"random weights ({sum(_numel(params)) / 1e9:.2f} B params) in "
         f"{time.monotonic() - t0:.1f}s")
     # one set of weights serves the eight engines: paged (phases 9-12),
-    # then dense (15-18), each bf16 then kv_int8
+    # then dense (15-18), each bf16 then kv_int8, then prefix reuse on the
+    # dense engine (phase 24)
     by_path = {}
     for paged in (True, False):
         if not paged:
@@ -1235,66 +1630,71 @@ def main() -> int:
             by_path[engine_kind(c, paged, True)[0]] = phase_spec_engine(
                 torch, llama, generate, mods, c, params, args.seed, results,
                 paged)
-    # launches on the main paths: each run counted from 0
+    by_path["prefix_llama3"] = phase_prefix(
+        torch, llama, generate, mods, cfg, params,
+        dict(max_slots=8, max_len=2048, steps_per_tick=4), "prefix_llama3",
+        args.seed, results)
+    # launches on the main paths: each run counted from 0, llama3-8b's
+    # (head_dim 128) and the small preset's (head_dim 64) apart
     counts = {name: sum(run[name] for run in by_path.values())
               for name in by_path["engine"]}
+    counts_d64 = {name: sum(run[name] for run in by_path_d64.values())
+                  for name in by_path["engine"]}
 
     flash_main = next(r for r in results["flash"]
                       if r["B"] == 4 and r["S"] == 512)
 
-    def ragged_row(name, int8, launches):
-        row = ragged[int8]
+    def row(name, source, replaces, launches, case, err=None):
         return dict(name=name, route="cuda",
-                    source="gofr_tpu_torch/csrc/ragged_paged_attention.cu",
-                    replaces="gofr_tpu/ops/pallas/"
-                             "ragged_paged_attention.py:315",
-                    launches=launches, max_abs_err=row["max_abs_err"],
-                    ms=row["ms"], plain_ms=row["plain_ms"],
-                    bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-                    library_ms=None)
-
-    def verify_row(name, int8, launches):
-        rows = verify[int8]
-        main_row = next(r for r in rows if r["G"] == SPEC_GAMMA + 1)
-        return dict(name=name, route="cuda",
-                    source="gofr_tpu_torch/csrc/ragged_paged_attention.cu",
-                    replaces="gofr_tpu/ops/pallas/"
-                             "ragged_paged_attention.py:315",
+                    source=f"gofr_tpu_torch/csrc/{source}",
+                    replaces=f"gofr_tpu/ops/pallas/{replaces}",
                     launches=launches,
-                    max_abs_err=max(r["max_abs_err"] for r in rows),
-                    ms=main_row["ms"], plain_ms=main_row["plain_ms"],
-                    bound_ms=main_row["bound_ms"],
-                    bound_by=main_row["bound_by"], library_ms=None)
+                    max_abs_err=case["max_abs_err"] if err is None else err,
+                    ms=case["ms"], plain_ms=case["plain_ms"],
+                    bound_ms=case["bound_ms"], bound_by=case["bound_by"],
+                    library_ms=case["library_ms"])
+
+    flash = ("flash_attention.cu", "flash_attention.py:107")
+    ragged_src = ("ragged_paged_attention.cu",
+                  "ragged_paged_attention.py:315")
+    decode = ("decode_attention.cu", "decode_attention.py:158")
+
+    def verify_main(rows):
+        return next(r for r in rows if r["G"] == SPEC_GAMMA + 1)
 
     kernels = [
-        dict(name="flash_attention", route="cuda",
-             source="gofr_tpu_torch/csrc/flash_attention.cu",
-             replaces="gofr_tpu/ops/pallas/flash_attention.py:107",
-             launches=counts["flash"], max_abs_err=flash_err,
-             ms=flash_main["ms"], plain_ms=flash_main["plain_ms"],
-             bound_ms=flash_main["bound_ms"],
-             bound_by=flash_main["bound_by"],
-             library_ms=flash_main["library_ms"]),
-        ragged_row("ragged_paged_decode_attention", False,
-                   counts["ragged"]),
-        verify_row("ragged_paged_verify_attention", False,
-                   counts["verify"]),
-        dict(name="flash_decode_attention", route="cuda",
-             source="gofr_tpu_torch/csrc/decode_attention.cu",
-             replaces="gofr_tpu/ops/pallas/decode_attention.py:158",
-             launches=counts["flash_decode"],
-             max_abs_err=flash_decode["max_abs_err"], ms=flash_decode["ms"],
-             plain_ms=flash_decode["plain_ms"],
-             bound_ms=flash_decode["bound_ms"],
-             bound_by=flash_decode["bound_by"],
-             library_ms=flash_decode["library_ms"]),
-        ragged_row("ragged_paged_decode_attention_int8", True,
-                   counts["int8"]),
-        verify_row("ragged_paged_verify_attention_int8", True,
-                   counts["int8_verify"]),
+        row("flash_attention", *flash, counts["flash"], flash_main,
+            flash_err),
+        row("ragged_paged_decode_attention", *ragged_src, counts["ragged"],
+            ragged[False]),
+        row("ragged_paged_verify_attention", *ragged_src, counts["verify"],
+            verify_main(verify[False]),
+            max(r["max_abs_err"] for r in verify[False])),
+        row("flash_decode_attention", *decode, counts["flash_decode"],
+            flash_decode),
+        row("ragged_paged_decode_attention_int8", *ragged_src,
+            counts["int8"], ragged[True]),
+        row("ragged_paged_verify_attention_int8", *ragged_src,
+            counts["int8_verify"], verify_main(verify[True]),
+            max(r["max_abs_err"] for r in verify[True])),
+        row("flash_attention_d64", *flash, counts_d64["flash"], d64["flash"]),
+        row("ragged_paged_decode_attention_d64", *ragged_src,
+            counts_d64["ragged"], d64["ragged_bf16"]),
+        row("ragged_paged_verify_attention_d64", *ragged_src,
+            counts_d64["verify"], d64["verify_bf16"]),
+        row("flash_decode_attention_d64", *decode,
+            counts_d64["flash_decode"], d64["flash_decode"]),
+        row("ragged_paged_decode_attention_int8_d64", *ragged_src,
+            counts_d64["int8"], d64["ragged_int8"]),
+        row("ragged_paged_verify_attention_int8_d64", *ragged_src,
+            counts_d64["int8_verify"], d64["verify_int8"]),
     ]
+    idle = [k["name"] for k in kernels if k["launches"] == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on the main paths: "
+                             f"{idle}")
     results["kernels"] = kernels
-    results["launches_by_path"] = by_path
+    results["launches_by_path"] = dict(by_path, **by_path_d64)
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(results, indent=1))

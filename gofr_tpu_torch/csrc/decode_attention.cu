@@ -26,12 +26,15 @@
 // read, positions past the fill inside the last block are neither read nor
 // counted, and a chunk that starts at or past the fill writes an empty
 // partial (m = -1e30, l = 0) and exits. Inside a block of 128 positions
-// each half-warp takes 8 positions (16 lanes x 16-byte loads = one 256-byte
-// row); its 8 K rows are all in flight at once, then its 8 V rows, which
+// each row stream of D / 8 lanes (16-byte loads: a half-warp per 256-byte
+// row at D 128, a quarter-warp per 128-byte row at D 64) takes 8 or 4
+// positions; its K rows are all in flight at once, then its V rows, which
 // load while the block max is exchanged through shared memory, so a step
 // waits for two memory latencies, not one per position (at group 8, where
-// the registers hold 64 scores, each V row loads at its use). Each
-// half-warp rescales its own P.V partial by the common correction factor.
+// the registers hold the scores, each V row loads at its use). Each
+// stream rescales its own P.V partial by the common correction factor.
+// The quarter-warp at D 64 keeps each lane's load at 16 bytes and the
+// block's 128 positions a step, so the split plan is the same at both D.
 // Each chunk's (m, l, acc[group][D]) goes to float32 scratch that the
 // wrapper allocates. flash_decode_combine, one block per (KV head, slot),
 // folds the chunks below the fill (float32, in a fixed order: the
@@ -44,8 +47,8 @@
 // k_new/v_new (B,Hkv,D);
 // cache_len (B,) int32 (valid entries excluding the new token); out
 // (B,1,Hq,D); scratch (B,Hkv,splits,group,D+2) float32 (acc, then m, l).
-// All bf16 except cache_len and the scratch. D is 128; the group (Hq/Hkv)
-// is 1, 2, 4 or 8.
+// All bf16 except cache_len and the scratch. D is 64 or 128; the group
+// (Hq/Hkv) is 1, 2, 4 or 8.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,9 +61,7 @@
 namespace {
 
 constexpr int BLOCK_K = 128;                   // positions per online step
-constexpr int PER_STREAM = BLOCK_K / STREAMS;  // 8 positions a half-warp
 constexpr int MAX_SPLITS = 16;                 // chunks a combine folds
-constexpr int PART = D + 2;                    // floats of one partial row
 
 __device__ __forceinline__ uint4 load_raw(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint4*>(p);
@@ -72,7 +73,7 @@ __device__ __forceinline__ void unpack8(const uint4& raw, float* out) {
   for (int j = 0; j < LANE_ELEMS; ++j) out[j] = __bfloat162float(h[j]);
 }
 
-template <int G>
+template <int D, int G>
 __global__ void __launch_bounds__(THREADS)
 flash_decode_partial(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k_cache,
@@ -80,6 +81,10 @@ flash_decode_partial(const __nv_bfloat16* __restrict__ q,
                      const int32_t* __restrict__ cache_len,
                      float* __restrict__ part, int T, int slot_T, int Hkv,
                      int chunk, float sm_scale) {
+  constexpr int ROW = Lanes<D>::ROW;            // lanes a K/V row
+  constexpr int STREAMS = Lanes<D>::STREAMS;    // row streams a block
+  constexpr int PER_STREAM = BLOCK_K / STREAMS; // positions a stream a step
+  constexpr int PART = D + 2;   // a partial row: acc[D], then m, l
   __shared__ float part_m[STREAMS][G];
   __shared__ float part_l[STREAMS][G];
   __shared__ float part_acc[WARPS][G][D];
@@ -87,8 +92,8 @@ flash_decode_partial(const __nv_bfloat16* __restrict__ q,
   const int h = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
   const int Hq = Hkv * G;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int stream = warp * 2 + lane / 16;
-  const int d0 = (lane % 16) * LANE_ELEMS;
+  const int stream = warp * Lanes<D>::SUBS + lane / ROW;
+  const int d0 = (lane % ROW) * LANE_ELEMS;
 
   // at group 8 the registers hold the scores: each V row loads at its use
   constexpr bool HOIST_V = G <= 4;
@@ -129,7 +134,7 @@ flash_decode_partial(const __nv_bfloat16* __restrict__ q,
   }
 
   for (int base = first; base < stop; base += BLOCK_K) {
-    // this half-warp's 8 K rows, all in flight at once (zeros when dead)
+    // this stream's K rows, all in flight at once (zeros when dead)
     uint4 raw[PER_STREAM];
 #pragma unroll
     for (int i = 0; i < PER_STREAM; ++i) {
@@ -137,7 +142,7 @@ flash_decode_partial(const __nv_bfloat16* __restrict__ q,
       raw[i] = t < stop ? load_raw(kc + t * pos_stride)
                         : make_uint4(0, 0, 0, 0);
     }
-    // scores of the 8 positions; dead ones are NEG_INF
+    // scores of its positions; dead ones are NEG_INF
     float s[PER_STREAM][G], m_loc[G];
 #pragma unroll
     for (int g = 0; g < G; ++g) m_loc[g] = NEG_INF;
@@ -151,12 +156,12 @@ flash_decode_partial(const __nv_bfloat16* __restrict__ q,
         float dot = 0.f;
 #pragma unroll
         for (int j = 0; j < LANE_ELEMS; ++j) dot = fmaf(qv[g][j], kv[j], dot);
-        dot = half_sum(dot);
+        dot = row_sum<ROW>(dot);
         s[i][g] = live ? dot : NEG_INF;
         m_loc[g] = fmaxf(m_loc[g], s[i][g]);
       }
     }
-    // the 8 V rows go out before the block max is exchanged
+    // the V rows go out before the block max is exchanged
     if constexpr (HOIST_V) {
 #pragma unroll
       for (int i = 0; i < PER_STREAM; ++i) {
@@ -165,7 +170,7 @@ flash_decode_partial(const __nv_bfloat16* __restrict__ q,
                           : make_uint4(0, 0, 0, 0);
       }
     }
-    if (lane % 16 == 0) {
+    if (lane % ROW == 0) {
 #pragma unroll
       for (int g = 0; g < G; ++g) part_m[stream][g] = m_loc[g];
     }
@@ -200,7 +205,7 @@ flash_decode_partial(const __nv_bfloat16* __restrict__ q,
           acc[g][j] = fmaf(p, vv[j], acc[g][j]);
       }
     }
-    if (lane % 16 == 0) {
+    if (lane % ROW == 0) {
 #pragma unroll
       for (int g = 0; g < G; ++g) part_l[stream][g] = l_loc[g];
     }
@@ -216,13 +221,12 @@ flash_decode_partial(const __nv_bfloat16* __restrict__ q,
     }
   }
 
-  // both halves of a warp hold the same columns: fold them, then the warps
+  // a warp's streams hold the same columns: fold them, then the warps
 #pragma unroll
   for (int g = 0; g < G; ++g)
 #pragma unroll
-    for (int j = 0; j < LANE_ELEMS; ++j)
-      acc[g][j] += __shfl_xor_sync(0xffffffffu, acc[g][j], 16);
-  if (lane < 16) {
+    for (int j = 0; j < LANE_ELEMS; ++j) acc[g][j] = sub_fold<ROW>(acc[g][j]);
+  if (lane < ROW) {
 #pragma unroll
     for (int g = 0; g < G; ++g)
 #pragma unroll
@@ -246,7 +250,7 @@ flash_decode_partial(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int G>
+template <int D, int G>
 __global__ void __launch_bounds__(THREADS)
 flash_decode_combine(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k_new,
@@ -256,6 +260,7 @@ flash_decode_combine(const __nv_bfloat16* __restrict__ q,
                      __nv_bfloat16* __restrict__ out, int T, int Hkv,
                      int chunk, int splits, float sm_scale) {
   static_assert(G <= WARPS, "one warp per query row of the group");
+  constexpr int PART = D + 2;   // a partial row: acc[D], then m, l
   __shared__ float weight[G][MAX_SPLITS];  // exp(m_s - m) of each chunk
   __shared__ float fin_corr[G], fin_p_new[G], fin_l[G];
 
@@ -269,7 +274,8 @@ flash_decode_combine(const __nv_bfloat16* __restrict__ q,
 
   if (warp < G) {
     const int g = warp;
-    // the new token's score: q (pre-scaled) . k_new, 4 elements a lane
+    // the new token's score: q (pre-scaled) . k_new, D / 32 elements a
+    // lane
     const __nv_bfloat16* qg = q + ((long)b * Hq + (long)h * G + g) * D;
     const __nv_bfloat16* kn = k_new + (long)b * pos_stride + (long)h * D;
     float dot = 0.f;
@@ -319,7 +325,7 @@ flash_decode_combine(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int G>
+template <int D, int G>
 cudaError_t launch(const void* q, const void* k_cache, const void* v_cache,
                    const void* k_new, const void* v_new,
                    const void* cache_len, void* out, void* scratch, int B,
@@ -329,17 +335,41 @@ cudaError_t launch(const void* q, const void* k_cache, const void* v_cache,
   const __nv_bfloat16* qp = static_cast<const __nv_bfloat16*>(q);
   const int32_t* lens = static_cast<const int32_t*>(cache_len);
   float* part = static_cast<float*>(scratch);
-  flash_decode_partial<G><<<dim3(Hkv, B, splits), THREADS, 0, stream>>>(
+  flash_decode_partial<D, G><<<dim3(Hkv, B, splits), THREADS, 0, stream>>>(
       qp, static_cast<const __nv_bfloat16*>(k_cache),
       static_cast<const __nv_bfloat16*>(v_cache), lens, part, T, slot_T, Hkv,
       chunk, sm_scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_decode_combine<G><<<dim3(Hkv, B), THREADS, 0, stream>>>(
+  flash_decode_combine<D, G><<<dim3(Hkv, B), THREADS, 0, stream>>>(
       qp, static_cast<const __nv_bfloat16*>(k_new),
       static_cast<const __nv_bfloat16*>(v_new), lens, part,
       static_cast<__nv_bfloat16*>(out), T, Hkv, chunk, splits, sm_scale);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_group(int group, const void* q, const void* k_cache,
+                         const void* v_cache, const void* k_new,
+                         const void* v_new, const void* cache_len, void* out,
+                         void* scratch, int B, int T, int slot_T, int Hkv,
+                         int chunk, int splits, cudaStream_t st) {
+  switch (group) {
+    case 1:
+      return launch<D, 1>(q, k_cache, v_cache, k_new, v_new, cache_len, out,
+                          scratch, B, T, slot_T, Hkv, chunk, splits, st);
+    case 2:
+      return launch<D, 2>(q, k_cache, v_cache, k_new, v_new, cache_len, out,
+                          scratch, B, T, slot_T, Hkv, chunk, splits, st);
+    case 4:
+      return launch<D, 4>(q, k_cache, v_cache, k_new, v_new, cache_len, out,
+                          scratch, B, T, slot_T, Hkv, chunk, splits, st);
+    case 8:
+      return launch<D, 8>(q, k_cache, v_cache, k_new, v_new, cache_len, out,
+                          scratch, B, T, slot_T, Hkv, chunk, splits, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -355,30 +385,17 @@ extern "C" int gofr_flash_decode_attention(
     const void* k_new, const void* v_new, const void* cache_len, void* out,
     void* scratch, int B, int T, int slot_T, int Hq, int Hkv, int head_dim,
     int chunk, int splits, void* stream) {
-  if (head_dim != D || B <= 0 || T <= 0 || slot_T < T || Hkv <= 0 ||
-      Hq % Hkv != 0 || B > 65535 || chunk <= 0 || chunk % BLOCK_K != 0 ||
-      splits <= 0 || splits > MAX_SPLITS || (long)(splits - 1) * chunk >= T ||
-      (long)splits * chunk < T)
+  if ((head_dim != 64 && head_dim != 128) || B <= 0 || T <= 0 ||
+      slot_T < T || Hkv <= 0 || Hq % Hkv != 0 || B > 65535 || chunk <= 0 ||
+      chunk % BLOCK_K != 0 || splits <= 0 || splits > MAX_SPLITS ||
+      (long)(splits - 1) * chunk >= T || (long)splits * chunk < T)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (Hq / Hkv) {
-    case 1:
-      return (int)launch<1>(q, k_cache, v_cache, k_new, v_new, cache_len,
-                            out, scratch, B, T, slot_T, Hkv, chunk, splits,
-                            st);
-    case 2:
-      return (int)launch<2>(q, k_cache, v_cache, k_new, v_new, cache_len,
-                            out, scratch, B, T, slot_T, Hkv, chunk, splits,
-                            st);
-    case 4:
-      return (int)launch<4>(q, k_cache, v_cache, k_new, v_new, cache_len,
-                            out, scratch, B, T, slot_T, Hkv, chunk, splits,
-                            st);
-    case 8:
-      return (int)launch<8>(q, k_cache, v_cache, k_new, v_new, cache_len,
-                            out, scratch, B, T, slot_T, Hkv, chunk, splits,
-                            st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (head_dim == 64)
+    return (int)launch_group<64>(Hq / Hkv, q, k_cache, v_cache, k_new, v_new,
+                                 cache_len, out, scratch, B, T, slot_T, Hkv,
+                                 chunk, splits, st);
+  return (int)launch_group<128>(Hq / Hkv, q, k_cache, v_cache, k_new, v_new,
+                                cache_len, out, scratch, B, T, slot_T, Hkv,
+                                chunk, splits, st);
 }

@@ -40,14 +40,24 @@
 //   it multiplies; the new tokens' keys are one more tile. Each score is
 //   then rounded to bf16 and scaled as the oracle does.
 // - Pass 2 on the CUDA cores in float32 (the int8 V path weights int8
-//   rows by unrounded probabilities): each half-warp issues 16 V rows
+//   rows by unrounded probabilities): each group of D / 8 lanes holds one
+//   V row, 16 bytes a lane (8 bytes for int8), and issues D / 8 rows
 //   before it uses the first (an int8 row's scale load beside its row;
 //   the page table walked from one division a run), so a chunk of 256
 //   positions is one run, kept in registers for every query (the
 //   accumulators take the group's rows in two halves from group 4 up).
-//   16 lanes x 16 bytes = one 256-byte bf16 row (8 bytes a lane for
-//   int8). The first run is issued before the cluster barrier, so its
-//   latency hides behind the folds.
+//   The first run is issued before the cluster barrier, so its latency
+//   hides behind the folds.
+// - Head dim D is a template parameter, 128 or 64 (the `small` preset),
+//   with one body for both. At D 128 a half-warp holds a 256-byte bf16
+//   row; at D 64 a quarter-warp holds a 128-byte row (4 row streams a
+//   warp, not 2), runs of 8 rows, not 16, and pass 1 takes 4 mma k-steps,
+//   not 8. The quarter-warp keeps every lane's load at 16 bytes (8 for
+//   int8), the width a warp reads device memory fastest at; the other
+//   choice, a half-warp of 8-byte lanes, halves the bytes each load
+//   brings and doubles the loads a row. Either way the stride of a pass-2
+//   sweep stays 256 positions, so the chunk rule and every fold order
+//   are the D-128 kernel's.
 // - The softmax runs as sweeps over the scores in shared memory, one
 //   thread an element, not once a lane.
 // - Fixed costs are cut for the many short slots: three cluster barriers
@@ -78,17 +88,18 @@
 // is rounded to bf16, scaled by sm_scale, then by the row's K scale; the
 // cache probabilities are not rounded but multiplied by the row's V
 // scale before they weight the int8 V row in f32. A position's scale is
-// one float that the half-warp's lanes load from one address (one
+// one float that the row's lanes load from one address (one
 // transaction). Scales are read only for live positions, like the rows:
 // a NaN scale in a dead row or a sentinel page never reaches the output.
 // The new tokens' K/V arrive as bf16 and take the bf16 path. The bytes
-// per position fall from 512 to 264 (K, V and two scales).
+// per position and KV head fall from 4D to 2D + 8 (K, V and two scales).
 //
 // Layout: q (B,G,Hq,D); k_pages/v_pages (N,page,Hkv,D) bf16 or int8;
 // k_scale/v_scale (N,page,Hkv) f32 with int8 pools; table (B,P) int32
 // with sentinel N; k_new/v_new (B,G,Hkv,D); cache_len (B,) int32 (valid
 // tokens excluding the new ones); out (B,G,Hq,D). q, new K/V and out
-// bf16. D is 128; the group (Hq/Hkv) is 1, 2, 4 or 8; 1 <= G <= MAX_NEW.
+// bf16. D is 64 or 128; the group (Hq/Hkv) is 1, 2, 4 or 8;
+// 1 <= G <= MAX_NEW.
 // Grid (Hkv * CLUSTER, B), clusters of (CLUSTER, 1, 1), 256 threads;
 // dynamic shared memory (dyn_smem_bytes) at most MAX_DYN_SMEM.
 
@@ -109,18 +120,16 @@ namespace {
 
 constexpr int MAX_NEW = 8;     // at most 8 new tokens a slot (gamma <= 7)
 constexpr int CLUSTER = 8;     // blocks a (KV head, slot): portable size
-// pass 1: tiles of 8 K rows a warp loads before it multiplies; pass 2: V
-// rows a half-warp issues before it uses the first (a chunk of 256
-// positions is one run, kept in registers for every query)
+// pass 1: tiles of 8 K rows a warp loads before it multiplies
 constexpr int K_TILES = 2;
-constexpr int V_RUN = 16;
 // dynamic shared memory a block may take (its chunk's scores, partials,
 // queries and page ids), and what one block may use on sm_90
 constexpr long MAX_DYN_SMEM = 160 * 1024;
 constexpr int SMEM_LIMIT = 232448;
 constexpr unsigned FULL = 0xffffffffu;
 
-// one lane's share of a K or V row: 8 elements, 16 bytes bf16, 8 int8
+// one lane's share of a V row in pass 2: 8 elements, 16 bytes bf16, 8
+// int8
 template <typename KV>
 using Row = typename std::conditional<std::is_same<KV, int8_t>::value,
                                       uint2, uint4>::type;
@@ -221,24 +230,25 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], unsigned a0,
 // The dots of the R query rows in q_sh with NT tiles of 8 key rows, on the
 // tensor cores: the query rows are the A operand (16 a tile), the keys the
 // B operand, the head dimension permuted so that lane (n, c) holds
-// elements [32c, 32c + 32) of key n of each tile in kw (as bf16 pairs;
-// 8 mma k-steps of 4 of them). Calls out(t, r, n, dot) for each query row
-// r < R and key n of tile t whose dot this lane holds.
-template <int NT, typename Out>
+// elements [c D/4, (c + 1) D/4) of key n of each tile in kw (KW = D / 8
+// bf16 pairs; D / 16 mma k-steps of 4 of them). Calls out(t, r, n, dot)
+// for each query row r < R and key n of tile t whose dot this lane holds.
+template <int D, int NT, typename Out>
 __device__ __forceinline__ void tile_dots(const __nv_bfloat16* q_sh, int R,
-                                          const unsigned (&kw)[NT][16],
+                                          const unsigned (&kw)[NT][D / 8],
                                           int lane, Out out) {
+  constexpr int KW = D / 8;
   const int kn = lane / 4, kc = lane % 4;
   for (int r0 = 0; r0 < R; r0 += 16) {    // warp-uniform
     const int ra = r0 + kn, rb = ra + 8;  // this lane's two rows
-    unsigned qa[16], qb[16];
+    unsigned qa[KW], qb[KW];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < KW / 4; ++i) {
       const uint4 va = ra < R ? *reinterpret_cast<const uint4*>(
-                                    q_sh + ra * D + 32 * kc + 8 * i)
+                                    q_sh + ra * D + (D / 4) * kc + 8 * i)
                               : make_uint4(0, 0, 0, 0);
       const uint4 vb = rb < R ? *reinterpret_cast<const uint4*>(
-                                    q_sh + rb * D + 32 * kc + 8 * i)
+                                    q_sh + rb * D + (D / 4) * kc + 8 * i)
                               : make_uint4(0, 0, 0, 0);
       qa[4 * i] = va.x; qa[4 * i + 1] = va.y;
       qa[4 * i + 2] = va.z; qa[4 * i + 3] = va.w;
@@ -249,7 +259,7 @@ __device__ __forceinline__ void tile_dots(const __nv_bfloat16* q_sh, int R,
     for (int t = 0; t < NT; ++t) {
       float c[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int s = 0; s < 8; ++s)
+      for (int s = 0; s < KW / 2; ++s)
         mma_bf16(c, qa[2 * s], qb[2 * s], qa[2 * s + 1], qb[2 * s + 1],
                  kw[t][2 * s], kw[t][2 * s + 1]);
       // c: rows ra, rb at keys 2c, 2c + 1
@@ -280,7 +290,7 @@ __device__ __forceinline__ void gather(cg::cluster_group& cluster,
 // new tokens at compile time: 1 for a decode launch, MAX_NEW for verify;
 // the arithmetic and its order do not depend on it. KV is the pools'
 // element type: __nv_bfloat16, or int8_t with the scale planes.
-template <int G, int NEW, typename KV>
+template <int D, int G, int NEW, typename KV>
 __global__ void __cluster_dims__(CLUSTER, 1, 1)
     __launch_bounds__(THREADS, G <= 4 ? 2 : 1)
 ragged_kernel(const __nv_bfloat16* __restrict__ q,
@@ -307,7 +317,13 @@ ragged_kernel(const __nv_bfloat16* __restrict__ q,
   __shared__ __align__(16) __nv_bfloat16 v_new_sh[NEW][D];
   __shared__ float part_acc[WARPS][G][D];
   constexpr bool INT8 = std::is_same<KV, int8_t>::value;
-  constexpr int V_STRIDE = STREAMS * V_RUN;
+  constexpr int ROW = Lanes<D>::ROW;        // lanes a V row in pass 2
+  constexpr int SUBS = Lanes<D>::SUBS;      // V row streams a warp
+  constexpr int KW = D / 8;                 // pass 1: bf16 pairs a lane
+  // pass 2: V rows a stream issues before it uses the first; a sweep of
+  // the block covers 256 positions at either D
+  constexpr int V_RUN = D / 8;
+  constexpr int V_STRIDE = Lanes<D>::STREAMS * V_RUN;
   // pass 2's accumulators take the group's rows in two halves from 4 up,
   // over the same V registers
   constexpr int G_PART = G < 4 ? G : G / 2;
@@ -318,8 +334,8 @@ ragged_kernel(const __nv_bfloat16* __restrict__ q,
   const int h = blockIdx.x / CLUSTER, b = blockIdx.y;
   const int Hq = Hkv * G, rows = g_len * G;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int half = lane / 16;
-  const int d0 = (lane % 16) * LANE_ELEMS;
+  const int sub = lane / ROW;
+  const int d0 = (lane % ROW) * LANE_ELEMS;
   const int per_rank = (P + CLUSTER - 1) / CLUSTER;
   const int cap = per_rank * page;           // positions a chunk may hold
   __nv_bfloat16* q_sh = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -343,9 +359,9 @@ ragged_kernel(const __nv_bfloat16* __restrict__ q,
   // the rows of (b, query 0) in q/out, and of (b, u = 0) in k_new/v_new
   const long q_row0 = (long)b * g_len * Hq + (long)h * G;
   const long new_row0 = (long)b * g_len * walk.pos_stride + (long)h * D;
-  // a warp's two half-warps take consecutive runs of positions; the loop
+  // a warp's row streams take consecutive runs of positions; the loop
   // bounds are warp-uniform, so the shuffles never diverge
-  const int v_base0 = chunk.t0 + warp * 2 * V_RUN;
+  const int v_base0 = chunk.t0 + warp * SUBS * V_RUN;
 
   // -- every small input at once: ids (clamped into the pool, so a broken
   // table cannot read out of it), queries, the new tokens' K and V ------
@@ -368,30 +384,32 @@ ragged_kernel(const __nv_bfloat16* __restrict__ q,
 
   // -- pass 1: every query's chunk scores into shared memory, the dots on
   // the tensor cores; each warp loads K_TILES tiles of 8 K rows (lane
-  // (n, c): elements [32c, 32c + 32) of row n, int8 widened to bf16
+  // (n, c): elements [c D/4, (c + 1) D/4) of row n, int8 widened to bf16
   // exactly) before it multiplies --------------------------------------
   const int kn = lane / 4, kc = lane % 4;
-  const long k_col = (long)h * D + 32 * kc;
+  const long k_col = (long)h * D + (D / 4) * kc;
   for (int base = chunk.t0 + warp * 8 * K_TILES; base < chunk.t1;
        base += WARPS * 8 * K_TILES) {     // warp-uniform
-    unsigned kw[K_TILES][16];
+    unsigned kw[K_TILES][KW];
     float ks[K_TILES][2];   // int8: the K scales of keys 2c, 2c + 1
 #pragma unroll
     for (int t = 0; t < K_TILES; ++t) {
       const int pos = base + t * 8 + kn;
       float scale = 0.f;
 #pragma unroll
-      for (int w = 0; w < 16; ++w) kw[t][w] = 0u;
+      for (int w = 0; w < KW; ++w) kw[t][w] = 0u;
       if (pos < chunk.t1) {
         const int lt = pos - chunk.t0, pi = lt / page, off = lt - pi * page;
         const long pid = pid_sh[pi];
         const uint4* src = reinterpret_cast<const uint4*>(
             k_pages + pid * walk.page_stride + off * walk.pos_stride + k_col);
         if constexpr (INT8) {
-          const uint4 raw[2] = {src[0], src[1]};
+          uint4 raw[D / 64];      // D / 4 int8 bytes
+#pragma unroll
+          for (int i = 0; i < D / 64; ++i) raw[i] = src[i];
           const unsigned* word = reinterpret_cast<const unsigned*>(raw);
 #pragma unroll
-          for (int w = 0; w < 8; ++w) {
+          for (int w = 0; w < KW / 2; ++w) {
             const unsigned biased = word[w] ^ 0x80808080u;
 #pragma unroll
             for (int hi = 0; hi < 2; ++hi) {
@@ -405,7 +423,7 @@ ragged_kernel(const __nv_bfloat16* __restrict__ q,
           scale = k_scale[(pid * page + off) * Hkv + h];
         } else {
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
+          for (int i = 0; i < KW / 4; ++i) {
             const uint4 v = src[i];
             kw[t][4 * i] = v.x;
             kw[t][4 * i + 1] = v.y;
@@ -419,7 +437,7 @@ ragged_kernel(const __nv_bfloat16* __restrict__ q,
         ks[t][1] = __shfl_sync(FULL, scale, (2 * kc + 1) * 4);
       }
     }
-    tile_dots<K_TILES>(q_sh, rows, kw, lane,
+    tile_dots<D, K_TILES>(q_sh, rows, kw, lane,
                        [&](int t, int r, int n, float dot) {
       const int p = base + t * 8 + n;
       if (p >= chunk.t1) return;
@@ -432,25 +450,25 @@ ragged_kernel(const __nv_bfloat16* __restrict__ q,
   }
   // the new tokens' scores: their K rows are one tile (g_len <= 8)
   if (warp == 0) {
-    unsigned kw[1][16];
+    unsigned kw[1][KW];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < KW / 4; ++i) {
       const uint4 v = kn < g_len ? *reinterpret_cast<const uint4*>(
-                                       &k_new_sh[kn][32 * kc + 8 * i])
+                                       &k_new_sh[kn][(D / 4) * kc + 8 * i])
                                  : make_uint4(0, 0, 0, 0);
       kw[0][4 * i] = v.x;
       kw[0][4 * i + 1] = v.y;
       kw[0][4 * i + 2] = v.z;
       kw[0][4 * i + 3] = v.w;
     }
-    tile_dots<1>(q_sh, rows, kw, lane, [&](int, int r, int u, float dot) {
+    tile_dots<D, 1>(q_sh, rows, kw, lane, [&](int, int r, int u, float dot) {
       if (u <= r / G) s_new[r / G][u][r % G] = round_bf16(dot) * sm_scale;
     });
   }
   // pass 2's first V rows go out now: they arrive during the folds
   Row<KV> vr[V_RUN];
   float vs[V_RUN];
-  load_run<KV, V_RUN>(walk, v_pages, v_scale, v_base0 + half * V_RUN, vr,
+  load_run<KV, V_RUN>(walk, v_pages, v_scale, v_base0 + sub * V_RUN, vr,
                       vs);
 
   // -- the chunk's statistics of each (query, row): its max m_r, then the
@@ -537,7 +555,7 @@ ragged_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int j = 0; j < LANE_ELEMS; ++j) acc[g][j] = 0.f;
       for (int base = v_base0; base < chunk.t1; base += V_STRIDE) {
-        const int first = base + half * V_RUN;
+        const int first = base + sub * V_RUN;
         if (base != v_base0)
           load_run<KV, V_RUN>(walk, v_pages, v_scale, first, vr, vs);
 #pragma unroll
@@ -557,14 +575,15 @@ ragged_kernel(const __nv_bfloat16* __restrict__ q,
       }
       // the next rows' (or query's) first run goes out during the sums
       if (!one_run && (g0 + G_PART < G || qi + 1 < g_len))
-        load_run<KV, V_RUN>(walk, v_pages, v_scale, v_base0 + half * V_RUN,
+        load_run<KV, V_RUN>(walk, v_pages, v_scale, v_base0 + sub * V_RUN,
                             vr, vs);
+      // the warp's row streams hold the same columns: fold them
 #pragma unroll
       for (int g = 0; g < G_PART; ++g)
 #pragma unroll
         for (int j = 0; j < LANE_ELEMS; ++j)
-          acc[g][j] += __shfl_xor_sync(FULL, acc[g][j], 16);
-      if (lane < 16) {
+          acc[g][j] = sub_fold<ROW>(acc[g][j]);
+      if (lane < ROW) {
 #pragma unroll
         for (int g = 0; g < G_PART; ++g)
 #pragma unroll
@@ -607,24 +626,25 @@ ragged_kernel(const __nv_bfloat16* __restrict__ q,
 
 // dynamic shared memory of a launch: the queries, one rank's partials,
 // scores and page ids
-long dyn_smem_bytes(int P, int page, int group, int g_len) {
+long dyn_smem_bytes(int P, int page, int group, int g_len, int head_dim) {
   const long per_rank = (P + CLUSTER - 1) / CLUSTER;
   const long rows = (long)g_len * group;
-  return rows * D * (long)(sizeof(__nv_bfloat16) + sizeof(float)) +
+  return rows * head_dim * (long)(sizeof(__nv_bfloat16) + sizeof(float)) +
          rows * per_rank * page * (long)sizeof(float) +
          per_rank * (long)sizeof(int32_t);
 }
 
 // Lift the kernel's dynamic shared-memory limit to what the card allows
 // beside its static shared memory, once per instantiation.
-template <int G, int NEW, typename KV>
+template <int D, int G, int NEW, typename KV>
 cudaError_t allow_dyn_smem() {
   static const cudaError_t status = [] {
     cudaFuncAttributes attrs;
-    cudaError_t err = cudaFuncGetAttributes(&attrs, ragged_kernel<G, NEW, KV>);
+    cudaError_t err =
+        cudaFuncGetAttributes(&attrs, ragged_kernel<D, G, NEW, KV>);
     if (err != cudaSuccess) return err;
     return cudaFuncSetAttribute(
-        ragged_kernel<G, NEW, KV>,
+        ragged_kernel<D, G, NEW, KV>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         SMEM_LIMIT - (int)attrs.sharedSizeBytes);
   }();
@@ -639,108 +659,116 @@ struct Pools {
   const void* v_scale;
 };
 
-template <int G, int NEW, typename KV>
-cudaError_t launch(const void* q, Pools pools, const void* table,
-                   const void* k_new, const void* v_new,
-                   const void* cache_len, void* out, int B, int g_len,
-                   int Hkv, int num_pages, int page, int P,
-                   cudaStream_t stream) {
-  const dim3 grid(Hkv * CLUSTER, B, 1);
+// One call's operands and geometry.
+struct Call {
+  const void* q;
+  Pools pools;
+  const void* table;
+  const void* k_new;
+  const void* v_new;
+  const void* cache_len;
+  void* out;
+  int B, g_len, Hkv, num_pages, page, P;
+  cudaStream_t stream;
+};
+
+template <int D, int G, int NEW, typename KV>
+cudaError_t launch(const Call& c) {
+  const dim3 grid(c.Hkv * CLUSTER, c.B, 1);
   const float sm_scale = (float)(1.0 / sqrt((double)D));
-  const cudaError_t err = allow_dyn_smem<G, NEW, KV>();
+  const cudaError_t err = allow_dyn_smem<D, G, NEW, KV>();
   if (err != cudaSuccess) return err;
-  ragged_kernel<G, NEW, KV>
-      <<<grid, THREADS, dyn_smem_bytes(P, page, G, g_len), stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const KV*>(pools.k), static_cast<const KV*>(pools.v),
-      static_cast<const float*>(pools.k_scale),
-      static_cast<const float*>(pools.v_scale),
-      static_cast<const int32_t*>(table),
-      static_cast<const __nv_bfloat16*>(k_new),
-      static_cast<const __nv_bfloat16*>(v_new),
-      static_cast<const int32_t*>(cache_len),
-      static_cast<__nv_bfloat16*>(out), num_pages, page, Hkv, P, g_len,
-      sm_scale);
+  ragged_kernel<D, G, NEW, KV>
+      <<<grid, THREADS, dyn_smem_bytes(c.P, c.page, G, c.g_len, D),
+         c.stream>>>(
+      static_cast<const __nv_bfloat16*>(c.q),
+      static_cast<const KV*>(c.pools.k), static_cast<const KV*>(c.pools.v),
+      static_cast<const float*>(c.pools.k_scale),
+      static_cast<const float*>(c.pools.v_scale),
+      static_cast<const int32_t*>(c.table),
+      static_cast<const __nv_bfloat16*>(c.k_new),
+      static_cast<const __nv_bfloat16*>(c.v_new),
+      static_cast<const int32_t*>(c.cache_len),
+      static_cast<__nv_bfloat16*>(c.out), c.num_pages, c.page, c.Hkv, c.P,
+      c.g_len, sm_scale);
   return cudaGetLastError();
 }
 
 // Decode (g_len 1) takes the NEW = 1 instantiation unless verify_form asks
 // for the verify one, which must give the same bits at g_len 1.
-template <int G, typename KV>
-cudaError_t launch_group(const void* q, Pools pools, const void* table,
-                         const void* k_new, const void* v_new,
-                         const void* cache_len, void* out, int B, int g_len,
-                         int Hkv, int num_pages, int page, int P,
-                         bool verify_form, cudaStream_t stream) {
-  if (g_len == 1 && !verify_form)
-    return launch<G, 1, KV>(q, pools, table, k_new, v_new, cache_len, out,
-                            B, g_len, Hkv, num_pages, page, P, stream);
-  return launch<G, MAX_NEW, KV>(q, pools, table, k_new, v_new, cache_len,
-                                out, B, g_len, Hkv, num_pages, page, P,
-                                stream);
+template <int D, int G, typename KV>
+cudaError_t launch_group(const Call& c, bool verify_form) {
+  if (c.g_len == 1 && !verify_form) return launch<D, G, 1, KV>(c);
+  return launch<D, G, MAX_NEW, KV>(c);
 }
 
-template <typename KV>
-int dispatch(const void* q, Pools pools, const void* table,
-             const void* k_new, const void* v_new, const void* cache_len,
-             void* out, int B, int g_len, int Hq, int Hkv, int head_dim,
-             int num_pages, int page, int P, bool verify_form,
-             void* stream) {
-  if (head_dim != D || B <= 0 || Hkv <= 0 || Hq % Hkv != 0 ||
-      num_pages <= 0 || page <= 0 || P <= 0 || B > 65535 || g_len < 1 ||
-      g_len > MAX_NEW || Hkv > INT_MAX / CLUSTER ||
-      (long)P * page > INT_MAX ||
-      dyn_smem_bytes(P, page, Hq / Hkv, g_len) > MAX_DYN_SMEM)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (Hq / Hkv) {
-    case 1:
-      return (int)launch_group<1, KV>(q, pools, table, k_new, v_new,
-                                      cache_len, out, B, g_len, Hkv,
-                                      num_pages, page, P, verify_form, st);
-    case 2:
-      return (int)launch_group<2, KV>(q, pools, table, k_new, v_new,
-                                      cache_len, out, B, g_len, Hkv,
-                                      num_pages, page, P, verify_form, st);
-    case 4:
-      return (int)launch_group<4, KV>(q, pools, table, k_new, v_new,
-                                      cache_len, out, B, g_len, Hkv,
-                                      num_pages, page, P, verify_form, st);
-    case 8:
-      return (int)launch_group<8, KV>(q, pools, table, k_new, v_new,
-                                      cache_len, out, B, g_len, Hkv,
-                                      num_pages, page, P, verify_form, st);
-    default:
-      return (int)cudaErrorInvalidValue;
+template <int D, typename KV>
+cudaError_t launch_head_dim(const Call& c, int group, bool verify_form) {
+  switch (group) {
+    case 1: return launch_group<D, 1, KV>(c, verify_form);
+    case 2: return launch_group<D, 2, KV>(c, verify_form);
+    case 4: return launch_group<D, 4, KV>(c, verify_form);
+    case 8: return launch_group<D, 8, KV>(c, verify_form);
+    default: return cudaErrorInvalidValue;
   }
 }
 
-template <int G, int NEW, typename KV>
+template <typename KV>
+int dispatch(const Call& c, int Hq, int head_dim, bool verify_form) {
+  if ((head_dim != 64 && head_dim != 128) || c.B <= 0 || c.Hkv <= 0 ||
+      Hq % c.Hkv != 0 || c.num_pages <= 0 || c.page <= 0 || c.P <= 0 ||
+      c.B > 65535 || c.g_len < 1 || c.g_len > MAX_NEW ||
+      c.Hkv > INT_MAX / CLUSTER || (long)c.P * c.page > INT_MAX ||
+      dyn_smem_bytes(c.P, c.page, Hq / c.Hkv, c.g_len, head_dim) >
+          MAX_DYN_SMEM)
+    return (int)cudaErrorInvalidValue;
+  if (head_dim == 64)
+    return (int)launch_head_dim<64, KV>(c, Hq / c.Hkv, verify_form);
+  return (int)launch_head_dim<128, KV>(c, Hq / c.Hkv, verify_form);
+}
+
+template <int D, int G, int NEW, typename KV>
 cudaError_t occupancy(int P, int page, int g_len, int* clusters) {
-  const cudaError_t err = allow_dyn_smem<G, NEW, KV>();
+  const cudaError_t err = allow_dyn_smem<D, G, NEW, KV>();
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(CLUSTER, 1, 1);
   config.blockDim = dim3(THREADS, 1, 1);
-  config.dynamicSmemBytes = dyn_smem_bytes(P, page, G, g_len);
-  return cudaOccupancyMaxActiveClusters(clusters, ragged_kernel<G, NEW, KV>,
-                                        &config);
+  config.dynamicSmemBytes = dyn_smem_bytes(P, page, G, g_len, D);
+  return cudaOccupancyMaxActiveClusters(
+      clusters, ragged_kernel<D, G, NEW, KV>, &config);
 }
 
-template <typename KV>
+template <int D, typename KV>
 cudaError_t occupancy_group(int group, bool verify, int P, int page,
                             int g_len, int* clusters) {
   switch (group * 2 + (verify ? 1 : 0)) {
-    case 2: return occupancy<1, 1, KV>(P, page, g_len, clusters);
-    case 3: return occupancy<1, MAX_NEW, KV>(P, page, g_len, clusters);
-    case 4: return occupancy<2, 1, KV>(P, page, g_len, clusters);
-    case 5: return occupancy<2, MAX_NEW, KV>(P, page, g_len, clusters);
-    case 8: return occupancy<4, 1, KV>(P, page, g_len, clusters);
-    case 9: return occupancy<4, MAX_NEW, KV>(P, page, g_len, clusters);
-    case 16: return occupancy<8, 1, KV>(P, page, g_len, clusters);
-    case 17: return occupancy<8, MAX_NEW, KV>(P, page, g_len, clusters);
+    case 2: return occupancy<D, 1, 1, KV>(P, page, g_len, clusters);
+    case 3: return occupancy<D, 1, MAX_NEW, KV>(P, page, g_len, clusters);
+    case 4: return occupancy<D, 2, 1, KV>(P, page, g_len, clusters);
+    case 5: return occupancy<D, 2, MAX_NEW, KV>(P, page, g_len, clusters);
+    case 8: return occupancy<D, 4, 1, KV>(P, page, g_len, clusters);
+    case 9: return occupancy<D, 4, MAX_NEW, KV>(P, page, g_len, clusters);
+    case 16: return occupancy<D, 8, 1, KV>(P, page, g_len, clusters);
+    case 17: return occupancy<D, 8, MAX_NEW, KV>(P, page, g_len, clusters);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <typename KV>
+cudaError_t occupancy_head_dim(int head_dim, int group, bool verify, int P,
+                               int page, int g_len, int* clusters) {
+  if (head_dim == 64)
+    return occupancy_group<64, KV>(group, verify, P, page, g_len, clusters);
+  return occupancy_group<128, KV>(group, verify, P, page, g_len, clusters);
+}
+
+Call make_call(const void* q, Pools pools, const void* table,
+               const void* k_new, const void* v_new, const void* cache_len,
+               void* out, int B, int g_len, int Hkv, int num_pages, int page,
+               int P, void* stream) {
+  return Call{q, pools, table, k_new, v_new, cache_len, out, B, g_len, Hkv,
+              num_pages, page, P, static_cast<cudaStream_t>(stream)};
 }
 
 }  // namespace
@@ -752,9 +780,10 @@ extern "C" int gofr_ragged_paged_attention(
     const void* cache_len, void* out, int B, int g_len, int Hq, int Hkv,
     int head_dim, int num_pages, int page, int P, void* stream) {
   return dispatch<__nv_bfloat16>(
-      q, Pools{k_pages, v_pages, nullptr, nullptr}, table, k_new, v_new,
-      cache_len, out, B, g_len, Hq, Hkv, head_dim, num_pages, page, P,
-      false, stream);
+      make_call(q, Pools{k_pages, v_pages, nullptr, nullptr}, table, k_new,
+                v_new, cache_len, out, B, g_len, Hkv, num_pages, page, P,
+                stream),
+      Hq, head_dim, false);
 }
 
 // The same launch through the verify instantiation at every g_len, 1
@@ -766,9 +795,10 @@ extern "C" int gofr_ragged_paged_attention_verify_form(
     const void* cache_len, void* out, int B, int g_len, int Hq, int Hkv,
     int head_dim, int num_pages, int page, int P, void* stream) {
   return dispatch<__nv_bfloat16>(
-      q, Pools{k_pages, v_pages, nullptr, nullptr}, table, k_new, v_new,
-      cache_len, out, B, g_len, Hq, Hkv, head_dim, num_pages, page, P, true,
-      stream);
+      make_call(q, Pools{k_pages, v_pages, nullptr, nullptr}, table, k_new,
+                v_new, cache_len, out, B, g_len, Hkv, num_pages, page, P,
+                stream),
+      Hq, head_dim, true);
 }
 
 // int8 pools with their (N,page,Hkv) f32 scale planes.
@@ -778,9 +808,11 @@ extern "C" int gofr_ragged_paged_attention_int8(
     const void* k_new, const void* v_new, const void* cache_len, void* out,
     int B, int g_len, int Hq, int Hkv, int head_dim, int num_pages,
     int page, int P, void* stream) {
-  return dispatch<int8_t>(q, Pools{k_pages, v_pages, k_scale, v_scale},
-                          table, k_new, v_new, cache_len, out, B, g_len, Hq,
-                          Hkv, head_dim, num_pages, page, P, false, stream);
+  return dispatch<int8_t>(
+      make_call(q, Pools{k_pages, v_pages, k_scale, v_scale}, table, k_new,
+                v_new, cache_len, out, B, g_len, Hkv, num_pages, page, P,
+                stream),
+      Hq, head_dim, false);
 }
 
 // The int8 launch through the verify instantiation at every g_len (the
@@ -791,24 +823,30 @@ extern "C" int gofr_ragged_paged_attention_int8_verify_form(
     const void* k_new, const void* v_new, const void* cache_len, void* out,
     int B, int g_len, int Hq, int Hkv, int head_dim, int num_pages,
     int page, int P, void* stream) {
-  return dispatch<int8_t>(q, Pools{k_pages, v_pages, k_scale, v_scale},
-                          table, k_new, v_new, cache_len, out, B, g_len, Hq,
-                          Hkv, head_dim, num_pages, page, P, true, stream);
+  return dispatch<int8_t>(
+      make_call(q, Pools{k_pages, v_pages, k_scale, v_scale}, table, k_new,
+                v_new, cache_len, out, B, g_len, Hkv, num_pages, page, P,
+                stream),
+      Hq, head_dim, true);
 }
 
-// How many clusters of the instantiation (group 1/2/4/8, verify or decode
-// bound, int8 or bf16 pools) the card holds at once for g_len queries a
-// slot and a table of P columns of `page` positions
+// How many clusters of the instantiation (head_dim 64/128, group 1/2/4/8,
+// verify or decode bound, int8 or bf16 pools) the card holds at once for
+// g_len queries a slot and a table of P columns of `page` positions
 // (cudaOccupancyMaxActiveClusters), in *clusters.
-extern "C" int gofr_ragged_cluster_occupancy(int group, int verify,
-                                             int int8, int P, int page,
-                                             int g_len, int* clusters) {
-  if (P <= 0 || page <= 0 || group <= 0 || g_len < 1 || g_len > MAX_NEW ||
+extern "C" int gofr_ragged_cluster_occupancy(int head_dim, int group,
+                                             int verify, int int8, int P,
+                                             int page, int g_len,
+                                             int* clusters) {
+  if ((head_dim != 64 && head_dim != 128) || P <= 0 || page <= 0 ||
+      group <= 0 || g_len < 1 || g_len > MAX_NEW ||
       (!verify && g_len != 1) ||
-      dyn_smem_bytes(P, page, group, g_len) > MAX_DYN_SMEM)
+      dyn_smem_bytes(P, page, group, g_len, head_dim) > MAX_DYN_SMEM)
     return (int)cudaErrorInvalidValue;
-  return (int)(int8 ? occupancy_group<int8_t>(group, verify != 0, P, page,
-                                              g_len, clusters)
-                    : occupancy_group<__nv_bfloat16>(group, verify != 0, P,
-                                                     page, g_len, clusters));
+  return (int)(int8 ? occupancy_head_dim<int8_t>(head_dim, group,
+                                                 verify != 0, P, page,
+                                                 g_len, clusters)
+                    : occupancy_head_dim<__nv_bfloat16>(
+                          head_dim, group, verify != 0, P, page, g_len,
+                          clusters));
 }

@@ -7,15 +7,17 @@
 - Weights and activations in the config's dtype (bf16 by default); norms,
   softmax and logits in float32.
 - Prefill attention goes through the flash-attention wrapper when
-  ``cfg.use_flash`` is set. Paged decode and verify attention go through
-  the ragged paged wrappers. Dense decode and verify attention
-  (:func:`decode_step`, :func:`verify_step`) go through the same ragged
-  wrappers, over the dense cache viewed as a pool of pages in slot order
-  and an identity page table (:func:`identity_table`), which computes the
-  dense function exactly; with ``cfg.use_flash_decode`` (the speculative
-  draft's config) dense decode goes through the flash-decode wrapper
-  instead. Each wrapper launches its CUDA kernel on a CUDA tensor and
-  runs its plain version on a CPU tensor.
+  ``cfg.use_flash`` is set, a suffix prefill over a cached prefix too
+  (zero queries in the prefix's place). Paged decode and verify
+  attention go through the ragged paged wrappers. Dense decode and
+  verify attention (:func:`decode_step`, :func:`verify_step`) go through
+  the same ragged wrappers, over the dense cache viewed as a pool of
+  pages in slot order and an identity page table
+  (:func:`identity_table`), which computes the dense function exactly;
+  with ``cfg.use_flash_decode`` (the speculative draft's config) dense
+  decode goes through the flash-decode wrapper instead. Each wrapper
+  launches its CUDA kernel on a CUDA tensor and runs its plain version
+  on a CPU tensor.
 - ``window`` (a rung of the engine's attention-window ladder) bounds a
   dense step's attention read to the cache's first ``window`` positions;
   the write still goes into the full cache.
@@ -44,7 +46,8 @@ import torch
 import torch.nn.functional as F
 
 from gofr_tpu_torch.device import resolve_device
-from gofr_tpu_torch.ops.attention import prefill_attention
+from gofr_tpu_torch.ops.attention import (prefill_attention,
+                                          prefix_prefill_attention)
 from gofr_tpu_torch.ops.cuda.decode_attention import flash_decode_attention
 from gofr_tpu_torch.ops.cuda.flash_attention import flash_attention
 from gofr_tpu_torch.ops.cuda.ragged_paged_attention import (
@@ -294,23 +297,58 @@ def _rope(cfg: LlamaConfig, device: torch.device):
                       device=device)
 
 
+def _prefix_kv(cfg: LlamaConfig, prefix: Dict[str, torch.Tensor],
+               i: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Layer ``i``'s cached prefix K and V (B, prefix_len, Hkv, D) in
+    ``cfg.dtype``: int8 rows dequantised as JAX does, both factors cast to
+    the compute dtype and multiplied there."""
+    pk, pv = prefix["k"][i], prefix["v"][i]
+    if cfg.kv_int8:
+        pk = pk.to(cfg.dtype) * prefix["ks"][i][..., None].to(cfg.dtype)
+        pv = pv.to(cfg.dtype) * prefix["vs"][i][..., None].to(cfg.dtype)
+    return pk, pv
+
+
+def _flash_suffix(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  prefix_len: int) -> torch.Tensor:
+    """The suffix rows of causal flash attention over the whole prompt:
+    zero queries stand in for the ``prefix_len`` cached rows (their
+    outputs are dropped), so each suffix row attends keys
+    ``j <= prefix_len + i`` through the flash kernel exactly as a full
+    prefill of the prompt computes that row (a row's walk over the keys
+    and its sums do not depend on the other rows)."""
+    pad = q.new_zeros((q.shape[0], prefix_len) + q.shape[2:])
+    return flash_attention(torch.cat([pad, q], dim=1), k, v)[:, prefix_len:]
+
+
 def _run_prompt(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
-                cache: Optional[Dict[str, torch.Tensor]] = None
-                ) -> torch.Tensor:
-    """The layer stack over a whole prompt (causal attention from 0);
-    returns the final hidden states (B, S, D). With ``cache`` given, each
-    layer's K/V is written into it in place."""
+                cache: Optional[Dict[str, torch.Tensor]] = None,
+                prefix: Optional[Dict[str, torch.Tensor]] = None,
+                prefix_len: int = 0) -> torch.Tensor:
+    """The layer stack over a whole prompt (causal attention from 0), or
+    with ``prefix`` over a suffix at positions ``prefix_len + i`` that
+    attends the prefix's cached K/V too; returns the final hidden states
+    (B, S, D). With ``cache`` given, each layer's K/V is written into it
+    in place."""
     b, s = tokens.shape
     dev = tokens.device
     cos, sin = _rope(cfg, dev)
-    positions = torch.arange(s, device=dev).expand(b, s)
+    positions = (prefix_len + torch.arange(s, device=dev)).expand(b, s)
     attend = flash_attention if cfg.use_flash else prefill_attention
     x = params["tok_emb"][tokens]
     for i in range(cfg.n_layers):
         layer = _layer(params, i)
         h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
         q, k, v = _qkv(layer, h, cfg, cos, sin, positions)
-        x = x + qmm(attend(q, k, v).reshape(b, s, -1), layer["wo"])
+        if prefix is None:
+            attn = attend(q, k, v)
+        else:
+            pk, pv = _prefix_kv(cfg, prefix, i)
+            suffix_attend = _flash_suffix if cfg.use_flash \
+                else prefix_prefill_attention
+            attn = suffix_attend(q, torch.cat([pk, k], dim=1),
+                                 torch.cat([pv, v], dim=1), prefix_len)
+        x = x + qmm(attn.reshape(b, s, -1), layer["wo"])
         h = rms_norm(x, layer["ffn_norm"], cfg.norm_eps)
         x = x + _ffn(layer, h)
         if cache is not None:
@@ -329,7 +367,9 @@ def forward(params: Params, cfg: LlamaConfig,
 
 def prefill(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
             cache: Dict[str, torch.Tensor],
-            lengths: Optional[torch.Tensor] = None
+            lengths: Optional[torch.Tensor] = None,
+            prefix: Optional[Dict[str, torch.Tensor]] = None,
+            prefix_len: int = 0
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], torch.Tensor]:
     """Run the prompt and fill ``cache`` (L, B, T >= S, Hkv, D) in place
     (quantised, with its scale planes, under ``cfg.kv_int8``).
@@ -337,17 +377,36 @@ def prefill(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
 
     ``lengths`` (B,) supports right-padded prompts: logits are taken at
     position ``lengths - 1`` of each row and cache_len = lengths.
+
+    ``prefix``/``prefix_len`` is the suffix-only prefill of prefix KV
+    reuse (``tpu/prefix_cache``): ``prefix`` holds the K/V of the prompt's
+    first ``prefix_len`` tokens (the cache's leaves, shapes (L, B,
+    prefix_len, ...); int8 with its scale planes under ``cfg.kv_int8``,
+    dequantised to ``cfg.dtype`` here) and ``tokens`` only the suffix.
+    RoPE positions are offset by ``prefix_len``, each suffix token attends
+    the prefix and causally the suffix, ``cache`` receives the suffix's
+    K/V alone (the caller places the prefix) and cache_len counts prefix
+    and suffix. With ``cfg.use_flash`` the suffix rows go through the
+    flash kernel over zero queries in the prefix's place
+    (:func:`_flash_suffix`), so a bf16 prefix gives the full prefill's
+    bits for them, given GEMMs whose rows do not depend on the row count
+    (the engine's minimum of prefill rows); JAX takes the mask form there
+    (``prefix_prefill_attention``, this function without
+    ``cfg.use_flash``), whose last bits differ from its flash prefill's.
+    With an int8 prefix the logits drift from a full prefill's by the
+    quantisation (JAX's contract: token identity holds for bf16 caches).
     """
     b, s = tokens.shape
     dev = tokens.device
-    x = _run_prompt(params, cfg, tokens, cache)
+    x = _run_prompt(params, cfg, tokens, cache, prefix, prefix_len)
     if lengths is None:
         last = x[:, -1]
-        cache_len = torch.full((b,), s, dtype=torch.int32, device=dev)
+        cache_len = torch.full((b,), prefix_len + s, dtype=torch.int32,
+                               device=dev)
     else:
         lengths = lengths.to(dev)
         last = x[torch.arange(b, device=dev), lengths.long() - 1]
-        cache_len = lengths.to(torch.int32)
+        cache_len = (prefix_len + lengths).to(torch.int32)
     last = rms_norm(last, params["out_norm"], cfg.norm_eps)
     return qmm(last, params["lm_head"]).float(), cache, cache_len
 

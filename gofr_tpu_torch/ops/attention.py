@@ -68,6 +68,26 @@ def prefill_attention(q, k, v) -> torch.Tensor:
     return attention(q, k, v, mask)
 
 
+def prefix_prefill_attention(q, k, v, prefix_len: int) -> torch.Tensor:
+    """Causal attention for a suffix prefill over cached-prefix + suffix
+    K/V (prefix KV reuse, ``tpu/prefix_cache``; JAX
+    ``prefix_prefill_attention``, the reference's route for the suffix
+    rows). ``llama.prefill`` takes it without ``cfg.use_flash``; with
+    it, the flash kernel over zero queries in the prefix's place, whose
+    bits are a full prefill's.
+
+    q: (B, S, Hq, D), the S suffix tokens at absolute positions
+    ``prefix_len + i``; k, v: (B, prefix_len + S, Hkv, D), the cached
+    prefix K/V followed by the suffix's, in position order. Query ``i``
+    attends key ``j <= prefix_len + i``: the whole prefix, then causally
+    into the suffix."""
+    s_len, t_len = q.shape[1], k.shape[1]
+    pos = torch.arange(t_len, device=q.device)
+    mask = pos[None, :] <= prefix_len + torch.arange(s_len,
+                                                     device=q.device)[:, None]
+    return attention(q, k, v, mask[None, None, None])
+
+
 def gather_kv_pages(pages: torch.Tensor,
                     page_table: torch.Tensor) -> torch.Tensor:
     """Gather a per-slot contiguous KV view out of a shared page pool.

@@ -25,7 +25,7 @@ import torch
 from gofr_tpu_torch.ops.cuda import _build
 
 NAME = "decode_attention"
-HEAD_DIM = 128
+SUPPORTED_HEAD_DIMS = (64, 128)
 SUPPORTED_GROUPS = (1, 2, 4, 8)
 BLOCK_K = 128
 CHUNK = 256          # positions a block walks, by default
@@ -107,12 +107,12 @@ def split_plan(t_max: int) -> tuple:
     return chunk, -(-t_max // chunk)
 
 
-def scratch_shape(batch: int, t_max: int, kv_heads: int,
-                  group: int) -> tuple:
+def scratch_shape(batch: int, t_max: int, kv_heads: int, group: int,
+                  head_dim: int) -> tuple:
     """The float32 scratch of one call: per slot, KV head, chunk and
-    query row of the group, ``HEAD_DIM`` accumulator values, then m and
+    query row of the group, ``head_dim`` accumulator values, then m and
     l."""
-    return (batch, kv_heads, split_plan(t_max)[1], group, HEAD_DIM + 2)
+    return (batch, kv_heads, split_plan(t_max)[1], group, head_dim + 2)
 
 
 def _bind(lib: ctypes.CDLL):
@@ -144,9 +144,9 @@ def _check(q, k_cache, v_cache, k_new, v_new, cache_len) -> None:
         raise ValueError("flash_decode_attention: k/v caches (B,T,Hkv,D) "
                          "expected")
     hkv = k_cache.shape[2]
-    if d != HEAD_DIM or k_cache.shape[3] != d:
-        raise ValueError(f"flash_decode_attention: head_dim must be "
-                         f"{HEAD_DIM}, got {d}")
+    if d not in SUPPORTED_HEAD_DIMS or k_cache.shape[3] != d:
+        raise ValueError(f"flash_decode_attention: head_dim must be one of "
+                         f"{SUPPORTED_HEAD_DIMS}, got {d}")
     if hq % hkv or hq // hkv not in SUPPORTED_GROUPS:
         raise ValueError(f"flash_decode_attention: group Hq/Hkv must be "
                          f"one of {SUPPORTED_GROUPS}")
@@ -199,7 +199,7 @@ def flash_decode_attention(q, k_cache, v_cache, k_new, v_new,
     b, _, hq, d = q.shape
     t_max, hkv = k_cache.shape[1], k_cache.shape[2]
     chunk, splits = split_plan(t_max)
-    scratch = torch.empty(scratch_shape(b, t_max, hkv, hq // hkv),
+    scratch = torch.empty(scratch_shape(b, t_max, hkv, hq // hkv, d),
                           dtype=torch.float32, device=q.device)
     slot_t = k_cache.stride(0) // (hkv * d)        # the full cache's T
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),

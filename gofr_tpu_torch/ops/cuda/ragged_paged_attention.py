@@ -28,7 +28,7 @@ from gofr_tpu_torch.ops import attention as plain_attention
 from gofr_tpu_torch.ops.cuda import _build
 
 NAME = "ragged_paged_attention"
-HEAD_DIM = 128
+SUPPORTED_HEAD_DIMS = (64, 128)
 SUPPORTED_GROUPS = (1, 2, 4, 8)
 MAX_VERIFY_TOKENS = 8        # the kernel's MAX_NEW
 CLUSTER = 8                  # blocks a (KV head, slot) cluster
@@ -64,14 +64,15 @@ def rank_pages(cache_len: int, page: int,
             for r in range(cluster)]
 
 
-def dyn_smem_bytes(table_width: int, page: int, group: int,
-                   g_len: int) -> int:
-    """The kernel's dynamic shared memory for ``g_len`` queries a slot and
-    a table of ``table_width`` columns: the queries (bf16), one rank's
-    partials and scores (float32) and its page ids."""
+def dyn_smem_bytes(table_width: int, page: int, group: int, g_len: int,
+                   head_dim: int) -> int:
+    """The kernel's dynamic shared memory for ``g_len`` queries a slot, a
+    table of ``table_width`` columns and head dim ``head_dim``: the
+    queries (bf16), one rank's partials and scores (float32) and its page
+    ids."""
     per_rank = -(-table_width // CLUSTER)
     rows = g_len * group
-    return rows * HEAD_DIM * 6 + rows * per_rank * page * 4 + per_rank * 4
+    return rows * head_dim * 6 + rows * per_rank * page * 4 + per_rank * 4
 
 
 def ragged_paged_decode_attention_plain(q, k_pages, v_pages, page_table,
@@ -152,9 +153,9 @@ def _check(q, k_pages, v_pages, page_table, k_new, v_new, cache_len,
         raise ValueError("ragged_paged_attention: k/v pages "
                          "(N,page,Hkv,D) expected")
     hkv = k_pages.shape[2]
-    if d != HEAD_DIM or k_pages.shape[3] != d:
-        raise ValueError(f"ragged_paged_attention: head_dim must be "
-                         f"{HEAD_DIM}, got {d}")
+    if d not in SUPPORTED_HEAD_DIMS or k_pages.shape[3] != d:
+        raise ValueError(f"ragged_paged_attention: head_dim must be one of "
+                         f"{SUPPORTED_HEAD_DIMS}, got {d}")
     if hq % hkv or hq // hkv not in SUPPORTED_GROUPS:
         raise ValueError(f"ragged_paged_attention: group Hq/Hkv "
                          f"must be one of {SUPPORTED_GROUPS}")
@@ -167,8 +168,8 @@ def _check(q, k_pages, v_pages, page_table, k_new, v_new, cache_len,
         raise ValueError("ragged_paged_attention: page_table (B,P) "
                          "and cache_len (B,) expected")
     page = k_pages.shape[1]
-    if dyn_smem_bytes(page_table.shape[1], page, hq // hkv,
-                      g_len) > MAX_DYN_SMEM:
+    if dyn_smem_bytes(page_table.shape[1], page, hq // hkv, g_len,
+                      d) > MAX_DYN_SMEM:
         raise ValueError(f"ragged_paged_attention: a block's chunk of "
                          f"{page_table.shape[1]} page-table columns of "
                          f"{page} positions does not fit "
@@ -294,20 +295,22 @@ def ragged_paged_verify_form_attention(q, k_pages, v_pages, page_table,
 
 
 def cluster_occupancy(group: int, verify: bool, int8: bool, g_len: int,
-                      table_width: int = 64, page: int = 32) -> int:
-    """How many clusters of one kernel instantiation (``group`` query
-    heads per KV head; the verify or the decode new-token bound; int8 or
-    bf16 pools) the current CUDA device holds at once, for ``g_len``
-    queries a slot and a page table of ``table_width`` columns of
-    ``page`` positions (``cudaOccupancyMaxActiveClusters``)."""
+                      table_width: int = 64, page: int = 32,
+                      head_dim: int = 128) -> int:
+    """How many clusters of one kernel instantiation (head dim
+    ``head_dim``; ``group`` query heads per KV head; the verify or the
+    decode new-token bound; int8 or bf16 pools) the current CUDA device
+    holds at once, for ``g_len`` queries a slot and a page table of
+    ``table_width`` columns of ``page`` positions
+    (``cudaOccupancyMaxActiveClusters``)."""
     if not torch.cuda.is_available():
         raise RuntimeError("cluster_occupancy: needs a CUDA device")
     fn = _build.load(NAME).gofr_ragged_cluster_occupancy
-    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     clusters = ctypes.c_int(0)
-    err = fn(group, int(verify), int(int8), table_width, page, g_len,
-             ctypes.byref(clusters))
+    err = fn(head_dim, group, int(verify), int(int8), table_width, page,
+             g_len, ctypes.byref(clusters))
     if err != 0:
         raise RuntimeError(f"cluster_occupancy: cudaError {err}")
     return clusters.value

@@ -66,14 +66,30 @@ or a paged pool (``paged_kv=True``).
   cover exact, a spec tick is charged g + 1 and refunded at publish, and
   tokens of a slot that was reclaimed since dispatch are dropped. The
   prefill's first token is fetched the same way.
+- Prefix KV reuse (``prefix_cache=True``, JAX's admission plan): a
+  :class:`~gofr_tpu_torch.tpu.prefix_cache.PrefixStore` indexes the
+  page-aligned heads of earlier prompts. A request whose head is cached
+  prefills only its suffix (``llama.prefill(prefix=)``, the cached pages
+  rounded down to a rung of the prefix-pages ladder 1, 2, 4, ... up to
+  the largest bucket's pages, and a rung dropped while the suffix bucket
+  would overrun ``max_len``); admissions group by (rung, bucket). Dense:
+  the store owns a pool; a suffix insert copies the prefix pages into
+  the slot's rows [0, plen) and the suffix into [plen, plen + bucket),
+  and a full prefill publishes its full pages. Paged: the store indexes
+  the engine's pool; a hit puts the cached page ids into the slot's host
+  table (pinned for the slot's life), fresh pages follow for the suffix,
+  a full prefill's full prompt pages are adopted without a copy, and
+  eviction of cold prefixes is the pool's ``reclaim`` under page
+  pressure. A speculative draft prefills the whole prompt either way.
 - All device work is queued from one thread (a single-worker executor),
   in dispatch order: prefill inserts and ticks write the same state, and
   the stream's order is what makes that safe, a page freed while a later
-  tick is in flight included.
+  tick is in flight included, and a prefix page evicted and republished
+  while an earlier suffix prefill that reads it is still queued.
 - Tokens stream: ``generate_stream`` yields ids as each tick's fetch
   lands; ``generate`` gathers them.
 
-Left for later slices (see ROADMAP.md): prefix cache, disaggregation,
+Left for later slices (see ROADMAP.md): disaggregation,
 grammar-constrained decoding, brownout, auto-tuning, upload coalescing,
 mesh sharding and the SLO / metrics / flight-recorder hooks.
 """
@@ -101,9 +117,18 @@ from gofr_tpu_torch.ops.sampling import (filtered_log_probs_batch,
                                          greedy_accept, sample_batch,
                                          speculative_accept)
 from gofr_tpu_torch.tpu.page_pool import PagePool
+from gofr_tpu_torch.tpu.prefix_cache import PrefixStore
 from gofr_tpu_torch.tpu.staging import StagingPool
 
 DEFAULT_PROMPT_BUCKETS = (32, 128, 512)
+# Prefill rows (count x bucket) on the card, at least: with fewer, cuBLAS
+# splits a GEMM's reduction, and a row's bits then depend on the row count
+# (scripts/prefix_identity_probe.py measures where, projection by
+# projection). Padded to this, a prompt's prefill numbers do not depend on
+# what it was batched with, so a suffix prefill over cached pages gives a
+# full prefill's bits and greedy tokens are the same with the prefix store
+# on or off.
+CUDA_MIN_PREFILL_ROWS = 256
 # the dense cache's view pages the ragged kernel's card checks hold it at
 # (cuda_refusals): 32 (chip_smoke.py phases 4, 5, 13) and 16
 # (tests/test_torch_cuda_kernels.py)
@@ -128,10 +153,12 @@ def cuda_refusals(cfg, max_len: int, kv_page: int, draft_cfg=None,
                   spec_gamma: int = 0, paged_kv: bool = False) -> List[str]:
     """What the card's kernels would refuse at the first tick of an engine
     of this configuration, one line each (empty: nothing). The ragged
-    kernel serves the target (head_dim 128, GQA group 1/2/4/8, bf16, at
-    most ``MAX_VERIFY_TOKENS`` queries a slot, a rank's scores of the
-    widest table within ``MAX_DYN_SMEM``); the flash-decode kernel serves
-    the draft (head_dim 128, group 1/2/4/8, bf16). The paged engine's
+    kernel serves the target (a head_dim of its ``SUPPORTED_HEAD_DIMS``,
+    GQA group 1/2/4/8, bf16, at most ``MAX_VERIFY_TOKENS`` queries a slot,
+    a rank's scores of the widest table within ``MAX_DYN_SMEM`` at the
+    model's head_dim); the flash-decode kernel serves the draft (a
+    head_dim of its ``SUPPORTED_HEAD_DIMS``, group 1/2/4/8, bf16). The
+    paged engine's
     table has ``max_len / kv_page`` columns of ``kv_page``; the dense
     engine's widest identity table (the top window rung) ``max_len /
     page`` columns of its view page (``llama.dense_page``), which must be
@@ -144,9 +171,9 @@ def cuda_refusals(cfg, max_len: int, kv_page: int, draft_cfg=None,
     for name, c, mod in models:
         if c.dtype != torch.bfloat16:
             out.append(f"{name} dtype {c.dtype}: the kernels take bf16")
-        if c.head_dim != mod.HEAD_DIM:
+        if c.head_dim not in mod.SUPPORTED_HEAD_DIMS:
             out.append(f"{name} head_dim {c.head_dim}: the kernels take "
-                       f"{mod.HEAD_DIM}")
+                       f"{mod.SUPPORTED_HEAD_DIMS}")
         if c.n_heads % c.n_kv_heads \
                 or c.n_heads // c.n_kv_heads not in mod.SUPPORTED_GROUPS:
             out.append(f"{name} GQA group {c.n_heads}/{c.n_kv_heads}: the "
@@ -170,12 +197,34 @@ def cuda_refusals(cfg, max_len: int, kv_page: int, draft_cfg=None,
             and g_len <= ragged_mod.MAX_VERIFY_TOKENS:
         width = max_len // page
         smem = ragged_mod.dyn_smem_bytes(width, page,
-                                         cfg.n_heads // cfg.n_kv_heads, g_len)
+                                         cfg.n_heads // cfg.n_kv_heads, g_len,
+                                         cfg.head_dim)
         if smem > ragged_mod.MAX_DYN_SMEM:
             out.append(f"a table of {width} columns of {page} at "
                        f"{g_len} queries a slot needs {smem} bytes of "
                        f"shared memory, over MAX_DYN_SMEM = "
                        f"{ragged_mod.MAX_DYN_SMEM}")
+    return out
+
+
+def _pack(arrays: Dict[str, np.ndarray]
+          ) -> Tuple[np.ndarray, List[Tuple[str, tuple]]]:
+    """Named int arrays as one flat int64 array (one staged upload) and
+    the layout :func:`_unpack` cuts it by."""
+    layout = [(name, arr.shape) for name, arr in arrays.items()]
+    flat = np.concatenate([np.asarray(arr, np.int64).ravel()
+                           for arr in arrays.values()])
+    return flat, layout
+
+
+def _unpack(flat: torch.Tensor,
+            layout: List[Tuple[str, tuple]]) -> Dict[str, torch.Tensor]:
+    """Views of ``flat`` by the layout :func:`_pack` returned."""
+    out, at = {}, 0
+    for name, shape in layout:
+        n = int(np.prod(shape))
+        out[name] = flat[at:at + n].view(shape)
+        at += n
     return out
 
 
@@ -266,7 +315,7 @@ class _Request:
 class _Slot:
     __slots__ = ("future", "remaining", "eos_id", "tokens", "active", "gen",
                  "inflight", "queue", "temperature", "fill", "submitted_at",
-                 "pages")
+                 "pages", "nodes")
 
     def __init__(self):
         self.future: Optional[asyncio.Future] = None
@@ -281,6 +330,7 @@ class _Slot:
         self.fill = 0         # host mirror of the device cache_len
         self.submitted_at = 0.0
         self.pages: List[int] = []   # pool pages this slot owns
+        self.nodes: List[Any] = []   # paged: pinned prefix-trie nodes
 
 
 class _Fetch:
@@ -325,6 +375,9 @@ class GenerationEngine:
                  kv_page_reserve: Optional[int] = None,
                  draft_cfg=None, draft_params=None,
                  spec_gamma: int = 4,
+                 prefix_cache: bool = False,
+                 prefix_cache_bytes: int = 64 << 20,
+                 prefix_page: int = 32,
                  device: Union[str, torch.device] = "cuda",
                  logger=None):
         self.device = resolve_device(device)
@@ -426,6 +479,33 @@ class GenerationEngine:
                             for w in self._window_ladder}
         self._table_version = 0     # moves with the paged host table
 
+        # -- prefix KV reuse: the store and the prefix-pages ladder 1, 2,
+        # 4, ... plus the largest bucket's pages; a cached prefix rounds
+        # down to a rung and the rest rides the suffix
+        self._prefix: Optional[PrefixStore] = None
+        self._p_ladder: List[int] = []
+        if prefix_cache:
+            if self.paged:
+                # one pool: a prefix page is a decode page, so a hit is a
+                # page-table entry and not a copy
+                prefix_page = self.kv_page
+            max_pages = max(self.prompt_buckets) // int(prefix_page)
+            if max_pages > 0:
+                self._p_ladder = [1]
+                while self._p_ladder[-1] * 2 <= max_pages:
+                    self._p_ladder.append(self._p_ladder[-1] * 2)
+                if self._p_ladder[-1] != max_pages:
+                    self._p_ladder.append(max_pages)
+                self._prefix = PrefixStore(
+                    cfg, page=int(prefix_page),
+                    budget_bytes=prefix_cache_bytes, max_pages=max_pages,
+                    pool=self._pool, device=dev)
+            elif logger is not None:
+                logger.warning(
+                    "prefix cache disabled: page size %d exceeds the "
+                    "largest prompt bucket %d", prefix_page,
+                    max(self.prompt_buckets))
+
         # -- speculative draft-verify decode ---------------------------------
         self.draft_cfg = None
         self.draft_params = None
@@ -501,6 +581,9 @@ class GenerationEngine:
         self._wake = asyncio.Event()
         # run counters: what the kernels' launch counts are checked against
         self.prefill_dispatches = 0
+        self.prefill_bucket_tokens = 0   # bucket rows x columns prefilled
+        self.suffix_prefill_dispatches = 0   # prefills over a cached prefix
+        self.prefix_admissions: Dict[int, int] = {}   # requests by rung
         self.decode_steps = 0         # plain decode steps (ragged decode)
         self.ticks = 0                # plain decode ticks
         self.spec_rungs: Dict[int, int] = {}  # spec ticks run, by g
@@ -511,58 +594,83 @@ class GenerationEngine:
 
     # -- device steps (the device thread) --------------------------------------
     def _prefill_insert(self, nb: int, bucket: int, n_claimed: int,
-                        ints: np.ndarray, floats: np.ndarray):
-        """Batched prompt forward for ``nb`` rows of bucket ``bucket``, its
-        in-place insert (paged: into the pool pages, sentinel entries
-        landing in the scratch page; dense: into the claimed slots' cache
-        rows, padding rows dropped, JAX ``_insert_fn``), with a draft its
-        KV-only prefill into the claimed slots' dense draft rows, and the
-        first ``n_claimed`` rows' slot state, PRNG keys included. ``ints``
-        packs (tokens (nb, bucket), lengths, slots, top_ks, seeds (nb,)
-        each, and paged the page ids (nb, bucket // page)) and ``floats``
-        (temps, top_ps); each goes up in one staged copy. Returns the
-        fetch of the first tokens (nb,)."""
+                        p_rung: int, ints: np.ndarray,
+                        layout: List[Tuple[str, tuple]], floats: np.ndarray):
+        """Batched prompt forward for ``nb`` rows of bucket ``bucket`` and
+        its in-place insert, the first ``n_claimed`` rows' slot state
+        (PRNG keys included), and with a draft its KV-only prefill of the
+        whole prompts into the claimed slots' dense draft rows. ``ints``
+        packs the named int arrays of ``layout`` (:func:`_pack`): tokens
+        (nb, bucket), lengths, slots, top_ks, seeds (nb,); paged the page
+        ids (nb * bucket // page); at prefix rung ``p_rung`` > 0 the
+        cached pages (nb, p_rung) and, with a draft, the whole prompts
+        and their lengths; dense with pages to publish, their ids.
+        ``floats`` packs (temps, top_ps). Each goes up in one staged copy.
+
+        Full prefill (``p_rung`` 0): paged, the rows scatter into the pool
+        pages (sentinel entries landing in the scratch page); dense, into
+        the claimed slots' cache rows (padding rows dropped, JAX
+        ``_insert_fn``), then the store publishes the new full pages.
+        Suffix prefill: the tokens are the suffixes, attending the cached
+        prefix gathered from the store's pool; paged, the suffix rows
+        scatter into fresh pages after the prefix's; dense, the prefix
+        pages fill rows [0, plen) and the suffix [plen, plen + bucket)
+        (JAX ``_suffix_insert_fn``); cache_len is plen + the suffix's
+        length. Returns the fetch of the first tokens (nb,)."""
         dev, cfg = self.device, self.cfg
         ints_dev = torch.empty(ints.shape, dtype=torch.int64, device=dev)
         floats_dev = torch.empty(floats.shape, dtype=torch.float32,
                                  device=dev)
         self._staging.upload(ints_dev, ints)
         self._staging.upload(floats_dev, floats)
-        tokens = ints_dev[:nb * bucket].view(nb, bucket)
-        lens, slots, top_ks, seeds = ints_dev[nb * bucket:].view(
-            -1, nb)[:4]
-        flat_ids = ints_dev[nb * (bucket + 4):]
+        arg = _unpack(ints_dev, layout)
+        tokens, lens, slots = arg["tokens"], arg["lengths"], arg["slots"]
         temps, top_ps = floats_dev.view(2, nb)
         small = llama.init_cache(cfg, nb, bucket, device=dev)
+        plen, prefix = 0, None
+        if p_rung:
+            plen = p_rung * self._prefix.page
+            prefix = self._prefix.gather(arg["prefix_ids"])
         logits, small, _ = llama.prefill(self.params, cfg, tokens, small,
-                                         lengths=lens)
-        first, keys = sample_batch(logits, temps, top_ks, top_ps,
-                                   prng.seed_key(seeds))
+                                         lengths=lens, prefix=prefix,
+                                         prefix_len=plen)
+        first, keys = sample_batch(logits, temps, arg["top_ks"], top_ps,
+                                   prng.seed_key(arg["seeds"]))
         slot_t = slots[:n_claimed]
         # in-place insert of the group's KV; each leaf (k/v rows, int8
         # scale planes) keeps its own trailing shape
         if self.paged:
             page = self.kv_page
             for name, leaf in self._pool.leaves.items():
-                leaf[:, flat_ids] = small[name].reshape(
+                leaf[:, arg["page_ids"]] = small[name].reshape(
                     cfg.n_layers, nb * (bucket // page), page,
                     *small[name].shape[3:])
         else:
             for name, leaf in self.cache.items():
-                leaf[:, slot_t, :bucket] = small[name][:, :n_claimed]
+                if p_rung:
+                    leaf[:, slot_t, :plen] = prefix[name][:, :n_claimed]
+                leaf[:, slot_t, plen:plen + bucket] = \
+                    small[name][:, :n_claimed]
+            if "publish_ids" in arg:
+                self._prefix.publish(
+                    small, arg["publish_ids"],
+                    arg["publish_ids"].shape[0] // nb)
         if self.spec:
-            # KV-only draft prefill over the same bucket; its rows land in
-            # the claimed slots' dense draft rows (padding rows dropped)
+            # KV-only draft prefill of the whole prompts (the draft has no
+            # prefix store); its rows land in the claimed slots' dense
+            # draft rows (padding rows dropped)
+            dtokens = arg.get("draft_tokens", tokens)
             dcfg = self.draft_cfg
-            dsmall = llama.init_cache(dcfg, nb, bucket, device=dev)
-            llama.prefill(self.draft_params, dcfg, tokens, dsmall,
-                          lengths=lens)
+            dsmall = llama.init_cache(dcfg, nb, dtokens.shape[1], device=dev)
+            llama.prefill(self.draft_params, dcfg, dtokens, dsmall,
+                          lengths=arg.get("draft_lengths", lens))
             for name, leaf in self._draft_cache.items():
-                leaf[:, slot_t, :bucket] = dsmall[name][:, :n_claimed]
-        self.cache_len[slot_t] = lens[:n_claimed].to(torch.int32)
+                leaf[:, slot_t, :dtokens.shape[1]] = \
+                    dsmall[name][:, :n_claimed]
+        self.cache_len[slot_t] = (plen + lens[:n_claimed]).to(torch.int32)
         self.last_token[slot_t] = first[:n_claimed]
         self.temps[slot_t] = temps[:n_claimed]
-        self.top_ks[slot_t] = top_ks[:n_claimed]
+        self.top_ks[slot_t] = arg["top_ks"][:n_claimed]
         self.top_ps[slot_t] = top_ps[:n_claimed]
         self.sample_keys[slot_t] = keys[:n_claimed]
         return self._staging.fetch(first)
@@ -737,14 +845,13 @@ class GenerationEngine:
             else:
                 self._tick_body(key, idle)
         for bucket in self.prompt_buckets:
-            # tokens, length 1, slot max_slots (none), top_k, seed, pages
-            ints = np.zeros(bucket + 4, np.int64)
-            if self.paged:
-                ints = np.concatenate([ints, np.full(
-                    bucket // self.kv_page, self._pool.sentinel, np.int64)])
-            ints[bucket:bucket + 2] = (1, self.max_slots)
-            floats = np.array([0.0, 1.0], np.float32)      # temp, top_p
-            self._prefill_insert(1, bucket, 0, ints, floats)()
+            # padding rows (length 1, slot max_slots: none) of one prompt's
+            # prefill
+            nb = self._prefill_count(1, bucket)
+            ints, layout = _pack(self._group_arrays(nb, bucket, 0))
+            floats = np.tile(np.array([[0.0], [1.0]], np.float32), nb)
+            self._prefill_insert(nb, bucket, 0, 0, ints, layout,
+                                 floats.ravel())()
 
     # -- lifecycle -------------------------------------------------------------
     def _startup_window_rungs(self, ks: List[int]) -> List[Optional[int]]:
@@ -921,6 +1028,14 @@ class GenerationEngine:
             counts[w or self.max_len] = counts.get(w or self.max_len, 0) + 1
         return dict(sorted(counts.items()))
 
+    def prefix_digest(self,
+                      max_entries: int = 512) -> Optional[Dict[str, Any]]:
+        """The resident prefix chains as hashes, for fleet routing; None
+        without a prefix store."""
+        if self._prefix is None:
+            return None
+        return self._prefix.digest(max_entries=max_entries)
+
     @property
     def spec_dispatches(self) -> int:
         """Spec ticks run (each verifies once through every target
@@ -937,6 +1052,7 @@ class GenerationEngine:
             "active_slots": self.active_slots,
             "pending": len(self._pending),
             "prefill_dispatches": self.prefill_dispatches,
+            "prefill_bucket_tokens": self.prefill_bucket_tokens,
             "decode_steps": self.decode_steps,
             "ticks": self.ticks,
             "max_inflight_ticks": self.max_inflight_ticks,
@@ -958,6 +1074,13 @@ class GenerationEngine:
                     self.window_ticks.items(),
                     key=lambda item: item[0] or self.max_len)},
         }
+        if self._prefix is not None:
+            out["prefix_cache"] = self._prefix.stats()
+            out["prefix_cache"]["page_ladder"] = list(self._p_ladder)
+            out["prefix_cache"]["admissions_by_rung"] = dict(
+                sorted(self.prefix_admissions.items()))
+            out["prefix_cache"]["suffix_prefills"] = \
+                self.suffix_prefill_dispatches
         if self.paged:
             out["kv_pool"] = self._pool.stats()
         else:
@@ -1011,8 +1134,6 @@ class GenerationEngine:
                         pass           # already failed above
                 self._publishq.clear()
                 self._ticks_inflight = 0
-                # the device mask and table are cleared below: upload anew
-                self._sent_mask, self._sent_table = None, -1
                 try:
                     await loop.run_in_executor(self._device_exec,
                                                self._reset_device_state)
@@ -1026,7 +1147,12 @@ class GenerationEngine:
         """Clear the pool or the dense cache, the draft cache and the slot
         state in place (the failed step may have left any of them half
         written; captured graphs hold their addresses). The failed slots'
-        pages went back with their slots."""
+        pages went back with their slots. The prefix store forgets every
+        prefix: its pages may hold what the failed step half wrote. The
+        device mask and table are cleared: the next tick uploads both."""
+        self._sent_mask, self._sent_table = None, -1
+        if self._prefix is not None:
+            self._prefix.reset()
         if self.paged:
             self._pool.reset()
             self.table.fill_(self._pool.sentinel)
@@ -1103,15 +1229,46 @@ class GenerationEngine:
             return await loop.run_in_executor(None, await queued)
         return _Fetch(loop.create_task(land()), kind, payload)
 
+    def _prefix_plan(self, prompt: List[int], bucket: int):
+        """Plan prefix reuse for one request (JAX ``_prefix_plan``): the
+        longest cached page chain, rounded down to a prefix-pages rung
+        (the rest rides the suffix), and the suffix's bucket; a rung whose
+        suffix bucket would overrun ``max_len`` drops to the one below.
+        Returns (rung, bucket, pinned nodes); rung 0 is a full prefill.
+        Pins the nodes it returns."""
+        store = self._prefix
+        chain = store.lookup(prompt)
+        store.classify(len(chain), store.max_lookup_pages(len(prompt)))
+        p = max((rung for rung in self._p_ladder if rung <= len(chain)),
+                default=0)
+        while p:
+            plen = p * store.page
+            fit = next((b for b in self.prompt_buckets
+                        if b >= len(prompt) - plen
+                        and plen + b <= self.max_len), None)
+            if fit is not None:
+                bucket = fit
+                break
+            p = max((rung for rung in self._p_ladder if rung < p),
+                    default=0)
+        if p == 0:
+            return 0, bucket, []
+        nodes = chain[:p]
+        store.acquire(nodes)
+        store.record_saved(p * store.page)
+        return p, bucket, nodes
+
     def _admit_pending(self, loop) -> None:
-        """Drain the queue into free slots; one batched prefill per prompt
-        bucket, each with its first-token fetch queued for publishing."""
+        """Drain the queue into free slots; one batched prefill per
+        (prefix rung, bucket) group, each with its first-token fetch
+        queued for publishing."""
         requests: List[_Request] = []
         while self._pending and len(requests) < len(self._free):
             requests.append(self._pending.popleft())
         if not requests:
             return
-        by_bucket: Dict[int, List[_Request]] = {}
+        groups: Dict[Tuple[int, int], List[Tuple[_Request, List]]] = {}
+        leases: List[Any] = []     # dense: pins held through this pass
         committed = 0    # pages promised to requests admitted this pass
         for ri, req in enumerate(requests):
             if req.queue is not None and req.queue in self._cancelled_queues:
@@ -1119,53 +1276,114 @@ class GenerationEngine:
                 if not req.future.done():
                     req.future.cancel()
                 continue
+            if self.paged:
+                # page-gated before the prefix lookup, so a deferred
+                # request counts no lookup twice; worst case, the whole
+                # prompt needs fresh pages
+                need = -(-len(req.prompt) // self.kv_page)
+                if need + self._kv_reserve > self._pool.num_pages:
+                    self._reject(req, RuntimeError(
+                        f"prompt needs {need} KV pages but the pool holds "
+                        f"{self._pool.num_pages} (reserve "
+                        f"{self._kv_reserve}); it can never be admitted"))
+                    continue
+                while (self._pool.free_pages - committed
+                       < need + self._kv_reserve
+                       and self._prefix is not None
+                       and self._prefix.evict_one()):
+                    pass
+                if self._pool.free_pages - committed \
+                        < need + self._kv_reserve:
+                    # head-of-line FIFO: this request and every later one
+                    # wait for pages, ahead of newer arrivals
+                    self._pending.extendleft(reversed(requests[ri:]))
+                    break
+                committed += need
+            p_rung, bucket, nodes = (
+                self._prefix_plan(req.prompt, req.bucket)
+                if self._prefix is not None else (0, req.bucket, []))
+            self.prefix_admissions[p_rung] = \
+                self.prefix_admissions.get(p_rung, 0) + 1
             if not self.paged:
-                by_bucket.setdefault(req.bucket, []).append(req)
-                continue
-            need = -(-len(req.prompt) // self.kv_page)
-            if need + self._kv_reserve > self._pool.num_pages:
-                self._reject(req, RuntimeError(
-                    f"prompt needs {need} KV pages but the pool holds "
-                    f"{self._pool.num_pages} (reserve {self._kv_reserve}); "
-                    "it can never be admitted"))
-                continue
-            if self._pool.free_pages - committed < need + self._kv_reserve:
-                # head-of-line FIFO: this request and every later one wait
-                # for pages, ahead of newer arrivals
-                self._pending.extendleft(reversed(requests[ri:]))
-                break
-            committed += need
-            by_bucket.setdefault(req.bucket, []).append(req)
+                # the dense insert copies the pages: pinned until this
+                # pass's dispatches are queued; paged slots keep theirs
+                leases.extend(nodes)
+            groups.setdefault((p_rung, bucket), []).append((req, nodes))
         if not self._pending:
             self._cancelled_queues.clear()
         # claim slots for every group before dispatching any, so a failed
         # dispatch reaches every admitted caller through its slot
-        staged = [self._claim_group(bucket, group)
-                  for bucket, group in sorted(by_bucket.items())]
+        staged = [self._claim_group(p_rung, bucket, group)
+                  for (p_rung, bucket), group in sorted(groups.items())]
         for claimed, args, pages in staged:
             self._publishq.append(self._on_device(
                 loop, "prefill", claimed, self._prefill_insert, *args))
             if self.paged:
                 self._pool.note_writes(pages)
             self.prefill_dispatches += 1
+            self.prefill_bucket_tokens += args[0] * args[1]
+            self.suffix_prefill_dispatches += bool(args[3])
+        if leases:
+            # the queued gathers read the pages in dispatch order, ahead
+            # of any later publish into an evicted one
+            self._prefix.release(leases)
 
-    def _claim_group(self, bucket: int, group: List[_Request]):
-        """Bind each request of one bucket group to a slot (paged: and its
-        fresh pages), rows 0.. in order (padding rows follow); returns
-        ([(slot, gen, row)], prefill args, pages written)."""
-        nb = next(x for x in self._n_ladder if x >= len(group))
+    def _prefill_count(self, n: int, bucket: int) -> int:
+        """Rows of a prefill of ``n`` prompts of ``bucket``: the count
+        ladder's rung, raised on the card to ``CUDA_MIN_PREFILL_ROWS``
+        rows (padding rows, which no slot takes)."""
+        need = n
+        if self.device.type == "cuda":
+            need = max(n, -(-CUDA_MIN_PREFILL_ROWS // bucket))
+        return next((x for x in self._n_ladder if x >= need), need)
+
+    def _group_arrays(self, nb: int, bucket: int,
+                      p_rung: int) -> Dict[str, np.ndarray]:
+        """The int arrays of a prefill group of ``nb`` rows, every row
+        padding (length 1, no slot, sentinel pages), keyed as
+        :meth:`_prefill_insert` reads them."""
+        arrays = {"tokens": np.zeros((nb, bucket), np.int64),
+                  "lengths": np.ones((nb,), np.int64),
+                  "slots": np.full((nb,), self.max_slots, np.int64),
+                  "top_ks": np.zeros((nb,), np.int64),
+                  "seeds": np.zeros((nb,), np.int64)}
+        if self.paged:
+            arrays["page_ids"] = np.full((nb * (bucket // self.kv_page),),
+                                         self._pool.sentinel, np.int64)
+        if p_rung:
+            arrays["prefix_ids"] = np.zeros((nb, p_rung), np.int64)
+        return arrays
+
+    def _claim_group(self, p_rung: int, bucket: int, group: List[Tuple]):
+        """Bind each request of one (prefix rung, bucket) group to a slot
+        (paged: its table row: the cached pages, then fresh pages for the
+        suffix), rows 0.. in order (padding rows follow); a dense full
+        prefill inserts its full pages into the store for publishing, a
+        paged one has them adopted. Returns ([(slot, gen, row)], prefill
+        args, pages written)."""
+        nb = self._prefill_count(len(group), bucket)
+        store = self._prefix
+        plen = p_rung * store.page if p_rung else 0
         npg = bucket // self.kv_page if self.paged else 0
-        padded = np.zeros((nb, bucket), np.int64)
-        rows = np.zeros((4, nb), np.int64)      # lengths, slots, top_ks, seeds
-        rows[0] = 1
-        rows[1] = self.max_slots               # padding: no slot
+        arrays = self._group_arrays(nb, bucket, p_rung)
         floats = np.zeros((2, nb), np.float32)  # temps, top_ps
         floats[1] = 1.0
-        flat_ids = (np.full((nb * npg,), self._pool.sentinel, np.int64)
-                    if self.paged else np.zeros(0, np.int64))
+        publish = None
+        if p_rung == 0 and store is not None and not self.paged:
+            n_pub = min(bucket // store.page, store.max_pages)
+            if n_pub > 0:
+                publish = np.full((nb * n_pub,), store.num_pages, np.int64)
+        db = 0
+        if self.spec and p_rung:
+            # the draft prefills the whole prompts: the bucket of the
+            # longest, which its own bucket always covers
+            db = next(b for b in self.prompt_buckets
+                      if b >= max(len(req.prompt) for req, _ in group))
+            arrays["draft_tokens"] = np.zeros((nb, db), np.int64)
+            arrays["draft_lengths"] = np.ones((nb,), np.int64)
         claimed = []
         pages = 0
-        for row, req in enumerate(group):
+        for row, (req, nodes) in enumerate(group):
             slot_idx = self._free.pop()
             slot = self._slots[slot_idx]
             slot.future = req.future
@@ -1179,26 +1397,64 @@ class GenerationEngine:
             slot.inflight = 1          # the prefill's first token
             slot.temperature = req.sampling.temperature
             slot.fill = len(req.prompt)
+            # only the suffix past the reused prefix is prefilled
+            suffix = req.prompt[plen:]
             if self.paged:
-                n_fresh = -(-len(req.prompt) // self.kv_page)
-                ids = self._pool.alloc(n_fresh)
+                # a prefix hit is table entries: the pinned nodes' pages
+                # in columns [0, p_rung), fresh pages for the suffix
+                slot.nodes = list(nodes)
+                for j, node in enumerate(nodes):
+                    self._table[slot_idx, j] = node.page_id
+                n_fresh = -(-len(suffix) // self.kv_page)
+                ids = self._pool.alloc(
+                    n_fresh,
+                    reclaim=store.evict_one if store is not None else None)
                 if ids is None:
                     raise RuntimeError(
                         f"kv page pool exhausted at admission: {n_fresh} "
                         f"pages wanted, {self._pool.free_pages} free")
                 slot.pages = list(ids)
-                self._table[slot_idx, :n_fresh] = ids
+                self._table[slot_idx, p_rung:p_rung + n_fresh] = ids
                 self._table_version += 1
-                flat_ids[row * npg:row * npg + n_fresh] = ids
+                arrays["page_ids"][row * npg:row * npg + n_fresh] = ids
                 pages += n_fresh
-            padded[row, :len(req.prompt)] = req.prompt
-            rows[:, row] = (len(req.prompt), slot_idx, req.sampling.top_k,
-                            req.sampling.seed & 0xFFFFFFFF)
+                if p_rung == 0 and store is not None:
+                    # the full prompt pages are adopted with no copy; the
+                    # page decode writes into stays the slot's
+                    want = min(len(req.prompt) // self.kv_page,
+                               store.max_pages)
+                    if want > 0:
+                        store.register(req.prompt, ids[:want])
+            if p_rung:
+                arrays["prefix_ids"][row] = [n.page_id for n in nodes]
+                if db:
+                    arrays["draft_tokens"][row, :len(req.prompt)] = req.prompt
+                    arrays["draft_lengths"][row] = len(req.prompt)
+            if publish is not None:
+                want = min(len(req.prompt) // store.page, n_pub)
+                for j, (pid, new) in enumerate(
+                        store.insert(req.prompt, want) if want > 0 else []):
+                    if new:
+                        publish[row * n_pub + j] = pid
+            arrays["tokens"][row, :len(suffix)] = suffix
+            arrays["lengths"][row] = len(suffix)
+            arrays["slots"][row] = slot_idx
+            arrays["top_ks"][row] = req.sampling.top_k
+            arrays["seeds"][row] = req.sampling.seed & 0xFFFFFFFF
             floats[:, row] = (max(req.sampling.temperature, 0.0),
                               req.sampling.top_p)
             claimed.append((slot_idx, slot.gen, row))
-        ints = np.concatenate([padded.ravel(), rows.ravel(), flat_ids])
-        args = (nb, bucket, len(group), ints, floats.ravel())
+        if publish is not None and (publish != store.num_pages).any():
+            # a page the store evicted and handed out again within this
+            # group is written by its last owner only
+            seen = set()
+            for at in range(publish.size - 1, -1, -1):
+                if publish[at] in seen:
+                    publish[at] = store.num_pages
+                seen.add(int(publish[at]))
+            arrays["publish_ids"] = publish
+        ints, layout = _pack(arrays)
+        args = (nb, bucket, len(group), p_rung, ints, layout, floats.ravel())
         return claimed, args, pages
 
     def _dispatch_tick(self, loop) -> Optional[_Fetch]:
@@ -1309,20 +1565,23 @@ class GenerationEngine:
         return mask, sampled, snapshot
 
     def _cover_pages(self, eligible, k: int):
-        """Grow each slot's pages to cover its fill + k tokens. Slots the
-        pool cannot cover sit this tick out. A dense slot's cache row
-        covers max_len."""
+        """Grow each slot's pages (after its cached prefix pages) to cover
+        its fill + k tokens, evicting cold prefixes when the free list is
+        short. Slots the pool cannot cover sit this tick out. A dense
+        slot's cache row covers max_len."""
         if not self.paged:
             return eligible
+        reclaim = self._prefix.evict_one if self._prefix is not None \
+            else None
         covered = []
         for slot_idx, slot in eligible:
             need = -(-(slot.fill + k) // self.kv_page)
-            short = need - len(slot.pages)
+            held = len(slot.nodes) + len(slot.pages)
+            short = need - held
             if short > 0:
-                ids = self._pool.alloc(short)
+                ids = self._pool.alloc(short, reclaim=reclaim)
                 if ids is None:
                     continue
-                held = len(slot.pages)
                 self._table[slot_idx, held:held + short] = ids
                 slot.pages.extend(ids)
                 self._table_version += 1
@@ -1406,11 +1665,17 @@ class GenerationEngine:
         self._finish_slot(slot_idx, slot)
 
     def _release_slot_kv(self, slot_idx: int, slot: _Slot) -> None:
-        """Return a finished slot's pages to the pool and reset its table
-        row to the sentinel, so a recycled slot never reads a stale page.
-        A dense slot's row is overwritten by its next insert."""
+        """Return a finished slot's pages to the pool (a page the prefix
+        trie adopted keeps the trie's reference), unpin its prefix nodes,
+        and reset its table row to the sentinel, so a recycled slot never
+        reads a stale page. A dense slot's row is overwritten by its next
+        insert."""
         if not self.paged:
             return
+        if slot.nodes:
+            if self._prefix is not None:
+                self._prefix.release(slot.nodes)
+            slot.nodes = []
         if slot.pages:
             self._pool.release(slot.pages)
             slot.pages = []

@@ -5,9 +5,10 @@ One pool backs every KV byte of the paged serving path: prefill inserts
 and decode appends address the same ``(L, num_pages + 1, page, Hkv, Dh)``
 leaves, so device memory is ``num_pages x page`` tokens whatever
 ``max_len`` is. Host state is a free list plus a per-page refcount:
-``alloc`` hands out pages at refcount 1 and ``release`` drops one
-reference; a page returns to the free list at zero (shared ownership,
-``retain``, arrives with the prefix cache).
+``alloc`` hands out pages at refcount 1 (calling ``reclaim``, the prefix
+store's eviction, while the free list is short), ``retain`` adds a
+reference (the prefix trie adopting a slot's page) and ``release`` drops
+one; a page returns to the free list at zero.
 
 ``num_pages`` doubles as the out-of-bounds sentinel id, and every leaf
 holds one page row more, at that index: a scratch page. A write routed
@@ -19,16 +20,18 @@ scratch row out, ``stats()`` counts ``num_pages`` usable pages and
 ``num_pages`` rows, where the sentinel is out of range. The leaves are
 written in place by their owners and keep their addresses for the
 pool's life (captured CUDA graphs hold them): :meth:`PagePool.reset`
-clears them in place. With ``cfg.kv_int8`` the k/v leaves are int8 and
-two float32 scale planes ``ks``/``vs`` (L, num_pages + 1, page, Hkv),
-ones-initialised, sit beside them.
+clears them in place, and reallocates them only when ``num_pages`` was
+changed since (tests shrink a prefix store's pool). With
+``cfg.kv_int8`` the k/v leaves are int8 and two float32 scale planes
+``ks``/``vs`` (L, num_pages + 1, page, Hkv), ones-initialised, sit
+beside them.
 
 Left for later slices: the HBM budget arbiter and mesh sharding.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -39,17 +42,22 @@ __all__ = ["PagePool"]
 
 
 class PagePool:
-    """Refcounted device page pool shared by prefill and decode."""
+    """Refcounted device page pool shared by prefill and decode.
+    ``num_pages`` may be given, or derived from ``budget_bytes`` (device
+    bytes across every leaf, the scratch row aside)."""
 
     def __init__(self, cfg, page: int = 32, num_pages: Optional[int] = None,
-                 device: Union[str, torch.device] = "cuda"):
-        if num_pages is None or int(num_pages) < 1:
-            raise ValueError("PagePool needs num_pages >= 1")
+                 device: Union[str, torch.device] = "cuda",
+                 budget_bytes: Optional[int] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.page = int(page)
-        self.num_pages = int(num_pages)
         self.page_bytes = self._page_bytes(cfg, self.page)
+        if num_pages is None and budget_bytes is not None:
+            num_pages = max(1, int(budget_bytes) // self.page_bytes)
+        if num_pages is None or int(num_pages) < 1:
+            raise ValueError("PagePool needs num_pages >= 1 or budget_bytes")
+        self.num_pages = int(num_pages)
         self.writes = 0        # page-rows written into the pool
         self.stalls = 0        # failed allocations (free list exhausted)
         self.allocs = 0
@@ -94,8 +102,10 @@ class PagePool:
 
     def reset(self) -> None:
         """Leaves cleared in place (k/v zeroed, scale planes at one; the
-        same tensors at the same addresses) and empty ownership."""
-        if not self.leaves:
+        same tensors at the same addresses) and empty ownership; new
+        leaves when ``num_pages`` changed since they were made."""
+        if not self.leaves \
+                or self.leaves["k"].shape[1] != self.num_pages + 1:
             self._alloc_leaves()
         else:
             for name, leaf in self.leaves.items():
@@ -103,9 +113,15 @@ class PagePool:
         self._free = list(range(self.num_pages))
         self._refs = np.zeros((self.num_pages,), np.int32)
 
-    def alloc(self, n: int = 1) -> Optional[List[int]]:
-        """``n`` pages at refcount 1, all or nothing; None (and a stall
-        counted) when the free list is short. Never blocks."""
+    def alloc(self, n: int = 1,
+              reclaim: Optional[Callable[[], bool]] = None
+              ) -> Optional[List[int]]:
+        """``n`` pages at refcount 1, all or nothing. While the free list
+        is short, ``reclaim()`` (if given) is called to release evictable
+        pages; it returns False when it freed nothing. None (and a stall
+        counted) when the list stays short. Never blocks."""
+        while len(self._free) < n and reclaim is not None and reclaim():
+            pass
         if len(self._free) < n:
             self.stalls += 1
             return None
@@ -113,6 +129,11 @@ class PagePool:
         self._refs[ids] = 1
         self.allocs += n
         return ids
+
+    def retain(self, page_ids: Sequence[int]) -> None:
+        """One more reference on each page (a second owner)."""
+        for pid in page_ids:
+            self._refs[pid] += 1
 
     def release(self, page_ids: Sequence[int]) -> None:
         """Drop one ref per page; refcount 0 returns the page to the free

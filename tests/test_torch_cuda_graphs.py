@@ -13,12 +13,16 @@ form). Run them on the GPU host with
   whole.
 - The kernel launch counters move by the same counts under a replay as
   under the eager run.
+- After a prefix hit (the suffix prefilled over the store's pages; paged:
+  the cached pages in the slot's table row, dense: copied into its cache
+  row), the replayed tick gives the eager tick's bits.
 - ``GenerationEngine`` refuses at construction, on CUDA, each
   configuration the kernels would refuse at the first tick.
 
-The model is 2 layers of head_dim 128 (Hq 8, Hkv 2) at vocabulary 1024,
-random weights from a seed; the state is random too: pages scattered
-over the pool, fills 0..200, every slot sampled with its own key.
+The model is 2 layers of head_dim 128 or 64 (Hq 8, Hkv 2) at vocabulary
+1024, random weights from a seed; the state is random too: pages
+scattered over the pool, fills 0..200, every slot sampled with its own
+key.
 """
 
 import asyncio
@@ -35,6 +39,7 @@ from gofr_tpu_torch.tpu.generate import GenerationEngine
 pytestmark = pytest.mark.cuda
 
 SLOTS, MAX_LEN, PAGE = 4, 256, 32
+HEAD_DIMS = [64, 128]
 
 
 @pytest.fixture(scope="module")
@@ -51,18 +56,18 @@ def _cfg(**over):
                use_flash=True), **over})
 
 
-def _engine(cuda, int8=False, spec=False, paged=True):
-    cfg = _cfg(kv_int8=int8)
+def _engine(cuda, int8=False, spec=False, paged=True, d=128, **kw):
+    cfg = _cfg(kv_int8=int8, dim=8 * d)
     params = llama.init(cfg, 0, device=cuda)
-    kw = {}
     if spec:
-        dcfg = _cfg()
-        kw = dict(draft_cfg=dcfg, draft_params=llama.init(dcfg, 1,
+        dcfg = _cfg(dim=8 * d)
+        kw.update(draft_cfg=dcfg, draft_params=llama.init(dcfg, 1,
                                                           device=cuda),
                   spec_gamma=4)
     return GenerationEngine(cfg, params, max_slots=SLOTS, max_len=MAX_LEN,
                             prompt_buckets=(32, 64), steps_per_tick=4,
-                            paged_kv=paged, kv_page=PAGE, device=cuda, **kw)
+                            paged_kv=paged, kv_page=PAGE, prefix_page=PAGE,
+                            device=cuda, **kw)
 
 
 def _fill_state(engine, seed, fills=(0, 37, 200, 90)):
@@ -126,11 +131,13 @@ def _bits(t):
     return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
 
 
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("sampled", [False, True])
 @pytest.mark.parametrize("kind", ["plain", "spec"])
-def test_replayed_tick_is_bitwise_the_eager_tick(cuda, kind, sampled, int8):
-    engine = _engine(cuda, int8=int8, spec=kind == "spec")
+def test_replayed_tick_is_bitwise_the_eager_tick(cuda, kind, sampled, int8,
+                                                 d):
+    engine = _engine(cuda, int8=int8, spec=kind == "spec", d=d)
     key = (kind, 4, sampled, None)
     asyncio.run(engine.warmup(ks=(4,)))
     assert key in engine._graphs
@@ -161,18 +168,19 @@ def test_replayed_tick_is_bitwise_the_eager_tick(cuda, kind, sampled, int8):
     assert after_eager["cache_len"][3] == saved["cache_len"][3]
 
 
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("sampled", [False, True])
 @pytest.mark.parametrize("kind", ["plain", "spec"])
 def test_dense_tick_replay_is_bitwise_the_eager_tick(cuda, kind, sampled,
-                                                     int8):
+                                                     int8, d):
     """The dense engine's tick at window 128 (the ragged kernels over the
     128-position identity table; the draft's flash decode over the
     window's view), fills below the window and the inactive slot's past
     it: replay and eager run give the same tokens and state, the whole
     cache included (no scratch rows: the inactive slot writes at its
     frozen position)."""
-    engine = _engine(cuda, int8=int8, spec=kind == "spec", paged=False)
+    engine = _engine(cuda, int8=int8, spec=kind == "spec", paged=False, d=d)
     key = (kind, 4, sampled, 128)
     asyncio.run(engine.warmup(ks=(4,), windows=(128,)))
     assert key in engine._graphs
@@ -196,10 +204,66 @@ def test_dense_tick_replay_is_bitwise_the_eager_tick(cuda, kind, sampled,
     assert after_eager["cache_len"][3] == saved["cache_len"][3]
 
 
+async def _admit(engine, prompts):
+    """Admit ``prompts`` in one pass of the engine's admission (without
+    its loop) and wait for their prefills; the slots stay active."""
+    loop = asyncio.get_running_loop()
+    futures = [engine._submit(p, 8, None, None, None) for p in prompts]
+    engine._admit_pending(loop)
+    for entry in list(engine._publishq):
+        await entry.task
+    engine._publishq.clear()
+    for future in futures:
+        future.cancel()
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("paged", [False, True])
+def test_prefix_hit_tick_replay_is_bitwise_the_eager_tick(cuda, paged, d):
+    """A full prefill publishes (dense) or registers (paged) its first
+    page; a second prompt with the same head hits it at rung 1 and
+    prefills its suffix alone. The next tick, replayed from its graph,
+    gives the eager tick's tokens and state: the paged graph reads the
+    cached page through the device table at its fixed address, uploaded
+    from the host master table; the dense one the rows the suffix insert
+    copied."""
+    engine = _engine(cuda, paged=paged, d=d, prefix_cache=True)
+    window = None if paged else 128
+    key = ("plain", 4, False, window)
+    asyncio.run(engine.warmup(ks=(4,),
+                              windows=None if paged else (window,)))
+    head = np.random.default_rng(d).integers(0, 1024, PAGE).tolist()
+    asyncio.run(_admit(engine, [head + [5, 6, 7]]))
+    asyncio.run(_admit(engine, [head + [9, 10]]))
+    store = engine.stats()["prefix_cache"]
+    assert store["lookups"]["hit"] == 1 and store["tokens_saved"] == PAGE
+    slot = next(s for s in engine._slots if s.active and s.fill == PAGE + 2)
+    if paged:
+        assert len(slot.nodes) == 1
+    mask = np.array([s.active for s in engine._slots])
+    assert mask.sum() == 2
+    engine._staging.upload(engine.active, mask)
+    if paged:
+        engine._staging.upload(engine.table, engine._table.copy())
+    saved = {k: v.clone() for k, v in _state(engine).items()}
+    eager = engine._tick_body(key, engine.active).clone()
+    torch.cuda.synchronize()
+    after_eager = {k: v.clone() for k, v in _state(engine).items()}
+    _restore(engine, saved)
+    replayed = engine._run_tick(key, None, None)()
+    np.testing.assert_array_equal(replayed, eager.cpu().numpy())
+    for name, tensor in _state(engine).items():
+        if name.startswith("pool."):
+            tensor, want = tensor[:, :-1], after_eager[name][:, :-1]
+        else:
+            want = after_eager[name]
+        assert torch.equal(_bits(tensor), _bits(want)), name
+
+
 # what each configuration changes, and its spec_gamma
 REFUSED = {
     "spec_gamma": (dict(), 8),
-    "head_dim": (dict(dim=512), 4),                      # head_dim 64
+    "head_dim": (dict(dim=768), 4),                      # head_dim 96
     "group": (dict(dim=1536, n_heads=12, n_kv_heads=1), 4),
     "dtype": (dict(dtype=torch.float32), 4),
     "table": (dict(max_seq_len=16384, n_kv_heads=1), 4),

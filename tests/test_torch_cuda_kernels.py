@@ -19,7 +19,8 @@ dense cache's two routes: flash decode over an attention window's view
 (the full cache's slot stride) equal to its plain version and to itself
 over the window copied out, and the ragged kernel over a dense cache
 viewed as pages through an identity table, every rung, held to the
-ragged bounds against its plain version.
+ragged bounds against its plain version. The decode-shaped kernels run
+at head_dim 64 (the `small` preset's) and 128 alike.
 """
 
 import numpy as np
@@ -90,20 +91,25 @@ def test_flash_tensor_core_kernel_head_dim_64(cuda, seq, causal):
     assert (out.float() - ref.float()).abs().max().item() <= 2e-2
 
 
-def _paged(cuda, fills, g_len, group=4, seed=0, page=32, width=8):
+# the head dims the decode-shaped kernels take: llama3-8b's 128 and the
+# `small` preset's 64
+HEAD_DIMS = [64, 128]
+
+
+def _paged(cuda, fills, g_len, group=4, seed=0, page=32, width=8, d=128):
     """Poisoned bf16 pools (NaN wherever no live position points), page
     32 and 8 table columns unless given; q (B,G,Hq,D), k/v_new
-    (B,G,Hkv,D)."""
+    (B,G,Hkv,D), D ``d``."""
     hkv = 2
     num_pages = max(40, sum(-(-n // page) for n in fills) + 4)
     gen = torch.Generator(device=cuda).manual_seed(seed)
-    shape = (num_pages, page, hkv, 128)
+    shape = (num_pages, page, hkv, d)
     k_pages = torch.randn(shape, generator=gen, device=cuda).bfloat16()
     v_pages = torch.randn(shape, generator=gen, device=cuda).bfloat16()
     b = len(fills)
-    q = torch.randn((b, g_len, hkv * group, 128), generator=gen,
+    q = torch.randn((b, g_len, hkv * group, d), generator=gen,
                     device=cuda).bfloat16()
-    k_new, v_new = (torch.randn((b, g_len, hkv, 128), generator=gen,
+    k_new, v_new = (torch.randn((b, g_len, hkv, d), generator=gen,
                                 device=cuda).bfloat16() for _ in range(2))
     table = np.full((b, width), num_pages, np.int32)
     nxt = 0
@@ -120,9 +126,10 @@ def _paged(cuda, fills, g_len, group=4, seed=0, page=32, width=8):
             v_new, torch.tensor(fills, dtype=torch.int32, device=cuda))
 
 
-def test_ragged_kernel_matches_plain_and_skips_poison(cuda):
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_ragged_kernel_matches_plain_and_skips_poison(cuda, d):
     q, kp, vp, table, kn, vn, lens = _paged(cuda, [0, 1, 31, 32, 33, 100,
-                                                   255], 1)
+                                                   255], 1, d=d)
     args = (q, kp, vp, table, kn[:, 0], vn[:, 0], lens)
     out = ragged_mod.ragged_paged_decode_attention(*args)
     torch.cuda.synchronize()
@@ -132,11 +139,12 @@ def test_ragged_kernel_matches_plain_and_skips_poison(cuda):
     assert row_rel_l2(out, ref) <= 2.0 ** -8
 
 
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("group", [1, 4, 8])
 @pytest.mark.parametrize("g_len", [1, 2, 3, 5, 8])
-def test_verify_kernel_matches_plain_and_skips_poison(cuda, g_len, group):
+def test_verify_kernel_matches_plain_and_skips_poison(cuda, g_len, group, d):
     fills = [0, 1, 31, 32, 33, 100, 256 - g_len]
-    args = _paged(cuda, fills, g_len, group=group, seed=g_len)
+    args = _paged(cuda, fills, g_len, group=group, seed=g_len, d=d)
     before = ragged_mod.verify_launches
     out = ragged_mod.ragged_paged_verify_attention(*args)
     torch.cuda.synchronize()
@@ -147,11 +155,12 @@ def test_verify_kernel_matches_plain_and_skips_poison(cuda, g_len, group):
     assert row_rel_l2(out, ref) <= 2.0 ** -8
 
 
-def test_verify_kernel_g1_is_bitwise_the_decode_kernel(cuda):
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_verify_kernel_g1_is_bitwise_the_decode_kernel(cuda, d):
     """The verify instantiation (new-token bound 8) at G = 1 against the
     decode instantiation (bound 1) that served G = 1 launches take."""
     q, kp, vp, table, kn, vn, lens = _paged(cuda, [0, 1, 31, 32, 33, 100,
-                                                   255], 1)
+                                                   255], 1, d=d)
     before = ragged_mod.verify_launches
     verify = ragged_mod.ragged_paged_verify_form_attention(
         q, kp, vp, table, kn, vn, lens)
@@ -167,12 +176,13 @@ def test_verify_kernel_refuses_too_many_tokens(cuda):
         ragged_mod.ragged_paged_verify_attention(*args)
 
 
-def _paged_int8(cuda, fills, g_len, group=4, seed=0, page=32, width=8):
+def _paged_int8(cuda, fills, g_len, group=4, seed=0, page=32, width=8,
+                d=128):
     """:func:`_paged`'s layout with its rows quantised to int8 pools and
     NaN in both scale planes wherever no live position points; returns
     the wrapper's arguments, the scale planes last."""
     q, kp, vp, table, kn, vn, lens = _paged(cuda, fills, g_len, group, seed,
-                                            page, width)
+                                            page, width, d)
     dead = kp[..., 0, 0].isnan()[..., None]
     (k8, ks), (v8, vs) = (quantize_kv(p.nan_to_num()) for p in (kp, vp))
     return (q, k8, v8, table, kn, vn, lens,
@@ -180,10 +190,11 @@ def _paged_int8(cuda, fills, g_len, group=4, seed=0, page=32, width=8):
             vs.masked_fill(dead, float("nan")))
 
 
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("group", [1, 2, 4, 8])
-def test_int8_ragged_kernel_matches_plain_and_skips_poison(cuda, group):
+def test_int8_ragged_kernel_matches_plain_and_skips_poison(cuda, group, d):
     q, k8, v8, table, kn, vn, lens, ks, vs = _paged_int8(
-        cuda, [0, 1, 31, 32, 33, 100, 255], 1, group=group, seed=group)
+        cuda, [0, 1, 31, 32, 33, 100, 255], 1, group=group, seed=group, d=d)
     args = (q, k8, v8, table, kn[:, 0], vn[:, 0], lens, ks, vs)
     before = (ragged_mod.launches, ragged_mod.int8_launches)
     out = ragged_mod.ragged_paged_decode_attention(*args)
@@ -196,12 +207,14 @@ def test_int8_ragged_kernel_matches_plain_and_skips_poison(cuda, group):
     assert row_rel_l2(out, ref) <= 2.0 ** -8
 
 
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("group", [1, 2, 4, 8])
 @pytest.mark.parametrize("g_len", [2, 3, 5])
 def test_int8_verify_kernel_matches_plain_and_skips_poison(cuda, g_len,
-                                                           group):
+                                                           group, d):
     fills = [0, 1, 31, 32, 33, 100, 256 - g_len]
-    args = _paged_int8(cuda, fills, g_len, group=group, seed=10 + g_len)
+    args = _paged_int8(cuda, fills, g_len, group=group, seed=10 + g_len,
+                       d=d)
     before = (ragged_mod.verify_launches, ragged_mod.int8_verify_launches)
     out = ragged_mod.ragged_paged_verify_attention(*args)
     torch.cuda.synchronize()
@@ -213,9 +226,10 @@ def test_int8_verify_kernel_matches_plain_and_skips_poison(cuda, g_len,
     assert row_rel_l2(out, ref) <= 2.0 ** -8
 
 
-def test_int8_verify_kernel_g1_is_bitwise_the_int8_decode_kernel(cuda):
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_int8_verify_kernel_g1_is_bitwise_the_int8_decode_kernel(cuda, d):
     q, k8, v8, table, kn, vn, lens, ks, vs = _paged_int8(
-        cuda, [0, 1, 31, 32, 33, 100, 255], 1)
+        cuda, [0, 1, 31, 32, 33, 100, 255], 1, d=d)
     before = ragged_mod.int8_verify_launches
     verify = ragged_mod.ragged_paged_verify_form_attention(
         q, k8, v8, table, kn, vn, lens, ks, vs)
@@ -252,17 +266,18 @@ def test_int8_wrapper_refuses_mismatched_scale_planes(cuda):
 
 
 # fills around the cluster's chunk edges (each slot's pages split over 8
-# blocks in runs of ceil(pages / 8)) and the 8-position runs a half-warp
+# blocks in runs of ceil(pages / 8)) and the 8-position runs a row stream
 # loads at once; clipped to the table's capacity
 SPLIT_FILLS = [0, 1, 7, 8, 9, 31, 32, 33, 255, 256, 257, 2047, 2048]
 
 
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("page,width", [(32, 64), (16, 63)])
 @pytest.mark.parametrize("group", [1, 2, 4, 8])
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("g_len", [1, 5])
 def test_ragged_split_kernel_on_chunk_edges(cuda, page, width, group, int8,
-                                            g_len):
+                                            g_len, d):
     """The cluster split at fills below, at and above a chunk edge, a
     table width that is not a multiple of 8 (P 63 at page 16), every
     group, bf16 and int8 pools with NaN in every dead row and scale
@@ -273,7 +288,7 @@ def test_ragged_split_kernel_on_chunk_edges(cuda, page, width, group, int8,
                     + [edge - 1, edge, edge + 1, cap - 1]})
     make = _paged_int8 if int8 else _paged
     args = list(make(cuda, fills, g_len, group=group, seed=page + group,
-                     page=page, width=width))
+                     page=page, width=width, d=d))
     counter = ("int8_" if int8 else "") + (
         "launches" if g_len == 1 else "verify_launches")
     before = getattr(ragged_mod, counter)
@@ -294,8 +309,9 @@ def test_ragged_split_kernel_on_chunk_edges(cuda, page, width, group, int8,
     assert row_rel_l2(out, ref) <= 2.0 ** -8
 
 
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("heads", [(32, 8), (8, 8), (8, 4), (16, 2)])
-def test_flash_decode_kernel_matches_plain(cuda, heads):
+def test_flash_decode_kernel_matches_plain(cuda, heads, d):
     hq, hkv = heads
     fills = [0, 1, 127, 128, 129, 700, 1500, 2047]
     b, t = len(fills), 2048
@@ -303,10 +319,10 @@ def test_flash_decode_kernel_matches_plain(cuda, heads):
     lens = torch.tensor(fills, dtype=torch.int32, device=cuda)
     dead = (torch.arange(t, device=cuda)[None, :]
             >= lens[:, None])[..., None, None]
-    k, v = (torch.randn((b, t, hkv, 128), generator=gen, device=cuda)
+    k, v = (torch.randn((b, t, hkv, d), generator=gen, device=cuda)
             .bfloat16().masked_fill(dead, float("nan")) for _ in range(2))
-    q = torch.randn((b, 1, hq, 128), generator=gen, device=cuda).bfloat16()
-    kn, vn = (torch.randn((b, hkv, 128), generator=gen, device=cuda)
+    q = torch.randn((b, 1, hq, d), generator=gen, device=cuda).bfloat16()
+    kn, vn = (torch.randn((b, hkv, d), generator=gen, device=cuda)
               .bfloat16() for _ in range(2))
     before = decode_mod.launches
     out = decode_mod.flash_decode_attention(q, k, v, kn, vn, lens)
@@ -321,7 +337,8 @@ def test_flash_decode_kernel_matches_plain(cuda, heads):
     (2048, [0, 1, 255, 256, 257, 2047]),
     (1000, [0, 1, 255, 256, 257, 999]),
     (4096, [0, 1, 2047, 2048, 4000, 4095])])
-def test_flash_decode_split_kernel_on_chunk_edges(cuda, t_max, fills):
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_flash_decode_split_kernel_on_chunk_edges(cuda, t_max, fills, d):
     """Fills on the 256-position chunk edges, at a width that is not a
     multiple of the chunk too; every row past a fill NaN."""
     b, hq, hkv = len(fills), 32, 8
@@ -329,10 +346,10 @@ def test_flash_decode_split_kernel_on_chunk_edges(cuda, t_max, fills):
     lens = torch.tensor(fills, dtype=torch.int32, device=cuda)
     dead = (torch.arange(t_max, device=cuda)[None, :]
             >= lens[:, None])[..., None, None]
-    k, v = (torch.randn((b, t_max, hkv, 128), generator=gen, device=cuda)
+    k, v = (torch.randn((b, t_max, hkv, d), generator=gen, device=cuda)
             .bfloat16().masked_fill(dead, float("nan")) for _ in range(2))
-    q = torch.randn((b, 1, hq, 128), generator=gen, device=cuda).bfloat16()
-    kn, vn = (torch.randn((b, hkv, 128), generator=gen, device=cuda)
+    q = torch.randn((b, 1, hq, d), generator=gen, device=cuda).bfloat16()
+    kn, vn = (torch.randn((b, hkv, d), generator=gen, device=cuda)
               .bfloat16() for _ in range(2))
     before = decode_mod.launches
     out = decode_mod.flash_decode_attention(q, k, v, kn, vn, lens)
@@ -343,16 +360,17 @@ def test_flash_decode_split_kernel_on_chunk_edges(cuda, t_max, fills):
     assert ulp_error(out, ref) <= 1.0
 
 
-def test_flash_decode_kernel_over_a_window_view(cuda):
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_flash_decode_kernel_over_a_window_view(cuda, d):
     """Windows 128..1024 of a 2048-position cache, fills below each
     window and one past it; every row past the window NaN."""
     fills = [0, 1, 127, 128, 129, 700, 1500, 2047]
     b, t_max, hq, hkv = len(fills), 2048, 32, 8
     gen = torch.Generator(device=cuda).manual_seed(13)
-    k, v = (torch.randn((b, t_max, hkv, 128), generator=gen, device=cuda)
+    k, v = (torch.randn((b, t_max, hkv, d), generator=gen, device=cuda)
             .bfloat16() for _ in range(2))
-    q = torch.randn((b, 1, hq, 128), generator=gen, device=cuda).bfloat16()
-    kn, vn = (torch.randn((b, hkv, 128), generator=gen, device=cuda)
+    q = torch.randn((b, 1, hq, d), generator=gen, device=cuda).bfloat16()
+    kn, vn = (torch.randn((b, hkv, d), generator=gen, device=cuda)
               .bfloat16() for _ in range(2))
     for w in (128, 256, 512, 1024):
         lens = torch.tensor([min(n, w - 1) for n in fills[:-1]] + [w + 300],
@@ -374,19 +392,20 @@ def test_flash_decode_kernel_over_a_window_view(cuda):
         assert ulp_error(out, ref) <= 1.0
 
 
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("g_len", [1, 5])
-def test_ragged_kernel_over_an_identity_table(cuda, g_len, int8):
+def test_ragged_kernel_over_an_identity_table(cuda, g_len, int8, d):
     """A dense (B 8, T 1024, Hkv 8) cache viewed as pages of 32 in slot
     order, each window rung's identity table, fills below the rung and one
     row past it; every position past a row's fill (the window's, for the
     row past it) NaN, scale planes too."""
     b, t_max, hq, hkv, page = 8, 1024, 32, 8, 32
     gen = torch.Generator(device=cuda).manual_seed(17 + g_len)
-    shape = (b, t_max, hkv, 128)
-    q = torch.randn((b, g_len, hq, 128), generator=gen, device=cuda)\
+    shape = (b, t_max, hkv, d)
+    q = torch.randn((b, g_len, hq, d), generator=gen, device=cuda)\
         .bfloat16()
-    kn, vn = (torch.randn((b, g_len, hkv, 128), generator=gen, device=cuda)
+    kn, vn = (torch.randn((b, g_len, hkv, d), generator=gen, device=cuda)
               .bfloat16() for _ in range(2))
     k, v = (torch.randn(shape, generator=gen, device=cuda)
             for _ in range(2))
@@ -401,12 +420,12 @@ def test_ragged_kernel_over_an_identity_table(cuda, g_len, int8):
             (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
             ks = ks.masked_fill(dead[..., None], float("nan"))
             vs = vs.masked_fill(dead[..., None], float("nan"))
-            pools = [k8.view(-1, page, hkv, 128), v8.view(-1, page, hkv, 128),
+            pools = [k8.view(-1, page, hkv, d), v8.view(-1, page, hkv, d),
                      ks.view(-1, page, hkv), vs.view(-1, page, hkv)]
         else:
             kb, vb = (x.bfloat16().masked_fill(dead[..., None, None],
                                                float("nan")) for x in (k, v))
-            pools = [kb.view(-1, page, hkv, 128), vb.view(-1, page, hkv, 128)]
+            pools = [kb.view(-1, page, hkv, d), vb.view(-1, page, hkv, d)]
         table = llama.identity_table(b, t_max, w, device=cuda)
         args = [q, pools[0], pools[1], table, kn, vn, lens] + pools[2:]
         if g_len == 1:

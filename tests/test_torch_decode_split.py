@@ -16,8 +16,10 @@ import torch
 
 from gofr_tpu_torch.ops.cuda import decode_attention as decode_mod
 from gofr_tpu_torch.ops.cuda.decode_attention import (
-    BLOCK_K, CHUNK, HEAD_DIM, MAX_SPLITS, flash_decode_attention_plain,
-    scratch_shape, split_plan)
+    BLOCK_K, CHUNK, MAX_SPLITS, SUPPORTED_HEAD_DIMS,
+    flash_decode_attention_plain, scratch_shape, split_plan)
+
+HEAD_DIM = 128
 
 WIDTHS = {128: (256, 1), 129: (256, 1), 2048: (256, 8), 4096: (256, 16)}
 
@@ -40,11 +42,12 @@ def test_split_plan_covers_the_width_in_whole_blocks(t_max):
         assert chunk == CHUNK          # the default whenever it fits
 
 
+@pytest.mark.parametrize("head_dim", SUPPORTED_HEAD_DIMS)
 @pytest.mark.parametrize("t_max", sorted(WIDTHS))
 @pytest.mark.parametrize("group", [1, 4, 8])
-def test_scratch_shape_holds_one_partial_per_chunk(t_max, group):
-    shape = scratch_shape(8, t_max, 8, group)
-    assert shape == (8, 8, WIDTHS[t_max][1], group, HEAD_DIM + 2)
+def test_scratch_shape_holds_one_partial_per_chunk(t_max, group, head_dim):
+    shape = scratch_shape(8, t_max, 8, group, head_dim)
+    assert shape == (8, 8, WIDTHS[t_max][1], group, head_dim + 2)
 
 
 def test_split_plan_refuses_an_empty_cache():
@@ -99,18 +102,18 @@ def _split_decode(q, k_cache, v_cache, k_new, v_new, cache_len):
     return out.reshape(batch, 1, q_heads, head_dim)
 
 
-def _scenario(t_max, fills, seed=0, hq=8, hkv=2):
+def _scenario(t_max, fills, seed=0, hq=8, hkv=2, head_dim=HEAD_DIM):
     rng = np.random.default_rng(seed)
     b = len(fills)
-    q = torch.from_numpy(rng.standard_normal((b, 1, hq, HEAD_DIM))
+    q = torch.from_numpy(rng.standard_normal((b, 1, hq, head_dim))
                          .astype(np.float32))
-    k, v = (torch.from_numpy(rng.standard_normal((b, t_max, hkv, HEAD_DIM))
+    k, v = (torch.from_numpy(rng.standard_normal((b, t_max, hkv, head_dim))
                              .astype(np.float32)) for _ in range(2))
     lens = torch.tensor(fills, dtype=torch.int32)
     for row, n in enumerate(fills):       # rows past each fill poisoned
         k[row, n:] = float("nan")
         v[row, n:] = float("nan")
-    k_new, v_new = (torch.from_numpy(rng.standard_normal((b, hkv, HEAD_DIM))
+    k_new, v_new = (torch.from_numpy(rng.standard_normal((b, hkv, head_dim))
                                      .astype(np.float32)) for _ in range(2))
     return q, k, v, k_new, v_new, lens
 
@@ -120,8 +123,9 @@ def _scenario(t_max, fills, seed=0, hq=8, hkv=2):
     (129, [0, 128, 129, 64]),
     (2048, [0, 255, 256, 257, 2047, 2048]),
     (4096, [1, 2048, 4000, 4096])])
-def test_split_algorithm_matches_the_plain_version(t_max, fills):
-    args = _scenario(t_max, fills, seed=t_max)
+@pytest.mark.parametrize("head_dim", SUPPORTED_HEAD_DIMS)
+def test_split_algorithm_matches_the_plain_version(t_max, fills, head_dim):
+    args = _scenario(t_max, fills, seed=t_max, head_dim=head_dim)
     want = flash_decode_attention_plain(*args)
     got = _split_decode(*args)
     assert torch.isfinite(got).all()

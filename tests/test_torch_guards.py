@@ -16,6 +16,7 @@ from gofr_tpu_torch.ops.cuda.ragged_paged_attention import (
     ragged_paged_decode_attention)
 from gofr_tpu_torch.tpu.generate import GenerationEngine
 from gofr_tpu_torch.tpu.page_pool import PagePool
+from gofr_tpu_torch.tpu.prefix_cache import PrefixStore
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "gofr_tpu")
@@ -69,6 +70,14 @@ def test_default_device_raises_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         GenerationEngine(cfg, params, max_len=64, prompt_buckets=(8,),
                          kv_page=4)
+
+
+def test_prefix_store_default_device_raises_without_cuda(no_cuda):
+    cfg = llama.config("tiny", dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PrefixStore(cfg, page=4, num_pages=8)
+    assert PrefixStore(cfg, page=4, num_pages=8, device="cpu").pool[
+        "k"].device.type == "cpu"
 
 
 def test_kernel_build_raises_without_cuda(no_cuda):

@@ -232,7 +232,7 @@ def test_cuda_refusal_predicate_names_each_limit(model):
     cases = {
         "MAX_VERIFY_TOKENS": (cfg, dict(spec_gamma=ragged_mod
                                         .MAX_VERIFY_TOKENS)),
-        "head_dim 64": (dataclasses.replace(cfg, dim=2048), {}),
+        "head_dim 96": (dataclasses.replace(cfg, dim=3072), {}),
         "GQA group 32/3": (dataclasses.replace(cfg, n_kv_heads=3), {}),
         "dtype torch.float32": (dataclasses.replace(cfg,
                                                     dtype=torch.float32),

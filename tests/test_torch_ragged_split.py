@@ -241,6 +241,7 @@ def test_wrapper_refuses_a_table_whose_chunk_does_not_fit_shared_memory():
     q, kp, vp, _, kn, vn, lens = args
     width = 8 * (ragged_mod.MAX_DYN_SMEM // (32 * 8 * 4)) + 8
     table = torch.full((1, width), kp.shape[0], dtype=torch.int32)
-    assert ragged_mod.dyn_smem_bytes(width, 32, 8, 1) > ragged_mod.MAX_DYN_SMEM
+    assert ragged_mod.dyn_smem_bytes(width, 32, 8, 1, 128) \
+        > ragged_mod.MAX_DYN_SMEM
     with pytest.raises(ValueError, match="shared memory"):
         ragged_mod._check(q, kp, vp, table, kn, vn, lens)
