@@ -12,7 +12,8 @@ G > 1 launch; and both again with ``kv_int8`` (int8 KV pool with float32
 scale planes), whose decode and verify go through the ragged kernel's
 int8 instantiation; then the example app's default preset, ``small``
 (head_dim 64), at the example's engine settings, and prefix KV reuse
-on shared-prefix traffic.
+on shared-prefix traffic, then grammar-constrained decoding and
+admission (SLO classes, deadlines, brownout).
 Phases, each of which raises (exit code != 0) on failure:
 
 1. card identity (``nvidia-smi`` name and power limit, torch/CUDA);
@@ -112,7 +113,31 @@ Phases, each of which raises (exit code != 0) on failure:
     ``llama3-8b`` dense bf16 (after phase 18);
 25. one ``{"kernels": [...]}`` line (every instantiation, head_dim 128
     and 64, each with its launches on the main paths), then the card
-    line, then the last line ``{"ok": true, "device": {...}}``.
+    line, then the last line ``{"ok": true, "device": {...}}`` (printed
+    after phases 26-27, which run after phase 24's ``small`` cells and,
+    at ``llama3-8b`` width, after phase 18);
+26. grammar-constrained decoding on the example app's own model
+    (``small`` over its byte tokenizer's 256 ids, random weights, the
+    example's engine): a burst of 8 requests over phase 9's prompt
+    lengths, 32-48 new tokens, four constrained (regex ``(yes|no)!``,
+    the schema ``{"ok": boolean}``, an object schema with an integer
+    and a string, the regex sampled with a seed), four not (one
+    sampled); served once (the biased rungs are captured at first use,
+    their seconds printed), then counted: every constrained output walks
+    its grammar (a complete one fullmatches), the unconstrained outputs
+    equal the all-unconstrained burst's, every tick replays a graph,
+    every ``bias`` graph is k = 1, launches as the counters predict; the
+    paged engine (page 32) must give the greedy constrained outputs;
+    mixed and all-unconstrained tok/s, TTFT p50, biased ticks and bias
+    bytes a tick printed; then at ``llama3-8b`` width (2 of the 8
+    constrained, the dense bf16 engine, a 4.1 MB bias slab a tick);
+27. admission on the ``small`` spec engine (2-layer draft of views, γ
+    4): brownout level 1 refuses a batch request (``BrownoutShed``) and
+    serves one with a 500 ms deadline, level 2 dispatches spec rung 1
+    only, level 3 no spec tick, level 0 admits batch again, a
+    constrained request walks its grammar; a request whose deadline has
+    passed raises ``DeadlineExceeded`` with no prefill; a 2-slot engine
+    admits a mixed-class backlog in ``ClassQueues``' order.
 
 Every engine burst (phases 9-12, 15-18, 20-23) is served twice:
 counted, then under ``torch.profiler`` for the device's idle share.
@@ -809,7 +834,6 @@ def serve_burst(torch, engine, prompts, budget, samplings, mods, timeout,
     ticks by window rung)."""
     from torch.profiler import ProfilerActivity
 
-    flash_mod, ragged_mod, decode_mod = mods
     # an earlier profiled burst leaves cyclic garbage that is slow to
     # collect: collect it now, not inside this engine's burst
     gc.collect()
@@ -847,12 +871,7 @@ def serve_burst(torch, engine, prompts, budget, samplings, mods, timeout,
             finally:
                 watcher.cancel()
             wall = time.monotonic() - start
-            launches = dict(flash=flash_mod.launches,
-                            ragged=ragged_mod.launches,
-                            verify=ragged_mod.verify_launches,
-                            int8=ragged_mod.int8_launches,
-                            int8_verify=ragged_mod.int8_verify_launches,
-                            flash_decode=decode_mod.launches)
+            launches = read_launches(mods)
             after = run_counters(engine)
             counters = {key: after[key] - before[key] for key in after}
             counters["ticks_by_gamma"] = {
@@ -922,6 +941,16 @@ def serve_burst(torch, engine, prompts, budget, samplings, mods, timeout,
            f"(busy {idle['device_busy_s']:.4f}s of "
            f"{idle['profiled_wall_s']:.4f}s profiled)" if idle else ""))
     return outs, wall, launches, counters, ttfts, figures
+
+
+def read_launches(mods):
+    """Every kernel's launch count, by kernel."""
+    flash_mod, ragged_mod, decode_mod = mods
+    return dict(flash=flash_mod.launches, ragged=ragged_mod.launches,
+                verify=ragged_mod.verify_launches,
+                int8=ragged_mod.int8_launches,
+                int8_verify=ragged_mod.int8_verify_launches,
+                flash_decode=decode_mod.launches)
 
 
 def run_counters(engine):
@@ -1356,7 +1385,6 @@ def prefix_run(torch, generate, mods, cfg, params, engine_kw, prefix, seed):
     every wave's outputs, the last wave 2's TTFTs, prefill stream spans
     (CUDA events around each prefill dispatch on the device thread) and
     store stats, and the launches of all the waves."""
-    flash_mod, ragged_mod, decode_mod = mods
     rounds = [prefix_waves(cfg, seed + r) for r in range(PREFIX_ROUNDS)]
     samplings = [generate.Sampling() for _ in range(7)] + [
         generate.Sampling(temperature=0.8, top_p=0.95, seed=seed)]
@@ -1397,12 +1425,7 @@ def prefix_run(torch, generate, mods, cfg, params, engine_kw, prefix, seed):
                         engine.generate(p, 32, sampling=s)
                         for p, s in zip(wave, samplings)]), 600))
             torch.cuda.synchronize()
-            launches = dict(flash=flash_mod.launches,
-                            ragged=ragged_mod.launches,
-                            verify=ragged_mod.verify_launches,
-                            int8=ragged_mod.int8_launches,
-                            int8_verify=ragged_mod.int8_verify_launches,
-                            flash_decode=decode_mod.launches)
+            launches = read_launches(mods)
             after = run_counters(engine)
             counters = {key: after[key] - before[key] for key in after}
             store = engine.stats().get("prefix_cache")
@@ -1510,6 +1533,405 @@ def phase_prefix(torch, llama, generate, mods, cfg, params, engine_kw, path,
     return on["launches"]
 
 
+# -- phases 26-27: how the engine admits and steers requests ---------------
+
+# the example app's generation model (examples/llama-generate/main.py:124):
+# ``small`` over its byte-level tokenizer's 256 ids
+EXAMPLE_VOCAB = 256
+YES_NO = {"type": "regex", "pattern": "(yes|no)!"}
+OK_SCHEMA = {"type": "json_schema",
+             "json_schema": {"type": "object",
+                             "properties": {"ok": {"type": "boolean"}},
+                             "required": ["ok"]}}
+RECORD_SCHEMA = {"type": "json_schema",
+                 "json_schema": {"type": "object",
+                                 "properties": {"id": {"type": "integer"},
+                                                "name": {"type": "string"}}}}
+# phase 26's burst over phase 9's prompt lengths: (response_format,
+# sampled) of each request; the first n_constrained of the four
+# constrained ones are sent
+BURST_FORMATS = [(YES_NO, False), (OK_SCHEMA, False), (RECORD_SCHEMA, False),
+                 (YES_NO, True)]
+BURST_BUDGETS = (32, 40, 48, 36, 44, 32, 40, 48)
+PATH_KERNELS.update({"constrained_small": ("flash", "ragged"),
+                     "constrained_small_paged": ("flash", "ragged"),
+                     "constrained_llama3": ("flash", "ragged"),
+                     "admission_spec": ("flash", "verify", "flash_decode"),
+                     "admission_order": ("flash", "ragged")})
+
+
+def with_captures(counters, keys):
+    """``counters`` plus the eager run each graph capture of ``keys``
+    makes before it captures (a real launch of the tick's kernels, with
+    every slot inactive): a plain or bias rung's k decode steps, a spec
+    rung's verify and g + 1 draft steps."""
+    counters = dict(counters)
+    for kind, n, _, _ in keys:
+        if kind == "spec":
+            counters["spec_ticks"] += 1
+            counters["draft_steps"] += n + 1
+        else:
+            counters["steps"] += n
+    return counters
+
+
+def burst_requests(generate, cfg, seed, n_constrained):
+    """Phase 26's 8 requests, (prompt, budget, sampling, response_format):
+    the first ``n_constrained`` constrained (greedy but for the seeded
+    sampled regex), the rest unconstrained, the last of them sampled."""
+    reqs = []
+    for i, prompt in enumerate(engine_prompts(cfg, seed)):
+        rf, sampled = (BURST_FORMATS[i] if i < n_constrained
+                       else (None, i == 7))
+        sampling = (generate.Sampling(temperature=0.8, top_p=0.95,
+                                      seed=seed + i) if sampled
+                    else generate.Sampling())
+        reqs.append((prompt, BURST_BUDGETS[i], sampling, rf))
+    return reqs
+
+
+async def serve_requests(engine, reqs, timeout=600):
+    t0 = time.monotonic()
+    outs = await asyncio.wait_for(asyncio.gather(*[
+        engine.generate(p, n, sampling=s, response_format=rf)
+        for p, n, s, rf in reqs]), timeout)
+    return outs, time.monotonic() - t0
+
+
+def check_grammar(constrain, table, rf, tokens, what):
+    """The tokens walk the grammar with no violation; a walk that reached
+    ``must_stop`` is a full match. Returns whether it completed."""
+    grammar = constrain.GrammarCache(table).get(rf, None)
+    walker = constrain.GrammarWalker(grammar)
+    for token in tokens:
+        if walker.must_stop or not walker.advance(token):
+            raise AssertionError(f"{what}: {tokens} leaves its grammar "
+                                 f"{rf} at token {token}")
+    if walker.must_stop and not grammar.fullmatch(tokens):
+        raise AssertionError(f"{what}: {tokens} stopped short of a match")
+    return walker.must_stop
+
+
+def phase_constrained(torch, generate, constrain, mods, cfg, params,
+                      engine_kw, path, seed, results, n_constrained,
+                      warm=True, paged_check=False):
+    """Phase 26, one engine: the mixed burst once to capture the biased
+    rungs (their seconds reported), then counted: every constrained
+    output walks its grammar, every tick replays a graph, each "bias"
+    graph is k = 1, the launches are what the counters predict; then the
+    all-unconstrained burst, whose unconstrained requests must give the
+    mixed burst's tokens. With ``paged_check`` a paged engine (page 32)
+    serves the mixed burst and its greedy constrained outputs must be the
+    dense engine's. Returns launches by path."""
+    t_phase = time.monotonic()
+    table = constrain.token_byte_table(vocab_size=cfg.vocab_size)
+    mixed = burst_requests(generate, cfg, seed, n_constrained)
+    plain = [(p, n, s, None) for p, n, s, _ in mixed]
+    log(f"== phase 26: {path}: constrained decoding, {cfg.n_layers} layers, "
+        f"dim {cfg.dim}, vocab {cfg.vocab_size}, engine {engine_kw}: "
+        f"{n_constrained} of 8 requests constrained")
+    engine = generate.GenerationEngine(cfg, params, device="cuda",
+                                       token_table=table, **engine_kw)
+    by_path = {}
+
+    async def run():
+        t0 = time.monotonic()
+        if warm:
+            await engine.warmup()
+        torch.cuda.synchronize()
+        warm_s = time.monotonic() - t0
+        await engine.start()
+        try:
+            await engine.generate(mixed[0][0], 8)
+            lazy0 = engine.lazy_captures
+            await serve_requests(engine, mixed)
+            graphs = engine.stats()["graphs"]
+            bias_capture = dict(
+                seconds=graphs["capture_s_by_kind"].get("bias", 0.0),
+                lazy_captures=engine.lazy_captures - lazy0)
+            # earlier phases' garbage is slow to collect: not inside the
+            # measured bursts
+            gc.collect()
+            for mod in mods:
+                mod.reset_launches()
+            before, keys = run_counters(engine), set(engine._graphs)
+            ticks0 = engine.stats()["constrained"]["ticks"]
+            engine.ttfts.clear()
+            outs, wall = await serve_requests(engine, mixed)
+            launches = read_launches(mods)
+            after = run_counters(engine)
+            counters = {key: after[key] - before[key] for key in after}
+            counters["captured"] = [list(key) for key in engine._graphs
+                                    if key not in keys]
+            counters["biased_ticks"] = \
+                engine.stats()["constrained"]["ticks"] - ticks0
+            ttfts = sorted(engine.ttfts)
+            engine.ttfts.clear()
+            gc.collect()
+            outs_plain, wall_plain = await serve_requests(engine, plain)
+            ttfts_plain = sorted(engine.ttfts)
+            return (warm_s, bias_capture, outs, wall, launches, counters,
+                    ttfts, outs_plain, wall_plain, ttfts_plain)
+        finally:
+            await engine.stop()
+
+    (warm_s, bias_capture, outs, wall, launches, counters, ttfts,
+     outs_plain, wall_plain, ttfts_plain) = asyncio.run(run())
+    complete = [check_grammar(constrain, table, rf, out, path)
+                for (_, _, _, rf), out in zip(mixed, outs) if rf is not None]
+    if outs[n_constrained:] != outs_plain[n_constrained:]:
+        raise AssertionError(f"{path}: unconstrained outputs differ with "
+                             f"constrained neighbours")
+    ticks = counters["ticks"] + counters["spec_ticks"]
+    bias_keys = [key for key in engine._graphs if key[0] == "bias"]
+    if counters["replays"] != ticks or not counters["biased_ticks"] \
+            or not bias_keys or any(key[1] != 1 for key in bias_keys):
+        raise AssertionError(
+            f"{path}: {counters['replays']} replays for {ticks} ticks, "
+            f"{counters['biased_ticks']} biased ticks, bias graphs "
+            f"{bias_keys}: every tick must replay a graph, every bias "
+            f"graph k = 1")
+    check_launches(launches, expected_launches(
+        cfg, with_captures(counters, counters["captured"])), path)
+    by_path[path] = launches
+    tokens = sum(len(o) for o in outs)
+    tokens_plain = sum(len(o) for o in outs_plain)
+    row = dict(n_layers=cfg.n_layers, vocab=cfg.vocab_size,
+               n_constrained=n_constrained, warmup_s=warm_s,
+               bias_capture=bias_capture, bias_graphs=len(bias_keys),
+               bias_bytes_per_tick=engine.max_slots * cfg.vocab_size * 4,
+               new_tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+               ttft_p50_s=ttfts[len(ttfts) // 2], ttft_s=ttfts,
+               unconstrained=dict(new_tokens=tokens_plain, wall_s=wall_plain,
+                                  tokens_per_s=tokens_plain / wall_plain,
+                                  ttft_p50_s=ttfts_plain[
+                                      len(ttfts_plain) // 2]),
+               counters=counters, launches=launches,
+               constrained_outputs=outs[:n_constrained],
+               grammar_complete=complete,
+               grammar_cache=engine.stats()["constrained"]["grammar_cache"])
+    log(f"{path}: mixed burst {tokens} tokens in {wall:.4f}s = "
+        f"{row['tokens_per_s']:.1f} tok/s, TTFT p50 "
+        f"{row['ttft_p50_s']:.4f}s; all-unconstrained {tokens_plain} tokens "
+        f"in {wall_plain:.4f}s = {row['unconstrained']['tokens_per_s']:.1f} "
+        f"tok/s, TTFT p50 {row['unconstrained']['ttft_p50_s']:.4f}s; "
+        f"{counters['biased_ticks']} biased ticks of {counters['ticks']}, "
+        f"{row['bias_bytes_per_tick']} bias bytes a tick; {len(bias_keys)} "
+        f"bias graphs (k 1) captured in {bias_capture['seconds']:.3f}s (the "
+        f"first burst's lazy captures: {bias_capture['lazy_captures']}); "
+        f"grammars complete "
+        f"{complete}; constrained outputs {outs[:n_constrained]}; launches "
+        f"{launches}")
+    del engine
+    torch.cuda.empty_cache()
+    if paged_check:
+        engine = generate.GenerationEngine(
+            cfg, params, device="cuda", token_table=table,
+            **dict(engine_kw, paged_kv=True, kv_page=32))
+
+        async def run_paged():
+            await engine.start()
+            try:
+                await engine.generate(mixed[0][0], 8)
+                for mod in mods:
+                    mod.reset_launches()
+                before, keys = run_counters(engine), set(engine._graphs)
+                got, _ = await serve_requests(engine, mixed)
+                after = run_counters(engine)
+                return got, read_launches(mods), with_captures(
+                    {key: after[key] - before[key] for key in after},
+                    [key for key in engine._graphs if key not in keys])
+            finally:
+                await engine.stop()
+        paged_outs, paged_launches, paged_counters = asyncio.run(run_paged())
+        paged_path = path + "_paged"
+        check_launches(paged_launches,
+                       expected_launches(cfg, paged_counters), paged_path)
+        by_path[paged_path] = paged_launches
+        greedy = [i for i, (_, _, s, rf) in enumerate(mixed)
+                  if rf is not None and s.greedy]
+        same = [paged_outs[i] for i in greedy] == [outs[i] for i in greedy]
+        row["paged_greedy_identical"] = same
+        log(f"{paged_path}: greedy constrained outputs identical to the "
+            f"dense engine's: {same}")
+        if not same:
+            raise AssertionError(f"{paged_path}: greedy constrained outputs "
+                                 f"differ from the dense engine's")
+        del engine
+        torch.cuda.empty_cache()
+    row["phase_s"] = time.monotonic() - t_phase
+    results[path] = row
+    log(f"phase 26 {path}: {row['phase_s']:.1f}s")
+    return by_path
+
+
+# a backlog queued before the loop runs: (prompt length, deadline budget
+# in ms, None for batch); one bucket, so each admission pass is one group
+# whose rows are the queue's pops in order
+BACKLOG = [(5, None), (6, 1900.0), (7, 60_000.0), (8, None), (9, 1900.0),
+           (10, 1900.0), (11, 60_000.0), (12, None), (13, 1900.0), (14, None)]
+
+
+def phase_admission(torch, llama, generate, slo, sched, constrain, mods,
+                    cfg, params, seed, results):
+    """Phase 27: on the spec engine (2-layer draft of views, γ 4) brownout
+    level 1 refuses batch and serves a 500 ms deadline, level 2
+    dispatches rung 1 only, level 3 no spec tick, level 0 admits batch
+    again, and a constrained request walks its grammar on k = 1 bias
+    ticks; an expired deadline is shed with no prefill; with 2 slots a
+    mixed-class backlog is admitted in ``ClassQueues``' order. Returns
+    launches by path."""
+    t_phase = time.monotonic()
+    log("== phase 27: admission: brownout, deadlines and class order on the "
+        "small spec engine (2-layer draft of views, gamma 4) and a 2-slot "
+        "engine")
+    prompts = engine_prompts(cfg, seed)[:4]
+    dcfg, dparams = draft_view(llama, cfg, params, 2)
+    engine = generate.GenerationEngine(
+        cfg, params, device="cuda", draft_cfg=dcfg, draft_params=dparams,
+        spec_gamma=SPEC_GAMMA, **SMALL_ENGINE)
+    for mod in mods:
+        mod.reset_launches()
+    row = {}
+
+    def delta(before):
+        return {g: n - before.get(g, 0) for g, n in engine.spec_rungs.items()
+                if n > before.get(g, 0)}
+
+    async def level_burst(level):
+        engine.set_brownout(level)
+        rungs, ticks = dict(engine.spec_rungs), engine.ticks
+        cap = engine.stats()["speculative"]["gamma_cap"]
+        slo.set_request_deadline(60_000.0)          # standard class
+        try:
+            await asyncio.gather(*[engine.generate(p, 24) for p in prompts])
+        finally:
+            slo.set_request_deadline(None)
+        return dict(gamma_cap_before=cap, spec_ticks_by_gamma=delta(rungs),
+                    plain_ticks=engine.ticks - ticks)
+
+    async def run():
+        await engine.start()
+        try:
+            await engine.generate(prompts[0], 8)
+            engine.set_brownout(1)
+            try:
+                await engine.generate(prompts[1], 8)
+                raise AssertionError("brownout 1 admitted a batch request")
+            except generate.BrownoutShed:
+                pass
+            slo.set_request_deadline(500.0)
+            try:
+                served = await engine.generate(prompts[1], 8)
+            finally:
+                slo.set_request_deadline(None)
+            row["level1"] = dict(batch_shed=True, deadline_500ms_tokens=len(
+                served))
+            row["level2"] = await level_burst(2)
+            row["level3"] = await level_burst(3)
+            row["level0"] = await level_burst(0)
+            row["level0"]["batch_tokens"] = len(
+                await engine.generate(prompts[2], 8))
+            # a constrained request on the spec engine rides k = 1 bias
+            # ticks
+            row["spec_constrained"] = await engine.generate(
+                prompts[3], 16, response_format=YES_NO)
+            prefills = engine.prefill_dispatches
+            slo.set_request_deadline(1.0, now=time.monotonic() - 1.0)
+            try:
+                await engine.generate(prompts[3], 8)
+                raise AssertionError("an expired request was served")
+            except slo.DeadlineExceeded:
+                pass
+            finally:
+                slo.set_request_deadline(None)
+            row["expired_prefills"] = engine.prefill_dispatches - prefills
+        finally:
+            await engine.stop()
+
+    asyncio.run(run())
+    check_grammar(constrain, constrain.token_byte_table(
+        vocab_size=cfg.vocab_size), YES_NO, row["spec_constrained"],
+        "admission_spec")
+    launches = read_launches(mods)
+    check_launches(launches, expected_launches(
+        cfg, with_captures(run_counters(engine), engine._graphs), 2),
+        "admission_spec")
+    row["classes"] = engine.stats()["classes"]
+    log(f"brownout: {row}")
+    if row["level2"]["gamma_cap_before"] < 2 \
+            or set(row["level2"]["spec_ticks_by_gamma"]) != {1} \
+            or row["level3"]["spec_ticks_by_gamma"] \
+            or not row["level3"]["plain_ticks"] \
+            or not row["level0"]["spec_ticks_by_gamma"] \
+            or row["expired_prefills"] or row["classes"]["shed"] != {
+                "batch": 1}:
+        raise AssertionError(f"admission: brownout or deadline checks "
+                             f"failed: {row}")
+    by_path = {"admission_spec": launches}
+    del engine
+    torch.cuda.empty_cache()
+
+    engine = generate.GenerationEngine(
+        cfg, params, device="cuda", max_slots=2, max_len=1024,
+        steps_per_tick=1, max_inflight_ticks=2)
+    order = []
+    claim = engine._claim_group
+
+    def recorded(p_rung, bucket, group, *rest):
+        order.extend(len(req.prompt) for req, _ in group)
+        return claim(p_rung, bucket, group, *rest)
+
+    async def run_order():
+        await engine.start()
+        await engine.generate(list(range(1, 5)), 8)
+        await engine.stop()
+        for mod in mods:
+            mod.reset_launches()
+        before, keys = run_counters(engine), set(engine._graphs)
+        engine._claim_group = recorded
+        tasks = []
+        try:
+            for n, budget in BACKLOG:
+                slo.set_request_deadline(budget)
+                tasks.append(asyncio.ensure_future(
+                    engine.generate(list(range(1, n + 1)), 8)))
+            slo.set_request_deadline(None)
+            await asyncio.sleep(0)
+            await engine.start()
+            await asyncio.wait_for(asyncio.gather(*tasks), 120)
+        finally:
+            slo.set_request_deadline(None)
+            await engine.stop()
+        after = run_counters(engine)
+        return with_captures({key: after[key] - before[key] for key in after},
+                             [key for key in engine._graphs
+                              if key not in keys])
+
+    counters = asyncio.run(run_order())
+    queues = sched.ClassQueues()
+    for n, budget in BACKLOG:
+        queues.put_nowait(n, sched.deadline_class(
+            None if budget is None else time.monotonic() + budget / 1000))
+    want = [queues.get_nowait() for _ in BACKLOG]
+    launches = read_launches(mods)
+    check_launches(launches, expected_launches(cfg, counters),
+                   "admission_order")
+    by_path["admission_order"] = launches
+    row["order"] = dict(admitted=order, class_queues=want,
+                        served=engine.stats()["classes"]["served"])
+    log(f"2-slot backlog admitted as {order} (prompt lengths); ClassQueues "
+        f"gives {want}")
+    if order != want:
+        raise AssertionError("admission order differs from ClassQueues'")
+    del engine
+    torch.cuda.empty_cache()
+    row["phase_s"] = time.monotonic() - t_phase
+    results["admission"] = row
+    log(f"phase 27: {row['phase_s']:.1f}s")
+    return by_path
+
+
 def _numel(tree):
     if isinstance(tree, dict):
         for val in tree.values():
@@ -1536,7 +1958,8 @@ def main() -> int:
     from gofr_tpu_torch.ops.cuda import decode_attention as decode_mod
     from gofr_tpu_torch.ops.cuda import flash_attention as flash_mod
     from gofr_tpu_torch.ops.cuda import ragged_paged_attention as ragged_mod
-    from gofr_tpu_torch.tpu import generate
+    from gofr_tpu_torch import slo
+    from gofr_tpu_torch.tpu import constrain, generate, sched
 
     results = {}
     log("== phase 1: card")
@@ -1603,6 +2026,20 @@ def main() -> int:
                                          path, args.seed, results)
     del small_params
     torch.cuda.empty_cache()
+    # this slice: the example's own model (``small`` over its byte-level
+    # vocabulary) serving constrained requests, then admission
+    example_cfg = llama.config("small", vocab_size=EXAMPLE_VOCAB,
+                               use_flash=True)
+    example_params = llama.init(example_cfg, args.seed + 3, device="cuda")
+    by_path_d64.update(phase_constrained(
+        torch, generate, constrain, mods, example_cfg, example_params,
+        SMALL_ENGINE, "constrained_small", args.seed, results,
+        n_constrained=4, paged_check=True))
+    by_path_d64.update(phase_admission(
+        torch, llama, generate, slo, sched, constrain, mods, example_cfg,
+        example_params, args.seed, results))
+    del example_params
+    torch.cuda.empty_cache()
 
     cfg = llama.config("llama3-8b", n_layers=args.layers, use_flash=True)
     if args.layers != 32:
@@ -1630,6 +2067,12 @@ def main() -> int:
             by_path[engine_kind(c, paged, True)[0]] = phase_spec_engine(
                 torch, llama, generate, mods, c, params, args.seed, results,
                 paged)
+    # phase 26 at llama3-8b width: the 4.1 MB bias slab each tick
+    by_path.update(phase_constrained(
+        torch, generate, constrain, mods, cfg, params,
+        dict(max_slots=8, max_len=2048, prompt_buckets=(32, 128, 512),
+             steps_per_tick=4), "constrained_llama3", args.seed, results,
+        n_constrained=2, warm=False))
     by_path["prefix_llama3"] = phase_prefix(
         torch, llama, generate, mods, cfg, params,
         dict(max_slots=8, max_len=2048, steps_per_tick=4), "prefix_llama3",

@@ -88,10 +88,44 @@ or a paged pool (``paged_kv=True``).
   while an earlier suffix prefill that reads it is still queued.
 - Tokens stream: ``generate_stream`` yields ids as each tick's fetch
   lands; ``generate`` gathers them.
+- Admission (JAX's): a request's class comes from its deadline
+  (``slo.current_deadline`` at submission, ``tpu/sched.deadline_class``:
+  interactive, standard or batch), and the pending queue is a
+  :class:`~gofr_tpu_torch.tpu.sched.ClassQueues`, weighted-fair over
+  virtual time by ``class_weights``. A paged admission short of pages
+  defers the request and every later one of its pass to the overflow
+  deque, which the next pass drains first; past ``max(16, 4 *
+  max_slots)`` entries the deepest class sheds its newest. A request
+  whose deadline passed in the queue is shed before its prefill
+  (:class:`~gofr_tpu_torch.slo.DeadlineExceeded`). ``set_brownout``
+  (levels 0-3) refuses batch-class submissions from level 1
+  (:class:`BrownoutShed`), caps a spec engine's γ at rung 1 at level 2
+  and dispatches no spec tick at level 3.
+- Grammar-constrained decoding (``response_format``, a regex or a JSON
+  schema; ``tpu/constrain``): the grammar compiles through the engine's
+  ``GrammarCache`` at submission (a bad one raises ``GrammarError``
+  there), a constrained request always takes a full prefill (prefix rung
+  0), groups apart from unconstrained ones, and its first token is
+  sampled from the logits plus its grammar's start-state bias row. A
+  constrained slot joins a tick only with none of its tokens in flight,
+  and a tick with one is a ``("bias", 1, sampled, window)`` executable:
+  one step, no spec tick, the (max_slots, vocab) float32 bias (each
+  constrained slot's current row, 0 elsewhere) uploaded into a buffer at
+  a fixed address in stream order before the replay and added to the
+  logits before the argmax or the sampler, which then sample float32
+  logits as JAX's ``logits + bias`` does. These graphs are captured at
+  first use. Each published token advances the slot's
+  :class:`~gofr_tpu_torch.tpu.constrain.GrammarWalker`; ``must_stop``
+  finishes the slot as eos does.
+- Quarantine: a slot whose walker raises, or that produced a token
+  outside the vocabulary, is failed alone and counted
+  (``stats()["resilience"]["quarantined"]``); the tick's other slots
+  keep their tokens.
 
-Left for later slices (see ROADMAP.md): disaggregation,
-grammar-constrained decoding, brownout, auto-tuning, upload coalescing,
-mesh sharding and the SLO / metrics / flight-recorder hooks.
+Left for later slices (see ROADMAP.md): disaggregation, auto-tuning,
+upload coalescing, mesh sharding, the brownout controller
+(``BrownoutLadder``), the fault plane's injection sites and the SLO /
+metrics / tracing / flight-recorder hooks.
 """
 
 from __future__ import annotations
@@ -116,8 +150,13 @@ from gofr_tpu_torch.ops.cuda import ragged_paged_attention as ragged_mod
 from gofr_tpu_torch.ops.sampling import (filtered_log_probs_batch,
                                          greedy_accept, sample_batch,
                                          speculative_accept)
+from gofr_tpu_torch.slo import DeadlineExceeded, current_deadline
+from gofr_tpu_torch.tpu.constrain import (GrammarCache, GrammarWalker,
+                                          token_byte_table)
 from gofr_tpu_torch.tpu.page_pool import PagePool
 from gofr_tpu_torch.tpu.prefix_cache import PrefixStore
+from gofr_tpu_torch.tpu.sched import (DEFAULT_CLASS_WEIGHTS, ClassQueues,
+                                      brownout_shed_classes, deadline_class)
 from gofr_tpu_torch.tpu.staging import StagingPool
 
 DEFAULT_PROMPT_BUCKETS = (32, 128, 512)
@@ -145,8 +184,17 @@ _SPEC_GROW_ABOVE = 0.8
 # sentinel pushed onto a streaming queue when the request completes
 _DONE = object()
 
-# a tick executable: (kind "plain" | "spec", k | g, sampled, window rung)
+# a tick executable: (kind "plain" | "spec" | "bias", k | g, sampled,
+# window rung); "bias" is the plain tick with the grammar bias added to
+# its logits (JAX's ``_decode_bias_fn`` family)
 _Key = Tuple[str, int, bool, Optional[int]]
+
+
+class BrownoutShed(RuntimeError):
+    """Admission refused by the brownout level (:meth:`GenerationEngine.
+    set_brownout`): the replica is shedding this SLO class to protect
+    interactive traffic. Retryable elsewhere — handlers map it to 503."""
+    status_code = 503
 
 
 def cuda_refusals(cfg, max_len: int, kv_page: int, draft_cfg=None,
@@ -298,10 +346,11 @@ class TokenStream:
 
 class _Request:
     __slots__ = ("prompt", "bucket", "budget", "eos_id", "sampling",
-                 "future", "queue", "submitted_at")
+                 "future", "queue", "submitted_at", "cls", "grammar",
+                 "deadline")
 
     def __init__(self, prompt, bucket, budget, eos_id, sampling, future,
-                 queue):
+                 queue, cls, grammar, deadline):
         self.prompt = prompt
         self.bucket = bucket
         self.budget = budget
@@ -310,12 +359,15 @@ class _Request:
         self.future = future
         self.queue = queue
         self.submitted_at = time.monotonic()
+        self.cls = cls              # SLO class (tpu/sched.deadline_class)
+        self.grammar = grammar      # CompiledGrammar, or None
+        self.deadline = deadline    # absolute monotonic, or None
 
 
 class _Slot:
     __slots__ = ("future", "remaining", "eos_id", "tokens", "active", "gen",
                  "inflight", "queue", "temperature", "fill", "submitted_at",
-                 "pages", "nodes")
+                 "pages", "nodes", "grammar")
 
     def __init__(self):
         self.future: Optional[asyncio.Future] = None
@@ -331,6 +383,7 @@ class _Slot:
         self.submitted_at = 0.0
         self.pages: List[int] = []   # pool pages this slot owns
         self.nodes: List[Any] = []   # paged: pinned prefix-trie nodes
+        self.grammar: Optional[GrammarWalker] = None   # constrained decoding
 
 
 class _Fetch:
@@ -346,14 +399,15 @@ class _Fetch:
 
 
 class _Graph:
-    """A captured tick: the graph, its static token output and the kernel
-    launches one replay makes."""
-    __slots__ = ("graph", "out", "launches")
+    """A captured tick: the graph, its static token output, the kernel
+    launches one replay makes and the seconds its capture took."""
+    __slots__ = ("graph", "out", "launches", "seconds")
 
-    def __init__(self, graph, out, launches):
+    def __init__(self, graph, out, launches, seconds):
         self.graph = graph
         self.out = out
         self.launches = launches
+        self.seconds = seconds
 
 
 def _params_to(params: Any, device: torch.device) -> Any:
@@ -378,6 +432,9 @@ class GenerationEngine:
                  prefix_cache: bool = False,
                  prefix_cache_bytes: int = 64 << 20,
                  prefix_page: int = 32,
+                 class_weights: Optional[Dict[str, float]] = None,
+                 token_table=None,
+                 grammar_cache_entries: int = 32,
                  device: Union[str, torch.device] = "cuda",
                  logger=None):
         self.device = resolve_device(device)
@@ -554,6 +611,10 @@ class GenerationEngine:
         self.sample_keys = torch.zeros((n, 2), dtype=torch.int64,
                                        device=dev)
         self.active = torch.zeros((n,), dtype=torch.bool, device=dev)
+        # the grammar bias a "bias" tick adds to its logits, uploaded in
+        # stream order ahead of each such tick
+        self.bias = torch.zeros((n, cfg.vocab_size), dtype=torch.float32,
+                                device=dev)
         self._sent_mask: Optional[bytes] = None   # last uploaded mask
         self._sent_table = -1                     # last uploaded version
 
@@ -575,7 +636,28 @@ class GenerationEngine:
 
         self._slots = [_Slot() for _ in range(self.max_slots)]
         self._free: List[int] = list(range(self.max_slots))
-        self._pending: "deque[_Request]" = deque()
+        # -- admission: SLO-class weighted-fair queues (every admitted slot
+        # rides every tick, so WFQ at this gate is the per-class share of
+        # the ticks); requests a paged pass could not give pages wait in
+        # the overflow, ahead of the queues, up to a cap past which the
+        # deepest class sheds its newest
+        self.class_weights = dict(class_weights or DEFAULT_CLASS_WEIGHTS)
+        self._pending = ClassQueues(self.class_weights)
+        self._overflow: "deque[_Request]" = deque()
+        self._overflow_cap = max(16, 4 * self.max_slots)
+        self._shed_by_class: Dict[str, int] = {}
+        self._brownout = 0
+        self._quarantined: Dict[str, int] = {}
+        # -- grammar-constrained decoding: compiled grammars cached per
+        # canonical source, bias rows per (grammar, state); the token
+        # byte table defaults to the raw-byte identity (ids 0..255 are
+        # bytes, the base of the repo's byte-level BPE)
+        self._token_table = (list(token_table) if token_table is not None
+                             else token_byte_table(vocab_size=cfg.vocab_size))
+        self.grammar_cache = GrammarCache(self._token_table,
+                                          max_entries=grammar_cache_entries)
+        self._constrained_requests = 0
+        self._constrained_ticks = 0
         self._cancelled_queues: set = set()
         self._task: Optional[asyncio.Task] = None
         self._wake = asyncio.Event()
@@ -595,7 +677,8 @@ class GenerationEngine:
     # -- device steps (the device thread) --------------------------------------
     def _prefill_insert(self, nb: int, bucket: int, n_claimed: int,
                         p_rung: int, ints: np.ndarray,
-                        layout: List[Tuple[str, tuple]], floats: np.ndarray):
+                        layout: List[Tuple[str, tuple]], floats: np.ndarray,
+                        biased: bool = False):
         """Batched prompt forward for ``nb`` rows of bucket ``bucket`` and
         its in-place insert, the first ``n_claimed`` rows' slot state
         (PRNG keys included), and with a draft its KV-only prefill of the
@@ -605,7 +688,11 @@ class GenerationEngine:
         ids (nb * bucket // page); at prefix rung ``p_rung`` > 0 the
         cached pages (nb, p_rung) and, with a draft, the whole prompts
         and their lengths; dense with pages to publish, their ids.
-        ``floats`` packs (temps, top_ps). Each goes up in one staged copy.
+        ``floats`` packs (temps, top_ps) and, ``biased``, the (nb, vocab)
+        grammar bias rows (a constrained group's start-state rows, 0 for
+        padding rows), added to the logits before the first token is
+        sampled (JAX ``_prefill_bias_fn``). Each goes up in one staged
+        copy.
 
         Full prefill (``p_rung`` 0): paged, the rows scatter into the pool
         pages (sentinel entries landing in the scratch page); dense, into
@@ -625,7 +712,7 @@ class GenerationEngine:
         self._staging.upload(floats_dev, floats)
         arg = _unpack(ints_dev, layout)
         tokens, lens, slots = arg["tokens"], arg["lengths"], arg["slots"]
-        temps, top_ps = floats_dev.view(2, nb)
+        temps, top_ps = floats_dev[:2 * nb].view(2, nb)
         small = llama.init_cache(cfg, nb, bucket, device=dev)
         plen, prefix = 0, None
         if p_rung:
@@ -634,6 +721,9 @@ class GenerationEngine:
         logits, small, _ = llama.prefill(self.params, cfg, tokens, small,
                                          lengths=lens, prefix=prefix,
                                          prefix_len=plen)
+        if biased:
+            # bf16 + float32 promotes to float32, as in JAX
+            logits = logits + floats_dev[2 * nb:].view(nb, cfg.vocab_size)
         first, keys = sample_batch(logits, temps, arg["top_ks"], top_ps,
                                    prng.seed_key(arg["seeds"]))
         slot_t = slots[:n_claimed]
@@ -676,12 +766,17 @@ class GenerationEngine:
         return self._staging.fetch(first)
 
     def _plain_tick(self, k: int, sampled: bool, window: Optional[int],
-                    active: torch.Tensor) -> torch.Tensor:
+                    active: torch.Tensor,
+                    biased: bool = False) -> torch.Tensor:
         """``k`` decode steps over every slot of the device state, updated
         in place (paged: ``llama.decode_step_paged``; dense: JAX
         ``_decode_fn``, ``llama.decode_step`` over the window rung
         ``window`` and its identity table); inactive rows keep their
-        cache_len, token and key. Returns the (k, max_slots) tokens."""
+        cache_len, token and key. ``biased`` adds :attr:`bias` to each
+        step's logits before the argmax or the sampler (JAX
+        ``_decode_bias_fn`` / ``_decode_paged_bias_fn``): bf16 logits
+        plus the float32 bias are float32, as in JAX. Returns the (k,
+        max_slots) tokens."""
         token, cache_len, keys = self.last_token, self.cache_len, \
             self.sample_keys
         steps = []
@@ -694,6 +789,8 @@ class GenerationEngine:
                 logits, _, new_len = llama.decode_step(
                     self.params, self.cfg, token, self.cache, cache_len,
                     window=window, table=self._tables[window])
+            if biased:
+                logits = logits + self.bias
             if sampled:
                 nxt, new_keys = sample_batch(logits, self.temps, self.top_ks,
                                              self.top_ps, keys)
@@ -773,7 +870,8 @@ class GenerationEngine:
         kind, n, sampled, window = key
         if kind == "spec":
             return self._spec_tick(n, sampled, window, active)
-        return self._plain_tick(n, sampled, window, active)
+        return self._plain_tick(n, sampled, window, active,
+                                biased=kind == "bias")
 
     def _capture(self, key: _Key) -> _Graph:
         """Capture the tick ``key`` as a CUDA graph: one eager run first,
@@ -808,20 +906,26 @@ class GenerationEngine:
             out = self._tick_body(key, self.active)
         launches = launch_counts.diff(launch_counts.read(), before)
         launch_counts.write(before)             # a capture launches nothing
-        entry = _Graph(graph, out, launches)
+        entry = _Graph(graph, out, launches, time.monotonic() - t0)
         self._graphs[key] = entry
-        self.capture_s += time.monotonic() - t0
+        self.capture_s += entry.seconds
         return entry
 
     def _run_tick(self, key: _Key,
-                  mask: Optional[np.ndarray], table: Optional[np.ndarray]):
-        """Upload what moved, run the tick (a graph replay on the card,
-        captured first if this rung was not warmed; eager on the CPU) and
-        queue its tokens' copy. Returns the fetch."""
+                  mask: Optional[np.ndarray], table: Optional[np.ndarray],
+                  bias: Optional[np.ndarray] = None):
+        """Upload what moved (and a "bias" tick's grammar bias), run the
+        tick (a graph replay on the card, captured first if this rung was
+        not warmed; eager on the CPU) and queue its tokens' copy. The
+        uploads are queued on the stream ahead of the replay and behind
+        every earlier tick, so a tick in flight never sees a later tick's
+        bias. Returns the fetch."""
         if mask is not None:
             self._staging.upload(self.active, mask)
         if table is not None:
             self._staging.upload(self.table, table)
+        if bias is not None:
+            self._staging.upload(self.bias, bias)
         if self.device.type != "cuda":
             return self._staging.fetch(self._tick_body(key, self.active))
         entry = self._graphs.get(key)
@@ -978,33 +1082,84 @@ class GenerationEngine:
             raise ValueError("prompt + max_new_tokens exceeds cache length")
         return prompt, bucket
 
+    def set_brownout(self, level: int) -> None:
+        """Apply a brownout level (JAX's ``set_brownout``, clamped to
+        0..3): 0 healthy, 1 refuse batch-class submissions, 2 also cap
+        speculative γ at rung 1, 3 also dispatch no spec tick."""
+        level = max(0, min(int(level), 3))
+        if level == self._brownout:
+            return
+        previous, self._brownout = self._brownout, level
+        if self.logger is not None:
+            log = self.logger.warning if level > previous \
+                else self.logger.info
+            log("engine: brownout level %d -> %d", previous, level)
+
+    def _brownout_gate(self, cls: str) -> None:
+        """Refuse a class the current brownout level sheds, before it is
+        queued: a 503 the client can retry on another replica beats
+        queue time on one that would shed the request anyway."""
+        if not self._brownout or cls not in brownout_shed_classes(
+                self._brownout):
+            return
+        self._shed_by_class[cls] = self._shed_by_class.get(cls, 0) + 1
+        raise BrownoutShed(
+            f"brownout level {self._brownout}: shedding {cls!r} admissions")
+
+    def _compile_grammar(self, response_format, eos_id):
+        """Resolve a request's ``response_format`` through the engine's
+        grammar cache; a malformed one raises
+        :class:`~gofr_tpu_torch.tpu.constrain.GrammarError` (a
+        ``ValueError``) before anything is queued."""
+        if response_format is None:
+            return None
+        grammar = self.grammar_cache.get(response_format, eos_id)
+        self._constrained_requests += 1
+        return grammar
+
     def _submit(self, prompt_ids, max_new_tokens, eos_id, sampling,
-                queue) -> asyncio.Future:
+                queue, response_format=None) -> asyncio.Future:
+        """Validate, compile the grammar, class the request by the
+        submitting context's deadline, pass the brownout gate and queue
+        it under its class. Raises (nothing queued) on any refusal."""
         prompt, bucket = self._validate(prompt_ids, max_new_tokens)
+        grammar = self._compile_grammar(response_format, eos_id)
+        deadline = current_deadline()
+        cls = deadline_class(deadline)
+        self._brownout_gate(cls)
         future = asyncio.get_running_loop().create_future()
-        self._pending.append(_Request(prompt, bucket, max_new_tokens, eos_id,
-                                      sampling or Sampling(), future, queue))
+        self._pending.put_nowait(
+            _Request(prompt, bucket, max_new_tokens, eos_id,
+                     sampling or Sampling(), future, queue, cls, grammar,
+                     deadline), cls)
         self._wake.set()
         return future
 
     async def generate(self, prompt_ids, max_new_tokens: int,
                        eos_id: Optional[int] = None,
-                       sampling: Optional[Sampling] = None) -> List[int]:
+                       sampling: Optional[Sampling] = None,
+                       response_format: Optional[dict] = None) -> List[int]:
         """Generate up to ``max_new_tokens`` ids (stops early on
-        ``eos_id``). Concurrent callers share decode steps."""
+        ``eos_id``). Concurrent callers share decode steps.
+        ``response_format`` (``{"type": "regex" | "json_schema", ...}``)
+        constrains decoding to a grammar: per-step token masks bias the
+        logits, and generation finishes as soon as the match is
+        complete."""
         return await self._submit(prompt_ids, max_new_tokens, eos_id,
-                                  sampling, None)
+                                  sampling, None, response_format)
 
     async def generate_stream(self, prompt_ids, max_new_tokens: int,
                               eos_id: Optional[int] = None,
-                              sampling: Optional[Sampling] = None
+                              sampling: Optional[Sampling] = None,
+                              response_format: Optional[dict] = None
                               ) -> TokenStream:
         """A :class:`TokenStream` yielding ids as they are produced.
-        Validation happens here, so a bad request raises before any token
-        is streamed."""
+        Validation, grammar compilation and the brownout gate happen
+        here, so a bad or refused request raises before any token is
+        streamed."""
         queue: asyncio.Queue = asyncio.Queue()
         future = self._submit(prompt_ids, max_new_tokens, eos_id, sampling,
-                              queue)
+                              queue, response_format)
         return TokenStream(self, queue, future)
 
     def _cancel_stream(self, queue: asyncio.Queue) -> None:
@@ -1028,6 +1183,13 @@ class GenerationEngine:
             counts[w or self.max_len] = counts.get(w or self.max_len, 0) + 1
         return dict(sorted(counts.items()))
 
+    def _capture_s_by_kind(self) -> Dict[str, float]:
+        """Capture seconds summed by tick kind ("plain", "spec", "bias")."""
+        out: Dict[str, float] = {}
+        for key, entry in self._graphs.items():
+            out[key[0]] = out.get(key[0], 0.0) + entry.seconds
+        return out
+
     def prefix_digest(self,
                       max_entries: int = 512) -> Optional[Dict[str, Any]]:
         """The resident prefix chains as hashes, for fleet routing; None
@@ -1050,7 +1212,7 @@ class GenerationEngine:
         out = {
             "device": str(self.device),
             "active_slots": self.active_slots,
-            "pending": len(self._pending),
+            "pending": self._pending.qsize() + len(self._overflow),
             "prefill_dispatches": self.prefill_dispatches,
             "prefill_bucket_tokens": self.prefill_bucket_tokens,
             "decode_steps": self.decode_steps,
@@ -1063,6 +1225,7 @@ class GenerationEngine:
                 "keys": [list(key) for key in self._graphs],
                 "by_window": self._by_window(key[3] for key in self._graphs),
                 "capture_s": self.capture_s,
+                "capture_s_by_kind": self._capture_s_by_kind(),
                 "replays": self.graph_replays,
                 "lazy_captures": self.lazy_captures,
             },
@@ -1092,6 +1255,24 @@ class GenerationEngine:
                                    for leaf in self.cache.values()),
                 "tokens_in_cache": sum(slot.fill for slot in self._slots
                                        if slot.active),
+            }
+        out["classes"] = {
+            "weights": self._pending.weights(),
+            "depths": self._pending.depths(),
+            "served": self._pending.served(),
+            "shed": dict(self._shed_by_class),
+        }
+        if self._constrained_requests or len(self.grammar_cache):
+            out["constrained"] = {
+                "requests": self._constrained_requests,
+                "ticks": self._constrained_ticks,
+                "grammar_cache": self.grammar_cache.stats(),
+            }
+        if self._brownout or self._quarantined:
+            # sparse, so a healthy engine's stats are unchanged
+            out["resilience"] = {
+                "brownout_level": self._brownout,
+                "quarantined": dict(self._quarantined),
             }
         if self.spec:
             out["speculative"] = {
@@ -1191,7 +1372,8 @@ class GenerationEngine:
                 q.append(entry)
                 dispatched = True
         if not q:
-            if self.active_slots == 0 and not self._pending:
+            if self.active_slots == 0 and self._pending.empty() \
+                    and not self._overflow:
                 self._wake.clear()
                 await self._wake.wait()
             else:
@@ -1259,15 +1441,21 @@ class GenerationEngine:
         return p, bucket, nodes
 
     def _admit_pending(self, loop) -> None:
-        """Drain the queue into free slots; one batched prefill per
-        (prefix rung, bucket) group, each with its first-token fetch
-        queued for publishing."""
+        """Drain the overflow, then the class queues in weighted-fair
+        order, into free slots; one batched prefill per (prefix rung,
+        bucket, biased) group, each with its first-token fetch queued for
+        publishing (JAX ``_admit_pending``)."""
         requests: List[_Request] = []
-        while self._pending and len(requests) < len(self._free):
-            requests.append(self._pending.popleft())
+        # page-deferred requests re-enter first: they were admitted in
+        # order before the pool ran short
+        while self._overflow and len(requests) < len(self._free):
+            requests.append(self._overflow.popleft())
+        while not self._pending.empty() and len(requests) < len(self._free):
+            requests.append(self._pending.get_nowait())
         if not requests:
             return
-        groups: Dict[Tuple[int, int], List[Tuple[_Request, List]]] = {}
+        groups: Dict[Tuple[int, int, bool],
+                     List[Tuple[_Request, List]]] = {}
         leases: List[Any] = []     # dense: pins held through this pass
         committed = 0    # pages promised to requests admitted this pass
         for ri, req in enumerate(requests):
@@ -1275,6 +1463,16 @@ class GenerationEngine:
                 self._cancelled_queues.discard(req.queue)
                 if not req.future.done():
                     req.future.cancel()
+                continue
+            if req.deadline is not None and time.monotonic() > req.deadline:
+                # the deadline ate the whole budget in the queue: shed
+                # before prefill, a late answer is wasted device work
+                if self.logger is not None:
+                    self.logger.warning(
+                        "engine: shed expired request before prefill "
+                        "(%.1fms past deadline)",
+                        (time.monotonic() - req.deadline) * 1000.0)
+                self._reject(req, DeadlineExceeded())
                 continue
             if self.paged:
                 # page-gated before the prefix lookup, so a deferred
@@ -1295,26 +1493,33 @@ class GenerationEngine:
                 if self._pool.free_pages - committed \
                         < need + self._kv_reserve:
                     # head-of-line FIFO: this request and every later one
-                    # wait for pages, ahead of newer arrivals
-                    self._pending.extendleft(reversed(requests[ri:]))
+                    # of the pass wait in the overflow, ahead of newer
+                    # arrivals; past its cap the deepest class sheds
+                    self._overflow.extend(requests[ri:])
+                    self._shed_overflow()
                     break
                 committed += need
+            # a constrained request always takes a full prefill: the
+            # suffix route never meets a grammar
             p_rung, bucket, nodes = (
                 self._prefix_plan(req.prompt, req.bucket)
-                if self._prefix is not None else (0, req.bucket, []))
+                if self._prefix is not None and req.grammar is None
+                else (0, req.bucket, []))
             self.prefix_admissions[p_rung] = \
                 self.prefix_admissions.get(p_rung, 0) + 1
             if not self.paged:
                 # the dense insert copies the pages: pinned until this
                 # pass's dispatches are queued; paged slots keep theirs
                 leases.extend(nodes)
-            groups.setdefault((p_rung, bucket), []).append((req, nodes))
-        if not self._pending:
+            groups.setdefault((p_rung, bucket, req.grammar is not None),
+                              []).append((req, nodes))
+        if self._pending.empty() and not self._overflow:
             self._cancelled_queues.clear()
         # claim slots for every group before dispatching any, so a failed
         # dispatch reaches every admitted caller through its slot
-        staged = [self._claim_group(p_rung, bucket, group)
-                  for (p_rung, bucket), group in sorted(groups.items())]
+        staged = [self._claim_group(p_rung, bucket, group, biased)
+                  for (p_rung, bucket, biased), group
+                  in sorted(groups.items())]
         for claimed, args, pages in staged:
             self._publishq.append(self._on_device(
                 loop, "prefill", claimed, self._prefill_insert, *args))
@@ -1327,6 +1532,33 @@ class GenerationEngine:
             # the queued gathers read the pages in dispatch order, ahead
             # of any later publish into an evicted one
             self._prefix.release(leases)
+
+    def _shed_overflow(self) -> None:
+        """Bound the page-deferred deque (JAX ``_shed_overflow``): past
+        the cap, the class with the deepest backlog sheds its own newest
+        entry — strictly within class before any cross-class impact, and
+        LIFO within the class (the newest arrival has the least sunk
+        queue time)."""
+        while len(self._overflow) > self._overflow_cap:
+            depths: Dict[str, int] = {}
+            for req in self._overflow:
+                depths[req.cls] = depths.get(req.cls, 0) + 1
+            victim = max(depths.items(), key=lambda item: item[1])[0]
+            at = max(i for i, req in enumerate(self._overflow)
+                     if req.cls == victim)
+            req = self._overflow[at]
+            del self._overflow[at]
+            self._shed_by_class[req.cls] = \
+                self._shed_by_class.get(req.cls, 0) + 1
+            if self.logger is not None:
+                self.logger.warning(
+                    "engine: shed overflowed %s request (backlog %d > cap "
+                    "%d)", req.cls, len(self._overflow) + 1,
+                    self._overflow_cap)
+            self._reject(req, RuntimeError(
+                f"admission overflow: more than {self._overflow_cap} "
+                f"page-deferred requests; shedding the newest {req.cls!r} "
+                f"entry (deepest class)"))
 
     def _prefill_count(self, n: int, bucket: int) -> int:
         """Rows of a prefill of ``n`` prompts of ``bucket``: the count
@@ -1354,13 +1586,16 @@ class GenerationEngine:
             arrays["prefix_ids"] = np.zeros((nb, p_rung), np.int64)
         return arrays
 
-    def _claim_group(self, p_rung: int, bucket: int, group: List[Tuple]):
-        """Bind each request of one (prefix rung, bucket) group to a slot
-        (paged: its table row: the cached pages, then fresh pages for the
-        suffix), rows 0.. in order (padding rows follow); a dense full
-        prefill inserts its full pages into the store for publishing, a
-        paged one has them adopted. Returns ([(slot, gen, row)], prefill
-        args, pages written)."""
+    def _claim_group(self, p_rung: int, bucket: int, group: List[Tuple],
+                     biased: bool = False):
+        """Bind each request of one (prefix rung, bucket, biased) group to
+        a slot (paged: its table row: the cached pages, then fresh pages
+        for the suffix), rows 0.. in order (padding rows follow); a dense
+        full prefill inserts its full pages into the store for
+        publishing, a paged one has them adopted. A constrained request's
+        slot gets its grammar walker, and a biased group's row its
+        start-state bias row (padding rows 0). Returns ([(slot, gen,
+        row)], prefill args, pages written)."""
         nb = self._prefill_count(len(group), bucket)
         store = self._prefix
         plen = p_rung * store.page if p_rung else 0
@@ -1368,6 +1603,8 @@ class GenerationEngine:
         arrays = self._group_arrays(nb, bucket, p_rung)
         floats = np.zeros((2, nb), np.float32)  # temps, top_ps
         floats[1] = 1.0
+        bias = (np.zeros((nb, self.cfg.vocab_size), np.float32)
+                if biased else None)
         publish = None
         if p_rung == 0 and store is not None and not self.paged:
             n_pub = min(bucket // store.page, store.max_pages)
@@ -1397,6 +1634,12 @@ class GenerationEngine:
             slot.inflight = 1          # the prefill's first token
             slot.temperature = req.sampling.temperature
             slot.fill = len(req.prompt)
+            slot.grammar = None
+            if req.grammar is not None:
+                # a cursor over the shared compiled grammar; its
+                # start-state row steers the prefill's token
+                slot.grammar = GrammarWalker(req.grammar)
+                bias[row] = slot.grammar.bias_row()
             # only the suffix past the reused prefix is prefilled
             suffix = req.prompt[plen:]
             if self.paged:
@@ -1454,39 +1697,63 @@ class GenerationEngine:
                 seen.add(int(publish[at]))
             arrays["publish_ids"] = publish
         ints, layout = _pack(arrays)
-        args = (nb, bucket, len(group), p_rung, ints, layout, floats.ravel())
+        floats = floats.ravel()
+        if biased:
+            floats = np.concatenate([floats, bias.ravel()])
+        args = (nb, bucket, len(group), p_rung, ints, layout, floats, biased)
         return claimed, args, pages
 
     def _dispatch_tick(self, loop) -> Optional[_Fetch]:
         """Choose K, charge the eligible slots and dispatch one decode
         tick; returns its fetch, or None when no slot could run. Slots
-        whose budget is covered by in-flight tokens sit the tick out."""
+        whose budget is covered by in-flight tokens sit the tick out, and
+        so does a constrained slot with a token in flight: its grammar
+        row is valid for exactly the next position. A constrained
+        participant pins the tick to k = 1 with no spec tick (the draft
+        cannot propose through a grammar) and makes it a "bias" tick.
+        Brownout level 2 caps γ at rung 1; level 3 dispatches no spec
+        tick."""
         eligible = [(slot_idx, slot)
                     for slot_idx, slot in enumerate(self._slots)
-                    if slot.active and slot.remaining > slot.inflight]
+                    if slot.active and slot.remaining > slot.inflight
+                    and (slot.grammar is None or slot.inflight == 0)]
         if not eligible:
             return None
+        biased = any(slot.grammar is not None for _, slot in eligible)
         min_wanted = min(slot.remaining - slot.inflight
                          for _, slot in eligible)
         k = 1
-        if not self._pending or not self._free:
+        if not biased and (self._pending.empty() or not self._free):
             k = max(rung for rung in self._k_ladder if rung <= min_wanted)
-            # rung g commits up to g + 1 tokens per slot, so it needs
-            # g + 1 <= min_wanted: no budget is ever overshot
-            g = max((rung for rung in self._g_ladder
-                     if rung + 1 <= min_wanted and rung <= self._gamma_cap),
-                    default=0)
-            if g > 0:
-                return self._dispatch_spec(loop, eligible, g)
+            if self._brownout < 3:
+                # rung g commits up to g + 1 tokens per slot, so it needs
+                # g + 1 <= min_wanted: no budget is ever overshot
+                cap = 1 if self._brownout >= 2 else self._gamma_cap
+                g = max((rung for rung in self._g_ladder
+                         if rung + 1 <= min_wanted and rung <= cap),
+                        default=0)
+                if g > 0:
+                    return self._dispatch_spec(loop, eligible, g)
         eligible = self._cover_pages(eligible, k)
         if not eligible:
             return None
         window = self._tick_window(eligible, k)
         mask, sampled, snapshot = self._charge(eligible, k)
+        bias = None
+        if biased:
+            # each constrained participant's current row; 0 for the
+            # others, which decode unbiased
+            bias = np.zeros((self.max_slots, self.cfg.vocab_size),
+                            np.float32)
+            for slot_idx, slot in eligible:
+                if slot.grammar is not None:
+                    bias[slot_idx] = slot.grammar.bias_row()
+            self._constrained_ticks += 1
         self.decode_steps += k
         self.ticks += 1
-        return self._dispatch(loop, ("plain", k, sampled, window), mask,
-                              "tick", snapshot)
+        return self._dispatch(loop, ("bias" if biased else "plain", k,
+                                     sampled, window),
+                              mask, "tick", snapshot, bias)
 
     def _dispatch_spec(self, loop, eligible, g: int) -> Optional[_Fetch]:
         """Dispatch one speculative tick at rung ``g``: charge every slot
@@ -1511,10 +1778,11 @@ class GenerationEngine:
         return self._pick_window([slot.fill for _, slot in eligible], n)
 
     def _dispatch(self, loop, key, mask: np.ndarray, kind: str,
-                  payload) -> _Fetch:
+                  payload, bias: Optional[np.ndarray] = None) -> _Fetch:
         """Queue tick ``key`` with the mask and (paged) the page table,
         each only if it changed since the last upload (a snapshot taken
-        here, in dispatch order). Returns its fetch."""
+        here, in dispatch order), and a "bias" tick's bias. Returns its
+        fetch."""
         self.window_ticks[key[3]] = self.window_ticks.get(key[3], 0) + 1
         sent_mask = mask.tobytes()
         mask_up = None if sent_mask == self._sent_mask else mask
@@ -1523,7 +1791,7 @@ class GenerationEngine:
             table_up = self._table.copy()
         self._sent_mask, self._sent_table = sent_mask, self._table_version
         return self._on_device(loop, kind, payload, self._run_tick, key,
-                               mask_up, table_up)
+                               mask_up, table_up, bias)
 
     def _note_spec(self, proposed: int, accepted: int) -> None:
         """Acceptance accounting plus the adaptive-γ controller, called
@@ -1631,16 +1899,31 @@ class GenerationEngine:
             self.ttfts.append(time.monotonic() - slot.submitted_at)
         for token in tokens:
             if token < 0 or token >= self.cfg.vocab_size:
-                self._fail_slot(slot_idx, slot, RuntimeError(
+                # NaN/inf logits argmax to implementation-defined ids: fail
+                # this request, not the tick
+                exc = RuntimeError(
                     f"slot {slot_idx} produced out-of-range token {token} "
-                    f"(vocab {self.cfg.vocab_size})"))
+                    f"(vocab {self.cfg.vocab_size}); NaN/inf logits "
+                    f"upstream — request quarantined")
+                self._quarantine_slot(slot_idx, slot, "nan_logits", exc)
                 return
             slot.tokens.append(token)
             slot.remaining -= 1
             if slot.queue is not None:
                 slot.queue.put_nowait(token)
-            if slot.remaining <= 0 or (slot.eos_id is not None
-                                       and token == slot.eos_id):
+            done = slot.remaining <= 0 or (slot.eos_id is not None
+                                           and token == slot.eos_id)
+            if slot.grammar is not None and not done:
+                # a complete match (no grammar-valid continuation left)
+                # finishes the slot as eos does, and so does a violation;
+                # a walker that raises poisons this request only
+                try:
+                    slot.grammar.advance(token)
+                    done = slot.grammar.must_stop
+                except Exception as exc:  # noqa: BLE001 — this request's
+                    self._quarantine_slot(slot_idx, slot, "grammar", exc)
+                    return
+            if done:
                 if slot.future is not None and not slot.future.done():
                     slot.future.set_result(list(slot.tokens))
                 if slot.queue is not None:
@@ -1654,6 +1937,20 @@ class GenerationEngine:
             req.future.set_exception(exc)
         if req.queue is not None:
             req.queue.put_nowait(exc)
+
+    def _quarantine_slot(self, slot_idx: int, slot: _Slot, reason: str,
+                         exc: BaseException) -> None:
+        """Poison-request quarantine (JAX ``_quarantine_slot``): a slot
+        whose step output is unusable (its grammar walker raised, or an
+        out-of-range token showed NaN/inf logits) is failed alone and
+        counted by ``reason``; the tick's other slots keep their tokens
+        and the loop keeps serving, where the loop's catch-all would fail
+        every outstanding request and rebuild the device state."""
+        self._quarantined[reason] = self._quarantined.get(reason, 0) + 1
+        if self.logger is not None:
+            self.logger.error("engine: quarantined slot %d (%s): %r",
+                              slot_idx, reason, exc)
+        self._fail_slot(slot_idx, slot, exc)
 
     def _fail_slot(self, slot_idx: int, slot: _Slot,
                    exc: BaseException) -> None:
@@ -1690,6 +1987,7 @@ class GenerationEngine:
         slot.active = False
         slot.gen += 1
         slot.inflight = 0
+        slot.grammar = None
         self._release_slot_kv(slot_idx, slot)
         if slot_idx not in self._free:
             self._free.append(slot_idx)

@@ -84,8 +84,8 @@ def main() -> int:
             publish(entry, host)
 
         def admitted(loop, admit=admit):
-            if engine._pending:
-                mark(f"admit {len(engine._pending)} pending")
+            if not engine._pending.empty():
+                mark(f"admit {engine._pending.qsize()} pending")
             return admit(loop)
         engine._publish, engine._admit_pending = published, admitted
 

@@ -16,6 +16,10 @@ form). Run them on the GPU host with
 - After a prefix hit (the suffix prefilled over the store's pages; paged:
   the cached pages in the slot's table row, dense: copied into its cache
   row), the replayed tick gives the eager tick's bits.
+- A biased tick (grammar-constrained decoding) replayed from its graph
+  gives the eager tick's tokens and state bit for bit, dense and paged,
+  greedy and sampled, with 1 and 2 ticks queued, while the bias slab
+  each replay reads is rewritten between queued replays.
 - ``GenerationEngine`` refuses at construction, on CUDA, each
   configuration the kernels would refuse at the first tick.
 
@@ -34,6 +38,7 @@ import torch
 from gofr_tpu_torch.models import llama
 from gofr_tpu_torch.ops import prng
 from gofr_tpu_torch.ops.cuda import launch_counts
+from gofr_tpu_torch.tpu.constrain import NEG_BIAS
 from gofr_tpu_torch.tpu.generate import GenerationEngine
 
 pytestmark = pytest.mark.cuda
@@ -252,6 +257,72 @@ def test_prefix_hit_tick_replay_is_bitwise_the_eager_tick(cuda, paged, d):
     _restore(engine, saved)
     replayed = engine._run_tick(key, None, None)()
     np.testing.assert_array_equal(replayed, eager.cpu().numpy())
+    for name, tensor in _state(engine).items():
+        if name.startswith("pool."):
+            tensor, want = tensor[:, :-1], after_eager[name][:, :-1]
+        else:
+            want = after_eager[name]
+        assert torch.equal(_bits(tensor), _bits(want)), name
+
+
+def _bias_slabs(engine, seed, n):
+    """``n`` (max_slots, vocab) grammar-bias slabs: slots 0 and 1 each
+    allowed a few random tokens (``NEG_BIAS`` elsewhere), a new set in
+    each slab; slot 2 unconstrained (0); slot 3 inactive."""
+    rng = np.random.default_rng(seed)
+    slabs, allowed = [], []
+    for _ in range(n):
+        slab = np.full((SLOTS, engine.cfg.vocab_size), NEG_BIAS, np.float32)
+        slab[2:] = 0.0
+        sets = [rng.choice(engine.cfg.vocab_size, 3, replace=False)
+                for _ in range(2)]
+        for slot, toks in enumerate(sets):
+            slab[slot, toks] = 0.0
+        slabs.append(slab)
+        allowed.append(sets)
+    return slabs, allowed
+
+
+@pytest.mark.parametrize("inflight", [1, 2])
+@pytest.mark.parametrize("sampled", [False, True])
+@pytest.mark.parametrize("paged", [False, True])
+def test_biased_tick_replay_is_bitwise_the_eager_tick(cuda, paged, sampled,
+                                                      inflight):
+    """Four biased ticks, each with its own bias slab, replayed from the
+    graph of the ``("bias", 1, sampled, window)`` family (dense: window
+    128) with ``inflight`` of them queued before the oldest one's tokens
+    are read, behind a sleep kernel so every upload and replay queues up
+    and the staging ring's slabs are rewritten while earlier replays
+    still wait: tokens and state equal the same four ticks run eagerly,
+    one after another, bit for bit, and each constrained slot's token is
+    one its slab allowed."""
+    engine = _engine(cuda, paged=paged, d=64, max_inflight_ticks=inflight)
+    key = ("bias", 1, sampled, None if paged else 128)
+    _fill_state(engine, 7, fills=(0, 37, 100, 90))
+    engine._capture(key)
+    assert key in engine._graphs
+    slabs, allowed = _bias_slabs(engine, 11, 4)
+    saved = {k: v.clone() for k, v in _state(engine).items()}
+    eager = []
+    for slab in slabs:
+        engine.bias.copy_(torch.from_numpy(slab))
+        eager.append(engine._tick_body(key, engine.active).cpu().numpy())
+    after_eager = {k: v.clone() for k, v in _state(engine).items()}
+    _restore(engine, saved)
+    torch.cuda.synchronize()
+    replays = engine.graph_replays
+    torch.cuda._sleep(50_000_000)        # ~25 ms: everything below queues
+    fetches, replayed = [], []
+    for slab in slabs:
+        fetches.append(engine._run_tick(key, None, None, slab))
+        if len(fetches) == inflight:
+            replayed.append(fetches.pop(0)())
+    replayed += [fetch() for fetch in fetches]
+    assert engine.graph_replays == replays + len(slabs)
+    for got, want, sets in zip(replayed, eager, allowed):
+        np.testing.assert_array_equal(got, want)
+        for slot, toks in enumerate(sets):
+            assert got[0, slot] in toks
     for name, tensor in _state(engine).items():
         if name.startswith("pool."):
             tensor, want = tensor[:, :-1], after_eager[name][:, :-1]

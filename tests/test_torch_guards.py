@@ -52,6 +52,18 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert offenders == []
 
 
+def test_guard_scans_the_admission_and_grammar_modules():
+    """The host modules the port copied from the JAX package (none of
+    which imports JAX there) are scanned like the rest: each is the port's
+    own file and imports nothing of the JAX package."""
+    files = {str(path.relative_to(ROOT)) for path in _port_files()}
+    own = ["gofr_tpu_torch/slo.py", "gofr_tpu_torch/tpu/constrain.py",
+           "gofr_tpu_torch/tpu/sched.py"]
+    assert set(own) <= files
+    for name in own + ["gofr_tpu_torch/tpu/generate.py"]:
+        assert not set(_imported_roots(ROOT / name)) & set(FORBIDDEN), name
+
+
 @pytest.fixture()
 def no_cuda():
     if torch.cuda.is_available():

@@ -568,11 +568,12 @@ def test_publish_in_place_waits_for_queued_suffix_prefills(weights):
                 admit = engine._admit_pending
 
                 def one_a_pass(loop):
-                    later = list(engine._pending)[1:]
-                    for _ in later:
-                        engine._pending.pop()
+                    queued = list(engine._pending.drain())
+                    for cls, req in queued[:1]:
+                        engine._pending.put_nowait(req, cls)
                     admit(loop)
-                    engine._pending.extend(later)
+                    for cls, req in queued[1:]:
+                        engine._pending.put_nowait(req, cls)
                 engine._admit_pending = one_a_pass
             tasks = [asyncio.ensure_future(engine.generate(p, 6))
                      for p in (b, d)]
