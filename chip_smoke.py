@@ -13,7 +13,8 @@ scale planes), whose decode and verify go through the ragged kernel's
 int8 instantiation; then the example app's default preset, ``small``
 (head_dim 64), at the example's engine settings, and prefix KV reuse
 on shared-prefix traffic, then grammar-constrained decoding and
-admission (SLO classes, deadlines, brownout).
+admission (SLO classes, deadlines, brownout), then the engine's
+telemetry hooks, fault sites and SLO control loop.
 Phases, each of which raises (exit code != 0) on failure:
 
 1. card identity (``nvidia-smi`` name and power limit, torch/CUDA);
@@ -137,7 +138,32 @@ Phases, each of which raises (exit code != 0) on failure:
     only, level 3 no spec tick, level 0 admits batch again, a
     constrained request walks its grammar; a request whose deadline has
     passed raises ``DeadlineExceeded`` with no prefill; a 2-slot engine
-    admits a mixed-class backlog in ``ClassQueues``' order.
+    admits a mixed-class backlog in ``ClassQueues``' order;
+28. telemetry and the SLO control loop on ``small`` at the example's
+    engine (random weights from ``--seed`` + 4): phase 9's burst on an
+    engine with no hook and on one with every hook (the port's metrics
+    sink with the catalog registered and an ``error`` that raises, a
+    tracer into a list, an SLO tracker, a flight recorder, the anatomy
+    of every tick), 3 pairs in turns: equal tokens; one ``queue.wait``,
+    ``prefill`` and ``decode`` span a request under its request span,
+    every engine-step span linking a request; one TTFT a request and the
+    tracker's tokens the tokens emitted; device seconds by class = by
+    family within 1e-6 s; one anatomy entry a tick, no negative phase;
+    parameter bytes, allocated >= attributed bytes; serving compiles =
+    lazy captures, 0 after ``warmup()``; the views serialise; tok/s and
+    TTFT p50 on and off, the anatomy's medians, device seconds / wall
+    printed. Then ``nan_logits`` once (exactly one request quarantined,
+    the others' tokens unchanged) and ``tick_exception`` with ticks in
+    flight (every caller gets ``FaultError``, the next burst's tokens
+    unchanged, no graph captured again); then on the spec engine a
+    ``Watchdog`` (hysteresis 2, attainment 0.9, a 0.8 s window) feeding
+    a ``BrownoutLadder`` (escalate after 1, recover after 2) that sets
+    the engine's level: a burst of 1 ms deadlines ends violated, two
+    evaluations take the level to 2 and the watchdog to DEGRADED, a
+    batch request is refused, a calm burst and 4 evaluations bring the
+    level back to 0, each level change an event on the active span.
+    At ``llama3-8b`` width (after phase 18), one burst without and one
+    with every hook on the dense bf16 engine: equal tokens, tok/s ratio.
 
 Every engine burst (phases 9-12, 15-18, 20-23) is served twice:
 counted, then under ``torch.profiler`` for the device's idle share.
@@ -1932,12 +1958,519 @@ def phase_admission(torch, llama, generate, slo, sched, constrain, mods,
     return by_path
 
 
-def _numel(tree):
+# -- phase 28: telemetry and the SLO control loop ------------------------------
+
+PATH_KERNELS.update({"telemetry_small": ("flash", "ragged"),
+                     "telemetry_faults": ("flash", "ragged"),
+                     "telemetry_spec": ("flash", "verify", "flash_decode"),
+                     "telemetry_llama3": ("flash", "ragged")})
+TELEMETRY_PAIRS = 3
+
+
+class StrictLog:
+    """A logger for the metrics sink whose ``error`` raises: a name the
+    catalog lacks, or a wrong kind, fails the phase instead of being
+    logged."""
+
+    def error(self, message, *args):
+        raise AssertionError(message % args if args else message)
+
+    def warning(self, *args):
+        pass
+
+    info = warning
+
+
+class TickStore:
+    """The list-backed telemetry store ``attach_telemetry`` feeds."""
+
+    def __init__(self):
+        self.ticks = []
+
+    def note_tick(self, entry):
+        self.ticks.append(entry)
+
+
+def hooks(name):
+    """Every hook the engine takes, of the port's own, for a model named
+    ``name``: a metrics sink with the catalog registered, a tracer
+    exporting into a list, an SLO tracker, a flight recorder. Returns the
+    engine's keywords and the span list."""
+    from gofr_tpu_torch.metrics import Manager, register_engine_metrics
+    from gofr_tpu_torch.slo import SLOTracker
+    from gofr_tpu_torch.tpu.flightrecorder import FlightRecorder
+    from gofr_tpu_torch.trace import ListExporter, Tracer
+
+    metrics = register_engine_metrics(Manager(logger=StrictLog()))
+    exporter = ListExporter()
+    return dict(metrics=metrics, tracer=Tracer(exporter=exporter),
+                slo=SLOTracker(metrics), recorder=FlightRecorder(),
+                model_name=name), exporter
+
+
+async def traced_burst(engine, prompts, budget, samplings, tracer=None):
+    """The burst, each request under its own span when ``tracer`` is
+    given. Returns (outputs, wall seconds, sorted TTFTs, trace ids)."""
+    import contextlib
+
+    async def one(i, prompt, sampling):
+        scope = (tracer.start_span(f"request-{i}") if tracer is not None
+                 else contextlib.nullcontext())
+        with scope as span:
+            out = await engine.generate(prompt, budget, sampling=sampling)
+        return out, span.trace_id if tracer is not None else None
+
+    engine.ttfts.clear()
+    t0 = time.monotonic()
+    done = await asyncio.wait_for(asyncio.gather(*[
+        one(i, p, s) for i, (p, s) in enumerate(zip(prompts, samplings))]),
+        600)
+    wall = time.monotonic() - t0
+    return ([out for out, _ in done], wall, sorted(engine.ttfts),
+            [trace for _, trace in done])
+
+
+def check_spans(spans, bursts, path, others=()):
+    """One ``queue.wait``, ``prefill`` and ``decode`` span a request, under
+    its request span; every engine-step span links a request span.
+    ``bursts``: each burst's trace ids, by request; ``others``: the trace
+    ids of the engine's other requests (its warm-up)."""
+    from collections import Counter
+
+    ids = {trace_id for burst in bursts for trace_id in burst}
+    ids.update(others)
+    for burst in bursts:
+        for i, trace_id in enumerate(burst):
+            names = Counter(s.name for s in spans if s.trace_id == trace_id)
+            want = Counter({f"request-{i}": 1, "queue.wait": 1,
+                            "prefill": 1, "decode": 1})
+            if names != want:
+                raise AssertionError(f"{path}: request {i}'s spans {names}")
+    steps = [s for s in spans if s.name.startswith("tpu.engine.")]
+    bad = [s.name for s in steps
+           if not any(link["trace_id"] in ids for link in s.links)]
+    if not steps or bad:
+        raise AssertionError(f"{path}: {len(steps)} engine-step spans, "
+                             f"{len(bad)} linking no request: {bad[:4]}")
+    return Counter(s.name for s in steps)
+
+
+def median(values):
+    values = sorted(values)
+    return values[len(values) // 2]
+
+
+def phase_telemetry(torch, llama, generate, slo, faults, mods, seed,
+                    results):
+    """Phase 28: telemetry and the SLO control loop on ``small`` at the
+    example's engine. Hooks on against off (3 pairs in turns), the span,
+    counter, device-seconds, anatomy, memory, compile and view checks;
+    ``nan_logits`` and ``tick_exception`` on the card; the watchdog and
+    the brownout ladder on the spec engine. Returns launches by path."""
+    t_phase = time.monotonic()
+    log("== phase 28: telemetry and the SLO control loop on the small "
+        "preset at the example's engine (hooks on against off, faults, "
+        "watchdog and brownout ladder)")
+    cfg = llama.config("small", use_flash=True)
+    params = llama.init(cfg, seed + 4, device="cuda")
+    prompts = engine_prompts(cfg, seed)
+    budget = 32
+    samplings = [generate.Sampling() for _ in range(7)] + [
+        generate.Sampling(temperature=0.8, top_p=0.95, seed=seed)]
+    kw, exporter = hooks("small")
+    metrics, tracer, tracker = kw["metrics"], kw["tracer"], kw["slo"]
+    bare = generate.GenerationEngine(cfg, params, device="cuda",
+                                     **SMALL_ENGINE)
+    hooked = generate.GenerationEngine(cfg, params, device="cuda",
+                                       **SMALL_ENGINE, **kw)
+    store = TickStore()
+    hooked.attach_telemetry(store, every=1)
+    row = {}
+    by_path = {}
+
+    def ttft_count():
+        return metrics.value("app_tpu_ttft", model=hooked.model_name) or 0
+
+    async def pairs():
+        for engine in (bare, hooked):
+            await engine.warmup()
+        torch.cuda.synchronize()
+        row["serving_compiles_after_warmup"] = hooked.serving_compiles()
+        row["compiles"] = dict(hooked._compiles_by_class)
+        for engine in (bare, hooked):
+            await engine.start()
+        try:
+            await bare.generate(prompts[0], 8)
+            with tracer.start_span("request-warmup") as span:
+                await hooked.generate(prompts[0], 8)
+            row["warmup_trace"] = span.trace_id
+            for mod in mods:
+                mod.reset_launches()
+            before = {id(e): run_counters(e) for e in (bare, hooked)}
+            runs = {"off": [], "on": []}
+            for _ in range(TELEMETRY_PAIRS):
+                gc.collect()
+                outs, wall, ttfts, _ = await traced_burst(
+                    bare, prompts, budget, samplings)
+                runs["off"].append(dict(outs=outs, wall=wall, ttfts=ttfts))
+                gc.collect()
+                ticks0 = len(store.ticks)
+                dispatched0 = hooked.ticks + hooked.spec_dispatches
+                ttft0, tokens0 = ttft_count(), tracker.tokens.total()
+                outs, wall, ttfts, traces = await traced_burst(
+                    hooked, prompts, budget, samplings, tracer)
+                runs["on"].append(dict(
+                    outs=outs, wall=wall, ttfts=ttfts, traces=traces,
+                    anatomy=store.ticks[ticks0:],
+                    dispatched=(hooked.ticks + hooked.spec_dispatches
+                                - dispatched0),
+                    ttft_count=ttft_count() - ttft0,
+                    slo_tokens=tracker.tokens.total() - tokens0))
+            after = {id(e): run_counters(e) for e in (bare, hooked)}
+        finally:
+            for engine in (bare, hooked):
+                await engine.stop()
+        counters = {key: sum(after[i][key] - before[i][key] for i in after)
+                    for key in after[id(hooked)]}
+        return runs, counters
+
+    runs, counters = asyncio.run(pairs())
+    launches = read_launches(mods)
+    check_launches(launches, expected_launches(cfg, counters),
+                   "telemetry_small")
+    by_path["telemetry_small"] = launches
+    tracer.shutdown()
+    spans = exporter.spans
+    for run in runs["on"]:
+        if run["outs"] != runs["off"][0]["outs"]:
+            raise AssertionError("telemetry: hooked tokens differ from the "
+                                 "unhooked engine's")
+        if run["ttft_count"] != len(prompts) \
+                or run["slo_tokens"] != budget * len(prompts):
+            raise AssertionError(
+                f"telemetry: {run['ttft_count']} TTFTs and "
+                f"{run['slo_tokens']} SLO tokens for {len(prompts)} "
+                f"requests of {budget}")
+        if len(run["anatomy"]) != run["dispatched"] or any(
+                entry[key] < 0 for entry in run["anatomy"]
+                for key in entry if key.endswith("_s")):
+            raise AssertionError(
+                f"telemetry: {len(run['anatomy'])} anatomy entries for "
+                f"{run['dispatched']} ticks dispatched, or a negative phase")
+    if any(run["outs"] != runs["off"][0]["outs"] for run in runs["off"]):
+        raise AssertionError("telemetry: the unhooked bursts differ")
+    step_spans = check_spans(spans, [run["traces"] for run in runs["on"]],
+                             "telemetry_small", [row.pop("warmup_trace")])
+    by_class = sum(hooked._device_seconds.values())
+    by_family = hooked.exec_ledger.total_seconds()
+    if abs(by_class - by_family) > 1e-6:
+        raise AssertionError(f"telemetry: device seconds by class "
+                             f"{by_class} != by family {by_family}")
+    hbm = hooked.hbm_attribution()
+    params_bytes = sum(t.numel() * t.element_size()
+                       for t in _leaves(params))
+    reserved = torch.cuda.memory_stats()["reserved_bytes.all.current"]
+    if hbm["params_bytes"] != params_bytes \
+            or hbm["device_bytes_in_use"] < hbm["attributed_bytes"]:
+        raise AssertionError(f"telemetry: hbm attribution {hbm}")
+    graphs = hooked.stats()["graphs"]
+    if hooked.serving_compiles() != graphs["lazy_captures"] \
+            or row["serving_compiles_after_warmup"] != 0:
+        raise AssertionError(
+            f"telemetry: {hooked.serving_compiles()} serving compiles, "
+            f"{graphs['lazy_captures']} lazy captures, "
+            f"{row['serving_compiles_after_warmup']} after warmup()")
+    views = {name: len(json.dumps(getattr(hooked, name)()))
+             for name in ("statusz", "xlaz", "health_check",
+                          "hbm_attribution")}
+    anatomy = [entry for run in runs["on"] for entry in run["anatomy"]]
+    tok = budget * len(prompts)
+    on = [tok / run["wall"] for run in runs["on"]]
+    off = [tok / run["wall"] for run in runs["off"]]
+    ttft_on = [median(run["ttfts"]) for run in runs["on"]]
+    ttft_off = [median(run["ttfts"]) for run in runs["off"]]
+    walls_on = sum(run["wall"] for run in runs["on"])
+    row.update(
+        tokens_per_s_on=on, tokens_per_s_off=off,
+        tokens_per_s_on_median=median(on), tokens_per_s_off_median=median(off),
+        tokens_per_s_ratio=median(on) / median(off),
+        ttft_p50_on=ttft_on, ttft_p50_off=ttft_off,
+        ttft_p50_ratio=median(ttft_on) / median(ttft_off),
+        anatomy_ticks=len(anatomy),
+        anatomy_median_s={key: median([e[key] for e in anatomy])
+                          for key in ("admission_s", "host_dispatch_s",
+                                      "device_wait_s")},
+        anatomy_by_kind={kind: sum(1 for e in anatomy if e["kind"] == kind)
+                         for kind in {e["kind"] for e in anatomy}},
+        device_seconds_over_wall=by_class / walls_on,
+        device_seconds=hooked.stats()["device_seconds"],
+        executables=hooked.exec_ledger.snapshot(limit=6)["top"],
+        step_spans=dict(step_spans), spans=len(spans),
+        hbm=hbm, reserved_bytes=reserved, view_bytes=views,
+        graphs=graphs["captured"], greedy_outputs=runs["on"][0]["outs"][:7])
+    log(f"telemetry small: tok/s hooks on {row['tokens_per_s_on_median']:.1f} "
+        f"off {row['tokens_per_s_off_median']:.1f} (ratio "
+        f"{row['tokens_per_s_ratio']:.4f}; pairs on {on} off {off}); TTFT "
+        f"p50 on {median(ttft_on):.4f}s off {median(ttft_off):.4f}s (ratio "
+        f"{row['ttft_p50_ratio']:.4f}); anatomy medians "
+        f"{row['anatomy_median_s']} over {len(anatomy)} ticks "
+        f"{row['anatomy_by_kind']}; device seconds / wall "
+        f"{row['device_seconds_over_wall']:.4f}; {len(spans)} spans, steps "
+        f"{dict(step_spans)}; allocated {hbm['device_bytes_in_use']} B "
+        f"(attributed {hbm['attributed_bytes']}, params "
+        f"{hbm['params_bytes']}), reserved {reserved} B; views {views}")
+    del bare
+
+    # -- faults on the card, on the hooked engine ---------------------------------
+    want = runs["off"][0]["outs"]
+    captured = hooked.stats()["graphs"]["captured"]
+    for mod in mods:
+        mod.reset_launches()
+    before = run_counters(hooked)
+
+    async def faulted(spec):
+        await hooked.start()
+        try:
+            faults.install(faults.FaultPlan(spec, metrics=metrics))
+            try:
+                out = await asyncio.wait_for(asyncio.gather(*[
+                    hooked.generate(p, budget, sampling=s)
+                    for p, s in zip(prompts, samplings)],
+                    return_exceptions=True), 600)
+            finally:
+                faults.reset()
+            later = await asyncio.wait_for(asyncio.gather(*[
+                hooked.generate(p, budget, sampling=s)
+                for p, s in zip(prompts, samplings)]), 600)
+            return out, later
+        finally:
+            await hooked.stop()
+
+    quarantined0 = dict(hooked.stats().get("resilience", {}).get(
+        "quarantined", {}))
+    nan_out, nan_later = asyncio.run(faulted("nan_logits:@1"))
+    failed = [i for i, out in enumerate(nan_out)
+              if isinstance(out, BaseException)]
+    quarantined = hooked.stats()["resilience"]["quarantined"]
+    kept = all(nan_out[i] == want[i] for i in range(len(prompts))
+               if i not in failed)
+    row["nan_logits"] = dict(failed=failed, quarantined=quarantined,
+                             others_equal=kept, later_equal=nan_later == want)
+    log(f"nan_logits: requests {failed} failed, quarantined {quarantined}, "
+        f"the others' tokens unchanged: {kept}")
+    if len(failed) != 1 or quarantined.get("nan_logits", 0) \
+            - quarantined0.get("nan_logits", 0) != 1 or not kept \
+            or nan_later != want:
+        raise AssertionError(f"nan_logits: {row['nan_logits']}")
+    tick_out, tick_later = asyncio.run(faulted("tick_exception:@3"))
+    kinds = sorted({type(out).__name__ for out in tick_out})
+    row["tick_exception"] = dict(
+        outcomes=kinds, later_equal=tick_later == want,
+        captured_before=captured,
+        captured_after=hooked.stats()["graphs"]["captured"])
+    log(f"tick_exception: callers got {kinds}; next burst equal: "
+        f"{tick_later == want}; graphs {captured} -> "
+        f"{row['tick_exception']['captured_after']}")
+    if kinds != ["FaultError"] or tick_later != want \
+            or row["tick_exception"]["captured_after"] != captured:
+        raise AssertionError(f"tick_exception: {row['tick_exception']}")
+    after = run_counters(hooked)
+    launches = read_launches(mods)
+    check_launches(launches, expected_launches(
+        cfg, {key: after[key] - before[key] for key in after}),
+        "telemetry_faults")
+    by_path["telemetry_faults"] = launches
+    del hooked
+    torch.cuda.empty_cache()
+
+    # -- the control loop on the spec engine -------------------------------------
+    dcfg, dparams = draft_view(llama, cfg, params, 2)
+    kw, exporter = hooks("small")
+    metrics, tracer = kw["metrics"], kw["tracer"]
+    tracker = slo.SLOTracker(metrics, slice_s=0.05, max_window_s=60.0)
+    kw["slo"] = tracker
+    spec = generate.GenerationEngine(
+        cfg, params, device="cuda", draft_cfg=dcfg, draft_params=dparams,
+        spec_gamma=SPEC_GAMMA, **SMALL_ENGINE, **kw)
+    ladder = slo.BrownoutLadder(apply_fn=spec.set_brownout, metrics=metrics,
+                                escalate_after=1, recover_after=2)
+    dog = slo.Watchdog(tracker, metrics=metrics, min_attainment=0.9,
+                       hysteresis=2, window_s=0.8, ledger=spec,
+                       max_serving_compiles=3, brownout=ladder)
+    loop_row = {}
+
+    async def control():
+        await spec.warmup()
+        await spec.start()
+        try:
+            await spec.generate(prompts[0], 8)
+            for mod in mods:
+                mod.reset_launches()
+            base = run_counters(spec)
+
+            async def late(prompt):
+                slo.set_request_deadline(1.0)      # 1 ms from now
+                try:
+                    return await spec.generate(prompt, budget)
+                finally:
+                    slo.set_request_deadline(None)
+
+            outcomes0 = {name: tracker.outcomes[name].total()
+                         for name in slo.TERMINAL_OUTCOMES}
+            await asyncio.gather(*[late(p) for p in prompts],
+                                 return_exceptions=True)
+            t1 = time.monotonic()
+            loop_row["late_outcomes"] = {
+                name: tracker.outcomes[name].total() - outcomes0[name]
+                for name in slo.TERMINAL_OUTCOMES}
+            with tracer.start_span("watchdog.evaluate") as span:
+                trail = []
+                for i in range(2):
+                    state = dog.evaluate(now=t1 + 0.001 * i)
+                    trail.append((state, ladder.level))
+                loop_row["escalation"] = trail
+                try:
+                    await spec.generate(prompts[1], 8)     # batch class
+                    loop_row["batch_refused"] = False
+                except generate.BrownoutShed:
+                    loop_row["batch_refused"] = True
+                await asyncio.sleep(1.0)         # the late burst leaves
+                                                 # the window
+                slo.set_request_deadline(60_000.0)         # standard
+                try:
+                    calm = await asyncio.gather(*[
+                        spec.generate(p, budget) for p in prompts])
+                finally:
+                    slo.set_request_deadline(None)
+                t2 = time.monotonic()
+                recovery = []
+                while ladder.level > 0 and len(recovery) < 16:
+                    state = dog.evaluate(now=t2 + 0.001 * len(recovery))
+                    recovery.append((state, ladder.level))
+                loop_row["recovery"] = recovery
+                loop_row["level_events"] = [
+                    (e["attributes"]["previous"], e["attributes"]["level"])
+                    for e in span.find_events("brownout.level")]
+            loop_row["calm_tokens"] = sum(len(out) for out in calm)
+            after = run_counters(spec)
+            return with_captures(
+                {key: after[key] - base[key] for key in after}, [])
+        finally:
+            await spec.stop()
+
+    counters = asyncio.run(control())
+    launches = read_launches(mods)
+    check_launches(launches, expected_launches(cfg, counters, 2),
+                   "telemetry_spec")
+    by_path["telemetry_spec"] = launches
+    tracer.shutdown()
+    loop_row["watchdog"] = dog.statusz()
+    loop_row["brownout_gauge"] = metrics.value("app_tpu_brownout_level",
+                                               role="both")
+    row["control_loop"] = loop_row
+    log(f"control loop: late burst outcomes {loop_row['late_outcomes']}; "
+        f"escalation (state, level) {loop_row['escalation']}; batch "
+        f"refused {loop_row['batch_refused']}; recovery "
+        f"{loop_row['recovery']}; level events "
+        f"{loop_row['level_events']}")
+    late_out = loop_row["late_outcomes"]
+    levels = [level for _, level in loop_row["escalation"]]
+    if late_out["ok"] or not late_out["violated"] \
+            or late_out["violated"] + late_out["expired"] != len(prompts) \
+            or levels != [1, 2] or loop_row["escalation"][-1][0] \
+            != "DEGRADED" or not loop_row["batch_refused"] \
+            or len(loop_row["recovery"]) != 2 * ladder.recover_after \
+            or ladder.level != 0 or loop_row["level_events"] != [
+                ("0", "1"), ("1", "2"), ("2", "1"), ("1", "0")]:
+        raise AssertionError(f"control loop: {loop_row}")
+    del spec, params, dparams
+    torch.cuda.empty_cache()
+    row["phase_s"] = time.monotonic() - t_phase
+    results["telemetry"] = row
+    log(f"phase 28: {row['phase_s']:.1f}s")
+    return by_path
+
+
+def phase_telemetry_llama3(torch, generate, mods, cfg, params, seed,
+                           results):
+    """Phase 28 at ``llama3-8b`` width, after phase 18: one unhooked and
+    one hooked burst on the dense bf16 engine; equal tokens, the tok/s
+    ratio. Returns launches by path."""
+    t_phase = time.monotonic()
+    log("== phase 28 (llama3-8b): hooks on against off, dense bf16")
+    prompts = engine_prompts(cfg, seed)
+    budget = 32
+    samplings = [generate.Sampling() for _ in range(7)] + [
+        generate.Sampling(temperature=0.8, top_p=0.95, seed=seed)]
+    engine_kw = dict(max_slots=8, max_len=2048,
+                     prompt_buckets=(32, 128, 512), steps_per_tick=4)
+    kw, exporter = hooks("llama3-8b")
+    out, warmups = {}, []
+    counters = None
+    for name, extra in (("off", {}), ("on", kw)):
+        engine = generate.GenerationEngine(cfg, params, device="cuda",
+                                           **engine_kw, **extra)
+
+        async def run():
+            await engine.warmup()
+            await engine.start()
+            try:
+                with kw["tracer"].start_span("request-warmup") as span:
+                    await engine.generate(prompts[0], 8)
+                warmups.append(span.trace_id)
+                for mod in mods:
+                    mod.reset_launches()
+                before = run_counters(engine)
+                gc.collect()
+                burst = await traced_burst(
+                    engine, prompts, budget, samplings,
+                    kw["tracer"] if name == "on" else None)
+                after = run_counters(engine)
+                return burst, {k: after[k] - before[k] for k in after}
+            finally:
+                await engine.stop()
+
+        out[name], delta = asyncio.run(run())
+        launches = read_launches(mods)
+        check_launches(launches, expected_launches(cfg, delta),
+                       "telemetry_llama3")
+        counters = launches if counters is None else {
+            k: counters[k] + launches[k] for k in launches}
+        del engine
+        torch.cuda.empty_cache()
+    kw["tracer"].shutdown()
+    check_spans(exporter.spans, [out["on"][3]], "telemetry_llama3",
+                warmups)
+    tok = budget * len(prompts)
+    row = dict(tokens_per_s_off=tok / out["off"][1],
+               tokens_per_s_on=tok / out["on"][1],
+               ttft_p50_off=median(out["off"][2]),
+               ttft_p50_on=median(out["on"][2]),
+               tokens_equal=out["on"][0] == out["off"][0])
+    row["tokens_per_s_ratio"] = row["tokens_per_s_on"] \
+        / row["tokens_per_s_off"]
+    row["phase_s"] = time.monotonic() - t_phase
+    results["telemetry_llama3"] = row
+    log(f"telemetry llama3-8b: tok/s on {row['tokens_per_s_on']:.1f} off "
+        f"{row['tokens_per_s_off']:.1f} (ratio "
+        f"{row['tokens_per_s_ratio']:.4f}); TTFT p50 on "
+        f"{row['ttft_p50_on']:.4f}s off {row['ttft_p50_off']:.4f}s; tokens "
+        f"equal {row['tokens_equal']}; {row['phase_s']:.1f}s")
+    if not row["tokens_equal"]:
+        raise AssertionError("telemetry llama3-8b: hooked tokens differ")
+    return {"telemetry_llama3": counters}
+
+
+def _leaves(tree):
     if isinstance(tree, dict):
-        for val in tree.values():
-            yield from _numel(val)
+        for value in tree.values():
+            yield from _leaves(value)
     else:
-        yield tree.numel()
+        yield tree
+
+
+def _numel(tree):
+    return (leaf.numel() for leaf in _leaves(tree))
 
 
 def main() -> int:
@@ -1959,7 +2492,7 @@ def main() -> int:
     from gofr_tpu_torch.ops.cuda import flash_attention as flash_mod
     from gofr_tpu_torch.ops.cuda import ragged_paged_attention as ragged_mod
     from gofr_tpu_torch import slo
-    from gofr_tpu_torch.tpu import constrain, generate, sched
+    from gofr_tpu_torch.tpu import constrain, faults, generate, sched
 
     results = {}
     log("== phase 1: card")
@@ -2040,6 +2573,9 @@ def main() -> int:
         example_params, args.seed, results))
     del example_params
     torch.cuda.empty_cache()
+    # this slice: the engine's telemetry and the SLO control loop
+    by_path_d64.update(phase_telemetry(torch, llama, generate, slo, faults,
+                                       mods, args.seed, results))
 
     cfg = llama.config("llama3-8b", n_layers=args.layers, use_flash=True)
     if args.layers != 32:
@@ -2067,6 +2603,8 @@ def main() -> int:
             by_path[engine_kind(c, paged, True)[0]] = phase_spec_engine(
                 torch, llama, generate, mods, c, params, args.seed, results,
                 paged)
+    by_path.update(phase_telemetry_llama3(torch, generate, mods, cfg, params,
+                                          args.seed, results))
     # phase 26 at llama3-8b width: the 4.1 MB bias slab each tick
     by_path.update(phase_constrained(
         torch, generate, constrain, mods, cfg, params,

@@ -1,0 +1,87 @@
+"""The metric names the port's serving code emits, with the kinds and
+histogram buckets the app's catalog registers them under
+(``gofr_tpu/container.py``'s ``register_framework_metrics``; documented in
+``docs/quick-start/observability.md``). The port adds no name: this is
+the slice of that catalog the engine, its page pool, the SLO tracker,
+the watchdog, the brownout ladder and the fault plane write, so a :class:`~gofr_tpu_torch.
+metrics.manager.Manager` of the port's own can take every call they make.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional, Tuple
+
+__all__ = ["ENGINE_METRICS", "register_engine_metrics"]
+
+_SECONDS = (0.01, 0.03, 0.1, 0.3, 1.0, 3.0, 10.0, 30.0)
+
+# (name, kind, buckets or None, description)
+ENGINE_METRICS: Tuple[Tuple[str, str, Optional[tuple], str], ...] = (
+    ("app_tpu_ttft", "histogram", _SECONDS,
+     "time to first generated token (s)"),
+    ("app_tpu_batch_size", "histogram", (1, 2, 4, 8, 16, 32, 64, 128, 256),
+     "slots a decode or spec tick served"),
+    ("app_tpu_attention_window", "gauge", None,
+     "decode attention window rung"),
+    ("app_tpu_attn_kernel_total", "counter", None,
+     "decode/verify dispatches by attention path"),
+    ("app_tpu_kv_ragged_fill_ratio", "gauge", None,
+     "live KV tokens / mapped page capacity of a paged tick"),
+    ("app_tpu_kv_pages_used", "gauge", None,
+     "KV page pool: pages referenced"),
+    ("app_tpu_kv_pages_capacity", "gauge", None,
+     "KV page pool: pages in the pool"),
+    ("app_tpu_kv_pages_written_total", "updown_counter", None,
+     "pool page-rows written by prefill scatters"),
+    ("app_tpu_kv_pages_stalled_total", "counter", None,
+     "page allocations that failed after reclaim"),
+    ("app_tpu_spec_proposed_total", "updown_counter", None,
+     "draft tokens proposed"),
+    ("app_tpu_spec_accepted_total", "updown_counter", None,
+     "draft tokens the target accepted"),
+    ("app_tpu_spec_acceptance_rate", "gauge", None,
+     "windowed speculative acceptance rate"),
+    ("app_tpu_spec_gamma", "gauge", None, "gamma of the last spec tick"),
+    ("app_tpu_sched_tokens_total", "updown_counter", None,
+     "generated tokens by SLO class"),
+    ("app_tpu_sched_shed_total", "counter", None,
+     "admissions shed by SLO class"),
+    ("app_tpu_admission_queue_depth", "gauge", None,
+     "queued admissions by SLO class"),
+    ("app_tpu_slot_quarantine_total", "counter", None,
+     "slots failed alone, by reason"),
+    ("app_tpu_engine_compiles_total", "counter", None,
+     "engine executables built (graph captures), warmup or serving"),
+    ("app_tpu_device_seconds_total", "updown_counter", None,
+     "dispatch-to-publish seconds by model and SLO class"),
+    ("app_tpu_executable_device_seconds_total", "updown_counter", None,
+     "dispatch-to-publish seconds by model and executable family"),
+    ("app_tpu_bucket_hits_total", "counter", None,
+     "prompts per bucket"),
+    ("app_tpu_slo_total", "counter", None,
+     "terminal requests by deadline outcome"),
+    ("app_tpu_deadline_violation_seconds", "histogram", _SECONDS,
+     "how late past its deadline a violated request finished (s)"),
+    ("app_tpu_tokens_per_s", "gauge", None,
+     "raw generated tokens/s over the window"),
+    ("app_tpu_goodput_tokens_per_s", "gauge", None,
+     "tokens/s of requests that met their deadline"),
+    ("app_tpu_slo_attainment", "gauge", None,
+     "fraction of windowed terminal requests that met their deadline"),
+    ("app_health_transitions_total", "counter", None,
+     "watchdog READY<->DEGRADED flips"),
+    ("app_tpu_brownout_level", "gauge", None, "brownout ladder rung"),
+    ("app_tpu_fault_injected_total", "counter", None,
+     "seeded faults fired, by site"),
+)
+
+
+def register_engine_metrics(manager: Any) -> Any:
+    """Register :data:`ENGINE_METRICS` on ``manager`` (anything with the
+    ``new_*`` registration methods); returns it."""
+    for name, kind, buckets, desc in ENGINE_METRICS:
+        if kind == "histogram":
+            manager.new_histogram(name, desc, buckets)
+        else:
+            getattr(manager, f"new_{kind}")(name, desc)
+    return manager

@@ -121,11 +121,30 @@ or a paged pool (``paged_kv=True``).
   outside the vocabulary, is failed alone and counted
   (``stats()["resilience"]["quarantined"]``); the tick's other slots
   keep their tokens.
+- Telemetry (JAX's hooks, duck-typed: ``metrics`` takes
+  ``increment_counter`` / ``delta_updown_counter`` / ``set_gauge`` /
+  ``record_histogram``, ``tracer`` takes ``start_span``, ``slo`` is an
+  :class:`~gofr_tpu_torch.slo.SLOTracker`): a request's ``queue.wait``,
+  ``prefill`` and ``decode`` spans under the submitting span, a
+  :class:`~gofr_tpu_torch.tpu.flightrecorder.RequestRecord` from submit to
+  its terminal status, engine-step spans (``tpu.engine.prefill`` /
+  ``step`` / ``spec``) linked to their requests and finished at publish,
+  each step's dispatch-to-publish seconds charged to its participants'
+  SLO classes and to its executable family, a sampled tick anatomy
+  (``attach_telemetry``), compiles (graph captures, warmup or serving
+  class), and the views ``statusz``, ``xlaz``, ``hbm_attribution`` and
+  ``health_check``. Every hook runs on the loop thread and reads host
+  state only (slot mirrors, fetched numpy tokens, the clock); the
+  device thread carries only a ``torch.profiler`` step annotation, and
+  only while a profiler is active.
+- Fault sites (``tpu/faults``, off unless a plan is installed):
+  ``tick_exception`` raises at the top of a tick's dispatch, where the
+  loop's catch-all takes it; ``nan_logits`` poisons the first
+  participant's fetched tokens of a plain tick at publish, which
+  quarantines exactly that slot.
 
-Left for later slices (see ROADMAP.md): disaggregation, auto-tuning,
-upload coalescing, mesh sharding, the brownout controller
-(``BrownoutLadder``), the fault plane's injection sites and the SLO /
-metrics / tracing / flight-recorder hooks.
+Left for later slices (see ROADMAP.md): disaggregation, auto-tuning and
+operating points, upload coalescing, mesh sharding, the workload plane.
 """
 
 from __future__ import annotations
@@ -151,13 +170,19 @@ from gofr_tpu_torch.ops.sampling import (filtered_log_probs_batch,
                                          greedy_accept, sample_batch,
                                          speculative_accept)
 from gofr_tpu_torch.slo import DeadlineExceeded, current_deadline
+from gofr_tpu_torch.tpu import faults
+from gofr_tpu_torch.tpu.compile_ledger import (ExecutableLedger, ShapeStats,
+                                               charge_device_time,
+                                               suggest_ladder)
 from gofr_tpu_torch.tpu.constrain import (GrammarCache, GrammarWalker,
                                           token_byte_table)
+from gofr_tpu_torch.tpu.flightrecorder import FlightRecorder, RequestRecord
 from gofr_tpu_torch.tpu.page_pool import PagePool
 from gofr_tpu_torch.tpu.prefix_cache import PrefixStore
 from gofr_tpu_torch.tpu.sched import (DEFAULT_CLASS_WEIGHTS, ClassQueues,
                                       brownout_shed_classes, deadline_class)
 from gofr_tpu_torch.tpu.staging import StagingPool
+from gofr_tpu_torch.trace.tracer import Span, current_span
 
 DEFAULT_PROMPT_BUCKETS = (32, 128, 512)
 # Prefill rows (count x bucket) on the card, at least: with fewer, cuBLAS
@@ -344,13 +369,28 @@ class TokenStream:
         self.cancel()
 
 
+class _Flight:
+    """A request's observability context from submit to finish (JAX
+    ``_Flight``): the span that identifies the request (the caller's
+    current span, else the ``queue.wait`` span), the open ``queue.wait``
+    span, and its flight-recorder record."""
+    __slots__ = ("link_span", "qspan", "record")
+
+    def __init__(self, link_span: Optional[Span], qspan: Optional[Span],
+                 record: RequestRecord):
+        self.link_span = link_span
+        self.qspan = qspan
+        self.record = record
+
+
 class _Request:
     __slots__ = ("prompt", "bucket", "budget", "eos_id", "sampling",
                  "future", "queue", "submitted_at", "cls", "grammar",
-                 "deadline")
+                 "deadline", "flight")
 
     def __init__(self, prompt, bucket, budget, eos_id, sampling, future,
-                 queue, cls, grammar, deadline):
+                 queue, cls, grammar, deadline,
+                 flight: Optional[_Flight] = None):
         self.prompt = prompt
         self.bucket = bucket
         self.budget = budget
@@ -362,12 +402,16 @@ class _Request:
         self.cls = cls              # SLO class (tpu/sched.deadline_class)
         self.grammar = grammar      # CompiledGrammar, or None
         self.deadline = deadline    # absolute monotonic, or None
+        # spans and record (a bare record, no spans, when none was given)
+        self.flight = flight or _Flight(None, None, RequestRecord(
+            prompt_len=len(prompt), budget=budget))
 
 
 class _Slot:
     __slots__ = ("future", "remaining", "eos_id", "tokens", "active", "gen",
                  "inflight", "queue", "temperature", "fill", "submitted_at",
-                 "pages", "nodes", "grammar")
+                 "pages", "nodes", "grammar", "cls", "deadline", "record",
+                 "req_span", "phase_span", "spec_proposed", "spec_accepted")
 
     def __init__(self):
         self.future: Optional[asyncio.Future] = None
@@ -384,18 +428,37 @@ class _Slot:
         self.pages: List[int] = []   # pool pages this slot owns
         self.nodes: List[Any] = []   # paged: pinned prefix-trie nodes
         self.grammar: Optional[GrammarWalker] = None   # constrained decoding
+        self.cls = "batch"            # SLO class (tpu/sched.deadline_class)
+        self.deadline: Optional[float] = None   # absolute monotonic
+        self.record: Optional[RequestRecord] = None   # flight recorder
+        self.req_span: Optional[Span] = None     # request span (link target)
+        self.phase_span: Optional[Span] = None   # open prefill/decode span
+        self.spec_proposed = 0        # draft tokens proposed for it
+        self.spec_accepted = 0        # ... and kept
 
 
 class _Fetch:
     """One dispatched step whose host copy is in flight: ``task`` resolves
     to its tokens; ``kind`` is prefill, tick or spec; ``payload`` what
-    they publish against."""
-    __slots__ = ("task", "kind", "payload")
+    they publish against. ``span`` is the open engine-step span, finished
+    at publish; ``dispatched_at`` (when the step was queued for the
+    device) starts the dispatch-to-publish window charged to the
+    participants' SLO classes and to ``family``, the executable family;
+    ``anatomy`` is a sampled tick's phase split (None unsampled),
+    completed with the device wait at publish."""
+    __slots__ = ("task", "kind", "payload", "span", "dispatched_at",
+                 "anatomy", "family")
 
-    def __init__(self, task, kind: str, payload):
+    def __init__(self, task, kind: str, payload,
+                 span: Optional[Span] = None,
+                 family: Optional[str] = None):
         self.task = task
         self.kind = kind
         self.payload = payload
+        self.span = span
+        self.dispatched_at = time.monotonic()
+        self.anatomy: Optional[Dict[str, Any]] = None
+        self.family = family
 
 
 class _Graph:
@@ -408,6 +471,15 @@ class _Graph:
         self.out = out
         self.launches = launches
         self.seconds = seconds
+
+
+def _tree_bytes(tree: Any) -> int:
+    """Bytes of the tensors of a (nested) dict; 0 for None."""
+    if tree is None:
+        return 0
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(leaf) for leaf in tree.values())
+    return tree.numel() * tree.element_size()
 
 
 def _params_to(params: Any, device: torch.device) -> Any:
@@ -436,9 +508,12 @@ class GenerationEngine:
                  token_table=None,
                  grammar_cache_entries: int = 32,
                  device: Union[str, torch.device] = "cuda",
-                 logger=None):
+                 model_name: str = "generate",
+                 logger=None, metrics=None, tracer=None, recorder=None,
+                 slo=None):
         self.device = resolve_device(device)
         self.cfg = cfg
+        self.model_name = str(model_name)
         self.max_slots = int(max_slots)
         self.max_len = int(max_len or cfg.max_seq_len)
         self.prompt_buckets = tuple(
@@ -472,6 +547,30 @@ class GenerationEngine:
                                  f"(page-aligned inserts need page-aligned "
                                  f"buckets)")
         self.logger = logger
+        # -- telemetry hooks (JAX's, duck-typed): metrics, spans (None:
+        # off), the flight recorder (always on), the SLO tracker; the
+        # prompt-bucket fit, device seconds by (model, class) and by
+        # executable family are always kept
+        self.metrics = metrics
+        self.tracer = tracer
+        self.recorder: FlightRecorder = recorder or FlightRecorder()
+        self.slo = slo
+        self.shapes = ShapeStats(metrics)
+        self.exec_ledger = ExecutableLedger(metrics=metrics)
+        self._device_seconds: Dict[Tuple[str, str], float] = {}
+        # the sampled tick anatomy: None until attach_telemetry; every
+        # ``_tick_every``-th dispatched tick carries its phase split
+        self.telemetry = None
+        self._tick_seq = 0
+        self._tick_every = 64
+        self._steps = 0               # ticks dispatched (plain and spec)
+        # compiles: one graph capture each (warmup class inside warmup(),
+        # serving class otherwise), noted on the loop thread when the
+        # capture is queued
+        self._warming = 0
+        self._compiled: set = set()   # keys captured or queued to be
+        self._compile_events: List[Tuple[float, str, str]] = []
+        self._compiles_by_class = {"warmup": 0, "serving": 0}
         # attention-window ladder (fill-bounded decode): rungs double from
         # 128 up to max_len; a dense tick attends only the smallest rung
         # covering every participating slot's fill + its steps, so an
@@ -512,7 +611,7 @@ class GenerationEngine:
                 cfg, page=self.kv_page,
                 num_pages=(int(kv_pages) if kv_pages is not None
                            else self.max_slots * self.pages_per_slot),
-                device=dev)
+                device=dev, metrics=metrics)
             # pages admission must leave free for decode growth of running
             # slots
             self._kv_reserve = (int(kv_page_reserve)
@@ -1040,6 +1139,12 @@ class GenerationEngine:
         if self.logger is not None:
             self.logger.info("engine warmup: %d tick executables %s",
                              len(keys), keys)
+        self._warming += 1
+        try:
+            for key in keys:
+                self._note_capture(key)
+        finally:
+            self._warming -= 1
         await asyncio.get_running_loop().run_in_executor(
             self._device_exec, self._warm, keys)
 
@@ -1080,7 +1185,33 @@ class GenerationEngine:
                              f"bucket {self.prompt_buckets[-1]}")
         if len(prompt) + max_new_tokens > self.max_len:
             raise ValueError("prompt + max_new_tokens exceeds cache length")
+        self.shapes.record("prompt", len(prompt), bucket)
         return prompt, bucket
+
+    def _new_flight(self, prompt: List[int], budget: int) -> _Flight:
+        """Open the request's observability context at submit (JAX
+        ``_new_flight``): a ``queue.wait`` span under the caller's current
+        span (the port's contextvar) and a flight-recorder record tagged
+        with the request span's ids."""
+        parent = current_span() if self.tracer is not None else None
+        qspan = (self.tracer.start_span("queue.wait", parent=parent)
+                 if self.tracer is not None else None)
+        link_span = parent if parent is not None else qspan
+        record = RequestRecord(
+            model=self.model_name, prompt_len=len(prompt), budget=budget,
+            trace_id=link_span.trace_id if link_span is not None else None,
+            span_id=link_span.span_id if link_span is not None else None)
+        self.recorder.start(record)
+        return _Flight(link_span, qspan, record)
+
+    def _close_flight(self, flight: _Flight, status: str,
+                      span_status: str) -> None:
+        """End a request that never reached a slot: its ``queue.wait``
+        span with ``span_status`` and its record with ``status``."""
+        if flight.qspan is not None:
+            flight.qspan.set_status(span_status)
+            flight.qspan.finish()
+        self.recorder.finish(flight.record, status)
 
     def set_brownout(self, level: int) -> None:
         """Apply a brownout level (JAX's ``set_brownout``, clamped to
@@ -1095,16 +1226,28 @@ class GenerationEngine:
                 else self.logger.info
             log("engine: brownout level %d -> %d", previous, level)
 
-    def _brownout_gate(self, cls: str) -> None:
+    def _brownout_gate(self, cls: str, flight: _Flight) -> None:
         """Refuse a class the current brownout level sheds, before it is
         queued: a 503 the client can retry on another replica beats
-        queue time on one that would shed the request anyway."""
+        queue time on one that would shed the request anyway. Counted
+        as the overflow's sheds are (record ``expired``, SLO outcome
+        ``expired``, ``app_tpu_sched_shed_total``)."""
         if not self._brownout or cls not in brownout_shed_classes(
                 self._brownout):
             return
-        self._shed_by_class[cls] = self._shed_by_class.get(cls, 0) + 1
+        self._close_flight(flight, "expired", "ERROR")
+        self._count_shed(cls)
         raise BrownoutShed(
             f"brownout level {self._brownout}: shedding {cls!r} admissions")
+
+    def _count_shed(self, cls: str) -> None:
+        self._shed_by_class[cls] = self._shed_by_class.get(cls, 0) + 1
+        if self.slo is not None:
+            self.slo.record_outcome("expired", cls=cls,
+                                    model=self.model_name)
+        if self.metrics is not None:
+            self.metrics.increment_counter(
+                "app_tpu_sched_shed_total", model=self.model_name, cls=cls)
 
     def _compile_grammar(self, response_format, eos_id):
         """Resolve a request's ``response_format`` through the engine's
@@ -1124,14 +1267,16 @@ class GenerationEngine:
         it under its class. Raises (nothing queued) on any refusal."""
         prompt, bucket = self._validate(prompt_ids, max_new_tokens)
         grammar = self._compile_grammar(response_format, eos_id)
+        flight = self._new_flight(prompt, max_new_tokens)
         deadline = current_deadline()
         cls = deadline_class(deadline)
-        self._brownout_gate(cls)
+        self._brownout_gate(cls, flight)
         future = asyncio.get_running_loop().create_future()
         self._pending.put_nowait(
             _Request(prompt, bucket, max_new_tokens, eos_id,
                      sampling or Sampling(), future, queue, cls, grammar,
-                     deadline), cls)
+                     deadline, flight), cls)
+        self._set_queue_gauges()
         self._wake.set()
         return future
 
@@ -1171,7 +1316,7 @@ class GenerationEngine:
                 slot.queue = None
                 if slot.future is not None and not slot.future.done():
                     slot.future.cancel()
-                self._finish_slot(slot_idx, slot)
+                self._finish_slot(slot_idx, slot, "cancelled")
                 return
         self._cancelled_queues.add(queue)
 
@@ -1197,6 +1342,289 @@ class GenerationEngine:
         if self._prefix is None:
             return None
         return self._prefix.digest(max_entries=max_entries)
+
+    # -- compiles, telemetry and the views -------------------------------------
+    @property
+    def attn_path(self) -> str:
+        """The decode-attention formulation ticks run (``app_tpu_attn_
+        kernel_total{path}``): ``ragged`` (the ragged kernel over the
+        pool's page table) on the paged engine, ``dense`` (cache rows,
+        read through identity tables) otherwise."""
+        return "ragged" if self.paged else "dense"
+
+    def _note_capture(self, key: _Key) -> None:
+        """Note tick ``key``'s graph capture as one compile, once, on the
+        loop thread when it is queued (on the card; the CPU runs ticks
+        eagerly and captures nothing)."""
+        if self.device.type != "cuda" or key in self._compiled:
+            return
+        self._compiled.add(key)
+        kind = {"plain": "decode", "bias": "decode_bias",
+                "spec": "spec"}[key[0]] + ("_paged" if self.paged else "")
+        self._note_compile(kind, key[1:])
+
+    def _note_compile(self, kind: str, key) -> None:
+        """Charge one compile (JAX ``_note_compile``): warmup class inside
+        ``warmup()``, serving class otherwise — the recompile-storm
+        signal the watchdog reads through :meth:`serving_compiles`."""
+        cls = "warmup" if self._warming else "serving"
+        self._compiles_by_class[cls] += 1
+        self._compile_events.append((time.monotonic(), cls, f"{kind}{key}"))
+        del self._compile_events[:-256]
+        if self.metrics is not None:
+            self.metrics.increment_counter(
+                "app_tpu_engine_compiles_total", cls=cls,
+                model=self.model_name)
+
+    def serving_compiles(self, window_s: float = 60.0,
+                         now: Optional[float] = None) -> int:
+        """Serving-class compiles inside the trailing window (the
+        ``CompileLedger`` seam the watchdog's ``ledger`` reads)."""
+        now = time.monotonic() if now is None else now
+        return sum(1 for at, cls, _ in self._compile_events
+                   if cls == "serving" and now - at <= window_s)
+
+    def _set_queue_gauges(self) -> None:
+        """Per-class admission backlog gauge (class queues plus the
+        page-deferred overflow). A zero row stays published."""
+        if self.metrics is None:
+            return
+        depths = self._pending.depths()
+        for req in self._overflow:
+            depths[req.cls] = depths.get(req.cls, 0) + 1
+        for cls, depth in depths.items():
+            self.metrics.set_gauge(
+                "app_tpu_admission_queue_depth", float(depth),
+                model=self.model_name, cls=cls)
+
+    def attach_telemetry(self, store, every: int = 64) -> None:
+        """Give ``store`` (anything with ``note_tick``) the phase split of
+        every ``every``-th dispatched tick: ``admission_s``,
+        ``host_dispatch_s``, ``device_wait_s`` (dispatch to publish),
+        ``kind``, ``batch``, ``step``, ``at``. Never called, the loop
+        pays one attribute test a pass."""
+        self.telemetry = store
+        self._tick_every = max(1, int(every))
+
+    def admission_depth(self) -> int:
+        """Requests queued for admission (class queues plus overflow)."""
+        return self._pending.qsize() + len(self._overflow)
+
+    def kv_free_headroom(self) -> Optional[int]:
+        """Free pool pages above the reserve (paged; None dense)."""
+        if not self.paged:
+            return None
+        return self._pool.free_pages - self._kv_reserve
+
+    def data_plane(self) -> Dict[str, Any]:
+        """Host-to-device upload totals of the engine's staging slabs
+        (JAX ``data_plane``). Uploads are queued without waiting, so no
+        rate is measured; coalescing is not ported (False, None)."""
+        staging = self._staging.stats()
+        return {
+            "coalesce_uploads": False,
+            "coalesce_stream": False,
+            "h2d_uploads": staging["uploads"],
+            "h2d_bytes": staging["upload_bytes"],
+            "h2d_mb_per_s": None,
+            "coalescer": None,
+        }
+
+    def hbm_attribution(self) -> Dict[str, Any]:
+        """Device memory this engine placed (JAX ``hbm_attribution``, for
+        ``/debug/hbmz``) against the allocator's figure: parameters (and
+        a draft's), the paged pool by ownership class, or the dense
+        cache; the draft's cache. The staging slabs are pinned host
+        memory (``staging_bytes``, not attributed). The residual is
+        what nobody claims (graph pools, activations, cuBLAS
+        workspaces, fragmentation). Host bookkeeping only."""
+        params = _tree_bytes(self.params) + _tree_bytes(self.draft_params)
+        out: Dict[str, Any] = {"model": self.model_name,
+                               "params_bytes": params}
+        attributed = params
+        if self.paged:
+            pool = self._pool
+            page_bytes = pool.page_bytes
+            decode_pages = sum(len(slot.pages) for slot in self._slots
+                               if slot.active)
+            # pages in use that no slot holds are the prefix trie's
+            prefix_pages = max(0, pool.used_pages - decode_pages)
+            out["page_pool"] = {
+                "pool_bytes": pool.pool_bytes,
+                "page_bytes": page_bytes,
+                "pages": {"total": pool.num_pages, "free": pool.free_pages,
+                          "decode": decode_pages, "migrated": 0,
+                          "prefix_pinned": prefix_pages},
+                "bytes": {"free": pool.free_pages * page_bytes,
+                          "decode": decode_pages * page_bytes,
+                          "migrated": 0,
+                          "prefix_pinned": prefix_pages * page_bytes},
+            }
+            attributed += pool.pool_bytes
+        else:
+            out["page_pool"] = None
+            attributed += _tree_bytes(self.cache)
+        attributed += _tree_bytes(self._draft_cache)
+        out["staging_bytes"] = self._staging.stats()["slab_bytes"]
+        out["attributed_bytes"] = attributed
+        out["device_bytes_in_use"] = self.device_bytes_in_use()
+        out["unattributed_bytes"] = (
+            None if out["device_bytes_in_use"] is None
+            else out["device_bytes_in_use"] - attributed)
+        out["device_seconds"] = self._device_seconds_view()
+        return out
+
+    def device_bytes_in_use(self) -> Optional[int]:
+        """Bytes the caching allocator has handed out on the engine's card
+        (``torch.cuda.memory_stats``' ``allocated_bytes.all.current``:
+        tensors, captured graphs' private pools included; not the
+        allocator's reserve, the CUDA context or kernel images); None on
+        the CPU."""
+        if self.device.type != "cuda":
+            return None
+        return int(torch.cuda.memory_stats(self.device)[
+            "allocated_bytes.all.current"])
+
+    def _device_seconds_view(self) -> Dict[str, float]:
+        return {f"{model}/{cls}": round(seconds, 6)
+                for (model, cls), seconds
+                in sorted(self._device_seconds.items())}
+
+    def statusz(self, recent: int = 32) -> Dict[str, Any]:
+        """Live JSON snapshot for ``/debug/statusz`` (JAX ``statusz``):
+        queue depth, per-slot state, KV occupancy, the data plane, the
+        stats, the flight recorder's ring and the executable families'
+        device seconds. Host bookkeeping only."""
+        slots = []
+        for slot_idx, slot in enumerate(self._slots):
+            slots.append({
+                "slot": slot_idx,
+                "state": "active" if slot.active else "free",
+                "cls": slot.cls if slot.active else None,
+                "fill": slot.fill if slot.active else 0,
+                "remaining": slot.remaining if slot.active else 0,
+                "inflight_tokens": slot.inflight,
+                "spec_accepted": slot.spec_accepted if slot.active else 0,
+                "spec_proposed": slot.spec_proposed if slot.active else 0,
+                "streaming": slot.queue is not None,
+                "pages_held": (len(slot.pages) + len(slot.nodes)
+                               if slot.active else 0),
+                "trace_id": (slot.record.trace_id
+                             if slot.record is not None else None),
+            })
+        tokens_in_cache = sum(s.fill for s in self._slots if s.active)
+        if self.paged:
+            capacity = self._pool.num_pages * self.kv_page
+            pages_held = sum(len(s.pages) + len(s.nodes)
+                             for s in self._slots if s.active)
+            kv_cache = {
+                "paged": True,
+                "attn_path": self.attn_path,
+                "max_slots": self.max_slots,
+                "max_len": self.max_len,
+                "page_tokens": self.kv_page,
+                "pool_pages": self._pool.num_pages,
+                "pages_in_use": self._pool.used_pages,
+                "slot_pages_held": pages_held,
+                "tokens_in_cache": tokens_in_cache,
+                "occupancy": round(tokens_in_cache / capacity, 6)
+                if capacity else 0.0,
+                "ragged_fill_ratio": round(
+                    tokens_in_cache / (pages_held * self.kv_page), 6)
+                if pages_held else 0.0,
+            }
+        else:
+            capacity = self.max_slots * self.max_len
+            kv_cache = {
+                "max_slots": self.max_slots,
+                "max_len": self.max_len,
+                "tokens_in_cache": tokens_in_cache,
+                "occupancy": round(tokens_in_cache / capacity, 6)
+                if capacity else 0.0,
+            }
+        return {
+            "queue_depth": self._pending.qsize(),
+            "ticks_inflight": self._ticks_inflight,
+            "slots": slots,
+            "kv_cache": kv_cache,
+            "data_plane": self.data_plane(),
+            "stats": self.stats(),
+            "requests": self.recorder.snapshot(limit=recent),
+            "executables": self.exec_ledger.snapshot(limit=8),
+        }
+
+    def xlaz(self, recent: int = 64, max_rungs: int = 4) -> Dict[str, Any]:
+        """Compile-plane view for ``/debug/xlaz`` (JAX ``xlaz``): the
+        observed prompt lengths against the buckets and the
+        padding-optimal ladder they suggest, padding, the executable
+        families' device seconds, compiles by class, and the tick
+        graphs captured (``paged_kv.decode_executables``,
+        ``speculative.compiled_spec_fns``). Operating points are not
+        ported (None)."""
+        observed = self.shapes.distribution("prompt")
+        out: Dict[str, Any] = {
+            "models": {
+                "prompt": {
+                    "ladder": list(self.prompt_buckets),
+                    "observed_batch_sizes": {
+                        str(k): v for k, v in sorted(observed.items())},
+                    "bucket_hits": {
+                        str(k): v for k, v in
+                        sorted(self.shapes.bucket_hits("prompt").items())},
+                    "suggested_ladder": suggest_ladder(
+                        observed,
+                        max_rungs=max(len(self.prompt_buckets), max_rungs)),
+                    "ladder_source": "observed_lengths",
+                },
+            },
+            "padding": self.shapes.snapshot(),
+            "executables": self.exec_ledger.snapshot(limit=max_rungs * 3),
+            "operating_point": None,
+            "compiles": dict(self._compiles_by_class),
+        }
+        if self._prefix is not None:
+            out["prefix_cache"] = {
+                "page_ladder": list(self._p_ladder),
+                "page_tokens": self._prefix.page,
+                "store": self._prefix.stats(),
+                "prefill_bucket_tokens": self.prefill_bucket_tokens,
+                "prefill_real_tokens": None,
+            }
+        if self.paged:
+            out["paged_kv"] = {
+                "page_tokens": self.kv_page,
+                "attn_path": self.attn_path,
+                "ragged_attn": None,
+                "gather_widths": [self.pages_per_slot],
+                "decode_executables": sorted(
+                    str(key) for key in self._graphs if key[0] != "spec"),
+                "pool": self._pool.stats(),
+            }
+        if self.spec:
+            out["speculative"] = {
+                "gamma_ladder": list(self._g_ladder),
+                "gamma_cap": self._gamma_cap,
+                "compiled_spec_fns": sum(1 for key in self._graphs
+                                         if key[0] == "spec"),
+                "compiled_draft_prefill_fns": None,
+            }
+        return out
+
+    def health_check(self) -> Dict[str, Any]:
+        """Container-health contract (JAX ``health_check``): the stats
+        and, on the card, its allocated bytes."""
+        details: Dict[str, Any] = dict(self.stats())
+        try:
+            in_use = self.device_bytes_in_use()
+            index = self.device.index if self.device.index is not None \
+                else 0
+            details["devices"] = {str(index): {
+                "hbm_bytes_in_use": in_use or 0}}
+            status = "UP"
+        except Exception as exc:  # noqa: BLE001 — reported as DOWN
+            details["error"] = repr(exc)
+            status = "DOWN"
+        return {"status": status, "details": details}
 
     @property
     def spec_dispatches(self) -> int:
@@ -1236,6 +1664,8 @@ class GenerationEngine:
                 w or self.max_len: n for w, n in sorted(
                     self.window_ticks.items(),
                     key=lambda item: item[0] or self.max_len)},
+            "device_seconds": self._device_seconds_view(),
+            "compiles": dict(self._compiles_by_class),
         }
         if self._prefix is not None:
             out["prefix_cache"] = self._prefix.stats()
@@ -1251,8 +1681,7 @@ class GenerationEngine:
                 "max_slots": self.max_slots,
                 "max_len": self.max_len,
                 "view_page": llama.dense_page(self.max_len),
-                "cache_bytes": sum(leaf.numel() * leaf.element_size()
-                                   for leaf in self.cache.values()),
+                "cache_bytes": _tree_bytes(self.cache),
                 "tokens_in_cache": sum(slot.fill for slot in self._slots
                                        if slot.active),
             }
@@ -1307,6 +1736,9 @@ class GenerationEngine:
                 # drain in-flight fetches before the reset: their threads
                 # may still be reading slabs of the failed ticks
                 for entry in self._publishq:
+                    if entry.span is not None:
+                        entry.span.set_status("ERROR")
+                        entry.span.finish()
                     try:
                         await entry.task
                     except asyncio.CancelledError:
@@ -1355,8 +1787,39 @@ class GenerationEngine:
             if slot.active:
                 self._fail_slot(slot_idx, slot, exc)
 
+    def _attribute_device_time(self, entry: _Fetch) -> None:
+        """Charge the step's dispatch-to-publish seconds to its
+        participants' (model, SLO class), split evenly, and to its
+        executable family, through one helper so the two totals agree
+        (JAX ``_attribute_device_time``). Pipelined steps overlap, so
+        the shares can sum past wall time: attribution, not
+        utilisation."""
+        elapsed = time.monotonic() - entry.dispatched_at
+        if elapsed <= 0:
+            return
+        if entry.kind == "spec":
+            participants = [s for s, _ in entry.payload[0]]
+        elif entry.kind == "prefill":
+            participants = [s for s, _, _ in entry.payload]
+        else:
+            participants = [s for s, _ in entry.payload]
+        if not participants:
+            return
+        charge_device_time(
+            elapsed, self.model_name,
+            classes=[self._slots[s].cls or "standard" for s in participants],
+            family=entry.family or entry.kind,
+            device_seconds=self._device_seconds, metrics=self.metrics,
+            ledger=self.exec_ledger)
+
     async def _loop_body(self, loop) -> None:
         q = self._publishq
+        # the sampled tick anatomy: whether the next dispatched tick is
+        # the Nth is decided up front, and only then do the clocks run
+        ts = self.telemetry
+        sampled = (ts is not None
+                   and (self._tick_seq + 1) % self._tick_every == 0)
+        t_admit = time.monotonic() if sampled else 0.0
         # 1. batched admission; each prefill's first-token fetch is queued
         self._admit_pending(loop)
         # 2. dispatch the next tick up to the pipeline depth; its fetch
@@ -1364,11 +1827,19 @@ class GenerationEngine:
         dispatched = False
         if self.active_slots > 0 \
                 and self._ticks_inflight < self.max_inflight_ticks:
+            t_dispatch = time.monotonic() if sampled else 0.0
             entry = self._dispatch_tick(loop)
             if entry is not None:
                 self._ticks_inflight += 1
                 self._ticks_inflight_peak = max(self._ticks_inflight_peak,
                                                 self._ticks_inflight)
+                if ts is not None:
+                    self._tick_seq += 1
+                    if sampled:
+                        entry.anatomy = {
+                            "admission_s": t_dispatch - t_admit,
+                            "host_dispatch_s": time.monotonic() - t_dispatch,
+                        }
                 q.append(entry)
                 dispatched = True
         if not q:
@@ -1397,7 +1868,9 @@ class GenerationEngine:
             entry = q.popleft()
             self._publish(entry, entry.task.result())
 
-    def _on_device(self, loop, kind: str, payload, fn, *args) -> _Fetch:
+    def _on_device(self, loop, kind: str, payload, fn, *args,
+                   span: Optional[Span] = None,
+                   family: Optional[str] = None) -> _Fetch:
         """Queue ``fn(*args)`` on the device thread, behind everything
         queued before it, and return the step's fetch: a task that waits
         for the call (which returns the host copy's waiter) and then, in
@@ -1409,7 +1882,37 @@ class GenerationEngine:
 
         async def land():
             return await loop.run_in_executor(None, await queued)
-        return _Fetch(loop.create_task(land()), kind, payload)
+        return _Fetch(loop.create_task(land()), kind, payload, span=span,
+                      family=family)
+
+    @staticmethod
+    def _annotated(name: str, step: int, fn, *args):
+        """``fn(*args)`` on the device thread, inside a ``torch.profiler``
+        step annotation (JAX ``_profile_step``) while a profiler is
+        active; otherwise just the call."""
+        if not torch.autograd._profiler_enabled():
+            return fn(*args)
+        with torch.profiler.record_function(name, f"step_num={step}"):
+            return fn(*args)
+
+    def _step_span(self, name: str, participants,
+                   **attributes) -> Optional[Span]:
+        """Open an engine-step span (JAX ``_step_span``): the root of its
+        own trace, with a link to every participating request's span;
+        ``participants`` are tuples whose first element is a slot index.
+        Finished at publish, so it covers dispatch, the device and the
+        fetch."""
+        if self.tracer is None:
+            return None
+        span = Span(self.tracer, name)
+        span.set_attribute("batch_size", len(participants))
+        for key, value in attributes.items():
+            span.set_attribute(key, value)
+        for entry in participants:
+            slot = self._slots[entry[0]]
+            if slot.req_span is not None:
+                span.add_link(slot.req_span)
+        return span
 
     def _prefix_plan(self, prompt: List[int], bucket: int):
         """Plan prefix reuse for one request (JAX ``_prefix_plan``): the
@@ -1463,16 +1966,21 @@ class GenerationEngine:
                 self._cancelled_queues.discard(req.queue)
                 if not req.future.done():
                     req.future.cancel()
+                self._close_flight(req.flight, "cancelled", "CANCELLED")
                 continue
             if req.deadline is not None and time.monotonic() > req.deadline:
                 # the deadline ate the whole budget in the queue: shed
                 # before prefill, a late answer is wasted device work
+                self._reject(req, DeadlineExceeded())
+                self._close_flight(req.flight, "expired", "EXPIRED")
+                if self.slo is not None:
+                    self.slo.record_outcome("expired", cls=req.cls,
+                                            model=self.model_name)
                 if self.logger is not None:
                     self.logger.warning(
                         "engine: shed expired request before prefill "
                         "(%.1fms past deadline)",
                         (time.monotonic() - req.deadline) * 1000.0)
-                self._reject(req, DeadlineExceeded())
                 continue
             if self.paged:
                 # page-gated before the prefix lookup, so a deferred
@@ -1484,6 +1992,7 @@ class GenerationEngine:
                         f"prompt needs {need} KV pages but the pool holds "
                         f"{self._pool.num_pages} (reserve "
                         f"{self._kv_reserve}); it can never be admitted"))
+                    self._close_flight(req.flight, "error", "ERROR")
                     continue
                 while (self._pool.free_pages - committed
                        < need + self._kv_reserve
@@ -1521,17 +2030,26 @@ class GenerationEngine:
                   for (p_rung, bucket, biased), group
                   in sorted(groups.items())]
         for claimed, args, pages in staged:
+            nb, bucket, p_rung = args[0], args[1], args[3]
+            span = self._step_span("tpu.engine.prefill", claimed,
+                                   bucket=bucket, padded_batch=nb,
+                                   prefix_pages=p_rung)
+            family = (f"suffix_prefill[nb={nb},p={p_rung},b={bucket}]"
+                      if p_rung else f"prefill[nb={nb},b={bucket}]")
             self._publishq.append(self._on_device(
-                loop, "prefill", claimed, self._prefill_insert, *args))
+                loop, "prefill", claimed, self._annotated,
+                "tpu.engine.prefill", self.prefill_dispatches,
+                self._prefill_insert, *args, span=span, family=family))
             if self.paged:
                 self._pool.note_writes(pages)
             self.prefill_dispatches += 1
-            self.prefill_bucket_tokens += args[0] * args[1]
-            self.suffix_prefill_dispatches += bool(args[3])
+            self.prefill_bucket_tokens += nb * bucket
+            self.suffix_prefill_dispatches += bool(p_rung)
         if leases:
             # the queued gathers read the pages in dispatch order, ahead
             # of any later publish into an evicted one
             self._prefix.release(leases)
+        self._set_queue_gauges()
 
     def _shed_overflow(self) -> None:
         """Bound the page-deferred deque (JAX ``_shed_overflow``): past
@@ -1548,8 +2066,7 @@ class GenerationEngine:
                      if req.cls == victim)
             req = self._overflow[at]
             del self._overflow[at]
-            self._shed_by_class[req.cls] = \
-                self._shed_by_class.get(req.cls, 0) + 1
+            self._count_shed(req.cls)
             if self.logger is not None:
                 self.logger.warning(
                     "engine: shed overflowed %s request (backlog %d > cap "
@@ -1559,6 +2076,7 @@ class GenerationEngine:
                 f"admission overflow: more than {self._overflow_cap} "
                 f"page-deferred requests; shedding the newest {req.cls!r} "
                 f"entry (deepest class)"))
+            self._close_flight(req.flight, "expired", "ERROR")
 
     def _prefill_count(self, n: int, bucket: int) -> int:
         """Rows of a prefill of ``n`` prompts of ``bucket``: the count
@@ -1634,12 +2152,32 @@ class GenerationEngine:
             slot.inflight = 1          # the prefill's first token
             slot.temperature = req.sampling.temperature
             slot.fill = len(req.prompt)
+            slot.cls = req.cls
+            slot.deadline = req.deadline
+            slot.spec_proposed = slot.spec_accepted = 0
             slot.grammar = None
             if req.grammar is not None:
                 # a cursor over the shared compiled grammar; its
                 # start-state row steers the prefill's token
                 slot.grammar = GrammarWalker(req.grammar)
                 bias[row] = slot.grammar.bias_row()
+            # queue.wait ends here; the prefill phase span opens, both in
+            # the request's trace
+            flight = req.flight
+            if flight.qspan is not None:
+                flight.qspan.set_attribute("slot", slot_idx)
+                flight.qspan.finish()
+            flight.record.admitted()
+            flight.record.cached_prefix_len = plen
+            slot.record = flight.record
+            slot.req_span = flight.link_span
+            slot.phase_span = None
+            if self.tracer is not None:
+                slot.phase_span = self.tracer.start_span(
+                    "prefill", parent=flight.link_span)
+                slot.phase_span.set_attribute("slot", slot_idx)
+                slot.phase_span.set_attribute("prompt_len", len(req.prompt))
+                slot.phase_span.set_attribute("cached_prefix_len", plen)
             # only the suffix past the reused prefix is prefilled
             suffix = req.prompt[plen:]
             if self.paged:
@@ -1659,6 +2197,7 @@ class GenerationEngine:
                 slot.pages = list(ids)
                 self._table[slot_idx, p_rung:p_rung + n_fresh] = ids
                 self._table_version += 1
+                flight.record.pages_held = p_rung + n_fresh
                 arrays["page_ids"][row * npg:row * npg + n_fresh] = ids
                 pages += n_fresh
                 if p_rung == 0 and store is not None:
@@ -1712,7 +2251,9 @@ class GenerationEngine:
         participant pins the tick to k = 1 with no spec tick (the draft
         cannot propose through a grammar) and makes it a "bias" tick.
         Brownout level 2 caps γ at rung 1; level 3 dispatches no spec
-        tick."""
+        tick. The ``tick_exception`` fault site raises first, where the
+        loop's catch-all takes it."""
+        faults.active().raise_if("tick_exception")
         eligible = [(slot_idx, slot)
                     for slot_idx, slot in enumerate(self._slots)
                     if slot.active and slot.remaining > slot.inflight
@@ -1751,9 +2292,41 @@ class GenerationEngine:
             self._constrained_ticks += 1
         self.decode_steps += k
         self.ticks += 1
-        return self._dispatch(loop, ("bias" if biased else "plain", k,
-                                     sampled, window),
-                              mask, "tick", snapshot, bias)
+        span = self._step_span("tpu.engine.step", snapshot, k=k,
+                               window=window or self.max_len,
+                               sampled=sampled, step=self._steps)
+        tag = "_bias" if biased else ""
+        family = (f"decode_paged{tag}[k={k},pw={self.pages_per_slot}]"
+                  if self.paged
+                  else f"decode{tag}[k={k},w={window or self.max_len}]")
+        entry = self._dispatch(loop, ("bias" if biased else "plain", k,
+                                      sampled, window),
+                               mask, "tick", snapshot, bias, span, family)
+        self._steps += 1
+        if self.metrics is not None:
+            exemplar = next(
+                ({"trace_id": slot.record.trace_id}
+                 for _, slot in eligible
+                 if slot.record is not None and slot.record.trace_id),
+                None)
+            self.metrics.record_histogram(
+                "app_tpu_batch_size", float(len(snapshot)),
+                exemplar=exemplar, model=self.model_name)
+            self.metrics.set_gauge(
+                "app_tpu_attention_window",
+                float(window or self.max_len), model=self.model_name)
+            self.metrics.increment_counter(
+                "app_tpu_attn_kernel_total", model=self.model_name,
+                path=self.attn_path)
+            if self.paged:
+                held = sum(len(s.nodes) + len(s.pages) for _, s in eligible)
+                filled = sum(s.fill for _, s in eligible)
+                if held:
+                    self.metrics.set_gauge(
+                        "app_tpu_kv_ragged_fill_ratio",
+                        min(1.0, filled / (held * self.kv_page)),
+                        model=self.model_name)
+        return entry
 
     def _dispatch_spec(self, loop, eligible, g: int) -> Optional[_Fetch]:
         """Dispatch one speculative tick at rung ``g``: charge every slot
@@ -1766,8 +2339,25 @@ class GenerationEngine:
         mask, sampled, snapshot = self._charge(eligible, g + 1)
         self.spec_rungs[g] = self.spec_rungs.get(g, 0) + 1
         self.draft_steps += g + 1
-        return self._dispatch(loop, ("spec", g, sampled, window), mask,
-                              "spec", (snapshot, g))
+        span = self._step_span("tpu.engine.spec", snapshot, gamma=g,
+                               window=window or self.max_len,
+                               step=self._steps)
+        family = (f"spec_paged[g={g},pw={self.pages_per_slot}]"
+                  if self.paged
+                  else f"spec[g={g},w={window or self.max_len}]")
+        entry = self._dispatch(loop, ("spec", g, sampled, window), mask,
+                               "spec", (snapshot, g), None, span, family)
+        self._steps += 1
+        if self.metrics is not None:
+            self.metrics.record_histogram(
+                "app_tpu_batch_size", float(len(snapshot)),
+                model=self.model_name)
+            self.metrics.set_gauge("app_tpu_spec_gamma", float(g),
+                                   model=self.model_name)
+            self.metrics.increment_counter(
+                "app_tpu_attn_kernel_total", model=self.model_name,
+                path=self.attn_path)
+        return entry
 
     def _tick_window(self, eligible, n: int) -> Optional[int]:
         """The window rung of a tick that writes ``n`` tokens a slot, from
@@ -1778,11 +2368,14 @@ class GenerationEngine:
         return self._pick_window([slot.fill for _, slot in eligible], n)
 
     def _dispatch(self, loop, key, mask: np.ndarray, kind: str,
-                  payload, bias: Optional[np.ndarray] = None) -> _Fetch:
+                  payload, bias: Optional[np.ndarray] = None,
+                  span: Optional[Span] = None,
+                  family: Optional[str] = None) -> _Fetch:
         """Queue tick ``key`` with the mask and (paged) the page table,
         each only if it changed since the last upload (a snapshot taken
-        here, in dispatch order), and a "bias" tick's bias. Returns its
-        fetch."""
+        here, in dispatch order), and a "bias" tick's bias; a rung not
+        captured yet is noted as a serving compile. Returns its fetch,
+        which carries the step span and executable family."""
         self.window_ticks[key[3]] = self.window_ticks.get(key[3], 0) + 1
         sent_mask = mask.tobytes()
         mask_up = None if sent_mask == self._sent_mask else mask
@@ -1790,8 +2383,11 @@ class GenerationEngine:
         if self.paged and self._sent_table != self._table_version:
             table_up = self._table.copy()
         self._sent_mask, self._sent_table = sent_mask, self._table_version
-        return self._on_device(loop, kind, payload, self._run_tick, key,
-                               mask_up, table_up, bias)
+        self._note_capture(key)
+        name = "tpu.engine.spec" if kind == "spec" else "tpu.engine.step"
+        return self._on_device(loop, kind, payload, self._annotated, name,
+                               self._steps, self._run_tick, key, mask_up,
+                               table_up, bias, span=span, family=family)
 
     def _note_spec(self, proposed: int, accepted: int) -> None:
         """Acceptance accounting plus the adaptive-γ controller, called
@@ -1805,10 +2401,20 @@ class GenerationEngine:
         self._spec_accepted += accepted
         self._spec_window_proposed += proposed
         self._spec_window_accepted += accepted
+        if self.metrics is not None and proposed > 0:
+            self.metrics.delta_updown_counter(
+                "app_tpu_spec_proposed_total", float(proposed),
+                model=self.model_name)
+            self.metrics.delta_updown_counter(
+                "app_tpu_spec_accepted_total", float(accepted),
+                model=self.model_name)
         if self._spec_noted % _SPEC_WINDOW_TICKS \
                 or not self._spec_window_proposed:
             return
         rate = self._spec_window_accepted / self._spec_window_proposed
+        if self.metrics is not None:
+            self.metrics.set_gauge("app_tpu_spec_acceptance_rate", rate,
+                                   model=self.model_name)
         if rate < _SPEC_SHRINK_BELOW:
             self._gamma_cap = max(1, self._gamma_cap // 2)
         elif rate > _SPEC_GROW_ABOVE:
@@ -1830,6 +2436,8 @@ class GenerationEngine:
             slot.fill += n
             sampled = sampled or slot.temperature > 0.0
             snapshot.append((slot_idx, slot.gen))
+            if slot.record is not None:
+                slot.record.rode_batch(len(eligible))
         return mask, sampled, snapshot
 
     def _cover_pages(self, eligible, k: int):
@@ -1853,42 +2461,71 @@ class GenerationEngine:
                 self._table[slot_idx, held:held + short] = ids
                 slot.pages.extend(ids)
                 self._table_version += 1
+                if slot.record is not None:
+                    slot.record.pages_held = need
             covered.append((slot_idx, slot))
         return covered
 
     # -- publishing --------------------------------------------------------------
     def _publish(self, entry: _Fetch, host: np.ndarray) -> None:
         """Hand a fetched step's tokens to its slots, in dispatch order. A
-        spec tick refunds what it charged beyond ``accepts + 1``."""
+        spec tick refunds what it charged beyond ``accepts + 1``. The
+        step's device seconds are charged, a sampled tick's anatomy
+        completed with its device wait, and its span finished here."""
+        self._attribute_device_time(entry)
+        if entry.anatomy is not None and self.telemetry is not None:
+            anatomy = entry.anatomy
+            anatomy["device_wait_s"] = time.monotonic() - entry.dispatched_at
+            anatomy["kind"] = entry.kind
+            anatomy["batch"] = len(entry.payload[0] if entry.kind == "spec"
+                                   else entry.payload)
+            anatomy["step"] = self._steps
+            anatomy["at"] = time.time()
+            self.telemetry.note_tick(anatomy)
         if entry.kind == "prefill":
             for slot_idx, gen, row in entry.payload:
                 self._push_tokens(slot_idx, gen, [int(host[row])])
-            return
-        self._ticks_inflight -= 1
-        if entry.kind == "tick":
+        elif entry.kind == "tick":
+            self._ticks_inflight -= 1
+            plan = faults.active()
+            if plan.enabled and entry.payload \
+                    and plan.should("nan_logits"):
+                # NaN/inf logits argmax to out-of-range ids: model it on
+                # the host by poisoning the first participant's fetched
+                # tokens, which quarantines exactly that slot
+                host = host.copy()
+                host[:, entry.payload[0][0]] = -1
             for slot_idx, gen in entry.payload:
                 self._push_tokens(slot_idx, gen,
                                   [int(t) for t in host[:, slot_idx]])
-            return
-        snapshot, g = entry.payload
-        toks, accepts = host[:g + 1], host[g + 1]
-        proposed = accepted = 0
-        for slot_idx, gen in snapshot:
-            a = int(accepts[slot_idx])
-            slot = self._slots[slot_idx]
-            if slot.gen == gen:
-                slot.inflight -= g - a
-                slot.fill -= g - a
-                proposed += g
-                accepted += a
-            self._push_tokens(slot_idx, gen,
-                              [int(t) for t in toks[:a + 1, slot_idx]])
-        self._note_spec(proposed, accepted)
+        else:
+            self._ticks_inflight -= 1
+            snapshot, g = entry.payload
+            toks, accepts = host[:g + 1], host[g + 1]
+            proposed = accepted = 0
+            for slot_idx, gen in snapshot:
+                a = int(accepts[slot_idx])
+                slot = self._slots[slot_idx]
+                if slot.gen == gen:
+                    slot.inflight -= g - a
+                    slot.fill -= g - a
+                    slot.spec_proposed += g
+                    slot.spec_accepted += a
+                    proposed += g
+                    accepted += a
+                self._push_tokens(slot_idx, gen,
+                                  [int(t) for t in toks[:a + 1, slot_idx]])
+            self._note_spec(proposed, accepted)
+        if entry.span is not None:
+            entry.span.finish()
 
     def _push_tokens(self, slot_idx: int, gen: int,
                      tokens: List[int]) -> None:
         """Append generated tokens to a slot, handling eos and budget;
-        tokens of a stale generation (slot reclaimed since) are dropped."""
+        tokens of a stale generation (slot reclaimed since) are dropped.
+        The first token closes the prefill span and records the TTFT;
+        each token counts toward the SLO tracker's raw tokens; a
+        finished slot's outcome is classified by its deadline."""
         slot = self._slots[slot_idx]
         if slot.gen != gen:
             return
@@ -1896,7 +2533,8 @@ class GenerationEngine:
         if not slot.active:
             return
         if not slot.tokens:
-            self.ttfts.append(time.monotonic() - slot.submitted_at)
+            self._first_token(slot_idx, slot)
+        pushed = 0
         for token in tokens:
             if token < 0 or token >= self.cfg.vocab_size:
                 # NaN/inf logits argmax to implementation-defined ids: fail
@@ -1909,6 +2547,11 @@ class GenerationEngine:
                 return
             slot.tokens.append(token)
             slot.remaining -= 1
+            pushed += 1
+            if slot.record is not None:
+                slot.record.tokens += 1
+            if self.slo is not None:
+                self.slo.record_tokens(1)   # raw throughput, as produced
             if slot.queue is not None:
                 slot.queue.put_nowait(token)
             done = slot.remaining <= 0 or (slot.eos_id is not None
@@ -1924,13 +2567,64 @@ class GenerationEngine:
                     self._quarantine_slot(slot_idx, slot, "grammar", exc)
                     return
             if done:
+                self._record_outcome(slot)
                 if slot.future is not None and not slot.future.done():
                     slot.future.set_result(list(slot.tokens))
                 if slot.queue is not None:
                     slot.queue.put_nowait(_DONE)
                     slot.queue = None
-                self._finish_slot(slot_idx, slot)
-                return
+                self._finish_slot(slot_idx, slot, "done")
+                break
+        if pushed and self.metrics is not None:
+            # the class's share of the tokens delivered: what the WFQ
+            # weights shape
+            self.metrics.delta_updown_counter(
+                "app_tpu_sched_tokens_total", float(pushed),
+                model=self.model_name, cls=slot.cls)
+
+    def _first_token(self, slot_idx: int, slot: _Slot) -> None:
+        """A request's first published token: submit to now is its TTFT
+        (queue wait, prefill, fetch); its prefill span ends and its
+        decode span opens."""
+        ttft = time.monotonic() - slot.submitted_at
+        self.ttfts.append(ttft)
+        record = slot.record
+        if record is not None:
+            record.first_token()
+        if self.metrics is not None:
+            self.metrics.record_histogram(
+                "app_tpu_ttft", ttft,
+                exemplar=({"trace_id": record.trace_id}
+                          if record is not None and record.trace_id
+                          else None),
+                model=self.model_name)
+        if self.slo is not None:
+            self.slo.record_ttft(ttft)
+        if slot.phase_span is not None:
+            slot.phase_span.finish()
+            slot.phase_span = None
+        if self.tracer is not None:
+            slot.phase_span = self.tracer.start_span("decode",
+                                                     parent=slot.req_span)
+            slot.phase_span.set_attribute("slot", slot_idx)
+
+    def _record_outcome(self, slot: _Slot) -> None:
+        """A finished request's terminal SLO outcome: ``ok`` within its
+        deadline (or with none; its tokens count as goodput), else
+        ``violated``, with how late and its trace id."""
+        if self.slo is None:
+            return
+        finished_at = time.monotonic()
+        outcome = self.slo.classify(slot.deadline, finished_at)
+        late_by_s = (finished_at - slot.deadline
+                     if slot.deadline is not None
+                     and finished_at > slot.deadline else None)
+        self.slo.record_outcome(
+            outcome, tokens=float(len(slot.tokens)), cls=slot.cls,
+            model=self.model_name,
+            trace_id=(slot.record.trace_id if slot.record is not None
+                      else None),
+            late_by_s=late_by_s)
 
     def _reject(self, req: _Request, exc: BaseException) -> None:
         if not req.future.done():
@@ -1943,13 +2637,21 @@ class GenerationEngine:
         """Poison-request quarantine (JAX ``_quarantine_slot``): a slot
         whose step output is unusable (its grammar walker raised, or an
         out-of-range token showed NaN/inf logits) is failed alone and
-        counted by ``reason``; the tick's other slots keep their tokens
-        and the loop keeps serving, where the loop's catch-all would fail
-        every outstanding request and rebuild the device state."""
+        counted by ``reason``, with an ``error`` SLO outcome; the tick's
+        other slots keep their tokens and the loop keeps serving, where
+        the loop's catch-all would fail every outstanding request and
+        rebuild the device state."""
         self._quarantined[reason] = self._quarantined.get(reason, 0) + 1
         if self.logger is not None:
             self.logger.error("engine: quarantined slot %d (%s): %r",
                               slot_idx, reason, exc)
+        if self.metrics is not None:
+            self.metrics.increment_counter(
+                "app_tpu_slot_quarantine_total", model=self.model_name,
+                reason=reason)
+        if self.slo is not None:
+            self.slo.record_outcome("error", cls=slot.cls,
+                                    model=self.model_name)
         self._fail_slot(slot_idx, slot, exc)
 
     def _fail_slot(self, slot_idx: int, slot: _Slot,
@@ -1959,7 +2661,7 @@ class GenerationEngine:
         if slot.queue is not None:
             slot.queue.put_nowait(exc)
             slot.queue = None
-        self._finish_slot(slot_idx, slot)
+        self._finish_slot(slot_idx, slot, "error")
 
     def _release_slot_kv(self, slot_idx: int, slot: _Slot) -> None:
         """Return a finished slot's pages to the pool (a page the prefix
@@ -1981,9 +2683,11 @@ class GenerationEngine:
             row.fill(self._pool.sentinel)
             self._table_version += 1
 
-    def _finish_slot(self, slot_idx: int, slot: _Slot) -> None:
+    def _finish_slot(self, slot_idx: int, slot: _Slot, status: str) -> None:
         """Retire a slot: inactive, a new generation (in-flight tokens
-        are dropped), KV released, back on the free list."""
+        are dropped), KV released, back on the free list; its open phase
+        span finishes (tagged unless ``status`` is ``done``) and its
+        record closes with ``status``."""
         slot.active = False
         slot.gen += 1
         slot.inflight = 0
@@ -1991,3 +2695,16 @@ class GenerationEngine:
         self._release_slot_kv(slot_idx, slot)
         if slot_idx not in self._free:
             self._free.append(slot_idx)
+        if slot.phase_span is not None:
+            if status != "done":
+                slot.phase_span.set_status(
+                    "ERROR" if status == "error" else "CANCELLED")
+                slot.phase_span.set_attribute("outcome", status)
+            slot.phase_span.finish()
+            slot.phase_span = None
+        if slot.record is not None:
+            if slot.record.tokens:
+                slot.record.first_token()   # idempotent backstop
+            self.recorder.finish(slot.record, status)
+            slot.record = None
+        slot.req_span = None

@@ -48,8 +48,11 @@ class PagePool:
 
     def __init__(self, cfg, page: int = 32, num_pages: Optional[int] = None,
                  device: Union[str, torch.device] = "cuda",
-                 budget_bytes: Optional[int] = None):
+                 budget_bytes: Optional[int] = None, metrics=None):
         self.cfg = cfg
+        # duck-typed, as the JAX pool's: page gauges at each alloc and
+        # release, stalls, page-rows written
+        self.metrics = metrics
         self.device = resolve_device(device)
         self.page = int(page)
         self.page_bytes = self._page_bytes(cfg, self.page)
@@ -124,10 +127,14 @@ class PagePool:
             pass
         if len(self._free) < n:
             self.stalls += 1
+            if self.metrics is not None:
+                self.metrics.increment_counter(
+                    "app_tpu_kv_pages_stalled_total")
             return None
         ids = [self._free.pop() for _ in range(n)]
         self._refs[ids] = 1
         self.allocs += n
+        self._set_gauges()
         return ids
 
     def retain(self, page_ids: Sequence[int]) -> None:
@@ -143,9 +150,22 @@ class PagePool:
                 self._refs[pid] -= 1
                 if self._refs[pid] == 0:
                     self._free.append(pid)
+        self._set_gauges()
 
     def note_writes(self, pages: int) -> None:
-        self.writes += max(0, int(pages))
+        if pages <= 0:
+            return
+        self.writes += int(pages)
+        if self.metrics is not None:
+            self.metrics.delta_updown_counter(
+                "app_tpu_kv_pages_written_total", float(pages))
+
+    def _set_gauges(self) -> None:
+        if self.metrics is not None:
+            self.metrics.set_gauge("app_tpu_kv_pages_used",
+                                   float(self.used_pages))
+            self.metrics.set_gauge("app_tpu_kv_pages_capacity",
+                                   float(self.num_pages))
 
     @property
     def free_pages(self) -> int:
@@ -168,6 +188,7 @@ class PagePool:
             "free_pages": self.free_pages,
             "page_bytes": self.page_bytes,
             "pool_bytes": self.pool_bytes,
+            "occupancy": round(self.used_pages / self.num_pages, 6),
             "allocs": self.allocs,
             "writes": self.writes,
             "stalls": self.stalls,

@@ -50,12 +50,16 @@ class StagingPool:
         self._free: Dict[Tuple, deque] = {}
         self._count: Dict[Tuple, int] = {}
         self._lock = threading.Lock()
+        self._slab_bytes = 0
+        self._uploads = 0
+        self._upload_bytes = 0
 
     def _new(self, key: Tuple) -> _Slab:
         _, shape, dtype = key
         host = torch.empty(shape, dtype=dtype, pin_memory=True)
         with self._lock:
             self._count[key] = self._count.get(key, 0) + 1
+            self._slab_bytes += host.numel() * host.element_size()
         return _Slab(host)
 
     def _acquire(self, key: Tuple) -> _Slab:
@@ -83,6 +87,9 @@ class StagingPool:
     def upload(self, dst: torch.Tensor, src: np.ndarray) -> None:
         """Copy ``src`` into device tensor ``dst`` (same shape) in stream
         order, through a pinned slab."""
+        with self._lock:
+            self._uploads += 1
+            self._upload_bytes += src.nbytes
         if self.device.type != "cuda":
             dst.copy_(torch.from_numpy(np.ascontiguousarray(src)))
             return
@@ -118,3 +125,10 @@ class StagingPool:
             self._release(key, slab)
             return values
         return wait
+
+    def stats(self) -> Dict[str, int]:
+        """Uploads made and their bytes, and the pinned slabs' bytes."""
+        with self._lock:
+            return {"uploads": self._uploads,
+                    "upload_bytes": self._upload_bytes,
+                    "slab_bytes": self._slab_bytes}

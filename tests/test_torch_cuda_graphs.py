@@ -22,6 +22,17 @@ form). Run them on the GPU host with
   each replay reads is rewritten between queued replays.
 - ``GenerationEngine`` refuses at construction, on CUDA, each
   configuration the kernels would refuse at the first tick.
+- With every telemetry hook on (metrics, tracer, SLO tracker, flight
+  recorder, the anatomy of every tick), dense and paged: a replay inside
+  the profiler's step annotation gives the eager tick's bits; a burst
+  gives the unhooked engine's tokens, every tick a replay, under
+  ``set_sync_debug_mode("error")`` outside the eager prefill (no hook
+  and no part of the dispatch syncs).
+- ``tick_exception`` raised with ``max_inflight_ticks - 1`` ticks and a
+  prefill queued behind a sleep kernel fails the callers bound to
+  slots; the reset clears the state in place (no buffer moves, no graph
+  is captured again), a replay still gives the eager bits, and the next
+  burst's tokens equal a fresh engine's.
 
 The model is 2 layers of head_dim 128 or 64 (Hq 8, Hkv 2) at vocabulary
 1024, random weights from a seed; the state is random too: pages
@@ -35,11 +46,16 @@ import numpy as np
 import pytest
 import torch
 
+from gofr_tpu_torch.metrics import Manager, register_engine_metrics
 from gofr_tpu_torch.models import llama
 from gofr_tpu_torch.ops import prng
 from gofr_tpu_torch.ops.cuda import launch_counts
+from gofr_tpu_torch.slo import SLOTracker
+from gofr_tpu_torch.tpu import faults
 from gofr_tpu_torch.tpu.constrain import NEG_BIAS
+from gofr_tpu_torch.tpu.flightrecorder import FlightRecorder
 from gofr_tpu_torch.tpu.generate import GenerationEngine
+from gofr_tpu_torch.trace import ListExporter, Tracer
 
 pytestmark = pytest.mark.cuda
 
@@ -349,3 +365,173 @@ def test_engine_refuses_what_the_kernels_refuse(cuda, case):
         GenerationEngine(cfg, {}, max_slots=SLOTS, max_len=cfg.max_seq_len,
                          prompt_buckets=(32,), kv_page=PAGE, draft_cfg=cfg,
                          draft_params={}, spec_gamma=gamma, device=cuda)
+
+
+class _Strict:
+    """A logger whose ``error`` raises: a metric the catalog lacks, or a
+    failed tick, cannot pass unseen."""
+
+    def error(self, message, *args):
+        raise AssertionError(message % args if args else message)
+
+    def warning(self, *args):
+        pass
+
+    info = warning
+
+
+class _Ticks:
+    def __init__(self):
+        self.ticks = []
+
+    def note_tick(self, entry):
+        self.ticks.append(entry)
+
+
+def _hooked(cuda, paged, **kw):
+    metrics = register_engine_metrics(Manager(logger=_Strict()))
+    exporter = ListExporter()
+    tracer = Tracer(exporter=exporter)
+    engine = _engine(cuda, paged=paged, d=64, metrics=metrics,
+                     tracer=tracer, slo=SLOTracker(metrics),
+                     recorder=FlightRecorder(), **kw)
+    store = _Ticks()
+    engine.attach_telemetry(store, every=1)
+    return engine, tracer, exporter, store
+
+
+def _prompts(seed, n=4):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 1024, int(length)).tolist()
+            for length in rng.integers(5, 60, n)]
+
+
+async def _serve(engine, prompts, budget=24):
+    await engine.start()
+    try:
+        return await asyncio.wait_for(asyncio.gather(
+            *[engine.generate(p, budget) for p in prompts]), 300)
+    finally:
+        await engine.stop()
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_hooked_replay_in_the_step_annotation_is_the_eager_tick(cuda,
+                                                                paged):
+    engine, tracer, _, _ = _hooked(cuda, paged)
+    key = ("plain", 4, True, None)
+    asyncio.run(engine.warmup(ks=(4,), windows="all"))
+    assert key in engine._graphs
+    _fill_state(engine, 5)
+    saved = {k: v.clone() for k, v in _state(engine).items()}
+    eager = engine._tick_body(key, engine.active).cpu().numpy()
+    after_eager = {k: v.clone() for k, v in _state(engine).items()}
+    _restore(engine, saved)
+    with torch.profiler.profile() as prof:
+        replayed = engine._annotated("tpu.engine.step", 7, engine._run_tick,
+                                     key, None, None)()
+    np.testing.assert_array_equal(replayed, eager)
+    assert any(evt.name == "tpu.engine.step" for evt in prof.events())
+    for name, tensor in _state(engine).items():
+        if name.startswith("pool."):
+            tensor, want = tensor[:, :-1], after_eager[name][:, :-1]
+        else:
+            want = after_eager[name]
+        assert torch.equal(_bits(tensor), _bits(want)), name
+    tracer.shutdown()
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_hooked_burst_is_the_unhooked_burst_and_syncs_nowhere(cuda, paged):
+    prompts = _prompts(1)
+    bare = _engine(cuda, paged=paged, d=64)
+    asyncio.run(bare.warmup(windows="all"))
+    want = asyncio.run(_serve(bare, prompts))
+    engine, tracer, exporter, store = _hooked(cuda, paged)
+    asyncio.run(engine.warmup(windows="all"))
+    prefill = engine._prefill_insert
+
+    def lenient(*args):
+        # the eager prefill is not part of the dispatch path
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return prefill(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    engine._prefill_insert = lenient
+    replays = engine.graph_replays
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = asyncio.run(_serve(engine, prompts))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    tracer.shutdown()
+    assert got == want
+    ticks = engine.ticks + engine.spec_dispatches
+    assert engine.graph_replays - replays == ticks and not \
+        engine.lazy_captures
+    assert engine.serving_compiles() == 0
+    assert len(store.ticks) == ticks
+    names = [span.name for span in exporter.spans]
+    for name in ("queue.wait", "prefill", "decode"):
+        assert names.count(name) == len(prompts)
+    assert engine.hbm_attribution()["device_bytes_in_use"] \
+        >= engine.hbm_attribution()["attributed_bytes"]
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_tick_exception_with_ticks_in_flight_resets_in_place(cuda, paged):
+    inflight = 4
+    prompts = _prompts(2)
+    fresh = _engine(cuda, paged=paged, d=64, max_inflight_ticks=inflight)
+    asyncio.run(fresh.warmup(windows="all"))
+    want = asyncio.run(_serve(fresh, prompts))
+    del fresh
+    engine, tracer, _, _ = _hooked(cuda, paged, max_inflight_ticks=inflight)
+    asyncio.run(engine.warmup(windows="all"))
+    graphs = engine.stats()["graphs"]["captured"]
+    ptrs = {name: t.data_ptr() for name, t in _state(engine).items()}
+    run_tick, slept = engine._run_tick, []
+
+    def behind_a_sleep(*args):
+        if not slept:
+            slept.append(1)
+            torch.cuda._sleep(100_000_000)      # ~50 ms: the rest queues
+        return run_tick(*args)
+
+    engine._run_tick = behind_a_sleep
+
+    async def faulted():
+        await engine.start()
+        try:
+            faults.install(faults.FaultPlan(f"tick_exception:@{inflight}"))
+            try:
+                failed = await asyncio.wait_for(asyncio.gather(
+                    *[engine.generate(p, 24) for p in prompts],
+                    return_exceptions=True), 300)
+            finally:
+                faults.reset()
+            peak = engine.stats()["ticks_inflight_peak"]
+            engine._run_tick = run_tick
+            later = await asyncio.wait_for(asyncio.gather(
+                *[engine.generate(p, 24) for p in prompts]), 300)
+            return failed, peak, later
+        finally:
+            await engine.stop()
+
+    failed, peak, later = asyncio.run(faulted())
+    tracer.shutdown()
+    assert all(isinstance(out, faults.FaultError) for out in failed)
+    assert peak == inflight - 1
+    assert later == want
+    assert engine.stats()["graphs"]["captured"] == graphs
+    assert {n: t.data_ptr() for n, t in _state(engine).items()} == ptrs
+    # a replay after the reset is still the eager tick
+    key = ("plain", 4, True, None)
+    _fill_state(engine, 9)
+    saved = {k: v.clone() for k, v in _state(engine).items()}
+    eager = engine._tick_body(key, engine.active).cpu().numpy()
+    _restore(engine, saved)
+    np.testing.assert_array_equal(engine._run_tick(key, None, None)(), eager)
+

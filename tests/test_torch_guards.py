@@ -9,14 +9,18 @@ import pytest
 import torch
 
 from gofr_tpu_torch import resolve_device
+from gofr_tpu_torch.metrics import Manager, register_engine_metrics
 from gofr_tpu_torch.models import llama
 from gofr_tpu_torch.ops.cuda import _build
 from gofr_tpu_torch.ops.cuda.flash_attention import flash_attention
 from gofr_tpu_torch.ops.cuda.ragged_paged_attention import (
     ragged_paged_decode_attention)
+from gofr_tpu_torch.slo import SLOTracker
+from gofr_tpu_torch.tpu.flightrecorder import FlightRecorder
 from gofr_tpu_torch.tpu.generate import GenerationEngine
 from gofr_tpu_torch.tpu.page_pool import PagePool
 from gofr_tpu_torch.tpu.prefix_cache import PrefixStore
+from gofr_tpu_torch.trace import Tracer
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "gofr_tpu")
@@ -55,10 +59,21 @@ def test_port_imports_no_jax_and_no_jax_package():
 def test_guard_scans_the_admission_and_grammar_modules():
     """The host modules the port copied from the JAX package (none of
     which imports JAX there) are scanned like the rest: each is the port's
-    own file and imports nothing of the JAX package."""
+    own file and imports nothing of the JAX package. So are the telemetry
+    plane's copies (metrics, tracing, flight recorder, faults, the
+    executable ledger)."""
     files = {str(path.relative_to(ROOT)) for path in _port_files()}
     own = ["gofr_tpu_torch/slo.py", "gofr_tpu_torch/tpu/constrain.py",
-           "gofr_tpu_torch/tpu/sched.py"]
+           "gofr_tpu_torch/tpu/sched.py",
+           "gofr_tpu_torch/metrics/__init__.py",
+           "gofr_tpu_torch/metrics/catalog.py",
+           "gofr_tpu_torch/metrics/digest.py",
+           "gofr_tpu_torch/metrics/manager.py",
+           "gofr_tpu_torch/trace/__init__.py",
+           "gofr_tpu_torch/trace/tracer.py",
+           "gofr_tpu_torch/tpu/flightrecorder.py",
+           "gofr_tpu_torch/tpu/faults.py",
+           "gofr_tpu_torch/tpu/compile_ledger.py"]
     assert set(own) <= files
     for name in own + ["gofr_tpu_torch/tpu/generate.py"]:
         assert not set(_imported_roots(ROOT / name)) & set(FORBIDDEN), name
@@ -82,6 +97,13 @@ def test_default_device_raises_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         GenerationEngine(cfg, params, max_len=64, prompt_buckets=(8,),
                          kv_page=4)
+    # with every telemetry hook, the engine at its default device raises
+    # the same way
+    metrics = register_engine_metrics(Manager())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        GenerationEngine(cfg, params, max_len=64, prompt_buckets=(8,),
+                         metrics=metrics, tracer=Tracer(),
+                         slo=SLOTracker(metrics), recorder=FlightRecorder())
 
 
 def test_prefix_store_default_device_raises_without_cuda(no_cuda):
