@@ -54,10 +54,12 @@ Phases, each of which raises (exit code != 0) on failure:
    every bucket, 32 new tokens each, one sampled), with the kernels'
    launch counts checked against the engine's prefill dispatches and
    decode steps, then one streamed request. Every engine of phases 9-12
-   first captures its ticks as CUDA graphs (``warmup()``, its seconds and
-   graph count printed), runs 2 ticks in flight (``max_inflight_ticks``),
-   and must replay a graph for every tick of the burst, with 2 ticks in
-   flight at some point of it; phase 9 then serves the burst again at
+   first captures its ticks and its full prefills at every prompt count
+   as CUDA graphs (``warmup()``, its seconds, graph counts and the
+   allocator's reserved bytes added by the tick and the prefill captures
+   printed), runs 2 ticks in flight (``max_inflight_ticks``), and must
+   replay a graph for every tick and every prefill of the burst, with 2
+   ticks in flight at some point of it; phase 9 then serves the burst again at
    ``max_inflight_ticks=1`` and its 7 greedy completions must be the
    same tokens;
 10. the same engine with speculative decode (γ 4, a draft made of views of
@@ -80,7 +82,7 @@ Phases, each of which raises (exit code != 0) on failure:
     attention-window ladder 128 ... 1024 and the whole cache) in the
     four configurations of phases 9-12, on the same weights and the same
     burst: each captures its startup rungs (``warmup()``), every burst
-    tick must replay a graph, the graphs and the burst's ticks are
+    tick and prefill must replay a graph, the graphs and the burst's ticks are
     counted by rung, the launch counts are checked against its counters,
     one streamed request of 60 new tokens on a 100-token prompt must cross
     rung 128 to 256, and its 7 greedy completions must be the paged
@@ -99,15 +101,19 @@ Phases, each of which raises (exit code != 0) on failure:
     steps a tick, 4 ticks in flight) serving phase 9's burst: dense bf16
     (20), paged (21; its greedy tokens must be 20's), dense ``kv_int8``
     (22; the cache exactly 0.53125x 20's bytes), speculative with a
-    2-layer draft of views, bf16 then int8 target (23); every tick a
-    graph replay, launch counts as the counters predict;
+    2-layer draft of views, bf16 then int8 target (23); every tick and
+    prefill a graph replay, launch counts as the counters predict; on
+    20's engine the burst again with its prefills replayed and then run
+    eagerly (each prefill call's host seconds on the device thread,
+    tok/s, TTFT; the greedy completions must be equal);
 24. prefix KV reuse: two waves of 8 requests, each a 256-token system
     prompt (8 pages of 32) and its own suffix of 5-200 tokens, 32 new
     tokens, one sampled; wave 1 fills the store, wave 2 must admit all 8
     at prefix rung 8, and with a bf16 cache its greedy tokens must equal
     the store-off engine's (a difference prints its position and the
     top-2 logit margin there); two rounds, each with its own system
-    prompt, the first warming the eager suffix prefill's shapes; TTFT and
+    prompt, the first capturing the suffix prefill rungs (the second's
+    prefills must all replay graphs, none captured); TTFT and
     the prefill stream's time of the second round's wave 2 with the
     store on and off, reported; on ``small`` dense bf16,
     paged bf16 and dense ``kv_int8`` (after phase 23), and on
@@ -163,10 +169,18 @@ Phases, each of which raises (exit code != 0) on failure:
     batch request is refused, a calm burst and 4 evaluations bring the
     level back to 0, each level change an event on the active span.
     At ``llama3-8b`` width (after phase 18), one burst without and one
-    with every hook on the dense bf16 engine: equal tokens, tok/s ratio.
+    with every hook on the dense bf16 engine: equal tokens, tok/s ratio;
+29. the ``small`` spec engine at the example's engine with a 2-layer
+    ``kv_int8`` draft of views (after phase 24), dense and paged: the
+    draft decodes through the ragged kernel's int8 instantiation over its
+    identity tables; every tick and prefill a replay, launches as
+    counted; the same engine with its prefills run eagerly gives the
+    same greedy completions, and so does the paged engine.
 
 Every engine burst (phases 9-12, 15-18, 20-23) is served twice:
-counted, then under ``torch.profiler`` for the device's idle share.
+counted, then under ``torch.profiler`` for the device's idle share. Every
+engine's ``warmup()`` takes every prompt count (1 .. max_slots), so a
+burst's full prefills are all replays.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. Details go to
 ``chiprun_out/chip_smoke.json``. Without CUDA, or without the package
@@ -847,26 +861,122 @@ PATH_KERNELS = {"engine": ("flash", "ragged"),
                 "prefix_llama3": ("flash", "ragged")}
 
 
+def warm(engine):
+    """``engine.warmup()`` at every prompt count (the example app warms
+    counts 1 and max_slots): every full prefill a burst can group is
+    captured before it."""
+    counts = tuple(range(1, engine.max_slots + 1))
+    return engine.warmup(prompt_counts=counts)
+
+
+def probe_warmup_memory(torch, engine, into):
+    """Record the allocator's reserved bytes (its cache emptied first:
+    what stays reserved is tensors and the captured graphs' private
+    pool) before and after the tick captures and the prefill captures of
+    ``engine``'s next ``warmup()``, into ``into``."""
+    def reserved():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_stats()["reserved_bytes.all.current"]
+
+    def probed(name):
+        call = getattr(engine, name)
+
+        def run(keys):
+            into[name + "_before"] = reserved()
+            call(keys)
+            into[name + "_after"] = reserved()
+        setattr(engine, name, run)
+    probed("_warm")
+    probed("_warm_prefills")
+
+
+def eager_prefill(engine):
+    """From now on run ``engine``'s prefills eagerly, as the tree before
+    the compiled prefill did: the host part's two uploads into the rung's
+    buffers, then its body, with no graph."""
+    from gofr_tpu_torch.tpu.generate import _prefill_key
+
+    def run(nb, bucket, n_claimed, p_rung, ints, layout, floats,
+            biased=False):
+        rung = engine._prefill_rung(
+            _prefill_key(nb, bucket, p_rung, biased, layout), layout,
+            floats.size)
+        engine._staging.upload(rung.ints, ints)
+        engine._staging.upload(rung.floats, floats)
+        return engine._staging.fetch(engine._prefill_body(rung))
+    engine._prefill_insert = run
+
+
+def time_prefills(engine, calls):
+    """Append each prefill call's host seconds on the device thread (the
+    call of ``_prefill_insert``: uploads, replay or eager body, the
+    fetch queued), with its rows and bucket, to ``calls``."""
+    call = engine._prefill_insert
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        fetch = call(*args)
+        calls.append((args[0], args[1], time.perf_counter() - t0))
+        return fetch
+    engine._prefill_insert = timed
+
+
+async def replay_against_eager(engine, prompts, budget, samplings, turns=2):
+    """The burst with the engine's prefills as graph replays, then run
+    eagerly, each ``turns`` times (the last measured): each prefill
+    call's host seconds on the device thread, tok/s, TTFT p50 and max,
+    and the outputs of each."""
+    out = {}
+    for mode in ("replay", "eager"):
+        if mode == "eager":
+            eager_prefill(engine)
+        calls = []
+        time_prefills(engine, calls)
+        for _ in range(turns):
+            calls.clear()
+            engine.ttfts.clear()
+            gc.collect()
+            t0 = time.monotonic()
+            outs = await asyncio.wait_for(asyncio.gather(*[
+                engine.generate(p, budget, sampling=s)
+                for p, s in zip(prompts, samplings)]), 600)
+            wall = time.monotonic() - t0
+        ttfts = sorted(engine.ttfts)
+        out[mode] = dict(
+            outs=outs, wall_s=wall,
+            tokens_per_s=budget * len(prompts) / wall,
+            ttft_p50_s=ttfts[len(ttfts) // 2], ttft_max_s=ttfts[-1],
+            prefill_calls=[dict(rows=nb, bucket=b, host_s=sec)
+                           for nb, b, sec in calls],
+            prefill_host_s=sum(sec for _, _, sec in calls))
+    return out
+
+
 def serve_burst(torch, engine, prompts, budget, samplings, mods, timeout,
-                stream_tokens=8, profile=False):
-    """Capture the engine's ticks (``warmup()``), warm it up with one
-    request, set every kernel's count to 0, serve the burst concurrently
-    and read the counts; with ``profile`` serve it again under
-    ``torch.profiler`` for the device's idle share; then stream
-    ``stream_tokens`` of ``prompts[3]`` alone. Fails unless every tick of
-    the burst was a graph replay and 2 ticks were in flight at some point.
-    Returns (outputs, wall seconds, launches by kernel, the burst's run
-    counters, sorted TTFTs, figures: graphs, idle share, the stream's
-    ticks by window rung)."""
+                stream_tokens=8, profile=False, extra=None):
+    """Capture the engine's ticks and its full prefills at every count
+    (``warmup()``), warm it up with one request, set every kernel's count
+    to 0, serve the burst concurrently and read the counts; with
+    ``profile`` serve it again under ``torch.profiler`` for the device's
+    idle share; then stream ``stream_tokens`` of ``prompts[3]`` alone, and
+    run ``extra(engine)`` last if given. Fails unless every tick and
+    every prefill of the burst was a graph replay and 2 ticks were in
+    flight at some point. Returns (outputs, wall seconds, launches by
+    kernel, the burst's run counters, sorted TTFTs, figures: graphs,
+    prefill graphs, the allocator's bytes around the captures, idle
+    share, the stream's ticks by window rung, what ``extra`` returned)."""
     from torch.profiler import ProfilerActivity
 
     # an earlier profiled burst leaves cyclic garbage that is slow to
     # collect: collect it now, not inside this engine's burst
     gc.collect()
+    memory = {}
+    probe_warmup_memory(torch, engine, memory)
 
     async def serve():
         t0 = time.monotonic()
-        await engine.warmup()
+        await warm(engine)
         torch.cuda.synchronize()
         warm_s = time.monotonic() - t0
         await engine.start()
@@ -928,13 +1038,14 @@ def serve_burst(torch, engine, prompts, budget, samplings, mods, timeout,
             stream_windows = {w or engine.max_len: n - windows.get(w, 0)
                               for w, n in engine.window_ticks.items()
                               if n > windows.get(w, 0)}
+            more = await extra(engine) if extra is not None else None
             return (outs, wall, launches, counters, ttfts, streamed,
-                    max(inflight), warm_s, idle, stream_windows)
+                    max(inflight), warm_s, idle, stream_windows, more)
         finally:
             await engine.stop()
 
     (outs, wall, launches, counters, ttfts, streamed, peak,
-     warm_s, idle, stream_windows) = asyncio.run(serve())
+     warm_s, idle, stream_windows, more) = asyncio.run(serve())
     for out in outs:
         if len(out) != budget or not all(0 <= t < engine.cfg.vocab_size
                                          for t in out):
@@ -947,20 +1058,45 @@ def serve_burst(torch, engine, prompts, budget, samplings, mods, timeout,
             f"{counters['replays']} graph replays for {ticks} ticks, "
             f"{counters['lazy_captures']} captures in the burst: every "
             f"tick must replay a graph warmup() captured")
+    if counters["prefill_replays"] != counters["prefills"] \
+            or counters["prefill_lazy"]:
+        raise AssertionError(
+            f"{counters['prefill_replays']} prefill replays for "
+            f"{counters['prefills']} prefills, {counters['prefill_lazy']} "
+            f"prefill captures in the burst: every prefill must replay a "
+            f"graph warmup() captured")
     want = min(2, engine.max_inflight_ticks)
     if peak < want:
         raise AssertionError(f"at most {peak} ticks were in flight during "
                              f"the burst, expected {want}")
     graphs = engine.stats()["graphs"]
+    pgraphs = graphs["prefill"]
+    tick_bytes = memory["_warm_after"] - memory["_warm_before"]
+    prefill_bytes = (memory["_warm_prefills_after"]
+                     - memory["_warm_prefills_before"])
     figures = dict(warmup_s=warm_s, graphs=graphs["captured"],
                    graphs_by_window=graphs["by_window"],
-                   capture_s=graphs["capture_s"], ticks_inflight_peak=peak,
+                   capture_s=graphs["capture_s"],
+                   prefill_graphs=pgraphs["captured"],
+                   prefill_graph_keys=pgraphs["keys"],
+                   prefill_capture_s=pgraphs["capture_s"],
+                   tick_capture_bytes=tick_bytes,
+                   prefill_capture_bytes=prefill_bytes,
+                   reserved_after_warmup=memory["_warm_prefills_after"],
+                   ticks_inflight_peak=peak,
                    max_inflight_ticks=engine.max_inflight_ticks,
                    stream_ticks_by_window=stream_windows, **(idle or {}))
-    log(f"graphs: {graphs['captured']} captured in "
-        f"{graphs['capture_s']:.2f}s (warmup {warm_s:.2f}s; by window "
-        f"{graphs['by_window']}), {counters['replays']} replays for "
-        f"{ticks} ticks (by window {counters['ticks_by_window']}), "
+    if more is not None:
+        figures["extra"] = more
+    log(f"graphs: {graphs['captured']} ticks captured in "
+        f"{graphs['capture_s']:.2f}s, {pgraphs['captured']} prefills in "
+        f"{pgraphs['capture_s']:.2f}s (warmup {warm_s:.2f}s; ticks by "
+        f"window {graphs['by_window']}); reserved bytes +{tick_bytes} by "
+        f"the tick captures, +{prefill_bytes} by the prefill captures "
+        f"({memory['_warm_prefills_after']} after warmup); "
+        f"{counters['replays']} replays for {ticks} ticks (by window "
+        f"{counters['ticks_by_window']}), {counters['prefill_replays']} "
+        f"prefill replays for {counters['prefills']} prefills, "
         f"{peak} ticks in flight at most (max_inflight_ticks "
         f"{engine.max_inflight_ticks})"
         + (f"; device idle share {idle['device_idle_share']:.4f} "
@@ -990,6 +1126,8 @@ def run_counters(engine):
                 draft_steps=engine.draft_steps,
                 replays=stats["graphs"]["replays"],
                 lazy_captures=stats["graphs"]["lazy_captures"],
+                prefill_replays=stats["graphs"]["prefill"]["replays"],
+                prefill_lazy=stats["graphs"]["prefill"]["lazy_captures"],
                 proposed=spec.get("proposed", 0),
                 accepted=spec.get("accepted", 0))
 
@@ -998,21 +1136,26 @@ def acceptance(counters):
     return counters["accepted"] / max(counters["proposed"], 1)
 
 
-def expected_launches(cfg, counters, draft_layers=0):
+def expected_launches(cfg, counters, draft_layers=0, draft_int8=False):
     """What each kernel must have launched over a burst of this engine:
     the target's layers per prefill (a suffix prefill over cached pages
-    too), decode step and spec tick through the bf16 or int8 ragged
-    instantiations, the draft's per prefill and draft step."""
+    too; a prefill rung captured in the burst once more, for the eager
+    run before its capture), decode step and spec tick through the bf16
+    or int8 ragged instantiations, the draft's per prefill and draft
+    step (flash decode, or with a ``kv_int8`` draft the ragged kernel's
+    int8 decode instantiation)."""
     n = cfg.n_layers
     int8 = cfg.kv_int8
     decode = n * counters["steps"]
     verify = n * counters["spec_ticks"]
-    return dict(flash=(n + draft_layers) * counters["prefills"],
+    draft = draft_layers * counters["draft_steps"]
+    prefills = counters["prefills"] + counters["prefill_lazy"]
+    return dict(flash=(n + draft_layers) * prefills,
                 ragged=0 if int8 else decode,
                 verify=0 if int8 else verify,
-                int8=decode if int8 else 0,
+                int8=(decode if int8 else 0) + (draft if draft_int8 else 0),
                 int8_verify=verify if int8 else 0,
-                flash_decode=draft_layers * counters["draft_steps"])
+                flash_decode=0 if draft_int8 else draft)
 
 
 def check_launches(launches, want, path):
@@ -1338,9 +1481,19 @@ def phase_small_engines(torch, llama, generate, mods, seed, results):
             f"{', draft 2 layers gamma 4' if 'draft_cfg' in kw else ''}")
         engine = generate.GenerationEngine(c, params, device="cuda",
                                            **SMALL_ENGINE, **kw)
+        extra = None
+        if path == "small":
+            # the prefill's host seconds on the device thread, replayed
+            # against run eagerly, on the same engine
+            async def extra(engine):
+                return await replay_against_eager(engine, prompts, budget,
+                                                  samplings)
         outs, wall, launches, counters, ttfts, figures = serve_burst(
             torch, engine, prompts, budget, samplings, mods, 600,
-            stream_tokens=8, profile=True)
+            stream_tokens=8, profile=True, extra=extra)
+        if extra is not None:
+            figures["replay_against_eager"] = check_replay_against_eager(
+                figures.pop("extra"), path)
         draft_layers = 2 if "draft_cfg" in kw else 0
         check_launches(launches,
                        expected_launches(c, counters, draft_layers), path)
@@ -1380,6 +1533,95 @@ def phase_small_engines(torch, llama, generate, mods, seed, results):
         raise AssertionError(f"small int8 cache is {ratio}x the bf16 "
                              f"cache's bytes, expected {INT8_RATIO_D64}")
     return params, by_path
+
+
+def check_replay_against_eager(runs, path):
+    """Log the prefill's host seconds replayed and eager; fail unless the
+    two give the same greedy completions. Returns the figures without
+    the outputs."""
+    replay, eager = runs["replay"], runs["eager"]
+    same = replay["outs"][:7] == eager["outs"][:7]
+    for run in (replay, eager):
+        run.pop("outs")
+    log(f"{path}: prefill host seconds on the device thread, replayed "
+        f"{[round(c['host_s'], 6) for c in replay['prefill_calls']]} "
+        f"(sum {replay['prefill_host_s']:.6f}s) against eager "
+        f"{[round(c['host_s'], 6) for c in eager['prefill_calls']]} "
+        f"(sum {eager['prefill_host_s']:.6f}s), rungs "
+        f"{[(c['rows'], c['bucket']) for c in replay['prefill_calls']]}; "
+        f"tok/s {replay['tokens_per_s']:.1f} against "
+        f"{eager['tokens_per_s']:.1f}, TTFT p50 "
+        f"{replay['ttft_p50_s']:.4f}s against {eager['ttft_p50_s']:.4f}s, "
+        f"max {replay['ttft_max_s']:.4f}s against "
+        f"{eager['ttft_max_s']:.4f}s; 7 greedy completions equal: {same}")
+    if not same:
+        raise AssertionError(f"{path}: greedy completions differ between "
+                             f"replayed and eager prefills")
+    return dict(runs, greedy_identical=same)
+
+
+# phase 29: a speculative engine whose draft keeps a kv_int8 cache
+PATH_KERNELS.update({"small_int8_draft": ("flash", "verify", "int8"),
+                     "small_int8_draft_paged": ("flash", "verify", "int8")})
+
+
+def phase_int8_draft(torch, llama, generate, mods, params, seed, results):
+    """Phase 29: the ``small`` spec engine at the example's engine with a
+    2-layer ``kv_int8`` draft of views (JAX serves it as given), dense and
+    paged: the draft decodes through the ragged kernel's int8
+    instantiation over its identity tables; every tick and prefill a
+    replay, launches as counted; then the same engine with its prefills
+    run eagerly must give the same greedy tokens. Returns launches by
+    path."""
+    cfg = llama.config("small", use_flash=True)
+    dcfg, dparams = draft_view(llama, cfg, params, 2)
+    dcfg = dataclasses.replace(dcfg, kv_int8=True)
+    prompts = engine_prompts(cfg, seed)
+    budget = 32
+    samplings = [generate.Sampling() for _ in range(7)] + [
+        generate.Sampling(temperature=0.8, top_p=0.95, seed=seed)]
+    by_path = {}
+    for path, kw in (("small_int8_draft", {}),
+                     ("small_int8_draft_paged",
+                      dict(paged_kv=True, kv_page=32))):
+        log(f"== phase 29: {path}: the small preset's spec engine with a "
+            f"2-layer kv_int8 draft (views of the target's), gamma "
+            f"{SPEC_GAMMA}, {'paged' if kw else 'dense'}")
+        engine = generate.GenerationEngine(
+            cfg, params, device="cuda", draft_cfg=dcfg, draft_params=dparams,
+            spec_gamma=SPEC_GAMMA, **SMALL_ENGINE, **kw)
+
+        async def extra(engine):
+            return await replay_against_eager(engine, prompts, budget,
+                                              samplings, turns=1)
+        outs, wall, launches, counters, ttfts, figures = serve_burst(
+            torch, engine, prompts, budget, samplings, mods, 600,
+            stream_tokens=8, extra=extra)
+        check_launches(launches, expected_launches(cfg, counters, 2, True),
+                       path)
+        if engine._draft_cache["k"].dtype != torch.int8 \
+                or engine.draft_cfg.use_flash_decode:
+            raise AssertionError(f"{path}: the draft is not int8 over the "
+                                 f"ragged route")
+        runs = check_replay_against_eager(figures.pop("extra"), path)
+        tokens = budget * len(outs)
+        results[path] = dict(
+            tokens_per_s=tokens / wall, ttft_p50_s=ttfts[len(ttfts) // 2],
+            ttft_max_s=ttfts[-1], launches=launches, counters=counters,
+            speculative=engine.stats()["speculative"],
+            greedy_outputs=outs[:7], replay_against_eager=runs, **figures)
+        log(f"{path}: {tokens / wall:.1f} tok/s, TTFT p50 "
+            f"{ttfts[len(ttfts) // 2]:.4f}s; {counters['spec_ticks']} spec "
+            f"ticks, acceptance {acceptance(counters):.3f}; launches "
+            f"{launches}")
+        by_path[path] = launches
+        del engine
+        torch.cuda.empty_cache()
+    if results["small_int8_draft"]["greedy_outputs"] \
+            != results["small_int8_draft_paged"]["greedy_outputs"]:
+        raise AssertionError("small_int8_draft: the paged engine's greedy "
+                             "completions differ from the dense engine's")
+    return by_path
 
 
 # shared-prefix traffic (phase 24): one 256-token system prompt (8 pages
@@ -1430,7 +1672,7 @@ def prefix_run(torch, generate, mods, cfg, params, engine_kw, prefix, seed):
     engine._prefill_insert = timed_prefill
 
     async def serve():
-        await engine.warmup()
+        await warm(engine)
         await engine.start()
         try:
             # warm-up: a prompt under one page publishes and reuses nothing
@@ -1440,6 +1682,8 @@ def prefix_run(torch, generate, mods, cfg, params, engine_kw, prefix, seed):
             before = run_counters(engine)
             outs = []
             for waves in rounds:
+                if waves is rounds[-1]:
+                    last0 = run_counters(engine)
                 for wave in waves:
                     if wave is rounds[-1][1]:
                         torch.cuda.synchronize()
@@ -1454,6 +1698,7 @@ def prefix_run(torch, generate, mods, cfg, params, engine_kw, prefix, seed):
             launches = read_launches(mods)
             after = run_counters(engine)
             counters = {key: after[key] - before[key] for key in after}
+            last = {key: after[key] - last0[key] for key in after}
             store = engine.stats().get("prefix_cache")
             delta = None
             if store is not None:
@@ -1474,7 +1719,9 @@ def prefix_run(torch, generate, mods, cfg, params, engine_kw, prefix, seed):
             return dict(outs=outs, ttfts=sorted(engine.ttfts),
                         prefill_ms=sum(a.elapsed_time(b) for a, b in spans),
                         prefills=len(spans), store=store, wave2=delta,
-                        launches=launches, counters=counters)
+                        launches=launches, counters=counters,
+                        last_round=last,
+                        prefill_graphs=engine.stats()["graphs"]["prefill"])
         finally:
             await engine.stop()
 
@@ -1517,6 +1764,18 @@ def phase_prefix(torch, llama, generate, mods, cfg, params, engine_kw, path,
                        expected_launches(cfg, run["counters"]), path)
     wave2 = on["wave2"]
     hits_ok = wave2["admissions_by_rung"] == {PREFIX_RUNG: 8}
+    # the second round's prefills, its suffix prefills included, replay
+    # graphs the first round captured
+    for name, run in (("on", on), ("off", off)):
+        last = run["last_round"]
+        if last["prefill_lazy"] or last["prefill_replays"] \
+                != last["prefills"] or (name == "on"
+                                        and not last["suffix_prefills"]):
+            raise AssertionError(
+                f"{path} store {name}: the second round made "
+                f"{last['prefill_lazy']} prefill captures and "
+                f"{last['prefill_replays']} replays for {last['prefills']} "
+                f"prefills ({last['suffix_prefills']} suffix)")
     same, diffs = [], []
     for r in range(PREFIX_ROUNDS):
         wave = 2 * r + 1
@@ -1535,6 +1794,8 @@ def phase_prefix(torch, llama, generate, mods, cfg, params, engine_kw, path,
                          first_differences=diffs, ttft=ttft,
                          store=on["store"], launches=on["launches"],
                          counters=on["counters"],
+                         last_round=on["last_round"],
+                         prefill_graphs=on["prefill_graphs"],
                          launches_off=off["launches"])
     log(f"{path}: wave 2 admissions by prefix rung "
         f"{wave2['admissions_by_rung']} (lookups: {wave2['hits']} hit, "
@@ -1548,7 +1809,10 @@ def phase_prefix(torch, llama, generate, mods, cfg, params, engine_kw, path,
         f"without; prefill stream {ttft['on']['prefill_ms']:.3f} ms in "
         f"{ttft['on']['prefills']} dispatches vs "
         f"{ttft['off']['prefill_ms']:.3f} ms in {ttft['off']['prefills']}; "
-        f"launches {on['launches']}")
+        f"the second round's {on['last_round']['prefills']} prefills "
+        f"({on['last_round']['suffix_prefills']} suffix) all replays, the "
+        f"suffix rungs captured in the first ("
+        f"{on['prefill_graphs']['by_kind']}); launches {on['launches']}")
     if not hits_ok:
         raise AssertionError(f"{path}: wave 2 admitted by rung "
                              f"{wave2['admissions_by_rung']}, expected 8 at "
@@ -1640,7 +1904,7 @@ def check_grammar(constrain, table, rf, tokens, what):
 
 def phase_constrained(torch, generate, constrain, mods, cfg, params,
                       engine_kw, path, seed, results, n_constrained,
-                      warm=True, paged_check=False):
+                      warm_first=True, paged_check=False):
     """Phase 26, one engine: the mixed burst once to capture the biased
     rungs (their seconds reported), then counted: every constrained
     output walks its grammar, every tick replays a graph, each "bias"
@@ -1662,8 +1926,8 @@ def phase_constrained(torch, generate, constrain, mods, cfg, params,
 
     async def run():
         t0 = time.monotonic()
-        if warm:
-            await engine.warmup()
+        if warm_first:
+            await warm(engine)
         torch.cuda.synchronize()
         warm_s = time.monotonic() - t0
         await engine.start()
@@ -2093,7 +2357,7 @@ def phase_telemetry(torch, llama, generate, slo, faults, mods, seed,
 
     async def pairs():
         for engine in (bare, hooked):
-            await engine.warmup()
+            await warm(engine)
         torch.cuda.synchronize()
         row["serving_compiles_after_warmup"] = hooked.serving_compiles()
         row["compiles"] = dict(hooked._compiles_by_class)
@@ -2174,11 +2438,12 @@ def phase_telemetry(torch, llama, generate, slo, faults, mods, seed,
             or hbm["device_bytes_in_use"] < hbm["attributed_bytes"]:
         raise AssertionError(f"telemetry: hbm attribution {hbm}")
     graphs = hooked.stats()["graphs"]
-    if hooked.serving_compiles() != graphs["lazy_captures"] \
+    lazy = graphs["lazy_captures"] + graphs["prefill"]["lazy_captures"]
+    if hooked.serving_compiles() != lazy \
             or row["serving_compiles_after_warmup"] != 0:
         raise AssertionError(
             f"telemetry: {hooked.serving_compiles()} serving compiles, "
-            f"{graphs['lazy_captures']} lazy captures, "
+            f"{lazy} lazy captures (ticks and prefills), "
             f"{row['serving_compiles_after_warmup']} after warmup()")
     views = {name: len(json.dumps(getattr(hooked, name)()))
              for name in ("statusz", "xlaz", "health_check",
@@ -2300,7 +2565,7 @@ def phase_telemetry(torch, llama, generate, slo, faults, mods, seed,
     loop_row = {}
 
     async def control():
-        await spec.warmup()
+        await warm(spec)
         await spec.start()
         try:
             await spec.generate(prompts[0], 8)
@@ -2412,7 +2677,7 @@ def phase_telemetry_llama3(torch, generate, mods, cfg, params, seed,
                                            **engine_kw, **extra)
 
         async def run():
-            await engine.warmup()
+            await warm(engine)
             await engine.start()
             try:
                 with kw["tracer"].start_span("request-warmup") as span:
@@ -2557,6 +2822,9 @@ def main() -> int:
                                          small_params, dict(SMALL_ENGINE,
                                                             **kw),
                                          path, args.seed, results)
+    # this slice: the kv_int8 draft
+    by_path_d64.update(phase_int8_draft(torch, llama, generate, mods,
+                                        small_params, args.seed, results))
     del small_params
     torch.cuda.empty_cache()
     # this slice: the example's own model (``small`` over its byte-level
@@ -2610,7 +2878,7 @@ def main() -> int:
         torch, generate, constrain, mods, cfg, params,
         dict(max_slots=8, max_len=2048, prompt_buckets=(32, 128, 512),
              steps_per_tick=4), "constrained_llama3", args.seed, results,
-        n_constrained=2, warm=False))
+        n_constrained=2, warm_first=False))
     by_path["prefix_llama3"] = phase_prefix(
         torch, llama, generate, mods, cfg, params,
         dict(max_slots=8, max_len=2048, steps_per_tick=4), "prefix_llama3",

@@ -35,7 +35,9 @@ or a paged pool (``paged_kv=True``).
   instantiation.
 - Speculative decode (``draft_cfg``/``draft_params``): a draft model with
   a dense per-slot cache (flash-decode kernel on the card, over the
-  tick's window in the dense engine) proposes g tokens in g + 1 steps,
+  tick's window in the dense engine; a ``kv_int8`` draft through the
+  ragged kernel's int8 instantiation over its own identity tables)
+  proposes g tokens in g + 1 steps,
   the target scores all g + 1 positions in one ``llama.verify_step`` or
   ``verify_step_paged`` (ragged verify kernel on the card), and
   ``speculative_accept`` commits 1 to g + 1 tokens per slot. g walks the
@@ -44,18 +46,25 @@ or a paged pool (``paged_kv=True``).
   halves or doubles on the acceptance of every 16 spec ticks. Plain
   ticks serve the last token of a budget and any tick with an admission
   waiting.
-- Compiled ticks: the device state (cache_len, last token, sampling
-  parameters, per-slot PRNG keys, active mask, page table or identity
-  tables, cache or pool) lives at fixed addresses and is updated in
-  place, so each tick is one function of that state. There is one
-  executable per plain ``(k, sampled, window)`` rung and per spec ``(g,
-  sampled, window)`` rung (window None in the paged engine), as the JAX
-  engine keeps one compiled executable each: on the card a
+- Compiled ticks and prefills: the device state (cache_len, last token,
+  sampling parameters, per-slot PRNG keys, active mask, page table or
+  identity tables, cache or pool) lives at fixed addresses and is
+  updated in place, so each tick is one function of that state. There
+  is one executable per plain ``(k, sampled, window)`` rung and per spec
+  ``(g, sampled, window)`` rung (window None in the paged engine), as
+  the JAX engine keeps one compiled executable each, and one per prefill
+  rung ``(nb, bucket, prefix rung, biased, draft bucket)``, standing for
+  JAX's prefill + insert pair (and a draft's): its host part packs the
+  group into the rung's static buffers in stream order, and its body
+  reads only those and the state, a slot→row map deciding through
+  ``torch.where`` which slots take which row, so padding rows write
+  nothing whatever their count. On the card each is a
   ``torch.cuda.CUDAGraph`` captured after one eager run on a side stream
-  (``warmup()`` captures the ladders at the startup window rungs; a rung
-  first met while serving is captured then), on the CPU the same
-  function run eagerly. A failed capture or replay raises; there is no
-  eager fallback on the card.
+  into one shared graph pool (``warmup()`` captures the tick ladders at
+  the startup window rungs and the full prefill of every bucket at its
+  prompt counts; a rung first met while serving is captured then), on
+  the CPU the same function run eagerly. A failed capture or replay
+  raises; there is no eager fallback on the card.
 - The loop is pipelined M deep (``max_inflight_ticks``, 2 as in the JAX
   engine): a tick's dispatch uploads its mask (and page table) through
   pinned slabs (``tpu/staging``), replays its graph and queues the copy
@@ -213,6 +222,10 @@ _DONE = object()
 # window rung); "bias" is the plain tick with the grammar bias added to
 # its logits (JAX's ``_decode_bias_fn`` family)
 _Key = Tuple[str, int, bool, Optional[int]]
+# a prefill executable: (rows nb, bucket, prefix rung, biased, draft
+# bucket db), the tick key's counterpart; db is a spec engine's suffix
+# group's (its draft prefills the whole prompts), 0 otherwise
+_PrefillKey = Tuple[int, int, int, bool, int]
 
 
 class BrownoutShed(RuntimeError):
@@ -229,18 +242,23 @@ def cuda_refusals(cfg, max_len: int, kv_page: int, draft_cfg=None,
     kernel serves the target (a head_dim of its ``SUPPORTED_HEAD_DIMS``,
     GQA group 1/2/4/8, bf16, at most ``MAX_VERIFY_TOKENS`` queries a slot,
     a rank's scores of the widest table within ``MAX_DYN_SMEM`` at the
-    model's head_dim); the flash-decode kernel serves the draft (a
-    head_dim of its ``SUPPORTED_HEAD_DIMS``, group 1/2/4/8, bf16). The
+    model's head_dim); the flash-decode kernel serves a bf16 draft (a
+    head_dim of its ``SUPPORTED_HEAD_DIMS``, group 1/2/4/8, bf16), the
+    ragged kernel's int8 instantiation a ``kv_int8`` draft (the target's
+    limits, at one query a slot over the draft's identity tables). The
     paged engine's
     table has ``max_len / kv_page`` columns of ``kv_page``; the dense
-    engine's widest identity table (the top window rung) ``max_len /
-    page`` columns of its view page (``llama.dense_page``), which must be
-    one of ``DENSE_VIEW_PAGES``, the pages the kernel's checks on the card
-    hold it at. The plain versions the CPU runs take any of these."""
+    engine's widest identity table (the top window rung), and an int8
+    draft's on either layout, ``max_len / page`` columns of its view page
+    (``llama.dense_page``), which must be one of ``DENSE_VIEW_PAGES``, the
+    pages the kernel's checks on the card hold it at. The plain versions
+    the CPU runs take any of these."""
     out = []
+    int8_draft = draft_cfg is not None and draft_cfg.kv_int8
     models = [("model", cfg, ragged_mod)]
     if draft_cfg is not None:
-        models.append(("draft", draft_cfg, decode_mod))
+        models.append(("draft", draft_cfg,
+                       ragged_mod if int8_draft else decode_mod))
     for name, c, mod in models:
         if c.dtype != torch.bfloat16:
             out.append(f"{name} dtype {c.dtype}: the kernels take bf16")
@@ -258,26 +276,57 @@ def cuda_refusals(cfg, max_len: int, kv_page: int, draft_cfg=None,
             out.append(f"spec_gamma {spec_gamma}: verify takes at most "
                        f"MAX_VERIFY_TOKENS = {ragged_mod.MAX_VERIFY_TOKENS} "
                        f"tokens a slot")
-    page = kv_page
-    if not paged_kv:
-        page = llama.dense_page(max_len)
-        if page not in DENSE_VIEW_PAGES:
-            out.append(f"dense view page {page} (max_len {max_len}): the "
-                       f"ragged kernel is held to its gates at pages "
-                       f"{DENSE_VIEW_PAGES}; max_len must be a multiple "
-                       f"of {min(DENSE_VIEW_PAGES)}")
-    if cfg.n_heads % cfg.n_kv_heads == 0 \
-            and g_len <= ragged_mod.MAX_VERIFY_TOKENS:
+    dense = llama.dense_page(max_len)
+    if (not paged_kv or int8_draft) and dense not in DENSE_VIEW_PAGES:
+        out.append(f"dense view page {dense} (max_len {max_len}): the "
+                   f"ragged kernel is held to its gates at pages "
+                   f"{DENSE_VIEW_PAGES}; max_len must be a multiple "
+                   f"of {min(DENSE_VIEW_PAGES)}")
+    # the ragged kernel's tables: the target's at g_len queries a slot, an
+    # int8 draft's identity tables at one
+    tables = [(cfg, kv_page if paged_kv else dense, g_len)]
+    if int8_draft:
+        tables.append((draft_cfg, dense, 1))
+    for c, page, g in tables:
+        if c.n_heads % c.n_kv_heads or g > ragged_mod.MAX_VERIFY_TOKENS:
+            continue
         width = max_len // page
         smem = ragged_mod.dyn_smem_bytes(width, page,
-                                         cfg.n_heads // cfg.n_kv_heads, g_len,
-                                         cfg.head_dim)
+                                         c.n_heads // c.n_kv_heads, g,
+                                         c.head_dim)
         if smem > ragged_mod.MAX_DYN_SMEM:
             out.append(f"a table of {width} columns of {page} at "
-                       f"{g_len} queries a slot needs {smem} bytes of "
+                       f"{g} queries a slot needs {smem} bytes of "
                        f"shared memory, over MAX_DYN_SMEM = "
                        f"{ragged_mod.MAX_DYN_SMEM}")
     return out
+
+
+def _prefill_key(nb: int, bucket: int, p_rung: int, biased: bool,
+                 layout: List[Tuple[str, tuple]]) -> _PrefillKey:
+    """The rung of a prefill group, its draft bucket read off the
+    layout."""
+    db = dict(layout).get("draft_tokens", (0, 0))[1]
+    return (int(nb), int(bucket), int(p_rung), bool(biased), int(db))
+
+
+def _prefill_kind(key: _PrefillKey) -> str:
+    """The JAX executable family a prefill rung's graph stands for."""
+    if key[2]:
+        return "suffix_prefill"
+    return "prefill_bias" if key[3] else "prefill"
+
+
+def _insert_rows(leaf: torch.Tensor, src: torch.Tensor, row: torch.Tensor,
+                 claimed: torch.Tensor, at: int) -> None:
+    """Write each claimed slot's row of ``src`` (L, nb, w, ...) into
+    ``leaf`` (L, max_slots, T, ...) at positions [at, at + w), in place;
+    slot ``s`` takes row ``row[s]`` where ``claimed[s]``, and every other
+    slot keeps what it holds (JAX's ``.at[:, slots].set(mode="drop")``
+    with no duplicate destination and no index out of range)."""
+    view = leaf[:, :, at:at + src.shape[2]]
+    mask = claimed.view(1, -1, *([1] * (leaf.dim() - 2)))
+    view.copy_(torch.where(mask, src[:, row], view))
 
 
 def _pack(arrays: Dict[str, np.ndarray]
@@ -473,6 +522,26 @@ class _Graph:
         self.seconds = seconds
 
 
+class _Prefill:
+    """A prefill rung: its static upload buffers (``ints`` cut by
+    ``layout``, ``floats``), and on the card its graph, the graph's
+    static first-token output, the launches one replay makes, the seconds
+    its capture took and its replays."""
+    __slots__ = ("key", "layout", "ints", "floats", "graph", "first",
+                 "launches", "seconds", "replays")
+
+    def __init__(self, key: _PrefillKey, layout, ints, floats):
+        self.key = key
+        self.layout = layout
+        self.ints = ints
+        self.floats = floats
+        self.graph = None
+        self.first: Optional[torch.Tensor] = None
+        self.launches: Dict[str, int] = {}
+        self.seconds = 0.0
+        self.replays = 0
+
+
 def _tree_bytes(tree: Any) -> int:
     """Bytes of the tensors of a (nested) dict; 0 for None."""
     if tree is None:
@@ -666,6 +735,7 @@ class GenerationEngine:
         self.draft_cfg = None
         self.draft_params = None
         self._draft_cache: Optional[Dict[str, torch.Tensor]] = None
+        self._draft_tables: Dict[Optional[int], torch.Tensor] = {}
         self._g_ladder: List[int] = []
         if self.spec:
             if getattr(draft_cfg, "vocab_size", None) != cfg.vocab_size:
@@ -673,14 +743,13 @@ class GenerationEngine:
                     "draft and target models must share a vocabulary "
                     f"({getattr(draft_cfg, 'vocab_size', None)} vs "
                     f"{cfg.vocab_size})")
-            if getattr(draft_cfg, "kv_int8", False):
-                raise ValueError(
-                    "the draft's dense cache is bf16 only (flash decode "
-                    "reads a bf16 cache): build draft_cfg without kv_int8")
-            # the draft decodes through the flash-decode kernel, over the
-            # tick's window in the dense engine
-            self.draft_cfg = dataclasses.replace(draft_cfg,
-                                                 use_flash_decode=True)
+            # a bf16 draft decodes through the flash-decode kernel, over
+            # the tick's window in the dense engine; a kv_int8 draft (JAX
+            # serves it as given) through the ragged kernel's int8
+            # instantiation over its own identity tables, one a window
+            # rung, as the dense target reads its cache
+            self.draft_cfg = dataclasses.replace(
+                draft_cfg, use_flash_decode=not draft_cfg.kv_int8)
             self.draft_params = _params_to(draft_params, self.device)
             # the draft cache is dense: the draft is small, and one
             # (max_slots, max_len) row per slot keeps it independent of
@@ -689,6 +758,10 @@ class GenerationEngine:
             self._draft_cache = llama.init_cache(draft_cfg, self.max_slots,
                                                  self.max_len,
                                                  device=self.device)
+            if draft_cfg.kv_int8:
+                self._draft_tables = {
+                    w: llama.identity_table(n, self.max_len, w, device=dev)
+                    for w in self._window_ladder}
             self._g_ladder = [1]
             while self._g_ladder[-1] * 2 <= self.spec_gamma:
                 self._g_ladder.append(self._g_ladder[-1] * 2)
@@ -729,6 +802,10 @@ class GenerationEngine:
         self.capture_s = 0.0
         self.graph_replays = 0
         self.lazy_captures = 0     # captures made while serving
+        # prefill rungs: static buffers, and on the card their graphs, in
+        # the ticks' graph pool
+        self._prefills: Dict[_PrefillKey, _Prefill] = {}
+        self.prefill_lazy_captures = 0
         self._publishq: "deque[_Fetch]" = deque()
         self._ticks_inflight = 0
         self._ticks_inflight_peak = 0
@@ -774,44 +851,88 @@ class GenerationEngine:
         self.ttfts: "deque[float]" = deque(maxlen=4096)  # submit → 1st token
 
     # -- device steps (the device thread) --------------------------------------
+    def _prefill_rung(self, key: _PrefillKey,
+                      layout: List[Tuple[str, tuple]],
+                      n_floats: int) -> "_Prefill":
+        """The rung ``key``'s static upload buffers (made at its first
+        use: an int64 buffer cut by ``layout``, a float32 one of
+        ``n_floats``)."""
+        rung = self._prefills.get(key)
+        if rung is None:
+            size = sum(int(np.prod(shape)) for _, shape in layout)
+            rung = _Prefill(
+                key, layout,
+                torch.zeros((size,), dtype=torch.int64, device=self.device),
+                torch.zeros((n_floats,), dtype=torch.float32,
+                            device=self.device))
+            self._prefills[key] = rung
+        return rung
+
     def _prefill_insert(self, nb: int, bucket: int, n_claimed: int,
                         p_rung: int, ints: np.ndarray,
                         layout: List[Tuple[str, tuple]], floats: np.ndarray,
                         biased: bool = False):
-        """Batched prompt forward for ``nb`` rows of bucket ``bucket`` and
-        its in-place insert, the first ``n_claimed`` rows' slot state
-        (PRNG keys included), and with a draft its KV-only prefill of the
-        whole prompts into the claimed slots' dense draft rows. ``ints``
-        packs the named int arrays of ``layout`` (:func:`_pack`): tokens
-        (nb, bucket), lengths, slots, top_ks, seeds (nb,); paged the page
-        ids (nb * bucket // page); at prefix rung ``p_rung`` > 0 the
-        cached pages (nb, p_rung) and, with a draft, the whole prompts
-        and their lengths; dense with pages to publish, their ids.
-        ``floats`` packs (temps, top_ps) and, ``biased``, the (nb, vocab)
-        grammar bias rows (a constrained group's start-state rows, 0 for
-        padding rows), added to the logits before the first token is
-        sampled (JAX ``_prefill_bias_fn``). Each goes up in one staged
-        copy.
+        """The host part of one group's prefill: upload ``ints`` (the
+        named int arrays of ``layout``, :func:`_pack`) and ``floats``
+        (temps, top_ps and, ``biased``, the (nb, vocab) grammar bias rows)
+        into the rung's static buffers, in stream order behind every step
+        queued before, then run :meth:`_prefill_body` over them: on the
+        card a replay of the rung's graph (captured first if the rung was
+        not warmed), on the CPU eagerly. ``n_claimed`` is the group's
+        count of real rows; nothing reads it, padding rows write nothing
+        whatever their count. Returns the fetch of the first tokens
+        (nb,)."""
+        key = _prefill_key(nb, bucket, p_rung, biased, layout)
+        rung = self._prefill_rung(key, layout, floats.size)
+        cuda = self.device.type == "cuda"
+        if cuda and rung.graph is None:
+            self._capture_prefill(rung)
+            self.prefill_lazy_captures += 1
+        self._staging.upload(rung.ints, ints)
+        self._staging.upload(rung.floats, floats)
+        if not cuda:
+            return self._staging.fetch(self._prefill_body(rung))
+        rung.graph.replay()
+        launch_counts.add(rung.launches)
+        rung.replays += 1
+        return self._staging.fetch(rung.first)
 
-        Full prefill (``p_rung`` 0): paged, the rows scatter into the pool
-        pages (sentinel entries landing in the scratch page); dense, into
-        the claimed slots' cache rows (padding rows dropped, JAX
-        ``_insert_fn``), then the store publishes the new full pages.
-        Suffix prefill: the tokens are the suffixes, attending the cached
-        prefix gathered from the store's pool; paged, the suffix rows
-        scatter into fresh pages after the prefix's; dense, the prefix
-        pages fill rows [0, plen) and the suffix [plen, plen + bucket)
-        (JAX ``_suffix_insert_fn``); cache_len is plen + the suffix's
-        length. Returns the fetch of the first tokens (nb,)."""
+    def _prefill_body(self, rung: "_Prefill") -> torch.Tensor:
+        """One group's prompt forward and its in-place insert, as a
+        function of the rung's static buffers and the engine's state
+        alone (JAX's prefill + insert pair of the rung, with a draft its
+        draft prefill + insert too): no shape or branch depends on the
+        group, so one graph serves every group of the rung.
+
+        The buffers hold, by ``rung.layout``: tokens (nb, bucket), lengths,
+        top_ks, seeds (nb,), ``row_of_slot`` (max_slots,: the row that
+        claims each slot, -1 for none); paged the page ids (nb * bucket //
+        page, the sentinel for padding); at prefix rung > 0 the cached
+        pages (nb, p_rung) and, with a draft, the whole prompts and their
+        lengths (nb, db); dense with the store on, the ids of the pages to
+        publish (the store's sentinel where none). Floats: temps, top_ps
+        (nb,) and, biased, the (nb, vocab) grammar bias rows (0 for
+        padding rows), added to the logits before the first token is
+        sampled (JAX ``_prefill_bias_fn``).
+
+        Full prefill: paged, the rows scatter into the pool pages
+        (sentinel entries landing in the scratch page); dense, into the
+        claimed slots' cache rows (JAX ``_insert_fn``), then the store
+        publishes the new full pages. Suffix prefill: the tokens are the
+        suffixes, attending the cached prefix gathered from the store's
+        pool; paged, the suffix rows scatter into fresh pages after the
+        prefix's; dense, the prefix pages fill rows [0, plen) and the
+        suffix [plen, plen + bucket) (JAX ``_suffix_insert_fn``);
+        cache_len is plen + the suffix's length. The dense insert, the
+        draft's and the slot state go through ``torch.where`` over all
+        ``max_slots`` rows by the slot→row map, so a slot no row claims
+        keeps its bits. The small caches are allocated here (inside the
+        graph, from its pool). Returns the first tokens (nb,)."""
+        nb, bucket, p_rung, biased, _ = rung.key
         dev, cfg = self.device, self.cfg
-        ints_dev = torch.empty(ints.shape, dtype=torch.int64, device=dev)
-        floats_dev = torch.empty(floats.shape, dtype=torch.float32,
-                                 device=dev)
-        self._staging.upload(ints_dev, ints)
-        self._staging.upload(floats_dev, floats)
-        arg = _unpack(ints_dev, layout)
-        tokens, lens, slots = arg["tokens"], arg["lengths"], arg["slots"]
-        temps, top_ps = floats_dev[:2 * nb].view(2, nb)
+        arg = _unpack(rung.ints, rung.layout)
+        tokens, lens = arg["tokens"], arg["lengths"]
+        temps, top_ps = rung.floats[:2 * nb].view(2, nb)
         small = llama.init_cache(cfg, nb, bucket, device=dev)
         plen, prefix = 0, None
         if p_rung:
@@ -822,10 +943,11 @@ class GenerationEngine:
                                          prefix_len=plen)
         if biased:
             # bf16 + float32 promotes to float32, as in JAX
-            logits = logits + floats_dev[2 * nb:].view(nb, cfg.vocab_size)
+            logits = logits + rung.floats[2 * nb:].view(nb, cfg.vocab_size)
         first, keys = sample_batch(logits, temps, arg["top_ks"], top_ps,
                                    prng.seed_key(arg["seeds"]))
-        slot_t = slots[:n_claimed]
+        claimed = arg["row_of_slot"] >= 0
+        row = arg["row_of_slot"].clamp(min=0)
         # in-place insert of the group's KV; each leaf (k/v rows, int8
         # scale planes) keeps its own trailing shape
         if self.paged:
@@ -837,32 +959,28 @@ class GenerationEngine:
         else:
             for name, leaf in self.cache.items():
                 if p_rung:
-                    leaf[:, slot_t, :plen] = prefix[name][:, :n_claimed]
-                leaf[:, slot_t, plen:plen + bucket] = \
-                    small[name][:, :n_claimed]
+                    _insert_rows(leaf, prefix[name], row, claimed, 0)
+                _insert_rows(leaf, small[name], row, claimed, plen)
             if "publish_ids" in arg:
-                self._prefix.publish(
-                    small, arg["publish_ids"],
-                    arg["publish_ids"].shape[0] // nb)
+                self._prefix.publish(small, arg["publish_ids"],
+                                     arg["publish_ids"].shape[0] // nb)
         if self.spec:
             # KV-only draft prefill of the whole prompts (the draft has no
-            # prefix store); its rows land in the claimed slots' dense
-            # draft rows (padding rows dropped)
+            # prefix store) into the claimed slots' dense draft rows
             dtokens = arg.get("draft_tokens", tokens)
             dcfg = self.draft_cfg
             dsmall = llama.init_cache(dcfg, nb, dtokens.shape[1], device=dev)
             llama.prefill(self.draft_params, dcfg, dtokens, dsmall,
                           lengths=arg.get("draft_lengths", lens))
             for name, leaf in self._draft_cache.items():
-                leaf[:, slot_t, :dtokens.shape[1]] = \
-                    dsmall[name][:, :n_claimed]
-        self.cache_len[slot_t] = (plen + lens[:n_claimed]).to(torch.int32)
-        self.last_token[slot_t] = first[:n_claimed]
-        self.temps[slot_t] = temps[:n_claimed]
-        self.top_ks[slot_t] = arg["top_ks"][:n_claimed]
-        self.top_ps[slot_t] = top_ps[:n_claimed]
-        self.sample_keys[slot_t] = keys[:n_claimed]
-        return self._staging.fetch(first)
+                _insert_rows(leaf, dsmall[name], row, claimed, 0)
+        for state, new in ((self.cache_len, (plen + lens).to(torch.int32)),
+                           (self.last_token, first), (self.temps, temps),
+                           (self.top_ks, arg["top_ks"]),
+                           (self.top_ps, top_ps), (self.sample_keys, keys)):
+            mask = claimed.view(-1, *([1] * (state.dim() - 1)))
+            state.copy_(torch.where(mask, new[row], state))
+        return first
 
     def _plain_tick(self, k: int, sampled: bool, window: Optional[int],
                     active: torch.Tensor,
@@ -930,7 +1048,7 @@ class GenerationEngine:
         for i in range(g + 1):
             logits, _, new_len = llama.decode_step(
                 self.draft_params, self.draft_cfg, token, self._draft_cache,
-                dlen, window=window)
+                dlen, window=window, table=self._draft_tables.get(window))
             proposal = logits.argmax(dim=-1)
             if sampled:
                 q_logp = filtered_log_probs_batch(logits, self.temps,
@@ -972,27 +1090,21 @@ class GenerationEngine:
         return self._plain_tick(n, sampled, window, active,
                                 biased=kind == "bias")
 
-    def _capture(self, key: _Key) -> _Graph:
-        """Capture the tick ``key`` as a CUDA graph: one eager run first,
-        on a side stream with every slot inactive, which builds the
+    def _record(self, eager, body):
+        """Capture ``body()`` as a CUDA graph into the engine's one graph
+        pool: ``eager()`` runs first on a side stream, which builds the
         kernels and sets their attributes, under
         ``set_sync_debug_mode("error")`` so a host sync raises here; then
-        the capture, whose launch counts become the graph's. The eager
-        run's writes are harmless: the paged engine's go to the pool's
-        scratch page; the dense engine's, and a spec tick's into the draft
-        cache, land at each row's frozen positions, at or past its fill,
-        which the row writes again before it reads them (JAX's argument
-        for its inactive rows)."""
-        t0 = time.monotonic()
+        the capture, whose launch counts become the graph's. Returns
+        (graph, its static output, launches)."""
         dev = self.device
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        idle = torch.zeros_like(self.active)
         with torch.cuda.stream(side):
             mode = torch.cuda.get_sync_debug_mode()
             torch.cuda.set_sync_debug_mode("error")
             try:
-                self._tick_body(key, idle)
+                eager()
             finally:
                 torch.cuda.set_sync_debug_mode(mode)
         torch.cuda.current_stream(dev).wait_stream(side)
@@ -1002,13 +1114,45 @@ class GenerationEngine:
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self._graph_pool,
                               capture_error_mode="thread_local"):
-            out = self._tick_body(key, self.active)
+            out = body()
         launches = launch_counts.diff(launch_counts.read(), before)
         launch_counts.write(before)             # a capture launches nothing
+        return graph, out, launches
+
+    def _capture(self, key: _Key) -> _Graph:
+        """Capture the tick ``key`` as a CUDA graph (:meth:`_record`),
+        its eager run with every slot inactive. That run's writes are
+        harmless: the paged engine's go to the pool's scratch page; the
+        dense engine's, and a spec tick's into the draft cache, land at
+        each row's frozen positions, at or past its fill, which the row
+        writes again before it reads them (JAX's argument for its
+        inactive rows)."""
+        t0 = time.monotonic()
+        idle = torch.zeros_like(self.active)
+        graph, out, launches = self._record(
+            lambda: self._tick_body(key, idle),
+            lambda: self._tick_body(key, self.active))
         entry = _Graph(graph, out, launches, time.monotonic() - t0)
         self._graphs[key] = entry
         self.capture_s += entry.seconds
         return entry
+
+    def _capture_prefill(self, rung: _Prefill) -> None:
+        """Capture the prefill rung as a CUDA graph (:meth:`_record`) over
+        its static buffers, which hold padding rows only for it (no slot
+        claimed, sentinel pages, nothing to publish): its eager run and
+        the capture write nothing that any slot or cached page reads, and
+        its first replay sees the group's own upload."""
+        t0 = time.monotonic()
+        nb, bucket, p_rung, biased, db = rung.key
+        ints, _ = _pack(self._group_arrays(nb, bucket, p_rung, db))
+        self._staging.upload(rung.ints, ints)
+        self._staging.upload(rung.floats, self._group_floats(nb, biased))
+        graph, first, launches = self._record(
+            lambda: self._prefill_body(rung),
+            lambda: self._prefill_body(rung))
+        rung.graph, rung.first, rung.launches = graph, first, launches
+        rung.seconds = time.monotonic() - t0
 
     def _run_tick(self, key: _Key,
                   mask: Optional[np.ndarray], table: Optional[np.ndarray],
@@ -1037,24 +1181,49 @@ class GenerationEngine:
         return self._staging.fetch(entry.out)
 
     def _warm(self, keys) -> None:
-        """Capture (on the card) or run once (on the CPU) every tick of
-        ``keys``, then run the prefill of one row of every bucket with a
-        padding row (no slot is written)."""
+        """Run every tick of ``keys`` once with every slot inactive, as
+        JAX's warmup runs each tick it compiles: on the card its graph is
+        captured first and the run is a replay over an inactive mask
+        (its writes are those of the capture's eager run), so the graph's
+        first launch, which uploads it to the card, is not a request's;
+        on the CPU the body runs."""
         idle = torch.zeros_like(self.active)
-        for key in keys:
-            if self.device.type == "cuda":
-                if key not in self._graphs:
-                    self._capture(key)
-            else:
+        if self.device.type != "cuda":
+            for key in keys:
                 self._tick_body(key, idle)
-        for bucket in self.prompt_buckets:
-            # padding rows (length 1, slot max_slots: none) of one prompt's
-            # prefill
-            nb = self._prefill_count(1, bucket)
-            ints, layout = _pack(self._group_arrays(nb, bucket, 0))
-            floats = np.tile(np.array([[0.0], [1.0]], np.float32), nb)
-            self._prefill_insert(nb, bucket, 0, 0, ints, layout,
-                                 floats.ravel())()
+            return
+        self._staging.upload(self.active,
+                             np.zeros((self.max_slots,), bool))
+        for key in keys:
+            entry = self._graphs.get(key) or self._capture(key)
+            entry.graph.replay()
+            launch_counts.add(entry.launches)
+
+    def _warm_prefills(self, keys: List[_PrefillKey]) -> None:
+        """Run every prefill rung of ``keys`` once over padding rows (no
+        slot or cached page is written), as JAX's warmup runs each
+        prefill it compiles: on the card its graph is captured first, its
+        staging slabs made, and the run is a replay, so the graph's first
+        launch (which uploads it to the card) is not a request's; on the
+        CPU the body runs."""
+        cuda = self.device.type == "cuda"
+        for key in keys:
+            nb, bucket, p_rung, biased, db = key
+            ints, layout = _pack(self._group_arrays(nb, bucket, p_rung, db))
+            floats = self._group_floats(nb, biased)
+            rung = self._prefill_rung(key, layout, floats.size)
+            if cuda and rung.graph is None:
+                self._capture_prefill(rung)
+            self._staging.upload(rung.ints, ints)
+            self._staging.upload(rung.floats, floats)
+            if not cuda:
+                self._prefill_body(rung)
+                continue
+            self._staging.reserve(rung.ints)
+            self._staging.reserve(rung.floats)
+            self._staging.reserve(rung.first, upload=False)
+            rung.graph.replay()
+            launch_counts.add(rung.launches)
 
     # -- lifecycle -------------------------------------------------------------
     def _startup_window_rungs(self, ks: List[int]) -> List[Optional[int]]:
@@ -1083,25 +1252,41 @@ class GenerationEngine:
                 return rung
         return None
 
-    async def warmup(self, ks: Optional[Tuple[int, ...]] = None,
+    async def warmup(self, prompt_counts: Tuple[int, ...] = (1,),
+                     ks: Optional[Tuple[int, ...]] = None,
+                     sampling: bool = False,
                      windows: Union[Tuple[Optional[int], ...], str,
                                     None] = None) -> None:
-        """Capture the tick executables so the serving path never does
-        (the JAX engine's ``warmup``): every rung of the k ladder (``ks``
-        restricts it) and, with a draft, of the γ ladder, greedy and
-        sampled, at each window rung of ``windows``; then run one prefill
-        of every bucket. ``windows``: None, the rungs reachable at startup
+        """Capture the tick and prefill executables and run each once, so
+        the serving path never captures nor first-launches one (the JAX
+        engine's ``warmup``, its signature): every rung of the k ladder
+        (``ks`` restricts it) and, with a draft, of the γ ladder at each
+        window rung of ``windows``, with every slot inactive; then the
+        full prefill of every bucket at each count of ``prompt_counts``
+        (its rows the count's rung of the admission ladder, raised on the
+        card to ``CUDA_MIN_PREFILL_ROWS``), over padding rows, with a
+        draft its draft prefill inside the same graph. Suffix, biased and
+        draft-bucket prefill rungs are captured at first use, as JAX
+        compiles them lazily, and count as serving compiles.
+        ``sampling`` keeps JAX's meaning (warm the sampled variants too);
+        the port captures each tick rung greedy and sampled either way.
+        ``windows``: None, the rungs reachable at startup
         (:meth:`_startup_window_rungs`); ``"all"``, the whole ladder; a
         tuple, exactly those rungs, ``max_len`` standing for the top rung
         (as ``stats()["window_ladder"]`` spells it). The paged engine's
         ticks all take window None. An unwarmed rung is captured when a
-        tick first needs it (``lazy_captures``). On the CPU each tick runs
-        once instead. Must run before ``start()``: it runs device work
-        outside the engine loop."""
+        tick or a prefill first needs it (``lazy_captures``). On the CPU
+        each tick and each prefill runs once instead. Must run before
+        ``start()``: it runs device work outside the engine loop."""
         if self._task is not None:
             raise RuntimeError(
                 "warmup() must be called before start(): it runs device "
                 "work outside the engine loop")
+        counts = [int(n) for n in prompt_counts]
+        if not counts or any(n < 1 or n > self.max_slots for n in counts):
+            raise ValueError(
+                f"warmup prompt_counts={tuple(prompt_counts)}: each count "
+                f"must be 1..max_slots ({self.max_slots})")
         if ks is None:
             rungs = list(self._k_ladder)
         else:
@@ -1136,17 +1321,28 @@ class GenerationEngine:
                 for s in (False, True)]
         keys += [("spec", g, s, w) for w in window_rungs
                  for g in self._g_ladder for s in (False, True)]
+        pkeys = list(dict.fromkeys(
+            (self._prefill_count(n, bucket), bucket, 0, False, 0)
+            for bucket in self.prompt_buckets for n in counts))
         if self.logger is not None:
-            self.logger.info("engine warmup: %d tick executables %s",
-                             len(keys), keys)
+            self.logger.info("engine warmup: %d tick executables %s, %d "
+                             "prefill executables %s", len(keys), keys,
+                             len(pkeys), pkeys)
         self._warming += 1
         try:
             for key in keys:
                 self._note_capture(key)
+            for key in pkeys:
+                self._note_prefill(key)
         finally:
             self._warming -= 1
-        await asyncio.get_running_loop().run_in_executor(
-            self._device_exec, self._warm, keys)
+        # the warm replays run over an inactive mask: the first tick
+        # uploads its own
+        self._sent_mask = None
+        loop = asyncio.get_running_loop()
+        await loop.run_in_executor(self._device_exec, self._warm, keys)
+        await loop.run_in_executor(self._device_exec, self._warm_prefills,
+                                   pkeys)
 
     async def start(self) -> None:
         if self._task is None:
@@ -1335,6 +1531,26 @@ class GenerationEngine:
             out[key[0]] = out.get(key[0], 0.0) + entry.seconds
         return out
 
+    def _prefill_graph_stats(self) -> Dict[str, Any]:
+        """The prefill rungs' graphs beside the ticks': captured, by JAX
+        kind, their capture seconds (by kind), replays, and captures made
+        while serving."""
+        by_kind: Dict[str, int] = {}
+        seconds: Dict[str, float] = {}
+        captured = [r for r in list(self._prefills.values())
+                    if r.graph is not None]
+        for rung in captured:
+            kind = _prefill_kind(rung.key)
+            by_kind[kind] = by_kind.get(kind, 0) + 1
+            seconds[kind] = seconds.get(kind, 0.0) + rung.seconds
+        return {"captured": len(captured),
+                "keys": [list(rung.key) for rung in captured],
+                "by_kind": by_kind,
+                "capture_s": sum(seconds.values()),
+                "capture_s_by_kind": seconds,
+                "replays": sum(rung.replays for rung in captured),
+                "lazy_captures": self.prefill_lazy_captures}
+
     def prefix_digest(self,
                       max_entries: int = 512) -> Optional[Dict[str, Any]]:
         """The resident prefix chains as hashes, for fleet routing; None
@@ -1362,6 +1578,17 @@ class GenerationEngine:
         kind = {"plain": "decode", "bias": "decode_bias",
                 "spec": "spec"}[key[0]] + ("_paged" if self.paged else "")
         self._note_compile(kind, key[1:])
+
+    def _note_prefill(self, key: _PrefillKey) -> None:
+        """Note prefill rung ``key``'s graph capture as one compile, once,
+        under JAX's kind name (one graph stands for JAX's prefill + insert
+        pair, and a draft's too), on the loop thread when it is queued (on
+        the card only, as :meth:`_note_capture`)."""
+        tag = ("prefill",) + key
+        if self.device.type != "cuda" or tag in self._compiled:
+            return
+        self._compiled.add(tag)
+        self._note_compile(_prefill_kind(key), key)
 
     def _note_compile(self, kind: str, key) -> None:
         """Charge one compile (JAX ``_note_compile``): warmup class inside
@@ -1559,8 +1786,10 @@ class GenerationEngine:
         padding-optimal ladder they suggest, padding, the executable
         families' device seconds, compiles by class, and the tick
         graphs captured (``paged_kv.decode_executables``,
-        ``speculative.compiled_spec_fns``). Operating points are not
-        ported (None)."""
+        ``speculative.compiled_spec_fns``; the prefill graphs, each with
+        the draft's prefill inside, as
+        ``speculative.compiled_draft_prefill_fns``). Operating points are
+        not ported (None)."""
         observed = self.shapes.distribution("prompt")
         out: Dict[str, Any] = {
             "models": {
@@ -1606,7 +1835,8 @@ class GenerationEngine:
                 "gamma_cap": self._gamma_cap,
                 "compiled_spec_fns": sum(1 for key in self._graphs
                                          if key[0] == "spec"),
-                "compiled_draft_prefill_fns": None,
+                "compiled_draft_prefill_fns":
+                    self._prefill_graph_stats()["captured"],
             }
         return out
 
@@ -1656,6 +1886,7 @@ class GenerationEngine:
                 "capture_s_by_kind": self._capture_s_by_kind(),
                 "replays": self.graph_replays,
                 "lazy_captures": self.lazy_captures,
+                "prefill": self._prefill_graph_stats(),
             },
             "max_len": self.max_len,
             "window_ladder": [w or self.max_len
@@ -1773,8 +2004,8 @@ class GenerationEngine:
             for name, leaf in self.cache.items():
                 leaf.fill_(1 if name in ("ks", "vs") else 0)
         if self.spec:
-            for leaf in self._draft_cache.values():
-                leaf.zero_()
+            for name, leaf in self._draft_cache.items():
+                leaf.fill_(1 if name in ("ks", "vs") else 0)
         for tensor in (self.cache_len, self.last_token, self.temps,
                        self.top_ks, self.sample_keys, self.active):
             tensor.zero_()
@@ -2031,6 +2262,8 @@ class GenerationEngine:
                   in sorted(groups.items())]
         for claimed, args, pages in staged:
             nb, bucket, p_rung = args[0], args[1], args[3]
+            self._note_prefill(_prefill_key(nb, bucket, p_rung, args[7],
+                                            args[5]))
             span = self._step_span("tpu.engine.prefill", claimed,
                                    bucket=bucket, padded_batch=nb,
                                    prefix_pages=p_rung)
@@ -2087,14 +2320,25 @@ class GenerationEngine:
             need = max(n, -(-CUDA_MIN_PREFILL_ROWS // bucket))
         return next((x for x in self._n_ladder if x >= need), need)
 
-    def _group_arrays(self, nb: int, bucket: int,
-                      p_rung: int) -> Dict[str, np.ndarray]:
-        """The int arrays of a prefill group of ``nb`` rows, every row
-        padding (length 1, no slot, sentinel pages), keyed as
-        :meth:`_prefill_insert` reads them."""
+    def _n_publish(self, bucket: int, p_rung: int) -> int:
+        """Pages a row of a prefill group publishes into the dense store:
+        a full prefill's full pages, up to the store's prefix cap; 0 on
+        the paged engine (its pages are adopted), without a store, or for
+        a suffix group."""
+        store = self._prefix
+        if p_rung or store is None or self.paged:
+            return 0
+        return min(bucket // store.page, store.max_pages)
+
+    def _group_arrays(self, nb: int, bucket: int, p_rung: int,
+                      db: int = 0) -> Dict[str, np.ndarray]:
+        """The int arrays of a prefill group of ``nb`` rows (draft bucket
+        ``db``), every row padding (length 1, no slot claimed, sentinel
+        pages, nothing published), keyed as :meth:`_prefill_body` reads
+        them. The rung fixes every shape."""
         arrays = {"tokens": np.zeros((nb, bucket), np.int64),
                   "lengths": np.ones((nb,), np.int64),
-                  "slots": np.full((nb,), self.max_slots, np.int64),
+                  "row_of_slot": np.full((self.max_slots,), -1, np.int64),
                   "top_ks": np.zeros((nb,), np.int64),
                   "seeds": np.zeros((nb,), np.int64)}
         if self.paged:
@@ -2102,7 +2346,23 @@ class GenerationEngine:
                                          self._pool.sentinel, np.int64)
         if p_rung:
             arrays["prefix_ids"] = np.zeros((nb, p_rung), np.int64)
+        if db:
+            arrays["draft_tokens"] = np.zeros((nb, db), np.int64)
+            arrays["draft_lengths"] = np.ones((nb,), np.int64)
+        n_pub = self._n_publish(bucket, p_rung)
+        if n_pub:
+            arrays["publish_ids"] = np.full((nb * n_pub,),
+                                            self._prefix.num_pages, np.int64)
         return arrays
+
+    def _group_floats(self, nb: int, biased: bool) -> np.ndarray:
+        """The floats of a prefill group of ``nb`` padding rows, flat:
+        temps 0 (nb,), top_ps 1 (nb,) and, ``biased``, (nb, vocab) zero
+        bias rows."""
+        width = 2 + (self.cfg.vocab_size if biased else 0)
+        floats = np.zeros((nb * width,), np.float32)
+        floats[nb:2 * nb] = 1.0
+        return floats
 
     def _claim_group(self, p_rung: int, bucket: int, group: List[Tuple],
                      biased: bool = False):
@@ -2118,24 +2378,21 @@ class GenerationEngine:
         store = self._prefix
         plen = p_rung * store.page if p_rung else 0
         npg = bucket // self.kv_page if self.paged else 0
-        arrays = self._group_arrays(nb, bucket, p_rung)
-        floats = np.zeros((2, nb), np.float32)  # temps, top_ps
-        floats[1] = 1.0
-        bias = (np.zeros((nb, self.cfg.vocab_size), np.float32)
-                if biased else None)
-        publish = None
-        if p_rung == 0 and store is not None and not self.paged:
-            n_pub = min(bucket // store.page, store.max_pages)
-            if n_pub > 0:
-                publish = np.full((nb * n_pub,), store.num_pages, np.int64)
         db = 0
         if self.spec and p_rung:
             # the draft prefills the whole prompts: the bucket of the
             # longest, which its own bucket always covers
             db = next(b for b in self.prompt_buckets
                       if b >= max(len(req.prompt) for req, _ in group))
-            arrays["draft_tokens"] = np.zeros((nb, db), np.int64)
-            arrays["draft_lengths"] = np.ones((nb,), np.int64)
+        arrays = self._group_arrays(nb, bucket, p_rung, db)
+        floats = self._group_floats(nb, biased)
+        sampling = floats[:2 * nb].reshape(2, nb)       # temps, top_ps
+        bias = floats[2 * nb:].reshape(nb, -1) if biased else None
+        # dense with the store on, a full prefill always passes its publish
+        # ids (the store's sentinel where a page is cached already), so one
+        # rung is one graph
+        n_pub = self._n_publish(bucket, p_rung)
+        publish = arrays.get("publish_ids")
         claimed = []
         pages = 0
         for row, (req, nodes) in enumerate(group):
@@ -2220,11 +2477,11 @@ class GenerationEngine:
                         publish[row * n_pub + j] = pid
             arrays["tokens"][row, :len(suffix)] = suffix
             arrays["lengths"][row] = len(suffix)
-            arrays["slots"][row] = slot_idx
+            arrays["row_of_slot"][slot_idx] = row
             arrays["top_ks"][row] = req.sampling.top_k
             arrays["seeds"][row] = req.sampling.seed & 0xFFFFFFFF
-            floats[:, row] = (max(req.sampling.temperature, 0.0),
-                              req.sampling.top_p)
+            sampling[:, row] = (max(req.sampling.temperature, 0.0),
+                                req.sampling.top_p)
             claimed.append((slot_idx, slot.gen, row))
         if publish is not None and (publish != store.num_pages).any():
             # a page the store evicted and handed out again within this
@@ -2234,11 +2491,8 @@ class GenerationEngine:
                 if publish[at] in seen:
                     publish[at] = store.num_pages
                 seen.add(int(publish[at]))
-            arrays["publish_ids"] = publish
+            store.publishes += 1
         ints, layout = _pack(arrays)
-        floats = floats.ravel()
-        if biased:
-            floats = np.concatenate([floats, bias.ravel()])
         args = (nb, bucket, len(group), p_rung, ints, layout, floats, biased)
         return claimed, args, pages
 

@@ -296,13 +296,14 @@ class PrefixStore:
         go to ``flat_ids`` (nb * n_pages,) on the device, where the
         sentinel (pages cached already, short prompts, padding rows)
         lands in the pool's scratch page. Called on the engine's device
-        thread, behind every earlier read of the pool."""
+        thread, behind every earlier read of the pool, inside a prefill's
+        graph on the card: the engine counts ``publishes`` on the host,
+        one for each group with a page to publish (JAX's count)."""
         for name, leaf in self._pool.leaves.items():
             rows = small[name]
             nb = rows.shape[1]
             leaf[:, flat_ids] = rows[:, :, :n_pages * self.page].reshape(
                 rows.shape[0], nb * n_pages, self.page, *rows.shape[3:])
-        self.publishes += 1
 
     # -- introspection ------------------------------------------------------
     @property

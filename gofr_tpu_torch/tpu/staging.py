@@ -84,6 +84,19 @@ class StagingPool:
         with self._lock:
             self._free.setdefault(key, deque()).append(slab)
 
+    def reserve(self, tensor: torch.Tensor, upload: bool = True) -> None:
+        """Make the ring of ``tensor``'s shape and type now: ``depth``
+        upload slabs, or one fetch slab (``upload=False``), so a warmed
+        shape allocates no pinned memory while serving. Nothing on the
+        CPU."""
+        if self.device.type != "cuda":
+            return
+        key = ("up" if upload else "down", tuple(tensor.shape),
+               tensor.dtype)
+        want = self.depth if upload else 1
+        while self._count.get(key, 0) < want:
+            self._release(key, self._new(key))
+
     def upload(self, dst: torch.Tensor, src: np.ndarray) -> None:
         """Copy ``src`` into device tensor ``dst`` (same shape) in stream
         order, through a pinned slab."""

@@ -25,9 +25,20 @@ form). Run them on the GPU host with
 - With every telemetry hook on (metrics, tracer, SLO tracker, flight
   recorder, the anatomy of every tick), dense and paged: a replay inside
   the profiler's step annotation gives the eager tick's bits; a burst
-  gives the unhooked engine's tokens, every tick a replay, under
-  ``set_sync_debug_mode("error")`` outside the eager prefill (no hook
-  and no part of the dispatch syncs).
+  gives the unhooked engine's tokens, every tick and every prefill a
+  replay, under ``set_sync_debug_mode("error")`` (no hook and no part of
+  the dispatch syncs, the prefills included).
+- A prefill replayed from its rung's graph gives, bit for bit, the first
+  tokens and the state (cache or pool rows, the store's pages, the draft
+  cache, cache_len, last token, sampling rows, keys) of the same group's
+  prefill run eagerly from a copy of the state, for every kind of rung
+  (full, suffix over the store's pages with the draft's own bucket,
+  biased, full with a draft), dense and paged, bf16 and ``kv_int8`` (the
+  draft int8 too): two slots claimed, the others and the padding rows
+  untouched. The launch counters move by the same counts.
+- A suffix rung met while serving is captured once, at its first group,
+  and counted as one serving compile; the next group of that rung
+  replays it.
 - ``tick_exception`` raised with ``max_inflight_ticks - 1`` ticks and a
   prefill queued behind a sleep kernel fails the callers bound to
   slots; the reset clears the state in place (no buffer moves, no graph
@@ -54,7 +65,8 @@ from gofr_tpu_torch.slo import SLOTracker
 from gofr_tpu_torch.tpu import faults
 from gofr_tpu_torch.tpu.constrain import NEG_BIAS
 from gofr_tpu_torch.tpu.flightrecorder import FlightRecorder
-from gofr_tpu_torch.tpu.generate import GenerationEngine
+from gofr_tpu_torch.tpu.generate import (GenerationEngine, _pack,
+                                         _prefill_key)
 from gofr_tpu_torch.trace import ListExporter, Tracer
 
 pytestmark = pytest.mark.cuda
@@ -77,11 +89,12 @@ def _cfg(**over):
                use_flash=True), **over})
 
 
-def _engine(cuda, int8=False, spec=False, paged=True, d=128, **kw):
+def _engine(cuda, int8=False, spec=False, paged=True, d=128,
+            int8_draft=False, **kw):
     cfg = _cfg(kv_int8=int8, dim=8 * d)
     params = llama.init(cfg, 0, device=cuda)
     if spec:
-        dcfg = _cfg(dim=8 * d)
+        dcfg = _cfg(dim=8 * d, kv_int8=int8_draft)
         kw.update(draft_cfg=dcfg, draft_params=llama.init(dcfg, 1,
                                                           device=cuda),
                   spec_gamma=4)
@@ -449,18 +462,8 @@ def test_hooked_burst_is_the_unhooked_burst_and_syncs_nowhere(cuda, paged):
     want = asyncio.run(_serve(bare, prompts))
     engine, tracer, exporter, store = _hooked(cuda, paged)
     asyncio.run(engine.warmup(windows="all"))
-    prefill = engine._prefill_insert
-
-    def lenient(*args):
-        # the eager prefill is not part of the dispatch path
-        torch.cuda.set_sync_debug_mode("default")
-        try:
-            return prefill(*args)
-        finally:
-            torch.cuda.set_sync_debug_mode("error")
-
-    engine._prefill_insert = lenient
     replays = engine.graph_replays
+    prefills = engine.stats()["graphs"]["prefill"]["replays"]
     torch.cuda.set_sync_debug_mode("error")
     try:
         got = asyncio.run(_serve(engine, prompts))
@@ -471,6 +474,9 @@ def test_hooked_burst_is_the_unhooked_burst_and_syncs_nowhere(cuda, paged):
     ticks = engine.ticks + engine.spec_dispatches
     assert engine.graph_replays - replays == ticks and not \
         engine.lazy_captures
+    graphs = engine.stats()["graphs"]["prefill"]
+    assert graphs["replays"] - prefills == engine.prefill_dispatches
+    assert not graphs["lazy_captures"]
     assert engine.serving_compiles() == 0
     assert len(store.ticks) == ticks
     names = [span.name for span in exporter.spans]
@@ -535,3 +541,153 @@ def test_tick_exception_with_ticks_in_flight_resets_in_place(cuda, paged):
     _restore(engine, saved)
     np.testing.assert_array_equal(engine._run_tick(key, None, None)(), eager)
 
+
+
+# what each prefill kind's engine has: (spec, prefix store)
+PREFILL_KINDS = {"full": (False, True), "suffix": (True, True),
+                 "biased": (False, False), "draft": (True, False)}
+
+
+def _prefill_state(engine):
+    tensors = dict(_state(engine), temps=engine.temps, top_ks=engine.top_ks,
+                   top_ps=engine.top_ps)
+    if engine._prefix is not None and not engine.paged:
+        tensors.update({f"store.{k}": v
+                        for k, v in engine._prefix._pool.leaves.items()})
+    return tensors
+
+
+def _without_scratch(name, tensor):
+    """A pool's or store's leaves without the scratch page, which takes
+    every dropped write (which lands last is not defined)."""
+    if name.startswith(("pool.", "store.")):
+        return tensor[:, :-1]
+    return tensor
+
+
+def _prefill_group(engine, kind, rng, head=(), pages=()):
+    """One group of ``kind`` for slots 0 and 2 (rows 0 and 1, the rest
+    padding): random prompts, sampling rows (one greedy, one sampled),
+    seeds; paged, fresh pages; suffix, at bucket 32 after the store's
+    cached ``pages`` of ``head``, the whole prompts for the draft at
+    bucket 64; biased, a bias row that allows 3 tokens; dense with the
+    store, the first row's first page published. Returns the
+    ``_prefill_insert`` arguments."""
+    p_rung = len(pages)
+    bucket, db = (32, 64) if p_rung else (64, 0)
+    nb = engine._prefill_count(2, bucket)
+    arrays = engine._group_arrays(nb, bucket, p_rung, db)
+    floats = engine._group_floats(nb, kind == "biased")
+    vocab = engine.cfg.vocab_size
+    for row, slot in enumerate((0, 2)):
+        length = int(rng.integers(10, bucket))
+        suffix = rng.integers(0, vocab, length).tolist()
+        arrays["tokens"][row, :length] = suffix
+        arrays["lengths"][row] = length
+        arrays["row_of_slot"][slot] = row
+        arrays["top_ks"][row] = (0, 20)[row]
+        arrays["seeds"][row] = 17 + row
+        floats[row], floats[nb + row] = ((0.0, 1.0), (0.9, 0.95))[row]
+        if engine.paged:
+            npg = bucket // PAGE
+            arrays["page_ids"][row * npg:(row + 1) * npg] = \
+                engine._pool.alloc(npg)
+        if p_rung:
+            arrays["prefix_ids"][row] = pages
+            prompt = list(head) + suffix
+            arrays["draft_tokens"][row, :len(prompt)] = prompt
+            arrays["draft_lengths"][row] = len(prompt)
+        if kind == "biased":
+            bias = np.full(vocab, NEG_BIAS, np.float32)
+            bias[rng.choice(vocab, 3, replace=False)] = 0.0
+            floats[2 * nb + row * vocab:2 * nb + (row + 1) * vocab] = bias
+    if "publish_ids" in arrays:
+        arrays["publish_ids"][0] = 3
+    ints, layout = _pack(arrays)
+    return (nb, bucket, 2, p_rung, ints, layout, floats, kind == "biased")
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("kind", sorted(PREFILL_KINDS))
+def test_prefill_replay_is_bitwise_the_eager_prefill(cuda, kind, paged,
+                                                     int8):
+    spec, prefix = PREFILL_KINDS[kind]
+    engine = _engine(cuda, int8=int8, spec=spec, paged=paged, d=64,
+                     int8_draft=int8, prefix_cache=prefix)
+    asyncio.run(engine.warmup(ks=(4,)))
+    rng = np.random.default_rng(23)
+    head, pages = [], []
+    if kind == "suffix":
+        # a full prefill publishes (dense) or registers (paged) its head's
+        # page; the group then reads it
+        head = rng.integers(0, 1024, PAGE).tolist()
+        asyncio.run(_admit(engine, [head + [5, 6, 7]]))
+        pages = [node.page_id for node in engine._prefix.lookup(head + [9])]
+        assert len(pages) == 1
+    _fill_state(engine, 13)
+    args = _prefill_group(engine, kind, rng, head, pages)
+    nb, bucket, _, p_rung, ints, layout, floats, biased = args
+    rung = engine._prefill_rung(
+        _prefill_key(nb, bucket, p_rung, biased, layout), layout,
+        floats.size)
+    assert (rung.graph is None) == (kind in ("suffix", "biased"))
+    torch.cuda.synchronize()
+    saved = {k: v.clone() for k, v in _prefill_state(engine).items()}
+    launch_counts.write({k: 0 for k in launch_counts.read()})
+    engine._staging.upload(rung.ints, ints)
+    engine._staging.upload(rung.floats, floats)
+    eager = engine._prefill_body(rung).cpu().numpy()
+    eager_counts = launch_counts.read()
+    after_eager = {k: v.clone() for k, v in _prefill_state(engine).items()}
+    if rung.graph is None:
+        engine._capture_prefill(rung)
+    for name, tensor in _prefill_state(engine).items():
+        tensor.copy_(saved[name])
+    launch_counts.write({k: 0 for k in launch_counts.read()})
+    replays = rung.replays
+    replayed = engine._prefill_insert(*args)()
+    assert rung.replays == replays + 1
+    assert launch_counts.read() == eager_counts
+    assert eager_counts["flash_attention.launches"] > 0
+    np.testing.assert_array_equal(replayed, eager)
+    for name, tensor in _prefill_state(engine).items():
+        assert torch.equal(_bits(_without_scratch(name, tensor)),
+                           _bits(_without_scratch(name, after_eager[name]))), \
+            name
+    # the claimed slots moved; slots 1 and 3 kept their state
+    for name in ("cache_len", "last_token", "keys", "temps"):
+        assert torch.equal(after_eager[name][[1, 3]], saved[name][[1, 3]])
+    assert not torch.equal(after_eager["cache_len"][[0, 2]],
+                           saved["cache_len"][[0, 2]])
+    if biased:
+        assert floats[2 * nb + replayed[0]] == 0.0
+
+
+def test_lazy_suffix_capture_is_one_serving_compile(cuda):
+    engine = _engine(cuda, paged=False, d=64, prefix_cache=True)
+    asyncio.run(engine.warmup(windows="all"))
+    assert engine.serving_compiles() == 0
+    head = np.random.default_rng(29).integers(0, 1024, PAGE).tolist()
+
+    async def serve():
+        await engine.start()
+        try:
+            await engine.generate(head + [1, 2, 3], 4)
+            graphs = dict(engine.stats()["graphs"]["prefill"])
+            await engine.generate(head + [4, 5], 4)
+            first = engine.serving_compiles()
+            await engine.generate(head + [6, 7, 8, 9], 4)
+            return graphs, first
+        finally:
+            await engine.stop()
+
+    before, first = asyncio.run(serve())
+    after = engine.stats()["graphs"]["prefill"]
+    assert before["lazy_captures"] == 0
+    assert first == engine.serving_compiles() == 1
+    assert after["lazy_captures"] == 1
+    assert after["by_kind"]["suffix_prefill"] == 1
+    assert after["replays"] - before["replays"] == 2
+    assert engine.stats()["prefix_cache"]["suffix_prefills"] == 2
+    assert engine.lazy_captures == 0

@@ -17,8 +17,8 @@ the paged engine, against the JAX package on the CPU.
   paged engine (``ragged_attn="on"``, steps per tick 1 and 4), and of the
   int8-target speculative engine (float32 draft, the target's weights or
   its own) with the JAX speculative engine; every page comes back.
-- The refusals: a ``kv_int8`` draft, and the dense ``decode_step`` with
-  ``kv_int8``.
+- A ``kv_int8`` draft is served (the ragged route over its identity
+  tables); the flash-decode route with ``kv_int8`` is refused.
 
 Bounds as in test_torch_ragged_paged_attention: f32 ``atol=rtol=1e-5``,
 bf16 one ulp ``atol=rtol=1.6e-2``; model logits ``atol=1e-4`` (float32,
@@ -513,10 +513,18 @@ def test_int8_spec_engine_greedy_identity_with_jax(engines, draft):
 
 
 def test_kv_int8_draft_and_dense_decode_step_are_refused(engines):
-    with pytest.raises(ValueError, match="kv_int8"):
-        GenerationEngine(engines["cfg"], engines["params"], device="cpu",
-                         draft_cfg=engines["cfg"],
-                         draft_params=engines["params"], **ENGINE_KW)
+    """A ``kv_int8`` draft is taken as given, as the JAX engine takes it:
+    it decodes through the ragged route over its own identity tables,
+    its dense cache int8 with its scale planes (its parity with JAX:
+    tests/test_torch_compiled_prefill.py). What stays refused is the
+    flash-decode route over an int8 cache, as in JAX."""
+    engine = GenerationEngine(engines["cfg"], engines["params"],
+                              device="cpu", draft_cfg=engines["cfg"],
+                              draft_params=engines["params"], **ENGINE_KW)
+    assert not engine.draft_cfg.use_flash_decode
+    assert engine._draft_cache["k"].dtype == torch.int8
+    assert set(engine._draft_cache) == {"k", "v", "ks", "vs"}
+    assert set(engine._draft_tables) == set(engine._window_ladder)
     # the dense step's flash-decode route reads a bf16 cache: an int8
     # config cannot take it (the dense int8 step runs the ragged route,
     # tests/test_torch_dense.py)

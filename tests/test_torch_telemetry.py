@@ -61,7 +61,8 @@ TIMED = {"app_tpu_device_seconds_total",
 # series the JAX engine emits and the port does not, with the reason
 JAX_ONLY = {
     # the JAX engine counts jit-cache misses on every backend; the port
-    # counts graph captures, which only the card makes
+    # counts graph captures (ticks and prefill rungs), which only the card
+    # makes
     ("app_tpu_engine_compiles_total",
      (("cls", "serving"), ("model", "generate"))),
     # metered uploads (the JAX StagingPool's H2D meter) are not ported
