@@ -14,7 +14,9 @@ int8 instantiation; then the example app's default preset, ``small``
 (head_dim 64), at the example's engine settings, and prefix KV reuse
 on shared-prefix traffic, then grammar-constrained decoding and
 admission (SLO classes, deadlines, brownout), then the engine's
-telemetry hooks, fault sites and SLO control loop.
+telemetry hooks, fault sites and SLO control loop, then every engine
+argument the example app passes (the MoE model module, a shared page
+pool, ``ragged_attn``, upload coalescing) and int8 weights.
 Phases, each of which raises (exit code != 0) on failure:
 
 1. card identity (``nvidia-smi`` name and power limit, torch/CUDA);
@@ -74,7 +76,10 @@ Phases, each of which raises (exit code != 0) on failure:
     rung 128 ... 2048, fills {0, 1, 31, 127, 128, 700, 1500} cut to the
     rung and one inactive row past it (2047), every position past a
     row's reach NaN; decode and verify at G 5, bf16 then int8, held to
-    phases 4-5's gates and timed with the bound from the bytes;
+    phases 4-5's gates and timed with the bound from the bytes, bf16
+    decode beside one ``scaled_dot_product_attention`` call over the
+    dense cache with a per-row length mask (a yardstick only; phase 19
+    too, at D 64);
 14. the flash-decode kernel over window views of a T 2048 cache (the
     full cache's slot stride), rungs 128 ... 1024, against its plain
     version within phase 6's gate, timed;
@@ -175,9 +180,37 @@ Phases, each of which raises (exit code != 0) on failure:
     draft decodes through the ragged kernel's int8 instantiation over its
     identity tables; every tick and prefill a replay, launches as
     counted; the same engine with its prefills run eagerly gives the
-    same greedy completions, and so does the paged engine.
+    same greedy completions, and so does the paged engine;
+30. the example app's engine arguments (after phase 29, on phase 20's
+    weights): (a) ``moe-small`` (``moe.config(base=llama.config("small",
+    vocab_size=256))``: dim 1024, 8 layers, 16/16 heads, ffn 2816, 4
+    experts, full width and depth, random weights from ``--seed`` + 5)
+    at the example's engine with the app's ``warmup(prompt_counts=(1,
+    8))``: every prefill graph at JAX's rows (no padding to
+    ``CUDA_MIN_PREFILL_ROWS``), a tick and an 8 x 512 prefill replayed
+    = run eagerly bit for bit on random live state, phase 9's burst
+    served twice (the second counted: every tick and prefill a replay,
+    ragged launches = layers x decode steps, no flash launch: JAX's MoE
+    prefill is dense), then profiled (idle share); tok/s, TTFT, capture
+    seconds and reserved bytes, and the dispatch/combine einsums' share
+    of the 8 x 512 prefill and of a decode step (the two einsums timed
+    alone at the path's shapes, times the layers); (b) two ``small``
+    paged engines sharing one ``PagePool`` of ``budget_bytes`` 512 MiB
+    (the app's MODELS path): each one's burst alone, then both at once
+    (each engine's tokens equal its own alone, every page back, launches
+    as counted), then a reset by one while the other streams (its
+    request fails, its next burst equals its tokens alone); an engine
+    sized by ``kv_pool_bytes`` has that many pages; (c) ``ragged_attn=
+    "off"`` on the small paged engine: no ragged launch in its burst,
+    tok/s beside phase 21's (``auto``), one decode step's logits on a
+    fixed prompt within the ragged row gate of the ragged route's; (d)
+    ``coalesce_uploads`` and ``coalesce_stream`` on against off on the
+    small dense engine: the same greedy and streamed tokens, H2D copies
+    a tick, tok/s, idle share, a coalesced engine's tick replayed = run
+    eagerly; (e) the same engine over ``llama.quantize_params`` weights:
+    tok/s beside bf16's, the weight bytes.
 
-Every engine burst (phases 9-12, 15-18, 20-23) is served twice:
+Every engine burst (phases 9-12, 15-18, 20-23, 30a) is served twice:
 counted, then under ``torch.profiler`` for the device's idle share. Every
 engine's ``warmup()`` takes every prompt count (1 .. max_slots), so a
 burst's full prefills are all replays.
@@ -194,6 +227,7 @@ import asyncio
 import dataclasses
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -702,6 +736,10 @@ def identity_cases(torch, ragged_mod, timer, geom):
                 err, row_err = check_ragged(torch, out, ref, what)
                 ms = timer(lambda: kernel(*args), iters=20)
                 plain_ms = timer(lambda: plain(*args), iters=3)
+                lib_ms = None
+                if not int8 and g_len == 1:
+                    lib_ms = identity_sdpa_ms(torch, timer, args, reach,
+                                              geom, rung)
                 nbytes, flops = paged_cost(reach, g_len, args[3].numel(),
                                            int8, geom)
                 bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S)
@@ -709,7 +747,8 @@ def identity_cases(torch, ragged_mod, timer, geom):
                            head_dim=geom.head_dim,
                            pools="int8" if int8 else "bf16",
                            max_abs_err=err, row_rel_l2=row_err, ms=ms,
-                           plain_ms=plain_ms, bound_ms=bound * 1e3,
+                           plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=bound * 1e3,
                            bound_by=("operations" if flops / BF16_FLOP_PER_S
                                      >= nbytes / HBM_BYTES_PER_S
                                      else "bytes"),
@@ -717,9 +756,33 @@ def identity_cases(torch, ragged_mod, timer, geom):
                 rows.append(row)
                 log(f"{what} err={err:.3e} row={row_err:.3e} "
                     f"kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
-                    f"bound={row['bound_ms']:.4f}ms "
+                    + (f"sdpa={lib_ms:.4f}ms " if lib_ms else "")
+                    + f"bound={row['bound_ms']:.4f}ms "
                     f"({row['gb_per_s']:.1f} GB/s)")
     return rows
+
+
+def identity_sdpa_ms(torch, timer, args, reach, geom, rung):
+    """One ``scaled_dot_product_attention`` call computing what the ragged
+    kernel computes over an identity table (a yardstick only): the dense
+    cache's first ``rung`` positions plus the new token, a per-row length
+    mask, GQA; inputs laid out for it outside the timing."""
+    import torch.nn.functional as F
+
+    q, k_pages, v_pages, _, k_new, v_new, _ = args[:7]
+    b, t_max = len(reach), geom.dense_t
+    w = rung or t_max
+    k, v = (x.view(b, t_max, geom.kv_heads, geom.head_dim)[:, :w]
+            for x in (k_pages, v_pages))
+    k_all, v_all = (torch.cat([x.nan_to_num(), new[:, None]], 1)
+                    .transpose(1, 2).contiguous()
+                    for x, new in ((k, k_new), (v, v_new)))
+    q_t = q.transpose(1, 2).contiguous()
+    pos = torch.arange(w + 1, device="cuda")[None, :]
+    lens = torch.tensor(reach, device="cuda")
+    mask = ((pos < lens[:, None]) | (pos == w))[:, None, None, :]
+    return timer(lambda: F.scaled_dot_product_attention(
+        q_t, k_all, v_all, attn_mask=mask, enable_gqa=True), iters=20)
 
 
 def phase_identity_ragged(torch, ragged_mod, timer, results):
@@ -898,12 +961,11 @@ def eager_prefill(engine):
     from gofr_tpu_torch.tpu.generate import _prefill_key
 
     def run(nb, bucket, n_claimed, p_rung, ints, layout, floats,
-            biased=False):
+            biased=False, epoch=None):
         rung = engine._prefill_rung(
             _prefill_key(nb, bucket, p_rung, biased, layout), layout,
             floats.size)
-        engine._staging.upload(rung.ints, ints)
-        engine._staging.upload(rung.floats, floats)
+        engine._upload_prefill(rung, ints, floats)
         return engine._staging.fetch(engine._prefill_body(rung))
     engine._prefill_insert = run
 
@@ -1621,6 +1683,590 @@ def phase_int8_draft(torch, llama, generate, mods, params, seed, results):
             != results["small_int8_draft_paged"]["greedy_outputs"]:
         raise AssertionError("small_int8_draft: the paged engine's greedy "
                              "completions differ from the dense engine's")
+    return by_path
+
+
+# -- phase 30: every engine argument the example app passes ---------------
+PATH_KERNELS.update({"moe_small": ("ragged",),
+                     "shared_pool": ("flash", "ragged"),
+                     "ragged_off": ("flash",),
+                     "coalesced": ("flash", "ragged"),
+                     "uncoalesced": ("flash", "ragged"),
+                     "int8_weights": ("flash", "ragged")})
+
+
+async def timed_burst(torch, engine, prompts, budget, samplings, timeout,
+                      profile=False):
+    """One burst on a started engine: (outputs, wall seconds, sorted
+    TTFTs, the device's idle share under ``torch.profiler`` or None)."""
+    from torch.profiler import ProfilerActivity
+
+    gc.collect()
+    engine.ttfts.clear()
+    prof = (torch.profiler.profile(activities=[ProfilerActivity.CUDA])
+            if profile else None)
+    if prof is not None:
+        prof.__enter__()
+    t0 = time.monotonic()
+    try:
+        outs = await asyncio.wait_for(asyncio.gather(*[
+            engine.generate(p, budget, sampling=s)
+            for p, s in zip(prompts, samplings)]), timeout)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    finally:
+        if prof is not None:
+            prof.__exit__(None, None, None)
+    idle = None
+    if prof is not None:
+        idle = 1.0 - sum(device_times(torch, prof)[0].values()) / wall
+    return outs, wall, sorted(engine.ttfts), idle
+
+
+def state_bits(torch, engine):
+    """The engine's device state, bf16 leaves as their int16 bits."""
+    leaves = engine._pool.leaves if engine.paged else engine.cache
+    out = {"cache_len": engine.cache_len, "last_token": engine.last_token,
+           "keys": engine.sample_keys}
+    out.update({f"kv.{k}": (v[:, :-1] if engine.paged else v)
+                for k, v in leaves.items()})
+    return {k: (v.view(torch.int16) if v.dtype == torch.bfloat16 else v)
+            .clone() for k, v in out.items()}
+
+
+def replay_equals_eager(torch, engine, eager, replay, what):
+    """Run ``eager()`` from a copy of the engine's state, restore it, run
+    ``replay()``; fail unless the outputs and the state are the same
+    bits. Returns the outputs."""
+    leaves = engine._pool.leaves if engine.paged else engine.cache
+    live = dict(cache_len=engine.cache_len, last_token=engine.last_token,
+                keys=engine.sample_keys, **leaves)
+    saved = {k: v.clone() for k, v in live.items()}
+    want = eager()
+    want = want.cpu().numpy() if hasattr(want, "cpu") else want
+    torch.cuda.synchronize()
+    after = state_bits(torch, engine)
+    for k, v in live.items():
+        v.copy_(saved[k])
+    got = replay()
+    torch.cuda.synchronize()
+    import numpy as np
+
+    same = np.array_equal(np.asarray(got), np.asarray(want)) and all(
+        torch.equal(v, after[k]) for k, v in state_bits(torch,
+                                                        engine).items())
+    log(f"{what}: replay = eager bits (outputs and state): {same}")
+    if not same:
+        raise AssertionError(f"{what}: the replay differs from the eager "
+                             f"run")
+    return got
+
+
+def random_state(torch, engine, seed, fills):
+    """Random dense cache rows and live state on every slot (an MoE
+    routes every row)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for leaf in engine.cache.values():
+        leaf.copy_(torch.randn(leaf.shape, generator=gen, device="cuda")
+                   * 0.5)
+    engine.cache_len.copy_(torch.tensor(fills, dtype=torch.int32))
+    engine.last_token.copy_(torch.randint(
+        0, engine.cfg.vocab_size, (engine.max_slots,), generator=gen,
+        device="cuda"))
+    engine.active.fill_(True)
+
+
+def moe_step_shares(torch, moe, engine, prefill_key, step_ms, timer):
+    """The dispatch and combine einsums' share of a prefill and of a
+    decode step: the two einsums timed alone (CUDA events, L2 flushed)
+    at the path's shapes, times the layers, over the prefill rung's
+    replay and over a tick step's time."""
+    cfg = engine.cfg
+    d, e = cfg.dim, cfg.n_experts
+    out = {}
+    for name, tokens in (("prefill", prefill_key[0] * prefill_key[1]),
+                         ("step", engine.max_slots)):
+        cap = max(1, int(math.ceil(tokens / e * cfg.capacity_factor)))
+        dispatch = torch.rand((tokens, e, cap), device="cuda")
+        flat = torch.randn((tokens, d), device="cuda")
+        expert_out = torch.randn((e, cap, d), device="cuda")
+        ms = timer(lambda: (torch.einsum("tec,td->ecd", dispatch, flat),
+                            torch.einsum("tec,ecd->td", dispatch,
+                                         expert_out)))
+        out[name] = dict(tokens=tokens, capacity=cap,
+                         einsums_ms_per_layer=ms,
+                         einsums_ms=ms * cfg.n_layers,
+                         dispatch_mb=dispatch.numel() * 4 / 2**20)
+        del dispatch, flat, expert_out
+    rung = engine._prefills[prefill_key]
+    prefill_ms = timer(lambda: rung.graph.replay(), iters=5)
+    out["prefill"].update(graph_ms=prefill_ms,
+                          share=out["prefill"]["einsums_ms"] / prefill_ms)
+    out["step"].update(step_ms=step_ms,
+                       share=out["step"]["einsums_ms"] / step_ms)
+    log(f"moe einsums (dispatch + combine, {cfg.n_layers} layers): "
+        f"prefill {prefill_key[:2]} {out['prefill']['einsums_ms']:.3f} of "
+        f"{prefill_ms:.3f} ms = {out['prefill']['share']:.3f} (T "
+        f"{out['prefill']['tokens']}, C {out['prefill']['capacity']}, the "
+        f"(T, E, C) tensor {out['prefill']['dispatch_mb']:.1f} MiB); step "
+        f"{out['step']['einsums_ms']:.4f} of {step_ms:.4f} ms = "
+        f"{out['step']['share']:.3f}")
+    return out
+
+
+def phase_moe(torch, llama, moe, generate, mods, seed, results):
+    """Phase 30a: ``moe-small`` at the example app's engine: the app's
+    ``warmup(prompt_counts=(1, 8))``, prefill graphs at JAX's rows, replay
+    = eager bits for a tick and a prefill, phase 9's burst. Returns its
+    launches."""
+    import numpy as np
+
+    cfg = moe.config(base=llama.config("small", vocab_size=EXAMPLE_VOCAB))
+    log(f"== phase 30a: moe-small (dim {cfg.dim}, {cfg.n_layers} layers, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, head_dim {cfg.head_dim}, "
+        f"ffn {cfg.base.ffn_dim}, {cfg.n_experts} experts, capacity factor "
+        f"{cfg.capacity_factor}) at the example's engine {SMALL_ENGINE}, "
+        f"dense")
+    params = moe.init(cfg, seed + 5, device="cuda")
+    engine = generate.GenerationEngine(cfg, params, model_module=moe,
+                                       device="cuda", **SMALL_ENGINE)
+    memory = {}
+    probe_warmup_memory(torch, engine, memory)
+    t0 = time.monotonic()
+    asyncio.run(engine.warmup(prompt_counts=(1, 8)))
+    torch.cuda.synchronize()
+    warm_s = time.monotonic() - t0
+    keys = sorted(tuple(k) for k in
+                  engine.stats()["graphs"]["prefill"]["keys"])
+    want = sorted((n, b, 0, False, 0) for b in engine.prompt_buckets
+                  for n in (1, 8))
+    log(f"moe prefill graphs {keys} (JAX's rows: {want})")
+    if keys != want:
+        raise AssertionError(f"moe prefill graphs {keys}, expected JAX's "
+                             f"rows {want} (no padding to "
+                             f"{generate.CUDA_MIN_PREFILL_ROWS} rows)")
+    # replay = eager bits, one tick and one prefill, on random live state
+    tick = next(k for k in engine._graphs if k[0] == "plain"
+                and k[1] == engine.steps_per_tick and not k[2])
+    random_state(torch, engine, seed + 6, [5, 30, 64, 100, 8, 90, 17, 50])
+    replay_equals_eager(torch, engine,
+                        lambda: engine._tick_body(tick, engine.active),
+                        lambda: engine._run_tick(tick, None, None)(),
+                        f"moe tick {tick}")
+    pkey = (8, 512, 0, False, 0)
+    rng = np.random.default_rng(seed + 7)
+    arrays = engine._group_arrays(8, 512, 0)
+    lengths = [512, 480, 300, 128, 100, 64, 30, 5]
+    for row, n in enumerate(lengths):
+        arrays["tokens"][row, :n] = rng.integers(0, cfg.vocab_size, n)
+        arrays["lengths"][row] = n
+        arrays["row_of_slot"][row] = row
+        arrays["seeds"][row] = row
+    floats = engine._group_floats(8, False)
+    ints, layout = generate._pack(arrays)
+    rung = engine._prefills[pkey]
+
+    def eager_prefill_once():
+        engine._upload_prefill(rung, ints, floats)
+        return engine._prefill_body(rung)
+    replay_equals_eager(
+        torch, engine, eager_prefill_once,
+        lambda: engine._prefill_insert(8, 512, 8, 0, ints, layout, floats)(),
+        f"moe prefill {pkey}")
+    engine._reset_device_state()
+    prompts = engine_prompts(cfg, seed)
+    budget = 32
+    samplings = [generate.Sampling() for _ in range(7)] + [
+        generate.Sampling(temperature=0.8, top_p=0.95, seed=seed)]
+
+    async def serve():
+        await engine.start()
+        try:
+            # the app warms counts 1 and 8 only: the first burst captures
+            # its other rows' rungs; the second is counted
+            first = await timed_burst(torch, engine, prompts, budget,
+                                      samplings, 600)
+            for mod in mods:
+                mod.reset_launches()
+            before = run_counters(engine)
+            counted = await timed_burst(torch, engine, prompts, budget,
+                                        samplings, 600)
+            launches = read_launches(mods)
+            after = run_counters(engine)
+            profiled = await timed_burst(torch, engine, prompts, budget,
+                                         samplings, 600, profile=True)
+            return first, counted, launches, before, after, profiled
+        finally:
+            await engine.stop()
+
+    first, counted, launches, before, after, profiled = asyncio.run(serve())
+    counters = {k: after[k] - before[k] for k in after}
+    outs, wall, ttfts, _ = counted
+    if outs[:7] != first[0][:7]:
+        raise AssertionError("moe: greedy completions differ between the "
+                             "first and the counted burst")
+    if counters["replays"] != counters["ticks"] or counters["lazy_captures"] \
+            or counters["prefill_replays"] != counters["prefills"] \
+            or counters["prefill_lazy"]:
+        raise AssertionError(f"moe: every tick and prefill of the counted "
+                             f"burst must replay a graph: {counters}")
+    want_launches = dict.fromkeys(launches, 0)
+    want_launches["ragged"] = cfg.n_layers * counters["steps"]
+    check_launches(launches, want_launches, "moe_small")
+    for out in outs:
+        if len(out) != budget or not all(0 <= t < cfg.vocab_size
+                                         for t in out):
+            raise AssertionError(f"moe: bad completion {out}")
+    step_ms = wall * 1e3 / max(counters["steps"], 1)
+    timer = Timer(torch)
+    shares = moe_step_shares(torch, moe, engine, pkey, step_ms, timer)
+    del timer
+    tokens = budget * len(outs)
+    graphs = engine.stats()["graphs"]
+    row = dict(tokens_per_s=tokens / wall, wall_s=wall, ttft_s=ttfts,
+               ttft_p50_s=ttfts[len(ttfts) // 2], ttft_max_s=ttfts[-1],
+               device_idle_share=profiled[3], warmup_s=warm_s,
+               capture_s=graphs["capture_s"],
+               prefill_capture_s=graphs["prefill"]["capture_s"],
+               prefill_graph_keys=keys, reserved_after_warmup=memory[
+                   "_warm_prefills_after"],
+               tick_capture_bytes=memory["_warm_after"]
+               - memory["_warm_before"],
+               prefill_capture_bytes=memory["_warm_prefills_after"]
+               - memory["_warm_prefills_before"],
+               launches=launches, counters=counters, einsums=shares,
+               greedy_outputs=outs[:7])
+    results["moe_small"] = row
+    log(f"moe_small: {tokens / wall:.1f} tok/s, TTFT p50 "
+        f"{row['ttft_p50_s']:.4f}s max {row['ttft_max_s']:.4f}s, device "
+        f"idle share {profiled[3]:.4f}; warmup {warm_s:.2f}s (ticks "
+        f"{row['capture_s']:.2f}s, prefills {row['prefill_capture_s']:.2f}s"
+        f"), reserved {row['reserved_after_warmup']} bytes after warmup "
+        f"(+{row['tick_capture_bytes']} ticks, "
+        f"+{row['prefill_capture_bytes']} prefills); {counters['steps']} "
+        f"decode steps, {counters['prefills']} prefills; ragged launches "
+        f"{launches['ragged']}")
+    del engine, params
+    torch.cuda.empty_cache()
+    return {"moe_small": launches}
+
+
+def serve_alone(torch, engine, prompts, budget, samplings):
+    """Warm ``engine`` as the app does and serve one burst on it."""
+    async def run():
+        await engine.warmup(prompt_counts=(1, engine.max_slots))
+        await engine.start()
+        try:
+            return await timed_burst(torch, engine, prompts, budget,
+                                     samplings, 600)
+        finally:
+            await engine.stop()
+    return asyncio.run(run())
+
+
+def phase_shared_pool(torch, generate, page_pool, mods, cfg, params, seed,
+                      results):
+    """Phase 30b: two ``small`` paged engines sharing one ``PagePool``
+    sized by ``budget_bytes`` (the app's MODELS path), each alone, then
+    concurrent; a reset by one fails the other's in-flight request; an
+    engine sized by ``kv_pool_bytes``. Returns launches."""
+    log("== phase 30b: two small paged engines sharing one page pool "
+        "(budget_bytes 512 MiB), concurrent bursts, a co-resident's reset")
+    budget_bytes = 512 << 20
+    pool = page_pool.PagePool(cfg, page=32, budget_bytes=budget_bytes,
+                              device="cuda")
+    kw = dict(SMALL_ENGINE, paged_kv=True, kv_page=32, device="cuda")
+    engines = [generate.GenerationEngine(cfg, params, page_pool=pool,
+                                         model_name=f"m{i}", **kw)
+               for i in range(2)]
+    prompts = [engine_prompts(cfg, seed + i) for i in range(2)]
+    budget = 32
+    samplings = [generate.Sampling()] * 8
+    alone = [serve_alone(torch, e, p, budget, samplings)[0]
+             for e, p in zip(engines, prompts)]
+    for mod in mods:
+        mod.reset_launches()
+
+    async def together():
+        for e in engines:
+            await e.start()
+        try:
+            before = [run_counters(e) for e in engines]
+            bursts = await asyncio.gather(*[
+                timed_burst(torch, e, p, budget, samplings, 600)
+                for e, p in zip(engines, prompts)])
+            launches = read_launches(mods)
+            want = dict.fromkeys(launches, 0)
+            for e, b in zip(engines, before):
+                after = run_counters(e)
+                for k, n in expected_launches(cfg, {
+                        k: after[k] - b[k] for k in after}).items():
+                    want[k] += n
+            # a reset by engine 0 while engine 1 has a request in flight
+            stream = await engines[1].generate_stream(prompts[1][2], 400)
+            first = await stream.__anext__()
+            await asyncio.get_running_loop().run_in_executor(
+                engines[0]._device_exec, engines[0]._reset_device_state)
+            try:
+                rest = [tok async for tok in stream]
+                failed = None
+            except RuntimeError as exc:
+                rest, failed = None, exc
+            again = await timed_burst(torch, engines[1], prompts[1], budget,
+                                      samplings, 600)
+            return bursts, launches, want, rest, failed, again
+        finally:
+            for e in engines:
+                await e.stop()
+
+    bursts, launches, want, rest, failed, again = asyncio.run(together())
+    same = [b[0] == a for b, a in zip(bursts, alone)]
+    used = pool.used_pages
+    log(f"shared pool ({pool.num_pages} pages of {pool.page_bytes} bytes): "
+        f"concurrent tokens equal each engine's alone: {same}; pages in "
+        f"use after the bursts: {used}; tok/s "
+        f"{[round(budget * 8 / b[1], 1) for b in bursts]}; the reset "
+        f"failed engine 1's in-flight request: {failed!r}; engine 1's next "
+        f"burst equals its tokens alone: {again[0] == alone[1]}")
+    if not all(same):
+        raise AssertionError("shared pool: an engine's tokens differ from "
+                             "its tokens alone")
+    if failed is None or "co-resident" not in str(failed):
+        raise AssertionError(f"shared pool: the reset did not fail the "
+                             f"other engine's request (got {rest})")
+    if again[0] != alone[1]:
+        raise AssertionError("shared pool: engine 1 after the reset gives "
+                             "other tokens")
+    if pool.used_pages:
+        raise AssertionError(f"shared pool: {pool.used_pages} pages still "
+                             f"in use after every request finished")
+    check_launches(launches, want, "shared_pool")
+    sized = generate.GenerationEngine(cfg, params, kv_pool_bytes=256 << 20,
+                                      **kw)
+    want_pages = (256 << 20) // sized._pool.page_bytes
+    log(f"kv_pool_bytes 256 MiB: {sized._pool.num_pages} pages (expected "
+        f"{want_pages})")
+    if sized._pool.num_pages != want_pages:
+        raise AssertionError("kv_pool_bytes: wrong page count")
+    results["shared_pool"] = dict(
+        num_pages=pool.num_pages, budget_bytes=budget_bytes,
+        tokens_per_s=[budget * 8 / b[1] for b in bursts],
+        ttft_p50_s=[b[2][len(b[2]) // 2] for b in bursts],
+        identical_to_alone=same, reset_failed=repr(failed),
+        kv_pool_bytes_pages=sized._pool.num_pages, launches=launches)
+    del engines, sized, pool
+    torch.cuda.empty_cache()
+    return {"shared_pool": launches}
+
+
+def phase_ragged_off(torch, llama, generate, mods, cfg, params, seed,
+                     results):
+    """Phase 30c: ``ragged_attn="off"`` on the small paged engine against
+    ``"auto"`` (phase 21's engine, the same weights and burst): no ragged
+    launch in the burst; one step's logits on a fixed prompt within the
+    ragged row gate. Returns launches."""
+    log("== phase 30c: ragged_attn off (gather formulation) against auto "
+        "(phase 21), small paged")
+    prompts = engine_prompts(cfg, seed)
+    budget = 32
+    samplings = [generate.Sampling() for _ in range(7)] + [
+        generate.Sampling(temperature=0.8, top_p=0.95, seed=seed)]
+    auto = results["small_paged"]
+    out = {"auto": dict(tokens_per_s=auto["tokens_per_s"],
+                        ttft_p50_s=auto["ttft_p50_s"], attn_path="ragged",
+                        launches=auto["launches"],
+                        greedy_outputs=auto["greedy_outputs"])}
+    by_path = {}
+    for mode in ("off",):
+        engine = generate.GenerationEngine(
+            cfg, params, paged_kv=True, kv_page=32, ragged_attn=mode,
+            device="cuda", **SMALL_ENGINE)
+
+        async def run():
+            await warm(engine)
+            await engine.start()
+            try:
+                await timed_burst(torch, engine, prompts, budget,
+                                  samplings, 600)
+                for mod in mods:
+                    mod.reset_launches()
+                before = run_counters(engine)
+                got = await timed_burst(torch, engine, prompts, budget,
+                                        samplings, 600)
+                after = run_counters(engine)
+                return got, read_launches(mods), {
+                    k: after[k] - before[k] for k in after}
+            finally:
+                await engine.stop()
+        (outs, wall, ttfts, _), launches, counters = asyncio.run(run())
+        want = dict(expected_launches(cfg, counters), ragged=0)
+        check_launches(launches, want, "ragged_off")
+        out[mode] = dict(tokens_per_s=budget * 8 / wall,
+                         ttft_p50_s=ttfts[len(ttfts) // 2],
+                         attn_path=engine.attn_path, launches=launches,
+                         greedy_outputs=outs[:7])
+        log(f"ragged_attn={mode}: {budget * 8 / wall:.1f} tok/s, TTFT p50 "
+            f"{ttfts[len(ttfts) // 2]:.4f}s, path {engine.attn_path}, "
+            f"launches {launches}")
+        del engine
+        torch.cuda.empty_cache()
+    if out["off"]["launches"]["ragged"] or out["off"]["attn_path"] \
+            != "gather":
+        raise AssertionError(f"ragged_attn off: {out['off']['launches']}")
+    by_path["ragged_off"] = out["off"]["launches"]
+    # one decode step's logits on a fixed prompt, both formulations
+    pool_cfg = cfg
+    from gofr_tpu_torch.tpu.page_pool import PagePool
+
+    pool = PagePool(pool_cfg, page=32, num_pages=40, device="cuda")
+    b = 2
+    rng = torch.Generator(device="cuda").manual_seed(seed + 9)
+    prompt = torch.randint(0, cfg.vocab_size, (b, 300), generator=rng,
+                           device="cuda")
+    small = llama.init_cache(cfg, b, 320, device="cuda")
+    logits, small, lens = llama.prefill(params, cfg, prompt, small)
+    table = torch.arange(2 * 10, dtype=torch.int32,
+                         device="cuda").view(b, 10)
+    for name, leaf in pool.leaves.items():
+        leaf[:, :20] = small[name].reshape(cfg.n_layers, 20, 32,
+                                           *small[name].shape[3:])
+    token = logits.argmax(-1)
+    active = torch.ones(b, dtype=torch.bool, device="cuda")
+    steps = {}
+    for ragged in (True, False):
+        leaves = {k: v.clone() for k, v in pool.leaves.items()}
+        steps[ragged] = llama.decode_step_paged(
+            params, cfg, token, leaves, table, lens, active,
+            ragged=ragged)[0].float()
+    diff = steps[False] - steps[True]
+    row_rel = (diff.norm(dim=-1) / steps[True].norm(dim=-1)).max().item()
+    log(f"one step's logits, gather against ragged: max abs "
+        f"{diff.abs().max().item():.3e}, row relative L2 {row_rel:.3e} "
+        f"(gate {RAGGED_ROW_TOL:.3e}); the burst's 7 greedy completions "
+        f"equal auto's: "
+        f"{out['off']['greedy_outputs'] == out['auto']['greedy_outputs']}")
+    if not row_rel <= RAGGED_ROW_TOL:
+        raise AssertionError(f"ragged_attn off: logits row relative L2 "
+                             f"{row_rel} over {RAGGED_ROW_TOL}")
+    out["step_logits_row_rel_l2"] = row_rel
+    out["greedy_identical"] = (out["off"]["greedy_outputs"]
+                               == out["auto"]["greedy_outputs"])
+    results["ragged_off"] = out
+    del pool
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def phase_coalesce(torch, llama, generate, mods, cfg, params, seed, results):
+    """Phase 30d/e: ``coalesce_uploads`` and ``coalesce_stream`` on against
+    off on the small dense engine (the same tokens; H2D copies a tick,
+    tok/s, idle share), a coalesced tick's replay = eager bits; then the
+    engine over ``llama.quantize_params`` weights. Returns launches."""
+    log("== phase 30d: coalesce_uploads + coalesce_stream on against off, "
+        "small dense; 30e: int8 weights (quantize_params)")
+    prompts = engine_prompts(cfg, seed)
+    budget = 32
+    samplings = [generate.Sampling() for _ in range(7)] + [
+        generate.Sampling(temperature=0.8, top_p=0.95, seed=seed)]
+    qparams = llama.quantize_params(params)
+    runs = {}
+    by_path = {}
+    for name, kw, weights in (
+            ("uncoalesced", {}, params),
+            ("coalesced", dict(coalesce_uploads=True, coalesce_stream=True),
+             params),
+            ("int8_weights", {}, qparams)):
+        engine = generate.GenerationEngine(cfg, weights, device="cuda",
+                                           **SMALL_ENGINE, **kw)
+
+        async def run():
+            await engine.warmup(prompt_counts=(1, engine.max_slots))
+            await engine.start()
+            try:
+                await timed_burst(torch, engine, prompts, budget, samplings,
+                                  600)
+                for mod in mods:
+                    mod.reset_launches()
+                up0 = engine.data_plane()
+                before = run_counters(engine)
+                got = await timed_burst(torch, engine, prompts, budget,
+                                        samplings, 600)
+                launches = read_launches(mods)
+                up1 = engine.data_plane()
+                after = run_counters(engine)
+                check_launches(launches, expected_launches(cfg, {
+                    k: after[k] - before[k] for k in after}), name)
+                ticks = after["ticks"] - before["ticks"]
+                prof = await timed_burst(torch, engine, prompts, budget,
+                                         samplings, 600, profile=True)
+                stream = await engine.generate_stream(prompts[3], 40)
+                streamed = [tok async for tok in stream]
+                return got, launches, up0, up1, ticks, prof[3], streamed
+            finally:
+                await engine.stop()
+        (outs, wall, ttfts, _), launches, up0, up1, ticks, idle, streamed = \
+            asyncio.run(run())
+        copies = up1["h2d_uploads"] - up0["h2d_uploads"]
+        row = dict(tokens_per_s=budget * 8 / wall,
+                   ttft_p50_s=ttfts[len(ttfts) // 2], device_idle_share=idle,
+                   h2d_copies=copies, ticks=ticks,
+                   h2d_copies_per_tick=copies / max(ticks, 1),
+                   h2d_bytes=up1["h2d_bytes"] - up0["h2d_bytes"],
+                   coalescer=up1["coalescer"], launches=launches,
+                   greedy_outputs=outs[:7], streamed=streamed,
+                   weight_bytes=sum(t.numel() * t.element_size()
+                                    for t in _leaves(weights)))
+        runs[name] = row
+        by_path[name] = launches
+        log(f"{name}: {row['tokens_per_s']:.1f} tok/s, TTFT p50 "
+            f"{row['ttft_p50_s']:.4f}s, idle share {idle:.4f}; {copies} "
+            f"H2D copies over {ticks} ticks and the prefills "
+            f"({row['h2d_copies_per_tick']:.3f} a tick), coalescer "
+            f"{up1['coalescer']}; weights {row['weight_bytes']} bytes; "
+            f"launches {launches}")
+        if name == "coalesced":
+            key = next(k for k in engine._graphs if k[0] == "plain")
+            random_state(torch, engine, seed + 10,
+                         [5, 30, 64, 100, 8, 90, 17, 50])
+            replay_equals_eager(
+                torch, engine, lambda: engine._tick_body(key, engine.active),
+                lambda: engine._run_tick(key, None, None)(),
+                f"coalesced tick {key}")
+            if runs[name]["coalescer"]["transfers"] == 0:
+                raise AssertionError("coalesce_uploads: no coalesced "
+                                     "transfer")
+        del engine
+        torch.cuda.empty_cache()
+    off = runs["uncoalesced"]
+    same = runs["coalesced"]["greedy_outputs"] == off["greedy_outputs"]
+    same_stream = runs["coalesced"]["streamed"] == off["streamed"]
+    log(f"coalescing on = off: greedy tokens {same}, streamed tokens "
+        f"{same_stream}; int8 weights {runs['int8_weights']['tokens_per_s']:.1f}"
+        f" tok/s against bf16 {off['tokens_per_s']:.1f}, weights "
+        f"{runs['int8_weights']['weight_bytes']} against "
+        f"{off['weight_bytes']} bytes")
+    if not (same and same_stream):
+        raise AssertionError("coalescing changed the tokens")
+    results["coalesce"] = runs
+    del qparams
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def phase_engine_args(torch, llama, moe, generate, page_pool, mods, params,
+                      seed, results):
+    """Phase 30: every engine argument the example app passes."""
+    t0 = time.monotonic()
+    cfg = llama.config("small", use_flash=True)
+    by_path = phase_moe(torch, llama, moe, generate, mods, seed, results)
+    by_path.update(phase_shared_pool(torch, generate, page_pool, mods, cfg,
+                                     params, seed, results))
+    by_path.update(phase_ragged_off(torch, llama, generate, mods, cfg,
+                                    params, seed, results))
+    by_path.update(phase_coalesce(torch, llama, generate, mods, cfg, params,
+                                  seed, results))
+    results["phase30_s"] = time.monotonic() - t0
+    log(f"phase 30: {results['phase30_s']:.1f}s")
     return by_path
 
 
@@ -2751,13 +3397,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from gofr_tpu_torch.models import llama
+    from gofr_tpu_torch.models import llama, moe
     from gofr_tpu_torch.ops.cuda import _build
     from gofr_tpu_torch.ops.cuda import decode_attention as decode_mod
     from gofr_tpu_torch.ops.cuda import flash_attention as flash_mod
     from gofr_tpu_torch.ops.cuda import ragged_paged_attention as ragged_mod
     from gofr_tpu_torch import slo
-    from gofr_tpu_torch.tpu import constrain, faults, generate, sched
+    from gofr_tpu_torch.tpu import (constrain, faults, generate, page_pool,
+                                    sched)
 
     results = {}
     log("== phase 1: card")
@@ -2825,6 +3472,10 @@ def main() -> int:
     # this slice: the kv_int8 draft
     by_path_d64.update(phase_int8_draft(torch, llama, generate, mods,
                                         small_params, args.seed, results))
+    # this slice: every engine argument the example app passes
+    by_path_d64.update(phase_engine_args(torch, llama, moe, generate,
+                                         page_pool, mods, small_params,
+                                         args.seed, results))
     del small_params
     torch.cuda.empty_cache()
     # this slice: the example's own model (``small`` over its byte-level

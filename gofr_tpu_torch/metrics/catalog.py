@@ -17,6 +17,11 @@ _SECONDS = (0.01, 0.03, 0.1, 0.3, 1.0, 3.0, 10.0, 30.0)
 
 # (name, kind, buckets or None, description)
 ENGINE_METRICS: Tuple[Tuple[str, str, Optional[tuple], str], ...] = (
+    ("app_tpu_h2d_bytes_total", "updown_counter", None,
+     "host-to-device bytes shipped, per path"),
+    ("app_tpu_h2d_seconds", "histogram",
+     (0.00003, 0.0001, 0.0003, 0.001, 0.003, 0.01, 0.03, 0.1, 0.3, 1),
+     "host-to-device transfer wall time, per path"),
     ("app_tpu_ttft", "histogram", _SECONDS,
      "time to first generated token (s)"),
     ("app_tpu_batch_size", "histogram", (1, 2, 4, 8, 16, 32, 64, 128, 256),

@@ -17,7 +17,10 @@
   with ``cfg.use_flash_decode`` (the speculative draft's config) dense
   decode goes through the flash-decode wrapper instead. Each wrapper
   launches its CUDA kernel on a CUDA tensor and runs its plain version
-  on a CPU tensor.
+  on a CPU tensor. ``ragged=False`` on the paged steps asks for JAX's
+  gather formulation instead (the engine's ``ragged_attn="off"``).
+- ``quantize_params`` (int8 weights, ``ops/quant``) and ``generate``
+  (prefill, then decode steps, JAX's key schedule) as in JAX.
 - ``window`` (a rung of the engine's attention-window ladder) bounds a
   dense step's attention read to the cache's first ``window`` positions;
   the write still goes into the full cache.
@@ -46,14 +49,17 @@ import torch
 import torch.nn.functional as F
 
 from gofr_tpu_torch.device import resolve_device
-from gofr_tpu_torch.ops.attention import (prefill_attention,
+from gofr_tpu_torch.ops import prng
+from gofr_tpu_torch.ops.attention import (paged_decode_attention,
+                                          paged_verify_attention,
+                                          prefill_attention,
                                           prefix_prefill_attention)
 from gofr_tpu_torch.ops.cuda.decode_attention import flash_decode_attention
 from gofr_tpu_torch.ops.cuda.flash_attention import flash_attention
 from gofr_tpu_torch.ops.cuda.ragged_paged_attention import (
     ragged_paged_decode_attention, ragged_paged_verify_attention)
 from gofr_tpu_torch.ops.norms import rms_norm
-from gofr_tpu_torch.ops.quant import qmm, quantize_kv
+from gofr_tpu_torch.ops.quant import qmm, quantize_kv, quantize_tree
 from gofr_tpu_torch.ops.rotary import apply_rope, rope_table
 
 Params = Dict[str, Any]
@@ -292,6 +298,13 @@ def _ffn(layer, x):
     return qmm((gate * up).to(x.dtype), layer["w_down"])
 
 
+def quantize_params(params: Params) -> Params:
+    """int8 weight-only quantisation of every matmul weight (attention,
+    FFN, lm_head; ``ops/quant.quantize_tree``); norms and the embedding
+    stay as they are. ``qmm`` reads the result."""
+    return quantize_tree(params)
+
+
 def _rope(cfg: LlamaConfig, device: torch.device):
     return rope_table(cfg.max_seq_len, cfg.head_dim, cfg.rope_theta,
                       device=device)
@@ -324,12 +337,14 @@ def _flash_suffix(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _run_prompt(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
                 cache: Optional[Dict[str, torch.Tensor]] = None,
                 prefix: Optional[Dict[str, torch.Tensor]] = None,
-                prefix_len: int = 0) -> torch.Tensor:
+                prefix_len: int = 0, ffn=None) -> torch.Tensor:
     """The layer stack over a whole prompt (causal attention from 0), or
     with ``prefix`` over a suffix at positions ``prefix_len + i`` that
     attends the prefix's cached K/V too; returns the final hidden states
     (B, S, D). With ``cache`` given, each layer's K/V is written into it
-    in place."""
+    in place. ``ffn(layer, h)`` stands in for the dense FFN (the MoE
+    model's expert layer)."""
+    ffn = ffn or _ffn
     b, s = tokens.shape
     dev = tokens.device
     cos, sin = _rope(cfg, dev)
@@ -350,7 +365,7 @@ def _run_prompt(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
                                  torch.cat([pv, v], dim=1), prefix_len)
         x = x + qmm(attn.reshape(b, s, -1), layer["wo"])
         h = rms_norm(x, layer["ffn_norm"], cfg.norm_eps)
-        x = x + _ffn(layer, h)
+        x = x + ffn(layer, h)
         if cache is not None:
             for name, rows in _kv_rows(cfg, k, v).items():
                 cache[name][i, :, :s] = rows
@@ -396,9 +411,19 @@ def prefill(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
     With an int8 prefix the logits drift from a full prefill's by the
     quantisation (JAX's contract: token identity holds for bf16 caches).
     """
+    return _prefill(params, cfg, tokens, cache, lengths, prefix, prefix_len)
+
+
+def _prefill(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
+             cache: Dict[str, torch.Tensor],
+             lengths: Optional[torch.Tensor] = None,
+             prefix: Optional[Dict[str, torch.Tensor]] = None,
+             prefix_len: int = 0, ffn=None
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], torch.Tensor]:
+    """:func:`prefill` with ``ffn(layer, h)`` in the dense FFN's place."""
     b, s = tokens.shape
     dev = tokens.device
-    x = _run_prompt(params, cfg, tokens, cache, prefix, prefix_len)
+    x = _run_prompt(params, cfg, tokens, cache, prefix, prefix_len, ffn)
     if lengths is None:
         last = x[:, -1]
         cache_len = torch.full((b,), prefix_len + s, dtype=torch.int32,
@@ -414,7 +439,7 @@ def prefill(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
 def decode_step_paged(params: Params, cfg: LlamaConfig, token: torch.Tensor,
                       pool: Dict[str, torch.Tensor],
                       page_table: torch.Tensor, cache_len: torch.Tensor,
-                      active: torch.Tensor
+                      active: torch.Tensor, ragged: bool = True
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
                                  torch.Tensor]:
     """One decode step over the paged KV pool.
@@ -436,12 +461,21 @@ def decode_step_paged(params: Params, cfg: LlamaConfig, token: torch.Tensor,
     with ``mode="drop"``, their write (and any whose table entry is the
     sentinel) goes to the scratch page: one write of all B rows, no host
     sync.
+
+    ``ragged=False`` (the engine's ``ragged_attn="off"``) attends through
+    the gather formulation instead (``ops/attention.
+    paged_decode_attention``: each slot's pages gathered into a dense
+    view, then dense attention; JAX ``ragged=False``), over whatever
+    table width the caller passes. The port's default is the ragged
+    route.
     """
     b = token.shape[0]
     dev = token.device
     cos, sin = _rope(cfg, dev)
     positions = cache_len.long()[:, None]
     num_pages, page = pool["k"].shape[1] - 1, pool["k"].shape[2]
+    attend = ragged_paged_decode_attention if ragged \
+        else paged_decode_attention
     # the append destination is the same for every layer: hoist it.
     # take_along_axis(mode="clip") in JAX: clamp the column explicitly
     page_col = (cache_len.long() // page).clamp(0, page_table.shape[1] - 1)
@@ -455,7 +489,7 @@ def decode_step_paged(params: Params, cfg: LlamaConfig, token: torch.Tensor,
         h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
         q, k, v = _qkv(layer, h, cfg, cos, sin, positions)
         k_new, v_new = k[:, 0].contiguous(), v[:, 0].contiguous()
-        attn = ragged_paged_decode_attention(
+        attn = attend(
             q.contiguous(), pool["k"][i][:num_pages],
             pool["v"][i][:num_pages], page_table, k_new, v_new, cache_len,
             *_scale_planes(cfg, pool, i, num_pages))
@@ -492,6 +526,17 @@ def decode_step(params: Params, cfg: LlamaConfig, token: torch.Tensor,
     position is past the cache writes nothing (:func:`_dense_write`).
     Returns (logits (B, V) f32, cache, cache_len + 1).
     """
+    return _decode(params, cfg, token, cache, cache_len, window, table)
+
+
+def _decode(params: Params, cfg: LlamaConfig, token: torch.Tensor,
+            cache: Dict[str, torch.Tensor], cache_len: torch.Tensor,
+            window: Optional[int] = None,
+            table: Optional[torch.Tensor] = None, ffn=None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], torch.Tensor]:
+    """:func:`decode_step` with ``ffn(layer, h)`` in the dense FFN's
+    place."""
+    ffn = ffn or _ffn
     b = token.shape[0]
     dev = token.device
     cos, sin = _rope(cfg, dev)
@@ -521,7 +566,7 @@ def decode_step(params: Params, cfg: LlamaConfig, token: torch.Tensor,
                 cache_len, k_scales, v_scales)
         x = x + qmm(attn.reshape(b, 1, -1), layer["wo"])
         h = rms_norm(x, layer["ffn_norm"], cfg.norm_eps)
-        x = x + _ffn(layer, h)
+        x = x + ffn(layer, h)
         for name, rows in _kv_rows(cfg, k_new, v_new).items():
             _dense_write(cache[name][i], rows[:, None], plan)
     x = rms_norm(x[:, 0], params["out_norm"], cfg.norm_eps)
@@ -580,7 +625,7 @@ def verify_step(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
 def verify_step_paged(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
                       pool: Dict[str, torch.Tensor],
                       page_table: torch.Tensor, cache_len: torch.Tensor,
-                      active: torch.Tensor
+                      active: torch.Tensor, ragged: bool = True
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Speculative verify over the paged KV pool: score G tokens per row
     in one forward.
@@ -596,7 +641,9 @@ def verify_step_paged(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
     reach write the scratch page (JAX routed them to the sentinel page
     and dropped them). Returns (logits (B, G, V) f32, pool);
     ``cache_len`` is not advanced here — the caller commits the accepted
-    prefix.
+    prefix. ``ragged=False``: the gather formulation
+    (``ops/attention.paged_verify_attention``), as in
+    :func:`decode_step_paged`.
     """
     b, g_len = tokens.shape
     dev = tokens.device
@@ -604,6 +651,8 @@ def verify_step_paged(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
     positions = cache_len.long()[:, None] \
         + torch.arange(g_len, device=dev)[None, :]          # (B, G)
     num_pages, page = pool["k"].shape[1] - 1, pool["k"].shape[2]
+    attend = ragged_paged_verify_attention if ragged \
+        else paged_verify_attention
     width = page_table.shape[1]
     # the write destinations are the same for every layer: hoist them
     page_col = positions // page
@@ -617,7 +666,7 @@ def verify_step_paged(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
         h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
         q, k, v = _qkv(layer, h, cfg, cos, sin, positions)
         k, v = k.contiguous(), v.contiguous()
-        attn = ragged_paged_verify_attention(
+        attn = attend(
             q.contiguous(), pool["k"][i][:num_pages],
             pool["v"][i][:num_pages], page_table, k, v, cache_len,
             *_scale_planes(cfg, pool, i, num_pages))
@@ -628,3 +677,40 @@ def verify_step_paged(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
             pool[name][i][dest_row, dest_off] = rows
     x = rms_norm(x, params["out_norm"], cfg.norm_eps)
     return qmm(x, params["lm_head"]).float(), pool
+
+
+def generate(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
+             max_new_tokens: int, temperature: float = 0.0,
+             rng: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Greedy (or temperature) generation (JAX ``generate``): prefill into
+    a dense cache of ``min(max_seq_len, S + max_new_tokens)`` positions,
+    then ``max_new_tokens - 1`` decode steps. ``rng`` is a threefry key
+    ((2,) words, ``ops/prng``; None: ``PRNGKey(0)``), split once into
+    ``max_new_tokens`` keys, the first for the prefill's sample, as JAX
+    does; a sampled step draws ``argmax(gumbel(key, (B, V)) + logits /
+    temperature)`` (``jax.random.categorical`` with one key for the
+    batch). Returns (B, max_new_tokens) int32."""
+    b, s = tokens.shape
+    dev = tokens.device
+    cache = init_cache(cfg, b, min(cfg.max_seq_len, s + max_new_tokens),
+                       device=dev)
+    logits, cache, cache_len = prefill(params, cfg, tokens, cache)
+    if rng is None:
+        rng = prng.seed_key(torch.zeros((), dtype=torch.int64, device=dev))
+    keys = prng.split(rng.to(dev), max_new_tokens)
+
+    def sample(logits, key):
+        if temperature > 0.0:
+            scaled = logits / temperature
+            noise = prng.gumbel(key, tuple(scaled.shape))
+            return torch.argmax(noise + scaled, dim=-1)
+        return logits.argmax(dim=-1)
+
+    token = sample(logits, keys[0])
+    out = [token]
+    for i in range(1, max_new_tokens):
+        logits, cache, cache_len = decode_step(params, cfg, token, cache,
+                                               cache_len)
+        token = sample(logits, keys[i])
+        out.append(token)
+    return torch.stack(out, dim=1).to(torch.int32)

@@ -1,10 +1,12 @@
-"""Int8 helpers (counterpart of ``qmm`` and ``quantize_kv`` in
-``gofr_tpu/ops/quant.py``).
+"""Int8 helpers (counterpart of ``gofr_tpu/ops/quant.py``).
 
-- ``qmm``: weights are plain tensors ``(in, out)`` or the ``{"q": int8
-  (in, out), "s": (1, out)}`` dict form. Eager PyTorch materialises the
-  converted weight on every call (XLA fused the convert into the matmul);
-  int8 weights are not on a served path yet.
+- Weight-only int8 (:func:`quantize`, :func:`dequantize`,
+  :func:`quantize_tree`): each matmul weight ``(..., in, out)`` becomes
+  ``{"q": int8 (..., in, out), "s": float32 (..., 1, out)}``, symmetric
+  per output channel, the JAX package's bits.
+- ``qmm``: ``x @ w`` over a plain weight or the quant dict. Eager
+  PyTorch materialises the converted weight on every call (XLA fused the
+  convert into the matmul).
 - ``quantize_kv``: the int8 KV cache's per-(token, head) quantiser, on
   every pool write of a ``kv_int8`` model.
 """
@@ -14,6 +16,24 @@ from __future__ import annotations
 from typing import Any, Tuple
 
 import torch
+
+# param names whose matmul weights quantize (llama and moe families)
+QUANT_KEYS = frozenset(
+    {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "lm_head"})
+
+
+def quantize(w: torch.Tensor,
+             scale_dtype: torch.dtype = torch.float32) -> dict:
+    """Symmetric per-output-channel int8 quantisation of a matmul weight
+    ``(..., in, out)`` → ``{"q": int8 (..., in, out), "s": (..., 1, out)}``
+    with ``w ≈ q * s``: absmax over axis -2 in float32, ``scale = amax /
+    127`` (1 where amax is 0), ``round(w / scale)`` half to even, clamped
+    to ±127 (the JAX package's steps, so the two give the same bits)."""
+    w32 = w.float()
+    amax = w32.abs().amax(dim=-2, keepdim=True)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(w32 / scale), -127, 127).to(torch.int8)
+    return {"q": q, "s": scale.to(scale_dtype)}
 
 
 def is_quantized(w: Any) -> bool:
@@ -25,6 +45,29 @@ def qmm(x: torch.Tensor, w: Any) -> torch.Tensor:
     if is_quantized(w):
         return (x @ w["q"].to(x.dtype)) * w["s"].to(x.dtype)
     return x @ w
+
+
+def dequantize(w: Any) -> torch.Tensor:
+    """A quant dict back to a bf16 weight (``q * s`` in float32); a plain
+    weight as it is."""
+    if is_quantized(w):
+        return (w["q"].float() * w["s"]).to(torch.bfloat16)
+    return w
+
+
+def quantize_tree(params: Any, keys=QUANT_KEYS) -> Any:
+    """Quantise every matmul weight named in ``keys`` through a params tree
+    (dicts, lists, tuples), leaving norms, embeddings and routers as they
+    are."""
+    def walk(node, name=None):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        if name in keys and getattr(node, "ndim", 0) >= 2:
+            return quantize(node)
+        return node
+    return walk(params)
 
 
 def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

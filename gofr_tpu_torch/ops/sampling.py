@@ -74,6 +74,24 @@ def filtered_log_probs(logits: torch.Tensor, temperature, top_k,
         torch.as_tensor([top_p], dtype=torch.float32, device=dev))[0]
 
 
+def sample_logits(logits: torch.Tensor, temperature, top_k, top_p,
+                  key: torch.Tensor) -> torch.Tensor:
+    """One token id from a single row of logits (V,), consuming ``key``
+    ((2,) threefry words, ``ops/prng``) as it is, unsplit (JAX
+    ``sample_logits``). ``temperature`` <= 0 is greedy argmax; ``top_k``
+    0 and ``top_p`` >= 1 disable their filters. Returns an int64
+    scalar."""
+    dev = logits.device
+    temp = torch.as_tensor(temperature, dtype=torch.float32, device=dev)
+    order, masked = _sorted_masked(
+        logits[None], temp.reshape(1),
+        torch.as_tensor(top_k, dtype=torch.int64, device=dev).reshape(1),
+        torch.as_tensor(top_p, dtype=torch.float32, device=dev).reshape(1))
+    choice = prng.categorical(key.reshape(1, 2), masked)
+    sampled = order[0, choice[0]]
+    return torch.where(temp > 0.0, sampled, logits.argmax(dim=-1))
+
+
 def sample_batch(logits: torch.Tensor, temperature: torch.Tensor,
                  top_k: torch.Tensor, top_p: torch.Tensor,
                  keys: torch.Tensor

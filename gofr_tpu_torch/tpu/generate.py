@@ -151,9 +151,27 @@ or a paged pool (``paged_kv=True``).
   loop's catch-all takes it; ``nan_logits`` poisons the first
   participant's fetched tokens of a plain tick at publish, which
   quarantines exactly that slot.
+- The constructor takes every argument the example app passes, JAX's
+  keywords in JAX's order. ``model_module`` serves another model family
+  through the same ticks and prefills (``models/moe``: its dense prefill
+  and its decode over the ragged wrapper): every ``init_cache`` /
+  ``prefill`` / ``decode_step`` of the target goes through it, and its
+  prefills keep JAX's rows on the card (an MoE's capacity is taken over
+  every row). ``page_pool`` shares one pool between paged engines of one
+  geometry: their device work goes through the pool's one device thread,
+  onto the device's default stream, in submission order; a reset by one
+  fails the others' outstanding requests (``_on_pool_reset``), and each
+  one's device work dispatched before it learns of the reset runs with
+  no slot active over sentinel pages. ``kv_pool_bytes`` sizes an own
+  pool. ``ragged_attn="off"`` serves JAX's gather formulation over the
+  gather-width rungs. ``coalesce_uploads`` makes a prefill rung's (and a
+  paged engine's table and bias) static inputs views of one device
+  buffer, filled by one transfer; ``coalesce_stream`` queues a tick's
+  tokens as one list. Uploads are metered (``app_tpu_h2d_*`` by path) on
+  the device thread and emitted at publish. ``mesh`` must be None.
 
 Left for later slices (see ROADMAP.md): disaggregation, auto-tuning and
-operating points, upload coalescing, mesh sharding, the workload plane.
+operating points, mesh sharding, the workload plane.
 """
 
 from __future__ import annotations
@@ -190,7 +208,7 @@ from gofr_tpu_torch.tpu.page_pool import PagePool
 from gofr_tpu_torch.tpu.prefix_cache import PrefixStore
 from gofr_tpu_torch.tpu.sched import (DEFAULT_CLASS_WEIGHTS, ClassQueues,
                                       brownout_shed_classes, deadline_class)
-from gofr_tpu_torch.tpu.staging import StagingPool
+from gofr_tpu_torch.tpu.staging import StagingPool, TransferCoalescer
 from gofr_tpu_torch.trace.tracer import Span, current_span
 
 DEFAULT_PROMPT_BUCKETS = (32, 128, 512)
@@ -331,11 +349,13 @@ def _insert_rows(leaf: torch.Tensor, src: torch.Tensor, row: torch.Tensor,
 
 def _pack(arrays: Dict[str, np.ndarray]
           ) -> Tuple[np.ndarray, List[Tuple[str, tuple]]]:
-    """Named int arrays as one flat int64 array (one staged upload) and
-    the layout :func:`_unpack` cuts it by."""
+    """Named int arrays as one flat int32 array (one staged upload, a
+    4-byte type the coalescer takes) and the layout :func:`_unpack` cuts
+    it by. Values past int32 wrap (a 32-bit seed); the body reads them
+    back modulo 2**32."""
     layout = [(name, arr.shape) for name, arr in arrays.items()]
     flat = np.concatenate([np.asarray(arr, np.int64).ravel()
-                           for arr in arrays.values()])
+                           for arr in arrays.values()]).astype(np.int32)
     return flat, layout
 
 
@@ -373,9 +393,12 @@ class Sampling:
 class TokenStream:
     """Async iterator over one request's generated tokens. ``cancel()``
     (or ``aclose()``) abandons the request and frees its slot, whether or
-    not iteration ever started."""
+    not iteration ever started. Under ``coalesce_stream`` the engine puts
+    one list of tokens a tick on the queue; iteration drains it token by
+    token, so a consumer sees the same sequence either way, and
+    :meth:`chunks` yields the lists (JAX ``TokenStream``)."""
 
-    __slots__ = ("_engine", "_queue", "_future", "_done")
+    __slots__ = ("_engine", "_queue", "_future", "_done", "_buffer")
 
     def __init__(self, engine: "GenerationEngine", queue: asyncio.Queue,
                  future: asyncio.Future):
@@ -383,11 +406,14 @@ class TokenStream:
         self._queue = queue
         self._future = future
         self._done = False
+        self._buffer: List[int] = []
 
     def __aiter__(self) -> "TokenStream":
         return self
 
     async def __anext__(self) -> int:
+        if self._buffer:
+            return self._buffer.pop(0)
         if self._done:
             raise StopAsyncIteration
         item = await self._queue.get()
@@ -397,7 +423,45 @@ class TokenStream:
         if isinstance(item, BaseException):
             self._finish()
             raise item
+        if isinstance(item, list):
+            self._buffer = item[1:]
+            return item[0]
         return item
+
+    async def chunks(self):
+        """Iterate token deltas: each list is every token that landed
+        since the last yield (one tick's under ``coalesce_stream``)."""
+        while True:
+            if self._buffer:
+                chunk, self._buffer = self._buffer, []
+                yield chunk
+                continue
+            if self._done:
+                return
+            item = await self._queue.get()
+            if item is _DONE:
+                self._finish()
+                return
+            if isinstance(item, BaseException):
+                self._finish()
+                raise item
+            chunk = item if isinstance(item, list) else [item]
+            # drain whatever else already arrived: one yield a wakeup
+            while True:
+                try:
+                    extra = self._queue.get_nowait()
+                except asyncio.QueueEmpty:
+                    break
+                if extra is _DONE:
+                    yield chunk
+                    self._finish()
+                    return
+                if isinstance(extra, BaseException):
+                    yield chunk
+                    self._finish()
+                    raise extra
+                chunk.extend(extra if isinstance(extra, list) else [extra])
+            yield chunk
 
     def _finish(self) -> None:
         self._done = True
@@ -523,18 +587,20 @@ class _Graph:
 
 
 class _Prefill:
-    """A prefill rung: its static upload buffers (``ints`` cut by
-    ``layout``, ``floats``), and on the card its graph, the graph's
+    """A prefill rung: its static upload buffers (``ints`` int32 cut by
+    ``layout``, ``floats``; with ``coalesce_uploads`` both views of one
+    ``arena``), and on the card its graph, the graph's
     static first-token output, the launches one replay makes, the seconds
     its capture took and its replays."""
-    __slots__ = ("key", "layout", "ints", "floats", "graph", "first",
-                 "launches", "seconds", "replays")
+    __slots__ = ("key", "layout", "ints", "floats", "arena", "graph",
+                 "first", "launches", "seconds", "replays")
 
-    def __init__(self, key: _PrefillKey, layout, ints, floats):
+    def __init__(self, key: _PrefillKey, layout, ints, floats, arena=None):
         self.key = key
         self.layout = layout
         self.ints = ints
         self.floats = floats
+        self.arena = arena        # the uint8 buffer both view, coalesced
         self.graph = None
         self.first: Optional[torch.Tensor] = None
         self.launches: Dict[str, int] = {}
@@ -558,28 +624,81 @@ def _params_to(params: Any, device: torch.device) -> Any:
 
 
 class GenerationEngine:
+    """The engine; its keyword arguments are the JAX engine's, in its
+    order, with its defaults, meanings, checks and messages, then
+    ``device`` (the card unless the caller asks for the CPU). ``mesh``
+    must be None: mesh sharding is not ported. ``model_module`` serves
+    any module with llama's ``init_cache`` / ``prefill`` /
+    ``decode_step`` (``models/moe``), with JAX's refusals for one that is
+    not llama. ``page_pool`` shares one :class:`PagePool` between paged
+    engines of one KV geometry; ``kv_pool_bytes`` sizes the engine's own.
+    ``ragged_attn`` (``auto`` | ``on`` | ``off``): the paged engine's
+    decode and verify attend through the ragged wrappers unless ``off``,
+    which asks for JAX's gather formulation over the gather-width rungs.
+    ``coalesce_uploads`` ships a prefill's, and a tick's, 4-byte control
+    arrays as one transfer (``tpu/staging.TransferCoalescer``);
+    ``coalesce_stream`` puts a tick's tokens on a stream's queue as one
+    list."""
+
     def __init__(self, cfg, params, max_slots: int = 8,
                  max_len: Optional[int] = None,
                  prompt_buckets=DEFAULT_PROMPT_BUCKETS,
                  steps_per_tick: int = 1,
                  max_inflight_ticks: int = 2,
+                 mesh=None,
                  window_ladder: Optional[bool] = None,
-                 paged_kv: bool = False,
-                 kv_page: int = 32,
-                 kv_pages: Optional[int] = None,
-                 kv_page_reserve: Optional[int] = None,
-                 draft_cfg=None, draft_params=None,
-                 spec_gamma: int = 4,
                  prefix_cache: bool = False,
                  prefix_cache_bytes: int = 64 << 20,
                  prefix_page: int = 32,
+                 paged_kv: bool = False,
+                 kv_page: int = 32,
+                 kv_pages: Optional[int] = None,
+                 kv_pool_bytes: Optional[int] = None,
+                 kv_page_reserve: Optional[int] = None,
+                 page_pool: Optional[PagePool] = None,
+                 ragged_attn: str = "auto",
+                 model_module=None,
+                 model_name: str = "generate",
+                 draft_cfg=None, draft_params=None,
+                 spec_gamma: int = 4,
                  class_weights: Optional[Dict[str, float]] = None,
+                 coalesce_uploads: bool = False,
+                 coalesce_stream: bool = False,
                  token_table=None,
                  grammar_cache_entries: int = 32,
-                 device: Union[str, torch.device] = "cuda",
-                 model_name: str = "generate",
                  logger=None, metrics=None, tracer=None, recorder=None,
-                 slo=None):
+                 slo=None, device: Union[str, torch.device] = "cuda"):
+        # the served model module: llama by default; anything with llama's
+        # serving contract (init_cache / prefill / decode_step) plugs in,
+        # models/moe.py first (JAX ``self._llama``)
+        self._model = llama if model_module is None else model_module
+        if model_module is not None and model_module is not llama:
+            missing = [name for name in ("init_cache", "prefill",
+                                         "decode_step")
+                       if not hasattr(model_module, name)]
+            if missing:
+                raise ValueError(
+                    f"model_module lacks serving entry points {missing}")
+            if mesh is not None:
+                raise ValueError(
+                    "model_module: sharding specs are llama-specific; "
+                    "custom model modules serve unsharded (mesh=None)")
+            if paged_kv and not hasattr(model_module, "decode_step_paged"):
+                raise ValueError(
+                    "paged_kv requires the model module to implement "
+                    "decode_step_paged")
+            if prefix_cache:
+                raise ValueError(
+                    "prefix_cache requires the llama model module")
+            if draft_cfg is not None:
+                raise ValueError(
+                    "speculative decode requires the llama model module "
+                    "(the target verify step)")
+        if mesh is not None:
+            raise ValueError(
+                "mesh: sharding over a device mesh is not ported; the "
+                "engine serves one card (mesh=None)")
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model_name = str(model_name)
@@ -674,13 +793,39 @@ class GenerationEngine:
         dev, n = self.device, self.max_slots
         self._pool: Optional[PagePool] = None
         self.cache: Optional[Dict[str, torch.Tensor]] = None
+        self._shared_pool = False
         if self.paged:
             self.pages_per_slot = self.max_len // self.kv_page
-            self._pool = PagePool(
-                cfg, page=self.kv_page,
-                num_pages=(int(kv_pages) if kv_pages is not None
-                           else self.max_slots * self.pages_per_slot),
-                device=dev, metrics=metrics)
+            if page_pool is not None:
+                # multi-model tenancy: engines of one KV geometry address
+                # one pool, page ids interchangeable
+                if page_pool.page != self.kv_page:
+                    raise ValueError(
+                        f"shared page_pool page size {page_pool.page} != "
+                        f"engine kv_page {self.kv_page}")
+                if PagePool._page_bytes(cfg, self.kv_page) \
+                        != page_pool.page_bytes:
+                    raise ValueError(
+                        "shared page_pool KV geometry does not match this "
+                        "engine's config (layers/kv-heads/head-dim/dtype "
+                        "must agree; heterogeneous models need their own "
+                        "pools carved from an HBMBudget)")
+                self._pool = page_pool
+                self._shared_pool = True
+            elif kv_pages is not None:
+                self._pool = PagePool(cfg, page=self.kv_page,
+                                      num_pages=int(kv_pages), device=dev,
+                                      metrics=metrics)
+            elif kv_pool_bytes is not None:
+                self._pool = PagePool(cfg, page=self.kv_page,
+                                      budget_bytes=int(kv_pool_bytes),
+                                      device=dev, metrics=metrics)
+            else:
+                # capacity parity with the dense cache
+                self._pool = PagePool(
+                    cfg, page=self.kv_page,
+                    num_pages=self.max_slots * self.pages_per_slot,
+                    device=dev, metrics=metrics)
             # pages admission must leave free for decode growth of running
             # slots
             self._kv_reserve = (int(kv_page_reserve)
@@ -691,11 +836,15 @@ class GenerationEngine:
             # uploaded when the version moves
             self._table = np.full((self.max_slots, self.pages_per_slot),
                                   self._pool.sentinel, np.int32)
-            self.table = torch.full((n, self.pages_per_slot),
-                                    self._pool.sentinel, dtype=torch.int32,
-                                    device=dev)
+            # a co-resident's reset of a shared pool: this engine's page
+            # ids dangle (JAX ``_on_pool_reset``); ``_pool_epoch`` is the
+            # pool epoch this engine's host state belongs to
+            self._in_pool_reset = False
+            self._pool_epoch = self._pool.epoch
+            self._pool.subscribe(self._on_pool_reset)
         else:
-            self.cache = llama.init_cache(cfg, n, self.max_len, device=dev)
+            self.cache = self._model.init_cache(cfg, n, self.max_len,
+                                                device=dev)
             # the target reads its cache through the ragged kernels over
             # one identity page table a window rung, each contiguous at a
             # fixed address (a captured graph holds it)
@@ -703,6 +852,25 @@ class GenerationEngine:
                                                     device=dev)
                             for w in self._window_ladder}
         self._table_version = 0     # moves with the paged host table
+        # ragged paged attention (JAX ``ragged_attn``): "auto" and "on"
+        # read the pool through the ragged wrappers (the kernel on the
+        # card, its plain version on the CPU); "off" asks for the gather
+        # formulation over the gather-width rungs (table columns = window
+        # rung / kv_page), which is what it serves: it is never taken in
+        # a kernel's place
+        self.ragged_attn = str(ragged_attn).lower()
+        if self.ragged_attn not in ("auto", "on", "off"):
+            raise ValueError(
+                f"ragged_attn must be auto|on|off, got {ragged_attn!r}")
+        if self.ragged_attn == "on" and not self.paged:
+            raise ValueError("ragged_attn='on' requires paged_kv=True "
+                             "(the kernel walks the page pool)")
+        self._ragged = self.paged and self.ragged_attn != "off"
+        # zero-copy data plane: a prefill's and a tick's 4-byte control
+        # arrays as one transfer (bit-exact: views of one buffer), a
+        # tick's tokens as one stream item
+        self.coalesce_uploads = bool(coalesce_uploads)
+        self.coalesce_stream = bool(coalesce_stream)
 
         # -- prefix KV reuse: the store and the prefix-pages ladder 1, 2,
         # 4, ... plus the largest bucket's pages; a cached prefix rounds
@@ -784,9 +952,23 @@ class GenerationEngine:
                                        device=dev)
         self.active = torch.zeros((n,), dtype=torch.bool, device=dev)
         # the grammar bias a "bias" tick adds to its logits, uploaded in
-        # stream order ahead of each such tick
-        self.bias = torch.zeros((n, cfg.vocab_size), dtype=torch.float32,
-                                device=dev)
+        # stream order ahead of each such tick; paged, the page table
+        # too; with coalesce_uploads both views of one arena, so a biased
+        # tick that moves the table uploads them in one transfer
+        self._tick_arena: Optional[torch.Tensor] = None
+        bias_spec = ((n, cfg.vocab_size), torch.float32)
+        if self.paged and self.coalesce_uploads:
+            self._tick_arena, (self.table, self.bias) = \
+                TransferCoalescer.arena(dev, [
+                    ((n, self.pages_per_slot), torch.int32), bias_spec])
+            self.table.fill_(self._pool.sentinel)
+        else:
+            self.bias = torch.zeros(bias_spec[0], dtype=torch.float32,
+                                    device=dev)
+            if self.paged:
+                self.table = torch.full((n, self.pages_per_slot),
+                                        self._pool.sentinel,
+                                        dtype=torch.int32, device=dev)
         self._sent_mask: Optional[bytes] = None   # last uploaded mask
         self._sent_table = -1                     # last uploaded version
 
@@ -794,9 +976,14 @@ class GenerationEngine:
         self.max_inflight_ticks = max(1, int(max_inflight_ticks))
         self._staging = StagingPool(self.device,
                                     depth=self.max_inflight_ticks + 1)
-        # all device work is queued from this one thread, in order
-        self._device_exec = ThreadPoolExecutor(
-            max_workers=1, thread_name_prefix="gofr-torch-device")
+        self._coalescer = TransferCoalescer(self._staging)
+        # all device work is queued from this one thread, in order; the
+        # engines sharing a pool share its one thread, so their work on
+        # its pages is queued in the order it was submitted
+        self._device_exec = (
+            self._pool.executor if self._shared_pool
+            else ThreadPoolExecutor(max_workers=1,
+                                    thread_name_prefix="gofr-torch-device"))
         self._graphs: Dict[_Key, _Graph] = {}
         self._graph_pool = None
         self.capture_s = 0.0
@@ -836,6 +1023,7 @@ class GenerationEngine:
         self._constrained_ticks = 0
         self._cancelled_queues: set = set()
         self._task: Optional[asyncio.Task] = None
+        self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._wake = asyncio.Event()
         # run counters: what the kernels' launch counts are checked against
         self.prefill_dispatches = 0
@@ -855,23 +1043,37 @@ class GenerationEngine:
                       layout: List[Tuple[str, tuple]],
                       n_floats: int) -> "_Prefill":
         """The rung ``key``'s static upload buffers (made at its first
-        use: an int64 buffer cut by ``layout``, a float32 one of
-        ``n_floats``)."""
+        use: an int32 buffer cut by ``layout``, a float32 one of
+        ``n_floats``; with ``coalesce_uploads`` two views of one arena)."""
         rung = self._prefills.get(key)
         if rung is None:
             size = sum(int(np.prod(shape)) for _, shape in layout)
-            rung = _Prefill(
-                key, layout,
-                torch.zeros((size,), dtype=torch.int64, device=self.device),
-                torch.zeros((n_floats,), dtype=torch.float32,
-                            device=self.device))
+            specs = [((size,), torch.int32), ((n_floats,), torch.float32)]
+            arena = None
+            if self.coalesce_uploads:
+                arena, (ints, floats) = TransferCoalescer.arena(self.device,
+                                                                specs)
+            else:
+                ints, floats = (torch.zeros(shape, dtype=dtype,
+                                            device=self.device)
+                                for shape, dtype in specs)
+            rung = _Prefill(key, layout, ints, floats, arena)
             self._prefills[key] = rung
         return rung
+
+    def _upload_prefill(self, rung: "_Prefill", ints: np.ndarray,
+                        floats: np.ndarray) -> None:
+        """A prefill group's two arrays into the rung's buffers, in stream
+        order: one coalesced transfer of its arena with
+        ``coalesce_uploads``, else one upload each (JAX
+        ``_upload_group``)."""
+        self._coalescer.upload(rung.arena, [(rung.ints, ints),
+                                            (rung.floats, floats)])
 
     def _prefill_insert(self, nb: int, bucket: int, n_claimed: int,
                         p_rung: int, ints: np.ndarray,
                         layout: List[Tuple[str, tuple]], floats: np.ndarray,
-                        biased: bool = False):
+                        biased: bool = False, epoch: Optional[int] = None):
         """The host part of one group's prefill: upload ``ints`` (the
         named int arrays of ``layout``, :func:`_pack`) and ``floats``
         (temps, top_ps and, ``biased``, the (nb, vocab) grammar bias rows)
@@ -880,16 +1082,21 @@ class GenerationEngine:
         card a replay of the rung's graph (captured first if the rung was
         not warmed), on the CPU eagerly. ``n_claimed`` is the group's
         count of real rows; nothing reads it, padding rows write nothing
-        whatever their count. Returns the fetch of the first tokens
-        (nb,)."""
+        whatever their count. ``epoch`` is the pool epoch the group was
+        claimed in (paged): if a co-resident engine reset the shared pool
+        since, the group's pages are gone, and its rows run as padding
+        (no slot claimed, sentinel pages) for callers the reset fails.
+        Returns the fetch of the first tokens (nb,)."""
         key = _prefill_key(nb, bucket, p_rung, biased, layout)
         rung = self._prefill_rung(key, layout, floats.size)
         cuda = self.device.type == "cuda"
         if cuda and rung.graph is None:
             self._capture_prefill(rung)
             self.prefill_lazy_captures += 1
-        self._staging.upload(rung.ints, ints)
-        self._staging.upload(rung.floats, floats)
+        if self._stale(epoch):
+            ints, _ = _pack(self._group_arrays(*key[:3], key[4]))
+            floats = self._group_floats(nb, biased)
+        self._upload_prefill(rung, ints, floats)
         if not cuda:
             return self._staging.fetch(self._prefill_body(rung))
         rung.graph.replay()
@@ -930,17 +1137,18 @@ class GenerationEngine:
         graph, from its pool). Returns the first tokens (nb,)."""
         nb, bucket, p_rung, biased, _ = rung.key
         dev, cfg = self.device, self.cfg
-        arg = _unpack(rung.ints, rung.layout)
+        arg = {name: arr.long()
+               for name, arr in _unpack(rung.ints, rung.layout).items()}
         tokens, lens = arg["tokens"], arg["lengths"]
         temps, top_ps = rung.floats[:2 * nb].view(2, nb)
-        small = llama.init_cache(cfg, nb, bucket, device=dev)
-        plen, prefix = 0, None
+        small = self._model.init_cache(cfg, nb, bucket, device=dev)
+        plen, prefix, kw = 0, None, {}
         if p_rung:
             plen = p_rung * self._prefix.page
             prefix = self._prefix.gather(arg["prefix_ids"])
-        logits, small, _ = llama.prefill(self.params, cfg, tokens, small,
-                                         lengths=lens, prefix=prefix,
-                                         prefix_len=plen)
+            kw = dict(prefix=prefix, prefix_len=plen)
+        logits, small, _ = self._model.prefill(self.params, cfg, tokens,
+                                               small, lengths=lens, **kw)
         if biased:
             # bf16 + float32 promotes to float32, as in JAX
             logits = logits + rung.floats[2 * nb:].view(nb, cfg.vocab_size)
@@ -987,8 +1195,10 @@ class GenerationEngine:
                     biased: bool = False) -> torch.Tensor:
         """``k`` decode steps over every slot of the device state, updated
         in place (paged: ``llama.decode_step_paged``; dense: JAX
-        ``_decode_fn``, ``llama.decode_step`` over the window rung
-        ``window`` and its identity table); inactive rows keep their
+        ``_decode_fn``, the model module's ``decode_step`` over the window
+        rung ``window`` and its identity table; paged under
+        ``ragged_attn="off"``, the gather formulation over the window's
+        gather width); inactive rows keep their
         cache_len, token and key. ``biased`` adds :attr:`bias` to each
         step's logits before the argmax or the sampler (JAX
         ``_decode_bias_fn`` / ``_decode_paged_bias_fn``): bf16 logits
@@ -1001,9 +1211,10 @@ class GenerationEngine:
             if self.paged:
                 logits, _, new_len = llama.decode_step_paged(
                     self.params, self.cfg, token, self._pool.leaves,
-                    self.table, cache_len, active)
+                    self._table_view(window), cache_len, active,
+                    ragged=self._ragged)
             else:
-                logits, _, new_len = llama.decode_step(
+                logits, _, new_len = self._model.decode_step(
                     self.params, self.cfg, token, self.cache, cache_len,
                     window=window, table=self._tables[window])
             if biased:
@@ -1045,10 +1256,13 @@ class GenerationEngine:
             split = prng.split(keys, g + 2)
         token, dlen = last, cache_len
         proposals, q_logps = [], []
+        # the paged engine's draft reads its whole dense cache (JAX
+        # ``_spec_paged_fn``); a paged window rung is a gather width
+        dwin = None if self.paged else window
         for i in range(g + 1):
             logits, _, new_len = llama.decode_step(
                 self.draft_params, self.draft_cfg, token, self._draft_cache,
-                dlen, window=window, table=self._draft_tables.get(window))
+                dlen, window=dwin, table=self._draft_tables.get(dwin))
             proposal = logits.argmax(dim=-1)
             if sampled:
                 q_logp = filtered_log_probs_batch(logits, self.temps,
@@ -1064,7 +1278,8 @@ class GenerationEngine:
         if self.paged:
             t_logits, _ = llama.verify_step_paged(
                 self.params, self.cfg, verify_tokens, self._pool.leaves,
-                self.table, cache_len, active)
+                self._table_view(window), cache_len, active,
+                ragged=self._ragged)
         else:
             t_logits, _ = llama.verify_step(
                 self.params, self.cfg, verify_tokens, self.cache, cache_len,
@@ -1082,6 +1297,12 @@ class GenerationEngine:
         self.cache_len.copy_(torch.where(active, cache_len + accepts + 1,
                                          cache_len))
         return torch.cat([out.T, accepts[None]])
+
+    def _table_view(self, window: Optional[int]) -> torch.Tensor:
+        """The paged ticks' page table: whole with the ragged route, else
+        its first ``_pick_page_width(window)`` columns (a view)."""
+        pw = self._pick_page_width(window)
+        return self.table if pw == self.pages_per_slot else self.table[:, :pw]
 
     def _tick_body(self, key: _Key, active: torch.Tensor) -> torch.Tensor:
         kind, n, sampled, window = key
@@ -1146,8 +1367,7 @@ class GenerationEngine:
         t0 = time.monotonic()
         nb, bucket, p_rung, biased, db = rung.key
         ints, _ = _pack(self._group_arrays(nb, bucket, p_rung, db))
-        self._staging.upload(rung.ints, ints)
-        self._staging.upload(rung.floats, self._group_floats(nb, biased))
+        self._upload_prefill(rung, ints, self._group_floats(nb, biased))
         graph, first, launches = self._record(
             lambda: self._prefill_body(rung),
             lambda: self._prefill_body(rung))
@@ -1156,19 +1376,33 @@ class GenerationEngine:
 
     def _run_tick(self, key: _Key,
                   mask: Optional[np.ndarray], table: Optional[np.ndarray],
-                  bias: Optional[np.ndarray] = None):
+                  bias: Optional[np.ndarray] = None,
+                  epoch: Optional[int] = None):
         """Upload what moved (and a "bias" tick's grammar bias), run the
         tick (a graph replay on the card, captured first if this rung was
         not warmed; eager on the CPU) and queue its tokens' copy. The
         uploads are queued on the stream ahead of the replay and behind
         every earlier tick, so a tick in flight never sees a later tick's
-        bias. Returns the fetch."""
+        bias. The mask goes alone (``path="mask"``, a bool array no
+        coalescing takes); a paged table and a bias that both moved go
+        as one transfer with ``coalesce_uploads``. A paged tick
+        dispatched before a co-resident's reset of the shared pool
+        (``epoch`` stale) runs with every slot inactive over sentinel
+        pages: it writes nothing but the scratch page. Returns the
+        fetch."""
+        if self._stale(epoch):
+            mask = np.zeros((self.max_slots,), bool)
+            table = np.full(self._table.shape, self._pool.sentinel,
+                            np.int32)
         if mask is not None:
-            self._staging.upload(self.active, mask)
+            self._staging.upload(self.active, mask, path="mask")
+        group = []
         if table is not None:
-            self._staging.upload(self.table, table)
+            group.append((self.table, table))
         if bias is not None:
-            self._staging.upload(self.bias, bias)
+            group.append((self.bias, bias))
+        self._coalescer.upload(
+            self._tick_arena if len(group) == 2 else None, group)
         if self.device.type != "cuda":
             return self._staging.fetch(self._tick_body(key, self.active))
         entry = self._graphs.get(key)
@@ -1193,7 +1427,7 @@ class GenerationEngine:
                 self._tick_body(key, idle)
             return
         self._staging.upload(self.active,
-                             np.zeros((self.max_slots,), bool))
+                             np.zeros((self.max_slots,), bool), path="mask")
         for key in keys:
             entry = self._graphs.get(key) or self._capture(key)
             entry.graph.replay()
@@ -1214,13 +1448,13 @@ class GenerationEngine:
             rung = self._prefill_rung(key, layout, floats.size)
             if cuda and rung.graph is None:
                 self._capture_prefill(rung)
-            self._staging.upload(rung.ints, ints)
-            self._staging.upload(rung.floats, floats)
+            self._upload_prefill(rung, ints, floats)
             if not cuda:
                 self._prefill_body(rung)
                 continue
-            self._staging.reserve(rung.ints)
-            self._staging.reserve(rung.floats)
+            for buf in ((rung.arena,) if rung.arena is not None
+                        else (rung.ints, rung.floats)):
+                self._staging.reserve(buf)
             self._staging.reserve(rung.first, upload=False)
             rung.graph.replay()
             launch_counts.add(rung.launches)
@@ -1274,7 +1508,8 @@ class GenerationEngine:
         (:meth:`_startup_window_rungs`); ``"all"``, the whole ladder; a
         tuple, exactly those rungs, ``max_len`` standing for the top rung
         (as ``stats()["window_ladder"]`` spells it). The paged engine's
-        ticks all take window None. An unwarmed rung is captured when a
+        ticks all take window None, except under ``ragged_attn="off"``,
+        where a rung is a gather width. An unwarmed rung is captured when a
         tick or a prefill first needs it (``lazy_captures``). On the CPU
         each tick and each prefill runs once instead. Must run before
         ``start()``: it runs device work outside the engine loop."""
@@ -1315,7 +1550,7 @@ class GenerationEngine:
                     f"would be warmed for them and the first serving tick "
                     f"would capture on the hot path")
             window_rungs = [w for w in self._window_ladder if w in requested]
-        if self.paged:
+        if self._ragged:
             window_rungs = [None]
         keys = [("plain", k, s, w) for w in window_rungs for k in rungs
                 for s in (False, True)]
@@ -1346,7 +1581,11 @@ class GenerationEngine:
 
     async def start(self) -> None:
         if self._task is None:
-            self._task = asyncio.get_running_loop().create_task(self._loop())
+            self._loop = asyncio.get_running_loop()
+            # bound to the loop that serves: an engine stopped under one
+            # event loop may be started again under another
+            self._wake = asyncio.Event()
+            self._task = self._loop.create_task(self._run())
 
     async def stop(self) -> None:
         if self._task is not None:
@@ -1563,10 +1802,22 @@ class GenerationEngine:
     @property
     def attn_path(self) -> str:
         """The decode-attention formulation ticks run (``app_tpu_attn_
-        kernel_total{path}``): ``ragged`` (the ragged kernel over the
-        pool's page table) on the paged engine, ``dense`` (cache rows,
-        read through identity tables) otherwise."""
-        return "ragged" if self.paged else "dense"
+        kernel_total{path}``): on the paged engine ``ragged`` (the ragged
+        wrappers over the pool's page table) or, under
+        ``ragged_attn="off"``, ``gather`` (each slot's pages gathered, then
+        dense attention); ``dense`` (cache rows, read through identity
+        tables) otherwise."""
+        if not self.paged:
+            return "dense"
+        return "ragged" if self._ragged else "gather"
+
+    def _pick_page_width(self, rung: Optional[int]) -> int:
+        """Window rung → page-gather width, table columns (JAX
+        ``_pick_page_width``): the whole table with the ragged route or
+        for the top rung, else ``ceil(rung / kv_page)``."""
+        if self._ragged or rung is None:
+            return self.pages_per_slot
+        return min(self.pages_per_slot, -(-rung // self.kv_page))
 
     def _note_capture(self, key: _Key) -> None:
         """Note tick ``key``'s graph capture as one compile, once, on the
@@ -1644,17 +1895,18 @@ class GenerationEngine:
         return self._pool.free_pages - self._kv_reserve
 
     def data_plane(self) -> Dict[str, Any]:
-        """Host-to-device upload totals of the engine's staging slabs
-        (JAX ``data_plane``). Uploads are queued without waiting, so no
-        rate is measured; coalescing is not ported (False, None)."""
+        """Host-to-device upload totals of the engine's staging slabs and
+        the coalescer's (JAX ``data_plane``). The rate is bytes over the
+        host seconds of the upload calls, which queue their copies
+        without waiting for them."""
         staging = self._staging.stats()
         return {
-            "coalesce_uploads": False,
-            "coalesce_stream": False,
+            "coalesce_uploads": self.coalesce_uploads,
+            "coalesce_stream": self.coalesce_stream,
             "h2d_uploads": staging["uploads"],
             "h2d_bytes": staging["upload_bytes"],
-            "h2d_mb_per_s": None,
-            "coalescer": None,
+            "h2d_mb_per_s": staging["upload_mb_per_s"],
+            "coalescer": self._coalescer.stats(),
         }
 
     def hbm_attribution(self) -> Dict[str, Any]:
@@ -1788,8 +2040,9 @@ class GenerationEngine:
         graphs captured (``paged_kv.decode_executables``,
         ``speculative.compiled_spec_fns``; the prefill graphs, each with
         the draft's prefill inside, as
-        ``speculative.compiled_draft_prefill_fns``). Operating points are
-        not ported (None)."""
+        ``speculative.compiled_draft_prefill_fns``; the paged engine's
+        ``ragged_attn`` mode and gather widths). Operating points are not
+        ported (None)."""
         observed = self.shapes.distribution("prompt")
         out: Dict[str, Any] = {
             "models": {
@@ -1823,8 +2076,9 @@ class GenerationEngine:
             out["paged_kv"] = {
                 "page_tokens": self.kv_page,
                 "attn_path": self.attn_path,
-                "ragged_attn": None,
-                "gather_widths": [self.pages_per_slot],
+                "ragged_attn": self.ragged_attn,
+                "gather_widths": sorted({self._pick_page_width(w)
+                                         for w in self._window_ladder}),
                 "decode_executables": sorted(
                     str(key) for key in self._graphs if key[0] != "spec"),
                 "pool": self._pool.stats(),
@@ -1906,7 +2160,9 @@ class GenerationEngine:
             out["prefix_cache"]["suffix_prefills"] = \
                 self.suffix_prefill_dispatches
         if self.paged:
-            out["kv_pool"] = self._pool.stats()
+            out["kv_pool"] = dict(self._pool.stats(),
+                                  attn_path=self.attn_path,
+                                  ragged_attn=self.ragged_attn)
         else:
             out["kv_cache"] = {
                 "max_slots": self.max_slots,
@@ -1950,7 +2206,7 @@ class GenerationEngine:
         return out
 
     # -- the loop ----------------------------------------------------------------
-    async def _loop(self) -> None:
+    async def _run(self) -> None:
         loop = asyncio.get_running_loop()
         while True:
             try:
@@ -1971,7 +2227,9 @@ class GenerationEngine:
                         entry.span.set_status("ERROR")
                         entry.span.finish()
                     try:
-                        await entry.task
+                        # shielded: a stop() here cancels the loop, not
+                        # the fetch, which stop() then lands
+                        await asyncio.shield(entry.task)
                     except asyncio.CancelledError:
                         raise        # engine.stop() must still win
                     except Exception:  # noqa: BLE001 — the callers were
@@ -1998,7 +2256,14 @@ class GenerationEngine:
         if self._prefix is not None:
             self._prefix.reset()
         if self.paged:
-            self._pool.reset()
+            # a shared pool's reset notifies its co-residents; the guard
+            # keeps this engine's own observer out (it rebuilds here)
+            self._in_pool_reset = True
+            try:
+                self._pool.reset()
+            finally:
+                self._in_pool_reset = False
+            self._pool_epoch = self._pool.epoch
             self.table.fill_(self._pool.sentinel)
         else:
             for name, leaf in self.cache.items():
@@ -2010,6 +2275,49 @@ class GenerationEngine:
                        self.top_ks, self.sample_keys, self.active):
             tensor.zero_()
         self.top_ps.fill_(1.0)
+
+    def _stale(self, epoch: Optional[int]) -> bool:
+        """Whether device work stamped with pool ``epoch`` at dispatch
+        was overtaken by a reset of the shared pool (device thread)."""
+        return epoch is not None and epoch != self._pool.epoch
+
+    def _on_pool_reset(self) -> None:
+        """Shared-pool reset observer (JAX ``_on_pool_reset``): a
+        co-resident engine reset the pool every page id of this engine
+        points into. Called on the resetting engine's device thread; the
+        host part (:meth:`_pool_reset_host`) runs on this engine's loop.
+        Until then this engine's device work dispatched before it runs
+        with no slot active over sentinel pages (``_stale``), and its
+        loop allocates no page (``_pool_stale``)."""
+        if self._in_pool_reset:
+            return
+        loop = self._loop
+        if loop is not None and self._task is not None \
+                and not loop.is_closed():
+            loop.call_soon_threadsafe(self._pool_reset_host)
+        else:
+            self._pool_reset_host()
+
+    def _pool_reset_host(self) -> None:
+        """Fail outstanding work, re-sentinel the table (the next tick
+        uploads it and the mask again), reset the prefix store and take
+        the pool's new epoch."""
+        self._fail_outstanding(RuntimeError(
+            "shared kv page pool was reset by a co-resident engine"))
+        self._table = np.full((self.max_slots, self.pages_per_slot),
+                              self._pool.sentinel, np.int32)
+        self._table_version += 1
+        self._sent_mask, self._sent_table = None, -1
+        for slot in self._slots:
+            slot.pages, slot.nodes = [], []
+        if self._prefix is not None:
+            self._prefix.reset()
+        self._pool_epoch = self._pool.epoch
+
+    def _pool_stale(self) -> bool:
+        """Paged: the shared pool was reset and this engine's loop has not
+        taken the news yet (its page ids are the old epoch's)."""
+        return self.paged and self._pool_epoch != self._pool.epoch
 
     def _fail_outstanding(self, exc: BaseException) -> None:
         """Fail every caller bound to an active slot. Queued requests were
@@ -2225,12 +2533,13 @@ class GenerationEngine:
                         f"{self._kv_reserve}); it can never be admitted"))
                     self._close_flight(req.flight, "error", "ERROR")
                     continue
-                while (self._pool.free_pages - committed
+                while (not self._pool_stale()
+                       and self._pool.free_pages - committed
                        < need + self._kv_reserve
                        and self._prefix is not None
                        and self._prefix.evict_one()):
                     pass
-                if self._pool.free_pages - committed \
+                if self._pool_stale() or self._pool.free_pages - committed \
                         < need + self._kv_reserve:
                     # head-of-line FIFO: this request and every later one
                     # of the pass wait in the overflow, ahead of newer
@@ -2314,9 +2623,12 @@ class GenerationEngine:
     def _prefill_count(self, n: int, bucket: int) -> int:
         """Rows of a prefill of ``n`` prompts of ``bucket``: the count
         ladder's rung, raised on the card to ``CUDA_MIN_PREFILL_ROWS``
-        rows (padding rows, which no slot takes)."""
+        rows (padding rows, which no slot takes) for llama, where the
+        prefix store's bit identity needs them. Another model module (no
+        prefix store) keeps JAX's rung: an MoE's capacity is taken over
+        every row, so more rows would be another function."""
         need = n
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and self._model is llama:
             need = max(n, -(-CUDA_MIN_PREFILL_ROWS // bucket))
         return next((x for x in self._n_ladder if x >= need), need)
 
@@ -2493,7 +2805,8 @@ class GenerationEngine:
                 seen.add(int(publish[at]))
             store.publishes += 1
         ints, layout = _pack(arrays)
-        args = (nb, bucket, len(group), p_rung, ints, layout, floats, biased)
+        args = (nb, bucket, len(group), p_rung, ints, layout, floats, biased,
+                self._pool_epoch if self.paged else None)
         return claimed, args, pages
 
     def _dispatch_tick(self, loop) -> Optional[_Fetch]:
@@ -2550,7 +2863,7 @@ class GenerationEngine:
                                window=window or self.max_len,
                                sampled=sampled, step=self._steps)
         tag = "_bias" if biased else ""
-        family = (f"decode_paged{tag}[k={k},pw={self.pages_per_slot}]"
+        family = (f"decode_paged{tag}[k={k},pw={self._pick_page_width(window)}]"
                   if self.paged
                   else f"decode{tag}[k={k},w={window or self.max_len}]")
         entry = self._dispatch(loop, ("bias" if biased else "plain", k,
@@ -2596,7 +2909,7 @@ class GenerationEngine:
         span = self._step_span("tpu.engine.spec", snapshot, gamma=g,
                                window=window or self.max_len,
                                step=self._steps)
-        family = (f"spec_paged[g={g},pw={self.pages_per_slot}]"
+        family = (f"spec_paged[g={g},pw={self._pick_page_width(window)}]"
                   if self.paged
                   else f"spec[g={g},w={window or self.max_len}]")
         entry = self._dispatch(loop, ("spec", g, sampled, window), mask,
@@ -2616,8 +2929,9 @@ class GenerationEngine:
     def _tick_window(self, eligible, n: int) -> Optional[int]:
         """The window rung of a tick that writes ``n`` tokens a slot, from
         the fills before it is charged (JAX ``_pick_window``); the paged
-        engine's ticks read the whole table (None)."""
-        if self.paged:
+        engine's ticks read the whole table (None) on the ragged route,
+        and under ``ragged_attn="off"`` the rung's gather width."""
+        if self._ragged:
             return None
         return self._pick_window([slot.fill for _, slot in eligible], n)
 
@@ -2641,7 +2955,9 @@ class GenerationEngine:
         name = "tpu.engine.spec" if kind == "spec" else "tpu.engine.step"
         return self._on_device(loop, kind, payload, self._annotated, name,
                                self._steps, self._run_tick, key, mask_up,
-                               table_up, bias, span=span, family=family)
+                               table_up, bias,
+                               self._pool_epoch if self.paged else None,
+                               span=span, family=family)
 
     def _note_spec(self, proposed: int, accepted: int) -> None:
         """Acceptance accounting plus the adaptive-γ controller, called
@@ -2701,6 +3017,8 @@ class GenerationEngine:
         slot's cache row covers max_len."""
         if not self.paged:
             return eligible
+        if self._pool_stale():
+            return []
         reclaim = self._prefix.evict_one if self._prefix is not None \
             else None
         covered = []
@@ -2725,8 +3043,10 @@ class GenerationEngine:
         """Hand a fetched step's tokens to its slots, in dispatch order. A
         spec tick refunds what it charged beyond ``accepts + 1``. The
         step's device seconds are charged, a sampled tick's anatomy
-        completed with its device wait, and its span finished here."""
+        completed with its device wait, and its span finished here, and
+        the uploads metered since the last publish are emitted."""
         self._attribute_device_time(entry)
+        self._emit_h2d()
         if entry.anatomy is not None and self.telemetry is not None:
             anatomy = entry.anatomy
             anatomy["device_wait_s"] = time.monotonic() - entry.dispatched_at
@@ -2773,13 +3093,28 @@ class GenerationEngine:
         if entry.span is not None:
             entry.span.finish()
 
+    def _emit_h2d(self) -> None:
+        """Emit the uploads the device thread metered (JAX's
+        ``app_tpu_h2d_bytes_total`` / ``app_tpu_h2d_seconds`` by path),
+        here on the loop thread."""
+        metered = self._staging.drain_meter()
+        if self.metrics is None:
+            return
+        for path, nbytes, seconds in metered:
+            self.metrics.delta_updown_counter("app_tpu_h2d_bytes_total",
+                                              float(nbytes), path=path)
+            self.metrics.record_histogram("app_tpu_h2d_seconds", seconds,
+                                          path=path)
+
     def _push_tokens(self, slot_idx: int, gen: int,
                      tokens: List[int]) -> None:
         """Append generated tokens to a slot, handling eos and budget;
         tokens of a stale generation (slot reclaimed since) are dropped.
         The first token closes the prefill span and records the TTFT;
         each token counts toward the SLO tracker's raw tokens; a
-        finished slot's outcome is classified by its deadline."""
+        finished slot's outcome is classified by its deadline. Under
+        ``coalesce_stream`` a stream's tokens of this call go on its
+        queue as one list, before its end or error."""
         slot = self._slots[slot_idx]
         if slot.gen != gen:
             return
@@ -2789,8 +3124,11 @@ class GenerationEngine:
         if not slot.tokens:
             self._first_token(slot_idx, slot)
         pushed = 0
+        chunk: Optional[List[int]] = [] if self.coalesce_stream else None
         for token in tokens:
             if token < 0 or token >= self.cfg.vocab_size:
+                if chunk and slot.queue is not None:
+                    slot.queue.put_nowait(chunk)
                 # NaN/inf logits argmax to implementation-defined ids: fail
                 # this request, not the tick
                 exc = RuntimeError(
@@ -2807,7 +3145,10 @@ class GenerationEngine:
             if self.slo is not None:
                 self.slo.record_tokens(1)   # raw throughput, as produced
             if slot.queue is not None:
-                slot.queue.put_nowait(token)
+                if chunk is not None:
+                    chunk.append(token)
+                else:
+                    slot.queue.put_nowait(token)
             done = slot.remaining <= 0 or (slot.eos_id is not None
                                            and token == slot.eos_id)
             if slot.grammar is not None and not done:
@@ -2818,6 +3159,8 @@ class GenerationEngine:
                     slot.grammar.advance(token)
                     done = slot.grammar.must_stop
                 except Exception as exc:  # noqa: BLE001 — this request's
+                    if chunk and slot.queue is not None:
+                        slot.queue.put_nowait(chunk)
                     self._quarantine_slot(slot_idx, slot, "grammar", exc)
                     return
             if done:
@@ -2825,10 +3168,15 @@ class GenerationEngine:
                 if slot.future is not None and not slot.future.done():
                     slot.future.set_result(list(slot.tokens))
                 if slot.queue is not None:
+                    if chunk:
+                        slot.queue.put_nowait(chunk)
+                        chunk = None
                     slot.queue.put_nowait(_DONE)
                     slot.queue = None
                 self._finish_slot(slot_idx, slot, "done")
                 break
+        if chunk and slot.queue is not None:
+            slot.queue.put_nowait(chunk)
         if pushed and self.metrics is not None:
             # the class's share of the tokens delivered: what the WFQ
             # weights shape
@@ -2930,7 +3278,8 @@ class GenerationEngine:
                 self._prefix.release(slot.nodes)
             slot.nodes = []
         if slot.pages:
-            self._pool.release(slot.pages)
+            # ids of an epoch a reset ended went back with it
+            self._pool.release(slot.pages, epoch=self._pool_epoch)
             slot.pages = []
         row = self._table[slot_idx]
         if (row != self._pool.sentinel).any():

@@ -26,11 +26,29 @@ changed since (tests shrink a prefix store's pool). With
 ``ks``/``vs`` (L, num_pages + 1, page, Hkv), ones-initialised, sit
 beside them.
 
-Left for later slices: the HBM budget arbiter and mesh sharding.
+Several engines of one KV geometry may share one pool (multi-model
+tenancy, JAX's ``page_pool=``): ``lock``, a re-entrant lock, serialises
+``alloc`` / ``retain`` / ``release`` / ``reset`` across their loop
+threads, and ``reset`` notifies every subscriber (:meth:`PagePool.
+subscribe`), so a co-resident engine drops its page ids. ``epoch`` counts
+resets: an owner stamps its page ids with the epoch it took them in and
+never releases ids of an earlier one into the fresh pool. The engines
+sharing a pool queue their device work from the pool's one device thread
+(:attr:`PagePool.executor`), onto the device's default stream, so a page
+one engine releases and another allocates is written only after every
+read or write of it queued before the release.
+
+:class:`HBMBudget` is JAX's byte-granular arbiter for co-residents of
+different geometries (each takes its own pool's ``budget_bytes`` from a
+carve).
+
+Left for later slices: mesh sharding (``mesh`` must be None).
 """
 
 from __future__ import annotations
 
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -38,7 +56,7 @@ import torch
 
 from gofr_tpu_torch.device import resolve_device
 
-__all__ = ["PagePool"]
+__all__ = ["PagePool", "HBMBudget"]
 
 
 class PagePool:
@@ -48,7 +66,15 @@ class PagePool:
 
     def __init__(self, cfg, page: int = 32, num_pages: Optional[int] = None,
                  device: Union[str, torch.device] = "cuda",
-                 budget_bytes: Optional[int] = None, metrics=None):
+                 budget_bytes: Optional[int] = None, mesh=None,
+                 metrics=None):
+        if mesh is not None:
+            raise ValueError(
+                "PagePool: mesh sharding is not ported; pass mesh=None")
+        # alloc/retain/release/reset take it (re-entrant): engines sharing
+        # the pool touch it from their own loop threads
+        self.lock = threading.RLock()
+        self.mesh = mesh
         self.cfg = cfg
         # duck-typed, as the JAX pool's: page gauges at each alloc and
         # release, stalls, page-rows written
@@ -67,6 +93,9 @@ class PagePool:
         self.leaves: Dict[str, torch.Tensor] = {}
         self._free: List[int] = []
         self._refs = np.zeros((self.num_pages,), np.int32)
+        self._reset_subscribers: List[Callable[[], None]] = []
+        self.epoch = -1                # resets so far (0 after __init__)
+        self._executor: Optional[ThreadPoolExecutor] = None
         self.reset()
 
     @property
@@ -105,16 +134,44 @@ class PagePool:
 
     def reset(self) -> None:
         """Leaves cleared in place (k/v zeroed, scale planes at one; the
-        same tensors at the same addresses) and empty ownership; new
-        leaves when ``num_pages`` changed since they were made."""
-        if not self.leaves \
-                or self.leaves["k"].shape[1] != self.num_pages + 1:
-            self._alloc_leaves()
-        else:
-            for name, leaf in self.leaves.items():
-                leaf.fill_(1 if name in ("ks", "vs") else 0)
-        self._free = list(range(self.num_pages))
-        self._refs = np.zeros((self.num_pages,), np.int32)
+        same tensors at the same addresses, so captured graphs stay
+        valid), empty ownership and a new ``epoch``; new leaves when
+        ``num_pages`` changed since they were made. Then every subscriber
+        is called, outside the lock (JAX's reset fan-out)."""
+        with self.lock:
+            if not self.leaves \
+                    or self.leaves["k"].shape[1] != self.num_pages + 1:
+                self._alloc_leaves()
+            else:
+                for name, leaf in self.leaves.items():
+                    leaf.fill_(1 if name in ("ks", "vs") else 0)
+            self._free = list(range(self.num_pages))
+            self._refs = np.zeros((self.num_pages,), np.int32)
+            self.epoch += 1
+            self._set_gauges()
+            callbacks = list(self._reset_subscribers)
+        for callback in callbacks:
+            callback()
+
+    def subscribe(self, callback: Callable[[], None]) -> None:
+        """Register a reset observer: a co-resident engine learns that
+        another owner reset the pool (its page ids now dangle)."""
+        if callback not in self._reset_subscribers:
+            self._reset_subscribers.append(callback)
+
+    @property
+    def executor(self) -> ThreadPoolExecutor:
+        """The one device thread of every engine sharing this pool, made
+        at first use: their device work is queued in the order it was
+        submitted, so a page released by one engine (after it submitted
+        the work that touches the page) and allocated by another (whose
+        writes are submitted after the allocation) is written in stream
+        order after the first engine's reads and writes of it."""
+        with self.lock:
+            if self._executor is None:
+                self._executor = ThreadPoolExecutor(
+                    max_workers=1, thread_name_prefix="gofr-torch-pool")
+            return self._executor
 
     def alloc(self, n: int = 1,
               reclaim: Optional[Callable[[], bool]] = None
@@ -123,34 +180,43 @@ class PagePool:
         is short, ``reclaim()`` (if given) is called to release evictable
         pages; it returns False when it freed nothing. None (and a stall
         counted) when the list stays short. Never blocks."""
-        while len(self._free) < n and reclaim is not None and reclaim():
-            pass
-        if len(self._free) < n:
-            self.stalls += 1
-            if self.metrics is not None:
-                self.metrics.increment_counter(
-                    "app_tpu_kv_pages_stalled_total")
-            return None
-        ids = [self._free.pop() for _ in range(n)]
-        self._refs[ids] = 1
-        self.allocs += n
-        self._set_gauges()
-        return ids
+        with self.lock:
+            while len(self._free) < n and reclaim is not None \
+                    and reclaim():
+                pass
+            if len(self._free) < n:
+                self.stalls += 1
+                if self.metrics is not None:
+                    self.metrics.increment_counter(
+                        "app_tpu_kv_pages_stalled_total")
+                return None
+            ids = [self._free.pop() for _ in range(n)]
+            self._refs[ids] = 1
+            self.allocs += n
+            self._set_gauges()
+            return ids
 
     def retain(self, page_ids: Sequence[int]) -> None:
         """One more reference on each page (a second owner)."""
-        for pid in page_ids:
-            self._refs[pid] += 1
+        with self.lock:
+            for pid in page_ids:
+                self._refs[pid] += 1
 
-    def release(self, page_ids: Sequence[int]) -> None:
+    def release(self, page_ids: Sequence[int],
+                epoch: Optional[int] = None) -> None:
         """Drop one ref per page; refcount 0 returns the page to the free
-        list. Releasing an already-free page is a no-op."""
-        for pid in page_ids:
-            if self._refs[pid] > 0:
-                self._refs[pid] -= 1
-                if self._refs[pid] == 0:
-                    self._free.append(pid)
-        self._set_gauges()
+        list. Releasing an already-free page is a no-op, and so is
+        releasing ids taken in an ``epoch`` before the current one (a
+        reset returned them already)."""
+        with self.lock:
+            if epoch is not None and epoch != self.epoch:
+                return
+            for pid in page_ids:
+                if self._refs[pid] > 0:
+                    self._refs[pid] -= 1
+                    if self._refs[pid] == 0:
+                        self._free.append(pid)
+            self._set_gauges()
 
     def note_writes(self, pages: int) -> None:
         if pages <= 0:
@@ -192,4 +258,53 @@ class PagePool:
             "allocs": self.allocs,
             "writes": self.writes,
             "stalls": self.stalls,
+        }
+
+
+class HBMBudget:
+    """Byte-granular device-memory arbiter for multi-model tenancy (JAX
+    ``HBMBudget``). Engines of one KV geometry share one :class:`PagePool`;
+    co-residents of different geometries cannot share pages, so each
+    takes a carve of the card's KV budget in bytes as its own pool's
+    ``budget_bytes``. Bookkeeping only (it never touches the card): a
+    carve past the budget fails at load, not mid-traffic."""
+
+    def __init__(self, total_bytes: int):
+        if total_bytes <= 0:
+            raise ValueError("HBMBudget needs a positive byte budget")
+        self.total_bytes = int(total_bytes)
+        self._carves: Dict[str, int] = {}
+
+    @property
+    def carved_bytes(self) -> int:
+        return sum(self._carves.values())
+
+    @property
+    def free_bytes(self) -> int:
+        return self.total_bytes - self.carved_bytes
+
+    def carve(self, name: str, nbytes: int) -> int:
+        """Reserve ``nbytes`` for ``name``; raises when the remaining
+        budget cannot cover it."""
+        nbytes = int(nbytes)
+        if nbytes <= 0:
+            raise ValueError(f"carve({name!r}) needs a positive size")
+        if name in self._carves:
+            raise ValueError(f"model {name!r} already holds a carve")
+        if nbytes > self.free_bytes:
+            raise ValueError(
+                f"HBM budget exhausted: {name!r} wants {nbytes} bytes, "
+                f"{self.free_bytes} of {self.total_bytes} remain")
+        self._carves[name] = nbytes
+        return nbytes
+
+    def release(self, name: str) -> None:
+        self._carves.pop(name, None)
+
+    def stats(self) -> Dict[str, Any]:
+        return {
+            "total_bytes": self.total_bytes,
+            "carved_bytes": self.carved_bytes,
+            "free_bytes": self.free_bytes,
+            "carves": dict(self._carves),
         }

@@ -1,5 +1,6 @@
-"""Pinned host staging slabs for the engine's per-tick transfers
-(counterpart of ``gofr_tpu/tpu/staging.py``'s ``StagingPool``).
+"""Pinned host staging slabs for the engine's per-tick transfers, and
+upload coalescing (counterpart of ``gofr_tpu/tpu/staging.py``'s
+``StagingPool`` and ``TransferCoalescer``).
 
 Every host→device upload of a tick (its active mask, the page table when
 its version moved, an admission's rows) and every device→host token
@@ -19,18 +20,37 @@ waits; fetch slabs grow with the fetches outstanding.
 
 On the CPU there is nothing to stage: uploads copy straight into the
 destination and a fetch copies the tensor out when it is started.
+
+Metered uploads (JAX's ``app_tpu_h2d_bytes_total`` /
+``app_tpu_h2d_seconds`` by ``path``): every upload adds its bytes and the
+host seconds its call took (the copy is queued, not waited for, as JAX's
+``device_put`` is) to host counters, on whatever thread makes it (the
+engine's device thread); :meth:`StagingPool.drain_meter` hands the
+entries to the caller, which emits them (the engine does at publish, on
+its loop thread, where every hook runs).
+
+:class:`TransferCoalescer` ships a group of small 4-byte arrays (JAX's
+eligibility rule: native little-endian ``int``/``uint``/``float`` of
+itemsize 4) as one transfer. Its destinations are typed views at
+4-byte-aligned offsets of one device byte buffer (:meth:`TransferCoalescer.
+arena`), made before any graph captures them and never reallocated: one
+pinned blob is filled with every array's bytes at its view's offset and
+copied in one ``copy_``, so the values are bit-exact by construction and
+no split runs on the card. A group that does not qualify, or does not
+cover its arena, goes array by array.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from collections import deque
-from typing import Callable, Dict, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["StagingPool"]
+__all__ = ["StagingPool", "TransferCoalescer"]
 
 
 class _Slab:
@@ -53,6 +73,8 @@ class StagingPool:
         self._slab_bytes = 0
         self._uploads = 0
         self._upload_bytes = 0
+        self._upload_seconds = 0.0
+        self._meter: List[Tuple[str, int, float]] = []
 
     def _new(self, key: Tuple) -> _Slab:
         _, shape, dtype = key
@@ -97,22 +119,38 @@ class StagingPool:
         while self._count.get(key, 0) < want:
             self._release(key, self._new(key))
 
-    def upload(self, dst: torch.Tensor, src: np.ndarray) -> None:
+    def upload(self, dst: torch.Tensor, src: np.ndarray,
+               path: str = "dispatch") -> None:
         """Copy ``src`` into device tensor ``dst`` (same shape) in stream
-        order, through a pinned slab."""
-        with self._lock:
-            self._uploads += 1
-            self._upload_bytes += src.nbytes
+        order, through a pinned slab; metered under ``path``."""
+        t0 = time.perf_counter()
         if self.device.type != "cuda":
             dst.copy_(torch.from_numpy(np.ascontiguousarray(src)))
-            return
-        key = ("up", tuple(dst.shape), dst.dtype)
-        slab = self._acquire(key)
-        slab.host.numpy()[...] = src
-        dst.copy_(slab.host, non_blocking=True)
-        slab.event = torch.cuda.Event()
-        slab.event.record()
-        self._release(key, slab)
+        else:
+            key = ("up", tuple(dst.shape), dst.dtype)
+            slab = self._acquire(key)
+            slab.host.numpy()[...] = src
+            dst.copy_(slab.host, non_blocking=True)
+            slab.event = torch.cuda.Event()
+            slab.event.record()
+            self._release(key, slab)
+        self.note_h2d(int(src.nbytes), time.perf_counter() - t0, path)
+
+    def note_h2d(self, nbytes: int, seconds: float, path: str) -> None:
+        """Count one host-to-device transfer of ``nbytes`` that took
+        ``seconds`` of host time, under ``path`` (JAX ``note_h2d``)."""
+        with self._lock:
+            self._uploads += 1
+            self._upload_bytes += nbytes
+            self._upload_seconds += seconds
+            self._meter.append((path, nbytes, seconds))
+
+    def drain_meter(self) -> List[Tuple[str, int, float]]:
+        """The (path, bytes, seconds) of every transfer since the last
+        drain, oldest first."""
+        with self._lock:
+            out, self._meter = self._meter, []
+        return out
 
     def fetch(self, src: torch.Tensor) -> Callable[[], np.ndarray]:
         """Queue the copy of device tensor ``src`` into a pinned slab now,
@@ -139,9 +177,95 @@ class StagingPool:
             return values
         return wait
 
-    def stats(self) -> Dict[str, int]:
-        """Uploads made and their bytes, and the pinned slabs' bytes."""
+    def stats(self) -> Dict[str, Any]:
+        """Uploads made, their bytes and their rate over the host seconds
+        their calls took (JAX's keys), and the pinned slabs' bytes."""
         with self._lock:
             return {"uploads": self._uploads,
                     "upload_bytes": self._upload_bytes,
+                    "upload_mb_per_s": (
+                        round(self._upload_bytes / self._upload_seconds
+                              / 2**20, 1)
+                        if self._upload_seconds > 0 else None),
                     "slab_bytes": self._slab_bytes}
+
+
+class TransferCoalescer:
+    """One host-to-device transfer for a group of small 4-byte arrays
+    whose destinations are views of one arena (see the module
+    docstring). Metered under ``path="coalesced"`` through the staging
+    pool; ``stats()`` keeps JAX's keys."""
+
+    _ITEM = 4   # only 4-byte dtypes qualify; everything else goes alone
+
+    def __init__(self, staging: StagingPool):
+        self.staging = staging
+        self._transfers = 0
+        self._arrays = 0
+        self._bytes = 0
+
+    @classmethod
+    def arena(cls, device: torch.device,
+              specs: Sequence[Tuple[Tuple[int, ...], torch.dtype]]
+              ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """One zeroed uint8 device buffer and a typed view of it per
+        ``(shape, dtype)``, each at a 4-byte-aligned offset, in order."""
+        spans, at = [], 0
+        for shape, dtype in specs:
+            at = -(-at // cls._ITEM) * cls._ITEM
+            nbytes = dtype.itemsize * int(np.prod(shape, dtype=np.int64))
+            spans.append((at, nbytes))
+            at += nbytes
+        buf = torch.zeros((-(-at // cls._ITEM) * cls._ITEM,),
+                          dtype=torch.uint8, device=device)
+        return buf, [buf[off:off + nbytes].view(dtype).view(shape)
+                     for (shape, dtype), (off, nbytes) in zip(specs, spans)]
+
+    @classmethod
+    def _eligible(cls, arrays: Sequence[np.ndarray]) -> bool:
+        return bool(arrays) and all(
+            a.dtype.itemsize == cls._ITEM and a.dtype.kind in "iuf"
+            and a.dtype.byteorder in "=<|" for a in arrays)
+
+    def upload(self, arena: Optional[torch.Tensor],
+               group: Sequence[Tuple[torch.Tensor, np.ndarray]]) -> None:
+        """Upload each ``(view, host array)`` of ``group``: with ``arena``
+        given (``group`` then holds every view of it) and two or more
+        arrays, all eligible, as one transfer of the arena; otherwise
+        each on its own (``path="dispatch"``)."""
+        hosts = [np.ascontiguousarray(src) for _, src in group]
+        if arena is None or len(group) < 2 or not self._eligible(hosts):
+            for (view, _), src in zip(group, hosts):
+                self.staging.upload(view, src)
+            return
+        t0 = time.perf_counter()
+        blob = np.zeros((arena.numel(),), np.uint8)
+        base = arena.storage_offset()
+        for (view, _), src in zip(group, hosts):
+            off = view.storage_offset() * view.element_size() - base
+            blob[off:off + src.nbytes] = src.reshape(-1).view(np.uint8)
+        dev = self.staging.device
+        if dev.type != "cuda":
+            arena.copy_(torch.from_numpy(blob))
+        else:
+            key = ("up", tuple(arena.shape), arena.dtype)
+            slab = self.staging._acquire(key)
+            slab.host.numpy()[...] = blob
+            arena.copy_(slab.host, non_blocking=True)
+            slab.event = torch.cuda.Event()
+            slab.event.record()
+            self.staging._release(key, slab)
+        self._transfers += 1
+        self._arrays += len(group)
+        self._bytes += int(blob.nbytes)
+        self.staging.note_h2d(int(blob.nbytes), time.perf_counter() - t0,
+                              "coalesced")
+
+    def stats(self) -> Dict[str, Any]:
+        return {
+            "transfers": self._transfers,
+            "arrays_coalesced": self._arrays,
+            "bytes": self._bytes,
+            "arrays_per_transfer": (round(self._arrays / self._transfers, 2)
+                                    if self._transfers else None),
+        }

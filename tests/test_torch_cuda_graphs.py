@@ -39,6 +39,12 @@ form). Run them on the GPU host with
 - A suffix rung met while serving is captured once, at its first group,
   and counted as one serving compile; the next group of that rung
   replays it.
+- An MoE engine (``model_module=moe``): its prefill rungs keep JAX's
+  rows, and a plain tick and a full prefill replayed from their graphs
+  give the eager run's tokens and state bit for bit, every slot live.
+- With ``coalesce_uploads``, a paged biased tick whose table and bias
+  both moved uploads them as one transfer into one arena, and its replay
+  gives the eager tick's bits.
 - ``tick_exception`` raised with ``max_inflight_ticks - 1`` ticks and a
   prefill queued behind a sleep kernel fails the callers bound to
   slots; the reset clears the state in place (no buffer moves, no graph
@@ -691,3 +697,90 @@ def test_lazy_suffix_capture_is_one_serving_compile(cuda):
     assert after["replays"] - before["replays"] == 2
     assert engine.stats()["prefix_cache"]["suffix_prefills"] == 2
     assert engine.lazy_captures == 0
+
+
+def _moe_engine(cuda, **kw):
+    from gofr_tpu_torch.models import moe
+
+    cfg = moe.config(base=_cfg(dim=512), n_experts=4)     # head_dim 64
+    params = moe.init(cfg, 0, device=cuda)
+    return GenerationEngine(cfg, params, max_slots=SLOTS, max_len=MAX_LEN,
+                            prompt_buckets=(32, 64), steps_per_tick=4,
+                            model_module=moe, device=cuda, **kw)
+
+
+def test_moe_tick_and_prefill_replays_are_bitwise_eager(cuda):
+    """An MoE engine (every slot routes through the experts, capacity
+    over all rows): its prefill rungs keep JAX's rows (no padding to
+    ``CUDA_MIN_PREFILL_ROWS``); a plain tick and a full prefill replayed
+    from their graphs give the eager run's tokens and state bit for
+    bit, every slot live."""
+    engine = _moe_engine(cuda)
+    asyncio.run(engine.warmup(ks=(4,), prompt_counts=(1, SLOTS)))
+    keys = sorted(tuple(k) for k in
+                  engine.stats()["graphs"]["prefill"]["keys"])
+    assert keys == sorted((n, b, 0, False, 0) for b in (32, 64)
+                          for n in (1, SLOTS))
+    key = ("plain", 4, False, 128)
+    _fill_state(engine, 5)
+    engine.active.fill_(True)
+    saved = {k: v.clone() for k, v in _state(engine).items()}
+    eager = engine._tick_body(key, engine.active).cpu().numpy()
+    after_eager = {k: v.clone() for k, v in _state(engine).items()}
+    _restore(engine, saved)
+    np.testing.assert_array_equal(engine._run_tick(key, None, None)(),
+                                  eager)
+    for name, tensor in _state(engine).items():
+        assert torch.equal(_bits(tensor), _bits(after_eager[name])), name
+    rng = np.random.default_rng(9)
+    arrays = engine._group_arrays(SLOTS, 64, 0)
+    for row, n in enumerate((64, 40, 9, 1)):
+        arrays["tokens"][row, :n] = rng.integers(0, 1024, n)
+        arrays["lengths"][row] = n
+        arrays["row_of_slot"][row] = row
+        arrays["seeds"][row] = row
+    floats = engine._group_floats(SLOTS, False)
+    ints, layout = _pack(arrays)
+    rung = engine._prefills[(SLOTS, 64, 0, False, 0)]
+    saved = {k: v.clone() for k, v in _state(engine).items()}
+    engine._upload_prefill(rung, ints, floats)
+    eager = engine._prefill_body(rung).cpu().numpy()
+    after_eager = {k: v.clone() for k, v in _state(engine).items()}
+    _restore(engine, saved)
+    replayed = engine._prefill_insert(SLOTS, 64, SLOTS, 0, ints, layout,
+                                      floats)()
+    np.testing.assert_array_equal(replayed, eager)
+    for name, tensor in _state(engine).items():
+        assert torch.equal(_bits(tensor), _bits(after_eager[name])), name
+
+
+@pytest.mark.parametrize("sampled", [False, True])
+def test_coalesced_tick_replay_is_bitwise_the_eager_tick(cuda, sampled):
+    """With ``coalesce_uploads`` a paged biased tick whose table and bias
+    both moved uploads them as one transfer into views of one arena;
+    its replay gives the tokens and state of the same tick run eagerly
+    over the same table and bias, uploaded one by one, bit for bit."""
+    engine = _engine(cuda, d=64, coalesce_uploads=True)
+    assert engine._tick_arena is not None
+    key = ("bias", 1, sampled, None)
+    _fill_state(engine, 7, fills=(0, 37, 100, 90))
+    engine._capture(key)
+    table = engine.table.cpu().numpy()
+    slab = _bias_slabs(engine, 11, 1)[0][0]
+    saved = {k: v.clone() for k, v in _state(engine).items()}
+    engine.bias.copy_(torch.from_numpy(slab))
+    eager = engine._tick_body(key, engine.active).cpu().numpy()
+    after_eager = {k: v.clone() for k, v in _state(engine).items()}
+    _restore(engine, saved)
+    engine.bias.zero_()
+    engine.table.fill_(engine._pool.sentinel)
+    transfers = engine._coalescer.stats()["transfers"]
+    replayed = engine._run_tick(key, None, table, slab)()
+    assert engine._coalescer.stats()["transfers"] == transfers + 1
+    np.testing.assert_array_equal(replayed, eager)
+    for name, tensor in _state(engine).items():
+        if name.startswith("pool."):
+            tensor, want = tensor[:, :-1], after_eager[name][:, :-1]
+        else:
+            want = after_eager[name]
+        assert torch.equal(_bits(tensor), _bits(want)), name

@@ -135,3 +135,31 @@ def test_library_path_is_keyed_by_source():
     assert path.name.startswith("flash_attention-")
     assert path == _build.library_path("flash_attention")
     assert path != _build.library_path("ragged_paged_attention")
+
+
+def test_moe_and_engine_arguments_default_to_the_card(no_cuda):
+    """The MoE module's entry points and an engine built as the app builds
+    it (a shared pool, ``kv_pool_bytes``, the MoE module) raise at their
+    default device; the MoE module is scanned like every port module."""
+    from gofr_tpu_torch.models import moe
+
+    assert "gofr_tpu_torch/models/moe.py" in {
+        str(p.relative_to(ROOT)) for p in _port_files()}
+    cfg = moe.config(base=llama.config("tiny", dtype=torch.float32))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        moe.init(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        moe.init_cache(cfg, 1, 8)
+    params = moe.init(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        GenerationEngine(cfg, params, max_len=64, prompt_buckets=(8,),
+                         model_module=moe)
+    lcfg = llama.config("tiny", dtype=torch.float32)
+    lparams = llama.init(lcfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        GenerationEngine(lcfg, lparams, max_len=64, prompt_buckets=(8,),
+                         paged_kv=True, kv_page=4, kv_pool_bytes=1 << 20)
+    pool = PagePool(lcfg, page=4, num_pages=8, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        GenerationEngine(lcfg, lparams, max_len=64, prompt_buckets=(8,),
+                         paged_kv=True, kv_page=4, page_pool=pool)

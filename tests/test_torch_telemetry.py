@@ -65,14 +65,13 @@ JAX_ONLY = {
     # makes
     ("app_tpu_engine_compiles_total",
      (("cls", "serving"), ("model", "generate"))),
-    # metered uploads (the JAX StagingPool's H2D meter) are not ported
-    # (ROADMAP.md §1 item 3); the port's uploads are queued on the device
-    # thread, where no hook runs
-    ("app_tpu_h2d_bytes_total", (("path", "dispatch"),)),
-    ("app_tpu_h2d_bytes_total", (("path", "mask"),)),
-    ("app_tpu_h2d_seconds", (("path", "dispatch"),)),
-    ("app_tpu_h2d_seconds", (("path", "mask"),)),
 }
+# metered uploads: the same series (path dispatch and mask) as JAX's, but
+# not the same transfers: JAX uploads a prefill group array by array
+# (int32 tokens, slots, lengths, ...), the port a prefill rung's two
+# packed buffers and a paged tick's whole table; their label sets are
+# compared, and their totals against the port's own data_plane()
+LABELS_ONLY = {"app_tpu_h2d_bytes_total", "app_tpu_h2d_seconds"}
 # the paged JAX engine on the CPU attends through the gather formulation
 # (its ragged kernel runs only compiled); the port's paged ticks read the
 # pool through the ragged kernel (its plain version on the CPU)
@@ -85,8 +84,6 @@ VIEW_EXCEPTIONS = {
     "/stats/": "stats() is the port's own: graphs and ticks in place of "
                "JAX's jit, mesh and handoff counters",
     "/details/": "health_check's details are stats()",
-    "/data_plane/coalescer/": "upload coalescing is not ported: coalescer "
-                              "None",
     "/operating_point/": "operating points are not ported: None",
 }
 
@@ -226,8 +223,13 @@ def test_emitted_metrics_as_jax(bursts, case):
         assert port_only == set()
     assert jax_only == want_jax_only
     for key in set(jax_series) & set(port_series):
-        if key[0] not in TIMED and key[0] != "app_tpu_ttft":
+        if key[0] not in TIMED | LABELS_ONLY and key[0] != "app_tpu_ttft":
             assert port_series[key] == jax_series[key], key
+    plane = runs["port"]["engine"].data_plane()
+    assert sum(v for (name, _), v in port_series.items()
+               if name == "app_tpu_h2d_bytes_total") == plane["h2d_bytes"]
+    assert sum(v for (name, _), v in port_series.items()
+               if name == "app_tpu_h2d_seconds") == plane["h2d_uploads"]
     # histograms by count: one TTFT a request
     ttft = ("app_tpu_ttft", (("model", "generate"),))
     assert port_series[ttft] == jax_series[ttft] == len(PROMPTS)
@@ -301,7 +303,9 @@ def test_views_have_jax_key_tree(bursts, case, view):
     port_paths = {p for p in _paths(port_view) if not _excepted(p)}
     assert port_paths == jax_paths
     if view == "statusz":
-        assert port_view["data_plane"]["coalescer"] is None
+        assert set(port_view["data_plane"]["coalescer"]) \
+            == set(jax_view["data_plane"]["coalescer"])
+        assert port_view["data_plane"]["coalescer"]["transfers"] == 0
         for key in ("device_seconds", "compiles", "classes"):
             assert key in port_view["stats"] and key in jax_view["stats"]
         assert port_view["requests"]["total_requests"] == len(PROMPTS)
