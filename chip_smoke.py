@@ -16,7 +16,9 @@ on shared-prefix traffic, then grammar-constrained decoding and
 admission (SLO classes, deadlines, brownout), then the engine's
 telemetry hooks, fault sites and SLO control loop, then every engine
 argument the example app passes (the MoE model module, a shared page
-pool, ``ragged_attn``, upload coalescing) and int8 weights.
+pool, ``ragged_attn``, upload coalescing) and int8 weights, then the
+telemetry plane the app wires beside an engine and the engine's
+operating points (a move prewarmed while serving).
 Phases, each of which raises (exit code != 0) on failure:
 
 1. card identity (``nvidia-smi`` name and power limit, torch/CUDA);
@@ -77,9 +79,10 @@ Phases, each of which raises (exit code != 0) on failure:
     rung and one inactive row past it (2047), every position past a
     row's reach NaN; decode and verify at G 5, bf16 then int8, held to
     phases 4-5's gates and timed with the bound from the bytes, bf16
-    decode beside one ``scaled_dot_product_attention`` call over the
-    dense cache with a per-row length mask (a yardstick only; phase 19
-    too, at D 64);
+    decode and verify beside one ``scaled_dot_product_attention`` call
+    over the dense cache with a per-row length mask, causal among the G
+    new tokens (a yardstick only, its largest difference from the kernel
+    reported; phase 19 too, at D 64);
 14. the flash-decode kernel over window views of a T 2048 cache (the
     full cache's slot stride), rungs 128 ... 1024, against its plain
     version within phase 6's gate, timed;
@@ -208,7 +211,38 @@ Phases, each of which raises (exit code != 0) on failure:
     small dense engine: the same greedy and streamed tokens, H2D copies
     a tick, tok/s, idle share, a coalesced engine's tick replayed = run
     eagerly; (e) the same engine over ``llama.quantize_params`` weights:
-    tok/s beside bf16's, the weight bytes.
+    tok/s beside bf16's, the weight bytes;
+31. the telemetry plane and the operating point (after phase 30, on
+    phase 20's weights and the example's engine, with metrics, an SLO
+    tracker and a flight recorder): (a) the planes ``App.start`` wires
+    (a ``TrafficRecorder``, a ``TimeSeriesStore`` sampled every 0.1 s
+    over the default signals with every tick's anatomy, an
+    ``ErrorBudgetPlane`` feeding a ``Watchdog``'s ``budget_fn`` and its
+    ``BrownoutLadder``'s escalation gate, ``WorstOffenders`` on the
+    flight recorder), off and on in two pairs of phase 9's burst, the
+    last counted: equal tokens, the recorder's 8 admitted and finished
+    and its prompt-length histogram, every signal sampled, queue_depth 8
+    read while the burst is queued, one anatomy entry a tick, at most k
+    diagnosed offenders with a dominant phase of ``PHASES``, the xlaz
+    ladder from the workload trace, every tick and prefill a replay,
+    launches as counted, no brownout, no budget burning; tok/s and TTFT
+    p50 on and off printed; (b) the recorded trace exported, loaded and
+    replayed twice on a ``shadow_clone`` at k 8: equal digests, the
+    clone's weight tensors the engine's storage, no hooks, its reserved
+    bytes; (c) buckets (32, 128, 256, 512) at k 32: refused before its
+    prewarm, prewarmed while the burst is served again and again (every
+    burst's tokens the burst's without a prewarm, a thread reading the
+    allocator meanwhile without an error; the graphs, seconds, reserved
+    bytes and the longest gap between two ticks printed), applied
+    (``xlaz()`` generation 1, source ``autotune``), a burst of 9 with a
+    256-bucket prompt at 64 tokens (ticks at k 32, every tick and
+    prefill a replay, no serving compile, launches as counted), the
+    seed point back (nothing captured, the burst's tokens), then
+    ``slots_cap`` 2 (at most 2 slots active at any publish, the burst's
+    tokens); (d) at ``llama3-8b`` width (after phase 28's), phase 15's
+    dense bf16 engine prewarms k 8 while its burst is served (phase 15's
+    greedy tokens), applies it and serves the burst (no capture,
+    launches as counted); tok/s at k 4 and k 8.
 
 Every engine burst (phases 9-12, 15-18, 20-23, 30a) is served twice:
 counted, then under ``torch.profiler`` for the device's idle share. Every
@@ -736,10 +770,11 @@ def identity_cases(torch, ragged_mod, timer, geom):
                 err, row_err = check_ragged(torch, out, ref, what)
                 ms = timer(lambda: kernel(*args), iters=20)
                 plain_ms = timer(lambda: plain(*args), iters=3)
-                lib_ms = None
-                if not int8 and g_len == 1:
-                    lib_ms = identity_sdpa_ms(torch, timer, args, reach,
-                                              geom, rung)
+                lib_ms = lib_diff = None
+                if not int8:
+                    lib_ms, lib_diff = identity_sdpa_ms(
+                        torch, timer, args, reach, geom, rung,
+                        out.float())
                 nbytes, flops = paged_cost(reach, g_len, args[3].numel(),
                                            int8, geom)
                 bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S)
@@ -748,6 +783,7 @@ def identity_cases(torch, ragged_mod, timer, geom):
                            pools="int8" if int8 else "bf16",
                            max_abs_err=err, row_rel_l2=row_err, ms=ms,
                            plain_ms=plain_ms, library_ms=lib_ms,
+                           library_max_abs_diff=lib_diff,
                            bound_ms=bound * 1e3,
                            bound_by=("operations" if flops / BF16_FLOP_PER_S
                                      >= nbytes / HBM_BYTES_PER_S
@@ -756,33 +792,47 @@ def identity_cases(torch, ragged_mod, timer, geom):
                 rows.append(row)
                 log(f"{what} err={err:.3e} row={row_err:.3e} "
                     f"kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
-                    + (f"sdpa={lib_ms:.4f}ms " if lib_ms else "")
+                    + (f"sdpa={lib_ms:.4f}ms (|sdpa-kernel| "
+                       f"{lib_diff:.3e}) " if lib_ms else "")
                     + f"bound={row['bound_ms']:.4f}ms "
                     f"({row['gb_per_s']:.1f} GB/s)")
     return rows
 
 
-def identity_sdpa_ms(torch, timer, args, reach, geom, rung):
+def identity_sdpa_ms(torch, timer, args, reach, geom, rung, kernel_out):
     """One ``scaled_dot_product_attention`` call computing what the ragged
     kernel computes over an identity table (a yardstick only): the dense
-    cache's first ``rung`` positions plus the new token, a per-row length
-    mask, GQA; inputs laid out for it outside the timing."""
+    cache's first ``rung`` positions plus the G new tokens, a mask of
+    each row's length over the cache and causal among the new tokens
+    (decode: G 1), GQA; inputs laid out for it outside the timing.
+    Returns its time and its largest difference from ``kernel_out``."""
     import torch.nn.functional as F
 
     q, k_pages, v_pages, _, k_new, v_new, _ = args[:7]
-    b, t_max = len(reach), geom.dense_t
+    if k_new.dim() == 3:                       # decode: one new token
+        k_new, v_new = k_new[:, None], v_new[:, None]
+    b, g, t_max = len(reach), k_new.shape[1], geom.dense_t
     w = rung or t_max
     k, v = (x.view(b, t_max, geom.kv_heads, geom.head_dim)[:, :w]
             for x in (k_pages, v_pages))
-    k_all, v_all = (torch.cat([x.nan_to_num(), new[:, None]], 1)
+    k_all, v_all = (torch.cat([x.nan_to_num(), new], 1)
                     .transpose(1, 2).contiguous()
                     for x, new in ((k, k_new), (v, v_new)))
-    q_t = q.transpose(1, 2).contiguous()
-    pos = torch.arange(w + 1, device="cuda")[None, :]
+    q_t = q.view(b, g, geom.q_heads, geom.head_dim).transpose(1, 2) \
+        .contiguous()
+    pos = torch.arange(w, device="cuda")[None, :]
     lens = torch.tensor(reach, device="cuda")
-    mask = ((pos < lens[:, None]) | (pos == w))[:, None, None, :]
-    return timer(lambda: F.scaled_dot_product_attention(
-        q_t, k_all, v_all, attn_mask=mask, enable_gqa=True), iters=20)
+    cache = (pos < lens[:, None])[:, None, None, :].expand(b, 1, g, w)
+    causal = torch.ones((g, g), dtype=torch.bool, device="cuda").tril()
+    mask = torch.cat([cache, causal.expand(b, 1, g, g)], -1)
+
+    def call():
+        return F.scaled_dot_product_attention(q_t, k_all, v_all,
+                                              attn_mask=mask,
+                                              enable_gqa=True)
+    diff = (call().transpose(1, 2).float()
+            - kernel_out.view(b, g, geom.q_heads, geom.head_dim)).abs().max()
+    return timer(call, iters=20), float(diff)
 
 
 def phase_identity_ragged(torch, ragged_mod, timer, results):
@@ -921,7 +971,10 @@ PATH_KERNELS = {"engine": ("flash", "ragged"),
                 "prefix_small": ("flash", "ragged"),
                 "prefix_small_paged": ("flash", "ragged"),
                 "prefix_small_int8": ("flash", "int8"),
-                "prefix_llama3": ("flash", "ragged")}
+                "prefix_llama3": ("flash", "ragged"),
+                "planes_small": ("flash", "ragged"),
+                "op_small": ("flash", "ragged"),
+                "op_llama3": ("flash", "ragged")}
 
 
 def warm(engine):
@@ -2270,6 +2323,624 @@ def phase_engine_args(torch, llama, moe, generate, page_pool, mods, params,
     return by_path
 
 
+# phase 31: the operating point and the telemetry plane App.start wires
+OP_MOVE = dict(prompt_buckets=(32, 128, 256, 512), steps_per_tick=32)
+OP_SEED = dict(prompt_buckets=(32, 128, 512), steps_per_tick=16)
+# a prompt only the move's new bucket (256) admits, and a budget for rung 32
+OP_NEW_BUCKET_LEN, OP_MOVED_BUDGET = 200, 64
+
+
+def reserved_bytes(torch):
+    """The allocator's reserved bytes, its cache emptied first (what stays
+    is tensors and the captured graphs' pools)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_stats()["reserved_bytes.all.current"]
+
+
+class TickClock:
+    """Records each tick the device thread runs (``_run_tick``): when,
+    and its key."""
+
+    def __init__(self, engine):
+        self.calls = []
+        run_tick = engine._run_tick
+
+        def timed(key, *args):
+            self.calls.append((time.monotonic(), key))
+            return run_tick(key, *args)
+        engine._run_tick = timed
+
+    def longest_gap(self, start, end):
+        """The longest time between two ticks in [start, end], its edges
+        counted as ticks."""
+        times = [start] + [t for t, _ in self.calls if start <= t <= end] \
+            + [end]
+        return max(b - a for a, b in zip(times, times[1:]))
+
+    def ks_since(self, at):
+        return sorted({key[1] for _, key in self.calls[at:]})
+
+
+class Planes:
+    """What ``App.start`` attaches beside a generation engine
+    (``gofr_tpu/app.py:481-627``), the port's objects: a traffic recorder
+    (``attach_workload``), a telemetry store sampled every 0.1 s over the
+    default signals with each tick's anatomy (``attach_telemetry``,
+    ``tick_sample`` 1), an error-budget plane feeding a watchdog's
+    ``budget_fn`` and its brownout ladder's escalation gate, and a
+    worst-offender ring on the flight recorder diagnosed against the
+    window context. ``attach`` / ``detach`` turn them on and off (the
+    sampler and the watchdog's timer with them) on a started engine."""
+
+    def __init__(self, engine, metrics, tracker):
+        from types import SimpleNamespace
+
+        from gofr_tpu_torch.hbmz import hbm_occupancy
+        from gofr_tpu_torch.metrics.timeseries import (
+            TimeSeriesStore, register_default_signals)
+        from gofr_tpu_torch.slo import BrownoutLadder, Watchdog
+        from gofr_tpu_torch.slo_budget import ErrorBudgetPlane
+        from gofr_tpu_torch.tpu.diagnose import (WorstOffenders,
+                                                 build_window_context)
+        from gofr_tpu_torch.tpu.workload import TrafficRecorder
+
+        self.engine = engine
+        self.container = SimpleNamespace(tpu=engine)
+        self.recorder = TrafficRecorder(metrics=metrics)
+        self.store = TimeSeriesStore(metrics=metrics, interval_s=0.1,
+                                     tick_sample=1, tick_capacity=4096)
+        register_default_signals(self.store, slo=tracker, tpu=engine,
+                                 container=self.container)
+        self.budget = ErrorBudgetPlane(self.store, metrics)
+        self.ladder = BrownoutLadder(engine.set_brownout, metrics=metrics)
+        self.ladder.escalation_gate = self.budget.fast_burning
+        self.watchdog = Watchdog(
+            tracker, metrics=metrics, interval_s=0.2, brownout=self.ladder,
+            anomaly_fn=self.store.watchdog_reasons,
+            budget_fn=self.budget.watchdog_reasons,
+            hbm_fn=lambda: hbm_occupancy(self.container))
+        self.offenders = WorstOffenders(
+            k=4, context_fn=lambda: build_window_context(
+                engine=engine, store=self.store,
+                xledger=engine.exec_ledger))
+
+    def attach(self):
+        engine = self.engine
+        engine.attach_workload(self.recorder)
+        engine.attach_telemetry(self.store, every=self.store.tick_sample)
+        engine.recorder.offenders = self.offenders
+        self.store.start()
+        self.watchdog.start()
+
+    async def detach(self):
+        engine = self.engine
+        engine.workload = engine.recorder.workload = None
+        engine.telemetry = engine.recorder.offenders = None
+        await self.store.stop()
+        await self.watchdog.stop()
+
+
+async def repeat_bursts(engine, prompts, budget, samplings, until):
+    """Serve the burst again and again until ``until`` is set (at least
+    once); returns each burst's outputs."""
+    runs = []
+    while not runs or not until.is_set():
+        runs.append(await asyncio.wait_for(asyncio.gather(*[
+            engine.generate(p, budget, sampling=s)
+            for p, s in zip(prompts, samplings)]), 600))
+    return runs
+
+
+class SyncProbe:
+    """A thread reading, as fast as it can, what the telemetry plane reads
+    off the device thread (``hbm_occupancy``, the allocator's
+    statistics): a capture's eager run sets the process-wide
+    ``set_sync_debug_mode("error")``, under which a synchronizing read
+    here would raise."""
+
+    def __init__(self, torch, container):
+        import threading
+
+        from gofr_tpu_torch.hbmz import hbm_occupancy
+
+        self.reads, self.errors = 0, []
+        self._stop = threading.Event()
+
+        def run():
+            while not self._stop.is_set():
+                try:
+                    hbm_occupancy(container)
+                    torch.cuda.memory_stats()
+                    self.reads += 1
+                except Exception as exc:  # noqa: BLE001 — reported
+                    self.errors.append(repr(exc))
+                time.sleep(0.0005)
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join()
+
+
+async def prewarm_while_serving(torch, engine, point, prompts, budget,
+                                samplings, clock, container):
+    """Prewarm ``point`` on a started engine while its burst is served
+    again and again: the bursts' outputs, the prewarm's answer, its
+    seconds, the longest time between two ticks meanwhile, the ticks run
+    meanwhile, the reserved bytes it added, the graphs it added (ticks,
+    prefills) and the sync probe's reads and errors."""
+    reserved0 = reserved_bytes(torch)
+    graphs0 = engine.stats()["graphs"]
+    until = asyncio.Event()
+    serving = asyncio.ensure_future(repeat_bursts(engine, prompts, budget,
+                                                  samplings, until))
+    while not engine.active_slots:
+        await asyncio.sleep(0.001)
+    probe = SyncProbe(torch, container)
+    t0 = time.monotonic()
+    try:
+        warm_out = await engine.prewarm_operating_point(point)
+    finally:
+        t1 = time.monotonic()
+        until.set()
+        probe.stop()
+    bursts = await serving
+    graphs1 = engine.stats()["graphs"]
+    return dict(bursts=bursts, prewarm=warm_out, prewarm_s=t1 - t0,
+                longest_tick_gap_s=clock.longest_gap(t0, t1),
+                ticks_during=sum(1 for t, _ in clock.calls if t0 <= t <= t1),
+                reserved_added=reserved_bytes(torch) - reserved0,
+                graphs_added=(graphs1["captured"] - graphs0["captured"],
+                              graphs1["prefill"]["captured"]
+                              - graphs0["prefill"]["captured"]),
+                probe_reads=probe.reads, probe_errors=probe.errors)
+
+
+def check_prewarm(got, want, path):
+    """A prewarm while serving: every burst's outputs are ``want``, the
+    graphs it says it captured are the ones added, nothing synced."""
+    if any(outs != want for outs in got["bursts"]):
+        raise AssertionError(f"{path}: a burst served during the prewarm "
+                             f"differs from the burst without one")
+    if sum(got["graphs_added"]) != got["prewarm"]["compiled"] \
+            or not got["prewarm"]["compiled"]:
+        raise AssertionError(f"{path}: prewarm says {got['prewarm']}, the "
+                             f"engine added {got['graphs_added']} graphs")
+    if got["probe_errors"] or not got["probe_reads"]:
+        raise AssertionError(f"{path}: reads beside the captures: "
+                             f"{got['probe_reads']}, errors "
+                             f"{got['probe_errors'][:2]}")
+
+
+def check_moved(counters, launches, cfg, engine, ks, k, path):
+    """A burst after an applied move: every tick and prefill a replay, no
+    capture, rung ``k`` among the ticks, launches as counted."""
+    ticks = counters["ticks"] + counters["spec_ticks"]
+    if counters["replays"] != ticks or counters["lazy_captures"] \
+            or counters["prefill_replays"] != counters["prefills"] \
+            or counters["prefill_lazy"]:
+        raise AssertionError(f"{path}: a tick or prefill after the move "
+                             f"was not a replay: {counters}")
+    if engine.serving_compiles(60.0):
+        raise AssertionError(f"{path}: {engine.serving_compiles(60.0)} "
+                             f"serving compiles")
+    if k not in ks:
+        raise AssertionError(f"{path}: no tick at rung {k} ({ks})")
+    check_launches(launches, expected_launches(cfg, counters), path)
+
+
+def phase_op_planes(torch, llama, generate, mods, params, seed, results):
+    """Phase 31 on ``small`` (phase 20's weights) at the example's engine:
+    (a) the app's planes, on against off; (b) the recorded trace replayed
+    on a shadow clone; (c) an operating-point move prewarmed while the
+    burst is served, applied, moved back, then ``slots_cap``. Returns
+    launches by path."""
+    from collections import Counter
+    from types import SimpleNamespace
+
+    from gofr_tpu_torch.metrics import Manager, register_engine_metrics
+    from gofr_tpu_torch.slo import SLOTracker
+    from gofr_tpu_torch.tpu import workload
+    from gofr_tpu_torch.tpu.diagnose import PHASES
+    from gofr_tpu_torch.tpu.flightrecorder import FlightRecorder
+
+    t_phase = time.monotonic()
+    log("== phase 31a: the app's planes (traffic recorder, telemetry store "
+        "at 0.1 s, error budget -> watchdog and brownout ladder, worst "
+        "offenders) on the small preset at the example's engine, off and "
+        "on in turns")
+    cfg = llama.config("small", use_flash=True)
+    prompts = engine_prompts(cfg, seed)
+    budget = 32
+    samplings = [generate.Sampling() for _ in range(7)] + [
+        generate.Sampling(temperature=0.8, top_p=0.95, seed=seed)]
+    burst = list(zip(prompts, samplings))
+    metrics = register_engine_metrics(Manager(logger=StrictLog()))
+    tracker = SLOTracker(metrics)
+    engine = generate.GenerationEngine(
+        cfg, params, device="cuda", metrics=metrics, slo=tracker,
+        recorder=FlightRecorder(), model_name="small", **SMALL_ENGINE)
+    planes = Planes(engine, metrics, tracker)
+    clock = TickClock(engine)
+    recorded = Counter()          # prompt lengths the recorder was given
+
+    async def serve(reqs, n_budget):
+        if engine.workload is not None:
+            recorded.update(len(p) for p, _ in reqs)
+        return await asyncio.wait_for(asyncio.gather(*[
+            engine.generate(p, n_budget, sampling=s) for p, s in reqs]), 600)
+
+    async def counted():
+        """The burst with the planes on, counted; one sample of the store
+        taken while it is queued, before the loop admits it."""
+        await asyncio.sleep(0.05)         # the loop idles on its wake event
+        for mod in mods:
+            mod.reset_launches()
+        before = run_counters(engine)
+        snap0 = planes.recorder.snapshot()
+        anatomy0 = planes.store.tick_anatomy()["recorded"]
+        dispatched0 = engine.ticks + engine.spec_dispatches
+        engine.ttfts.clear()
+        recorded.update(len(p) for p in prompts)
+        t0 = time.monotonic()
+        tasks = [asyncio.ensure_future(engine.generate(p, budget,
+                                                       sampling=s))
+                 for p, s in burst]
+        await asyncio.sleep(0)
+        queued = planes.store.sample()
+        outs = await asyncio.wait_for(asyncio.gather(*tasks), 600)
+        wall = time.monotonic() - t0
+        launches = read_launches(mods)
+        after = run_counters(engine)
+        await asyncio.sleep(0.25)         # the sampler reads the idle engine
+        snap1 = planes.recorder.snapshot()
+        return dict(
+            outs=outs, wall=wall, ttfts=sorted(engine.ttfts),
+            launches=launches, queued=queued,
+            counters={k: after[k] - before[k] for k in after},
+            admitted=snap1["admitted_total"] - snap0["admitted_total"],
+            finished=snap1["finished_total"] - snap0["finished_total"],
+            prompt_len=snap1["prompt_len"]["histogram"],
+            anatomy=planes.store.tick_anatomy()["recorded"] - anatomy0,
+            dispatched=engine.ticks + engine.spec_dispatches - dispatched0)
+
+    async def main():
+        out = {}
+        await warm(engine)
+        torch.cuda.synchronize()
+        await engine.start()
+        try:
+            planes.attach()
+            await serve(burst[:1], 8)
+            # (a) two pairs in turns, planes off then on; the second pair's
+            # "on" burst is counted
+            out["pairs"] = []
+            for turn in range(2):
+                await planes.detach()
+                off = await timed_burst(torch, engine, prompts, budget,
+                                        samplings, 600)
+                planes.attach()
+                if turn == 0:
+                    recorded.update(len(p) for p in prompts)
+                    on = await timed_burst(torch, engine, prompts, budget,
+                                           samplings, 600)
+                    on = dict(outs=on[0], wall=on[1], ttfts=on[2])
+                else:
+                    on = await counted()
+                out["pairs"].append((dict(outs=off[0], wall=off[1],
+                                          ttfts=off[2]), on))
+            out["distribution"] = \
+                planes.recorder.prompt_length_distribution("small")
+            out["recorded"] = Counter(recorded)
+            out["watchdog"] = (planes.watchdog.evaluate(),
+                               list(planes.watchdog._last_reasons))
+            out["budgets"] = planes.budget.statusz()["budgets"]
+            out["offenders"] = planes.offenders.snapshot()
+            out["xlaz"] = engine.xlaz()["models"]["prompt"]
+            out["signals_a"] = planes.store.series("1s")["series"]
+            # (b) the recorded trace, twice through a shadow clone at a
+            # candidate point
+            trace = workload.load_trace(json.dumps(
+                planes.recorder.export_trace()))
+            reserved0 = reserved_bytes(torch)
+            shadow = engine.shadow_clone(SimpleNamespace(
+                prompt_buckets=(32, 128, 512), steps_per_tick=8))
+            out["shared"] = [a.data_ptr() == b.data_ptr() for a, b in zip(
+                _leaves(shadow.params), _leaves(engine.params))]
+            out["hookless"] = [getattr(shadow, name) is None for name in (
+                "metrics", "tracer", "slo", "telemetry", "workload")]
+            await shadow.start()
+            try:
+                out["replays"] = [await asyncio.wait_for(
+                    workload.replay_trace(shadow, trace, time_scale=0.0),
+                    600) for _ in range(2)]
+            finally:
+                await shadow.stop()
+            out["trace_events"] = len(trace.events)
+            out["shadow_graphs"] = shadow.stats()["graphs"]["captured"]
+            out["shadow_bytes"] = reserved_bytes(torch) - reserved0
+            del shadow
+            # the loop's pending callbacks of the clone's tasks hold it
+            # until the loop runs them
+            await asyncio.sleep(0.05)
+            out["shadow_bytes_left"] = reserved_bytes(torch) - reserved0
+            # (c) the move: refused before its prewarm, prewarmed while
+            # the burst is served, applied, served, moved back; slots_cap
+            point = SimpleNamespace(**OP_MOVE)
+            try:
+                engine.apply_operating_point(point)
+                out["refused"] = None
+            except RuntimeError as exc:
+                out["refused"] = str(exc)
+            out["prewarm"] = await prewarm_while_serving(
+                torch, engine, point, prompts, budget, samplings, clock,
+                planes.container)
+            out["applied"] = engine.apply_operating_point(point)
+            out["xlaz_point"] = engine.xlaz()["operating_point"]
+            reqs = burst + [(prompts[-1][:OP_NEW_BUCKET_LEN],
+                             generate.Sampling())]
+            for mod in mods:
+                mod.reset_launches()
+            before = run_counters(engine)
+            calls0 = len(clock.calls)
+            t0 = time.monotonic()
+            out["moved"] = await serve(reqs, OP_MOVED_BUDGET)
+            out["moved_wall"] = time.monotonic() - t0
+            out["moved_launches"] = read_launches(mods)
+            after = run_counters(engine)
+            out["moved_counters"] = {k: after[k] - before[k] for k in after}
+            out["moved_ks"] = clock.ks_since(calls0)
+            graphs0 = engine.stats()["graphs"]
+            out["seed_applied"] = engine.apply_operating_point(
+                SimpleNamespace(**OP_SEED), source="rollback")
+            out["seed_outs"] = await serve(burst, budget)
+            graphs1 = engine.stats()["graphs"]
+            out["seed_captures"] = (
+                graphs1["captured"] - graphs0["captured"],
+                graphs1["prefill"]["captured"]
+                - graphs0["prefill"]["captured"],
+                graphs1["lazy_captures"] - graphs0["lazy_captures"])
+            engine.apply_operating_point(SimpleNamespace(slots_cap=2))
+            active = []
+            publish = engine._publish
+
+            def watched(entry, host):
+                publish(entry, host)
+                active.append(engine.active_slots)
+            engine._publish = watched
+            try:
+                out["capped"] = await serve(burst, budget)
+            finally:
+                engine._publish = publish
+            out["capped_active_max"] = max(active)
+            await asyncio.sleep(0.25)
+            out["signals"] = planes.store.series("1s")["series"]
+            out["signal_names"] = planes.store.signals()
+            return out
+        finally:
+            await planes.detach()
+            await engine.stop()
+
+    out = asyncio.run(main())
+    by_path = {}
+    # (a)
+    counted_run = out["pairs"][1][1]
+    c = counted_run["counters"]
+    ticks = c["ticks"] + c["spec_ticks"]
+    if c["replays"] != ticks or c["lazy_captures"] \
+            or c["prefill_replays"] != c["prefills"] or c["prefill_lazy"]:
+        raise AssertionError(f"planes: a tick or prefill of the counted "
+                             f"burst was not a replay: {c}")
+    check_launches(counted_run["launches"], expected_launches(cfg, c),
+                   "planes_small")
+    by_path["planes_small"] = counted_run["launches"]
+    want = out["pairs"][0][0]["outs"]
+    if any(run["outs"] != want for pair in out["pairs"] for run in pair):
+        raise AssertionError("planes: tokens differ with the planes on "
+                             "and off")
+    if (counted_run["admitted"], counted_run["finished"]) != (8, 8):
+        raise AssertionError(f"planes: the recorder counted "
+                             f"{counted_run['admitted']} admitted and "
+                             f"{counted_run['finished']} finished of 8")
+    admitted = out["recorded"]
+    if out["distribution"] != dict(admitted) or counted_run["prompt_len"] \
+            != workload._histogram(list(admitted.elements()),
+                                   workload._LEN_EDGES):
+        raise AssertionError(f"planes: prompt lengths recorded "
+                             f"{out['distribution']}, admitted "
+                             f"{dict(admitted)}")
+    if counted_run["anatomy"] != counted_run["dispatched"]:
+        raise AssertionError(f"planes: {counted_run['anatomy']} anatomy "
+                             f"entries for {counted_run['dispatched']} ticks")
+    if counted_run["queued"].get("queue_depth") != len(prompts):
+        raise AssertionError(f"planes: queue_depth read "
+                             f"{counted_run['queued'].get('queue_depth')} "
+                             f"with the burst queued")
+    # the dense engine has no pool: its kv_* signals never read
+    silent = [name for name in out["signal_names"]
+              if not name.startswith("kv_")
+              and all(v is None for v in out["signals"][name])]
+    if silent:
+        raise AssertionError(f"planes: signals with no sample: {silent}")
+    if not any(v for v in out["signals"]["queue_depth"] if v is not None):
+        raise AssertionError("planes: the sampler never read a queue")
+    entries = [e for w in out["offenders"]["windows"] for e in w["entries"]]
+    if not entries or any(len(w["entries"]) > out["offenders"]["k"]
+                          for w in out["offenders"]["windows"]) \
+            or any(e["dominant_phase"] not in PHASES for e in entries):
+        raise AssertionError(f"planes: offender ring {out['offenders']}")
+    if out["xlaz"]["ladder_source"] != "workload_trace":
+        raise AssertionError(f"planes: xlaz ladder from "
+                             f"{out['xlaz']['ladder_source']}")
+    if planes.ladder.level or not out["budgets"] \
+            or any(b["burning"] for b in out["budgets"]):
+        raise AssertionError(f"planes: brownout level "
+                             f"{planes.ladder.level}, budgets "
+                             f"{out['budgets']}")
+    # (b)
+    digests = [r["digest"] for r in out["replays"]]
+    if digests[0] != digests[1] or out["replays"][0]["errors"]:
+        raise AssertionError(f"shadow replay: digests {digests}, "
+                             f"{out['replays'][0]['errors']} errors")
+    if not all(out["shared"]) or not all(out["hookless"]):
+        raise AssertionError(f"shadow clone: weights shared "
+                             f"{out['shared']}, no hooks {out['hookless']}")
+    # (c)
+    if not out["refused"] or "was not prewarmed" not in out["refused"]:
+        raise AssertionError(f"op move applied before its prewarm: "
+                             f"{out['refused']}")
+    check_prewarm(out["prewarm"], want, "op_small")
+    point = out["xlaz_point"]
+    if (point["generation"], point["source"]) != (1, "autotune") \
+            or point["prompt_buckets"] != list(OP_MOVE["prompt_buckets"]):
+        raise AssertionError(f"op move: xlaz operating point {point}")
+    if any(len(o) != OP_MOVED_BUDGET for o in out["moved"]):
+        raise AssertionError("op move: a request after the move was short")
+    check_moved(out["moved_counters"], out["moved_launches"], cfg, engine,
+                out["moved_ks"], OP_MOVE["steps_per_tick"], "op_small")
+    by_path["op_small"] = out["moved_launches"]
+    if any(out["seed_captures"]) or out["seed_outs"] != want:
+        raise AssertionError(f"op move back: captures "
+                             f"{out['seed_captures']}, tokens equal "
+                             f"{out['seed_outs'] == want}")
+    if out["capped_active_max"] > 2 or out["capped"] != want:
+        raise AssertionError(f"slots_cap 2: {out['capped_active_max']} "
+                             f"slots active at most, tokens equal "
+                             f"{out['capped'] == want}")
+    tokens = budget * len(prompts)
+    pairs = [dict(tokens_per_s_off=tokens / off["wall"],
+                  tokens_per_s_on=tokens / on["wall"],
+                  ttft_p50_off=median(off["ttfts"]),
+                  ttft_p50_on=median(on["ttfts"]))
+             for off, on in out["pairs"]]
+    pw = out["prewarm"]
+    row = dict(
+        pairs=pairs, queued_sample=counted_run["queued"],
+        recorder_counted=(counted_run["admitted"], counted_run["finished"]),
+        anatomy_entries=counted_run["anatomy"], watchdog=out["watchdog"],
+        budgets=out["budgets"], offenders=out["offenders"],
+        xlaz_prompt=out["xlaz"], trace_events=out["trace_events"],
+        replay=out["replays"][0], shadow_graphs=out["shadow_graphs"],
+        shadow_reserved_bytes=out["shadow_bytes"],
+        shadow_reserved_left=out["shadow_bytes_left"], refused=out["refused"],
+        prewarm={k: v for k, v in pw.items() if k != "bursts"},
+        prewarm_bursts=len(pw["bursts"]), operating_point=point,
+        moved_tokens_per_s=len(out["moved"]) * OP_MOVED_BUDGET
+        / out["moved_wall"], moved_ks=out["moved_ks"],
+        moved_counters=out["moved_counters"],
+        capped_active_max=out["capped_active_max"],
+        phase_s=time.monotonic() - t_phase)
+    results["op_planes_small"] = row
+    for i, p in enumerate(pairs):
+        log(f"planes pair {i}: tok/s off {p['tokens_per_s_off']:.1f} on "
+            f"{p['tokens_per_s_on']:.1f}; TTFT p50 off "
+            f"{p['ttft_p50_off']:.4f}s on {p['ttft_p50_on']:.4f}s")
+    log(f"planes: recorder 8/8, queue_depth {len(prompts)} queued, "
+        f"{counted_run['anatomy']} anatomy entries for as many ticks, "
+        f"watchdog {out['watchdog'][0]}, {len(entries)} offenders "
+        f"(dominant {sorted({e['dominant_phase'] for e in entries})}), "
+        f"ladder from {out['xlaz']['ladder_source']} "
+        f"{out['xlaz']['suggested_ladder']}")
+    log(f"== phase 31b: {out['trace_events']} recorded events replayed "
+        f"twice on a shadow clone (k 8): digest {digests[0]} both times, "
+        f"{out['replays'][0]['admitted_tokens']} tokens; weights shared; "
+        f"clone {out['shadow_graphs']} tick graphs, +{out['shadow_bytes']} "
+        f"reserved bytes ({out['shadow_bytes_left']} left once deleted)")
+    log(f"== phase 31c: move to {OP_MOVE}: refused before its prewarm; "
+        f"prewarm {pw['prewarm']['compiled']} graphs (ticks, prefills "
+        f"{pw['graphs_added']}) in {pw['prewarm_s']:.2f}s while "
+        f"{len(pw['bursts'])} bursts were served ({pw['ticks_during']} "
+        f"ticks, longest gap {pw['longest_tick_gap_s']:.3f}s), "
+        f"+{pw['reserved_added']} reserved bytes, {pw['probe_reads']} "
+        f"reads beside it; after apply {row['moved_tokens_per_s']:.1f} "
+        f"tok/s at {OP_MOVED_BUDGET} tokens, ticks at k {out['moved_ks']}, "
+        f"no capture; back to the seed: nothing captured; slots_cap 2: "
+        f"{out['capped_active_max']} active at most, tokens equal; "
+        f"{row['phase_s']:.1f}s")
+    del engine
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def phase_op_llama3(torch, generate, mods, cfg, params, seed, results):
+    """Phase 31d: the dense bf16 ``llama3-8b`` engine of phase 15 prewarms
+    ``steps_per_tick`` 8 while phase 15's burst is served (its greedy
+    completions must be phase 15's), applies it and serves the burst
+    again (no capture, launches as counted). Returns launches by path."""
+    from types import SimpleNamespace
+
+    t_phase = time.monotonic()
+    log("== phase 31d: llama3-8b dense bf16: prewarm steps_per_tick 8 while "
+        "serving, apply, serve")
+    prompts = engine_prompts(cfg, seed)
+    budget = 32
+    samplings = [generate.Sampling() for _ in range(7)] + [
+        generate.Sampling(temperature=0.8, top_p=0.95, seed=seed)]
+    engine = generate.GenerationEngine(
+        cfg, params, max_slots=8, max_len=2048,
+        prompt_buckets=(32, 128, 512), steps_per_tick=4, device="cuda")
+    clock = TickClock(engine)
+    want = results["dense"]["greedy_outputs"]
+
+    async def main():
+        out = {}
+        await warm(engine)
+        torch.cuda.synchronize()
+        await engine.start()
+        try:
+            await engine.generate(prompts[0], 8)
+            k4 = await timed_burst(torch, engine, prompts, budget, samplings,
+                                   600)
+            out["k4"] = dict(outs=k4[0], wall=k4[1])
+            out["prewarm"] = await prewarm_while_serving(
+                torch, engine, SimpleNamespace(steps_per_tick=8), prompts,
+                budget, samplings, clock, SimpleNamespace(tpu=engine))
+            engine.apply_operating_point(SimpleNamespace(steps_per_tick=8))
+            for mod in mods:
+                mod.reset_launches()
+            before = run_counters(engine)
+            calls0 = len(clock.calls)
+            k8 = await timed_burst(torch, engine, prompts, budget, samplings,
+                                   600)
+            out["k8"] = dict(outs=k8[0], wall=k8[1])
+            out["launches"] = read_launches(mods)
+            after = run_counters(engine)
+            out["counters"] = {k: after[k] - before[k] for k in after}
+            out["ks"] = clock.ks_since(calls0)
+            return out
+        finally:
+            await engine.stop()
+
+    out = asyncio.run(main())
+    if out["k4"]["outs"][:7] != want:
+        raise AssertionError("op llama3: the burst before the move differs "
+                             "from phase 15's")
+    check_prewarm(out["prewarm"], out["k4"]["outs"], "op_llama3")
+    check_moved(out["counters"], out["launches"], cfg, engine, out["ks"], 8,
+                "op_llama3")
+    tokens = budget * len(prompts)
+    pw = out["prewarm"]
+    row = dict(tokens_per_s_k4=tokens / out["k4"]["wall"],
+               tokens_per_s_k8=tokens / out["k8"]["wall"],
+               k8_greedy_equal=out["k8"]["outs"][:7] == want,
+               prewarm={k: v for k, v in pw.items() if k != "bursts"},
+               prewarm_bursts=len(pw["bursts"]), ks=out["ks"],
+               counters=out["counters"], phase_s=time.monotonic() - t_phase)
+    results["op_llama3"] = row
+    log(f"op llama3-8b: tok/s k 4 {row['tokens_per_s_k4']:.1f}, k 8 "
+        f"{row['tokens_per_s_k8']:.1f} (greedy equal to k 4: "
+        f"{row['k8_greedy_equal']}); prewarm {pw['prewarm']['compiled']} "
+        f"graphs in {pw['prewarm_s']:.2f}s while {len(pw['bursts'])} bursts "
+        f"were served (longest tick gap {pw['longest_tick_gap_s']:.3f}s), "
+        f"+{pw['reserved_added']} reserved bytes; {row['phase_s']:.1f}s")
+    del engine
+    torch.cuda.empty_cache()
+    return {"op_llama3": out["launches"]}
+
+
 # shared-prefix traffic (phase 24): one 256-token system prompt (8 pages
 # of 32) before every prompt, then a distinct suffix
 SYSTEM_TOKENS, PREFIX_RUNG = 256, 8
@@ -3476,6 +4147,9 @@ def main() -> int:
     by_path_d64.update(phase_engine_args(torch, llama, moe, generate,
                                          page_pool, mods, small_params,
                                          args.seed, results))
+    # this slice: operating points and the telemetry plane
+    by_path_d64.update(phase_op_planes(torch, llama, generate, mods,
+                                       small_params, args.seed, results))
     del small_params
     torch.cuda.empty_cache()
     # this slice: the example's own model (``small`` over its byte-level
@@ -3524,6 +4198,8 @@ def main() -> int:
                 paged)
     by_path.update(phase_telemetry_llama3(torch, generate, mods, cfg, params,
                                           args.seed, results))
+    by_path.update(phase_op_llama3(torch, generate, mods, cfg, params,
+                                   args.seed, results))
     # phase 26 at llama3-8b width: the 4.1 MB bias slab each tick
     by_path.update(phase_constrained(
         torch, generate, constrain, mods, cfg, params,

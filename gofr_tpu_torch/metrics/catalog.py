@@ -3,8 +3,10 @@ histogram buckets the app's catalog registers them under
 (``gofr_tpu/container.py``'s ``register_framework_metrics``; documented in
 ``docs/quick-start/observability.md``). The port adds no name: this is
 the slice of that catalog the engine, its page pool, the SLO tracker,
-the watchdog, the brownout ladder and the fault plane write, so a :class:`~gofr_tpu_torch.
-metrics.manager.Manager` of the port's own can take every call they make.
+the watchdog, the brownout ladder, the fault plane, the telemetry store,
+the error-budget plane, the traffic recorder and the background-task
+spawner write, so a :class:`~gofr_tpu_torch.metrics.manager.Manager` of
+the port's own can take every call they make.
 """
 
 from __future__ import annotations
@@ -78,6 +80,23 @@ ENGINE_METRICS: Tuple[Tuple[str, str, Optional[tuple], str], ...] = (
     ("app_tpu_brownout_level", "gauge", None, "brownout ladder rung"),
     ("app_tpu_fault_injected_total", "counter", None,
      "seeded faults fired, by site"),
+    ("app_tpu_workload_events_total", "counter", None,
+     "requests admitted into the workload recorder's shape-only ring, per "
+     "(model, SLO class) — token lengths and timings only, never token "
+     "content"),
+    ("app_tpu_anomaly_total", "counter", None,
+     "telemetry anomalies raised by the change-point detector, per "
+     "(signal, direction) — a goodput cliff or padding spike that "
+     "survived the detector's hysteresis"),
+    ("app_tpu_slo_burn_rate", "gauge", None,
+     "error-budget burn multiple per (model, class, window); 1.0 spends "
+     "exactly the budget over the objective period"),
+    ("app_tpu_slo_budget_remaining", "gauge", None,
+     "fraction of the (model, class) error budget left over the "
+     "accounting window"),
+    ("app_async_task_failures_total", "counter", None,
+     "background asyncio tasks that died with an escaped exception, by "
+     "task name"),
 )
 
 

@@ -6,8 +6,11 @@ phase split.
 The engine opens a record at submit, marks admission, the batches it
 rode, its first token and its terminal status; ``statusz()`` renders
 the rings. Plain host bookkeeping — no device syncs, O(1) per event,
-bounded memory — so it is always on. The JAX recorder's workload and
-worst-offender attachments come with the workload plane.
+bounded memory — so it is always on. A
+:class:`~gofr_tpu_torch.tpu.workload.TrafficRecorder` (``workload``) and
+a :class:`~gofr_tpu_torch.tpu.diagnose.WorstOffenders` ring
+(``offenders``) attached to the recorder see every terminal record
+through :meth:`FlightRecorder.finish`.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ class RequestRecord:
                  "first_token_at", "finished_at", "tokens", "status",
                  "ticks", "batch_min", "batch_max", "batch_sum",
                  "cached_prefix_len", "pages_held", "kv_transfer_s",
-                 "kv_transfer_bytes")
+                 "kv_transfer_bytes", "wevent")
 
     def __init__(self, model: str = "generate", prompt_len: int = 0,
                  budget: int = 0, trace_id: Optional[str] = None,
@@ -57,6 +60,9 @@ class RequestRecord:
         # request's KV transfer — zero for locally prefilled requests
         self.kv_transfer_s = 0.0
         self.kv_transfer_bytes = 0
+        # the TrafficRecorder admission event this request belongs to,
+        # closed at finish — shape only
+        self.wevent: Optional[Any] = None
 
     # -- event hooks (engine/batcher call these) ---------------------------
     def admitted(self) -> None:
@@ -146,6 +152,11 @@ class FlightRecorder:
         self._steps: "deque[Dict[str, Any]]" = deque(maxlen=step_capacity)
         self._total = 0
         self._total_steps = 0
+        # finish() is the one funnel every terminal status passes through:
+        # a TrafficRecorder attached here sees each finish reason, and a
+        # WorstOffenders ring each terminal record, diagnosed at finish
+        self.workload: Optional[Any] = None
+        self.offenders: Optional[Any] = None
 
     def start(self, record: RequestRecord) -> RequestRecord:
         with self._lock:
@@ -158,6 +169,12 @@ class FlightRecorder:
         with self._lock:
             if self._inflight.pop(id(record), None) is not None:
                 self._completed.append(record)
+        workload = self.workload
+        if workload is not None:
+            workload.finish(record)
+        offenders = self.offenders
+        if offenders is not None:
+            offenders.offer(record)
 
     def record_step(self, model: str, bucket: int, batch: int,
                     phases: Dict[str, float]) -> None:

@@ -169,9 +169,27 @@ or a paged pool (``paged_kv=True``).
   buffer, filled by one transfer; ``coalesce_stream`` queues a tick's
   tokens as one list. Uploads are metered (``app_tpu_h2d_*`` by path) on
   the device thread and emitted at publish. ``mesh`` must be None.
+- The operating point (JAX's): ``apply_operating_point`` swaps the prompt
+  buckets, ``steps_per_tick``, the γ cap, the page reserve, the class
+  weights, ``slots_cap`` (admission claims no slot past it; the ticks
+  still run over every row under their mask) and the staging depth, with
+  JAX's refusals; a move of the buckets or of ``steps_per_tick`` must
+  first be prewarmed. ``prewarm_operating_point`` captures the graphs
+  such a move needs while the engine serves, one rung a job on the
+  device thread, so the serving ticks run between captures; each new
+  graph runs once after its capture (over padding rows, or over an
+  inactive mask put in place of the live one and restored after).
+  ``shadow_clone`` builds an engine at a candidate point over the same
+  parameter tensors, with its own cache or pool and graphs and no hooks.
+  ``operating_point()`` (also ``xlaz()["operating_point"]``) reports it.
+- The workload plane: ``attach_workload`` hands each submission to a
+  :class:`~gofr_tpu_torch.tpu.workload.TrafficRecorder` (before the
+  brownout gate, as JAX) and the flight recorder's finish funnel closes
+  it; ``xlaz()`` then suggests a bucket ladder from the recorder's recent
+  prompt lengths.
 
-Left for later slices (see ROADMAP.md): disaggregation, auto-tuning and
-operating points, mesh sharding, the workload plane.
+Left for later slices (see ROADMAP.md): disaggregation, auto-tuning,
+mesh sharding.
 """
 
 from __future__ import annotations
@@ -608,6 +626,14 @@ class _Prefill:
         self.replays = 0
 
 
+def _k_rungs(steps_per_tick: int) -> List[int]:
+    """The fused-steps ladder 1, 2, 4, ... <= ``steps_per_tick``."""
+    rungs = [1]
+    while rungs[-1] * 2 <= steps_per_tick:
+        rungs.append(rungs[-1] * 2)
+    return rungs
+
+
 def _tree_bytes(tree: Any) -> int:
     """Bytes of the tensors of a (nested) dict; 0 for None."""
     if tree is None:
@@ -710,15 +736,24 @@ class GenerationEngine:
             raise ValueError("no prompt bucket fits max_len")
         # fused-steps ladder 1, 2, 4, ... <= steps_per_tick
         self.steps_per_tick = max(1, int(steps_per_tick))
-        self._k_ladder = [1]
-        while self._k_ladder[-1] * 2 <= self.steps_per_tick:
-            self._k_ladder.append(self._k_ladder[-1] * 2)
+        self._k_ladder = _k_rungs(self.steps_per_tick)
         # admission-count ladder 1, 2, 4, ... with max_slots the top rung
         self._n_ladder = [1]
         while self._n_ladder[-1] * 2 <= self.max_slots:
             self._n_ladder.append(self._n_ladder[-1] * 2)
         if self._n_ladder[-1] != self.max_slots:
             self._n_ladder.append(self.max_slots)
+        # the operating point (JAX's): serving knobs move only through
+        # apply_operating_point. slots_cap caps admission below max_slots
+        # (the state and the graphs stay sized by max_slots; a tick runs
+        # over every row under its mask). _op_prewarmed holds the shape
+        # signatures (prompt_buckets, steps_per_tick) whose graphs exist
+        # or are captured lazily as before this plane: the seed's
+        self.slots_cap: Optional[int] = None
+        self._op_source = "seed"
+        self._op_generation = 0
+        self._op_applied_at: Optional[float] = None
+        self._op_prewarmed = {(self.prompt_buckets, self.steps_per_tick)}
         # paged KV: one page pool addressed through a per-slot page table;
         # dense (the default, as in JAX): a (max_slots, max_len) cache row
         # per slot
@@ -751,12 +786,15 @@ class GenerationEngine:
         self.telemetry = None
         self._tick_seq = 0
         self._tick_every = 64
+        # the workload recorder: None until attach_workload
+        self.workload = None
         self._steps = 0               # ticks dispatched (plain and spec)
         # compiles: one graph capture each (warmup class inside warmup(),
         # serving class otherwise), noted on the loop thread when the
         # capture is queued
         self._warming = 0
-        self._compiled: set = set()   # keys captured or queued to be
+        # keys captured or queued to be (on the CPU: run or queued to be)
+        self._compiled: set = set()
         self._compile_events: List[Tuple[float, str, str]] = []
         self._compiles_by_class = {"warmup": 0, "serving": 0}
         # attention-window ladder (fill-bounded decode): rungs double from
@@ -1416,48 +1454,75 @@ class GenerationEngine:
 
     def _warm(self, keys) -> None:
         """Run every tick of ``keys`` once with every slot inactive, as
-        JAX's warmup runs each tick it compiles: on the card its graph is
-        captured first and the run is a replay over an inactive mask
-        (its writes are those of the capture's eager run), so the graph's
-        first launch, which uploads it to the card, is not a request's;
-        on the CPU the body runs."""
-        idle = torch.zeros_like(self.active)
-        if self.device.type != "cuda":
-            for key in keys:
-                self._tick_body(key, idle)
-            return
-        self._staging.upload(self.active,
-                             np.zeros((self.max_slots,), bool), path="mask")
+        JAX's warmup runs each tick it compiles (:meth:`_warm_tick`), the
+        device mask first made all inactive (the engine is not serving)."""
+        if self.device.type == "cuda":
+            self._staging.upload(self.active,
+                                 np.zeros((self.max_slots,), bool),
+                                 path="mask")
         for key in keys:
-            entry = self._graphs.get(key) or self._capture(key)
-            entry.graph.replay()
-            launch_counts.add(entry.launches)
+            self._warm_tick(key)
+
+    def _warm_tick(self, key: _Key, live: bool = False) -> bool:
+        """Run tick ``key`` once with every slot inactive: on the card its
+        graph is captured first (if it was not) and the run is a replay
+        over an inactive mask (its writes are those of the capture's eager
+        run), so the graph's first launch, which uploads it to the card,
+        is not a request's; on the CPU the body runs. ``live``: the engine
+        is serving, so the device mask is saved, cleared and restored
+        around the replay, in stream order between the ticks before and
+        after. Returns whether it captured (on the CPU: True, it ran)."""
+        if self.device.type != "cuda":
+            self._tick_body(key, torch.zeros_like(self.active))
+            return True
+        entry = self._graphs.get(key)
+        captured = entry is None
+        if captured:
+            entry = self._capture(key)
+        saved = self.active.clone() if live else None
+        if live:
+            self.active.zero_()
+        entry.graph.replay()
+        launch_counts.add(entry.launches)
+        if live:
+            self.active.copy_(saved)
+        return captured
 
     def _warm_prefills(self, keys: List[_PrefillKey]) -> None:
-        """Run every prefill rung of ``keys`` once over padding rows (no
-        slot or cached page is written), as JAX's warmup runs each
-        prefill it compiles: on the card its graph is captured first, its
-        staging slabs made, and the run is a replay, so the graph's first
-        launch (which uploads it to the card) is not a request's; on the
-        CPU the body runs."""
-        cuda = self.device.type == "cuda"
+        """Run every prefill rung of ``keys`` once over padding rows
+        (:meth:`_warm_prefill`), as JAX's warmup runs each prefill it
+        compiles."""
         for key in keys:
-            nb, bucket, p_rung, biased, db = key
-            ints, layout = _pack(self._group_arrays(nb, bucket, p_rung, db))
-            floats = self._group_floats(nb, biased)
-            rung = self._prefill_rung(key, layout, floats.size)
-            if cuda and rung.graph is None:
-                self._capture_prefill(rung)
-            self._upload_prefill(rung, ints, floats)
-            if not cuda:
-                self._prefill_body(rung)
-                continue
-            for buf in ((rung.arena,) if rung.arena is not None
-                        else (rung.ints, rung.floats)):
-                self._staging.reserve(buf)
-            self._staging.reserve(rung.first, upload=False)
-            rung.graph.replay()
-            launch_counts.add(rung.launches)
+            self._warm_prefill(key)
+
+    def _warm_prefill(self, key: _PrefillKey) -> bool:
+        """Run prefill rung ``key`` once over padding rows (no slot or
+        cached page is written): on the card its graph is captured first
+        (if it was not), its staging slabs made, and the run is a replay,
+        so the graph's first launch (which uploads it to the card) is not
+        a request's; on the CPU the body runs. The rung's buffers hold
+        what the run uploads until a group of the rung uploads its own,
+        in stream order. Returns whether it captured (on the CPU: True,
+        it ran)."""
+        cuda = self.device.type == "cuda"
+        nb, bucket, p_rung, biased, db = key
+        ints, layout = _pack(self._group_arrays(nb, bucket, p_rung, db))
+        floats = self._group_floats(nb, biased)
+        rung = self._prefill_rung(key, layout, floats.size)
+        captured = cuda and rung.graph is None
+        if captured:
+            self._capture_prefill(rung)
+        self._upload_prefill(rung, ints, floats)
+        if not cuda:
+            self._prefill_body(rung)
+            return True
+        for buf in ((rung.arena,) if rung.arena is not None
+                    else (rung.ints, rung.floats)):
+            self._staging.reserve(buf)
+        self._staging.reserve(rung.first, upload=False)
+        rung.graph.replay()
+        launch_counts.add(rung.launches)
+        return captured
 
     # -- lifecycle -------------------------------------------------------------
     def _startup_window_rungs(self, ks: List[int]) -> List[Optional[int]]:
@@ -1698,13 +1763,16 @@ class GenerationEngine:
     def _submit(self, prompt_ids, max_new_tokens, eos_id, sampling,
                 queue, response_format=None) -> asyncio.Future:
         """Validate, compile the grammar, class the request by the
-        submitting context's deadline, pass the brownout gate and queue
-        it under its class. Raises (nothing queued) on any refusal."""
+        submitting context's deadline, record its admission with the
+        workload recorder, pass the brownout gate and queue it under its
+        class. Raises (nothing queued) on any refusal."""
         prompt, bucket = self._validate(prompt_ids, max_new_tokens)
         grammar = self._compile_grammar(response_format, eos_id)
         flight = self._new_flight(prompt, max_new_tokens)
         deadline = current_deadline()
         cls = deadline_class(deadline)
+        if self.workload is not None:
+            self.workload.admit(flight.record, cls, deadline)
         self._brownout_gate(cls, flight)
         future = asyncio.get_running_loop().create_future()
         self._pending.put_nowait(
@@ -1822,10 +1890,12 @@ class GenerationEngine:
     def _note_capture(self, key: _Key) -> None:
         """Note tick ``key``'s graph capture as one compile, once, on the
         loop thread when it is queued (on the card; the CPU runs ticks
-        eagerly and captures nothing)."""
-        if self.device.type != "cuda" or key in self._compiled:
+        eagerly and captures nothing, and only remembers the key)."""
+        if key in self._compiled:
             return
         self._compiled.add(key)
+        if self.device.type != "cuda":
+            return
         kind = {"plain": "decode", "bias": "decode_bias",
                 "spec": "spec"}[key[0]] + ("_paged" if self.paged else "")
         self._note_compile(kind, key[1:])
@@ -1836,10 +1906,11 @@ class GenerationEngine:
         pair, and a draft's too), on the loop thread when it is queued (on
         the card only, as :meth:`_note_capture`)."""
         tag = ("prefill",) + key
-        if self.device.type != "cuda" or tag in self._compiled:
+        if tag in self._compiled:
             return
         self._compiled.add(tag)
-        self._note_compile(_prefill_kind(key), key)
+        if self.device.type == "cuda":
+            self._note_compile(_prefill_kind(key), key)
 
     def _note_compile(self, kind: str, key) -> None:
         """Charge one compile (JAX ``_note_compile``): warmup class inside
@@ -1883,6 +1954,261 @@ class GenerationEngine:
         pays one attribute test a pass."""
         self.telemetry = store
         self._tick_every = max(1, int(every))
+
+    def attach_workload(self, recorder) -> None:
+        """Wire the workload recorder (JAX ``attach_workload``): each
+        submission calls ``recorder.admit`` and every terminal status
+        reaches ``recorder.finish`` through the flight recorder's one
+        finish funnel. Never called, ``workload`` stays None."""
+        self.workload = recorder
+        self.recorder.workload = recorder
+
+    # -- the operating point (JAX's) --------------------------------------------
+    def operating_point(self) -> Dict[str, Any]:
+        """The live operating point with its provenance (JAX
+        ``operating_point``): every knob :meth:`apply_operating_point`
+        moves, ``staging_depth`` being the depth of the engine's staging
+        rings, and where the values came from (``source`` is ``seed``
+        until the first apply)."""
+        return {
+            "prompt_buckets": list(self.prompt_buckets),
+            "steps_per_tick": self.steps_per_tick,
+            "gamma_cap": self._gamma_cap,
+            "kv_reserve": self._kv_reserve if self.paged else None,
+            "class_weights": self._pending.weights(),
+            "slots_cap": self.slots_cap,
+            "staging_depth": self._staging.depth,
+            "max_slots": self.max_slots,
+            "source": self._op_source,
+            "generation": self._op_generation,
+            "applied_at": self._op_applied_at,
+        }
+
+    def _op_shape_sig(self, point) -> Tuple[Tuple[int, ...], int]:
+        """The (prompt_buckets, steps_per_tick) signature of a candidate
+        point, the knobs that map to graphs; an absent knob keeps the
+        engine's value."""
+        buckets = getattr(point, "prompt_buckets", None)
+        buckets = (self.prompt_buckets if buckets is None
+                   else tuple(sorted({int(b) for b in buckets})))
+        k = getattr(point, "steps_per_tick", None)
+        k = self.steps_per_tick if k is None else max(1, int(k))
+        return buckets, k
+
+    def _op_keys(self, buckets: Tuple[int, ...], k: int
+                 ) -> Tuple[List[_PrefillKey], List[_Key]]:
+        """The graphs a point of ``buckets`` and ``k`` serves through that
+        were not captured (on the CPU: not run) or queued: the full
+        prefill of every bucket at every count of the admission ladder
+        (its rows raised on the card as :meth:`_prefill_count` raises
+        them), and every rung of ``k``'s ladder, greedy and sampled, at
+        every window rung (dense), gather-width rung (paged under
+        ``ragged_attn="off"``) or window None (ragged)."""
+        rungs = _k_rungs(k)
+        windows = [None] if self._ragged else list(self._window_ladder)
+        pkeys = [key for key in dict.fromkeys(
+            (self._prefill_count(n, b), b, 0, False, 0)
+            for b in buckets for n in self._n_ladder)
+            if ("prefill",) + key not in self._compiled]
+        keys = [key for key in (("plain", r, s, w) for w in windows
+                                for r in rungs for s in (False, True))
+                if key not in self._compiled]
+        return pkeys, keys
+
+    async def prewarm_operating_point(self, point) -> Dict[str, Any]:
+        """Capture every graph an operating-point move needs (JAX
+        ``prewarm_operating_point``, its refusals and its answer), charged
+        as warmup-class compiles, while the engine serves: the rungs of
+        :meth:`_op_keys`, each captured and then run once (over padding
+        rows, or over an inactive mask put in place of the live one and
+        restored after), so no graph's first launch is a request's. Each
+        rung is one job on the device thread, so the serving ticks queued
+        meanwhile run between them: after each job, the prewarm waits
+        for the loop to queue a tick (:meth:`_tick_since`) if it has one
+        coming. A capture's eager run writes what an
+        inactive tick writes (each row's frozen positions, at or past its
+        fill, which the row writes again before it reads them), in stream
+        order with the ticks in flight. ``compiled`` counts the graphs
+        captured; on the CPU, where nothing is captured, the rungs run."""
+        buckets, k = self._op_shape_sig(point)
+        bad = [b for b in buckets if b > self.max_len]
+        if bad or not buckets:
+            raise ValueError(
+                f"prewarm: prompt buckets {bad or buckets} out of range "
+                f"(max_len={self.max_len})")
+        if self.paged:
+            bad = [b for b in buckets if b % self.kv_page]
+            if bad:
+                raise ValueError(
+                    f"prewarm: prompt buckets {bad} are not multiples of "
+                    f"kv_page {self.kv_page}")
+        pkeys, keys = self._op_keys(buckets, k)
+        self._warming += 1
+        try:
+            for key in pkeys:
+                self._note_prefill(key)
+            for key in keys:
+                self._note_capture(key)
+        finally:
+            self._warming -= 1
+        loop = asyncio.get_running_loop()
+        compiled = 0
+        jobs = [(self._warm_prefill, key) for key in pkeys] \
+            + [(self._warm_tick, key, True) for key in keys]
+        for job in jobs:
+            compiled += await loop.run_in_executor(self._device_exec, *job)
+            await self._tick_since(self._steps)
+        self._op_prewarmed.add((buckets, k))
+        if self.logger is not None and compiled:
+            self.logger.info(
+                "engine prewarm: compiled %d executables for operating "
+                "point (buckets=%s k=%d)", compiled, list(buckets), k)
+        return {"compiled": compiled, "prompt_buckets": list(buckets),
+                "steps_per_tick": k}
+
+    async def _tick_since(self, steps: int) -> None:
+        """While the engine's loop has work that leads to a tick (a step in
+        flight, or a request it can admit now), wait until it has
+        dispatched a tick since the count ``steps``: that tick is then
+        queued on the device thread ahead of the next prewarm job, so
+        serving waits behind one capture at a time."""
+        while self._task is not None and self._steps == steps and (
+                self._publishq
+                or (self._admit_room(0) and not self._pending.empty())):
+            await asyncio.sleep(0.0005)
+
+    def apply_operating_point(self, point,
+                              source: str = "autotune") -> Dict[str, Any]:
+        """Swap the engine's operating point (JAX
+        ``apply_operating_point``, its refusals, order and messages).
+        ``point`` duck-types the knobs (an absent or None one keeps the
+        engine's value): ``prompt_buckets``, ``steps_per_tick``,
+        ``gamma_cap``, ``kv_reserve``, ``class_weights``, ``slots_cap``,
+        ``staging_depth``. Refused, with nothing applied: under a
+        brownout, a shape-changing move (buckets or steps_per_tick) not
+        prewarmed, a value out of range. Everything is validated first,
+        then swapped with no await between, so the loop sees the old
+        point or the new one. The outgoing shape stays prewarmed (its
+        graphs stay), so moving back captures nothing; a changed
+        ``steps_per_tick`` rebuilds the k ladder."""
+        if self._brownout > 0:
+            raise RuntimeError(
+                f"apply_operating_point refused: brownout level "
+                f"{self._brownout} active")
+        buckets, k = self._op_shape_sig(point)
+        current_sig = (self.prompt_buckets, self.steps_per_tick)
+        if not buckets:
+            raise ValueError("apply_operating_point: empty prompt buckets")
+        bad = [b for b in buckets if b > self.max_len or b < 1]
+        if bad:
+            raise ValueError(
+                f"apply_operating_point: buckets {bad} out of range "
+                f"(max_len={self.max_len})")
+        if self.paged:
+            bad = [b for b in buckets if b % self.kv_page]
+            if bad:
+                raise ValueError(
+                    f"apply_operating_point: buckets {bad} are not "
+                    f"multiples of kv_page {self.kv_page}")
+        if (buckets, k) != current_sig \
+                and (buckets, k) not in self._op_prewarmed:
+            raise RuntimeError(
+                "apply_operating_point refused: shape-changing move "
+                f"(buckets={list(buckets)} k={k}) was not prewarmed — "
+                "call prewarm_operating_point first so compiles stay "
+                "off the serving path")
+        gamma = getattr(point, "gamma_cap", None)
+        if gamma is not None and self.spec:
+            gamma = max(1, min(int(gamma), self.spec_gamma))
+        reserve = getattr(point, "kv_reserve", None)
+        if reserve is not None and self.paged:
+            reserve = int(reserve)
+            if not 0 <= reserve < self._pool.num_pages:
+                raise ValueError(
+                    f"apply_operating_point: kv_reserve {reserve} out of "
+                    f"range [0, {self._pool.num_pages})")
+        weights = getattr(point, "class_weights", None)
+        if weights:
+            weights = {str(name): float(w) for name, w in weights.items()}
+            bad_w = [name for name, w in weights.items() if w <= 0]
+            if bad_w:
+                raise ValueError(
+                    f"apply_operating_point: non-positive class weights "
+                    f"{bad_w}")
+        cap = getattr(point, "slots_cap", None)
+        if cap is not None:
+            cap = int(cap)
+            if not 1 <= cap <= self.max_slots:
+                raise ValueError(
+                    f"apply_operating_point: slots_cap {cap} out of "
+                    f"range [1, {self.max_slots}]")
+        depth = getattr(point, "staging_depth", None)
+        if depth is not None:
+            depth = max(1, int(depth))
+        # validated: swap with no await between
+        self._op_prewarmed.add(current_sig)
+        self.prompt_buckets = buckets
+        self.steps_per_tick = k
+        self._k_ladder = _k_rungs(k)
+        if gamma is not None and self.spec:
+            self._gamma_cap = gamma
+        if reserve is not None and self.paged:
+            self._kv_reserve = reserve
+        if weights:
+            self.class_weights = dict(weights)
+            self._pending.set_weights(weights)
+        self.slots_cap = cap if cap is not None else self.slots_cap
+        if depth is not None:
+            self._staging.depth = depth
+        self._op_source = str(source)
+        self._op_generation += 1
+        self._op_applied_at = time.monotonic()
+        if self.logger is not None:
+            self.logger.info(
+                "engine operating point applied (gen %d, source=%s): "
+                "buckets=%s k=%d", self._op_generation, self._op_source,
+                list(buckets), k)
+        return self.operating_point()
+
+    def shadow_clone(self, point=None) -> "GenerationEngine":
+        """A fresh engine over the same config and the same parameter
+        tensors (shared storage, never copied) at a candidate point (JAX
+        ``shadow_clone``, its keywords, then ``device``): its own cache or
+        page pool and its own graphs, and no metrics, tracer, recorder
+        hooks or telemetry, so scoring traffic touches nothing live.
+        Speculative decode and the prefix store are not cloned."""
+        buckets, k = self._op_shape_sig(point) if point is not None \
+            else (self.prompt_buckets, self.steps_per_tick)
+        weights = getattr(point, "class_weights", None) \
+            if point is not None else None
+        kwargs: Dict[str, Any] = dict(
+            max_slots=self.max_slots, max_len=self.max_len,
+            prompt_buckets=buckets, steps_per_tick=k,
+            mesh=self.mesh,
+            window_ladder=len(self._window_ladder) > 1,
+            model_module=None if self._model is llama else self._model,
+            model_name=f"{self.model_name}@shadow",
+            class_weights=dict(weights or self.class_weights),
+            coalesce_uploads=self.coalesce_uploads,
+            coalesce_stream=self.coalesce_stream)
+        if self.paged:
+            kwargs.update(paged_kv=True, kv_page=self.kv_page,
+                          kv_pages=self._pool.num_pages,
+                          ragged_attn=self.ragged_attn)
+        return GenerationEngine(self.cfg, self.params, device=self.device,
+                                **kwargs)
+
+    def _admit_room(self, taken: int) -> bool:
+        """True while admission may claim another slot this pass (JAX
+        ``_admit_room``): free slots remain beyond the ``taken`` already
+        claimed, and ``slots_cap`` (when set) is not reached."""
+        if len(self._free) - taken <= 0:
+            return False
+        cap = self.slots_cap
+        if cap is not None and \
+                (self.max_slots - len(self._free)) + taken >= cap:
+            return False
+        return True
 
     def admission_depth(self) -> int:
         """Requests queued for admission (class queues plus overflow)."""
@@ -2041,9 +2367,20 @@ class GenerationEngine:
         ``speculative.compiled_spec_fns``; the prefill graphs, each with
         the draft's prefill inside, as
         ``speculative.compiled_draft_prefill_fns``; the paged engine's
-        ``ragged_attn`` mode and gather widths). Operating points are not
-        ported (None)."""
-        observed = self.shapes.distribution("prompt")
+        ``ragged_attn`` mode and gather widths), and the live operating
+        point. With a workload recorder attached, the suggested ladder
+        weighs the recorder's recent prompt lengths
+        (``ladder_source="workload_trace"``) in place of the lifetime
+        observed ones."""
+        ladder_source = "observed_lengths"
+        observed: Dict[int, int] = {}
+        if self.workload is not None:
+            observed = self.workload.prompt_length_distribution(
+                self.model_name)
+            if observed:
+                ladder_source = "workload_trace"
+        if not observed:
+            observed = self.shapes.distribution("prompt")
         out: Dict[str, Any] = {
             "models": {
                 "prompt": {
@@ -2056,12 +2393,12 @@ class GenerationEngine:
                     "suggested_ladder": suggest_ladder(
                         observed,
                         max_rungs=max(len(self.prompt_buckets), max_rungs)),
-                    "ladder_source": "observed_lengths",
+                    "ladder_source": ladder_source,
                 },
             },
             "padding": self.shapes.snapshot(),
             "executables": self.exec_ledger.snapshot(limit=max_rungs * 3),
-            "operating_point": None,
+            "operating_point": self.operating_point(),
             "compiles": dict(self._compiles_by_class),
         }
         if self._prefix is not None:
@@ -2121,9 +2458,17 @@ class GenerationEngine:
         return sum(1 for slot in self._slots if slot.active)
 
     def stats(self) -> Dict[str, Any]:
+        """The engine's counters: JAX's ``model``, ``active_slots``,
+        ``free_slots`` and ``queue_depth`` (the class queues), which the
+        telemetry store's default signals and the diagnosis window read,
+        beside the port's own (``pending`` counts the page-deferred
+        overflow too). Host bookkeeping only."""
         out = {
+            "model": self.model_name,
             "device": str(self.device),
             "active_slots": self.active_slots,
+            "free_slots": len(self._free),
+            "queue_depth": self._pending.qsize(),
             "pending": self._pending.qsize() + len(self._overflow),
             "prefill_dispatches": self.prefill_dispatches,
             "prefill_bucket_tokens": self.prefill_bucket_tokens,
@@ -2490,9 +2835,9 @@ class GenerationEngine:
         requests: List[_Request] = []
         # page-deferred requests re-enter first: they were admitted in
         # order before the pool ran short
-        while self._overflow and len(requests) < len(self._free):
+        while self._overflow and self._admit_room(len(requests)):
             requests.append(self._overflow.popleft())
-        while not self._pending.empty() and len(requests) < len(self._free):
+        while self._admit_room(len(requests)) and not self._pending.empty():
             requests.append(self._pending.get_nowait())
         if not requests:
             return

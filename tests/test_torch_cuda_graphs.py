@@ -50,6 +50,18 @@ form). Run them on the GPU host with
   slots; the reset clears the state in place (no buffer moves, no graph
   is captured again), a replay still gives the eager bits, and the next
   burst's tokens equal a fresh engine's.
+- A tick graph captured by a prewarm job behind two replayed ticks still
+  in flight (queued behind a sleep kernel): the in-flight ticks' tokens
+  and the state are those of the same ticks with no capture between, the
+  live mask is restored, and the new graph's replay gives the eager
+  tick's bits, dense and paged.
+- A burst served while ``prewarm_operating_point`` captures a move (one
+  new bucket, one new k rung), with the telemetry store's default
+  signals sampled every 20 ms and ``set_sync_debug_mode("error")`` on
+  throughout: its greedy tokens are those of the same burst with no
+  prewarm, ticks run between the prewarm's captures, nothing syncs (the
+  sampler's ``stats()`` and ``hbm_occupancy`` included), and after the
+  move is applied a burst captures nothing.
 
 The model is 2 layers of head_dim 128 or 64 (Hq 8, Hkv 2) at vocabulary
 1024, random weights from a seed; the state is random too: pages
@@ -58,12 +70,17 @@ key.
 """
 
 import asyncio
+import time
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
+from gofr_tpu_torch.hbmz import hbm_occupancy
 from gofr_tpu_torch.metrics import Manager, register_engine_metrics
+from gofr_tpu_torch.metrics.timeseries import (TimeSeriesStore,
+                                               register_default_signals)
 from gofr_tpu_torch.models import llama
 from gofr_tpu_torch.ops import prng
 from gofr_tpu_torch.ops.cuda import launch_counts
@@ -784,3 +801,100 @@ def test_coalesced_tick_replay_is_bitwise_the_eager_tick(cuda, sampled):
         else:
             want = after_eager[name]
         assert torch.equal(_bits(tensor), _bits(want)), name
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_prewarm_capture_with_ticks_in_flight_is_the_eager_tick(cuda,
+                                                                paged):
+    engine = _engine(cuda, paged=paged, d=64)
+    asyncio.run(engine.warmup(ks=(4,), windows="all"))
+    old, new = ("plain", 4, True, None), ("plain", 8, True, None)
+    assert old in engine._graphs and new not in engine._graphs
+    # fills leave room for 16 more positions inside each slot's pages
+    _fill_state(engine, 13, fills=(0, 37, 140, 60))
+    saved = {k: v.clone() for k, v in _state(engine).items()}
+    mask = engine.active.clone()
+    want = [engine._run_tick(old, None, None)() for _ in range(2)]
+    want_new = engine._tick_body(new, engine.active).cpu().numpy()
+    after = {k: v.clone() for k, v in _state(engine).items()}
+    _restore(engine, saved)
+    torch.cuda._sleep(100_000_000)              # ~50 ms: the ticks queue
+    fetches = [engine._run_tick(old, None, None) for _ in range(2)]
+    assert engine._warm_tick(new, live=True) is True
+    for fetch, tokens in zip(fetches, want):
+        np.testing.assert_array_equal(fetch(), tokens)
+    assert torch.equal(engine.active, mask)
+    np.testing.assert_array_equal(engine._run_tick(new, None, None)(),
+                                  want_new)
+    for name, tensor in _state(engine).items():
+        if name.startswith("pool."):
+            tensor, want_t = tensor[:, :-1], after[name][:, :-1]
+        else:
+            want_t = after[name]
+        assert torch.equal(_bits(tensor), _bits(want_t)), name
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_burst_during_a_prewarm_is_the_burst_without(cuda, paged):
+    prompts, budget = _prompts(3, n=8), 128
+    bare = _engine(cuda, paged=paged, d=64)
+    asyncio.run(bare.warmup(windows="all"))
+    want = asyncio.run(_serve(bare, prompts, budget))
+    del bare
+    engine = _engine(cuda, paged=paged, d=64)
+    asyncio.run(engine.warmup(windows="all"))
+    move = SimpleNamespace(prompt_buckets=(32, 64, 128), steps_per_tick=8)
+    store = TimeSeriesStore(interval_s=0.02)
+    register_default_signals(store, tpu=engine,
+                             container=SimpleNamespace(tpu=engine))
+    events = []
+    for name in ("_run_tick", "_warm_tick", "_warm_prefill"):
+        def timed(*args, _fn=getattr(engine, name), _name=name):
+            events.append((_name, time.monotonic()))
+            return _fn(*args)
+        setattr(engine, name, timed)
+    graphs = engine.stats()["graphs"]
+    before = (graphs["captured"], graphs["prefill"]["captured"])
+
+    async def run():
+        await engine.start()
+        store.start()
+        try:
+            tasks = [asyncio.ensure_future(engine.generate(p, budget))
+                     for p in prompts]
+            while not engine.active_slots:
+                await asyncio.sleep(0.001)
+            warm = await engine.prewarm_operating_point(move)
+            got = await asyncio.wait_for(asyncio.gather(*tasks), 300)
+            # the sampler's reads, on the loop thread, under the check
+            assert engine.stats()["queue_depth"] == 0
+            assert 0.0 < hbm_occupancy(SimpleNamespace(tpu=engine)) < 1.0
+            lazy = (engine.lazy_captures, engine.prefill_lazy_captures)
+            engine.apply_operating_point(move)
+            later = await asyncio.wait_for(asyncio.gather(
+                *[engine.generate(p, budget) for p in prompts]), 300)
+            return got, warm, lazy, later
+        finally:
+            await store.stop()
+            await engine.stop()
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, warm, lazy, later = asyncio.run(run())
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert got == want
+    graphs = engine.stats()["graphs"]
+    new_ticks = 2 * (1 if paged else len(engine._window_ladder))
+    assert graphs["captured"] - before[0] == new_ticks
+    assert graphs["prefill"]["captured"] - before[1] == 2     # bucket 128
+    assert warm["compiled"] == new_ticks + 2
+    jobs = [t for name, t in events if name != "_run_tick"]
+    assert any(jobs[0] < t < jobs[-1] for name, t in events
+               if name == "_run_tick")
+    assert (engine.lazy_captures, engine.prefill_lazy_captures) == lazy
+    assert engine.serving_compiles(3600.0) == 0
+    assert all(len(tokens) == budget for tokens in later)
+    series = store.series("1s")["series"]
+    for name in ("queue_depth", "batch_fill", "hbm_occupancy"):
+        assert any(v is not None for v in series[name]), name

@@ -61,7 +61,9 @@ def test_guard_scans_the_admission_and_grammar_modules():
     which imports JAX there) are scanned like the rest: each is the port's
     own file and imports nothing of the JAX package. So are the telemetry
     plane's copies (metrics, tracing, flight recorder, faults, the
-    executable ledger)."""
+    executable ledger), and the telemetry plane's memory and judgment
+    (the time-series store, the error-budget plane, the workload
+    recorder, the diagnosis, ``hbm_occupancy``, the task spawner)."""
     files = {str(path.relative_to(ROOT)) for path in _port_files()}
     own = ["gofr_tpu_torch/slo.py", "gofr_tpu_torch/tpu/constrain.py",
            "gofr_tpu_torch/tpu/sched.py",
@@ -73,7 +75,13 @@ def test_guard_scans_the_admission_and_grammar_modules():
            "gofr_tpu_torch/trace/tracer.py",
            "gofr_tpu_torch/tpu/flightrecorder.py",
            "gofr_tpu_torch/tpu/faults.py",
-           "gofr_tpu_torch/tpu/compile_ledger.py"]
+           "gofr_tpu_torch/tpu/compile_ledger.py",
+           "gofr_tpu_torch/metrics/timeseries.py",
+           "gofr_tpu_torch/slo_budget.py",
+           "gofr_tpu_torch/tpu/workload.py",
+           "gofr_tpu_torch/tpu/diagnose.py",
+           "gofr_tpu_torch/hbmz.py",
+           "gofr_tpu_torch/aio.py"]
     assert set(own) <= files
     for name in own + ["gofr_tpu_torch/tpu/generate.py"]:
         assert not set(_imported_roots(ROOT / name)) & set(FORBIDDEN), name

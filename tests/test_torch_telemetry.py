@@ -84,7 +84,12 @@ VIEW_EXCEPTIONS = {
     "/stats/": "stats() is the port's own: graphs and ticks in place of "
                "JAX's jit, mesh and handoff counters",
     "/details/": "health_check's details are stats()",
-    "/operating_point/": "operating points are not ported: None",
+}
+# operating-point keys whose values differ from JAX's, with the reason
+OP_POINT_VALUES_APART = {
+    "applied_at": "a monotonic instant of each process",
+    "staging_depth": "the port's staging rings are max_inflight_ticks + 1 "
+                     "deep (a pipelined tick's slabs), JAX's 1",
 }
 
 
@@ -310,7 +315,13 @@ def test_views_have_jax_key_tree(bursts, case, view):
             assert key in port_view["stats"] and key in jax_view["stats"]
         assert port_view["requests"]["total_requests"] == len(PROMPTS)
     if view == "xlaz":
-        assert port_view["operating_point"] is None
+        port_point, jax_point = (
+            {k: v for k, v in view_["operating_point"].items()
+             if k not in OP_POINT_VALUES_APART}
+            for view_ in (port_view, jax_view))
+        assert port_point == jax_point
+        assert port_view["operating_point"]["staging_depth"] \
+            == runs["port"]["engine"].max_inflight_ticks + 1
         assert port_view["models"]["prompt"] == jax_view["models"]["prompt"]
     if view == "hbm_attribution":
         assert port_view["params_bytes"] == jax_view["params_bytes"]
@@ -356,6 +367,12 @@ def test_every_metric_name_is_in_the_app_catalog():
 
 def test_port_catalog_is_the_apps():
     jax_metrics = new_mock_container().metrics.snapshot()
+    # the telemetry plane's series: the store's anomalies, the error-budget
+    # plane's gauges, the traffic recorder's pulse, the sampler's spawner
+    assert {"app_tpu_workload_events_total", "app_tpu_anomaly_total",
+            "app_tpu_slo_burn_rate", "app_tpu_slo_budget_remaining",
+            "app_async_task_failures_total"} \
+        <= {name for name, _, _, _ in ENGINE_METRICS}
     for name, kind, buckets, _ in ENGINE_METRICS:
         metric = jax_metrics[name]
         assert metric.kind == {"updown_counter": "updown"}.get(kind, kind)
