@@ -18,7 +18,10 @@ telemetry hooks, fault sites and SLO control loop, then every engine
 argument the example app passes (the MoE model module, a shared page
 pool, ``ragged_attn``, upload coalescing) and int8 weights, then the
 telemetry plane the app wires beside an engine and the engine's
-operating points (a move prewarmed while serving).
+operating points (a move prewarmed while serving), then disaggregated
+serving (KV export and adoption through the KV wire codec, the router
+and its in-process transport, session migration) and the model
+registry.
 Phases, each of which raises (exit code != 0) on failure:
 
 1. card identity (``nvidia-smi`` name and power limit, torch/CUDA);
@@ -242,7 +245,36 @@ Phases, each of which raises (exit code != 0) on failure:
     tokens); (d) at ``llama3-8b`` width (after phase 28's), phase 15's
     dense bf16 engine prewarms k 8 while its burst is served (phase 15's
     greedy tokens), applies it and serves the burst (no capture,
-    launches as counted); tok/s at k 4 and k 8.
+    launches as counted); tok/s at k 4 and k 8;
+32. disaggregated serving: (a) at ``llama3-8b`` (after the other
+    ``llama3-8b`` phases, on their weights) a dense prefill replica (phase
+    15's settings, warmed with count 1, which captures each bucket's
+    export rung) and a paged decode replica (phase 9's) behind a
+    ``ClusterRegistry`` and a ``DisaggRouter`` over ``InProcTransport``
+    serve phase 9's burst, each request streamed through the router: the
+    7 greedy completions must be phase 9's, the decode replica must run
+    no prefill (``prefill_bucket_tokens`` 0, 8 adoptions), the prefill
+    replica must export 8, every tick and export must be a replay, and
+    the launches are counted (flash on the prefill replica, ragged on the
+    decode replica); then the same over the ``kv_int8`` engines (the int8
+    codec), against phase 11's tokens; tok/s and TTFT p50/max through the
+    router beside the monolithic engine's, each request's wire bytes and
+    prefill and transfer legs, the host's pack/frames/assemble/unpack of
+    a 512-token payload with their GB/s, the reserved bytes of the export
+    captures; (b) on the bf16 decode replica, a live session of a
+    300-token prompt exported with ``export_session`` after 8 of 32
+    tokens (ticks in flight) and resumed with ``adopt_session`` on a
+    second paged engine on the same weights, greedy and sampled (seeded):
+    each whole stream equals the unmigrated one and the source pool's
+    free pages return to their baseline; (c) ``kv_chunk_corrupt:@1``
+    costs exactly one fresh prefill round with the tokens unchanged, and
+    a replayed adopt with the same dedupe id returns the first stream and
+    claims no second slot or page set; (d) (after phase 31, on phase 20's
+    ``small`` weights) a ``ModelRegistry`` over two paged engines sharing
+    one 512 MiB ``PagePool``, warmed through the registry: both routes'
+    greedy tokens equal, the watchdog's ``DEGRADED`` and a drain route
+    the first model to its fallback, health UP, launches as counted, and
+    ``hbm_attribution`` counts the shared pool once.
 
 Every engine burst (phases 9-12, 15-18, 20-23, 30a) is served twice:
 counted, then under ``torch.profiler`` for the device's idle share. Every
@@ -1088,6 +1120,7 @@ def serve_burst(torch, engine, prompts, budget, samplings, mods, timeout,
     gc.collect()
     memory = {}
     probe_warmup_memory(torch, engine, memory)
+    probe_export_memory(torch, engine, memory)
 
     async def serve():
         t0 = time.monotonic()
@@ -1197,6 +1230,7 @@ def serve_burst(torch, engine, prompts, budget, samplings, mods, timeout,
                    prefill_capture_s=pgraphs["capture_s"],
                    tick_capture_bytes=tick_bytes,
                    prefill_capture_bytes=prefill_bytes,
+                   export_capture_bytes=memory.get("_warm_export"),
                    reserved_after_warmup=memory["_warm_prefills_after"],
                    ticks_inflight_peak=peak,
                    max_inflight_ticks=engine.max_inflight_ticks,
@@ -4043,6 +4077,423 @@ def phase_telemetry_llama3(torch, generate, mods, cfg, params, seed,
     return {"telemetry_llama3": counters}
 
 
+# -- phase 32: disaggregated serving ------------------------------------------
+PATH_KERNELS.update({"disagg": ("flash", "ragged"),
+                     "disagg_int8": ("flash", "int8"),
+                     "registry_small": ("flash", "ragged")})
+# phase 9's engine settings; the prefill replica runs them dense (phase
+# 15's), the decode replica paged (phase 9's)
+DISAGG_ENGINE = dict(max_slots=8, max_len=2048,
+                     prompt_buckets=(32, 128, 512), steps_per_tick=4,
+                     kv_page=32)
+
+
+def probe_export_memory(torch, engine, into):
+    """Add the reserved bytes each export-rung capture of ``engine``'s
+    next ``warmup()`` holds to ``into["_warm_export"]`` (nothing for an
+    engine of a tree before export rungs, which
+    ``scripts/smoke_phases_ab.py`` may measure)."""
+    call = getattr(engine, "_warm_export", None)
+    if call is None:
+        return
+
+    def run(bucket):
+        before = reserved_bytes(torch)
+        call(bucket)
+        into["_warm_export"] = into.get("_warm_export", 0) \
+            + reserved_bytes(torch) - before
+    engine._warm_export = run
+
+
+async def routed_burst(router, prompts, budget, samplings, timeout):
+    """One burst through a ``DisaggRouter``, each request streamed: (the
+    outputs, wall seconds, sorted TTFTs from submit to first token)."""
+    async def one(prompt, sampling):
+        t0 = time.monotonic()
+        stream = await router.generate_stream(prompt, budget,
+                                              sampling=sampling)
+        out, ttft = [], None
+        async for token in stream:
+            if ttft is None:
+                ttft = time.monotonic() - t0
+            out.append(token)
+        return out, ttft
+
+    t0 = time.monotonic()
+    got = await asyncio.wait_for(asyncio.gather(*[
+        one(p, s) for p, s in zip(prompts, samplings)]), timeout)
+    return [g[0] for g in got], time.monotonic() - t0, \
+        sorted(g[1] for g in got)
+
+
+def wire_costs(kv_wire, payload):
+    """The host's share of one payload's trip, each step timed with its
+    GB/s: ``pack``, the 256 KiB frames, ``assemble``, ``unpack``."""
+    t0 = time.perf_counter()
+    blob = kv_wire.pack(payload)
+    t1 = time.perf_counter()
+    chunks = list(kv_wire.iter_chunks(blob))
+    t2 = time.perf_counter()
+    joined = kv_wire.assemble(chunks)
+    t3 = time.perf_counter()
+    kv_wire.unpack(joined)
+    t4 = time.perf_counter()
+    n = len(blob)
+    steps = dict(pack_s=t1 - t0, frames_s=t2 - t1, assemble_s=t3 - t2,
+                 unpack_s=t4 - t3)
+    return dict(bytes=n, frames=len(chunks), tokens=payload.tokens,
+                **steps, **{k[:-2] + "_gb_s": n / v / 1e9
+                            for k, v in steps.items() if v > 0})
+
+
+async def migrate_session(engine, target, cluster, kv_wire, prompt, budget,
+                          sampling, after=8):
+    """Serve ``prompt`` on ``engine``; after ``after`` tokens export the
+    live session (ticks in flight), ship it through the wire and resume
+    it on ``target``. Returns (the whole stream, ticks in flight at the
+    export, the wire bytes)."""
+    stream = await engine.generate_stream(prompt, budget, sampling=sampling)
+    before = []
+    while len(before) < after:
+        before.append(await asyncio.wait_for(stream.__anext__(), 120))
+    inflight = engine._ticks_inflight
+    payload, state = await engine.export_session(stream)
+    before += [token async for token in stream]
+    blob = kv_wire.pack(payload)
+    resumed = await cluster.InProcTransport(target).adopt_session(blob,
+                                                                  state)
+    return before + [token async for token in resumed], inflight, len(blob)
+
+
+def phase_disagg(torch, generate, cluster, kv_wire, faults, mods, cfg,
+                 params, seed, results):
+    """Phase 32 (a)-(c) at ``llama3-8b`` (after the other ``llama3-8b``
+    phases, on their weights): phase 9's burst through a ``DisaggRouter``
+    over a dense prefill replica and a paged decode replica
+    (``InProcTransport``), bf16 then ``kv_int8``; a live session
+    migrated between two paged engines; a corrupted frame and a replayed
+    adopt. Returns launches by path."""
+    t_phase = time.monotonic()
+    prompts = engine_prompts(cfg, seed)
+    budget = 32
+    samplings = [generate.Sampling() for _ in range(7)] + [
+        generate.Sampling(temperature=0.8, top_p=0.95, seed=seed)]
+    by_path = {}
+    for int8 in (False, True):
+        c = dataclasses.replace(cfg, kv_int8=int8)
+        path = "disagg_int8" if int8 else "disagg"
+        mono = results["int8_engine" if int8 else "engine"]
+        log(f"== phase 32a: llama3-8b disaggregated, {c.n_layers} layers, "
+            f"dense prefill replica -> paged decode replica"
+            f"{', kv_int8 (int8 codec)' if int8 else ' (raw bf16 codec)'}")
+        prefill_eng = generate.GenerationEngine(
+            c, params, paged_kv=False, model_name="prefill", device="cuda",
+            **DISAGG_ENGINE)
+        decode_eng = generate.GenerationEngine(
+            c, params, paged_kv=True, model_name="decode", device="cuda",
+            **DISAGG_ENGINE)
+        registry = cluster.ClusterRegistry()
+        registry.register("p0", cluster.ROLE_PREFILL,
+                          cluster.InProcTransport(prefill_eng))
+        registry.register("d0", cluster.ROLE_DECODE,
+                          cluster.InProcTransport(decode_eng))
+        router = cluster.DisaggRouter(registry)
+        memory = {}
+        probe_export_memory(torch, prefill_eng, memory)
+
+        async def run():
+            t0 = time.monotonic()
+            # the prefill replica needs its export rungs (warmed with
+            # count 1), the decode replica its ticks
+            await prefill_eng.warmup(prompt_counts=(1,), ks=(1,),
+                                     windows=(128,))
+            await decode_eng.warmup(prompt_counts=(1,))
+            warm_s = time.monotonic() - t0
+            await decode_eng.start()
+            try:
+                await router.generate(prompts[0], 8)     # warm-up request
+                for mod in mods:
+                    mod.reset_launches()
+                p0, d0 = prefill_eng.stats(), decode_eng.stats()
+                c0 = run_counters(decode_eng)
+                outs, wall, ttfts = await routed_burst(
+                    router, prompts, budget, samplings, 900)
+                launches = read_launches(mods)
+                p1, d1 = prefill_eng.stats(), decode_eng.stats()
+                c1 = run_counters(decode_eng)
+                legs = list(router._stitches.values())[-len(prompts):]
+                transfers = [dict(bytes=e["bytes"],
+                                  prefill_rpc_s=e["prefill_rpc_s"],
+                                  adopt_rpc_s=e["adopt_rpc_s"],
+                                  adopt_gb_s=e["bytes"] / e["adopt_rpc_s"]
+                                  / 1e9) for e in legs]
+                payload = await prefill_eng.prefill_export(prompts[7])
+                costs = wire_costs(kv_wire, payload)
+                extra = None
+                if not int8:
+                    extra = await session_and_chaos(
+                        torch, generate, cluster, kv_wire, faults, c,
+                        params, prefill_eng, decode_eng, router, prompts,
+                        mono, seed)
+                return (outs, wall, ttfts, launches, p0, p1, d0, d1, c0,
+                        c1, transfers, costs, warm_s, extra)
+            finally:
+                await decode_eng.stop()
+
+        (outs, wall, ttfts, launches, p0, p1, d0, d1, c0, c1, transfers,
+         costs, warm_s, extra) = asyncio.run(run())
+        exports = p1["kv_exports"] - p0["kv_exports"]
+        adoptions = d1["kv_adoptions"] - d0["kv_adoptions"]
+        export_graphs = p1["graphs"]["export"]
+        counters = dict(
+            prefills=exports,
+            prefill_lazy=export_graphs["lazy_captures"]
+            - p0["graphs"]["export"]["lazy_captures"],
+            steps=c1["steps"] - c0["steps"], spec_ticks=0, draft_steps=0)
+        ticks = c1["ticks"] - c0["ticks"]
+        replays = c1["replays"] - c0["replays"]
+        export_replays = export_graphs["replays"] \
+            - p0["graphs"]["export"]["replays"]
+        tokens = budget * len(outs)
+        greedy_same = outs[:7] == mono["greedy_outputs"]
+        row = dict(
+            n_layers=c.n_layers, kv_int8=int8, requests=len(outs),
+            new_tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+            ttft_s=ttfts, ttft_p50_s=ttfts[len(ttfts) // 2],
+            ttft_max_s=ttfts[-1],
+            monolithic=dict(tokens_per_s=mono["tokens_per_s"],
+                            ttft_p50_s=mono["ttft_p50_s"],
+                            ttft_max_s=mono["ttft_max_s"]),
+            greedy_identical_to_monolithic=greedy_same,
+            exports=exports, adoptions=adoptions,
+            decode_prefill_bucket_tokens=d1["prefill_bucket_tokens"],
+            decode_steps=counters["steps"], ticks=ticks, replays=replays,
+            export_replays=export_replays, launches=launches,
+            transfers=transfers, wire_512=costs, warmup_s=warm_s,
+            export_graphs=export_graphs,
+            export_capture_bytes=memory.get("_warm_export"),
+            router=router.stats(), extra=extra)
+        results[path] = row
+        log(f"{path}: {len(outs)} requests x {budget} tokens in "
+            f"{wall:.3f}s = {row['tokens_per_s']:.1f} tok/s (monolithic "
+            f"{mono['tokens_per_s']:.1f}); TTFT p50 {row['ttft_p50_s']:.3f}s "
+            f"max {row['ttft_max_s']:.3f}s (monolithic "
+            f"{mono['ttft_p50_s']:.3f} / {mono['ttft_max_s']:.3f}); "
+            f"{exports} exports, {adoptions} adoptions, decode replica "
+            f"prefill_bucket_tokens {d1['prefill_bucket_tokens']}; "
+            f"launches {launches}; export graphs {export_graphs} "
+            f"(+{memory.get('_warm_export')} reserved bytes)")
+        for i, leg in enumerate(transfers):
+            log(f"  request {i} ({len(prompts[i])} tokens): "
+                f"{leg['bytes']} bytes, prefill leg "
+                f"{leg['prefill_rpc_s'] * 1e3:.2f} ms, transfer leg "
+                f"{leg['adopt_rpc_s'] * 1e3:.2f} ms = "
+                f"{leg['adopt_gb_s']:.3f} GB/s")
+        log(f"  512-token payload on the host: {costs}")
+        if not greedy_same:
+            raise AssertionError(f"{path}: greedy tokens through the router "
+                                 f"differ from the monolithic engine's")
+        if d1["prefill_bucket_tokens"] or adoptions != len(prompts) \
+                or exports != len(prompts):
+            raise AssertionError(
+                f"{path}: {exports} exports, {adoptions} adoptions and "
+                f"{d1['prefill_bucket_tokens']} prefill tokens on the decode "
+                f"replica; expected {len(prompts)}, {len(prompts)}, 0")
+        if replays != ticks or c1["lazy_captures"] - c0["lazy_captures"] \
+                or export_replays != exports or counters["prefill_lazy"]:
+            raise AssertionError(
+                f"{path}: {replays} replays for {ticks} ticks, "
+                f"{export_replays} export replays for {exports} exports, "
+                f"{counters['prefill_lazy']} export captures: every tick "
+                f"and export must replay a graph warmup() captured")
+        check_launches(launches, expected_launches(c, counters), path)
+        by_path[path] = launches
+        del prefill_eng, decode_eng, router, registry
+        torch.cuda.empty_cache()
+    results["phase32_s"] = time.monotonic() - t_phase
+    log(f"phase 32 (a-c): {results['phase32_s']:.1f}s")
+    return by_path
+
+
+async def session_and_chaos(torch, generate, cluster, kv_wire, faults, cfg,
+                            params, prefill_eng, decode_eng, router, prompts,
+                            mono, seed):
+    """Phase 32 (b) and (c), on phase 32a's bf16 replicas (the decode
+    replica serving): (b) a live session of ``prompts[5]`` migrated after
+    8 of 32 tokens to a second paged engine on the same weights, greedy
+    and sampled (seeded), each whole stream the unmigrated one, the
+    source pool's free pages back to their baseline; (c)
+    ``kv_chunk_corrupt:@1`` costs one fresh prefill round and keeps the
+    tokens, and a replayed adopt returns the first stream with no second
+    slot or page set."""
+    log("== phase 32b: live session migration between two paged "
+        "llama3-8b engines")
+    target = generate.GenerationEngine(cfg, params, paged_kv=True,
+                                       model_name="target", device="cuda",
+                                       **DISAGG_ENGINE)
+    await target.warmup(prompt_counts=(1,))
+    await target.start()
+    out = {}
+    try:
+        pool = decode_eng._pool
+        baseline = pool.free_pages
+        sampled = generate.Sampling(temperature=0.8, top_p=0.95, seed=seed)
+        want_sampled = await decode_eng.generate(prompts[5], 32,
+                                                 sampling=sampled)
+        t0 = time.monotonic()
+        runs = {}
+        for name, sampling, want in (
+                ("greedy", None, mono["greedy_outputs"][5]),
+                ("sampled", generate.Sampling(temperature=0.8, top_p=0.95,
+                                              seed=seed), want_sampled)):
+            got, inflight, nbytes = await migrate_session(
+                decode_eng, target, cluster, kv_wire, prompts[5], 32,
+                sampling)
+            for _ in range(200):
+                if pool.free_pages == baseline:
+                    break
+                await asyncio.sleep(0.01)
+            runs[name] = dict(identical=got == want, ticks_inflight=inflight,
+                              bytes=nbytes, source_free_pages=pool.free_pages,
+                              baseline_free_pages=baseline)
+            log(f"  {name}: whole stream equal to the unmigrated one: "
+                f"{got == want}; {inflight} ticks in flight at the export; "
+                f"{nbytes} bytes; source free pages {pool.free_pages} "
+                f"(baseline {baseline})")
+            if got != want or pool.free_pages != baseline:
+                raise AssertionError(f"phase 32b {name}: migrated stream "
+                                     f"or source pages differ")
+            if inflight < 1:
+                raise AssertionError(f"phase 32b {name}: no tick in flight "
+                                     f"at the export")
+        out["session"] = dict(runs, seconds=time.monotonic() - t0,
+                              target=target.stats()["session_adoptions"],
+                              source=decode_eng.stats()["session_exports"])
+    finally:
+        await target.stop()
+    del target
+    log("== phase 32c: a corrupted frame and a replayed adopt")
+    retries = router.stats()["retries"]
+    exports = prefill_eng.stats()["kv_exports"]
+    faults.install(faults.FaultPlan("kv_chunk_corrupt:@1"))
+    try:
+        corrupt = await router.generate(prompts[1], 32)
+    finally:
+        faults.reset()
+    rounds = prefill_eng.stats()["kv_exports"] - exports
+    retried = router.stats()["retries"] - retries
+    log(f"  kv_chunk_corrupt:@1: {rounds} prefill rounds, {retried} retry, "
+        f"tokens equal: {corrupt == mono['greedy_outputs'][1]}")
+    if corrupt != mono["greedy_outputs"][1] or rounds != 2 or retried != 1:
+        raise AssertionError("phase 32c: a corrupted frame must cost one "
+                             "fresh prefill round and keep the tokens")
+    payload = await prefill_eng.prefill_export(prompts[2])
+    first = await decode_eng.adopt_kv(payload, 32, dedupe="phase-32c")
+    free, slots = decode_eng._pool.free_pages, len(decode_eng._free)
+    again = await decode_eng.adopt_kv(payload, 32, dedupe="phase-32c")
+    same_claim = (decode_eng._pool.free_pages, len(decode_eng._free)) \
+        == (free, slots)
+    tokens = [token async for token in first]
+    hits = decode_eng.stats()["resilience"]["adopt_dedup_hits"]
+    log(f"  replayed adopt: same stream {again is first}, no second claim "
+        f"{same_claim}, dedup hits {hits}, tokens equal "
+        f"{tokens == mono['greedy_outputs'][2]}")
+    if again is not first or not same_claim or hits != 1 \
+            or tokens != mono["greedy_outputs"][2]:
+        raise AssertionError("phase 32c: a replayed adopt must return the "
+                             "first stream and claim nothing")
+    out["chaos"] = dict(corrupt_rounds=rounds, corrupt_retries=retried,
+                        dedup_hits=hits)
+    return out
+
+
+def phase_registry(torch, generate, page_pool, registry_mod, mods, cfg,
+                   params, seed, results):
+    """Phase 32d (after phase 31, on phase 20's ``small`` weights):
+    ``ModelRegistry`` over phase 30b's two paged engines sharing one
+    ``PagePool`` of 512 MiB, warmed through the registry: both routes'
+    bursts give the same greedy tokens, the watchdog's ``DEGRADED``
+    routes the first model to its fallback, a drained model routes there
+    too, health is UP, and ``hbm_attribution`` counts the shared pool
+    once. Returns launches."""
+    import types
+
+    log("== phase 32d: ModelRegistry over two small paged engines on one "
+        "shared page pool")
+    pool = page_pool.PagePool(cfg, page=32, budget_bytes=512 << 20,
+                              device="cuda")
+    kw = dict(SMALL_ENGINE, paged_kv=True, kv_page=32, device="cuda")
+    engines = [generate.GenerationEngine(cfg, params, page_pool=pool,
+                                         model_name=f"m{i}", **kw)
+               for i in range(2)]
+    dog = types.SimpleNamespace(state="READY")
+    registry = registry_mod.ModelRegistry(watchdog=dog, page_pool=pool)
+    registry.register("m0", engines[0], fallback="m1")
+    registry.register("m1", engines[1])
+    prompts = engine_prompts(cfg, seed)[:4]
+
+    async def run():
+        for name in ("m0", "m1"):
+            await registry.warmup(name, prompt_counts=(1, 4))
+        await registry.start()
+        try:
+            for mod in mods:
+                mod.reset_launches()
+            before = [run_counters(e) for e in engines]
+            routed = {}
+            for name in ("m0", "m1"):
+                engine = registry.route(name)
+                routed[name] = (engine.model_name, await asyncio.gather(*[
+                    engine.generate(p, 16) for p in prompts]))
+            dog.state = "DEGRADED"
+            degraded = registry.route("m0").model_name
+            dog.state = "READY"
+            drained = await registry.drain("m0", timeout_s=30.0)
+            fallback = registry.route("m0").model_name
+            launches = read_launches(mods)
+            want = dict.fromkeys(launches, 0)
+            for e, b in zip(engines, before):
+                after = run_counters(e)
+                for k, n in expected_launches(cfg, {
+                        k: after[k] - b[k] for k in after}).items():
+                    want[k] += n
+            return (routed, degraded, drained, fallback, launches, want,
+                    registry.health_check(), registry.hbm_attribution(),
+                    registry.stats()["fallbacks_taken"])
+        finally:
+            await registry.stop()
+
+    (routed, degraded, drained, fallback, launches, want, health, hbm,
+     taken) = asyncio.run(run())
+    per_model = {name: dict(params=m["params_bytes"],
+                            staging=m["staging_bytes"],
+                            pool=m["page_pool"]["pool_bytes"])
+                 for name, m in hbm["models"].items()}
+    once = sum(m["params"] + m["staging"] for m in per_model.values()) \
+        + pool.pool_bytes
+    log(f"routes {[(n, r[0]) for n, r in routed.items()]}, same tokens "
+        f"{routed['m0'][1] == routed['m1'][1]}; DEGRADED routes m0 to "
+        f"{degraded}; drained {drained}, then m0 routes to {fallback}; "
+        f"fallbacks {taken}; health {health['status']}; hbm by model "
+        f"{per_model}, attributed {hbm['attributed_bytes']} (the pool once: "
+        f"{once}), device bytes {hbm['device_bytes_in_use']}")
+    if [routed[n][0] for n in ("m0", "m1")] != ["m0", "m1"] \
+            or routed["m0"][1] != routed["m1"][1]:
+        raise AssertionError("phase 32d: the routes' tokens differ")
+    if degraded != "m1" or not drained or fallback != "m1":
+        raise AssertionError("phase 32d: fallback routing is not JAX's")
+    if health["status"] != "UP" or hbm["attributed_bytes"] != once:
+        raise AssertionError("phase 32d: health or attribution wrong")
+    check_launches(launches, want, "registry_small")
+    results["registry_small"] = dict(
+        fallbacks=taken, hbm_by_model=per_model,
+        attributed_bytes=hbm["attributed_bytes"],
+        device_bytes_in_use=hbm["device_bytes_in_use"], launches=launches)
+    del engines, registry, pool
+    torch.cuda.empty_cache()
+    return {"registry_small": launches}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for value in tree.values():
@@ -4074,8 +4525,8 @@ def main() -> int:
     from gofr_tpu_torch.ops.cuda import flash_attention as flash_mod
     from gofr_tpu_torch.ops.cuda import ragged_paged_attention as ragged_mod
     from gofr_tpu_torch import slo
-    from gofr_tpu_torch.tpu import (constrain, faults, generate, page_pool,
-                                    sched)
+    from gofr_tpu_torch.tpu import (cluster, constrain, faults, generate,
+                                    kv_wire, page_pool, registry, sched)
 
     results = {}
     log("== phase 1: card")
@@ -4150,6 +4601,10 @@ def main() -> int:
     # this slice: operating points and the telemetry plane
     by_path_d64.update(phase_op_planes(torch, llama, generate, mods,
                                        small_params, args.seed, results))
+    # this slice: the model registry over a shared pool (phase 32d)
+    by_path_d64.update(phase_registry(torch, generate, page_pool, registry,
+                                      mods, small_cfg, small_params,
+                                      args.seed, results))
     del small_params
     torch.cuda.empty_cache()
     # this slice: the example's own model (``small`` over its byte-level
@@ -4210,6 +4665,9 @@ def main() -> int:
         torch, llama, generate, mods, cfg, params,
         dict(max_slots=8, max_len=2048, steps_per_tick=4), "prefix_llama3",
         args.seed, results)
+    # this slice: disaggregated serving (phase 32 a-c)
+    by_path.update(phase_disagg(torch, generate, cluster, kv_wire, faults,
+                                mods, cfg, params, args.seed, results))
     # launches on the main paths: each run counted from 0, llama3-8b's
     # (head_dim 128) and the small preset's (head_dim 64) apart
     counts = {name: sum(run[name] for run in by_path.values())

@@ -4,9 +4,10 @@ histogram buckets the app's catalog registers them under
 ``docs/quick-start/observability.md``). The port adds no name: this is
 the slice of that catalog the engine, its page pool, the SLO tracker,
 the watchdog, the brownout ladder, the fault plane, the telemetry store,
-the error-budget plane, the traffic recorder and the background-task
-spawner write, so a :class:`~gofr_tpu_torch.metrics.manager.Manager` of
-the port's own can take every call they make.
+the error-budget plane, the traffic recorder, the background-task
+spawner, the model registry and the disaggregated cluster write, so a
+:class:`~gofr_tpu_torch.metrics.manager.Manager` of the port's own can
+take every call they make.
 """
 
 from __future__ import annotations
@@ -97,6 +98,42 @@ ENGINE_METRICS: Tuple[Tuple[str, str, Optional[tuple], str], ...] = (
     ("app_async_task_failures_total", "counter", None,
      "background asyncio tasks that died with an escaped exception, by "
      "task name"),
+    # the model registry and the disaggregated cluster
+    ("app_tpu_model_state", "gauge", None,
+     "registry lifecycle per model: 0 LOADING, 1 WARMING, 2 READY, "
+     "3 DRAINING, 4 UNLOADED"),
+    ("app_tpu_model_fallback_total", "counter", None,
+     "requests routed to a fallback model (by source model and "
+     "fallback taken) — non-zero means degraded or non-READY "
+     "routing is active"),
+    ("app_tpu_kv_transfer_seconds", "histogram",
+     (0.001, 0.003, 0.01, 0.03, 0.1, 0.3, 1, 3, 10),
+     "prefill→decode KV handoff wall time (pack + wire + unpack), "
+     "by transport (inproc|http)"),
+    ("app_tpu_kv_transfer_bytes_total", "updown_counter", None,
+     "KV bytes adopted from remote prefill, per model"),
+    ("app_tpu_kv_adoptions_total", "counter", None,
+     "migrated requests whose KV was admitted as page-table "
+     "entries (zero decode-side prefill), per model"),
+    ("app_tpu_replica_state", "gauge", None,
+     "cluster replica lifecycle per (replica, role): 2 READY, "
+     "3 DRAINING — same encoding as app_tpu_model_state"),
+    ("app_tpu_replica_inflight", "gauge", None,
+     "router-level in-flight requests per replica — what drain "
+     "waits on"),
+    ("app_tpu_kv_handoff_expired_total", "counter", None,
+     "packed KV handoffs dropped unclaimed from the prefill "
+     "replica's table, by reason (expired = TTL lapsed, evicted = "
+     "capacity pressure) — each one is a wasted prompt forward"),
+    ("app_tpu_disagg_retry_total", "counter", None,
+     "disaggregated-serving retries by leg (prefill|fetch) — "
+     "each one is a transient failure the budget absorbed"),
+    ("app_tpu_disagg_hedge_total", "counter", None,
+     "hedged backup dispatches by leg — the primary blew the "
+     "hedge deadline and an idempotent backup raced it"),
+    ("app_tpu_adopt_dedup_total", "counter", None,
+     "replayed KV adoptions answered from the dedupe ledger, "
+     "per model — a retry/hedge landed twice and was deduped"),
 )
 
 

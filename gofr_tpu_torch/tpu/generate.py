@@ -188,15 +188,31 @@ or a paged pool (``paged_kv=True``).
   it; ``xlaz()`` then suggests a bucket ladder from the recorder's recent
   prompt lengths.
 
-Left for later slices (see ROADMAP.md): disaggregation, auto-tuning,
-mesh sharding.
+- Disaggregated serving (JAX's): ``prefill_export`` runs a prompt's
+  forward once on the bucket's export rung (a local prefill's rows, no
+  insert, its graph captured by ``warmup()`` with count 1) and ships its
+  KV as page-shaped ``tpu/kv_wire`` leaves with the first token and the
+  advanced key; ``adopt_kv`` claims a slot and pages on the loop and
+  lands the payload in one job on the device thread, behind the ticks in
+  flight (the slot inactive until it lands), so the decode replica runs
+  no prefill; ``export_session`` quiesces a live slot (``migrating``:
+  it joins no new tick), waits for its in-flight tokens, reads its pages
+  and rows in one device-thread job and retires it; ``adopt_session``
+  resumes it elsewhere. A replayed adopt id returns the first stream
+  (the dedupe ledger). ``tpu/cluster`` routes between replicas.
+
+Left for later slices (see ROADMAP.md): the fleet, auto-tuning, mesh
+sharding.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import dataclasses
+import gc
 import os
+import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -215,7 +231,7 @@ from gofr_tpu_torch.ops.sampling import (filtered_log_probs_batch,
                                          greedy_accept, sample_batch,
                                          speculative_accept)
 from gofr_tpu_torch.slo import DeadlineExceeded, current_deadline
-from gofr_tpu_torch.tpu import faults
+from gofr_tpu_torch.tpu import faults, kv_wire
 from gofr_tpu_torch.tpu.compile_ledger import (ExecutableLedger, ShapeStats,
                                                charge_device_time,
                                                suggest_ladder)
@@ -224,10 +240,12 @@ from gofr_tpu_torch.tpu.constrain import (GrammarCache, GrammarWalker,
 from gofr_tpu_torch.tpu.flightrecorder import FlightRecorder, RequestRecord
 from gofr_tpu_torch.tpu.page_pool import PagePool
 from gofr_tpu_torch.tpu.prefix_cache import PrefixStore
-from gofr_tpu_torch.tpu.sched import (DEFAULT_CLASS_WEIGHTS, ClassQueues,
-                                      brownout_shed_classes, deadline_class)
+from gofr_tpu_torch.tpu.sched import (CLASS_MIGRATED, DEFAULT_CLASS_WEIGHTS,
+                                      ClassQueues, brownout_shed_classes,
+                                      deadline_class)
 from gofr_tpu_torch.tpu.staging import StagingPool, TransferCoalescer
-from gofr_tpu_torch.trace.tracer import Span, current_span
+from gofr_tpu_torch.trace.tracer import (Span, current_span,
+                                         extract_traceparent)
 
 DEFAULT_PROMPT_BUCKETS = (32, 128, 512)
 # Prefill rows (count x bucket) on the card, at least: with fewer, cuBLAS
@@ -253,6 +271,12 @@ _SPEC_GROW_ABOVE = 0.8
 
 # sentinel pushed onto a streaming queue when the request completes
 _DONE = object()
+
+# adopt-dedupe ledger: replayed adoptions within this window return the
+# original stream instead of claiming pages twice (JAX's values, the
+# exporter-side HandoffTable's default TTL)
+_ADOPT_LEDGER_TTL_S = 120.0
+_ADOPT_LEDGER_CAP = 256
 
 # a tick executable: (kind "plain" | "spec" | "bias", k | g, sampled,
 # window rung); "bias" is the plain tick with the grammar bias added to
@@ -363,6 +387,28 @@ def _insert_rows(leaf: torch.Tensor, src: torch.Tensor, row: torch.Tensor,
     view = leaf[:, :, at:at + src.shape[2]]
     mask = claimed.view(1, -1, *([1] * (leaf.dim() - 2)))
     view.copy_(torch.where(mask, src[:, row], view))
+
+
+def _words(tensor: torch.Tensor) -> torch.Tensor:
+    """``tensor``, a bf16 one viewed as its 16-bit words (numpy has no
+    bf16 type, and a pinned slab is read through numpy)."""
+    return tensor.view(torch.int16) if tensor.dtype == torch.bfloat16 \
+        else tensor
+
+
+def _wire_words(dtype: np.dtype) -> np.dtype:
+    """The numpy type of a KV leaf on the wire: a bf16 leaf fetched as
+    ``int16`` words is carried as ``uint16`` words
+    (:func:`~gofr_tpu_torch.tpu.kv_wire._resolve_dtype`)."""
+    return np.dtype(np.uint16) if dtype == np.int16 else dtype
+
+
+def _torch_dtype(leaf: np.ndarray, payload) -> torch.dtype:
+    """The torch type of a wire leaf's bytes: bf16 for the raw codec's
+    ``bfloat16`` words, else the numpy type's."""
+    if payload.codec == kv_wire.CODEC_RAW and payload.dtype == kv_wire.BF16:
+        return torch.bfloat16
+    return torch.from_numpy(np.empty((0,), leaf.dtype)).dtype
 
 
 def _pack(arrays: Dict[str, np.ndarray]
@@ -542,9 +588,11 @@ class _Slot:
     __slots__ = ("future", "remaining", "eos_id", "tokens", "active", "gen",
                  "inflight", "queue", "temperature", "fill", "submitted_at",
                  "pages", "nodes", "grammar", "cls", "deadline", "record",
-                 "req_span", "phase_span", "spec_proposed", "spec_accepted")
+                 "req_span", "phase_span", "spec_proposed", "spec_accepted",
+                 "migrating")
 
     def __init__(self):
+        self.migrating = False  # quiescing for export: joins no new tick
         self.future: Optional[asyncio.Future] = None
         self.remaining = 0
         self.eos_id: Optional[int] = None
@@ -624,6 +672,33 @@ class _Prefill:
         self.launches: Dict[str, int] = {}
         self.seconds = 0.0
         self.replays = 0
+
+
+# graph captures in progress (any engine, any thread) and the collector's
+# state before the first of them
+_CAPTURES = {"open": 0, "gc_was_enabled": False}
+_CAPTURES_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def _no_collection():
+    """Keep Python's cyclic collector off while any graph capture is open.
+    A paged engine and its pool reference each other, so a dropped
+    engine is freed by the collector, whenever it runs: run inside a
+    capture, on the capturing thread, it would destroy that engine's
+    graphs mid-capture, which invalidates the capture."""
+    with _CAPTURES_LOCK:
+        if not _CAPTURES["open"]:
+            _CAPTURES["gc_was_enabled"] = gc.isenabled()
+            gc.disable()
+        _CAPTURES["open"] += 1
+    try:
+        yield
+    finally:
+        with _CAPTURES_LOCK:
+            _CAPTURES["open"] -= 1
+            if not _CAPTURES["open"] and _CAPTURES["gc_was_enabled"]:
+                gc.enable()
 
 
 def _k_rungs(steps_per_tick: int) -> List[int]:
@@ -1031,6 +1106,7 @@ class GenerationEngine:
         # the ticks' graph pool
         self._prefills: Dict[_PrefillKey, _Prefill] = {}
         self.prefill_lazy_captures = 0
+        self.export_lazy_captures = 0   # export rungs captured serving
         self._publishq: "deque[_Fetch]" = deque()
         self._ticks_inflight = 0
         self._ticks_inflight_peak = 0
@@ -1075,6 +1151,16 @@ class GenerationEngine:
         # ticks run (plain and spec), by window rung
         self.window_ticks: Dict[Optional[int], int] = {}
         self.ttfts: "deque[float]" = deque(maxlen=4096)  # submit → 1st token
+        # -- disaggregated handoff (JAX's counters): prompt KV exported and
+        # adopted, live sessions exported and resumed; the export rungs by
+        # bucket; the adopt dedupe ledger {id: (monotonic, stream)}
+        self._kv_exports = 0
+        self._kv_adoptions = 0
+        self._session_exports = 0
+        self._session_adoptions = 0
+        self._exports: Dict[int, _Prefill] = {}
+        self._adopt_ledger: Dict[str, Tuple[float, "TokenStream"]] = {}
+        self._adopt_dedup_hits = 0
 
     # -- device steps (the device thread) --------------------------------------
     def _prefill_rung(self, key: _PrefillKey,
@@ -1142,6 +1228,37 @@ class GenerationEngine:
         rung.replays += 1
         return self._staging.fetch(rung.first)
 
+    def _prefill_forward(self, rung: "_Prefill"):
+        """A prefill rung's prompt forward and first-token draw (JAX's
+        ``_prefill_fn`` / ``_suffix_prefill_fn`` / ``_prefill_bias_fn``),
+        read off the rung's buffers: the small caches made here, the
+        prompts run through the model (at prefix rung > 0 over the cached
+        prefix gathered from the store), a biased rung's bias rows added
+        to the logits, and each row's first token sampled with the key
+        made from its seed. Returns (the int arrays by name, the small
+        caches, the first tokens (nb,), the advanced keys (nb, 2), the
+        gathered prefix or None, the prefix length)."""
+        nb, bucket, p_rung, biased, _ = rung.key
+        dev, cfg = self.device, self.cfg
+        arg = {name: arr.long()
+               for name, arr in _unpack(rung.ints, rung.layout).items()}
+        tokens, lens = arg["tokens"], arg["lengths"]
+        temps, top_ps = rung.floats[:2 * nb].view(2, nb)
+        small = self._model.init_cache(cfg, nb, bucket, device=dev)
+        plen, prefix, kw = 0, None, {}
+        if p_rung:
+            plen = p_rung * self._prefix.page
+            prefix = self._prefix.gather(arg["prefix_ids"])
+            kw = dict(prefix=prefix, prefix_len=plen)
+        logits, small, _ = self._model.prefill(self.params, cfg, tokens,
+                                               small, lengths=lens, **kw)
+        if biased:
+            # bf16 + float32 promotes to float32, as in JAX
+            logits = logits + rung.floats[2 * nb:].view(nb, cfg.vocab_size)
+        first, keys = sample_batch(logits, temps, arg["top_ks"], top_ps,
+                                   prng.seed_key(arg["seeds"]))
+        return arg, small, first, keys, prefix, plen
+
     def _prefill_body(self, rung: "_Prefill") -> torch.Tensor:
         """One group's prompt forward and its in-place insert, as a
         function of the rung's static buffers and the engine's state
@@ -1173,25 +1290,11 @@ class GenerationEngine:
         ``max_slots`` rows by the slot→row map, so a slot no row claims
         keeps its bits. The small caches are allocated here (inside the
         graph, from its pool). Returns the first tokens (nb,)."""
-        nb, bucket, p_rung, biased, _ = rung.key
+        nb, bucket, p_rung, _, _ = rung.key
         dev, cfg = self.device, self.cfg
-        arg = {name: arr.long()
-               for name, arr in _unpack(rung.ints, rung.layout).items()}
+        arg, small, first, keys, prefix, plen = self._prefill_forward(rung)
         tokens, lens = arg["tokens"], arg["lengths"]
         temps, top_ps = rung.floats[:2 * nb].view(2, nb)
-        small = self._model.init_cache(cfg, nb, bucket, device=dev)
-        plen, prefix, kw = 0, None, {}
-        if p_rung:
-            plen = p_rung * self._prefix.page
-            prefix = self._prefix.gather(arg["prefix_ids"])
-            kw = dict(prefix=prefix, prefix_len=plen)
-        logits, small, _ = self._model.prefill(self.params, cfg, tokens,
-                                               small, lengths=lens, **kw)
-        if biased:
-            # bf16 + float32 promotes to float32, as in JAX
-            logits = logits + rung.floats[2 * nb:].view(nb, cfg.vocab_size)
-        first, keys = sample_batch(logits, temps, arg["top_ks"], top_ps,
-                                   prng.seed_key(arg["seeds"]))
         claimed = arg["row_of_slot"] >= 0
         row = arg["row_of_slot"].clamp(min=0)
         # in-place insert of the group's KV; each leaf (k/v rows, int8
@@ -1354,8 +1457,9 @@ class GenerationEngine:
         pool: ``eager()`` runs first on a side stream, which builds the
         kernels and sets their attributes, under
         ``set_sync_debug_mode("error")`` so a host sync raises here; then
-        the capture, whose launch counts become the graph's. Returns
-        (graph, its static output, launches)."""
+        the capture, with the cyclic collector off (:func:`_no_collection`),
+        whose launch counts become the graph's. Returns (graph, its static
+        output, launches)."""
         dev = self.device
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
@@ -1371,8 +1475,9 @@ class GenerationEngine:
             self._graph_pool = torch.cuda.graph_pool_handle()
         before = launch_counts.read()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._graph_pool,
-                              capture_error_mode="thread_local"):
+        with _no_collection(), torch.cuda.graph(
+                graph, pool=self._graph_pool,
+                capture_error_mode="thread_local"):
             out = body()
         launches = launch_counts.diff(launch_counts.read(), before)
         launch_counts.write(before)             # a capture launches nothing
@@ -1411,6 +1516,172 @@ class GenerationEngine:
             lambda: self._prefill_body(rung))
         rung.graph, rung.first, rung.launches = graph, first, launches
         rung.seconds = time.monotonic() - t0
+
+    # -- the disaggregated handoff's device side (the device thread) ----------
+    def _export_rung(self, bucket: int) -> _Prefill:
+        """The export rung of ``bucket`` (made at its first use): JAX's
+        ``_prefill_fn(1, bucket)`` at the rows a local admission of one
+        prompt of the bucket takes (:meth:`_prefill_count`), so an
+        exported prompt's bits are those of a local prefill. Its buffers
+        hold tokens (nb, bucket), lengths, top_ks, seeds (nb,) and the
+        floats temps, top_ps (nb,); row 0 is the prompt, every other row
+        padding."""
+        rung = self._exports.get(bucket)
+        if rung is None:
+            nb = self._prefill_count(1, bucket)
+            ints, layout = _pack(self._export_arrays(nb, bucket))
+            specs = [((ints.size,), torch.int32), ((2 * nb,), torch.float32)]
+            buffers = [torch.zeros(shape, dtype=dtype, device=self.device)
+                       for shape, dtype in specs]
+            rung = _Prefill((nb, bucket, 0, False, 0), layout, *buffers)
+            self._exports[bucket] = rung
+        return rung
+
+    def _export_arrays(self, nb: int, bucket: int,
+                       prompt: Optional[List[int]] = None,
+                       sampling: Optional["Sampling"] = None
+                       ) -> Dict[str, np.ndarray]:
+        """An export rung's int arrays: ``prompt`` in row 0 (with its
+        sampling's top_k and seed), padding rows elsewhere (length 1)."""
+        arrays = {"tokens": np.zeros((nb, bucket), np.int64),
+                  "lengths": np.ones((nb,), np.int64),
+                  "top_ks": np.zeros((nb,), np.int64),
+                  "seeds": np.zeros((nb,), np.int64)}
+        if prompt is not None:
+            arrays["tokens"][0, :len(prompt)] = prompt
+            arrays["lengths"][0] = len(prompt)
+            arrays["top_ks"][0] = sampling.top_k
+            arrays["seeds"][0] = sampling.seed & 0xFFFFFFFF
+        return arrays
+
+    def _export_body(self, rung: _Prefill) -> List[torch.Tensor]:
+        """An export rung's device work: the prompt forward and first-token
+        draw of a local prefill (:meth:`_prefill_forward`), no insert and
+        no state written. Returns the first tokens (nb,), the advanced
+        keys (nb, 2) and row 0 of each small-cache leaf (L, bucket, ...),
+        contiguous, in the wire's leaf order."""
+        _, small, first, keys, _, _ = self._prefill_forward(rung)
+        names = kv_wire.leaf_names(kv_wire.codec_for_cfg(self.cfg))
+        return [first, keys] + [small[name][:, 0].contiguous()
+                                for name in names]
+
+    def _capture_export(self, rung: _Prefill) -> None:
+        """Capture an export rung as a CUDA graph (:meth:`_record`) over
+        padding rows; its static outputs are the graph's outputs."""
+        t0 = time.monotonic()
+        nb, bucket = rung.key[:2]
+        ints, _ = _pack(self._export_arrays(nb, bucket))
+        self._upload_prefill(rung, ints, self._group_floats(nb, False))
+        graph, outs, launches = self._record(
+            lambda: self._export_body(rung), lambda: self._export_body(rung))
+        rung.graph, rung.first, rung.launches = graph, outs, launches
+        rung.seconds = time.monotonic() - t0
+
+    def _export_run(self, bucket: int, ints: np.ndarray,
+                    floats: np.ndarray):
+        """One export on the device thread, behind every step queued
+        before: upload the rung's buffers, replay its graph (captured
+        first if the bucket's rung was not warmed) or, on the CPU, run
+        its body, and queue the copies of its outputs to pinned slabs
+        (a bf16 leaf as its 16-bit words). Returns the function that
+        waits for the copies and returns them as numpy arrays."""
+        rung = self._export_rung(bucket)
+        cuda = self.device.type == "cuda"
+        if cuda and rung.graph is None:
+            self._capture_export(rung)
+            self.export_lazy_captures += 1
+        self._upload_prefill(rung, ints, floats)
+        if cuda:
+            rung.graph.replay()
+            launch_counts.add(rung.launches)
+            rung.replays += 1
+            outs = rung.first
+        else:
+            outs = self._export_body(rung)
+        waits = [self._staging.fetch(_words(out)) for out in outs]
+        return lambda: [wait() for wait in waits]
+
+    def _warm_export(self, bucket: int) -> None:
+        """Capture the export rung of ``bucket`` (on the card; nothing on
+        the CPU) and run it once over padding rows, its staging slabs
+        made, so an export after warmup captures nothing and its graph's
+        first launch is not a request's."""
+        if self.device.type != "cuda":
+            return
+        rung = self._export_rung(bucket)
+        if rung.graph is None:
+            self._capture_export(rung)
+        nb = rung.key[0]
+        ints, _ = _pack(self._export_arrays(nb, bucket))
+        self._upload_prefill(rung, ints, self._group_floats(nb, False))
+        for buf in (rung.ints, rung.floats):
+            self._staging.reserve(buf)
+        for out in rung.first:
+            self._staging.reserve(_words(out), upload=False)
+        rung.graph.replay()
+        launch_counts.add(rung.launches)
+
+    def _adopt_job(self, slot_idx: int, ids: List[int], payload,
+                   sampling: "Sampling", epoch: Optional[int]) -> None:
+        """Land a migrated payload on the device thread, behind every step
+        queued before (JAX's ``_adopt_fn`` scatter): the page ids, the
+        slot's rows (cache_len, last token, sampling parameters, key) and
+        every leaf go up as one metered ``path="kv"`` transfer through a
+        pinned slab, each leaf is copied into the pool at the slot's pages
+        (``index_copy_`` along the page axis), and the rows into the
+        slot's state. Eager, and queued only: nothing here waits for the
+        card. A co-resident's
+        reset of the shared pool since the claim (``epoch`` stale) fails
+        the adoption: its pages are gone."""
+        if self._stale(epoch):
+            raise RuntimeError(
+                "shared kv page pool was reset by a co-resident engine")
+        names = kv_wire.leaf_names(payload.codec)
+        key = payload.sample_key
+        rows = np.asarray([payload.tokens, payload.first_token,
+                           sampling.top_k, key[0] & 0xFFFFFFFF,
+                           key[1] & 0xFFFFFFFF], np.int64)
+        floats = np.asarray([max(sampling.temperature, 0.0),
+                             sampling.top_p], np.float32)
+        parts = [np.asarray(ids, np.int64), rows, floats] + [
+            payload.leaves[name] for name in names]
+        buf, offsets = self._staging.upload_parts(parts, path="kv")
+        idx, rows, floats = (
+            buf[off:off + part.nbytes].view(dtype) for off, part, dtype in
+            zip(offsets, parts, (torch.int64, torch.int64, torch.float32)))
+        for name, part, off in zip(names, parts[3:], offsets[3:]):
+            leaf = self._pool.leaves[name]
+            src = buf[off:off + part.nbytes].view(
+                _torch_dtype(part, payload)).view(part.shape)
+            leaf.index_copy_(1, idx, src.to(leaf.dtype))
+        # the slot's rows, copied on the device from the upload (a
+        # host scalar written into a device tensor would sync)
+        one = slice(slot_idx, slot_idx + 1)
+        for state, value in ((self.cache_len[one], rows[0:1]),
+                             (self.last_token[one], rows[1:2]),
+                             (self.top_ks[one], rows[2:3]),
+                             (self.sample_keys[slot_idx], rows[3:5]),
+                             (self.temps[one], floats[0:1]),
+                             (self.top_ps[one], floats[1:2])):
+            state.copy_(value)
+
+    def _snapshot_job(self, slot_idx: int, ids: List[int],
+                      names: Tuple[str, ...]):
+        """Read a quiesced slot on the device thread, behind every step
+        queued before: its pages of each leaf (gathered along the page
+        axis) and its last token, key, temperature, top_k and top_p rows,
+        each copied to a pinned slab. Returns the function that waits for
+        the copies and returns them as numpy arrays."""
+        buf, _ = self._staging.upload_parts([np.asarray(ids, np.int64)],
+                                            path="kv")
+        idx = buf.view(torch.int64)
+        outs = [self._pool.leaves[name].index_select(1, idx)
+                for name in names]
+        outs += [state[slot_idx:slot_idx + 1] for state in (
+            self.last_token, self.sample_keys, self.temps, self.top_ks,
+            self.top_ps)]
+        waits = [self._staging.fetch(_words(out)) for out in outs]
+        return lambda: [wait() for wait in waits]
 
     def _run_tick(self, key: _Key,
                   mask: Optional[np.ndarray], table: Optional[np.ndarray],
@@ -1566,7 +1837,10 @@ class GenerationEngine:
         card to ``CUDA_MIN_PREFILL_ROWS``), over padding rows, with a
         draft its draft prefill inside the same graph. Suffix, biased and
         draft-bucket prefill rungs are captured at first use, as JAX
-        compiles them lazily, and count as serving compiles.
+        compiles them lazily, and count as serving compiles. With 1 among
+        ``prompt_counts`` each bucket's export rung (:meth:`prefill_export`)
+        is captured and run once too, as JAX's exports run its warm
+        count-1 prefill.
         ``sampling`` keeps JAX's meaning (warm the sampled variants too);
         the port captures each tick rung greedy and sampled either way.
         ``windows``: None, the rungs reachable at startup
@@ -1624,6 +1898,9 @@ class GenerationEngine:
         pkeys = list(dict.fromkeys(
             (self._prefill_count(n, bucket), bucket, 0, False, 0)
             for bucket in self.prompt_buckets for n in counts))
+        # JAX's exports run its count-1 prefill executables: with count 1
+        # warmed, so is each bucket's export rung
+        ebuckets = list(self.prompt_buckets) if 1 in counts else []
         if self.logger is not None:
             self.logger.info("engine warmup: %d tick executables %s, %d "
                              "prefill executables %s", len(keys), keys,
@@ -1634,6 +1911,8 @@ class GenerationEngine:
                 self._note_capture(key)
             for key in pkeys:
                 self._note_prefill(key)
+            for bucket in ebuckets:
+                self._note_export(self._prefill_count(1, bucket), bucket)
         finally:
             self._warming -= 1
         # the warm replays run over an inactive mask: the first tick
@@ -1643,6 +1922,9 @@ class GenerationEngine:
         await loop.run_in_executor(self._device_exec, self._warm, keys)
         await loop.run_in_executor(self._device_exec, self._warm_prefills,
                                    pkeys)
+        for bucket in ebuckets:
+            await loop.run_in_executor(self._device_exec, self._warm_export,
+                                       bucket)
 
     async def start(self) -> None:
         if self._task is None:
@@ -1810,6 +2092,454 @@ class GenerationEngine:
                               queue, response_format)
         return TokenStream(self, queue, future)
 
+    # -- disaggregated serving: prefill export / KV adoption -------------------
+    def _adopt_ledger_get(self, dedupe: str) -> Optional[TokenStream]:
+        """Idempotent-adopt lookup (JAX's): a replayed transfer id inside
+        the TTL returns the stream the first adoption produced instead of
+        claiming a second slot and page set for the same KV."""
+        now = time.monotonic()
+        if len(self._adopt_ledger) > _ADOPT_LEDGER_CAP:
+            self._adopt_ledger = {
+                key: entry for key, entry in self._adopt_ledger.items()
+                if now - entry[0] < _ADOPT_LEDGER_TTL_S}
+        hit = self._adopt_ledger.get(dedupe)
+        if hit is None or now - hit[0] >= _ADOPT_LEDGER_TTL_S:
+            return None
+        self._adopt_dedup_hits += 1
+        if self.metrics is not None:
+            self.metrics.increment_counter(
+                "app_tpu_adopt_dedup_total", model=self.model_name)
+        if self.logger is not None:
+            self.logger.warn(
+                "engine %s: replayed adoption %s served from the dedupe "
+                "ledger", self.model_name, dedupe)
+        return hit[1]
+
+    async def prefill_export(self, prompt_ids,
+                             sampling: Optional[Sampling] = None,
+                             traceparent: Optional[str] = None):
+        """Prefill-replica half of the disaggregated handoff (JAX's): run
+        the prompt forward once and export its KV as a page-aligned
+        :class:`~gofr_tpu_torch.tpu.kv_wire.KVPayload` instead of
+        inserting it into a local slot. The payload carries the first
+        sampled token and the advanced PRNG key, so the adopting decode
+        replica continues token-identically without recomputing a prompt
+        position. No slot is claimed and the engine loop need not run.
+
+        The forward is the bucket's export rung (:meth:`_export_rung`: a
+        local prefill's rows, no insert), one CUDA graph a bucket
+        captured by ``warmup()``, queued on the device thread behind the
+        steps before it; its outputs come back through pinned slabs, and
+        the page-shaped leaves are built off the loop as JAX builds them
+        (rows past the prompt's last page zero, scale planes one). Works
+        for dense and paged engines alike (it reads the small cache,
+        never a pool)."""
+        sampling = sampling or Sampling()
+        prompt, bucket = self._validate(prompt_ids, 1)
+        page = self.kv_page
+        n_pages = -(-len(prompt) // page)
+        cfg = self.cfg
+        # a router-supplied traceparent joins this export to the disagg
+        # request's trace, so both halves' records share one trace_id
+        remote = extract_traceparent(traceparent) if traceparent else None
+        span = None
+        if self.tracer is not None:
+            parent = current_span()
+            span = self.tracer.start_span("prefill.export", parent=parent,
+                                          remote_parent=remote)
+        trace_id = span.trace_id if span is not None else None
+        if trace_id is None and remote is not None:
+            trace_id = remote.get("trace_id")
+        record = RequestRecord(
+            model=self.model_name, prompt_len=len(prompt), budget=1,
+            trace_id=trace_id,
+            span_id=span.span_id if span is not None else None)
+        self.recorder.start(record)
+        record.admitted()
+        nb = self._prefill_count(1, bucket)
+        ints, _ = _pack(self._export_arrays(nb, bucket, prompt, sampling))
+        floats = self._group_floats(nb, False)
+        floats[0] = max(sampling.temperature, 0.0)
+        floats[nb] = sampling.top_p
+        codec = kv_wire.codec_for_cfg(cfg)
+        names = kv_wire.leaf_names(codec)
+        span_tokens = n_pages * page
+        self._note_export(nb, bucket)
+
+        def host_leaves(wait):
+            # JAX's page-shaped leaves, built in a worker thread
+            outs = wait()
+            host = {}
+            for name, leaf in zip(names, outs[2:]):
+                shape = (leaf.shape[0], span_tokens) + leaf.shape[2:]
+                out = np.zeros(shape, _wire_words(leaf.dtype))
+                if name in ("ks", "vs"):
+                    out[:] = 1.0   # pool scale planes initialize to ones
+                copy = min(span_tokens, leaf.shape[1])
+                out[:, :copy] = leaf[:, :copy].view(out.dtype)
+                host[name] = out.reshape(
+                    (out.shape[0], n_pages, page) + out.shape[2:])
+            key_row = outs[1][0]
+            return (int(outs[0][0]), host,
+                    (int(key_row[0]) & 0xFFFFFFFF,
+                     int(key_row[1]) & 0xFFFFFFFF))
+
+        loop = asyncio.get_running_loop()
+        wait = await loop.run_in_executor(self._device_exec,
+                                          self._export_run, bucket, ints,
+                                          floats)
+        first, host, key = await loop.run_in_executor(None, host_leaves,
+                                                      wait)
+        self.prefill_dispatches += 1
+        self.prefill_bucket_tokens += nb * bucket
+        self._kv_exports += 1
+        record.first_token()
+        record.tokens = 1
+        self.recorder.finish(record, "exported")
+        if span is not None:
+            span.set_attribute("prompt_len", len(prompt))
+            span.set_attribute("bucket", bucket)
+            span.set_attribute("pages", n_pages)
+            span.finish()
+        return kv_wire.KVPayload(
+            codec=codec, dtype=self._wire_dtype(codec), page=page,
+            tokens=len(prompt), n_layers=cfg.n_layers,
+            n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+            n_pages=n_pages, first_token=first, sample_key=key,
+            model=self.model_name, leaves=host)
+
+    def _wire_dtype(self, codec: int) -> str:
+        """The header dtype of this engine's KV leaves: ``int8`` under the
+        int8 codec, else the cache dtype's numpy name (``bfloat16`` for
+        bf16, as ``ml_dtypes`` names it in the JAX package)."""
+        if codec == kv_wire.CODEC_INT8:
+            return "int8"
+        dtype = self.cfg.dtype
+        return kv_wire.BF16 if dtype == torch.bfloat16 \
+            else str(dtype).replace("torch.", "")
+
+    async def adopt_kv(self, payload, max_new_tokens: int,
+                       eos_id: Optional[int] = None,
+                       sampling: Optional[Sampling] = None,
+                       submitted_at: Optional[float] = None,
+                       traceparent: Optional[str] = None,
+                       transfer_s: float = 0.0,
+                       transfer_bytes: int = 0,
+                       resume: bool = False,
+                       dedupe: Optional[str] = None) -> TokenStream:
+        """Decode-replica half of the handoff (JAX's, its checks, their
+        order and messages): admit an exported
+        :class:`~gofr_tpu_torch.tpu.kv_wire.KVPayload` straight into the
+        page pool as page-table entries and start decoding from its
+        first token, with no prefill (``prefill_bucket_tokens`` does not
+        move). The pages are allocated at refcount 1 as a local
+        admission's and released through the normal slot teardown.
+
+        The slot is claimed on the loop with ``active`` False; the
+        payload lands in one job on the device thread
+        (:meth:`_adopt_job`), queued behind the ticks in flight, which
+        leave the inactive slot's rows alone; then the slot joins the next
+        tick, whose dispatch uploads the moved table and mask.
+        ``traceparent`` stitches the remote prefill trace across the hop;
+        ``transfer_s`` / ``transfer_bytes`` put the wire cost on the
+        flight record and the ``app_tpu_kv_transfer_*`` series. Raises
+        :class:`~gofr_tpu_torch.tpu.kv_wire.KVWireError` on a geometry or
+        codec mismatch and ``RuntimeError`` when no slot or pages are
+        free. ``dedupe`` makes the adoption idempotent: a replayed id
+        gets the first adoption's stream back."""
+        if dedupe is not None:
+            prior = self._adopt_ledger_get(dedupe)
+            if prior is not None:
+                return prior
+        if not self.paged:
+            raise ValueError("adopt_kv needs paged_kv=True (migrated KV "
+                             "is admitted as page-table entries)")
+        sampling = sampling or Sampling()
+        cfg = self.cfg
+        if payload.page != self.kv_page:
+            raise kv_wire.KVWireError(
+                f"payload page size {payload.page} != engine kv_page "
+                f"{self.kv_page}")
+        if (payload.n_layers, payload.n_kv_heads, payload.head_dim) != \
+                (cfg.n_layers, cfg.n_kv_heads, cfg.head_dim):
+            raise kv_wire.KVWireError(
+                f"payload geometry (L={payload.n_layers}, "
+                f"Hkv={payload.n_kv_heads}, Dh={payload.head_dim}) does "
+                f"not match this model")
+        if payload.codec != kv_wire.codec_for_cfg(cfg):
+            raise kv_wire.KVWireError(
+                f"payload codec {payload.codec} does not match the pool "
+                "storage format (no transcoding on adopt)")
+        # a session snapshot's first_token was already delivered by the
+        # exporting replica: only adopt_session may admit one
+        if bool(payload.flags & kv_wire.FLAG_SESSION) != resume:
+            raise kv_wire.KVWireError(
+                "session-flagged payloads must be adopted via "
+                "adopt_session (and prefill payloads via adopt_kv)")
+        if max_new_tokens < 1:
+            raise ValueError("adopt_kv needs max_new_tokens >= 1")
+        if payload.tokens + max_new_tokens > self.max_len:
+            raise ValueError("migrated prompt + max_new_tokens exceeds "
+                             "cache length")
+        need = payload.n_pages
+        if need + self._kv_reserve > self._pool.num_pages:
+            raise RuntimeError(
+                f"migrated prompt needs {need} KV pages but the pool "
+                f"holds {self._pool.num_pages} (reserve "
+                f"{self._kv_reserve}); it can never be adopted")
+        if not self._free:
+            raise RuntimeError("no free slot to adopt migrated KV into")
+        if self._pool_stale():
+            raise RuntimeError(
+                "shared kv page pool was reset by a co-resident engine")
+        while (self._pool.free_pages - need < self._kv_reserve
+                and self._prefix is not None and self._prefix.evict_one()):
+            pass
+        if self._pool.free_pages - need < self._kv_reserve:
+            raise RuntimeError(
+                f"kv page pool short for adoption: {need} pages wanted, "
+                f"{self._pool.free_pages} free (reserve "
+                f"{self._kv_reserve})")
+        ids = self._pool.alloc(
+            need, reclaim=(self._prefix.evict_one
+                           if self._prefix is not None else None),
+            epoch=self._pool_epoch)
+        if ids is None:
+            raise RuntimeError(
+                f"kv page pool exhausted at adoption: {need} pages "
+                f"wanted, {self._pool.free_pages} free")
+
+        # the adopt span joins the remote prefill trace when the
+        # transport forwarded a traceparent
+        span = None
+        remote = extract_traceparent(traceparent) if traceparent else None
+        if self.tracer is not None:
+            span = self.tracer.start_span(
+                "kv_adopt", remote_parent=remote,
+                parent=None if remote else current_span())
+            span.set_attribute("tokens", payload.tokens)
+            span.set_attribute("pages", need)
+            if transfer_bytes:
+                span.set_attribute("transfer_bytes", transfer_bytes)
+        trace_id = span.trace_id if span is not None else None
+        if trace_id is None and remote is not None:
+            trace_id = remote.get("trace_id")
+        record = RequestRecord(
+            model=self.model_name, prompt_len=payload.tokens,
+            budget=max_new_tokens, trace_id=trace_id,
+            span_id=span.span_id if span is not None else None)
+        self.recorder.start(record)
+        record.admitted()
+        record.pages_held = need
+        record.kv_transfer_s = float(transfer_s)
+        record.kv_transfer_bytes = int(transfer_bytes)
+        if self.metrics is not None and transfer_bytes:
+            self.metrics.delta_updown_counter(
+                "app_tpu_kv_transfer_bytes_total", float(transfer_bytes),
+                model=self.model_name)
+
+        # claim the slot with no await before the table write; active
+        # stays False until the job has landed the pages
+        queue: asyncio.Queue = asyncio.Queue()
+        loop = asyncio.get_running_loop()
+        future = loop.create_future()
+        slot_idx = self._free.pop()
+        slot = self._slots[slot_idx]
+        slot.future = future
+        slot.submitted_at = (submitted_at if submitted_at is not None
+                             else time.monotonic())
+        slot.deadline = current_deadline()
+        slot.remaining = max_new_tokens
+        slot.eos_id = eos_id
+        slot.tokens = []
+        slot.active = False
+        slot.migrating = False
+        slot.gen += 1
+        gen = slot.gen
+        # a prefill handoff ships one already-sampled token to publish;
+        # a resumed session's last token was delivered by the exporter
+        slot.inflight = 0 if resume else 1
+        slot.queue = queue
+        slot.temperature = sampling.temperature
+        slot.cls = CLASS_MIGRATED
+        slot.grammar = None        # migrated sessions decode unconstrained
+        slot.spec_proposed = 0
+        slot.spec_accepted = 0
+        slot.fill = payload.tokens
+        slot.nodes = []
+        slot.pages = list(ids)
+        slot.record = record
+        slot.req_span = span
+        slot.phase_span = None     # decode span opens at the first push
+        self._table[slot_idx, :need] = ids
+        self._table_version += 1
+        try:
+            await loop.run_in_executor(
+                self._device_exec, self._adopt_job, slot_idx, list(ids),
+                payload, sampling, self._pool_epoch)
+        except BaseException:
+            slot.gen += 1
+            slot.queue = None
+            slot.future = None
+            self._finish_slot(slot_idx, slot, "error")
+            if span is not None:
+                span.set_status("ERROR")
+                span.finish()
+            raise
+        self._pool.note_writes(need)
+        slot.active = True
+        self._kv_adoptions += 1
+        if resume:
+            self._session_adoptions += 1
+        if self.metrics is not None:
+            self.metrics.increment_counter(
+                "app_tpu_kv_adoptions_total", model=self.model_name)
+        self._wake.set()
+        if not resume:
+            # publish the shipped first token through the normal path, as
+            # if a local prefill's fetch had just landed
+            self._push_tokens(slot_idx, gen, [payload.first_token])
+        if span is not None:
+            span.finish()
+        stream = TokenStream(self, queue, future)
+        if dedupe is not None:
+            self._adopt_ledger[dedupe] = (time.monotonic(), stream)
+        return stream
+
+    async def adopt_session(self, payload, remaining: int,
+                            eos_id: Optional[int] = None,
+                            sampling: Optional[Sampling] = None,
+                            submitted_at: Optional[float] = None,
+                            traceparent: Optional[str] = None,
+                            transfer_s: float = 0.0,
+                            transfer_bytes: int = 0,
+                            dedupe: Optional[str] = None) -> TokenStream:
+        """Resume a live decode session a peer's :meth:`export_session`
+        shipped (JAX's): the pages carry the session's committed KV,
+        ``first_token`` is the last token the exporter committed and
+        ``sample_key`` its advanced key, so decode continues
+        token-identically with no prefill. The stream yields only the
+        tokens generated after the hop."""
+        return await self.adopt_kv(
+            payload, remaining, eos_id=eos_id, sampling=sampling,
+            submitted_at=submitted_at, traceparent=traceparent,
+            transfer_s=transfer_s, transfer_bytes=transfer_bytes,
+            resume=True, dedupe=dedupe)
+
+    async def export_session(self, stream, timeout_s: float = 5.0):
+        """Snapshot a live decode session for migration (JAX's): the slot
+        joins no further tick (``migrating``), its in-flight tokens drain
+        through the normal publish, then one job on the device thread
+        reads its committed pages and its device rows (last token, key,
+        sampling parameters), and the slot retires: pages freed, stream
+        ended, flight record ``migrated``.
+
+        Returns ``(payload, state)``: a session-flagged
+        :class:`~gofr_tpu_torch.tpu.kv_wire.KVPayload` and the host state
+        (``remaining``, ``eos_id``, sampling parameters, ``emitted``,
+        ``cls``) for the adopting replica's :meth:`adopt_session`.
+        Raises ``KeyError`` when the stream is bound to no slot,
+        ``ValueError`` for a constrained session (its grammar walker is
+        host state that does not ship) or a dense engine, and
+        ``TimeoutError`` when its in-flight ticks do not drain in
+        ``timeout_s``."""
+        if not self.paged:
+            raise ValueError("export_session needs paged_kv=True (the "
+                             "session ships as page-pool rows)")
+        queue = getattr(stream, "_queue", stream)
+        slot_idx = next((i for i, s in enumerate(self._slots)
+                         if s.queue is queue), None)
+        if slot_idx is None:
+            raise KeyError("stream is not bound to a live slot")
+        slot = self._slots[slot_idx]
+        if slot.grammar is not None:
+            raise ValueError("constrained sessions hold host-side "
+                             "grammar state and cannot migrate")
+        gen0 = slot.gen
+        slot.migrating = True
+
+        def live() -> bool:
+            return (slot.gen == gen0 and slot.queue is queue
+                    and slot.active)
+
+        try:
+            deadline = time.monotonic() + timeout_s
+            while slot.inflight > 0:
+                if not live():
+                    raise RuntimeError(
+                        "session finished before it could be exported")
+                if time.monotonic() > deadline:
+                    raise TimeoutError(
+                        "in-flight decode ticks did not drain in "
+                        f"{timeout_s}s")
+                await asyncio.sleep(0.001)
+            if not live():
+                raise RuntimeError(
+                    "session finished before it could be exported")
+
+            fill = slot.fill
+            page = self.kv_page
+            n_pages = -(-fill // page)
+            ids = [int(self._table[slot_idx, j]) for j in range(n_pages)]
+            if any(pid == self._pool.sentinel for pid in ids):
+                raise RuntimeError(
+                    f"slot {slot_idx} table row holds a sentinel inside "
+                    f"its {n_pages}-page fill span")
+            codec = kv_wire.codec_for_cfg(self.cfg)
+            names = kv_wire.leaf_names(codec)
+
+            def snapshot(wait):
+                outs = wait()
+                host = {name: leaf.view(_wire_words(leaf.dtype))
+                        for name, leaf in zip(names, outs)}
+                last, key_row, temp, top_k, top_p = outs[len(names):]
+                return (host, int(last[0]),
+                        (int(key_row[0, 0]) & 0xFFFFFFFF,
+                         int(key_row[0, 1]) & 0xFFFFFFFF),
+                        float(temp[0]), int(top_k[0]), float(top_p[0]))
+
+            loop = asyncio.get_running_loop()
+            wait = await loop.run_in_executor(
+                self._device_exec, self._snapshot_job, slot_idx, ids, names)
+            host, last, key, temp, top_k, top_p = \
+                await loop.run_in_executor(None, snapshot, wait)
+            if not live():
+                raise RuntimeError("session was cancelled during export")
+        except BaseException:
+            slot.migrating = False   # re-joins ticks if still live
+            raise
+
+        payload = kv_wire.KVPayload(
+            codec=codec, dtype=self._wire_dtype(codec), page=page,
+            tokens=fill, n_layers=self.cfg.n_layers,
+            n_kv_heads=self.cfg.n_kv_heads, head_dim=self.cfg.head_dim,
+            n_pages=n_pages, first_token=last, sample_key=key,
+            model=self.model_name, leaves=host,
+            flags=kv_wire.FLAG_SESSION)
+        state = {
+            "remaining": slot.remaining,
+            "eos_id": slot.eos_id,
+            "temperature": temp,
+            "top_k": top_k,
+            "top_p": top_p,
+            "emitted": len(slot.tokens),
+            "cls": slot.cls,
+        }
+        # retire the source slot: in-flight drained above, so this is the
+        # normal teardown minus the token publish; the rest of the
+        # completion streams from the adopting replica
+        slot.migrating = False
+        q = slot.queue
+        slot.queue = None
+        self._session_exports += 1
+        self._finish_slot(slot_idx, slot, "migrated")
+        if slot.future is not None and not slot.future.done():
+            # non-streaming waiters get the tokens this replica produced
+            slot.future.set_result(list(slot.tokens))
+        if q is not None:
+            q.put_nowait(_DONE)
+        return payload, state
+
     def _cancel_stream(self, queue: asyncio.Queue) -> None:
         """Abandon the request bound to ``queue``: free its slot (stale
         in-flight tokens are dropped by the generation counter) or, if it
@@ -1857,6 +2587,17 @@ class GenerationEngine:
                 "capture_s_by_kind": seconds,
                 "replays": sum(rung.replays for rung in captured),
                 "lazy_captures": self.prefill_lazy_captures}
+
+    def _export_graph_stats(self) -> Dict[str, Any]:
+        """The export rungs' graphs: captured, by bucket, their capture
+        seconds, replays, and captures made while serving."""
+        captured = [r for r in list(self._exports.values())
+                    if r.graph is not None]
+        return {"captured": len(captured),
+                "keys": [list(rung.key[:2]) for rung in captured],
+                "capture_s": sum(rung.seconds for rung in captured),
+                "replays": sum(rung.replays for rung in captured),
+                "lazy_captures": self.export_lazy_captures}
 
     def prefix_digest(self,
                       max_entries: int = 512) -> Optional[Dict[str, Any]]:
@@ -1911,6 +2652,17 @@ class GenerationEngine:
         self._compiled.add(tag)
         if self.device.type == "cuda":
             self._note_compile(_prefill_kind(key), key)
+
+    def _note_export(self, nb: int, bucket: int) -> None:
+        """Note the export rung of ``bucket`` as one compile, once, under
+        JAX's kind (its export runs ``_prefill_fn(1, bucket)``), on the
+        card only, as :meth:`_note_prefill`."""
+        tag = ("export", nb, bucket)
+        if tag in self._compiled:
+            return
+        self._compiled.add(tag)
+        if self.device.type == "cuda":
+            self._note_compile("prefill", (nb, bucket))
 
     def _note_compile(self, kind: str, key) -> None:
         """Charge one compile (JAX ``_note_compile``): warmup class inside
@@ -2250,19 +3002,26 @@ class GenerationEngine:
         if self.paged:
             pool = self._pool
             page_bytes = pool.page_bytes
-            decode_pages = sum(len(slot.pages) for slot in self._slots
-                               if slot.active)
+            decode_pages = migrated_pages = 0
+            for slot in self._slots:
+                if not slot.active:
+                    continue
+                if slot.cls == CLASS_MIGRATED:
+                    migrated_pages += len(slot.pages)
+                else:
+                    decode_pages += len(slot.pages)
             # pages in use that no slot holds are the prefix trie's
-            prefix_pages = max(0, pool.used_pages - decode_pages)
+            prefix_pages = max(0, pool.used_pages - decode_pages
+                               - migrated_pages)
             out["page_pool"] = {
                 "pool_bytes": pool.pool_bytes,
                 "page_bytes": page_bytes,
                 "pages": {"total": pool.num_pages, "free": pool.free_pages,
-                          "decode": decode_pages, "migrated": 0,
+                          "decode": decode_pages, "migrated": migrated_pages,
                           "prefix_pinned": prefix_pages},
                 "bytes": {"free": pool.free_pages * page_bytes,
                           "decode": decode_pages * page_bytes,
-                          "migrated": 0,
+                          "migrated": migrated_pages * page_bytes,
                           "prefix_pinned": prefix_pages * page_bytes},
             }
             attributed += pool.pool_bytes
@@ -2472,6 +3231,13 @@ class GenerationEngine:
             "pending": self._pending.qsize() + len(self._overflow),
             "prefill_dispatches": self.prefill_dispatches,
             "prefill_bucket_tokens": self.prefill_bucket_tokens,
+            # the disaggregated handoff (JAX's keys): prompt forwards
+            # shipped out, migrated prompts admitted with no prefill, and
+            # live sessions shipped out and resumed
+            "kv_exports": self._kv_exports,
+            "kv_adoptions": self._kv_adoptions,
+            "session_exports": self._session_exports,
+            "session_adoptions": self._session_adoptions,
             "decode_steps": self.decode_steps,
             "ticks": self.ticks,
             "max_inflight_ticks": self.max_inflight_ticks,
@@ -2486,6 +3252,7 @@ class GenerationEngine:
                 "replays": self.graph_replays,
                 "lazy_captures": self.lazy_captures,
                 "prefill": self._prefill_graph_stats(),
+                "export": self._export_graph_stats(),
             },
             "max_len": self.max_len,
             "window_ladder": [w or self.max_len
@@ -2529,11 +3296,14 @@ class GenerationEngine:
                 "ticks": self._constrained_ticks,
                 "grammar_cache": self.grammar_cache.stats(),
             }
-        if self._brownout or self._quarantined:
+        if (self._brownout or self._quarantined or self._adopt_dedup_hits
+                or self._adopt_ledger):
             # sparse, so a healthy engine's stats are unchanged
             out["resilience"] = {
                 "brownout_level": self._brownout,
                 "quarantined": dict(self._quarantined),
+                "adopt_dedup_hits": self._adopt_dedup_hits,
+                "adopt_ledger_entries": len(self._adopt_ledger),
             }
         if self.spec:
             out["speculative"] = {
@@ -3061,6 +3831,7 @@ class GenerationEngine:
             slot.remaining = req.budget
             slot.eos_id = req.eos_id
             slot.tokens = []
+            slot.migrating = False
             slot.active = True
             slot.gen += 1
             slot.inflight = 1          # the prefill's first token
@@ -3169,6 +3940,7 @@ class GenerationEngine:
         eligible = [(slot_idx, slot)
                     for slot_idx, slot in enumerate(self._slots)
                     if slot.active and slot.remaining > slot.inflight
+                    and not slot.migrating
                     and (slot.grammar is None or slot.inflight == 0)]
         if not eligible:
             return None
@@ -3372,7 +4144,10 @@ class GenerationEngine:
             held = len(slot.nodes) + len(slot.pages)
             short = need - held
             if short > 0:
-                ids = self._pool.alloc(short, reclaim=reclaim)
+                # a co-resident's reset since the stale check above
+                # ends the epoch: the slot sits this tick out
+                ids = self._pool.alloc(short, reclaim=reclaim,
+                                       epoch=self._pool_epoch)
                 if ids is None:
                     continue
                 self._table[slot_idx, held:held + short] = ids

@@ -174,13 +174,18 @@ class PagePool:
             return self._executor
 
     def alloc(self, n: int = 1,
-              reclaim: Optional[Callable[[], bool]] = None
-              ) -> Optional[List[int]]:
+              reclaim: Optional[Callable[[], bool]] = None,
+              epoch: Optional[int] = None) -> Optional[List[int]]:
         """``n`` pages at refcount 1, all or nothing. While the free list
         is short, ``reclaim()`` (if given) is called to release evictable
         pages; it returns False when it freed nothing. None (and a stall
-        counted) when the list stays short. Never blocks."""
+        counted) when the list stays short. Never blocks. None too, with
+        no stall counted, when ``epoch`` is given and a reset has ended
+        it: the caller's page ids are an earlier epoch's, and pages it
+        took now would be forgotten when it learns of the reset."""
         with self.lock:
+            if epoch is not None and epoch != self.epoch:
+                return None
             while len(self._free) < n and reclaim is not None \
                     and reclaim():
                 pass

@@ -136,6 +136,40 @@ class StagingPool:
             self._release(key, slab)
         self.note_h2d(int(src.nbytes), time.perf_counter() - t0, path)
 
+    def upload_parts(self, parts: Sequence[np.ndarray], path: str
+                     ) -> Tuple[torch.Tensor, List[int]]:
+        """Copy the bytes of each host array of ``parts`` into one new
+        device ``uint8`` buffer, each at an 8-byte-aligned offset, in
+        stream order: on the card through a pinned slab of the next
+        power-of-two size (a ring a size, so a payload of any size reuses
+        a few slabs), filled straight from the arrays. Metered under
+        ``path`` as one transfer. Returns the buffer and the offsets."""
+        t0 = time.perf_counter()
+        spans, at = [], 0
+        for part in parts:
+            spans.append(at)
+            at += -(-part.nbytes // 8) * 8
+        if self.device.type != "cuda":
+            blob = np.zeros((at,), np.uint8)
+            host = blob
+        else:
+            key = ("up", (1 << max(12, (at - 1).bit_length()),), torch.uint8)
+            slab = self._acquire(key)
+            host = slab.host.numpy()
+        for part, off in zip(parts, spans):
+            host[off:off + part.nbytes] = np.ascontiguousarray(
+                part).reshape(-1).view(np.uint8)
+        if self.device.type != "cuda":
+            dst = torch.from_numpy(blob)
+        else:
+            dst = torch.empty((at,), dtype=torch.uint8, device=self.device)
+            dst.copy_(slab.host[:at], non_blocking=True)
+            slab.event = torch.cuda.Event()
+            slab.event.record()
+            self._release(key, slab)
+        self.note_h2d(at, time.perf_counter() - t0, path)
+        return dst, spans
+
     def note_h2d(self, nbytes: int, seconds: float, path: str) -> None:
         """Count one host-to-device transfer of ``nbytes`` that took
         ``seconds`` of host time, under ``path`` (JAX ``note_h2d``)."""

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Two trees of the port in turns on ``chip_smoke.py``'s phase 20 and
-phase 15 engines: the path an earlier slice served, before and after a
-change.
+"""Two trees of the port in turns on ``chip_smoke.py``'s phase 20, phase
+15 and phase 9 engines: the path an earlier slice served, before and
+after a change.
 
 - phase 20: ``small`` at full width and depth (random weights from
   ``--seed`` + 2) at the example app's engine (dense, max_len 1024, 8
   slots, 16 steps a tick, 4 in flight);
 - phase 15: ``llama3-8b``, 32 layers (``--layers``), dense, max_len
   2048, buckets 32/128/512, 4 steps a tick, 2 in flight (weights from
-  ``--seed``).
+  ``--seed``);
+- phase 9: the same weights and settings, paged (page 32).
 
 Each serves phase 9's burst (8 requests of 32 new tokens over prompts of
 5..512 tokens, one sampled) through ``chip_smoke.serve_burst`` (every
@@ -64,14 +65,18 @@ def worker(args) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     mods = (flash_mod, ragged_mod, decode_mod)
     cells = {}
+    llama3 = dict(max_slots=8, max_len=2048, prompt_buckets=(32, 128, 512),
+                  steps_per_tick=4)
+    params = None
     for name, preset, seed, engine_kw in (
             ("phase20_small", "small", args.seed + 2, smoke.SMALL_ENGINE),
-            ("phase15_llama3", "llama3-8b", args.seed,
-             dict(max_slots=8, max_len=2048, prompt_buckets=(32, 128, 512),
-                  steps_per_tick=4))):
+            ("phase15_llama3", "llama3-8b", args.seed, llama3),
+            ("phase9_llama3", "llama3-8b", args.seed,
+             dict(llama3, paged_kv=True, kv_page=32))):
         over = {"n_layers": args.layers} if preset == "llama3-8b" else {}
         cfg = llama.config(preset, use_flash=True, **over)
-        params = llama.init(cfg, seed, device="cuda")
+        if name != "phase9_llama3":     # phase 9 takes phase 15's weights
+            params = llama.init(cfg, seed, device="cuda")
         engine = generate.GenerationEngine(cfg, params, device="cuda",
                                            **engine_kw)
         prompts = smoke.engine_prompts(cfg, args.seed)
@@ -91,7 +96,7 @@ def worker(args) -> int:
               f"TTFT p50 {cells[name]['ttft_p50_s']:.4f}s max "
               f"{cells[name]['ttft_max_s']:.4f}s, idle "
               f"{cells[name]['device_idle_share']:.4f}", flush=True)
-        del engine, params
+        del engine
         torch.cuda.empty_cache()
     print(MARK + json.dumps(dict(tree=str(tree), card=smoke.card_line(),
                                  build_s=build_s, cells=cells)), flush=True)

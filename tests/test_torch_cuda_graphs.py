@@ -62,6 +62,15 @@ form). Run them on the GPU host with
   prewarm, ticks run between the prewarm's captures, nothing syncs (the
   sampler's ``stats()`` and ``hbm_occupancy`` included), and after the
   move is applied a burst captures nothing.
+- An export rung (``prefill_export``) captured by ``warmup()`` replays to
+  the eager run's first token, key and small-cache rows bit for bit,
+  bf16 and ``kv_int8``, dense and paged, and writes no engine state.
+- Payloads a dense engine exported, adopted by a paged engine while its
+  own burst has ticks in flight, under ``set_sync_debug_mode("error")``,
+  give a monolithic engine's greedy tokens, with no prefill for them.
+- No cyclic collection starts inside a capture while a dropped paged
+  engine is garbage (the collector made to run at almost every
+  allocation), and the capturing engine serves.
 
 The model is 2 layers of head_dim 128 or 64 (Hq 8, Hkv 2) at vocabulary
 1024, random weights from a seed; the state is random too: pages
@@ -88,8 +97,8 @@ from gofr_tpu_torch.slo import SLOTracker
 from gofr_tpu_torch.tpu import faults
 from gofr_tpu_torch.tpu.constrain import NEG_BIAS
 from gofr_tpu_torch.tpu.flightrecorder import FlightRecorder
-from gofr_tpu_torch.tpu.generate import (GenerationEngine, _pack,
-                                         _prefill_key)
+from gofr_tpu_torch.tpu.generate import (GenerationEngine, Sampling,
+                                         _pack, _prefill_key)
 from gofr_tpu_torch.trace import ListExporter, Tracer
 
 pytestmark = pytest.mark.cuda
@@ -898,3 +907,128 @@ def test_burst_during_a_prewarm_is_the_burst_without(cuda, paged):
     series = store.series("1s")["series"]
     for name in ("queue_depth", "batch_fill", "hbm_occupancy"):
         assert any(v is not None for v in series[name]), name
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("paged", [False, True])
+def test_export_replay_is_bitwise_the_eager_export(cuda, paged, int8):
+    """An export rung captured by ``warmup()`` replays to the eager run's
+    first token, key and small-cache rows bit for bit, with the same
+    launch counts, and writes no state of the engine's."""
+    engine = _engine(cuda, int8=int8, paged=paged, d=64)
+    asyncio.run(engine.warmup(ks=(4,)))
+    assert engine.stats()["graphs"]["export"]["captured"] == 2
+    rng = np.random.default_rng(31)
+    prompt = rng.integers(0, 1024, 41).tolist()
+    sampling = Sampling(temperature=0.9, top_k=20, seed=77)
+    rung = engine._exports[64]
+    nb = rung.key[0]
+    ints, _ = _pack(engine._export_arrays(nb, 64, prompt, sampling))
+    floats = engine._group_floats(nb, False)
+    floats[0], floats[nb] = 0.9, 1.0
+    _fill_state(engine, 19)
+    torch.cuda.synchronize()
+    saved = {k: v.clone() for k, v in _prefill_state(engine).items()}
+    launch_counts.write({k: 0 for k in launch_counts.read()})
+    engine._staging.upload(rung.ints, ints)
+    engine._staging.upload(rung.floats, floats)
+    eager = [_bits(out).cpu().numpy() for out in engine._export_body(rung)]
+    eager_counts = launch_counts.read()
+    launch_counts.write({k: 0 for k in launch_counts.read()})
+    replays = rung.replays
+    replayed = engine._export_run(64, ints, floats)()
+    assert rung.replays == replays + 1
+    assert launch_counts.read() == eager_counts
+    assert eager_counts["flash_attention.launches"] > 0
+    assert len(replayed) == len(eager) == (6 if int8 else 4)
+    for got, want in zip(replayed, eager):
+        np.testing.assert_array_equal(got, want)
+    for name, tensor in _prefill_state(engine).items():
+        assert torch.equal(_bits(tensor), _bits(saved[name])), name
+    assert engine.export_lazy_captures == 0
+
+
+def test_adopt_with_ticks_in_flight_syncs_nowhere(cuda):
+    """Payloads a dense engine exported are adopted by a paged engine
+    while its own burst has ticks in flight, under
+    ``set_sync_debug_mode("error")``: the adopted streams give a
+    monolithic engine's greedy tokens for those prompts, the local ones
+    theirs, and the adoptions ran no prefill."""
+    prompts = _prompts(3)
+    mono = _engine(cuda, paged=True, d=64)
+    asyncio.run(mono.warmup(prompt_counts=(1, SLOTS)))
+    want = asyncio.run(_serve(mono, prompts))
+    del mono
+    src = _engine(cuda, paged=False, d=64)
+    asyncio.run(src.warmup(prompt_counts=(1,)))
+
+    async def export():
+        return [await src.prefill_export(p) for p in prompts[:2]]
+    payloads = asyncio.run(export())
+    assert src.export_lazy_captures == 0
+    engine = _engine(cuda, paged=True, d=64)
+    asyncio.run(engine.warmup(prompt_counts=(1, SLOTS)))
+
+    async def serve():
+        await engine.start()
+        try:
+            local = [asyncio.ensure_future(engine.generate(p, 24))
+                     for p in prompts[2:]]
+            while engine._ticks_inflight < 2 \
+                    and not all(f.done() for f in local):
+                await asyncio.sleep(0)
+            inflight.append(engine._ticks_inflight)
+            streams = [await engine.adopt_kv(p, 24) for p in payloads]
+            adopted = [[t async for t in s] for s in streams]
+            return adopted + list(await asyncio.gather(*local))
+        finally:
+            await engine.stop()
+    prefills = engine.prefill_dispatches
+    inflight = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = asyncio.run(asyncio.wait_for(serve(), 300))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert got == want
+    assert inflight == [2]
+    # the two local prompts take one or two prefill groups, the adopted
+    # ones none
+    assert 1 <= engine.prefill_dispatches - prefills <= len(prompts) - 2
+    assert engine.stats()["kv_adoptions"] == 2
+    assert engine._pool.free_pages == engine._pool.num_pages
+
+
+def test_no_collection_runs_inside_a_capture(cuda):
+    """A dropped paged engine (it and its pool reference each other) is
+    freed by the cyclic collector; a collection inside another engine's
+    capture would destroy its graphs mid-capture and invalidate that
+    capture. With the collector made to run at almost every allocation,
+    a second engine warms up while the first is garbage: no collection
+    starts while a capture is open, and the second engine serves."""
+    import gc
+
+    from gofr_tpu_torch.tpu import generate
+
+    dropped = _engine(cuda, paged=True, d=64)
+    asyncio.run(dropped.warmup(ks=(1,)))
+    del dropped
+    during = []
+
+    def watch(phase, info):
+        if phase == "start" and generate._CAPTURES["open"]:
+            during.append(info["generation"])
+
+    engine = _engine(cuda, paged=True, d=64)
+    thresholds = gc.get_threshold()
+    gc.callbacks.append(watch)
+    gc.set_threshold(1, 1, 1)
+    try:
+        asyncio.run(engine.warmup(ks=(1, 2)))
+    finally:
+        gc.set_threshold(*thresholds)
+        gc.callbacks.remove(watch)
+    gc.collect()
+    assert during == []
+    assert gc.isenabled() and generate._CAPTURES["open"] == 0
+    assert len(asyncio.run(_serve(engine, _prompts(4, 2), budget=8))) == 2

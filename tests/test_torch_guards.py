@@ -63,7 +63,9 @@ def test_guard_scans_the_admission_and_grammar_modules():
     plane's copies (metrics, tracing, flight recorder, faults, the
     executable ledger), and the telemetry plane's memory and judgment
     (the time-series store, the error-budget plane, the workload
-    recorder, the diagnosis, ``hbm_occupancy``, the task spawner)."""
+    recorder, the diagnosis, ``hbm_occupancy``, the task spawner), and
+    the disaggregated path's (the KV wire codec, the retry policy, the
+    model registry, the cluster)."""
     files = {str(path.relative_to(ROOT)) for path in _port_files()}
     own = ["gofr_tpu_torch/slo.py", "gofr_tpu_torch/tpu/constrain.py",
            "gofr_tpu_torch/tpu/sched.py",
@@ -81,7 +83,11 @@ def test_guard_scans_the_admission_and_grammar_modules():
            "gofr_tpu_torch/tpu/workload.py",
            "gofr_tpu_torch/tpu/diagnose.py",
            "gofr_tpu_torch/hbmz.py",
-           "gofr_tpu_torch/aio.py"]
+           "gofr_tpu_torch/aio.py",
+           "gofr_tpu_torch/tpu/kv_wire.py",
+           "gofr_tpu_torch/tpu/retry.py",
+           "gofr_tpu_torch/tpu/registry.py",
+           "gofr_tpu_torch/tpu/cluster.py"]
     assert set(own) <= files
     for name in own + ["gofr_tpu_torch/tpu/generate.py"]:
         assert not set(_imported_roots(ROOT / name)) & set(FORBIDDEN), name

@@ -266,8 +266,9 @@ def test_brownout_gate_and_level_clamp(weights):
         engine.set_brownout(level)
         jax_engine.set_brownout(level)
         assert engine._brownout == jax_engine._brownout
-    assert engine.stats()["resilience"] == {"brownout_level": 2,
-                                            "quarantined": {}}
+    assert engine.stats()["resilience"] == jax_engine.stats()["resilience"] \
+        == {"brownout_level": 2, "quarantined": {}, "adopt_dedup_hits": 0,
+            "adopt_ledger_entries": 0}
 
     async def main():
         await engine.start()

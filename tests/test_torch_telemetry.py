@@ -82,9 +82,15 @@ PAGED_PATH = {"jax": ("app_tpu_attn_kernel_total",
 # key-tree exceptions of the views: path prefix -> reason
 VIEW_EXCEPTIONS = {
     "/stats/": "stats() is the port's own: graphs and ticks in place of "
-               "JAX's jit, mesh and handoff counters",
+               "JAX's jit and mesh counters (its handoff counters are "
+               "JAX's, STATS_KEYS)",
     "/details/": "health_check's details are stats()",
 }
+# keys of JAX's stats() the port's carries too, with JAX's meaning: the
+# ones the telemetry plane reads and the disaggregated handoff's counters
+STATS_KEYS = ("device_seconds", "compiles", "classes", "model",
+              "free_slots", "queue_depth", "kv_exports", "kv_adoptions",
+              "session_exports", "session_adoptions")
 # operating-point keys whose values differ from JAX's, with the reason
 OP_POINT_VALUES_APART = {
     "applied_at": "a monotonic instant of each process",
@@ -311,8 +317,10 @@ def test_views_have_jax_key_tree(bursts, case, view):
         assert set(port_view["data_plane"]["coalescer"]) \
             == set(jax_view["data_plane"]["coalescer"])
         assert port_view["data_plane"]["coalescer"]["transfers"] == 0
-        for key in ("device_seconds", "compiles", "classes"):
+        for key in STATS_KEYS:
             assert key in port_view["stats"] and key in jax_view["stats"]
+        for key in STATS_KEYS[-4:]:
+            assert port_view["stats"][key] == jax_view["stats"][key] == 0
         assert port_view["requests"]["total_requests"] == len(PROMPTS)
     if view == "xlaz":
         port_point, jax_point = (
