@@ -4494,6 +4494,893 @@ def phase_registry(torch, generate, page_pool, registry_mod, mods, cfg,
     return {"registry_small": launches}
 
 
+# -- phase 33: the fleet control plane and online auto-tuning ---------------
+PATH_KERNELS.update({"fleet": ("flash", "ragged"),
+                     "autotune_small": ("flash", "ragged")})
+# the fleet's replicas: phase 9's settings, paged, with the prefix store
+# (each admission builds the residency the router steers by)
+FLEET_ENGINE = dict(DISAGG_ENGINE, paged_kv=True, prefix_cache=True)
+# every rung of the admission ladder of 8 slots
+FLEET_COUNTS = (1, 2, 4, 8)
+# tokens a drained session asks for (33b)
+DRAIN_BUDGET = 128
+# the kernels' launch counters by the names ``read_launches`` gives them
+LAUNCH_NAMES = {"flash_attention.launches": "flash",
+                "ragged_paged_attention.launches": "ragged",
+                "ragged_paged_attention.verify_launches": "verify",
+                "ragged_paged_attention.int8_launches": "int8",
+                "ragged_paged_attention.int8_verify_launches": "int8_verify",
+                "decode_attention.launches": "flash_decode"}
+
+
+class DefaultConfig:
+    """A config that holds no key: every ``get_*`` answers its default,
+    as the app's config does with nothing set in the environment."""
+
+    def get_bool(self, key, default=False):
+        return default
+
+    def get_int(self, key, default=0):
+        return default
+
+    def get_float(self, key, default=0.0):
+        return default
+
+
+def graph_launches(graphs, runs=1):
+    """The launches ``runs`` runs of each of ``graphs`` (captured ticks,
+    prefill or export rungs) make, by kernel."""
+    out = dict.fromkeys(LAUNCH_NAMES.values(), 0)
+    for graph in graphs:
+        for key, n in graph.launches.items():
+            out[LAUNCH_NAMES[key]] += runs * n
+    return out
+
+
+def captured_graphs(engine):
+    """Every graph ``engine`` holds: ticks, prefill and export rungs."""
+    return (list(engine._graphs.values())
+            + [r for r in engine._prefills.values() if r.graph is not None]
+            + [r for r in engine._exports.values() if r.graph is not None])
+
+
+def add_launches(into, more):
+    for name, n in more.items():
+        into[name] += n
+    return into
+
+
+def served_launches(cfg, engine, before):
+    """What ``engine``'s kernels launched since ``before`` (its
+    ``run_counters``) serving: replays and the eager runs before the
+    prefill rungs and the ticks it captured lazily (a lazy tick capture's
+    eager run launches what a replay of its graph does)."""
+    after = run_counters(engine)
+    want = expected_launches(cfg, {k: after[k] - before[k] for k in after})
+    lazy = after["lazy_captures"] - before["lazy_captures"]
+    if lazy:
+        keys = set(before.get("_tick_keys", ()))
+        add_launches(want, graph_launches(
+            [g for k, g in engine._graphs.items() if k not in keys]))
+    return want
+
+
+def counters_with_keys(engine):
+    out = run_counters(engine)
+    out["_tick_keys"] = list(engine._graphs)
+    return out
+
+
+def fresh_prompts(cfg, rng, n, lo=5, hi=500):
+    """``n`` random prompts of random lengths in [lo, hi): no two share a
+    page, so none hits a prefix store."""
+    return [rng.integers(0, cfg.vocab_size, int(k)).tolist()
+            for k in rng.integers(lo, hi, n)]
+
+
+def phase_fleet(torch, generate, cluster, fleet, faults, mods, cfg, params,
+                seed, results):
+    """Phase 33 (a)-(d) at ``llama3-8b`` (after phase 32, on its weights):
+    two paged replicas with the prefix store behind a ``FleetRouter``
+    over ``InProcTransport``, each with the port's ``TimeSeriesStore``
+    (``new_timeseries``). (d) first, while every rung it serves is one
+    ``warmup()`` captured: the ``Autoscaler`` over the rollup scales up
+    under a backlog (a third replica built, warmed, registered) and down
+    when idle, draining the victim by migration; then (a) affinity, (b)
+    migration and drain, (c) resume. Returns launches by path."""
+    import numpy as np
+    from types import SimpleNamespace
+
+    from gofr_tpu_torch.hbmz import hbm_occupancy
+    from gofr_tpu_torch.metrics import Manager, register_engine_metrics
+    from gofr_tpu_torch.metrics.timeseries import new_timeseries
+
+    t_phase = time.monotonic()
+    log(f"== phase 33: the fleet at llama3-8b ({cfg.n_layers} layers): two "
+        f"paged replicas with the prefix store behind a FleetRouter")
+    metrics = register_engine_metrics(Manager(logger=StrictLog()))
+    engines = {name: generate.GenerationEngine(
+        cfg, params, model_name=name, device="cuda", **FLEET_ENGINE)
+        for name in ("d0", "d1")}
+    registry = cluster.ClusterRegistry(metrics=metrics)
+    router = fleet.FleetRouter(registry, metrics=metrics)
+    page_buckets = metrics.snapshot()["app_tpu_fleet_affinity_pages"].buckets
+
+    def series(name, **labels):
+        """A registered series now: a histogram's (count, sum, count in
+        each bucket), a counter's value."""
+        metric = metrics.snapshot()[name]
+        state = metric.series.get(tuple(sorted(labels.items())))
+        if metric.kind == "histogram":
+            state = state or dict(count=0, sum=0.0,
+                                  buckets=[0] * len(metric.buckets))
+            return state["count"], state["sum"], list(state["buckets"])
+        return state or 0.0
+
+    def migrations_since(before):
+        """The fleet's migrations since ``before`` (a ``migration_mark()``)
+        from its series: ok ones, their downtime in all (the splice gaps
+        ``app_tpu_fleet_migration_seconds`` observed) and the bytes
+        shipped."""
+        now = migration_mark()
+        return dict(ok=now[0] - before[0], failed=now[1] - before[1],
+                    downtime_s=now[2] - before[2], bytes=now[3] - before[3])
+
+    def migration_mark():
+        return (series("app_tpu_fleet_migrations_total", result="ok"),
+                series("app_tpu_fleet_migrations_total", result="failed"),
+                series("app_tpu_fleet_migration_seconds")[1],
+                series("app_tpu_kv_transfer_bytes_total"))
+
+    def requests_by_replica():
+        return {n: r.requests for n, r in registry._replicas.items()}
+    stores = {}
+    base = {}                 # each engine's counters when counting began
+    extra = dict.fromkeys(LAUNCH_NAMES.values(), 0)   # d2's warmup
+    prompts = engine_prompts(cfg, seed)
+    samplings = [generate.Sampling() for _ in range(7)] + [
+        generate.Sampling(temperature=0.8, top_p=0.95, seed=seed)]
+    mono = results["engine"]["greedy_outputs"]
+
+    def attach(name, engine):
+        """What ``App.start`` wires beside an engine: the telemetry store
+        over its default signals, as the replica's telemetry."""
+        store = new_timeseries(DefaultConfig(), tpu=engine,
+                               container=SimpleNamespace(tpu=engine),
+                               metrics=metrics)
+        engine.attach_telemetry(store, every=store.tick_sample)
+        stores[name] = store
+        registry.register(name, cluster.ROLE_BOTH,
+                          cluster.InProcTransport(engine))
+
+    async def warm_replica(engine):
+        t0 = time.monotonic()
+        await engine.warmup(prompt_counts=FLEET_COUNTS)
+        return time.monotonic() - t0
+
+    def force(names_busy, state):
+        for name in names_busy:
+            registry._set_state(registry._require(name), state)
+
+    # -- (d) the autoscaler -------------------------------------------------
+    async def autoscale():
+        log("== phase 33d: the Autoscaler over the rollup: a backlog of 24 "
+            "scales up to a third replica, idle firings scale down by "
+            "draining the victim by migration")
+        rng = np.random.default_rng(seed + 33)
+        container = SimpleNamespace(tpu=engines["d0"])
+        grown = {}
+
+        async def scale_up():
+            engine = generate.GenerationEngine(
+                cfg, params, model_name="d2", device="cuda", **FLEET_ENGINE)
+            grown["warm_s"] = await warm_replica(engine)
+            # its warmup ran each graph it captured eagerly, then once
+            add_launches(extra, graph_launches(captured_graphs(engine), 2))
+            engines["d2"] = engine
+            base["d2"] = counters_with_keys(engine)
+            attach("d2", engine)
+            await engine.start()
+
+        scaler = fleet.Autoscaler(
+            registry, scale_up=scale_up, scale_down=router.drain,
+            router=router, metrics=metrics, container=container,
+            compile_ledger=engines["d0"], cooldown_s=0.0)
+        router.autoscaler = scaler
+        events = []
+
+        async def fire():
+            for store in stores.values():
+                store.sample()
+            await router.refresh()
+            event = await scaler()
+            events.append(event)
+            return event
+
+        backlog = [asyncio.ensure_future(router.generate(p, 64))
+                   for p in fresh_prompts(cfg, rng, 24, 5, 300)]
+        while sum(e.stats()["queue_depth"] for e in engines.values()) < 8:
+            await asyncio.sleep(0.001)
+        pressure = [await fire(), await fire()]
+        await asyncio.wait_for(asyncio.gather(*backlog), 600)
+        # the next burst: the new replica takes part of it
+        requests0 = {n: r.requests for n, r in registry._replicas.items()}
+        burst = await asyncio.wait_for(asyncio.gather(*[
+            router.generate(p, 32)
+            for p in fresh_prompts(cfg, rng, 12, 5, 300)]), 600)
+        served = {n: r.requests - requests0.get(n, 0)
+                  for n, r in registry._replicas.items()}
+        # five live sessions: two on each of d0 and d1, one on d2, so the
+        # least-loaded replica the scaler drains is d2
+        session_prompts = fresh_prompts(cfg, rng, 5, 100, 400)
+        force(("d2",), "DRAINING")
+        sessions = [await router.generate_stream(p, 160)
+                    for p in session_prompts[:4]]
+        force(("d2",), "READY")
+        sessions.append(await router.generate_stream(session_prompts[4],
+                                                     160))
+        placed = [s.replica_name for s in sessions]
+        heads = [[await asyncio.wait_for(s.__anext__(), 120)
+                  for _ in range(4)] for s in sessions]
+        idle = []
+        t0 = time.monotonic()
+        for _ in range(64):
+            event = await fire()
+            idle.append(event)
+            if event["result"] != "hold":
+                break
+        drain_s = time.monotonic() - t0
+        tokens = [h + [t async for t in s] for h, s in zip(heads, sessions)]
+        moved = [s.migrations for s in sessions]
+        want = await asyncio.wait_for(asyncio.gather(*[
+            engines["d1"].generate(p, 160) for p in session_prompts]), 600)
+        return dict(
+            events=[dict(result=e["result"], victim=e.get("victim"),
+                         signals=e.get("signals")) for e in events],
+            pressure=[e["result"] for e in pressure],
+            idle=[e["result"] for e in idle], served=served,
+            burst_ok=all(len(t) == 32 for t in burst), placed=placed,
+            moved=moved, sessions_equal=tokens == want,
+            drain_s=drain_s, warm_s=grown.get("warm_s"),
+            hbm=hbm_occupancy(container), status=scaler.status(),
+            rollup=router.rollup.statusz(),
+            serving_compiles=engines["d0"].serving_compiles(120.0))
+
+    # -- (a) affinity ---------------------------------------------------------
+    async def affinity():
+        log("== phase 33a: prefix affinity: a 256-token system prompt's "
+            "wave 1, refresh, wave 2 of 8 through the router; then phase "
+            "9's cold burst")
+        rounds = [prefix_waves(cfg, seed + 330 + r) for r in range(2)]
+        out = {"rounds": []}
+        for waves in rounds:
+            # wave 1 takes the fallback pick; d1 is held out of routing
+            # meanwhile, so both rounds build residency on d0 and the
+            # measured round replays the suffix rung the first captured
+            force(("d1",), "DRAINING")
+            wave1 = await asyncio.wait_for(router.generate(waves[0][0], 32),
+                                           600)
+            force(("d1",), "READY")
+            index = await router.refresh()
+            prefix0 = {n: dict(e.stats()["prefix_cache"]
+                               ["admissions_by_rung"])
+                       for n, e in engines.items()}
+            stats0 = router.fleet_stats()["routing"]
+            requests0 = requests_by_replica()
+            pages0 = series("app_tpu_fleet_affinity_pages")
+            outs, wall, ttfts = await routed_burst(
+                router, waves[1], 32, samplings, 600)
+            pages1 = series("app_tpu_fleet_affinity_pages")
+            holders = sorted(n for n, k in requests_by_replica().items()
+                             if k > requests0.get(n, 0))
+            holder = holders[0]
+            prefix1 = dict(engines[holder].stats()["prefix_cache"]
+                           ["admissions_by_rung"])
+            stats1 = router.fleet_stats()["routing"]
+            out["rounds"].append(dict(
+                wave1=len(wave1), index=index,
+                # the affinity depths observed: routes, pages in all, and
+                # routes by histogram bucket
+                pages=(pages1[0] - pages0[0], pages1[1] - pages0[1],
+                       [b - a for a, b in zip(pages0[2], pages1[2])]),
+                holders=holders,
+                affinity=stats1["affinity"] - stats0["affinity"],
+                fallback=stats1["fallback"] - stats0["fallback"],
+                admissions_by_rung={
+                    r: n - prefix0[holder].get(r, 0)
+                    for r, n in prefix1.items()
+                    if n > prefix0[holder].get(r, 0)},
+                outs=outs, ttfts=ttfts, wall=wall, holder=holder))
+        last = out["rounds"][-1]
+        cold = next(n for n in ("d0", "d1") if n != last["holder"])
+        # the same wave 2 straight to the replica without the prefix: a
+        # single paged engine with the store on, full prefills
+        outs, wall, ttfts = await routed_burst(
+            engines[cold], rounds[-1][1], 32, samplings, 600)
+        out["cold"] = dict(replica=cold, outs=outs, ttfts=ttfts, wall=wall)
+        # phase 9's cold burst: every request a fallback, split by least
+        # in-flight
+        stats0 = router.fleet_stats()["routing"]
+        requests0 = {n: registry._replicas[n].requests for n in engines
+                     if registry._replicas[n].state == "READY"}
+        outs, wall, ttfts = await routed_burst(router, prompts, 32,
+                                               samplings, 600)
+        stats1 = router.fleet_stats()["routing"]
+        out["burst"] = dict(
+            outs=outs, wall=wall, ttfts=ttfts,
+            affinity=stats1["affinity"] - stats0["affinity"],
+            fallback=stats1["fallback"] - stats0["fallback"],
+            split={n: registry._replicas[n].requests - k
+                   for n, k in requests0.items()})
+        return out
+
+    # -- (b) migration and drain ---------------------------------------------
+    async def migration():
+        log("== phase 33b: migrate_session after 8 of 32 tokens on a "
+            "300-token prompt, greedy and sampled; then router.drain(d0) "
+            "with 4 live sessions")
+        out = {"migrate": []}
+        sampled = generate.Sampling(temperature=0.8, top_p=0.95, seed=seed)
+        want_sampled = await engines["d1"].generate(prompts[5], 32,
+                                                    sampling=sampled)
+        for name, sampling, want in (
+                ("greedy", None, mono[5]),
+                ("sampled", generate.Sampling(temperature=0.8, top_p=0.95,
+                                              seed=seed), want_sampled)):
+            session = await router.generate_stream(prompts[5], 32,
+                                                   sampling=sampling)
+            got = [await asyncio.wait_for(session.__anext__(), 120)
+                   for _ in range(8)]
+            source = session.replica_name
+            target_name = next(n for n in ("d0", "d1") if n != source)
+            inflight = engines[source]._ticks_inflight
+            prefill0 = engines[target_name].stats()["prefill_bucket_tokens"]
+            mark = migration_mark()
+            t0 = time.perf_counter()
+            target = await router.migrate_session(session)
+            call_s = time.perf_counter() - t0
+            got += [t async for t in session]
+            out["migrate"].append(dict(
+                name=name, equal=got == want, source=source, target=target,
+                ticks_inflight=inflight, call_s=call_s,
+                noted=migrations_since(mark),
+                prefill_moved=engines[target].stats()
+                ["prefill_bucket_tokens"] - prefill0))
+        # drain: 4 live sessions on d0 (d1 held out of routing while they
+        # are admitted), then router.drain("d0"); a budget long enough
+        # that each is still decoding when its turn to migrate comes
+        refs = await asyncio.wait_for(asyncio.gather(*[
+            engines["d0"].generate(p, DRAIN_BUDGET) for p in prompts[:4]]),
+            600)
+        pool = engines["d0"]._pool
+        baseline = pool.free_pages
+        force(("d1",), "DRAINING")
+        sessions = [await router.generate_stream(p, DRAIN_BUDGET)
+                    for p in prompts[:4]]
+        force(("d1",), "READY")
+        heads = [[await asyncio.wait_for(s.__anext__(), 120)
+                  for _ in range(2)] for s in sessions]
+        placed = [s.replica_name for s in sessions]
+        mark = migration_mark()
+        t0 = time.monotonic()
+        drained = await router.drain("d0")
+        drain_s = time.monotonic() - t0
+        tokens = [h + [t async for t in s] for h, s in zip(heads, sessions)]
+        rest_s = time.monotonic() - t0 - drain_s
+        for _ in range(200):
+            if pool.free_pages == baseline:
+                break
+            await asyncio.sleep(0.01)
+        registry.resume("d0")
+        out["drain"] = dict(
+            drained=drained, placed=placed,
+            finished_on=[s.replica_name for s in sessions],
+            equal=tokens == refs,
+            greedy_is_phase9=[r[:32] for r in refs] == mono[:4],
+            free_pages=pool.free_pages, baseline=baseline,
+            drain_s=drain_s, rest_s=rest_s,
+            migrations=migrations_since(mark))
+        return out
+
+    # -- (c) resume -------------------------------------------------------------
+    async def resume():
+        log("== phase 33c: crash_mid_decode:@5 and crash_mid_migration:@1, "
+            "each healed by a resume on the peer")
+        out = []
+        for site in ("crash_mid_decode:@5", "crash_mid_migration:@1"):
+            prompt = prompts[5]
+            resumes0 = router.fleet_stats()["resumes"]["ok"]
+            session = await router.generate_stream(prompt, 32)
+            got = []
+            if site.startswith("crash_mid_decode"):
+                faults.install(faults.FaultPlan(site))
+            else:
+                got = [await asyncio.wait_for(session.__anext__(), 120)
+                       for _ in range(4)]
+                faults.install(faults.FaultPlan(site))
+                try:
+                    await router.migrate_session(session)
+                except faults.FaultError:
+                    pass
+                else:
+                    raise AssertionError("phase 33c: crash_mid_migration "
+                                         "did not fire")
+            source = session.replica_name
+            emitted_at_crash = []
+
+            resume = router._resume_session
+
+            async def watched(sess, exc, _resume=resume):
+                emitted_at_crash.append(list(sess._emitted))
+                return await _resume(sess, exc)
+            router._resume_session = watched
+            try:
+                got += [t async for t in session]
+            finally:
+                router._resume_session = resume
+                faults.reset()
+            emitted = emitted_at_crash[0]
+            peer = engines[session.replica_name]
+            fresh = await peer.generate(prompt + emitted, 32 - len(emitted))
+            cont = got[len(emitted):]
+            out.append(dict(
+                site=site, length=len(got), source=source,
+                peer=session.replica_name, emitted=len(emitted),
+                head_equal=got[:len(emitted)] == mono[5][:len(emitted)],
+                continuation_fresh=cont == fresh,
+                continuation_same_as_uninterrupted=sum(
+                    a == b for a, b in zip(cont, mono[5][len(emitted):])),
+                resumes=router.fleet_stats()["resumes"]["ok"] - resumes0))
+        return out
+
+    async def main():
+        out = {}
+        warm = {}
+        for name, engine in engines.items():
+            for mod in mods:
+                mod.reset_launches()
+            warm[name] = await warm_replica(engine)
+            out.setdefault("warmup_formula", []).append(
+                (read_launches(mods),
+                 graph_launches(captured_graphs(engine), 2)))
+        for name, engine in engines.items():
+            attach(name, engine)
+            await engine.start()
+        try:
+            out["hbm_start"] = hbm_occupancy(SimpleNamespace(
+                tpu=engines["d0"]))
+            for mod in mods:
+                mod.reset_launches()
+            for name, engine in engines.items():
+                base[name] = counters_with_keys(engine)
+            t0 = time.monotonic()
+            out["d"] = await autoscale()
+            out["d_s"] = time.monotonic() - t0
+            await engines["d2"].stop()
+            t0 = time.monotonic()
+            out["a"] = await affinity()
+            out["a_s"] = time.monotonic() - t0
+            t0 = time.monotonic()
+            out["b"] = await migration()
+            out["b_s"] = time.monotonic() - t0
+            t0 = time.monotonic()
+            out["c"] = await resume()
+            out["c_s"] = time.monotonic() - t0
+            torch.cuda.synchronize()
+            out["launches"] = read_launches(mods)
+            want = dict(extra)
+            for name, engine in engines.items():
+                add_launches(want, served_launches(cfg, engine, base[name]))
+            out["want"] = want
+            out["lazy"] = {n: e.stats()["graphs"]["lazy_captures"]
+                           - base[n]["lazy_captures"]
+                           for n, e in engines.items()}
+            out["prefill_lazy"] = {
+                n: e.stats()["graphs"]["prefill"]["lazy_captures"]
+                - base[n]["prefill_lazy"] for n, e in engines.items()}
+            out["stats"] = router.fleet_stats()
+            out["warm_s"] = warm
+        finally:
+            for engine in engines.values():
+                await engine.stop()
+        return out
+
+    out = asyncio.run(main())
+    for measured, formula in out["warmup_formula"]:
+        if measured != formula:
+            raise AssertionError(f"phase 33: a warmup launched {measured}, "
+                                 f"its graphs account for {formula}")
+    d, a, b, c = out["d"], out["a"], out["b"], out["c"]
+    sources = sorted({(e["signals"] or {}).get("source")
+                      for e in d["events"]} - {None})
+    log(f"33d: events {[(e['result'], e['victim']) for e in d['events']]}; "
+        f"signal sources {sources}; "
+        f"pressure firings {d['pressure']}, idle firings {d['idle']}; "
+        f"d2 warmed in {d['warm_s']:.2f}s; next burst by replica "
+        f"{d['served']}; sessions placed {d['placed']}, migrations "
+        f"{d['moved']}, equal to their streams alone {d['sessions_equal']}; "
+        f"drain firings {d['drain_s']:.3f}s; HBM occupancy at start "
+        f"{out['hbm_start']:.4f}, after {d['hbm']:.4f}; d0 serving compiles "
+        f"{d['serving_compiles']}; rollup {d['rollup']['signals']}")
+    results_d = [e["result"] for e in d["events"]]
+    if results_d.count("up") != 1 or results_d.count("down") != 1 \
+            or results_d.index("up") > results_d.index("down") \
+            or set(results_d) - {"hold", "up", "down"}:
+        raise AssertionError(f"phase 33d: autoscaler events {results_d}: "
+                             f"expected holds, one up, then one down")
+    victim = next(e["victim"] for e in d["events"] if e["result"] == "down")
+    if victim != "d2" or sorted(d["moved"]) != [0, 0, 0, 0, 1] \
+            or not d["sessions_equal"] or not d["served"].get("d2") \
+            or not d["burst_ok"]:
+        raise AssertionError(f"phase 33d: victim {victim}, migrations "
+                             f"{d['moved']}, sessions equal "
+                             f"{d['sessions_equal']}, d2 served "
+                             f"{d['served']}")
+    if d["hbm"] is None or d["hbm"] >= 0.85:
+        raise AssertionError(f"phase 33d: HBM occupancy {d['hbm']}")
+    for r, rnd in enumerate(a["rounds"]):
+        log(f"33a round {r}: wave 2 routed to {rnd['holders']}; affinity "
+            f"pages (routes, pages, by bucket {page_buckets}) "
+            f"{rnd['pages']}; affinity {rnd['affinity']}, fallback "
+            f"{rnd['fallback']}; holder admissions by prefix rung "
+            f"{rnd['admissions_by_rung']}; TTFT p50 "
+            f"{rnd['ttfts'][len(rnd['ttfts']) // 2]:.4f}s")
+    last = a["rounds"][-1]
+    cold = a["cold"]
+    log(f"33a: wave 2 through affinity: TTFT p50 "
+        f"{last['ttfts'][4]:.4f}s max {last['ttfts'][-1]:.4f}s, "
+        f"{last['wall']:.3f}s; the same wave straight to the cold replica "
+        f"{cold['replica']}: TTFT p50 {cold['ttfts'][4]:.4f}s max "
+        f"{cold['ttfts'][-1]:.4f}s, {cold['wall']:.3f}s; greedy tokens "
+        f"equal {last['outs'][:7] == cold['outs'][:7]}, sampled "
+        f"{last['outs'][7] == cold['outs'][7]}")
+    burst = a["burst"]
+    log(f"33a: phase 9's cold burst: affinity {burst['affinity']}, fallback "
+        f"{burst['fallback']}, split {burst['split']}; greedy tokens phase "
+        f"9's {burst['outs'][:7] == mono}; {256 / burst['wall']:.1f} tok/s, "
+        f"TTFT p50 {burst['ttfts'][4]:.4f}s")
+    # 8 routes of 64 pages in all, each in the bucket (4, 8]: each at the
+    # system prompt's 8 pages
+    pages8 = (8, 64.0, [8 if b == 8 else 0 for b in page_buckets])
+    for rnd in a["rounds"]:
+        if rnd["affinity"] != 8 or rnd["fallback"] != 0 \
+                or len(rnd["holders"]) != 1 or rnd["pages"] != pages8 \
+                or rnd["admissions_by_rung"] != {PREFIX_RUNG: 8}:
+            raise AssertionError(f"phase 33a: wave 2 must take 8 affinity "
+                                 f"routes to one holder at 8 pages: {rnd}")
+    if last["outs"][:7] != cold["outs"][:7]:
+        raise AssertionError("phase 33a: wave 2's greedy tokens through "
+                             "affinity differ from a single paged engine's "
+                             "with the store on")
+    if burst["affinity"] or burst["fallback"] != 8 \
+            or sorted(burst["split"].values()) != [4, 4] \
+            or burst["outs"][:7] != mono:
+        raise AssertionError(f"phase 33a: the cold burst: {burst['split']}, "
+                             f"affinity {burst['affinity']}")
+    for m in b["migrate"]:
+        log(f"33b {m['name']}: {m['source']} -> {m['target']} with "
+            f"{m['ticks_inflight']} ticks in flight; stream equal "
+            f"{m['equal']}; {m['noted']['bytes']:.0f} bytes, downtime "
+            f"{m['noted']['downtime_s'] * 1e3:.2f} ms (call "
+            f"{m['call_s'] * 1e3:.2f} ms); "
+            f"target prefill_bucket_tokens moved {m['prefill_moved']}")
+        if not m["equal"] or m["prefill_moved"] or m["ticks_inflight"] < 1 \
+                or m["noted"]["ok"] != 1 or m["noted"]["failed"]:
+            raise AssertionError(f"phase 33b: migration {m}")
+    dr = b["drain"]
+    log(f"33b drain: sessions on {dr['placed']} finished on "
+        f"{dr['finished_on']}, drained {dr['drained']} in "
+        f"{dr['drain_s']:.3f}s, the rest of their decode "
+        f"{dr['rest_s']:.3f}s; migrations {dr['migrations']['ok']} ok, "
+        f"{dr['migrations']['failed']} failed, downtime "
+        f"{dr['migrations']['downtime_s']:.4f}s and "
+        f"{dr['migrations']['bytes']:.0f} bytes in all; tokens equal "
+        f"{dr['equal']} (phase 9's {dr['greedy_is_phase9']}); d0 free pages "
+        f"{dr['free_pages']} (baseline {dr['baseline']})")
+    if not dr["drained"] or dr["placed"] != ["d0"] * 4 \
+            or dr["finished_on"] != ["d1"] * 4 or not dr["equal"] \
+            or dr["free_pages"] != dr["baseline"] \
+            or dr["migrations"]["ok"] != 4 or dr["migrations"]["failed"]:
+        raise AssertionError(f"phase 33b: drain {dr}")
+    for r in c:
+        log(f"33c {r['site']}: {r['source']} -> {r['peer']}, {r['length']} "
+            f"tokens, {r['emitted']} delivered before the crash (equal to "
+            f"the uninterrupted stream's: {r['head_equal']}); continuation "
+            f"= a fresh request of prompt + emitted: "
+            f"{r['continuation_fresh']}; continuation tokens equal to the "
+            f"uninterrupted run's: {r['continuation_same_as_uninterrupted']}"
+            f" of {32 - r['emitted']}; resumes {r['resumes']}")
+        if r["length"] != 32 or not r["head_equal"] \
+                or not r["continuation_fresh"] or r["resumes"] != 1 \
+                or r["peer"] == r["source"]:
+            raise AssertionError(f"phase 33c: resume {r}")
+    log(f"33: lazy tick captures {out['lazy']}, lazy prefill captures "
+        f"{out['prefill_lazy']}; fleet {out['stats']['routing']}, "
+        f"{out['stats']['migrations']}, {out['stats']['resumes']}; "
+        f"(d) {out['d_s']:.1f}s, (a) {out['a_s']:.1f}s, (b) "
+        f"{out['b_s']:.1f}s, (c) {out['c_s']:.1f}s; launches "
+        f"{out['launches']}")
+    if any(out["lazy"].values()):
+        raise AssertionError(f"phase 33: lazy tick captures {out['lazy']}")
+    check_launches(out["launches"], out["want"], "fleet")
+    results["fleet"] = dict(
+        autoscale={k: v for k, v in d.items() if k != "status"},
+        affinity=dict(rounds=[{k: v for k, v in r.items() if k != "outs"}
+                              for r in a["rounds"]],
+                      cold={k: v for k, v in cold.items() if k != "outs"},
+                      burst={k: v for k, v in burst.items()
+                             if k != "outs"}),
+        migration=b["migrate"],
+        drain={k: v for k, v in dr.items()}, resume=c,
+        stats=out["stats"], launches=out["launches"],
+        lazy_prefill=out["prefill_lazy"], warm_s=out["warm_s"],
+        seconds=dict(d=out["d_s"], a=out["a_s"], b=out["b_s"],
+                     c=out["c_s"]))
+    results["phase33_fleet_s"] = time.monotonic() - t_phase
+    log(f"phase 33 (a-d): {results['phase33_fleet_s']:.1f}s")
+    del engines, router, registry
+    torch.cuda.empty_cache()
+    return {"fleet": out["launches"]}
+
+
+# the tuner's engine: the example app's dense engine, detuned: one bucket
+# and one step a tick
+TUNE_ENGINE = dict(SMALL_ENGINE, prompt_buckets=(512,), steps_per_tick=1)
+TUNE_LENS = (3, 5, 8, 12, 17, 21, 26, 30, 33, 36, 38, 40)
+# new tokens a request of the staging-depth bursts
+STAGING_BUDGET = 256
+# reserved bytes a firing may leave beyond the live engine's prewarmed
+# graphs: the caching allocator's segment rounding (its large segments are
+# 20 MiB)
+CLONE_BYTES_NOISE = 64 << 20
+
+
+def phase_autotune(torch, generate, autotune, faults, mods, cfg, params,
+                   seed, results):
+    """Phase 33e (after phase 32d, on phase 20's ``small`` weights): the
+    ``AutoTuner`` over the example's dense engine at a detuned point
+    (buckets (512,), k 1), with a ``TrafficRecorder`` and real shadow
+    replay, as ``scripts/autotune_smoke.py`` drives it: applied, firings
+    until a rejection, served again with no serving compile, a forced
+    worst pick rolled back; the same score twice; a burst during a
+    scoring pass equals the burst without; the clones' bytes released;
+    tok/s at staging depth 1 against the live depth, in turns. Returns
+    launches by path."""
+    import numpy as np
+
+    from gofr_tpu_torch.tpu.workload import TrafficRecorder
+
+    t_phase = time.monotonic()
+    log("== phase 33e: the AutoTuner on small at the example's dense "
+        "engine, detuned to buckets (512,) and k 1, scored by shadow "
+        "replay")
+    rng = np.random.default_rng(seed + 34)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in TUNE_LENS]
+    engine = generate.GenerationEngine(cfg, params, device="cuda",
+                                       model_name="small", **TUNE_ENGINE)
+    recorder = TrafficRecorder(capacity=128)
+    engine.attach_workload(recorder)
+    clones = []               # (counters, lazily captured tick graphs)
+    shadow_clone = engine.shadow_clone
+
+    def counted_clone(point=None):
+        clone = shadow_clone(point)
+        stop = clone.stop
+
+        async def stopped():
+            await stop()
+            clones.append((run_counters(clone),
+                           graph_launches(clone._graphs.values())))
+        clone.stop = stopped
+        return clone
+    engine.shadow_clone = counted_clone
+    prewarms = []             # (graphs captured, their launches, bytes)
+    prewarm = engine.prewarm_operating_point
+
+    async def settled_bytes():
+        # a stopped clone is freed once the loop has run its pending
+        # callbacks
+        await asyncio.sleep(0.05)
+        return reserved_bytes(torch)
+
+    async def counted_prewarm(point):
+        keys = set(engine._graphs) | {k for k, r in engine._prefills.items()
+                                      if r.graph is not None}
+        before = await settled_bytes()
+        warm = await prewarm(point)
+        new = [g for k, g in engine._graphs.items() if k not in keys] + [
+            r for k, r in engine._prefills.items()
+            if r.graph is not None and k not in keys]
+        prewarms.append((len(new), graph_launches(new, 2),
+                         await settled_bytes() - before))
+        return warm
+    engine.prewarm_operating_point = counted_prewarm
+
+    async def serve(budget=3):
+        return await asyncio.wait_for(asyncio.gather(*[
+            engine.generate(p, budget, eos_id=None) for p in prompts]), 600)
+
+    async def main():
+        out = {}
+        await engine.warmup(prompt_counts=(1, 2, 4, 8))
+        await engine.start()
+        try:
+            for mod in mods:
+                mod.reset_launches()
+            before = counters_with_keys(engine)
+            await serve()
+            out["compiles"] = [engine.serving_compiles(3600.0)]
+            out["seed_point"] = engine.operating_point()
+            goodput = {"value": 100.0}
+            tuner = autotune.AutoTuner(
+                engine, workload=recorder, improve_after=1, cooldown_s=0.0,
+                probation_ticks=1, min_trace_events=8,
+                goodput_fn=lambda: goodput["value"])
+            passes = []
+            score_point = tuner._score_point
+
+            async def timed(point, trace):
+                t0 = time.monotonic()
+                score = await score_point(point, trace)
+                passes.append(time.monotonic() - t0)
+                return score
+            tuner._score_point = timed
+            torch.cuda.reset_peak_memory_stats()
+            out["bytes_before"] = await settled_bytes()
+            after_firing = []        # (reserved bytes, of them prewarms')
+            steps = []
+            for n in range(9):
+                t0 = time.monotonic()
+                event = await tuner()
+                steps.append(dict(result=event["result"],
+                                  score=event.get("score"),
+                                  baseline=event.get("baseline"),
+                                  point=event.get("point"),
+                                  seconds=time.monotonic() - t0))
+                after_firing.append((await settled_bytes(),
+                                     sum(p[2] for p in prewarms)))
+                if n == 0:
+                    out["applied"] = engine.operating_point()
+                elif event["result"] not in ("applied", "probation"):
+                    break
+            out["probation"] = tuner.status()["probation"]
+            await serve()
+            out["compiles"].append(engine.serving_compiles(3600.0))
+            out["tuned"] = engine.operating_point()
+            faults.install(faults.FaultPlan(autotune.FAULT_SITE_SELECT))
+            try:
+                event = await tuner()
+            finally:
+                faults.install(None)
+            steps.append(dict(result=event["result"],
+                              forced=event.get("forced"),
+                              point=event.get("point")))
+            goodput["value"] = 5.0
+            event = await tuner()
+            steps.append(dict(result=event["result"],
+                              point=event.get("point")))
+            after_firing.append((await settled_bytes(),
+                                 sum(p[2] for p in prewarms)))
+            out["restored"] = engine.operating_point()
+            out["compiles"].append(engine.serving_compiles(3600.0))
+            out["steps"], out["passes"] = steps, passes
+            out["bytes_after"] = after_firing
+            out["bytes_peak"] = torch.cuda.max_memory_reserved()
+            out["rollbacks"] = tuner.status()["rollbacks"]
+            # the same (point, trace) scored twice, the second time with
+            # a greedy burst on the live engine meanwhile
+            trace = tuner._load_trace()
+            point = autotune.OperatingPoint.from_engine(engine)
+            alone = await serve(32)
+            one = await tuner._score_point(point, trace)
+            two, during = await asyncio.gather(
+                tuner._score_point(point, trace), serve(32))
+            out["scores"] = (one, two)
+            out["during_equal"] = during == alone
+            # staging depth 1 against the live depth, in turns, each a
+            # burst of STAGING_BUDGET tokens a request; the pinned slabs
+            # after each (a lowered depth shrinks the rings it uploads
+            # through)
+            live = engine.operating_point()["staging_depth"]
+            tok_s = {live: [], 1: []}
+            slabs = {live: [], 1: []}
+            for depth in (live, 1, 1, live, live, 1):
+                engine.apply_operating_point(
+                    autotune.OperatingPoint(staging_depth=depth),
+                    source="autotune")
+                t0 = time.monotonic()
+                await serve(STAGING_BUDGET)
+                tok_s[depth].append(STAGING_BUDGET * len(prompts)
+                                    / (time.monotonic() - t0))
+                slabs[depth].append(engine._staging.stats()["slab_bytes"])
+            out["staging_tok_s"], out["staging_slab_bytes"] = tok_s, slabs
+            out["compiles"].append(engine.serving_compiles(3600.0))
+            torch.cuda.synchronize()
+            out["launches"] = read_launches(mods)
+            out["prewarms"] = [(n, nbytes) for n, _, nbytes in prewarms]
+            out["clones"] = len(clones)
+            want = served_launches(cfg, engine, before)
+            for counters, lazy in clones:
+                add_launches(want, expected_launches(cfg, counters))
+                add_launches(want, lazy)
+            for _, launches, _ in prewarms:
+                add_launches(want, launches)
+            out["want"] = want
+            out["lazy"] = engine.lazy_captures
+        finally:
+            await engine.stop()
+        return out
+
+    out = asyncio.run(main())
+    steps = out["steps"]
+    log(f"33e: firings {[s['result'] for s in steps]}; applied "
+        f"{out['applied']['prompt_buckets']} k "
+        f"{out['applied']['steps_per_tick']} (score {steps[0]['score']:.4f} "
+        f"against {steps[0]['baseline']:.4f}); tuned "
+        f"{out['tuned']['prompt_buckets']} k {out['tuned']['steps_per_tick']}"
+        f"; restored {out['restored']['prompt_buckets']} k "
+        f"{out['restored']['steps_per_tick']} source "
+        f"{out['restored']['source']}; serving compiles {out['compiles']}")
+    passes = out["passes"]
+    log(f"33e: {len(passes)} scoring passes, {sum(passes) / len(passes):.3f}"
+        f" s each (min {min(passes):.3f}, max {max(passes):.3f}); firings "
+        f"{[round(s.get('seconds', 0), 2) for s in steps]} s; reserved "
+        f"bytes before {out['bytes_before']}, after each firing (of them "
+        f"the live engine's prewarmed graphs) {out['bytes_after']}, peak "
+        f"{out['bytes_peak']}; prewarms (graphs, bytes) {out['prewarms']}")
+    # what the clones left: the bytes after each firing beyond the live
+    # engine's own prewarmed graphs
+    left = [nbytes - warm - out["bytes_before"]
+            for nbytes, warm in out["bytes_after"]]
+    log(f"33e: the same score twice {out['scores'][0] == out['scores'][1]} "
+        f"({out['scores'][0]!r}); burst during a scoring pass equal "
+        f"{out['during_equal']}; tok/s at staging depth "
+        f"{out['staging_tok_s']} ({len(prompts)} x {STAGING_BUDGET} tokens "
+        f"a burst), pinned slab bytes after each {out['staging_slab_bytes']}"
+        f"; {out['clones']} shadow clones, bytes left after each firing "
+        f"{left}")
+    results_e = [s["result"] for s in steps]
+    if results_e[0] != "applied" or results_e[-1] != "rolled_back" \
+            or results_e[-3] not in ("rejected", "hold") \
+            or not steps[-2].get("forced") \
+            or steps[0]["score"] <= steps[0]["baseline"] \
+            or out["applied"]["source"] != "autotune" \
+            or out["applied"]["generation"] != 1 \
+            or max(out["applied"]["prompt_buckets"]) >= 512:
+        raise AssertionError(f"phase 33e: tuner firings {steps}")
+    if out["restored"]["source"] != "rollback" \
+            or out["restored"]["prompt_buckets"] \
+            != out["tuned"]["prompt_buckets"] or out["rollbacks"] != 1:
+        raise AssertionError(f"phase 33e: rollback restored "
+                             f"{out['restored']}, tuned {out['tuned']}")
+    if any(out["compiles"]) or out["lazy"]:
+        raise AssertionError(f"phase 33e: serving compiles "
+                             f"{out['compiles']}, lazy tick captures "
+                             f"{out['lazy']}")
+    if out["scores"][0] != out["scores"][1] or not out["during_equal"]:
+        raise AssertionError("phase 33e: scoring is not deterministic or "
+                             "a burst during it changed")
+    slabs = out["staging_slab_bytes"]
+    live = max(slabs)
+    # the first burst at depth 1 came right after the first at the live
+    # depth: the rings it uploaded through gave up their surplus slabs
+    if slabs[1][0] >= slabs[live][0]:
+        raise AssertionError(f"phase 33e: staging depth 1 left the pinned "
+                             f"slabs of depth {live}: {slabs}")
+    if max(left) > CLONE_BYTES_NOISE:
+        raise AssertionError(f"phase 33e: the shadow clones left {left} "
+                             f"reserved bytes after the firings")
+    check_launches(out["launches"], out["want"], "autotune_small")
+    results["autotune_small"] = {k: v for k, v in out.items()
+                                 if k not in ("want",)}
+    results["phase33e_s"] = time.monotonic() - t_phase
+    log(f"phase 33e: {results['phase33e_s']:.1f}s")
+    del engine
+    torch.cuda.empty_cache()
+    return {"autotune_small": out["launches"]}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for value in tree.values():
@@ -4525,8 +5412,9 @@ def main() -> int:
     from gofr_tpu_torch.ops.cuda import flash_attention as flash_mod
     from gofr_tpu_torch.ops.cuda import ragged_paged_attention as ragged_mod
     from gofr_tpu_torch import slo
-    from gofr_tpu_torch.tpu import (cluster, constrain, faults, generate,
-                                    kv_wire, page_pool, registry, sched)
+    from gofr_tpu_torch.tpu import (autotune, cluster, constrain, faults,
+                                    fleet, generate, kv_wire, page_pool,
+                                    registry, sched)
 
     results = {}
     log("== phase 1: card")
@@ -4605,6 +5493,10 @@ def main() -> int:
     by_path_d64.update(phase_registry(torch, generate, page_pool, registry,
                                       mods, small_cfg, small_params,
                                       args.seed, results))
+    # this slice: the operating-point auto-tuner (phase 33e)
+    by_path_d64.update(phase_autotune(torch, generate, autotune, faults,
+                                      mods, small_cfg, small_params,
+                                      args.seed, results))
     del small_params
     torch.cuda.empty_cache()
     # this slice: the example's own model (``small`` over its byte-level
@@ -4668,6 +5560,9 @@ def main() -> int:
     # this slice: disaggregated serving (phase 32 a-c)
     by_path.update(phase_disagg(torch, generate, cluster, kv_wire, faults,
                                 mods, cfg, params, args.seed, results))
+    # this slice: the fleet control plane (phase 33 a-d)
+    by_path.update(phase_fleet(torch, generate, cluster, fleet, faults, mods,
+                               cfg, params, args.seed, results))
     # launches on the main paths: each run counted from 0, llama3-8b's
     # (head_dim 128) and the small preset's (head_dim 64) apart
     counts = {name: sum(run[name] for run in by_path.values())

@@ -5,7 +5,8 @@ histogram buckets the app's catalog registers them under
 the slice of that catalog the engine, its page pool, the SLO tracker,
 the watchdog, the brownout ladder, the fault plane, the telemetry store,
 the error-budget plane, the traffic recorder, the background-task
-spawner, the model registry and the disaggregated cluster write, so a
+spawner, the model registry, the disaggregated cluster, the fleet
+router and autoscaler and the operating-point auto-tuner write, so a
 :class:`~gofr_tpu_torch.metrics.manager.Manager` of the port's own can
 take every call they make.
 """
@@ -134,6 +135,41 @@ ENGINE_METRICS: Tuple[Tuple[str, str, Optional[tuple], str], ...] = (
     ("app_tpu_adopt_dedup_total", "counter", None,
      "replayed KV adoptions answered from the dedupe ledger, "
      "per model — a retry/hedge landed twice and was deduped"),
+    # the fleet control plane and the operating-point auto-tuner
+    ("app_tpu_fleet_route_total", "counter", None,
+     "decode routing decisions by result (affinity = longest "
+     "resident prefix won, fallback = least-inflight pick)"),
+    ("app_tpu_fleet_affinity_pages", "histogram",
+     (1, 2, 4, 8, 16, 32, 64),
+     "resident-prefix depth (pages) of each affinity-routed "
+     "request — how much prefill the fleet index saved"),
+    ("app_tpu_fleet_migrations_total", "counter", None,
+     "live decode→decode session migrations by result (ok|error)"),
+    ("app_tpu_fleet_migration_seconds", "histogram",
+     (0.001, 0.003, 0.01, 0.03, 0.1, 0.3, 1, 3, 10),
+     "migration downtime: source export start → target adopt done "
+     "(the client stream's splice gap)"),
+    ("app_tpu_fleet_autoscale_total", "counter", None,
+     "autoscaler decisions by result (up|down|hold|cooldown|"
+     "compile_guard|overlap)"),
+    ("app_tpu_fleet_decode_replicas", "gauge", None,
+     "READY decode-serving replicas the autoscaler last observed"),
+    ("app_tpu_fleet_resume_total", "counter", None,
+     "mid-stream decode resumes by result (ok|no_ctx|budget|"
+     "exhausted|no_replica|error) — ok means the stream was "
+     "rebuilt from prompt + emitted tokens on a live replica"),
+    ("app_tpu_autotune_total", "counter", None,
+     "auto-tuner decisions by result (applied|rejected|"
+     "rolled_back|hold|proposed|probation|no_trace|cooldown|"
+     "compile_guard|overlap|refused_brownout|refused_fast_burn|"
+     "rollback_blocked|probation_ok)"),
+    ("app_tpu_autotune_score", "gauge", None,
+     "shadow-replay score of the last APPLIED operating point "
+     "(deterministic goodput-per-cost proxy over the recorded "
+     "trace)"),
+    ("app_tpu_autotune_generation", "gauge", None,
+     "operating-point generation counter on the engine — bumps "
+     "on every guarded apply, including rollbacks"),
 )
 
 

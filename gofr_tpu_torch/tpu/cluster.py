@@ -1,7 +1,7 @@
 """Disaggregated serving cluster: replica roles, routing, KV handoff (a
 copy of ``gofr_tpu/tpu/cluster.py`` over the port's engines, with its
 in-process transport; the HTTP transport and its gRPC chunk fetch are
-not ported yet).
+not ported yet; ``tpu/fleet`` builds the fleet router on it).
 
 Prefill is compute-bound (one big prompt forward),
 decode is memory-bound (thousands of small batched steps); a monolithic

@@ -201,8 +201,10 @@ or a paged pool (``paged_kv=True``).
   resumes it elsewhere. A replayed adopt id returns the first stream
   (the dedupe ledger). ``tpu/cluster`` routes between replicas.
 
-Left for later slices (see ROADMAP.md): the fleet, auto-tuning, mesh
-sharding.
+``tpu/fleet`` routes by prefix affinity, migrates, drains and resumes
+sessions across engines; ``tpu/autotune`` moves the operating point.
+
+Left for later slices (see ROADMAP.md): the batch lane, mesh sharding.
 """
 
 from __future__ import annotations
@@ -674,30 +676,48 @@ class _Prefill:
         self.replays = 0
 
 
-# graph captures in progress (any engine, any thread) and the collector's
-# state before the first of them
-_CAPTURES = {"open": 0, "gc_was_enabled": False}
-_CAPTURES_LOCK = threading.Lock()
+# the process's one capture turn (any engine, any thread: one at a time),
+# and whether a capture is open: set while the turn holds the cyclic
+# collector off, a window inside the one the turn's lock is held
+_CAPTURE_TURN = threading.Lock()
+_CAPTURES = {"open": 0}
+# the side stream every capture runs on, by device index
+_SIDE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+
+
+def _side_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The one stream the captures on ``device`` run their eager run and
+    their capture on (taken in the capture turn)."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    stream = _SIDE_STREAMS.get(index)
+    if stream is None:
+        stream = _SIDE_STREAMS[index] = torch.cuda.Stream(index)
+    return stream
 
 
 @contextlib.contextmanager
 def _no_collection():
-    """Keep Python's cyclic collector off while any graph capture is open.
-    A paged engine and its pool reference each other, so a dropped
+    """Hold the process's one capture turn, with Python's cyclic collector
+    off.
+
+    ``torch.cuda.graph`` synchronizes the device as it begins a capture,
+    and a device sync while another thread's stream captures fails
+    (``cudaErrorStreamCaptureUnsupported``): engines that capture at once
+    (a fleet's replicas, a shadow clone scoring beside its source) take
+    turns. A paged engine and its pool reference each other, so a dropped
     engine is freed by the collector, whenever it runs: run inside a
     capture, on the capturing thread, it would destroy that engine's
     graphs mid-capture, which invalidates the capture."""
-    with _CAPTURES_LOCK:
-        if not _CAPTURES["open"]:
-            _CAPTURES["gc_was_enabled"] = gc.isenabled()
-            gc.disable()
-        _CAPTURES["open"] += 1
-    try:
-        yield
-    finally:
-        with _CAPTURES_LOCK:
-            _CAPTURES["open"] -= 1
-            if not _CAPTURES["open"] and _CAPTURES["gc_was_enabled"]:
+    with _CAPTURE_TURN:
+        enabled = gc.isenabled()
+        gc.disable()
+        _CAPTURES["open"] = 1
+        try:
+            yield
+        finally:
+            _CAPTURES["open"] = 0
+            if enabled:
                 gc.enable()
 
 
@@ -1090,13 +1110,7 @@ class GenerationEngine:
         self._staging = StagingPool(self.device,
                                     depth=self.max_inflight_ticks + 1)
         self._coalescer = TransferCoalescer(self._staging)
-        # all device work is queued from this one thread, in order; the
-        # engines sharing a pool share its one thread, so their work on
-        # its pages is queued in the order it was submitted
-        self._device_exec = (
-            self._pool.executor if self._shared_pool
-            else ThreadPoolExecutor(max_workers=1,
-                                    thread_name_prefix="gofr-torch-device"))
+        self._own_exec: Optional[ThreadPoolExecutor] = None
         self._graphs: Dict[_Key, _Graph] = {}
         self._graph_pool = None
         self.capture_s = 0.0
@@ -1454,33 +1468,34 @@ class GenerationEngine:
 
     def _record(self, eager, body):
         """Capture ``body()`` as a CUDA graph into the engine's one graph
-        pool: ``eager()`` runs first on a side stream, which builds the
-        kernels and sets their attributes, under
+        pool, in the process's capture turn with the cyclic collector off
+        (:func:`_no_collection`): ``eager()`` runs first on the side
+        stream, which builds the kernels and sets their attributes, under
         ``set_sync_debug_mode("error")`` so a host sync raises here; then
-        the capture, with the cyclic collector off (:func:`_no_collection`),
-        whose launch counts become the graph's. Returns (graph, its static
-        output, launches)."""
+        the capture, on the same stream, whose launch counts become the
+        graph's. One side stream serves every capture of the process
+        (:func:`_side_stream`): cuBLAS keeps a workspace for each (thread,
+        stream) pair it meets. Returns (graph, its static output,
+        launches)."""
         dev = self.device
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            mode = torch.cuda.get_sync_debug_mode()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                eager()
-            finally:
-                torch.cuda.set_sync_debug_mode(mode)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        if self._graph_pool is None:
-            self._graph_pool = torch.cuda.graph_pool_handle()
-        before = launch_counts.read()
-        graph = torch.cuda.CUDAGraph()
-        with _no_collection(), torch.cuda.graph(
-                graph, pool=self._graph_pool,
-                capture_error_mode="thread_local"):
-            out = body()
-        launches = launch_counts.diff(launch_counts.read(), before)
-        launch_counts.write(before)             # a capture launches nothing
+        with _no_collection():
+            side = _side_stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                mode = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    eager()
+                finally:
+                    torch.cuda.set_sync_debug_mode(mode)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            with launch_counts.capture() as launches, torch.cuda.graph(
+                    graph, pool=self._graph_pool, stream=side,
+                    capture_error_mode="thread_local"):
+                out = body()
         return graph, out, launches
 
     def _capture(self, key: _Key) -> _Graph:
@@ -1926,6 +1941,23 @@ class GenerationEngine:
             await loop.run_in_executor(self._device_exec, self._warm_export,
                                        bucket)
 
+    @property
+    def _device_exec(self) -> ThreadPoolExecutor:
+        """The one thread all device work is queued from, in order. The
+        engines sharing a pool share its one thread, so their work on its
+        pages is queued in the order it was submitted; an engine of its
+        own makes its thread at first use, and :meth:`stop` ends it. A
+        thread's exit hands its cuBLAS handle back to the pool, and the
+        next thread takes it up with the workspaces cuBLAS keeps for it,
+        so engines built and stopped again and again (a shadow clone a
+        scoring pass) leave no workspace behind."""
+        if self._shared_pool:
+            return self._pool.executor
+        if self._own_exec is None:
+            self._own_exec = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="gofr-torch-device")
+        return self._own_exec
+
     async def start(self) -> None:
         if self._task is None:
             self._loop = asyncio.get_running_loop()
@@ -1952,6 +1984,15 @@ class GenerationEngine:
                     q.popleft()    # by the next start's first error
                     continue
                 self._publish(q.popleft(), host)
+        own = self._own_exec
+        if own is not None:
+            # forgotten only once it has ended: device work submitted
+            # while it shuts down is refused (RuntimeError), never run on
+            # a second thread beside the jobs still queued on this one
+            await asyncio.get_running_loop().run_in_executor(
+                None, own.shutdown)
+            if self._own_exec is own:
+                self._own_exec = None
 
     def _validate(self, prompt_ids, max_new_tokens: int
                   ) -> Tuple[List[int], int]:

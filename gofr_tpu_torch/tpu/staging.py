@@ -16,7 +16,8 @@ event recorded behind its copy and waits on that event before it is
 written again; a fetch slab goes back only after its reader has copied
 it out, which it does after the event. Each ring grows to ``depth``
 slabs (the engine's ``max_inflight_ticks + 1``) before an upload ever
-waits; fetch slabs grow with the fetches outstanding.
+waits, and shrinks to it when ``depth`` is lowered (an operating point's
+``staging_depth``); fetch slabs grow with the fetches outstanding.
 
 On the CPU there is nothing to stage: uploads copy straight into the
 destination and a fetch copies the tensor out when it is started.
@@ -87,9 +88,17 @@ class StagingPool:
     def _acquire(self, key: Tuple) -> _Slab:
         """The ring's oldest free slab, once safe to write: a fresh slab
         while the ring is under ``depth`` and that one's copy is still
-        queued, else after waiting on its event."""
+        queued, else after waiting on its event. A ring over ``depth``
+        (the depth was lowered) first gives up its newest free slabs
+        until it is at ``depth`` or has one free slab left: a slab whose
+        copy is still queued is safe to drop, since the pinned allocator
+        keeps its block until the event it recorded behind that copy."""
         with self._lock:
             ring = self._free.setdefault(key, deque())
+            while len(ring) > 1 and self._count[key] > self.depth:
+                host = ring.pop().host
+                self._count[key] -= 1
+                self._slab_bytes -= host.numel() * host.element_size()
             slab = ring.popleft() if ring else None
             grow = self._count.get(key, 0) < self.depth
         if slab is None:

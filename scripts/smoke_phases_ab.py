@@ -18,7 +18,8 @@ again under ``torch.profiler`` for the device's idle share). The
 measuring code is this tree's ``chip_smoke.py`` for both trees; the
 package is the tree's. One subprocess per tree and turn, in the order
 A B B A (``--turns`` 4); prints each run's tok/s, TTFT p50 and max and
-idle share, and writes them to ``--out``.
+idle share, warmup seconds and capture figures (``CAPTURE_FIGURES``), and
+writes them to ``--out``.
 
     git archive PARENT | tar -x -C build/ab/parent
     python3 scripts/smoke_phases_ab.py build/ab/parent build/ab/change
@@ -36,6 +37,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 MARK = "SMOKE_PHASES_AB "
+# the warmup's capture figures ``chip_smoke.serve_burst`` reports: seconds
+# in tick and prefill captures, the reserved bytes the tick and prefill
+# captures added, and the reserved bytes after the warmup
+CAPTURE_FIGURES = ("capture_s", "prefill_capture_s", "tick_capture_bytes",
+                   "prefill_capture_bytes", "reserved_after_warmup")
 
 
 def worker(args) -> int:
@@ -91,6 +97,7 @@ def worker(args) -> int:
             ttft_p50_s=ttfts[len(ttfts) // 2], ttft_max_s=ttfts[-1],
             device_idle_share=figures["device_idle_share"],
             warmup_s=figures["warmup_s"], launches=launches,
+            **{key: figures[key] for key in CAPTURE_FIGURES},
             greedy_outputs=outs[:7])
         print(f"{tree.name} {name}: {cells[name]['tokens_per_s']:.1f} tok/s, "
               f"TTFT p50 {cells[name]['ttft_p50_s']:.4f}s max "
@@ -141,8 +148,11 @@ def main() -> int:
             print(f"{label} {name}: {cell['tokens_per_s']:.1f} tok/s, TTFT "
                   f"p50 {cell['ttft_p50_s']:.4f}s max "
                   f"{cell['ttft_max_s']:.4f}s, idle "
-                  f"{cell['device_idle_share']:.4f} ({run['card']})",
-                  flush=True)
+                  f"{cell['device_idle_share']:.4f}; warmup "
+                  f"{cell['warmup_s']:.2f}s, "
+                  + ", ".join(f"{key} {cell[key]}"
+                              for key in CAPTURE_FIGURES)
+                  + f" ({run['card']})", flush=True)
         out.write_text(json.dumps(dict(trees=args.trees, runs=runs),
                                   indent=1))
     for name in runs[0]["cells"]:

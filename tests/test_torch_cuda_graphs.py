@@ -71,6 +71,18 @@ form). Run them on the GPU host with
 - No cyclic collection starts inside a capture while a dropped paged
   engine is garbage (the collector made to run at almost every
   allocation), and the capturing engine serves.
+- Two engines never warmed serve at once, each capturing lazily on its
+  own device thread: the captures take turns and each engine's tokens
+  are its tokens alone.
+- A shadow scoring pass of the auto-tuner (a clone at a candidate
+  point, the recorded trace replayed through its lazily captured graphs)
+  while the live engine has ticks in flight, under
+  ``set_sync_debug_mode("error")``: the live burst's tokens are the
+  burst's alone and the score is a pass's alone; the reserved bytes
+  after three scoring firings are no higher than after one.
+- A graph capture that fails inside the tuner's prewarm (a device sync
+  planted in the captured body) raises out of the firing: nothing is
+  applied and the firing is not noted as a refusal.
 
 The model is 2 layers of head_dim 128 or 64 (Hq 8, Hkv 2) at vocabulary
 1024, random weights from a seed; the state is random too: pages
@@ -1032,3 +1044,163 @@ def test_no_collection_runs_inside_a_capture(cuda):
     assert during == []
     assert gc.isenabled() and generate._CAPTURES["open"] == 0
     assert len(asyncio.run(_serve(engine, _prompts(4, 2), budget=8))) == 2
+
+
+def _tuner_trace(n=8):
+    """A recorded trace of ``n`` requests, 20-60 prompt tokens, 8 new
+    tokens each, as the workload recorder exports it."""
+    import json
+
+    from gofr_tpu_torch.tpu.flightrecorder import RequestRecord
+    from gofr_tpu_torch.tpu.workload import TrafficRecorder, load_trace
+
+    rec = TrafficRecorder(capacity=64)
+    for i in range(n):
+        record = RequestRecord(model="generate", prompt_len=20 + 5 * i,
+                               budget=8)
+        rec.admit(record, "standard", now=10.0 + i * 0.002)
+        record.tokens = 8
+        record.status = "done"
+        rec.finish(record)
+    return load_trace(json.dumps(rec.export_trace()))
+
+
+def test_shadow_scoring_with_ticks_in_flight_syncs_nowhere(cuda):
+    """A shadow scoring pass (the auto-tuner's ``_score_point``: a clone
+    at the candidate point built, started, the trace replayed through
+    its lazily captured graphs, stopped) while the live engine has ticks
+    in flight, under ``set_sync_debug_mode("error")``: the live burst's
+    greedy tokens are those of the same burst with no scoring, and the
+    score is the one a pass alone gives."""
+    from gofr_tpu_torch.tpu.autotune import AutoTuner, OperatingPoint
+
+    prompts, budget = _prompts(5, n=4), 96
+    bare = _engine(cuda, paged=False, d=64)
+    asyncio.run(bare.warmup(prompt_counts=(1, SLOTS)))
+    want = asyncio.run(_serve(bare, prompts, budget))
+    del bare
+    engine = _engine(cuda, paged=False, d=64)
+    asyncio.run(engine.warmup(prompt_counts=(1, SLOTS)))
+    tuner = AutoTuner(engine, min_trace_events=1)
+    trace = _tuner_trace()
+    point = OperatingPoint(prompt_buckets=(64,), steps_per_tick=2)
+    alone = asyncio.run(tuner._score_point(point, trace))
+    inflight = []
+
+    async def run():
+        await engine.start()
+        try:
+            tasks = [asyncio.ensure_future(engine.generate(p, budget))
+                     for p in prompts]
+            while engine._ticks_inflight < 1:
+                await asyncio.sleep(0.001)
+            inflight.append(engine._ticks_inflight)
+            score = await tuner._score_point(point, trace)
+            inflight.append(sum(not t.done() for t in tasks))
+            return await asyncio.wait_for(asyncio.gather(*tasks), 300), score
+        finally:
+            await engine.stop()
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, score = asyncio.run(run())
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    # the live engine captures the window rungs past its startup ones
+    # lazily, in turns with the clone's captures
+    assert got == want
+    assert score == alone > 0.0
+    assert inflight[0] >= 1
+
+
+def test_scoring_firings_release_their_clones(cuda):
+    """Each of the tuner's scoring firings builds a shadow clone a point
+    (its own cache and graphs); the reserved bytes after three firings
+    are no higher than after one."""
+    import gc
+
+    from gofr_tpu_torch.tpu.autotune import AutoTuner
+
+    engine = _engine(cuda, paged=False, d=64)
+    asyncio.run(engine.warmup(prompt_counts=(1, SLOTS)))
+    trace = _tuner_trace()
+    # every firing scores the live point and its candidates, and rejects
+    tuner = AutoTuner(engine, improve_after=1, cooldown_s=0.0,
+                      min_trace_events=1, min_gain_pct=1e9,
+                      trace_fn=lambda: trace)
+
+    def reserved():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_stats()["reserved_bytes.all.current"]
+
+    async def fire():
+        result = await tuner()
+        # a stopped clone is freed once the loop has run its pending
+        # callbacks
+        await asyncio.sleep(0.05)
+        return result["result"]
+
+    after = []
+    for _ in range(3):
+        assert asyncio.run(fire()) == "rejected"
+        after.append(reserved())
+    assert after[2] <= after[0], after
+    assert sum(e["result"] == "proposed" for e in tuner.ledger()) >= 3
+
+
+def test_a_failed_capture_in_a_tuner_prewarm_raises(cuda):
+    """The tuner's winner needs graphs the engine lacks (bucket 64, k 2);
+    its prewarm captures them, and a device sync planted in the tick's
+    captured body (legal in the eager run, refused while the stream
+    captures) fails the capture: the firing raises, nothing is applied
+    and the ledger holds no refusal."""
+    import gc
+
+    from gofr_tpu_torch.tpu import generate
+    from gofr_tpu_torch.tpu.autotune import AutoTuner, OperatingPoint
+
+    engine = _engine(cuda, paged=False, d=64)
+    asyncio.run(engine.warmup(prompt_counts=(1,)))
+    trace = _tuner_trace()
+    winner = OperatingPoint(prompt_buckets=(64,), steps_per_tick=2)
+    tuner = AutoTuner(engine, improve_after=1, cooldown_s=0.0,
+                      min_trace_events=1, trace_fn=lambda: trace,
+                      score_fn=lambda point, _: 2.0 if point == winner
+                      else 1.0)
+    tuner._candidates = lambda: [winner]
+    body = engine._tick_body
+
+    def planted(key, active):
+        if torch.cuda.is_current_stream_capturing():
+            torch.cuda.synchronize()
+        return body(key, active)
+    engine._tick_body = planted
+    generation = engine.operating_point()["generation"]
+    with pytest.raises(RuntimeError):
+        asyncio.run(tuner())
+    engine._tick_body = body
+    assert engine.operating_point()["generation"] == generation
+    assert not any(e["result"] in ("rejected", "applied")
+                   for e in tuner.ledger())
+    assert gc.isenabled() and generate._CAPTURES["open"] == 0
+
+
+def test_engines_capturing_at_once_take_turns(cuda):
+    """Two engines that were never warmed serve at once from one loop,
+    each capturing its ticks and prefills lazily on its own device
+    thread: the captures take turns (a capture's start synchronizes the
+    device, which fails while another stream captures), and each
+    engine's tokens are its tokens served alone."""
+    prompts = _prompts(6, n=4)
+    want = [asyncio.run(_serve(_engine(cuda, paged=paged, d=64), prompts,
+                               budget=40)) for paged in (True, False)]
+    engines = [_engine(cuda, paged=paged, d=64) for paged in (True, False)]
+
+    async def both():
+        return await asyncio.gather(*[_serve(e, prompts, budget=40)
+                                      for e in engines])
+    assert list(asyncio.run(both())) == want
+    assert all(e.lazy_captures and e.prefill_lazy_captures
+               for e in engines)

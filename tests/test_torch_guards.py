@@ -65,7 +65,8 @@ def test_guard_scans_the_admission_and_grammar_modules():
     (the time-series store, the error-budget plane, the workload
     recorder, the diagnosis, ``hbm_occupancy``, the task spawner), and
     the disaggregated path's (the KV wire codec, the retry policy, the
-    model registry, the cluster)."""
+    model registry, the cluster), and the fleet control plane and the
+    operating-point auto-tuner."""
     files = {str(path.relative_to(ROOT)) for path in _port_files()}
     own = ["gofr_tpu_torch/slo.py", "gofr_tpu_torch/tpu/constrain.py",
            "gofr_tpu_torch/tpu/sched.py",
@@ -87,7 +88,9 @@ def test_guard_scans_the_admission_and_grammar_modules():
            "gofr_tpu_torch/tpu/kv_wire.py",
            "gofr_tpu_torch/tpu/retry.py",
            "gofr_tpu_torch/tpu/registry.py",
-           "gofr_tpu_torch/tpu/cluster.py"]
+           "gofr_tpu_torch/tpu/cluster.py",
+           "gofr_tpu_torch/tpu/fleet.py",
+           "gofr_tpu_torch/tpu/autotune.py"]
     assert set(own) <= files
     for name in own + ["gofr_tpu_torch/tpu/generate.py"]:
         assert not set(_imported_roots(ROOT / name)) & set(FORBIDDEN), name

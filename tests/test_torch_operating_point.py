@@ -31,6 +31,7 @@ JAX package's ``OperatingPoint`` comes with auto-tuning):
 """
 
 import asyncio
+import threading
 from types import SimpleNamespace
 
 import jax
@@ -44,6 +45,7 @@ from gofr_tpu.tpu.generate import GenerationEngine as JaxEngine
 from gofr_tpu_torch.models import llama as pt_llama
 from gofr_tpu_torch.models.convert import from_jax_llama
 from gofr_tpu_torch.tpu.generate import GenerationEngine
+from gofr_tpu_torch.tpu.staging import StagingPool
 
 ENGINE_KW = dict(max_slots=4, max_len=64, prompt_buckets=(8, 16),
                  steps_per_tick=4)
@@ -305,6 +307,63 @@ def _leaves(tree):
             yield from _leaves(tree[key])
     else:
         yield tree
+
+
+
+def test_device_work_submitted_during_stop_is_refused(weights):
+    """``stop()`` forgets the engine's device thread only once it has
+    ended: a job submitted while it shuts down is refused, never run on a
+    second thread beside the jobs still queued on the first."""
+    engine = _engine("port", weights)
+
+    async def run():
+        await engine.start()
+        own = engine._device_exec
+        loop = asyncio.get_running_loop()
+        gate = threading.Event()
+        queued = loop.run_in_executor(own, gate.wait)
+        stopping = loop.create_task(engine.stop())
+        while not own._shutdown:
+            await asyncio.sleep(0.001)
+        assert engine._device_exec is own
+        with pytest.raises(RuntimeError, match="after shutdown"):
+            await loop.run_in_executor(engine._device_exec, int)
+        gate.set()
+        await queued
+        await stopping
+        names = [t.name for t in threading.enumerate()
+                 if t.name.startswith("gofr-torch-device")]
+        return own, names
+
+    own, names = asyncio.run(run())
+    assert engine._own_exec is None and names == []
+    assert engine._device_exec is not own      # a new one at next use
+    asyncio.run(engine.stop())
+
+
+def test_lowered_staging_depth_shrinks_the_rings(monkeypatch):
+    """An operating point's lower ``staging_depth`` takes effect: a ring
+    grown to the old depth gives up its surplus slabs at its next upload,
+    keeping one to reuse, and a raised depth lets it grow again. The
+    rings' logic, on the CPU (plain host tensors stand in for pinned
+    ones)."""
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty",
+                        lambda *a, pin_memory=False, **k: empty(*a, **k))
+    pool = StagingPool(torch.device("cpu"), depth=5)
+    key = ("up", (4,), torch.int32)
+    slabs = [pool._acquire(key) for _ in range(5)]
+    for slab in slabs:
+        pool._release(key, slab)
+    assert pool._count[key] == 5 and pool.stats()["slab_bytes"] == 80
+    pool.depth = 1
+    slab = pool._acquire(key)
+    assert slab in slabs and pool._count[key] == 1
+    assert pool.stats()["slab_bytes"] == 16 and not pool._free[key]
+    pool._release(key, slab)
+    assert pool._acquire(key) is slab and pool._count[key] == 1
+    pool.depth = 3        # held out: the ring may grow again
+    assert pool._acquire(key) is not slab and pool._count[key] == 2
 
 
 @pytest.mark.parametrize("case", list(CASES))

@@ -381,6 +381,15 @@ def test_port_catalog_is_the_apps():
             "app_tpu_slo_burn_rate", "app_tpu_slo_budget_remaining",
             "app_async_task_failures_total"} \
         <= {name for name, _, _, _ in ENGINE_METRICS}
+    # the fleet control plane's and the auto-tuner's series
+    assert {"app_tpu_fleet_route_total", "app_tpu_fleet_affinity_pages",
+            "app_tpu_fleet_migrations_total",
+            "app_tpu_fleet_migration_seconds",
+            "app_tpu_fleet_autoscale_total",
+            "app_tpu_fleet_decode_replicas", "app_tpu_fleet_resume_total",
+            "app_tpu_autotune_total", "app_tpu_autotune_score",
+            "app_tpu_autotune_generation"} \
+        <= {name for name, _, _, _ in ENGINE_METRICS}
     for name, kind, buckets, _ in ENGINE_METRICS:
         metric = jax_metrics[name]
         assert metric.kind == {"updown_counter": "updown"}.get(kind, kind)
