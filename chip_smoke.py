@@ -21,7 +21,9 @@ telemetry plane the app wires beside an engine and the engine's
 operating points (a move prewarmed while serving), then disaggregated
 serving (KV export and adoption through the KV wire codec, the router
 and its in-process transport, session migration) and the model
-registry.
+registry, then the fleet control plane and the auto-tuner, then the
+executor path (ResNet-50 and BERT-base through the ``Executor``, one
+CUDA graph a bucket, and the ``DynamicBatcher``) and the batch lane.
 Phases, each of which raises (exit code != 0) on failure:
 
 1. card identity (``nvidia-smi`` name and power limit, torch/CUDA);
@@ -275,6 +277,36 @@ Phases, each of which raises (exit code != 0) on failure:
     greedy tokens equal, the watchdog's ``DEGRADED`` and a drain route
     the first model to its fallback, health UP, launches as counted, and
     ``hbm_attribution`` counts the shared pool once.
+33. the fleet and the tuner: (a-d, after phase 32a-c on the
+    ``llama3-8b`` weights) two paged replicas behind a ``FleetRouter``:
+    the ``Autoscaler`` scales up under a backlog and drains down,
+    affinity waves, a migration and a drain, two crashes healed by
+    resume; (e, after phase 32d on ``small``) the ``AutoTuner``
+    applying, rejecting and rolling back by shadow replay;
+34. the executor path (after phase 33e), bf16 at full width: (a)
+    ResNet-50 (224^2, 1000 classes) and (b) BERT-base (max_len 64, its
+    ``mean`` embedding), each registered at the examples' buckets (1, 4,
+    16, 32): ``warmup()`` captures 4 graphs (seconds, reserved bytes);
+    each bucket's replay bit for bit its eager run, both timed (CUDA
+    events, images or sequences a second); B 4 on the card against the
+    CPU's float32 path (ResNet max|d|/max|ref| <= 2e-2; BERT the same
+    and every row's cosine >= 0.999); 256 single requests through the
+    ``DynamicBatcher`` (max_batch 32, 2 ms) at 64 in flight (BERT 5-64
+    tokens): latency p50 / p99, flush causes, batch fill, duty cycle and
+    MFU against 989 TFLOP/s, every execute one replay and no capture;
+35. (a) on phase 20's ``small`` weights at the example's dense engine,
+    a ``BatchLane`` over the port's ``InMemoryBroker``: phase 20's burst
+    under an interactive deadline with the lane off, on, on, off (32
+    jobs of 64-256 prompt tokens x 64 new each on-turn): interactive
+    TTFT p50 and tok/s, the lane's tok/s; every lane result equal to a
+    direct ``generate`` of its job, the jobs served in the ``batch``
+    class, every tick and prefill a replay, launches as counted; a
+    malformed job dead-lettered with the next job served; a lane gated
+    at ``pause_depth`` 4 pauses (``admission_depth``) behind a backlog
+    and resumes; (b) the pool wedge on a paged engine of 8 pages of 4,
+    2 slots, 1 tick in flight, plain and speculative: the first of two
+    requests returns its 20 tokens, the second fails with the wedge's
+    ``RuntimeError`` within 10 s, the free pages come back.
 
 Every engine burst (phases 9-12, 15-18, 20-23, 30a) is served twice:
 counted, then under ``torch.profiler`` for the device's idle share. Every
@@ -5381,6 +5413,575 @@ def phase_autotune(torch, generate, autotune, faults, mods, cfg, params,
     return {"autotune_small": out["launches"]}
 
 
+# -- phase 34: the executor path (ResNet-50, BERT-base) ----------------------
+
+EXEC_BUCKETS = (1, 4, 16, 32)     # the http-server and grpc-server examples
+BATCHER_KW = dict(max_batch=32, max_delay_ms=2.0)  # the app's defaults
+EXEC_REQUESTS, EXEC_INFLIGHT = 256, 64
+EXEC_REL_TOL = 2e-2               # bf16 on the card against f32 on the CPU
+BERT_COS_MIN = 0.999
+BERT_MAX_LEN = 64                 # the grpc-server example's MAX_LEN
+EXEC_TIMED = 20                   # replays (and eager runs) a bucket timed
+
+
+def rel_err(got, want):
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def cpu_f32(torch, tree):
+    """A params tree (dicts, lists) as float32 tensors on the CPU."""
+    if isinstance(tree, dict):
+        return {k: cpu_f32(torch, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [cpu_f32(torch, v) for v in tree]
+    return tree.detach().float().cpu()
+
+
+def bucket_times(torch, executor, name, fn):
+    """Per bucket: its replay bit for bit the eager run on the same static
+    inputs, and the ms of a replay and of an eager run (CUDA events over
+    ``EXEC_TIMED`` each, after one of each), on the executor's stream."""
+    import numpy as np
+
+    from gofr_tpu_torch.tpu.executor import tree_leaves, tree_unflatten
+
+    model = executor._models[name]
+    stream = executor._stream
+    out = {}
+    for bucket, exe in sorted(model.compiled.items()):
+        inputs = tree_unflatten(exe.skeleton, exe.inputs)
+        with torch.cuda.stream(stream):
+            exe.graph.replay()
+            replayed = [t.clone() for t in tree_leaves(exe.out)]
+            eager = tree_leaves(fn(model.params, inputs))
+            times = {}
+            for kind in ("replay", "eager"):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record(stream)
+                for _ in range(EXEC_TIMED):
+                    if kind == "replay":
+                        exe.graph.replay()
+                    else:
+                        fn(model.params, inputs)
+                end.record(stream)
+                end.synchronize()
+                times[kind] = start.elapsed_time(end) / EXEC_TIMED
+        same = all(torch.equal(a, b) for a, b in zip(replayed, eager))
+        if not same:
+            diff = max(float((a.float() - b.float()).abs().max())
+                       for a, b in zip(replayed, eager))
+            raise AssertionError(f"phase 34 {name} bucket {bucket}: the "
+                                 f"replay differs from the eager run by "
+                                 f"{diff}")
+        out[bucket] = dict(replay_ms=times["replay"], eager_ms=times["eager"],
+                           replay_per_s=bucket / times["replay"] * 1e3,
+                           eager_per_s=bucket / times["eager"] * 1e3,
+                           flops=exe.flops)
+        del replayed, eager
+    return out
+
+
+async def batcher_burst(batcher, name, examples, inflight):
+    """``examples`` through the batcher, at most ``inflight`` waiting at
+    once: (outputs, each request's seconds, wall seconds)."""
+    sem = asyncio.Semaphore(inflight)
+    seconds = [0.0] * len(examples)
+
+    async def one(i, example):
+        async with sem:
+            t0 = time.perf_counter()
+            out = await batcher.predict(name, example)
+            seconds[i] = time.perf_counter() - t0
+            return out
+
+    t0 = time.perf_counter()
+    outs = await asyncio.gather(*[one(i, e) for i, e in enumerate(examples)])
+    return outs, seconds, time.perf_counter() - t0
+
+
+def exec_model(torch, executor_mod, batcher_mod, name, fn, params, example,
+               batches, cpu_ref, examples, gate, results, device="cuda"):
+    """One model of phase 34: register at ``EXEC_BUCKETS``, ``warmup()``
+    (one graph a bucket: seconds, reserved bytes), every bucket's replay
+    against its eager run and both timed, the card at B 4 against the
+    CPU's float32 path (``gate(card, cpu)`` returns the figures and
+    raises past its limits), then ``examples`` one request each through
+    the ``DynamicBatcher`` at ``EXEC_INFLIGHT`` in flight: latency p50 /
+    p99, flush causes, batch fill, duty cycle and MFU, no capture."""
+    import numpy as np
+
+    from gofr_tpu_torch.metrics import Manager, register_engine_metrics
+
+    metrics = register_engine_metrics(Manager())
+    executor = executor_mod.Executor(None, metrics,
+                                     peak_flops=BF16_FLOP_PER_S,
+                                     device=device)
+    executor.register(name, fn, params, buckets=EXEC_BUCKETS)
+    cuda = device == "cuda"
+    before = reserved_bytes(torch) if cuda else 0
+    t0 = time.monotonic()
+    executor.warmup(name, example)
+    warm_s = time.monotonic() - t0
+    added = (reserved_bytes(torch) - before) if cuda else 0
+    events = executor.ledger.snapshot()["recent"]
+    captures = {e["bucket"]: e["duration_s"] for e in events}
+    if sorted(executor._models[name].compiled) != list(EXEC_BUCKETS) \
+            or executor.ledger.total("warmup") != len(EXEC_BUCKETS):
+        raise AssertionError(f"phase 34 {name}: warmup built "
+                             f"{sorted(executor._models[name].compiled)}")
+    log(f"34 {name}: warmup captured {len(captures)} graphs in "
+        f"{warm_s:.2f}s (by bucket {captures}); reserved bytes "
+        f"+{added}")
+    timings = bucket_times(torch, executor, name, fn) if cuda else {}
+    for bucket, t in timings.items():
+        log(f"34 {name} bucket {bucket}: replay {t['replay_ms']:.4f} ms "
+            f"({t['replay_per_s']:.1f}/s), eager {t['eager_ms']:.4f} ms "
+            f"({t['eager_per_s']:.1f}/s), {t['flops']:.4g} FLOPs; replay "
+            f"= eager bits")
+    card = executor.predict(name, batches)
+    figures = gate(card, cpu_ref)
+    log(f"34 {name}: B 4 on the card against the CPU's f32 path: "
+        f"{figures}")
+    # the reference of each burst request: its image at the top bucket
+    top = EXEC_BUCKETS[-1]
+    stacked = [executor.predict(name, batcher_mod._stack(examples[i:i + top]))
+               for i in range(0, len(examples), top)]
+    want = np.concatenate(stacked)
+    compiles = executor.ledger.total()
+    busy0, flops0 = executor._busy_s.total(), executor._flops_done.total()
+    hits0 = sum(executor.shapes.bucket_hits(name).values())
+    sizes0 = executor.shapes.distribution(name)
+    batcher = batcher_mod.DynamicBatcher(executor, metrics=metrics,
+                                         **BATCHER_KW)
+    outs, seconds, wall = asyncio.run(batcher_burst(batcher, name, examples,
+                                                    EXEC_INFLIGHT))
+    busy = executor._busy_s.total() - busy0
+    flops = executor._flops_done.total() - flops0
+    flushes = sum(batcher.flush_causes.values())
+    sizes = {n: c - sizes0.get(n, 0)
+             for n, c in executor.shapes.distribution(name).items()
+             if c > sizes0.get(n, 0)}
+    batch_sum = sum(n * c for n, c in sizes.items())
+    hits = sum(executor.shapes.bucket_hits(name).values()) - hits0
+    got = np.stack(outs)
+    err = rel_err(got, want)
+    if not np.isfinite(got).all() or got.shape != want.shape \
+            or err > EXEC_REL_TOL:
+        raise AssertionError(f"phase 34 {name}: burst outputs {got.shape} "
+                             f"against {want.shape}, max rel err {err}")
+    if executor.ledger.total() != compiles or hits != flushes \
+            or batch_sum != len(examples):
+        raise AssertionError(
+            f"phase 34 {name}: {executor.ledger.total() - compiles} "
+            f"captures in the burst, {hits} executes for {flushes} "
+            f"flushes, {batch_sum} rows for {len(examples)} requests")
+    seconds.sort()
+    sat = executor.saturation(window_s=60.0)
+    row = dict(warmup_s=warm_s, capture_s=captures, reserved_added=added,
+               buckets=timings, gate=figures, requests=len(examples),
+               in_flight=EXEC_INFLIGHT, wall_s=wall,
+               requests_per_s=len(examples) / wall,
+               latency_p50_s=seconds[len(seconds) // 2],
+               latency_p99_s=seconds[int(len(seconds) * 0.99) - 1],
+               flush_causes=dict(batcher.flush_causes), batch_sizes=sizes,
+               batch_fill=batch_sum / flushes / BATCHER_KW["max_batch"],
+               duty_cycle=busy / wall,
+               mfu=flops / wall / BF16_FLOP_PER_S,
+               burst_max_rel_err=err,
+               saturation_60s={k: sat[k] for k in (
+                   "duty_cycle", "mfu", "effective_mfu", "padding_ratio")},
+               data_plane=executor.data_plane()["staging"])
+    log(f"34 {name}: {len(examples)} requests at {EXEC_INFLIGHT} in "
+        f"flight in {wall:.3f}s = {row['requests_per_s']:.1f}/s; latency "
+        f"p50 {row['latency_p50_s'] * 1e3:.3f} ms p99 "
+        f"{row['latency_p99_s'] * 1e3:.3f} ms; flushes "
+        f"{row['flush_causes']}, batch sizes {sizes}, fill "
+        f"{row['batch_fill']:.3f}; duty cycle {row['duty_cycle']:.4f}, "
+        f"MFU {row['mfu']:.4f} (peak {BF16_FLOP_PER_S:.3g}); no capture "
+        f"in the burst; max rel err against the top bucket {err:.3e}")
+    results[f"exec_{name}"] = row
+    executor.close()
+    return row
+
+
+def phase_executor(torch, executor_mod, batcher_mod, resnet, bert, seed,
+                   results, rcfg=None, bcfg=None, device="cuda"):
+    """Phase 34: the executor path at full width, bf16: (a) ResNet-50 at
+    224 x 224, 1000 classes; (b) BERT-base at max_len 64, its ``mean``
+    embedding; each at the examples' buckets (1, 4, 16, 32) and through
+    the ``DynamicBatcher`` at the app's defaults."""
+    import numpy as np
+
+    t_phase = time.monotonic()
+    rng = np.random.default_rng(seed + 40)
+    rcfg = rcfg or resnet.config("50")
+    log(f"== phase 34a: ResNet-{sum(rcfg.stage_sizes) * 3 + 2} "
+        f"({rcfg.image_size}^2, {rcfg.num_classes} classes, bf16) through "
+        f"the Executor, buckets {EXEC_BUCKETS}, and the DynamicBatcher "
+        f"{BATCHER_KW}")
+    rparams = resnet.init(rcfg, seed + 41, device=device)
+
+    def rfn(p, x):
+        return resnet.apply(p, rcfg, x)
+
+    size = rcfg.image_size
+    images = rng.standard_normal((EXEC_REQUESTS, size, size, 3)).astype(
+        np.float32)
+    cpu_cfg = dataclasses.replace(rcfg, dtype=torch.float32)
+    ref = resnet.apply(cpu_f32(torch, rparams), cpu_cfg,
+                       torch.from_numpy(images[:4])).numpy()
+
+    def rgate(card, cpu):
+        err = rel_err(card, cpu)
+        top1 = float((card.argmax(-1) == cpu.argmax(-1)).mean())
+        if not np.isfinite(card).all() or err > EXEC_REL_TOL:
+            raise AssertionError(f"phase 34a: ResNet B 4 on the card "
+                                 f"against the CPU f32: max|d|/max|ref| "
+                                 f"{err} > {EXEC_REL_TOL}")
+        return dict(max_rel_err=err, limit=EXEC_REL_TOL, top1_agree=top1)
+
+    exec_model(torch, executor_mod, batcher_mod, "resnet50", rfn, rparams,
+               images[0], images[:4], ref, list(images), rgate, results,
+               device)
+    del rparams
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    bcfg = bcfg or bert.config("base", max_len=BERT_MAX_LEN)
+    log(f"== phase 34b: BERT ({bcfg.n_layers} layers, dim {bcfg.dim}, "
+        f"max_len {bcfg.max_len}, bf16) mean embeddings through the "
+        f"Executor, buckets {EXEC_BUCKETS}, and the DynamicBatcher")
+    bparams = bert.init(bcfg, seed + 42, device=device)
+
+    def bfn(p, inputs):
+        ids, mask = inputs
+        return bert.apply(p, bcfg, ids, mask)["mean"]
+
+    lengths = rng.integers(5, bcfg.max_len + 1, EXEC_REQUESTS)
+    ids = rng.integers(0, bcfg.vocab_size,
+                       (EXEC_REQUESTS, bcfg.max_len)).astype(np.int32)
+    mask = (np.arange(bcfg.max_len)[None] < lengths[:, None]).astype(
+        np.int32)
+    ids *= mask
+    cpu_bcfg = dataclasses.replace(bcfg, dtype=torch.float32)
+    bref = bert.apply(cpu_f32(torch, bparams), cpu_bcfg,
+                      torch.from_numpy(ids[:4]),
+                      torch.from_numpy(mask[:4]))["mean"].numpy()
+
+    def bgate(card, cpu):
+        err = rel_err(card, cpu)
+        cos = float(((card * cpu).sum(-1) / np.linalg.norm(card, axis=-1)
+                     / np.linalg.norm(cpu, axis=-1)).min())
+        if not np.isfinite(card).all() or err > EXEC_REL_TOL \
+                or cos < BERT_COS_MIN:
+            raise AssertionError(f"phase 34b: BERT B 4 on the card against "
+                                 f"the CPU f32: max rel err {err} (limit "
+                                 f"{EXEC_REL_TOL}), min cosine {cos} "
+                                 f"(limit {BERT_COS_MIN})")
+        return dict(max_rel_err=err, limit=EXEC_REL_TOL, min_cosine=cos,
+                    cosine_limit=BERT_COS_MIN)
+
+    examples = [(ids[i], mask[i]) for i in range(EXEC_REQUESTS)]
+    exec_model(torch, executor_mod, batcher_mod, "bert", bfn, bparams,
+               examples[0], (ids[:4], mask[:4]), bref, examples, bgate,
+               results, device)
+    results["exec_bert"]["token_counts"] = [int(lengths.min()),
+                                            int(lengths.max())]
+    del bparams
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    results["phase34_s"] = time.monotonic() - t_phase
+    log(f"phase 34: {results['phase34_s']:.1f}s")
+
+
+# -- phase 35: the batch lane beside interactive traffic; the pool wedge ------
+
+LANE_JOBS, LANE_NEW = 32, 64
+LANE_TOPIC = "gen-jobs"
+INTERACTIVE_BUDGET_MS = 2000.0    # sched's interactive budget: the class
+PATH_KERNELS.update({"lane_small": ("flash", "ragged"),
+                     "wedge_small": ("flash", "ragged"),
+                     "wedge_small_spec": ("flash", "verify",
+                                          "flash_decode")})
+
+
+async def drain_topic(broker, topic, count, timeout=120.0):
+    out = []
+    for _ in range(count):
+        message = await asyncio.wait_for(broker.subscribe(topic), timeout)
+        out.append(json.loads(message.value.decode()))
+    return out
+
+
+async def interactive_burst(slo, engine, prompts, budget, samplings):
+    """Phase 20's burst, each request under an interactive deadline and
+    streamed: (outputs, sorted client-side TTFTs, wall seconds)."""
+    async def one(prompt, sampling):
+        slo.set_request_deadline(INTERACTIVE_BUDGET_MS)
+        t0 = time.monotonic()
+        stream = await engine.generate_stream(prompt, budget,
+                                              sampling=sampling)
+        tokens, ttft = [], None
+        async for tok in stream:
+            if ttft is None:
+                ttft = time.monotonic() - t0
+            tokens.append(tok)
+        return tokens, ttft
+
+    t0 = time.monotonic()
+    done = await asyncio.wait_for(asyncio.gather(*[
+        one(p, s) for p, s in zip(prompts, samplings)]), 300)
+    wall = time.monotonic() - t0
+    return [t for t, _ in done], sorted(f for _, f in done), wall
+
+
+def phase_batch_lane(torch, generate, lane_mod, pubsub, slo, sched, mods,
+                     cfg, params, seed, results, engine_kw=None,
+                     device="cuda"):
+    """Phase 35a: the example's dense engine with a ``BatchLane`` over the
+    port's ``InMemoryBroker``: phase 20's interactive burst (under an
+    interactive deadline) with the lane off, on, on, off in turns, 32
+    jobs of 64-256 prompt tokens and 64 new tokens each on-turn. Returns
+    launches by path."""
+    import numpy as np
+
+    t_phase = time.monotonic()
+    engine_kw = engine_kw or SMALL_ENGINE
+    log(f"== phase 35a: the batch lane on {cfg.n_layers}-layer dim "
+        f"{cfg.dim} at the example's engine {engine_kw}: {LANE_JOBS} jobs "
+        f"of 64-256 prompt tokens x {LANE_NEW} new beside phase 20's "
+        f"interactive burst, lane off, on, on, off")
+    rng = np.random.default_rng(seed + 50)
+    jobs = [dict(id=f"job-{i}",
+                 prompt_ids=rng.integers(0, cfg.vocab_size, n).tolist(),
+                 max_new_tokens=LANE_NEW)
+            for i, n in enumerate(rng.integers(64, 257, LANE_JOBS))]
+    prompts = engine_prompts(cfg, seed)
+    budget = 32
+    samplings = [generate.Sampling() for _ in range(7)] + [
+        generate.Sampling(temperature=0.8, top_p=0.95, seed=seed)]
+    engine = generate.GenerationEngine(cfg, params, device=device,
+                                       **engine_kw)
+    broker = pubsub.InMemoryBroker()
+    from gofr_tpu_torch.metrics import Manager, register_engine_metrics
+
+    metrics = register_engine_metrics(Manager())
+    lane = lane_mod.BatchLane(engine, broker, LANE_TOPIC, poll_s=0.005,
+                              metrics=metrics)
+
+    async def main():
+        await warm(engine)
+        await engine.start()
+        try:
+            await engine.generate(prompts[0], 8)
+            for mod in mods:
+                mod.reset_launches()
+            before = run_counters(engine)
+            served0 = dict(engine.stats()["classes"]["served"])
+            turns, lane_results = [], []
+            for on in (False, True, True, False):
+                if on:
+                    await lane.start()
+                    t_lane = time.monotonic()
+                    for job in jobs:
+                        broker.publish(LANE_TOPIC, json.dumps(job).encode())
+                outs, ttfts, wall = await interactive_burst(
+                    slo, engine, prompts, budget, samplings)
+                turn = dict(lane=on, tokens_per_s=budget * len(outs) / wall,
+                            ttft_p50_s=ttfts[len(ttfts) // 2],
+                            ttft_max_s=ttfts[-1], wall_s=wall,
+                            greedy_outputs=outs[:7])
+                if on:
+                    got = await drain_topic(broker, lane.result_topic,
+                                            LANE_JOBS)
+                    lane_wall = time.monotonic() - t_lane
+                    turn.update(lane_wall_s=lane_wall,
+                                lane_tokens_per_s=sum(
+                                    len(r["tokens"]) for r in got)
+                                / lane_wall)
+                    lane_results.append({r["id"]: r["tokens"] for r in got})
+                    if not await lane.drain(60.0):
+                        raise AssertionError("phase 35a: the lane did not "
+                                             "drain")
+                turns.append(turn)
+            served = {k: v - served0.get(k, 0) for k, v in
+                      engine.stats()["classes"]["served"].items()}
+            launches = read_launches(mods)
+            after = run_counters(engine)
+            counters = {key: after[key] - before[key] for key in after}
+            # a malformed job is dead-lettered; the consumer keeps going
+            await lane.start()
+            broker.publish(LANE_TOPIC, b"not json \xff")
+            broker.publish(LANE_TOPIC, json.dumps(jobs[0]).encode())
+            dead = await drain_topic(broker, lane.dead_letter_topic, 1)
+            after_dead = await drain_topic(broker, lane.result_topic, 1)
+            await lane.stop()
+            # a backlog past pause_depth pauses a lane, which resumes
+            # below resume_depth
+            gate = lane_mod.BatchLane(engine, broker, "gated-jobs",
+                                      pause_depth=4, resume_depth=1,
+                                      poll_s=0.005, metrics=metrics)
+            backlog = [asyncio.ensure_future(engine.generate(
+                job["prompt_ids"], LANE_NEW)) for job in jobs[:24]]
+            await asyncio.sleep(0)
+            depth = engine.admission_depth()
+            await gate.start()
+            broker.publish("gated-jobs", json.dumps(jobs[1]).encode())
+            t_pause = time.monotonic()
+            while not gate.paused and time.monotonic() - t_pause < 10:
+                await asyncio.sleep(0.002)
+            paused = gate.paused
+            await asyncio.gather(*backlog)
+            gated = await drain_topic(broker, gate.result_topic, 1)
+            await gate.stop()
+            direct = await asyncio.gather(*[
+                engine.generate(job["prompt_ids"], LANE_NEW)
+                for job in jobs])
+            return dict(turns=turns, lane_results=lane_results,
+                        served=served, launches=launches,
+                        counters=counters, dead=dead, after_dead=after_dead,
+                        depth=depth, paused=paused, gated=gated,
+                        gate=gate.stats(), direct=direct,
+                        paused_metric=metrics.value(
+                            "app_pubsub_consumer_paused_total",
+                            topic="gated-jobs",
+                            reason=lane_mod.PAUSE_ADMISSION))
+        finally:
+            await engine.stop()
+
+    out = asyncio.run(main())
+    for turn in out["turns"]:
+        log(f"35a: lane {'on ' if turn['lane'] else 'off'}: interactive "
+            f"{turn['tokens_per_s']:.1f} tok/s, TTFT p50 "
+            f"{turn['ttft_p50_s']:.4f}s max {turn['ttft_max_s']:.4f}s"
+            + (f"; lane {turn['lane_tokens_per_s']:.1f} tok/s "
+               f"({LANE_JOBS} x {LANE_NEW} tokens in "
+               f"{turn['lane_wall_s']:.3f}s)" if turn["lane"] else ""))
+    direct = {job["id"]: tokens for job, tokens in zip(jobs, out["direct"])}
+    equal = [sum(res[k] == direct[k] for k in direct)
+             for res in out["lane_results"]]
+    log(f"35a: lane results equal to direct generation: {equal} of "
+        f"{LANE_JOBS} each on-turn; served by class {out['served']}; "
+        f"dead letter {out['dead'][0]['error']}; gated lane: admission "
+        f"depth {out['depth']}, paused {out['paused']} (counted "
+        f"{out['paused_metric']}), pauses {out['gate']['pauses']} resumes "
+        f"{out['gate']['resumes']}")
+    interactive = [t["greedy_outputs"] for t in out["turns"]]
+    out["interactive_equal_across_turns"] = all(
+        o == interactive[0] for o in interactive)
+    if equal != [LANE_JOBS] * 2:
+        raise AssertionError(f"phase 35a: lane results equal to direct "
+                             f"generation {equal} of {LANE_JOBS}")
+    if out["served"].get(sched.CLASS_BATCH, 0) < 2 * LANE_JOBS \
+            or out["served"].get(sched.CLASS_INTERACTIVE, 0) \
+            < 4 * len(prompts):
+        raise AssertionError(f"phase 35a: served by class {out['served']}")
+    if out["dead"][0]["error"]["type"] != "JobError" \
+            or out["after_dead"][0]["id"] != jobs[0]["id"]:
+        raise AssertionError(f"phase 35a: dead letter {out['dead']}, next "
+                             f"result {out['after_dead']}")
+    if not out["paused"] or out["paused_metric"] != 1.0 \
+            or out["gate"]["resumes"] < 1 \
+            or out["gated"][0]["id"] != jobs[1]["id"]:
+        raise AssertionError(f"phase 35a: gated lane {out['gate']}, "
+                             f"paused {out['paused']}, depth {out['depth']}")
+    counters = out["counters"]
+    ticks = counters["ticks"] + counters["spec_ticks"]
+    if device == "cuda" and (
+            counters["replays"] != ticks or counters["lazy_captures"]
+            or counters["prefill_replays"] != counters["prefills"]
+            or counters["prefill_lazy"]):
+        raise AssertionError(f"phase 35a: replays {counters}")
+    check_launches(out["launches"], expected_launches(cfg, counters),
+                   "lane_small")
+    results["lane_small"] = {k: v for k, v in out.items()
+                             if k not in ("direct", "lane_results")}
+    results["phase35a_s"] = time.monotonic() - t_phase
+    log(f"phase 35a: {results['phase35a_s']:.1f}s")
+    del engine
+    return {"lane_small": out["launches"]}
+
+
+WEDGE_ENGINE = dict(paged_kv=True, kv_page=4, kv_pages=8, kv_page_reserve=0,
+                    max_slots=2, max_inflight_ticks=1, max_len=64,
+                    prompt_buckets=(8, 16))
+WEDGE_MESSAGE = ("kv page pool wedged: no slot can grow and nothing is "
+                 "reclaimable; shedding the newest request")
+
+
+def phase_wedge(torch, llama, generate, mods, cfg, params, seed, results,
+                device="cuda"):
+    """Phase 35b: the pool-wedge repro on a paged engine (8 pages of 4,
+    2 slots, 1 tick in flight): two 8-token prompts with 20 new tokens
+    each need 7 pages apiece. The first returns its 20 tokens, the second
+    fails with the wedge's ``RuntimeError`` within 10 s, and the pool's
+    free pages come back; plain, then speculative (a 2-layer draft of
+    views). Returns launches by path."""
+    t_phase = time.monotonic()
+    prompts = [list(range(1, 9)), list(range(11, 19))]
+    dcfg, dparams = draft_view(llama, cfg, params, 2)
+    by_path = {}
+    for path, kw in (("wedge_small", {}),
+                     ("wedge_small_spec", dict(draft_cfg=dcfg,
+                                               draft_params=dparams,
+                                               spec_gamma=SPEC_GAMMA))):
+        log(f"== phase 35b: {path}: {WEDGE_ENGINE}")
+        engine = generate.GenerationEngine(cfg, params, device=device,
+                                           **WEDGE_ENGINE, **kw)
+
+        async def main():
+            await engine.warmup(prompt_counts=(1, 2))
+            free = engine._pool.free_pages
+            await engine.start()
+            try:
+                for mod in mods:
+                    mod.reset_launches()
+                before = run_counters(engine)
+                first = asyncio.ensure_future(
+                    engine.generate(prompts[0], 20))
+                await asyncio.sleep(0)
+                second = asyncio.ensure_future(
+                    engine.generate(prompts[1], 20))
+                t0 = time.monotonic()
+                done = await asyncio.wait_for(asyncio.gather(
+                    first, second, return_exceptions=True), 10.0)
+                seconds = time.monotonic() - t0
+                after = run_counters(engine)
+                return (done, seconds, free, engine._pool.free_pages,
+                        read_launches(mods),
+                        {key: after[key] - before[key] for key in after},
+                        engine.stats()["kv_pool"]["page_stalls"])
+            finally:
+                await engine.stop()
+
+        (first, second), seconds, free, back, launches, counters, stalls = \
+            asyncio.run(main())
+        got = len(first) if isinstance(first, list) else repr(first)
+        log(f"35b {path}: first {got} tokens, second {second!r} in "
+            f"{seconds:.3f}s; free pages "
+            f"{free} -> {back}; page stalls {stalls}; launches {launches}")
+        if not isinstance(first, list) or len(first) != 20 \
+                or not isinstance(second, RuntimeError) \
+                or str(second) != WEDGE_MESSAGE or back != free:
+            raise AssertionError(f"phase 35b {path}: first {first!r}, "
+                                 f"second {second!r}, pages {free} -> "
+                                 f"{back}")
+        check_launches(launches, expected_launches(
+            cfg, counters, 2 if kw else 0), path)
+        results[path] = dict(seconds=seconds, free_pages=free,
+                             free_after=back, page_stalls=stalls,
+                             launches=launches)
+        by_path[path] = launches
+        del engine
+    results["phase35b_s"] = time.monotonic() - t_phase
+    log(f"phase 35b: {results['phase35b_s']:.1f}s")
+    return by_path
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for value in tree.values():
@@ -5406,15 +6007,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from gofr_tpu_torch.models import llama, moe
+    from gofr_tpu_torch.datasource import pubsub
+    from gofr_tpu_torch.models import bert, llama, moe, resnet
     from gofr_tpu_torch.ops.cuda import _build
     from gofr_tpu_torch.ops.cuda import decode_attention as decode_mod
     from gofr_tpu_torch.ops.cuda import flash_attention as flash_mod
     from gofr_tpu_torch.ops.cuda import ragged_paged_attention as ragged_mod
     from gofr_tpu_torch import slo
-    from gofr_tpu_torch.tpu import (autotune, cluster, constrain, faults,
-                                    fleet, generate, kv_wire, page_pool,
-                                    registry, sched)
+    from gofr_tpu_torch.tpu import (autotune, batch_lane, batcher, cluster,
+                                    constrain, executor, faults, fleet,
+                                    generate, kv_wire, page_pool, registry,
+                                    sched)
 
     results = {}
     log("== phase 1: card")
@@ -5497,6 +6100,15 @@ def main() -> int:
     by_path_d64.update(phase_autotune(torch, generate, autotune, faults,
                                       mods, small_cfg, small_params,
                                       args.seed, results))
+    # this slice: the executor path (phase 34), then the batch lane beside
+    # interactive traffic and the pool wedge on phase 20's weights (35)
+    phase_executor(torch, executor, batcher, resnet, bert, args.seed,
+                   results)
+    by_path_d64.update(phase_batch_lane(torch, generate, batch_lane, pubsub,
+                                        slo, sched, mods, small_cfg,
+                                        small_params, args.seed, results))
+    by_path_d64.update(phase_wedge(torch, llama, generate, mods, small_cfg,
+                                   small_params, args.seed, results))
     del small_params
     torch.cuda.empty_cache()
     # this slice: the example's own model (``small`` over its byte-level
@@ -5626,6 +6238,8 @@ def main() -> int:
     results["launches_by_path"] = dict(by_path, **by_path_d64)
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
+    results["total_s"] = time.monotonic() - T0
+    log(f"chip_smoke: every phase passed in {results['total_s']:.1f}s")
     out.write_text(json.dumps(results, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

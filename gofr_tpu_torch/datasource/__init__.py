@@ -1,0 +1,10 @@
+"""The datasources the port serves from (a copy of the part of
+``gofr_tpu/datasource`` the batch lane needs): the pub/sub contract and
+the in-memory broker."""
+
+UP = "UP"
+DOWN = "DOWN"
+
+
+def health(status: str, **details) -> dict:
+    return {"status": status, "details": details}

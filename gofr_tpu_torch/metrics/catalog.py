@@ -6,7 +6,8 @@ the slice of that catalog the engine, its page pool, the SLO tracker,
 the watchdog, the brownout ladder, the fault plane, the telemetry store,
 the error-budget plane, the traffic recorder, the background-task
 spawner, the model registry, the disaggregated cluster, the fleet
-router and autoscaler and the operating-point auto-tuner write, so a
+router and autoscaler, the operating-point auto-tuner, the executor,
+the dynamic batcher, the batch lane and the in-memory broker write, so a
 :class:`~gofr_tpu_torch.metrics.manager.Manager` of the port's own can
 take every call they make.
 """
@@ -170,6 +171,52 @@ ENGINE_METRICS: Tuple[Tuple[str, str, Optional[tuple], str], ...] = (
     ("app_tpu_autotune_generation", "gauge", None,
      "operating-point generation counter on the engine — bumps "
      "on every guarded apply, including rollbacks"),
+    # the executor, its compile ledger and the dynamic batcher
+    ("app_tpu_execute", "histogram",
+     (0.0005, 0.001, 0.003, 0.01, 0.03, 0.1, 0.3, 1),
+     "executor dispatch-to-fetch wall time (s)"),
+    ("app_tpu_requests_total", "counter", None, "executor predict steps"),
+    ("app_tpu_step_phase_seconds", "histogram",
+     (0.0001, 0.0003, 0.001, 0.003, 0.01, 0.03, 0.1, 0.3, 1, 3),
+     "executor step phases: serialize | stage | upload | enqueue | "
+     "device_wait (host_prep replaces the first three, staging off)"),
+    ("app_tpu_compile_total", "counter", None,
+     "executor graph captures by cause (warmup|serving) and model"),
+    ("app_tpu_compile_seconds", "histogram",
+     (0.1, 0.3, 1, 3, 10, 30, 100, 300),
+     "one executor graph capture's wall time (s)"),
+    ("app_tpu_flush_total", "counter", None,
+     "dynamic-batcher flushes by cause (full|timer) and model"),
+    ("app_tpu_batch_fill", "histogram",
+     (0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0),
+     "flushed batch size / max_batch per flush"),
+    ("app_tpu_duty_cycle", "gauge", None,
+     "fraction of the rolling window the device spent executing"),
+    ("app_tpu_mfu", "gauge", None,
+     "model flops utilization vs TPU_PEAK_FLOPS over the window"),
+    ("app_tpu_effective_mfu", "gauge", None,
+     "MFU counting only real (non-padding) rows' FLOPs"),
+    ("app_tpu_padding_ratio", "gauge", None,
+     "fraction of executed device rows that were padding"),
+    ("app_tpu_hbm_occupancy", "gauge", None,
+     "device bytes in use / bytes in all, per device"),
+    ("app_tpu_hbm_bytes_in_use", "gauge", None,
+     "device bytes in use, per device"),
+    ("app_tpu_device_up", "gauge", None, "per-device liveness 0/1"),
+    # the batch lane and the in-memory broker
+    ("app_tpu_batch_lane_jobs_total", "counter", None,
+     "batch-lane jobs by outcome (ok|dead_letter)"),
+    ("app_tpu_batch_lane_inflight", "gauge", None,
+     "batch-lane jobs generating, per topic"),
+    ("app_tpu_batch_lane_paused", "gauge", None,
+     "1 while backpressure has the lane's consumer paused, per topic"),
+    ("app_pubsub_consumer_paused_total", "counter", None,
+     "consumer pause transitions per (topic, reason)"),
+    ("app_pubsub_publish_total_count", "counter", None, "publish attempts"),
+    ("app_pubsub_publish_success_count", "counter", None, "publishes ok"),
+    ("app_pubsub_subscribe_total_count", "counter", None,
+     "receive attempts"),
+    ("app_pubsub_subscribe_success_count", "counter", None, "receives ok"),
 )
 
 

@@ -5,6 +5,10 @@
 arrays and returns the same layout as torch tensors (``tok_emb``, stacked
 ``layers/*`` (L, ...), ``out_norm``, ``lm_head``; linears (in, out)), so
 both packages compute the same function from the same weights.
+:func:`from_jax_bert` does the same for BERT (stacked ``layers/*``).
+:func:`from_jax_resnet` turns each conv kernel from JAX's HWIO into the
+port's OIHW in ``channels_last``; the folded BatchNorm vectors and the
+head are kept as they are.
 """
 
 from __future__ import annotations
@@ -39,5 +43,33 @@ def from_jax_llama(params_np: Any,
         if isinstance(node, dict):
             return {key: walk(val) for key, val in node.items()}
         return _tensor(node, dev)
+
+    return walk(params_np)
+
+
+def from_jax_bert(params_np: Any,
+                  device: Union[str, torch.device] = "cuda") -> Any:
+    """JAX BERT pytree of numpy arrays -> the same tree of torch tensors
+    on ``device`` (the same stacked layout), dtypes kept."""
+    return from_jax_llama(params_np, device)
+
+
+def from_jax_resnet(params_np: Any,
+                    device: Union[str, torch.device] = "cuda") -> Any:
+    """JAX ResNet pytree of numpy arrays (``stem``, ``stages`` as lists of
+    blocks, ``head``) -> the port's tree on ``device``: every 4-D conv
+    kernel HWIO -> OIHW in ``channels_last``, dtypes kept."""
+    dev = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {key: walk(val) for key, val in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(val) for val in node]
+        tensor = _tensor(node, dev)
+        if tensor.ndim == 4:
+            tensor = tensor.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+        return tensor
 
     return walk(params_np)

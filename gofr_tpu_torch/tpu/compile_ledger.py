@@ -1,28 +1,153 @@
-"""The engine half of ``gofr_tpu/tpu/compile_ledger.py`` (a copy):
-device-seconds per executable family, the one charge helper that splits
-a step's dispatch-to-publish window over SLO classes and families, the
-prompt-bucket fit accounting and the padding-optimal ladder suggestion.
+"""Compile-plane and shape-plane bookkeeping (a copy of
+``gofr_tpu/tpu/compile_ledger.py``): every graph capture the executor
+ran, device-seconds per executable family, the one charge helper that
+splits a step's dispatch-to-publish window over SLO classes and
+families, the bucket-fit accounting and the padding-optimal ladder
+suggestion.
 
+- :class:`CompileLedger`: a bounded ring of compile events plus a
+  windowed serve-time-compile counter (the recompile-storm signal the
+  watchdog reads through ``serving_compiles(window_s)``). In the port a
+  compile is a CUDA-graph capture of one (model, bucket); its
+  fingerprint (:func:`fingerprint_capture`) hashes what fixes the graph,
+  as JAX's hashes the lowered StableHLO text.
 - :class:`ExecutableLedger` + :func:`charge_device_time`: one measured
   elapsed charges both the ``{model, cls}`` aggregate
   (``app_tpu_device_seconds_total``) and the ``{model, family}`` row
   (``app_tpu_executable_device_seconds_total``), so the two totals agree
-  by construction. In the port a family is a tick's CUDA graph rung or
-  a prefill's shape, named as the JAX engine names its executables.
+  by construction. In the port a family is a tick's CUDA graph rung, a
+  prefill's shape or an executor bucket, named as the JAX package names
+  its executables.
 - :class:`ShapeStats`: observed sizes against the bucket ladder, real
   rows against padded rows over sliding windows.
 - :func:`suggest_ladder`: the padding-optimal ladder of a given rung
   count for an observed distribution.
-
-The executor's ``CompileLedger`` comes with the executor.
 """
 
 from __future__ import annotations
 
+import hashlib
 import threading
+import time
+from collections import deque
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from gofr_tpu_torch.metrics.digest import WindowedCounter
+
+CAUSE_WARMUP = "warmup"
+CAUSE_SERVING = "serving"
+
+
+def fingerprint_capture(fn: Any, bucket: int, inputs: Sequence[Tuple],
+                        params: Sequence[Tuple],
+                        launches: Optional[Dict[str, int]] = None) -> str:
+    """Stable 16-hex-digit fingerprint of one captured (model, bucket)
+    graph, the port's counterpart of JAX's ``fingerprint_lowered``: there
+    is no HLO text, so it hashes what fixes the graph: ``fn``'s code
+    (bytecode, constants and qualified name), the bucket, the inputs' and
+    the params' (shape, dtype) specs in order, and the kernel launches
+    the capture counted. Two captures with the same fingerprint built
+    the same graph."""
+    code = getattr(fn, "__code__", None)
+    parts = [getattr(fn, "__qualname__", repr(type(fn))), str(bucket),
+             repr(list(inputs)), repr(list(params)),
+             repr(sorted((launches or {}).items()))]
+    digest = hashlib.sha256("|".join(parts).encode())
+    if code is not None:
+        digest.update(code.co_code)
+        digest.update(repr(code.co_consts).encode())
+    return digest.hexdigest()[:16]
+
+
+class CompileEvent:
+    __slots__ = ("ordinal", "model", "bucket", "cause", "duration_s",
+                 "fingerprint", "wall_at")
+
+    def __init__(self, ordinal: int, model: str, bucket: int, cause: str,
+                 duration_s: float, fingerprint: Optional[str]):
+        self.ordinal = ordinal
+        self.model = model
+        self.bucket = bucket
+        self.cause = cause
+        self.duration_s = duration_s
+        self.fingerprint = fingerprint
+        self.wall_at = time.time()
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "ordinal": self.ordinal,
+            "model": self.model,
+            "bucket": self.bucket,
+            "cause": self.cause,
+            "duration_s": round(self.duration_s, 4),
+            "fingerprint": self.fingerprint,
+            "at": self.wall_at,
+        }
+
+
+class CompileLedger:
+    """Bounded record of every (model, bucket) graph capture plus
+    windowed serve-time-compile counts (JAX ``CompileLedger``).
+    Thread-safe: captures happen under model locks on worker threads,
+    snapshots come from admin endpoints."""
+
+    def __init__(self, metrics: Any = None, capacity: int = 256):
+        self.metrics = metrics
+        self._events: "deque[CompileEvent]" = deque(maxlen=capacity)
+        self._lock = threading.Lock()
+        self._total = 0
+        self._totals_by_cause: Dict[str, int] = {}
+        self._serving = WindowedCounter()
+        self._seconds_total = 0.0
+
+    def record(self, model: str, bucket: int, cause: str,
+               duration_s: float, fingerprint: Optional[str] = None,
+               now: Optional[float] = None) -> CompileEvent:
+        with self._lock:
+            self._total += 1
+            event = CompileEvent(self._total, model, bucket, cause,
+                                 duration_s, fingerprint)
+            self._events.append(event)
+            self._totals_by_cause[cause] = \
+                self._totals_by_cause.get(cause, 0) + 1
+            self._seconds_total += duration_s
+        if cause == CAUSE_SERVING:
+            self._serving.add(1.0, now=now)
+        if self.metrics is not None:
+            self.metrics.increment_counter("app_tpu_compile_total",
+                                           cause=cause, model=model)
+            self.metrics.record_histogram("app_tpu_compile_seconds",
+                                          duration_s, model=model,
+                                          cause=cause)
+        return event
+
+    def serving_compiles(self, window_s: float = 60.0,
+                         now: Optional[float] = None) -> float:
+        """Serve-time compiles inside the window: the recompile-storm
+        input the watchdog compares against its threshold."""
+        return self._serving.sum(window_s, now)
+
+    def total(self, cause: Optional[str] = None) -> int:
+        with self._lock:
+            if cause is None:
+                return self._total
+            return self._totals_by_cause.get(cause, 0)
+
+    def snapshot(self, limit: int = 64,
+                 now: Optional[float] = None) -> Dict[str, Any]:
+        with self._lock:
+            events = [e.to_dict() for e in self._events]
+            totals = dict(self._totals_by_cause)
+            seconds = self._seconds_total
+        events = events[-limit:]
+        events.reverse()   # newest first, the ops-facing order
+        return {
+            "total": sum(totals.values()),
+            "by_cause": totals,
+            "compile_seconds_total": round(seconds, 4),
+            "serving_compiles_60s": self.serving_compiles(60.0, now),
+            "recent": events,
+        }
 
 
 class ExecutableLedger:

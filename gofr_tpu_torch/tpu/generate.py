@@ -212,9 +212,7 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import dataclasses
-import gc
 import os
-import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -233,7 +231,10 @@ from gofr_tpu_torch.ops.sampling import (filtered_log_probs_batch,
                                          greedy_accept, sample_batch,
                                          speculative_accept)
 from gofr_tpu_torch.slo import DeadlineExceeded, current_deadline
-from gofr_tpu_torch.tpu import faults, kv_wire
+from gofr_tpu_torch.tpu import capture, faults, kv_wire
+# the capture turn's names as the engine had them (its tests read them)
+from gofr_tpu_torch.tpu.capture import (  # noqa: F401
+    _CAPTURES, no_collection as _no_collection)
 from gofr_tpu_torch.tpu.compile_ledger import (ExecutableLedger, ShapeStats,
                                                charge_device_time,
                                                suggest_ladder)
@@ -676,51 +677,6 @@ class _Prefill:
         self.replays = 0
 
 
-# the process's one capture turn (any engine, any thread: one at a time),
-# and whether a capture is open: set while the turn holds the cyclic
-# collector off, a window inside the one the turn's lock is held
-_CAPTURE_TURN = threading.Lock()
-_CAPTURES = {"open": 0}
-# the side stream every capture runs on, by device index
-_SIDE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
-
-
-def _side_stream(device: torch.device) -> "torch.cuda.Stream":
-    """The one stream the captures on ``device`` run their eager run and
-    their capture on (taken in the capture turn)."""
-    index = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    stream = _SIDE_STREAMS.get(index)
-    if stream is None:
-        stream = _SIDE_STREAMS[index] = torch.cuda.Stream(index)
-    return stream
-
-
-@contextlib.contextmanager
-def _no_collection():
-    """Hold the process's one capture turn, with Python's cyclic collector
-    off.
-
-    ``torch.cuda.graph`` synchronizes the device as it begins a capture,
-    and a device sync while another thread's stream captures fails
-    (``cudaErrorStreamCaptureUnsupported``): engines that capture at once
-    (a fleet's replicas, a shadow clone scoring beside its source) take
-    turns. A paged engine and its pool reference each other, so a dropped
-    engine is freed by the collector, whenever it runs: run inside a
-    capture, on the capturing thread, it would destroy that engine's
-    graphs mid-capture, which invalidates the capture."""
-    with _CAPTURE_TURN:
-        enabled = gc.isenabled()
-        gc.disable()
-        _CAPTURES["open"] = 1
-        try:
-            yield
-        finally:
-            _CAPTURES["open"] = 0
-            if enabled:
-                gc.enable()
-
-
 def _k_rungs(steps_per_tick: int) -> List[int]:
     """The fused-steps ladder 1, 2, 4, ... <= ``steps_per_tick``."""
     rungs = [1]
@@ -1156,6 +1112,8 @@ class GenerationEngine:
         # run counters: what the kernels' launch counts are checked against
         self.prefill_dispatches = 0
         self.prefill_bucket_tokens = 0   # bucket rows x columns prefilled
+        self.prefill_real_tokens = 0     # the prompt tokens inside them
+        self._page_stalls = 0    # slots that sat a tick out for want of pages
         self.suffix_prefill_dispatches = 0   # prefills over a cached prefix
         self.prefix_admissions: Dict[int, int] = {}   # requests by rung
         self.decode_steps = 0         # plain decode steps (ragged decode)
@@ -1468,35 +1426,13 @@ class GenerationEngine:
 
     def _record(self, eager, body):
         """Capture ``body()`` as a CUDA graph into the engine's one graph
-        pool, in the process's capture turn with the cyclic collector off
-        (:func:`_no_collection`): ``eager()`` runs first on the side
-        stream, which builds the kernels and sets their attributes, under
-        ``set_sync_debug_mode("error")`` so a host sync raises here; then
-        the capture, on the same stream, whose launch counts become the
-        graph's. One side stream serves every capture of the process
-        (:func:`_side_stream`): cuBLAS keeps a workspace for each (thread,
-        stream) pair it meets. Returns (graph, its static output,
-        launches)."""
-        dev = self.device
-        with _no_collection():
-            side = _side_stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                mode = torch.cuda.get_sync_debug_mode()
-                torch.cuda.set_sync_debug_mode("error")
-                try:
-                    eager()
-                finally:
-                    torch.cuda.set_sync_debug_mode(mode)
-            torch.cuda.current_stream(dev).wait_stream(side)
-            if self._graph_pool is None:
-                self._graph_pool = torch.cuda.graph_pool_handle()
-            graph = torch.cuda.CUDAGraph()
-            with launch_counts.capture() as launches, torch.cuda.graph(
-                    graph, pool=self._graph_pool, stream=side,
-                    capture_error_mode="thread_local"):
-                out = body()
-        return graph, out, launches
+        pool (:func:`capture.record`: ``eager()`` first, on the process's
+        one side stream under ``set_sync_debug_mode("error")``, then the
+        capture, in the process's capture turn with the cyclic collector
+        off). Returns (graph, its static output, launches)."""
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        return capture.record(self.device, self._graph_pool, eager, body)
 
     def _capture(self, key: _Key) -> _Graph:
         """Capture the tick ``key`` as a CUDA graph (:meth:`_record`),
@@ -2233,6 +2169,7 @@ class GenerationEngine:
                                                       wait)
         self.prefill_dispatches += 1
         self.prefill_bucket_tokens += nb * bucket
+        self.prefill_real_tokens += len(prompt)
         self._kv_exports += 1
         record.first_token()
         record.tokens = 1
@@ -3207,7 +3144,7 @@ class GenerationEngine:
                 "page_tokens": self._prefix.page,
                 "store": self._prefix.stats(),
                 "prefill_bucket_tokens": self.prefill_bucket_tokens,
-                "prefill_real_tokens": None,
+                "prefill_real_tokens": self.prefill_real_tokens,
             }
         if self.paged:
             out["paged_kv"] = {
@@ -3271,7 +3208,12 @@ class GenerationEngine:
             "queue_depth": self._pending.qsize(),
             "pending": self._pending.qsize() + len(self._overflow),
             "prefill_dispatches": self.prefill_dispatches,
+            # JAX's names: prefill dispatches, and the bucket tokens
+            # dispatched against the real (non-padding, non-reused)
+            # prompt tokens inside them
+            "prefill_batches": self.prefill_dispatches,
             "prefill_bucket_tokens": self.prefill_bucket_tokens,
+            "prefill_real_tokens": self.prefill_real_tokens,
             # the disaggregated handoff (JAX's keys): prompt forwards
             # shipped out, migrated prompts admitted with no prefill, and
             # live sessions shipped out and resumed
@@ -3298,6 +3240,7 @@ class GenerationEngine:
             "max_len": self.max_len,
             "window_ladder": [w or self.max_len
                               for w in self._window_ladder],
+            "mesh": None,     # the engine refuses a mesh
             "ticks_by_window": {
                 w or self.max_len: n for w, n in sorted(
                     self.window_ticks.items(),
@@ -3314,6 +3257,10 @@ class GenerationEngine:
                 self.suffix_prefill_dispatches
         if self.paged:
             out["kv_pool"] = dict(self._pool.stats(),
+                                  reserve_pages=self._kv_reserve,
+                                  pages_per_slot=self.pages_per_slot,
+                                  page_stalls=self._page_stalls,
+                                  deferred_requests=len(self._overflow),
                                   attn_path=self.attn_path,
                                   ragged_attn=self.ragged_attn)
         else:
@@ -3906,6 +3853,7 @@ class GenerationEngine:
                 slot.phase_span.set_attribute("cached_prefix_len", plen)
             # only the suffix past the reused prefix is prefilled
             suffix = req.prompt[plen:]
+            self.prefill_real_tokens += len(suffix)
             if self.paged:
                 # a prefix hit is table entries: the pinned nodes' pages
                 # in columns [0, p_rung), fresh pages for the suffix
@@ -4000,9 +3948,11 @@ class GenerationEngine:
                         default=0)
                 if g > 0:
                     return self._dispatch_spec(loop, eligible, g)
-        eligible = self._cover_pages(eligible, k)
-        if not eligible:
+        covered = self._cover_pages(eligible, k)
+        if not covered:
+            self._shed_if_wedged(eligible)
             return None
+        eligible = covered
         window = self._tick_window(eligible, k)
         mask, sampled, snapshot = self._charge(eligible, k)
         bias = None
@@ -4057,9 +4007,11 @@ class GenerationEngine:
         """Dispatch one speculative tick at rung ``g``: charge every slot
         g + 1 in-flight tokens and g + 1 of fill (the worst case; the
         publish refunds the rejected tail), cover pages for it."""
-        eligible = self._cover_pages(eligible, g + 1)
-        if not eligible:
+        covered = self._cover_pages(eligible, g + 1)
+        if not covered:
+            self._shed_if_wedged(eligible)
             return None
+        eligible = covered
         window = self._tick_window(eligible, g + 1)
         mask, sampled, snapshot = self._charge(eligible, g + 1)
         self.spec_rungs[g] = self.spec_rungs.get(g, 0) + 1
@@ -4190,6 +4142,7 @@ class GenerationEngine:
                 ids = self._pool.alloc(short, reclaim=reclaim,
                                        epoch=self._pool_epoch)
                 if ids is None:
+                    self._page_stalls += 1
                     continue
                 self._table[slot_idx, held:held + short] = ids
                 slot.pages.extend(ids)
@@ -4198,6 +4151,26 @@ class GenerationEngine:
                     slot.record.pages_held = need
             covered.append((slot_idx, slot))
         return covered
+
+    def _shed_if_wedged(self, eligible) -> None:
+        """Pool-wedge breaker (JAX ``_shed_newest``): every eligible slot
+        is short of pages and nothing was reclaimable. With a tick in
+        flight (dispatched, queued on the device thread or not yet
+        published) its slots' completions will free pages; with none,
+        and the pool not reset under this engine (a stale epoch empties
+        the list for another reason), the pool is wedged: fail the NEWEST
+        request, whose pages let the others finish."""
+        if not self.paged or self._ticks_inflight or self._pool_stale():
+            return
+        slot_idx, slot = max(eligible, key=lambda e: e[1].submitted_at)
+        exc = RuntimeError(
+            "kv page pool wedged: no slot can grow and nothing is "
+            "reclaimable; shedding the newest request")
+        if self.logger is not None:
+            self.logger.error(
+                "engine: %s (slot %d, %d pages back to the pool)",
+                exc, slot_idx, len(slot.pages) + len(slot.nodes))
+        self._fail_slot(slot_idx, slot, exc)
 
     # -- publishing --------------------------------------------------------------
     def _publish(self, entry: _Fetch, host: np.ndarray) -> None:

@@ -22,6 +22,16 @@ waits, and shrinks to it when ``depth`` is lowered (an operating point's
 On the CPU there is nothing to stage: uploads copy straight into the
 destination and a fetch copies the tensor out when it is started.
 
+The executor's half (JAX ``StagingPool.acquire`` / ``retire``): a ring of
+row slabs per (model, bucket) key, each a set of pinned host buffers
+matching the bucket's input leaves (numpy views of pinned tensors; plain
+numpy arrays on the CPU). The executor writes each request's rows
+straight into a slab, copies the slab into the bucket's static inputs
+and retires it with the event recorded behind that copy. A ring grows
+to ``depth`` slabs before an acquire ever waits; then it waits on its
+oldest slab's event (``reuse_waits``), by which point the card has read
+the slab's bytes.
+
 Metered uploads (JAX's ``app_tpu_h2d_bytes_total`` /
 ``app_tpu_h2d_seconds`` by ``path``): every upload adds its bytes and the
 host seconds its call took (the copy is queued, not waited for, as JAX's
@@ -54,6 +64,14 @@ import torch
 __all__ = ["StagingPool", "TransferCoalescer"]
 
 
+def _host_values(tensor: torch.Tensor) -> np.ndarray:
+    """A host tensor's values as a numpy array of their own (bfloat16
+    widened to float32, exactly)."""
+    if tensor.dtype == torch.bfloat16:
+        return tensor.float().numpy()
+    return tensor.numpy().copy()
+
+
 class _Slab:
     __slots__ = ("host", "event")
 
@@ -62,8 +80,44 @@ class _Slab:
         self.event = None       # recorded behind the slab's last copy
 
 
+class _RowSlab:
+    """One set of host buffers matching a bucket's leaves: ``tensors``
+    (pinned on the card) and ``buffers``, numpy views of them; ``event``
+    is recorded behind the copy that last read them."""
+
+    __slots__ = ("tensors", "buffers", "event")
+
+    def __init__(self, specs: Sequence[Tuple[Tuple[int, ...], str]],
+                 pinned: bool):
+        self.buffers: List[np.ndarray] = []
+        self.tensors: List[torch.Tensor] = []
+        for shape, dtype in specs:
+            if pinned:
+                tensor = torch.empty(
+                    tuple(shape), pin_memory=True,
+                    dtype=torch.from_numpy(np.empty(0, dtype)).dtype)
+                tensor.zero_()
+                buf = tensor.numpy()
+            else:
+                buf = np.zeros(tuple(shape), np.dtype(dtype))
+                tensor = torch.from_numpy(buf)
+            self.buffers.append(buf)
+            self.tensors.append(tensor)
+        self.event: Any = None
+
+    def matches(self, specs) -> bool:
+        return len(self.buffers) == len(specs) and all(
+            buf.shape == tuple(shape) and buf.dtype == np.dtype(dtype)
+            for buf, (shape, dtype) in zip(self.buffers, specs))
+
+    @property
+    def nbytes(self) -> int:
+        return sum(buf.nbytes for buf in self.buffers)
+
+
 class StagingPool:
-    """Rings of pinned slabs keyed by (direction, shape, dtype)."""
+    """Rings of pinned slabs keyed by (direction, shape, dtype), and the
+    executor's rings of row slabs keyed by (model, bucket)."""
 
     def __init__(self, device: torch.device, depth: int = 3):
         self.device = device
@@ -76,6 +130,63 @@ class StagingPool:
         self._upload_bytes = 0
         self._upload_seconds = 0.0
         self._meter: List[Tuple[str, int, float]] = []
+        self._rows: Dict[Any, deque] = {}
+        self._row_count: Dict[Any, int] = {}
+        self._reuse_waits = 0
+
+    # -- the executor's row slabs (JAX acquire / retire) ----------------------
+    def acquire(self, key: Any, specs: Sequence[Tuple[Tuple[int, ...], str]]
+                ) -> _RowSlab:
+        """A row slab of ``key``'s ring whose buffers match ``specs``
+        ((shape, numpy dtype name) a leaf), safe to write: a fresh one
+        while the ring is under ``depth`` and its free slabs' copies may
+        be queued, else the oldest after waiting on its event. A slab of
+        another geometry is dropped (the pinned allocator keeps its block
+        until the event behind its copy)."""
+        while True:
+            with self._lock:
+                ring = self._rows.setdefault(key, deque())
+                slab = ring.popleft() if ring else None
+                grow = self._row_count.get(key, 0) < self.depth
+            if slab is None:
+                return self._new_rows(key, specs)
+            if not slab.matches(specs):
+                self._forget_rows(key, slab)
+                continue
+            if slab.event is not None:
+                if grow:
+                    with self._lock:
+                        ring.appendleft(slab)
+                    return self._new_rows(key, specs)
+                self._reuse_waits += 1
+                slab.event.synchronize()
+                slab.event = None
+            return slab
+
+    def retire(self, key: Any, slab: _RowSlab, event: Any) -> None:
+        """Give ``slab`` back to ``key``'s ring with ``event`` (None: no
+        copy in flight) recorded behind the copy that read it; a ring past
+        ``depth`` drops its oldest."""
+        slab.event = event
+        with self._lock:
+            ring = self._rows.setdefault(key, deque())
+            ring.append(slab)
+            while len(ring) > self.depth:
+                dropped = ring.popleft()
+                self._row_count[key] -= 1
+                self._slab_bytes -= dropped.nbytes
+
+    def _new_rows(self, key: Any, specs) -> _RowSlab:
+        slab = _RowSlab(specs, pinned=self.device.type == "cuda")
+        with self._lock:
+            self._row_count[key] = self._row_count.get(key, 0) + 1
+            self._slab_bytes += slab.nbytes
+        return slab
+
+    def _forget_rows(self, key: Any, slab: _RowSlab) -> None:
+        with self._lock:
+            self._row_count[key] = max(0, self._row_count.get(key, 1) - 1)
+            self._slab_bytes -= slab.nbytes
 
     def _new(self, key: Tuple) -> _Slab:
         _, shape, dtype = key
@@ -199,9 +310,10 @@ class StagingPool:
         """Queue the copy of device tensor ``src`` into a pinned slab now,
         in stream order (a later write of ``src`` cannot reach it), and
         return the function that waits for it and returns the values:
-        call that one off the dispatching thread."""
+        call that one off the dispatching thread. A bfloat16 tensor's
+        values come back widened to float32 (numpy has no bfloat16)."""
         if self.device.type != "cuda":
-            values = src.numpy().copy()
+            values = _host_values(src)
             return lambda: values
         key = ("down", tuple(src.shape), src.dtype)
         with self._lock:
@@ -215,16 +327,21 @@ class StagingPool:
 
         def wait() -> np.ndarray:
             event.synchronize()
-            values = slab.host.numpy().copy()
+            values = _host_values(slab.host)
             self._release(key, slab)
             return values
         return wait
 
     def stats(self) -> Dict[str, Any]:
-        """Uploads made, their bytes and their rate over the host seconds
-        their calls took (JAX's keys), and the pinned slabs' bytes."""
+        """JAX's keys: the ring depth, the row slabs a key, the host slabs'
+        bytes, the waits for a row slab's copy, and the uploads made, their
+        bytes and their rate over the host seconds their calls took."""
         with self._lock:
-            return {"uploads": self._uploads,
+            return {"depth": self.depth,
+                    "slabs": {str(k): v for k, v in self._row_count.items()
+                              if v},
+                    "reuse_waits": self._reuse_waits,
+                    "uploads": self._uploads,
                     "upload_bytes": self._upload_bytes,
                     "upload_mb_per_s": (
                         round(self._upload_bytes / self._upload_seconds

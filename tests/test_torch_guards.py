@@ -90,7 +90,16 @@ def test_guard_scans_the_admission_and_grammar_modules():
            "gofr_tpu_torch/tpu/registry.py",
            "gofr_tpu_torch/tpu/cluster.py",
            "gofr_tpu_torch/tpu/fleet.py",
-           "gofr_tpu_torch/tpu/autotune.py"]
+           "gofr_tpu_torch/tpu/autotune.py",
+           "gofr_tpu_torch/tpu/capture.py",
+           "gofr_tpu_torch/tpu/executor.py",
+           "gofr_tpu_torch/tpu/batcher.py",
+           "gofr_tpu_torch/tpu/batch_lane.py",
+           "gofr_tpu_torch/models/resnet.py",
+           "gofr_tpu_torch/models/bert.py",
+           "gofr_tpu_torch/datasource/__init__.py",
+           "gofr_tpu_torch/datasource/pubsub/base.py",
+           "gofr_tpu_torch/datasource/pubsub/inmem.py"]
     assert set(own) <= files
     for name in own + ["gofr_tpu_torch/tpu/generate.py"]:
         assert not set(_imported_roots(ROOT / name)) & set(FORBIDDEN), name
@@ -180,3 +189,26 @@ def test_moe_and_engine_arguments_default_to_the_card(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         GenerationEngine(lcfg, lparams, max_len=64, prompt_buckets=(8,),
                          paged_kv=True, kv_page=4, page_pool=pool)
+
+
+def test_executor_path_defaults_to_the_card(no_cuda):
+    """The executor path's entry points (the executor, its factory, the
+    ResNet and BERT modules and their converters) raise at their default
+    device; the CPU runs only when asked for."""
+    import numpy as np
+
+    from gofr_tpu_torch.models import bert, resnet
+    from gofr_tpu_torch.models.convert import from_jax_bert, from_jax_resnet
+    from gofr_tpu_torch.tpu import Executor, new_executor
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Executor(None, None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        new_executor(None, None, None)
+    for module in (resnet, bert):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            module.init(module.config("tiny"))
+    for convert in (from_jax_resnet, from_jax_bert):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            convert({"w": np.zeros((1, 1, 1, 1), np.float32)})
+    assert Executor(None, None, device="cpu").device.type == "cpu"

@@ -79,18 +79,28 @@ PAGED_PATH = {"jax": ("app_tpu_attn_kernel_total",
                       (("model", "generate"), ("path", "gather"))),
               "port": ("app_tpu_attn_kernel_total",
                        (("model", "generate"), ("path", "ragged")))}
-# key-tree exceptions of the views: path prefix -> reason
+# the port's own stats() keys, which JAX's has no counterpart of: the
+# graph captures, the dense cache, the tick pipeline, the device
+PORT_STATS = ("device", "graphs", "kv_cache", "max_inflight_ticks",
+              "pending", "prefill_dispatches", "speculative/draft_steps",
+              "speculative/ticks_by_gamma", "ticks", "ticks_by_window",
+              "ticks_inflight", "ticks_inflight_peak")
+# key-tree exceptions of the views: path prefix -> reason (health_check's
+# details are stats())
 VIEW_EXCEPTIONS = {
-    "/stats/": "stats() is the port's own: graphs and ticks in place of "
-               "JAX's jit and mesh counters (its handoff counters are "
-               "JAX's, STATS_KEYS)",
-    "/details/": "health_check's details are stats()",
-}
+    f"{root}/{key}": "the port's own stats() key"
+    for root in ("/stats", "/details") for key in PORT_STATS}
 # keys of JAX's stats() the port's carries too, with JAX's meaning: the
 # ones the telemetry plane reads and the disaggregated handoff's counters
 STATS_KEYS = ("device_seconds", "compiles", "classes", "model",
-              "free_slots", "queue_depth", "kv_exports", "kv_adoptions",
+              "free_slots", "queue_depth", "prefill_batches",
+              "prefill_real_tokens", "mesh", "kv_exports", "kv_adoptions",
               "session_exports", "session_adoptions")
+# counters of JAX's stats() whose values the port's equal after the burst
+STATS_EQUAL = ("prefill_batches", "prefill_bucket_tokens",
+               "prefill_real_tokens", "mesh")
+KV_POOL_EQUAL = ("reserve_pages", "pages_per_slot", "page_stalls",
+                 "deferred_requests")
 # operating-point keys whose values differ from JAX's, with the reason
 OP_POINT_VALUES_APART = {
     "applied_at": "a monotonic instant of each process",
@@ -321,6 +331,12 @@ def test_views_have_jax_key_tree(bursts, case, view):
             assert key in port_view["stats"] and key in jax_view["stats"]
         for key in STATS_KEYS[-4:]:
             assert port_view["stats"][key] == jax_view["stats"][key] == 0
+        for key in STATS_EQUAL:
+            assert port_view["stats"][key] == jax_view["stats"][key], key
+        if "kv_pool" in jax_view["stats"]:
+            for key in KV_POOL_EQUAL:
+                assert port_view["stats"]["kv_pool"][key] \
+                    == jax_view["stats"]["kv_pool"][key], key
         assert port_view["requests"]["total_requests"] == len(PROMPTS)
     if view == "xlaz":
         port_point, jax_point = (
@@ -390,10 +406,59 @@ def test_port_catalog_is_the_apps():
             "app_tpu_autotune_total", "app_tpu_autotune_score",
             "app_tpu_autotune_generation"} \
         <= {name for name, _, _, _ in ENGINE_METRICS}
+    # the executor's, the dynamic batcher's, the batch lane's and the
+    # in-memory broker's series
+    assert {"app_tpu_execute", "app_tpu_batch_size",
+            "app_tpu_requests_total", "app_tpu_step_phase_seconds",
+            "app_tpu_compile_total", "app_tpu_compile_seconds",
+            "app_tpu_flush_total", "app_tpu_batch_fill",
+            "app_tpu_duty_cycle", "app_tpu_mfu", "app_tpu_effective_mfu",
+            "app_tpu_padding_ratio", "app_tpu_hbm_occupancy",
+            "app_tpu_hbm_bytes_in_use", "app_tpu_device_up",
+            "app_tpu_batch_lane_jobs_total", "app_tpu_batch_lane_inflight",
+            "app_tpu_batch_lane_paused", "app_pubsub_consumer_paused_total",
+            "app_pubsub_publish_total_count",
+            "app_pubsub_subscribe_success_count"} \
+        <= {name for name, _, _, _ in ENGINE_METRICS}
     for name, kind, buckets, _ in ENGINE_METRICS:
         metric = jax_metrics[name]
         assert metric.kind == {"updown_counter": "updown"}.get(kind, kind)
         assert metric.buckets == list(buckets or [])
+
+
+def test_prefix_counters_as_jax(weights):
+    """With the prefix store on, a second prompt that shares the first
+    one's 8-token head prefills its suffix only: ``prefill_real_tokens``
+    counts the real tokens prefilled, in ``stats()`` and in
+    ``xlaz()["prefix_cache"]``, as JAX's does."""
+    prompts = [list(range(1, 13)), list(range(1, 9)) + [40, 41, 42]]
+    kw = dict(ENGINE_KW, paged_kv=True, kv_page=4, prefix_cache=True)
+
+    async def serve(engine):
+        await engine.start()
+        try:
+            return [await asyncio.wait_for(engine.generate(p, 4), 60.0)
+                    for p in prompts]
+        finally:
+            await engine.stop()
+
+    jcfg = jax_llama.config("tiny", dtype=jnp.float32, use_flash=True)
+    container = new_mock_container()
+    jax_engine = JaxEngine(jcfg, weights, logger=container.logger,
+                           metrics=container.metrics, **kw)
+    tcfg = pt_llama.config("tiny", dtype=torch.float32, use_flash=True)
+    port = GenerationEngine(tcfg, from_jax_llama(weights, "cpu"),
+                            device="cpu", **kw)
+    assert asyncio.run(serve(port)) == asyncio.run(serve(jax_engine))
+    jax_stats, port_stats = jax_engine.stats(), port.stats()
+    for key in STATS_EQUAL:
+        assert port_stats[key] == jax_stats[key], key
+    for key in KV_POOL_EQUAL:
+        assert port_stats["kv_pool"][key] == jax_stats["kv_pool"][key], key
+    assert port_stats["prefill_real_tokens"] < sum(len(p) for p in prompts)
+    assert port.xlaz()["prefix_cache"]["prefill_real_tokens"] \
+        == jax_engine.xlaz()["prefix_cache"]["prefill_real_tokens"] \
+        == port_stats["prefill_real_tokens"]
 
 
 READS = ("item", "tolist", "cpu", "numpy", "__bool__", "__int__",
