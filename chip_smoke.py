@@ -23,7 +23,9 @@ serving (KV export and adoption through the KV wire codec, the router
 and its in-process transport, session migration) and the model
 registry, then the fleet control plane and the auto-tuner, then the
 executor path (ResNet-50 and BERT-base through the ``Executor``, one
-CUDA graph a bucket, and the ``DynamicBatcher``) and the batch lane.
+CUDA graph a bucket, and the ``DynamicBatcher``) and the batch lane,
+then training on one card (the train and eval steps, optax's AdamW,
+checkpoint and resume in the JAX package's format).
 Phases, each of which raises (exit code != 0) on failure:
 
 1. card identity (``nvidia-smi`` name and power limit, torch/CUDA);
@@ -306,7 +308,28 @@ Phases, each of which raises (exit code != 0) on failure:
     and resumes; (b) the pool wedge on a paged engine of 8 pages of 4,
     2 slots, 1 tick in flight, plain and speculative: the first of two
     requests returns its 20 tokens, the second fails with the wedge's
-    ``RuntimeError`` within 10 s, the free pages come back.
+    ``RuntimeError`` within 10 s, the free pages come back;
+36. training (after phase 35), each model random from ``--seed`` and
+    trained on one fixed batch: (a) ``small`` (8 layers, dim 1024, D 64,
+    vocab 32000) bf16 at B 8 x S 1024, 20 steps of ``make_train_step``:
+    the loss falls from about ln 32000; a float32 step from the same
+    state within 2e-2 relative of the bf16 loss, its gradients' cosines
+    >= 0.99 leaf by leaf; remat's loss and gradients within the plain
+    step's run-to-run spread (the step twice from one state); step ms
+    (CUDA events, median of the last 10), tokens/s, ``FlopCounterMode``
+    FLOPs and MFU against 989 TFLOP/s, peak bytes with and without
+    remat, the device's idle share of a step; (b) the whole
+    ``TrainState`` saved at step 2, restored into a fresh state (bits
+    equal, and from ``step_2.old``), step 3 resumed within the spread of
+    the uninterrupted run; (c) ``make_eval_step`` through the flash
+    kernel (``n_layers`` launches a call) within 1e-2 relative of the
+    plain eval; (d) refusals: ``make_train_step`` with ``use_flash``, and
+    each kernel wrapper under autograd, with no launch; (e)
+    ``moe-small`` (8 experts) bf16, 5 AdamW steps of ``moe.loss_fn`` at B
+    4 x S 512: the loss falls, the router's gradients finite and nonzero,
+    dropped tokens a layer; (f) ``llama3-8b``'s width at depth 2 (the
+    cut logged), 3 remat steps at B 2 x S 512: the loss falls, step ms,
+    peak bytes.
 
 Every engine burst (phases 9-12, 15-18, 20-23, 30a) is served twice:
 counted, then under ``torch.profiler`` for the device's idle share. Every
@@ -326,6 +349,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1038,7 +1062,8 @@ PATH_KERNELS = {"engine": ("flash", "ragged"),
                 "prefix_llama3": ("flash", "ragged"),
                 "planes_small": ("flash", "ragged"),
                 "op_small": ("flash", "ragged"),
-                "op_llama3": ("flash", "ragged")}
+                "op_llama3": ("flash", "ragged"),
+                "train_eval_small": ("flash",)}
 
 
 def warm(engine):
@@ -5982,6 +6007,499 @@ def phase_wedge(torch, llama, generate, mods, cfg, params, seed, results,
     return by_path
 
 
+# -- phase 36: training on one card ------------------------------------------
+#
+# ``small`` at full width and depth (36a-d), ``moe-small`` (36e) and
+# ``llama3-8b``'s width at depth 2 (36f), each trained by the port's
+# AdamW (optax's ``adamw``) on one fixed batch of random tokens.
+
+TRAIN_BATCH = (8, 1024)          # 36a-c: B x S
+MOE_BATCH = (4, 512)             # 36e
+BIG_BATCH = (2, 512)             # 36f
+BIG_LAYERS = 2                   # 36f: llama3-8b's depth cut to this
+TRAIN_STEPS, TIMED_STEPS, MOE_STEPS, BIG_STEPS = 20, 10, 5, 3
+F32_LOSS_RTOL = 2e-2             # 36a: a float32 step against bf16's loss
+F32_GRAD_COS = 0.99              # ... and its gradients, leaf by leaf
+EVAL_FLASH_RTOL = 1e-2           # 36c: the flash eval against the plain
+
+
+def train_batch(torch, vocab, shape, seed, device):
+    """Random tokens from ``seed`` and their next tokens as targets."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tokens = torch.randint(0, vocab, shape, generator=gen, device=device)
+    return tokens, torch.roll(tokens, -1, dims=1)
+
+
+def tree_clone(tree_util, tree):
+    return tree_util.unflatten(tree, {
+        key: leaf.clone() for key, leaf in tree_util.flatten(tree).items()})
+
+
+def leaf_diffs(tree_util, a, b):
+    """max |a - b| of each leaf, as floats."""
+    fb = tree_util.flatten(b)
+    return {key: (leaf.float() - fb[key].float()).abs().max().item()
+            for key, leaf in tree_util.flatten(a).items()}
+
+
+def leaf_scales(tree_util, tree):
+    """max |leaf| of each leaf, as floats."""
+    return {key: leaf.float().abs().max().item()
+            for key, leaf in tree_util.flatten(tree).items()}
+
+
+def within_spread(diffs, spread, scales):
+    """Leaves whose ``diffs`` exceed the run-to-run ``spread``: a leaf
+    that came out the same twice must come out the same; one that did
+    not (the embedding's gradient sums by atomics) may differ by its
+    spread or by two bf16 roundings of its largest value (2^-7 of it),
+    whichever is larger."""
+    return {key: diffs[key] for key in diffs
+            if diffs[key] > (max(spread[key], scales[key] * 2.0 ** -7)
+                             if spread[key] > 0 else 0.0)}
+
+
+def card_label(device):
+    """The card's name and power limit, or "cpu" for a rehearsal."""
+    return card_line() if device == "cuda" else "cpu"
+
+
+def free_device(torch, device):
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+
+def same_bits(torch, tree_util, a, b):
+    """Every leaf of ``a`` and ``b`` the same dtype and bits."""
+    fb = tree_util.flatten(b)
+    for key, leaf in tree_util.flatten(a).items():
+        other = fb[key]
+        if leaf.dtype != other.dtype or leaf.shape != other.shape:
+            return False
+        if leaf.dtype == torch.bfloat16:
+            leaf, other = leaf.view(torch.int16), other.view(torch.int16)
+        if not torch.equal(leaf, other):
+            return False
+    return True
+
+
+def timed_steps(torch, fn, n, device):
+    """Run ``fn()`` ``n`` times back to back (no sync between): each
+    call's ms (CUDA events; the host clock on the CPU) and its results."""
+    outs, ms = [], []
+    if device == "cpu":
+        for _ in range(n):
+            t0 = time.perf_counter()
+            outs.append(fn())
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return ms, outs
+    events = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        outs.append(fn())
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return [s.elapsed_time(e) for s, e in events], outs
+
+
+def peak_bytes(torch, fn, device):
+    """``fn()``'s result and the allocator's peak while it ran (0 on the
+    CPU)."""
+    if device == "cpu":
+        return fn(), 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated()
+
+
+def grad_refusal_calls(torch, mods, device="cuda"):
+    """One call of each kernel wrapper on card tensors at shapes it
+    takes (D 64), q requiring a gradient: (name, fn, args)."""
+    flash_mod, ragged_mod, decode_mod = mods
+    gen = torch.Generator(device=device).manual_seed(36)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device).bfloat16()
+
+    b, t, hq, hkv, d = 2, 64, 4, 2, 64
+    q_prefill = randn(b, t, hq, d).requires_grad_()
+    k, v = randn(b, t, hkv, d), randn(b, t, hkv, d)
+    q = randn(b, 1, hq, d).requires_grad_()
+    k_new, v_new = randn(b, hkv, d), randn(b, hkv, d)
+    lens = torch.tensor([5, 40], dtype=torch.int32, device=device)
+    page = 32
+    table = (torch.arange(b, dtype=torch.int32, device=device)[:, None]
+             * (t // page)
+             + torch.arange(t // page, dtype=torch.int32,
+                            device=device)[None, :]).contiguous()
+    pages = (k.view(-1, page, hkv, d), v.view(-1, page, hkv, d))
+    return [
+        ("flash_attention", flash_mod.flash_attention, (q_prefill, k, v)),
+        ("ragged_paged_decode_attention",
+         ragged_mod.ragged_paged_decode_attention,
+         (q, *pages, table, k_new, v_new, lens)),
+        ("flash_decode_attention", decode_mod.flash_decode_attention,
+         (q, k, v, k_new, v_new, lens)),
+    ]
+
+
+def phase_train(torch, llama, moe, train, checkpoint, mods, seed, results,
+                device="cuda", small_cfg=None, moe_cfg=None, big_cfg=None,
+                batches=(TRAIN_BATCH, MOE_BATCH, BIG_BATCH)):
+    """Phase 36 (after phase 35): training on one card. Returns the
+    launches of 36c's eval through the flash kernel, by path."""
+    from gofr_tpu_torch.utils import tree as tree_util
+
+    t_phase = time.monotonic()
+    out = results.setdefault("train", {})
+    small_cfg = small_cfg or llama.config("small")
+    by_path = phase_train_small(torch, llama, train, checkpoint, tree_util,
+                                mods, small_cfg, batches[0], seed, out,
+                                device)
+    free_device(torch, device)
+    phase_train_moe(torch, moe, train, tree_util, moe_cfg
+                    or moe.config("small"), batches[1], seed, out, device)
+    free_device(torch, device)
+    phase_train_big(torch, llama, train, big_cfg or llama.config(
+        "llama3-8b", n_layers=BIG_LAYERS), batches[2], seed, out, device)
+    free_device(torch, device)
+    results["phase36_s"] = time.monotonic() - t_phase
+    log(f"phase 36: {results['phase36_s']:.1f}s")
+    return by_path
+
+
+def phase_train_small(torch, llama, train, checkpoint, tree_util, mods, cfg,
+                      batch, seed, out, device):
+    """36a-d on ``cfg`` (``small``: 8 layers, dim 1024, 16 heads, D 64,
+    vocab 32000), bf16, at ``batch`` (B 8 x S 1024)."""
+    import tempfile
+    from torch.utils.flop_counter import FlopCounterMode
+
+    card = card_label(device)
+    init_fn, step_fn = train.make_train_step(cfg, device=device)
+    _, remat_step = train.make_train_step(cfg, remat=True, device=device)
+    state0 = init_fn(seed)
+    n_params = sum(p.numel() for p in tree_util.flatten(
+        state0.params).values())
+    tokens, targets = train_batch(torch, cfg.vocab_size, batch, seed + 1,
+                                  device)
+    log(f"== phase 36a: train small ({n_params / 1e6:.1f} M params, "
+        f"{cfg.n_layers} layers, dim {cfg.dim}, {cfg.n_heads} heads, D "
+        f"{cfg.head_dim}, vocab {cfg.vocab_size}) bf16 at B {batch[0]} x S "
+        f"{batch[1]}; {card}")
+
+    def loss(params, t, y):
+        return llama.loss_fn(params, cfg, t, y)
+
+    # FLOPs a step (forward and backward; the optimizer's elementwise
+    # work is not counted). The counter is a dispatch mode, under which
+    # some ops take other paths: its run is not one of the runs compared
+    with FlopCounterMode(display=False) as counter:
+        train.value_and_grad(loss, state0.params, tokens, targets)
+    flops = counter.get_total_flops()
+    # the gradient twice from one state (the spread: the embedding's
+    # scatter-add sums by atomics on the card), once under remat
+    loss_a, grads_a = train.value_and_grad(loss, state0.params, tokens,
+                                           targets)
+    loss_b, grads_b = train.value_and_grad(loss, state0.params, tokens,
+                                           targets)
+    loss_r, grads_r = train.value_and_grad(loss, state0.params, tokens,
+                                           targets, remat=True)
+    spread = leaf_diffs(tree_util, grads_a, grads_b)
+    remat_d = leaf_diffs(tree_util, grads_a, grads_r)
+    loss_spread = abs(loss_a.item() - loss_b.item())
+    log(f"36a grad spread (plain twice) {spread}; loss "
+        f"{loss_a.item():.6f}, spread {loss_spread:.3e}")
+    log(f"36a remat against plain: loss {loss_r.item():.6f} "
+        f"(|d| {abs(loss_r.item() - loss_a.item()):.3e}), grads {remat_d}")
+    outside = within_spread(remat_d, spread,
+                            leaf_scales(tree_util, grads_a))
+    if abs(loss_r.item() - loss_a.item()) > loss_spread or outside:
+        raise AssertionError(f"phase 36a: remat's loss or gradients "
+                             f"{outside} outside the plain step's "
+                             f"run-to-run spread")
+    del grads_b, grads_r
+
+    # one float32 step from the same state
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = tree_util.unflatten(state0.params, {
+        k: v.float() for k, v in tree_util.flatten(state0.params).items()})
+    loss_32, grads_32 = train.value_and_grad(
+        lambda p, t, y: llama.loss_fn(p, cfg32, t, y), params32, tokens,
+        targets)
+    rel = abs(loss_32.item() - loss_a.item()) / abs(loss_32.item())
+    g16 = tree_util.flatten(grads_a)
+    cosines = {k: torch.nn.functional.cosine_similarity(
+        g.flatten(), g16[k].float().flatten(), dim=0).item()
+        for k, g in tree_util.flatten(grads_32).items()}
+    log(f"36a float32 step: loss {loss_32.item():.6f} (rel {rel:.3e} of "
+        f"bf16's), gradient cosines {cosines}")
+    if rel > F32_LOSS_RTOL or min(cosines.values()) < F32_GRAD_COS:
+        raise AssertionError(f"phase 36a: float32 against bf16: loss rel "
+                             f"{rel}, cosines {cosines}")
+    del params32, grads_32, grads_a
+
+    # a step twice from one state (the params' spread, for 36b), peak
+    # bytes with and without remat
+    runs = []
+    for stepper in (step_fn, step_fn, remat_step):
+        state = tree_clone(tree_util, state0)
+        (_, _), peak = peak_bytes(
+            torch, lambda: stepper(state, tokens, targets), device)
+        runs.append((state, peak))
+    param_spread = leaf_diffs(tree_util, runs[0][0].params,
+                              runs[1][0].params)
+    remat_params = leaf_diffs(tree_util, runs[0][0].params,
+                              runs[2][0].params)
+    peak_plain, peak_remat = runs[0][1], runs[2][1]
+    log(f"36a one step twice: param spread {param_spread}; remat's params "
+        f"against plain {remat_params}; peak bytes {peak_plain} plain, "
+        f"{peak_remat} remat")
+    del runs
+
+    # 20 steps on the fixed batch, each timed
+    state = tree_clone(tree_util, state0)
+    ms, losses = timed_steps(
+        torch, lambda: step_fn(state, tokens, targets)[1], TRAIN_STEPS,
+        device)
+    losses = [l.item() for l in losses]
+    step_ms = median(ms[-TIMED_STEPS:])
+    tok_s = batch[0] * batch[1] / (step_ms / 1e3)
+    mfu = flops / (step_ms / 1e3) / BF16_FLOP_PER_S
+    log(f"36a {TRAIN_STEPS} steps: losses {[round(l, 4) for l in losses]}")
+    ln_v = math.log(cfg.vocab_size)
+    if not (losses[-1] < losses[0]
+            and abs(losses[0] - ln_v) <= 0.1 * ln_v):
+        raise AssertionError(f"phase 36a: losses {losses} (ln V {ln_v})")
+    if int(state.step.item()) != TRAIN_STEPS:
+        raise AssertionError(f"phase 36a: step {state.step.item()}")
+
+    # the device's idle share of one more step (on a copy)
+    idle, top, out_prof = None, [], {}
+    if device == "cuda":
+        probe = tree_clone(tree_util, state)
+        step_fn(probe, tokens, targets)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step_fn(probe, tokens, targets)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        by_kernel, _ = device_times(torch, prof)
+        busy = sum(by_kernel.values())
+        idle = 1.0 - busy / wall
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+        # cuBLAS's GEMMs on Hopper (nvjet, xmma or cutlass kernels)
+        gemm_s = sum(sec for name, sec in by_kernel.items() if any(
+            tag in name.lower()
+            for tag in ("gemm", "cutlass", "xmma", "nvjet")))
+        log(f"36a one step profiled: {wall * 1e3:.3f} ms wall, device "
+            f"busy {busy * 1e3:.3f} ms, of it GEMMs {gemm_s * 1e3:.3f} ms "
+            f"and the rest (elementwise, reductions, copies) "
+            f"{(busy - gemm_s) * 1e3:.3f} ms")
+        out_prof = dict(wall_ms=wall * 1e3, busy_ms=busy * 1e3,
+                        gemm_ms=gemm_s * 1e3)
+        del probe
+    log(f"36a {card}: step {step_ms:.3f} ms (median of the last "
+        f"{TIMED_STEPS}; all {[round(m, 3) for m in ms]}), {tok_s:.0f} "
+        f"train tokens/s, {flops:.4e} FLOPs a step (FlopCounterMode), MFU "
+        f"{mfu:.4f} of 989 TFLOP/s; peak bytes {peak_plain} plain, "
+        f"{peak_remat} remat; device idle share of a step {idle}; top "
+        f"kernels (s) {top}")
+    out["small"] = dict(
+        card=card, params=n_params, batch=list(batch), losses=losses,
+        step_ms=ms, step_ms_median=step_ms, tokens_per_s=tok_s,
+        flops_per_step=flops, mfu=mfu, peak_bytes=peak_plain,
+        peak_bytes_remat=peak_remat, idle_share=idle,
+        top_kernels=[[k, s] for k, s in top], profile=out_prof,
+        grad_spread=spread,
+        remat_grad_diff=remat_d, param_spread=param_spread,
+        remat_param_diff=remat_params, f32_loss=loss_32.item(),
+        bf16_loss=loss_a.item(), f32_loss_rel=rel, f32_grad_cos=cosines)
+
+    # 36b: checkpoint at step 2, resume, step 3 against the straight run
+    ck = tree_clone(tree_util, state0)
+    for _ in range(2):
+        step_fn(ck, tokens, targets)
+    with tempfile.TemporaryDirectory(prefix="gofr_ckpt_") as tmp:
+        t0 = time.monotonic()
+        checkpoint.save_checkpoint(tmp, ck, step=2,
+                                   metadata={"preset": "small"})
+        save_s = time.monotonic() - t0
+        saved = tree_clone(tree_util, ck)
+        _, loss_straight = step_fn(ck, tokens, targets)
+        fresh = init_fn(seed + 1)
+        t0 = time.monotonic()
+        restored = checkpoint.restore_checkpoint(tmp, fresh, device=device)
+        restore_s = time.monotonic() - t0
+        del fresh
+        bits = same_bits(torch, tree_util, restored, saved)
+        os.rename(os.path.join(tmp, "step_2"),
+                  os.path.join(tmp, "step_2.old"))
+        old_ok = checkpoint.latest_step(tmp) == 2 and same_bits(
+            torch, tree_util, checkpoint.restore_checkpoint(
+                tmp, saved, device=device), saved)
+    _, loss_resumed = step_fn(restored, tokens, targets)
+    dloss = abs(loss_resumed.item() - loss_straight.item())
+    dparams = leaf_diffs(tree_util, restored.params, ck.params)
+    log(f"== phase 36b: save {save_s:.2f}s, restore {restore_s:.2f}s; "
+        f"restored bits equal {bits}; step_2.old found and equal {old_ok}; "
+        f"step 3 loss {loss_straight.item():.6f} straight, "
+        f"{loss_resumed.item():.6f} resumed (|d| {dloss:.3e}); params max "
+        f"|d| {max(dparams.values()):.3e} by leaf {dparams}")
+    outside = within_spread(dparams, param_spread,
+                            leaf_scales(tree_util, ck.params))
+    if not (bits and old_ok and dloss <= loss_spread) or outside:
+        raise AssertionError(f"phase 36b: the resumed run left the "
+                             f"uninterrupted run's spread: {outside}")
+    out["checkpoint"] = dict(save_s=save_s, restore_s=restore_s,
+                             bits_equal=bits, old_found=old_ok,
+                             loss_diff=dloss, params_max_diff=dparams)
+    del ck, saved, restored
+
+    # 36c: eval through the flash kernel, on the trained params
+    by_path = phase_train_eval(torch, train, mods, cfg, state.params, tokens,
+                               targets, out, device)
+    del state, state0
+
+    # 36d: refusals
+    try:
+        train.make_train_step(dataclasses.replace(cfg, use_flash=True),
+                              device=device)
+        raise AssertionError("phase 36d: make_train_step took use_flash")
+    except ValueError as exc:
+        refused = [f"make_train_step: {exc}"]
+    before = read_launches(mods)
+    for name, fn, args in grad_refusal_calls(torch, mods, device):
+        try:
+            fn(*args)
+        except RuntimeError as exc:
+            if "no backward" not in str(exc):
+                raise
+            refused.append(f"{name}: {exc}")
+            continue
+        raise AssertionError(f"phase 36d: {name} ran under autograd")
+    if read_launches(mods) != before:
+        raise AssertionError("phase 36d: a refused call launched")
+    log(f"== phase 36d: refused {len(refused)}: {refused}")
+    out["refusals"] = refused
+    return by_path
+
+
+def phase_train_eval(torch, train, mods, cfg, params, tokens, targets, out,
+                     device):
+    """36c: ``make_eval_step`` with ``use_flash`` (the flash kernel,
+    ``n_layers`` launches a call) against ``use_flash=False``."""
+    flash_eval = train.make_eval_step(
+        dataclasses.replace(cfg, use_flash=True), device=device)
+    plain_eval = train.make_eval_step(cfg, device=device)
+    for mod in mods:
+        mod.reset_launches()
+    flash_loss = flash_eval(params, tokens, targets).item()
+    launches = read_launches(mods)
+    plain_loss = plain_eval(params, tokens, targets).item()
+    want = dict.fromkeys(launches, 0)
+    want["flash"] = cfg.n_layers
+    check_launches(launches, want, "train_eval_small")
+    rel = abs(flash_loss - plain_loss) / abs(plain_loss)
+    flash_ms, _ = timed_steps(torch, lambda: flash_eval(
+        params, tokens, targets), 5, device)
+    plain_ms, _ = timed_steps(torch, lambda: plain_eval(
+        params, tokens, targets), 5, device)
+    log(f"== phase 36c ({card_label(device)}): eval loss {flash_loss:.6f} "
+        f"through the flash kernel, "
+        f"{plain_loss:.6f} plain (rel {rel:.3e}); {median(flash_ms):.3f} "
+        f"ms against {median(plain_ms):.3f} ms; launches {launches}")
+    if rel > EVAL_FLASH_RTOL:
+        raise AssertionError(f"phase 36c: flash eval rel {rel}")
+    out["eval"] = dict(flash_loss=flash_loss, plain_loss=plain_loss,
+                       rel=rel, flash_ms=median(flash_ms),
+                       plain_ms=median(plain_ms), launches=launches)
+    # the tally counts from 0 again after the timed calls
+    for mod in mods:
+        mod.reset_launches()
+    return {"train_eval_small": launches}
+
+
+def phase_train_moe(torch, moe, train, tree_util, cfg, batch, seed, out,
+                    device):
+    """36e: ``moe-small`` (8 experts) bf16, MOE_STEPS AdamW steps on
+    ``moe.loss_fn`` at ``batch`` (B 4 x S 512)."""
+    params = moe.init(cfg, seed, device=device)
+    n_params = sum(p.numel() for p in tree_util.flatten(params).values())
+    opt_state = train.adamw_init(params)
+    tokens, targets = train_batch(torch, cfg.vocab_size, batch, seed + 2,
+                                  device)
+    log(f"== phase 36e: train moe-small ({n_params / 1e6:.1f} M params, "
+        f"{cfg.n_experts} experts, {cfg.n_layers} layers) bf16 at B "
+        f"{batch[0]} x S {batch[1]}")
+    record = []
+
+    def step():
+        drops = []
+        loss, grads = train.value_and_grad(
+            lambda p, t, y: moe.loss_fn(p, cfg, t, y, drops), params,
+            tokens, targets)
+        router = grads["layers"]["router"]
+        train.adamw_update(grads, opt_state, params)
+        record.append((router.abs().max(), torch.isfinite(router).all(),
+                       torch.stack(drops)))
+        return loss
+
+    ms, losses = timed_steps(torch, step, MOE_STEPS, device)
+    losses = [l.item() for l in losses]
+    router_max = [r.item() for r, _, _ in record]
+    finite = all(f.item() for _, f, _ in record)
+    drops = [d.tolist() for _, _, d in record]
+    tokens_n = batch[0] * batch[1]
+    log(f"36e {card_label(device)}: losses "
+        f"{[round(l, 4) for l in losses]}; router grad max "
+        f"{router_max}, finite {finite}; dropped tokens a layer each step "
+        f"(of {tokens_n}) {drops}; step ms {[round(m, 3) for m in ms]}")
+    if not (losses[-1] < losses[0] and finite and min(router_max) > 0):
+        raise AssertionError(f"phase 36e: losses {losses}, router grads "
+                             f"{router_max}, finite {finite}")
+    out["moe"] = dict(params=n_params, batch=list(batch), losses=losses,
+                      router_grad_max=router_max, dropped=drops,
+                      step_ms=ms)
+
+
+def phase_train_big(torch, llama, train, cfg, batch, seed, out, device):
+    """36f: ``llama3-8b``'s width (GQA 32:8, D 128, vocab 128256) at
+    ``cfg.n_layers`` layers, BIG_STEPS remat steps at ``batch``."""
+    from gofr_tpu_torch.utils import tree as tree_util
+
+    init_fn, step_fn = train.make_train_step(cfg, remat=True, device=device)
+    state = init_fn(seed)
+    n_params = sum(p.numel() for p in tree_util.flatten(
+        state.params).values())
+    tokens, targets = train_batch(torch, cfg.vocab_size, batch, seed + 3,
+                                  device)
+    log(f"== phase 36f: train llama3-8b width ({n_params / 1e9:.3f} B params)"
+        f", depth cut to {cfg.n_layers} of 32 layers, bf16, remat, at B "
+        f"{batch[0]} x S {batch[1]}")
+    (ms, losses), peak = peak_bytes(torch, lambda: timed_steps(
+        torch, lambda: step_fn(state, tokens, targets)[1], BIG_STEPS,
+        device), device)
+    losses = [l.item() for l in losses]
+    log(f"36f {card_label(device)}: losses "
+        f"{[round(l, 4) for l in losses]}; step ms "
+        f"{[round(m, 3) for m in ms]}; peak bytes {peak}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"phase 36f: losses {losses}")
+    out["llama3_8b_d2"] = dict(params=n_params, layers=cfg.n_layers,
+                               batch=list(batch), losses=losses, step_ms=ms,
+                               peak_bytes=peak)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for value in tree.values():
@@ -6014,6 +6532,8 @@ def main() -> int:
     from gofr_tpu_torch.ops.cuda import flash_attention as flash_mod
     from gofr_tpu_torch.ops.cuda import ragged_paged_attention as ragged_mod
     from gofr_tpu_torch import slo
+    from gofr_tpu_torch.parallel import train
+    from gofr_tpu_torch.utils import checkpoint
     from gofr_tpu_torch.tpu import (autotune, batch_lane, batcher, cluster,
                                     constrain, executor, faults, fleet,
                                     generate, kv_wire, page_pool, registry,
@@ -6111,6 +6631,9 @@ def main() -> int:
                                    small_params, args.seed, results))
     del small_params
     torch.cuda.empty_cache()
+    # this slice: training on one card (phase 36)
+    by_path_d64.update(phase_train(torch, llama, moe, train, checkpoint,
+                                   mods, args.seed, results))
     # this slice: the example's own model (``small`` over its byte-level
     # vocabulary) serving constrained requests, then admission
     example_cfg = llama.config("small", vocab_size=EXAMPLE_VOCAB,

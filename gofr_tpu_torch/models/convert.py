@@ -8,7 +8,9 @@ both packages compute the same function from the same weights.
 :func:`from_jax_bert` does the same for BERT (stacked ``layers/*``).
 :func:`from_jax_resnet` turns each conv kernel from JAX's HWIO into the
 port's OIHW in ``channels_last``; the folded BatchNorm vectors and the
-head are kept as they are.
+head are kept as they are. :func:`from_jax_train_state` takes a JAX
+``TrainState`` (params, optax's Adam state, step) to the port's, so both
+packages can take the same training steps from the same state.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from gofr_tpu_torch.device import resolve_device
+from gofr_tpu_torch.parallel import train
 
 
 def _tensor(array, device: torch.device) -> torch.Tensor:
@@ -73,3 +76,20 @@ def from_jax_resnet(params_np: Any,
         return tensor
 
     return walk(params_np)
+
+
+def from_jax_train_state(state_np: Any,
+                         device: Union[str, torch.device] = "cuda") -> Any:
+    """JAX ``TrainState`` of numpy arrays (``params``, ``opt_state`` =
+    (optax ``ScaleByAdamState(count, mu, nu)``, ``EmptyState()``,
+    ``EmptyState()``), ``step``) → the port's
+    ``gofr_tpu_torch.parallel.train.TrainState`` on ``device``, dtypes
+    kept (count and step int32, 0-d)."""
+    dev = resolve_device(device)
+    adam = state_np.opt_state[0]
+    opt_state = (train.ScaleByAdamState(
+        _tensor(adam.count, dev), from_jax_llama(adam.mu, dev),
+        from_jax_llama(adam.nu, dev)), train.EmptyState(),
+        train.EmptyState())
+    return train.TrainState(from_jax_llama(state_np.params, dev), opt_state,
+                            _tensor(state_np.step, dev))

@@ -372,12 +372,35 @@ def _run_prompt(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
     return x
 
 
-def forward(params: Params, cfg: LlamaConfig,
-            tokens: torch.Tensor) -> torch.Tensor:
-    """Full causal forward → logits (B, S, V) in float32."""
+def forward(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
+            mesh=None) -> torch.Tensor:
+    """Full causal forward → logits (B, S, V) in float32: the training and
+    eval path. Attention is the plain causal ``prefill_attention``, which
+    autograd differentiates, or with ``cfg.use_flash`` the flash kernel
+    wrapper (forward only on the card: the kernel refuses a gradient).
+    ``mesh`` (JAX's ring attention over a sequence-parallel axis) raises
+    ValueError: ``parallel/`` is not ported."""
+    if mesh is not None:
+        raise ValueError("llama.forward: mesh= (ring attention) is not "
+                         "ported; the port runs on one device")
     x = rms_norm(_run_prompt(params, cfg, tokens), params["out_norm"],
                  cfg.norm_eps)
     return qmm(x, params["lm_head"]).float()
+
+
+def loss_fn(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
+            targets: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Next-token cross-entropy: the mean over (B, S) of the negative
+    log-likelihood of ``targets`` under float32 ``log_softmax`` of
+    :func:`forward`'s logits (JAX ``loss_fn``), a float32 scalar."""
+    return mean_nll(forward(params, cfg, tokens, mesh=mesh), targets)
+
+
+def mean_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean negative log-likelihood of ``targets`` (B, S) under float32
+    ``log_softmax`` of ``logits`` (B, S, V)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, targets.long()[..., None])[..., 0].mean()
 
 
 def prefill(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,

@@ -24,8 +24,11 @@
   (``kv_int8`` refused at the first prefill or decode step); no paged
   step, prefix reuse or draft (the engine refuses those for a custom
   model module).
-
-Left for the training slice (ROADMAP.md): ``loss_fn``.
+- :func:`loss_fn` is the training objective, NLL plus
+  ``router_aux_weight`` times the aux loss. The gradient reaches the
+  router through the gate and the aux term's mean probabilities; the
+  argmax, the one-hot and the cumsum of the capacity positions carry
+  none, as in JAX.
 """
 
 from __future__ import annotations
@@ -135,10 +138,13 @@ def init(cfg: MoEConfig, seed: int = 0,
     return params
 
 
-def _moe_ffn(layer: Dict[str, Any], x: torch.Tensor,
-             cfg: MoEConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+def _moe_ffn(layer: Dict[str, Any], x: torch.Tensor, cfg: MoEConfig,
+             drops: Optional[list] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) → (out (B, S, D), aux loss scalar): top-1 capacity
-    routing with einsum dispatch and combine (JAX ``_moe_ffn``)."""
+    routing with einsum dispatch and combine (JAX ``_moe_ffn``). With
+    ``drops`` given, the count of tokens past their expert's capacity
+    (a 0-d float32 tensor, no host sync) is appended to it."""
     b, s, d = x.shape
     e = cfg.n_experts
     tokens = b * s
@@ -157,6 +163,8 @@ def _moe_ffn(layer: Dict[str, Any], x: torch.Tensor,
     kept = (position < capacity).float() * onehot              # (T, E)
     pos_idx = position.sum(dim=-1).long()                      # (T,)
     kept_mask = kept.sum(dim=-1)                               # (T,)
+    if drops is not None:
+        drops.append(tokens - kept_mask.sum())
 
     # dispatch (T, E, C) one-hot → expert inputs (E, C, D); a dropped
     # token's position is past C: its one-hot row is zeros
@@ -187,14 +195,16 @@ def _dense_attention_cfg(cfg: MoEConfig) -> llama_mod.LlamaConfig:
                                use_flash_decode=False)
 
 
-def forward(params: Params, cfg: MoEConfig, tokens: torch.Tensor
+def forward(params: Params, cfg: MoEConfig, tokens: torch.Tensor,
+            drops: Optional[list] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """→ (logits (B, S, V) float32, aux loss: the layers' mean)."""
+    """→ (logits (B, S, V) float32, aux loss: the layers' mean). With
+    ``drops`` given, each layer appends its count of dropped tokens."""
     base = cfg.base
     aux = []
 
     def ffn(layer, h):
-        out, layer_aux = _moe_ffn(layer, h, cfg)
+        out, layer_aux = _moe_ffn(layer, h, cfg, drops)
         aux.append(layer_aux)
         return out
 
@@ -251,3 +261,13 @@ def decode_step(params: Params, cfg: MoEConfig, token: torch.Tensor,
     base = _check_serving_cfg(cfg)
     return llama_mod._decode(params, base, token, cache, cache_len,
                              window, table, ffn=_serving_ffn(cfg))
+
+
+def loss_fn(params: Params, cfg: MoEConfig, tokens: torch.Tensor,
+            targets: torch.Tensor, drops: Optional[list] = None
+            ) -> torch.Tensor:
+    """Mean next-token NLL (float32 ``log_softmax``, as llama's) plus
+    ``cfg.router_aux_weight`` times :func:`forward`'s aux loss (JAX
+    ``loss_fn``). ``drops`` as in :func:`forward`."""
+    logits, aux = forward(params, cfg, tokens, drops)
+    return llama_mod.mean_nll(logits, targets) + cfg.router_aux_weight * aux

@@ -136,3 +136,19 @@ def load(name: str) -> ctypes.CDLL:
 def stream_handle(device: torch.device) -> int:
     """PyTorch's current stream on ``device``, as a raw handle."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def refuse_autograd(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise RuntimeError when grad mode is on and any of ``tensors``
+    requires a gradient. The kernel writes into a tensor it allocated
+    itself, which carries no ``grad_fn``: a loss through it would train
+    with zero gradient into everything upstream. The Pallas kernel it
+    replaces has no backward either, so this refuses instead of falling
+    back to the plain version; run the kernel under ``torch.no_grad()``,
+    or take the plain version for a gradient."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward (the Pallas kernel "
+            "it replaces has none); call it under torch.no_grad() or "
+            "differentiate the plain version")

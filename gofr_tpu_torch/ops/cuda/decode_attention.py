@@ -193,6 +193,7 @@ def flash_decode_attention(q, k_cache, v_cache, k_new, v_new,
         raise ValueError(f"flash_decode_attention: unsupported device "
                          f"{q.device}")
     _check(q, k_cache, v_cache, k_new, v_new, cache_len)
+    _build.refuse_autograd(NAME, q, k_cache, v_cache, k_new, v_new)
     global launches
     fn = _bind(_build.load(NAME))
     out = torch.empty_like(q)

@@ -79,6 +79,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check(q, k, v)
+    _build.refuse_autograd(NAME, q, k, v)
     global launches
     fn = _bind(_build.load(NAME))
     out = torch.empty_like(q)

@@ -204,6 +204,8 @@ def _launch(q, k_pages, v_pages, page_table, k_new, v_new, cache_len,
     pools), raise on a refused launch. Returns (output, int8)."""
     int8 = _check(q, k_pages, v_pages, page_table, k_new, v_new, cache_len,
                   k_scale_pages, v_scale_pages)
+    _build.refuse_autograd(NAME, q, k_pages, v_pages, k_new, v_new,
+                           k_scale_pages, v_scale_pages)
     entry = "gofr_ragged_paged_attention" + ("_int8" if int8 else "") \
         + ("_verify_form" if verify_form else "")
     fn = _bind(_build.load(NAME), entry)

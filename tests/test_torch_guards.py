@@ -66,7 +66,8 @@ def test_guard_scans_the_admission_and_grammar_modules():
     recorder, the diagnosis, ``hbm_occupancy``, the task spawner), and
     the disaggregated path's (the KV wire codec, the retry policy, the
     model registry, the cluster), and the fleet control plane and the
-    operating-point auto-tuner."""
+    operating-point auto-tuner, and training (the train step and the
+    checkpoints)."""
     files = {str(path.relative_to(ROOT)) for path in _port_files()}
     own = ["gofr_tpu_torch/slo.py", "gofr_tpu_torch/tpu/constrain.py",
            "gofr_tpu_torch/tpu/sched.py",
@@ -99,7 +100,12 @@ def test_guard_scans_the_admission_and_grammar_modules():
            "gofr_tpu_torch/models/bert.py",
            "gofr_tpu_torch/datasource/__init__.py",
            "gofr_tpu_torch/datasource/pubsub/base.py",
-           "gofr_tpu_torch/datasource/pubsub/inmem.py"]
+           "gofr_tpu_torch/datasource/pubsub/inmem.py",
+           "gofr_tpu_torch/parallel/__init__.py",
+           "gofr_tpu_torch/parallel/train.py",
+           "gofr_tpu_torch/utils/__init__.py",
+           "gofr_tpu_torch/utils/checkpoint.py",
+           "gofr_tpu_torch/utils/tree.py"]
     assert set(own) <= files
     for name in own + ["gofr_tpu_torch/tpu/generate.py"]:
         assert not set(_imported_roots(ROOT / name)) & set(FORBIDDEN), name
@@ -212,3 +218,26 @@ def test_executor_path_defaults_to_the_card(no_cuda):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             convert({"w": np.zeros((1, 1, 1, 1), np.float32)})
     assert Executor(None, None, device="cpu").device.type == "cpu"
+
+
+def test_training_entry_points_default_to_the_card(no_cuda, tmp_path):
+    """The train and eval steps, the checkpoint restore and the train
+    state converter raise at their default device; the CPU runs only when
+    asked for."""
+    from gofr_tpu_torch.models.convert import from_jax_train_state
+    from gofr_tpu_torch.parallel import make_eval_step, make_train_step
+    from gofr_tpu_torch.utils import restore_checkpoint, save_checkpoint
+
+    cfg = llama.config("tiny", dtype=torch.float32)
+    for make in (make_train_step, make_eval_step):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make(cfg)
+    init_fn, _ = make_train_step(cfg, device="cpu")
+    state = init_fn(0)
+    save_checkpoint(str(tmp_path), state, step=0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        restore_checkpoint(str(tmp_path), state)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        from_jax_train_state(state)
+    assert restore_checkpoint(str(tmp_path), state, device="cpu").step \
+        .device.type == "cpu"

@@ -103,7 +103,7 @@ def test_forward_matches_jax_and_capacity_overflows(models, name,
     kept = []
     ffn = pt_moe._moe_ffn
 
-    def counted(layer, x, cfg):
+    def counted(layer, x, cfg, drops=None):
         # the port's routing, counted: tokens whose expert has room
         flat = x.reshape(-1, x.shape[-1]).float()
         idx = (flat @ layer["router"]).softmax(-1).argmax(-1)
@@ -111,7 +111,7 @@ def test_forward_matches_jax_and_capacity_overflows(models, name,
         cap = max(1, math.ceil(flat.shape[0] / cfg.n_experts
                                * cfg.capacity_factor))
         kept.append((int(counts.clamp(max=cap).sum()), flat.shape[0]))
-        return ffn(layer, x, cfg)
+        return ffn(layer, x, cfg, drops)
     monkeypatch.setattr(pt_moe, "_moe_ffn", counted)
     got, aux = pt_moe.forward(pparams, pcfg, torch.from_numpy(tokens))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
