@@ -61,7 +61,9 @@ Phases, each of which raises (exit code != 0) on failure:
 8. perfect draft: the 2-layer model as its own draft (the draft through
    flash decode), then the ``kv_int8`` model with the same weights as its
    bf16 draft; each acceptance rate must be at least 0.5;
-9. the full 32-layer engine answering 8 concurrent requests (prompts over
+9. the ``llama3-8b`` engine at full width, 8 of its 32 layers
+   (``--layers``; every ``llama3-8b`` engine of phases 9-18, 24, 26,
+   28, 31d, 32a-c and 33a-d), answering 8 concurrent requests (prompts over
    every bucket, 32 new tokens each, one sampled), with the kernels'
    launch counts checked against the engine's prefill dispatches and
    decode steps, then one streamed request. Every engine of phases 9-12
@@ -330,6 +332,29 @@ Phases, each of which raises (exit code != 0) on failure:
     dropped tokens a layer; (f) ``llama3-8b``'s width at depth 2 (the
     cut logged), 3 remat steps at B 2 x S 512: the loss falls, step ms,
     peak bytes.
+37. the app framework (after phase 28's ``small`` half): the port's
+    ``examples/llama_generate`` app at its defaults (``small``, vocab 256,
+    8 slots, max_len 1024, k 16, 4 ticks in flight, dense, ports 0),
+    started (warm-up captures every graph before the bind): alive and
+    health; 8 concurrent ``POST /generate/stream`` over HTTP (prompts of
+    5-512 bytes from a seeded corpus, 32 new tokens, one sampled), whose
+    greedy tokens must equal the engine's direct streams of the
+    tokenizer's ids and whose sampled stream must equal the unary
+    ``/generate``; ``app_tpu_ttft`` and ``app_http_response`` count the
+    burst; a 1 ms deadline behind 8 busy slots is shed with 503 and
+    counted ``expired``; one flight record a request's trace id; gRPC
+    ``/gofr.Llama/generate`` where ``grpc`` imports (the log says which);
+    every tick and prefill a replay, launches as counted; then turns
+    direct, HTTP, HTTP, direct (tok/s, client TTFT p50 at the first
+    token or SSE frame, the engine's TTFT p50, the idle share under the
+    profiler); after ``stop()`` every slot free, no tick in flight, the
+    device thread ended, the pinned slab bytes as after the turns.
+
+Depth is cut, width never: the ``llama3-8b`` engines run 8 of 32
+layers (``--layers``), and the later slices' ``small`` phases (24's
+``small`` half, 28, 29, 31, 32d, 33e, 35) 4 of its 8
+(``CUT_SMALL_LAYERS``, views of phase 20's first 4); phases 20-23, 26-27,
+30 and 37 run ``small`` whole.
 
 Every engine burst (phases 9-12, 15-18, 20-23, 30a) is served twice:
 counted, then under ``torch.profiler`` for the device's idle share. Every
@@ -1063,7 +1088,8 @@ PATH_KERNELS = {"engine": ("flash", "ragged"),
                 "planes_small": ("flash", "ragged"),
                 "op_small": ("flash", "ragged"),
                 "op_llama3": ("flash", "ragged"),
-                "train_eval_small": ("flash",)}
+                "train_eval_small": ("flash",),
+                "app_small": ("flash", "ragged")}
 
 
 def warm(engine):
@@ -1655,6 +1681,16 @@ def phase_d64_kernels(torch, mods, timer, results):
 # flight; dense unless GENERATE_PAGED_KV=1
 SMALL_ENGINE = dict(max_slots=8, max_len=1024, steps_per_tick=16,
                     max_inflight_ticks=4)
+# the smoke's length: the later slices' small phases (24's small half,
+# 28, 29, 31, 32d, 33e, 35) run ``small`` at full width cut to 4 of its 8
+# layers (views of phase 20's first 4); phases 20-23, 26-27, 30 and 37
+# keep the whole depth
+CUT_SMALL_LAYERS = 4
+
+
+def depth(params):
+    """Layers of a llama params tree."""
+    return params["layers"]["wq"].shape[0]
 
 
 def phase_small_engines(torch, llama, generate, mods, seed, results):
@@ -1779,7 +1815,7 @@ def phase_int8_draft(torch, llama, generate, mods, params, seed, results):
     replay, launches as counted; then the same engine with its prefills
     run eagerly must give the same greedy tokens. Returns launches by
     path."""
-    cfg = llama.config("small", use_flash=True)
+    cfg = llama.config("small", use_flash=True, n_layers=depth(params))
     dcfg, dparams = draft_view(llama, cfg, params, 2)
     dcfg = dataclasses.replace(dcfg, kv_int8=True)
     prompts = engine_prompts(cfg, seed)
@@ -2643,7 +2679,7 @@ def phase_op_planes(torch, llama, generate, mods, params, seed, results):
         "at 0.1 s, error budget -> watchdog and brownout ladder, worst "
         "offenders) on the small preset at the example's engine, off and "
         "on in turns")
-    cfg = llama.config("small", use_flash=True)
+    cfg = llama.config("small", use_flash=True, n_layers=depth(params))
     prompts = engine_prompts(cfg, seed)
     budget = 32
     samplings = [generate.Sampling() for _ in range(7)] + [
@@ -3743,7 +3779,7 @@ def phase_telemetry(torch, llama, generate, slo, faults, mods, seed,
     log("== phase 28: telemetry and the SLO control loop on the small "
         "preset at the example's engine (hooks on against off, faults, "
         "watchdog and brownout ladder)")
-    cfg = llama.config("small", use_flash=True)
+    cfg = llama.config("small", use_flash=True, n_layers=CUT_SMALL_LAYERS)
     params = llama.init(cfg, seed + 4, device="cuda")
     prompts = engine_prompts(cfg, seed)
     budget = 32
@@ -6500,6 +6536,460 @@ def phase_train_big(torch, llama, train, cfg, batch, seed, out, device):
                                peak_bytes=peak)
 
 
+# -- phase 37: the app framework serving the example on the card ----------
+
+# the example's defaults (examples/llama-generate/main.py:135-145, 99),
+# every port 0; the knobs the example reads are unset but these
+APP_ENV = dict(LLAMA_PRESET="small", GENERATE_SLOTS="8", STEPS_PER_TICK="16",
+               INFLIGHT_TICKS="4", HTTP_PORT="0", METRICS_PORT="0",
+               GRPC_PORT="0", LOG_LEVEL="WARN")
+APP_UNSET = ("MODELS", "GENERATE_DRAFT_MODEL", "LLAMA_KV_INT8",
+             "GENERATE_PAGED_KV", "GENERATE_PREFIX_CACHE", "CLUSTER_PEERS",
+             "MESH", "TPU_MESH", "FLEET_ROUTING", "BATCH_LANE_TOPIC",
+             "PUBSUB_BACKEND", "FAULT_PLAN", "TRACE_EXPORTER",
+             "REQUEST_TIMEOUT", "GENERATE_COALESCE_UPLOADS",
+             "GENERATE_COALESCE_STREAM", "CLUSTER_ROLE")
+APP_BUDGET = 32
+APP_PROMPT_BYTES = (5, 30, 64, 100, 128, 300, 480, 512)
+APP_BUSY_BUDGET = 160     # the slots the deadline probe waits behind
+APP_TURNS = ("direct", "http", "http", "direct")
+
+
+def app_corpus(seed, sizes=APP_PROMPT_BYTES):
+    """Prompts of ``sizes`` bytes of words drawn from a seeded corpus."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 37)
+    words = ["".join(chr(c) for c in rng.integers(97, 123, n))
+             for n in rng.integers(1, 10, 400)]
+    prompts = []
+    for size in sizes:
+        text = ""
+        while len(text) < size:
+            text += words[int(rng.integers(0, len(words)))] + " "
+        prompts.append(text[:size])
+    return prompts
+
+
+def app_bodies(prompts, seed, budget=APP_BUDGET):
+    """The burst's JSON bodies: seven greedy, the last sampled (seeded)."""
+    bodies = [{"prompt": p, "max_new_tokens": budget} for p in prompts]
+    bodies[-1].update(temperature=0.8, top_p=0.95, seed=seed)
+    return bodies
+
+
+async def http_call(port, method, path, body=None, headers=None):
+    """One HTTP/1.1 request over asyncio streams: (status, headers,
+    body)."""
+    data = json.dumps(body).encode() if body is not None else b""
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    try:
+        head = f"{method} {path} HTTP/1.1\r\nHost: 127.0.0.1\r\n"
+        for key, value in (headers or {}).items():
+            head += f"{key}: {value}\r\n"
+        head += (f"Content-Type: application/json\r\nContent-Length: "
+                 f"{len(data)}\r\nConnection: close\r\n\r\n")
+        writer.write(head.encode() + data)
+        await writer.drain()
+        raw = await reader.read()
+    finally:
+        writer.close()
+    blob, _, payload = raw.partition(b"\r\n\r\n")
+    lines = blob.decode("latin-1").split("\r\n")
+    got = {k.strip().lower(): v.strip() for k, _, v in
+           (line.partition(":") for line in lines[1:])}
+    return int(lines[0].split()[1]), got, payload
+
+
+async def sse_call(port, path, body, first_frame=None):
+    """POST an SSE stream; read its chunks as they arrive. Returns
+    (status, headers, frames, seconds to the first ``data:`` frame).
+    ``first_frame`` (an event) is set when the first frame lands."""
+    data = json.dumps(body).encode()
+    t0 = time.monotonic()
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    try:
+        writer.write((f"POST {path} HTTP/1.1\r\nHost: 127.0.0.1\r\n"
+                      f"Content-Type: application/json\r\nContent-Length: "
+                      f"{len(data)}\r\nConnection: close\r\n\r\n").encode()
+                     + data)
+        await writer.drain()
+        blob = await reader.readuntil(b"\r\n\r\n")
+        lines = blob.decode("latin-1").split("\r\n")
+        status = int(lines[0].split()[1])
+        headers = {k.strip().lower(): v.strip() for k, _, v in
+                   (line.partition(":") for line in lines[1:] if line)}
+        frames, ttft = [], None
+        if headers.get("transfer-encoding") != "chunked":
+            await reader.read()
+            return status, headers, frames, ttft
+        while True:
+            size = int((await reader.readuntil(b"\r\n")).split(b";")[0], 16)
+            if size == 0:
+                break
+            chunk = await reader.readexactly(size + 2)
+            if ttft is None:
+                ttft = time.monotonic() - t0
+                if first_frame is not None:
+                    first_frame.set()
+            frames.append(chunk[:-2].decode()[len("data: "):].rstrip("\n"))
+    finally:
+        writer.close()
+    return status, headers, frames, ttft
+
+
+def sse_tokens(frames):
+    if not frames or frames[-1] != "[DONE]":
+        raise AssertionError(f"app: the SSE stream did not end with [DONE]: "
+                             f"{frames[-2:]}")
+    return [json.loads(f)["token"] for f in frames[:-1]]
+
+
+def metric_count(metrics, name, **labels):
+    """A counter's value or a histogram's count for one label set."""
+    return metrics.value(name, **labels) or 0.0
+
+
+def metric_total(metrics, name):
+    """Sum of a metric's counts over every label set."""
+    metric = metrics.snapshot()[name]
+    return sum(s["count"] if isinstance(s, dict) else s
+               for s in metric.series.values())
+
+
+class app_environment:
+    """The example's environment for the phase, restored after it."""
+
+    def __init__(self, env=None):
+        self.env = dict(APP_ENV, **(env or {}))
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k)
+                      for k in list(self.env) + list(APP_UNSET)}
+        for key in APP_UNSET:
+            os.environ.pop(key, None)
+        os.environ.update(self.env)
+        return self
+
+    def __exit__(self, *exc):
+        for key, value in self.saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+
+
+async def direct_turn(engine, ids, bodies, generate):
+    """The burst straight into the engine: one stream a request, each
+    request's first token timed as it arrives. (outputs, wall, client
+    TTFTs)."""
+    async def one(prompt_ids, body):
+        t0 = time.monotonic()
+        sampling = generate.Sampling(
+            temperature=body.get("temperature", 0.0),
+            top_p=body.get("top_p", 1.0), seed=body.get("seed"))
+        stream = await engine.generate_stream(
+            prompt_ids, max_new_tokens=body["max_new_tokens"],
+            sampling=sampling)
+        out, first = [], None
+        async for token in stream:
+            if first is None:
+                first = time.monotonic() - t0
+            out.append(token)
+        return out, first
+
+    t0 = time.monotonic()
+    got = await asyncio.wait_for(asyncio.gather(*[
+        one(i, b) for i, b in zip(ids, bodies)]), 600)
+    return [g[0] for g in got], time.monotonic() - t0, [g[1] for g in got]
+
+
+async def http_turn(port, bodies):
+    """The burst over HTTP, each request an SSE stream. (outputs, wall,
+    client TTFTs at the first frame, trace ids)."""
+    t0 = time.monotonic()
+    got = await asyncio.wait_for(asyncio.gather(*[
+        sse_call(port, "/generate/stream", b) for b in bodies]), 600)
+    wall = time.monotonic() - t0
+    for status, headers, _, _ in got:
+        if status != 200 or headers.get("content-type") \
+                != "text/event-stream":
+            raise AssertionError(f"app: /generate/stream answered {status} "
+                                 f"{headers}")
+    return ([sse_tokens(g[2]) for g in got], wall, [g[3] for g in got],
+            [g[1].get("x-trace-id") for g in got])
+
+
+async def grpc_tokens(port, body):
+    import grpc
+
+    async with grpc.aio.insecure_channel(f"127.0.0.1:{port}") as channel:
+        method = channel.unary_stream("/gofr.Llama/generate")
+        return [json.loads(raw)["data"]["token"]
+                async for raw in method(json.dumps(body).encode())]
+
+
+def phase_app(torch, generate, mods, seed, results, device="cuda",
+              env=None, sizes=APP_PROMPT_BYTES, busy_budget=APP_BUSY_BUDGET):
+    """Phase 37: the port's ``examples/llama_generate`` app at its
+    defaults on the card, through HTTP, SSE and gRPC. Returns launches by
+    path. A CPU rehearsal passes ``device="cpu"`` and ``env`` (e.g.
+    ``{"LLAMA_PRESET": "tiny"}``), prompt ``sizes`` and a ``busy_budget``
+    that fit its cache, with ``check_launches`` stubbed; it profiles
+    nothing."""
+    from torch.profiler import ProfilerActivity
+
+    from gofr_tpu_torch.examples import llama_generate
+
+    t_phase = time.monotonic()
+    cuda = device == "cuda"
+    with app_environment(env):
+        app = llama_generate.build_app(device=device)
+    engine = app.engine
+    cfg = engine.cfg
+    log(f"== phase 37: the app framework on the card: "
+        f"gofr_tpu_torch.examples.llama_generate at its defaults (small, "
+        f"dim {cfg.dim}, {cfg.n_layers} layers, head_dim {cfg.head_dim}, "
+        f"vocab {cfg.vocab_size}, {engine.max_slots} slots, max_len "
+        f"{engine.max_len}, k {engine.steps_per_tick}, "
+        f"{engine.max_inflight_ticks} ticks in flight, "
+        f"{'paged' if engine.paged else 'dense'}); tokenizer "
+        f"{app.tokenizer.encoder}; gRPC "
+        + ("on (grpc imports)" if app.grpc_on else
+           "off: grpc does not import on this host, its path is not "
+           "driven"))
+    prompts = app_corpus(seed, sizes)
+    bodies = app_bodies(prompts, seed)
+    ids = [app.tokenizer.encode(p)[-512:] for p in prompts]
+    metrics = app.container.metrics
+    out = {}
+
+    async def main():
+        t0 = time.monotonic()
+        await app.start()     # warm-up: every graph before the bind
+        out["start_s"] = time.monotonic() - t0
+        out["reserved_after_start"] = reserved_bytes(torch) if cuda \
+            else None
+        port = app.bound_http_port
+        mport = app.bound_metrics_port
+        try:
+            # warm-up request (cuBLAS handles, allocator), not counted
+            await engine.generate(ids[0], 8)
+            for mod in mods:
+                mod.reset_launches()
+            before = run_counters(engine)
+            out["alive"] = await http_call(port, "GET", "/.well-known/alive")
+            out["health"] = await http_call(port, "GET",
+                                            "/.well-known/health")
+            ttft0 = metric_total(metrics, "app_tpu_ttft")
+            http0 = metric_count(metrics, "app_http_response",
+                                 path="/generate/stream", method="POST",
+                                 status="200")
+            # the gated burst: HTTP SSE, then the direct reference
+            records0 = len(engine.recorder.snapshot()["recent"])
+            http = await http_turn(port, bodies)
+            out["http"] = http
+            out["ttft_delta"] = metric_total(metrics, "app_tpu_ttft") - ttft0
+            out["http_delta"] = metric_count(
+                metrics, "app_http_response", path="/generate/stream",
+                method="POST", status="200") - http0
+            out["records"] = {tid: engine.recorder.find(tid)
+                              for tid in http[3]}
+            out["records_added"] = len(engine.recorder.snapshot()["recent"]) \
+                - records0
+            out["direct"] = await direct_turn(engine, ids, bodies, generate)
+            out["unary_sampled"] = await http_call(port, "POST", "/generate",
+                                                   bodies[-1])
+            # the scrape
+            _, _, text = await http_call(mport, "GET", "/metrics")
+            out["metrics_text"] = text.decode()
+            # the deadline bridge: every slot busy with a long stream, a
+            # request with a 1 ms budget waits for one and is shed
+            expired0 = metric_count(metrics, "app_tpu_slo_total",
+                                    outcome="expired")
+            firsts = [asyncio.Event() for _ in range(engine.max_slots)]
+            busy = [asyncio.ensure_future(sse_call(
+                port, "/generate/stream",
+                {"prompt": prompts[i % 3], "max_new_tokens": busy_budget},
+                first_frame=firsts[i])) for i in range(engine.max_slots)]
+            await asyncio.wait_for(asyncio.gather(*[e.wait() for e in firsts]),
+                                   600)
+            out["shed"] = await http_call(
+                port, "POST", "/generate", bodies[0],
+                headers={"X-Request-Deadline-Ms": "1"})
+            busy_out = await asyncio.wait_for(asyncio.gather(*busy), 600)
+            out["busy_tokens"] = [len(sse_tokens(b[2])) for b in busy_out]
+            out["expired_delta"] = metric_count(
+                metrics, "app_tpu_slo_total", outcome="expired") - expired0
+            # gRPC, where grpc imports
+            if app.grpc_on:
+                out["grpc"] = await asyncio.wait_for(
+                    grpc_tokens(app.bound_grpc_port, bodies[1]), 600)
+            out["launches"] = read_launches(mods)
+            after = run_counters(engine)
+            out["counters"] = {k: after[k] - before[k] for k in after}
+            # the turns: direct, HTTP, HTTP, direct; each once timed, then
+            # once under the profiler for the device's idle share
+            out["turns"] = []
+            for kind in APP_TURNS:
+                row = {"kind": kind}
+                for profiled in ((False, True) if cuda else (False,)):
+                    gc.collect()
+                    engine.ttfts.clear()
+                    prof = (torch.profiler.profile(
+                        activities=[ProfilerActivity.CUDA])
+                        if profiled else None)
+                    if prof is not None:
+                        prof.__enter__()
+                    try:
+                        if kind == "direct":
+                            outs, wall, ttfts = await direct_turn(
+                                engine, ids, bodies, generate)
+                        else:
+                            outs, wall, ttfts, _ = await http_turn(port,
+                                                                   bodies)
+                        if cuda:
+                            torch.cuda.synchronize()
+                    finally:
+                        if prof is not None:
+                            prof.__exit__(None, None, None)
+                    if profiled:
+                        busy_s = sum(device_times(torch, prof)[0].values())
+                        row["idle_share"] = 1.0 - busy_s / wall
+                        row["profiled_wall_s"] = wall
+                    else:
+                        row.update(
+                            outs=outs, wall_s=wall,
+                            tokens_per_s=APP_BUDGET * len(outs) / wall,
+                            client_ttft_p50_s=median(ttfts),
+                            client_ttft_max_s=max(ttfts),
+                            engine_ttft_p50_s=median(list(engine.ttfts)))
+                out["turns"].append(row)
+            out["slab_bytes_turns"] = engine._staging.stats()["slab_bytes"]
+        finally:
+            await app.stop()
+        stats = engine.stats()
+        out["after_stop"] = dict(
+            free_slots=stats["free_slots"], active=stats["active_slots"],
+            queue=stats["queue_depth"], inflight=stats["ticks_inflight"],
+            slab_bytes=engine._staging.stats()["slab_bytes"],
+            device_thread=engine._own_exec is None)
+        await asyncio.sleep(0.05)
+
+    asyncio.run(main())
+    by_path = {}
+    # gates
+    status, _, body = out["alive"]
+    if status != 200 or json.loads(body) != {"status": "UP"}:
+        raise AssertionError(f"app: /.well-known/alive {status} {body!r}")
+    status, _, body = out["health"]
+    health = json.loads(body)
+    if status != 200 or health["status"] != "UP" \
+            or health["tpu"]["status"] != "UP":
+        raise AssertionError(f"app: /.well-known/health {status} {health}")
+    c = out["counters"]
+    if c["lazy_captures"] or c["prefill_lazy"] or cuda and (
+            c["replays"] != c["ticks"] + c["spec_ticks"]
+            or c["prefill_replays"] != c["prefills"]):
+        raise AssertionError(f"app: a tick or prefill served over HTTP was "
+                             f"not a replay of a warm-up graph: {c}")
+    check_launches(out["launches"], expected_launches(cfg, c), "app_small")
+    by_path["app_small"] = out["launches"]
+    http_outs, _, _, trace_ids = out["http"]
+    direct_outs = out["direct"][0]
+    if http_outs[:7] != direct_outs[:7]:
+        raise AssertionError("app: greedy tokens over HTTP differ from the "
+                             "engine's direct generate of the same ids")
+    status, _, body = out["unary_sampled"]
+    unary = json.loads(body)["data"]
+    if status != 201 or unary["tokens"] != http_outs[-1] \
+            or unary["completion"] != app.tokenizer.decode(http_outs[-1]):
+        raise AssertionError(f"app: the sampled SSE stream {http_outs[-1]} "
+                             f"is not the unary response {unary['tokens']}")
+    sampled_direct_equal = direct_outs[-1] == http_outs[-1]
+    if out["ttft_delta"] != len(bodies):
+        raise AssertionError(f"app: app_tpu_ttft counted "
+                             f"{out['ttft_delta']} of the burst's "
+                             f"{len(bodies)}")
+    if out["http_delta"] != len(bodies):
+        raise AssertionError(f"app: app_http_response counted "
+                             f"{out['http_delta']} of the burst's "
+                             f"{len(bodies)} streams")
+    text = out["metrics_text"]
+    for series in ("app_tpu_ttft_count", "app_http_response_count",
+                   "app_http_response_bucket", "app_tpu_slo_total"):
+        if series not in text:
+            raise AssertionError(f"app: /metrics lacks {series}")
+    status, _, body = out["shed"]
+    if status != 503 or "deadline" not in json.loads(body)["error"][
+            "message"] or out["expired_delta"] != 1:
+        raise AssertionError(f"app: the 1 ms deadline request answered "
+                             f"{status} {body!r}, expired counted "
+                             f"{out['expired_delta']}")
+    if out["busy_tokens"] != [busy_budget] * engine.max_slots:
+        raise AssertionError(f"app: the busy streams returned "
+                             f"{out['busy_tokens']} tokens")
+    if len(set(trace_ids)) != len(bodies) or any(
+            len(out["records"][t]) != 1 for t in trace_ids) \
+            or out["records_added"] != len(bodies):
+        raise AssertionError(
+            f"app: trace ids {trace_ids}: flight records "
+            f"{ {t: len(r) for t, r in out['records'].items()} }, "
+            f"{out['records_added']} added for {len(bodies)} requests")
+    if app.grpc_on and out["grpc"] != direct_outs[1]:
+        raise AssertionError(f"app: gRPC tokens {out['grpc']} differ from "
+                             f"the direct {direct_outs[1]}")
+    turns = out["turns"]
+    for row in turns:
+        if row["outs"][:7] != direct_outs[:7]:
+            raise AssertionError(f"app: a {row['kind']} turn's greedy "
+                                 f"tokens differ")
+    stop = out["after_stop"]
+    if (stop["free_slots"], stop["active"], stop["queue"],
+            stop["inflight"]) != (engine.max_slots, 0, 0, 0) \
+            or not stop["device_thread"] \
+            or stop["slab_bytes"] != out["slab_bytes_turns"]:
+        raise AssertionError(f"app: after stop {stop} (slab bytes after the "
+                             f"turns {out['slab_bytes_turns']})")
+    row = dict(
+        start_s=out["start_s"], graphs=engine.stats()["graphs"]["captured"],
+        prefill_graphs=engine.stats()["graphs"]["prefill"]["captured"],
+        reserved_after_start=out["reserved_after_start"],
+        counters=c, launches=out["launches"], grpc=app.grpc_on,
+        grpc_tokens_equal=(out["grpc"] == direct_outs[1]
+                           if app.grpc_on else None),
+        tokenizer=app.tokenizer.encoder,
+        sampled_direct_equal=sampled_direct_equal,
+        health_keys=sorted(health), shed=out["shed"][0],
+        turns=[{k: v for k, v in r.items() if k != "outs"} for r in turns],
+        after_stop=stop, phase_s=time.monotonic() - t_phase)
+    results["app_small"] = row
+    log(f"app: started (warm-up and captures before the bind) in "
+        f"{row['start_s']:.2f}s, {row['graphs']} tick and "
+        f"{row['prefill_graphs']} prefill graphs; alive UP, health "
+        f"{sorted(health)}; {len(bodies)} SSE streams: greedy = direct, "
+        f"sampled SSE = unary (= direct: {sampled_direct_equal}); "
+        f"app_tpu_ttft +{out['ttft_delta']:.0f}, app_http_response "
+        f"+{out['http_delta']:.0f}; 1 ms deadline: {out['shed'][0]}, "
+        f"expired +{out['expired_delta']:.0f}; one flight record a trace "
+        f"id; gRPC "
+        + (f"driven, tokens equal {row['grpc_tokens_equal']}"
+           if app.grpc_on else "off (grpc does not import): not driven")
+        + f"; launches {out['launches']}")
+    for r in row["turns"]:
+        log(f"app turn {r['kind']}: {r['tokens_per_s']:.1f} tok/s, client "
+            f"TTFT p50 {r['client_ttft_p50_s']:.4f}s max "
+            f"{r['client_ttft_max_s']:.4f}s, engine TTFT p50 "
+            f"{r['engine_ttft_p50_s']:.4f}s, idle share "
+            f"{r.get('idle_share')}")
+    log(f"app stopped: {stop}; phase 37 {row['phase_s']:.1f}s")
+    del engine, app
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return by_path
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for value in tree.values():
@@ -6515,8 +7005,9 @@ def _numel(tree):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--layers", type=int, default=32,
-                        help="engine depth (width is always full)")
+    parser.add_argument("--layers", type=int, default=8,
+                        help="depth of the llama3-8b engines (of 32; width "
+                             "is always full)")
     parser.add_argument("--out", default="chiprun_out/chip_smoke.json")
     args = parser.parse_args()
 
@@ -6592,44 +7083,52 @@ def main() -> int:
     small_params, by_path_d64 = phase_small_engines(
         torch, llama, generate, mods, args.seed, results)
     small_cfg = llama.config("small", use_flash=True)
+    # the later slices' small phases at CUT_SMALL_LAYERS (views)
+    cut_cfg = dataclasses.replace(small_cfg, n_layers=CUT_SMALL_LAYERS)
+    cut_params = dict(small_params, layers={
+        name: w[:CUT_SMALL_LAYERS]
+        for name, w in small_params["layers"].items()})
+    log(f"NOTE: phases 24 (small), 28, 29, 31, 32d, 33e and 35 run small "
+        f"cut to {CUT_SMALL_LAYERS} of {small_cfg.n_layers} layers (width "
+        f"unchanged)")
     for path, c, kw in (
-            ("prefix_small", small_cfg, {}),
-            ("prefix_small_paged", small_cfg, dict(paged_kv=True,
-                                                   kv_page=32)),
-            ("prefix_small_int8", dataclasses.replace(small_cfg,
+            ("prefix_small", cut_cfg, {}),
+            ("prefix_small_paged", cut_cfg, dict(paged_kv=True,
+                                                 kv_page=32)),
+            ("prefix_small_int8", dataclasses.replace(cut_cfg,
                                                       kv_int8=True), {})):
         by_path_d64[path] = phase_prefix(torch, llama, generate, mods, c,
-                                         small_params, dict(SMALL_ENGINE,
+                                         cut_params, dict(SMALL_ENGINE,
                                                             **kw),
                                          path, args.seed, results)
     # this slice: the kv_int8 draft
     by_path_d64.update(phase_int8_draft(torch, llama, generate, mods,
-                                        small_params, args.seed, results))
+                                        cut_params, args.seed, results))
     # this slice: every engine argument the example app passes
     by_path_d64.update(phase_engine_args(torch, llama, moe, generate,
                                          page_pool, mods, small_params,
                                          args.seed, results))
     # this slice: operating points and the telemetry plane
     by_path_d64.update(phase_op_planes(torch, llama, generate, mods,
-                                       small_params, args.seed, results))
+                                       cut_params, args.seed, results))
     # this slice: the model registry over a shared pool (phase 32d)
     by_path_d64.update(phase_registry(torch, generate, page_pool, registry,
-                                      mods, small_cfg, small_params,
+                                      mods, cut_cfg, cut_params,
                                       args.seed, results))
     # this slice: the operating-point auto-tuner (phase 33e)
     by_path_d64.update(phase_autotune(torch, generate, autotune, faults,
-                                      mods, small_cfg, small_params,
+                                      mods, cut_cfg, cut_params,
                                       args.seed, results))
     # this slice: the executor path (phase 34), then the batch lane beside
     # interactive traffic and the pool wedge on phase 20's weights (35)
     phase_executor(torch, executor, batcher, resnet, bert, args.seed,
                    results)
     by_path_d64.update(phase_batch_lane(torch, generate, batch_lane, pubsub,
-                                        slo, sched, mods, small_cfg,
-                                        small_params, args.seed, results))
-    by_path_d64.update(phase_wedge(torch, llama, generate, mods, small_cfg,
-                                   small_params, args.seed, results))
-    del small_params
+                                        slo, sched, mods, cut_cfg,
+                                        cut_params, args.seed, results))
+    by_path_d64.update(phase_wedge(torch, llama, generate, mods, cut_cfg,
+                                   cut_params, args.seed, results))
+    del small_params, cut_params
     torch.cuda.empty_cache()
     # this slice: training on one card (phase 36)
     by_path_d64.update(phase_train(torch, llama, moe, train, checkpoint,
@@ -6651,10 +7150,13 @@ def main() -> int:
     # this slice: the engine's telemetry and the SLO control loop
     by_path_d64.update(phase_telemetry(torch, llama, generate, slo, faults,
                                        mods, args.seed, results))
+    # this slice: the app framework serving the example (phase 37)
+    by_path_d64.update(phase_app(torch, generate, mods, args.seed, results))
 
     cfg = llama.config("llama3-8b", n_layers=args.layers, use_flash=True)
     if args.layers != 32:
-        log(f"NOTE: depth cut to {args.layers} layers (width unchanged)")
+        log(f"NOTE: llama3-8b depth cut to {args.layers} of 32 layers "
+            f"(width unchanged)")
     t0 = time.monotonic()
     params = llama.init(cfg, args.seed, device="cuda")
     torch.cuda.synchronize()

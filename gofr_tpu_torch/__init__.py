@@ -1,4 +1,6 @@
-"""PyTorch/CUDA port of the gofr_tpu Llama ``/generate`` path.
+"""PyTorch/CUDA port of gofr_tpu: the Llama ``/generate`` engine, the
+executor path, training on one card, and the app framework that serves
+them (``app.py``, ``http/``, ``grpcx/``; ``examples/llama_generate.py``).
 
 A second package beside ``gofr_tpu`` (the JAX reference, left as it is).
 It imports ``torch`` and never ``jax`` or anything of ``gofr_tpu``: what it

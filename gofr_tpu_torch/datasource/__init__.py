@@ -1,6 +1,7 @@
 """The datasources the port serves from (a copy of the part of
-``gofr_tpu/datasource`` the batch lane needs): the pub/sub contract and
-the in-memory broker."""
+``gofr_tpu/datasource`` the app and the batch lane need): the health
+contract, the local file system, the pub/sub contract and the in-memory
+broker."""
 
 UP = "UP"
 DOWN = "DOWN"

@@ -9,14 +9,17 @@ spawner, the model registry, the disaggregated cluster, the fleet
 router and autoscaler, the operating-point auto-tuner, the executor,
 the dynamic batcher, the batch lane and the in-memory broker write, so a
 :class:`~gofr_tpu_torch.metrics.manager.Manager` of the port's own can
-take every call they make.
+take every call they make. :data:`FRAMEWORK_METRICS` is the rest of that
+catalog (the runtime gauges, HTTP, cron, the datasources), which the
+app's container registers beside it, so its scrape lists JAX's names.
 """
 
 from __future__ import annotations
 
 from typing import Any, Optional, Tuple
 
-__all__ = ["ENGINE_METRICS", "register_engine_metrics"]
+__all__ = ["ENGINE_METRICS", "FRAMEWORK_METRICS",
+           "register_engine_metrics", "register_framework_metrics"]
 
 _SECONDS = (0.01, 0.03, 0.1, 0.3, 1.0, 3.0, 10.0, 30.0)
 
@@ -223,9 +226,62 @@ ENGINE_METRICS: Tuple[Tuple[str, str, Optional[tuple], str], ...] = (
 def register_engine_metrics(manager: Any) -> Any:
     """Register :data:`ENGINE_METRICS` on ``manager`` (anything with the
     ``new_*`` registration methods); returns it."""
-    for name, kind, buckets, desc in ENGINE_METRICS:
+    return _register(manager, ENGINE_METRICS)
+
+
+_HTTP_SECONDS = (0.001, 0.003, 0.01, 0.03, 0.1, 0.3, 1, 3, 10, 30)
+
+FRAMEWORK_METRICS: Tuple[Tuple[str, str, Optional[tuple], str], ...] = (
+    ("app_info", "gauge", None, "application name/version info"),
+    ("threads_total", "gauge", None, "live Python threads"),
+    ("memory_rss_bytes", "gauge", None, "resident set size"),
+    ("gc_objects", "gauge", None, "gen-0 tracked objects"),
+    ("uptime_seconds", "gauge", None, "process uptime"),
+    ("app_http_response", "histogram", _HTTP_SECONDS,
+     "inbound HTTP response time (s)"),
+    ("app_http_service_response", "histogram", _HTTP_SECONDS,
+     "outbound HTTP call time (s)"),
+    ("app_redis_stats", "histogram", (0.00005, 0.0001, 0.0003, 0.001, 0.003),
+     "redis op time (s)"),
+    ("app_sql_stats", "histogram", (0.00005, 0.0001, 0.0005, 0.001, 0.01),
+     "sql query time (s)"),
+    ("app_sql_open_connections", "gauge", None, "SQL connection up 0/1"),
+    ("app_sql_inuse_connections", "gauge", None,
+     "SQL statements currently executing"),
+    ("app_tpu_prefix_lookup_total", "counter", None,
+     "prefix-cache lookups by result (hit|partial|miss)"),
+    ("app_tpu_prefix_tokens_saved_total", "updown_counter", None,
+     "prompt tokens served from cached prefix KV instead of prefill"),
+    ("app_tpu_prefix_cache_occupancy", "gauge", None,
+     "prefix-KV page pool: used pages / total pages"),
+    ("app_tpu_hbm_attributed_bytes", "gauge", None,
+     "device bytes the serving stack accounts for (params + KV page pool "
+     "+ staging slabs)"),
+    ("app_tpu_hbm_unattributed_bytes", "gauge", None,
+     "device bytes in use minus attributed bytes"),
+    ("app_tpu_circuit_state_total", "counter", None,
+     "circuit-breaker transitions by state entered "
+     "(open|half_open|closed)"),
+    ("app_http_inflight", "updown_counter", None,
+     "inbound HTTP requests currently in flight"),
+    ("app_cron_duration", "histogram", (0.001, 0.01, 0.1, 1, 10, 60, 300),
+     "cron job run time (s)"),
+    ("app_cron_runs_total", "counter", None,
+     "cron job runs by job name and result"),
+)
+
+
+def _register(manager: Any, catalog) -> Any:
+    for name, kind, buckets, desc in catalog:
         if kind == "histogram":
             manager.new_histogram(name, desc, buckets)
         else:
             getattr(manager, f"new_{kind}")(name, desc)
     return manager
+
+
+def register_framework_metrics(manager: Any) -> Any:
+    """Register the app's whole catalog, :data:`ENGINE_METRICS` and
+    :data:`FRAMEWORK_METRICS`, on ``manager``; returns it."""
+    _register(manager, ENGINE_METRICS)
+    return _register(manager, FRAMEWORK_METRICS)

@@ -1,6 +1,7 @@
 """Metrics manager: typed metric store (a copy of
-``gofr_tpu/metrics/manager.py``'s ``Manager``, ``MetricsError`` and
-``new_manager``).
+``gofr_tpu/metrics/manager.py``: ``Manager``, ``MetricsError``,
+``new_manager``, and the runtime gauges a scrape refreshes,
+``current_rss_bytes`` and ``system_metrics_refresh``).
 
 The engine, the SLO tracker, the watchdog, the brownout ladder and the
 fault plane call only ``increment_counter``, ``delta_updown_counter``,
@@ -185,3 +186,36 @@ class Manager:
 def new_manager(logger: Any = None) -> Manager:
     return Manager(logger=logger)
 
+
+
+def current_rss_bytes() -> Optional[float]:
+    """Current (not peak) resident set size from ``/proc/self/statm``;
+    None where procfs is unavailable."""
+    import os
+    try:
+        with open("/proc/self/statm") as fh:
+            resident_pages = int(fh.read().split()[1])
+        return float(resident_pages * os.sysconf("SC_PAGE_SIZE"))
+    except (OSError, IndexError, ValueError):
+        return None
+
+
+def system_metrics_refresh(manager: Manager, app_name: str,
+                           app_version: str) -> None:
+    """Refresh the runtime gauges; the app calls it on each scrape."""
+    import gc
+    import resource
+
+    manager.set_gauge("app_info", 1.0, name=app_name, version=app_version)
+    manager.set_gauge("threads_total", float(threading.active_count()))
+    # ru_maxrss is the peak: a gauge built from it never goes down
+    rss = current_rss_bytes()
+    if rss is None:
+        rss = float(resource.getrusage(resource.RUSAGE_SELF).ru_maxrss) \
+            * 1024.0
+    manager.set_gauge("memory_rss_bytes", rss)
+    manager.set_gauge("gc_objects", float(gc.get_count()[0]))
+    manager.set_gauge("uptime_seconds", time.monotonic() - _START)
+
+
+_START = time.monotonic()

@@ -5,6 +5,7 @@ from gofr_tpu_torch.trace.tracer import (
     current_span,
     extract_traceparent,
     format_traceparent,
+    new_tracer,
 )
 
 __all__ = [
@@ -14,4 +15,5 @@ __all__ = [
     "current_span",
     "extract_traceparent",
     "format_traceparent",
+    "new_tracer",
 ]

@@ -1,24 +1,29 @@
 """Distributed tracing (a copy of ``gofr_tpu/trace/tracer.py``): spans,
-W3C ``traceparent`` parsing and formatting, and the batching export
-worker with an in-memory exporter.
+W3C ``traceparent`` parsing and formatting, the batching export worker,
+and its exporters: in memory, console, and Zipkin v2 JSON over HTTP
+(``new_tracer(config)``: ``TRACE_EXPORTER`` none|console|zipkin,
+``TRACER_URL``).
 
 Spans follow asyncio tasks and threads through a contextvar of the
 port's own (``gofr_tpu_torch_span``): a span opened with the JAX
 package's tracer is not the port's :func:`current_span`, as the port's
 deadline contextvar is not the JAX package's. The engine hands an
 explicit ``parent`` to every span it opens on the loop, so only the
-submitting coroutine's context matters. The app's exporters (console,
-Zipkin) and ``new_tracer(config)`` come with the app wiring.
+submitting coroutine's context matters. A failed Zipkin post is kept
+as the tracer's ``export_error`` (the app logs it at close), where JAX's
+exporter drops it.
 """
 
 from __future__ import annotations
 
 import contextvars
+import json
 import queue
 import random
 import re
 import threading
 import time
+import urllib.request
 from typing import Dict, List, Optional
 
 _current: contextvars.ContextVar[Optional["Span"]] = contextvars.ContextVar(
@@ -163,6 +168,54 @@ class ListExporter(_Exporter):
         return [s for s in self.spans if s.name == name]
 
 
+class _ConsoleExporter(_Exporter):
+    def export(self, spans: List[Span]) -> None:
+        for span in spans:
+            dur_us = int(((span.end or span.start) - span.start) * 1e6)
+            print(f"[trace] {span.trace_id} {span.name} {dur_us}us "
+                  f"{span.status} {span.attributes}")
+
+
+class _ZipkinExporter(_Exporter):
+    """POST Zipkin v2 JSON spans to ``url``; a failed post raises, so the
+    tracer keeps it."""
+
+    def __init__(self, url: str, service_name: str):
+        self.url = url
+        self.service_name = service_name
+
+    def export(self, spans: List[Span]) -> None:
+        body = json.dumps([
+            {
+                "id": span.span_id,
+                "traceId": span.trace_id,
+                "parentId": span.parent_id,
+                "name": span.name,
+                "timestamp": int(span.start * 1e6),
+                "duration": int(((span.end or span.start) - span.start) * 1e6),
+                "localEndpoint": {"serviceName": self.service_name},
+                # span events are Zipkin v2's annotations
+                "annotations": [
+                    {"timestamp": int(e["t"] * 1e6),
+                     "value": "%s %s" % (e["name"], e["attributes"])
+                     if e["attributes"] else e["name"]}
+                    for e in span.events
+                ],
+                # Zipkin v2 has no span links: they ride a tag
+                "tags": dict(
+                    span.attributes, status=span.status,
+                    **({"links": ",".join(
+                        f"{l['trace_id']}:{l['span_id']}"
+                        for l in span.links)} if span.links else {})),
+            }
+            for span in spans
+        ]).encode()
+        req = urllib.request.Request(
+            self.url, data=body, headers={"Content-Type": "application/json"}
+        )
+        urllib.request.urlopen(req, timeout=5).close()
+
+
 class Tracer:
     """Span factory + batching export pipeline. A failed export does not
     stop the worker; the first failure is kept (``export_error``) and
@@ -260,3 +313,21 @@ class Tracer:
         self._exporter.shutdown()
         if self.export_error is not None:
             raise self.export_error
+
+
+def new_tracer(config, logger=None) -> Tracer:
+    """Build a tracer from config: ``TRACE_EXPORTER`` none (default),
+    console, or zipkin (alias gofr) posting to ``TRACER_URL``."""
+    name = config.get_or_default("APP_NAME", "gofr-tpu-app")
+    kind = config.get_or_default("TRACE_EXPORTER", "none").lower()
+    exporter: Optional[_Exporter] = None
+    if kind == "console":
+        exporter = _ConsoleExporter()
+    elif kind in ("zipkin", "gofr"):
+        url = config.get_or_default(
+            "TRACER_URL", "http://localhost:9411/api/v2/spans"
+        )
+        exporter = _ZipkinExporter(url, name)
+        if logger is not None:
+            logger.info("tracing exporter %s -> %s", kind, url)
+    return Tracer(service_name=name, exporter=exporter)

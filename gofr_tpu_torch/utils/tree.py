@@ -6,12 +6,13 @@ a NamedTuple (each field keyed ``.name``), a tuple or list (each item
 keyed by its index) or None (no children); anything else is a leaf. A
 leaf's key is its path's keys joined by ``/``: a JAX ``TrainState`` and
 the port's give the same keys (``.params/layers/wq``,
-``.opt_state/0/.mu/tok_emb``, ``.step``).
+``.opt_state/0/.mu/tok_emb``, ``.step``). :func:`tree_map` maps a
+function over the leaves, as ``jax.tree.map`` does over one tree.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 
 def _is_namedtuple(node: Any) -> bool:
@@ -61,6 +62,13 @@ def unflatten(like: Any, leaves: Dict[str, Any]) -> Any:
             return type(node)(*built)
         return type(node)(built)
     return build(like, ())
+
+
+def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
+    """A tree of ``tree``'s structure whose leaves are ``fn`` of its
+    leaves."""
+    return unflatten(tree, {key: fn(leaf)
+                            for key, leaf in flatten(tree).items()})
 
 
 def treedef(tree: Any) -> str:

@@ -24,6 +24,32 @@ from gofr_tpu_torch.trace import Tracer
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "gofr_tpu")
+# the app framework's modules: each the port's own copy
+APP_MODULES = [
+    "gofr_tpu_torch/config/__init__.py", "gofr_tpu_torch/config/config.py",
+    "gofr_tpu_torch/logging/__init__.py", "gofr_tpu_torch/logging/logger.py",
+    "gofr_tpu_torch/metrics/exposition.py",
+    "gofr_tpu_torch/datasource/file.py",
+    "gofr_tpu_torch/http/__init__.py", "gofr_tpu_torch/http/errors.py",
+    "gofr_tpu_torch/http/request.py", "gofr_tpu_torch/http/response.py",
+    "gofr_tpu_torch/http/responder.py", "gofr_tpu_torch/http/router.py",
+    "gofr_tpu_torch/http/server.py",
+    "gofr_tpu_torch/http/middleware/__init__.py",
+    "gofr_tpu_torch/http/middleware/tracer.py",
+    "gofr_tpu_torch/http/middleware/logger.py",
+    "gofr_tpu_torch/http/middleware/cors.py",
+    "gofr_tpu_torch/http/middleware/metrics.py",
+    "gofr_tpu_torch/http/middleware/basic_auth.py",
+    "gofr_tpu_torch/http/middleware/apikey_auth.py",
+    "gofr_tpu_torch/http/middleware/oauth.py",
+    "gofr_tpu_torch/context.py", "gofr_tpu_torch/handler.py",
+    "gofr_tpu_torch/container.py", "gofr_tpu_torch/cron.py",
+    "gofr_tpu_torch/grpcx/__init__.py", "gofr_tpu_torch/grpcx/server.py",
+    "gofr_tpu_torch/app.py", "gofr_tpu_torch/tokenizer.py",
+    "gofr_tpu_torch/native/__init__.py",
+    "gofr_tpu_torch/examples/__init__.py",
+    "gofr_tpu_torch/examples/llama_generate.py",
+]
 
 
 def _port_files():
@@ -67,7 +93,7 @@ def test_guard_scans_the_admission_and_grammar_modules():
     the disaggregated path's (the KV wire codec, the retry policy, the
     model registry, the cluster), and the fleet control plane and the
     operating-point auto-tuner, and training (the train step and the
-    checkpoints)."""
+    checkpoints), and the app framework (:data:`APP_MODULES`)."""
     files = {str(path.relative_to(ROOT)) for path in _port_files()}
     own = ["gofr_tpu_torch/slo.py", "gofr_tpu_torch/tpu/constrain.py",
            "gofr_tpu_torch/tpu/sched.py",
@@ -105,7 +131,7 @@ def test_guard_scans_the_admission_and_grammar_modules():
            "gofr_tpu_torch/parallel/train.py",
            "gofr_tpu_torch/utils/__init__.py",
            "gofr_tpu_torch/utils/checkpoint.py",
-           "gofr_tpu_torch/utils/tree.py"]
+           "gofr_tpu_torch/utils/tree.py"] + APP_MODULES
     assert set(own) <= files
     for name in own + ["gofr_tpu_torch/tpu/generate.py"]:
         assert not set(_imported_roots(ROOT / name)) & set(FORBIDDEN), name
@@ -241,3 +267,60 @@ def test_training_entry_points_default_to_the_card(no_cuda, tmp_path):
         from_jax_train_state(state)
     assert restore_checkpoint(str(tmp_path), state, device="cpu").step \
         .device.type == "cpu"
+
+
+# the example's knobs, and datasources another test's example may have
+# left in the environment (the port refuses those it lacks)
+APP_ENV_UNSET = ("MODELS", "MESH", "TPU_MESH", "CLUSTER_PEERS",
+                 "GENERATE_DRAFT_MODEL", "BATCH_LANE_TOPIC", "PUBSUB_BACKEND",
+                 "DB_DIALECT", "REDIS_HOST", "MONGO_URI", "CASSANDRA_HOSTS",
+                 "CLICKHOUSE_HOST", "REMOTE_LOG_URL", "TPU_ENABLED")
+
+
+def test_app_entry_points_default_to_the_card(no_cuda, monkeypatch):
+    """The example's ``build_app()``, an app's container and the executor
+    its ``add_model`` builds default to the card and raise without CUDA;
+    the CPU runs only when asked for. The native tokenizer's source ships
+    with the package, its library is built under ``build/``."""
+    from gofr_tpu_torch.app import App, new_app
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.container import Container
+    from gofr_tpu_torch.examples import llama_generate
+
+    assert (ROOT / "gofr_tpu_torch/native/tokenizer.cpp").exists()
+    for key in APP_ENV_UNSET:
+        monkeypatch.delenv(key, raising=False)
+    monkeypatch.setenv("LLAMA_PRESET", "tiny")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        llama_generate.build_app()
+    app = App(config=MapConfig({}))
+    assert app.container.device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        app.add_model("m", lambda p, x: x, {})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Container.create(MapConfig({"TPU_ENABLED": "1"}))
+    assert new_app().container.device == "cuda"
+    cpu = App(config=MapConfig({}), device="cpu")
+    cpu.add_model("m", lambda p, x: x, {})
+    assert cpu.container.tpu.device.type == "cpu"
+
+
+@pytest.mark.parametrize("env,match", [
+    ({"MESH": "tp:8"}, "MESH/TPU_MESH"), ({"TPU_MESH": "dp:1,tp:2"},
+                                          "MESH/TPU_MESH"),
+    ({"CLUSTER_PEERS": "b=decode@http://h:1"}, "CLUSTER_PEERS")])
+def test_example_refuses_knobs_not_ported(monkeypatch, env, match):
+    from gofr_tpu_torch.examples import llama_generate
+
+    for key in APP_ENV_UNSET:
+        monkeypatch.delenv(key, raising=False)
+    monkeypatch.setenv("LLAMA_PRESET", "tiny")
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    with pytest.raises(ValueError, match=match) as info:
+        llama_generate.build_app(device="cpu")
+    assert "ROADMAP.md §1" in str(info.value)
+    monkeypatch.setenv("MESH", "off")
+    monkeypatch.delenv("TPU_MESH", raising=False)
+    monkeypatch.delenv("CLUSTER_PEERS", raising=False)
+    assert llama_generate.build_app(device="cpu").engine.device.type == "cpu"

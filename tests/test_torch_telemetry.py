@@ -36,7 +36,8 @@ from gofr_tpu.tpu.generate import GenerationEngine as JaxEngine
 from gofr_tpu.tpu.generate import Sampling as JaxSampling
 from gofr_tpu.trace import ListExporter as JaxListExporter
 from gofr_tpu.trace import Tracer as JaxTracer
-from gofr_tpu_torch.metrics import (ENGINE_METRICS, Manager,
+from gofr_tpu_torch.metrics import (ENGINE_METRICS, FRAMEWORK_METRICS,
+                                    Manager,
                                     register_engine_metrics)
 from gofr_tpu_torch.models import llama as pt_llama
 from gofr_tpu_torch.models.convert import from_jax_llama
@@ -383,10 +384,17 @@ def test_every_metric_name_is_in_the_app_catalog():
     calls = _metric_names_called()
     assert len({name for name, _, _ in calls}) >= 25
     catalog = {name: kind for name, kind, _, _ in ENGINE_METRICS}
+    # the app framework's own series (runtime gauges, HTTP, cron): the
+    # rest of the app's catalog, held to JAX's in the test below
+    framework = {name: kind for name, kind, _, _ in FRAMEWORK_METRICS}
     for name, method, path in calls:
+        if name in framework:
+            assert framework[name] == KIND_OF_METHOD[method], (name, path)
+            continue
         assert name in documented, (name, path)
         assert catalog.get(name) == KIND_OF_METHOD[method], (name, path)
-    assert set(catalog) == {name for name, _, _ in calls}
+    assert set(catalog) == {name for name, _, _ in calls
+                            if name not in framework}
 
 
 def test_port_catalog_is_the_apps():
@@ -420,7 +428,11 @@ def test_port_catalog_is_the_apps():
             "app_pubsub_publish_total_count",
             "app_pubsub_subscribe_success_count"} \
         <= {name for name, _, _, _ in ENGINE_METRICS}
-    for name, kind, buckets, _ in ENGINE_METRICS:
+    # the engine's series and the framework's together are the app's
+    # whole catalog, each of JAX's kind and buckets
+    assert {name for name, _, _, _ in ENGINE_METRICS + FRAMEWORK_METRICS} \
+        == set(jax_metrics)
+    for name, kind, buckets, _ in ENGINE_METRICS + FRAMEWORK_METRICS:
         metric = jax_metrics[name]
         assert metric.kind == {"updown_counter": "updown"}.get(kind, kind)
         assert metric.buckets == list(buckets or [])
