@@ -112,7 +112,7 @@ Phases, each of which raises (exit code != 0) on failure:
     identity tables at each rung of a 1024-position cache, its verify
     instantiation at G = 1 bit-identical to its decode one, and flash
     decode over T 1024 and its window views 128/256/512;
-20-23. the ``small`` preset at full width and depth (vocab 32000, 8
+20-23. the ``small`` preset at full width (vocab 32000, 4 of its 8
     layers, dim 1024, 16/16 heads, ffn 2816, random weights) at the
     example app's engine settings (dense, max_len 1024, 8 slots, 16
     steps a tick, 4 ticks in flight) serving phase 9's burst: dense bf16
@@ -195,8 +195,9 @@ Phases, each of which raises (exit code != 0) on failure:
     same greedy completions, and so does the paged engine;
 30. the example app's engine arguments (after phase 29, on phase 20's
     weights): (a) ``moe-small`` (``moe.config(base=llama.config("small",
-    vocab_size=256))``: dim 1024, 8 layers, 16/16 heads, ffn 2816, 4
-    experts, full width and depth, random weights from ``--seed`` + 5)
+    vocab_size=256, n_layers=4))``: dim 1024, 4 of 8 layers, 16/16
+    heads, ffn 2816, 4 experts, full width, random weights from
+    ``--seed`` + 5)
     at the example's engine with the app's ``warmup(prompt_counts=(1,
     8))``: every prefill graph at JAX's rows (no padding to
     ``CUDA_MIN_PREFILL_ROWS``), a tick and an 8 x 512 prefill replayed
@@ -349,12 +350,39 @@ Phases, each of which raises (exit code != 0) on failure:
     token or SSE frame, the engine's TTFT p50, the idle share under the
     profiler); after ``stop()`` every slot free, no tick in flight, the
     device thread ended, the pinned slab bytes as after the turns.
+38. the debug pages and a remote replica (after phase 37): the example
+    at its defaults in two processes on the card, a prefill replica
+    (``python -m gofr_tpu_torch.examples.llama_generate`` as a child,
+    ``CLUSTER_ROLE=prefill``, its own ports, its log under
+    ``build/phase38/``) and a decode replica here (``CLUSTER_ROLE=decode``,
+    ``GENERATE_PAGED_KV=1``, ``CLUSTER_PEERS`` naming the child with its
+    gRPC target), warmed up side by side; 8 × 32 greedy requests of
+    5-512 bytes through ``/disagg/generate`` equal the decode replica's
+    ``/generate``, with no prefill on the decode replica and every
+    handoff over ``gofr.Disagg/fetch``; an ``HTTPTransport`` without a
+    gRPC target carries one handoff over HTTP whose adoption gives the
+    same tokens; every ``/debug/*`` page and ``/debug/`` answer 200 on
+    both replicas with their sections filled (statusz's engine, devices
+    and compiles; hbmz's attributed bytes and the allocator's occupancy;
+    timez's samples; clusterz with both replicas, the peer fresh,
+    goodput), tracez stitches one request with its phases summing to
+    the end-to-end time, whyz gives a verdict; a profile of a burst
+    through ``/debug/profiler`` names ``flash_wgmma_kernel`` and
+    ``ragged_kernel`` with as many events as launches counted, and a
+    graph captured under a profile replays its tokens; after the child
+    is stopped, the circuit opens, clusterz marks the peer stale for it
+    and ``/disagg/generate`` answers 503. Printed: tok/s and TTFT p50 in
+    turns monolithic, disaggregated, disaggregated, monolithic; KV bytes
+    a request and one handoff's fetch seconds over gRPC and HTTP; each
+    page's render ms during a burst; tok/s with the pages polled every
+    100 ms against not, in turns; tok/s under the profiler and the
+    trace's bytes; the phase's seconds.
 
 Depth is cut, width never: the ``llama3-8b`` engines run 8 of 32
-layers (``--layers``), and the later slices' ``small`` phases (24's
-``small`` half, 28, 29, 31, 32d, 33e, 35) 4 of its 8
-(``CUT_SMALL_LAYERS``, views of phase 20's first 4); phases 20-23, 26-27,
-30 and 37 run ``small`` whole.
+layers (``--layers``), and every ``small`` phase but the app's (20-23,
+24's ``small`` half, 26-31, 32d, 33e, 35) 4 of its 8
+(``CUT_SMALL_LAYERS``); phases 37 and 38 run the example app at its
+defaults, ``small`` whole.
 
 Every engine burst (phases 9-12, 15-18, 20-23, 30a) is served twice:
 counted, then under ``torch.profiler`` for the device's idle share. Every
@@ -1089,7 +1117,8 @@ PATH_KERNELS = {"engine": ("flash", "ragged"),
                 "op_small": ("flash", "ragged"),
                 "op_llama3": ("flash", "ragged"),
                 "train_eval_small": ("flash",),
-                "app_small": ("flash", "ragged")}
+                "app_small": ("flash", "ragged"),
+                "disagg_app": ("flash", "ragged")}
 
 
 def warm(engine):
@@ -1681,10 +1710,8 @@ def phase_d64_kernels(torch, mods, timer, results):
 # flight; dense unless GENERATE_PAGED_KV=1
 SMALL_ENGINE = dict(max_slots=8, max_len=1024, steps_per_tick=16,
                     max_inflight_ticks=4)
-# the smoke's length: the later slices' small phases (24's small half,
-# 28, 29, 31, 32d, 33e, 35) run ``small`` at full width cut to 4 of its 8
-# layers (views of phase 20's first 4); phases 20-23, 26-27, 30 and 37
-# keep the whole depth
+# the smoke's length: every small phase but the app's (37, 38) runs
+# ``small`` at full width cut to 4 of its 8 layers
 CUT_SMALL_LAYERS = 4
 
 
@@ -1694,11 +1721,12 @@ def depth(params):
 
 
 def phase_small_engines(torch, llama, generate, mods, seed, results):
-    """Phases 20-23: the example's default preset (``small`` at full width
-    and depth) at the example's engine defaults, dense bf16; paged; dense
-    ``kv_int8``; speculative (a 2-layer draft of views, bf16 then int8
-    target). Returns launches by path."""
-    cfg = llama.config("small", use_flash=True)
+    """Phases 20-23: the example's default preset (``small`` at full width,
+    ``CUT_SMALL_LAYERS`` of its 8 layers) at the example's engine
+    defaults, dense bf16; paged; dense ``kv_int8``; speculative (a
+    2-layer draft of views, bf16 then int8 target). Returns the params
+    and launches by path."""
+    cfg = llama.config("small", use_flash=True, n_layers=CUT_SMALL_LAYERS)
     params = llama.init(cfg, seed + 2, device="cuda")
     prompts = engine_prompts(cfg, seed)
     budget = 32
@@ -2001,7 +2029,8 @@ def phase_moe(torch, llama, moe, generate, mods, seed, results):
     launches."""
     import numpy as np
 
-    cfg = moe.config(base=llama.config("small", vocab_size=EXAMPLE_VOCAB))
+    cfg = moe.config(base=llama.config("small", vocab_size=EXAMPLE_VOCAB,
+                                       n_layers=CUT_SMALL_LAYERS))
     log(f"== phase 30a: moe-small (dim {cfg.dim}, {cfg.n_layers} layers, "
         f"{cfg.n_heads}/{cfg.n_kv_heads} heads, head_dim {cfg.head_dim}, "
         f"ffn {cfg.base.ffn_dim}, {cfg.n_experts} experts, capacity factor "
@@ -2437,7 +2466,7 @@ def phase_engine_args(torch, llama, moe, generate, page_pool, mods, params,
                       seed, results):
     """Phase 30: every engine argument the example app passes."""
     t0 = time.monotonic()
-    cfg = llama.config("small", use_flash=True)
+    cfg = llama.config("small", use_flash=True, n_layers=depth(params))
     by_path = phase_moe(torch, llama, moe, generate, mods, seed, results)
     by_path.update(phase_shared_pool(torch, generate, page_pool, mods, cfg,
                                      params, seed, results))
@@ -6990,6 +7019,620 @@ def phase_app(torch, generate, mods, seed, results, device="cuda",
     return by_path
 
 
+# phase 38: the debug pages and a remote prefill replica (the example at
+# its defaults in a child process, CLUSTER_ROLE=prefill; the decode
+# replica in this process, paged as JAX's adopt_kv needs)
+DISAGG_PAGES = ("statusz", "varz", "xlaz", "hbmz", "timez", "workloadz",
+                "sloz", "whyz", "tunez", "clusterz")
+DISAGG_TURNS = ("monolithic", "disaggregated", "disaggregated", "monolithic")
+POLL_TURNS = ("quiet", "polled", "polled", "quiet")
+POLL_EVERY_S = 0.1
+POLL_BURSTS = 5          # bursts a polling turn, back to back (~0.4 s)
+# the child's ports come from here, below the kernel's ephemeral range, so
+# no port-0 bind of this process can take one; a port another process
+# takes between the probe and the child's bind fails the child's start,
+# and the phase starts again on other ports
+CHILD_PORTS = (20000, 30000)
+CHILD_TRIES = 3
+CHILD_READY_S = 300.0
+PHASE38_DIR = Path(__file__).resolve().parent / "build" / "phase38"
+
+
+def probe_ports(rng, n):
+    """``n`` distinct ports of ``CHILD_PORTS`` that bind right now."""
+    import socket
+
+    ports = []
+    while len(ports) < n:
+        port = int(rng.integers(*CHILD_PORTS))
+        with socket.socket() as sock:
+            try:
+                sock.bind(("0.0.0.0", port))
+            except OSError:
+                continue
+        if port not in ports:
+            ports.append(port)
+    return ports
+
+
+def _end_with_parent():
+    """In the child, before exec: SIGTERM when this process ends, so a
+    killed smoke leaves no replica on the card."""
+    import ctypes
+    import signal
+
+    ctypes.CDLL(None, use_errno=True).prctl(1, signal.SIGTERM)
+
+
+class ReplicaProcess:
+    """The prefill replica: ``python -m
+    gofr_tpu_torch.examples.llama_generate`` (on the CPU, ``build_app``
+    with ``device="cpu"``) with its own ports and a log file, stopped by
+    :meth:`stop` on every exit path."""
+
+    def __init__(self, env, log_path, device):
+        self.env = env
+        self.log_path = log_path
+        self.device = device
+        self.proc = None
+
+    def start(self):
+        cmd = [sys.executable, "-m", "gofr_tpu_torch.examples.llama_generate"]
+        if self.device != "cuda":
+            cmd = [sys.executable, "-c",
+                   "from gofr_tpu_torch.examples import llama_generate as m; "
+                   f"m.build_app(device={self.device!r}).run()"]
+        self.log_path.parent.mkdir(parents=True, exist_ok=True)
+        self._log = open(self.log_path, "wb")
+        self.proc = subprocess.Popen(
+            cmd, cwd=str(Path(__file__).resolve().parent), env=self.env,
+            stdout=self._log, stderr=subprocess.STDOUT,
+            preexec_fn=_end_with_parent)
+
+    def alive(self):
+        return self.proc is not None and self.proc.poll() is None
+
+    def tail(self, n=20):
+        lines = self.log_path.read_text(errors="replace").splitlines()
+        return "\n".join(lines[-n:])
+
+    def stop(self):
+        if self.proc is None:
+            return None
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(20)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(10)
+        self._log.close()
+        return self.proc.returncode
+
+
+async def wait_alive(child, port, timeout=CHILD_READY_S):
+    """Until the child's ``/.well-known/alive`` answers 200; raises if it
+    exits first."""
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < timeout:
+        if not child.alive():
+            raise RuntimeError(f"disagg: the prefill replica exited "
+                               f"({child.proc.returncode}):\n{child.tail()}")
+        try:
+            status, _, _ = await http_call(port, "GET", "/.well-known/alive")
+            if status == 200:
+                return time.monotonic() - t0
+        except OSError:
+            pass
+        await asyncio.sleep(0.25)
+    raise RuntimeError(f"disagg: the prefill replica did not answer in "
+                       f"{timeout}s:\n{child.tail()}")
+
+
+def scrape_count(text, name, **labels):
+    """A Prometheus series' value (a histogram's ``_count``) from an
+    exposition, summed over the series whose labels include ``labels``."""
+    total = 0.0
+    for line in text.splitlines():
+        if not line.startswith(name) or line.startswith("#"):
+            continue
+        head, _, value = line.rpartition(" ")
+        if all(f'{k}="{v}"' in head for k, v in labels.items()):
+            total += float(value)
+    return total
+
+
+async def disagg_turn(port, bodies):
+    """The burst through ``POST /disagg/generate`` (unary JSON). (outputs,
+    wall, client latencies, trace ids)."""
+    async def one(body):
+        t0 = time.monotonic()
+        status, headers, payload = await http_call(port, "POST",
+                                                   "/disagg/generate", body)
+        if status != 201:
+            raise AssertionError(f"disagg: /disagg/generate answered "
+                                 f"{status} {payload[:300]!r}")
+        return (json.loads(payload)["data"]["tokens"],
+                time.monotonic() - t0, headers.get("x-trace-id"))
+
+    t0 = time.monotonic()
+    got = await asyncio.wait_for(asyncio.gather(*[one(b) for b in bodies]),
+                                 600)
+    return ([g[0] for g in got], time.monotonic() - t0, [g[1] for g in got],
+            [g[2] for g in got])
+
+
+async def get_page(port, path):
+    t0 = time.monotonic()
+    status, _, body = await http_call(port, "GET", path)
+    ms = (time.monotonic() - t0) * 1e3
+    data = json.loads(body)["data"] if status == 200 else body
+    return status, data, ms
+
+
+async def poll_pages(port, stop):
+    """Every page once each ``POLL_EVERY_S`` until ``stop`` is set;
+    returns the polls made."""
+    polls = 0
+    while not stop.is_set():
+        for page in DISAGG_PAGES:
+            await http_call(port, "GET", f"/debug/{page}")
+        polls += 1
+        try:
+            await asyncio.wait_for(stop.wait(), POLL_EVERY_S)
+        except asyncio.TimeoutError:
+            pass
+    return polls
+
+
+def series_sampled(timez):
+    """Signals of a timez page with at least one sampled value."""
+    series = (timez.get("series") or {}).get("series") or {}
+    return [name for name, values in series.items()
+            if any(v is not None for v in values)]
+
+
+def check_pages(pages, index, replica, decode, cuda):
+    """Every page 200 and its sections filled (``decode``: the replica
+    with the peer; ``cuda``: the allocator's figure on hbmz)."""
+    bad = {page: got[0] for page, got in pages.items() if got[0] != 200}
+    if bad or index[0] != 200 or len(index[1]) != 12:
+        raise AssertionError(f"disagg: {replica}: pages not 200: {bad}, "
+                             f"index {index[0]} {index[1]}")
+    statusz = pages["statusz"][1]
+    if not {"engine", "devices"} <= set(statusz) \
+            or "compiles" not in statusz["engine"]["stats"]:
+        raise AssertionError(f"disagg: {replica}: statusz sections "
+                             f"{sorted(statusz)}")
+    hbmz = pages["hbmz"][1]
+    if not hbmz.get("attributed_bytes") or cuda and (
+            not hbmz.get("device_bytes_in_use")
+            or hbmz.get("occupancy") is None):
+        raise AssertionError(f"disagg: {replica}: hbmz {hbmz}")
+    if not series_sampled(pages["timez"][1]):
+        raise AssertionError(f"disagg: {replica}: timez has no sample")
+    if decode:
+        clusterz = pages["clusterz"][1]
+        replicas = clusterz["replicas"]
+        if sorted(replicas) != ["local", "pf"] or replicas["pf"]["stale"] \
+                or replicas["pf"]["transport"] != "http" \
+                or replicas["local"].get("goodput_tokens_per_s") is None \
+                or "goodput_tokens_per_s" not in replicas["pf"]:
+            raise AssertionError(f"disagg: clusterz {replicas}")
+
+
+def trace_kernel_events(path):
+    """Kernel events of a Chrome trace by name, and its bytes."""
+    data = Path(path).read_bytes()
+    events = json.loads(data)["traceEvents"]
+    counts = {}
+    for event in events:
+        if event.get("cat") == "kernel":
+            counts[event["name"]] = counts.get(event["name"], 0) + 1
+    return counts, len(data)
+
+
+def named(counts, needle):
+    return sum(n for name, n in counts.items() if needle in name)
+
+
+def phase_disagg_app(generate, cluster_mod, kv_wire, mods, seed, results,
+                     device="cuda", env=None, sizes=APP_PROMPT_BYTES):
+    """Phase 38: the example at its defaults across two processes on one
+    card: a prefill replica in a child process and a decode replica here
+    whose ``CLUSTER_PEERS`` names it, every debug page on both, a
+    profile through ``/debug/profiler``. Returns launches by path. A CPU
+    rehearsal passes ``device="cpu"``, ``env`` (e.g. ``{"LLAMA_PRESET":
+    "tiny"}``) and prompt ``sizes`` that fit, with ``check_launches``
+    stubbed; it checks no device event."""
+    import numpy as np
+
+    from gofr_tpu_torch.examples import llama_generate
+
+    t_phase = time.monotonic()
+    cuda = device == "cuda"
+    rng = np.random.default_rng(seed + 38)
+    prompts = app_corpus(seed, sizes)
+    bodies = [{"prompt": p, "max_new_tokens": APP_BUDGET} for p in prompts]
+    log("== phase 38: the debug pages and a remote replica: the example "
+        "at its defaults, a prefill replica in a child process and a "
+        "paged decode replica here whose CLUSTER_PEERS names it")
+    out = {"tries": []}
+    child = app = None
+    for attempt in range(CHILD_TRIES):
+        http_port, grpc_port, metrics_port = probe_ports(rng, 3)
+        child_env = dict(os.environ)
+        for key in APP_UNSET:
+            child_env.pop(key, None)
+        child_env.update(APP_ENV, **(env or {}))
+        child_env.update(CLUSTER_ROLE="prefill", HTTP_PORT=str(http_port),
+                         GRPC_PORT=str(grpc_port),
+                         METRICS_PORT=str(metrics_port), LOG_LEVEL="INFO")
+        child = ReplicaProcess(child_env, PHASE38_DIR / "prefill.log",
+                               device)
+        t0 = time.monotonic()
+        child.start()
+        peers = (f"pf=prefill@http://127.0.0.1:{http_port}"
+                 f"#127.0.0.1:{grpc_port}")
+        with app_environment(dict(env or {}, CLUSTER_ROLE="decode",
+                                  GENERATE_PAGED_KV="1",
+                                  CLUSTER_PEERS=peers)):
+            app = llama_generate.build_app(device=device)
+        try:
+            out.update(asyncio.run(_disagg_main(
+                generate, cluster_mod, kv_wire, mods, app, child,
+                (http_port, grpc_port, metrics_port), prompts, bodies, t0)))
+            break
+        except ChildBindError as exc:
+            out["tries"].append(str(exc))
+            log(f"disagg: the prefill replica could not bind ({exc}); "
+                f"again on other ports")
+        finally:
+            child.stop()
+    else:
+        raise AssertionError(f"disagg: the prefill replica did not start "
+                             f"in {CHILD_TRIES} tries: {out['tries']}")
+    return check_disagg(app, out, cuda, t_phase, results)
+
+
+class WarnTap:
+    """A logger that keeps the ``warn`` lines of the one object it is
+    given to (the peer's transport) and passes every call on."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.warnings = []
+
+    def warn(self, message, *args, **fields):
+        self.warnings.append(message % args)
+        self.inner.warn(message, *args, **fields)
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+class ChildBindError(RuntimeError):
+    """The child replica exited because a port was taken."""
+
+
+async def _disagg_main(generate, cluster_mod, kv_wire, mods, app, child,
+                       ports, prompts, bodies, t0):
+    engine = app.engine
+    child_http, child_grpc, child_metrics = ports
+    transport = app.container.cluster._replicas["pf"].transport
+    transport.logger = WarnTap(transport.logger)
+    router = app.container.cluster_router
+    ids = [app.tokenizer.encode(p)[-512:] for p in prompts]
+    out = {}
+    await app.start()        # the decode replica's warm-up, beside the child's
+    out["decode_start_s"] = time.monotonic() - t0
+    try:
+        try:
+            await wait_alive(child, child_http)
+        except RuntimeError as exc:
+            if "Address already in use" in child.tail(50):
+                raise ChildBindError(str(exc).splitlines()[0]) from exc
+            raise
+        out["child_ready_s"] = time.monotonic() - t0
+        port = app.bound_http_port
+        log(f"disagg: the prefill replica (pid {child.proc.pid}) answers "
+            f"on :{child_http} (gRPC :{child_grpc}) {out['child_ready_s']:.1f}"
+            f"s after its start; the decode replica started in "
+            f"{out['decode_start_s']:.1f}s")
+        # warm-up (cuBLAS handles, the gRPC channel, the allocator), not
+        # counted
+        await engine.generate(ids[0], 8)
+        await disagg_turn(port, bodies[:1])
+        _, _, metrics_text = await http_call(child_metrics, "GET", "/metrics")
+        fetch0 = (scrape_count(metrics_text.decode(),
+                               "app_http_service_response_count",
+                               service="grpc", method="/gofr.Disagg/fetch"),
+                  scrape_count(metrics_text.decode(),
+                               "app_http_response_count",
+                               path="/disagg/fetch"))
+        # the counted window: one disaggregated burst, one monolithic
+        for mod in mods:
+            mod.reset_launches()
+        before = run_counters(engine)
+        stats0 = engine.stats()
+        shipped0 = router.stats()["bytes_shipped"]
+        out["disagg"] = await disagg_turn(port, bodies)
+        stats1 = engine.stats()
+        out["no_prefill"] = dict(
+            prefills=stats1["prefill_batches"] - stats0["prefill_batches"],
+            bucket_tokens=stats1["prefill_bucket_tokens"]
+            - stats0["prefill_bucket_tokens"],
+            adoptions=stats1["kv_adoptions"] - stats0["kv_adoptions"])
+        out["kv_bytes_per_request"] = (router.stats()["bytes_shipped"]
+                                       - shipped0) / len(bodies)
+        out["monolithic"] = await http_turn(port, bodies)
+        out["launches"] = read_launches(mods)
+        after = run_counters(engine)
+        out["counters"] = {k: after[k] - before[k] for k in after}
+        _, _, metrics_text = await http_call(child_metrics, "GET", "/metrics")
+        out["fetches"] = (
+            scrape_count(metrics_text.decode(),
+                         "app_http_service_response_count",
+                         service="grpc", method="/gofr.Disagg/fetch")
+            - fetch0[0],
+            scrape_count(metrics_text.decode(), "app_http_response_count",
+                         path="/disagg/fetch") - fetch0[1])
+        out["warned"] = list(transport.logger.warnings)
+        # one HTTPTransport with no gRPC target, called directly; its
+        # handoff adopted here
+        plain = cluster_mod.HTTPTransport(f"http://127.0.0.1:{child_http}")
+        blob = await plain.prefill(ids[1], generate.Sampling())
+        stream = await engine.adopt_kv(kv_wire.unpack(blob), APP_BUDGET)
+        out["plain_http"] = [t async for t in stream]
+        # fetch seconds: one handoff, over gRPC and over HTTP
+        status, _, body = await http_call(
+            child_http, "POST", "/disagg/prefill",
+            {"prompt": ids[-1], "sampling": {}})
+        handoff = json.loads(body)["data"]["handoff"]
+        t1 = time.monotonic()
+        over_grpc = await cluster_mod._grpc_fetch(
+            f"127.0.0.1:{child_grpc}", handoff)
+        t2 = time.monotonic()
+        over_http = await plain.service.aget("/disagg/fetch",
+                                             params={"handoff": handoff})
+        t3 = time.monotonic()
+        out["fetch_s"] = dict(grpc=t2 - t1, http=t3 - t2,
+                              bytes=len(over_grpc),
+                              same=over_grpc == over_http.body)
+        # the turns: monolithic, disaggregated, disaggregated, monolithic
+        out["turns"] = []
+        for kind in DISAGG_TURNS:
+            gc.collect()
+            engine.ttfts.clear()
+            if kind == "monolithic":
+                outs, wall, ttfts, _ = await http_turn(port, bodies)
+            else:
+                outs, wall, ttfts, _ = await disagg_turn(port, bodies)
+            out["turns"].append(dict(
+                kind=kind, outs=outs, wall_s=wall,
+                tokens_per_s=APP_BUDGET * len(outs) / wall,
+                client_p50_s=median(ttfts),
+                engine_ttft_p50_s=median(list(engine.ttfts))))
+        # every page on both replicas, rendered while a burst runs here
+        burst = asyncio.ensure_future(disagg_turn(port, bodies))
+        pages = {}
+        for page in DISAGG_PAGES:
+            pages[page] = await get_page(port, f"/debug/{page}")
+        out["burst_during_pages"] = await burst
+        out["pages"] = pages
+        out["index"] = (await get_page(port, "/debug/"))[:2]
+        out["child_pages"] = {page: await get_page(child_http,
+                                                   f"/debug/{page}")
+                              for page in DISAGG_PAGES}
+        out["child_index"] = (await get_page(child_http, "/debug/"))[:2]
+        tid = out["disagg"][3][0]
+        out["tracez"] = await get_page(port, f"/debug/tracez/{tid}")
+        out["whyz"] = await get_page(port, f"/debug/whyz/{tid}")
+        out["child_tracez"] = await get_page(
+            child_http, f"/debug/tracez/{tid}?local=1")
+        # the pages polled every 100 ms against not, in turns
+        out["poll_turns"] = []
+        for kind in POLL_TURNS:
+            stop = asyncio.Event()
+            poller = (asyncio.ensure_future(poll_pages(port, stop))
+                      if kind == "polled" else None)
+            t1 = time.monotonic()
+            for _ in range(POLL_BURSTS):
+                await http_turn(port, bodies)
+            wall = time.monotonic() - t1
+            stop.set()
+            polls = await poller if poller is not None else 0
+            out["poll_turns"].append(dict(
+                kind=kind, polls=polls,
+                tokens_per_s=APP_BUDGET * len(bodies) * POLL_BURSTS / wall))
+        # a profile of a monolithic burst through /debug/profiler
+        trace_dir = PHASE38_DIR / "profile"
+        for mod in mods:
+            mod.reset_launches()
+        before = run_counters(engine)
+        status, _, body = await http_call(port, "POST",
+                                          "/debug/profiler/start",
+                                          {"dir": str(trace_dir),
+                                           "duration_s": 120})
+        out["profile_start"] = (status, json.loads(body)["data"])
+        profiled = await http_turn(port, bodies)
+        status, _, body = await http_call(port, "POST",
+                                          "/debug/profiler/stop")
+        out["profile_stop"] = (status, json.loads(body)["data"])
+        out["profile_launches"] = read_launches(mods)
+        after = run_counters(engine)
+        out["profile_counters"] = {k: after[k] - before[k] for k in after}
+        out["profiled"] = dict(outs=profiled[0], wall_s=profiled[1],
+                               tokens_per_s=APP_BUDGET * len(bodies)
+                               / profiled[1])
+        out["trace"] = trace_kernel_events(trace_dir / "trace.json")
+        # a graph captured under the profiler: a constrained request's
+        # bias graphs are captured at its first use
+        lazy0 = engine.stats()["graphs"]["lazy_captures"]
+        constrained = {"prompt": prompts[2], "max_new_tokens": 16,
+                       "response_format": YES_NO}
+        await http_call(port, "POST", "/debug/profiler/start",
+                        {"dir": str(PHASE38_DIR / "profile-capture"),
+                         "duration_s": 120})
+        first = await http_call(port, "POST", "/generate", constrained)
+        await http_call(port, "POST", "/debug/profiler/stop")
+        second = await http_call(port, "POST", "/generate", constrained)
+        out["capture_under_profile"] = dict(
+            lazy_captures=engine.stats()["graphs"]["lazy_captures"] - lazy0,
+            first=(first[0], json.loads(first[2])["data"]["tokens"]),
+            second=(second[0], json.loads(second[2])["data"]["tokens"]))
+        # the peer gone: the breaker opens, clusterz marks it stale
+        out["child_exit"] = child.stop()
+        answers = []
+        for _ in range(6):
+            answers.append((await http_call(port, "POST", "/disagg/generate",
+                                            bodies[0]))[0])
+            if not transport.available():
+                break
+        out["after_kill"] = dict(
+            answers=answers, circuit=transport.service.state,
+            clusterz=await get_page(port, "/debug/clusterz"),
+            generate=await http_call(port, "POST", "/disagg/generate",
+                                     bodies[0]))
+    finally:
+        await app.stop()
+    return out
+
+
+def check_disagg(app, out, cuda, t_phase, results):
+    """Phase 38's gates over what ``_disagg_main`` gathered; its log
+    lines. Returns launches by path."""
+    engine = app.engine
+    cfg = engine.cfg
+    c = out["counters"]
+    if c["lazy_captures"] or c["prefill_lazy"] or cuda and (
+            c["replays"] != c["ticks"] + c["spec_ticks"]
+            or c["prefill_replays"] != c["prefills"]):
+        raise AssertionError(f"disagg: a tick or prefill of the counted "
+                             f"window was not a replay: {c}")
+    check_launches(out["launches"], expected_launches(cfg, c), "disagg_app")
+    disagg_outs = out["disagg"][0]
+    mono_outs = out["monolithic"][0]
+    if disagg_outs != mono_outs:
+        raise AssertionError(
+            f"disagg: tokens through /disagg/generate differ from the "
+            f"decode replica's /generate: "
+            f"{[i for i, (a, b) in enumerate(zip(disagg_outs, mono_outs)) if a != b]}")
+    for row in out["turns"] + [dict(kind="pages burst",
+                                    outs=out["burst_during_pages"][0]),
+                               dict(kind="profiled",
+                                    outs=out["profiled"]["outs"])]:
+        if row["outs"] != mono_outs:
+            raise AssertionError(f"disagg: a {row['kind']} turn's tokens "
+                                 f"differ")
+    n = len(disagg_outs)
+    if out["no_prefill"] != dict(prefills=0, bucket_tokens=0, adoptions=n):
+        raise AssertionError(f"disagg: the decode replica ran a prefill or "
+                             f"missed an adoption: {out['no_prefill']}")
+    if out["fetches"] != (float(n), 0.0) or out["warned"]:
+        raise AssertionError(f"disagg: handoffs over (gRPC, HTTP) "
+                             f"{out['fetches']} for {n} requests; warnings "
+                             f"{out['warned']}")
+    if out["plain_http"] != mono_outs[1]:
+        raise AssertionError(f"disagg: the HTTP-fetched handoff adopted "
+                             f"gave {out['plain_http']}, /generate "
+                             f"{mono_outs[1]}")
+    if not out["fetch_s"]["same"]:
+        raise AssertionError("disagg: gRPC and HTTP fetched other bytes")
+    check_pages(out["pages"], out["index"], "decode", True, cuda)
+    check_pages(out["child_pages"], out["child_index"], "prefill", False,
+                cuda)
+    status, timeline, _ = out["tracez"]
+    names = [p["name"] for p in timeline.get("phases", [])]
+    total = sum(p["duration_s"] for p in timeline.get("phases", []))
+    if status != 200 or not timeline.get("stitched") \
+            or sorted(names) != ["decode", "handoff_gap", "kv_transfer",
+                                 "prefill"] \
+            or abs(total - timeline["e2e_s"]) > 0.10 * timeline["e2e_s"] \
+            or not timeline["records"]["prefill"]:
+        raise AssertionError(f"disagg: tracez {status} {timeline}")
+    status, whyz, _ = out["whyz"]
+    if status != 200 or not whyz.get("verdicts"):
+        raise AssertionError(f"disagg: whyz {status} {whyz}")
+    start, stop = out["profile_start"], out["profile_stop"]
+    if start[1]["status"] != "started" or stop[1]["status"] != "stopped":
+        raise AssertionError(f"disagg: profiler {start} {stop}")
+    kernels, trace_bytes = out["trace"]
+    want = expected_launches(cfg, out["profile_counters"])
+    ragged_events = named(kernels, "ragged_kernel")
+    flash_events = named(kernels, "flash_wgmma_kernel")
+    if cuda and (not flash_events
+                 or flash_events != out["profile_launches"]["flash"]
+                 or ragged_events != out["profile_launches"]["ragged"]
+                 or ragged_events != want["ragged"]):
+        raise AssertionError(
+            f"disagg: the profile holds {flash_events} flash_wgmma_kernel "
+            f"and {ragged_events} ragged_kernel events; the counters "
+            f"{out['profile_launches']}, expected {want}")
+    capture = out["capture_under_profile"]
+    if capture["first"] != capture["second"] or capture["first"][0] != 201:
+        raise AssertionError(f"disagg: a request whose graph was captured "
+                             f"under the profiler: {capture}")
+    after = out["after_kill"]
+    status, clusterz, _ = after["clusterz"]
+    peer = clusterz["replicas"]["pf"] if status == 200 else None
+    if after["circuit"] != "open" or status != 200 or not peer["stale"] \
+            or peer["stale_reason"] != "circuit open" \
+            or after["generate"][0] != 503:
+        raise AssertionError(f"disagg: after the prefill replica's kill: "
+                             f"circuit {after['circuit']}, clusterz {status} "
+                             f"{peer}, /disagg/generate {after['generate'][0]}")
+    turns = [{k: v for k, v in r.items() if k != "outs"}
+             for r in out["turns"]]
+    row = dict(
+        child_ready_s=out["child_ready_s"],
+        decode_start_s=out["decode_start_s"], counters=c,
+        launches=out["launches"], no_prefill=out["no_prefill"],
+        fetches=out["fetches"], kv_bytes_per_request=out[
+            "kv_bytes_per_request"], fetch_s=out["fetch_s"], turns=turns,
+        page_ms={p: g[2] for p, g in out["pages"].items()},
+        poll_turns=out["poll_turns"],
+        profiled_tokens_per_s=out["profiled"]["tokens_per_s"],
+        trace_bytes=trace_bytes, trace_flash_events=flash_events,
+        trace_ragged_events=ragged_events,
+        capture_under_profile=dict(capture, first=None, second=None,
+                                   tokens_equal=True),
+        after_kill=dict(answers=after["answers"], circuit=after["circuit"]),
+        child_exit=out["child_exit"], tries=out["tries"],
+        phase_s=time.monotonic() - t_phase)
+    results["disagg_app"] = row
+    log(f"disagg: {n} x {APP_BUDGET} greedy requests through "
+        f"/disagg/generate = the decode replica's /generate; no prefill "
+        f"there ({out['no_prefill']}); handoffs over (gRPC, HTTP) "
+        f"{out['fetches']}; an HTTPTransport without gRPC: its handoff "
+        f"adopted gives /generate's tokens; launches {out['launches']}")
+    log(f"disagg: KV {row['kv_bytes_per_request']:.0f} bytes a request; "
+        f"one {out['fetch_s']['bytes']}-byte handoff fetched over gRPC in "
+        f"{out['fetch_s']['grpc']:.4f}s, over HTTP in "
+        f"{out['fetch_s']['http']:.4f}s")
+    for r in turns:
+        log(f"disagg turn {r['kind']}: {r['tokens_per_s']:.1f} tok/s, client "
+            + ("TTFT" if r["kind"] == "monolithic" else "latency")
+            + f" p50 {r['client_p50_s']:.4f}s, engine TTFT p50 "
+            f"{r['engine_ttft_p50_s']:.4f}s")
+    log("disagg pages (ms while a burst runs): " + ", ".join(
+        f"{p} {ms:.1f}" for p, ms in row["page_ms"].items()))
+    log("disagg pages polled every 100 ms: " + ", ".join(
+        f"{r['kind']} {r['tokens_per_s']:.1f} tok/s ({r['polls']} polls)"
+        for r in row["poll_turns"]))
+    log(f"disagg profiler: {row['profiled_tokens_per_s']:.1f} tok/s under "
+        f"it; trace.json {trace_bytes} bytes, {flash_events} "
+        f"flash_wgmma_kernel and {ragged_events} ragged_kernel events "
+        f"(launches counted {out['profile_launches']}); a constrained "
+        f"request's {capture['lazy_captures']} graphs captured under the "
+        f"profiler replay its tokens")
+    log(f"disagg: prefill replica stopped ({out['child_exit']}); "
+        f"/disagg/generate answered {after['answers']} until the circuit "
+        f"opened, then {after['generate'][0]}; clusterz 200, the peer stale "
+        f"({peer['stale_reason']}); phase 38 {row['phase_s']:.1f}s")
+    return {"disagg_app": out["launches"]}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for value in tree.values():
@@ -7083,14 +7726,12 @@ def main() -> int:
     small_params, by_path_d64 = phase_small_engines(
         torch, llama, generate, mods, args.seed, results)
     small_cfg = llama.config("small", use_flash=True)
-    # the later slices' small phases at CUT_SMALL_LAYERS (views)
+    # every small phase but the app's (37, 38) at CUT_SMALL_LAYERS
     cut_cfg = dataclasses.replace(small_cfg, n_layers=CUT_SMALL_LAYERS)
-    cut_params = dict(small_params, layers={
-        name: w[:CUT_SMALL_LAYERS]
-        for name, w in small_params["layers"].items()})
-    log(f"NOTE: phases 24 (small), 28, 29, 31, 32d, 33e and 35 run small "
+    cut_params = small_params
+    log(f"NOTE: phases 20-24 (small), 26-31, 32d, 33e and 35 run small "
         f"cut to {CUT_SMALL_LAYERS} of {small_cfg.n_layers} layers (width "
-        f"unchanged)")
+        f"unchanged); 37 and 38 run the example at its whole depth")
     for path, c, kw in (
             ("prefix_small", cut_cfg, {}),
             ("prefix_small_paged", cut_cfg, dict(paged_kv=True,
@@ -7136,7 +7777,7 @@ def main() -> int:
     # this slice: the example's own model (``small`` over its byte-level
     # vocabulary) serving constrained requests, then admission
     example_cfg = llama.config("small", vocab_size=EXAMPLE_VOCAB,
-                               use_flash=True)
+                               use_flash=True, n_layers=CUT_SMALL_LAYERS)
     example_params = llama.init(example_cfg, args.seed + 3, device="cuda")
     by_path_d64.update(phase_constrained(
         torch, generate, constrain, mods, example_cfg, example_params,
@@ -7152,6 +7793,9 @@ def main() -> int:
                                        mods, args.seed, results))
     # this slice: the app framework serving the example (phase 37)
     by_path_d64.update(phase_app(torch, generate, mods, args.seed, results))
+    # this slice: the debug pages and a remote prefill replica (phase 38)
+    by_path_d64.update(phase_disagg_app(generate, cluster, kv_wire, mods,
+                                        args.seed, results))
 
     cfg = llama.config("llama3-8b", n_layers=args.layers, use_flash=True)
     if args.layers != 32:

@@ -12,11 +12,13 @@ offenders and the batch lane; then the servers bind. Startup hooks (a
 model's warm-up and graph captures) run first, so no request lands
 before them.
 
-``App(device=...)`` is where ``add_model`` builds its executor: the
-container's device, the card unless the caller asks for the CPU. Left
-for a later slice (ROADMAP §1): the ``enable_*`` debug pages, the CLI,
-websockets, CRUD, migrations, OpenAPI, outbound HTTP services and the
-external datasources.
+``App(device=...)`` is where ``add_model`` builds its executor and what
+the profiler traces: the container's device, the card unless the caller
+asks for the CPU. The ``enable_*`` methods register the ``/debug/*``
+pages (each off by default) and the ``/debug/`` index of those enabled;
+``add_http_service`` registers an outbound client in the container. Left
+for a later slice (ROADMAP §1): the CLI, websockets, CRUD, migrations,
+OpenAPI and the external datasources.
 """
 
 from __future__ import annotations
@@ -88,6 +90,8 @@ class App:
         self._startup_hooks: List[Callable] = []
         self._shutdown_hooks: List[Callable] = []
         self._shutdown: Optional[asyncio.Event] = None  # made in start()
+        # every enabled /debug/* page with its one-line description
+        self._debug_surfaces: Dict[str, str] = {}
         self._install_default_middleware()
 
     def on_startup(self, func: Callable) -> Callable:
@@ -195,6 +199,112 @@ class App:
         async iterator, and each item is a message of its own."""
         self._grpc_services.append(
             (("dynamic_stream", service, method), handler))
+
+    # -- debug pages ----------------------------------------------------------
+    def enable_profiler(self, prefix: str = "/debug/profiler") -> None:
+        from gofr_tpu_torch.profiler import enable_profiler
+        enable_profiler(self, prefix)
+        self._note_debug_surface(
+            prefix, "on-demand single-flight device trace capture")
+
+    def enable_statusz(self, prefix: str = "/debug/statusz") -> None:
+        from gofr_tpu_torch.statusz import enable_statusz
+        enable_statusz(self, prefix)
+        self._note_debug_surface(
+            prefix, "live serving state: queues, slots, flight records, "
+                    "watchdog, KV occupancy")
+
+    def enable_varz(self, prefix: str = "/debug/varz") -> None:
+        from gofr_tpu_torch.varz import enable_varz
+        enable_varz(self, prefix)
+        self._note_debug_surface(
+            prefix, "windowed SLO attainment, goodput, and device "
+                    "saturation rates")
+
+    def enable_xlaz(self, prefix: str = "/debug/xlaz") -> None:
+        from gofr_tpu_torch.xlaz import enable_xlaz
+        enable_xlaz(self, prefix)
+        self._note_debug_surface(
+            prefix, "compile ledger, bucket ladders, and padding-optimal "
+                    "ladder suggestions")
+
+    def enable_clusterz(self, prefix: str = "/debug/clusterz") -> None:
+        from gofr_tpu_torch.clusterz import enable_clusterz
+        enable_clusterz(self, prefix)
+        self._note_debug_surface(
+            prefix, "fleet rollup: per-replica health, per-role "
+                    "aggregates, router stats")
+
+    def enable_tracez(self, prefix: str = "/debug/tracez") -> None:
+        from gofr_tpu_torch.clusterz import enable_tracez
+        enable_tracez(self, prefix)
+        self._note_debug_surface(
+            f"{prefix}/{{trace_id}}",
+            "cross-replica stitched timeline for one trace id")
+
+    def enable_hbmz(self, prefix: str = "/debug/hbmz") -> None:
+        from gofr_tpu_torch.hbmz import enable_hbmz
+        enable_hbmz(self, prefix)
+        self._note_debug_surface(
+            prefix, "HBM attribution: per-tenant KV pages, pools, "
+                    "residual accounting")
+
+    def enable_timez(self, prefix: str = "/debug/timez") -> None:
+        from gofr_tpu_torch.timez import enable_timez
+        enable_timez(self, prefix)
+        self._note_debug_surface(
+            prefix, "multi-resolution time series, anomalies, and "
+                    "sampled tick anatomy")
+
+    def enable_workloadz(self, prefix: str = "/debug/workloadz") -> None:
+        from gofr_tpu_torch.workloadz import enable_workloadz
+        enable_workloadz(self, prefix)
+        self._note_debug_surface(
+            prefix, "shape-only workload capture and per-executable "
+                    "roofline attribution")
+
+    def enable_sloz(self, prefix: str = "/debug/sloz") -> None:
+        from gofr_tpu_torch.sloz import enable_sloz
+        enable_sloz(self, prefix)
+        self._note_debug_surface(
+            prefix, "error-budget burn rates per (model, SLO class) and "
+                    "the worst-offender ring")
+
+    def enable_tunez(self, prefix: str = "/debug/tunez") -> None:
+        from gofr_tpu_torch.tunez import enable_tunez
+        enable_tunez(self, prefix)
+        self._note_debug_surface(
+            prefix, "live operating point with provenance, candidate "
+                    "ledger, and auto-tuner guard states")
+
+    def enable_whyz(self, prefix: str = "/debug/whyz") -> None:
+        from gofr_tpu_torch.whyz import enable_whyz
+        enable_whyz(self, prefix)
+        self._note_debug_surface(
+            f"{prefix}/{{trace_id}}",
+            "automated root-cause verdicts for one slow request")
+
+    def _note_debug_surface(self, path: str, description: str) -> None:
+        self._debug_surfaces[path] = description
+        routes = set(self.router.registered_routes)
+        if "GET /debug/" not in routes:
+            self.get("/debug/", lambda ctx: self.debug_index())
+
+    def debug_index(self) -> Dict[str, str]:
+        """The ``/debug/`` index payload: every enabled debug surface
+        with its one-line description, sorted by path."""
+        return {path: self._debug_surfaces[path]
+                for path in sorted(self._debug_surfaces)}
+
+    # -- outbound services ----------------------------------------------------
+    def add_http_service(self, name: str, base_url: str, *options,
+                         timeout: float = 30.0) -> None:
+        from gofr_tpu_torch.service import new_http_service
+        service = new_http_service(
+            base_url, self.logger, self.container.metrics,
+            self.container.tracer, *options, timeout=timeout,
+            service_name=name)
+        self.container.add_http_service(name, service)
 
     # -- models ---------------------------------------------------------------
     def add_model(self, name: str, fn, params=None, **kwargs) -> None:

@@ -12,11 +12,21 @@ Routes and bodies are the JAX example's:
   ``/gofr.Llama/generate``, one JSON message a token;
 - ``POST /v1/{model}/generate[/stream]`` through a ``ModelRegistry``
   when ``MODELS=name=preset[>fallback],...`` is set;
-- the disaggregated plane over the in-process transport:
-  ``/disagg/prefill``, ``/disagg/fetch`` (and gRPC ``/gofr.Disagg/fetch``),
-  ``/disagg/adopt``, ``/disagg/adopt_session``, ``/disagg/generate``,
+- the disaggregated plane: ``CLUSTER_ROLE=prefill|decode|both`` tags this
+  replica, ``CLUSTER_PEERS=name=role@url[#grpc_host:port],...`` registers
+  remote replicas, each behind an ``HTTPTransport`` (its circuit breaker;
+  the KV blob over gRPC ``/gofr.Disagg/fetch`` when the entry names a
+  gRPC target, over HTTP otherwise); ``/disagg/prefill``,
+  ``/disagg/fetch`` (and gRPC ``/gofr.Disagg/fetch``), ``/disagg/adopt``,
+  ``/disagg/adopt_session``, ``/disagg/generate`` (the router: prefill on
+  a prefill replica, the KV handoff, decode on a decode replica),
   ``/disagg/drain``; ``FLEET_ROUTING=1`` upgrades the router to the fleet
   control plane, ``FLEET_AUTOSCALE=<cron spec>`` adds its autoscaler;
+- the debug pages, as JAX's example enables them: ``/debug/`` (the
+  index), ``statusz``, ``varz``, ``xlaz``, ``hbmz``, ``timez``,
+  ``workloadz``, ``sloz``, ``whyz/{trace_id}``, ``tunez``, ``clusterz``,
+  ``tracez/{trace_id}`` and ``POST /debug/profiler/start|stop`` (a
+  ``torch.profiler`` capture written as ``<dir>/trace.json``);
 - ``BATCH_LANE_TOPIC`` with ``PUBSUB_BACKEND=INMEM`` feeds batch jobs
   (text prompts, decoded text back) into the engine.
 
@@ -27,12 +37,10 @@ The environment knobs and engine arguments are the JAX example's
 
 - the model prefills through the flash-attention kernel (``use_flash``)
   and decodes through the ragged kernel, as the port's engine does;
-- ``MESH`` / ``TPU_MESH`` other than off, and ``CLUSTER_PEERS`` (remote
-  replicas need ``HTTPTransport``), raise ``ValueError`` at build: they
-  are not ported yet (ROADMAP.md §1);
+- ``MESH`` / ``TPU_MESH`` other than off raise ``ValueError`` at build:
+  sharding is not ported yet (ROADMAP.md §1);
 - where ``grpcio`` is not installed the gRPC routes are not registered,
   and the app logs at start that gRPC is off;
-- the ``/debug/*`` pages are not ported yet (ROADMAP.md §1);
 - warm-up runs in ``on_startup``, before the server binds, and takes
   every prompt count (JAX's: 1 and ``GENERATE_SLOTS``), so no graph is
   captured inside a burst; the app's close stops the engine.
@@ -82,11 +90,6 @@ def refused_knobs(config) -> None:
             f"MESH/TPU_MESH={mesh_spec!r}: sharding over a device mesh is not "
             f"ported (the parallel/ package, {ROADMAP_ENTRY}); the port "
             f"serves one card (leave it unset or off)")
-    if (os.environ.get("CLUSTER_PEERS") or "").strip():
-        raise ValueError(
-            "CLUSTER_PEERS: remote replicas need the cluster's HTTPTransport, "
-            f"which is not ported (service/ with HTTPTransport, "
-            f"{ROADMAP_ENTRY}); the disaggregated plane serves in process")
 
 
 def build_app(device="cuda",
@@ -96,8 +99,8 @@ def build_app(device="cuda",
     from gofr_tpu_torch.tpu import kv_wire
     from gofr_tpu_torch.tpu.cluster import (ClusterRegistry, DisaggRouter,
                                             HandoffExpired, HandoffTable,
-                                            InProcTransport,
-                                            NoReplicaAvailable)
+                                            HTTPTransport, InProcTransport,
+                                            NoReplicaAvailable, parse_peers)
     from gofr_tpu_torch.tpu.constrain import token_byte_table
     from gofr_tpu_torch.tpu.generate import GenerationEngine, Sampling
     from gofr_tpu_torch.tpu.page_pool import PagePool
@@ -118,6 +121,8 @@ def build_app(device="cuda",
     ragged_attn = (os.environ.get("GENERATE_RAGGED_ATTN", "auto")
                    .strip().lower() or "auto")
     cluster_role = os.environ.get("CLUSTER_ROLE", "both").strip() or "both"
+    # the remote replicas: a malformed entry raises here, at build
+    cluster_peers = parse_peers(os.environ.get("CLUSTER_PEERS"))
     # SLO-class weighted-fair scheduling, seeded from the replica role
     class_weights = role_class_weights(
         cluster_role, os.environ.get("SLO_CLASS_WEIGHTS"))
@@ -220,6 +225,16 @@ def build_app(device="cuda",
     else:
         engine = make_engine(default_preset, "generate", 0, True)
         app.container.tpu = engine  # engine health at /.well-known/health
+    app.enable_statusz()        # live queue/slot/KV-cache/timeline snapshot
+    app.enable_varz()           # windowed SLO/goodput/saturation numbers
+    app.enable_xlaz()           # compile ledger + prompt-bucket fit view
+    app.enable_hbmz()           # device-memory attribution + watchdog HBM
+    app.enable_timez()          # multi-res series + anomalies + tick anatomy
+    app.enable_workloadz()      # traffic-shape ring + trace export + roofline
+    app.enable_sloz()           # error-budget burn rates + worst offenders
+    app.enable_whyz()           # per-trace slow-request root-cause verdicts
+    app.enable_tunez()          # operating point + auto-tuner candidate ledger
+    app.enable_profiler()       # duration-capped on-demand device traces
 
     grpc_on = grpc_available()
 
@@ -349,7 +364,8 @@ def build_app(device="cuda",
 
         return tokens()
 
-    # -- the disaggregated plane, in process --------------------------------
+    # -- the disaggregated plane: the local engine under its CLUSTER_ROLE
+    # and every CLUSTER_PEERS entry behind a circuit breaker ---------------
     kv_wire.resolve_codec(os.environ.get("KV_WIRE_CODEC", "auto"),
                           engine.cfg)
     handoffs = HandoffTable(
@@ -359,6 +375,13 @@ def build_app(device="cuda",
     cluster = ClusterRegistry(logger=app.logger,
                               metrics=app.container.metrics)
     cluster.register("local", cluster_role, InProcTransport(engine))
+    for peer_name, peer_role, peer_url, peer_grpc in cluster_peers:
+        cluster.register(
+            peer_name, peer_role,
+            HTTPTransport(peer_url, grpc_target=peer_grpc,
+                          logger=app.logger,
+                          metrics=app.container.metrics,
+                          tracer=app.container.tracer))
     app.container.cluster = cluster  # role-aware readiness in health()
     fleet_routing = os.environ.get("FLEET_ROUTING", "").strip() in (
         "1", "true", "on", "yes")
@@ -374,7 +397,9 @@ def build_app(device="cuda",
         router = DisaggRouter(cluster, logger=app.logger,
                               metrics=app.container.metrics,
                               tracer=app.container.tracer)
-    app.container.cluster_router = router
+    app.container.cluster_router = router  # clusterz/tracez discovery
+    app.enable_clusterz()       # fleet rollup over the replica registry
+    app.enable_tracez()         # stitched per-trace_id disagg timelines
 
     if fleet_routing:
         # one digest sweep a minute; a firing skips while the last one

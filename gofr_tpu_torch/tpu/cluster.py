@@ -1,7 +1,6 @@
 """Disaggregated serving cluster: replica roles, routing, KV handoff (a
-copy of ``gofr_tpu/tpu/cluster.py`` over the port's engines, with its
-in-process transport; the HTTP transport and its gRPC chunk fetch are
-not ported yet; ``tpu/fleet`` builds the fleet router on it).
+copy of ``gofr_tpu/tpu/cluster.py`` over the port's engines, with both
+of its transports; ``tpu/fleet`` builds the fleet router on it).
 
 Prefill is compute-bound (one big prompt forward),
 decode is memory-bound (thousands of small batched steps); a monolithic
@@ -28,9 +27,10 @@ batch-size/latency tradeoff study in PAPERS.md, arxiv 1812.11731):
   spans land in ONE trace.
 - **Transports** — :class:`InProcTransport` (same-process engines; the
   payload still round-trips ``pack``/``iter_chunks``/``unpack`` so the
-  tests exercise the exact wire path). A remote transport plugs in
-  through the same duck type (``kind``, ``available``, ``prefill``,
-  ``adopt``, ``adopt_session``, ``health_check``, ``describe``).
+  tests exercise the exact wire path), and :class:`HTTPTransport` (remote
+  peers over ``service/client.py`` + circuit breaker, KV chunks fetched
+  over a ``gofr.Disagg/fetch`` gRPC server-stream when the peer
+  advertises a gRPC target, plain HTTP fetch as the fallback).
 
 The decode replica admits migrated KV as page-table entries — zero
 prefill dispatches (``stats()["prefill_bucket_tokens"]`` does not move),
@@ -40,6 +40,8 @@ which is the property the tier-1 disagg tests assert.
 from __future__ import annotations
 
 import asyncio
+import base64
+import json
 import os
 import time
 from collections import OrderedDict, deque
@@ -60,7 +62,7 @@ ROLES = (ROLE_PREFILL, ROLE_DECODE, ROLE_BOTH)
 __all__ = [
     "ROLE_PREFILL", "ROLE_DECODE", "ROLE_BOTH", "ROLES",
     "NoReplicaAvailable", "HandoffExpired", "HandoffTable",
-    "InProcTransport", "ClusterRegistry",
+    "InProcTransport", "HTTPTransport", "ClusterRegistry",
     "DisaggRouter", "parse_peers",
 ]
 
@@ -317,6 +319,226 @@ class InProcTransport:
     def describe(self) -> Dict[str, Any]:
         return {"kind": self.kind,
                 "model": getattr(self.engine, "model_name", None)}
+
+
+class HTTPTransport:
+    """Remote replica over the service layer. Control plane rides
+    ``service/client.py`` (traceparent injection, response histogram,
+    circuit breaker); the KV blob is fetched from the prefill peer's
+    handoff table — over a ``gofr.Disagg/fetch`` gRPC server-stream in
+    bounded chunks when the peer advertises ``grpc_target``, over plain
+    HTTP otherwise (or when the gRPC fetch fails: a ``warn``, then HTTP).
+    The adopt response is buffered JSON (sync-core HTTP client in a
+    worker thread, so the loop never blocks on a hop).
+
+    A peer's JSON answers come in the framework's ``{"data": ...}``
+    envelope (``http/responder.py``); :func:`_answer` takes the payload
+    out of it. JAX's transport reads the envelope as the payload, so
+    against JAX's own example its prefill leg raises ``KeyError`` and its
+    probes read empty pages (ROADMAP.md §3)."""
+
+    kind = "http"
+
+    def __init__(self, base_url: str, grpc_target: Optional[str] = None,
+                 service=None, breaker_threshold: int = 5,
+                 breaker_interval: float = 10.0, timeout: float = 120.0,
+                 logger=None, metrics=None, tracer=None,
+                 retry_policy: Optional[RetryPolicy] = None):
+        from gofr_tpu_torch.service.circuit_breaker import (
+            CircuitBreakerConfig)
+        from gofr_tpu_torch.service.client import HTTPService
+        if service is None:
+            service = HTTPService(base_url, logger=logger, metrics=metrics,
+                                  tracer=tracer, timeout=timeout,
+                                  service_name=base_url)
+        self.service = CircuitBreakerConfig(
+            breaker_threshold, breaker_interval).add_option(service)
+        self.grpc_target = grpc_target
+        self.logger = logger
+        # the handoff fetch is idempotent (GET of an immutable blob), so
+        # it earns a small bounded retry; control-plane POSTs do not —
+        # the router owns those budgets
+        self.retry = retry_policy if retry_policy is not None \
+            else RetryPolicy(attempts=2, base_s=0.05)
+
+    def available(self) -> bool:
+        return not getattr(self.service, "is_open", False)
+
+    async def prefill(self, prompt_ids, sampling,
+                      traceparent: Optional[str] = None) -> bytes:
+        headers = {"traceparent": traceparent} if traceparent else None
+        response = await self.service.apost(
+            "/disagg/prefill",
+            body={"prompt": [int(t) for t in prompt_ids],
+                  "sampling": _sampling_dict(sampling)},
+            headers=headers)
+        if not response.ok:
+            raise RuntimeError(
+                f"prefill peer answered {response.status_code}: "
+                f"{response.body[:200]!r}")
+        info = _answer(response)
+        blob = await self._fetch(info["handoff"], headers)
+        if len(blob) != int(info.get("bytes", len(blob))):
+            raise kv_wire.KVWireError(
+                f"handoff fetch returned {len(blob)} bytes, peer "
+                f"declared {info.get('bytes')}")
+        return blob
+
+    async def _fetch(self, handoff: str,
+                     headers: Optional[Dict[str, str]]) -> bytes:
+        if self.grpc_target:
+            try:
+                return await _grpc_fetch(self.grpc_target, handoff)
+            except Exception as exc:
+                if self.logger is not None:
+                    self.logger.warn(
+                        "grpc KV fetch from %s failed (%r); falling back "
+                        "to HTTP", self.grpc_target, exc)
+
+        async def attempt(n: int) -> bytes:
+            response = await self.service.aget(
+                "/disagg/fetch", params={"handoff": handoff},
+                headers=headers)
+            if not response.ok:
+                raise RuntimeError(
+                    f"handoff fetch answered {response.status_code}")
+            return response.body
+        try:
+            return await self.retry.run(attempt)
+        except RetryBudgetExceeded as exc:
+            raise (exc.__cause__ or exc) from None
+
+    async def adopt(self, blob: bytes, max_new_tokens: int,
+                    eos_id: Optional[int], sampling,
+                    traceparent: Optional[str] = None,
+                    submitted_at: Optional[float] = None,
+                    transfer_s: float = 0.0,
+                    dedupe: Optional[str] = None):
+        headers = {"Content-Type": "application/octet-stream"}
+        if traceparent:
+            headers["traceparent"] = traceparent
+        params = {"max_new_tokens": int(max_new_tokens)}
+        if eos_id is not None:
+            params["eos_id"] = int(eos_id)
+        if dedupe:
+            # idempotency key: a replayed adopt for the same id returns
+            # the peer's prior stream instead of double-claiming pages
+            params["dedupe"] = dedupe
+        params.update(_sampling_dict(sampling))
+        response = await self.service.apost(
+            "/disagg/adopt", params=params, body=bytes(blob),
+            headers=headers)
+        if not response.ok:
+            raise RuntimeError(
+                f"decode peer answered {response.status_code}: "
+                f"{response.body[:200]!r}")
+        return _ListStream(_answer(response).get("tokens", []))
+
+    async def adopt_session(self, blob: bytes, state: Dict[str, Any],
+                            traceparent: Optional[str] = None,
+                            transfer_s: float = 0.0,
+                            dedupe: Optional[str] = None):
+        """Ship a live session snapshot to a remote decode peer. Like
+        ``adopt``, the response is the buffered remainder of the
+        completion relayed token-wise; the peer resumes mid-stream with
+        zero re-prefill."""
+        headers = {"Content-Type": "application/octet-stream"}
+        if traceparent:
+            headers["traceparent"] = traceparent
+        params: Dict[str, Any] = {
+            "remaining": int(state["remaining"]),
+            "temperature": float(state.get("temperature", 0.0)),
+            "top_k": int(state.get("top_k", 0)),
+            "top_p": float(state.get("top_p", 1.0)),
+        }
+        if state.get("eos_id") is not None:
+            params["eos_id"] = int(state["eos_id"])
+        if dedupe:
+            params["dedupe"] = dedupe
+        response = await self.service.apost(
+            "/disagg/adopt_session", params=params, body=bytes(blob),
+            headers=headers)
+        if not response.ok:
+            raise RuntimeError(
+                f"migration target answered {response.status_code}: "
+                f"{response.body[:200]!r}")
+        return _ListStream(_answer(response).get("tokens", []))
+
+    async def observe(self) -> Dict[str, Any]:
+        """One clusterz probe: the peer's ``/debug/statusz`` page, which
+        already carries engine stats, SLO snapshot, and watchdog state.
+        Raises on a non-2xx answer — the caller marks the replica stale."""
+        response = await self.service.aget("/debug/statusz",
+                                           params={"recent": 1})
+        if not response.ok:
+            raise RuntimeError(
+                f"statusz probe answered {response.status_code}")
+        peer = _answer(response)
+        return {"kind": self.kind, "statusz": peer,
+                "health": "UP"}
+
+    async def telemetry_delta(
+            self, cursor: Optional[int] = None) -> Optional[Dict[str, Any]]:
+        """Cursor-based telemetry pull over the peer's ``/debug/timez``
+        endpoint. None when the peer has no timez surface or no
+        telemetry store — the rollup simply skips the replica."""
+        params: Dict[str, Any] = {"cursor": int(cursor)
+                                  if cursor is not None else 0}
+        response = await self.service.aget("/debug/timez", params=params)
+        if not response.ok:
+            return None
+        return _answer(response).get("delta")
+
+    async def tracez(self, trace_id: str) -> List[Dict[str, Any]]:
+        response = await self.service.aget(
+            f"/debug/tracez/{trace_id}", params={"local": "1"})
+        if not response.ok:
+            return []
+        return _answer(response).get("records", [])
+
+    def health_check(self) -> Dict[str, Any]:
+        return self.service.health_check()
+
+    def describe(self) -> Dict[str, Any]:
+        return {"kind": self.kind, "base_url": self.service.base_url,
+                "grpc_target": self.grpc_target,
+                "circuit": "open" if not self.available() else "closed"}
+
+
+def _answer(response) -> Any:
+    """A peer's JSON answer without the framework's ``{"data": ...}``
+    envelope (a bare JSON answer as it is)."""
+    payload = response.json()
+    if isinstance(payload, dict) and set(payload) == {"data"}:
+        return payload["data"]
+    return payload
+
+
+async def _grpc_fetch(target: str, handoff: str,
+                      timeout: float = 60.0) -> bytes:
+    """Pull one handoff's chunks over the peer's ``gofr.Disagg/fetch``
+    server-stream (grpcx dynamic JSON framing: each frame is
+    ``{"data": {"chunk": <base64>}}``). ``grpc`` is imported here, at the
+    call: a host without grpcio raises, and the caller falls back to
+    HTTP."""
+    try:
+        import grpc
+    except ImportError as exc:
+        raise RuntimeError("grpcio is not installed") from exc
+    channel = grpc.aio.insecure_channel(target)
+    try:
+        call = channel.unary_stream(
+            "/gofr.Disagg/fetch",
+            request_serializer=lambda payload: json.dumps(payload).encode(),
+            response_deserializer=lambda raw: json.loads(
+                raw.decode() or "null"))
+        chunks: List[bytes] = []
+        async for frame in call({"handoff": handoff}, timeout=timeout):
+            data = (frame or {}).get("data") or {}
+            chunks.append(base64.b64decode(data.get("chunk", "")))
+        return kv_wire.assemble(chunks)
+    finally:
+        await channel.close()
 
 
 def _sampling_dict(sampling) -> Dict[str, Any]:

@@ -50,6 +50,18 @@ APP_MODULES = [
     "gofr_tpu_torch/examples/__init__.py",
     "gofr_tpu_torch/examples/llama_generate.py",
 ]
+# the debug pages, the outbound service layer and the profiler
+DEBUG_MODULES = [
+    "gofr_tpu_torch/service/__init__.py",
+    "gofr_tpu_torch/service/client.py",
+    "gofr_tpu_torch/service/options.py",
+    "gofr_tpu_torch/service/circuit_breaker.py",
+    "gofr_tpu_torch/profiler.py", "gofr_tpu_torch/statusz.py",
+    "gofr_tpu_torch/varz.py", "gofr_tpu_torch/xlaz.py",
+    "gofr_tpu_torch/timez.py", "gofr_tpu_torch/workloadz.py",
+    "gofr_tpu_torch/sloz.py", "gofr_tpu_torch/whyz.py",
+    "gofr_tpu_torch/tunez.py", "gofr_tpu_torch/clusterz.py",
+]
 
 
 def _port_files():
@@ -93,7 +105,9 @@ def test_guard_scans_the_admission_and_grammar_modules():
     the disaggregated path's (the KV wire codec, the retry policy, the
     model registry, the cluster), and the fleet control plane and the
     operating-point auto-tuner, and training (the train step and the
-    checkpoints), and the app framework (:data:`APP_MODULES`)."""
+    checkpoints), and the app framework (:data:`APP_MODULES`), and the
+    debug pages, the outbound service layer and the profiler
+    (:data:`DEBUG_MODULES`)."""
     files = {str(path.relative_to(ROOT)) for path in _port_files()}
     own = ["gofr_tpu_torch/slo.py", "gofr_tpu_torch/tpu/constrain.py",
            "gofr_tpu_torch/tpu/sched.py",
@@ -131,7 +145,7 @@ def test_guard_scans_the_admission_and_grammar_modules():
            "gofr_tpu_torch/parallel/train.py",
            "gofr_tpu_torch/utils/__init__.py",
            "gofr_tpu_torch/utils/checkpoint.py",
-           "gofr_tpu_torch/utils/tree.py"] + APP_MODULES
+           "gofr_tpu_torch/utils/tree.py"] + APP_MODULES + DEBUG_MODULES
     assert set(own) <= files
     for name in own + ["gofr_tpu_torch/tpu/generate.py"]:
         assert not set(_imported_roots(ROOT / name)) & set(FORBIDDEN), name
@@ -310,6 +324,9 @@ def test_app_entry_points_default_to_the_card(no_cuda, monkeypatch):
                                           "MESH/TPU_MESH"),
     ({"CLUSTER_PEERS": "b=decode@http://h:1"}, "CLUSTER_PEERS")])
 def test_example_refuses_knobs_not_ported(monkeypatch, env, match):
+    """``MESH`` / ``TPU_MESH`` are refused until ``parallel/`` is ported.
+    ``CLUSTER_PEERS`` is served (its peers behind ``HTTPTransport``s), and
+    a malformed entry raises as JAX's ``parse_peers`` does."""
     from gofr_tpu_torch.examples import llama_generate
 
     for key in APP_ENV_UNSET:
@@ -317,10 +334,58 @@ def test_example_refuses_knobs_not_ported(monkeypatch, env, match):
     monkeypatch.setenv("LLAMA_PRESET", "tiny")
     for key, value in env.items():
         monkeypatch.setenv(key, value)
-    with pytest.raises(ValueError, match=match) as info:
-        llama_generate.build_app(device="cpu")
-    assert "ROADMAP.md §1" in str(info.value)
+    if match == "CLUSTER_PEERS":
+        from gofr_tpu_torch.tpu.cluster import HTTPTransport
+        cluster = llama_generate.build_app(device="cpu").container.cluster
+        peer = cluster._replicas["b"]
+        assert (peer.role, type(peer.transport)) == ("decode", HTTPTransport)
+        assert peer.transport.describe() == {
+            "kind": "http", "base_url": "http://h:1", "grpc_target": None,
+            "circuit": "closed"}
+        monkeypatch.setenv("CLUSTER_PEERS", "b=decode")
+        with pytest.raises(ValueError, match=match):
+            llama_generate.build_app(device="cpu")
+    else:
+        with pytest.raises(ValueError, match=match) as info:
+            llama_generate.build_app(device="cpu")
+        assert "ROADMAP.md §1" in str(info.value)
     monkeypatch.setenv("MESH", "off")
     monkeypatch.delenv("TPU_MESH", raising=False)
     monkeypatch.delenv("CLUSTER_PEERS", raising=False)
     assert llama_generate.build_app(device="cpu").engine.device.type == "cpu"
+
+
+def test_profiler_on_an_app_for_the_card_raises_without_cuda(no_cuda):
+    """``POST /debug/profiler/start`` on an App built for the card fails
+    where CUDA is unavailable (500, nothing captured): it never traces
+    the CPU in the card's place."""
+    import asyncio
+    import json
+
+    from gofr_tpu_torch.app import App
+    from gofr_tpu_torch.config import MapConfig
+
+    app = App(config=MapConfig({"LOG_LEVEL": "FATAL"}))
+    app.enable_profiler()
+    app.http_port = app.metrics_port = 0
+
+    async def main():
+        await app.start()
+        try:
+            reader, writer = await asyncio.open_connection(
+                "127.0.0.1", app.bound_http_port)
+            writer.write(b"POST /debug/profiler/start HTTP/1.1\r\nHost: x"
+                         b"\r\nContent-Length: 2\r\nConnection: close"
+                         b"\r\n\r\n{}")
+            await writer.drain()
+            raw = await reader.read()
+            writer.close()
+            return raw
+        finally:
+            await app.stop()
+
+    raw = asyncio.run(main())
+    assert raw.split()[1] == b"500"
+    assert json.loads(raw.partition(b"\r\n\r\n")[2])["error"]
+    assert app._profiler_state["dir"] is None
+    assert app._profiler_state["captures"] == 0
