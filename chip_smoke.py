@@ -30,16 +30,22 @@ Phases, each of which raises (exit code != 0) on failure:
 
 1. card identity (``nvidia-smi`` name and power limit, torch/CUDA);
 2. kernel build (one ``nvcc`` per source, all at once) and its time,
-   and how many 8-block clusters of each of the ragged kernel's 32
+   and how many clusters of each of the ragged kernel's 32
    instantiations (head_dim 128 and 64) the card keeps resident (verify
-   at G 5);
+   at G 5): 8 blocks a cluster at head_dim 128, and at 64 for group x G
+   over 8; the head_dim-64 body's ``ceil(P * page / 512)`` (at most 8,
+   one a sweep of 512 positions) otherwise, with its launch's blocks
+   against those resident at B 8, Hkv 16 and tables of 4-32 pages of 32
+   (``small``'s rungs);
 3. flash kernel (bf16: both products on the tensor cores through wgmma)
    vs its plain version, bf16, Hq 32 / Hkv 8 / D 128, causal, S in
    {32, 128, 512, 2048}, B in {1, 4}; timed beside the plain version and
    ``scaled_dot_product_attention`` (a yardstick only), with its ratio to
    that call and its TFLOP/s;
 4. ragged kernel (each slot's pages split across a cluster of 8
-   blocks, which serves all of the slot's queries), decode (G = 1), vs its plain version, 8 slots, page 32, 64
+   blocks at head_dim 128, of one block per sweep of the table at 64,
+   which serves all of the slot's queries), decode (G = 1), vs its plain
+   version, 8 slots, page 32, 64
    table columns, fills {0, 1, 31, 32, 33, 700, 2047, 512}, then the
    full-card shape (every fill 2047): over bf16 pools with every
    position no live entry references NaN, then over int8 pools (the same
@@ -91,7 +97,8 @@ Phases, each of which raises (exit code != 0) on failure:
     decode and verify beside one ``scaled_dot_product_attention`` call
     over the dense cache with a per-row length mask, causal among the G
     new tokens (a yardstick only, its largest difference from the kernel
-    reported; phase 19 too, at D 64);
+    and the kernel's time over its time reported at each rung; phase 19
+    too, at D 64);
 14. the flash-decode kernel over window views of a T 2048 cache (the
     full cache's slot stride), rungs 128 ... 1024, against its plain
     version within phase 6's gate, timed;
@@ -545,6 +552,34 @@ def flash_case(torch, flash_mod, timer, gen, batch, seq, geom=LLAMA3):
     return row
 
 
+def d64_waves(ragged_mod):
+    """The head_dim-64 body's launch at ``small``'s shapes (B 8, Hkv 16,
+    group 1) over tables of 4-32 pages of 32 (the dense engine's rungs
+    128-1024, and the paged table), decode and verify G 5: its blocks
+    a (KV head, slot), the grid's blocks, the blocks the card keeps
+    resident (``cluster_occupancy`` times the cluster size) and the
+    waves that makes. Returns the rows."""
+    rows = []
+    batch, hkv = 8, SMALL.kv_heads
+    for width in (4, 8, 16, 32):
+        for g_len in (1, SPEC_GAMMA + 1):
+            ranks = ragged_mod.cluster_size(1, g_len, width, 32, 64)
+            if ranks != ragged_mod.d64_ranks(width, 32):
+                raise AssertionError(
+                    f"the kernel's cluster size {ranks} at {width} pages "
+                    f"is not d64_ranks' {ragged_mod.d64_ranks(width, 32)}")
+            resident = ranks * ragged_mod.cluster_occupancy(
+                1, g_len > 1, False, g_len, width, 32, 64)
+            grid = batch * hkv * ranks
+            rows.append(dict(table_width=width, G=g_len, ranks=ranks,
+                             grid_blocks=grid, resident_blocks=resident,
+                             waves=grid / resident))
+            log(f"ragged D=64 launch, {width} pages of 32, G={g_len}: "
+                f"{ranks} blocks a (KV head, slot), grid {grid} blocks, "
+                f"{resident} resident: {grid / resident:.2f} waves")
+    return rows
+
+
 def phase_flash(torch, flash_mod, timer, results):
     log("== phase 3: flash_attention kernel vs plain (bf16, causal)")
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -925,6 +960,7 @@ def identity_cases(torch, ragged_mod, timer, geom):
                            max_abs_err=err, row_rel_l2=row_err, ms=ms,
                            plain_ms=plain_ms, library_ms=lib_ms,
                            library_max_abs_diff=lib_diff,
+                           sdpa_ratio=ms / lib_ms if lib_ms else None,
                            bound_ms=bound * 1e3,
                            bound_by=("operations" if flops / BF16_FLOP_PER_S
                                      >= nbytes / HBM_BYTES_PER_S
@@ -933,8 +969,8 @@ def identity_cases(torch, ragged_mod, timer, geom):
                 rows.append(row)
                 log(f"{what} err={err:.3e} row={row_err:.3e} "
                     f"kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
-                    + (f"sdpa={lib_ms:.4f}ms (|sdpa-kernel| "
-                       f"{lib_diff:.3e}) " if lib_ms else "")
+                    + (f"sdpa={lib_ms:.4f}ms ({ms / lib_ms:.3f}x sdpa; "
+                       f"|sdpa-kernel| {lib_diff:.3e}) " if lib_ms else "")
                     + f"bound={row['bound_ms']:.4f}ms "
                     f"({row['gb_per_s']:.1f} GB/s)")
     return rows
@@ -1289,9 +1325,14 @@ def serve_burst(torch, engine, prompts, budget, samplings, mods, timeout,
                         for p, s in zip(prompts, samplings)]), timeout)
                     torch.cuda.synchronize()
                     prof_wall = time.monotonic() - t1
-                busy = sum(device_times(torch, prof)[0].values())
+                by_kernel, calls = device_times(torch, prof)
+                busy = sum(by_kernel.values())
+                top = sorted(by_kernel, key=lambda k: -by_kernel[k])[:12]
                 idle = dict(device_busy_s=busy, profiled_wall_s=prof_wall,
-                            device_idle_share=1.0 - busy / prof_wall)
+                            device_idle_share=1.0 - busy / prof_wall,
+                            device_s_by_kernel={
+                                name: [by_kernel[name], calls[name]]
+                                for name in top})
             windows = dict(engine.window_ticks)
             stream = await engine.generate_stream(prompts[3], stream_tokens)
             streamed = [tok async for tok in stream]
@@ -7703,6 +7744,7 @@ def main() -> int:
         for verify in (False, True) for int8 in (False, True)}
     log(f"ragged kernel clusters resident: {occupancy}")
     results["ragged_cluster_occupancy"] = occupancy
+    results["ragged_d64_waves"] = d64_waves(ragged_mod)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     timer = Timer(torch)

@@ -48,16 +48,16 @@
 //   accumulators take the group's rows in two halves from group 4 up).
 //   The first run is issued before the cluster barrier, so its latency
 //   hides behind the folds.
-// - Head dim D is a template parameter, 128 or 64 (the `small` preset),
-//   with one body for both. At D 128 a half-warp holds a 256-byte bf16
-//   row; at D 64 a quarter-warp holds a 128-byte row (4 row streams a
-//   warp, not 2), runs of 8 rows, not 16, and pass 1 takes 4 mma k-steps,
-//   not 8. The quarter-warp keeps every lane's load at 16 bytes (8 for
-//   int8), the width a warp reads device memory fastest at; the other
-//   choice, a half-warp of 8-byte lanes, halves the bytes each load
-//   brings and doubles the loads a row. Either way the stride of a pass-2
-//   sweep stays 256 positions, so the chunk rule and every fold order
-//   are the D-128 kernel's.
+// - Head dim D is a template parameter: this body serves D 128, and at
+//   D 64 only the verify launches of more than 8 query rows (group 2 and
+//   up; the head_dim-64 body below takes the rest). At D 128 a half-warp
+//   holds a 256-byte bf16 row; at D 64 a quarter-warp holds a 128-byte
+//   row (4 row streams a warp, not 2), runs of 8 rows, not 16, and pass 1
+//   takes 4 mma k-steps, not 8. The quarter-warp keeps every lane's load
+//   at 16 bytes (8 for int8), the width a warp reads device memory
+//   fastest at. Either way the stride of a pass-2 sweep stays 256
+//   positions, so the chunk rule and every fold order are the D-128
+//   kernel's.
 // - The softmax runs as sweeps over the scores in shared memory, one
 //   thread an element, not once a lane.
 // - Fixed costs are cut for the many short slots: three cluster barriers
@@ -94,14 +94,68 @@
 // The new tokens' K/V arrive as bf16 and take the bf16 path. The bytes
 // per position and KV head fall from 4D to 2D + 8 (K, V and two scales).
 //
+// The head_dim-64 body (ragged_kernel_d64; every decode and every verify
+// of group x G <= 8 rows at D 64, `small`'s whole path). At `small`'s
+// shapes (group 1, B 8, Hkv 16, a table of 32 pages of 32) the body above
+// takes 128 clusters of 8 blocks, about four waves of the card, each
+// block paying three cluster barriers, eight block barriers and four
+// sweeps of shared memory for a chunk of at most 128 positions, with one
+// of the 16 rows of its mma tiles live. This body:
+// - Sizes the split by positions: sweeps of 512 positions (32 row
+//   streams, quarter-warps, of 16), sweep k = [512 k, 512 (k + 1));
+//   ranks_for(P, page) = ceil(P * page / 512) blocks a (KV head, slot), at
+//   most 8 (a cluster of that many), from the table's width, never
+//   cache_len; rank r walks sweeps r, r + ranks, ... below cache_len, one
+//   sweep a rank up to a table of 4096 positions. Every fold order is a
+//   function of the fill alone: a dense cache's identity table at any
+//   window rung and a paged table give the same bits, so the dense and
+//   paged engines keep the same greedy tokens. Rungs 128-512 are one
+//   block a (KV head, slot) with no cluster barrier at all, `small`'s
+//   whole 1024 two.
+// - Fits the card in one wave at `small`'s widest table: 2 blocks of 256
+//   threads an SM (at most 128 registers a thread), so 16 KV heads x 8
+//   slots x 2 ranks = 256 blocks are all resident at once. A lane holds
+//   one sweep's K rows (16 of 16 bytes; int8 16 of 8 bytes and the
+//   scales), the query rows sit in shared memory, and the V rows go out
+//   into the K rows' registers once the scores are taken, arriving during
+//   the softmax's folds. The page ids go out before cache_len is back.
+//   (Sweeps of 256 positions would spill at 4 blocks an SM, <= 64
+//   registers, and still take 1.03 waves in clusters of 4; at 2 an SM,
+//   2 waves.) A stream walks its positions' pages by steps, one division
+//   a sweep.
+// - Runs pass 1 on the CUDA cores: each lane's 8 columns of the K row
+//   against each query row, summed over the row's 8 lanes (row_sum);
+//   lane r of the stream keeps row r's score, so the scores stay in
+//   registers (no shared memory sized by the table) and exp is taken
+//   once a score. At most 8 rows: decode at every group, verify of group
+//   x G <= 8 (`small`'s G 5 at group 1).
+// - Takes a sweep's max and sum by warp shuffles and one shared-memory
+//   step each (two block barriers a sweep); a rank of several sweeps (a
+//   table wider than 4096 positions) folds its sweeps' (m, l) in order,
+//   L = L exp(M - M') + l exp(m - M'), and reads K again in pass 2.
+// - Exchanges the ranks' (m, l) by each rank storing its own into every
+//   rank's shared memory, then one cluster barrier (the first, opened at
+//   the kernel's start, only proves every block is running); each lane
+//   folds its row's in rank order, then the new keys'. P.V takes each
+//   probability from its lane by shuffle; the warps' partials fold in
+//   shared memory in warp order; each rank stores its partial on rank 0,
+//   and after the second barrier rank 0 sums them in rank order and
+//   writes the output with the oracle's roundings. No scratch in device
+//   memory and no dynamic shared memory: any table width is served.
+// The rounding points are the oracle's, as above, and the fold orders do
+// not depend on the new-token bound NEW, so the verify instantiation at
+// G = 1 gives the decode instantiation's bits.
+//
 // Layout: q (B,G,Hq,D); k_pages/v_pages (N,page,Hkv,D) bf16 or int8;
 // k_scale/v_scale (N,page,Hkv) f32 with int8 pools; table (B,P) int32
 // with sentinel N; k_new/v_new (B,G,Hkv,D); cache_len (B,) int32 (valid
 // tokens excluding the new ones); out (B,G,Hq,D). q, new K/V and out
 // bf16. D is 64 or 128; the group (Hq/Hkv) is 1, 2, 4 or 8;
 // 1 <= G <= MAX_NEW.
-// Grid (Hkv * CLUSTER, B), clusters of (CLUSTER, 1, 1), 256 threads;
-// dynamic shared memory (dyn_smem_bytes) at most MAX_DYN_SMEM.
+// The cluster-of-8 body: grid (Hkv * CLUSTER, B), clusters of (CLUSTER,
+// 1, 1), 256 threads; dynamic shared memory (dyn_smem_bytes) at most
+// MAX_DYN_SMEM. The head_dim-64 body: grid (Hkv * ranks, B), clusters of
+// (ranks, 1, 1) set at launch, 256 threads, static shared memory only.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -624,6 +678,452 @@ ragged_kernel(const __nv_bfloat16* __restrict__ q,
   cluster.sync();     // no rank exits while another reads its partials
 }
 
+// ---------------------------------------------------------------------------
+// The head_dim-64 body (see the file's header): every launch of up to
+// MAX_ROWS query rows a (KV head, slot), which is every decode and the
+// verify launches of group x G <= 8.
+namespace d64 {
+
+constexpr int D = 64;
+constexpr int ROW = Lanes<D>::ROW;          // 8 lanes a K/V row
+constexpr int STREAMS = THREADS / ROW;      // 32 row streams a block
+constexpr int PER = 16;                     // positions a stream a sweep
+constexpr int SPAN = STREAMS * PER;         // positions a sweep: 512
+constexpr int MAX_RANKS = 8;                // the portable cluster size
+constexpr int MAX_ROWS = ROW;               // one row a lane of a stream
+// blocks an SM holds: 2 x 256 threads at <= 128 registers, so a launch of
+// 256 blocks (`small`'s 32-page table: 16 KV heads x 8 slots x 2 ranks)
+// is one wave of the card
+constexpr int MIN_BLOCKS = 2;
+
+// Blocks a (KV head, slot): one per sweep of the table's P * page
+// positions, at most MAX_RANKS. From the table's width, never from
+// cache_len: the launch's shape needs no read of the device.
+__host__ __device__ inline int ranks_for(int P, int page) {
+  const long sweeps = ((long)P * page + SPAN - 1) / SPAN;
+  return (int)(sweeps < 1 ? 1 : sweeps > MAX_RANKS ? MAX_RANKS : sweeps);
+}
+
+// A copy of a row's words the compiler must treat as new at each use: the
+// row is unpacked again where it is used, not once outside a loop over
+// query rows (16 rows unpacked at once take 128 registers and spill).
+__device__ __forceinline__ uint4 opaque(uint4 w) {
+  asm volatile("" : "+r"(w.x), "+r"(w.y), "+r"(w.z), "+r"(w.w));
+  return w;
+}
+
+__device__ __forceinline__ uint2 opaque(uint2 w) {
+  asm volatile("" : "+r"(w.x), "+r"(w.y));
+  return w;
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Block `rank` of the `ranks` blocks for (KV head h, slot b). Row r of the
+// R = g_len * GROUP query rows is query r / GROUP, head h * GROUP + r %
+// GROUP. NEW bounds the new tokens at compile time (1: decode, MAX_NEW:
+// verify); the arithmetic and its order do not depend on it.
+template <int GROUP, int NEW, typename KV>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+ragged_kernel_d64(const __nv_bfloat16* __restrict__ q,
+                  const KV* __restrict__ k_pages,
+                  const KV* __restrict__ v_pages,
+                  const float* __restrict__ k_scale,
+                  const float* __restrict__ v_scale,
+                  const int32_t* __restrict__ table,
+                  const __nv_bfloat16* __restrict__ k_new,
+                  const __nv_bfloat16* __restrict__ v_new,
+                  const int32_t* __restrict__ cache_len,
+                  __nv_bfloat16* __restrict__ out, int num_pages, int page,
+                  int Hkv, int P, int g_len, int ranks, float sm_scale) {
+  constexpr bool INT8 = std::is_same<KV, int8_t>::value;
+  constexpr int ROWS = NEW * GROUP < MAX_ROWS ? NEW * GROUP : MAX_ROWS;
+  constexpr int RB = ROWS < 2 ? ROWS : 2;     // P.V rows a pass
+  __shared__ __align__(16) __nv_bfloat16 q_sh[ROWS][D];
+  __shared__ __align__(16) __nv_bfloat16 k_new_sh[NEW][D], v_new_sh[NEW][D];
+  __shared__ float red_m[WARPS][ROW], red_l[WARPS][ROW];
+  __shared__ float rank_m[MAX_RANKS][ROW], rank_l[MAX_RANKS][ROW];
+  __shared__ float s_new[ROWS][NEW], p_new[ROWS][NEW];
+  __shared__ float part_acc[WARPS][ROWS][D];
+  __shared__ float rank_acc[MAX_RANKS][ROWS][D];     // read on rank 0
+
+  cg::cluster_group cluster = cg::this_cluster();
+  // the first cluster barrier opens now and closes before the first
+  // remote store: every block of the cluster has started by then
+  if (ranks > 1) cluster_arrive_relaxed();
+  const int rank = ranks > 1 ? static_cast<int>(cluster.block_rank()) : 0;
+  const int h = blockIdx.x / ranks, b = blockIdx.y;
+  const int Hq = Hkv * GROUP, R = g_len * GROUP;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int stream = tid / ROW, col = lane % ROW, d0 = col * LANE_ELEMS;
+  const int sbase = lane & ~(ROW - 1);      // the stream's first lane
+  const bool own = col < R;                 // this lane keeps row col's scores
+  // sweep k of the slot is positions [k SPAN, (k + 1) SPAN); rank r takes
+  // sweeps r, r + ranks, r + 2 ranks, ... below the fill t1, so every
+  // fold order depends on the fill alone, never on the table's width
+  // (a dense cache's identity table and a paged table give the same
+  // bits); t_cap, the table's end, bounds the page-id reads
+  const int t_cap = P * page;
+  const int t1 = max(0, min(cache_len[b], t_cap));
+  const int t0 = rank * SPAN, stride = ranks * SPAN;
+  const bool one_sweep = stride >= t_cap;    // a rank holds at most one
+  const int n_sweeps =
+      one_sweep ? 1 : max(0, (t1 - t0 + stride - 1) / stride);
+  const long pos_stride = (long)Hkv * D;
+  const long page_stride = (long)page * pos_stride;
+  const long head_off = (long)h * D + d0;
+  const int32_t* ids = table + (long)b * P;
+
+  // a stream's positions of the sweep at `base`: base + i * STREAMS +
+  // stream; dead ones load nothing and hold zeros
+  Row<KV> kr[PER], vr[PER];
+  float ks[PER], vs[PER], s[PER], p[PER];
+  auto live = [&](int base, int i) {
+    return base + i * STREAMS + stream < t1;
+  };
+  // the stream's (table column, offset) of position base + stream, then
+  // of each next one, STREAMS further: one division a sweep
+  auto walk = [&](int base, int& col_i, int& off_i) {
+    col_i = (base + stream) / page;
+    off_i = base + stream - col_i * page;
+  };
+  auto step = [&](int& col_i, int& off_i) {
+    off_i += STREAMS;
+    while (off_i >= page) {                  // page-uniform
+      off_i -= page;
+      ++col_i;
+    }
+  };
+  // the K rows (`v` false) or the V rows of a sweep, and with int8 pools
+  // their scales; the page ids go out before cache_len is back (they do
+  // not depend on it), the rows only for live positions, so no sentinel
+  // page and no row past the fill is read
+  auto load = [&](int base, bool v) {
+    int pid[PER];
+    int ci, oi;
+    walk(base, ci, oi);
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      pid[i] = base + i * STREAMS + stream < t_cap ? ids[ci] : 0;
+      step(ci, oi);
+    }
+    walk(base, ci, oi);
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int pos = base + i * STREAMS + stream;
+      Row<KV> row{};
+      float scale = 0.f;
+      if (pos < t1) {
+        const long id = min(max(pid[i], 0), num_pages - 1);
+        row = load_row((v ? v_pages : k_pages) + id * page_stride +
+                       oi * pos_stride + head_off);
+        if constexpr (INT8)
+          scale = (v ? v_scale : k_scale)[(id * page + oi) * Hkv + h];
+      }
+      step(ci, oi);
+      if (v) {
+        vr[i] = row;
+        vs[i] = scale;
+      } else {
+        kr[i] = row;
+        ks[i] = scale;
+      }
+    }
+  };
+  // the query rows and the new tokens' K and V rows go to shared memory
+  // while the first K rows are out, one 16-byte piece a thread
+  auto load_small = [&]() {
+    const int n_q = R * ROW, n_new = g_len * ROW;
+    if (tid < n_q) {
+      const int r = tid / ROW;
+      *reinterpret_cast<uint4*>(&q_sh[r][d0]) =
+          *reinterpret_cast<const uint4*>(
+              q + (((long)b * g_len + r / GROUP) * Hq + (long)h * GROUP +
+                   r % GROUP) * D + d0);
+    } else if (tid < n_q + 2 * n_new) {
+      const int k = tid - n_q, u = (k % n_new) / ROW;
+      const long at = (((long)b * g_len + u) * Hkv + h) * D + d0;
+      if (k < n_new)
+        *reinterpret_cast<uint4*>(&k_new_sh[u][d0]) =
+            *reinterpret_cast<const uint4*>(k_new + at);
+      else
+        *reinterpret_cast<uint4*>(&v_new_sh[u][d0]) =
+            *reinterpret_cast<const uint4*>(v_new + at);
+    }
+    __syncthreads();
+  };
+  // positions a stream holds in the sweep at `base` that some stream has
+  // live: the loops over a sweep stop there (block-uniform)
+  auto n_live = [&](int base) {
+    return min(PER, max(0, (t1 - base + STREAMS - 1) / STREAMS));
+  };
+  // pass 1 on the CUDA cores: each stream's lanes hold 8 columns of a K
+  // row; the dot of every query row is summed over the stream's lanes and
+  // lane r keeps row r's: the oracle's score, round(dot) * sm_scale (int8:
+  // then times the K scale), never contracted into later arithmetic
+  auto scores = [&](int base) {
+    const int n = n_live(base);
+#pragma unroll
+    for (int i = 0; i < PER; ++i) s[i] = 0.f;
+#pragma unroll 1
+    for (int r = 0; r < R; ++r) {
+      float qv[LANE_ELEMS];
+      load8(&q_sh[r][d0], qv);
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        if (i < n) {                         // block-uniform
+          float kv[LANE_ELEMS];
+          unpack(opaque(kr[i]), kv);
+          float dot = 0.f;
+#pragma unroll
+          for (int j = 0; j < LANE_ELEMS; ++j) dot = fmaf(qv[j], kv[j], dot);
+          dot = row_sum<ROW>(dot);
+          if (col == r) s[i] = dot;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      float sc = __fmul_rn(round_bf16(s[i]), sm_scale);
+      if constexpr (INT8) sc = __fmul_rn(sc, ks[i]);
+      s[i] = own && live(base, i) ? sc : NEG_INF;
+    }
+  };
+  // a sweep's max m_s and sum of exp(s - m_s) of each row (the same bits
+  // in every lane of that row), folded into the rank's (M, L) in sweep
+  // order: L = L exp(M - M') + l_s exp(m_s - M'); one sweep gives (m_s,
+  // l_s) exactly
+  float M = NEG_INF, L = 0.f;
+  auto fold_sweep = [&](int base) {
+    float mx = NEG_INF;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) mx = fmaxf(mx, s[i]);
+    mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, ROW));
+    mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2 * ROW));
+    if (lane < ROW) red_m[warp][lane] = mx;
+    __syncthreads();
+    float m_s = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) m_s = fmaxf(m_s, red_m[w][col]);
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < PER; ++i)
+      if (own && live(base, i)) sum += expf(s[i] - m_s);
+    sum += __shfl_xor_sync(FULL, sum, ROW);
+    sum += __shfl_xor_sync(FULL, sum, 2 * ROW);
+    if (lane < ROW) red_l[warp][lane] = sum;
+    __syncthreads();
+    float l_s = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) l_s += red_l[w][col];
+    const float m2 = fmaxf(M, m_s);
+    L = __fadd_rn(__fmul_rn(L, expf(M - m2)), __fmul_rn(l_s, expf(m_s - m2)));
+    M = m2;
+  };
+
+  // -- pass 1: the first sweep's K rows go out, then the queries; one
+  // sweep's V rows go out once its scores are taken, and arrive during
+  // the folds; a longer chunk reads K a sweep at a time
+  load(t0, false);
+  load_small();
+  // the new tokens' scores: pair (r, u <= r / GROUP) of the R x g_len on
+  // warp (pair mod WARPS)
+#pragma unroll 1
+  for (int pr = warp; pr < R * g_len; pr += WARPS) {
+    const int r = pr / g_len, u = pr % g_len;
+    if (u > r / GROUP) continue;             // warp-uniform
+    float kv[LANE_ELEMS], qv[LANE_ELEMS];
+    load8(&k_new_sh[u][d0], kv);
+    load8(&q_sh[r][d0], qv);
+    float dot = 0.f;
+#pragma unroll
+    for (int j = 0; j < LANE_ELEMS; ++j) dot = fmaf(qv[j], kv[j], dot);
+    dot = row_sum<ROW>(dot);
+    if (lane == 0) s_new[r][u] = __fmul_rn(round_bf16(dot), sm_scale);
+  }
+  if (one_sweep) {
+    scores(t0);
+    load(t0, true);
+    fold_sweep(t0);
+  } else {
+    for (int sw = 0; sw < n_sweeps; ++sw) {
+      if (sw > 0) load(t0 + sw * stride, false);
+      scores(t0 + sw * stride);
+      fold_sweep(t0 + sw * stride);
+    }
+    __syncthreads();                          // s_new, with no sweep
+  }
+
+  // -- the ranks' (M, L): each rank stores its own into every rank's
+  // shared memory, then one barrier
+  if (ranks > 1) {
+    cluster_wait();
+    if (tid < ranks * ROW && own) {           // col == tid % ROW
+      const int dst = tid / ROW;
+      *cluster.map_shared_rank(&rank_m[rank][col], dst) = M;
+      *cluster.map_shared_rank(&rank_l[rank][col], dst) = L;
+    }
+    cluster_arrive();
+    cluster_wait();
+  }
+  // the final (m, l) of row col, the same bits on every rank: the ranks'
+  // in rank order (an empty rank's -1e30 and 0 add nothing), then the new
+  // keys'
+  float m = NEG_INF, l = 0.f;
+  if (own) {
+    const int qi = col / GROUP;
+    for (int rk = 0; rk < ranks; ++rk)
+      m = fmaxf(m, ranks > 1 ? rank_m[rk][col] : M);
+#pragma unroll
+    for (int u = 0; u < NEW; ++u)
+      if (u <= qi) m = fmaxf(m, s_new[col][u]);
+    for (int rk = 0; rk < ranks; ++rk) {
+      const float mr = ranks > 1 ? rank_m[rk][col] : M;
+      const float lr = ranks > 1 ? rank_l[rk][col] : L;
+      l = __fadd_rn(l, __fmul_rn(lr, expf(mr - m)));
+    }
+#pragma unroll
+    for (int u = 0; u < NEW; ++u)
+      if (u <= qi) l = __fadd_rn(l, expf(s_new[col][u] - m));
+    if (rank == 0 && stream == 0) {
+#pragma unroll
+      for (int u = 0; u < NEW; ++u)
+        if (u <= qi) p_new[col][u] = round_bf16(expf(s_new[col][u] - m) / l);
+    }
+  }
+  // the oracle's probabilities, once a score by the lane that keeps it:
+  // bf16 rounds p like probs.astype(bf16); int8 keeps it in f32, times
+  // the V scale
+  auto probs = [&](int base) {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const float e = expf(s[i] - m) / l;
+      p[i] = !(own && live(base, i)) ? 0.f
+             : INT8                  ? __fmul_rn(e, vs[i])
+                                     : round_bf16(e);
+    }
+  };
+
+  // -- pass 2: P.V in float32, RB rows at a time; each stream's V rows
+  // take their probabilities from the stream's lanes by shuffle
+  if (one_sweep) probs(t0);
+#pragma unroll 1
+  for (int r0 = 0; r0 < R; r0 += RB) {
+    float acc[RB][LANE_ELEMS];
+#pragma unroll
+    for (int rr = 0; rr < RB; ++rr)
+#pragma unroll
+      for (int j = 0; j < LANE_ELEMS; ++j) acc[rr][j] = 0.f;
+    for (int sw = 0; sw < n_sweeps; ++sw) {
+      const int base = t0 + sw * stride;
+      if (!one_sweep) {                       // K again, for the scores
+        load(base, false);
+        scores(base);
+        load(base, true);
+        probs(base);
+      }
+      const int n = n_live(base);
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        if (i >= n) continue;                 // block-uniform
+        float vv[LANE_ELEMS];
+        unpack(opaque(vr[i]), vv);
+#pragma unroll
+        for (int rr = 0; rr < RB; ++rr) {
+          const float pr = __shfl_sync(FULL, p[i], sbase + r0 + rr);
+#pragma unroll
+          for (int j = 0; j < LANE_ELEMS; ++j)
+            acc[rr][j] = fmaf(pr, vv[j], acc[rr][j]);
+        }
+      }
+    }
+    // the warp's 4 streams hold the same columns: fold them
+#pragma unroll
+    for (int rr = 0; rr < RB; ++rr)
+#pragma unroll
+      for (int j = 0; j < LANE_ELEMS; ++j)
+        acc[rr][j] = sub_fold<ROW>(acc[rr][j]);
+    if (lane < ROW) {
+#pragma unroll
+      for (int rr = 0; rr < RB; ++rr)
+        if (r0 + rr < R) {
+#pragma unroll
+          for (int j = 0; j < LANE_ELEMS; ++j)
+            part_acc[warp][r0 + rr][d0 + j] = acc[rr][j];
+        }
+    }
+  }
+  __syncthreads();
+
+  // -- the output: the rank's partial (the warps in order); with several
+  // ranks each stores it on rank 0, which sums them in rank order; the new
+  // tokens; the oracle's roundings (the cache and new-token parts each
+  // rounded, then added and rounded)
+  const int n_out = R * D;
+  auto finish = [&](int i, float cache) {
+    const int r = i / D, d = i % D, qi = r / GROUP, g = r % GROUP;
+    float new_acc = __fmul_rn(p_new[r][0], __bfloat162float(v_new_sh[0][d]));
+#pragma unroll
+    for (int u = 1; u < NEW; ++u)
+      if (u <= qi)
+        new_acc = fmaf(p_new[r][u], __bfloat162float(v_new_sh[u][d]),
+                       new_acc);
+    const float o = round_bf16(__fadd_rn(round_bf16(cache),
+                                         round_bf16(new_acc)));
+    out[(((long)b * g_len + qi) * Hq + (long)h * GROUP + g) * D + d] =
+        __float2bfloat16_rn(o);
+  };
+  for (int i = tid; i < n_out; i += THREADS) {
+    float part = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) part += part_acc[w][i / D][i % D];
+    if (ranks > 1)
+      *cluster.map_shared_rank(&rank_acc[rank][0][0] + i, 0) = part;
+    else
+      finish(i, part);
+  }
+  if (ranks > 1) {
+    cluster_arrive();
+    cluster_wait();          // after it no block reads another's memory
+    if (rank == 0) {
+      for (int i = tid; i < n_out; i += THREADS) {
+        float cache = 0.f;
+        for (int rk = 0; rk < ranks; ++rk) cache += (&rank_acc[rk][0][0])[i];
+        finish(i, cache);
+      }
+    }
+  }
+}
+
+// A launch of (Hkv * ranks, B) blocks in clusters of `ranks`.
+cudaLaunchConfig_t launch_config(int Hkv, int B, int ranks,
+                                 cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t c = {};
+  c.gridDim = dim3(Hkv * ranks, B, 1);
+  c.blockDim = dim3(THREADS, 1, 1);
+  c.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = ranks;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  c.attrs = attr;
+  c.numAttrs = 1;
+  return c;
+}
+
+}  // namespace d64
+
 // dynamic shared memory of a launch: the queries, one rank's partials,
 // scores and page ids
 long dyn_smem_bytes(int P, int page, int group, int g_len, int head_dim) {
@@ -713,17 +1213,72 @@ cudaError_t launch_head_dim(const Call& c, int group, bool verify_form) {
   }
 }
 
+// Which body a launch takes: the head_dim-64 one for up to d64::MAX_ROWS
+// query rows a (KV head, slot), the cluster-of-8 one otherwise.
+bool d64_body(int head_dim, int group, int g_len) {
+  return head_dim == 64 && group * g_len <= d64::MAX_ROWS;
+}
+
+template <int GROUP, int NEW, typename KV>
+cudaError_t launch_d64(const Call& c) {
+  const int ranks = d64::ranks_for(c.P, c.page);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t config =
+      d64::launch_config(c.Hkv, c.B, ranks, c.stream, &attr);
+  return cudaLaunchKernelEx(
+      &config, d64::ragged_kernel_d64<GROUP, NEW, KV>,
+      static_cast<const __nv_bfloat16*>(c.q),
+      static_cast<const KV*>(c.pools.k), static_cast<const KV*>(c.pools.v),
+      static_cast<const float*>(c.pools.k_scale),
+      static_cast<const float*>(c.pools.v_scale),
+      static_cast<const int32_t*>(c.table),
+      static_cast<const __nv_bfloat16*>(c.k_new),
+      static_cast<const __nv_bfloat16*>(c.v_new),
+      static_cast<const int32_t*>(c.cache_len),
+      static_cast<__nv_bfloat16*>(c.out), c.num_pages, c.page, c.Hkv, c.P,
+      c.g_len, ranks, (float)(1.0 / sqrt((double)d64::D)));
+}
+
+template <int GROUP, typename KV>
+cudaError_t launch_d64_group(const Call& c, bool verify_form) {
+  if (c.g_len == 1 && !verify_form) return launch_d64<GROUP, 1, KV>(c);
+  return launch_d64<GROUP, MAX_NEW, KV>(c);
+}
+
+// head_dim 64: the D-64 body, or the cluster-of-8 body's verify
+// instantiation for more than d64::MAX_ROWS rows (group 2 and up, G > 8 /
+// group)
+template <typename KV>
+cudaError_t launch_d64_head(const Call& c, int group, bool verify_form) {
+  if (d64_body(64, group, c.g_len)) {
+    switch (group) {
+      case 1: return launch_d64_group<1, KV>(c, verify_form);
+      case 2: return launch_d64_group<2, KV>(c, verify_form);
+      case 4: return launch_d64_group<4, KV>(c, verify_form);
+      case 8: return launch_d64_group<8, KV>(c, verify_form);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  switch (group) {
+    case 2: return launch<64, 2, MAX_NEW, KV>(c);
+    case 4: return launch<64, 4, MAX_NEW, KV>(c);
+    case 8: return launch<64, 8, MAX_NEW, KV>(c);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename KV>
 int dispatch(const Call& c, int Hq, int head_dim, bool verify_form) {
   if ((head_dim != 64 && head_dim != 128) || c.B <= 0 || c.Hkv <= 0 ||
       Hq % c.Hkv != 0 || c.num_pages <= 0 || c.page <= 0 || c.P <= 0 ||
       c.B > 65535 || c.g_len < 1 || c.g_len > MAX_NEW ||
       c.Hkv > INT_MAX / CLUSTER || (long)c.P * c.page > INT_MAX ||
-      dyn_smem_bytes(c.P, c.page, Hq / c.Hkv, c.g_len, head_dim) >
-          MAX_DYN_SMEM)
+      (!d64_body(head_dim, Hq / c.Hkv, c.g_len) &&
+       dyn_smem_bytes(c.P, c.page, Hq / c.Hkv, c.g_len, head_dim) >
+           MAX_DYN_SMEM))
     return (int)cudaErrorInvalidValue;
   if (head_dim == 64)
-    return (int)launch_head_dim<64, KV>(c, Hq / c.Hkv, verify_form);
+    return (int)launch_d64_head<KV>(c, Hq / c.Hkv, verify_form);
   return (int)launch_head_dim<128, KV>(c, Hq / c.Hkv, verify_form);
 }
 
@@ -755,11 +1310,44 @@ cudaError_t occupancy_group(int group, bool verify, int P, int page,
   }
 }
 
+template <int GROUP, int NEW, typename KV>
+cudaError_t occupancy_d64(int P, int page, int* clusters) {
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t config =
+      d64::launch_config(1, 1, d64::ranks_for(P, page), nullptr, &attr);
+  return cudaOccupancyMaxActiveClusters(
+      clusters, d64::ragged_kernel_d64<GROUP, NEW, KV>, &config);
+}
+
+template <typename KV>
+cudaError_t occupancy_d64_group(int group, bool verify, int P, int page,
+                                int* clusters) {
+  switch (group * 2 + (verify ? 1 : 0)) {
+    case 2: return occupancy_d64<1, 1, KV>(P, page, clusters);
+    case 3: return occupancy_d64<1, MAX_NEW, KV>(P, page, clusters);
+    case 4: return occupancy_d64<2, 1, KV>(P, page, clusters);
+    case 5: return occupancy_d64<2, MAX_NEW, KV>(P, page, clusters);
+    case 8: return occupancy_d64<4, 1, KV>(P, page, clusters);
+    case 9: return occupancy_d64<4, MAX_NEW, KV>(P, page, clusters);
+    case 16: return occupancy_d64<8, 1, KV>(P, page, clusters);
+    case 17: return occupancy_d64<8, MAX_NEW, KV>(P, page, clusters);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename KV>
 cudaError_t occupancy_head_dim(int head_dim, int group, bool verify, int P,
                                int page, int g_len, int* clusters) {
-  if (head_dim == 64)
-    return occupancy_group<64, KV>(group, verify, P, page, g_len, clusters);
+  if (d64_body(head_dim, group, g_len))
+    return occupancy_d64_group<KV>(group, verify, P, page, clusters);
+  if (head_dim == 64) {        // verify of more than d64::MAX_ROWS rows
+    switch (group) {
+      case 2: return occupancy<64, 2, MAX_NEW, KV>(P, page, g_len, clusters);
+      case 4: return occupancy<64, 4, MAX_NEW, KV>(P, page, g_len, clusters);
+      case 8: return occupancy<64, 8, MAX_NEW, KV>(P, page, g_len, clusters);
+      default: return cudaErrorInvalidValue;
+    }
+  }
   return occupancy_group<128, KV>(group, verify, P, page, g_len, clusters);
 }
 
@@ -830,10 +1418,20 @@ extern "C" int gofr_ragged_paged_attention_int8_verify_form(
       Hq, head_dim, true);
 }
 
+// The blocks a (KV head, slot) of a launch at head_dim 64/128, group
+// 1/2/4/8, g_len queries a slot and a table of P columns of `page`
+// positions: its cluster size.
+extern "C" int gofr_ragged_cluster_size(int head_dim, int group, int g_len,
+                                        int P, int page) {
+  return d64_body(head_dim, group, g_len) ? d64::ranks_for(P, page)
+                                          : CLUSTER;
+}
+
 // How many clusters of the instantiation (head_dim 64/128, group 1/2/4/8,
 // verify or decode bound, int8 or bf16 pools) the card holds at once for
 // g_len queries a slot and a table of P columns of `page` positions
-// (cudaOccupancyMaxActiveClusters), in *clusters.
+// (cudaOccupancyMaxActiveClusters), in *clusters; a cluster is
+// gofr_ragged_cluster_size blocks.
 extern "C" int gofr_ragged_cluster_occupancy(int head_dim, int group,
                                              int verify, int int8, int P,
                                              int page, int g_len,
@@ -841,7 +1439,8 @@ extern "C" int gofr_ragged_cluster_occupancy(int head_dim, int group,
   if ((head_dim != 64 && head_dim != 128) || P <= 0 || page <= 0 ||
       group <= 0 || g_len < 1 || g_len > MAX_NEW ||
       (!verify && g_len != 1) ||
-      dyn_smem_bytes(P, page, group, g_len, head_dim) > MAX_DYN_SMEM)
+      (!d64_body(head_dim, group, g_len) &&
+       dyn_smem_bytes(P, page, group, g_len, head_dim) > MAX_DYN_SMEM))
     return (int)cudaErrorInvalidValue;
   return (int)(int8 ? occupancy_head_dim<int8_t>(head_dim, group,
                                                  verify != 0, P, page,

@@ -5,13 +5,20 @@ PyTorch versions (counterpart of
 slot, causal among the new tokens), over bf16 pools or int8 pools with
 their float32 scale planes.
 
-One kernel (``gofr_tpu_torch/csrc/ragged_paged_attention.cu``) replaces
-the Pallas ``_ragged_kernel`` in all its forms, decode being its G = 1
-launch and int8 pools its int8 instantiation (dequantised in the
-kernel): a cluster of ``CLUSTER`` blocks per (KV head, slot), for all
-the slot's queries, splits each slot's live pages into page-aligned chunks
-(:func:`rank_pages`) and walks them through the slot's page-table row,
-never reading a sentinel or a row past the fill, scale planes included.
+One kernel source (``gofr_tpu_torch/csrc/ragged_paged_attention.cu``)
+replaces the Pallas ``_ragged_kernel`` in all its forms, decode being its
+G = 1 launch and int8 pools its int8 instantiation (dequantised in the
+kernel), with two bodies. At head_dim 128, and at 64 for a verify of more
+than ``D64_MAX_ROWS`` query rows a KV head, a cluster of ``CLUSTER``
+blocks per (KV head, slot), for all the slot's queries, splits each
+slot's live pages into page-aligned chunks (:func:`rank_pages`). At
+head_dim 64 otherwise (every decode, verify of group x G <= 8) a cluster
+of :func:`d64_ranks` blocks, sized by the table's width, walks the slot's
+positions in sweeps of ``D64_SPAN``, rank ``r`` taking sweeps ``r, r +
+ranks, ...`` (:func:`d64_rank_sweeps`), so its result depends on the fill
+and never on the table's width. Both walk the slot's page-table
+row and never read a sentinel or a row past the fill, scale planes
+included.
 A CPU tensor takes the ``*_plain`` version; a CUDA tensor launches the
 kernel or raises — no shape-based fallback, and an int8 pool is never
 dequantised to take the bf16 kernel.
@@ -33,6 +40,11 @@ SUPPORTED_GROUPS = (1, 2, 4, 8)
 MAX_VERIFY_TOKENS = 8        # the kernel's MAX_NEW
 CLUSTER = 8                  # blocks a (KV head, slot) cluster
 MAX_DYN_SMEM = 160 * 1024    # the kernel's MAX_DYN_SMEM
+# the head_dim-64 body (the kernel's d64:: constants): positions a
+# sweep, blocks a (KV head, slot) at most, query rows a KV head at most
+D64_SPAN = 512
+D64_MAX_RANKS = 8
+D64_MAX_ROWS = 8
 
 # kernel launches since the last reset (not counting plain-version calls):
 # ``launches`` counts bf16 decode launches, ``verify_launches`` bf16 verify
@@ -64,12 +76,44 @@ def rank_pages(cache_len: int, page: int,
             for r in range(cluster)]
 
 
+def d64_body(head_dim: int, group: int, g_len: int) -> bool:
+    """Whether a launch takes the head_dim-64 body: head_dim 64 and at
+    most ``D64_MAX_ROWS`` query rows (``g_len * group``) a KV head."""
+    return head_dim == 64 and g_len * group <= D64_MAX_ROWS
+
+
+def d64_ranks(table_width: int, page: int) -> int:
+    """The head_dim-64 body's blocks a (KV head, slot): one per
+    ``D64_SPAN`` positions of the table (``table_width * page``), at
+    least 1, at most ``D64_MAX_RANKS``; never from ``cache_len``."""
+    sweeps = -(-table_width * page // D64_SPAN)
+    return max(1, min(D64_MAX_RANKS, sweeps))
+
+
+def d64_rank_sweeps(cache_len: int, page: int, table_width: int) -> list:
+    """The head_dim-64 body's split, in Python: for each of the
+    :func:`d64_ranks` blocks, in rank order, the positions of each sweep
+    it walks, in its order: sweep ``k`` is positions ``[k D64_SPAN, (k +
+    1) D64_SPAN)`` below the fill (``min(cache_len, table_width *
+    page)``), and rank ``r`` takes sweeps ``r, r + ranks, ...``; a rank
+    past the fill walks none. For tests: the served path never calls
+    it."""
+    ranks = d64_ranks(table_width, page)
+    fill = max(0, min(cache_len, table_width * page))
+    return [[range(start, min(start + D64_SPAN, fill))
+             for start in range(r * D64_SPAN, fill, ranks * D64_SPAN)]
+            for r in range(ranks)]
+
+
 def dyn_smem_bytes(table_width: int, page: int, group: int, g_len: int,
                    head_dim: int) -> int:
     """The kernel's dynamic shared memory for ``g_len`` queries a slot, a
-    table of ``table_width`` columns and head dim ``head_dim``: the
-    queries (bf16), one rank's partials and scores (float32) and its page
-    ids."""
+    table of ``table_width`` columns and head dim ``head_dim``: for the
+    cluster-of-8 body the queries (bf16), one rank's partials and scores
+    (float32) and its page ids; the head_dim-64 body (:func:`d64_body`)
+    keeps its scores in registers and takes none."""
+    if d64_body(head_dim, group, g_len):
+        return 0
     per_rank = -(-table_width // CLUSTER)
     rows = g_len * group
     return rows * head_dim * 6 + rows * per_rank * page * 4 + per_rank * 4
@@ -296,6 +340,19 @@ def ragged_paged_verify_form_attention(q, k_pages, v_pages, page_table,
                    k_scale_pages, v_scale_pages, verify_form=True)[0]
 
 
+def cluster_size(group: int, g_len: int, table_width: int = 64,
+                 page: int = 32, head_dim: int = 128) -> int:
+    """The kernel's blocks a (KV head, slot) for this launch, as the
+    compiled kernel computes it (``gofr_ragged_cluster_size``):
+    ``CLUSTER``, or :func:`d64_ranks` for the head_dim-64 body."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("cluster_size: needs a CUDA device")
+    fn = _build.load(NAME).gofr_ragged_cluster_size
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_int
+    return fn(head_dim, group, g_len, table_width, page)
+
+
 def cluster_occupancy(group: int, verify: bool, int8: bool, g_len: int,
                       table_width: int = 64, page: int = 32,
                       head_dim: int = 128) -> int:
@@ -304,7 +361,8 @@ def cluster_occupancy(group: int, verify: bool, int8: bool, g_len: int,
     decode new-token bound; int8 or bf16 pools) the current CUDA device
     holds at once, for ``g_len`` queries a slot and a page table of
     ``table_width`` columns of ``page`` positions
-    (``cudaOccupancyMaxActiveClusters``)."""
+    (``cudaOccupancyMaxActiveClusters``); a cluster is
+    :func:`cluster_size` blocks."""
     if not torch.cuda.is_available():
         raise RuntimeError("cluster_occupancy: needs a CUDA device")
     fn = _build.load(NAME).gofr_ragged_cluster_occupancy

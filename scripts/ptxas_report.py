@@ -10,18 +10,21 @@ prints one JSON object: for each source file, each kernel (demangled,
 ``(anonymous namespace)::`` dropped) with its registers, shared-memory
 bytes and spill bytes, and, from ``cuobjdump -sass`` of the object, how
 many ``HGMMA`` (wgmma on the tensor cores), ``UTMALDG`` (TMA loads) and
-``LDGSTS`` (``cp.async`` copies) instructions it holds. Given two
+``LDGSTS`` (``cp.async`` copies) instructions it holds, its instruction
+count and a digest of its SASS text (``sass_sha``: two builds of one
+kernel with the same digest run the same instructions). Given two
 directories (say a parent commit's sources beside the change's) it
 reports both, so that an unchanged instantiation can be checked to
 compile to the same resources.
 
 Run from the root of a checkout on a host with ``nvcc``:
-``python3 scripts/ptxas_report.py [DIR ...] [--out FILE]``.
+``python3 scripts/ptxas_report.py [DIR or FILE.cu ...] [--out FILE]``.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import re
 import shutil
@@ -38,6 +41,8 @@ _ENTRY = re.compile(r"Function properties for (\S+)")
 _USED = re.compile(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?")
 _SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _SASS_FUNCTION = re.compile(r"Function : (\S+)")
+# an instruction line: /*0010*/ INSTR ... ; /* encoding */
+_SASS_LINE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?;)")
 SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS")
 
 
@@ -72,16 +77,23 @@ def parse(log: str) -> dict:
 
 def sass_counts(sass: str) -> dict:
     """Per kernel of a ``cuobjdump -sass`` listing (demangled name), the
-    count of each of ``SASS_OPS``."""
-    counts, name = {}, None
+    count of each of ``SASS_OPS``, its instructions and the SHA-256 of
+    its instruction lines (the first 16 hex digits)."""
+    counts, digests, name = {}, {}, None
     for line in sass.splitlines():
         if (m := _SASS_FUNCTION.search(line)):
             name = m.group(1)
             counts[name] = dict.fromkeys(SASS_OPS, 0)
-        elif name:
+            counts[name]["instructions"] = 0
+            digests[name] = hashlib.sha256()
+        elif name and (m := _SASS_LINE.search(line)):
+            counts[name]["instructions"] += 1
+            digests[name].update(m.group(1).encode())
             for op in SASS_OPS:
                 if re.search(rf"\b{op}\b", line):
                     counts[name][op] += 1
+    for name, digest in digests.items():
+        counts[name]["sass_sha"] = digest.hexdigest()[:16]
     return dict(zip(_demangle(list(counts)), counts.values()))
 
 
@@ -114,12 +126,14 @@ def report(source: Path, nvcc: str) -> dict:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("dirs", nargs="*", default=[str(_build.CSRC)])
+    parser.add_argument("dirs", nargs="*", default=[str(_build.CSRC)],
+                        help="source directories, or single .cu files")
     parser.add_argument("--out", default="chiprun_out/ptxas_report.json")
     args = parser.parse_args()
     nvcc = _build.find_nvcc()
     result = {d: {src.name: report(src, nvcc)
-                  for src in sorted(Path(d).glob("*.cu"))}
+                  for src in ([Path(d)] if Path(d).is_file()
+                              else sorted(Path(d).glob("*.cu")))}
               for d in args.dirs}
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Where the ragged kernel's blocks spend their cycles, phase by phase.
+"""Where the ragged kernel's cluster-of-8 body spends its cycles, phase
+by phase.
 
-Copies ``gofr_tpu_torch/csrc/ragged_paged_attention.cu`` into
+Copies ``gofr_tpu_torch/csrc/ragged_paged_attention.cu`` (or ``--csrc``'s,
+another tree's) into
 ``build/ragged_phase_clocks/`` with a ``clock64()`` stamp written by
 thread 0 of every block at each phase boundary (found by the comment
 lines that open the phases), builds it beside the real kernel, and runs
@@ -14,9 +16,15 @@ verify (every fill 2042). Prints, for KV head 0 of the slots named in
 ``psweep`` (the probabilities), ``pass2``, ``combine`` (barrier and the
 output), ``end`` (the last barrier)), and the kernel time of the stamped
 and of the real kernel (``chip_smoke.Timer``), with the card's clock.
+With ``--small`` the cases are ``small``'s head_dim 64 shapes (Hq = Hkv =
+16) instead: phase 19's paged decode and verify G 5 (32 table columns)
+and the decode over the identity table of rung 128 (4 columns). The
+stamps are in the cluster-of-8 body only: give ``--csrc`` a tree whose
+head_dim-64 launches take it (one before the head_dim-64 body).
 
 Run from the root of a checkout on a CUDA host:
-``python3 scripts/ragged_phase_clocks.py [--slots 0 5 6]``.
+``python3 scripts/ragged_phase_clocks.py [--slots 0 5 6] [--small]
+[--csrc OTHER_CSRC]``.
 """
 
 from __future__ import annotations
@@ -30,7 +38,8 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from chip_smoke import Timer, card_line, check_ragged, ragged_call  # noqa: E402
+from chip_smoke import (LLAMA3, SMALL, Timer, card_line,  # noqa: E402
+                        check_ragged, dense_scenario, ragged_call)
 
 PHASES = ["loads", "pass1", "snew", "stats_fold", "psweep", "pass2",
           "combine", "end"]
@@ -55,6 +64,11 @@ CASES = [("phase 4 decode bf16", False, 1,
          ("phase 5 verify G5 int8", True, 5,
           [0, 1, 31, 32, 33, 700, 2042, 512]),
          ("full card verify G5 bf16", False, 5, [2042] * 8)]
+SMALL_CASES = [("D64 phase 19 decode bf16", False, 1,
+                [0, 1, 31, 32, 33, 500, 1023, 512]),
+               ("D64 phase 19 verify G5 bf16", False, 5,
+                [0, 1, 31, 32, 33, 500, 1018, 512]),
+               ("D64 identity 128 decode bf16", False, 1, 128)]
 
 
 def stamped_source(src: str) -> str:
@@ -83,6 +97,9 @@ def stamped_source(src: str) -> str:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--slots", type=int, nargs="+", default=[0, 5, 6])
+    parser.add_argument("--small", action="store_true",
+                        help="small's head_dim 64 cases")
+    parser.add_argument("--csrc", help="stamp this tree's kernel source")
     args = parser.parse_args()
 
     import numpy as np
@@ -91,29 +108,42 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("ragged_phase_clocks: no CUDA device", file=sys.stderr)
         return 1
+    from gofr_tpu_torch.models import llama
     from gofr_tpu_torch.ops.cuda import _build
     from gofr_tpu_torch.ops.cuda import ragged_paged_attention as ragged_mod
 
     out_dir = Path("build/ragged_phase_clocks")
     out_dir.mkdir(parents=True, exist_ok=True)
-    src = (_build.CSRC / "ragged_paged_attention.cu").read_text()
+    csrc = Path(args.csrc) if args.csrc else _build.CSRC
+    src = (csrc / "ragged_paged_attention.cu").read_text()
     (out_dir / "ragged_paged_attention.cu").write_text(stamped_source(src))
-    for header in _build.CSRC.glob("*.cuh"):
+    for header in csrc.glob("*.cuh"):
         shutil.copy(header, out_dir)
     lib_path = out_dir / "stamped.so"
     subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o",
                     str(lib_path), str(out_dir / "ragged_paged_attention.cu")],
                    check=True)
-    libs = {"kernel": _build.load(ragged_mod.NAME),
+    unstamped = out_dir / "unstamped.so"
+    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o",
+                    str(unstamped), str(csrc / "ragged_paged_attention.cu")],
+                   check=True)
+    libs = {"kernel": ctypes.CDLL(str(unstamped.resolve())),
             "stamped": ctypes.CDLL(str(lib_path.resolve()))}
     clock = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
          "--format=csv,noheader"], capture_output=True, text=True).stdout
     print(card_line(), "| SM clock now, max:", clock.strip(), flush=True)
     timer = Timer(torch)
-    for name, int8, g_len, fills in CASES:
-        call, kernel, plain = ragged_call(torch, ragged_mod, int8, fills,
-                                          g_len, 7)
+    for name, int8, g_len, fills in (SMALL_CASES if args.small else CASES):
+        if isinstance(fills, int):           # an identity rung
+            call, fills = dense_scenario(torch, llama, int8, fills, g_len,
+                                         31, SMALL)
+            kernel = ragged_mod.ragged_paged_decode_attention
+            plain = ragged_mod.ragged_paged_decode_attention_plain
+        else:
+            call, kernel, plain = ragged_call(
+                torch, ragged_mod, int8, fills, g_len, 7,
+                SMALL if args.small else LLAMA3)
         ref = plain(*call)
         times = {}
         for side, lib in libs.items():

@@ -282,6 +282,40 @@ def test_dense_tick_replay_is_bitwise_the_eager_tick(cuda, kind, sampled,
     assert after_eager["cache_len"][3] == saved["cache_len"][3]
 
 
+@pytest.mark.parametrize("window", [128, 512, None])
+def test_small_dense_tick_replay_is_bitwise_the_eager_tick(cuda, window):
+    """`small`'s attention (16 query and 16 KV heads of 64: group 1, the
+    ragged kernel's head_dim-64 body) on the dense engine's 1024-position
+    cache at windows 128 and 512 (one block a KV head and slot) and the
+    whole cache (two, a cluster): replay and eager tick give the same
+    tokens and state bits."""
+    cfg = _cfg(dim=1024, n_heads=16, n_kv_heads=16, max_seq_len=1024)
+    assert cfg.head_dim == 64
+    params = llama.init(cfg, 0, device=cuda)
+    engine = GenerationEngine(cfg, params, max_slots=SLOTS, max_len=1024,
+                              prompt_buckets=(32, 64), steps_per_tick=4,
+                              paged_kv=False, device=cuda)
+    key = ("plain", 4, False, window)
+    asyncio.run(engine.warmup(ks=(4,), windows=(window or 1024,)))
+    assert key in engine._graphs
+    top = window or 1024
+    _fill_state(engine, 7, fills=(0, 37, top // 2 + 1, top - 10))
+    saved = {k: v.clone() for k, v in _state(engine).items()}
+    launch_counts.write({k: 0 for k in launch_counts.read()})
+    eager = engine._tick_body(key, engine.active).clone()
+    torch.cuda.synchronize()
+    eager_counts = launch_counts.read()
+    after_eager = {k: v.clone() for k, v in _state(engine).items()}
+    _restore(engine, saved)
+    launch_counts.write({k: 0 for k in launch_counts.read()})
+    replayed = engine._run_tick(key, None, None)()
+    assert launch_counts.read() == eager_counts
+    assert any(eager_counts.values())
+    np.testing.assert_array_equal(replayed, eager.cpu().numpy())
+    for name, tensor in _state(engine).items():
+        assert torch.equal(_bits(tensor), _bits(after_eager[name])), name
+
+
 async def _admit(engine, prompts):
     """Admit ``prompts`` in one pass of the engine's admission (without
     its loop) and wait for their prefills; the slots stay active."""

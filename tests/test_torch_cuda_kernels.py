@@ -309,6 +309,165 @@ def test_ragged_split_kernel_on_chunk_edges(cuda, page, width, group, int8,
     assert row_rel_l2(out, ref) <= 2.0 ** -8
 
 
+# the head_dim-64 body (every D 64 decode, verify of group x G <= 8):
+# tables of 32 columns of 32 (`small`'s, 2 ranks of a 512-position
+# sweep), of 288 of 16 (8 ranks, the first of two sweeps) and of 8 of 32
+# (one rank), fills on the page and sweep edges
+D64_TABLES = [(32, 32), (16, 288), (32, 8)]
+
+
+def _d64_fills(page, width):
+    cap, span = width * page, ragged_mod.D64_SPAN
+    return sorted({n for n in (0, 1, page - 1, page, page + 1, span - 1,
+                               span, span + 1, 8 * span - 1, 8 * span,
+                               8 * span + 1, cap - 1, cap) if n <= cap})
+
+
+@pytest.mark.parametrize("page,table", D64_TABLES)
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("g_len", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_d64_ragged_kernel_every_group_and_g(cuda, page, table, group, int8,
+                                             g_len):
+    """Head_dim 64 at every group and G 1-8, bf16 and int8 pools with NaN
+    in every dead row and scale entry, against the plain version under
+    the ragged bounds, one counted launch each; at G = 1 the verify
+    instantiation gives the decode one's bits. A verify of more than 8
+    rows a KV head takes the cluster-of-8 body, whose shared memory holds
+    a table of at most 63 columns of 16 at group 8, G 8."""
+    width = table if ragged_mod.d64_body(64, group, g_len) \
+        else {32: 32, 16: 63}[page]
+    fills = _d64_fills(page, width)
+    make = _paged_int8 if int8 else _paged
+    args = list(make(cuda, fills, g_len, group=group, seed=page + group,
+                     page=page, width=width, d=64))
+    counter = ("int8_" if int8 else "") + (
+        "launches" if g_len == 1 else "verify_launches")
+    before = getattr(ragged_mod, counter)
+    if g_len == 1:
+        call = args[:4] + [args[4][:, 0], args[5][:, 0]] + args[6:]
+        out = ragged_mod.ragged_paged_decode_attention(*call)
+        ref = ragged_mod.ragged_paged_decode_attention_plain(*call)
+        verify = ragged_mod.ragged_paged_verify_form_attention(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(verify.view(torch.int16), out.view(torch.int16))
+    else:
+        out = ragged_mod.ragged_paged_verify_attention(*args)
+        ref = ragged_mod.ragged_paged_verify_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert getattr(ragged_mod, counter) == before + 1
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    assert row_rel_l2(out, ref) <= 2.0 ** -8
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("g_len", [1, 5])
+def test_d64_bits_do_not_depend_on_the_table_width(cuda, int8, g_len):
+    """The same pages through tables of 8, 16, 32 and 160 columns of 32
+    (1, 1, 2 and 8 ranks), the fills below 256: the same bits, so the
+    dense engine at any window rung gives the paged engine's tokens."""
+    make = _paged_int8 if int8 else _paged
+    fills = [0, 1, 31, 32, 100, 200, 255]
+    args = list(make(cuda, fills, g_len, group=1, seed=3, page=32, width=8,
+                     d=64))
+    if g_len == 1:
+        args[4], args[5] = args[4][:, 0], args[5][:, 0]
+        kernel = ragged_mod.ragged_paged_decode_attention
+    else:
+        kernel = ragged_mod.ragged_paged_verify_attention
+    outs = []
+    for width in (8, 16, 32, 160):
+        table = torch.full((len(fills), width), args[1].shape[0],
+                           dtype=torch.int32, device=cuda)
+        table[:, :8] = args[3]
+        outs.append(kernel(*args[:3], table, *args[4:]))
+    torch.cuda.synchronize()
+    assert all(torch.equal(o.view(torch.int16), outs[0].view(torch.int16))
+               for o in outs)
+
+
+def test_d64_cluster_size_is_the_python_rule(cuda):
+    """The compiled launch's blocks a (KV head, slot) are ``d64_ranks``
+    for the head_dim-64 body and ``CLUSTER`` for the other."""
+    for width, page in ((1, 16), (4, 32), (8, 32), (9, 32), (32, 32),
+                        (64, 16), (160, 16), (640, 32), (11, 24)):
+        for group in (1, 2, 4, 8):
+            for g_len in (1, 2, 5, 8):
+                want = (ragged_mod.d64_ranks(width, page)
+                        if ragged_mod.d64_body(64, group, g_len)
+                        else ragged_mod.CLUSTER)
+                assert ragged_mod.cluster_size(group, g_len, width, page,
+                                               64) == want
+                assert ragged_mod.cluster_size(group, g_len, width, page,
+                                               128) == ragged_mod.CLUSTER
+
+
+def test_d64_kernel_serves_a_table_too_wide_for_the_cluster_body(cuda):
+    """No dynamic shared memory: a decode over 4096 columns of 32 (a
+    table the cluster-of-8 body refuses at group 8) runs, fills past
+    4096 positions walked in sweeps."""
+    width, page = 4096, 32
+    assert ragged_mod.dyn_smem_bytes(width, page, 8, 1, 64) == 0
+    assert ragged_mod.dyn_smem_bytes(width, page, 8, 1, 128) \
+        > ragged_mod.MAX_DYN_SMEM
+    args = list(_paged(cuda, [0, 5000, 20000], 1, group=8, page=page,
+                       width=width, d=64))
+    call = args[:4] + [args[4][:, 0], args[5][:, 0]] + args[6:]
+    out = ragged_mod.ragged_paged_decode_attention(*call)
+    ref = ragged_mod.ragged_paged_decode_attention_plain(*call)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    assert row_rel_l2(out, ref) <= 2.0 ** -8
+
+
+def test_d128_outputs_are_the_reference_trees_bits(cuda):
+    """At head_dim 128 the kernel gives the bits of the kernel built from
+    the reference tree that ``GOFR_RAGGED_REFERENCE_CSRC`` names (a
+    parent commit's ``gofr_tpu_torch/csrc``; the head_dim-64 body left
+    the cluster-of-8 body as it was), decode and verify G 5, bf16 and
+    int8 pools."""
+    import importlib.util
+    import os
+    from pathlib import Path
+
+    from gofr_tpu_torch.ops.cuda import _build
+
+    reference = os.environ.get("GOFR_RAGGED_REFERENCE_CSRC")
+    if not reference:
+        pytest.skip("GOFR_RAGGED_REFERENCE_CSRC names no reference tree")
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(
+        "ragged_ab", root / "scripts" / "ragged_ab.py")
+    ragged_ab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ragged_ab)
+    libs = {"this": _build.load(ragged_mod.NAME),
+            "reference": ragged_ab.build_other(
+                Path(reference), _build.find_nvcc(), _build.NVCC_FLAGS)}
+    fills = [0, 1, 31, 32, 33, 100, 255]
+    try:
+        for int8 in (False, True):
+            for g_len in (1, 5):
+                make = _paged_int8 if int8 else _paged
+                args = list(make(cuda, fills, g_len, group=4, seed=g_len,
+                                 page=32, width=8, d=128))
+                kernel = ragged_mod.ragged_paged_verify_attention
+                if g_len == 1:
+                    args[4], args[5] = args[4][:, 0], args[5][:, 0]
+                    kernel = ragged_mod.ragged_paged_decode_attention
+                outs = {}
+                for side, lib in libs.items():
+                    _build._libs[ragged_mod.NAME] = lib
+                    outs[side] = kernel(*args)
+                torch.cuda.synchronize()
+                assert torch.equal(outs["this"].view(torch.int16),
+                                   outs["reference"].view(torch.int16)), \
+                    (int8, g_len)
+    finally:
+        _build._libs[ragged_mod.NAME] = libs["this"]
+
+
 @pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("heads", [(32, 8), (8, 8), (8, 4), (16, 2)])
 def test_flash_decode_kernel_matches_plain(cuda, heads, d):
