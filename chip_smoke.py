@@ -119,7 +119,7 @@ Phases, each of which raises (exit code != 0) on failure:
     identity tables at each rung of a 1024-position cache, its verify
     instantiation at G = 1 bit-identical to its decode one, and flash
     decode over T 1024 and its window views 128/256/512;
-20-23. the ``small`` preset at full width (vocab 32000, 4 of its 8
+20-23. the ``small`` preset at full width (vocab 32000, 2 of its 8
     layers, dim 1024, 16/16 heads, ffn 2816, random weights) at the
     example app's engine settings (dense, max_len 1024, 8 slots, 16
     steps a tick, 4 ticks in flight) serving phase 9's burst: dense bf16
@@ -384,10 +384,30 @@ Phases, each of which raises (exit code != 0) on failure:
     page's render ms during a burst; tok/s with the pages polled every
     100 ms against not, in turns; tok/s under the profiler and the
     trace's bytes; the phase's seconds.
+39. serving over a device mesh, every shard on the one card (a mesh's
+    device may repeat; the distinct-card route runs only with several
+    cards, 39-multicard, else a ``{"phase": "39-multicard", "skipped":
+    "1 card"}`` line): (a) the llama3-8b engine over ``{dp: 1, tp: 1}``,
+    dense and paged, whose greedy tokens must be phases 15's and 9's bit
+    for bit; (b) at tp 2 (Hq 16 / Hkv 4 a rank), dense, paged and paged
+    ``kv_int8``: teacher-forced logits of a prefill and 4 decode steps
+    against the unsharded model's within ``MESH_REL_TOL``, phase 9's
+    burst (every tick and prefill a replay, each rank's kernels in the
+    launch counts), a tick's replay against its eager run bit for bit,
+    and the count of greedy tokens equal to the unsharded engine's; tok/s,
+    idle share and capture cost at tp 2 beside tp 1; (c) ``small`` at tp
+    2 and at dp 2 x tp 1, dense, the same gates on phase 20's burst; (d)
+    the kernels at a tp rank's shapes against their plain versions,
+    timed; (e) ring attention at sp 4, S 8192, against the plain causal
+    attention; (f) the pp 2 forward of ``small`` against the unsharded
+    forward; (g) ResNet-50 through the executor at dp 2 against dp 1;
+    (h) the example's ``MESH=1`` serving ``/generate`` and ``MESH=tp:2``
+    refused at build; (i) ``initialize_distributed`` at world size 1 over
+    NCCL and ``dcn_check``'s two processes on the card.
 
 Depth is cut, width never: the ``llama3-8b`` engines run 8 of 32
 layers (``--layers``), and every ``small`` phase but the app's (20-23,
-24's ``small`` half, 26-31, 32d, 33e, 35) 4 of its 8
+24's ``small`` half, 26-31, 32d, 33e, 35, 39c, 39f) 2 of its 8
 (``CUT_SMALL_LAYERS``); phases 37 and 38 run the example app at its
 defaults, ``small`` whole.
 
@@ -1154,7 +1174,14 @@ PATH_KERNELS = {"engine": ("flash", "ragged"),
                 "op_llama3": ("flash", "ragged"),
                 "train_eval_small": ("flash",),
                 "app_small": ("flash", "ragged"),
-                "disagg_app": ("flash", "ragged")}
+                "disagg_app": ("flash", "ragged"),
+                "mesh_tp1_dense": ("flash", "ragged"),
+                "mesh_tp1_paged": ("flash", "ragged"),
+                "mesh_tp2_dense": ("flash", "ragged"),
+                "mesh_tp2_paged": ("flash", "ragged"),
+                "mesh_tp2_paged_int8": ("flash", "int8"),
+                "mesh_small_tp2": ("flash", "ragged"),
+                "mesh_small_dp2": ("flash", "ragged")}
 
 
 def warm(engine):
@@ -1752,8 +1779,8 @@ def phase_d64_kernels(torch, mods, timer, results):
 SMALL_ENGINE = dict(max_slots=8, max_len=1024, steps_per_tick=16,
                     max_inflight_ticks=4)
 # the smoke's length: every small phase but the app's (37, 38) runs
-# ``small`` at full width cut to 4 of its 8 layers
-CUT_SMALL_LAYERS = 4
+# ``small`` at full width cut to 2 of its 8 layers
+CUT_SMALL_LAYERS = 2
 
 
 def depth(params):
@@ -1974,11 +2001,10 @@ async def timed_burst(torch, engine, prompts, budget, samplings, timeout,
 
 def state_bits(torch, engine):
     """The engine's device state, bf16 leaves as their int16 bits."""
-    leaves = engine._pool.leaves if engine.paged else engine.cache
     out = {"cache_len": engine.cache_len, "last_token": engine.last_token,
            "keys": engine.sample_keys}
     out.update({f"kv.{k}": (v[:, :-1] if engine.paged else v)
-                for k, v in leaves.items()})
+                for k, v in kv_shards(engine).items()})
     return {k: (v.view(torch.int16) if v.dtype == torch.bfloat16 else v)
             .clone() for k, v in out.items()}
 
@@ -1987,9 +2013,8 @@ def replay_equals_eager(torch, engine, eager, replay, what):
     """Run ``eager()`` from a copy of the engine's state, restore it, run
     ``replay()``; fail unless the outputs and the state are the same
     bits. Returns the outputs."""
-    leaves = engine._pool.leaves if engine.paged else engine.cache
     live = dict(cache_len=engine.cache_len, last_token=engine.last_token,
-                keys=engine.sample_keys, **leaves)
+                keys=engine.sample_keys, **kv_shards(engine))
     saved = {k: v.clone() for k, v in live.items()}
     want = eager()
     want = want.cpu().numpy() if hasattr(want, "cpu") else want
@@ -7686,6 +7711,571 @@ def _numel(tree):
     return (leaf.numel() for leaf in _leaves(tree))
 
 
+# -- phase 39: serving over a device mesh ------------------------------------
+# the per-rank attention shapes of the sharded paths (39d): llama3-8b at
+# tp 2 (Hq 16 / Hkv 4) and tp 4 (8 / 2), small at tp 2 (8 / 8)
+LLAMA3_TP2 = dataclasses.replace(LLAMA3, q_heads=16, kv_heads=4)
+LLAMA3_TP4 = dataclasses.replace(LLAMA3, q_heads=8, kv_heads=2)
+SMALL_TP2 = dataclasses.replace(SMALL, q_heads=8, kv_heads=8)
+# teacher-forced logits of a sharded model against the unsharded one
+# (39b, 39c): relative L2 a step, phase 7's bf16 gate (a card's bf16
+# against the CPU's f32). The row-parallel sums of wo and w_down reorder
+# bf16 roundings (each rank's product rounded to bf16, the ranks summed
+# in float32, one rounding): differences of the order of a bf16 ulp a
+# layer, far inside a gate a wrong shard or a missing rank's part fails
+# by ~0.5 or more
+MESH_REL_TOL = MODEL_REL_TOL
+MESH_STEPS = 4
+RING_SEQ = 8192                  # 39e: B 1, S 8192, llama3-8b heads
+# ring attention's bf16 output against the plain causal attention's: the
+# same function as the flash kernel's, held to phase 3's gate (one bf16
+# ulp at |x| < 4 is 1.6e-2, which a run on the H100 reached)
+RING_TOL = FLASH_TOL
+# 39f: the same ops in the same order, over microbatches of 2 rows (GEMMs
+# of other shapes than the unsharded forward's, whose bits may differ)
+PP_TOL = MODEL_REL_TOL
+
+
+def kv_shards(engine):
+    """The engine's KV leaves by name, every shard of a sharded leaf
+    apart (``name@coordinate``)."""
+    leaves = engine._pool.leaves if engine.paged else engine.cache
+    out = {}
+    for name, leaf in leaves.items():
+        if hasattr(leaf, "addressable_shards"):
+            out.update({f"{name}@{coord}": t
+                        for coord, t in leaf.addressable_shards})
+        else:
+            out[name] = leaf
+    return out
+
+
+def mesh_expected(cfg, counters, dp, tp):
+    """:func:`expected_launches` over a dp × tp mesh: a prefill runs on
+    dp row 0's tp ranks, a decode step on every rank of every row."""
+    want = expected_launches(cfg, counters)
+    prefills = counters["prefills"] + counters["prefill_lazy"]
+    want["flash"] = cfg.n_layers * prefills * tp
+    for name in ("ragged", "int8"):
+        want[name] *= dp * tp
+    return want
+
+
+def tp_params(torch, params, axes, device="cuda"):
+    """Each dp row's ``TPShards`` of ``params`` over ``axes`` on the card
+    (every shard on cuda:0), as the engine holds them."""
+    from gofr_tpu_torch.models import llama
+    from gofr_tpu_torch.ops.quant import quantized_specs
+    from gofr_tpu_torch.parallel import collectives, make_mesh, sharding
+
+    dev = torch.device(device, 0) if device == "cuda" \
+        else torch.device(device)
+    mesh = make_mesh(axes, [dev] * 8)
+    specs = sharding.prune_specs(quantized_specs(
+        sharding.llama_param_specs(), params), mesh)
+    sharded = sharding.shard_pytree(params, mesh, specs)
+    return [llama.TPShards([sharding.local_tree(sharded, c) for c in line],
+                           collectives.Group([mesh.devices[c]
+                                              for c in line]))
+            for line in mesh.axis_coords("tp")]
+
+
+def teacher_forced(torch, llama, cfg, params, axes, paged, seed, what,
+                   results, device="cuda"):
+    """39b/39c's gate: one prefill and ``MESH_STEPS`` decode steps of the
+    model unsharded and over ``axes`` (each dp row over its slots, each
+    of its tp ranks over its heads), fed the same tokens (the unsharded
+    run's greedy ones); relative L2 of the logits a step within
+    ``MESH_REL_TOL``. A CPU rehearsal passes ``device="cpu"``."""
+    import numpy as np
+
+    from gofr_tpu_torch.tpu.page_pool import PagePool
+
+    rng = np.random.default_rng(seed)
+    b, s, page = 4, 64, 32
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)),
+                             device=device)
+    lengths = torch.tensor([64, 40, 17, 33], device=device)
+    rows = tp_params(torch, params, axes, device)
+    dp, tp = len(rows), len(rows[0])
+    rank_cfg = llama.rank_config(cfg, tp)
+
+    def run(row_params, c, sl, feed):
+        record = not feed
+        tok, lens = tokens[sl], lengths[sl]
+        n = tok.shape[0]
+        small = llama.init_cache(c, n, 512, device=device)
+        if isinstance(row_params, llama.TPShards):
+            small = [llama.init_cache(rank_cfg, n, 512, device=device)
+                     for _ in range(tp)]
+        logits, small, cache_len = llama.prefill(row_params, c, tok, small,
+                                                 lengths=lens)
+        out = [logits.float()]
+        active = torch.ones(n, dtype=torch.bool, device=device)
+        if paged:
+            table = torch.arange(n * 16, dtype=torch.int32,
+                                 device=device).view(n, 16)
+            geo = c if not isinstance(row_params, llama.TPShards) \
+                else rank_cfg
+            pools = [PagePool(geo, page=page, num_pages=n * 16,
+                              device=device).leaves
+                     for _ in (small if isinstance(small, list)
+                               else [small])]
+            for pool, sm in zip(pools, small if isinstance(small, list)
+                                else [small]):
+                for name in pool:
+                    pool[name][:, :n * 16] = sm[name].reshape(
+                        c.n_layers, n * 16, page, *sm[name].shape[3:])
+            kv = pools if isinstance(small, list) else pools[0]
+        else:
+            kv = small
+        for step in range(MESH_STEPS):
+            if record:
+                feed.append(logits.argmax(-1))
+            if paged:
+                logits, _, cache_len = llama.decode_step_paged(
+                    row_params, c, feed[step][sl], kv, table, cache_len,
+                    active)
+            else:
+                logits, _, cache_len = llama.decode_step(
+                    row_params, c, feed[step][sl], kv, cache_len)
+            out.append(logits.float())
+        return out
+
+    feed = []
+    want = run(params, cfg, slice(0, b), feed)
+    per = b // dp
+    got = [torch.cat(step) for step in zip(*[
+        run(rows[d], cfg, slice(d * per, (d + 1) * per),
+            [f for f in feed]) for d in range(dp)])]
+    rel = [((g - w).norm() / w.norm()).item() for g, w in zip(got, want)]
+    agree = sum(int((g.argmax(-1) == w.argmax(-1)).sum())
+                for g, w in zip(got, want))
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    log(f"{what}: teacher-forced logits over {axes} against unsharded, "
+        f"relative L2 a step {[round(r, 6) for r in rel]} (gate "
+        f"{MESH_REL_TOL}); top-1 agreement {agree}/{len(got) * b}")
+    results[what] = dict(rel_l2=rel, top1_agree=agree,
+                         top1_total=len(got) * b, bound=MESH_REL_TOL)
+    if not finite or max(rel) > MESH_REL_TOL:
+        raise AssertionError(f"{what}: sharded logits off by {max(rel)} "
+                             f"(finite {finite}), gate {MESH_REL_TOL}")
+
+
+def mesh_burst(torch, generate, mods, cfg, params, axes, engine_kw, path,
+               ref_outs, exact, seed, results, profile=False):
+    """One engine over a mesh of ``axes`` shards all on cuda:0: phase 9's
+    burst (``serve_burst``: warm-up captures, every tick and prefill a
+    replay), its launch counts against :func:`mesh_expected`, a tick's
+    replay against its eager run, and its 7 greedy completions against
+    ``ref_outs`` (the unsharded engine's): equal when ``exact`` (one
+    shard), counted otherwise. Returns the launches."""
+    from gofr_tpu_torch.parallel import make_mesh
+
+    cuda = torch.device("cuda", 0)
+    mesh = make_mesh(axes, [cuda] * 8)
+    prompts = engine_prompts(cfg, seed)
+    budget = 32
+    samplings = [generate.Sampling() for _ in range(7)] + [
+        generate.Sampling(temperature=0.8, top_p=0.95, seed=seed)]
+    engine = generate.GenerationEngine(cfg, params, mesh=mesh, device=cuda,
+                                       **engine_kw)
+    dp, tp = mesh.shape.get("dp", 1), mesh.shape.get("tp", 1)
+
+    def replay_check(engine):
+        key = ("plain", 1, False, None if engine.paged else
+               engine._window_ladder[0])
+        if key not in engine._graphs:
+            key = next(iter(engine._graphs))
+        engine.active.fill_(True)
+        replay_equals_eager(
+            torch, engine,
+            lambda: engine._tick_body(key, engine.active).clone(),
+            lambda: engine._run_tick(key, None, None)(), f"{path} {key}")
+        engine.active.fill_(False)
+        return key
+
+    outs, wall, launches, counters, ttfts, figures = serve_burst(
+        torch, engine, prompts, budget, samplings, mods, 900,
+        stream_tokens=8, profile=profile, extra=None)
+    check_launches(launches, mesh_expected(cfg, counters, dp, tp), path)
+    key = replay_check(engine)
+    equal = sum(int(a == b) for got, ref in zip(outs[:7], ref_outs)
+                for a, b in zip(got, ref))
+    tokens = budget * len(outs)
+    row = dict(mesh=dict(mesh.shape), devices=mesh.distinct_devices,
+               requests=len(outs), new_tokens=tokens, wall_s=wall,
+               tokens_per_s=tokens / wall, ttft_p50_s=ttfts[len(ttfts) // 2],
+               ttft_max_s=ttfts[-1], launches=launches, counters=counters,
+               kv_bytes=kv_bytes(engine), replay_key=list(key),
+               greedy_equal_tokens=equal, greedy_tokens=7 * budget,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               params_bytes=engine.hbm_attribution()["params_bytes"],
+               **figures)
+    results[path] = row
+    log(f"{path}: mesh {dict(mesh.shape)} on {mesh.distinct_devices} card: "
+        f"{len(outs)} requests x {budget} tokens in {wall:.3f}s = "
+        f"{row['tokens_per_s']:.1f} tok/s; TTFT p50 "
+        f"{row['ttft_p50_s']:.4f}s; launches {launches} (each rank's); "
+        f"capture {figures['capture_s']:.2f}s ticks + "
+        f"{figures['prefill_capture_s']:.2f}s prefills, reserved after "
+        f"warmup {figures['reserved_after_warmup']}, params "
+        f"{row['params_bytes']} B; greedy tokens equal "
+        f"to the unsharded engine's: {equal}/{7 * budget}")
+    if exact and outs[:7] != ref_outs:
+        raise AssertionError(f"{path}: a one-shard mesh's greedy tokens "
+                             f"differ from the unsharded engine's")
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_mesh_llama3(torch, llama, generate, mods, cfg, params, seed,
+                      results):
+    """Phases 39a-b on the llama3-8b weights of phases 9-18: a one-shard
+    mesh (dense and paged) bit for bit the unsharded engine; tp 2 with
+    both shards on the card (dense, paged, paged kv_int8): teacher-forced
+    logits, a burst, replay = eager, each rank's launches. Returns
+    launches by path."""
+    by_path = {}
+    base = dict(max_slots=8, max_len=2048, prompt_buckets=(32, 128, 512),
+                steps_per_tick=4, kv_page=32)
+    log("== phase 39a: llama3-8b over a mesh {dp: 1, tp: 1} on the card, "
+        "dense then paged: the unsharded engine's greedy tokens bit for bit")
+    for paged, ref in ((False, "dense"), (True, "engine")):
+        path = f"mesh_tp1_{'paged' if paged else 'dense'}"
+        by_path[path] = mesh_burst(
+            torch, generate, mods, cfg, params, {"dp": 1, "tp": 1},
+            dict(base, paged_kv=paged), path, results[ref]["greedy_outputs"],
+            True, seed, results, profile=paged)
+    log("== phase 39b: llama3-8b at tp 2, both shards on cuda:0 (Hq 16 / "
+        "Hkv 4 a rank): teacher-forced logits, then dense, paged and paged "
+        "kv_int8 bursts")
+    for paged, int8 in ((False, False), (True, False), (True, True)):
+        c = dataclasses.replace(cfg, kv_int8=int8)
+        name = ("paged" if paged else "dense") + ("_int8" if int8 else "")
+        teacher_forced(torch, llama, c, params, {"tp": 2}, paged, seed,
+                       f"mesh_tp2_{name}_logits", results)
+        ref = engine_kind(c, paged, False)[0]
+        by_path[f"mesh_tp2_{name}"] = mesh_burst(
+            torch, generate, mods, c, params, {"tp": 2},
+            dict(base, paged_kv=paged), f"mesh_tp2_{name}",
+            results[ref]["greedy_outputs"], False, seed, results,
+            profile=paged and not int8)
+    tp1, tp2 = results["mesh_tp1_paged"], results["mesh_tp2_paged"]
+    log(f"39b: paged tp 2 against tp 1 (both on one card): "
+        f"{tp2['tokens_per_s']:.1f} vs {tp1['tokens_per_s']:.1f} tok/s; "
+        f"device idle share {tp2.get('device_idle_share')} vs "
+        f"{tp1.get('device_idle_share')}; tick capture "
+        f"{tp2['capture_s']:.2f} vs {tp1['capture_s']:.2f}s, reserved "
+        f"after warmup {tp2['reserved_after_warmup']} vs "
+        f"{tp1['reserved_after_warmup']}, params {tp2['params_bytes']} vs "
+        f"{tp1['params_bytes']} B")
+    return by_path
+
+
+def phase_mesh_small(torch, llama, generate, mods, cfg, params, seed,
+                     results):
+    """Phase 39c: ``small`` (head_dim 64, phase 20's weights and burst) at
+    tp 2 (Hq 8 / Hkv 8 a rank, the ``d64`` body at group 1) and at dp 2 ×
+    tp 1, dense, every shard on the card. Returns launches by path."""
+    log("== phase 39c: small (D 64) at tp 2 and at dp 2 x tp 1, dense, "
+        "shards on cuda:0")
+    by_path = {}
+    for axes, name in (({"tp": 2}, "mesh_small_tp2"),
+                       ({"dp": 2, "tp": 1}, "mesh_small_dp2")):
+        teacher_forced(torch, llama, cfg, params, axes, False, seed,
+                       f"{name}_logits", results)
+        by_path[name] = mesh_burst(
+            torch, generate, mods, cfg, params, axes, SMALL_ENGINE, name,
+            results["small"]["greedy_outputs"], False, seed, results)
+    return by_path
+
+
+def identity_case(torch, ragged_mod, timer, geom, rung, what):
+    """One ragged decode over an identity table at ``geom``, rung
+    ``rung``: held to its plain version, timed with the bound and one
+    SDPA call over the dense cache (``identity_sdpa_ms``)."""
+    from gofr_tpu_torch.models import llama
+
+    args, reach = dense_scenario(torch, llama, False, rung, 1, 31, geom)
+    out = ragged_mod.ragged_paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    ref = ragged_mod.ragged_paged_decode_attention_plain(*args)
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{what}: output is not finite")
+    err, row_err = check_ragged(torch, out, ref, what)
+    ms = timer(lambda: ragged_mod.ragged_paged_decode_attention(*args),
+               iters=20)
+    plain_ms = timer(lambda: ragged_mod.ragged_paged_decode_attention_plain(
+        *args), iters=3)
+    lib_ms, lib_diff = identity_sdpa_ms(torch, timer, args, reach, geom,
+                                        rung, out.float())
+    nbytes, flops = paged_cost(reach, 1, args[3].numel(), False, geom)
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S)
+    row = dict(rung=rung, G=1, head_dim=geom.head_dim, q_heads=geom.q_heads,
+               kv_heads=geom.kv_heads, max_abs_err=err, row_rel_l2=row_err,
+               ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               library_max_abs_diff=lib_diff, sdpa_ratio=ms / lib_ms,
+               bound_ms=bound * 1e3,
+               bound_by=("operations" if flops / BF16_FLOP_PER_S
+                         >= nbytes / HBM_BYTES_PER_S else "bytes"))
+    log(f"{what} err={err:.3e} row={row_err:.3e} kernel={ms:.4f}ms "
+        f"plain={plain_ms:.4f}ms sdpa={lib_ms:.4f}ms "
+        f"({ms / lib_ms:.3f}x sdpa) bound={row['bound_ms']:.4f}ms")
+    return row
+
+
+def phase_mesh_kernels(torch, mods, results):
+    """Phase 39d: each kernel of the sharded paths at a tp rank's shapes
+    against its plain version, timed with its bound (and SDPA where one
+    call computes the same: flash, identity tables)."""
+    flash_mod, ragged_mod, _ = mods
+    log("== phase 39d: the kernels at a tp rank's shapes (llama3-8b tp 2: "
+        "Hq 16 / Hkv 4; tp 4: 8 / 2; small tp 2: 8 / 8)")
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda").manual_seed(39)
+    out = {}
+    fills = [0, 1, 31, 32, 33, 700, 2047, 512]
+    for tag, geom in (("llama3_tp2", LLAMA3_TP2), ("llama3_tp4", LLAMA3_TP4)):
+        out[f"{tag}_ragged"] = ragged_case(
+            torch, ragged_mod, timer, False, fills, 1, 2,
+            f"39d {tag} ragged paged decode", geom)
+        out[f"{tag}_identity"] = [
+            identity_case(torch, ragged_mod, timer, geom, rung,
+                          f"39d {tag} identity decode rung {rung or 2048}")
+            for rung in (128, 512, None)]
+    out["llama3_tp2_ragged_int8"] = ragged_case(
+        torch, ragged_mod, timer, True, fills, 1, 2,
+        "39d llama3_tp2 ragged paged decode int8", LLAMA3_TP2)
+    out["llama3_tp2_flash"] = flash_case(torch, flash_mod, timer, gen, 4, 512,
+                                         LLAMA3_TP2)
+    last = SMALL_TP2.width * 32 - 1
+    out["small_tp2_ragged"] = ragged_case(
+        torch, ragged_mod, timer, False, [0, 1, 31, 32, 33, 500, last, 512],
+        1, 40, "39d small_tp2 ragged paged decode (d64 body)", SMALL_TP2)
+    out["small_tp2_identity"] = [
+        identity_case(torch, ragged_mod, timer, SMALL_TP2, rung,
+                      f"39d small_tp2 identity decode rung {rung or 1024}")
+        for rung in (128, 512, None)]
+    out["small_tp2_flash"] = flash_case(torch, flash_mod, timer, gen, 4, 512,
+                                        SMALL_TP2)
+    results["mesh_kernels"] = out
+    del timer
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh_ring(torch, llama, results):
+    """Phase 39e: ring attention at sp 4 on the card (every ring rank on
+    cuda:0), B 1, S 8192, llama3-8b heads, bf16, against the plain dense
+    causal attention."""
+    from gofr_tpu_torch.ops.attention import prefill_attention
+    from gofr_tpu_torch.parallel import make_mesh, ring_attention
+
+    log(f"== phase 39e: ring attention sp 4 on the card, B 1, S {RING_SEQ}, "
+        f"Hq 32 / Hkv 8 / D 128, bf16, against the plain causal attention")
+    gen = torch.Generator(device="cuda").manual_seed(395)
+    q = torch.randn((1, RING_SEQ, 32, 128), generator=gen,
+                    device="cuda").bfloat16()
+    k, v = (torch.randn((1, RING_SEQ, 8, 128), generator=gen,
+                        device="cuda").bfloat16() for _ in range(2))
+    mesh = make_mesh({"sp": 4}, [torch.device("cuda", 0)] * 4)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out = ring_attention(q, k, v, mesh)
+    torch.cuda.synchronize()
+    ring_s = time.monotonic() - t0
+    ref = prefill_attention(q, k, v)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    log(f"39e: ring {ring_s:.3f}s (host clock, first call); max|ring - "
+        f"plain| {err:.3e} (gate {RING_TOL})")
+    results["mesh_ring"] = dict(seq=RING_SEQ, sp=4, max_abs_err=err,
+                                ring_s=ring_s, tol=RING_TOL)
+    del q, k, v, out, ref
+    torch.cuda.empty_cache()
+    if not err <= RING_TOL:
+        raise AssertionError(f"39e: ring attention off by {err}")
+
+
+def phase_mesh_pp(torch, llama, params, cfg, results):
+    """Phase 39f: the pp 2 forward (GPipe, 4 microbatches) of ``small``
+    (phase 20's weights) against the unsharded forward, both through the
+    plain attention."""
+    from gofr_tpu_torch.parallel import make_mesh, make_pp_forward
+
+    c = dataclasses.replace(cfg, use_flash=False)
+    log(f"== phase 39f: pp 2 forward of small ({c.n_layers} layers), 4 "
+        f"microbatches, B 8 S 128, against the unsharded forward")
+    tokens = torch.randint(0, c.vocab_size, (8, 128), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(396))
+    mesh = make_mesh({"pp": 2}, [torch.device("cuda", 0)] * 2)
+    got = make_pp_forward(c, mesh, n_microbatches=4)(params, tokens)
+    want = llama.forward(params, c, tokens)
+    err = (got - want).abs().max().item()
+    rel = ((got - want).norm() / want.norm()).item()
+    same = bool(torch.equal(got, want))
+    log(f"39f: max|pp - unsharded| {err:.3e}, relative L2 {rel:.3e} (gate "
+        f"{PP_TOL}); bits equal {same}; finite "
+        f"{bool(torch.isfinite(got).all())}")
+    results["mesh_pp"] = dict(max_abs_err=err, rel_l2=rel, bits_equal=same,
+                              tol=PP_TOL)
+    if not (torch.isfinite(got).all() and rel <= PP_TOL):
+        raise AssertionError(f"39f: pp forward off by {rel}")
+
+
+def phase_mesh_executor(torch, executor_mod, resnet, seed, results):
+    """Phase 39g: ResNet-50 through the Executor over a dp 2 mesh (both
+    shards on the card, one graph a bucket running each shard's half),
+    B 32, against dp 1 on the same weights."""
+    import numpy as np
+
+    from gofr_tpu_torch.parallel import make_mesh
+
+    log("== phase 39g: ResNet-50 through the Executor at dp 2 (both shards "
+        "on cuda:0), B 32, against dp 1")
+    rcfg = resnet.config("50")
+    rparams = resnet.init(rcfg, seed + 41, device="cuda")
+
+    def fn(p, x):
+        return resnet.apply(p, rcfg, x)
+
+    rng = np.random.default_rng(seed + 397)
+    x = rng.standard_normal((32, rcfg.image_size, rcfg.image_size, 3)) \
+        .astype(np.float32)
+    outs, times = {}, {}
+    for dp in (1, 2):
+        mesh = make_mesh({"dp": dp}, [torch.device("cuda", 0)] * 2)
+        ex = executor_mod.Executor(None, None, mesh=mesh, device="cuda")
+        ex.register("resnet", fn, rparams, buckets=(32,))
+        ex.warmup("resnet", x[0])
+        outs[dp] = ex.predict("resnet", x)
+        t0 = time.monotonic()
+        for _ in range(5):
+            ex.predict("resnet", x)
+        times[dp] = (time.monotonic() - t0) / 5
+        ex.close()
+    err = rel_err(outs[2], outs[1])
+    log(f"39g: dp 2 against dp 1: max rel err {err:.3e} (gate "
+        f"{EXEC_REL_TOL}); predict B 32 {times[2] * 1e3:.3f} ms vs "
+        f"{times[1] * 1e3:.3f} ms (host clock)")
+    results["mesh_executor"] = dict(max_rel_err=err, tol=EXEC_REL_TOL,
+                                    predict_s={str(k): v
+                                               for k, v in times.items()})
+    if not (np.isfinite(outs[2]).all() and err <= EXEC_REL_TOL):
+        raise AssertionError(f"39g: dp 2 outputs off by {err}")
+
+
+def phase_mesh_app(torch, results):
+    """Phase 39h: the example with ``MESH=1`` (dp 1 × tp 1 over the card)
+    serves ``/generate``; ``MESH=tp:2`` fails at build with one card."""
+    from gofr_tpu_torch.examples import llama_generate
+
+    log("== phase 39h: the example's MESH: MESH=1 serves /generate, "
+        "MESH=tp:2 fails at build on one card")
+    env = dict(LLAMA_PRESET="small", MESH="1", GENERATE_SLOTS="2",
+               STEPS_PER_TICK="4")
+    with app_environment(env):
+        app = llama_generate.build_app(device="cuda")
+    body = {"prompt": "the mesh of one card", "max_new_tokens": 8}
+
+    async def main():
+        await app.start()
+        try:
+            return await http_call(app.bound_http_port, "POST", "/generate",
+                                   body)
+        finally:
+            await app.stop()
+    status, _, payload = asyncio.run(main())
+    tokens = json.loads(payload)["data"]["tokens"] if status == 201 else []
+    mesh = app.engine.stats()["mesh"]
+    with app_environment(dict(env, MESH="tp:2")):
+        try:
+            llama_generate.build_app(device="cuda")
+            refused = None
+        except ValueError as err:
+            refused = str(err)
+    log(f"39h: MESH=1 -> mesh {mesh}, POST /generate {status}, "
+        f"{len(tokens)} tokens; MESH=tp:2 refused at build: {refused!r}")
+    results["mesh_app"] = dict(status=status, tokens=len(tokens), mesh=mesh,
+                               refused=refused)
+    del app
+    torch.cuda.empty_cache()
+    if status != 201 or len(tokens) != 8 or mesh != {"dp": 1, "tp": 1} \
+            or not refused or "needs 2 devices" not in refused:
+        raise AssertionError("39h: the example's MESH knob misbehaved")
+
+
+def phase_mesh_dist(torch, results):
+    """Phase 39i: ``initialize_distributed`` at world size 1 over NCCL
+    (one all-reduce), then ``dcn_check``'s two processes on the card,
+    reporting the backend that served; then the distinct-card route
+    (39-multicard) when there are several cards."""
+    from gofr_tpu_torch.parallel import collectives, multihost
+    from gofr_tpu_torch.parallel.dcn_check import (_free_port,
+                                                   run_two_process_check)
+
+    import torch.distributed as dist
+
+    log("== phase 39i: initialize_distributed at world size 1 (NCCL), "
+        "dcn_check's two processes on the card")
+    saved = {k: os.environ.get(k) for k in (
+        "JAX_COORDINATOR", "JAX_NUM_PROCESSES", "JAX_PROCESS_ID")}
+    os.environ.update(JAX_COORDINATOR=f"127.0.0.1:{_free_port()}",
+                      JAX_NUM_PROCESSES="1", JAX_PROCESS_ID="0")
+    try:
+        started = multihost.initialize_distributed()
+        x = torch.arange(4, dtype=torch.float32, device="cuda")
+        dist.all_reduce(x)
+        backend = dist.get_backend()
+        info = multihost.process_info()
+        dist.destroy_process_group()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    log(f"39i: started {started}, backend {backend}, all_reduce "
+        f"{x.tolist()}, process_info {info}")
+    reports = run_two_process_check(local_devices=2, timeout=300,
+                                    device="cuda", backend="gloo")
+    for r in reports:
+        log(f"39i dcn_check: {json.dumps(r)}")
+    results["mesh_dist"] = dict(world1_backend=backend, process_info=info,
+                                dcn=reports)
+    if not started or backend != "nccl" or x.tolist() != [0, 1, 2, 3] \
+            or not all(r["ok"] for r in reports):
+        raise AssertionError("39i: the distributed runtime misbehaved")
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(json.dumps({"phase": "39-multicard", "skipped": "1 card"}),
+              flush=True)
+        results["mesh_multicard"] = {"skipped": "1 card"}
+        return
+    log(f"== phase 39-multicard: collectives across {n} cards (peer copies)")
+    devs = [torch.device("cuda", i) for i in range(n)]
+    parts = [torch.full((1024,), float(i + 1), device=d)
+             for i, d in enumerate(devs)]
+    summed = collectives.all_reduce(parts, devs)
+    gathered = collectives.all_gather(parts, devs, dim=0)
+    moved = collectives.ppermute(parts, devs)
+    total = float(sum(range(1, n + 1)))
+    ok = all(t.device == d and bool((t == total).all())
+             for t, d in zip(summed, devs)) \
+        and all(t.shape[0] == 1024 * n for t in gathered) \
+        and all(float(m[0]) == float((i - 1) % n + 1)
+                for i, m in enumerate(moved))
+    results["mesh_multicard"] = dict(cards=n, ok=ok)
+    log(f"39-multicard: all_reduce, all_gather, ppermute over {n} cards: "
+        f"{ok}")
+    if not ok:
+        raise AssertionError("39-multicard: a collective across cards is "
+                             "wrong")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -7811,6 +8401,11 @@ def main() -> int:
                                         cut_params, args.seed, results))
     by_path_d64.update(phase_wedge(torch, llama, generate, mods, cut_cfg,
                                    cut_params, args.seed, results))
+    # this slice: small over a mesh (39c) and its pp forward (39f)
+    by_path_d64.update(phase_mesh_small(torch, llama, generate, mods,
+                                        cut_cfg, cut_params, args.seed,
+                                        results))
+    phase_mesh_pp(torch, llama, cut_params, cut_cfg, results)
     del small_params, cut_params
     torch.cuda.empty_cache()
     # this slice: training on one card (phase 36)
@@ -7886,6 +8481,14 @@ def main() -> int:
     # this slice: the fleet control plane (phase 33 a-d)
     by_path.update(phase_fleet(torch, generate, cluster, fleet, faults, mods,
                                cfg, params, args.seed, results))
+    # this slice: serving over a device mesh (phase 39)
+    by_path.update(phase_mesh_llama3(torch, llama, generate, mods, cfg,
+                                     params, args.seed, results))
+    phase_mesh_kernels(torch, mods, results)
+    phase_mesh_ring(torch, llama, results)
+    phase_mesh_executor(torch, executor, resnet, args.seed, results)
+    phase_mesh_app(torch, results)
+    phase_mesh_dist(torch, results)
     # launches on the main paths: each run counted from 0, llama3-8b's
     # (head_dim 128) and the small preset's (head_dim 64) apart
     counts = {name: sum(run[name] for run in by_path.values())

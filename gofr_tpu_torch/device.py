@@ -7,9 +7,20 @@ the CPU by itself.
 
 from __future__ import annotations
 
-from typing import Union
+from typing import List, Union
 
 import torch
+
+
+def devices() -> List[torch.device]:
+    """The visible CUDA devices, in index order (``jax.devices()``'s
+    counterpart); raises RuntimeError without CUDA, as the entry points
+    do."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "gofr_tpu_torch: CUDA is not available; pass CPU devices "
+            "(torch.device('cpu')) to build a mesh on the CPU")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
 def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:

@@ -37,8 +37,16 @@ The environment knobs and engine arguments are the JAX example's
 
 - the model prefills through the flash-attention kernel (``use_flash``)
   and decodes through the ragged kernel, as the port's engine does;
-- ``MESH`` / ``TPU_MESH`` other than off raise ``ValueError`` at build:
-  sharding is not ported yet (ROADMAP.md §1);
+- ``MESH`` / ``TPU_MESH`` (JAX's forms: ``tp:2``, ``dp:2,tp:4``, a bare
+  ``8``, ``auto``, ``off``) lay the llama engines and the shared page
+  pool over ``parallel/mesh.device_mesh``: the visible cards, or on the
+  CPU as many CPU devices as the spec needs; a mesh needing more cards
+  than there are raises JAX's "needs N devices, have M" at build. A
+  card engine's shards share one card (``tpu/generate._MeshPlan``), so
+  on the card these knobs serve ``{dp: 1, tp: 1}`` only, and a mesh over
+  distinct cards is refused at build. For the same reason JAX's default
+  for the 7B-class presets, tp over every device where there are
+  several, is not taken: with no knob they serve unsharded;
 - where ``grpcio`` is not installed the gRPC routes are not registered,
   and the app logs at start that gRPC is off;
 - warm-up runs in ``on_startup``, before the server binds, and takes
@@ -66,8 +74,6 @@ from gofr_tpu_torch.http.errors import HTTPError
 from gofr_tpu_torch.http.response import FileResponse, Stream
 from gofr_tpu_torch.tokenizer import Tokenizer
 
-ROADMAP_ENTRY = "ROADMAP.md §1"
-
 
 class BadRequest(HTTPError):
     status_code = 400
@@ -81,15 +87,17 @@ class HandoffGone(HTTPError):
     status_code = 410
 
 
-def refused_knobs(config) -> None:
-    """Raise ``ValueError`` for a knob whose module is not ported yet."""
+def mesh_from_config(config, device):
+    """The mesh of ``MESH`` / ``TPU_MESH`` for an engine on ``device``
+    (JAX's example): off or unset is no mesh."""
+    from gofr_tpu_torch.parallel import parse_mesh_spec
+    from gofr_tpu_torch.parallel.mesh import device_mesh
     mesh_spec = (os.environ.get("MESH") or config.get("TPU_MESH")
                  or "").strip()
-    if mesh_spec and mesh_spec.lower() != "off":
-        raise ValueError(
-            f"MESH/TPU_MESH={mesh_spec!r}: sharding over a device mesh is not "
-            f"ported (the parallel/ package, {ROADMAP_ENTRY}); the port "
-            f"serves one card (leave it unset or off)")
+    if mesh_spec.lower() == "off":
+        return None
+    axes = parse_mesh_spec(mesh_spec)
+    return device_mesh(axes, device) if axes is not None else None
 
 
 def build_app(device="cuda",
@@ -109,7 +117,6 @@ def build_app(device="cuda",
 
     dev = resolve_device(device)
     app = new_app(device=dev)
-    refused_knobs(app.config)
     if params_fn is None:
         def params_fn(module, cfg, seed):
             return module.init(cfg, seed, device=dev)
@@ -131,6 +138,7 @@ def build_app(device="cuda",
     draft_preset = os.environ.get("GENERATE_DRAFT_MODEL")
     spec_gamma = int(os.environ.get("GENERATE_SPEC_GAMMA", "4"))
     default_preset = os.environ.get("LLAMA_PRESET", "small")
+    mesh = mesh_from_config(app.config, dev)
 
     def model_config(preset):
         """``moe``/``moe-<preset>`` → the MoE variant, anything else a llama
@@ -152,7 +160,7 @@ def build_app(device="cuda",
             draft_cfg = llama.config(draft_preset, vocab_size=256)
             draft_params = params_fn(llama, draft_cfg, seed + 1)
         return GenerationEngine(
-            cfg, params, mesh=None,
+            cfg, params, mesh=mesh if module is llama else None,
             max_slots=int(os.environ.get("GENERATE_SLOTS", "8")),
             max_len=min(cfg.max_seq_len, 1024),
             # fused decode steps a tick (one host round trip)
@@ -208,7 +216,7 @@ def build_app(device="cuda",
             # co-resident llama engines share one page pool
             _, pool_cfg = model_config(parsed[0][1])
             shared_pool = PagePool(
-                pool_cfg, page=kv_page, device=dev,
+                pool_cfg, page=kv_page, device=dev, mesh=mesh,
                 budget_bytes=int(os.environ.get(
                     "GENERATE_KV_POOL_BYTES", str(256 << 20))),
                 metrics=app.container.metrics)

@@ -43,7 +43,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -61,6 +61,7 @@ from gofr_tpu_torch.ops.cuda.ragged_paged_attention import (
 from gofr_tpu_torch.ops.norms import rms_norm
 from gofr_tpu_torch.ops.quant import qmm, quantize_kv, quantize_tree
 from gofr_tpu_torch.ops.rotary import apply_rope, rope_table
+from gofr_tpu_torch.parallel.collectives import Group
 
 Params = Dict[str, Any]
 
@@ -284,10 +285,12 @@ def _layer(params: Params, i: int) -> Dict[str, Any]:
 
 
 def _qkv(layer, x, cfg, cos, sin, positions):
+    # the head counts are the weights' widths over head_dim: a tp rank's
+    # column slice holds n_heads / tp and n_kv_heads / tp heads
     b, s, _ = x.shape
-    q = qmm(x, layer["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = qmm(x, layer["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = qmm(x, layer["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q = qmm(x, layer["wq"]).reshape(b, s, -1, cfg.head_dim)
+    k = qmm(x, layer["wk"]).reshape(b, s, -1, cfg.head_dim)
+    v = qmm(x, layer["wv"]).reshape(b, s, -1, cfg.head_dim)
     return apply_rope(q, cos, sin, positions), \
         apply_rope(k, cos, sin, positions), v
 
@@ -334,66 +337,189 @@ def _flash_suffix(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return flash_attention(torch.cat([pad, q], dim=1), k, v)[:, prefix_len:]
 
 
-def _run_prompt(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
-                cache: Optional[Dict[str, torch.Tensor]] = None,
-                prefix: Optional[Dict[str, torch.Tensor]] = None,
-                prefix_len: int = 0, ffn=None) -> torch.Tensor:
+class TPShards(list):
+    """A tensor-parallel group's params: rank r's tree of plain tensors
+    (its column and row slices of ``parallel/sharding.
+    llama_param_specs``, on its device) at index r, and ``group`` the
+    collectives between the ranks (``parallel/collectives.Group``).
+    Every step of this module takes it in the params' place; the caches
+    and pools it reads are then lists of the ranks' trees (rank r's
+    kv heads ``[r * Hkv / tp, (r + 1) * Hkv / tp)``)."""
+
+    def __init__(self, ranks: Sequence[Params], group):
+        super().__init__(ranks)
+        self.group = group
+
+
+def _ranks(params) -> Tuple[Any, List[Params]]:
+    """(the collectives, the ranks' params): a group of one rank for a
+    plain tree, whose collectives hand its one part back unchanged."""
+    if isinstance(params, TPShards):
+        return params.group, list(params)
+    return Group([params["tok_emb"].device]), [params]
+
+
+def rank_trees(tree, n: int = 1) -> list:
+    """A cache, pool or prefix as the ranks' trees: a plain tree is the
+    one rank's, None every rank's."""
+    if tree is None:
+        return [None] * n
+    return [tree] if isinstance(tree, dict) else list(tree)
+
+
+def rank_config(cfg: LlamaConfig, tp: int) -> LlamaConfig:
+    """One of ``tp`` ranks' geometry: n_heads, n_kv_heads, dim and
+    ffn_dim divided by ``tp``, so head_dim is the model's. For the KV
+    shapes a rank holds (``init_cache``, page bytes) and the kernels'
+    refusals; the layers take their widths from the weights."""
+    if tp == 1:
+        return cfg
+    return dataclasses.replace(cfg, n_heads=cfg.n_heads // tp,
+                               n_kv_heads=cfg.n_kv_heads // tp,
+                               dim=cfg.dim // tp, ffn_dim=cfg.ffn_dim // tp)
+
+
+def _rank_ropes(cfg: LlamaConfig, xs: List[torch.Tensor],
+                positions: torch.Tensor) -> List[Tuple[torch.Tensor, ...]]:
+    """(cos, sin, positions) on each rank's device, made once a device."""
+    made: Dict[str, Tuple[torch.Tensor, ...]] = {}
+    out = []
+    for x in xs:
+        key = str(x.device)
+        if key not in made:
+            made[key] = _rope(cfg, x.device) + (positions.to(x.device),)
+        out.append(made[key])
+    return out
+
+
+def _embed(group, ranks: List[Params],
+           tokens: torch.Tensor) -> List[torch.Tensor]:
+    """The (replicated) embedding rows of ``tokens`` on each rank."""
+    return [p["tok_emb"][t] for p, t in zip(ranks, group.broadcast(tokens))]
+
+
+def _stack(group, ranks: List[Params], xs: List[torch.Tensor],
+           cfg: LlamaConfig, attend, ffn=None) -> List[torch.Tensor]:
+    """The layer stack over a tp group (one rank unsharded): at each
+    layer, each rank's attention over its heads (``attend(r, i, layer,
+    h)`` → (B, S, Hq_r·D), writing the rank's K/V), its rows of ``wo``,
+    one all-reduce; then each rank's FFN slice (``ffn(layer, h)``, the
+    dense FFN by default) and one all-reduce. ``xs`` is the residual
+    stream on each rank's device; returns it after the last layer."""
+    ffn = ffn or _ffn
+    for i in range(cfg.n_layers):
+        layers = [_layer(p, i) for p in ranks]
+        parts = [qmm(attend(r, i, layer,
+                            rms_norm(xs[r], layer["attn_norm"],
+                                     cfg.norm_eps)), layer["wo"])
+                 for r, layer in enumerate(layers)]
+        xs = [x + y for x, y in zip(xs, group.all_reduce(parts))]
+        parts = [ffn(layer, rms_norm(xs[r], layer["ffn_norm"],
+                                     cfg.norm_eps))
+                 for r, layer in enumerate(layers)]
+        xs = [x + y for x, y in zip(xs, group.all_reduce(parts))]
+    return xs
+
+
+def _logits(group, ranks: List[Params], xs: List[torch.Tensor],
+            cfg: LlamaConfig) -> torch.Tensor:
+    """float32 logits of the final hidden rows: each rank's vocab slice
+    of ``lm_head``, gathered along the vocab (on rank 0's device)."""
+    parts = [qmm(rms_norm(x, p["out_norm"], cfg.norm_eps),
+                 p["lm_head"]).float() for x, p in zip(xs, ranks)]
+    return group.all_gather(parts, dim=-1)[0]
+
+
+def _prompt_stack(params, cfg: LlamaConfig, tokens: torch.Tensor,
+                  cache=None, prefix=None, prefix_len: int = 0, ffn=None,
+                  attend_fn=None):
     """The layer stack over a whole prompt (causal attention from 0), or
     with ``prefix`` over a suffix at positions ``prefix_len + i`` that
-    attends the prefix's cached K/V too; returns the final hidden states
-    (B, S, D). With ``cache`` given, each layer's K/V is written into it
-    in place. ``ffn(layer, h)`` stands in for the dense FFN (the MoE
-    model's expert layer)."""
-    ffn = ffn or _ffn
+    attends the prefix's cached K/V too. With ``cache`` given, each
+    layer's K/V is written into it in place. ``ffn(layer, h)`` stands in
+    for the dense FFN (the MoE model's expert layer); ``attend_fn(q, k,
+    v)`` for the prompt's attention. Returns (the collectives, the
+    ranks' params, the final hidden states (B, S, D) on each rank)."""
+    group, ranks = _ranks(params)
+    caches = rank_trees(cache, len(ranks))
+    prefixes = rank_trees(prefix, len(ranks))
     b, s = tokens.shape
-    dev = tokens.device
-    cos, sin = _rope(cfg, dev)
-    positions = (prefix_len + torch.arange(s, device=dev)).expand(b, s)
-    attend = flash_attention if cfg.use_flash else prefill_attention
-    x = params["tok_emb"][tokens]
-    for i in range(cfg.n_layers):
-        layer = _layer(params, i)
-        h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-        q, k, v = _qkv(layer, h, cfg, cos, sin, positions)
-        if prefix is None:
-            attn = attend(q, k, v)
+    positions = (prefix_len + torch.arange(s, device=tokens.device)
+                 ).expand(b, s)
+    if attend_fn is None:
+        attend_fn = flash_attention if cfg.use_flash else prefill_attention
+    xs = _embed(group, ranks, tokens)
+    ropes = _rank_ropes(cfg, xs, positions)
+
+    def attend(r, i, layer, h):
+        cos, sin, pos = ropes[r]
+        q, k, v = _qkv(layer, h, cfg, cos, sin, pos)
+        if prefixes[r] is None:
+            attn = attend_fn(q, k, v)
         else:
-            pk, pv = _prefix_kv(cfg, prefix, i)
+            pk, pv = _prefix_kv(cfg, prefixes[r], i)
             suffix_attend = _flash_suffix if cfg.use_flash \
                 else prefix_prefill_attention
             attn = suffix_attend(q, torch.cat([pk, k], dim=1),
                                  torch.cat([pv, v], dim=1), prefix_len)
-        x = x + qmm(attn.reshape(b, s, -1), layer["wo"])
-        h = rms_norm(x, layer["ffn_norm"], cfg.norm_eps)
-        x = x + ffn(layer, h)
-        if cache is not None:
+        if caches[r] is not None:
             for name, rows in _kv_rows(cfg, k, v).items():
-                cache[name][i, :, :s] = rows
-    return x
+                caches[r][name][i, :, :s] = rows
+        return attn.reshape(b, s, -1)
+
+    return group, ranks, _stack(group, ranks, xs, cfg, attend, ffn)
+
+
+def _run_prompt(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
+                cache: Optional[Dict[str, torch.Tensor]] = None,
+                prefix: Optional[Dict[str, torch.Tensor]] = None,
+                prefix_len: int = 0, ffn=None) -> torch.Tensor:
+    """:func:`_prompt_stack`'s final hidden states (B, S, D) of an
+    unsharded model."""
+    return _prompt_stack(params, cfg, tokens, cache, prefix, prefix_len,
+                         ffn)[2][0]
 
 
 def forward(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
-            mesh=None) -> torch.Tensor:
+            mesh=None, sp_axis: str = "sp", dp_axis: str = "dp",
+            tp_axis: str = "tp") -> torch.Tensor:
     """Full causal forward → logits (B, S, V) in float32: the training and
     eval path. Attention is the plain causal ``prefill_attention``, which
     autograd differentiates, or with ``cfg.use_flash`` the flash kernel
     wrapper (forward only on the card: the kernel refuses a gradient).
-    ``mesh`` (JAX's ring attention over a sequence-parallel axis) raises
-    ValueError: ``parallel/`` is not ported."""
+    With ``mesh`` given (long-context sequence parallelism), attention
+    runs as ring attention over the ``sp_axis`` ring
+    (``parallel/ring_attention``), its batch on ``dp_axis`` and heads on
+    ``tp_axis`` where the mesh has them. ``params`` may be a
+    :class:`TPShards` (the tensor-parallel forward)."""
+    attend_fn = None
     if mesh is not None:
-        raise ValueError("llama.forward: mesh= (ring attention) is not "
-                         "ported; the port runs on one device")
-    x = rms_norm(_run_prompt(params, cfg, tokens), params["out_norm"],
-                 cfg.norm_eps)
-    return qmm(x, params["lm_head"]).float()
+        from gofr_tpu_torch.parallel.mesh import Mesh
+        from gofr_tpu_torch.parallel.ring_attention import ring_attention
+        if not isinstance(mesh, Mesh):
+            raise ValueError(f"llama.forward: mesh must be a gofr_tpu_torch."
+                             f"parallel.mesh.Mesh, got {type(mesh).__name__}")
+
+        def attend_fn(q, k, v):
+            return ring_attention(
+                q, k, v, mesh, axis_name=sp_axis,
+                batch_axis=dp_axis if dp_axis in mesh.shape else None,
+                head_axis=tp_axis if tp_axis in mesh.shape else None)
+    group, ranks, xs = _prompt_stack(params, cfg, tokens,
+                                     attend_fn=attend_fn)
+    return _logits(group, ranks, xs, cfg)
 
 
 def loss_fn(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
             targets: torch.Tensor, mesh=None) -> torch.Tensor:
     """Next-token cross-entropy: the mean over (B, S) of the negative
     log-likelihood of ``targets`` under float32 ``log_softmax`` of
-    :func:`forward`'s logits (JAX ``loss_fn``), a float32 scalar."""
-    return mean_nll(forward(params, cfg, tokens, mesh=mesh), targets)
+    :func:`forward`'s logits (JAX ``loss_fn``), a float32 scalar.
+    ``mesh`` raises ValueError: training over a mesh is not ported."""
+    if mesh is not None:
+        raise ValueError("llama.loss_fn: mesh= (training over a mesh) is "
+                         "not ported; the port trains on one device")
+    return mean_nll(forward(params, cfg, tokens), targets)
 
 
 def mean_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -433,6 +559,9 @@ def prefill(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
     ``cfg.use_flash``), whose last bits differ from its flash prefill's.
     With an int8 prefix the logits drift from a full prefill's by the
     quantisation (JAX's contract: token identity holds for bf16 caches).
+
+    With :class:`TPShards` params, ``cache`` and ``prefix`` are the
+    ranks' trees (each rank's kv heads) and the logits are rank 0's.
     """
     return _prefill(params, cfg, tokens, cache, lengths, prefix, prefix_len)
 
@@ -446,17 +575,18 @@ def _prefill(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
     """:func:`prefill` with ``ffn(layer, h)`` in the dense FFN's place."""
     b, s = tokens.shape
     dev = tokens.device
-    x = _run_prompt(params, cfg, tokens, cache, prefix, prefix_len, ffn)
+    group, ranks, xs = _prompt_stack(params, cfg, tokens, cache, prefix,
+                                     prefix_len, ffn)
     if lengths is None:
-        last = x[:, -1]
+        lasts = [x[:, -1] for x in xs]
         cache_len = torch.full((b,), prefix_len + s, dtype=torch.int32,
                                device=dev)
     else:
         lengths = lengths.to(dev)
-        last = x[torch.arange(b, device=dev), lengths.long() - 1]
+        lasts = [x[torch.arange(b, device=x.device),
+                   lengths.long().to(x.device) - 1] for x in xs]
         cache_len = (prefix_len + lengths).to(torch.int32)
-    last = rms_norm(last, params["out_norm"], cfg.norm_eps)
-    return qmm(last, params["lm_head"]).float(), cache, cache_len
+    return _logits(group, ranks, lasts, cfg), cache, cache_len
 
 
 def decode_step_paged(params: Params, cfg: LlamaConfig, token: torch.Tensor,
@@ -490,40 +620,44 @@ def decode_step_paged(params: Params, cfg: LlamaConfig, token: torch.Tensor,
     paged_decode_attention``: each slot's pages gathered into a dense
     view, then dense attention; JAX ``ragged=False``), over whatever
     table width the caller passes. The port's default is the ragged
-    route.
+    route. With :class:`TPShards` params ``pool`` is the ranks' trees:
+    each rank attends its kv heads through one page table.
     """
+    group, ranks = _ranks(params)
+    pools = rank_trees(pool, len(ranks))
     b = token.shape[0]
-    dev = token.device
-    cos, sin = _rope(cfg, dev)
-    positions = cache_len.long()[:, None]
-    num_pages, page = pool["k"].shape[1] - 1, pool["k"].shape[2]
-    attend = ragged_paged_decode_attention if ragged \
+    num_pages, page = pools[0]["k"].shape[1] - 1, pools[0]["k"].shape[2]
+    attend_fn = ragged_paged_decode_attention if ragged \
         else paged_decode_attention
     # the append destination is the same for every layer: hoist it.
     # take_along_axis(mode="clip") in JAX: clamp the column explicitly
     page_col = (cache_len.long() // page).clamp(0, page_table.shape[1] - 1)
     page_row = page_table.long().gather(1, page_col[:, None])[:, 0]
     keep = active & (page_row < num_pages)
-    dest_row = torch.where(keep, page_row, num_pages)
-    dest_off = torch.where(keep, cache_len.long() % page, 0)
-    x = params["tok_emb"][token][:, None, :]              # (B, 1, D)
-    for i in range(cfg.n_layers):
-        layer = _layer(params, i)
-        h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-        q, k, v = _qkv(layer, h, cfg, cos, sin, positions)
+    dest = (torch.where(keep, page_row, num_pages),
+            torch.where(keep, cache_len.long() % page, 0))
+    xs = [e[:, None, :] for e in _embed(group, ranks, token)]  # (B, 1, D)
+    ropes = _rank_ropes(cfg, xs, cache_len.long()[:, None])
+    per = [(table, lens, row, off) for table, lens, row, off in zip(
+        group.broadcast(page_table), group.broadcast(cache_len),
+        *(group.broadcast(t) for t in dest))]
+
+    def attend(r, i, layer, h):
+        cos, sin, pos = ropes[r]
+        table, lens, dest_row, dest_off = per[r]
+        p = pools[r]
+        q, k, v = _qkv(layer, h, cfg, cos, sin, pos)
         k_new, v_new = k[:, 0].contiguous(), v[:, 0].contiguous()
-        attn = attend(
-            q.contiguous(), pool["k"][i][:num_pages],
-            pool["v"][i][:num_pages], page_table, k_new, v_new, cache_len,
-            *_scale_planes(cfg, pool, i, num_pages))
-        x = x + qmm(attn.reshape(b, 1, -1), layer["wo"])
-        h = rms_norm(x, layer["ffn_norm"], cfg.norm_eps)
-        x = x + _ffn(layer, h)
+        attn = attend_fn(
+            q.contiguous(), p["k"][i][:num_pages], p["v"][i][:num_pages],
+            table, k_new, v_new, lens, *_scale_planes(cfg, p, i, num_pages))
         # in-place append into the shared pool (dropped rows: scratch)
         for name, rows in _kv_rows(cfg, k_new, v_new).items():
-            pool[name][i][dest_row, dest_off] = rows
-    x = rms_norm(x[:, 0], params["out_norm"], cfg.norm_eps)
-    logits = qmm(x, params["lm_head"]).float()
+            p[name][i][dest_row, dest_off] = rows
+        return attn.reshape(b, 1, -1)
+
+    xs = _stack(group, ranks, xs, cfg, attend)
+    logits = _logits(group, ranks, [x[:, 0] for x in xs], cfg)
     return logits, pool, cache_len + 1
 
 
@@ -547,7 +681,8 @@ def decode_step(params: Params, cfg: LlamaConfig, token: torch.Tensor,
     scales under ``cfg.kv_int8``) is then written in place at
     ``cache_len`` in the full cache, never the window; a row whose
     position is past the cache writes nothing (:func:`_dense_write`).
-    Returns (logits (B, V) f32, cache, cache_len + 1).
+    Returns (logits (B, V) f32, cache, cache_len + 1). With
+    :class:`TPShards` params ``cache`` is the ranks' trees.
     """
     return _decode(params, cfg, token, cache, cache_len, window, table)
 
@@ -559,41 +694,43 @@ def _decode(params: Params, cfg: LlamaConfig, token: torch.Tensor,
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], torch.Tensor]:
     """:func:`decode_step` with ``ffn(layer, h)`` in the dense FFN's
     place."""
-    ffn = ffn or _ffn
+    group, ranks = _ranks(params)
+    caches = rank_trees(cache, len(ranks))
     b = token.shape[0]
-    dev = token.device
-    cos, sin = _rope(cfg, dev)
-    positions = cache_len.long()[:, None]
-    t_max = cache["k"].shape[2]
+    t_max = caches[0]["k"].shape[2]
     w = window or t_max
     page = dense_page(t_max, window)
     if table is None and not cfg.use_flash_decode:
-        table = identity_table(b, t_max, window, device=dev)
+        table = identity_table(b, t_max, window, device=token.device)
+    xs = [e[:, None, :] for e in _embed(group, ranks, token)]  # (B, 1, D)
+    ropes = _rank_ropes(cfg, xs, cache_len.long()[:, None])
+    lens = group.broadcast(cache_len)
+    tables = group.broadcast(table) if table is not None \
+        else [None] * len(ranks)
     # the write destinations are the same for every layer: hoist them
-    plan = _dense_plan(cache_len, 1, t_max)
-    x = params["tok_emb"][token][:, None, :]              # (B, 1, D)
-    for i in range(cfg.n_layers):
-        layer = _layer(params, i)
-        h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-        q, k, v = _qkv(layer, h, cfg, cos, sin, positions)
+    plans = [_dense_plan(n, 1, t_max) for n in lens]
+
+    def attend(r, i, layer, h):
+        cos, sin, pos = ropes[r]
+        c = caches[r]
+        q, k, v = _qkv(layer, h, cfg, cos, sin, pos)
         k_new, v_new = k[:, 0].contiguous(), v[:, 0].contiguous()
         if cfg.use_flash_decode:
             attn = flash_decode_attention(
-                q.contiguous(), cache["k"][i][:, :w], cache["v"][i][:, :w],
-                k_new, v_new, cache_len)
+                q.contiguous(), c["k"][i][:, :w], c["v"][i][:, :w],
+                k_new, v_new, lens[r])
         else:
-            k_pages, v_pages, k_scales, v_scales = _dense_pool(cfg, cache, i,
+            k_pages, v_pages, k_scales, v_scales = _dense_pool(cfg, c, i,
                                                                page)
             attn = ragged_paged_decode_attention(
-                q.contiguous(), k_pages, v_pages, table, k_new, v_new,
-                cache_len, k_scales, v_scales)
-        x = x + qmm(attn.reshape(b, 1, -1), layer["wo"])
-        h = rms_norm(x, layer["ffn_norm"], cfg.norm_eps)
-        x = x + ffn(layer, h)
+                q.contiguous(), k_pages, v_pages, tables[r], k_new, v_new,
+                lens[r], k_scales, v_scales)
         for name, rows in _kv_rows(cfg, k_new, v_new).items():
-            _dense_write(cache[name][i], rows[:, None], plan)
-    x = rms_norm(x[:, 0], params["out_norm"], cfg.norm_eps)
-    logits = qmm(x, params["lm_head"]).float()
+            _dense_write(c[name][i], rows[:, None], plans[r])
+        return attn.reshape(b, 1, -1)
+
+    xs = _stack(group, ranks, xs, cfg, attend, ffn)
+    logits = _logits(group, ranks, [x[:, 0] for x in xs], cfg)
     return logits, cache, cache_len + 1
 
 
@@ -625,10 +762,8 @@ def verify_step(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
     if table is None:
         table = identity_table(b, t_max, window, device=dev)
     plan = _dense_plan(cache_len, g_len, t_max)
-    x = params["tok_emb"][tokens]                         # (B, G, D)
-    for i in range(cfg.n_layers):
-        layer = _layer(params, i)
-        h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+
+    def attend(r, i, layer, h):
         q, k, v = _qkv(layer, h, cfg, cos, sin, positions)
         k, v = k.contiguous(), v.contiguous()
         k_pages, v_pages, k_scales, v_scales = _dense_pool(cfg, cache, i,
@@ -636,13 +771,13 @@ def verify_step(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
         attn = ragged_paged_verify_attention(
             q.contiguous(), k_pages, v_pages, table, k, v, cache_len,
             k_scales, v_scales)
-        x = x + qmm(attn.reshape(b, g_len, -1), layer["wo"])
-        h = rms_norm(x, layer["ffn_norm"], cfg.norm_eps)
-        x = x + _ffn(layer, h)
         for name, rows in _kv_rows(cfg, k, v).items():
             _dense_write(cache[name][i], rows, plan)
-    x = rms_norm(x, params["out_norm"], cfg.norm_eps)
-    return qmm(x, params["lm_head"]).float(), cache
+        return attn.reshape(b, g_len, -1)
+
+    group, ranks = _ranks(params)
+    xs = _stack(group, ranks, [params["tok_emb"][tokens]], cfg, attend)
+    return _logits(group, ranks, xs, cfg), cache
 
 
 def verify_step_paged(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
@@ -674,7 +809,7 @@ def verify_step_paged(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
     positions = cache_len.long()[:, None] \
         + torch.arange(g_len, device=dev)[None, :]          # (B, G)
     num_pages, page = pool["k"].shape[1] - 1, pool["k"].shape[2]
-    attend = ragged_paged_verify_attention if ragged \
+    attend_fn = ragged_paged_verify_attention if ragged \
         else paged_verify_attention
     width = page_table.shape[1]
     # the write destinations are the same for every layer: hoist them
@@ -683,23 +818,21 @@ def verify_step_paged(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
     keep = active[:, None] & (page_col < width) & (page_row < num_pages)
     dest_row = torch.where(keep, page_row, num_pages)
     dest_off = torch.where(keep, positions % page, 0)
-    x = params["tok_emb"][tokens]                         # (B, G, D)
-    for i in range(cfg.n_layers):
-        layer = _layer(params, i)
-        h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+
+    def attend(r, i, layer, h):
         q, k, v = _qkv(layer, h, cfg, cos, sin, positions)
         k, v = k.contiguous(), v.contiguous()
-        attn = attend(
+        attn = attend_fn(
             q.contiguous(), pool["k"][i][:num_pages],
             pool["v"][i][:num_pages], page_table, k, v, cache_len,
             *_scale_planes(cfg, pool, i, num_pages))
-        x = x + qmm(attn.reshape(b, g_len, -1), layer["wo"])
-        h = rms_norm(x, layer["ffn_norm"], cfg.norm_eps)
-        x = x + _ffn(layer, h)
         for name, rows in _kv_rows(cfg, k, v).items():
             pool[name][i][dest_row, dest_off] = rows
-    x = rms_norm(x, params["out_norm"], cfg.norm_eps)
-    return qmm(x, params["lm_head"]).float(), pool
+        return attn.reshape(b, g_len, -1)
+
+    group, ranks = _ranks(params)
+    xs = _stack(group, ranks, [params["tok_emb"][tokens]], cfg, attend)
+    return _logits(group, ranks, xs, cfg), pool
 
 
 def generate(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,

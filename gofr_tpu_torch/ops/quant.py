@@ -70,6 +70,33 @@ def quantize_tree(params: Any, keys=QUANT_KEYS) -> Any:
     return walk(params)
 
 
+def quantized_specs(specs: Any, params: Any) -> Any:
+    """Mirror ``quantize_tree`` over a PartitionSpec tree
+    (``parallel/sharding.P``): wherever ``params`` carries a quant dict,
+    expand the weight's spec into ``{"q": original, "s": original with
+    the in-features axis dropped}`` (the scale's in-dim is size 1 and
+    must not be sharded)."""
+    from gofr_tpu_torch.parallel.sharding import P
+
+    def expand(spec, param):
+        if is_quantized(param):
+            ndim = param["q"].ndim
+            axes = tuple(spec) + (None,) * (ndim - len(tuple(spec)))
+            s_axes = axes[:-2] + (None, axes[-1])
+            return {"q": P(*axes), "s": P(*s_axes)}
+        if isinstance(param, dict):
+            return {k: expand(spec[k] if isinstance(spec, dict) else spec,
+                              param[k])
+                    for k in param}
+        if isinstance(param, (list, tuple)):
+            sub = spec if isinstance(spec, (list, tuple)) \
+                and not isinstance(spec, P) else [spec] * len(param)
+            return type(param)(expand(sp, pa) for sp, pa in zip(sub, param))
+        return spec
+
+    return expand(specs, params)
+
+
 def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-vector int8 quantisation of KV rows: ``(..., D) ->
     (int8 (..., D), float32 scale (...,))`` with ``x ≈ q * scale``.

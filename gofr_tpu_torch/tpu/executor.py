@@ -171,6 +171,8 @@ class _Model:
         self.buckets = tuple(sorted(buckets))
         self.compiled: Dict[int, _Bucket] = {}
         self.lock = threading.Lock()
+        # over a mesh: each dp row's params (None: the params serve all)
+        self.rows: Optional[List[Any]] = None
 
 
 class Executor:
@@ -184,12 +186,14 @@ class Executor:
     def __init__(self, logger, metrics, mesh=None, peak_flops: float = 0.0,
                  ledger: Optional[CompileLedger] = None,
                  recorder: Any = None, staging: bool = True,
-                 staging_depth: int = 2, device="cuda"):
-        if mesh is not None:
-            raise ValueError(
-                "mesh: sharding over a device mesh is not ported; the "
-                "executor serves one card (mesh=None)")
+                 staging_depth: int = 2, device="cuda",
+                 batch_axis: str = "dp"):
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.batch_axis = batch_axis
+        if mesh is not None:
+            from gofr_tpu_torch.parallel.mesh import check_one_card
+            check_one_card(mesh, self.device, "executor")
         self.logger = logger
         self.metrics = metrics
         self._models: Dict[str, _Model] = {}
@@ -221,9 +225,21 @@ class Executor:
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
                  param_specs: Any = None) -> None:
         """Put the weights on the device once and set up the bucket
-        ladder. ``param_specs`` shards over a mesh in JAX; with no mesh it
-        is ignored there and here."""
-        model = _Model(name, fn, _to_device(params, self.device), buckets)
+        ladder. Over a mesh (dp on ``batch_axis``) the params are held at
+        every coordinate (``param_specs``, replicated when None; a spec
+        that shards any axis is refused: an arbitrary ``fn`` cannot be
+        partitioned without GSPMD), every bucket is rounded up to a
+        multiple of dp, and a batch's rows split over the dp rows, each
+        row running ``fn`` over its rows and its params."""
+        rows = None
+        if self.mesh is not None:
+            params, rows = self._shard(params, param_specs)
+            dp = self.mesh.shape.get(self.batch_axis, 1)
+            buckets = sorted({-(-b // dp) * dp for b in buckets})
+        else:
+            params = _to_device(params, self.device)
+        model = _Model(name, fn, params, buckets)
+        model.rows = rows
         if self._stream is not None:
             # the params' writes (an init, a copy) are queued on the
             # caller's stream: every capture and replay comes after them
@@ -231,7 +247,32 @@ class Executor:
         self._models[name] = model
         if self.logger is not None:
             self.logger.info("tpu: model %s registered (buckets=%s, "
-                             "mesh=%s)", name, list(model.buckets), None)
+                             "mesh=%s)", name, list(model.buckets),
+                             dict(self.mesh.shape) if self.mesh else None)
+
+    def _shard(self, params: Any, param_specs: Any):
+        """The params over the mesh (``parallel/sharding.shard_pytree``)
+        and each dp row's tree (its first coordinate's)."""
+        from gofr_tpu_torch.parallel.sharding import (
+            local_tree, map_specs, replicated_specs, shard_pytree)
+        specs = param_specs if param_specs is not None \
+            else replicated_specs(params)
+
+        def check(_, spec):
+            if any(axis is not None for axis in spec):
+                raise ValueError(
+                    f"param_specs: {spec!r} shards a parameter; the "
+                    f"executor serves data parallelism only (params "
+                    f"replicated, the batch on {self.batch_axis!r}): an "
+                    f"arbitrary fn is not partitioned without GSPMD")
+            return spec
+        map_specs(check, params, specs)
+        sharded = shard_pytree(params, self.mesh, specs)
+        rows = [local_tree(sharded, line[0])
+                for line in self.mesh.axis_coords(self.batch_axis)] \
+            if self.batch_axis in self.mesh.shape \
+            else [local_tree(sharded, self.mesh.coords()[0])]
+        return sharded, rows
 
     def models(self) -> Sequence[str]:
         return list(self._models)
@@ -462,8 +503,17 @@ class Executor:
         return waits, tree_unflatten(out, [0] * len(leaves)), uploaded
 
     def _call(self, model: _Model, exe: _Bucket) -> Any:
-        return model.fn(model.params, tree_unflatten(exe.skeleton,
-                                                     exe.inputs))
+        if model.rows is None:
+            return model.fn(model.params, tree_unflatten(exe.skeleton,
+                                                         exe.inputs))
+        # dp over the batch axis: each row's fn over its rows
+        dp = len(model.rows)
+        n = exe.inputs[0].shape[0] // dp
+        outs = [model.fn(params, tree_unflatten(
+                    exe.skeleton, [leaf[d * n:(d + 1) * n]
+                                   for leaf in exe.inputs]))
+                for d, params in enumerate(model.rows)]
+        return tree_map(lambda *parts: torch.cat(parts), *outs)
 
     def _compile(self, model: _Model, like: Any, bucket: int, specs,
                  sources, cause: str) -> _Bucket:
@@ -635,6 +685,10 @@ class Executor:
         observed batch sizes against each model's ladder, padding waste,
         a padding-optimal suggested ladder, the executables' roofline
         table."""
+        # suggestions rounded to the dp multiple over a mesh
+        round_to = 1
+        if self.mesh is not None and self.batch_axis in self.mesh.shape:
+            round_to = self.mesh.shape[self.batch_axis]
         models: Dict[str, Any] = {}
         for name, model in self._models.items():
             observed = self.shapes.distribution(name)
@@ -646,7 +700,8 @@ class Executor:
                 "bucket_hits": {str(k): v for k, v in
                                 sorted(self.shapes.bucket_hits(name).items())},
                 "suggested_ladder": suggest_ladder(
-                    observed, max_rungs=max(len(model.buckets), max_rungs)),
+                    observed, max_rungs=max(len(model.buckets), max_rungs),
+                    round_to=round_to),
             }
         return {
             "compiles": self.ledger.snapshot(limit=recent),
@@ -696,20 +751,27 @@ class Executor:
 
 
 def new_executor(config, logger, metrics, device="cuda") -> Executor:
-    """Config-driven constructor (JAX ``new_executor``): ``TPU_PEAK_FLOPS``
-    (MFU's denominator, 0 = unknown), ``EXEC_STAGING`` (default on),
-    ``EXEC_STAGING_DEPTH`` (slabs a (model, bucket) ring). ``TPU_MESH`` is
-    refused: ``parallel/`` is not ported (ROADMAP.md §1)."""
-    if config is not None and config.get("TPU_MESH"):
-        raise ValueError(
-            "TPU_MESH: sharding over a device mesh is not ported (the "
-            "parallel/ package, ROADMAP.md §1); the executor serves one "
-            "card")
+    """Config-driven constructor (JAX ``new_executor``): mesh shape from
+    ``TPU_MESH=dp:2,tp:4`` (``parallel/mesh.device_mesh``: the visible
+    cards, or on the CPU as many CPU devices as the mesh needs), else no
+    mesh; ``TPU_PEAK_FLOPS`` (MFU's denominator,
+    0 = unknown), ``EXEC_STAGING`` (default on), ``EXEC_STAGING_DEPTH``
+    (slabs a (model, bucket) ring)."""
+    mesh = None
+    mesh_env = config.get("TPU_MESH") if config else None
+    if mesh_env:
+        from gofr_tpu_torch.parallel.mesh import device_mesh
+        axes = {}
+        for part in str(mesh_env).split(","):
+            axis, _, size = part.partition(":")
+            axes[axis.strip()] = int(size)
+        mesh = device_mesh(axes, resolve_device(device))
     peak_flops = config.get_float("TPU_PEAK_FLOPS", 0.0) if config else 0.0
     staging_env = config.get("EXEC_STAGING") if config else None
     staging = str(staging_env).strip().lower() not in (
         "0", "false", "off", "no") if staging_env is not None else True
     depth_env = config.get("EXEC_STAGING_DEPTH") if config else None
     staging_depth = int(depth_env) if depth_env else 2
-    return Executor(logger, metrics, peak_flops=peak_flops, staging=staging,
+    return Executor(logger, metrics, mesh=mesh, peak_flops=peak_flops,
+                    staging=staging,
                     staging_depth=staging_depth, device=device)

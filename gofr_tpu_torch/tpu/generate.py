@@ -168,7 +168,21 @@ or a paged pool (``paged_kv=True``).
   paged engine's table and bias) static inputs views of one device
   buffer, filled by one transfer; ``coalesce_stream`` queues a tick's
   tokens as one list. Uploads are metered (``app_tpu_h2d_*`` by path) on
-  the device thread and emitted at publish. ``mesh`` must be None.
+  the device thread and emitted at publish.
+- Over a mesh (``mesh=``, ``parallel/mesh.make_mesh``; JAX's dp × tp
+  serving): the engine is one controller over the mesh's shards. Slots
+  split over the dp rows (``max_slots`` rounded up to a multiple of dp),
+  each row's heads, FFN and vocab over its tp ranks, which run the
+  model's per-rank body with an all-reduce after ``wo`` and after
+  ``w_down`` and the vocab-sharded logits gathered
+  (``models/llama.TPShards``, ``parallel/collectives``). Params, the
+  dense cache, the page pool and the prefix store are sharded by
+  ``parallel/sharding``'s specs, one tensor a coordinate. Prefills run
+  on row 0 and insert into each row's slots; a tick runs each row over
+  its slots, and every slot samples on the controller. A card engine's
+  shards share one card (a tick is one graph); JAX's refusals (a custom
+  model module, paged KV over dp > 1, speculative decode) and the
+  port's (``_MeshPlan``) hold at construction.
 - The operating point (JAX's): ``apply_operating_point`` swaps the prompt
   buckets, ``steps_per_tick``, the γ cap, the page reserve, the class
   weights, ``slots_cap`` (admission claims no slot past it; the ticks
@@ -202,9 +216,8 @@ or a paged pool (``paged_kv=True``).
   (the dedupe ledger). ``tpu/cluster`` routes between replicas.
 
 ``tpu/fleet`` routes by prefix affinity, migrates, drains and resumes
-sessions across engines; ``tpu/autotune`` moves the operating point.
-
-Left for later slices (see ROADMAP.md): the batch lane, mesh sharding.
+sessions across engines; ``tpu/autotune`` moves the operating point;
+``tpu/batch_lane`` serves offline batches beside the engine.
 """
 
 from __future__ import annotations
@@ -227,9 +240,16 @@ from gofr_tpu_torch.ops import prng
 from gofr_tpu_torch.ops.cuda import decode_attention as decode_mod
 from gofr_tpu_torch.ops.cuda import launch_counts
 from gofr_tpu_torch.ops.cuda import ragged_paged_attention as ragged_mod
+from gofr_tpu_torch.ops.quant import quantized_specs
 from gofr_tpu_torch.ops.sampling import (filtered_log_probs_batch,
                                          greedy_accept, sample_batch,
                                          speculative_accept)
+from gofr_tpu_torch.parallel.collectives import Group
+from gofr_tpu_torch.parallel.mesh import Mesh, check_one_card
+from gofr_tpu_torch.parallel.sharding import (Sharded, assemble, is_sharded,
+                                              llama_cache_specs,
+                                              llama_param_specs, local_tree,
+                                              prune_specs, shard_pytree)
 from gofr_tpu_torch.slo import DeadlineExceeded, current_deadline
 from gofr_tpu_torch.tpu import capture, faults, kv_wire
 # the capture turn's names as the engine had them (its tests read them)
@@ -686,12 +706,121 @@ def _k_rungs(steps_per_tick: int) -> List[int]:
 
 
 def _tree_bytes(tree: Any) -> int:
-    """Bytes of the tensors of a (nested) dict; 0 for None."""
+    """Bytes of the tensors of a (nested) dict or list, a sharded leaf's
+    every shard; 0 for None."""
     if tree is None:
         return 0
     if isinstance(tree, dict):
         return sum(_tree_bytes(leaf) for leaf in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_bytes(leaf) for leaf in tree)
+    if isinstance(tree, Sharded):
+        return tree.nbytes()
     return tree.numel() * tree.element_size()
+
+
+def _sharded_leaves(tree: Any) -> List[Sharded]:
+    """Every sharded leaf of a tree."""
+    if isinstance(tree, Sharded):
+        return [tree]
+    if isinstance(tree, dict):
+        return [leaf for val in tree.values()
+                for leaf in _sharded_leaves(val)]
+    return []
+
+
+def _heads_cat(trees: Any) -> Dict[str, torch.Tensor]:
+    """The tp ranks' leaves joined along the kv-head axis (dim 3 of every
+    (L, B, T, Hkv, ...) leaf): the full leaves; a plain tree as it is."""
+    if isinstance(trees, dict):
+        return trees
+    return {name: torch.cat([tree[name] for tree in trees], dim=3)
+            for name in trees[0]}
+
+
+class _MeshPlan:
+    """The engine over a single-controller mesh (``parallel/mesh``):
+    slots split over the ``dp`` rows (row d holds slots ``[d * m, (d + 1)
+    * m)``, m = max_slots / dp), each row's heads, FFN and vocab over its
+    ``tp`` ranks. Params are sharded by ``llama_param_specs`` (int8
+    weights by ``quantized_specs``), the dense cache by
+    ``llama_cache_specs``, the page pool and the prefix store's by
+    ``llama_prefix_pool_specs`` (``parallel/sharding``); each row runs the
+    model over its ranks' trees with the all-reduces between them
+    (``models/llama.TPShards``). Prefills run on row 0 and insert into
+    the claimed slots' rows; a tick runs every row over its slots and
+    samples every slot on the controller (the first coordinate's
+    device), where the engine's slot state lives.
+
+    Refused at construction, with a ValueError naming the quantity: what
+    ``parallel/mesh.check_one_card`` refuses (not a ``Mesh``, devices of
+    another type than the engine's, distinct cards: a tick is one CUDA
+    graph on one device, so a card engine's shards share it;
+    ``xlaz()["mesh"]`` says how many distinct devices the mesh holds);
+    a mesh whose devices span processes; axes other than dp and tp
+    larger than 1; a tp that does not divide n_heads, n_kv_heads,
+    ffn_dim or vocab_size."""
+
+    def __init__(self, mesh, cfg, device: torch.device):
+        if isinstance(mesh, Mesh) and mesh.process_count > 1:
+            raise ValueError(
+                f"mesh: its devices span {mesh.process_count} processes "
+                f"(a dcn axis larger than 1); the engine drives the "
+                f"devices of its own process only")
+        check_one_card(mesh, device, "engine")
+        extra = {axis: size for axis, size in mesh.shape.items()
+                 if axis not in ("dp", "tp") and size > 1}
+        if extra:
+            raise ValueError(f"mesh: axes {extra}: the engine shards slots "
+                             f"over dp and heads over tp only")
+        self.dp = int(mesh.shape.get("dp", 1))
+        self.tp = int(mesh.shape.get("tp", 1))
+        for name in ("n_heads", "n_kv_heads", "ffn_dim", "vocab_size"):
+            value = getattr(cfg, name)
+            if value % self.tp:
+                raise ValueError(f"mesh: tp {self.tp} does not divide "
+                                 f"{name} {value}")
+        self.mesh = mesh
+        self.cfg = cfg
+        self.lines = mesh.axis_coords("tp")
+        self.groups = [Group([mesh.devices[c] for c in line])
+                       for line in self.lines]
+
+    def shard_params(self, params):
+        """``params`` sharded over the mesh (already sharded ones, a
+        shadow clone's, as they are)."""
+        if is_sharded(params):
+            return params
+        specs = prune_specs(quantized_specs(llama_param_specs(), params),
+                            self.mesh)
+        return shard_pytree(params, self.mesh, specs)
+
+    def row_params(self, sharded) -> List[Any]:
+        """Each dp row's ``TPShards``: its ranks' param trees and the
+        collectives between them."""
+        return [llama.TPShards([local_tree(sharded, c) for c in line], group)
+                for line, group in zip(self.lines, self.groups)]
+
+    def init_cache(self, slots: int, max_len: int):
+        """The dense cache sharded by ``llama_cache_specs``: each
+        coordinate's (L, slots / dp, T, Hkv / tp, D) made on its
+        device."""
+        mesh = self.mesh
+        rank_cfg = llama.rank_config(self.cfg, self.tp)
+        specs = prune_specs(llama_cache_specs(kv_int8=self.cfg.kv_int8),
+                            mesh)
+        return assemble(mesh, specs, lambda coord: llama.init_cache(
+            rank_cfg, slots // self.dp, max_len, device=mesh.devices[coord]))
+
+    def row_caches(self, cache) -> List[Any]:
+        """Each dp row's caches, its ranks' trees."""
+        return [[local_tree(cache, c) for c in line] for line in self.lines]
+
+    def small_cache(self, batch: int, length: int) -> List[Any]:
+        """A prefill's small caches on row 0's ranks."""
+        rank_cfg = llama.rank_config(self.cfg, self.tp)
+        return [llama.init_cache(rank_cfg, batch, length, device=dev)
+                for dev in self.groups[0].devices]
 
 
 def _params_to(params: Any, device: torch.device) -> Any:
@@ -704,7 +833,8 @@ class GenerationEngine:
     """The engine; its keyword arguments are the JAX engine's, in its
     order, with its defaults, meanings, checks and messages, then
     ``device`` (the card unless the caller asks for the CPU). ``mesh``
-    must be None: mesh sharding is not ported. ``model_module`` serves
+    (a ``parallel/mesh.Mesh`` of ``device``'s type) serves dp × tp
+    (:class:`_MeshPlan`). ``model_module`` serves
     any module with llama's ``init_cache`` / ``prefill`` /
     ``decode_step`` (``models/moe``), with JAX's refusals for one that is
     not llama. ``page_pool`` shares one :class:`PagePool` between paged
@@ -771,14 +901,17 @@ class GenerationEngine:
                 raise ValueError(
                     "speculative decode requires the llama model module "
                     "(the target verify step)")
-        if mesh is not None:
-            raise ValueError(
-                "mesh: sharding over a device mesh is not ported; the "
-                "engine serves one card (mesh=None)")
         self.mesh = mesh
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model_name = str(model_name)
+        # dp × tp over a single-controller mesh: slots split over dp rows,
+        # each row's heads and ffn over its tp ranks (_MeshPlan)
+        self._plan = _MeshPlan(mesh, cfg, self.device) \
+            if mesh is not None else None
+        if self._plan is not None:
+            dp = self._plan.dp
+            max_slots = -(-int(max_slots) // dp) * dp  # round up: dp-divisible
         self.max_slots = int(max_slots)
         self.max_len = int(max_len or cfg.max_seq_len)
         self.prompt_buckets = tuple(
@@ -820,6 +953,11 @@ class GenerationEngine:
                                  f"multiples of kv_page {self.kv_page} "
                                  f"(page-aligned inserts need page-aligned "
                                  f"buckets)")
+            if mesh is not None and self._plan.dp > 1:
+                raise ValueError(
+                    "paged_kv: the shared page pool cannot shard pages "
+                    "over dp (any slot may gather any page); use a "
+                    "tp-only mesh")
         self.logger = logger
         # -- telemetry hooks (JAX's, duck-typed): metrics, spans (None:
         # off), the flight recorder (always on), the SLO tracker; the
@@ -871,15 +1009,27 @@ class GenerationEngine:
             self._window_ladder = rungs + [None]
         self.spec = draft_cfg is not None and draft_params is not None
         self.spec_gamma = max(1, int(spec_gamma))
+        if self.spec and mesh is not None:
+            raise ValueError(
+                "speculative decode does not compose with a mesh yet "
+                "(the draft has no sharding specs)")
         if self.device.type == "cuda":
-            refused = cuda_refusals(cfg, self.max_len, self.kv_page,
-                                    draft_cfg if self.spec else None,
-                                    self.spec_gamma, paged_kv=self.paged)
+            # a tp rank's kernels run at its own heads: judge its geometry
+            refused = cuda_refusals(
+                llama.rank_config(cfg, self._plan.tp) if self._plan
+                else cfg, self.max_len, self.kv_page,
+                draft_cfg if self.spec else None, self.spec_gamma,
+                paged_kv=self.paged)
             if refused:
                 raise ValueError("the card's kernels refuse this "
                                  "configuration: " + "; ".join(refused))
-        self.params = _params_to(params, self.device)
         dev, n = self.device, self.max_slots
+        if self._plan is None:
+            self.params = _params_to(params, self.device)
+            self._row_params: List[Any] = [self.params]
+        else:
+            self.params = self._plan.shard_params(params)
+            self._row_params = self._plan.row_params(self.params)
         self._pool: Optional[PagePool] = None
         self.cache: Optional[Dict[str, torch.Tensor]] = None
         self._shared_pool = False
@@ -899,22 +1049,27 @@ class GenerationEngine:
                         "engine's config (layers/kv-heads/head-dim/dtype "
                         "must agree; heterogeneous models need their own "
                         "pools carved from an HBMBudget)")
+                if page_pool.mesh is not mesh:
+                    raise ValueError(
+                        "shared page_pool is laid out over another mesh "
+                        "than this engine's (engines sharing a pool share "
+                        "its mesh)")
                 self._pool = page_pool
                 self._shared_pool = True
             elif kv_pages is not None:
                 self._pool = PagePool(cfg, page=self.kv_page,
                                       num_pages=int(kv_pages), device=dev,
-                                      metrics=metrics)
+                                      mesh=mesh, metrics=metrics)
             elif kv_pool_bytes is not None:
                 self._pool = PagePool(cfg, page=self.kv_page,
                                       budget_bytes=int(kv_pool_bytes),
-                                      device=dev, metrics=metrics)
+                                      device=dev, mesh=mesh, metrics=metrics)
             else:
                 # capacity parity with the dense cache
                 self._pool = PagePool(
                     cfg, page=self.kv_page,
                     num_pages=self.max_slots * self.pages_per_slot,
-                    device=dev, metrics=metrics)
+                    device=dev, mesh=mesh, metrics=metrics)
             # pages admission must leave free for decode growth of running
             # slots
             self._kv_reserve = (int(kv_page_reserve)
@@ -931,13 +1086,21 @@ class GenerationEngine:
             self._in_pool_reset = False
             self._pool_epoch = self._pool.epoch
             self._pool.subscribe(self._on_pool_reset)
+            self._row_caches: List[Any] = []
         else:
-            self.cache = self._model.init_cache(cfg, n, self.max_len,
-                                                device=dev)
+            if self._plan is None:
+                self.cache = self._model.init_cache(cfg, n, self.max_len,
+                                                    device=dev)
+                self._row_caches = [self.cache]
+            else:
+                self.cache = self._plan.init_cache(n, self.max_len)
+                self._row_caches = self._plan.row_caches(self.cache)
             # the target reads its cache through the ragged kernels over
             # one identity page table a window rung, each contiguous at a
-            # fixed address (a captured graph holds it)
-            self._tables = {w: llama.identity_table(n, self.max_len, w,
+            # fixed address (a captured graph holds it); a dp row's table
+            # covers its own slots
+            rows = n // self._dp
+            self._tables = {w: llama.identity_table(rows, self.max_len, w,
                                                     device=dev)
                             for w in self._window_ladder}
         self._table_version = 0     # moves with the paged host table
@@ -981,7 +1144,7 @@ class GenerationEngine:
                 self._prefix = PrefixStore(
                     cfg, page=int(prefix_page),
                     budget_bytes=prefix_cache_bytes, max_pages=max_pages,
-                    pool=self._pool, device=dev)
+                    pool=self._pool, device=dev, mesh=mesh)
             elif logger is not None:
                 logger.warning(
                     "prefix cache disabled: page size %d exceeds the "
@@ -1216,14 +1379,16 @@ class GenerationEngine:
                for name, arr in _unpack(rung.ints, rung.layout).items()}
         tokens, lens = arg["tokens"], arg["lengths"]
         temps, top_ps = rung.floats[:2 * nb].view(2, nb)
-        small = self._model.init_cache(cfg, nb, bucket, device=dev)
+        small = self._model.init_cache(cfg, nb, bucket, device=dev) \
+            if self._plan is None else self._plan.small_cache(nb, bucket)
         plen, prefix, kw = 0, None, {}
         if p_rung:
             plen = p_rung * self._prefix.page
             prefix = self._prefix.gather(arg["prefix_ids"])
             kw = dict(prefix=prefix, prefix_len=plen)
-        logits, small, _ = self._model.prefill(self.params, cfg, tokens,
-                                               small, lengths=lens, **kw)
+        logits, small, _ = self._model.prefill(self._row_params[0], cfg,
+                                               tokens, small, lengths=lens,
+                                               **kw)
         if biased:
             # bf16 + float32 promotes to float32, as in JAX
             logits = logits + rung.floats[2 * nb:].view(nb, cfg.vocab_size)
@@ -1273,15 +1438,27 @@ class GenerationEngine:
         # scale planes) keeps its own trailing shape
         if self.paged:
             page = self.kv_page
-            for name, leaf in self._pool.leaves.items():
-                leaf[:, arg["page_ids"]] = small[name].reshape(
-                    cfg.n_layers, nb * (bucket // page), page,
-                    *small[name].shape[3:])
+            for leaves, rows in zip(llama.rank_trees(self._pool_leaves()),
+                                    llama.rank_trees(small)):
+                for name, leaf in leaves.items():
+                    leaf[:, arg["page_ids"]] = rows[name].reshape(
+                        cfg.n_layers, nb * (bucket // page), page,
+                        *rows[name].shape[3:])
         else:
-            for name, leaf in self.cache.items():
-                if p_rung:
-                    _insert_rows(leaf, prefix[name], row, claimed, 0)
-                _insert_rows(leaf, small[name], row, claimed, plen)
+            # each dp row's slots take their rows, into each of its ranks
+            m = self.max_slots // self._dp
+            prefixes = llama.rank_trees(prefix)
+            smalls = llama.rank_trees(small)
+            for d, caches in enumerate(self._row_caches):
+                d_row, d_claimed = row[d * m:(d + 1) * m], \
+                    claimed[d * m:(d + 1) * m]
+                for r, cache in enumerate(llama.rank_trees(caches)):
+                    for name, leaf in cache.items():
+                        if p_rung:
+                            _insert_rows(leaf, prefixes[r][name], d_row,
+                                         d_claimed, 0)
+                        _insert_rows(leaf, smalls[r][name], d_row,
+                                     d_claimed, plen)
             if "publish_ids" in arg:
                 self._prefix.publish(small, arg["publish_ids"],
                                      arg["publish_ids"].shape[0] // nb)
@@ -1323,13 +1500,12 @@ class GenerationEngine:
         for _ in range(k):
             if self.paged:
                 logits, _, new_len = llama.decode_step_paged(
-                    self.params, self.cfg, token, self._pool.leaves,
-                    self._table_view(window), cache_len, active,
-                    ragged=self._ragged)
+                    self._row_params[0], self.cfg, token,
+                    self._pool_leaves(), self._table_view(window),
+                    cache_len, active, ragged=self._ragged)
             else:
-                logits, _, new_len = self._model.decode_step(
-                    self.params, self.cfg, token, self.cache, cache_len,
-                    window=window, table=self._tables[window])
+                logits, new_len = self._dense_decode(token, cache_len,
+                                                     window)
             if biased:
                 logits = logits + self.bias
             if sampled:
@@ -1410,6 +1586,40 @@ class GenerationEngine:
         self.cache_len.copy_(torch.where(active, cache_len + accepts + 1,
                                          cache_len))
         return torch.cat([out.T, accepts[None]])
+
+    @property
+    def _dp(self) -> int:
+        """dp rows of the mesh (1 without one)."""
+        return self._plan.dp if self._plan is not None else 1
+
+    def _pool_leaves(self):
+        """What the paged steps read and write: the pool's leaves, or over
+        a mesh its tp ranks' (a list)."""
+        return self._pool.leaves if self._plan is None \
+            else self._pool.ranks()
+
+    def _dense_decode(self, token: torch.Tensor, cache_len: torch.Tensor,
+                      window: Optional[int]
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One dense decode step of every slot: the model module's
+        ``decode_step`` over the window rung and its identity table, each
+        dp row over its own slots and caches (its tp ranks'), the rows'
+        logits and lengths joined in slot order. Returns (logits (B, V),
+        cache_len + 1)."""
+        if self._dp == 1:
+            logits, _, new_len = self._model.decode_step(
+                self._row_params[0], self.cfg, token, self._row_caches[0],
+                cache_len, window=window, table=self._tables[window])
+            return logits, new_len
+        m = self.max_slots // self._dp
+        outs = [self._model.decode_step(
+                    params, self.cfg, token[d * m:(d + 1) * m], caches,
+                    cache_len[d * m:(d + 1) * m], window=window,
+                    table=self._tables[window])
+                for d, (params, caches) in enumerate(zip(self._row_params,
+                                                         self._row_caches))]
+        return torch.cat([out[0] for out in outs]), \
+            torch.cat([out[2] for out in outs])
 
     def _table_view(self, window: Optional[int]) -> torch.Tensor:
         """The paged ticks' page table: whole with the ragged route, else
@@ -1512,6 +1722,7 @@ class GenerationEngine:
         keys (nb, 2) and row 0 of each small-cache leaf (L, bucket, ...),
         contiguous, in the wire's leaf order."""
         _, small, first, keys, _, _ = self._prefill_forward(rung)
+        small = _heads_cat(small)
         names = kv_wire.leaf_names(kv_wire.codec_for_cfg(self.cfg))
         return [first, keys] + [small[name][:, 0].contiguous()
                                 for name in names]
@@ -1601,10 +1812,20 @@ class GenerationEngine:
             buf[off:off + part.nbytes].view(dtype) for off, part, dtype in
             zip(offsets, parts, (torch.int64, torch.int64, torch.float32)))
         for name, part, off in zip(names, parts[3:], offsets[3:]):
-            leaf = self._pool.leaves[name]
             src = buf[off:off + part.nbytes].view(
                 _torch_dtype(part, payload)).view(part.shape)
-            leaf.index_copy_(1, idx, src.to(leaf.dtype))
+            if self._plan is None:
+                leaf = self._pool.leaves[name]
+                leaf.index_copy_(1, idx, src.to(leaf.dtype))
+                continue
+            # over a mesh each tp rank takes its kv heads
+            at = 0
+            for leaves in self._pool.ranks():
+                leaf = leaves[name]
+                h = leaf.shape[3]
+                leaf.index_copy_(1, idx, src[:, :, :, at:at + h].to(
+                    leaf.dtype))
+                at += h
         # the slot's rows, copied on the device from the upload (a
         # host scalar written into a device tensor would sync)
         one = slice(slot_idx, slot_idx + 1)
@@ -1626,8 +1847,14 @@ class GenerationEngine:
         buf, _ = self._staging.upload_parts([np.asarray(ids, np.int64)],
                                             path="kv")
         idx = buf.view(torch.int64)
-        outs = [self._pool.leaves[name].index_select(1, idx)
-                for name in names]
+        if self._plan is None:
+            outs = [self._pool.leaves[name].index_select(1, idx)
+                    for name in names]
+        else:
+            # over a mesh the tp ranks' kv heads, joined
+            outs = [torch.cat([leaves[name].index_select(1, idx)
+                               for leaves in self._pool.ranks()], dim=3)
+                    for name in names]
         outs += [state[slot_idx:slot_idx + 1] for state in (
             self.last_token, self.sample_keys, self.temps, self.top_ks,
             self.top_ps)]
@@ -3014,6 +3241,9 @@ class GenerationEngine:
             None if out["device_bytes_in_use"] is None
             else out["device_bytes_in_use"] - attributed)
         out["device_seconds"] = self._device_seconds_view()
+        if self._plan is not None:
+            # over a mesh: what each device holds (params and KV shards)
+            out["by_device"] = self._mesh_view()["bytes_by_device"]
         return out
 
     def device_bytes_in_use(self) -> Optional[int]:
@@ -3166,7 +3396,26 @@ class GenerationEngine:
                 "compiled_draft_prefill_fns":
                     self._prefill_graph_stats()["captured"],
             }
+        if self._plan is not None:
+            out["mesh"] = self._mesh_view()
         return out
+
+    def _mesh_view(self) -> Dict[str, Any]:
+        """The mesh an engine serves over (``xlaz()["mesh"]``): its axes,
+        its shards, the distinct devices they sit on (1 when every shard
+        shares the card) and the KV and param bytes each device holds."""
+        mesh = self._plan.mesh
+        by_device: Dict[str, int] = {}
+        kv = self._pool.leaves if self.paged else self.cache
+        for tree in (self.params, kv):
+            for leaf in _sharded_leaves(tree):
+                for shard in leaf.distinct_shards():
+                    key = str(shard.device)
+                    by_device[key] = by_device.get(key, 0) \
+                        + shard.numel() * shard.element_size()
+        return {"shape": dict(mesh.shape), "shards": mesh.size,
+                "devices": mesh.distinct_devices,
+                "bytes_by_device": by_device}
 
     def health_check(self) -> Dict[str, Any]:
         """Container-health contract (JAX ``health_check``): the stats
@@ -3240,7 +3489,8 @@ class GenerationEngine:
             "max_len": self.max_len,
             "window_ladder": [w or self.max_len
                               for w in self._window_ladder],
-            "mesh": None,     # the engine refuses a mesh
+            "mesh": dict(self.mesh.shape) if self.mesh is not None
+            else None,
             "ticks_by_window": {
                 w or self.max_len: n for w, n in sorted(
                     self.window_ticks.items(),
@@ -3369,8 +3619,10 @@ class GenerationEngine:
             self._pool_epoch = self._pool.epoch
             self.table.fill_(self._pool.sentinel)
         else:
-            for name, leaf in self.cache.items():
-                leaf.fill_(1 if name in ("ks", "vs") else 0)
+            for caches in self._row_caches:
+                for cache in llama.rank_trees(caches):
+                    for name, leaf in cache.items():
+                        leaf.fill_(1 if name in ("ks", "vs") else 0)
         if self.spec:
             for name, leaf in self._draft_cache.items():
                 leaf.fill_(1 if name in ("ks", "vs") else 0)

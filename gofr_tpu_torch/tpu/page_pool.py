@@ -42,7 +42,16 @@ read or write of it queued before the release.
 different geometries (each takes its own pool's ``budget_bytes`` from a
 carve).
 
-Left for later slices: mesh sharding (``mesh`` must be None).
+Over a mesh (``mesh=``, ``parallel/mesh``) each leaf is a
+``parallel/sharding.Sharded`` laid out by ``llama_prefix_pool_specs``:
+kv heads on ``tp``, pages replicated over every other axis (any slot may
+gather any page). Each coordinate's shard is made on its device at its
+shape, (L, num_pages + 1, page, Hkv / tp, D), and the host state (free
+list, refcounts, the engines' page tables) is one for all of them.
+:meth:`PagePool.ranks` is the tp ranks' leaves of the first replica,
+what a serving step reads and writes; :meth:`PagePool.replicas` every
+replica's. ``page_bytes`` and ``pool_bytes`` count every tp shard of a
+page (one replica), as JAX's count the global array.
 """
 
 from __future__ import annotations
@@ -69,8 +78,11 @@ class PagePool:
                  budget_bytes: Optional[int] = None, mesh=None,
                  metrics=None):
         if mesh is not None:
-            raise ValueError(
-                "PagePool: mesh sharding is not ported; pass mesh=None")
+            from gofr_tpu_torch.parallel.mesh import Mesh
+            if not isinstance(mesh, Mesh):
+                raise ValueError(
+                    f"PagePool: mesh must be a gofr_tpu_torch.parallel.mesh"
+                    f".Mesh (make_mesh), got {type(mesh).__name__}")
         # alloc/retain/release/reset take it (re-entrant): engines sharing
         # the pool touch it from their own loop threads
         self.lock = threading.RLock()
@@ -114,23 +126,50 @@ class PagePool:
 
     def _alloc_leaves(self) -> None:
         """The leaves, (L, num_pages + 1, page, Hkv, D) with the scratch
-        row last: k/v zeroed, scale planes at one."""
-        cfg = self.cfg
+        row last: k/v zeroed, scale planes at one; over a mesh each
+        coordinate's shard on its device."""
+        if self.mesh is None:
+            self.leaves = self._make_leaves(self.cfg, self.device)
+            return
+        from gofr_tpu_torch.models.llama import rank_config
+        from gofr_tpu_torch.parallel.sharding import (
+            assemble, llama_prefix_pool_specs, prune_specs)
+        mesh = self.mesh
+        tp = mesh.shape.get("tp", 1)
+        rank_cfg = rank_config(self.cfg, tp)
+        specs = prune_specs(
+            llama_prefix_pool_specs(kv_int8=self.cfg.kv_int8), mesh)
+        self.leaves = assemble(mesh, specs, lambda coord: self._make_leaves(
+            rank_cfg, mesh.devices[coord]))
+
+    def _make_leaves(self, cfg, dev) -> Dict[str, torch.Tensor]:
         shape = (cfg.n_layers, self.num_pages + 1, self.page,
                  cfg.n_kv_heads, cfg.head_dim)
-        dev = self.device
         if cfg.kv_int8:
-            self.leaves = {
+            return {
                 "k": torch.zeros(shape, dtype=torch.int8, device=dev),
                 "v": torch.zeros(shape, dtype=torch.int8, device=dev),
                 "ks": torch.ones(shape[:-1], dtype=torch.float32,
                                  device=dev),
                 "vs": torch.ones(shape[:-1], dtype=torch.float32,
                                  device=dev)}
-        else:
-            self.leaves = {
-                "k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+        return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
                 "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+
+    def replicas(self) -> List[List[Dict[str, torch.Tensor]]]:
+        """Every replica of the pool (one for each coordinate of the
+        mesh's axes other than tp), each the tp ranks' leaves by name;
+        ``[[leaves]]`` without a mesh."""
+        if self.mesh is None:
+            return [[self.leaves]]
+        from gofr_tpu_torch.parallel.sharding import local_tree
+        return [[local_tree(self.leaves, coord) for coord in line]
+                for line in self.mesh.axis_coords("tp")]
+
+    def ranks(self) -> List[Dict[str, torch.Tensor]]:
+        """The tp ranks' leaves of the first replica: what a serving step
+        reads and writes (one rank's, the leaves, without a mesh)."""
+        return self.replicas()[0]
 
     def reset(self) -> None:
         """Leaves cleared in place (k/v zeroed, scale planes at one; the
@@ -143,8 +182,10 @@ class PagePool:
                     or self.leaves["k"].shape[1] != self.num_pages + 1:
                 self._alloc_leaves()
             else:
-                for name, leaf in self.leaves.items():
-                    leaf.fill_(1 if name in ("ks", "vs") else 0)
+                for replica in self.replicas():
+                    for leaves in replica:
+                        for name, leaf in leaves.items():
+                            leaf.fill_(1 if name in ("ks", "vs") else 0)
             self._free = list(range(self.num_pages))
             self._refs = np.zeros((self.num_pages,), np.int32)
             self.epoch += 1

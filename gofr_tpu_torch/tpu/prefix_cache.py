@@ -21,6 +21,11 @@ prefix_len=)``).
 - **LRU eviction** of *leaves* with no pins: interior nodes go only
   after their children, so every surviving chain stays walkable. It is
   also the pool's ``reclaim`` hook.
+- **Over a mesh** (``mesh=``, the dense engine's): the owned pool is
+  sharded on kv heads over ``tp`` and replicated over the other axes
+  (``tpu/page_pool``); :meth:`PrefixStore.gather` reads the tp ranks'
+  pages of the first replica, :meth:`PrefixStore.publish` writes each
+  rank's rows into every replica. The trie is one for all shards.
 - **Publish in place** (dense engine): JAX publishes into a fresh pool
   array so that suffix prefills dispatched earlier keep reading the old
   one. Here the pool's leaves are written in place, which is safe
@@ -100,7 +105,7 @@ class PrefixStore:
     def __init__(self, cfg, page: int = 32, budget_bytes: int = 64 << 20,
                  max_pages: int = 0, num_pages: Optional[int] = None,
                  pool: Optional[PagePool] = None,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda", mesh=None):
         self.cfg = cfg
         self.max_pages = int(max_pages)
         self.budget_bytes = int(budget_bytes)
@@ -115,7 +120,7 @@ class PrefixStore:
             self.owns_pool = True
             self._pool = PagePool(cfg, page=page, num_pages=num_pages,
                                   budget_bytes=self.budget_bytes,
-                                  device=device)
+                                  device=device, mesh=mesh)
         self.page = self._pool.page
         self.page_bytes = self._pool.page_bytes
         # cumulative counters: they survive reset()
@@ -283,11 +288,16 @@ class PrefixStore:
     def gather(self, page_ids: torch.Tensor) -> Dict[str, torch.Tensor]:
         """The prefix K/V of ``page_ids`` (nb, p) pages a row, leaf by
         leaf (L, nb, p * page, ...): what a suffix prefill and its insert
-        read."""
+        read. Over a mesh, the tp ranks' (a list, rank r's kv heads)."""
         nb, p = page_ids.shape
-        return {name: leaf[:, page_ids].reshape(
-                    leaf.shape[0], nb, p * self.page, *leaf.shape[3:])
-                for name, leaf in self._pool.leaves.items()}
+
+        def rows(leaves):
+            return {name: leaf[:, page_ids].reshape(
+                        leaf.shape[0], nb, p * self.page, *leaf.shape[3:])
+                    for name, leaf in leaves.items()}
+        if self._pool.mesh is None:
+            return rows(self._pool.leaves)
+        return [rows(leaves) for leaves in self._pool.ranks()]
 
     def publish(self, small: Dict[str, torch.Tensor], flat_ids: torch.Tensor,
                 n_pages: int) -> None:
@@ -298,12 +308,19 @@ class PrefixStore:
         lands in the pool's scratch page. Called on the engine's device
         thread, behind every earlier read of the pool, inside a prefill's
         graph on the card: the engine counts ``publishes`` on the host,
-        one for each group with a page to publish (JAX's count)."""
-        for name, leaf in self._pool.leaves.items():
-            rows = small[name]
-            nb = rows.shape[1]
-            leaf[:, flat_ids] = rows[:, :, :n_pages * self.page].reshape(
-                rows.shape[0], nb * n_pages, self.page, *rows.shape[3:])
+        one for each group with a page to publish (JAX's count). Over a
+        mesh ``small`` is the tp ranks' (a list), each rank's rows
+        written into every replica."""
+        smalls = [small] if isinstance(small, dict) else small
+        for replica in self._pool.replicas():
+            for leaves, rank_small in zip(replica, smalls):
+                for name, leaf in leaves.items():
+                    rows = rank_small[name]
+                    nb = rows.shape[1]
+                    leaf[:, flat_ids] = rows[
+                        :, :, :n_pages * self.page].reshape(
+                        rows.shape[0], nb * n_pages, self.page,
+                        *rows.shape[3:])
 
     # -- introspection ------------------------------------------------------
     @property

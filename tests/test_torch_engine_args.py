@@ -210,6 +210,14 @@ def test_shared_pool_geometry_checks_as_jax(model):
         assert str(got.value) == str(want.value)
     with pytest.raises(ValueError, match="mesh"):
         PagePool(tcfg, num_pages=4, device="cpu", mesh=object())
+    # a mesh is served: kv heads on tp, page bytes counting every shard
+    from gofr_tpu_torch.parallel import make_mesh
+    sharded = PagePool(tcfg, num_pages=4, device="cpu", mesh=make_mesh(
+        {"tp": 2}, [torch.device("cpu")] * 2))
+    assert [leaves["k"].shape[3] for leaves in sharded.ranks()] \
+        == [tcfg.n_kv_heads // 2] * 2
+    assert sharded.page_bytes == PagePool(tcfg, num_pages=4,
+                                          device="cpu").page_bytes
 
 
 def test_reset_by_one_fails_the_others_request(model):
@@ -323,8 +331,18 @@ def test_ragged_attn_refusals_as_jax(model):
 
 
 def test_mesh_none_only(model):
+    """``mesh=None`` serves one device; a ``parallel/mesh.Mesh`` serves
+    dp × tp (its shape in ``stats()``, slots rounded up to dp); anything
+    else is refused."""
+    from gofr_tpu_torch.parallel import make_mesh
+
     _, _, tcfg, tparams = model
     GenerationEngine(tcfg, tparams, device="cpu", mesh=None, **ENGINE_KW)
+    mesh = make_mesh({"dp": 2, "tp": 2}, [torch.device("cpu")] * 4)
+    kw = dict(ENGINE_KW, max_slots=3)
+    sharded = GenerationEngine(tcfg, tparams, device="cpu", mesh=mesh, **kw)
+    assert sharded.stats()["mesh"] == {"dp": 2, "tp": 2}
+    assert sharded.max_slots == 4
     with pytest.raises(ValueError, match="mesh"):
         GenerationEngine(tcfg, tparams, device="cpu", mesh=object(),
                          **ENGINE_KW)

@@ -230,8 +230,10 @@ def test_mesh_is_refused_and_the_card_is_the_default():
         def get_float(self, key, default):
             return float(self.get(key, default))
 
-    with pytest.raises(ValueError, match="TPU_MESH"):
-        new_executor(Config(TPU_MESH="dp:2"), None, None, device="cpu")
+    # TPU_MESH lays the executor over a mesh (ported); on the CPU over as
+    # many CPU devices as it needs
+    meshed = new_executor(Config(TPU_MESH="dp:2"), None, None, device="cpu")
+    assert dict(meshed.mesh.shape) == {"dp": 2}
     executor = new_executor(Config(TPU_PEAK_FLOPS="1e12",
                                    EXEC_STAGING="0"), None, None,
                             device="cpu")

@@ -320,14 +320,20 @@ def test_app_entry_points_default_to_the_card(no_cuda, monkeypatch):
 
 
 @pytest.mark.parametrize("env,match", [
-    ({"MESH": "tp:8"}, "MESH/TPU_MESH"), ({"TPU_MESH": "dp:1,tp:2"},
-                                          "MESH/TPU_MESH"),
+    ({"MESH": "tp:8"}, "needs 8 devices, have 1"),
+    ({"TPU_MESH": "dp:1,tp:2"}, "needs 2 devices, have 1"),
     ({"CLUSTER_PEERS": "b=decode@http://h:1"}, "CLUSTER_PEERS")])
 def test_example_refuses_knobs_not_ported(monkeypatch, env, match):
-    """``MESH`` / ``TPU_MESH`` are refused until ``parallel/`` is ported.
+    """``MESH`` / ``TPU_MESH`` are served over ``parallel/mesh.
+    device_mesh``: on the card over the visible cards, so with one card a
+    mesh needing more raises JAX's "needs N devices" at build; on the CPU
+    over as many CPU devices as the spec needs, where tp 8 is refused by
+    the engine (tp must divide tiny's 4 heads) and tp 2 serves.
     ``CLUSTER_PEERS`` is served (its peers behind ``HTTPTransport``s), and
     a malformed entry raises as JAX's ``parse_peers`` does."""
+    from gofr_tpu_torch.config import MapConfig
     from gofr_tpu_torch.examples import llama_generate
+    from gofr_tpu_torch.parallel import mesh as mesh_mod
 
     for key in APP_ENV_UNSET:
         monkeypatch.delenv(key, raising=False)
@@ -346,9 +352,16 @@ def test_example_refuses_knobs_not_ported(monkeypatch, env, match):
         with pytest.raises(ValueError, match=match):
             llama_generate.build_app(device="cpu")
     else:
-        with pytest.raises(ValueError, match=match) as info:
-            llama_generate.build_app(device="cpu")
-        assert "ROADMAP.md §1" in str(info.value)
+        card = torch.device("cuda", 0)
+        monkeypatch.setattr(mesh_mod, "visible_devices", lambda: [card])
+        with pytest.raises(ValueError, match=match):
+            llama_generate.mesh_from_config(MapConfig(env), card)
+        if "MESH" in env:
+            with pytest.raises(ValueError, match="tp 8 does not divide"):
+                llama_generate.build_app(device="cpu")
+        else:
+            app = llama_generate.build_app(device="cpu")
+            assert app.engine.stats()["mesh"] == {"dp": 1, "tp": 2}
     monkeypatch.setenv("MESH", "off")
     monkeypatch.delenv("TPU_MESH", raising=False)
     monkeypatch.delenv("CLUSTER_PEERS", raising=False)

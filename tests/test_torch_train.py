@@ -22,6 +22,8 @@ Tolerances (float32; the two packages sum in other orders):
   trajectories fall.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -123,13 +125,24 @@ def test_llama_loss_and_grads_match_jax(jax_run):
 
 
 def test_llama_forward_refuses_a_mesh():
+    """``forward(mesh=)`` is served (ring attention over the sp axis, the
+    unsharded forward's logits within 1e-5 at f32); a non-mesh object is
+    refused, and ``loss_fn(mesh=)`` until training over a mesh is
+    ported."""
+    from gofr_tpu_torch.parallel import make_mesh
+
     _, pcfg = _configs()
+    pcfg = dataclasses.replace(pcfg, dtype=torch.float32)
     params = pt_llama.init(pcfg, 0, device="cpu")
-    tokens = torch.zeros((1, 4), dtype=torch.long)
+    tokens = torch.arange(16, dtype=torch.long).reshape(2, 8) % 7
+    mesh = make_mesh({"sp": 2}, [torch.device("cpu")] * 2)
+    np.testing.assert_allclose(
+        pt_llama.forward(params, pcfg, tokens, mesh=mesh).numpy(),
+        pt_llama.forward(params, pcfg, tokens).numpy(), atol=1e-5)
     with pytest.raises(ValueError, match="mesh"):
         pt_llama.forward(params, pcfg, tokens, mesh=object())
     with pytest.raises(ValueError, match="mesh"):
-        pt_llama.loss_fn(params, pcfg, tokens, tokens, mesh=object())
+        pt_llama.loss_fn(params, pcfg, tokens, tokens, mesh=mesh)
 
 
 def test_moe_loss_grads_and_drops_match_jax():
