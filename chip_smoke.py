@@ -404,6 +404,27 @@ Phases, each of which raises (exit code != 0) on failure:
     (h) the example's ``MESH=1`` serving ``/generate`` and ``MESH=tp:2``
     refused at build; (i) ``initialize_distributed`` at world size 1 over
     NCCL and ``dcn_check``'s two processes on the card.
+40. training over a device mesh (after phase 39), every shard on the one
+    card, phase 36's weights and batches (40-multicard: dp 2 over two
+    cards, else a ``{"phase": "40-multicard", "skipped": "1 card"}``
+    line): (a) ``small`` whole at B 8 x S 1024 over dp 2 x tp 2 x sp 2
+    with ``use_sp``: one float32 step from the unsharded float32 step's
+    state, its loss within 1e-5 relative, every gradient and moment leaf
+    within 1e-4 of its largest element, the params as ``past_step_gate``
+    says; three bf16 steps whose loss falls, the first within 2e-2 of the
+    unsharded step's, gradient cosines >= 0.99 leaf by leaf; step ms,
+    peak bytes, idle share; (b) ``llama3-8b``'s width at 2 layers, remat,
+    B 2 x S 512: tp 2 three steps (the first loss within 2e-2 of tp 1's),
+    tp 4 one step (finite, within 10% of ln V), the eval over tp 2 through
+    the flash kernel at Hq 16 / Hkv 4 (one launch a layer and rank,
+    within 1e-2 of tp 1's flash eval); (c) ``moe-small`` at B 4 x S 512:
+    ep 2 at float32 (drops layer by layer equal to the unsharded model's,
+    loss and gradients within (a)'s float32 gates), ep 2 x tp 2 bf16
+    three steps (the loss falls, router gradients finite and nonzero);
+    (d) (a)'s bf16 state saved at step 2 and restored with ``sharding=``
+    (bits, specs and mesh kept; step 3 equal to the straight run's
+    wherever two straight runs agree bit for bit, within their spread
+    elsewhere) and with ``device=`` (the gathered shards' bits).
 
 Depth is cut, width never: the ``llama3-8b`` engines run 8 of 32
 layers (``--layers``), and every ``small`` phase but the app's (20-23,
@@ -1181,7 +1202,8 @@ PATH_KERNELS = {"engine": ("flash", "ragged"),
                 "mesh_tp2_paged": ("flash", "ragged"),
                 "mesh_tp2_paged_int8": ("flash", "int8"),
                 "mesh_small_tp2": ("flash", "ragged"),
-                "mesh_small_dp2": ("flash", "ragged")}
+                "mesh_small_dp2": ("flash", "ragged"),
+                "train_eval_mesh_llama3": ("flash",)}
 
 
 def warm(engine):
@@ -8276,6 +8298,506 @@ def phase_mesh_dist(torch, results):
                              "wrong")
 
 
+# -- phase 40: training over a device mesh ------------------------------------
+# (a) small at full width and depth over dp 2 x tp 2 x sp 2 with use_sp,
+# (b) llama3-8b's width at BIG_LAYERS over tp 2 and tp 4, (c) moe-small
+# over ep 2 (float32) and ep 2 x tp 2, (d) checkpoints of (a)'s state:
+# every shard on cuda:0; 40-multicard: dp 2 over two cards, where a host
+# has two. Phase 36's weights, batches and gates.
+TRAIN_MESH = {"dp": 2, "tp": 2, "sp": 2}
+MESH_TRAIN_STEPS = 3
+# 40a, 40c at float32: the mesh's loss against one device's, relative,
+# and each gradient, first moment and second moment leaf within
+# MESH_F32_TOL of that leaf's largest element (the sums run in other
+# orders: the tp ranks' partial products, the ring's online softmax).
+# Params after one step: within MESH_F32_TOL of the leaf's largest where
+# the first moment is settled (|mu| > 1e-2 of its leaf's largest), and
+# within 2·lr elsewhere: Adam's first step is ±lr wherever |g| >> eps, so
+# a gradient at its rounding noise may take either sign (the CPU parity
+# tests' rule, tests/test_torch_train.py)
+MESH_F32_LOSS_RTOL = 1e-5
+MESH_F32_TOL = 1e-4
+
+
+def mesh_devices(torch, device, n):
+    """``n`` mesh entries, every one the card (cuda:0) or the CPU."""
+    dev = torch.device(device, 0) if device == "cuda" \
+        else torch.device(device)
+    return [dev] * n
+
+
+def full_leaves(sharding, tree_util, tree):
+    """Every leaf of ``tree`` as one tensor (a sharded leaf gathered),
+    by key."""
+    return {key: leaf.gather() if isinstance(leaf, sharding.Sharded)
+            else leaf for key, leaf in tree_util.flatten(tree).items()}
+
+
+def rel_to_max(got, want):
+    """max |got - want| over max |want|, leaf by leaf (dicts by key)."""
+    return {key: ((got[key].float() - w.float()).abs().max()
+                  / w.float().abs().max().clamp(min=1e-30)).item()
+            for key, w in want.items()}
+
+
+def past_step_gate(got, want, mu, lr):
+    """The leaves of params ``got`` past 40a's gate against ``want``
+    after one step (``mu``: ``want``'s first moments): (worst settled
+    difference over the leaf's largest, worst difference anywhere)."""
+    out = {}
+    for key, w in want.items():
+        d = (got[key].float() - w.float()).abs()
+        m = mu[key].float().abs()
+        tight = m > 1e-2 * m.max()
+        scale = w.float().abs().max().item()
+        settled_d = d[tight].max().item() / scale if bool(tight.any()) \
+            else 0.0
+        if settled_d > MESH_F32_TOL or d.max().item() > 2 * lr:
+            out[key] = (settled_d, d.max().item())
+    return out
+
+
+def grad_cosines(torch, got, want):
+    return {key: torch.nn.functional.cosine_similarity(
+        got[key].float().flatten(), w.float().flatten(), dim=0).item()
+        for key, w in want.items()}
+
+
+def phase_train_mesh(torch, llama, moe, train, checkpoint, mods, seed,
+                     results, device="cuda", small_cfg=None, moe_cfg=None,
+                     big_cfg=None, batches=(TRAIN_BATCH, MOE_BATCH,
+                                            BIG_BATCH)):
+    """Phase 40 (after phase 39): training over a device mesh, every
+    shard on the one card. Returns the launches of 40b's eval through
+    the flash kernel, by path."""
+    from gofr_tpu_torch.parallel import sharding
+    from gofr_tpu_torch.utils import tree as tree_util
+
+    t_phase = time.monotonic()
+    out = results.setdefault("train_mesh", {})
+    kit = (torch, train, sharding, tree_util)
+    phase_mesh_train_small(kit, llama, checkpoint, small_cfg
+                           or llama.config("small"), batches[0], seed, out,
+                           device)
+    one = results.get("train", {}).get("small")
+    if one:
+        mine = out["small"]
+        log(f"40a against 36a in this run: {mine['step_ms_mean_2_3']:.3f} ms "
+            f"a mesh step, {one['step_ms_median']:.3f} ms on one device; "
+            f"idle share {mine['idle_share']} against {one['idle_share']}")
+    free_device(torch, device)
+    by_path = phase_mesh_train_big(kit, llama, mods, big_cfg or llama.config(
+        "llama3-8b", n_layers=BIG_LAYERS), batches[2], seed, out, device)
+    free_device(torch, device)
+    phase_mesh_train_moe(kit, moe, moe_cfg or moe.config("small"),
+                         batches[1], seed, out, device)
+    free_device(torch, device)
+    if device == "cuda":
+        phase_mesh_train_multicard(kit, llama, seed, out)
+    results["phase40_s"] = time.monotonic() - t_phase
+    log(f"phase 40: {results['phase40_s']:.1f}s ({card_label(device)})")
+    return by_path
+
+
+def phase_mesh_train_small(kit, llama, checkpoint, cfg, batch, seed, out,
+                           device):
+    """40a and 40d on ``cfg`` (``small`` whole) at ``batch`` over
+    TRAIN_MESH with ``use_sp``."""
+    import tempfile
+
+    torch, train, sharding, tree_util = kit
+    from gofr_tpu_torch.parallel import make_mesh
+
+    card = card_label(device)
+    mesh = make_mesh(TRAIN_MESH, mesh_devices(torch, device, 8))
+    tokens, targets = train_batch(torch, cfg.vocab_size, batch, seed + 1,
+                                  device)
+    log(f"== phase 40a: train small ({cfg.n_layers} layers, dim {cfg.dim}, "
+        f"D {cfg.head_dim}, vocab {cfg.vocab_size}) at B {batch[0]} x S "
+        f"{batch[1]} over {TRAIN_MESH} with use_sp, every shard on "
+        f"{mesh.devices.flat[0]}; {card}")
+    full = lambda tree: full_leaves(sharding, tree_util, tree)  # noqa: E731
+
+    # one float32 step from the state of the unsharded float32 step
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    init32, step32 = train.make_train_step(cfg32, device=device)
+    _, mstep32 = train.make_train_step(cfg32, mesh, use_sp=True,
+                                       device=device)
+    state = init32(seed)
+    mstate = train.shard_train_state(state, mesh)
+    loss_u, grads_u = train.value_and_grad(
+        lambda p, t, y: llama.loss_fn(p, cfg32, t, y), state.params, tokens,
+        targets)
+    loss_m, grads_m = train.value_and_grad(
+        lambda p, t, y: llama.loss_fn(p, cfg32, t, y, mesh=mesh),
+        mstate.params, tokens, targets)
+    loss_rel = abs(loss_m.item() - loss_u.item()) / abs(loss_u.item())
+    grad_rel = rel_to_max(full(grads_m), full(grads_u))
+    del grads_u, grads_m
+    step32(state, tokens, targets)
+    mstep32(mstate, tokens, targets)
+    got, want = full(mstate), full(state)
+    mu_key = ".opt_state/0/.mu/"
+    moment_keys = [k for k in want if "/.mu/" in k or "/.nu/" in k]
+    moments = rel_to_max({k: got[k] for k in moment_keys},
+                         {k: want[k] for k in moment_keys})
+    params = {k[len(".params/"):]: got[k] for k in got
+              if k.startswith(".params/")}
+    ref = {k[len(".params/"):]: want[k] for k in want
+           if k.startswith(".params/")}
+    mu = {k: want[mu_key + k] for k in ref}
+    past = past_step_gate(params, ref, mu, 3e-4)
+    log(f"40a float32: loss {loss_m.item():.7f} over the mesh, "
+        f"{loss_u.item():.7f} on one device (rel {loss_rel:.3e}); worst "
+        f"gradient leaf {max(grad_rel.values()):.3e} of its largest "
+        f"({grad_rel}); worst moment leaf {max(moments.values()):.3e}; "
+        f"params past the gate {past}")
+    out["f32"] = dict(loss_mesh=loss_m.item(), loss_one=loss_u.item(),
+                      loss_rel=loss_rel, grad_rel=grad_rel,
+                      moment_rel=moments, params_past=past)
+    if loss_rel > MESH_F32_LOSS_RTOL or max(grad_rel.values()) > \
+            MESH_F32_TOL or max(moments.values()) > MESH_F32_TOL or past:
+        raise AssertionError(f"phase 40a: the float32 mesh step left its "
+                             f"gates: loss rel {loss_rel}, gradients "
+                             f"{grad_rel}, moments {moments}, params {past}")
+    del state, mstate, got, want, params, ref, mu
+
+    # three bf16 steps from 36a's state; the checkpoint at step 2 (40d)
+    init_fn, init_step = train.make_train_step(cfg, device=device)
+    _, mstep = train.make_train_step(cfg, mesh, use_sp=True, device=device)
+    state0 = init_fn(seed)
+    mstate = train.shard_train_state(state0, mesh)
+    loss_u, grads_u = train.value_and_grad(
+        lambda p, t, y: llama.loss_fn(p, cfg, t, y), state0.params, tokens,
+        targets)
+    _, grads_m = train.value_and_grad(
+        lambda p, t, y: llama.loss_fn(p, cfg, t, y, mesh=mesh),
+        mstate.params, tokens, targets)
+    cosines = grad_cosines(torch, full(grads_m), full(grads_u))
+    del grads_u, grads_m
+    # the unsharded step in this call, for the ratio (a copy of state0)
+    one = sharding.clone_tree(state0)
+    (one_ms, _), one_peak = peak_bytes(torch, lambda: timed_steps(
+        torch, lambda: init_step(one, tokens, targets)[1], 3, device),
+        device)
+    del one
+    free_device(torch, device)
+    (ms, losses), peak = peak_bytes(torch, lambda: timed_steps(
+        torch, lambda: mstep(mstate, tokens, targets)[1], 2, device),
+        device)
+    with tempfile.TemporaryDirectory(prefix="gofr_mesh_ckpt_") as tmp:
+        t0 = time.monotonic()
+        checkpoint.save_checkpoint(tmp, mstate, step=2,
+                                   metadata={"preset": "small",
+                                             "mesh": TRAIN_MESH})
+        save_s = time.monotonic() - t0
+        saved = sharding.clone_tree(mstate)
+        again = sharding.clone_tree(mstate)
+        ms3, loss3 = timed_steps(torch, lambda: mstep(
+            mstate, tokens, targets)[1], 1, device)
+        ms, losses = ms + ms3, [l.item() for l in losses + loss3]
+        _, loss_again = mstep(again, tokens, targets)
+        t0 = time.monotonic()
+        restored = checkpoint.restore_checkpoint(
+            tmp, mstate, sharding=tree_util.tree_map(
+                lambda leaf: leaf.sharding, mstate))
+        restore_s = time.monotonic() - t0
+        plain = checkpoint.restore_checkpoint(tmp, state0, device=device)
+    del state0
+    restored_bits = same_bits(torch, tree_util, full(restored), full(saved))
+    plain_bits = same_bits(torch, tree_util, plain, full(saved))
+    specs_kept = all(
+        leaf.spec == ref_leaf.spec and leaf.mesh is mesh
+        for leaf, ref_leaf in zip(tree_util.flatten(restored).values(),
+                                  tree_util.flatten(mstate).values()))
+    del plain, saved
+    _, loss_resumed = mstep(restored, tokens, targets)
+    straight = full(mstate)
+    spread = leaf_diffs(tree_util, full(again), straight)
+    resumed = leaf_diffs(tree_util, full(restored), straight)
+    outside = within_spread(resumed, spread, leaf_scales(tree_util,
+                                                         straight))
+    loss_rel = abs(losses[0] - loss_u.item()) / abs(loss_u.item())
+    step_ms = sum(ms[1:]) / len(ms[1:])
+    one_step_ms = sum(one_ms[1:]) / len(one_ms[1:])
+    log(f"40a bf16 {card}: losses {[round(l, 5) for l in losses]} over the "
+        f"mesh, the unsharded step's first {loss_u.item():.5f} (rel "
+        f"{loss_rel:.3e}); gradient cosines, worst "
+        f"{min(cosines.values()):.5f} ({cosines}); step ms "
+        f"{[round(m, 3) for m in ms]} (mean of steps 2-3 {step_ms:.3f}), "
+        f"on one device in this call {[round(m, 3) for m in one_ms]} "
+        f"({one_step_ms:.3f}: {step_ms / one_step_ms:.2f}x); peak bytes "
+        f"{peak} over the mesh, {one_peak} on one device")
+    log(f"== phase 40d: save {save_s:.2f}s, restore with sharding= "
+        f"{restore_s:.2f}s; restored bits equal {restored_bits}, specs and "
+        f"mesh kept {specs_kept}; restored with device= equal to the "
+        f"gathered shards {plain_bits}; step 3 loss {losses[2]:.6f} "
+        f"straight, {loss_again.item():.6f} again, "
+        f"{loss_resumed.item():.6f} resumed; leaves differing run to run "
+        f"{ {k: v for k, v in spread.items() if v} }; resumed past the "
+        f"spread {outside}")
+    if not (losses[-1] < losses[0] and loss_rel <= F32_LOSS_RTOL
+            and min(cosines.values()) >= F32_GRAD_COS):
+        raise AssertionError(f"phase 40a: bf16 losses {losses} (one "
+                             f"device {loss_u.item()}), cosines {cosines}")
+    if not (restored_bits and plain_bits and specs_kept) or outside or (
+            loss_resumed.item() != losses[2]
+            and loss_again.item() == losses[2]):
+        raise AssertionError(f"phase 40d: the restored run left the "
+                             f"straight run: {outside}")
+    del restored, again, straight
+
+    # the device's idle share of one more step
+    idle, top, profile = None, [], {}
+    if device == "cuda":
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            mstep(mstate, tokens, targets)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        by_kernel, calls = device_times(torch, prof)
+        busy = sum(by_kernel.values())
+        idle = 1.0 - busy / wall
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+        gemm_s = sum(sec for name, sec in by_kernel.items() if any(
+            tag in name.lower()
+            for tag in ("gemm", "cutlass", "xmma", "nvjet")))
+        log(f"40a one mesh step profiled: {wall * 1e3:.3f} ms wall, device "
+            f"busy {busy * 1e3:.3f} ms over {sum(calls.values())} device "
+            f"events, of it GEMMs {gemm_s * 1e3:.3f} ms; idle share "
+            f"{idle:.3f}; top kernels (s) {top}")
+        profile = dict(wall_ms=wall * 1e3, busy_ms=busy * 1e3,
+                       gemm_ms=gemm_s * 1e3, events=sum(calls.values()))
+    out["small"] = dict(card=card, mesh=TRAIN_MESH, batch=list(batch),
+                        losses=losses, first_loss_one_device=loss_u.item(),
+                        loss_rel=loss_rel, grad_cos=cosines, step_ms=ms,
+                        step_ms_mean_2_3=step_ms, one_device_ms=one_ms,
+                        one_device_ms_mean_2_3=one_step_ms,
+                        peak_bytes=peak, one_device_peak_bytes=one_peak,
+                        idle_share=idle, profile=profile,
+                        top_kernels=[[k, v] for k, v in top])
+    out["checkpoint"] = dict(save_s=save_s, restore_s=restore_s,
+                             restored_bits=restored_bits,
+                             device_restore_bits=plain_bits,
+                             spread=spread, resumed_diff=resumed,
+                             loss_straight=losses[2],
+                             loss_again=loss_again.item(),
+                             loss_resumed=loss_resumed.item())
+    del mstate
+
+
+def phase_mesh_train_big(kit, llama, mods, cfg, batch, seed, out, device):
+    """40b: ``llama3-8b``'s width at ``cfg.n_layers`` layers, remat, at
+    ``batch``: tp 2 (three steps from 36f's state), tp 4 (one step), the
+    eval over tp 2 through the flash kernel."""
+    torch, train, sharding, tree_util = kit
+    from gofr_tpu_torch.parallel import make_mesh
+
+    card = card_label(device)
+    tokens, targets = train_batch(torch, cfg.vocab_size, batch, seed + 3,
+                                  device)
+    log(f"== phase 40b: llama3-8b width (GQA {cfg.n_heads}:{cfg.n_kv_heads}, "
+        f"D {cfg.head_dim}, vocab {cfg.vocab_size}) at {cfg.n_layers} "
+        f"layers, bf16, remat, B {batch[0]} x S {batch[1]}; {card}")
+    init_fn, step_fn = train.make_train_step(cfg, remat=True, device=device)
+    state = init_fn(seed)
+    mesh2 = make_mesh({"tp": 2}, mesh_devices(torch, device, 2))
+    mstate = train.shard_train_state(state, mesh2)
+    (one_ms, one_losses), one_peak = peak_bytes(torch, lambda: timed_steps(
+        torch, lambda: step_fn(state, tokens, targets)[1], 2, device),
+        device)
+    loss_one = one_losses[0].item()
+    del state
+    free_device(torch, device)
+    _, mstep = train.make_train_step(cfg, mesh2, remat=True, device=device)
+    (ms, losses), peak = peak_bytes(torch, lambda: timed_steps(
+        torch, lambda: mstep(mstate, tokens, targets)[1], MESH_TRAIN_STEPS,
+        device), device)
+    losses = [l.item() for l in losses]
+    rel = abs(losses[0] - loss_one) / abs(loss_one)
+    log(f"40b tp 2 (Hq {cfg.n_heads // 2} / Hkv {cfg.n_kv_heads // 2} a "
+        f"rank): losses {[round(l, 5) for l in losses]}, tp 1's first "
+        f"{loss_one:.5f} (rel {rel:.3e}); step ms "
+        f"{[round(m, 3) for m in ms]} against tp 1's "
+        f"{[round(m, 3) for m in one_ms]} in this call; peak bytes {peak} "
+        f"(tp 1: {one_peak}, the tp 2 state held beside it)")
+    if not (losses[-1] < losses[0] and rel <= F32_LOSS_RTOL):
+        raise AssertionError(f"phase 40b: tp 2 losses {losses} against tp "
+                             f"1's {loss_one}")
+
+    # the eval over tp 2 through the flash kernel, against tp 1's
+    flash_cfg = dataclasses.replace(cfg, use_flash=True)
+    mesh_eval = train.make_eval_step(flash_cfg, mesh2, device=device)
+    for mod in mods:
+        mod.reset_launches()
+    mesh_loss = mesh_eval(mstate.params, tokens, targets).item()
+    launches = read_launches(mods)
+    plain_params = sharding.gather_pytree(mstate.params)
+    one_loss = train.make_eval_step(flash_cfg, device=device)(
+        plain_params, tokens, targets).item()
+    del plain_params
+    want = dict.fromkeys(launches, 0)
+    want["flash"] = cfg.n_layers * 2
+    if device == "cuda":
+        check_launches(launches, want, "train_eval_mesh_llama3")
+    eval_rel = abs(mesh_loss - one_loss) / abs(one_loss)
+    eval_ms, _ = timed_steps(torch, lambda: mesh_eval(
+        mstate.params, tokens, targets), 3, device)
+    for mod in mods:
+        mod.reset_launches()
+    log(f"40b eval over tp 2 through the flash kernel: loss {mesh_loss:.6f}"
+        f", tp 1's flash eval {one_loss:.6f} (rel {eval_rel:.3e}); "
+        f"launches {launches}; eval ms {[round(m, 3) for m in eval_ms]}")
+    if eval_rel > EVAL_FLASH_RTOL:
+        raise AssertionError(f"phase 40b: the tp 2 flash eval rel {eval_rel}")
+    del mstate
+    free_device(torch, device)
+
+    # tp 4: 8:2 heads a rank (dry-run phase 7's tp 4 over GQA)
+    mesh4 = make_mesh({"tp": 4}, mesh_devices(torch, device, 4))
+    init4, step4 = train.make_train_step(cfg, mesh4, remat=True,
+                                         device=device)
+    state4 = init4(seed)
+    ms4, loss4 = timed_steps(torch, lambda: step4(state4, tokens,
+                                                  targets)[1], 1, device)
+    loss4 = loss4[0].item()
+    ln_v = math.log(cfg.vocab_size)
+    log(f"40b tp 4 (Hq {cfg.n_heads // 4} / Hkv {cfg.n_kv_heads // 4} a "
+        f"rank): one step, loss {loss4:.5f} (ln V {ln_v:.5f}), "
+        f"{ms4[0]:.3f} ms")
+    if not (math.isfinite(loss4) and abs(loss4 - ln_v) <= 0.1 * ln_v):
+        raise AssertionError(f"phase 40b: tp 4 loss {loss4}")
+    out["llama3_8b"] = dict(
+        card=card, layers=cfg.n_layers, batch=list(batch), tp2_losses=losses,
+        tp1_first_loss=loss_one, tp2_loss_rel=rel, tp2_step_ms=ms,
+        tp2_peak_bytes=peak, tp1_step_ms=one_ms, tp1_peak_bytes=one_peak,
+        eval_mesh_loss=mesh_loss, eval_one_loss=one_loss,
+        eval_rel=eval_rel, eval_launches=launches, eval_ms=eval_ms,
+        tp4_loss=loss4, tp4_step_ms=ms4[0])
+    del state4
+    return {"train_eval_mesh_llama3": launches}
+
+
+def phase_mesh_train_moe(kit, moe, cfg, batch, seed, out, device):
+    """40c: ``moe-small`` at ``batch``: ep 2 x tp 1 at float32 against
+    the unsharded model (drops layer by layer, loss, gradients); ep 2 x
+    tp 2 at bf16, three AdamW steps."""
+    torch, train, sharding, tree_util = kit
+    from gofr_tpu_torch.parallel import make_mesh
+
+    card = card_label(device)
+    tokens, targets = train_batch(torch, cfg.vocab_size, batch, seed + 2,
+                                  device)
+    full = lambda tree: full_leaves(sharding, tree_util, tree)  # noqa: E731
+    log(f"== phase 40c: moe-small ({cfg.n_experts} experts) at B {batch[0]}"
+        f" x S {batch[1]}: ep 2 at float32, ep 2 x tp 2 at bf16; {card}")
+    cfg32 = dataclasses.replace(cfg, base=dataclasses.replace(
+        cfg.base, dtype=torch.float32))
+    params = moe.init(cfg32, seed, device=device)
+    mesh = make_mesh({"ep": 2}, mesh_devices(torch, device, 2))
+    specs = sharding.prune_specs(sharding.moe_param_specs(), mesh)
+    sharded = sharding.shard_pytree(params, mesh, specs)
+    drops_one, drops_mesh = [], []
+    loss_u, grads_u = train.value_and_grad(
+        lambda p, t, y: moe.loss_fn(p, cfg32, t, y, drops_one), params,
+        tokens, targets)
+    loss_m, grads_m = train.value_and_grad(
+        lambda p, t, y: moe.loss_fn(p, cfg32, t, y, drops_mesh), sharded,
+        tokens, targets)
+    drops_one = [d.item() for d in drops_one]
+    drops_mesh = [d.item() for d in drops_mesh]
+    loss_rel = abs(loss_m.item() - loss_u.item()) / abs(loss_u.item())
+    grad_rel = rel_to_max(full(grads_m), full(grads_u))
+    log(f"40c ep 2 float32: dropped tokens a layer {drops_mesh} (one device "
+        f"{drops_one}, of {batch[0] * batch[1]}); loss {loss_m.item():.7f} "
+        f"against {loss_u.item():.7f} (rel {loss_rel:.3e}); gradients, "
+        f"worst leaf {max(grad_rel.values()):.3e} of its largest, router "
+        f"{grad_rel['layers/router']:.3e}")
+    if drops_mesh != drops_one or loss_rel > MESH_F32_LOSS_RTOL or \
+            max(grad_rel.values()) > MESH_F32_TOL:
+        raise AssertionError(f"phase 40c: ep 2 float32: drops {drops_mesh} "
+                             f"against {drops_one}, loss rel {loss_rel}, "
+                             f"gradients {grad_rel}")
+    del params, sharded, grads_u, grads_m
+    free_device(torch, device)
+
+    params = moe.init(cfg, seed, device=device)
+    mesh = make_mesh({"ep": 2, "tp": 2}, mesh_devices(torch, device, 4))
+    sharded = sharding.shard_pytree(
+        params, mesh, sharding.prune_specs(sharding.moe_param_specs(), mesh))
+    del params
+    opt_state = train.adamw_init(sharded)
+    record = []
+
+    def step():
+        drops = []
+        loss, grads = train.value_and_grad(
+            lambda p, t, y: moe.loss_fn(p, cfg, t, y, drops), sharded,
+            tokens, targets)
+        router = grads["layers"]["router"].gather()
+        train.adamw_update(grads, opt_state, sharded)
+        record.append((router.abs().max(), torch.isfinite(router).all(),
+                       torch.stack(drops)))
+        return loss
+
+    ms, losses = timed_steps(torch, step, MESH_TRAIN_STEPS, device)
+    losses = [l.item() for l in losses]
+    router_max = [r.item() for r, _, _ in record]
+    finite = all(f.item() for _, f, _ in record)
+    drops = [d.tolist() for _, _, d in record]
+    log(f"40c ep 2 x tp 2 bf16: losses {[round(l, 5) for l in losses]}; "
+        f"router grad max {router_max}, finite {finite}; dropped a layer "
+        f"{drops}; step ms {[round(m, 3) for m in ms]}")
+    if not (losses[-1] < losses[0] and finite and min(router_max) > 0):
+        raise AssertionError(f"phase 40c: ep 2 x tp 2 losses {losses}, "
+                             f"router grads {router_max}, finite {finite}")
+    out["moe"] = dict(card=card, batch=list(batch), f32_drops=drops_mesh,
+                      f32_drops_one=drops_one, f32_loss_rel=loss_rel,
+                      f32_grad_rel=grad_rel, losses=losses,
+                      router_grad_max=router_max, dropped=drops, step_ms=ms)
+    del sharded, opt_state
+
+
+def phase_mesh_train_multicard(kit, llama, seed, out):
+    """40-multicard: dp 2 over two distinct cards, where the host has two
+    (``small`` at CUT_SMALL_LAYERS, float32, B 4 x S 256): one step's loss
+    against one card's, the two cards' replicas bit-equal after it."""
+    torch, train, sharding, tree_util = kit
+    from gofr_tpu_torch.parallel import make_mesh
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(json.dumps({"phase": "40-multicard", "skipped": "1 card"}),
+              flush=True)
+        out["multicard"] = {"skipped": "1 card"}
+        return
+    log(f"== phase 40-multicard: dp 2 training over cuda:0 and cuda:1")
+    cfg = llama.config("small", n_layers=CUT_SMALL_LAYERS,
+                       dtype=torch.float32)
+    mesh = make_mesh({"dp": 2}, [torch.device("cuda", i) for i in (0, 1)])
+    tokens, targets = train_batch(torch, cfg.vocab_size, (4, 256), seed + 4,
+                                  "cuda")
+    init_fn, step_fn = train.make_train_step(cfg, device="cuda")
+    state = init_fn(seed)
+    mstate = train.shard_train_state(state, mesh)
+    _, loss_one = step_fn(state, tokens, targets)
+    _, loss_mesh = train.make_train_step(cfg, mesh, device="cuda")[1](
+        mstate, tokens, targets)
+    rel = abs(loss_mesh.item() - loss_one.item()) / abs(loss_one.item())
+    equal = all(
+        all(torch.equal(t.cpu(), leaf.distinct_shards()[0].cpu())
+            for t in leaf.distinct_shards())
+        for leaf in tree_util.flatten(mstate).values())
+    log(f"40-multicard: loss {loss_mesh.item():.7f} against one card's "
+        f"{loss_one.item():.7f} (rel {rel:.3e}); replicas bit-equal {equal}")
+    out["multicard"] = dict(cards=n, loss_rel=rel, replicas_equal=equal)
+    if rel > MESH_F32_LOSS_RTOL or not equal:
+        raise AssertionError("40-multicard: dp 2 across cards diverged")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -8489,6 +9011,11 @@ def main() -> int:
     phase_mesh_executor(torch, executor, resnet, args.seed, results)
     phase_mesh_app(torch, results)
     phase_mesh_dist(torch, results)
+    del params
+    torch.cuda.empty_cache()
+    # this slice: training over a device mesh (phase 40)
+    by_path.update(phase_train_mesh(torch, llama, moe, train, checkpoint,
+                                    mods, args.seed, results))
     # launches on the main paths: each run counted from 0, llama3-8b's
     # (head_dim 128) and the small preset's (head_dim 64) apart
     counts = {name: sum(run[name] for run in by_path.values())

@@ -11,6 +11,14 @@ port's OIHW in ``channels_last``; the folded BatchNorm vectors and the
 head are kept as they are. :func:`from_jax_train_state` takes a JAX
 ``TrainState`` (params, optax's Adam state, step) to the port's, so both
 packages can take the same training steps from the same state.
+
+With ``mesh`` given, :func:`from_jax_llama`, :func:`from_jax_moe` and
+:func:`from_jax_train_state` lay the converted tree out on that mesh as
+JAX's state is sharded there (``specs``, by default
+``prune_specs(llama_param_specs(), mesh)`` or ``moe_param_specs``; the
+moments like the params, count and step replicated): ``Sharded`` leaves
+on the mesh's devices, each shard a copy, so a JAX mesh state and the
+port's start from the same numbers.
 """
 
 from __future__ import annotations
@@ -21,7 +29,7 @@ import numpy as np
 import torch
 
 from gofr_tpu_torch.device import resolve_device
-from gofr_tpu_torch.parallel import train
+from gofr_tpu_torch.parallel import sharding, train
 
 
 def _tensor(array, device: torch.device) -> torch.Tensor:
@@ -36,10 +44,16 @@ def _tensor(array, device: torch.device) -> torch.Tensor:
 
 
 def from_jax_llama(params_np: Any,
-                   device: Union[str, torch.device] = "cuda") -> Any:
+                   device: Union[str, torch.device] = "cuda",
+                   mesh=None, specs: Any = None) -> Any:
     """JAX Llama pytree of numpy arrays (nested dicts, int8 quant dicts
     included) → the same tree of torch tensors on ``device``, dtypes
-    kept."""
+    kept; with ``mesh``, ``Sharded`` leaves laid out by ``specs``
+    (default ``prune_specs(llama_param_specs(), mesh)``)."""
+    if mesh is not None:
+        return _on_mesh(params_np, mesh, specs if specs is not None else
+                        sharding.prune_specs(sharding.llama_param_specs(),
+                                             mesh))
     dev = resolve_device(device)
 
     def walk(node):
@@ -48,6 +62,24 @@ def from_jax_llama(params_np: Any,
         return _tensor(node, dev)
 
     return walk(params_np)
+
+
+def from_jax_moe(params_np: Any, device: Union[str, torch.device] = "cuda",
+                 mesh=None, specs: Any = None) -> Any:
+    """JAX MoE pytree of numpy arrays → the port's (llama's layout with
+    the expert axis and routers); with ``mesh``, laid out by ``specs``
+    (default ``prune_specs(moe_param_specs(), mesh)``)."""
+    if mesh is not None and specs is None:
+        specs = sharding.prune_specs(sharding.moe_param_specs(), mesh)
+    return from_jax_llama(params_np, device, mesh, specs)
+
+
+def _on_mesh(tree_np: Any, mesh, specs: Any) -> Any:
+    """A numpy tree as ``Sharded`` leaves over ``mesh`` by ``specs``."""
+    cpu = torch.device("cpu")
+    return sharding.map_specs(
+        lambda x, spec: sharding.shard_leaf(_tensor(x, cpu), mesh, spec),
+        tree_np, specs)
 
 
 def from_jax_bert(params_np: Any,
@@ -79,17 +111,24 @@ def from_jax_resnet(params_np: Any,
 
 
 def from_jax_train_state(state_np: Any,
-                         device: Union[str, torch.device] = "cuda") -> Any:
+                         device: Union[str, torch.device] = "cuda",
+                         mesh=None, specs: Any = None) -> Any:
     """JAX ``TrainState`` of numpy arrays (``params``, ``opt_state`` =
     (optax ``ScaleByAdamState(count, mu, nu)``, ``EmptyState()``,
     ``EmptyState()``), ``step``) → the port's
     ``gofr_tpu_torch.parallel.train.TrainState`` on ``device``, dtypes
-    kept (count and step int32, 0-d)."""
-    dev = resolve_device(device)
+    kept (count and step int32, 0-d); with ``mesh``, laid out on it as
+    ``parallel/train.make_train_step``'s state is (params and moments by
+    ``specs``, default ``prune_specs(llama_param_specs(), mesh)``)."""
+    cpu = torch.device("cpu")
+    dev = cpu if mesh is not None else resolve_device(device)
     adam = state_np.opt_state[0]
     opt_state = (train.ScaleByAdamState(
         _tensor(adam.count, dev), from_jax_llama(adam.mu, dev),
         from_jax_llama(adam.nu, dev)), train.EmptyState(),
         train.EmptyState())
-    return train.TrainState(from_jax_llama(state_np.params, dev), opt_state,
-                            _tensor(state_np.step, dev))
+    state = train.TrainState(from_jax_llama(state_np.params, dev), opt_state,
+                             _tensor(state_np.step, dev))
+    if mesh is None:
+        return state
+    return train.shard_train_state(state, mesh, specs)

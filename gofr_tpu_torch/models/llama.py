@@ -399,13 +399,17 @@ def _embed(group, ranks: List[Params],
 
 
 def _stack(group, ranks: List[Params], xs: List[torch.Tensor],
-           cfg: LlamaConfig, attend, ffn=None) -> List[torch.Tensor]:
+           cfg: LlamaConfig, attend, ffn=None, ffn_group=None
+           ) -> List[torch.Tensor]:
     """The layer stack over a tp group (one rank unsharded): at each
     layer, each rank's attention over its heads (``attend(r, i, layer,
     h)`` → (B, S, Hq_r·D), writing the rank's K/V), its rows of ``wo``,
     one all-reduce; then each rank's FFN slice (``ffn(layer, h)``, the
-    dense FFN by default) and one all-reduce. ``xs`` is the residual
-    stream on each rank's device; returns it after the last layer."""
+    dense FFN by default) and one all-reduce, or with ``ffn_group(i,
+    hs)`` given (the ep-sharded MoE) that call's FFN outputs, already
+    reduced over its own ranks, on each tp rank's device. ``xs`` is the
+    residual stream on each rank's device; returns it after the last
+    layer."""
     ffn = ffn or _ffn
     for i in range(cfg.n_layers):
         layers = [_layer(p, i) for p in ranks]
@@ -414,10 +418,14 @@ def _stack(group, ranks: List[Params], xs: List[torch.Tensor],
                                      cfg.norm_eps)), layer["wo"])
                  for r, layer in enumerate(layers)]
         xs = [x + y for x, y in zip(xs, group.all_reduce(parts))]
-        parts = [ffn(layer, rms_norm(xs[r], layer["ffn_norm"],
-                                     cfg.norm_eps))
-                 for r, layer in enumerate(layers)]
-        xs = [x + y for x, y in zip(xs, group.all_reduce(parts))]
+        hs = [rms_norm(xs[r], layer["ffn_norm"], cfg.norm_eps)
+              for r, layer in enumerate(layers)]
+        if ffn_group is not None:
+            outs = ffn_group(i, hs)
+        else:
+            outs = group.all_reduce([ffn(layer, h)
+                                     for layer, h in zip(layers, hs)])
+        xs = [x + y for x, y in zip(xs, outs)]
     return xs
 
 
@@ -432,14 +440,16 @@ def _logits(group, ranks: List[Params], xs: List[torch.Tensor],
 
 def _prompt_stack(params, cfg: LlamaConfig, tokens: torch.Tensor,
                   cache=None, prefix=None, prefix_len: int = 0, ffn=None,
-                  attend_fn=None):
+                  attend_fn=None, ffn_group=None):
     """The layer stack over a whole prompt (causal attention from 0), or
     with ``prefix`` over a suffix at positions ``prefix_len + i`` that
     attends the prefix's cached K/V too. With ``cache`` given, each
     layer's K/V is written into it in place. ``ffn(layer, h)`` stands in
-    for the dense FFN (the MoE model's expert layer); ``attend_fn(q, k,
-    v)`` for the prompt's attention. Returns (the collectives, the
-    ranks' params, the final hidden states (B, S, D) on each rank)."""
+    for the dense FFN (the MoE model's expert layer), ``ffn_group`` for
+    the FFN and its all-reduce (:func:`_stack`); ``attend_fn(q, k, v)``
+    for the prompt's attention, or a list of one such a rank (each tp
+    rank's own sp ring). Returns (the collectives, the ranks' params,
+    the final hidden states (B, S, D) on each rank)."""
     group, ranks = _ranks(params)
     caches = rank_trees(cache, len(ranks))
     prefixes = rank_trees(prefix, len(ranks))
@@ -448,6 +458,8 @@ def _prompt_stack(params, cfg: LlamaConfig, tokens: torch.Tensor,
                  ).expand(b, s)
     if attend_fn is None:
         attend_fn = flash_attention if cfg.use_flash else prefill_attention
+    attend_fns = attend_fn if isinstance(attend_fn, list) \
+        else [attend_fn] * len(ranks)
     xs = _embed(group, ranks, tokens)
     ropes = _rank_ropes(cfg, xs, positions)
 
@@ -455,7 +467,7 @@ def _prompt_stack(params, cfg: LlamaConfig, tokens: torch.Tensor,
         cos, sin, pos = ropes[r]
         q, k, v = _qkv(layer, h, cfg, cos, sin, pos)
         if prefixes[r] is None:
-            attn = attend_fn(q, k, v)
+            attn = attend_fns[r](q, k, v)
         else:
             pk, pv = _prefix_kv(cfg, prefixes[r], i)
             suffix_attend = _flash_suffix if cfg.use_flash \
@@ -467,7 +479,8 @@ def _prompt_stack(params, cfg: LlamaConfig, tokens: torch.Tensor,
                 caches[r][name][i, :, :s] = rows
         return attn.reshape(b, s, -1)
 
-    return group, ranks, _stack(group, ranks, xs, cfg, attend, ffn)
+    return group, ranks, _stack(group, ranks, xs, cfg, attend, ffn,
+                                ffn_group)
 
 
 def _run_prompt(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
@@ -491,14 +504,21 @@ def forward(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
     runs as ring attention over the ``sp_axis`` ring
     (``parallel/ring_attention``), its batch on ``dp_axis`` and heads on
     ``tp_axis`` where the mesh has them. ``params`` may be a
-    :class:`TPShards` (the tensor-parallel forward)."""
+    :class:`TPShards` (the tensor-parallel forward), or a tree of
+    ``parallel/sharding.Sharded`` leaves over a mesh (the train and eval
+    steps': :func:`_mesh_rows`), whose ring, with ``mesh`` given, runs
+    over the leaves' own mesh."""
+    if mesh is not None:
+        _check_mesh(mesh, "llama.forward")
+    if _sharded(params):
+        rows = _mesh_rows(params, cfg, tokens, mesh is not None, sp_axis,
+                         dp_axis, tp_axis)
+        home = tokens.device
+        return torch.cat([_logits(group, ranks, xs, cfg).to(home)
+                          for group, ranks, xs in rows], dim=0)
     attend_fn = None
     if mesh is not None:
-        from gofr_tpu_torch.parallel.mesh import Mesh
         from gofr_tpu_torch.parallel.ring_attention import ring_attention
-        if not isinstance(mesh, Mesh):
-            raise ValueError(f"llama.forward: mesh must be a gofr_tpu_torch."
-                             f"parallel.mesh.Mesh, got {type(mesh).__name__}")
 
         def attend_fn(q, k, v):
             return ring_attention(
@@ -510,23 +530,106 @@ def forward(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
     return _logits(group, ranks, xs, cfg)
 
 
+def _check_mesh(mesh, owner: str) -> None:
+    from gofr_tpu_torch.parallel.mesh import Mesh
+    if not isinstance(mesh, Mesh):
+        raise ValueError(f"{owner}: mesh must be a gofr_tpu_torch."
+                         f"parallel.mesh.Mesh, got {type(mesh).__name__}")
+
+
+def _sharded(params) -> bool:
+    from gofr_tpu_torch.parallel.sharding import is_sharded
+    return not isinstance(params, TPShards) and is_sharded(params)
+
+
+def _mesh_rows(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
+               ring: bool = False, sp_axis: str = "sp", dp_axis: str = "dp",
+               tp_axis: str = "tp"):
+    """The forward over a tree of ``Sharded`` leaves (``parallel/
+    sharding.llama_param_specs``, pruned to their mesh), as GSPMD runs
+    JAX's under a batch sharded on dp: for each dp coordinate d, its
+    rows of ``tokens`` (B / dp of them) through the :class:`TPShards` of
+    its tp line (each rank's local tree at coordinate d, every other
+    axis 0), one all-reduce after ``wo`` and one after ``w_down``. With
+    ``ring``, each (d, tp rank) coordinate attends through its own ring
+    over the ``sp_axis`` coordinates' devices (``ring_line``: the
+    rank's heads, the sequence cut in sp blocks); the GEMMs of the line
+    run at sp coordinate 0 over the row block's whole sequence. Yields
+    (collectives, ranks, final hidden states) a dp row, in dp order.
+
+    Coordinates of other axes hold replicas and compute nothing:
+    sharing a device they share the tensors, so autograd sums every
+    row's gradient into one (JAX's psum over dp); on distinct devices
+    the copies' gradients are summed by ``sharding.sum_replicas``."""
+    from gofr_tpu_torch.parallel.collectives import Group
+    from gofr_tpu_torch.parallel.ring_attention import ring_line
+    from gofr_tpu_torch.parallel.sharding import local_tree, mesh_of
+
+    mesh = mesh_of(params)
+    names = mesh.axis_names
+    n_dp = mesh.shape.get(dp_axis, 1)
+    if tokens.shape[0] % n_dp:
+        raise ValueError(f"batch {tokens.shape[0]} does not divide over "
+                         f"{dp_axis} {n_dp}")
+    rows = tokens.shape[0] // n_dp
+    lines = [line for line in mesh.axis_coords(tp_axis)
+             if not any(c for a, c in zip(names, line[0])
+                        if a not in (dp_axis, tp_axis))]
+    for d, line in enumerate(lines):
+        ranks = TPShards([local_tree(params, c) for c in line],
+                         Group([mesh.devices[c] for c in line]))
+        attend_fn = None
+        if ring:
+            at = names.index(sp_axis) if sp_axis in names else None
+            n_sp = mesh.shape[sp_axis] if at is not None else 1
+            attend_fn = []
+            for c in line:
+                ring_devs = [mesh.devices[c if at is None else
+                                          c[:at] + (s,) + c[at + 1:]]
+                             for s in range(n_sp)]
+                attend_fn.append(lambda q, k, v, devs=ring_devs:
+                                 ring_line(q, k, v, devs))
+        block = tokens[d * rows:(d + 1) * rows].to(mesh.devices[line[0]])
+        yield _prompt_stack(ranks, cfg, block, attend_fn=attend_fn)
+
+
 def loss_fn(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
             targets: torch.Tensor, mesh=None) -> torch.Tensor:
     """Next-token cross-entropy: the mean over (B, S) of the negative
     log-likelihood of ``targets`` under float32 ``log_softmax`` of
     :func:`forward`'s logits (JAX ``loss_fn``), a float32 scalar.
-    ``mesh`` raises ValueError: training over a mesh is not ported."""
-    if mesh is not None:
-        raise ValueError("llama.loss_fn: mesh= (training over a mesh) is "
-                         "not ported; the port trains on one device")
-    return mean_nll(forward(params, cfg, tokens), targets)
+    ``mesh``: :func:`forward`'s ring attention over its sp axis. Over
+    ``Sharded`` params each dp row's NLL is taken on its own rows and
+    the rows' NLLs are gathered, then averaged once: the mean over the
+    whole global batch, as JAX's."""
+    if _sharded(params):
+        home = tokens.device
+        targets = torch.as_tensor(targets, device=home)
+        if mesh is not None:
+            _check_mesh(mesh, "llama.loss_fn")
+        rows = _mesh_rows(params, cfg, tokens, mesh is not None)
+        nlls, at = [], 0
+        for group, ranks, xs in rows:
+            logits = _logits(group, ranks, xs, cfg)
+            n = logits.shape[0]
+            nlls.append(token_nll(logits, targets[at:at + n].to(
+                logits.device)).to(home))
+            at += n
+        return torch.cat(nlls, dim=0).mean()
+    return mean_nll(forward(params, cfg, tokens, mesh=mesh), targets)
+
+
+def token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """The negative log-likelihood of each of ``targets`` (B, S) under
+    float32 ``log_softmax`` of ``logits`` (B, S, V)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, targets.long()[..., None])[..., 0]
 
 
 def mean_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Mean negative log-likelihood of ``targets`` (B, S) under float32
     ``log_softmax`` of ``logits`` (B, S, V)."""
-    logp = torch.log_softmax(logits, dim=-1)
-    return -logp.gather(-1, targets.long()[..., None])[..., 0].mean()
+    return token_nll(logits, targets).mean()
 
 
 def prefill(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,

@@ -29,6 +29,9 @@
   router through the gate and the aux term's mean probabilities; the
   argmax, the one-hot and the cumsum of the capacity positions carry
   none, as in JAX.
+- :func:`forward` and :func:`loss_fn` also run over a tree sharded by
+  ``parallel/sharding.moe_param_specs`` (:func:`_mesh_stack`: each (ep,
+  tp) rank its experts' FFN slice, one all-reduce over ep × tp).
 """
 
 from __future__ import annotations
@@ -139,12 +142,17 @@ def init(cfg: MoEConfig, seed: int = 0,
 
 
 def _moe_ffn(layer: Dict[str, Any], x: torch.Tensor, cfg: MoEConfig,
-             drops: Optional[list] = None
+             drops: Optional[list] = None,
+             expert_slice: Optional[slice] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) → (out (B, S, D), aux loss scalar): top-1 capacity
     routing with einsum dispatch and combine (JAX ``_moe_ffn``). With
     ``drops`` given, the count of tokens past their expert's capacity
-    (a 0-d float32 tensor, no host sync) is appended to it."""
+    (a 0-d float32 tensor, no host sync) is appended to it. With
+    ``expert_slice`` (an ep rank's slice of the expert axis, whose weights
+    ``layer`` holds, each over its tp slice of the FFN width), the
+    routing is still every expert's, over all of x's tokens, and ``out``
+    is those experts' share of the combine, a part of an all-reduce."""
     b, s, d = x.shape
     e = cfg.n_experts
     tokens = b * s
@@ -169,7 +177,8 @@ def _moe_ffn(layer: Dict[str, Any], x: torch.Tensor, cfg: MoEConfig,
     # dispatch (T, E, C) one-hot → expert inputs (E, C, D); a dropped
     # token's position is past C: its one-hot row is zeros
     slots = torch.arange(capacity, device=x.device)
-    dispatch = kept[:, :, None] * (pos_idx[:, None] == slots).float()[
+    mine = kept if expert_slice is None else kept[:, expert_slice]
+    dispatch = mine[:, :, None] * (pos_idx[:, None] == slots).float()[
         :, None, :]
     expert_in = torch.einsum("tec,td->ecd", dispatch, flat).to(x.dtype)
 
@@ -199,9 +208,16 @@ def forward(params: Params, cfg: MoEConfig, tokens: torch.Tensor,
             drops: Optional[list] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """→ (logits (B, S, V) float32, aux loss: the layers' mean). With
-    ``drops`` given, each layer appends its count of dropped tokens."""
+    ``drops`` given, each layer appends its count of dropped tokens.
+    ``params`` may be a tree of ``Sharded`` leaves over a mesh
+    (``parallel/sharding.moe_param_specs``, pruned to it):
+    :func:`_mesh_stack`."""
     base = cfg.base
     aux = []
+    if llama_mod._sharded(params):
+        group, ranks, xs = _mesh_stack(params, cfg, tokens, drops, aux)
+        logits = llama_mod._logits(group, ranks, xs, base)
+        return logits, torch.stack(aux).sum() / base.n_layers
 
     def ffn(layer, h):
         out, layer_aux = _moe_ffn(layer, h, cfg, drops)
@@ -213,6 +229,61 @@ def forward(params: Params, cfg: MoEConfig, tokens: torch.Tensor,
     x = rms_norm(x, params["out_norm"], base.norm_eps)
     logits = qmm(x, params["lm_head"]).float()
     return logits, torch.stack(aux).sum() / base.n_layers
+
+
+def _mesh_stack(params: Params, cfg: MoEConfig, tokens: torch.Tensor,
+                drops: Optional[list], aux: list):
+    """The forward over an ep × tp sharded tree (JAX's GSPMD layout:
+    experts on ep, the FFN width on tp, attention tp-sharded, routers
+    replicated), as ``llama._mesh_rows``' tp body: attention through the
+    tp line at ep 0 (its ranks' heads, one all-reduce over tp after
+    ``wo``: the ep coordinates hold replicas of attention, not parts);
+    then every (ep, tp) rank routes all tokens in float32 (the same
+    routing everywhere), runs its experts' share of the dispatch, its
+    GEMMs on its [E/ep, D, F/tp] weights and the combine over its
+    experts (:func:`_moe_ffn` with ``expert_slice``), and one all-reduce
+    over the ep × tp ranks sums the parts. The aux loss and the drops are
+    rank (0, 0)'s. The batch is not cut: JAX's capacity is per call,
+    ``ceil(T / E · capacity_factor)`` over all T tokens in (row,
+    position) order, so every rank sees the whole batch, and the
+    coordinates of other axes (dp) hold replicas. Returns (the tp
+    collectives, the tp ranks' params, the final hidden states on each
+    tp rank)."""
+    from gofr_tpu_torch.parallel.collectives import Group
+    from gofr_tpu_torch.parallel.sharding import local_tree, mesh_of
+
+    mesh = mesh_of(params)
+    names = mesh.axis_names
+    n_ep, n_tp = mesh.shape.get("ep", 1), mesh.shape.get("tp", 1)
+
+    def at(e, r):
+        return tuple({"ep": e, "tp": r}.get(a, 0) for a in names)
+
+    grid = [[at(e, r) for r in range(n_tp)] for e in range(n_ep)]
+    trees = [[local_tree(params, c) for c in row] for row in grid]
+    attn = llama_mod.TPShards(trees[0], Group([mesh.devices[c]
+                                               for c in grid[0]]))
+    everyone = Group([mesh.devices[c] for row in grid for c in row])
+    per_rank = cfg.n_experts // n_ep
+
+    def ffn_group(i, hs):
+        parts = []
+        for e, row in enumerate(grid):
+            for r, coord in enumerate(row):
+                lead = (e, r) == (0, 0)
+                out, layer_aux = _moe_ffn(
+                    llama_mod._layer(trees[e][r], i),
+                    hs[r].to(mesh.devices[coord]), cfg,
+                    drops if lead else None,
+                    slice(e * per_rank, (e + 1) * per_rank))
+                if lead:
+                    aux.append(layer_aux)
+                parts.append(out)
+        return everyone.all_reduce(parts)[:n_tp]
+
+    return llama_mod._prompt_stack(attn, _dense_attention_cfg(cfg),
+                                   tokens.to(mesh.devices[grid[0][0]]),
+                                   ffn_group=ffn_group)
 
 
 def _check_serving_cfg(cfg: MoEConfig) -> llama_mod.LlamaConfig:

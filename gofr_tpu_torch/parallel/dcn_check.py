@@ -19,8 +19,9 @@ two ranks on one GPU); gloo serves there, staging the CUDA tensor
 through the host for its all-reduce. Each child reports the backend
 that served.
 
-Run standalone:  python -m gofr_tpu_torch.parallel.dcn_check [cpu|cuda]
-(parent mode: spawns both children, prints their reports).
+Run standalone:  python -m gofr_tpu_torch.parallel.dcn_check [cuda|cpu]
+(parent mode: spawns both children, prints their reports; the card
+unless ``cpu`` is given).
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ def _child() -> None:
     from gofr_tpu_torch.parallel import collectives, multihost
     from gofr_tpu_torch.parallel.sharding import P, shard_slices
 
-    device = torch.device(os.environ.get("GOFR_DCN_DEVICE", "cpu"))
+    device = torch.device(os.environ.get("GOFR_DCN_DEVICE", "cuda"))
     local_devices = int(os.environ.get("GOFR_DCN_LOCAL_DEVICES", "4"))
     backend = os.environ.get("GOFR_DCN_BACKEND") or "gloo"
     started = multihost.initialize_distributed(backend=backend)
@@ -91,13 +92,20 @@ def _free_port() -> int:
 
 
 def run_two_process_check(local_devices: int = 4, timeout: float = 180.0,
-                          device: str = "cpu",
+                          device: str = "cuda",
                           backend: Optional[str] = None) -> List[Dict]:
     """Spawn the 2-process job; returns both children's reports (the
     parent asserts nothing itself — callers check ``ok``/``psum``).
-    ``device`` is each child's (``cpu`` or ``cuda``), ``backend`` the
-    process group's (default gloo, which serves both)."""
+    ``device`` is each child's, the card by default (raises without
+    CUDA, as every entry point of the port does; ``device="cpu"`` asks
+    for the CPU); ``backend`` the process group's (default gloo, which
+    serves both). The one divergence from JAX's check, which pins its
+    children to the CPU: the port's runs where its caller's device is."""
     import tempfile
+
+    from gofr_tpu_torch.device import resolve_device
+
+    device = str(resolve_device(device).type)
 
     port = _free_port()
     repo_root = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -149,5 +157,5 @@ if __name__ == "__main__":
         _child()
     else:
         for entry in run_two_process_check(
-                device=sys.argv[1] if len(sys.argv) > 1 else "cpu"):
+                device=sys.argv[1] if len(sys.argv) > 1 else "cuda"):
             print(json.dumps(entry))

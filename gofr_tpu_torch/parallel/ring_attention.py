@@ -12,7 +12,10 @@ Pallas kernel in the reference), here in PyTorch. The mesh is
 single-controller: the caller passes full tensors, every coordinate's
 shard (batch on ``batch_axis``, sequence on ``axis_name``, heads on
 ``head_axis``) runs its ring on its device, and the shards are
-reassembled into the full output on q's device.
+reassembled into the full output on q's device. :func:`ring_line` is
+one such ring for a caller that already holds one (dp, tp) coordinate's
+q, k and v (a tp rank's heads, a dp row's batch): the train step's
+attention over the sp axis, each rank's ring over its own heads.
 """
 
 from __future__ import annotations
@@ -86,6 +89,26 @@ def _ring(qs, ks, vs, devices, causal: bool):
         v_blk = ppermute(v_blk, devices)
     return [(acc / torch.clamp(to_act(l), min=1e-30)).to(q.dtype)
             for acc, l, q in zip(accs, ls, qs)]
+
+
+def ring_line(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              devices, causal: bool = True) -> torch.Tensor:
+    """Ring attention over one line of sp ranks: the sequence of q
+    (B, S, Hq, D) and k/v (B, S, Hkv, D) cut into ``len(devices)``
+    contiguous blocks, block r on ``devices[r]``, every head of the
+    caller's in every block (no head cut); returns the full output on
+    q's device. Differentiable: the blocks are concatenated, not
+    written into a buffer."""
+    n = len(devices)
+    if q.shape[1] % n:
+        raise ValueError(f"sequence {q.shape[1]} does not divide over "
+                         f"{n} sp ranks")
+
+    def cut(x):
+        return [part.to(dev) for part, dev in zip(x.chunk(n, dim=1),
+                                                  devices)]
+    blocks = _ring(cut(q), cut(k), cut(v), list(devices), causal)
+    return torch.cat([b.to(q.device) for b in blocks], dim=1)
 
 
 def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

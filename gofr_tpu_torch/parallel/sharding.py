@@ -23,6 +23,14 @@ slice they both hold (a replicated leaf is held once a device, and on
 its own device not copied at all). :func:`gather_pytree` reassembles
 full leaves (tests, checkpoints); :func:`local_tree` is one
 coordinate's tree of plain tensors.
+
+Trees that train (``parallel/train``): :func:`map_distinct` maps a
+function over a leaf's distinct tensors, once each, keeping which
+coordinates share a result, so moments and gradients take the params'
+layout and an optimizer step touches each tensor once however many
+coordinates hold it; :func:`sum_replicas` sums the gradients of copies
+of one slice held apart (distinct devices, or :func:`assemble`'s own
+tensors), JAX's psum over the axes a leaf is replicated on.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import torch
 
 from gofr_tpu_torch.device import resolve_device
 from gofr_tpu_torch.parallel.mesh import Mesh
+from gofr_tpu_torch.utils import tree as tree_util
 
 Axis = Union[None, str, Tuple[str, ...]]
 
@@ -135,6 +144,19 @@ class Sharded:
         return sum(t.numel() * t.element_size()
                    for t in self.distinct_shards())
 
+    def item(self):
+        """A 0-d leaf's value (every coordinate holds the same: a 0-d
+        leaf is replicated)."""
+        if self.shape != ():
+            raise ValueError(f"item() of a leaf of shape {self.shape}")
+        return self.shards.flat[0].item()
+
+    def __int__(self) -> int:
+        return int(self.item())
+
+    def __float__(self) -> float:
+        return float(self.item())
+
     def gather(self, device: Optional[torch.device] = None) -> torch.Tensor:
         """The full leaf, reassembled from the shards on ``device``
         (default: the first coordinate's)."""
@@ -151,11 +173,13 @@ class Sharded:
                 f"{dict(self.mesh.shape)})")
 
 
-def shard_leaf(x: torch.Tensor, mesh: Mesh, spec: P) -> Sharded:
+def shard_leaf(x: torch.Tensor, mesh: Mesh, spec: P,
+               own: bool = False) -> Sharded:
     """``x`` cut by ``spec`` over ``mesh``, one copy for each distinct
     (device, slice): coordinates on one device share their slice's
-    tensor, and a whole-leaf slice on ``x``'s own device is ``x`` itself.
-    A shard is read, never written in place (parameters)."""
+    tensor, and a whole-leaf slice on ``x``'s own device is ``x`` itself
+    unless ``own``, which copies that one too, so that a train state
+    stepped in place never writes the caller's tensor."""
     x = torch.as_tensor(x)
     shards = np.empty(mesh.devices.shape, dtype=object)
     made: Dict[Tuple[str, tuple], torch.Tensor] = {}
@@ -166,7 +190,7 @@ def shard_leaf(x: torch.Tensor, mesh: Mesh, spec: P) -> Sharded:
         if key not in made:
             whole = all(s.stop - s.start == size
                         for s, size in zip(cut, x.shape))
-            if whole and x.device == dev:
+            if whole and x.device == dev and not own:
                 made[key] = x
             else:
                 part = x[cut]
@@ -227,14 +251,94 @@ def _map_leaves(fn: Callable[[Any], Any], tree: Any) -> Any:
     if isinstance(tree, dict):
         return {key: _map_leaves(fn, val) for key, val in tree.items()}
     if isinstance(tree, (list, tuple)) and not isinstance(tree, P):
-        return type(tree)(_map_leaves(fn, val) for val in tree)
+        items = [_map_leaves(fn, val) for val in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") \
+            else type(tree)(items)
     return None if tree is None else fn(tree)
 
 
-def shard_pytree(tree: Any, mesh: Mesh, specs: Any) -> Any:
+def shard_pytree(tree: Any, mesh: Mesh, specs: Any, own: bool = False
+                 ) -> Any:
     """Every leaf as a :class:`Sharded` by its spec (specs mirrors
-    tree)."""
-    return map_specs(lambda x, s: shard_leaf(x, mesh, s), tree, specs)
+    tree); ``own`` as in :func:`shard_leaf`."""
+    return map_specs(lambda x, s: shard_leaf(x, mesh, s, own), tree, specs)
+
+
+def map_distinct(fn: Callable[[torch.Tensor], torch.Tensor],
+                 leaf: Any) -> Any:
+    """``fn(t)`` for each distinct tensor ``t`` of a :class:`Sharded`
+    ``leaf``, once each, as a :class:`Sharded` of ``leaf``'s layout:
+    coordinates that share a tensor in ``leaf`` share its result. A
+    plain tensor is ``fn(leaf)``."""
+    if not isinstance(leaf, Sharded):
+        return fn(leaf)
+    made: Dict[int, torch.Tensor] = {}
+    shards = np.empty(leaf.shards.shape, dtype=object)
+    for coord in leaf.mesh.coords():
+        t = leaf.shards[coord]
+        if id(t) not in made:
+            made[id(t)] = fn(t)
+        shards[coord] = made[id(t)]
+    return Sharded(leaf.mesh, leaf.spec, leaf.shape, shards.flat[0].dtype,
+                   shards)
+
+
+def map_distinct_tree(fn: Callable[[torch.Tensor], torch.Tensor],
+                      tree: Any) -> Any:
+    """:func:`map_distinct` over every leaf of ``tree``."""
+    return tree_util.tree_map(lambda leaf: map_distinct(fn, leaf), tree)
+
+
+def clone_tree(tree: Any) -> Any:
+    """A copy of every distinct tensor of ``tree``, sharing kept."""
+    return map_distinct_tree(torch.clone, tree)
+
+
+def distinct_tensors(leaf: Any) -> List[torch.Tensor]:
+    """A :class:`Sharded` leaf's distinct tensors (in the order of the
+    coordinates first holding them), or ``[leaf]``."""
+    return leaf.distinct_shards() if isinstance(leaf, Sharded) else [leaf]
+
+
+def sum_replicas(leaf: Any) -> Any:
+    """A :class:`Sharded` gradient whose copies of one slice held in
+    distinct tensors are each replaced by their sum
+    (``collectives.all_reduce``: float32 in coordinate order, one
+    rounding), so every replica then takes the same step bit for bit.
+    Where each slice is one tensor (shards sharing a device) it is
+    ``leaf`` itself."""
+    if not isinstance(leaf, Sharded):
+        return leaf
+    from gofr_tpu_torch.parallel.collectives import all_reduce
+
+    groups: Dict[tuple, List[torch.Tensor]] = {}
+    for coord in leaf.mesh.coords():
+        cut = shard_slices(leaf.shape, leaf.mesh, leaf.spec, coord)
+        group = groups.setdefault(tuple((c.start, c.stop) for c in cut), [])
+        t = leaf.shards[coord]
+        if all(t is not u for u in group):
+            group.append(t)
+    if all(len(g) == 1 for g in groups.values()):
+        return leaf
+    summed: Dict[int, torch.Tensor] = {}
+    for group in groups.values():
+        for t, total in zip(group, all_reduce(group,
+                                              [u.device for u in group])):
+            summed[id(t)] = total
+    return map_distinct(lambda t: summed[id(t)], leaf)
+
+
+def mesh_of(tree: Any) -> Optional[Mesh]:
+    """The mesh of ``tree``'s first :class:`Sharded` leaf (None: none)."""
+    if isinstance(tree, Sharded):
+        return tree.mesh
+    children = tree.values() if isinstance(tree, dict) else (
+        tree if isinstance(tree, (list, tuple)) else ())
+    for child in children:
+        mesh = mesh_of(child)
+        if mesh is not None:
+            return mesh
+    return None
 
 
 def gather_pytree(tree: Any, device=None) -> Any:
@@ -316,8 +420,10 @@ def llama_prefix_pool_specs(tp: str = "tp",
 def moe_param_specs(tp: str = "tp", ep: str = "ep") -> Dict[str, Any]:
     """PartitionSpecs for ``models/moe``: expert-stacked FFN weights
     (L, E, D, F) shard the expert axis on ``ep``; attention stays
-    Megatron tensor-parallel on ``tp``; routers replicate. A spec tree
-    only: the ep-sharded MoE forward is not ported."""
+    Megatron tensor-parallel on ``tp``; routers replicate. The MoE's
+    ``forward`` and ``loss_fn`` run over a tree sharded by it
+    (``models/moe``: each (ep, tp) rank its experts' FFN slice, one
+    all-reduce over ep × tp)."""
     specs = llama_param_specs(tp)
     layers = dict(specs["layers"])
     layers.pop("w_gate"), layers.pop("w_up"), layers.pop("w_down")

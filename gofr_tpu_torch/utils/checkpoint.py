@@ -12,6 +12,13 @@ publishes atomically: written under ``.tmp_ckpt_*``, the old copy moved
 aside to ``step_N.old`` first when overwriting, so a crash between the
 two renames leaves one of them, and :func:`latest_step` and
 :func:`restore_checkpoint` find either.
+
+Sharded trees: a leaf that is a ``parallel/sharding.Sharded`` is saved
+as its full leaf, gathered from its shards (JAX saves global arrays), so
+the file is the same whatever mesh wrote it. ``restore_checkpoint(...,
+sharding=)`` takes JAX's argument, one ``NamedSharding`` for every leaf
+or a tree of them like ``like``, and returns ``Sharded`` leaves on that
+mesh's devices, one copy for each distinct (device, slice).
 """
 
 from __future__ import annotations
@@ -42,6 +49,10 @@ def _dtype_name(dtype: torch.dtype) -> str:
 
 def _to_numpy(leaf: Any):
     """(array as stored, its real dtype's name) for one leaf."""
+    from gofr_tpu_torch.parallel.sharding import Sharded
+
+    if isinstance(leaf, Sharded):
+        leaf = leaf.gather(torch.device("cpu"))
     if not isinstance(leaf, torch.Tensor):
         array = np.asarray(leaf)
         return array, str(array.dtype)
@@ -127,12 +138,22 @@ def _step_path(directory: str, step: int) -> str:
 
 
 def restore_checkpoint(directory: str, like: Any, step: Optional[int] = None,
-                       device: Union[str, torch.device] = "cuda") -> Any:
-    """Restore into the structure of ``like`` (a tree of tensors, on any
-    device, ``meta`` included) on ``device``; ``step=None`` takes the
-    latest. A leaf whose saved dtype differs from ``like``'s is cast to
-    ``like``'s, as JAX's restore casts to its ``like``."""
-    dev = resolve_device(device)
+                       device: Union[str, torch.device] = "cuda",
+                       sharding: Any = None) -> Any:
+    """Restore into the structure of ``like`` (a tree of tensors or
+    ``Sharded`` leaves, on any device, ``meta`` included) on ``device``,
+    or with ``sharding`` (a ``NamedSharding`` for every leaf, or a tree
+    of them like ``like``) as ``Sharded`` leaves on its mesh;
+    ``step=None`` takes the latest. A leaf whose saved dtype differs
+    from ``like``'s is cast to ``like``'s, as JAX's restore casts to its
+    ``like``."""
+    from gofr_tpu_torch.parallel.sharding import NamedSharding, shard_leaf
+
+    dev = resolve_device(device) if sharding is None else None
+    if sharding is None or isinstance(sharding, NamedSharding):
+        shardings = {}
+    else:
+        shardings = tree_util.flatten(sharding)
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -149,7 +170,14 @@ def restore_checkpoint(directory: str, like: Any, step: Optional[int] = None,
             dtype = getattr(leaf_like, "dtype", None)
             if isinstance(dtype, torch.dtype) and dtype != value.dtype:
                 value = value.to(dtype)
-            leaves[key] = value.to(dev)
+            if sharding is None:
+                leaves[key] = value.to(dev)
+                continue
+            target = shardings.get(key, sharding)
+            if not isinstance(target, NamedSharding):
+                raise ValueError(f"sharding for {key!r}: expected a "
+                                 f"NamedSharding, got {target!r}")
+            leaves[key] = shard_leaf(value, target.mesh, target.spec)
     return tree_util.unflatten(like, leaves)
 
 

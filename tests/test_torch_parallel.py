@@ -375,7 +375,8 @@ def test_two_process_dcn_check_reports_the_global_sum():
     4 CPU shards each, one all-reduce across the process boundary."""
     from gofr_tpu_torch.parallel.dcn_check import run_two_process_check
 
-    reports = run_two_process_check(local_devices=4, timeout=120)
+    reports = run_two_process_check(local_devices=4, timeout=120,
+                                    device="cpu")
     assert sorted(r["process"] for r in reports) == [0, 1]
     for report in reports:
         assert report["ok"] and report["psum"] == 28.0

@@ -8,6 +8,14 @@ tests/test_torch_parallel_cuda.py -q --noconftest``.
   counts of both are the same (each rank's kernels).
 - A mesh of one shard gives the unsharded engine's greedy tokens bit for
   bit.
+- Training over a mesh on cuda:0 shards: a dp 2 × tp 2 × sp 2 float32
+  step equals the unsharded step within chip_smoke.py's phase 40 float32
+  gates (loss 1e-5 relative; each moment leaf within 1e-4 of its
+  largest; params within 1e-4 of the leaf's largest where the first
+  moment is settled, 2·lr elsewhere); the eval over tp 2 launches the
+  flash kernel once a layer and rank, within 1e-2 of the one-device
+  flash eval; a sharded state's checkpoint restores with ``sharding=``
+  bit for bit, shard for shard.
 """
 
 import asyncio
@@ -17,9 +25,12 @@ import pytest
 import torch
 
 from gofr_tpu_torch.models import llama
+from gofr_tpu_torch.ops.cuda import flash_attention as flash_mod
 from gofr_tpu_torch.ops.cuda import launch_counts
-from gofr_tpu_torch.parallel import make_mesh
+from gofr_tpu_torch.parallel import make_mesh, sharding, train
 from gofr_tpu_torch.tpu.generate import GenerationEngine
+from gofr_tpu_torch.utils import restore_checkpoint, save_checkpoint
+from gofr_tpu_torch.utils import tree as tree_util
 
 pytestmark = pytest.mark.cuda
 
@@ -119,3 +130,76 @@ def test_one_shard_mesh_is_the_unsharded_engine(cuda):
         finally:
             await eng.stop()
     assert asyncio.run(serve(sharded)) == asyncio.run(serve(engine))
+
+
+def _tokens(cuda, vocab, shape, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    tokens = torch.randint(0, vocab, shape, generator=gen, device=cuda)
+    return tokens, torch.roll(tokens, -1, dims=1)
+
+
+def _full(tree):
+    return {key: leaf.gather() if isinstance(leaf, sharding.Sharded)
+            else leaf for key, leaf in tree_util.flatten(tree).items()}
+
+
+def test_mesh_train_step_is_the_unsharded_step(cuda):
+    cfg = llama.config("tiny", dtype=torch.float32)
+    mesh = make_mesh({"dp": 2, "tp": 2, "sp": 2}, [cuda] * 8)
+    tokens, targets = _tokens(cuda, cfg.vocab_size, (4, 64), 40)
+    init_fn, step_fn = train.make_train_step(cfg, device=cuda)
+    _, mesh_step = train.make_train_step(cfg, mesh, use_sp=True, device=cuda)
+    state = init_fn(0)
+    mstate = train.shard_train_state(state, mesh)
+    _, loss = step_fn(state, tokens, targets)
+    _, mesh_loss = mesh_step(mstate, tokens, targets)
+    assert abs(mesh_loss.item() - loss.item()) <= 1e-5 * loss.item()
+    got, want = _full(mstate), _full(state)
+    for key, ref in want.items():
+        d = (got[key].float() - ref.float()).abs()
+        scale = ref.float().abs().max().item()
+        if "/.mu/" in key or "/.nu/" in key:
+            assert d.max().item() <= 1e-4 * scale, key
+        elif key.startswith(".params/"):
+            mu = want[".opt_state/0/.mu/" + key[len(".params/"):]].abs()
+            settled = mu > 1e-2 * mu.max()
+            assert d[settled].max().item() <= 1e-4 * scale, key
+            assert d.max().item() <= 2 * 3e-4, key
+        else:
+            assert torch.equal(got[key].cpu(), ref.cpu()), key
+
+
+def test_eval_over_tp2_runs_the_flash_kernel(cuda):
+    cfg = llama.config("tiny", dim=256, n_heads=4, n_kv_heads=2,
+                       use_flash=True)
+    params = llama.init(cfg, 0, device=cuda)
+    mesh = make_mesh({"tp": 2}, [cuda] * 2)
+    tokens, targets = _tokens(cuda, cfg.vocab_size, (2, 128), 41)
+    flash_mod.reset_launches()
+    loss = train.make_eval_step(cfg, mesh, device=cuda)(params, tokens,
+                                                        targets)
+    torch.cuda.synchronize()
+    assert flash_mod.launches == cfg.n_layers * 2
+    one = train.make_eval_step(cfg, device=cuda)(params, tokens, targets)
+    assert abs(loss.item() - one.item()) <= 1e-2 * one.item()
+
+
+def test_sharded_checkpoint_round_trip_is_bitwise(cuda, tmp_path):
+    cfg = llama.config("tiny")
+    mesh = make_mesh({"dp": 2, "tp": 2}, [cuda] * 4)
+    tokens, targets = _tokens(cuda, cfg.vocab_size, (2, 32), 42)
+    init_fn, step_fn = train.make_train_step(cfg, mesh, device=cuda)
+    state, _ = step_fn(init_fn(0), tokens, targets)
+    save_checkpoint(str(tmp_path), state, step=1)
+    restored = restore_checkpoint(
+        str(tmp_path), state,
+        sharding=tree_util.tree_map(lambda leaf: leaf.sharding, state))
+    want = tree_util.flatten(state)
+    for key, leaf in tree_util.flatten(restored).items():
+        assert leaf.spec == want[key].spec, key
+        assert len(leaf.distinct_shards()) == \
+            len(want[key].distinct_shards()), key
+        for coord, t in leaf.addressable_shards:
+            ref = want[key].shard(coord)
+            assert t.device == ref.device and t.dtype == ref.dtype, key
+            assert torch.equal(_bits(t), _bits(ref)), (key, coord)

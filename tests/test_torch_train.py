@@ -126,9 +126,9 @@ def test_llama_loss_and_grads_match_jax(jax_run):
 
 def test_llama_forward_refuses_a_mesh():
     """``forward(mesh=)`` is served (ring attention over the sp axis, the
-    unsharded forward's logits within 1e-5 at f32); a non-mesh object is
-    refused, and ``loss_fn(mesh=)`` until training over a mesh is
-    ported."""
+    unsharded forward's logits within 1e-5 at f32), and so is
+    ``loss_fn(mesh=)`` (the unsharded loss within 1e-6 relative); a
+    non-mesh object is refused by both."""
     from gofr_tpu_torch.parallel import make_mesh
 
     _, pcfg = _configs()
@@ -141,8 +141,12 @@ def test_llama_forward_refuses_a_mesh():
         pt_llama.forward(params, pcfg, tokens).numpy(), atol=1e-5)
     with pytest.raises(ValueError, match="mesh"):
         pt_llama.forward(params, pcfg, tokens, mesh=object())
+    np.testing.assert_allclose(
+        float(pt_llama.loss_fn(params, pcfg, tokens, tokens, mesh=mesh)),
+        float(pt_llama.loss_fn(params, pcfg, tokens, tokens)),
+        rtol=LOSS_RTOL)
     with pytest.raises(ValueError, match="mesh"):
-        pt_llama.loss_fn(params, pcfg, tokens, tokens, mesh=mesh)
+        pt_llama.loss_fn(params, pcfg, tokens, tokens, mesh=object())
 
 
 def test_moe_loss_grads_and_drops_match_jax():
