@@ -425,12 +425,28 @@ Phases, each of which raises (exit code != 0) on failure:
     (bits, specs and mesh kept; step 3 equal to the straight run's
     wherever two straight runs agree bit for bit, within their spread
     elsewhere) and with ``device=`` (the gathered shards' bits).
+41. the datasources on the card (after phase 38): the example app at its
+    defaults with ``PUBSUB_BACKEND=KAFKA``, sqlite on a file and Redis
+    over RESP2, against ``scripts/wire_brokers.py``'s in-process Kafka
+    log, MQTT broker and RESP server. Two migrations (one SQL, one Redis)
+    before ``start()``, applied once; ``/.well-known/health`` reports
+    ``sql``, ``redis``, ``pubsub`` and ``tpu`` UP; another service's
+    Kafka client publishes 16 jobs (64-256 prompt tokens, 64 new, greedy)
+    while phase 37's burst comes over HTTP, so the lane's gate pauses the
+    Kafka consumer; every job's tokens, read back over Kafka, equal
+    ``engine.generate`` of its prompt; a malformed job is dead-lettered;
+    the group's committed offset is 17 and a lane restarted in the group
+    consumes nothing; the flash and D 64 ragged kernels launched in the
+    window. Then a lane over the MQTT client runs 8 jobs on the same
+    engine with the same gate and no new graph. Printed: the lane's tok/s
+    over Kafka and MQTT beside phase 35a's in memory, wire bytes a job,
+    the app's start seconds and the phase's seconds.
 
 Depth is cut, width never: the ``llama3-8b`` engines run 8 of 32
 layers (``--layers``), and every ``small`` phase but the app's (20-23,
 24's ``small`` half, 26-31, 32d, 33e, 35, 39c, 39f) 2 of its 8
-(``CUT_SMALL_LAYERS``); phases 37 and 38 run the example app at its
-defaults, ``small`` whole.
+(``CUT_SMALL_LAYERS``); phases 37, 38 and 41 run the example app at
+its defaults, ``small`` whole.
 
 Every engine burst (phases 9-12, 15-18, 20-23, 30a) is served twice:
 counted, then under ``torch.profiler`` for the device's idle share. Every
@@ -8798,6 +8814,376 @@ def phase_mesh_train_multicard(kit, llama, seed, out):
         raise AssertionError("40-multicard: dp 2 across cards diverged")
 
 
+# -- phase 41: the datasources on the card ---------------------------------------
+
+LANE_WIRE_JOBS, LANE_WIRE_MQTT_JOBS, LANE_WIRE_NEW = 16, 8, 64
+LANE_WIRE_TOPICS = dict(BATCH_LANE_TOPIC="lane-jobs",
+                        BATCH_LANE_RESULT_TOPIC="lane-results",
+                        BATCH_LANE_DEAD_TOPIC="lane-dead")
+LANE_WIRE_GROUP = "llama-lane"
+PATH_KERNELS.update({"phase41_lane_kafka": ("flash", "ragged"),
+                     "phase41_lane_mqtt": ("flash", "ragged")})
+
+
+def lane_wire_migrations(calls):
+    """One migration through SQL, one through Redis; ``calls`` counts
+    the runs."""
+    def jobs_table(ds):
+        calls.append(1)
+        ds.sql.execute("CREATE TABLE lane_jobs (id TEXT PRIMARY KEY, "
+                       "tokens INTEGER)")
+
+    def lane_config(ds):
+        calls.append(2)
+        ds.redis.set("lane:max_new_tokens", str(LANE_WIRE_NEW))
+
+    return {1: jobs_table, 2: lane_config}
+
+
+def lane_wire_jobs(cfg, seed, n, lo=64, hi=257, new_tokens=LANE_WIRE_NEW):
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 41)
+    return [dict(id=f"job-{i}",
+                 prompt_ids=rng.integers(0, cfg.vocab_size, int(k)).tolist(),
+                 max_new_tokens=new_tokens)
+            for i, k in enumerate(rng.integers(lo, hi, n))]
+
+
+async def read_topic(client, topic, count, timeout=120.0):
+    """``count`` JSON messages of ``topic`` through a pub/sub client."""
+    out = []
+    for _ in range(count):
+        message = await asyncio.wait_for(client.subscribe(topic), timeout)
+        out.append(json.loads(message.value.decode()))
+        message.commit()
+    return out
+
+
+async def until(predicate, what, timeout=30.0):
+    deadline = time.monotonic() + timeout
+    while not predicate():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"phase 41: timed out waiting for {what}")
+        await asyncio.sleep(0.005)
+
+
+def commit_regressions(commits, group, topic):
+    """Times the group's committed offset on ``topic`` moved back."""
+    offsets = [o for g, t, _, o in commits if (g, t) == (group, topic)]
+    return sum(b < a for a, b in zip(offsets, offsets[1:]))
+
+
+def phase_lane_wire(torch, generate, mods, seed, results, device="cuda",
+                    env=None, sizes=APP_PROMPT_BYTES, n_jobs=LANE_WIRE_JOBS,
+                    n_mqtt=LANE_WIRE_MQTT_JOBS, prompt_range=(64, 257),
+                    new_tokens=LANE_WIRE_NEW, budget=APP_BUDGET):
+    """Phase 41: the example app at its defaults with its datasources
+    configured, its batch lane fed over Kafka, then a lane over MQTT on
+    the same engine. Returns launches by path. A CPU rehearsal passes
+    ``device="cpu"``, ``env`` (e.g. ``{"LLAMA_PRESET": "tiny"}``), prompt
+    ``sizes``, fewer jobs, a ``prompt_range``, ``new_tokens`` and an HTTP
+    ``budget`` that fit its cache and time, with ``check_launches``
+    stubbed."""
+    import tempfile
+
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.datasource.pubsub.kafka import KafkaClient
+    from gofr_tpu_torch.datasource.pubsub.mqtt import MQTTClient
+    from gofr_tpu_torch.examples import llama_generate
+    from gofr_tpu_torch.logging import new_silent_logger
+    from gofr_tpu_torch.tpu import batch_lane as lane_mod
+    from scripts.wire_brokers import KafkaLog, MQTTBroker, RESPServer
+
+    t_phase = time.monotonic()
+    cuda = device == "cuda"
+    kafka, mqtt, resp = KafkaLog(), MQTTBroker(), RESPServer()
+    tmp = tempfile.TemporaryDirectory(prefix="phase41-")
+    topic = LANE_WIRE_TOPICS["BATCH_LANE_TOPIC"]
+    result_topic = LANE_WIRE_TOPICS["BATCH_LANE_RESULT_TOPIC"]
+    dead_topic = LANE_WIRE_TOPICS["BATCH_LANE_DEAD_TOPIC"]
+    broker_addr = f"127.0.0.1:{kafka.port}"
+    lane_env = dict(
+        LANE_WIRE_TOPICS, PUBSUB_BACKEND="KAFKA", KAFKA_BROKER=broker_addr,
+        CONSUMER_ID=LANE_WIRE_GROUP, BATCH_LANE_MAX_INFLIGHT="16",
+        BATCH_LANE_PAUSE_DEPTH="4", BATCH_LANE_RESUME_DEPTH="1",
+        BATCH_LANE_POLL_S="0.005",
+        DB_DIALECT="sqlite", DB_NAME=str(Path(tmp.name) / "lane.db"),
+        REDIS_HOST="127.0.0.1", REDIS_PORT=str(resp.port))
+    out = {}
+    log_ = new_silent_logger()
+
+    def client(cls, values):
+        return cls(MapConfig(values), log_, metrics)
+
+    with app_environment(dict(lane_env, **(env or {}))):
+        app = llama_generate.build_app(device=device)
+        engine = app.engine
+        cfg = engine.cfg
+        metrics = app.container.metrics
+        log(f"== phase 41: the datasources on the card: the example app "
+            f"(dim {cfg.dim}, {cfg.n_layers} layers, head_dim "
+            f"{cfg.head_dim}, {engine.max_slots} slots, max_len "
+            f"{engine.max_len}) with KAFKA at {broker_addr}, sqlite on a "
+            f"file, Redis over RESP2 at :{resp.port}; {n_jobs} Kafka jobs "
+            f"beside an HTTP burst, {n_mqtt} MQTT jobs")
+        calls = []
+        migrations = lane_wire_migrations(calls)
+        app.migrate(migrations)
+        app.migrate(migrations)
+        out["migrations"] = dict(
+            calls=list(calls),
+            journal=app.container.sql.select(
+                "SELECT version, method FROM gofr_migrations"),
+            redis_journal=sorted(app.container.redis.hgetall(
+                "gofr_migrations")),
+            redis_value=app.container.redis.get("lane:max_new_tokens"))
+        jobs = lane_wire_jobs(cfg, seed, n_jobs, *prompt_range, new_tokens)
+        mqtt_jobs = lane_wire_jobs(cfg, seed + 1, n_mqtt, *prompt_range,
+                                   new_tokens)
+        prompts = app_corpus(seed, sizes)
+        bodies = app_bodies(prompts, seed, budget)
+
+        async def main():
+            t0 = time.monotonic()
+            await app.start()
+            out["start_s"] = time.monotonic() - t0
+            lane = app.container.batch_lane
+            # another service: it publishes the jobs and reads the
+            # results; a reader of its own (a group of one) reads the
+            # dead letters
+            producer = client(KafkaClient, dict(
+                KAFKA_BROKER=broker_addr, CONSUMER_ID="lane-results-reader",
+                APP_NAME="lane-producer"))
+            dead_reader = client(KafkaClient, dict(
+                KAFKA_BROKER=broker_addr, CONSUMER_ID="lane-dead-reader",
+                APP_NAME="lane-dead-reader"))
+            try:
+                await engine.generate(jobs[0]["prompt_ids"][:8], 8)
+                status, _, body = await http_call(
+                    app.bound_http_port, "GET", "/.well-known/health")
+                out["health"] = (status, json.loads(body))
+                # the Kafka turn: jobs from another service beside the
+                # HTTP burst
+                for mod in mods:
+                    mod.reset_launches()
+                before = run_counters(engine)
+                wire0 = kafka.wire_bytes()
+                t_lane = time.monotonic()
+                for job in jobs:
+                    producer.publish(topic, json.dumps(job).encode())
+                http = asyncio.ensure_future(http_turn(app.bound_http_port,
+                                                       bodies))
+                got = await read_topic(producer, result_topic, n_jobs)
+                out["kafka_wall_s"] = time.monotonic() - t_lane
+                out["kafka_wire_bytes"] = kafka.wire_bytes() - wire0
+                out["http"] = await http
+                await until(lambda: not lane._jobs, "the lane to settle")
+                out["launches"] = read_launches(mods)
+                after = run_counters(engine)
+                out["counters"] = {k: after[k] - before[k] for k in after}
+                out["kafka_results"] = got
+                out["results_on_topic"] = len(kafka.messages(result_topic))
+                # a malformed job, then the committed offset
+                producer.publish(topic, b"not json \xff")
+                out["dead"] = await read_topic(dead_reader, dead_topic, 1)
+                await until(lambda: kafka.offsets.get(
+                    (LANE_WIRE_GROUP, topic, 0)) == n_jobs + 1,
+                    "the malformed job's commit", 10.0)
+                out["committed"] = kafka.offsets[(LANE_WIRE_GROUP, topic, 0)]
+                out["commit_regressions"] = commit_regressions(
+                    kafka.commits, LANE_WIRE_GROUP, topic)
+                out["lane"] = lane.stats()
+                out["paused_total"] = metrics.value(
+                    "app_pubsub_consumer_paused_total", topic=topic,
+                    reason=lane_mod.PAUSE_ADMISSION) or 0.0
+                # the app's lane stops and leaves the group; a lane on a
+                # new client of the group starts from the committed offset
+                await lane.stop()
+                app.container.pubsub.close()
+                fresh = client(KafkaClient, dict(
+                    KAFKA_BROKER=broker_addr, CONSUMER_ID=LANE_WIRE_GROUP,
+                    APP_NAME="lane-restarted"))
+                restarted = lane_mod.BatchLane(
+                    engine, fresh, topic, result_topic=result_topic,
+                    dead_letter_topic=dead_topic, poll_s=0.005,
+                    metrics=metrics, logger=log_)
+                await restarted.start()
+                group = kafka.groups[LANE_WIRE_GROUP]
+                generation = group["generation"]
+                await until(lambda: group["generation"] > generation
+                            and group["state"] == "stable",
+                            "the restarted member's join")
+                fetches = kafka.fetches
+                await until(lambda: kafka.fetches >= fetches + 2,
+                            "the restarted member's fetches")
+                out["restarted"] = dict(
+                    ok=restarted.jobs_ok, dead=restarted.jobs_dead_lettered,
+                    results_on_topic=len(kafka.messages(result_topic)),
+                    committed=kafka.offsets[(LANE_WIRE_GROUP, topic, 0)])
+                await restarted.stop()
+                fresh.close()
+                out["direct"] = await asyncio.gather(*[
+                    engine.generate(j["prompt_ids"], new_tokens)
+                    for j in jobs])
+                # the MQTT turn on the same engine
+                mqtt_values = dict(MQTT_HOST="127.0.0.1",
+                                   MQTT_PORT=str(mqtt.port), MQTT_QOS="1")
+                lane_client = client(MQTTClient, dict(
+                    mqtt_values, MQTT_CLIENT_ID="lane"))
+                mqtt_producer = client(MQTTClient, dict(
+                    mqtt_values, MQTT_CLIENT_ID="producer"))
+                mqtt_lane = lane_mod.BatchLane(
+                    engine, lane_client, "mqtt-jobs",
+                    result_topic="mqtt-results", poll_s=0.005,
+                    metrics=metrics, logger=log_)
+                try:
+                    reader = asyncio.ensure_future(read_topic(
+                        mqtt_producer, "mqtt-results", n_mqtt))
+                    await mqtt_lane.start()
+                    await until(lambda: mqtt.subscribers("mqtt-jobs")
+                                and mqtt.subscribers("mqtt-results"),
+                                "the MQTT subscriptions")
+                    for mod in mods:
+                        mod.reset_launches()
+                    before = run_counters(engine)
+                    graphs0 = engine.stats()["graphs"]["captured"]
+                    wire0 = mqtt.wire_bytes()
+                    t_mqtt = time.monotonic()
+                    for job in mqtt_jobs:
+                        mqtt_producer.publish("mqtt-jobs",
+                                              json.dumps(job).encode())
+                    out["mqtt_results"] = await reader
+                    out["mqtt_wall_s"] = time.monotonic() - t_mqtt
+                    out["mqtt_wire_bytes"] = mqtt.wire_bytes() - wire0
+                    await until(lambda: not mqtt_lane._jobs,
+                                "the MQTT lane to settle")
+                    out["mqtt_launches"] = read_launches(mods)
+                    after = run_counters(engine)
+                    out["mqtt_counters"] = {k: after[k] - before[k]
+                                            for k in after}
+                    out["mqtt_new_graphs"] = \
+                        engine.stats()["graphs"]["captured"] - graphs0
+                finally:
+                    await mqtt_lane.stop()
+                    lane_client.close()
+                    mqtt_producer.close()
+                out["mqtt_direct"] = await asyncio.gather(*[
+                    engine.generate(j["prompt_ids"], new_tokens)
+                    for j in mqtt_jobs])
+            finally:
+                producer.close()
+                dead_reader.close()
+                await app.stop()
+
+        try:
+            asyncio.run(main())
+        finally:
+            for server in (kafka, mqtt, resp):
+                server.stop()
+            tmp.cleanup()
+    # gates
+    mig = out["migrations"]
+    if mig["calls"] != [1, 2] or [r["version"] for r in mig["journal"]] \
+            != [1, 2] or mig["redis_journal"] != ["1", "2"] \
+            or mig["redis_value"] != str(LANE_WIRE_NEW):
+        raise AssertionError(f"phase 41: migrations {mig}")
+    status, health = out["health"]
+    ups = {name: health.get(name, {}).get("status")
+           for name in ("sql", "redis", "pubsub", "tpu")}
+    if status != 200 or health["status"] != "UP" \
+            or set(ups.values()) != {"UP"}:
+        raise AssertionError(f"phase 41: health {status} {ups}, status "
+                             f"{health['status']}")
+    direct = {j["id"]: toks for j, toks in zip(jobs, out["direct"])}
+    got = {r["id"]: r["tokens"] for r in out["kafka_results"]}
+    equal = sum(got.get(k) == v for k, v in direct.items())
+    if len(out["kafka_results"]) != n_jobs or equal != n_jobs \
+            or out["results_on_topic"] != n_jobs:
+        raise AssertionError(f"phase 41: {equal} of {n_jobs} Kafka jobs "
+                             f"equal direct generation; "
+                             f"{len(got)} distinct ids, "
+                             f"{out['results_on_topic']} results on the "
+                             f"topic")
+    dead = out["dead"][0]
+    if dead["error"]["type"] != "JobError":
+        raise AssertionError(f"phase 41: dead letter {dead}")
+    if out["committed"] != n_jobs + 1:
+        raise AssertionError(f"phase 41: committed offset "
+                             f"{out['committed']}, expected {n_jobs + 1}")
+    r = out["restarted"]
+    if (r["ok"], r["dead"], r["results_on_topic"], r["committed"]) \
+            != (0, 0, n_jobs, n_jobs + 1):
+        raise AssertionError(f"phase 41: the restarted lane {r}")
+    if out["paused_total"] < 1 or out["lane"]["pauses"] < 1:
+        raise AssertionError(f"phase 41: the Kafka consumer never paused: "
+                             f"counted {out['paused_total']}, lane "
+                             f"{out['lane']}")
+    c = out["counters"]
+    if cuda and (c["lazy_captures"] or c["prefill_lazy"]
+                 or c["replays"] != c["ticks"] + c["spec_ticks"]):
+        raise AssertionError(f"phase 41: a tick was not a replay: {c}")
+    check_launches(out["launches"], expected_launches(cfg, c),
+                   "phase41_lane_kafka")
+    mdirect = {j["id"]: t for j, t in zip(mqtt_jobs, out["mqtt_direct"])}
+    mgot = {r["id"]: r["tokens"] for r in out["mqtt_results"]}
+    mequal = sum(mgot.get(k) == v for k, v in mdirect.items())
+    if mequal != n_mqtt or len(out["mqtt_results"]) != n_mqtt:
+        raise AssertionError(f"phase 41: {mequal} of {n_mqtt} MQTT jobs "
+                             f"equal direct generation")
+    mc = out["mqtt_counters"]
+    if out["mqtt_new_graphs"] or mc["lazy_captures"] or mc["prefill_lazy"]:
+        raise AssertionError(f"phase 41: the MQTT turn captured a graph: "
+                             f"{out['mqtt_new_graphs']} new, {mc}")
+    check_launches(out["mqtt_launches"], expected_launches(cfg, mc),
+                   "phase41_lane_mqtt")
+    kafka_tokens = sum(len(t) for t in got.values())
+    mqtt_tokens = sum(len(t) for t in mgot.values())
+    row = dict(
+        start_s=out["start_s"], migrations=mig, health_keys=sorted(health),
+        kafka_tokens_per_s=kafka_tokens / out["kafka_wall_s"],
+        kafka_wall_s=out["kafka_wall_s"],
+        kafka_wire_bytes_per_job=out["kafka_wire_bytes"] / n_jobs,
+        mqtt_tokens_per_s=mqtt_tokens / out["mqtt_wall_s"],
+        mqtt_wall_s=out["mqtt_wall_s"],
+        mqtt_wire_bytes_per_job=out["mqtt_wire_bytes"] / n_mqtt,
+        memory_lane_tokens_per_s=[
+            t["lane_tokens_per_s"] for t in results.get(
+                "lane_small", {}).get("turns", []) if t.get("lane")],
+        committed=out["committed"],
+        commit_regressions=out["commit_regressions"],
+        paused_total=out["paused_total"], lane=out["lane"],
+        restarted=r, dead_letter=dead["error"], launches=out["launches"],
+        counters=c, mqtt_launches=out["mqtt_launches"],
+        mqtt_counters=mc, http_wall_s=out["http"][1],
+        phase_s=time.monotonic() - t_phase)
+    results["lane_wire"] = row
+    log(f"phase 41: app started in {row['start_s']:.2f}s; migrations "
+        f"applied once ({mig['calls']}); health {ups}; Kafka lane "
+        f"{equal}/{n_jobs} equal to direct, {row['kafka_tokens_per_s']:.1f} "
+        f"tok/s ({row['kafka_wall_s']:.3f}s, "
+        f"{row['kafka_wire_bytes_per_job']:.0f} wire bytes a job) beside "
+        f"the HTTP burst ({row['http_wall_s']:.3f}s); paused "
+        f"{row['paused_total']:.0f} (lane pauses {out['lane']['pauses']}, "
+        f"resumes {out['lane']['resumes']}); dead letter "
+        f"{dead['error']['type']}; committed {out['committed']} "
+        f"(moved back {out['commit_regressions']} times on the way); "
+        f"restarted lane consumed {r['ok'] + r['dead']}; launches "
+        f"{out['launches']}")
+    log(f"phase 41: MQTT lane {mequal}/{n_mqtt} equal to direct, "
+        f"{row['mqtt_tokens_per_s']:.1f} tok/s "
+        f"({row['mqtt_wire_bytes_per_job']:.0f} wire bytes a job), no new "
+        f"graph; in-memory lane (phase 35a, {CUT_SMALL_LAYERS} layers) "
+        f"{row['memory_lane_tokens_per_s']} tok/s; phase 41 "
+        f"{row['phase_s']:.1f}s")
+    del engine, app
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return {"phase41_lane_kafka": out["launches"],
+            "phase41_lane_mqtt": out["mqtt_launches"]}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -8955,6 +9341,9 @@ def main() -> int:
     # this slice: the debug pages and a remote prefill replica (phase 38)
     by_path_d64.update(phase_disagg_app(generate, cluster, kv_wire, mods,
                                         args.seed, results))
+    # this slice: the datasources and the lane over Kafka and MQTT (41)
+    by_path_d64.update(phase_lane_wire(torch, generate, mods, args.seed,
+                                       results))
 
     cfg = llama.config("llama3-8b", n_layers=args.layers, use_flash=True)
     if args.layers != 32:

@@ -16,9 +16,11 @@ before them.
 the profiler traces: the container's device, the card unless the caller
 asks for the CPU. The ``enable_*`` methods register the ``/debug/*``
 pages (each off by default) and the ``/debug/`` index of those enabled;
-``add_http_service`` registers an outbound client in the container. Left
-for a later slice (ROADMAP §1): the CLI, websockets, CRUD, migrations,
-OpenAPI and the external datasources.
+``add_http_service`` registers an outbound client in the container;
+``migrate`` runs versioned migrations over the container's SQL and
+Redis; ``add_mongo``, ``add_cassandra`` and ``add_clickhouse`` inject an
+external datasource. Left for a later slice (ROADMAP §1): the CLI,
+websockets, CRUD and OpenAPI.
 """
 
 from __future__ import annotations
@@ -179,6 +181,16 @@ class App:
             return
         self._subscriptions[topic] = handler
 
+    def migrate(self, migrations: Dict[int, Any]) -> None:
+        """Run the pending ``migrations`` ({version: up(datasources)})
+        over the container's SQL, Redis and pub/sub."""
+        from gofr_tpu_torch.migration import run_migrations
+        try:
+            run_migrations(self.container, migrations)
+        except Exception as exc:
+            self.logger.error("migration run failed: %r", exc)
+            raise
+
     def add_cron_job(self, spec: str, name: str, func: Handler) -> None:
         self.crontab.add_job(spec, name, func)
 
@@ -295,6 +307,28 @@ class App:
         with its one-line description, sorted by path."""
         return {path: self._debug_surfaces[path]
                 for path in sorted(self._debug_surfaces)}
+
+    # -- external datasources -----------------------------------------------
+    def add_mongo(self, client=None) -> None:
+        if client is None:
+            from gofr_tpu_torch.datasource.mongo import new_mongo
+            client = new_mongo(self.config, self.logger,
+                               self.container.metrics)
+        self.container.mongo = client
+
+    def add_cassandra(self, client=None) -> None:
+        if client is None:
+            from gofr_tpu_torch.datasource.nosql import new_cassandra
+            client = new_cassandra(self.config, self.logger,
+                                   self.container.metrics)
+        self.container.cassandra = client
+
+    def add_clickhouse(self, client=None) -> None:
+        if client is None:
+            from gofr_tpu_torch.datasource.nosql import new_clickhouse
+            client = new_clickhouse(self.config, self.logger,
+                                    self.container.metrics)
+        self.container.clickhouse = client
 
     # -- outbound services ----------------------------------------------------
     def add_http_service(self, name: str, base_url: str, *options,

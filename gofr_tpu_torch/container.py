@@ -1,16 +1,16 @@
 """Container — the dependency-injection root owning the app's shared state
 (counterpart of ``gofr_tpu/container.py``): the logger, the metrics
 manager with the framework's catalog, the tracer, the SLO tracker, the
-file datasource, the in-memory pub/sub broker, the serving datasource
-(``tpu``: the executor, an engine or a registry), aggregated deep health
-(``health()``) and ``close()``.
+datasources (SQL, Redis, pub/sub, Mongo, Cassandra, ClickHouse, the file
+system), the serving datasource (``tpu``: the executor, an engine or a
+registry), aggregated deep health (``health()``) and ``close()``.
 
-The port has the in-memory broker only. A configured datasource it does
-not have yet (SQL, Redis, Kafka / MQTT / Google pub/sub, Mongo,
-Cassandra, ClickHouse, the remote log level) raises at
-:meth:`Container.create`, naming its ROADMAP entry, instead of being
-left unset. The executor ``TPU_ENABLED`` builds runs on ``device``
-(default the card).
+``create`` wires what configuration names, in JAX's order: the remote
+log level (``REMOTE_LOG_URL``), SQL (``DB_DIALECT``), Redis
+(``REDIS_HOST``), pub/sub (``PUBSUB_BACKEND``), the file datasource and
+the executor (``TPU_ENABLED``), which runs on ``device`` (default the
+card). Mongo, Cassandra and ClickHouse come from ``App.add_mongo`` and
+its siblings, as in JAX.
 """
 
 from __future__ import annotations
@@ -26,23 +26,6 @@ from gofr_tpu_torch.slo import SLOTracker
 from gofr_tpu_torch.trace import Tracer, new_tracer
 
 FRAMEWORK_VERSION = "0.1.0"
-
-# config key -> the datasource it configures; none is ported yet
-NOT_PORTED = (
-    ("DB_DIALECT", "SQL"),
-    ("REDIS_HOST", "Redis"),
-    ("MONGO_URI", "Mongo"),
-    ("CASSANDRA_HOSTS", "Cassandra"),
-    ("CLICKHOUSE_HOST", "ClickHouse"),
-    ("REMOTE_LOG_URL", "the remote log level"),
-)
-PORTED_PUBSUB = ("INMEM", "MEMORY")
-ROADMAP_ENTRY = ("ROADMAP.md §1, the rest of the framework: the "
-                 "datasources")
-
-
-class NotPorted(ValueError):
-    """A configured datasource the port does not have yet."""
 
 
 class Container:
@@ -60,7 +43,13 @@ class Container:
         self.slo = SLOTracker(self.metrics)
         self.watchdog = None          # built by App.start (needs the loop)
 
+        # datasources (all optional; wired by create())
+        self.sql = None
+        self.redis = None
         self.pubsub = None
+        self.mongo = None
+        self.cassandra = None
+        self.clickhouse = None
         self.file = None
         self.tpu = None
         self.tpu_batcher = None       # built by App.start when tpu is wired
@@ -80,24 +69,29 @@ class Container:
     @classmethod
     def create(cls, config: Config, logger: Optional[Logger] = None,
                device="cuda") -> "Container":
-        for key, name in NOT_PORTED:
-            if config.get(key):
-                raise NotPorted(f"{key}: the {name} datasource is not ported "
-                                f"to gofr_tpu_torch yet ({ROADMAP_ENTRY})")
-        backend = (config.get("PUBSUB_BACKEND") or "").upper()
-        if backend and backend not in PORTED_PUBSUB:
-            raise NotPorted(f"PUBSUB_BACKEND={backend}: only the in-memory "
-                            f"broker (INMEM) is ported to gofr_tpu_torch "
-                            f"({ROADMAP_ENTRY})")
         level = Level.parse(config.get_or_default("LOG_LEVEL", "INFO"))
         log = logger if logger is not None else new_logger(level)
         container = cls(config=config, logger=log, device=device)
         container.tracer = new_tracer(config, log)
         container.register_framework_metrics()
+        remote_url = config.get("REMOTE_LOG_URL")
+        if remote_url:
+            from gofr_tpu_torch.logging.remote_level import (
+                start_remote_level_poller)
+            interval = config.get_float("REMOTE_LOG_FETCH_INTERVAL", 15.0)
+            start_remote_level_poller(log, remote_url, interval)
+        if config.get("DB_DIALECT"):
+            from gofr_tpu_torch.datasource.sql import new_sql
+            container.sql = new_sql(config, log, container.metrics)
+        if config.get("REDIS_HOST"):
+            from gofr_tpu_torch.datasource.redisx import new_redis
+            container.redis = new_redis(config, log, container.metrics)
+        backend = (config.get("PUBSUB_BACKEND") or "").upper()
         if backend:
-            from gofr_tpu_torch.datasource.pubsub import InMemoryBroker
-            container.pubsub = InMemoryBroker(log, container.metrics,
-                                              tracer=container.tracer)
+            from gofr_tpu_torch.datasource.pubsub import new_pubsub
+            container.pubsub = new_pubsub(backend, config, log,
+                                          container.metrics,
+                                          tracer=container.tracer)
         from gofr_tpu_torch.datasource.file import LocalFileSystem
         container.file = LocalFileSystem(log)
         if config.get_bool("TPU_ENABLED", False):
@@ -128,7 +122,8 @@ class Container:
             "uptime_seconds": round(time.time() - self._start_time, 3),
         }
         statuses = []
-        for name in ("pubsub", "tpu", "cluster"):
+        for name in ("sql", "redis", "pubsub", "mongo", "cassandra",
+                     "clickhouse", "tpu", "cluster"):
             source = getattr(self, name)
             if source is None:
                 continue
@@ -158,7 +153,7 @@ class Container:
         """Close the datasources (an engine or a registry as ``tpu`` is
         stopped: its device thread ends), then flush the tracer. A failure
         is logged and the rest still close."""
-        for name in ("pubsub", "tpu"):
+        for name in ("sql", "redis", "pubsub", "tpu"):
             source = getattr(self, name)
             closer = getattr(source, "close", None)
             if closer is None and name == "tpu":
@@ -180,13 +175,20 @@ class Container:
 def new_mock_container(config: Optional[Dict[str, str]] = None,
                        device="cuda") -> Container:
     """Test fixture: a silent logger, the framework's catalog, the
-    in-memory broker and an unconfined file datasource."""
+    in-memory broker, an unconfined file datasource, ``InMemoryRedis``
+    and a sqlite ``:memory:`` DB."""
     container = Container(config=MapConfig(config or {}),
                           logger=new_silent_logger(), device=device)
     container.register_framework_metrics()
     from gofr_tpu_torch.datasource.file import LocalFileSystem
     from gofr_tpu_torch.datasource.pubsub import InMemoryBroker
+    from gofr_tpu_torch.datasource.redisx import InMemoryRedis
+    from gofr_tpu_torch.datasource.sql import new_sql
     container.pubsub = InMemoryBroker(container.logger, container.metrics,
                                       tracer=container.tracer)
     container.file = LocalFileSystem(container.logger, sandbox=False)
+    container.redis = InMemoryRedis(container.logger, container.metrics)
+    container.sql = new_sql(MapConfig({"DB_DIALECT": "sqlite",
+                                       "DB_NAME": ":memory:"}),
+                            container.logger, container.metrics)
     return container

@@ -1,7 +1,7 @@
-"""The datasources the port serves from (a copy of the part of
-``gofr_tpu/datasource`` the app and the batch lane need): the health
-contract, the local file system, the pub/sub contract and the in-memory
-broker."""
+"""The datasources (counterpart of ``gofr_tpu/datasource``): the health
+contract every datasource's ``health_check()`` returns, the local file
+system, pub/sub (in memory, Kafka, MQTT, Google), Redis, SQL, Mongo,
+Cassandra and ClickHouse."""
 
 UP = "UP"
 DOWN = "DOWN"

@@ -27,8 +27,9 @@ Routes and bodies are the JAX example's:
   ``workloadz``, ``sloz``, ``whyz/{trace_id}``, ``tunez``, ``clusterz``,
   ``tracez/{trace_id}`` and ``POST /debug/profiler/start|stop`` (a
   ``torch.profiler`` capture written as ``<dir>/trace.json``);
-- ``BATCH_LANE_TOPIC`` with ``PUBSUB_BACKEND=INMEM`` feeds batch jobs
-  (text prompts, decoded text back) into the engine.
+- ``BATCH_LANE_TOPIC`` feeds batch jobs (text prompts or token ids,
+  decoded text back) into the engine from the broker ``PUBSUB_BACKEND``
+  names: ``INMEM``, ``KAFKA``, ``MQTT`` or ``GOOGLE``.
 
 The environment knobs and engine arguments are the JAX example's
 (``LLAMA_PRESET`` default ``small``, ``GENERATE_SLOTS``, ``STEPS_PER_TICK``,

@@ -1,5 +1,5 @@
-"""Logging (counterpart of ``gofr_tpu/logging``; the remote level
-poller is not ported)."""
+"""Logging (counterpart of ``gofr_tpu/logging``); the remote level
+poller is ``gofr_tpu_torch.logging.remote_level``."""
 
 from gofr_tpu_torch.logging.logger import (
     Level,

@@ -779,18 +779,95 @@ def test_logger_lines_as_jax():
     assert got["port"] == got["jax"]
 
 
+class LevelServer:
+    """A local HTTP server answering ``{"level": "DEBUG"}``."""
+
+    def __init__(self):
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_GET(self):
+                body = b'{"level": "DEBUG"}'
+                self.send_response(200)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *args):
+                pass
+
+        self.server = http.server.HTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}/lvl"
+        threading.Thread(target=self.server.serve_forever,
+                         daemon=True).start()
+
+    def stop(self):
+        self.server.shutdown()
+        self.server.server_close()
+
+
+def local_endpoints(key, value):
+    """In-process servers for the configuration ``key=value`` and the
+    settings that point both containers at them, so no case dials a host
+    outside this one: (settings, servers)."""
+    from tests.test_pubsub_wire import FakeKafkaBroker, FakeMQTTBroker
+    from tests.test_wire_fuzz import FakeRESPServer
+
+    if key == "REDIS_HOST":
+        servers = {side: FakeRESPServer() for side in SIDES}
+        for server in servers.values():
+            server.replies = ["PONG"]               # health()'s PING
+        return ({side: {"REDIS_PORT": str(s.port)}
+                 for side, s in servers.items()}, list(servers.values()))
+    if key == "REMOTE_LOG_URL":
+        server = LevelServer()
+        settings = {key: server.url, "REMOTE_LOG_FETCH_INTERVAL": "3600"}
+        return {side: settings for side in SIDES}, [server]
+    if value == "KAFKA":
+        server = FakeKafkaBroker()
+        settings = {"KAFKA_BROKER": f"127.0.0.1:{server.port}"}
+        return {side: settings for side in SIDES}, [server]
+    if value == "MQTT":
+        server = FakeMQTTBroker()
+        settings = {"MQTT_HOST": "127.0.0.1", "MQTT_PORT": str(server.port)}
+        return {side: settings for side in SIDES}, [server]
+    return {side: {} for side in SIDES}, []
+
+
 @pytest.mark.parametrize("key,value", [
     ("DB_DIALECT", "mysql"), ("REDIS_HOST", "localhost"),
     ("MONGO_URI", "mongodb://x"), ("CASSANDRA_HOSTS", "h"),
-    ("CLICKHOUSE_HOST", "h"), ("REMOTE_LOG_URL", "http://x"),
+    ("CLICKHOUSE_HOST", "h"), ("REMOTE_LOG_URL", "local level server"),
     ("PUBSUB_BACKEND", "KAFKA"), ("PUBSUB_BACKEND", "MQTT"),
     ("PUBSUB_BACKEND", "GOOGLE")])
-def test_container_refuses_datasources_not_ported(key, value):
-    from gofr_tpu_torch.config import MapConfig
-    from gofr_tpu_torch.container import Container, NotPorted
-
-    with pytest.raises(NotPorted, match="ROADMAP.md §1"):
-        Container.create(MapConfig({key: value}), device="cpu")
+def test_container_builds_each_datasource_as_jax(key, value):
+    settings, servers = local_endpoints(key, value)
+    got = {}
+    try:
+        for side in SIDES:
+            values = dict({key: value}, **settings[side])
+            kwargs = {} if side == "jax" else {"device": "cpu"}
+            logger = mod(side, "logging").new_silent_logger()
+            try:
+                container = mod(side, "container").Container.create(
+                    mod(side, "config").MapConfig(values), logger=logger,
+                    **kwargs)
+            except Exception as exc:                      # noqa: BLE001
+                got[side] = (type(exc).__name__, str(exc))
+                continue
+            deadline = time.monotonic() + 5.0
+            while key == "REMOTE_LOG_URL" and logger.level.name != "DEBUG" \
+                    and time.monotonic() < deadline:
+                time.sleep(0.005)
+            got[side] = ({name: type(getattr(container, name)).__name__
+                          for name in ("sql", "redis", "pubsub", "mongo",
+                                       "cassandra", "clickhouse", "file",
+                                       "tpu")},
+                         logger.level.name,
+                         sorted(container.health()))
+            run(container.close())
+    finally:
+        for server in servers:
+            (getattr(server, "stop", None) or server.close)()
+    assert got["port"] == got["jax"]
 
 
 def test_container_builds_the_ported_datasources():

@@ -62,11 +62,30 @@ DEBUG_MODULES = [
     "gofr_tpu_torch/sloz.py", "gofr_tpu_torch/whyz.py",
     "gofr_tpu_torch/tunez.py", "gofr_tpu_torch/clusterz.py",
 ]
+# the datasources and the smoke's in-process brokers
+DATASOURCE_MODULES = [
+    "gofr_tpu_torch/datasource/pubsub/__init__.py",
+    "gofr_tpu_torch/datasource/pubsub/kafka.py",
+    "gofr_tpu_torch/datasource/pubsub/mqtt.py",
+    "gofr_tpu_torch/datasource/pubsub/google.py",
+    "gofr_tpu_torch/datasource/redisx/__init__.py",
+    "gofr_tpu_torch/datasource/redisx/client.py",
+    "gofr_tpu_torch/datasource/sql/__init__.py",
+    "gofr_tpu_torch/datasource/sql/db.py",
+    "gofr_tpu_torch/datasource/sql/query_builder.py",
+    "gofr_tpu_torch/datasource/mongo.py",
+    "gofr_tpu_torch/datasource/nosql.py",
+    "gofr_tpu_torch/migration/__init__.py",
+    "gofr_tpu_torch/migration/runner.py",
+    "gofr_tpu_torch/logging/remote_level.py",
+    "scripts/wire_brokers.py",
+]
 
 
 def _port_files():
     files = sorted((ROOT / "gofr_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "scripts" / "wire_brokers.py",
+                    ROOT / "chip_smoke.py"]
 
 
 def _imported_roots(path: Path):
@@ -107,7 +126,8 @@ def test_guard_scans_the_admission_and_grammar_modules():
     operating-point auto-tuner, and training (the train step and the
     checkpoints), and the app framework (:data:`APP_MODULES`), and the
     debug pages, the outbound service layer and the profiler
-    (:data:`DEBUG_MODULES`)."""
+    (:data:`DEBUG_MODULES`), and the datasources with the smoke's
+    in-process brokers (:data:`DATASOURCE_MODULES`)."""
     files = {str(path.relative_to(ROOT)) for path in _port_files()}
     own = ["gofr_tpu_torch/slo.py", "gofr_tpu_torch/tpu/constrain.py",
            "gofr_tpu_torch/tpu/sched.py",
@@ -145,7 +165,8 @@ def test_guard_scans_the_admission_and_grammar_modules():
            "gofr_tpu_torch/parallel/train.py",
            "gofr_tpu_torch/utils/__init__.py",
            "gofr_tpu_torch/utils/checkpoint.py",
-           "gofr_tpu_torch/utils/tree.py"] + APP_MODULES + DEBUG_MODULES
+           "gofr_tpu_torch/utils/tree.py"] + APP_MODULES + DEBUG_MODULES \
+        + DATASOURCE_MODULES
     assert set(own) <= files
     for name in own + ["gofr_tpu_torch/tpu/generate.py"]:
         assert not set(_imported_roots(ROOT / name)) & set(FORBIDDEN), name
