@@ -441,6 +441,29 @@ Phases, each of which raises (exit code != 0) on failure:
     engine with the same gate and no new graph. Printed: the lane's tok/s
     over Kafka and MQTT beside phase 35a's in memory, wire bytes a job,
     the app's start seconds and the phase's seconds.
+42. the examples on the card at their own defaults (after phase 41),
+    one app at a time on ports 0, each closed (its websockets too)
+    before the next: ``http_server`` (ResNet-50 at 224 x 224, buckets
+    1/4/16/32) answers its routes as JAX's example does and 64
+    ``/classify`` requests at 16 in flight, each label the eager forward's
+    wherever that forward's top-two margin exceeds 2e-2 of its largest
+    |logit| and each score within that, in turns against the app's own
+    batcher (direct, HTTP, HTTP, direct); ``grpc_server`` (BERT-base at
+    64 tokens) serves 32 embeddings over gRPC at 8 in flight, each within
+    2e-2 (cosine 0.999) of the eager forward; ``using_subscriber``
+    (ResNet-50, buckets 8/32/64) labels 32 images published over
+    ``scripts/wire_brokers.py``'s Kafka and leaves the group's offset at
+    32; the ``cmd`` example in processes of its own (``classify`` on the
+    card exits 0 with its label, ``hello -name=H100`` greets, ``nosuch``
+    exits 2); ``websocket_chat`` greets two clients, broadcasts, answers
+    ping, closes with 1000 and with 1002 on an unmasked frame; and the
+    framework examples (CRUD and migrations on sqlite files, a zip upload
+    and a declared bomb, Redis over RESP2, the publisher over Kafka, the
+    outbound service up and degraded, the custom series, both cron jobs,
+    the OpenAPI routes) answer as JAX's. Printed: ``/classify``
+    requests/s and p50 / p99 over HTTP against the batcher, the gRPC embed
+    p50, the websocket round trip p50, each model example's capture and
+    start seconds and the phase's seconds (at most 90).
 
 Depth is cut, width never: the ``llama3-8b`` engines run 8 of 32
 layers (``--layers``), and every ``small`` phase but the app's (20-23,
@@ -6713,15 +6736,18 @@ def app_bodies(prompts, seed, budget=APP_BUDGET):
 
 async def http_call(port, method, path, body=None, headers=None):
     """One HTTP/1.1 request over asyncio streams: (status, headers,
-    body)."""
-    data = json.dumps(body).encode() if body is not None else b""
+    body). ``body`` is sent as JSON, or as is when it is bytes."""
+    data = body if isinstance(body, bytes) else (
+        json.dumps(body).encode() if body is not None else b"")
     reader, writer = await asyncio.open_connection("127.0.0.1", port)
     try:
         head = f"{method} {path} HTTP/1.1\r\nHost: 127.0.0.1\r\n"
-        for key, value in (headers or {}).items():
+        headers = dict(headers or {})
+        headers.setdefault("Content-Type", "application/json")
+        for key, value in headers.items():
             head += f"{key}: {value}\r\n"
-        head += (f"Content-Type: application/json\r\nContent-Length: "
-                 f"{len(data)}\r\nConnection: close\r\n\r\n")
+        head += (f"Content-Length: {len(data)}\r\nConnection: close"
+                 f"\r\n\r\n")
         writer.write(head.encode() + data)
         await writer.drain()
         raw = await reader.read()
@@ -6793,13 +6819,15 @@ def metric_total(metrics, name):
 class app_environment:
     """The example's environment for the phase, restored after it."""
 
+    base, unset = APP_ENV, APP_UNSET
+
     def __init__(self, env=None):
-        self.env = dict(APP_ENV, **(env or {}))
+        self.env = dict(self.base, **(env or {}))
 
     def __enter__(self):
         self.saved = {k: os.environ.get(k)
-                      for k in list(self.env) + list(APP_UNSET)}
-        for key in APP_UNSET:
+                      for k in list(self.env) + list(self.unset)}
+        for key in self.unset:
             os.environ.pop(key, None)
         os.environ.update(self.env)
         return self
@@ -9184,6 +9212,1070 @@ def phase_lane_wire(torch, generate, mods, seed, results, device="cuda",
             "phase41_lane_mqtt": out["mqtt_launches"]}
 
 
+# -- phase 42: the examples on the card at their own defaults ------------------
+
+# every port 0, the logs at WARN; the knobs the examples read are unset
+# but these, so each runs at its own defaults
+EXAMPLE_ENV = dict(HTTP_PORT="0", METRICS_PORT="0", GRPC_PORT="0",
+                   LOG_LEVEL="WARN")
+EXAMPLE_UNSET = ("RESNET_PRESET", "BERT_PRESET", "PUBSUB_BACKEND",
+                 "PUBSUB_BROKER", "KAFKA_BROKER", "CONSUMER_ID",
+                 "DB_DIALECT", "DB_NAME", "DB_HOST", "REDIS_HOST",
+                 "REDIS_PORT", "FACTS_URL", "CMD_LOGS_FILE", "TPU_MESH",
+                 "MESH", "TPU_ENABLED", "APP_NAME", "REQUEST_TIMEOUT",
+                 "FAULT_PLAN", "TRACE_EXPORTER", "BATCH_LANE_TOPIC",
+                 "REMOTE_LOG_URL", "TPU_MAX_BATCH", "TPU_BATCH_DELAY_MS")
+CLASSIFY_REQUESTS, CLASSIFY_INFLIGHT = 64, 16
+EMBED_CALLS, EMBED_INFLIGHT = 32, 8
+SUBSCRIBER_IMAGES = 32
+WS_ROUND_TRIPS = 50
+# a served logit against the eager forward of the same params on the card
+# for that image alone, as a share of the forward's largest |logit|: a
+# request's bucket (B 1 alone against B 4-64 padded) changes cuDNN's
+# algorithm, so the bf16 bits need not match; a label is held only where
+# the forward's top-two margin exceeds this tolerance. Phase 34's limit
+# for the executor (bf16 on the card against f32 on the CPU).
+EXAMPLE_REL_TOL = 2e-2
+EXAMPLE_TURNS = ("direct", "http", "http", "direct")
+PHASE42_LIMIT_S = 90.0
+
+# the JAX example's answers: each (method, path, body, status, JSON body);
+# tests/test_torch_examples.py holds every table to JAX's example on the
+# CPU
+EX_HTTP_SERVER = [
+    ("GET", "/hello?name=H100", None, 200,
+     {"data": {"message": "Hello H100!"}}),
+    ("GET", "/user/1", None, 200, {"data": {"id": 1, "name": "ada"}}),
+    ("GET", "/user/2", None, 404,
+     {"error": {"message": "No entity found with id: 2"}}),
+    ("POST", "/user", {"name": "ada", "age": 36}, 201,
+     {"data": {"name": "ada", "age": 36}}),
+    ("GET", "/nowhere", None, 404,
+     {"error": {"message": "route not registered"}}),
+    ("POST", "/hello", None, 405,
+     {"error": {"message": "method not allowed"}}),
+]
+EX_CRUD = [
+    ("POST", "/user", {"id": 1, "name": "ada", "age": 36,
+                       "is_employed": True}, 201,
+     {"data": "User successfully created with id: 1"}),
+    ("GET", "/user", None, 200,
+     {"data": [{"id": 1, "name": "ada", "age": 36, "is_employed": 1}]}),
+    ("PUT", "/user/1", {"id": 1, "name": "ada", "age": 37,
+                        "is_employed": True}, 200,
+     {"data": "User successfully updated with id: 1"}),
+    ("GET", "/user/1", None, 200,
+     {"data": {"id": 1, "name": "ada", "age": 37, "is_employed": 1}}),
+    ("DELETE", "/user/1", None, 204,
+     {"data": "User successfully deleted with id: 1"}),
+    ("GET", "/user/1", None, 404,
+     {"error": {"message": "No entity found with id: 1"}}),
+]
+EX_MIGRATIONS = [
+    ("GET", "/employee", None, 200,
+     {"data": [{"id": 1, "name": "ada", "department": "compute"}]}),
+    ("POST", "/employee", {"id": 2, "name": "bo", "department": "ops"}, 201,
+     {"data": "Employee successfully created with id: 2"}),
+    ("PUT", "/employee/2", {"id": 2, "name": "bo", "department": "infra"},
+     200, {"data": "Employee successfully updated with id: 2"}),
+    ("GET", "/employee/2", None, 200,
+     {"data": {"id": 2, "name": "bo", "department": "infra"}}),
+    ("DELETE", "/employee/2", None, 204,
+     {"data": "Employee successfully deleted with id: 2"}),
+]
+EX_REDIS = [
+    ("POST", "/redis", {"greeting": "hello", "count": "2"}, 201,
+     {"data": "Successful"}),
+    ("GET", "/redis/greeting", None, 200, {"data": {"greeting": "hello"}}),
+    ("GET", "/redis/nope", None, 404,
+     {"error": {"message": "No entity found with key: nope"}}),
+    ("GET", "/redis-pipeline", None, 200,
+     {"data": {"testKey1": "testValue1"}}),
+]
+EX_PUBLISHER = [
+    ("POST", "/publish-order", {"orderId": "o1", "status": "pending"}, 201,
+     {"data": "Published"}),
+    ("POST", "/publish-product", {"productId": "p1", "price": "9"}, 201,
+     {"data": "Published"}),
+    ("POST", "/publish-product", {"productId": "p1"}, 400,
+     {"error": {"message": "'1' invalid parameter(s): price"}}),
+]
+EX_TRANSACTIONS = [
+    ("POST", "/transaction", {"amount": 120, "stock_left": 7}, 201,
+     {"data": "transaction successful"}),
+    ("POST", "/transaction", {"amount": 80, "stock_left": 7}, 201,
+     {"data": "transaction successful"}),
+    ("POST", "/return", {"amount": 50}, 201, {"data": "return successful"}),
+    ("POST", "/transaction", {}, 400,
+     {"error": {"message": "'1' invalid parameter(s): amount"}}),
+]
+EX_SERIES = {"transaction_success": 2.0, "total_credit_day_sale": 150.0,
+             "product_stock": 7.0, "transaction_time_count": 2.0}
+EX_FACT = {"fact": "cats nap a lot", "length": 14}
+EX_ZIP_MEMBERS = [("a.txt", b"alpha"), ("b/b.txt", b"beta")]
+EX_BOMB = (500, {"error": {"message": "some unexpected error has occurred"}})
+EX_SPEC = {"openapi": "3.0.0", "info": {"title": "examples", "version": "1"},
+           "paths": {"/hello": {"get": {"summary": "greet"}}}}
+
+
+class example_environment(app_environment):
+    """An example's environment for one step, restored after it."""
+
+    base, unset = EXAMPLE_ENV, EXAMPLE_UNSET
+
+
+@dataclasses.dataclass
+class ExampleKit:
+    """What phase 42's steps share: the device, the presets (None: each
+    example's default), the sizes of the request sets, the scratch
+    directory and the phase's figures (``out``)."""
+    torch: object
+    device: str
+    seed: int
+    tmp: str
+    resnet_preset: str = None
+    bert_preset: str = None
+    n_classify: int = CLASSIFY_REQUESTS
+    classify_inflight: int = CLASSIFY_INFLIGHT
+    n_embed: int = EMBED_CALLS
+    embed_inflight: int = EMBED_INFLIGHT
+    n_images: int = SUBSCRIBER_IMAGES
+    ws_round_trips: int = WS_ROUND_TRIPS
+    out: dict = dataclasses.field(default_factory=dict)
+    cmd_procs: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def cuda(self):
+        return self.device == "cuda"
+
+    def env(self, **extra):
+        env = {}
+        if self.resnet_preset:
+            env["RESNET_PRESET"] = self.resnet_preset
+        if self.bert_preset:
+            env["BERT_PRESET"] = self.bert_preset
+        return example_environment(dict(env, **extra))
+
+
+async def check_answers(port, table, what):
+    """Each request of ``table`` against its (status, JSON body)."""
+    wrong = []
+    for method, path, body, status, want in table:
+        got_status, _, payload = await http_call(port, method, path, body)
+        got = json.loads(payload) if payload else None
+        if (got_status, got) != (status, want):
+            wrong.append((method, path, got_status, got, status, want))
+    if wrong:
+        raise AssertionError(f"phase 42 {what}: answers differ from the "
+                             f"JAX example's: {wrong}")
+    return len(table)
+
+
+def example_images(seed, n, size):
+    """``n`` seeded images with two decimals (short JSON) as float32, and
+    each one's ``/classify`` body."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    images = np.round(rng.uniform(-2.0, 2.0, (n, size, size, 3)), 2)
+    return images.astype(np.float32), [
+        json.dumps({"image": image.tolist()}).encode() for image in images]
+
+
+def eager_forward(torch, fn, inputs, device):
+    """``fn`` of each input alone (a batch of one) on ``device``, float32
+    numpy rows."""
+    import numpy as np
+
+    rows = []
+    with torch.no_grad():
+        for example in inputs:
+            args = [torch.from_numpy(np.asarray(leaf)[None]).to(device)
+                    for leaf in (example if isinstance(example, tuple)
+                                 else (example,))]
+            rows.append(fn(*args).float().cpu().numpy()[0])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return np.stack(rows)
+
+
+def check_labels(labels, scores, ref, what):
+    """Each served label equals the eager forward's wherever the forward's
+    top-two margin exceeds the tolerance; each served score (None: not
+    held) is within it of the forward's logit for that label. Returns the
+    figures."""
+    import numpy as np
+
+    scale = np.abs(ref).max(axis=-1)
+    tol = EXAMPLE_REL_TOL * scale
+    top2 = np.sort(ref, axis=-1)[:, -2:]
+    decided = (top2[:, 1] - top2[:, 0]) > tol
+    want = ref.argmax(axis=-1)
+    wrong = [i for i in range(len(labels))
+             if decided[i] and labels[i] != want[i]]
+    score_err = [abs(s - ref[i, labels[i]]) / scale[i]
+                 for i, s in enumerate(scores) if s is not None]
+    far = [i for i, s in enumerate(scores)
+           if s is not None and abs(s - ref[i, labels[i]]) > tol[i]]
+    if wrong or far or not np.isfinite(ref).all():
+        raise AssertionError(f"phase 42 {what}: labels {wrong} differ from "
+                             f"the eager forward's where its margin exceeds "
+                             f"{EXAMPLE_REL_TOL} of its largest |logit|; "
+                             f"scores {far} beyond it")
+    return dict(n=len(labels), decided=int(decided.sum()),
+                equal=int(sum(int(a) == int(b)
+                              for a, b in zip(labels, want))),
+                max_score_rel_err=float(max(score_err)) if score_err
+                else None,
+                tol=EXAMPLE_REL_TOL)
+
+
+def percentile(values, q):
+    ordered = sorted(values)
+    return ordered[min(len(ordered) - 1, int(len(ordered) * q))]
+
+
+def ledger_captures(executor):
+    """{bucket: seconds} of each capture (compile) the ledger holds."""
+    return {e["bucket"]: e["duration_s"]
+            for e in executor.ledger.snapshot()["recent"]}
+
+
+def ex_http_server(kit):
+    """42a: ``http_server`` at its defaults (ResNet-50 at 224 x 224,
+    buckets 1/4/16/32): its routes, then ``/classify`` and the app's own
+    batcher in turns (direct, HTTP, HTTP, direct) at
+    ``classify_inflight``; every HTTP label held to the eager forward."""
+    import numpy as np
+
+    from gofr_tpu_torch.examples import http_server
+    from gofr_tpu_torch.models import resnet
+
+    torch = kit.torch
+    with kit.env():
+        t0 = time.monotonic()
+        app = http_server.build_app(device=kit.device)
+        build_s = time.monotonic() - t0
+        cfg = resnet.config(kit.resnet_preset or "50")
+    executor = app.container.tpu
+    params = executor._models["resnet50"].params
+    log(f"== phase 42a: http_server (ResNet-{sum(cfg.stage_sizes) * 3 + 2} "
+        f"at {cfg.image_size}^2, buckets {http_server.BUCKETS}): "
+        f"{kit.n_classify} /classify at {kit.classify_inflight} in flight, "
+        f"turns {EXAMPLE_TURNS}")
+    images, bodies = example_images(kit.seed + 42, kit.n_classify,
+                                    cfg.image_size)
+    out = {}
+
+    async def direct_turn_():
+        sem = asyncio.Semaphore(kit.classify_inflight)
+        seconds = [0.0] * len(images)
+
+        async def one(i):
+            async with sem:
+                t = time.perf_counter()
+                logits = await app.container.tpu_batcher.predict(
+                    "resnet50", images[i])
+                seconds[i] = time.perf_counter() - t
+                return int(np.argmax(logits)), float(np.max(logits))
+
+        t = time.perf_counter()
+        got = await asyncio.gather(*[one(i) for i in range(len(images))])
+        return got, seconds, time.perf_counter() - t
+
+    async def http_turn_(port):
+        sem = asyncio.Semaphore(kit.classify_inflight)
+        seconds = [0.0] * len(images)
+
+        async def one(i):
+            async with sem:
+                t = time.perf_counter()
+                status, _, body = await http_call(port, "POST", "/classify",
+                                                  bodies[i])
+                seconds[i] = time.perf_counter() - t
+                if status != 201:
+                    raise AssertionError(f"phase 42a: /classify answered "
+                                         f"{status} {body[:200]!r}")
+                data = json.loads(body)["data"]
+                return data["label"], data["score"]
+
+        t = time.perf_counter()
+        got = await asyncio.gather(*[one(i) for i in range(len(images))])
+        return got, seconds, time.perf_counter() - t
+
+    async def main():
+        t = time.monotonic()
+        await app.start()
+        out["start_s"] = time.monotonic() - t
+        try:
+            port = app.bound_http_port
+            out["routes"] = await check_answers(port, EX_HTTP_SERVER,
+                                                "http_server")
+            compiles = executor.ledger.total()
+            turns = []
+            for kind in EXAMPLE_TURNS:
+                got, seconds, wall = await (direct_turn_() if kind == "direct"
+                                            else http_turn_(port))
+                turns.append(dict(kind=kind, got=got, wall_s=wall,
+                                  requests_per_s=len(got) / wall,
+                                  p50_s=percentile(seconds, 0.5),
+                                  p99_s=percentile(seconds, 0.99)))
+            out["turns"] = turns
+            out["burst_captures"] = executor.ledger.total() - compiles
+        finally:
+            await app.stop()
+
+    asyncio.run(main())
+    out["captures_s"] = ledger_captures(executor)
+    # the handler's host work on one body, off the loop: the JSON parse
+    # and the float32 array (the loop runs both for every request)
+    parse = []
+    for body in bodies[:8]:
+        t = time.perf_counter()
+        np.asarray(json.loads(body)["image"], np.float32)
+        parse.append(time.perf_counter() - t)
+    ref = eager_forward(torch, lambda x: resnet.apply(params, cfg, x),
+                        images, kit.device)
+    figures = []
+    for turn in out["turns"]:
+        labels = [g[0] for g in turn["got"]]
+        scores = [g[1] for g in turn["got"]]
+        figures.append(check_labels(labels, scores, ref,
+                                    f"http_server {turn['kind']} turn"))
+        del turn["got"]
+    if out["burst_captures"] or sorted(out["captures_s"]) \
+            != list(http_server.BUCKETS):
+        raise AssertionError(f"phase 42a: captures {out['captures_s']}, "
+                             f"{out['burst_captures']} in the turns")
+    row = dict(build_s=build_s, start_s=out["start_s"],
+               captures_s=out["captures_s"],
+               capture_s=sum(out["captures_s"].values()),
+               routes_checked=out["routes"], turns=out["turns"],
+               labels=figures, in_flight=kit.classify_inflight,
+               requests=kit.n_classify,
+               body_bytes=sum(map(len, bodies)) / len(bodies),
+               body_parse_s=percentile(parse, 0.5),
+               phase34_replay=kit.out.get("phase34_resnet_buckets"))
+    kit.out["http_server"] = row
+    for t in row["turns"]:
+        log(f"42a {t['kind']}: {t['requests_per_s']:.1f} requests/s, p50 "
+            f"{t['p50_s'] * 1e3:.2f} ms, p99 {t['p99_s'] * 1e3:.2f} ms")
+    log(f"42a: built in {build_s:.2f}s, started in {row['start_s']:.2f}s "
+        f"(captures {row['capture_s']:.2f}s: {row['captures_s']}); "
+        f"{out['routes']} routes as JAX's; labels {figures[1]}; a "
+        f"{row['body_bytes'] / 1e6:.2f} MB body's parse "
+        f"{row['body_parse_s'] * 1e3:.1f} ms (median of 8)")
+    del app, executor, params
+    return row
+
+
+def ex_grpc_server(kit):
+    """42b: ``grpc_server`` at its defaults (BERT-base, 64 tokens, buckets
+    1/4/16/32): ``Embeddings/embed`` over gRPC at ``embed_inflight``,
+    each held to the eager forward."""
+    import grpc
+    import numpy as np
+
+    from gofr_tpu_torch.examples import grpc_server
+    from gofr_tpu_torch.models import bert
+
+    torch = kit.torch
+    with kit.env():
+        t0 = time.monotonic()
+        app = grpc_server.build_app(device=kit.device)
+        build_s = time.monotonic() - t0
+        cfg = bert.config(kit.bert_preset or "base",
+                          max_len=grpc_server.MAX_LEN)
+    if not app._grpc_services:
+        raise AssertionError("phase 42b: the example registered no gRPC "
+                             "route")
+    executor = app.container.tpu
+    params = executor._models["bert"].params
+    log(f"== phase 42b: grpc_server (BERT {cfg.n_layers} layers, dim "
+        f"{cfg.dim}, {grpc_server.MAX_LEN} tokens): {kit.n_embed} calls at "
+        f"{kit.embed_inflight} in flight")
+    rng = np.random.default_rng(kit.seed + 43)
+    tokens = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+              for n in rng.integers(5, grpc_server.MAX_LEN + 1, kit.n_embed)]
+    out = {}
+
+    async def main():
+        t = time.monotonic()
+        await app.start()
+        out["start_s"] = time.monotonic() - t
+        try:
+            sem = asyncio.Semaphore(kit.embed_inflight)
+            seconds = [0.0] * len(tokens)
+            target = f"127.0.0.1:{app.bound_grpc_port}"
+            async with grpc.aio.insecure_channel(target) as channel:
+                method = channel.unary_unary("/gofr.Embeddings/embed")
+
+                async def one(i):
+                    async with sem:
+                        t = time.perf_counter()
+                        raw = await method(json.dumps(
+                            {"token_ids": tokens[i]}).encode())
+                        seconds[i] = time.perf_counter() - t
+                        return json.loads(raw)["data"]["embedding"]
+
+                t = time.perf_counter()
+                out["got"] = await asyncio.gather(*[
+                    one(i) for i in range(len(tokens))])
+                out["wall_s"] = time.perf_counter() - t
+            out["seconds"] = seconds
+        finally:
+            await app.stop()
+
+    asyncio.run(main())
+    captures = ledger_captures(executor)
+    inputs = []
+    for toks in tokens:
+        ids = np.zeros((grpc_server.MAX_LEN,), np.int32)
+        mask = np.zeros((grpc_server.MAX_LEN,), np.int32)
+        ids[:len(toks)], mask[:len(toks)] = toks, 1
+        inputs.append((ids, mask))
+    ref = eager_forward(torch, lambda i, m: bert.apply(params, cfg, i,
+                                                       m)["mean"],
+                        inputs, kit.device)
+    got = np.asarray(out["got"], np.float32)
+    err = float(np.abs(got - ref).max(axis=-1).max()
+                / np.abs(ref).max())
+    cos = float(((got * ref).sum(-1) / np.linalg.norm(got, axis=-1)
+                 / np.linalg.norm(ref, axis=-1)).min())
+    if got.shape != ref.shape or not np.isfinite(got).all() \
+            or err > EXAMPLE_REL_TOL or cos < BERT_COS_MIN:
+        raise AssertionError(f"phase 42b: embeddings {got.shape} against "
+                             f"the eager forward: max rel err {err} (limit "
+                             f"{EXAMPLE_REL_TOL}), min cosine {cos} (limit "
+                             f"{BERT_COS_MIN})")
+    row = dict(build_s=build_s, start_s=out["start_s"], captures_s=captures,
+               capture_s=sum(captures.values()), calls=len(tokens),
+               in_flight=kit.embed_inflight, wall_s=out["wall_s"],
+               calls_per_s=len(tokens) / out["wall_s"],
+               p50_s=percentile(out["seconds"], 0.5),
+               p99_s=percentile(out["seconds"], 0.99), max_rel_err=err,
+               min_cosine=cos)
+    kit.out["grpc_server"] = row
+    log(f"42b: built in {build_s:.2f}s, started in {row['start_s']:.2f}s "
+        f"(captures {row['capture_s']:.2f}s); {len(tokens)} embeds in "
+        f"{row['wall_s']:.3f}s, p50 {row['p50_s'] * 1e3:.2f} ms, p99 "
+        f"{row['p99_s'] * 1e3:.2f} ms; max rel err {err:.3e}, min cosine "
+        f"{cos:.6f}")
+    del app, executor, params
+    return row
+
+
+def ex_subscriber(kit):
+    """42c: ``using_subscriber`` at its defaults (ResNet-50, buckets
+    8/32/64) over Kafka: another client publishes images to ``images``,
+    the labels come back on ``labels``, the group's offset is
+    committed."""
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.datasource.pubsub.kafka import KafkaClient
+    from gofr_tpu_torch.examples import using_subscriber
+    from gofr_tpu_torch.logging import new_silent_logger
+    from gofr_tpu_torch.models import resnet
+    from scripts.wire_brokers import KafkaLog
+
+    torch = kit.torch
+    kafka = KafkaLog()
+    broker = f"127.0.0.1:{kafka.port}"
+    group = "image-classifier"
+    out = {}
+    try:
+        with kit.env(PUBSUB_BACKEND="KAFKA", KAFKA_BROKER=broker,
+                     CONSUMER_ID=group):
+            t0 = time.monotonic()
+            app = using_subscriber.build_app(device=kit.device)
+            build_s = time.monotonic() - t0
+            cfg = resnet.config(kit.resnet_preset or "50")
+        executor = app.container.tpu
+        params = executor._models["resnet50"].params
+        log(f"== phase 42c: using_subscriber (ResNet at {cfg.image_size}^2, "
+            f"buckets {using_subscriber.BUCKETS}) over Kafka at {broker}: "
+            f"{kit.n_images} images")
+        images, _ = example_images(kit.seed + 44, kit.n_images,
+                                   cfg.image_size)
+        messages = [json.dumps({"id": f"img-{i}", "image": image.tolist()})
+                    .encode() for i, image in enumerate(images)]
+
+        async def main():
+            t = time.monotonic()
+            await app.start()
+            out["start_s"] = time.monotonic() - t
+            producer = KafkaClient(MapConfig(dict(
+                KAFKA_BROKER=broker, CONSUMER_ID="labels-reader",
+                APP_NAME="image-producer")), new_silent_logger(),
+                app.container.metrics)
+            try:
+                t = time.monotonic()
+                for message in messages:
+                    producer.publish("images", message)
+                out["labels"] = await read_topic(producer, "labels",
+                                                 len(messages))
+                out["wall_s"] = time.monotonic() - t
+                deadline = time.monotonic() + 30
+                while kafka.offsets.get((group, "images", 0)) \
+                        != len(messages):
+                    if time.monotonic() > deadline:
+                        break
+                    await asyncio.sleep(0.01)
+                out["committed"] = kafka.offsets.get((group, "images", 0))
+            finally:
+                producer.close()
+                await app.stop()
+
+        asyncio.run(main())
+    finally:
+        kafka.stop()
+    by_id = {r["id"]: r["label"] for r in out["labels"]}
+    labels = [by_id.get(f"img-{i}", -1) for i in range(len(images))]
+    ref = eager_forward(torch, lambda x: resnet.apply(params, cfg, x),
+                        images, kit.device)
+    figures = check_labels(labels, [None] * len(labels), ref,
+                           "using_subscriber")
+    if len(by_id) != len(images) or out["committed"] != len(images):
+        raise AssertionError(f"phase 42c: {len(by_id)} labels for "
+                             f"{len(images)} images; committed offset "
+                             f"{out['committed']}")
+    captures = ledger_captures(executor)
+    row = dict(build_s=build_s, start_s=out["start_s"], captures_s=captures,
+               capture_s=sum(captures.values()), images=len(images),
+               wall_s=out["wall_s"], images_per_s=len(images) / out["wall_s"],
+               committed=out["committed"], labels=figures)
+    kit.out["using_subscriber"] = row
+    log(f"42c: built in {build_s:.2f}s, started in {row['start_s']:.2f}s "
+        f"(captures {row['capture_s']:.2f}s); {len(images)} labels back in "
+        f"{row['wall_s']:.3f}s; committed offset {out['committed']}; "
+        f"labels {figures}")
+    del app, executor, params
+    return row
+
+
+CMD_RUNS = {"classify": ["classify"], "hello": ["hello", "-name=H100"],
+            "nosuch": ["nosuch"]}
+
+
+def start_cmd_runs(kit):
+    """The ``cmd`` example's runs, each a process of its own started now
+    (read by :func:`ex_cmd`); on the CPU ``classify`` runs in process
+    instead (the example's module-level app is on the card)."""
+    env = {k: v for k, v in os.environ.items() if k not in EXAMPLE_UNSET}
+    env["CMD_LOGS_FILE"] = os.path.join(kit.tmp, "cmd.log")
+    for name, argv in CMD_RUNS.items():
+        if name == "classify" and not kit.cuda:
+            continue
+        kit.cmd_procs[name] = (time.monotonic(), subprocess.Popen(
+            [sys.executable, "-m", "gofr_tpu_torch.examples.cmd", *argv],
+            cwd=str(Path(__file__).resolve().parent), env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+
+
+def ex_cmd(kit):
+    """42d: the ``cmd`` example in processes of its own: ``classify`` on
+    the card exits 0 with the tiny ResNet's label of its seeded image (the
+    eager forward's where its margin exceeds the tolerance), ``hello
+    -name=H100`` greets, ``nosuch`` exits 2; the logs go to
+    ``CMD_LOGS_FILE``."""
+    import io
+
+    import numpy as np
+
+    from gofr_tpu_torch.models import resnet
+
+    log("== phase 42d: the cmd example: classify, hello, nosuch")
+    if not kit.cmd_procs:
+        start_cmd_runs(kit)
+    runs = {}
+    for name, (t0, proc) in kit.cmd_procs.items():
+        stdout, stderr = proc.communicate(timeout=300)
+        runs[name] = dict(rc=proc.returncode, stdout=stdout, stderr=stderr,
+                          seconds=time.monotonic() - t0)
+    kit.cmd_procs.clear()
+    if "classify" not in runs:
+        from gofr_tpu_torch.cli import run_cli
+        from gofr_tpu_torch.examples import cmd
+        stdout = io.StringIO()
+        t0 = time.monotonic()
+        rc = run_cli(cmd.build_app(device=kit.device), ["classify"],
+                     stdout=stdout, stderr=io.StringIO())
+        runs["classify"] = dict(rc=rc, stdout=stdout.getvalue(), stderr="",
+                                seconds=time.monotonic() - t0)
+    cfg = resnet.config("tiny")
+    image = np.random.default_rng(0).standard_normal(
+        (cfg.image_size, cfg.image_size, 3)).astype(np.float32)
+    params = resnet.init(cfg, 0, device=kit.device)
+    ref = eager_forward(kit.torch, lambda x: resnet.apply(params, cfg, x),
+                        [image], kit.device)
+    c, h, n = runs["classify"], runs["hello"], runs["nosuch"]
+    try:
+        label = json.loads(c["stdout"])["label"]
+    except (ValueError, KeyError, TypeError):
+        label = None
+    if c["rc"] != 0 or label is None:
+        raise AssertionError(f"phase 42d: classify exited {c['rc']}, "
+                             f"stdout {c['stdout'][-500:]!r}, stderr "
+                             f"{c['stderr'][-2000:]!r}")
+    figures = check_labels([label], [None], ref, "cmd classify")
+    if (h["rc"], h["stdout"]) != (0, "Hello H100!\n"):
+        raise AssertionError(f"phase 42d: hello exited {h['rc']} with "
+                             f"{h['stdout']!r} {h['stderr'][-500:]!r}")
+    if n["rc"] != 2 or "unknown command: 'nosuch'" not in n["stderr"] \
+            or n["stdout"]:
+        raise AssertionError(f"phase 42d: nosuch exited {n['rc']} with "
+                             f"{n['stdout']!r} {n['stderr'][-500:]!r}")
+    logged = ""
+    if kit.cuda:
+        with open(os.path.join(kit.tmp, "cmd.log")) as handle:
+            logged = handle.read()
+        if "tpu: model resnet registered" not in logged:
+            raise AssertionError(f"phase 42d: CMD_LOGS_FILE holds "
+                                 f"{logged[-500:]!r}")
+    row = dict(classify=dict(rc=c["rc"], label=label, labels=figures,
+                             seconds=c["seconds"]),
+               hello=dict(rc=h["rc"], seconds=h["seconds"]),
+               nosuch=dict(rc=n["rc"], seconds=n["seconds"]),
+               log_lines=logged.splitlines())
+    kit.out["cmd"] = row
+    log(f"42d: classify exited 0 with label {label} ({c['seconds']:.1f}s "
+        f"from its start), hello {h['stdout'].strip()!r}, nosuch exited "
+        f"{n['rc']}; CMD_LOGS_FILE: {row['log_lines']}")
+    return row
+
+
+async def ws_open(port, key):
+    """A websocket client over asyncio streams: the upgrade, its 101 and
+    accept key checked. (reader, writer, bytes past the handshake)."""
+    from gofr_tpu_torch.websocket.frames import accept_key
+
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write((
+        "GET /chat HTTP/1.1\r\nHost: 127.0.0.1\r\nUpgrade: websocket\r\n"
+        f"Connection: Upgrade\r\nSec-WebSocket-Key: {key}\r\n"
+        "Sec-WebSocket-Version: 13\r\n\r\n").encode())
+    await writer.drain()
+    head = await asyncio.wait_for(reader.readuntil(b"\r\n\r\n"), 10)
+    if b" 101 " not in head.split(b"\r\n")[0] \
+            or accept_key(key).encode() not in head:
+        raise AssertionError(f"phase 42e: handshake answered {head!r}")
+    return [reader, writer, b""]
+
+
+async def ws_next(client):
+    """The next frame a client gets: (opcode, payload); None at EOF."""
+    from gofr_tpu_torch.websocket.frames import decode_frame
+
+    while True:
+        frame = decode_frame(client[2])
+        if frame is not None:
+            client[2] = client[2][frame[3]:]
+            return frame[0], frame[2]
+        chunk = await asyncio.wait_for(client[0].read(65536), 10)
+        if not chunk:
+            return None
+        client[2] += chunk
+
+
+def ex_websocket(kit):
+    """42e: ``websocket_chat``: two clients (masked frames) each get the
+    welcome, a message from one reaches both, ping gets pong, the round
+    trip's p50 over ``ws_round_trips`` broadcasts, the close handshake
+    answers 1000 and an unmasked frame closes with 1002."""
+    import base64
+
+    from gofr_tpu_torch.examples import websocket_chat
+    from gofr_tpu_torch.websocket import frames, hub
+
+    log("== phase 42e: websocket_chat: two clients")
+    with kit.env():
+        app = websocket_chat.build_app(device=kit.device)
+    out = {}
+
+    def text(message):
+        return frames.encode_frame(frames.OP_TEXT, message.encode(),
+                                   mask=True)
+
+    async def main():
+        await app.start()
+        try:
+            port = app.bound_http_port
+            c1 = await ws_open(port, base64.b64encode(b"1" * 16).decode())
+            c2 = await ws_open(port, base64.b64encode(b"2" * 16).decode())
+            welcome = {"system": "welcome"}
+            got = [await ws_next(c) for c in (c1, c2)]
+            if any(g is None or json.loads(g[1]) != welcome for g in got):
+                raise AssertionError(f"phase 42e: welcome {got}")
+            c1[1].write(text("hello from 1"))
+            got = [await ws_next(c) for c in (c1, c2)]
+            if any(g is None or json.loads(g[1])
+                   != {"message": "hello from 1"} for g in got):
+                raise AssertionError(f"phase 42e: broadcast {got}")
+            c1[1].write(frames.encode_frame(frames.OP_PING, b"p", mask=True))
+            pong = await ws_next(c1)
+            if pong != (frames.OP_PONG, b"p"):
+                raise AssertionError(f"phase 42e: ping answered {pong}")
+            seconds = []
+            for i in range(kit.ws_round_trips):
+                t = time.perf_counter()
+                c1[1].write(text(f"m{i}"))
+                got = await ws_next(c1)
+                seconds.append(time.perf_counter() - t)
+                if got is None or json.loads(got[1]) != {"message": f"m{i}"}:
+                    raise AssertionError(f"phase 42e: round trip {i}: {got}")
+            for i in range(kit.ws_round_trips):
+                got = await ws_next(c2)
+                if got is None or json.loads(got[1]) != {"message": f"m{i}"}:
+                    raise AssertionError(f"phase 42e: c2's {i}: {got}")
+            out["seconds"] = seconds
+            c2[1].write(frames.encode_frame(frames.OP_CLOSE, b"\x03\xe8",
+                                            mask=True))
+            close = await ws_next(c2)
+            eof = await ws_next(c2)
+            out["close"] = (close[0], int.from_bytes(close[1][:2], "big"),
+                            eof)
+            c1[1].write(frames.encode_frame(frames.OP_TEXT, b"bare",
+                                            mask=False))
+            fail = await ws_next(c1)
+            out["unmasked"] = (fail[0], int.from_bytes(fail[1][:2], "big"),
+                               await ws_next(c1))
+            for c in (c1, c2):
+                c[1].close()
+            deadline = time.monotonic() + 10
+            while hub().all() and time.monotonic() < deadline:
+                await asyncio.sleep(0.01)
+            out["hub_left"] = len(hub().all())
+        finally:
+            await app.stop()
+
+    asyncio.run(main())
+    if out["close"] != (frames.OP_CLOSE, 1000, None):
+        raise AssertionError(f"phase 42e: close handshake {out['close']}")
+    if out["unmasked"] != (frames.OP_CLOSE, frames.CLOSE_PROTOCOL_ERROR,
+                           None):
+        raise AssertionError(f"phase 42e: an unmasked frame gave "
+                             f"{out['unmasked']}")
+    if out["hub_left"]:
+        raise AssertionError(f"phase 42e: {out['hub_left']} connections "
+                             f"left in the hub")
+    row = dict(round_trips=len(out["seconds"]),
+               p50_s=percentile(out["seconds"], 0.5),
+               p99_s=percentile(out["seconds"], 0.99),
+               close_code=out["close"][1], unmasked_code=out["unmasked"][1])
+    kit.out["websocket_chat"] = row
+    log(f"42e: welcome and broadcast to both, pong, round trip p50 "
+        f"{row['p50_s'] * 1e3:.3f} ms p99 {row['p99_s'] * 1e3:.3f} ms over "
+        f"{row['round_trips']}; close 1000, unmasked 1002; hub empty")
+    return row
+
+
+def serve(app, body):
+    """Start ``app``, await ``body(port)``, stop; its result."""
+    async def main():
+        await app.start()
+        try:
+            return await body(app.bound_http_port)
+        finally:
+            await app.stop()
+    return asyncio.run(main())
+
+
+def ex_framework(kit):
+    """42f: the framework examples at their defaults, one app at a time:
+    CRUD and migrations on sqlite files, a zip upload and a declared bomb,
+    Redis over RESP2, the publisher over Kafka, the outbound service up
+    and degraded, the custom metrics' series, both cron jobs, and the
+    OpenAPI routes from a working directory holding a spec."""
+    import io
+    import zipfile
+
+    from gofr_tpu_torch import new_app
+    from gofr_tpu_torch.app import App
+    from gofr_tpu_torch.config import MapConfig
+    from gofr_tpu_torch.container import new_mock_container
+    from gofr_tpu_torch.datasource.pubsub.base import decode_trace_envelope
+    from gofr_tpu_torch.examples import (http_server_using_redis,
+                                         using_add_rest_handlers, using_cron,
+                                         using_custom_metrics,
+                                         using_file_bind, using_http_service,
+                                         using_migrations, using_publisher)
+    from scripts.wire_brokers import KafkaLog, RESPServer
+
+    log("== phase 42f: the framework examples")
+    row = {}
+    t = time.monotonic()
+    db = os.path.join(kit.tmp, "users.db")
+    with kit.env(DB_DIALECT="sqlite", DB_NAME=db):
+        app = using_add_rest_handlers.build_app(device=kit.device)
+    row["crud"] = serve(app, lambda port: check_answers(
+        port, EX_CRUD, "using_add_rest_handlers"))
+
+    with kit.env(DB_DIALECT="sqlite",
+                 DB_NAME=os.path.join(kit.tmp, "employees.db"),
+                 REDIS_HOST="memory"):
+        app = using_migrations.build_app(device=kit.device)
+    seeded = app.container.redis.get("employee:seeded")
+    row["migrations"] = serve(app, lambda port: check_answers(
+        port, EX_MIGRATIONS, "using_migrations"))
+    if seeded != "true":
+        raise AssertionError(f"phase 42f: migration 2 left {seeded!r}")
+
+    buffer = io.BytesIO()
+    with zipfile.ZipFile(buffer, "w") as archive:
+        for name, content in EX_ZIP_MEMBERS:
+            archive.writestr(name, content)
+    bodies = [upload_body("data.zip", buffer.getvalue()),
+              upload_body("bomb.zip", declared_bomb_zip())]
+    with kit.env():
+        app = using_file_bind.build_app(device=kit.device)
+
+    async def uploads(port):
+        return [await http_call(port, "POST", "/upload", body, {
+            "Content-Type": f"multipart/form-data; boundary={BOUNDARY}"})
+            for body in bodies]
+    (s1, _, b1), (s2, _, b2) = serve(app, uploads)
+    members = json.loads(b1)["data"] if s1 == 201 else None
+    if s1 != 201 or members["zip_members"] != [n for n, _ in EX_ZIP_MEMBERS] \
+            or (s2, json.loads(b2)) != EX_BOMB:
+        raise AssertionError(f"phase 42f: uploads {s1} {b1[:300]!r}, bomb "
+                             f"{s2} {b2[:300]!r}")
+    row["file_bind"] = dict(members=members["zip_members"], bomb=s2)
+
+    resp = RESPServer()
+    try:
+        with kit.env(REDIS_HOST="127.0.0.1", REDIS_PORT=str(resp.port)):
+            app = http_server_using_redis.build_app(device=kit.device)
+        row["redis"] = serve(app, lambda port: check_answers(
+            port, EX_REDIS, "http_server_using_redis"))
+        ttl = app.container.redis.ttl("greeting")
+    finally:
+        resp.stop()
+    if not 0 < ttl <= 300:
+        raise AssertionError(f"phase 42f: Redis TTL {ttl}")
+
+    kafka = KafkaLog()
+    try:
+        with kit.env(PUBSUB_BACKEND="KAFKA",
+                     KAFKA_BROKER=f"127.0.0.1:{kafka.port}"):
+            app = using_publisher.build_app(device=kit.device)
+        row["publisher"] = serve(app, lambda port: check_answers(
+            port, EX_PUBLISHER, "using_publisher"))
+        logged = {topic: [json.loads(decode_trace_envelope(m)[1])
+                          for m in kafka.messages(topic)]
+                  for topic in ("order-logs", "products")}
+    finally:
+        kafka.stop()
+    if logged != {"order-logs": [EX_PUBLISHER[0][2]],
+                  "products": [EX_PUBLISHER[1][2]]}:
+        raise AssertionError(f"phase 42f: the Kafka log holds {logged}")
+
+    upstream = App(config=MapConfig({}),
+                   container=new_mock_container(device="cpu"))
+    upstream.http_port = upstream.metrics_port = 0
+    upstream.get("/fact", lambda ctx: EX_FACT)
+    upstream.get("/breeds", lambda ctx: {"ok": True})
+
+    async def service_turns():
+        await upstream.start()
+        with kit.env(FACTS_URL=f"http://127.0.0.1:"
+                               f"{upstream.bound_http_port}"):
+            app = using_http_service.build_app(device=kit.device)
+        await app.start()
+        try:
+            port = app.bound_http_port
+            turns = []
+            for up in (True, False):
+                if not up:
+                    await upstream.stop()
+                status, _, body = await http_call(port, "GET", "/fact")
+                _, _, health = await http_call(port, "GET",
+                                               "/.well-known/health")
+                health = json.loads(health)
+                turns.append((status, json.loads(body),
+                              {k: v["status"] for k, v in
+                               health["services"].items()},
+                              health["status"]))
+            return turns
+        finally:
+            await app.stop()
+
+    up, down = asyncio.run(service_turns())
+    if up != (200, {"data": EX_FACT}, {"cat-facts": "UP",
+                                       "fact-checker": "DOWN"}, "DEGRADED") \
+            or down[0] < 500 or down[2]["cat-facts"] != "DOWN" \
+            or down[3] != "DEGRADED":
+        raise AssertionError(f"phase 42f: the outbound service up {up}, "
+                             f"down {down}")
+    row["http_service"] = dict(up=up[0], down=down[0])
+
+    with kit.env():
+        app = using_custom_metrics.build_app(device=kit.device)
+
+    async def metrics_turn(port):
+        await check_answers(port, EX_TRANSACTIONS, "using_custom_metrics")
+        _, _, text = await http_call(app.bound_metrics_port, "GET",
+                                     "/metrics")
+        return text.decode()
+    series = {}
+    for line in serve(app, metrics_turn).splitlines():
+        name, _, value = line.replace("{}", "").partition(" ")
+        if name in EX_SERIES:
+            series[name] = float(value)
+    if series != EX_SERIES:
+        raise AssertionError(f"phase 42f: custom series {series}")
+    row["custom_metrics"] = series
+
+    with kit.env():
+        app = using_cron.build_app(device=kit.device)
+
+    async def fire():
+        for job in app.crontab.jobs:
+            await app.crontab._run_job(job)
+    asyncio.run(fire())
+    runs = {job.name: app.container.metrics.value(
+        "app_cron_runs_total", job=job.name, result="success")
+        for job in app.crontab.jobs}
+    if runs != {"heartbeat": 1.0, "tpu-health": 1.0}:
+        raise AssertionError(f"phase 42f: cron runs {runs}")
+    row["cron"] = runs
+
+    row["openapi"] = openapi_turn(kit, new_app)
+    row["seconds"] = time.monotonic() - t
+    kit.out["framework"] = row
+    log(f"42f: every framework example answered as JAX's in "
+        f"{row['seconds']:.2f}s: {row}")
+    return row
+
+
+BOUNDARY = "phase42"
+
+
+def upload_body(filename, blob):
+    return (f"--{BOUNDARY}\r\nContent-Disposition: form-data; name=\"name\""
+            f"\r\n\r\nphase42\r\n--{BOUNDARY}\r\nContent-Disposition: "
+            f"form-data; name=\"upload\"; filename=\"{filename}\"\r\n"
+            f"Content-Type: application/zip\r\n\r\n").encode() + blob + \
+        f"\r\n--{BOUNDARY}--\r\n".encode()
+
+
+def declared_bomb_zip():
+    """A stored one-member zip whose headers declare 200 MB."""
+    import io
+    import struct
+    import zipfile
+
+    buffer = io.BytesIO()
+    with zipfile.ZipFile(buffer, "w", zipfile.ZIP_STORED) as archive:
+        archive.writestr("x", b"y" * 64)
+    data = bytearray(buffer.getvalue())
+    size = 200 * 1024 * 1024
+    struct.pack_into("<II", data, data.index(b"PK\x03\x04") + 18, size, size)
+    struct.pack_into("<II", data, data.index(b"PK\x01\x02") + 20, size, size)
+    return bytes(data)
+
+
+def openapi_turn(kit, new_app):
+    """An app started in a working directory holding
+    ``static/openapi.json``: the spec as written, the swagger page, and
+    both assets as the package's bytes."""
+    import gofr_tpu_torch
+
+    static = Path(gofr_tpu_torch.__file__).resolve().parent / "static"
+    work = Path(kit.tmp) / "openapi"
+    (work / "static").mkdir(parents=True, exist_ok=True)
+    spec = json.dumps(EX_SPEC).encode()
+    (work / "static" / "openapi.json").write_bytes(spec)
+    here = os.getcwd()
+    os.chdir(work)
+    try:
+        with kit.env():
+            app = new_app(str(work / "configs"), device=kit.device)
+
+        async def fetch(port):
+            return [await http_call(port, "GET", f"/.well-known/{path}")
+                    for path in ("openapi.json", "swagger",
+                                 "swagger/swagger-ui-bundle.js",
+                                 "swagger/swagger-ui.css")]
+        got = serve(app, fetch)
+    finally:
+        os.chdir(here)
+    want = [spec, None, (static / "swagger-ui-bundle.js").read_bytes(),
+            (static / "swagger-ui.css").read_bytes()]
+    if [s for s, _, _ in got] != [200] * 4 or got[0][2] != want[0] \
+            or b"SwaggerUIBundle" not in got[1][2] \
+            or got[2][2] != want[2] or got[3][2] != want[3]:
+        raise AssertionError(f"phase 42f: OpenAPI answered "
+                             f"{[(s, len(b)) for s, _, b in got]}")
+    return dict(asset_bytes=[len(b) for _, _, b in got[2:]])
+
+
+EXAMPLE_STEPS = (("http_server", ex_http_server),
+                 ("grpc_server", ex_grpc_server),
+                 ("using_subscriber", ex_subscriber),
+                 ("cmd", ex_cmd),
+                 ("websocket_chat", ex_websocket),
+                 ("framework", ex_framework))
+
+
+def example_kit(torch, seed, tmp, device="cuda", tiny=False):
+    """Phase 42's kit: the examples' defaults on the card, or (``tiny``)
+    a CPU rehearsal's tiny presets and small request sets."""
+    if not tiny:
+        return ExampleKit(torch, device, seed, tmp)
+    return ExampleKit(torch, device, seed, tmp, resnet_preset="tiny",
+                      bert_preset="tiny", n_classify=8, classify_inflight=4,
+                      n_embed=4, embed_inflight=2, n_images=4,
+                      ws_round_trips=5)
+
+
+def phase_examples(torch, seed, results, device="cuda", tiny=False,
+                   mods=None):
+    """Phase 42: the examples at their own defaults on the card, one after
+    the other, each app (and its websockets) closed before the next; the
+    ``cmd`` runs start first, in processes of their own. ``mods`` (the
+    kernel modules) records the launches of the three kernels, which no
+    example path takes."""
+    import tempfile
+
+    t_phase = time.monotonic()
+    log(f"== phase 42: the examples on the {device} at their own defaults"
+        + (" (tiny presets)" if tiny else ""))
+    with tempfile.TemporaryDirectory(prefix="phase42-") as tmp:
+        kit = example_kit(torch, seed, tmp, device, tiny)
+        resnet_row = results.get("exec_resnet50", {})
+        kit.out["phase34_resnet_buckets"] = resnet_row.get("buckets")
+        if mods is not None:
+            for mod in mods:
+                mod.reset_launches()
+        start_cmd_runs(kit)
+        try:
+            for _, step in EXAMPLE_STEPS:
+                step(kit)
+                gc.collect()
+                if kit.cuda:
+                    torch.cuda.empty_cache()
+        finally:
+            for _, proc in kit.cmd_procs.values():
+                proc.kill()
+                proc.wait()
+        if mods is not None:
+            kit.out["launches"] = read_launches(mods)
+    kit.out["phase_s"] = time.monotonic() - t_phase
+    results["examples"] = kit.out
+    http = kit.out["http_server"]
+    turns = {t["kind"]: t for t in http["turns"]}
+    log(f"phase 42: every example passed in {kit.out['phase_s']:.1f}s; "
+        f"/classify over HTTP {turns['http']['requests_per_s']:.1f}/s "
+        f"against direct {turns['direct']['requests_per_s']:.1f}/s (last "
+        f"turn of each); gRPC embed p50 "
+        f"{kit.out['grpc_server']['p50_s'] * 1e3:.2f} ms; websocket round "
+        f"trip p50 {kit.out['websocket_chat']['p50_s'] * 1e3:.3f} ms; "
+        f"launches {kit.out.get('launches')}")
+    if kit.out["phase_s"] > PHASE42_LIMIT_S and not tiny:
+        raise AssertionError(f"phase 42 took {kit.out['phase_s']:.1f}s, "
+                             f"over its {PHASE42_LIMIT_S}s")
+    return kit.out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -9344,6 +10436,10 @@ def main() -> int:
     # this slice: the datasources and the lane over Kafka and MQTT (41)
     by_path_d64.update(phase_lane_wire(torch, generate, mods, args.seed,
                                        results))
+    # this slice: the examples at their own defaults (phase 42); no
+    # example path takes a hand-written kernel
+    phase_examples(torch, args.seed, results, mods=mods)
+    torch.cuda.empty_cache()
 
     cfg = llama.config("llama3-8b", n_layers=args.layers, use_flash=True)
     if args.layers != 32:

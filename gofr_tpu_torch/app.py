@@ -19,8 +19,14 @@ pages (each off by default) and the ``/debug/`` index of those enabled;
 ``add_http_service`` registers an outbound client in the container;
 ``migrate`` runs versioned migrations over the container's SQL and
 Redis; ``add_mongo``, ``add_cassandra`` and ``add_clickhouse`` inject an
-external datasource. Left for a later slice (ROADMAP §1): the CLI,
-websockets, CRUD and OpenAPI.
+external datasource. ``add_rest_handlers`` registers a dataclass's five
+CRUD routes, ``websocket`` a websocket route, ``sub_command`` a CLI
+command; an app with commands runs them from ``run()`` (``new_cmd``
+builds one that logs to ``CMD_LOGS_FILE``). ``./static/openapi.json``
+under the working directory is served with the swagger UI.
+
+``run()`` returns the CLI's exit code where JAX's returns None (ROADMAP
+§3, divergences).
 """
 
 from __future__ import annotations
@@ -54,6 +60,7 @@ from gofr_tpu_torch.http.middleware import (
 from gofr_tpu_torch.http.request import Request
 from gofr_tpu_torch.http.router import Router
 from gofr_tpu_torch.http.server import HTTPServer
+from gofr_tpu_torch.logging import new_file_logger
 from gofr_tpu_torch.metrics import render_prometheus, system_metrics_refresh
 
 DEFAULT_HTTP_PORT = 8000
@@ -76,6 +83,7 @@ class App:
         self.crontab = Crontab(self.container)
         self._subscriptions: Dict[str, Handler] = {}
         self._grpc_services: List[tuple] = []
+        self._cli_commands: List[Any] = []
         self._request_timeout = self.config.get_float("REQUEST_TIMEOUT", 0.0)
         # how long stop() lets responses in flight (SSE generation streams
         # too) finish before their connections are closed
@@ -172,6 +180,26 @@ class App:
 
     def add_static_files(self, url_prefix: str, directory: str) -> None:
         self.router.add_static_files(url_prefix, directory)
+
+    def add_rest_handlers(self, entity_class: type) -> None:
+        """POST, GET (all and one), PUT and DELETE routes of a dataclass
+        over the container's SQL."""
+        from gofr_tpu_torch.crud import register_crud_routes
+        register_crud_routes(self, entity_class)
+
+    def websocket(self, pattern: str, handler: Handler) -> None:
+        """A websocket route: the handler reads and writes messages
+        through ``ctx.read_message()`` / ``ctx.write_message()``."""
+        from gofr_tpu_torch.websocket.upgrade import make_ws_route
+        self.router.add("GET", pattern, make_ws_route(handler, self.container))
+
+    def sub_command(self, pattern: str, handler: Handler,
+                    description: str = "", help_text: str = "") -> None:
+        """A CLI command: ``pattern`` is a regex over argv's positional
+        words."""
+        from gofr_tpu_torch.cli.command import CLICommand
+        self._cli_commands.append(
+            CLICommand(pattern, handler, description, help_text))
 
     # -- pub/sub, cron, gRPC --------------------------------------------------
     def subscribe(self, topic: str, handler: Handler) -> None:
@@ -376,6 +404,15 @@ class App:
             self.router.add("GET", "/.well-known/alive", live_handler)
         if "GET /favicon.ico" not in routes:
             self.router.add("GET", "/favicon.ico", favicon_handler)
+        openapi_path = os.path.join("static", "openapi.json")
+        if os.path.isfile(openapi_path):
+            from gofr_tpu_torch.openapi import make_openapi_handlers
+            spec_handler, ui_handler, asset_handler = \
+                make_openapi_handlers(openapi_path)
+            self.router.add("GET", "/.well-known/openapi.json", spec_handler)
+            self.router.add("GET", "/.well-known/swagger", ui_handler)
+            self.router.add("GET", "/.well-known/swagger/{asset}",
+                            asset_handler)
 
     async def _metrics_dispatch(self, request: Request):
         if request.path in ("/metrics", "/"):
@@ -652,12 +689,18 @@ class App:
         self.logger.info("shutdown signal received")
         await self.stop()
 
-    def run(self) -> None:
-        """Blocking entry point: serve until SIGINT or SIGTERM."""
+    def run(self) -> Optional[int]:
+        """Blocking entry point: serve until SIGINT or SIGTERM. An app
+        with CLI commands runs the one argv names instead and returns its
+        exit code (0 ok, 1 it raised, 2 no command matched)."""
+        if self._cli_commands:
+            from gofr_tpu_torch.cli.runner import run_cli
+            return run_cli(self)
         try:
             asyncio.run(self.serve())
         except KeyboardInterrupt:
             pass
+        return None
 
     @property
     def bound_http_port(self) -> int:
@@ -683,3 +726,15 @@ def new_app(config_dir: str = "./configs", device="cuda") -> App:
     """Server app factory: config from ``<config_dir>/.env`` layers and the
     environment; ``device`` for the app's executor."""
     return App(config=EnvConfig(config_dir), device=device)
+
+
+def new_cmd(config_dir: str = "./configs", device="cuda") -> App:
+    """CLI app factory: with ``CMD_LOGS_FILE`` set the logs go to that
+    file, so stdout holds the commands' output alone; ``device`` for the
+    app's executor."""
+    config = EnvConfig(config_dir)
+    log_file = config.get_or_default("CMD_LOGS_FILE", "")
+    container = Container.create(
+        config, logger=new_file_logger(log_file) if log_file else None,
+        device=device)
+    return App(config=config, container=container)

@@ -24,8 +24,7 @@ from gofr_tpu_torch.metrics import (Manager, new_manager,
                                     register_framework_metrics)
 from gofr_tpu_torch.slo import SLOTracker
 from gofr_tpu_torch.trace import Tracer, new_tracer
-
-FRAMEWORK_VERSION = "0.1.0"
+from gofr_tpu_torch.version import FRAMEWORK_VERSION
 
 
 class Container:

@@ -68,8 +68,7 @@ import json
 import os
 from typing import Any, Callable, Optional
 
-from gofr_tpu_torch import resolve_device
-from gofr_tpu_torch.app import App, new_app
+from gofr_tpu_torch import App, new_app, resolve_device
 from gofr_tpu_torch.grpcx import grpc_available
 from gofr_tpu_torch.http.errors import HTTPError
 from gofr_tpu_torch.http.response import FileResponse, Stream

@@ -80,6 +80,22 @@ DATASOURCE_MODULES = [
     "gofr_tpu_torch/logging/remote_level.py",
     "scripts/wire_brokers.py",
 ]
+# the rest of the framework and the examples beside llama_generate
+FRAMEWORK_REST_MODULES = [
+    "gofr_tpu_torch/__init__.py", "gofr_tpu_torch/version.py",
+    "gofr_tpu_torch/file_utils.py", "gofr_tpu_torch/testutil.py",
+    "gofr_tpu_torch/crud.py", "gofr_tpu_torch/openapi.py",
+    "gofr_tpu_torch/cli/__init__.py", "gofr_tpu_torch/cli/command.py",
+    "gofr_tpu_torch/cli/runner.py",
+    "gofr_tpu_torch/websocket/__init__.py",
+    "gofr_tpu_torch/websocket/frames.py",
+    "gofr_tpu_torch/websocket/connection.py",
+    "gofr_tpu_torch/websocket/upgrade.py",
+] + [f"gofr_tpu_torch/examples/{name}.py" for name in (
+    "http_server", "grpc_server", "using_subscriber", "cmd",
+    "websocket_chat", "http_server_using_redis", "using_add_rest_handlers",
+    "using_migrations", "using_file_bind", "using_http_service",
+    "using_publisher", "using_custom_metrics", "using_cron")]
 
 
 def _port_files():
@@ -127,7 +143,8 @@ def test_guard_scans_the_admission_and_grammar_modules():
     checkpoints), and the app framework (:data:`APP_MODULES`), and the
     debug pages, the outbound service layer and the profiler
     (:data:`DEBUG_MODULES`), and the datasources with the smoke's
-    in-process brokers (:data:`DATASOURCE_MODULES`)."""
+    in-process brokers (:data:`DATASOURCE_MODULES`), and the rest of the
+    framework with the examples (:data:`FRAMEWORK_REST_MODULES`)."""
     files = {str(path.relative_to(ROOT)) for path in _port_files()}
     own = ["gofr_tpu_torch/slo.py", "gofr_tpu_torch/tpu/constrain.py",
            "gofr_tpu_torch/tpu/sched.py",
@@ -166,7 +183,7 @@ def test_guard_scans_the_admission_and_grammar_modules():
            "gofr_tpu_torch/utils/__init__.py",
            "gofr_tpu_torch/utils/checkpoint.py",
            "gofr_tpu_torch/utils/tree.py"] + APP_MODULES + DEBUG_MODULES \
-        + DATASOURCE_MODULES
+        + DATASOURCE_MODULES + FRAMEWORK_REST_MODULES
     assert set(own) <= files
     for name in own + ["gofr_tpu_torch/tpu/generate.py"]:
         assert not set(_imported_roots(ROOT / name)) & set(FORBIDDEN), name
@@ -338,6 +355,51 @@ def test_app_entry_points_default_to_the_card(no_cuda, monkeypatch):
     cpu = App(config=MapConfig({}), device="cpu")
     cpu.add_model("m", lambda p, x: x, {})
     assert cpu.container.tpu.device.type == "cpu"
+
+
+MODEL_EXAMPLES = [("http_server", "RESNET_PRESET"),
+                  ("grpc_server", "BERT_PRESET"),
+                  ("using_subscriber", "RESNET_PRESET")]
+
+
+@pytest.mark.parametrize("name,preset", MODEL_EXAMPLES)
+def test_model_examples_default_to_the_card(no_cuda, monkeypatch, name,
+                                            preset):
+    """Each model example's ``build_app()`` raises without CUDA;
+    ``device="cpu"`` builds it."""
+    import importlib
+
+    module = importlib.import_module(f"gofr_tpu_torch.examples.{name}")
+    for key in APP_ENV_UNSET:
+        monkeypatch.delenv(key, raising=False)
+    monkeypatch.setenv(preset, "tiny")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        module.build_app()
+    app = module.build_app(device="cpu")
+    assert app.container.device.type == "cpu"
+    assert app.container.tpu.device.type == "cpu"
+
+
+def test_cli_entry_points_default_to_the_card(no_cuda):
+    """``new_cmd()`` builds on the card as ``new_app()`` does; the ``cmd``
+    example's ``classify`` raises without CUDA (the command fails, exit
+    code 1) and runs on ``device="cpu"``."""
+    import io
+
+    from gofr_tpu_torch import new_cmd
+    from gofr_tpu_torch.cli import run_cli
+    from gofr_tpu_torch.examples import cmd
+
+    assert new_cmd().container.device == "cuda"
+    assert cmd.app.container.device == "cuda"
+    err = io.StringIO()
+    assert run_cli(cmd.app, ["classify"], stdout=io.StringIO(),
+                   stderr=err) == 1
+    assert "CUDA is not available" in err.getvalue()
+    out = io.StringIO()
+    assert run_cli(cmd.build_app(device="cpu"), ["classify"],
+                   stdout=out) == 0
+    assert "label" in out.getvalue()
 
 
 @pytest.mark.parametrize("env,match", [
