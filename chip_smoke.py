@@ -84,7 +84,10 @@ Phases, each of which raises (exit code != 0) on failure:
 10. the same engine with speculative decode (γ 4, a draft made of views of
     the target's first 4 layers, embedding and head) on the same 8
     requests, launch counts checked against its prefill dispatches, spec
-    ticks, Σ(g + 1) draft steps and plain decode steps;
+    ticks, Σ(g + 1) draft steps and plain decode steps, then the burst
+    again at ``max_inflight_ticks=1`` from the gamma controller's first
+    state (each tick dispatched after the one before it was published,
+    so its ticks follow from the tokens alone);
 11. phase 9 with ``kv_int8`` (the same weights): launch counts, and the
     pool's bytes against phase 9's for the same page count;
 12. phase 10 with a ``kv_int8`` target and the same bf16 draft;
@@ -110,7 +113,13 @@ Phases, each of which raises (exit code != 0) on failure:
     counted by rung, the launch counts are checked against its counters,
     one streamed request of 60 new tokens on a 100-token prompt must cross
     rung 128 to 256, and its 7 greedy completions must be the paged
-    engine's tokens of the same configuration;
+    engine's tokens of the same configuration. A speculative tick's
+    rounding depends on its gamma (its verify runs g + 1 rows a slot),
+    and with 2 ticks in flight a tick's gamma follows the host's pace:
+    its pipelined completions must be the paged engine's when the two
+    bursts dispatched the same ticks (kind, rung, slots), and its
+    completions at one tick in flight the paged engine's at one tick in
+    flight always;
 19. every kernel at head_dim 64, the ``small`` preset's shapes (Hq =
     Hkv = 16, B 8, max_len 1024), under phases 3-6's gates: flash
     prefill (B 4, S 512, with its ratio to SDPA), the ragged kernel's
@@ -464,6 +473,24 @@ Phases, each of which raises (exit code != 0) on failure:
     requests/s and p50 / p99 over HTTP against the batcher, the gRPC embed
     p50, the websocket round trip p50, each model example's capture and
     start seconds and the phase's seconds (at most 90).
+43. the port's static analyzer (``gofr_tpu_torch.analysis``, after phase
+    40). 43a: ``python -m gofr_tpu_torch.analysis --no-cache`` over this
+    checkout's ``gofr_tpu_torch/`` (started beside phase 2's build, in a
+    process of its own, and read here) exits 0 with the committed empty
+    baseline; printed: the files scanned, the findings a pragma
+    suppressed and the analyzer's seconds. 43b: the premises of the three
+    CUDA-graph rules on the card, through ``capture.record`` with a graph
+    pool (``tests/analysis_fixtures_torch/graph_premises.py``): the
+    analyzer flags exactly its positives, and the card shows each hazard
+    on the positive and not on the negative. GT004: a counter bumped in a
+    body moves at the eager run and the capture only, never at the N
+    replays, where one at the dispatch site moves N times; a body with
+    ``.item()`` makes ``capture.record`` raise. GT003: a table keyed on
+    raw lengths captures once a distinct length, one keyed on rungs once
+    a rung (captures counted at ``capture.record``). GT015: a static
+    output held across a second replay reads the second replay's values,
+    a ``.clone()`` keeps the first's. Printed: the phase's seconds (at
+    most 15).
 
 Depth is cut, width never: the ``llama3-8b`` engines run 8 of 32
 layers (``--layers``), and every ``small`` phase but the app's (20-23,
@@ -1305,6 +1332,23 @@ def time_prefills(engine, calls):
     engine._prefill_insert = timed
 
 
+def record_dispatches(engine):
+    """Record each tick ``engine`` dispatches from now on, in order: its
+    kind, its rung (k steps or gamma), whether it samples, and the slots
+    it runs. Its attention window is left out: the dense and the paged
+    engine read the same bits through different windows. Returns the
+    list; ``del engine._dispatch`` stops the recording."""
+    seq = []
+    call = engine._dispatch
+
+    def run(loop, key, mask, *args, **kwargs):
+        seq.append([key[0], int(key[1]), bool(key[2]),
+                    [i for i, on in enumerate(mask.tolist()) if on]])
+        return call(loop, key, mask, *args, **kwargs)
+    engine._dispatch = run
+    return seq
+
+
 async def replay_against_eager(engine, prompts, budget, samplings, turns=2):
     """The burst with the engine's prefills as graph replays, then run
     eagerly, each ``turns`` times (the last measured): each prefill
@@ -1348,7 +1392,8 @@ def serve_burst(torch, engine, prompts, budget, samplings, mods, timeout,
     flight at some point. Returns (outputs, wall seconds, launches by
     kernel, the burst's run counters, sorted TTFTs, figures: graphs,
     prefill graphs, the allocator's bytes around the captures, idle
-    share, the stream's ticks by window rung, what ``extra`` returned)."""
+    share, the stream's ticks by window rung, the burst's ticks as
+    dispatched (``record_dispatches``), what ``extra`` returned)."""
     from torch.profiler import ProfilerActivity
 
     # an earlier profiled burst leaves cyclic garbage that is slow to
@@ -1383,6 +1428,7 @@ def serve_burst(torch, engine, prompts, budget, samplings, mods, timeout,
                     await asyncio.sleep(0.0005)
 
             watcher = asyncio.get_running_loop().create_task(watch())
+            dispatches = record_dispatches(engine)
             start = time.monotonic()
             try:
                 outs = await asyncio.wait_for(asyncio.gather(*[
@@ -1390,6 +1436,7 @@ def serve_burst(torch, engine, prompts, budget, samplings, mods, timeout,
                     for p, s in zip(prompts, samplings)]), timeout)
             finally:
                 watcher.cancel()
+                del engine._dispatch
             wall = time.monotonic() - start
             launches = read_launches(mods)
             after = run_counters(engine)
@@ -1429,12 +1476,13 @@ def serve_burst(torch, engine, prompts, budget, samplings, mods, timeout,
                               if n > windows.get(w, 0)}
             more = await extra(engine) if extra is not None else None
             return (outs, wall, launches, counters, ttfts, streamed,
-                    max(inflight), warm_s, idle, stream_windows, more)
+                    max(inflight), warm_s, idle, stream_windows, more,
+                    dispatches)
         finally:
             await engine.stop()
 
     (outs, wall, launches, counters, ttfts, streamed, peak,
-     warm_s, idle, stream_windows, more) = asyncio.run(serve())
+     warm_s, idle, stream_windows, more, dispatches) = asyncio.run(serve())
     for out in outs:
         if len(out) != budget or not all(0 <= t < engine.cfg.vocab_size
                                          for t in out):
@@ -1475,7 +1523,8 @@ def serve_burst(torch, engine, prompts, budget, samplings, mods, timeout,
                    reserved_after_warmup=memory["_warm_prefills_after"],
                    ticks_inflight_peak=peak,
                    max_inflight_ticks=engine.max_inflight_ticks,
-                   stream_ticks_by_window=stream_windows, **(idle or {}))
+                   stream_ticks_by_window=stream_windows,
+                   dispatches=dispatches, **(idle or {}))
     if more is not None:
         figures["extra"] = more
     log(f"graphs: {graphs['captured']} ticks captured in "
@@ -1627,15 +1676,40 @@ def check_dense(engine, outs, figures, path, paired, results):
     """A dense engine's checks beyond the paged ones: its 7 greedy
     completions are the paged engine's of the same configuration (the
     same kernel over the same K/V rows), and the streamed request crossed
-    rung 128 to 256."""
-    same = outs[:7] == results[paired]["greedy_outputs"]
+    rung 128 to 256. A speculative tick's rounding depends on its gamma
+    (its verify runs g + 1 rows a slot), and with two ticks in flight
+    the gamma of a tick follows the host's pace: its burst is held to
+    the paged one's when the two dispatched the same ticks, and its
+    burst at one tick in flight (``figures["extra"]``) always."""
+    ref = results[paired]
+    same = outs[:7] == ref["greedy_outputs"]
+    same_ticks = figures["dispatches"] == ref["dispatches"]
+    serial = figures.get("extra")
+    same_serial = serial is None or serial[:7] == ref["extra"][:7]
     crossed = {128, 256} <= set(figures["stream_ticks_by_window"])
-    log(f"{path}: 7 greedy completions identical to {paired}'s: {same}; "
-        f"streamed request's ticks by window "
-        f"{figures['stream_ticks_by_window']}")
-    if not same:
+    log(f"{path}: 7 greedy completions identical to {paired}'s: {same} "
+        f"(the same {len(figures['dispatches'])} ticks dispatched: "
+        f"{same_ticks})"
+        + ("" if serial is None else
+           f"; at one tick in flight: {same_serial}")
+        + f"; streamed request's ticks by window "
+          f"{figures['stream_ticks_by_window']}")
+    if not same and (same_ticks or serial is None):
+        # where each completion first differs, and both engines' ticks
+        where = {i: next(j for j, (a, b) in enumerate(zip(mine, theirs))
+                         if a != b)
+                 for i, (mine, theirs) in enumerate(
+                     zip(outs[:7], ref["greedy_outputs"]))
+                 if mine != theirs}
         raise AssertionError(f"{path}: greedy completions differ from "
-                             f"{paired}'s on the same weights")
+                             f"{paired}'s on the same weights (request: "
+                             f"first differing token {where}; ticks "
+                             f"{figures['dispatches']} against "
+                             f"{ref['dispatches']})")
+    if not same_serial:
+        raise AssertionError(f"{path}: greedy completions at one tick in "
+                             f"flight differ from {paired}'s on the same "
+                             f"weights")
     if not crossed:
         raise AssertionError(f"{path}: the streamed request did not cross "
                              f"window rung 128 to 256")
@@ -1755,9 +1829,24 @@ def phase_spec_engine(torch, llama, generate, mods, cfg, params, seed,
     budget = 32
     samplings = [generate.Sampling() for _ in range(7)] + [
         generate.Sampling(temperature=0.8, top_p=0.95, seed=seed)]
+
+    async def one_in_flight(engine):
+        # the burst again, each tick dispatched after the one before it
+        # was published, from the gamma controller's first state: the
+        # ticks follow from the tokens alone
+        engine.max_inflight_ticks = 1
+        engine._gamma_cap = engine.spec_gamma
+        engine._spec_noted = engine._spec_window_proposed = \
+            engine._spec_window_accepted = 0
+        try:
+            return await asyncio.wait_for(asyncio.gather(*[
+                engine.generate(p, budget, sampling=s)
+                for p, s in zip(prompts, samplings)]), 900)
+        finally:
+            engine.max_inflight_ticks = 2
     outs, wall, launches, counters, ttfts, figures = serve_burst(
         torch, engine, prompts, budget, samplings, mods, 900,
-        stream_tokens=8 if paged else 60, profile=True)
+        stream_tokens=8 if paged else 60, profile=True, extra=one_in_flight)
     check_launches(launches,
                    expected_launches(cfg, counters, DRAFT_LAYERS), path)
     spec = engine.stats()["speculative"]
@@ -10276,6 +10365,155 @@ def phase_examples(torch, seed, results, device="cuda", tiny=False,
     return kit.out
 
 
+# phase 43a: the analyzer in a process of its own, timed there
+ANALYSIS_PROBE = (
+    "import sys, time\n"
+    "t0 = time.perf_counter()\n"
+    "from gofr_tpu_torch.analysis.__main__ import main\n"
+    "rc = main(['--no-cache'])\n"
+    "print(f'graftcheck_seconds={time.perf_counter() - t0:.3f}')\n"
+    "sys.exit(rc)\n")
+GRAPH_PREMISES = "tests/analysis_fixtures_torch/graph_premises.py"
+PREMISE_REPLAYS = 5
+PREMISE_LENGTHS = (3, 5, 6, 7, 9, 12, 13, 16)
+
+
+def start_analysis():
+    """Start ``python -m gofr_tpu_torch.analysis --no-cache`` over this
+    checkout (phase 43a reads it)."""
+    import atexit
+    import tempfile
+
+    # its output goes to files: a pipe that nobody reads until phase 43
+    # could fill and stall it
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", ANALYSIS_PROBE],
+        cwd=str(Path(__file__).resolve().parent), stdout=out, stderr=err,
+        text=True)
+    proc.out_file, proc.err_file = out, err
+    # a run that fails before phase 43 leaves no analyzer behind
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def phase_analysis(torch, analysis, results):
+    """Phase 43: the analyzer's verdict on the tree (43a) and the card's
+    on the premises of GT004, GT003 and GT015 (43b)."""
+    import importlib.util
+    import types
+
+    from gofr_tpu_torch.analysis import default_rules, engine
+    from gofr_tpu_torch.tpu import capture
+
+    log("== phase 43: the port's static analyzer")
+    t0 = time.monotonic()
+    analysis.wait(timeout=600)
+    out, err = (f.seek(0) or f.read() for f in (analysis.out_file,
+                                                 analysis.err_file))
+    if analysis.returncode != 0:
+        raise AssertionError(f"phase 43a: the analyzer exited "
+                             f"{analysis.returncode}: {err[-3000:]}")
+    summary = next(line for line in out.splitlines()
+                   if line.startswith("graftcheck: OK"))
+    scanned, suppressed = (int(summary.split("(")[1].split()[0]),
+                           int(summary.split(", ")[-1].split()[0]))
+    seconds = float(out.split("graftcheck_seconds=")[1].split()[0])
+    log(f"phase 43a: {summary}; {scanned} files, {suppressed} findings "
+        f"suppressed by pragma, {seconds:.1f}s (its own process, host CPU)")
+    row = {"files": scanned, "suppressed": suppressed,
+           "analyzer_s": seconds}
+
+    t1 = time.monotonic()
+    path = Path(__file__).resolve().parent / GRAPH_PREMISES
+    spec = importlib.util.spec_from_file_location("graph_premises", path)
+    premises = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(premises)
+    report = engine.run(paths=[path], baseline={}, rules=default_rules(
+        select=["GT003", "GT004", "GT015"]))
+    flagged = {(f.rule, f.key) for f in report.new_findings}
+    if flagged != premises.EXPECTED:
+        raise AssertionError(f"phase 43b: the analyzer flagged {flagged}, "
+                             f"expected {premises.EXPECTED}")
+    device = torch.device("cuda", torch.cuda.current_device())
+    pool = torch.cuda.graph_pool_handle()
+    x = torch.arange(16, dtype=torch.float32, device=device)
+    n = PREMISE_REPLAYS
+
+    # GT004: host work in a body runs at the eager run and the capture
+    pos, neg = premises.Counter(), premises.Counter()
+    premises.counted_pos(device, pool, pos, x, n)
+    premises.counted_neg(device, pool, neg, x, n)
+    if (pos.n, neg.n) != (2, n):
+        raise AssertionError(f"phase 43b GT004: counts {pos.n} in the body "
+                             f"and {neg.n} at the dispatch site over {n} "
+                             f"replays, expected 2 and {n}")
+    try:
+        premises.synced_pos(device, pool, x)
+    except RuntimeError as exc:
+        sync_error = str(exc).splitlines()[0][:160]
+    else:
+        raise AssertionError("phase 43b GT004: a body with .item() was "
+                             "captured without a raise")
+    torch.cuda.synchronize()
+
+    # GT003: captures, counted at capture.record, per table
+    real, made = capture.record, []
+
+    def counting(*args, **kwargs):
+        made.append(1)
+        return real(*args, **kwargs)
+    capture.record = counting
+    try:
+        captures = {}
+        for name, fn in (("raw", premises.raw_key_pos),
+                         ("rungs", premises.raw_key_neg)):
+            del made[:]
+            graphs = {}
+            for length in PREMISE_LENGTHS:
+                graph, out_t, _ = fn(device, pool, graphs, x,
+                                     range(length))
+                graph.replay()
+            captures[name] = len(made)
+    finally:
+        capture.record = real
+    rungs = {next(r for r in premises.RUNGS if r >= length)
+             for length in PREMISE_LENGTHS}
+    if captures != {"raw": len(set(PREMISE_LENGTHS)),
+                    "rungs": len(rungs)}:
+        raise AssertionError(f"phase 43b GT003: captures {captures} for "
+                             f"{len(set(PREMISE_LENGTHS))} lengths over "
+                             f"{len(rungs)} rungs")
+
+    # GT015: a held static output reads the next replay's values
+    inp = torch.zeros(16, device=device)
+    graph, out_t, _ = capture.record(device, pool, lambda: inp * 2,
+                                     lambda: inp * 2)
+    entry = types.SimpleNamespace(graph=graph, out=out_t, inp=inp)
+    a, b = x + 1.0, x + 100.0
+    held = premises.held_pos(entry, a, b)
+    kept = premises.held_neg(entry, a, b)
+    torch.cuda.synchronize()
+    if not (torch.equal(held, b * 2) and torch.equal(kept, a * 2)):
+        raise AssertionError("phase 43b GT015: the held output did not "
+                             "take the second replay's values, or the "
+                             "clone did not keep the first's")
+    premises_s = time.monotonic() - t1
+    phase_s = time.monotonic() - t0
+    log(f"phase 43b: GT004 counts body {pos.n} / dispatch {neg.n} over "
+        f"{n} replays, .item() raised ({sync_error!r}); GT003 captures "
+        f"{captures['raw']} keyed raw / {captures['rungs']} keyed on rungs "
+        f"for {len(PREMISE_LENGTHS)} lengths; GT015 held output = second "
+        f"replay, clone = first; {premises_s:.2f}s")
+    log(f"phase 43: {phase_s:.1f}s (43a's analyzer ran beside phase 2)")
+    if phase_s > 15.0:
+        raise AssertionError(f"phase 43 took {phase_s:.1f}s, over 15s")
+    row.update(premises_s=premises_s, phase_s=phase_s,
+               gt004_counts=[pos.n, neg.n], gt004_sync_error=sync_error,
+               gt003_captures=captures)
+    results["analysis"] = row
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -10314,6 +10552,8 @@ def main() -> int:
     results["card"] = card
 
     log("== phase 2: build")
+    # phase 43a's analyzer runs beside the build, on the host only
+    analysis = start_analysis()
     t0 = time.monotonic()
     _build.build_all()
     build_s = time.monotonic() - t0
@@ -10501,6 +10741,9 @@ def main() -> int:
     # this slice: training over a device mesh (phase 40)
     by_path.update(phase_train_mesh(torch, llama, moe, train, checkpoint,
                                     mods, args.seed, results))
+    # this slice: the port's static analyzer and the premises of its
+    # CUDA-graph rules on the card (phase 43); it launches no kernel
+    phase_analysis(torch, analysis, results)
     # launches on the main paths: each run counted from 0, llama3-8b's
     # (head_dim 128) and the small preset's (head_dim 64) apart
     counts = {name: sum(run[name] for run in by_path.values())

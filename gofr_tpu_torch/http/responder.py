@@ -28,6 +28,10 @@ def _jsonable(obj: Any) -> Any:
     if isinstance(obj, bytes):
         return obj.decode("utf-8", "replace")
     if hasattr(obj, "tolist"):  # numpy arrays, tensors
+        # graftcheck: ignore[GT001] — a handler's result is serialized on
+        # the loop, as JAX's responder does (``tolist`` of a jax.Array
+        # there): a handler that returns a device tensor pays its sync
+        # here (ROADMAP §3, "The responder serializes on the loop")
         return obj.tolist()
     if hasattr(obj, "__dict__") and not isinstance(obj, type):
         return {k: _jsonable(v) for k, v in vars(obj).items()

@@ -417,9 +417,13 @@ class Watchdog:
     # -- lifecycle ----------------------------------------------------------
     def start(self) -> None:
         """Evaluate every ``interval_s`` on the running loop. An
-        evaluation that raises ends the timer; :meth:`stop` raises it."""
+        evaluation that raises ends the timer, logged under
+        ``slo.watchdog`` and counted as it happens (JAX's spawn);
+        :meth:`stop` raises it."""
         if self._task is None or self._task.done():
-            self._task = asyncio.get_running_loop().create_task(self._run())
+            from gofr_tpu_torch.aio import spawn_logged
+            self._task = spawn_logged(self._run(), self.logger,
+                                      "slo.watchdog", metrics=self.metrics)
 
     async def _run(self) -> None:
         while True:

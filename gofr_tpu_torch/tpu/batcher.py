@@ -215,5 +215,8 @@ class DynamicBatcher:
 
 def _stack(examples):
     """Stack per-request examples into one batch (the cold path's copy)."""
+    # graftcheck: ignore[GT001,GT007] — examples are host payloads decoded
+    # from the wire; stacking is pure-numpy (no device sync), and the warm
+    # path bypasses this copy via executor.dispatch_rows
     return tree_map(lambda *leaves: np.stack([np.asarray(l) for l in leaves]),
                     *examples)

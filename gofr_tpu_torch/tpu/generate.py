@@ -234,6 +234,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from gofr_tpu_torch.aio import spawn_logged
 from gofr_tpu_torch.device import resolve_device
 from gofr_tpu_torch.models import llama
 from gofr_tpu_torch.ops import prng
@@ -441,6 +442,9 @@ def _pack(arrays: Dict[str, np.ndarray]
     it by. Values past int32 wrap (a 32-bit seed); the body reads them
     back modulo 2**32."""
     layout = [(name, arr.shape) for name, arr in arrays.items()]
+    # graftcheck: ignore[GT001,GT007] — the group's host int arrays packed
+    # into the one staged upload the port makes of them (ROADMAP §3,
+    # "Metered uploads"); they are host data, never device values
     flat = np.concatenate([np.asarray(arr, np.int64).ravel()
                            for arr in arrays.values()]).astype(np.int32)
     return flat, layout
@@ -2127,7 +2131,11 @@ class GenerationEngine:
             # bound to the loop that serves: an engine stopped under one
             # event loop may be started again under another
             self._wake = asyncio.Event()
-            self._task = self._loop.create_task(self._run())
+            # JAX's spawn: a failure that escapes the loop is logged under
+            # generate.engine_loop and counted as it happens, not at stop()
+            self._task = spawn_logged(self._run(), self.logger,
+                                      "generate.engine_loop",
+                                      metrics=self.metrics)
 
     async def stop(self) -> None:
         if self._task is not None:
@@ -4311,6 +4319,10 @@ class GenerationEngine:
         mask_up = None if sent_mask == self._sent_mask else mask
         table_up = None
         if self.paged and self._sent_table != self._table_version:
+            # graftcheck: ignore[GT007] — the paged tick uploads its whole
+            # table (ROADMAP §3, "Metered uploads"): this snapshot, taken
+            # in dispatch order and only when the table changed, is the
+            # upload's source on the device thread
             table_up = self._table.copy()
         self._sent_mask, self._sent_table = sent_mask, self._table_version
         self._note_capture(key)
@@ -4453,6 +4465,9 @@ class GenerationEngine:
                 # NaN/inf logits argmax to out-of-range ids: model it on
                 # the host by poisoning the first participant's fetched
                 # tokens, which quarantines exactly that slot
+                # graftcheck: ignore[GT007] — a chaos site, run only with a
+                # nan_logits fault plan installed; host is already a host
+                # array, so the copy is host-side (JAX's _publish makes it)
                 host = host.copy()
                 host[:, entry.payload[0][0]] = -1
             for slot_idx, gen in entry.payload:

@@ -113,9 +113,9 @@ class RetryPolicy:
         """
         if backup is None or self.hedge_after_s is None:
             return await primary(), False
-        # every exit path below awaits or cancels this task (wait_for /
-        # shield, asyncio.wait, survivor await), so its exception cannot
-        # escape silently
+        # graftcheck: ignore[GT002] — every exit path below awaits or
+        # cancels this task (wait_for/shield, asyncio.wait, survivor
+        # await), so its exception cannot escape silently
         first = asyncio.ensure_future(primary())
         try:
             return await asyncio.wait_for(
@@ -125,8 +125,8 @@ class RetryPolicy:
         except Exception:
             first.cancel()
             raise
-        # raced against ``first`` via asyncio.wait below; the loser is
-        # cancelled, the winner awaited
+        # graftcheck: ignore[GT002] — raced against ``first`` via
+        # asyncio.wait below; the loser is cancelled, the winner awaited
         second = asyncio.ensure_future(backup())
         done, _ = await asyncio.wait(
             {first, second}, return_when=asyncio.FIRST_COMPLETED)

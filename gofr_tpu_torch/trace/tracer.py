@@ -276,8 +276,10 @@ class Tracer:
             if batch and (span is None or len(batch) >= 128):
                 try:
                     self._exporter.export(batch)  # type: ignore[union-attr]
-                # a flaky exporter must not kill the span worker; the
-                # failure is kept for shutdown() to raise
+                # graftcheck: ignore[GT010] — a flaky exporter must not
+                # kill the span worker; iterations are paced by the 1s
+                # queue.get timeout above, so this cannot spin hot (the
+                # failure is kept for shutdown() to raise)
                 except Exception as exc:  # noqa: BLE001
                     if self.export_error is None:
                         self.export_error = exc

@@ -189,6 +189,34 @@ def test_guard_scans_the_admission_and_grammar_modules():
         assert not set(_imported_roots(ROOT / name)) & set(FORBIDDEN), name
 
 
+ANALYSIS_FORBIDDEN = FORBIDDEN + ("torch",)
+
+
+def test_analyzer_imports_no_jax_no_jax_package_and_no_torch():
+    """The port's graftcheck is host code: its files import nothing of
+    JAX, of the JAX package or of torch, and a process that runs it
+    (every rule, the CLI, the SARIF writer) has loaded none of them."""
+    import subprocess
+    import sys
+
+    files = sorted((ROOT / "gofr_tpu_torch" / "analysis").rglob("*.py"))
+    assert len(files) >= 26
+    offenders = [(str(path.relative_to(ROOT)), root)
+                 for path in files for root in _imported_roots(path)
+                 if root in ANALYSIS_FORBIDDEN]
+    assert offenders == []
+    probe = (
+        "import sys\n"
+        "from gofr_tpu_torch.analysis import __main__ as cli, sarif\n"
+        "assert cli.main(['--list-rules']) == 0\n"
+        "roots = {name.split('.')[0] for name in sys.modules}\n"
+        f"print(sorted(roots & set({ANALYSIS_FORBIDDEN!r})))\n")
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                          capture_output=True, text=True, check=False)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
+
+
 @pytest.fixture()
 def no_cuda():
     if torch.cuda.is_available():
